@@ -1,0 +1,35 @@
+"""Hand-written Hopper kernels and their wrappers.
+
+Each wrapper carries an integer ``launches`` attribute that it increments
+where it launches its kernel (never on the plain CPU path), so a run can
+show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from . import decode_attention as _decode_attention
+from . import decode_elementwise as _decode_elementwise
+from . import decode_head as _decode_head
+from . import flash_attention as _flash_attention
+from . import int8_gemv as _int8_gemv
+
+# kernel name -> wrapper
+WRAPPERS = {
+    "flash_attention_fwd": _flash_attention.flash_attention,
+    "int8_gemv": _int8_gemv.int8_gemv,
+    "decode_attention": _decode_attention.decode_attention,
+    "rms_norm": _decode_elementwise.rms_norm,
+    "rope_kv_write": _decode_elementwise.rope_kv_write,
+    "head_argmax": _decode_head.head_argmax_fused,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,91 @@
+"""Fused int8 LM head + argmax for greedy decode (port of
+paligemma_tpu/kernels/decode_head.py); the kernel is ``csrc/decode_head.cu``.
+
+``argmax(round_to_act_dtype(y @ w8 * s))`` over the vocab without writing
+the logits: ties go to the first index, padded columns (``>= n_valid``)
+never win, and the winning logit comes back beside the id. The kernel
+computes each logit with the same GEMV tile and K split as
+kernels/int8_gemv.py, so its token equals ``argmax`` of the logits path's
+int8 head bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import _build
+from .int8_gemv import TILE_N, gemv_k_chunk
+
+
+def repack_head(head_q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{"w8": (K, V), "s": (V,)} -> the kernel's layout: the vocab padded
+    with zero columns to a multiple of the 128-column tile ("w8_blk",
+    "s_blk"). The original leaves stay for the logits path and as the true
+    vocab width (``s.shape[0]``); with no padding they share storage."""
+    w8, s = head_q["w8"], head_q["s"]
+    v = w8.shape[1]
+    v_pad = -(-v // TILE_N) * TILE_N
+    w8_blk = w8.contiguous()
+    s_blk = s.float().contiguous()
+    if v_pad != v:
+        w8_blk = torch.nn.functional.pad(w8_blk, (0, v_pad - v))
+        s_blk = torch.nn.functional.pad(s_blk, (0, v_pad - v))
+    return {"w8_blk": w8_blk, "s_blk": s_blk, "w8": w8, "s": s}
+
+
+def reference_head_argmax(
+    y: torch.Tensor, head_q: Dict[str, torch.Tensor], return_max: bool = False
+):
+    """Plain greedy head over the unpadded {"w8", "s"}: logits rounded to the
+    activation dtype, then the first maximal index (models/gemma.lm_head +
+    ops/sampling.greedy), and with ``return_max`` the winning logit."""
+    y2 = y.reshape(-1, y.shape[-1])
+    logits = ((y2.float() @ head_q["w8"].float()) * head_q["s"].float()).to(y.dtype)
+    mx, ids = logits.float().max(dim=-1)  # first maximal index
+    ids = ids.to(torch.int32)
+    return (ids, mx) if return_max else ids
+
+
+def head_argmax_fused(
+    y: torch.Tensor,  # (B, 1, K) or (B, K) final-norm output
+    head_blk: Dict[str, torch.Tensor],  # repack_head() output
+    return_max: bool = False,
+):
+    """Greedy token ids (B,) int32; with ``return_max`` also the winning
+    logits (B,) fp32."""
+    if not y.is_cuda:
+        return reference_head_argmax(y, head_blk, return_max)
+    k = y.shape[-1]
+    y2 = y.reshape(-1, k)
+    b = y2.shape[0]
+    w8, s = head_blk["w8_blk"], head_blk["s_blk"]
+    n = w8.shape[1]
+    n_valid = head_blk["s"].shape[0]
+    dev = y2.device
+    if y2.dtype != torch.bfloat16 or not y2.is_contiguous():
+        raise ValueError("head_argmax_fused: y must be contiguous bf16")
+    if (w8.dtype != torch.int8 or w8.shape[0] != k or not w8.is_contiguous()
+            or n % TILE_N or w8.device != dev or w8.data_ptr() % 4):
+        raise ValueError("head_argmax_fused: w8_blk must be contiguous int8 (K, V_pad) from repack_head")
+    if s.dtype != torch.float32 or s.shape != (n,) or not s.is_contiguous():
+        raise ValueError("head_argmax_fused: s_blk must be contiguous fp32 (V_pad,)")
+    nblk = n // TILE_N
+    part_max = torch.empty((nblk, b), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((nblk, b), dtype=torch.int32, device=dev)
+    ids = torch.empty((b,), dtype=torch.int32, device=dev)
+    mx = torch.empty((b,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    err = lib.pg_head_argmax(
+        y2.data_ptr(), w8.data_ptr(), s.data_ptr(), part_max.data_ptr(),
+        part_idx.data_ptr(), ids.data_ptr(), mx.data_ptr(), b, k, n, n_valid,
+        # the K split of the logits path's int8_gemv over the unpadded head
+        gemv_k_chunk(k, head_blk["w8"].shape[1]), _build.stream_ptr(dev),
+    )
+    _build.check(err, "head_argmax")
+    head_argmax_fused.launches += 1
+    return (ids, mx) if return_max else ids
+
+
+head_argmax_fused.launches = 0

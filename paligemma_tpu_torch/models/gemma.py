@@ -1,0 +1,222 @@
+"""Gemma decoder with a preallocated KV cache (port of
+paligemma_tpu/models/gemma.py).
+
+Token embeddings scaled by sqrt(hidden) (the normalizer rounded to the
+activation dtype, as the reference does), pre-norm blocks of GQA attention
+with half-split RoPE and a GeGLU MLP, final RMSNorm, tied bias-free head.
+
+The KV cache is a dict of (L, B, max_seq, n_kv, head_dim) tensors. Where the
+reference donates the cache to a jitted step, this port writes the new rows
+into the same tensors in place and returns the same dict.
+
+Two decode paths, as in the reference:
+* plain: a loop over layers of torch ops (``_decoder_block``);
+* ``fused_layer``: kernels/decode_layer.layers_decode_fused (all layers as
+  hand-written kernels), then the final norm kernel and either the int8
+  GEMV head (logits) or kernels/decode_head (greedy ids).
+Prefill attention takes the flash kernel when ``flash_lens`` is given.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..core.config import GemmaConfig
+from ..kernels import decode_layer
+from ..kernels.decode_elementwise import rms_norm as rms_norm_kernel
+from ..kernels.decode_head import head_argmax_fused
+from ..kernels.flash_attention import flash_attention
+from ..kernels.int8_gemv import int8_gemv
+from ..kernels.quant import matmul_any
+from ..ops import attention
+from ..ops.activations import gelu_tanh
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rope, rope_cos_sin
+from .siglip import layer_params
+
+Params = Dict[str, Any]
+KVCache = Dict[str, torch.Tensor]  # {"k": (L,B,S,n_kv,d), "v": (L,B,S,n_kv,d)}
+
+
+def init_kv_cache(
+    cfg: GemmaConfig, batch: int, max_seq: int, dtype: torch.dtype,
+    device: torch.device,
+) -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, max_seq, cfg.num_key_value_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params):
+    """q/k/v projections, fused ``qkv`` serving layout or separate weights."""
+    b, s, _ = y.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if "qkv" in lp["attn"]:
+        qkv = matmul_any(y, lp["attn"]["qkv"])
+        nq = nh * hd
+        q, k, v = qkv[..., :nq], qkv[..., nq : nq + nkv * hd], qkv[..., nq + nkv * hd :]
+    else:
+        q = matmul_any(y, lp["attn"]["q"])
+        k = matmul_any(y, lp["attn"]["k"])
+        v = matmul_any(y, lp["attn"]["v"])
+    return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
+            v.reshape(b, s, nkv, hd))
+
+
+def _mlp(y: torch.Tensor, lp: Params) -> torch.Tensor:
+    """GeGLU MLP, fused ``gateup`` or separate weights."""
+    if "gateup" in lp["mlp"]:
+        gu = matmul_any(y, lp["mlp"]["gateup"])
+        inter = gu.shape[-1] // 2
+        gate, up = gelu_tanh(gu[..., :inter]), gu[..., inter:]
+    else:
+        gate = gelu_tanh(matmul_any(y, lp["mlp"]["gate"]))
+        up = matmul_any(y, lp["mlp"]["up"])
+    return matmul_any(gate * up, lp["mlp"]["down"])
+
+
+def _decoder_block(
+    cfg: GemmaConfig,
+    x: torch.Tensor,  # (B, S, H)
+    lp: Params,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    kv_cache: KVCache,
+    layer_idx: int,
+    cache_pos: int,
+    mask: Optional[torch.Tensor],  # (B, 1, S, W) additive (plain attention)
+    flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_bucket: Optional[int] = None,
+) -> torch.Tensor:
+    """One pre-norm decoder block; writes its K/V rows into the cache."""
+    b, s, _ = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+
+    residual = x
+    y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    q, k, v = _attn_proj(cfg, y, lp)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    k_all, v_all = kv_cache["k"], kv_cache["v"]
+    # in-place cache write (the reference donates the cache instead)
+    k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
+    v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
+
+    if flash_lens is not None:
+        # prefill: the fresh k/v are exactly cache slots [0, S)
+        prefix_lens, seq_lens = flash_lens
+        a = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            prefix_lens, seq_lens, scale=hd**-0.5)
+    else:
+        window = min(kv_bucket or k_all.shape[2], k_all.shape[2])
+        k_att = k_all[layer_idx, :, :window].to(q.dtype)
+        v_att = v_all[layer_idx, :, :window].to(q.dtype)
+        a = attention.gqa(q, k_att, v_att, mask, scale=hd**-0.5)
+    x = residual + matmul_any(a.reshape(b, s, nh * hd), lp["attn"]["o"])
+
+    residual = x
+    y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+    return residual + _mlp(y, lp)
+
+
+def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied bias-free LM head; the int8 copy ("head_q") when present."""
+    if "head_q" in params:
+        return matmul_any(x, params["head_q"])
+    return x @ params["embed"].T.to(x.dtype)
+
+
+def _fused_decode(
+    params: Params, cfg: GemmaConfig, x: torch.Tensor, cos, sin,
+    kv_cache: KVCache, cache_pos: int, kv_valid: torch.Tensor,
+    kv_bucket: Optional[int], greedy_head: bool,
+):
+    """Single-token decode through the hand-written kernels."""
+    b = x.shape[0]
+    if not decode_layer.supported(cfg, params["layers"], b):
+        raise ValueError(
+            "fused_layer: the decode kernels need the int8 serving tree of "
+            "runtime.quantize and a config/batch that decode_layer.supported "
+            "accepts; pass fused_layer=False for the plain path")
+    n_layers, _, max_seq = kv_cache["k"].shape[:3]
+    hd = cfg.head_dim
+    k_flat = kv_cache["k"].view(n_layers, b, max_seq, hd)  # n_kv == 1
+    v_flat = kv_cache["v"].view(n_layers, b, max_seq, hd)
+    window = min(kv_bucket or max_seq, max_seq)
+    pos = torch.full((b,), cache_pos, dtype=torch.int32, device=x.device)
+    valid = kv_valid[:, :window].contiguous()  # one copy for all layers
+    # the layer chain writes the fresh K/V rows of every layer into the
+    # cache in place (kernels/decode_layer), so k_new/v_new need no write here
+    h, _, _ = decode_layer.layers_decode_fused(
+        x, params["layers"], k_flat, v_flat, pos, valid,
+        cos[:, 0], sin[:, 0], window, cfg.num_attention_heads, hd,
+        cfg.rms_norm_eps,
+    )
+    h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
+    head_q = params.get("head_q", {})
+    if greedy_head and "w8_blk" in head_q:
+        # the (B, vocab) logits row is never written
+        return head_argmax_fused(h, head_q), kv_cache
+    if "w8" in head_q:
+        logits = int8_gemv(h, head_q["w8"], head_q["s"])
+    else:
+        logits = lm_head(params, h)
+    logits = logits.float()[:, None, :]
+    if greedy_head:
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
+    return logits, kv_cache
+
+
+def forward(
+    params: Params,
+    cfg: GemmaConfig,
+    input_embeds: torch.Tensor,  # (B, S, H), image embeds already merged
+    position_ids: torch.Tensor,  # (B, S) int
+    kv_cache: KVCache,
+    cache_pos: int,  # write offset into the cache
+    kv_valid: torch.Tensor,  # (B, max_seq) bool: attendable slots AFTER write
+    flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    logits_idx: Optional[torch.Tensor] = None,  # (B,) positions to project
+    kv_bucket: Optional[int] = None,  # attend-window (decode)
+    fused_layer: bool = False,  # decode (S == 1) through the kernels, or raise
+    greedy_head: bool = False,  # return argmax token ids, not logits
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
+    int32 ids with ``greedy_head``, the cache updated in place)."""
+    dtype = input_embeds.dtype
+    normalizer = torch.tensor(cfg.hidden_size**0.5, dtype=dtype, device=input_embeds.device)
+    x = input_embeds * normalizer
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
+    b, s = input_embeds.shape[:2]
+    if kv_bucket is not None:
+        kv_bucket = min(kv_bucket, kv_valid.shape[-1])
+
+    if fused_layer and s == 1:
+        return _fused_decode(params, cfg, x, cos, sin, kv_cache, cache_pos,
+                             kv_valid, kv_bucket, greedy_head)
+
+    mask = None
+    if flash_lens is None:
+        kv_vis = kv_valid[..., :kv_bucket] if kv_bucket is not None else kv_valid
+        kv_vis = kv_vis[:, None, :].expand(b, s, kv_vis.shape[-1])
+        mask = attention.make_additive_mask(kv_vis)
+
+    n_layers = kv_cache["k"].shape[0]
+    for i in range(n_layers):
+        x = _decoder_block(
+            cfg, x, layer_params(params["layers"], i), cos, sin, kv_cache, i,
+            cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket,
+        )
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if logits_idx is not None:
+        # project only the requested positions (each row's last valid token)
+        x = x[torch.arange(b, device=x.device), logits_idx.long()][:, None]
+    logits = lm_head(params, x).float()
+    if greedy_head:
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
+    return logits, kv_cache

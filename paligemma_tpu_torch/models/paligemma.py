@@ -1,0 +1,140 @@
+"""PaliGemma composition (port of paligemma_tpu/models/paligemma.py).
+
+SigLIP tower -> bias-free linear projector -> projected image features,
+scaled by projection_dim**-0.5, placed at the <image> token slots of the
+embedded prompt -> Gemma decoder. The vision tower runs once, at prefill.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..core.config import PaliGemmaConfig
+from . import gemma, siglip
+
+Params = Dict[str, Any]
+
+
+def project_image_features(params: Params, image_features: torch.Tensor) -> torch.Tensor:
+    """Linear projection to the text embedding space (bias when present)."""
+    out = image_features @ params["projector"]["kernel"]
+    if "bias" in params["projector"]:
+        out = out + params["projector"]["bias"]
+    return out
+
+
+def merge_embeddings(
+    cfg: PaliGemmaConfig,
+    input_ids: torch.Tensor,  # (B, S)
+    text_embeds: torch.Tensor,  # (B, S, H)
+    image_embeds: torch.Tensor,  # (B, N_img, H)
+) -> torch.Tensor:
+    """Text slots keep their embedding; the n-th <image> slot of a row gets
+    the row's n-th image feature times projection_dim**-0.5; pads are 0."""
+    is_pad = input_ids == cfg.pad_token_id
+    is_image = input_ids == cfg.image_token_index
+    scaled_img = (image_embeds * cfg.projection_dim**-0.5).to(text_embeds.dtype)
+    img_slot = torch.cumsum(is_image.to(torch.int32), dim=-1) - 1
+    img_slot = img_slot.clamp(0, scaled_img.shape[1] - 1).long()
+    idx = img_slot[:, :, None].expand(-1, -1, scaled_img.shape[-1])
+    gathered = torch.gather(scaled_img, 1, idx)
+    merged = torch.where(is_image[:, :, None], gathered, text_embeds)
+    return torch.where(is_pad[:, :, None], torch.zeros_like(merged), merged)
+
+
+def prefill_position_ids(attention_mask: torch.Tensor) -> torch.Tensor:
+    """Positions = cumsum over the validity mask, pads forced to 1 (1-indexed)."""
+    pos = torch.cumsum(attention_mask.to(torch.int32), dim=-1)
+    return torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+
+
+def _vision_attn_mode(cfg: PaliGemmaConfig, use_flash: bool) -> str:
+    """Vision attention path, as the reference picks it: the plain
+    materialized attention unless flash is on and either head_dim fills
+    128 lanes or the tower has >= 2048 patches (896 px)."""
+    if not use_flash:
+        return "xla"
+    if cfg.vision_config.head_dim % 128 == 0 or cfg.vision_config.num_patches >= 2048:
+        return "flash"
+    return "xla"
+
+
+def prefill(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    pixel_values: torch.Tensor,  # (B, C, H, W)
+    input_ids: torch.Tensor,  # (B, S)
+    attention_mask: torch.Tensor,  # (B, S) 1 = real token
+    kv_cache: gemma.KVCache,
+    use_flash: bool = False,
+    last_only: bool = False,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Vision encode + merge + decoder prefill. Returns (logits, cache);
+    ``last_only`` projects each row's last valid token only ((B, 1, vocab))."""
+    dtype = params["lm"]["embed"].dtype
+    image_features = siglip.encode(
+        params["vision"], cfg.vision_config, pixel_values.to(dtype),
+        attn=_vision_attn_mode(cfg, use_flash),
+    )
+    image_embeds = project_image_features(params, image_features)
+    text_embeds = params["lm"]["embed"][input_ids.long()]
+    merged = merge_embeddings(cfg, input_ids, text_embeds, image_embeds)
+
+    position_ids = prefill_position_ids(attention_mask)
+    max_seq = kv_cache["k"].shape[2]
+    b, s = input_ids.shape
+    n_valid = attention_mask.sum(dim=-1).to(torch.int32)
+    kv_valid = torch.zeros((b, max_seq), dtype=torch.bool, device=input_ids.device)
+    kv_valid[:, :s] = attention_mask.bool()
+    flash_lens = (n_valid, n_valid) if use_flash else None
+    logits_idx = (n_valid - 1).clamp(min=0) if last_only else None
+    return gemma.forward(
+        params["lm"], cfg.text_config, merged, position_ids, kv_cache,
+        cache_pos=0, kv_valid=kv_valid, flash_lens=flash_lens,
+        logits_idx=logits_idx,
+    )
+
+
+def decode_step(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    token: torch.Tensor,  # (B,) last sampled token
+    kv_cache: gemma.KVCache,
+    cache_pos: int,  # index this token is written at
+    kv_valid: torch.Tensor,  # (B, max_seq) bool incl. this token's slot
+    position_ids: torch.Tensor,  # (B,) RoPE position of this token
+    kv_bucket: Optional[int] = None,
+    fused_layer: bool = False,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Single-token decode. Returns ((B, vocab) fp32 logits, cache)."""
+    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    logits, kv_cache = gemma.forward(
+        params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
+        cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
+        fused_layer=fused_layer,
+    )
+    return logits[:, 0, :], kv_cache
+
+
+def decode_step_greedy(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    token: torch.Tensor,
+    kv_cache: gemma.KVCache,
+    cache_pos: int,
+    kv_valid: torch.Tensor,
+    position_ids: torch.Tensor,
+    kv_bucket: Optional[int] = None,
+    fused_layer: bool = True,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Greedy single-token decode: (next token (B,) int32, cache). With the
+    kernels on, the int8 head streams through the argmax kernel and the
+    logits row is never written."""
+    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    return gemma.forward(
+        params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
+        cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
+        fused_layer=fused_layer, greedy_head=True,
+    )

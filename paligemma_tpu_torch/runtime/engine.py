@@ -1,0 +1,258 @@
+"""Inference engine (port of paligemma_tpu/runtime/engine.py, without the
+mesh, speculative decoding and tensor-parallel paths).
+
+* ``prefill``: vision encode + merge + decoder over the prompt, writing the
+  preallocated KV cache at [0, S).
+* ``decode_step``: one token; the cache and the validity bitmap of the
+  state are updated in place (the reference donates them to the jit).
+* ``decode_chunk``: ``n_steps`` steps with token selection and per-row EOS
+  masking on the device; the greedy fast path carries the (B,) token
+  between steps instead of (B, vocab) logits.
+* ``generate``: the reference-compatible loop, at ``sync_every=1`` (host
+  EOS check per token) or ``> 1`` (one check per chunk).
+
+``use_flash`` and ``fused_layer`` default to True on a CUDA device: prefill
+attention then runs the flash kernel and decode the hand-written decode
+kernels. False keeps the plain torch path. A decode tree or config the
+kernels cannot take raises when ``fused_layer`` is on; it never falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import PaliGemmaConfig
+from ..kernels import decode_head as _dh
+from ..kernels import decode_layer as _dl
+from ..models import gemma, paligemma
+from ..ops import sampling
+
+
+class KVState(NamedTuple):
+    """Decode state; ``cache`` and ``valid`` are updated in place."""
+
+    cache: Dict[str, torch.Tensor]
+    valid: torch.Tensor  # (B, max_seq) bool: attendable cache slots
+    write_pos: int  # next cache write index (lockstep rows)
+    pos_ids: torch.Tensor  # (B,) int32 RoPE position of the next token
+
+
+class PaliGemmaEngine:
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        config: PaliGemmaConfig,
+        max_seq_len: int = 1024,
+        eos_token_id: int = 1,
+        use_flash: Optional[bool] = None,
+        decode_params: Optional[Dict[str, Any]] = None,
+        fused_layer: Optional[bool] = None,
+    ):
+        """``decode_params``: optional second weight set used only for
+        decode (e.g. the int8 tree of runtime.quantize) while ``params``
+        serves the prefill. The device is the one the params live on, and
+        the KV cache takes the embedding table's dtype."""
+        self.config = config
+        self.max_seq_len = max_seq_len
+        self.eos_token_id = eos_token_id
+        self.device = params["lm"]["embed"].device
+        self.cache_dtype = params["lm"]["embed"].dtype
+        on_cuda = self.device.type == "cuda"
+        self.use_flash = on_cuda if use_flash is None else use_flash
+        self.fused_layer = on_cuda if fused_layer is None else fused_layer
+        self.params = params
+        self.decode_params = decode_params if decode_params is not None else params
+
+        layers = self.decode_params["lm"]["layers"]
+        # decided here, once; batch 1 here, gemma.forward checks the real batch
+        if self.fused_layer and not _dl.supported(config.text_config, layers, batch=1):
+            raise ValueError(
+                "fused_layer (the default on a CUDA device) needs one KV head and "
+                "the int8 decode tree of runtime.quantize.quantize_lm_for_serving; "
+                "pass decode_params=that tree, or fused_layer=False for the plain path")
+        if self.fused_layer:
+            dp = dict(self.decode_params)
+            dp["lm"] = dict(dp["lm"])
+            dp["lm"]["layers"] = _dl.repack_layers(layers)
+            if "head_q" in dp["lm"]:
+                dp["lm"]["head_q"] = _dh.repack_head(dp["lm"]["head_q"])
+            self.decode_params = dp
+        self._greedy_head_fused = (
+            self.fused_layer and "w8_blk" in self.decode_params["lm"].get("head_q", {})
+        )
+
+    # ------------------------------------------------------------------
+    def init_state_cache(self, batch: int) -> Dict[str, torch.Tensor]:
+        return gemma.init_kv_cache(
+            self.config.text_config, batch, self.max_seq_len, self.cache_dtype,
+            self.device,
+        )
+
+    def _as_tensor(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               device=self.device, dtype=dtype)
+
+    def prefill(self, pixel_values, input_ids, attention_mask):
+        """Prefill the cache; returns ((B, vocab) fp32 logits of each row's
+        last valid token, KVState)."""
+        pixel_values = self._as_tensor(pixel_values)
+        input_ids = self._as_tensor(input_ids, torch.int64)
+        attention_mask = self._as_tensor(attention_mask, torch.int32)
+        b, s = input_ids.shape
+        cache = self.init_state_cache(b)
+        logits, cache = paligemma.prefill(
+            self.params, self.config, pixel_values, input_ids, attention_mask,
+            cache, use_flash=self.use_flash, last_only=True,
+        )
+        valid = torch.zeros((b, self.max_seq_len), dtype=torch.bool, device=self.device)
+        valid[:, :s] = attention_mask.bool()
+        n_valid = attention_mask.sum(dim=-1).to(torch.int32)
+        state = KVState(cache=cache, valid=valid, write_pos=s,
+                        pos_ids=n_valid + 1)  # positions are 1-indexed
+        return logits[:, 0], state
+
+    def decode_step(self, token: torch.Tensor, state: KVState):
+        """One decode step from ``token`` (B,); returns ((B, vocab) fp32
+        logits, KVState). ``state``'s cache and bitmap are updated in place."""
+        state.valid[:, state.write_pos] = True
+        logits, cache = paligemma.decode_step(
+            self.decode_params, self.config, self._as_tensor(token, torch.int64),
+            state.cache, cache_pos=state.write_pos, kv_valid=state.valid,
+            position_ids=state.pos_ids, fused_layer=self.fused_layer,
+        )
+        return logits, KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
+
+    def kv_bucket_for(self, highest_write_pos: int) -> Optional[int]:
+        """Smallest power-of-two cache window (>= 512) covering the given
+        write position; None when only the full cache fits."""
+        b = 512
+        while b < highest_write_pos + 1:
+            b *= 2
+        return b if b < self.max_seq_len else None
+
+    def decode_chunk(
+        self,
+        logits: torch.Tensor,  # (B, vocab) logits, or (B,) carried token
+        state: KVState,
+        n_steps: int,
+        temperature: float = 0.8,
+        top_p: float = 0.9,
+        do_sample: bool = False,
+        generator: Optional[torch.Generator] = None,
+        eos_token_id: Optional[int] = None,
+        done: Optional[torch.Tensor] = None,
+        kv_bucket: Optional[int] = None,
+    ):
+        """``n_steps`` decode steps with no host synchronization. Returns
+        ``(logits or token, state, tokens (B, n_steps), done)``; post-EOS
+        slots hold EOS. ``kv_bucket`` must cover write_pos + n_steps
+        (:meth:`kv_bucket_for`); None attends the full cache."""
+        eos = self.eos_token_id if eos_token_id is None else eos_token_id
+        b = logits.shape[0]
+        if done is None:
+            done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        tokens = []
+        if not do_sample and self._greedy_head_fused:
+            # greedy fast path: the head kernel returns the token id, so the
+            # (B,) token is carried instead of logits
+            token = sampling.greedy(logits) if logits.dim() == 2 else logits
+            for _ in range(n_steps):
+                token = torch.where(done, torch.full_like(token, eos), token)
+                done = done | (token == eos)
+                tokens.append(token)
+                state.valid[:, state.write_pos] = True
+                token, cache = paligemma.decode_step_greedy(
+                    self.decode_params, self.config, token, state.cache,
+                    cache_pos=state.write_pos, kv_valid=state.valid,
+                    position_ids=state.pos_ids, kv_bucket=kv_bucket,
+                )
+                state = KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
+            return token, state, torch.stack(tokens, dim=1), done
+
+        if logits.dim() == 1:
+            raise ValueError("decode_chunk: the sampled path needs (B, vocab) logits")
+        for _ in range(n_steps):
+            token = sampling.sample(generator, logits, temperature, top_p, do_sample)
+            token = torch.where(done, torch.full_like(token, eos), token)
+            done = done | (token == eos)
+            tokens.append(token)
+            state.valid[:, state.write_pos] = True
+            logits, cache = paligemma.decode_step(
+                self.decode_params, self.config, token, state.cache,
+                cache_pos=state.write_pos, kv_valid=state.valid,
+                position_ids=state.pos_ids, kv_bucket=kv_bucket,
+                fused_layer=self.fused_layer,
+            )
+            state = KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
+        return logits, state, torch.stack(tokens, dim=1), done
+
+    # ------------------------------------------------------------------
+    def generate(
+        self,
+        pixel_values,
+        input_ids,
+        attention_mask,
+        max_new_tokens: int = 100,
+        temperature: float = 0.8,
+        top_p: float = 0.9,
+        do_sample: bool = False,
+        generator: Optional[torch.Generator] = None,
+        eos_token_id: Optional[int] = None,
+        on_token=None,
+        sync_every: int = 1,
+    ) -> np.ndarray:
+        """Reference-compatible generation loop. Returns (B, <=max_new_tokens)
+        int32; rows stop after EOS (post-EOS slots hold EOS). ``on_token(step,
+        tokens)`` is called per step. ``sync_every > 1`` runs that many steps
+        per :meth:`decode_chunk` and checks EOS once per chunk, with the same
+        tokens."""
+        eos = self.eos_token_id if eos_token_id is None else eos_token_id
+        n_prompt = input_ids.shape[1]
+        if n_prompt + max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({n_prompt}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_seq_len ({self.max_seq_len}); raise max_seq_len or lower "
+                "max_new_tokens"
+            )
+        if do_sample and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        logits, state = self.prefill(pixel_values, input_ids, attention_mask)
+        b = input_ids.shape[0]
+
+        if sync_every > 1:
+            done = torch.zeros((b,), dtype=torch.bool, device=self.device)
+            chunks = []
+            emitted = 0
+            while emitted < max_new_tokens:
+                n = min(sync_every, max_new_tokens - emitted)
+                logits, state, tokens, done = self.decode_chunk(
+                    logits, state, n, temperature, top_p, do_sample,
+                    generator=generator, eos_token_id=eos, done=done,
+                    kv_bucket=self.kv_bucket_for(n_prompt + emitted + n),
+                )
+                tokens_np = tokens.cpu().numpy().astype(np.int32)
+                chunks.append(tokens_np)
+                if on_token is not None:
+                    for j in range(tokens_np.shape[1]):
+                        on_token(emitted + j, tokens_np[:, j])
+                emitted += n
+                if bool(done.all()):
+                    break
+            return np.concatenate(chunks, axis=1)
+
+        done = np.zeros((b,), bool)
+        out = []
+        for step in range(max_new_tokens):
+            token = sampling.sample(generator, logits, temperature, top_p, do_sample)
+            token_np = np.where(done, eos, token.cpu().numpy()).astype(np.int32)
+            out.append(token_np)
+            if on_token is not None:
+                on_token(step, token_np)
+            done |= token_np == eos
+            if done.all():
+                break
+            logits, state = self.decode_step(torch.from_numpy(token_np), state)
+        return np.stack(out, axis=1)

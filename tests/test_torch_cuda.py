@@ -1,0 +1,79 @@
+"""The hand-written Hopper kernels against their plain PyTorch versions, on
+a CUDA card (marked ``cuda``; skipped without one). Imports no jax, so it
+runs where the card is:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from paligemma_tpu_torch.kernels import decode_attention as t_dattn
+from paligemma_tpu_torch.kernels import decode_elementwise as t_elem
+from paligemma_tpu_torch.kernels import decode_head as t_head
+from paligemma_tpu_torch.kernels import flash_attention as t_flash
+from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """Every hand-written kernel against its plain version at small shapes,
+    in bf16 on the card (tolerances: bf16 output rounding, fp32 sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvcc and triton on its host)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(2, 40, 4, 72), rnd(2, 40, 2, 72), rnd(2, 40, 2, 72)
+    pfx = torch.tensor([20, 38], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([30, 40], dtype=torch.int32, device=dev)
+    got = t_flash.flash_attention(q, k, v, pfx, kvl)
+    want = t_flash.reference_attention(q, k, v, pfx, kvl)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+    x = rnd(3, 256)
+    w8 = torch.randint(-127, 128, (256, 384), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(384, generator=g, device=dev) * 1e-2
+    res = rnd(3, 384)
+    for kw in ({}, {"residual": res}, {"geglu": True}):
+        torch.testing.assert_close(t_gemv.int8_gemv(x, w8, s, **kw).float(),
+                                   t_gemv.int8_gemv_reference(x, w8, s, **kw).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+    qd, kc, vc = rnd(2, 4, 128), rnd(2, 600, 128), rnd(2, 600, 128)
+    valid = torch.rand(2, 512, generator=g, device=dev) < 0.5
+    torch.testing.assert_close(t_dattn.decode_attention(qd, kc, vc, valid, 128**-0.5).float(),
+                               t_dattn.decode_attention_reference(qd, kc, vc, valid, 128**-0.5).float(),
+                               rtol=2e-2, atol=2e-2)
+
+    qkv = rnd(2, 6 * 128)
+    ang = torch.rand(2, 128, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    pos = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    bufs = [torch.zeros(2, 16, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
+    outs = [torch.empty(2, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
+    qk, _, _ = t_elem.rope_kv_write(qkv, cos, sin, pos, 4, bufs[0], bufs[1], outs[0], outs[1])
+    qp, _, _ = t_elem.rope_kv_write_reference(qkv, cos, sin, pos, 4, bufs[2], bufs[3],
+                                              outs[2], outs[3])
+    torch.testing.assert_close(qk.float(), qp.float(), rtol=2e-2, atol=2e-2)
+    for got, want in zip(bufs[:2] + outs[:2], bufs[2:] + outs[2:]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+    wn = rnd(256)
+    torch.testing.assert_close(t_elem.rms_norm(x, wn).float(),
+                               t_elem.rms_norm_reference(x, wn).float(), rtol=2e-2, atol=2e-2)
+
+    for n in (384, 300):  # 300: vocab padded to 384, padding never wins
+        w8n, sn = w8[:, :n].contiguous(), s[:n].contiguous()
+        ids, mx = t_head.head_argmax_fused(x, t_head.repack_head({"w8": w8n, "s": sn}),
+                                           return_max=True)
+        logits = t_gemv.int8_gemv(x, w8n, sn).float()
+        assert torch.equal(ids.long(), logits.argmax(-1))
+        assert torch.equal(mx, logits.max(-1).values)

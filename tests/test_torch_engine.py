@@ -1,0 +1,186 @@
+"""The port's PaliGemmaEngine end to end against the JAX engine (CPU, fp32,
+seeded numpy inputs): the same greedy tokens at sync_every 1 and 4, on the
+plain path and on the int8 kernel path (whose wrappers run their plain
+versions on the CPU)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paligemma_tpu.core.config import (GemmaConfig, PaliGemmaConfig,
+                                       tiny_test_config)
+from paligemma_tpu.models import paligemma as j_pg
+from paligemma_tpu.runtime.engine import PaliGemmaEngine as JaxEngine
+from paligemma_tpu.runtime.quantize import quantize_lm_for_serving as j_qserve
+from paligemma_tpu_torch.convert import params_from_numpy
+from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _mqa_config():
+    """tiny vision tower + the MQA / head_dim-128 decoder the fused decode
+    path supports (one KV head, head_dim/2 a power of two)."""
+    tiny = tiny_test_config()
+    return PaliGemmaConfig(
+        vision_config=tiny.vision_config,
+        text_config=GemmaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=1, head_dim=128),
+        projection_dim=128, hidden_size=128, image_token_index=510, vocab_size=512,
+    )
+
+
+def _inputs(cfg, b=2, n_txt=5, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([np.full((b, cfg.vision_config.num_patches), cfg.image_token_index),
+                          rng.integers(3, 100, (b, n_txt))], 1).astype(np.int32)
+    pixels = rng.normal(size=(b, 3, 28, 28)).astype(np.float32)
+    return pixels, ids, np.ones_like(ids)
+
+
+def _to_port(tree):
+    return params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
+
+
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_generate_plain_matches_jax_engine(sync_every):
+    cfg = tiny_test_config()
+    jp = j_pg.init_params(jax.random.PRNGKey(0), cfg)
+    pixels, ids, mask = _inputs(cfg)
+    want = JaxEngine(jp, cfg, max_seq_len=48, use_flash=False).generate(
+        jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask), max_new_tokens=10,
+        eos_token_id=-1)
+    eng = PaliGemmaEngine(_to_port(jp), cfg, max_seq_len=48)
+    assert not eng.use_flash and not eng.fused_layer  # CPU defaults
+    got = eng.generate(pixels, ids, mask, max_new_tokens=10, eos_token_id=-1,
+                       sync_every=sync_every)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_generate_int8_kernel_path_matches_jax_engine(sync_every):
+    """decode on the int8 tree through layers_decode_fused + the GEMV head
+    (sync_every=1) or the argmax head (sync_every=4), against the JAX engine's
+    XLA int8 decode on the same int8 tree."""
+    cfg = _mqa_config()
+    jp = j_pg.init_params(jax.random.PRNGKey(1), cfg)
+    jq = j_qserve(jp)
+    pixels, ids, mask = _inputs(cfg, seed=1)
+    want = JaxEngine(jp, cfg, max_seq_len=64, use_flash=False, decode_params=jq,
+                     fused_layer=False).generate(
+        jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask), max_new_tokens=8,
+        eos_token_id=-1)
+    eng = PaliGemmaEngine(_to_port(jp), cfg, max_seq_len=64, decode_params=_to_port(jq),
+                          use_flash=True, fused_layer=True)
+    assert eng.fused_layer and eng._greedy_head_fused
+    got = eng.generate(pixels, ids, mask, max_new_tokens=8, eos_token_id=-1,
+                       sync_every=sync_every)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["gqa_config", "dense_decode_tree"])
+def test_fused_layer_on_unsupported_tree_raises(case):
+    """An explicit fused_layer=True the kernels cannot take raises; the
+    engine never clears it and decodes on the plain path instead."""
+    cfg = tiny_test_config() if case == "gqa_config" else _mqa_config()
+    params = _to_port(j_pg.init_params(jax.random.PRNGKey(0), cfg))
+    decode = _to_port(j_qserve(j_pg.init_params(jax.random.PRNGKey(0), cfg)))
+    with pytest.raises(ValueError, match="fused_layer"):
+        PaliGemmaEngine(params, cfg, max_seq_len=48, fused_layer=True,
+                        decode_params=decode if case == "gqa_config" else None)
+
+
+def test_fused_layer_batch_above_32_takes_kernel_chain(monkeypatch):
+    """B=33 lockstep rows decode through layers_decode_fused (the port's
+    kernels have no 32-row cap) with the plain path's greedy tokens."""
+    from paligemma_tpu_torch.kernels import decode_layer as t_layer
+
+    cfg = _mqa_config()
+    jp = j_pg.init_params(jax.random.PRNGKey(2), cfg)
+    params, decode = _to_port(jp), _to_port(j_qserve(jp))
+    pixels, ids, mask = _inputs(cfg, b=33, n_txt=3, seed=2)
+    want = PaliGemmaEngine(params, cfg, max_seq_len=32, decode_params=decode,
+                           fused_layer=False).generate(pixels, ids, mask, max_new_tokens=3,
+                                                       eos_token_id=-1)
+    calls = []
+    chain = t_layer.layers_decode_fused
+    monkeypatch.setattr(t_layer, "layers_decode_fused",
+                        lambda x, *a, **kw: calls.append(x.shape[0]) or chain(x, *a, **kw))
+    got = PaliGemmaEngine(params, cfg, max_seq_len=32, decode_params=decode,
+                          fused_layer=True).generate(pixels, ids, mask, max_new_tokens=3,
+                                                     eos_token_id=-1)
+    assert calls and set(calls) == {33}  # every decode step
+    np.testing.assert_array_equal(got, want)
+
+
+def test_generate_eos_and_streaming():
+    cfg = tiny_test_config()
+    eng = PaliGemmaEngine(_to_port(j_pg.init_params(jax.random.PRNGKey(0), cfg)), cfg,
+                          max_seq_len=48)
+    pixels, ids, mask = _inputs(cfg, b=1)
+    probe = eng.generate(pixels, ids, mask, max_new_tokens=3, eos_token_id=-1)
+    eos = int(probe[0, 2])
+    k = int(np.argmax(probe[0] == eos))
+    seen = []
+    per_token = eng.generate(pixels, ids, mask, max_new_tokens=9, eos_token_id=eos,
+                             on_token=lambda i, t: seen.append(i))
+    chunked = eng.generate(pixels, ids, mask, max_new_tokens=9, eos_token_id=eos,
+                           sync_every=4)
+    assert per_token.shape[1] == k + 1 and per_token[0, k] == eos
+    assert seen == list(range(k + 1))
+    np.testing.assert_array_equal(chunked[:, : k + 1], per_token)
+    assert (chunked[:, k:] == eos).all()
+    with pytest.raises(ValueError):
+        eng.generate(pixels, ids, mask, max_new_tokens=100)
+
+
+def test_sampled_generate_same_draws_at_any_sync():
+    cfg = tiny_test_config()
+    eng = PaliGemmaEngine(_to_port(j_pg.init_params(jax.random.PRNGKey(0), cfg)), cfg,
+                          max_seq_len=48)
+    pixels, ids, mask = _inputs(cfg)
+    runs = [eng.generate(pixels, ids, mask, max_new_tokens=6, do_sample=True,
+                         eos_token_id=-1, sync_every=s,
+                         generator=torch.Generator().manual_seed(7)) for s in (1, 3)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+def test_port_runs_without_jax():
+    """A fresh interpreter imports the port, runs a tiny CPU generate and
+    never imports jax."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        import paligemma_tpu_torch
+        from paligemma_tpu_torch.convert import init_params
+        from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+        from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+        torch.set_num_threads(1)
+        cfg = paligemma_tpu_torch.tiny_test_config()
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+        eng = PaliGemmaEngine(params, cfg, max_seq_len=32,
+                              decode_params=quantize_lm_for_serving(params))
+        n = cfg.vision_config.num_patches
+        ids = np.array([[cfg.image_token_index] * n + [5, 6]], np.int32)
+        out = eng.generate(np.zeros((1, 3, 28, 28), np.float32), ids, np.ones_like(ids),
+                           max_new_tokens=3, eos_token_id=-1)
+        assert out.shape == (1, 3), out.shape
+        assert "jax" not in sys.modules
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
