@@ -1,13 +1,23 @@
 """GPU smoke run of paligemma_tpu_torch: build the hand-written Hopper
 kernels, check each against its plain PyTorch version at the shapes of the
-main path, then drive the int8 greedy inference path of PaliGemma-3B-224
-(full widths, random weights from a seed) through PaliGemmaEngine.generate
-and hold it against the plain path.
+main paths, then drive PaliGemma-3B-224 (full widths, random weights from a
+seed, int8 decode tree) through its two main paths:
+
+* the int8 greedy inference path, PaliGemmaEngine.generate, held against
+  the plain path;
+* the continuous-batching serving path: the dense ServingEngine and the
+  paged PagedServingEngine serve the same 12 requests with identical
+  tokens, the paged engine preempts and recomputes from a small pool, its
+  page walk agrees with its fused chain, sampled neighbours leave the
+  greedy rows' tokens unchanged, and a request that fills its cache to the
+  last position leaves its neighbour's tokens unchanged.
 
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
-Prints per-phase lines, then a JSON line with one entry per kernel, the
-card's name and power limit, and as its last line
+Prints per-phase lines, then a JSON line with one entry per kernel (its
+``launches`` summed over the served runs (a)-(e) of the serving phase; each
+run's counts are zeroed just before it and read just after), the card's name
+and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is not 0 and the last line is never printed.
 """
@@ -34,6 +44,38 @@ MAX_SEQ = 2048
 # NVIDIA H100 80GB HBM3 at 700 W. The tolerance is about 4x that reading; a
 # kernel that dropped or garbled a term is off by O(1).
 LOGIT_REL_TOL = 3e-2
+# the kernels of the int8 greedy inference path (PaliGemmaEngine.generate)
+GENERATE_KERNELS = ("flash_attention_fwd", "int8_gemv", "decode_attention", "rms_norm",
+                    "rope_kv_write", "head_argmax")
+# the serving engines' kernels: (must launch, must not launch, once per layer
+# and tick); the dense tick is the generate chain, the paged fused tick the
+# same chain with kernels B and A, the page walk kernel A with torch ops
+DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged"),
+              ("decode_attention", "rope_kv_write"))
+PAGED_FUSED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "head_argmax",
+                     "paged_decode_attention", "rope_kv_write_paged"),
+                    ("decode_attention", "rope_kv_write"),
+                    ("paged_decode_attention", "rope_kv_write_paged"))
+# sampled ticks take the int8 GEMV head, so a mixed run need not reach the
+# argmax head kernel
+PAGED_MIXED_TICK = (tuple(k for k in PAGED_FUSED_TICK[0] if k != "head_argmax"),
+                    *PAGED_FUSED_TICK[1:])
+PAGE_WALK_TICK = (("flash_attention_fwd", "paged_decode_attention"),
+                  ("decode_attention", "rope_kv_write", "rope_kv_write_paged"),
+                  ("paged_decode_attention",))
+# serving phase: 12 requests (256 image tokens + 4..60 text tokens, 16..64 new
+# tokens) over 8 slots; the small pool makes the paged engine preempt (the
+# scheduler is host bookkeeping, independent of the tokens: with these
+# requests a 44-page pool evicts request 6 after 16 of its tokens)
+N_REQ = 12
+SERVE = dict(max_slots=8, max_seq_len=1024, sync_every=8, pipeline=True)
+PAGE = 64
+FULL_POOL = 8 * 1024 // PAGE + 1  # the dense reservation + the garbage page
+SMALL_POOL = 44
+# run (e): a cache this long is filled exactly by a 316-token prompt whose
+# budget is capped at submit (68 tokens), beside a 260-token prompt that
+# decodes 100 tokens
+FILL_SEQ = 384
 
 
 def card_line() -> str:
@@ -105,6 +147,7 @@ def kernel_phase(report: KernelReport, dev):
     from paligemma_tpu_torch.kernels import decode_head as dh
     from paligemma_tpu_torch.kernels import flash_attention as fa
     from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import paged_attention as pa
 
     rng = np.random.default_rng(SEED)
 
@@ -219,6 +262,84 @@ def kernel_phase(report: KernelReport, dev):
                         lambda: el.rope_kv_write(*kern),
                         lambda: el.rope_kv_write_reference(*plain))
 
+    # -- paged decode attention over the layer-stacked pool at layer 17 and
+    # the paged RoPE + KV write (page size 64)
+    print("kernels: paged_decode_attention, rope_kv_write_paged", flush=True)
+    ps, n_layers = 64, 18
+    for b, w, hkv, frag in [(1, 512, 1, False), (1, 1024, 1, True), (8, 512, 1, True),
+                            (8, 1024, 1, False), (8, 1024, 2, True)]:
+        n_p = w // ps
+        n_pages = b * n_p + 1  # page 0: the garbage page
+        kp = bf(n_layers, n_pages, ps, hkv, 256)
+        vp = bf(n_layers, n_pages, ps, hkv, 256)
+        ids = np.arange(1, n_pages)
+        if frag:
+            rng.shuffle(ids)
+        table = torch.from_numpy(ids.reshape(b, n_p).astype(np.int32)).to(dev)
+        lens = [w - 61 * i for i in range(b)]
+        if b > 1:
+            lens[3] = 0  # an empty row: exact zeros
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = bf(b, 8, 256)
+        got = pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+        want = pa.reference_paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+        sync()
+        label = (f"B{b} W{w} Hq8 Hkv{hkv} layer17 {'fragmented' if frag else 'contiguous'}")
+        report.case("paged_decode_attention", label, got, want, 1e-2)
+        if b > 1 and torch.count_nonzero(got[3]):
+            raise AssertionError("paged_decode_attention: kv_len == 0 row is not exact zeros")
+        if b == 8 and w == 1024 and hkv == 1:
+            report.time("paged_decode_attention", label,
+                        lambda: pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17),
+                        lambda: pa.reference_paged_decode_attention(q, kp, vp, table, kv_len,
+                                                                    layer_idx=17))
+        del kp, vp
+    # shared keys: each row's pages are consecutive slices of its dense cache
+    # row; the paged kernel must return decode_attention's bits, also over a
+    # narrower bucket of pages (fewer empty splits in the combine)
+    b = 8
+    kc, vc = bf(b, 1024, 256), bf(b, 1024, 256)
+    q = bf(b, 8, 256)
+    lens = torch.tensor([1 + 61 * i for i in range(b)], dtype=torch.int32, device=dev)  # <= 428
+    valid = (torch.arange(1024, device=dev)[None] < lens[:, None].long()).contiguous()
+    dense = da.decode_attention(q, kc, vc, valid, 256**-0.5).reshape(b, 8, 256)
+    kp, vp = kc.view(b * 16, ps, 1, 256), vc.view(b * 16, ps, 1, 256)
+    table = (torch.arange(16, device=dev)[None] + 16 * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+    for n_p in (16, 8):
+        paged = pa.paged_decode_attention(q, kp, vp, table[:, :n_p], lens, 256**-0.5)
+        sync()
+        same = torch.equal(paged, dense)
+        print(f"  {'paged_decode_attention':20s} {f'shared keys, {n_p} pages vs dense W1024':44s} "
+              f"torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError("paged_decode_attention differs from decode_attention on shared keys")
+    del kc, vc, kp, vp
+
+    for b in (1, 8):
+        n_pages = 8 * b + 1
+        qkv = bf(b, 2560)
+        ang = torch.from_numpy(rng.random((b, 256), dtype=np.float32) * 6.28).to(dev)
+        cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+        pos = torch.tensor([300 + 13 * i for i in range(b)], dtype=torch.int32, device=dev)
+        ids = np.arange(1, n_pages)
+        rng.shuffle(ids)
+        table = torch.from_numpy(ids.reshape(b, 8).astype(np.int32)).to(dev)
+        pools = [torch.zeros((n_pages, ps, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
+        rows = [torch.empty((b, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
+        kern = (qkv, cos, sin, pos, 8, pools[0], pools[1], table, rows[0], rows[1])
+        plain = (qkv, cos, sin, pos, 8, pools[2], pools[3], table, rows[2], rows[3])
+        qk, _, _ = el.rope_kv_write_paged(*kern)
+        qp, _, _ = el.rope_kv_write_paged_reference(*plain)
+        sync()
+        report.case("rope_kv_write_paged", f"B{b} q", qk, qp, 1e-2)
+        report.case("rope_kv_write_paged", f"B{b} k/v pool slots and k_new/v_new",
+                    torch.cat([c.flatten() for c in pools[:2] + rows[:2]]),
+                    torch.cat([c.flatten() for c in pools[2:] + rows[2:]]), 1e-2)
+        if b == 8:
+            report.time("rope_kv_write_paged", f"B{b} Hq8 D256 ps64",
+                        lambda: el.rope_kv_write_paged(*kern),
+                        lambda: el.rope_kv_write_paged_reference(*plain))
+
     # -- LM-head argmax: random inputs, then a planted three-way tie
     print("kernels: head_argmax", flush=True)
     w8, s = int8_weight(2048, 257152)
@@ -302,7 +423,7 @@ def main_path(dev, card):
         raise AssertionError(f"sync_every=1 vs 16 tokens differ:\n{tok1}\n{tok16}")
     print(f"main: sync_every=1 and 16 emit the same {N_NEW} tokens: {tok1[0, :16].tolist()} ...",
           flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in GENERATE_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
@@ -341,45 +462,363 @@ def main_path(dev, card):
         print(f"main: {name:7s} TTFT {ttft:.2f} ms  b1 int8 greedy decode "
               f"{1000.0 / step_ms:.1f} tok/s ({step_ms:.3f} ms/step)  [{card}]", flush=True)
     profile_phase(eng, pixels, ids, mask, card)
-    return counts
+    return params, decode, cfg
 
 
-def profile_phase(eng, pixels, ids, mask, card, n_steps=16, top=8):
-    """Where the kernel path's time goes: torch.profiler over one prefill
-    and over ``n_steps`` greedy decode steps at the 512-slot window and at
-    the full cache, printing device-busy time against wall time and the
-    kernels with the most device time, per prefill or per decode step."""
+def serving_requests(cfg, sample=False):
+    """The phase's 12 requests, made anew (the engines mutate them); with
+    ``sample`` the odd ids sample (temperature 0.8, top-p 0.9)."""
+    from paligemma_tpu_torch.runtime.serving import Request
+
+    rng = np.random.default_rng(SEED + 1)
+    px_rng = np.random.default_rng(SEED + 2)
+    px = cfg.vision_config.image_size
+    out = []
+    for i in range(N_REQ):
+        n_txt, budget = int(rng.integers(4, 61)), int(rng.integers(16, 65))
+        ids = np.concatenate([np.full(cfg.vision_config.num_patches, cfg.image_token_index),
+                              rng.integers(2, 1000, n_txt)]).astype(np.int32)
+        out.append(Request(request_id=i, input_ids=ids, max_new_tokens=budget, eos_token_id=-1,
+                           pixel_values=px_rng.standard_normal((3, px, px), dtype=np.float32),
+                           do_sample=sample and i % 2 == 1, temperature=0.8, top_p=0.9))
+    return out
+
+
+def fill_requests(cfg):
+    """Run (e)'s two requests: request 0 asks for more tokens than fit in a
+    FILL_SEQ cache and is capped at submit to fill it exactly; request 1
+    runs on after request 0 has finished."""
+    reqs = serving_requests(cfg)[:2]
+    n_img = cfg.vision_config.num_patches
+    for r, n_txt, budget in ((reqs[0], 60, FILL_SEQ), (reqs[1], 4, 100)):
+        r.input_ids = np.concatenate([r.input_ids[:n_img],
+                                      np.arange(2, 2 + n_txt)]).astype(np.int32)
+        r.max_new_tokens = budget
+    return reqs
+
+
+def _recording_engine():
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    class Recording(PagedServingEngine):
+        """Observes the scheduler: the peak of pages in use, and the tokens
+        each preempted request had before its first eviction."""
+
+        def __init__(self, *a, **kw):
+            self.peak_pages, self.first_eviction = 0, {}
+            super().__init__(*a, **kw)
+
+        def _before_window(self, ticks):
+            super()._before_window(ticks)
+            self.peak_pages = max(self.peak_pages, self.n_pages - 1 - self.paged.free_pages())
+
+        def _preempt_youngest(self, exclude):
+            seen = {r.request_id: len(r.tokens) for r in self.slots if r is not None}
+            slot = super()._preempt_youngest(exclude)
+            if slot is not None:
+                rid = self.pending[0].request_id
+                self.first_eviction.setdefault(rid, seen[rid])
+            return slot
+
+    return Recording
+
+
+def _serve(eng, reqs, vocab):
+    """Submit, run to completion; every request must finish with its whole
+    budget of in-vocab tokens. Returns ({id: tokens}, wall s, p50 TTFT ms)."""
+    for r in reqs:
+        eng.submit(r)
+    budgets = {r.request_id: r.max_new_tokens for r in reqs}  # as capped by submit
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    sync()
+    wall = time.perf_counter() - t0
+    if sorted(r.request_id for r in done) != sorted(budgets):
+        raise AssertionError("serving: not every request finished")
+    for r in reqs:
+        if len(r.tokens) != budgets[r.request_id] or not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"serving: request {r.request_id} emitted {len(r.tokens)} of "
+                                 f"{budgets[r.request_id]} tokens, or out-of-vocab ids")
+    ttft = float(np.median([r.metrics()["ttft_ms"] for r in reqs]))
+    return {r.request_id: list(r.tokens) for r in reqs}, wall, ttft
+
+
+def _served(label, eng, reqs, vocab, n_layers, tick_kernels=None):
+    """``_serve`` with the launch counts zeroed just before the run and read
+    just after it. ``tick_kernels`` (must launch, must not launch, once per
+    layer and tick) is checked against the counts and the engine's ticks;
+    None: the run must launch no kernel. Returns ``_serve``'s result and the
+    run's counts."""
+    from paligemma_tpu_torch import kernels
+
+    name = "_tick_paged" if hasattr(eng, "paged") else "_tick"
+    inner, ticks = getattr(eng, name), [0]
+
+    def counted(*a, **kw):
+        ticks[0] += 1
+        return inner(*a, **kw)
+
+    setattr(eng, name, counted)
+    kernels.reset_launch_counts()
+    out = _serve(eng, reqs, vocab)
+    counts = kernels.launch_counts()
+    print(f"serve {label}: launches over {ticks[0]} ticks: {json.dumps(counts)}", flush=True)
+    if tick_kernels is None:
+        bad = [k for k, v in counts.items() if v]
+    else:
+        need, absent, per_tick = tick_kernels
+        bad = ([k for k in need if counts[k] == 0] + [k for k in absent if counts[k]]
+               + [k for k in per_tick if counts[k] != n_layers * ticks[0]])
+    if bad or not ticks[0]:
+        raise AssertionError(f"serve {label}: launch counts off for {bad} "
+                             f"({ticks[0]} ticks, {n_layers} layers)")
+    return out, counts
+
+
+def serving_phase(params, decode, cfg, dev, card):
+    """The continuous-batching serving path at full width: dense vs paged
+    tokens, preemption, the page walk, a mixed greedy/sampled batch, and
+    throughput beside the plain path. Returns the launch counts summed over
+    the served runs (a)-(e)."""
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    Paged = _recording_engine()
+    vocab = cfg.vocab_size
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+
+    def served(label, eng, reqs, tick_kernels):
+        out, counts = _served(label, eng, reqs, vocab, n_layers, tick_kernels)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def dense(**kw):
+        return ServingEngine(params, cfg, decode_params=decode, **SERVE, **kw)
+
+    def paged(n_pages=FULL_POOL, **kw):
+        return Paged(params, cfg, decode_params=decode, page_size=PAGE, n_pages=n_pages,
+                     **SERVE, **kw)
+
+    def tok_s(toks, wall):
+        return sum(len(t) for t in toks.values()) / wall
+
+    # first calls (cuBLAS heuristics, Triton specializations) off the clock
+    for make in (dense, lambda: paged(paged_kernel="fused"), lambda: paged(paged_kernel="multi"),
+                 lambda: paged(fused_decode=False, use_flash=False)):
+        warm = serving_requests(cfg)[:2]
+        for r in warm:
+            r.max_new_tokens = 9
+        _serve(make(), warm, vocab)
+
+    # (a) dense vs paged, a pool as large as the dense reservation
+    eng_dense, eng_a = dense(), paged(paged_kernel="fused")
+    if not all(e.fused_decode and e.use_flash and e.pipeline for e in (eng_dense, eng_a)) or (
+            eng_a.paged_kernel != "fused"):
+        raise AssertionError("a serving engine did not select the kernel paths")
+    tok_d, wall_d, ttft_d = served("(a) dense", eng_dense, serving_requests(cfg), DENSE_TICK)
+    tok_a, wall_a, ttft_a = served("(a) paged fused", eng_a, serving_requests(cfg),
+                                   PAGED_FUSED_TICK)
+    differ = [i for i in tok_d if tok_d[i] != tok_a[i]]
+    print(f"serve (a): dense vs paged(fused): {N_REQ - len(differ)}/{N_REQ} requests with "
+          f"identical tokens ({sum(map(len, tok_a.values()))} tokens); preemptions "
+          f"{eng_a.preemptions}; peak pages in use {eng_a.peak_pages} of the dense reservation "
+          f"{FULL_POOL - 1}", flush=True)
+    if differ or eng_a.preemptions:
+        raise AssertionError(f"serve (a): requests {differ} differ between dense and paged, or "
+                             f"the full pool preempted ({eng_a.preemptions})")
+
+    # (b) preemption from a small pool
+    eng_b = paged(n_pages=SMALL_POOL, paged_kernel="fused")
+    tok_b, _, _ = served("(b) paged fused", eng_b, serving_requests(cfg), PAGED_FUSED_TICK)
+    for rid, n in sorted(eng_b.first_eviction.items()):
+        if tok_b[rid][:n] != tok_a[rid][:n]:
+            raise AssertionError(f"serve (b): request {rid} tokens before its eviction differ")
+        later = sum(x == y for x, y in zip(tok_b[rid][n:], tok_a[rid][n:]))
+        print(f"serve (b): request {rid} evicted after {n} tokens, recomputed; "
+              f"{later}/{len(tok_a[rid]) - n} later tokens agree with (a)", flush=True)
+    print(f"serve (b): {SMALL_POOL}-page pool: preemptions {eng_b.preemptions}, every request "
+          f"complete with its full budget; peak pages in use {eng_b.peak_pages}", flush=True)
+    if eng_b.preemptions < 1:
+        raise AssertionError("serve (b): the small pool never preempted")
+
+    # (c) the page walk: paged attention kernel once per layer
+    tok_c, _, _ = served("(c) page walk", paged(paged_kernel="multi"), serving_requests(cfg),
+                         PAGE_WALK_TICK)
+    agree = sum(x == y for i in tok_a for x, y in zip(tok_a[i], tok_c[i]))
+    print(f"serve (c): page walk ('multi') tokens agreeing with (a): {agree}/"
+          f"{sum(map(len, tok_a.values()))}", flush=True)
+    worst = _teacher_force_paged(params, eng_a.decode_params, cfg, dev, serving_requests(cfg)[0],
+                                 tok_a[0], gemma, paligemma)
+    print(f"serve (c): teacher-forced request 0 ({len(tok_a[0])} tokens) through "
+          f"decode_step_paged 'multi' vs 'fused' logits: max rel err {worst:.3e} "
+          f"(tol {LOGIT_REL_TOL})", flush=True)
+
+    # (d) half the requests sample; the greedy rows keep (a)'s tokens
+    eng_d = paged(paged_kernel="fused", generator=torch.Generator(device=dev).manual_seed(SEED))
+    reqs_d = serving_requests(cfg, sample=True)
+    tok_d2, _, _ = served("(d) paged fused, mixed", eng_d, reqs_d, PAGED_MIXED_TICK)
+    greedy = [r.request_id for r in reqs_d if not r.do_sample]
+    changed = [i for i in greedy if tok_d2[i] != tok_a[i]]
+    n_same = sum(tok_d2[r.request_id] == tok_a[r.request_id] for r in reqs_d if r.do_sample)
+    print(f"serve (d): mixed batch: {len(greedy) - len(changed)}/{len(greedy)} greedy requests "
+          f"keep (a)'s tokens; sampled requests equal to greedy: {n_same}/{N_REQ - len(greedy)}",
+          flush=True)
+    if changed:
+        raise AssertionError(f"serve (d): greedy requests {changed} changed beside sampled rows")
+
+    # (e) request 0 (slot 0) fills the cache to its last position; its slot
+    # goes on ticking, inactive, until it is seated again, and must write
+    # nowhere but its own row: request 1 (slot 1) keeps the tokens it gets
+    # alone, in the dense and in the paged engine
+    fill = dict(SERVE, max_seq_len=FILL_SEQ)
+    fill_paged = dict(fill, page_size=PAGE, n_pages=8 * FILL_SEQ // PAGE + 1,
+                      paged_kernel="fused")
+    tok_e = served("(e) dense", ServingEngine(params, cfg, decode_params=decode, **fill),
+                   fill_requests(cfg), DENSE_TICK)[0]
+    tok_ep = served("(e) paged fused", Paged(params, cfg, decode_params=decode, **fill_paged),
+                    fill_requests(cfg), PAGED_FUSED_TICK)[0]
+    alone = _serve(ServingEngine(params, cfg, decode_params=decode, **fill),
+                   fill_requests(cfg)[1:], vocab)[0]
+    n_fill = FILL_SEQ - len(fill_requests(cfg)[0].input_ids)
+    print(f"serve (e): request 0 capped to {len(tok_e[0])} tokens (fills the {FILL_SEQ}-token "
+          f"cache); request 1's {len(tok_e[1])} tokens equal its tokens alone: dense "
+          f"{tok_e[1] == alone[1]}, paged {tok_ep[1] == alone[1]}; dense == paged "
+          f"{tok_e == tok_ep}", flush=True)
+    if len(tok_e[0]) != n_fill or not (tok_e[1] == alone[1] and tok_e == tok_ep):
+        raise AssertionError("serve (e): the row that filled the cache disturbed its neighbour")
+
+    print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
+          flush=True)
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serving path: {missing}")
+
+    # the plain path: no kernel launches, same requests
+    (tok_p, wall_p, ttft_p), _ = _served("plain", paged(fused_decode=False, use_flash=False),
+                                         serving_requests(cfg), vocab, n_layers)
+    agree = sum(x == y for i in tok_a for x, y in zip(tok_a[i], tok_p[i]))
+    print(f"serve: plain path tokens agreeing with (a): {agree}/{sum(map(len, tok_a.values()))}",
+          flush=True)
+    # no host synchronization inside a decode window (8 live rows each), and
+    # where a paged tick's time goes
+    engines = {"dense greedy": (dense(), False), "paged sampled": (paged(), True),
+               "paged greedy": (paged(paged_kernel="fused"), False)}
+    for name, (eng, sample) in engines.items():
+        for r in serving_requests(cfg, sample=sample)[:8]:
+            r.max_new_tokens = 64
+            eng.submit(r)
+        eng.step()  # prefill the 8 rows and decode a first window
+        _window_without_sync(eng)
+    print(f"serve: no host synchronization inside a decode window: {', '.join(engines)}",
+          flush=True)
+    _profile(f"paged fused greedy window B8, {SERVE['sync_every']} ticks",
+             engines["paged greedy"][0].step, SERVE["sync_every"], card)
+    for name, toks, wall, ttft in (("paged kernels", tok_a, wall_a, ttft_a),
+                                   ("dense kernels", tok_d, wall_d, ttft_d),
+                                   ("paged plain", tok_p, wall_p, ttft_p)):
+        print(f"serve: {name:13s} {N_REQ} requests, 8 slots: {tok_s(toks, wall):.1f} tok/s "
+              f"aggregate (all tokens / run wall {wall:.2f} s), TTFT p50 {ttft:.1f} ms  "
+              f"[{card}]", flush=True)
+    return total
+
+
+def _window_without_sync(eng):
+    """Dispatch one decode window under CUDA's sync debug mode "error": an
+    operation that would make the host wait for the card raises. Then read
+    the window back."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        window = eng._dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if window is None:
+        raise AssertionError("no decode window to check")
+    eng._absorb(window)
+
+
+def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemma):
+    """Prefill one request, copy it into two page pools (a fragmented
+    table), and feed it its (a) tokens through decode_step_paged 'multi' and
+    'fused'; returns the largest logit difference relative to the largest
+    'fused' logit."""
+    n = len(req.input_ids)
+    bucket = -(-n // PAGE) * PAGE
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = req.input_ids
+    mask = np.zeros((1, bucket), np.int32)
+    mask[0, :n] = 1
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, dev)
+    _, cache1 = paligemma.prefill(params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
+                                  torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                                  cache1, use_flash=True, last_only=True)
+    n_p = 16
+    order = np.random.default_rng(SEED).permutation(np.arange(1, n_p + 1)).astype(np.int32)
+    table = torch.from_numpy(order[None]).to(dev)
+    pools = []
+    for _ in range(2):
+        pool = gemma.init_kv_cache(cfg.text_config, n_p + 1, PAGE, torch.bfloat16, dev)
+        for name in ("k", "v"):
+            rows = cache1[name][:, 0].reshape(cfg.text_config.num_hidden_layers, bucket // PAGE,
+                                              PAGE, 1, -1)
+            pool[name][:, table[0, : bucket // PAGE].long()] = rows
+        pools.append(pool)
+    worst = 0.0
+    for t, tok in enumerate(tokens[:-1]):
+        tok = torch.tensor([tok], device=dev)
+        wp = torch.tensor([n + t], dtype=torch.int32, device=dev)
+        lm, _ = paligemma.decode_step_paged(dparams, cfg, tok, pools[0], table, wp, wp + 1,
+                                            pages_bucket=n_p, paged_kernel="multi")
+        lf, _ = paligemma.decode_step_paged(dparams, cfg, tok, pools[1], table, wp, wp + 1,
+                                            pages_bucket=n_p, paged_kernel="fused")
+        if not (torch.isfinite(lm).all() and torch.isfinite(lf).all()):
+            raise AssertionError(f"teacher forcing step {t}: non-finite logits")
+        worst = max(worst, float((lm - lf).abs().max()) / float(lf.abs().max()))
+    if worst > LOGIT_REL_TOL:
+        raise AssertionError(f"serve (c): 'multi' vs 'fused' logits rel err {worst} > {LOGIT_REL_TOL}")
+    return worst
+
+
+def _profile(label, fn, per, card, top=8):
+    """torch.profiler over ``fn()``: device-busy time against wall time per
+    ``per`` (steps), and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    def run(label, setup, fn, per):
-        fn(setup())  # warm-up at this shape
-        arg = setup()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(arg)
-            sync()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = [k for k in prof.key_averages() if k.self_device_time_total > 0]
-        busy = sum(k.self_device_time_total for k in rows) / 1e3
-        if not rows:
-            print(f"profile: {label}: device time not measured (the profiler saw no "
-                  f"device activity); wall {wall / per:.3f} ms", flush=True)
-            return
-        print(f"profile: {label}: per {'step' if per > 1 else 'prefill'} wall "
-              f"{wall / per:.3f} ms, device busy {busy / per:.3f} ms "
-              f"({100 * busy / wall:.1f} %)  [{card}]", flush=True)
-        for k in sorted(rows, key=lambda k: -k.self_device_time_total)[:top]:
-            print(f"profile:   {k.key[:48]:48s} {k.count / per:6.1f} calls "
-                  f"{k.self_device_time_total / per:9.1f} us  "
-                  f"({k.self_device_time_total / k.count:.2f} us each)", flush=True)
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [k for k in prof.key_averages() if k.self_device_time_total > 0]
+    busy = sum(k.self_device_time_total for k in rows) / 1e3
+    if not rows:
+        print(f"profile: {label}: device time not measured (the profiler saw no "
+              f"device activity); wall {wall / per:.3f} ms", flush=True)
+        return
+    print(f"profile: {label}: per {'step' if per > 1 else 'prefill'} wall "
+          f"{wall / per:.3f} ms, device busy {busy / per:.3f} ms "
+          f"({100 * busy / wall:.1f} %)  [{card}]", flush=True)
+    for k in sorted(rows, key=lambda k: -k.self_device_time_total)[:top]:
+        print(f"profile:   {k.key[:48]:48s} {k.count / per:6.1f} calls "
+              f"{k.self_device_time_total / per:9.1f} us  "
+              f"({k.self_device_time_total / k.count:.2f} us each)", flush=True)
 
-    run("prefill B1 266 tokens", lambda: None, lambda _: eng.prefill(pixels, ids, mask), 1)
+
+def profile_phase(eng, pixels, ids, mask, card, n_steps=8):
+    """Where the kernel path's time goes: one prefill, and ``n_steps``
+    greedy decode steps at the 512-slot window and at the full cache."""
+    eng.prefill(pixels, ids, mask)  # warm-up at this shape
+    _profile("prefill B1 266 tokens", lambda: eng.prefill(pixels, ids, mask), 1, card)
     for bucket in (512, None):
-        run(f"greedy decode B1 W{bucket or MAX_SEQ}, {n_steps} steps",
-            lambda: eng.prefill(pixels, ids, mask),
-            lambda ls, bucket=bucket: eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket),
-            n_steps)
+        ls = eng.prefill(pixels, ids, mask)
+        eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket)  # warm-up
+        ls = eng.prefill(pixels, ids, mask)
+        _profile(f"greedy decode B1 W{bucket or MAX_SEQ}, {n_steps} steps",
+                 lambda: eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket), n_steps,
+                 card)
 
 
 def _leaves(tree):
@@ -432,7 +871,10 @@ def main() -> int:
     sync()
     print(f"kernels: all cases within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    counts = main_path(dev, card)
+    params, decode, cfg = main_path(dev, card)
+    t0 = time.perf_counter()
+    counts = serving_phase(params, decode, cfg, dev, card)
+    print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = {
         "flash_attention_fwd": ("cuda", "paligemma_tpu_torch/csrc/flash_attention.cu",
@@ -441,12 +883,16 @@ def main() -> int:
                       "paligemma_tpu/kernels/decode_layer.py:95"),
         "decode_attention": ("cuda", "paligemma_tpu_torch/csrc/decode_attention.cu",
                              "paligemma_tpu/kernels/decode_layer.py:95"),
-        "rms_norm": ("triton", "paligemma_tpu_torch/kernels/decode_elementwise.py",
+        "rms_norm": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
                      "paligemma_tpu/kernels/decode_layer.py:95"),
-        "rope_kv_write": ("triton", "paligemma_tpu_torch/kernels/decode_elementwise.py",
+        "rope_kv_write": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
                           "paligemma_tpu/kernels/decode_layer.py:95"),
         "head_argmax": ("cuda", "paligemma_tpu_torch/csrc/decode_head.cu",
                         "paligemma_tpu/kernels/decode_head.py:35"),
+        "paged_decode_attention": ("cuda", "paligemma_tpu_torch/csrc/paged_attention.cu",
+                                   "paligemma_tpu/kernels/paged_attention.py:42"),
+        "rope_kv_write_paged": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
+                                "paligemma_tpu/kernels/decode_layer_paged.py:56"),
     }
     rows = []
     for name in kernels.WRAPPERS:

@@ -1,0 +1,34 @@
+// Paged single-token GQA attention: one query token per row over the row's
+// logical pages [0, kv_len), read through a page table from a page pool.
+//
+// Replaces paligemma_tpu/kernels/paged_attention.py: _kernel (one page per
+// grid step), _kernel_multi (8 pages per step, hand-gathered), _kernel_batched
+// (all rows per step) and _kernel_runs (one DMA per physically consecutive
+// page run). The four compute one function and differ only in how they order
+// the TPU's DMAs; on Hopper one kernel serves all four names.
+//
+//   out[b, h] = sum_{j < kv_len[b]} p[b,h,j] v[b,j],
+//   p = softmax_j(scale * q[b,h] . k[b,j]),  kv_len[b] == 0 -> 0
+//   k[b,j] = pool[layer, table[b, j / ps], j % ps, h / G]
+//
+// What bounds it: reading the row's K and V pages (2 * kv_len * D * 2 bytes
+// per row, KV head and layer). The design is decode_attention.cu's: split-K
+// over 32-key tiles, each tile staged in shared memory with independent
+// 16-byte loads (the page lookup is per key, so any page size works and a
+// fragmented table costs no more than a contiguous one), the G query heads
+// of a KV head scored against one staged tile, and a fixed-order combine
+// pass. Tiles past kv_len are skipped without a load, so reads follow the
+// live tokens and not the table's width. Both kernels are the same template
+// (attention_split.cuh): on the same keys they return the same bits.
+#include "attention_split.cuh"
+
+PG_EXPORT int pg_paged_attention(const void* q, const void* k_pool, const void* v_pool,
+                                 const void* table, const void* kv_len, void* part_m,
+                                 void* part_l, void* part_o, void* out, int B, int Hq, int Hkv,
+                                 int D, int W, int page_size, int table_stride,
+                                 long long layer_off, int nsplit, float scale, void* stream) {
+  PagedKV kv{(const bf16*)k_pool, (const bf16*)v_pool, (const int*)table, (const int*)kv_len,
+             layer_off, page_size, table_stride, Hkv, D};
+  return attn_launch((const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                     (bf16*)out, B, Hq / Hkv, Hkv, D, W, nsplit, scale, (cudaStream_t)stream);
+}

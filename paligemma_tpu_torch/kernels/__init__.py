@@ -14,6 +14,7 @@ from . import decode_elementwise as _decode_elementwise
 from . import decode_head as _decode_head
 from . import flash_attention as _flash_attention
 from . import int8_gemv as _int8_gemv
+from . import paged_attention as _paged_attention
 
 # kernel name -> wrapper
 WRAPPERS = {
@@ -23,6 +24,8 @@ WRAPPERS = {
     "rms_norm": _decode_elementwise.rms_norm,
     "rope_kv_write": _decode_elementwise.rope_kv_write,
     "head_argmax": _decode_head.head_argmax_fused,
+    "paged_decode_attention": _paged_attention.paged_decode_attention,
+    "rope_kv_write_paged": _decode_elementwise.rope_kv_write_paged,
 }
 
 

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``paligemma_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared library
 with a plain C interface, which is loaded with ``ctypes``. The build runs on
 first use (so ``python3 chip_smoke.py`` alone builds everything) and lands
 in ``build/paligemma_tpu_torch/<hash>/`` at the repository root, keyed by a
@@ -29,11 +30,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "paligemma_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (every entry returns int cudaError_t)
 SIGNATURES = {
     # q, k, v, prefix_len, kv_len, out, B, Sq, Skv, Hq, Hkv, D, scale,
@@ -46,6 +47,9 @@ SIGNATURES = {
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # q, k_pool, v_pool, table, kv_len, part_m, part_l, part_o, out, B, Hq,
+    # Hkv, D, W, page_size, table_stride, layer_off, nsplit, scale, stream
+    "pg_paged_attention": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
     # y, w8, s, part_max, part_idx, ids, maxv, B, K, N, n_valid, k_chunk,
     # stream
     "pg_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
@@ -79,25 +83,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless this source hash is already built."""
+    """Compile ``csrc/*.cu`` unless this source hash is already built: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = sources()
-    # compile to a temporary name, then rename: a cut build never leaves a
-    # half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
-    (out.parent / "ptxas.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, f.stem + ".o") for f in cu]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(f)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for f, o in zip(cu, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(f.name, p.returncode, log) for f, p, log in zip(cu, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        # link to a temporary name, then rename: a cut build never leaves a
+        # half-written library under the final name
+        tmp = os.path.join(tmpdir, out.name)
+        res = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        (out.parent / "ptxas.log").write_text("".join(logs))
+        os.replace(tmp, out)
     return out
 
 

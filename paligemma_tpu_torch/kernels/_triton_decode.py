@@ -24,11 +24,14 @@ def rms_norm_kernel(x_ptr, w_ptr, out_ptr, K, eps, BLOCK: tl.constexpr):
 
 @triton.jit
 def rope_kv_write_kernel(
-    qkv_ptr, cos_ptr, sin_ptr, pos_ptr, q_ptr, kc_ptr, vc_ptr, kn_ptr, vn_ptr,
-    NQ2, stride_cb, H: tl.constexpr, D: tl.constexpr, HALF: tl.constexpr,
+    qkv_ptr, cos_ptr, sin_ptr, pos_ptr, q_ptr, kc_ptr, vc_ptr, kn_ptr, vn_ptr, tab_ptr,
+    NQ2, stride_cb, tstride, H: tl.constexpr, D: tl.constexpr, HALF: tl.constexpr,
+    PAGED: tl.constexpr, PS: tl.constexpr,
 ):
     # program (b, h): h < H rotates query head h, h == H rotates the key,
-    # h == H + 1 copies the value; K and V land in cache row pos[b]
+    # h == H + 1 copies the value. K and V land in cache row pos[b] of row b
+    # (dense), or in slot tab[b, pos // PS] * PS + pos % PS of the layer's
+    # page pool (PAGED)
     b = tl.program_id(0)
     h = tl.program_id(1)
     offs = tl.arange(0, HALF)
@@ -51,7 +54,11 @@ def rope_kv_write_kernel(
         tl.store(qo + HALF + offs, o2.to(q_ptr.dtype.element_ty))
     else:
         pos = tl.load(pos_ptr + b).to(tl.int64)
-        row = b * stride_cb + pos * D
+        if PAGED:
+            page = tl.load(tab_ptr + b * tstride + pos // PS).to(tl.int64)
+            row = (page * PS + pos % PS) * D
+        else:
+            row = b * stride_cb + pos * D
         if h == H:
             tl.store(kc_ptr + row + offs, o1.to(kc_ptr.dtype.element_ty))
             tl.store(kc_ptr + row + HALF + offs, o2.to(kc_ptr.dtype.element_ty))

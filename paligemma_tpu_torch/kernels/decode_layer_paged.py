@@ -1,0 +1,93 @@
+"""All decoder layers of one decode step over a paged KV pool (port of
+paligemma_tpu/kernels/decode_layer_paged.py ``layers_decode_fused_paged``).
+
+The TPU runs all L layers in one Pallas kernel that DMAs each row's window
+out of the page pool (one copy per physically consecutive run, per-page
+copies otherwise). Here each layer is the chain of kernels/decode_layer with
+the two cache steps swapped for their paged forms:
+
+    rms_norm -> int8_gemv qkv -> rope_kv_write_paged (Triton) ->
+    paged_decode_attention -> int8_gemv o + residual -> rms_norm ->
+    int8_gemv gateup + GeGLU -> int8_gemv down + residual
+
+``rope_kv_write_paged`` puts each row's fresh K/V in its slot
+``table[r, pos // ps] * ps + pos % ps`` (computed on the device), and the
+paged attention kernel reads the row's pages ``[0, pos]`` through the table
+by pointer offset into the layer-stacked pool. The contract is the TPU
+function's, ``(h (B,1,K), k_new (L,B,D), v_new (L,B,D))``; in this port the
+chain also writes the fresh rows into the pool in place (the TPU kernel
+leaves that to its caller), because the attention kernel reads the fresh
+token from the pool. The pool has no per-layer copy and the chain keeps no
+window ring, so there is no window-size budget (the TPU's VMEM cap).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import decode_layer
+from .decode_elementwise import rms_norm, rope_kv_write_paged
+from .int8_gemv import int8_gemv
+from .paged_attention import paged_decode_attention
+from .paged_attention import supported as attention_supported
+
+
+def supported(cfg, layers: Dict, batch: int, page_size: int) -> bool:
+    """The dense chain's limits (kernels/decode_layer.supported: one KV head,
+    the int8 serving tree) plus a page size the paged kernels take."""
+    return (decode_layer.supported(cfg, layers, batch)
+            and attention_supported(page_size, cfg.head_dim))
+
+
+def layers_decode_fused_paged(
+    x: torch.Tensor,  # (B, 1, K)
+    layers: Dict,  # stacked int8 serving tree (decode_layer.repack_layers)
+    k_pool: torch.Tensor,  # (L, n_pages, ps, D) MQA pool, fresh rows written in place
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, P_max) int32, the full table
+    write_pos: torch.Tensor,  # (B,) int32 logical position of this token
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,
+    n_heads: int,
+    head_dim: int,
+    eps: float,
+    pages_bucket: Optional[int] = None,  # logical pages attended (covers every pos)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All L layers for B lockstep rows. Returns (hidden (B,1,K),
+    k_new (L,B,D), v_new (L,B,D)).
+
+    Unlike the TPU function, ``page_table`` is the whole table and the
+    attended bucket is ``pages_bucket``: the fresh row's slot is looked up in
+    the whole table, so a retired row (table all 0, stale position) writes
+    into the garbage page. Every ``write_pos`` must lie below the table's
+    width times the page size (the serving engines clamp stale positions to
+    ``max_seq_len - 1``)."""
+    b, _, k = x.shape
+    n_layers, _, ps, _ = k_pool.shape
+    pb = min(pages_bucket or page_table.shape[1], page_table.shape[1])
+    attn, mlp = layers["attn"], layers["mlp"]
+    scale = head_dim**-0.5
+    cos = cos.to(x.dtype).contiguous()
+    sin = sin.to(x.dtype).contiguous()
+    write_pos = write_pos.to(torch.int32)
+    kv_len = write_pos + 1  # the row's pages [0, pos], this token included
+    table = page_table.to(torch.int32)
+    window = table[:, :pb]
+    k_pool5, v_pool5 = k_pool[:, :, :, None], v_pool[:, :, :, None]  # Hkv = 1
+    k_new = torch.empty((n_layers, b, head_dim), dtype=k_pool.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    h = x.reshape(b, k)
+    for l in range(n_layers):
+        y = rms_norm(h, layers["input_norm"][l], eps)
+        qkv = int8_gemv(y, attn["qkv"]["w8"][l], attn["qkv"]["s"][l])
+        # writes this layer's fresh K/V rows into their pool slots (in place)
+        q, _, _ = rope_kv_write_paged(qkv, cos, sin, write_pos, n_heads, k_pool[l], v_pool[l],
+                                      table, k_new[l], v_new[l])
+        a = paged_decode_attention(q, k_pool5, v_pool5, window, kv_len, scale, layer_idx=l)
+        h = int8_gemv(a.reshape(b, -1), attn["o"]["w8"][l], attn["o"]["s"][l], residual=h)
+        y2 = rms_norm(h, layers["post_norm"][l], eps)
+        t = int8_gemv(y2, mlp["gateup"]["w8"][l], mlp["gateup"]["s"][l], geglu=True)
+        h = int8_gemv(t, mlp["down"]["w8"][l], mlp["down"]["s"][l], residual=h)
+    return h.reshape(b, 1, k), k_new, v_new

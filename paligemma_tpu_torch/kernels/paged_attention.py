@@ -1,0 +1,151 @@
+"""Paged single-token decode attention (port of
+paligemma_tpu/kernels/paged_attention.py); the kernel is
+``csrc/paged_attention.cu``.
+
+One query token per row, GQA over the row's logical pages ``[0, kv_len)``,
+read through a ``(B, P)`` page table from a page pool
+``(n_pages, page_size, Hkv, D)`` or a layer-stacked ``(L, n_pages, ...)``
+pool with ``layer_idx`` (the kernel offsets into the stack; no layer is
+copied). Rows with ``kv_len == 0`` give zeros; table entries past a row's
+last page are never read.
+
+The TPU package has four kernels for this function (one page per grid step,
+eight pages per step, all rows per step, and one DMA per physically
+consecutive run); they differ only in how the TPU orders its DMAs. The four
+names stay, and all launch the one CUDA kernel, which shares its tile and
+combine code with kernels/decode_attention: on the same keys the two return
+the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .decode_attention import KEYS_PER_SPLIT, MAX_BATCH, MAX_HEADS
+
+
+def supported(page_size: int, head_dim: int) -> bool:
+    """Page and head sizes the kernel takes (the engine checks this once)."""
+    return page_size % 16 == 0 and head_dim % 8 == 0 and head_dim <= 256
+
+
+def _layer_view(k_pool, v_pool, layer_idx):
+    want = "(n_pages, ps, Hkv, D)" if layer_idx is None else "(L, n_pages, ps, Hkv, D)"
+    if k_pool.dim() != (4 if layer_idx is None else 5):
+        raise ValueError(f"paged attention: pool must be {want}, got {tuple(k_pool.shape)}")
+    if layer_idx is None:
+        return k_pool, v_pool
+    return k_pool[int(layer_idx)], v_pool[int(layer_idx)]
+
+
+def reference_paged_decode_attention(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pool: torch.Tensor,  # (n_pages, ps, Hkv, D) or (L, n_pages, ps, Hkv, D)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, P) int
+    kv_len: torch.Tensor,  # (B,) int
+    scale: Optional[float] = None,
+    layer_idx: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain version: gather the pages into a dense (B, P*ps, Hkv, D) view,
+    fp32 scores and softmax over keys ``< kv_len``; (B, Hq, D) in q's dtype."""
+    kp, vp = _layer_view(k_pool, v_pool, layer_idx)
+    b, hq, d = q.shape
+    hkv = kp.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    table = page_table.long()
+    k = kp[table].reshape(b, -1, hkv, d).float()  # (B, P*ps, Hkv, D)
+    v = vp[table].reshape(b, -1, hkv, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(b, hkv, g, d).float(), k) * scale
+    visible = torch.arange(k.shape[1], device=q.device)[None] < kv_len.to(q.device).long()[:, None]
+    s = s.masked_fill(~visible[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(den > 0, den, torch.ones_like(den))  # kv_len 0 -> 0
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    kv_len: torch.Tensor,
+    scale: Optional[float] = None,
+    layer_idx: Optional[int] = None,
+) -> torch.Tensor:
+    """Length-aware paged decode attention; (B, Hq, D) out."""
+    if not q.is_cuda:
+        return reference_paged_decode_attention(q, k_pool, v_pool, page_table, kv_len, scale,
+                                                layer_idx)
+    b, hq, d = q.shape
+    dev = q.device
+    if scale is None:
+        scale = d**-0.5
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError("paged_decode_attention: q must be contiguous bf16 (B, Hq, D)")
+    stacked = layer_idx is not None
+    if k_pool.dim() != (5 if stacked else 4):
+        raise ValueError(f"paged_decode_attention: pool of shape {tuple(k_pool.shape)} "
+                         f"with layer_idx={layer_idx}")
+    n_pages, ps, hkv = k_pool.shape[-4:-1]
+    for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if (p.dtype != torch.bfloat16 or p.shape != k_pool.shape or not p.is_contiguous()
+                or p.device != dev or p.data_ptr() % 16 or p.shape[-1] != d):
+            raise ValueError(f"paged_decode_attention: {name} must be contiguous 16-byte "
+                             "aligned bf16 with q's head_dim")
+    n_p = page_table.shape[1]
+    if (page_table.dtype != torch.int32 or page_table.dim() != 2 or page_table.shape[0] != b
+            or page_table.stride(1) != 1 or page_table.device != dev):
+        raise ValueError("paged_decode_attention: page_table must be (B, P) int32 with unit "
+                         "column stride")
+    if kv_len.shape != (b,) or kv_len.dtype != torch.int32 or kv_len.device != dev:
+        raise ValueError("paged_decode_attention: kv_len must be (B,) int32")
+    if hq % hkv or hq // hkv > MAX_HEADS or not supported(ps, d) or b * hkv > MAX_BATCH:
+        raise ValueError(f"paged_decode_attention: Hq {hq} a multiple of Hkv {hkv} with at most "
+                         f"{MAX_HEADS} per KV head, page_size {ps} a multiple of 16, head_dim "
+                         f"{d} a multiple of 8 <= 256, B*Hkv <= {MAX_BATCH}")
+    w = n_p * ps
+    nsplit = -(-w // KEYS_PER_SPLIT)
+    g = hq // hkv
+    part_m = torch.empty((b * hkv, nsplit, g), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_o = torch.empty((b * hkv, nsplit, g, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
+    layer_off = int(layer_idx) * n_pages * ps * hkv * d if stacked else 0
+    kv_len = kv_len.contiguous()
+    err = _build.library().pg_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        kv_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+        out.data_ptr(), b, hq, hkv, d, w, ps, page_table.stride(0), layer_off, nsplit,
+        float(scale), _build.stream_ptr(dev),
+    )
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+# The TPU package's other three DMA strategies for the same function are,
+# on Hopper, the one kernel above.
+paged_decode_attention_multi = paged_decode_attention
+paged_decode_attention_batched = paged_decode_attention
+paged_decode_attention_runs = paged_decode_attention
+
+# paged_kernel value -> wrapper (models/gemma.forward_paged_decode)
+VARIANTS = {
+    "one": paged_decode_attention,
+    "multi": paged_decode_attention_multi,
+    "batched": paged_decode_attention_batched,
+    "runs": paged_decode_attention_runs,
+}

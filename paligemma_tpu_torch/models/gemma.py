@@ -15,16 +15,25 @@ Two decode paths, as in the reference:
   hand-written kernels), then the final norm kernel and either the int8
   GEMV head (logits) or kernels/decode_head (greedy ids).
 Prefill attention takes the flash kernel when ``flash_lens`` is given.
+Decode rows may sit at different cache positions (``cache_pos`` a (B,)
+tensor: continuous batching).
+
+Over a paged KV pool (runtime/paged_cache, (L, n_pages, page_size, n_kv, d)):
+* ``forward_paged_decode``: the page walk, torch projections and one paged
+  attention per layer (kernels/paged_attention, or its plain version);
+* ``forward_paged_decode_fused``: kernels/decode_layer_paged, then the same
+  head as the fused dense path.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..core.config import GemmaConfig
-from ..kernels import decode_layer
+from ..kernels import decode_layer, decode_layer_paged
+from ..kernels import paged_attention as paged_attn
 from ..kernels.decode_elementwise import rms_norm as rms_norm_kernel
 from ..kernels.decode_head import head_argmax_fused
 from ..kernels.flash_attention import flash_attention
@@ -38,6 +47,7 @@ from .siglip import layer_params
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]  # {"k": (L,B,S,n_kv,d), "v": (L,B,S,n_kv,d)}
+CachePos = Union[int, torch.Tensor]  # one write offset, or (B,) int per row
 
 
 def init_kv_cache(
@@ -49,6 +59,13 @@ def init_kv_cache(
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def _embed_scale(cfg: GemmaConfig, dtype: torch.dtype) -> float:
+    """sqrt(hidden) rounded to the activation dtype, as the reference rounds
+    its normalizer. A Python number: a device tensor made from a Python
+    value is a host-to-device copy that waits for the card, once per step."""
+    return float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
 
 
 def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params):
@@ -87,7 +104,7 @@ def _decoder_block(
     sin: torch.Tensor,
     kv_cache: KVCache,
     layer_idx: int,
-    cache_pos: int,
+    cache_pos: CachePos,
     mask: Optional[torch.Tensor],  # (B, 1, S, W) additive (plain attention)
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     kv_bucket: Optional[int] = None,
@@ -104,8 +121,13 @@ def _decoder_block(
 
     k_all, v_all = kv_cache["k"], kv_cache["v"]
     # in-place cache write (the reference donates the cache instead)
-    k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
-    v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
+    if torch.is_tensor(cache_pos):  # per-row positions, one token per row
+        rows = torch.arange(b, device=x.device)
+        k_all[layer_idx, rows, cache_pos.long()] = k[:, 0].to(k_all.dtype)
+        v_all[layer_idx, rows, cache_pos.long()] = v[:, 0].to(v_all.dtype)
+    else:
+        k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
+        v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
 
     if flash_lens is not None:
         # prefill: the fresh k/v are exactly cache slots [0, S)
@@ -131,9 +153,26 @@ def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["embed"].T.to(x.dtype)
 
 
+def _decode_head(params: Params, h: torch.Tensor, greedy_head: bool):
+    """Head of the kernel decode paths on the final-normed (B, K) rows:
+    greedy ids from the argmax kernel (the (B, vocab) logits row is never
+    written), or fp32 logits (B, 1, vocab) from the int8 GEMV head."""
+    head_q = params.get("head_q", {})
+    if greedy_head and "w8_blk" in head_q:
+        return head_argmax_fused(h, head_q)
+    if "w8" in head_q:
+        logits = int8_gemv(h, head_q["w8"], head_q["s"])
+    else:
+        logits = lm_head(params, h)
+    logits = logits.float()[:, None, :]
+    if greedy_head:
+        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+    return logits
+
+
 def _fused_decode(
     params: Params, cfg: GemmaConfig, x: torch.Tensor, cos, sin,
-    kv_cache: KVCache, cache_pos: int, kv_valid: torch.Tensor,
+    kv_cache: KVCache, cache_pos: CachePos, kv_valid: torch.Tensor,
     kv_bucket: Optional[int], greedy_head: bool,
 ):
     """Single-token decode through the hand-written kernels."""
@@ -148,7 +187,10 @@ def _fused_decode(
     k_flat = kv_cache["k"].view(n_layers, b, max_seq, hd)  # n_kv == 1
     v_flat = kv_cache["v"].view(n_layers, b, max_seq, hd)
     window = min(kv_bucket or max_seq, max_seq)
-    pos = torch.full((b,), cache_pos, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(cache_pos):
+        pos = cache_pos.to(device=x.device, dtype=torch.int32)
+    else:
+        pos = torch.full((b,), cache_pos, dtype=torch.int32, device=x.device)
     valid = kv_valid[:, :window].contiguous()  # one copy for all layers
     # the layer chain writes the fresh K/V rows of every layer into the
     # cache in place (kernels/decode_layer), so k_new/v_new need no write here
@@ -158,18 +200,7 @@ def _fused_decode(
         cfg.rms_norm_eps,
     )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
-    head_q = params.get("head_q", {})
-    if greedy_head and "w8_blk" in head_q:
-        # the (B, vocab) logits row is never written
-        return head_argmax_fused(h, head_q), kv_cache
-    if "w8" in head_q:
-        logits = int8_gemv(h, head_q["w8"], head_q["s"])
-    else:
-        logits = lm_head(params, h)
-    logits = logits.float()[:, None, :]
-    if greedy_head:
-        return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
-    return logits, kv_cache
+    return _decode_head(params, h, greedy_head), kv_cache
 
 
 def forward(
@@ -178,8 +209,9 @@ def forward(
     input_embeds: torch.Tensor,  # (B, S, H), image embeds already merged
     position_ids: torch.Tensor,  # (B, S) int
     kv_cache: KVCache,
-    cache_pos: int,  # write offset into the cache
-    kv_valid: torch.Tensor,  # (B, max_seq) bool: attendable slots AFTER write
+    cache_pos: CachePos,  # write offset into the cache, or (B,) per row (S == 1)
+    kv_valid: torch.Tensor,  # (B, max_seq) bool: attendable slots AFTER write,
+    # or pairwise (B, S, max_seq) (recompute prefills, plain path)
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     logits_idx: Optional[torch.Tensor] = None,  # (B,) positions to project
     kv_bucket: Optional[int] = None,  # attend-window (decode)
@@ -189,8 +221,7 @@ def forward(
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
     int32 ids with ``greedy_head``, the cache updated in place)."""
     dtype = input_embeds.dtype
-    normalizer = torch.tensor(cfg.hidden_size**0.5, dtype=dtype, device=input_embeds.device)
-    x = input_embeds * normalizer
+    x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
     b, s = input_embeds.shape[:2]
     if kv_bucket is not None:
@@ -203,7 +234,8 @@ def forward(
     mask = None
     if flash_lens is None:
         kv_vis = kv_valid[..., :kv_bucket] if kv_bucket is not None else kv_valid
-        kv_vis = kv_vis[:, None, :].expand(b, s, kv_vis.shape[-1])
+        if kv_vis.dim() == 2:
+            kv_vis = kv_vis[:, None, :].expand(b, s, kv_vis.shape[-1])
         mask = attention.make_additive_mask(kv_vis)
 
     n_layers = kv_cache["k"].shape[0]
@@ -220,3 +252,94 @@ def forward(
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
     return logits, kv_cache
+
+
+def forward_paged_decode(
+    params: Params,
+    cfg: GemmaConfig,
+    input_embeds: torch.Tensor,  # (B, 1, H) one token per row
+    position_ids: torch.Tensor,  # (B, 1) int RoPE positions
+    pool: KVCache,  # {"k","v"}: (L, n_pages, page_size, n_kv, d), updated in place
+    page_table: torch.Tensor,  # (B, P_max) int32 physical page per logical page
+    write_pos: torch.Tensor,  # (B,) int32 logical position this token lands at
+    use_kernel: bool = True,
+    pages_bucket: Optional[int] = None,  # logical pages attended (covers every row)
+    paged_kernel: str = "multi",  # "one"|"multi"|"batched"|"runs": one kernel here
+) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token decode over the paged pool, the page walk: per layer,
+    write this token's K/V into page ``table[r, pos // ps]`` at slot
+    ``pos % ps``, then attend over the row's logical pages ``[0, pos]`` with
+    kernels/paged_attention reading the layer-stacked pool by offset
+    (``use_kernel=False``: its plain version). Returns (fp32 logits
+    (B, 1, vocab), the pool)."""
+    b = input_embeds.shape[0]
+    hd = cfg.head_dim
+    ps = pool["k"].shape[2]
+    dtype = input_embeds.dtype
+    x = input_embeds * _embed_scale(cfg, dtype)
+    cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta, dtype)
+    write_pos = write_pos.to(torch.int32)
+    kv_len = write_pos + 1
+    rows = torch.arange(b, device=x.device)
+    wp = write_pos.long()
+    page_of = page_table.long()[rows, wp // ps]  # (B,) physical page of this token
+    off_of = wp % ps
+    table = page_table.to(torch.int32)
+    if pages_bucket is not None:
+        table = table[:, : min(pages_bucket, table.shape[1])]
+    attend = paged_attn.VARIANTS[paged_kernel] if use_kernel else (
+        paged_attn.reference_paged_decode_attention)
+    for i in range(pool["k"].shape[0]):
+        lp = layer_params(params["layers"], i)
+        residual = x
+        y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, y, lp)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        pool["k"][i, page_of, off_of] = k[:, 0].to(pool["k"].dtype)
+        pool["v"][i, page_of, off_of] = v[:, 0].to(pool["v"].dtype)
+        a = attend(q[:, 0].contiguous(), pool["k"], pool["v"], table, kv_len,
+                   hd**-0.5, layer_idx=i)
+        x = residual + matmul_any(a.reshape(b, 1, -1), lp["attn"]["o"])
+        residual = x
+        y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+        x = residual + _mlp(y, lp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return lm_head(params, x).float(), pool
+
+
+def forward_paged_decode_fused(
+    params: Params,
+    cfg: GemmaConfig,
+    input_embeds: torch.Tensor,  # (B, 1, H)
+    position_ids: torch.Tensor,  # (B, 1) int
+    pool: KVCache,  # page pool (L, n_pages, page_size, 1, d), updated in place
+    page_table: torch.Tensor,  # (B, P_max) int32
+    write_pos: torch.Tensor,  # (B,) int32
+    pages_bucket: int,
+    greedy_head: bool = False,  # return argmax token ids, not logits
+) -> Tuple[torch.Tensor, KVCache]:
+    """Paged decode through kernels/decode_layer_paged, then the final norm
+    kernel and the head of the fused dense path (argmax kernel with
+    ``greedy_head`` and a blocked head, else int8 GEMV logits). Needs the
+    int8 serving tree (kernels/decode_layer.repack_layers); raises on a
+    tree, config or batch the kernels cannot take."""
+    b = input_embeds.shape[0]
+    n_layers, n_pages, ps = pool["k"].shape[:3]
+    if not decode_layer_paged.supported(cfg, params["layers"], b, ps):
+        raise ValueError(
+            "paged fused decode: the kernels need the int8 serving tree of "
+            "runtime.quantize, one KV head and a page size that "
+            "decode_layer_paged.supported accepts; use the page walk instead")
+    hd = cfg.head_dim
+    dtype = input_embeds.dtype
+    x = input_embeds * _embed_scale(cfg, dtype)
+    cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta, dtype)
+    h, _, _ = decode_layer_paged.layers_decode_fused_paged(
+        x, params["layers"], pool["k"].view(n_layers, n_pages, ps, hd),
+        pool["v"].view(n_layers, n_pages, ps, hd), page_table, write_pos,
+        cos[:, 0], sin[:, 0], cfg.num_attention_heads, hd, cfg.rms_norm_eps,
+        pages_bucket=pages_bucket,
+    )
+    h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
+    return _decode_head(params, h, greedy_head), pool

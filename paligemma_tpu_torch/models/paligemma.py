@@ -70,9 +70,16 @@ def prefill(
     kv_cache: gemma.KVCache,
     use_flash: bool = False,
     last_only: bool = False,
+    prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Vision encode + merge + decoder prefill. Returns (logits, cache);
-    ``last_only`` projects each row's last valid token only ((B, 1, vocab))."""
+    ``last_only`` projects each row's last valid token only ((B, 1, vocab)).
+
+    ``prefix_lens``: bidirectional-prefix length per row; None = the whole
+    prompt (PaliGemma's prefix-LM). A recompute prefill (a preempted serving
+    request re-entering as prompt + tokens so far, runtime/serving_paged)
+    passes the original prompt length: the regenerated suffix was produced
+    causally and is re-encoded causally."""
     dtype = params["lm"]["embed"].dtype
     image_features = siglip.encode(
         params["vision"], cfg.vision_config, pixel_values.to(dtype),
@@ -88,7 +95,17 @@ def prefill(
     n_valid = attention_mask.sum(dim=-1).to(torch.int32)
     kv_valid = torch.zeros((b, max_seq), dtype=torch.bool, device=input_ids.device)
     kv_valid[:, :s] = attention_mask.bool()
-    flash_lens = (n_valid, n_valid) if use_flash else None
+    flash_lens = None
+    if use_flash:
+        pfx = n_valid if prefix_lens is None else prefix_lens.to(n_valid.device, torch.int32)
+        flash_lens = (pfx, n_valid)
+    elif prefix_lens is not None:
+        # pairwise prefix-LM mask: query i sees key j iff j is a real token
+        # and (j < prefix or j <= i); prompt rows sit densely at [0, s)
+        i = torch.arange(s, device=input_ids.device)[None, :, None]
+        j = torch.arange(max_seq, device=input_ids.device)[None, None, :]
+        pfx = prefix_lens.to(input_ids.device).long()[:, None, None]
+        kv_valid = (j < n_valid.long()[:, None, None]) & ((j < pfx) | (j <= i))
     logits_idx = (n_valid - 1).clamp(min=0) if last_only else None
     return gemma.forward(
         params["lm"], cfg.text_config, merged, position_ids, kv_cache,
@@ -102,7 +119,7 @@ def decode_step(
     cfg: PaliGemmaConfig,
     token: torch.Tensor,  # (B,) last sampled token
     kv_cache: gemma.KVCache,
-    cache_pos: int,  # index this token is written at
+    cache_pos: gemma.CachePos,  # index this token is written at, or (B,) per row
     kv_valid: torch.Tensor,  # (B, max_seq) bool incl. this token's slot
     position_ids: torch.Tensor,  # (B,) RoPE position of this token
     kv_bucket: Optional[int] = None,
@@ -123,7 +140,7 @@ def decode_step_greedy(
     cfg: PaliGemmaConfig,
     token: torch.Tensor,
     kv_cache: gemma.KVCache,
-    cache_pos: int,
+    cache_pos: gemma.CachePos,
     kv_valid: torch.Tensor,
     position_ids: torch.Tensor,
     kv_bucket: Optional[int] = None,
@@ -137,4 +154,56 @@ def decode_step_greedy(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
         cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
         fused_layer=fused_layer, greedy_head=True,
+    )
+
+
+def decode_step_paged(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    token: torch.Tensor,  # (B,) last sampled token
+    pool: gemma.KVCache,  # page pool (L, n_pages, page_size, n_kv, d), in place
+    page_table: torch.Tensor,  # (B, P_max) int32
+    write_pos: torch.Tensor,  # (B,) int32 logical position of this token
+    position_ids: torch.Tensor,  # (B,) RoPE position of this token
+    pages_bucket: Optional[int] = None,  # logical pages attended (host-managed)
+    paged_kernel: str = "multi",
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Single-token decode over the paged pool. Returns ((B, vocab) fp32
+    logits, pool). ``paged_kernel``: "fused" (or "staged", the TPU's staging
+    hybrid, which maps onto it here) runs kernels/decode_layer_paged and
+    needs the int8 tree; "one" | "multi" | "batched" | "runs" run the page
+    walk with the paged attention kernel; "xla" runs the page walk on plain
+    torch ops only."""
+    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    if paged_kernel in ("fused", "staged"):
+        logits, pool = gemma.forward_paged_decode_fused(
+            params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
+            write_pos, pages_bucket=pages_bucket or page_table.shape[1],
+        )
+    else:
+        logits, pool = gemma.forward_paged_decode(
+            params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
+            write_pos, use_kernel=paged_kernel != "xla", pages_bucket=pages_bucket,
+            paged_kernel="multi" if paged_kernel == "xla" else paged_kernel,
+        )
+    return logits[:, 0, :], pool
+
+
+def decode_step_greedy_paged(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    token: torch.Tensor,
+    pool: gemma.KVCache,
+    page_table: torch.Tensor,
+    write_pos: torch.Tensor,
+    position_ids: torch.Tensor,
+    pages_bucket: Optional[int] = None,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Greedy paged step through kernels/decode_layer_paged and the argmax
+    head kernel: (next token (B,) int32, pool); the (B, vocab) logits row is
+    never written. Same tokens as ``argmax(decode_step_paged(..., "fused"))``."""
+    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    return gemma.forward_paged_decode_fused(
+        params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
+        write_pos, pages_bucket=pages_bucket or page_table.shape[1], greedy_head=True,
     )

@@ -9,9 +9,11 @@ can feed both frameworks the same draws (torch cannot reproduce JAX's PRNG).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
+
+PerRow = Union[float, torch.Tensor]  # one value, or (B,) per row
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -21,11 +23,19 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits.float().argmax(dim=-1).to(torch.int32)
 
 
-def top_p_mask_probs(probs_sorted: torch.Tensor, p: float) -> torch.Tensor:
+def _per_row(x: PerRow, ref: torch.Tensor) -> PerRow:
+    """A (B,) value as a (B, 1) fp32 column beside ``ref`` (B, vocab)."""
+    if torch.is_tensor(x):
+        return x.to(device=ref.device, dtype=torch.float32).reshape(-1, 1)
+    return x
+
+
+def top_p_mask_probs(probs_sorted: torch.Tensor, p: PerRow) -> torch.Tensor:
     """Zero out tokens outside the top-p nucleus (descending-sorted probs);
-    keeps the first token whose inclusion crosses ``p``."""
+    keeps the first token whose inclusion crosses ``p`` (a float, or (B,)
+    per row)."""
     cumsum = probs_sorted.cumsum(dim=-1)
-    mask = (cumsum - probs_sorted) > p
+    mask = (cumsum - probs_sorted) > _per_row(p, probs_sorted)
     return torch.where(mask, torch.zeros_like(probs_sorted), probs_sorted)
 
 
@@ -41,12 +51,14 @@ def gumbel_noise(
 def sample_top_p(
     generator: Optional[torch.Generator],
     logits: torch.Tensor,  # (B, vocab)
-    temperature: float,
-    top_p: float,
+    temperature: PerRow,
+    top_p: PerRow,
     noise: Optional[torch.Tensor] = None,  # (B, vocab) Gumbel draws
 ) -> torch.Tensor:
-    """Temperature + top-p sample. Returns (B,) int32 token ids."""
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    """Temperature + top-p sample. Returns (B,) int32 token ids.
+    ``temperature`` and ``top_p`` are floats, or (B,) tensors applied per row
+    (the serving tick's per-request settings)."""
+    probs = torch.softmax(logits.float() / _per_row(temperature, logits), dim=-1)
     # stable descending sort: equal probabilities keep index order, like
     # jnp.argsort(-probs)
     probs_sorted, sort_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -63,8 +75,8 @@ def sample_top_p(
 def sample(
     generator: Optional[torch.Generator],
     logits: torch.Tensor,
-    temperature: float = 0.8,
-    top_p: float = 0.9,
+    temperature: PerRow = 0.8,
+    top_p: PerRow = 0.9,
     do_sample: bool = False,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:

@@ -1,0 +1,532 @@
+"""Continuous-batching serving engine (port of
+paligemma_tpu/runtime/serving.py, one device).
+
+A fixed pool of ``max_slots`` sequence slots over one preallocated KV cache;
+every tick decodes one token for every active slot in lockstep (per-row
+cache and RoPE positions):
+
+* ``submit`` queues a request (ids + pixels + sampling settings);
+* free slots are filled by prefills grouped by prompt-length bucket and
+  split into power-of-two chunks, whose KV rows are copied into the slots;
+* a window of ``sync_every`` ticks is enqueued on the device with no host
+  synchronization inside; its tokens are read back once (``_absorb``);
+* rows retire on EOS or budget and their slots are reused at once.
+
+With ``pipeline`` (the default on a CUDA device), window N+1 is enqueued
+before window N's tokens are read back: the tokens of each window are
+copied to pinned host memory behind an event right after its last tick,
+so the read-back waits for that window only.
+
+``fused_decode`` and ``use_flash`` default to True on a CUDA device: greedy
+ticks then run the decode kernel chain with the argmax head kernel, sampled
+ticks the chain with the int8 GEMV head, and prefill the flash kernel. A
+decode tree or config the kernels cannot take raises.
+
+Not ported: the mesh (tensor/data parallel), speculative decoding, grammars,
+LoRA banks, the prefix cache, W8A8 prefill and ``warmup`` (XLA compiles);
+the constructor raises ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import PaliGemmaConfig
+from ..kernels import decode_head as _dh
+from ..kernels import decode_layer as _dl
+from ..models import gemma, paligemma
+from ..ops import sampling
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    input_ids: np.ndarray  # (S,) int32
+    pixel_values: np.ndarray  # (C, H, W)
+    max_new_tokens: int = 100
+    temperature: float = 0.8
+    top_p: float = 0.9
+    do_sample: bool = False
+    eos_token_id: int = 1
+    lora: Optional[str] = None  # multi-LoRA serving: not ported (must stay None)
+    grammar: Optional[str] = None  # constrained decoding: not ported (must stay None)
+    # host-side callback with each accepted token id, as the scheduler absorbs it
+    on_token: Optional[Any] = None
+    # engine-stamped wall-clock marks (time.perf_counter seconds): submit ->
+    # seated (prefill done) -> first token absorbed -> finished. TTFT here
+    # includes queueing and the read-back lag of a window.
+    t_submit: Optional[float] = None
+    t_seated: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_finished: Optional[float] = None
+    # filled by the engine
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # engine-managed: bidirectional-prefix length for recompute prefills (set
+    # on preemption to the original prompt length; None = the whole prompt)
+    prefix_len: Optional[int] = None
+    # engine-managed: bumped on preemption or cancel so that windows
+    # dispatched before it are discarded, not counted twice
+    epoch: int = 0
+
+    def metrics(self) -> Dict[str, Any]:
+        """Latency/throughput summary ({} until finished)."""
+        if self.t_finished is None or self.t_submit is None:
+            return {}
+        decode_s = self.t_finished - self.t_first_token
+        return {
+            "queue_ms": round((self.t_seated - self.t_submit) * 1e3, 1),
+            "ttft_ms": round((self.t_first_token - self.t_submit) * 1e3, 1),
+            "total_ms": round((self.t_finished - self.t_submit) * 1e3, 1),
+            "decode_tokens_per_sec": (
+                round((len(self.tokens) - 1) / decode_s, 1)
+                if decode_s > 0 and len(self.tokens) > 1 else None
+            ),
+        }
+
+
+@dataclasses.dataclass
+class _Window:
+    """One dispatched decode window whose tokens are not read back yet."""
+    tokens: torch.Tensor  # (ticks, max_slots) int32, on the host once ``ready``
+    ticks: int
+    snapshot: List[Optional[tuple]]  # (request, epoch at dispatch) per slot
+    ready: Optional[torch.cuda.Event] = None  # the host copy landed (CUDA)
+
+
+_NOT_PORTED = ("mesh", "spec_decode", "lora_bank", "grammars", "prefix_cache",
+               "int8_act_prefill")
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        config: PaliGemmaConfig,
+        max_slots: int = 8,
+        max_seq_len: int = 1024,
+        cache_dtype: Optional[torch.dtype] = None,
+        use_flash: Optional[bool] = None,
+        decode_params: Optional[Dict[str, Any]] = None,
+        sync_every: int = 8,
+        fused_decode: Optional[bool] = None,
+        pipeline: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
+        mesh=None,
+        spec_decode: bool = False,
+        lora_bank=None,
+        grammars=None,
+        prefix_cache: bool = False,
+        int8_act_prefill: bool = False,
+    ):
+        """``decode_params``: optional second weight set (the int8 tree of
+        runtime.quantize) for the lockstep decode while ``params`` serves the
+        prefills. The device is the one the params live on; the KV cache
+        takes the embedding table's dtype unless ``cache_dtype`` is given.
+
+        ``sync_every``: decode ticks per host read-back; EOS detection lags
+        by up to that many tokens (the overshoot is discarded).
+        ``generator``: the draws of sampled requests (default: seed 0 on the
+        device)."""
+        given = dict(mesh=mesh, spec_decode=spec_decode, lora_bank=lora_bank,
+                     grammars=grammars, prefix_cache=prefix_cache,
+                     int8_act_prefill=int8_act_prefill)
+        unported = [k for k in _NOT_PORTED if given[k]]
+        if unported:
+            raise NotImplementedError(f"ServingEngine: {', '.join(unported)} not ported")
+        self.config = config
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.params = params
+        self.decode_params = decode_params if decode_params is not None else params
+        self.device = params["lm"]["embed"].device
+        self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
+        on_cuda = self.device.type == "cuda"
+        self.use_flash = on_cuda if use_flash is None else use_flash
+        self.pipeline = on_cuda if pipeline is None else pipeline
+        self.generator = generator if generator is not None else (
+            torch.Generator(device=self.device).manual_seed(0))
+        self.fused_decode = self._setup_fused(on_cuda if fused_decode is None else fused_decode)
+
+        self._rows = torch.arange(max_slots, device=self.device)
+        self.cache = self._init_cache()
+        self.state = self._zero_state()
+        self.slots: List[Optional[Request]] = [None] * max_slots
+        self.pending: List[Request] = []
+        self._generated: Dict[int, int] = {}  # absorbed (read-back) tokens
+        self._dispatched: Dict[int, int] = {}  # dispatched, incl. in flight
+        self.prefill_calls = 0  # batched prefill dispatches
+        self.sync_every = max(1, sync_every)
+        self._sched_cache = None  # (slot fingerprint, device sampling arrays)
+        # prefill prompt-length bucket granularity (the paged engine uses its
+        # page size so that buckets stay page-aligned)
+        self._bucket_gran = 64
+
+    def _setup_fused(self, fused: bool) -> bool:
+        """Decide the kernel decode path once: the dense kernel chain needs
+        what kernels/decode_layer.supported accepts at ``max_slots`` rows; a
+        tree or config it cannot take raises, it never falls back."""
+        if not fused:
+            return False
+        layers = self.decode_params["lm"]["layers"]
+        if not _dl.supported(self.config.text_config, layers, self.max_slots):
+            raise ValueError(
+                "fused_decode (the default on a CUDA device) needs one KV head and the "
+                "int8 decode tree of runtime.quantize.quantize_lm_for_serving; pass "
+                "decode_params=that tree, or fused_decode=False for the plain path")
+        dp = dict(self.decode_params)
+        dp["lm"] = dict(dp["lm"])
+        dp["lm"]["layers"] = _dl.repack_layers(layers)
+        if "head_q" in dp["lm"]:
+            dp["lm"]["head_q"] = _dh.repack_head(dp["lm"]["head_q"])
+        self.decode_params = dp
+        return True
+
+    def _init_cache(self):
+        """Allocate the KV backend (hook: the paged engine allocates pages)."""
+        return gemma.init_kv_cache(self.config.text_config, self.max_slots,
+                                   self.max_seq_len, self.cache_dtype, self.device)
+
+    def _kv_bucket(self, highest_write_pos: int) -> Optional[int]:
+        """Smallest power-of-two cache window (>= 512) covering the position;
+        None = the full cache."""
+        b = 512
+        while b < highest_write_pos + 1:
+            b *= 2
+        return b if b < self.max_seq_len else None
+
+    def _zero_state(self) -> Dict[str, torch.Tensor]:
+        n, dev = self.max_slots, self.device
+        return {
+            "next_tok": torch.zeros((n,), dtype=torch.int32, device=dev),
+            "valid": torch.zeros((n, self.max_seq_len), dtype=torch.bool, device=dev),
+            "write_pos": torch.zeros((n,), dtype=torch.int32, device=dev),
+            "pos_ids": torch.ones((n,), dtype=torch.int32, device=dev),
+            "logits": torch.zeros((n, self.config.vocab_size), dtype=torch.float32, device=dev),
+        }
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device without waiting for queued device work (a
+        copy from pinned memory on a CUDA device; ``torch.tensor(...,
+        device=...)`` would wait for the card to drain)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Queue a request. An over-long prompt raises here, so that one bad
+        request cannot stop the scheduler for everyone else."""
+        budget = self.max_seq_len - 1  # at least one decode slot must remain
+        if len(req.input_ids) > budget:
+            raise ValueError(
+                f"request {req.request_id}: prompt of {len(req.input_ids)} tokens exceeds the "
+                f"per-slot budget ({budget} = max_seq_len {self.max_seq_len} - 1 decode slot)")
+        if req.lora is not None or req.grammar is not None:
+            raise NotImplementedError(
+                f"request {req.request_id}: LoRA adapters and grammars are not ported")
+        # prompt + generated never writes past max_seq_len
+        req.max_new_tokens = min(req.max_new_tokens, self.max_seq_len - len(req.input_ids))
+        req.t_submit = time.perf_counter()
+        self.pending.append(req)
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a queued or seated request; False for an unknown or finished
+        one. A seated request's slot frees at once, and the epoch bump makes
+        an already-dispatched window discard its tokens. ``req.tokens``
+        keeps what was accepted before."""
+        for i, req in enumerate(self.pending):
+            if req.request_id == request_id:
+                del self.pending[i]
+                req.done = True
+                return True
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.request_id == request_id:
+                req.done = True
+                req.epoch += 1
+                self.slots[slot] = None
+                self._release_slot(slot)
+                return True
+        return False
+
+    def _bucket_of(self, req: Request) -> int:
+        g = self._bucket_gran
+        return min(((len(req.input_ids) + g - 1) // g) * g, self.max_seq_len)
+
+    def _admit(self, free_slots: list) -> List[Request]:
+        """Pending requests to admit this round, FIFO (hook: the paged engine
+        caps admission by free pages too); removes them from ``pending``."""
+        take = self.pending[: len(free_slots)]
+        del self.pending[: len(take)]
+        return take
+
+    def _take_slot(self, free: list, req: Request) -> int:
+        """Pop the slot ``req`` will occupy from ``free``."""
+        return free.pop(0)
+
+    def _insert_chunk(self, seated, cache1, mask, last_logits) -> None:
+        """Seat one prefill chunk: row r goes to slot ``seated[r][0]`` (hook:
+        the paged engine writes pages instead)."""
+        slots = self._upload(np.asarray([slot for slot, _ in seated], np.int64))
+        bucket = mask.shape[1]
+        for n in ("k", "v"):
+            self.cache[n][:, slots, :bucket] = cache1[n].to(self.cache_dtype)
+        st = self.state
+        st["valid"][slots] = False
+        st["valid"][slots, :bucket] = mask.bool()
+        st["write_pos"][slots] = self._upload(np.asarray([len(r.input_ids) for _, r in seated],
+                                                         np.int32))
+        st["pos_ids"][slots] = mask.sum(dim=-1).to(torch.int32) + 1
+        st["logits"][slots] = last_logits
+        st["next_tok"][slots] = last_logits.argmax(dim=-1).to(torch.int32)
+
+    def _release_slot(self, slot: int) -> None:
+        """Called when a request retires (hook: the paged engine frees pages)."""
+
+    def _fill_slots(self) -> None:
+        free = [i for i in range(self.max_slots) if self.slots[i] is None]
+        if not free or not self.pending:
+            return
+        take = self._admit(free)
+        if take:
+            self._prefill_wave([(self._take_slot(free, req), req) for req in take])
+
+    def _prefill_wave(self, need_prefill: list) -> None:
+        """Group by prompt-length bucket, then split each group into exact
+        power-of-two chunks (16 + 4 + 1 for 21): one prefill per chunk."""
+        groups: Dict[int, list] = {}
+        for slot, req in need_prefill:
+            groups.setdefault(self._bucket_of(req), []).append((slot, req))
+        chunks = []
+        for bucket, seated in groups.items():
+            while seated:
+                take = 1 << (len(seated).bit_length() - 1)  # largest pow2 <=
+                chunks.append((bucket, seated[:take]))
+                seated = seated[take:]
+        for bucket, seated in chunks:
+            n = len(seated)
+            ids_np = np.zeros((n, bucket), np.int32)
+            mask_np = np.zeros((n, bucket), np.int32)
+            pfx_np = np.zeros((n,), np.int32)
+            pix_np = np.zeros((n,) + tuple(seated[0][1].pixel_values.shape), np.float32)
+            for r, (_, req) in enumerate(seated):
+                s = len(req.input_ids)
+                ids_np[r, :s] = req.input_ids
+                mask_np[r, :s] = 1
+                pfx_np[r] = s if req.prefix_len is None else req.prefix_len
+                pix_np[r] = req.pixel_values
+            mask = self._upload(mask_np)
+            # the prefill writes exactly [0, bucket): a bucket-long cache
+            cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
+                                         self.device)
+            logits, cache1 = paligemma.prefill(
+                self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
+                mask, cache1, use_flash=self.use_flash, last_only=True,
+                prefix_lens=self._upload(pfx_np),
+            )
+            self.prefill_calls += 1
+            self._insert_chunk(seated, cache1, mask, logits[:, 0])
+            for slot, req in seated:
+                self.slots[slot] = req
+                req.t_seated = time.perf_counter()
+                self._generated[req.request_id] = 0
+                self._dispatched[req.request_id] = 0
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.pending) or any(r is not None for r in self.slots)
+
+    def _before_window(self, ticks: int) -> None:
+        """Hook run before each decode window, after admission: the paged
+        engine grows page allocations here (and may preempt)."""
+
+    def _select(self, temps, top_ps, do_samples, with_sampling: bool) -> torch.Tensor:
+        """The token each row consumes this tick: the carried greedy token,
+        or a top-p draw from the row's stored logits for sampled rows."""
+        greedy_tok = self.state["next_tok"]
+        if not with_sampling:
+            return greedy_tok
+        sampled = sampling.sample_top_p(self.generator, self.state["logits"], temps, top_ps)
+        return torch.where(do_samples, sampled, greedy_tok)
+
+    def _advance(self, active, next_tok, new_logits=None) -> None:
+        """Per-row state after a tick: active rows step their positions and
+        take the new pending token (and logits, when the tick made them).
+
+        A row whose request filled the cache to ``max_seq_len`` keeps
+        writing on every later tick until its slot is seated again (its
+        output is discarded). Its write position is clamped to the row's
+        last slot, so that those writes stay in the row: an active row never
+        reaches the clamp (``submit`` caps its budget)."""
+        st = self.state
+        inc = active.to(torch.int32)
+        st["write_pos"] = (st["write_pos"] + inc).clamp_(max=self.max_seq_len - 1)
+        st["pos_ids"] = st["pos_ids"] + inc
+        if new_logits is not None:
+            st["logits"] = torch.where(active[:, None], new_logits, st["logits"])
+            next_tok = new_logits.argmax(dim=-1).to(torch.int32)
+        st["next_tok"] = torch.where(active, next_tok, st["next_tok"])
+
+    def _tick(self, active, temps, top_ps, do_samples, with_sampling, kv_bucket):
+        """One lockstep decode step; returns the (max_slots,) token consumed."""
+        token = self._select(temps, top_ps, do_samples, with_sampling)
+        st = self.state
+        st["valid"][self._rows, st["write_pos"].long()] = active
+        kw = dict(cache_pos=st["write_pos"], kv_valid=st["valid"],
+                  position_ids=st["pos_ids"], kv_bucket=kv_bucket)
+        if not with_sampling and self.fused_decode:
+            # greedy tick: the argmax head kernel returns the ids; the
+            # (slots, vocab) logits row is never written (stored logits go
+            # stale, and greedy selection never reads them)
+            next_tok, _ = paligemma.decode_step_greedy(
+                self.decode_params, self.config, token, self.cache, **kw)
+            self._advance(active, next_tok)
+        else:
+            new_logits, _ = paligemma.decode_step(
+                self.decode_params, self.config, token, self.cache,
+                fused_layer=self.fused_decode, **kw)
+            self._advance(active, None, new_logits)
+        return token
+
+    def _decode_window(self, lefts, ticks: int, tick) -> torch.Tensor:
+        """``ticks`` lockstep steps enqueued with no host synchronization;
+        ``tick(active)`` runs one and returns the tokens consumed. ``lefts``:
+        each row's remaining dispatch budget; a row goes inactive when it
+        runs out (its positions stop, the tokens it still emits are
+        discarded at absorb). Returns the (ticks, max_slots) tokens."""
+        tokens = []
+        for _ in range(ticks):
+            tokens.append(tick(lefts > 0))
+            lefts = (lefts - 1).clamp(min=0)
+        return torch.stack(tokens)
+
+    def _run_window(self, ticks: int, lefts, temps, top_ps, do_samples,
+                    with_sampling: bool) -> torch.Tensor:
+        """One decode window (hook: the paged engine walks its pool). The
+        attended window covers every active row's positions through this
+        window, from host bookkeeping (prompt + tokens dispatched so far)."""
+        kv_bucket = self._kv_bucket(max(
+            (len(r.input_ids) + self._dispatched[r.request_id] for r in self.slots
+             if r is not None), default=0) + ticks)
+        return self._decode_window(lefts, ticks, lambda active: self._tick(
+            active, temps, top_ps, do_samples, with_sampling, kv_bucket))
+
+    def _dispatch(self) -> Optional[_Window]:
+        """Fill free slots, size one decode window from dispatched budgets
+        and enqueue it. Returns the window (None when no slot can decode);
+        ``ticks`` is ``sync_every``, or 1 for tail windows."""
+        self._fill_slots()
+
+        def _lefts():
+            return [r.max_new_tokens - self._dispatched[r.request_id] if r is not None else 0
+                    for r in self.slots]
+
+        maxleft = max(_lefts(), default=0)
+        if maxleft <= 0:
+            return None
+        ticks = self.sync_every if maxleft >= self.sync_every else 1
+        self._before_window(ticks)  # may preempt slots (paged)
+        lefts = _lefts()  # again: preemption changes the slot set
+        if not any(l > 0 for l in lefts):
+            return None
+        # per-request sampling arrays, re-uploaded only when the slot
+        # composition changes
+        fingerprint = tuple(r.request_id if r else None for r in self.slots)
+        if self._sched_cache is None or self._sched_cache[0] != fingerprint:
+            temps = np.asarray([r.temperature if r else 1.0 for r in self.slots], np.float32)
+            top_ps = np.asarray([r.top_p if r else 1.0 for r in self.slots], np.float32)
+            do_s = np.asarray([bool(r.do_sample) if r else False for r in self.slots])
+            self._sched_cache = (fingerprint, (self._upload(temps), self._upload(top_ps),
+                                               self._upload(do_s)))
+        temps_t, top_t, do_t = self._sched_cache[1]
+        with_sampling = any(r is not None and r.do_sample for r in self.slots)
+        charges = [min(ticks, max(l, 0)) for l in lefts]
+        tokens = self._run_window(ticks, self._upload(np.asarray(charges, np.int32)), temps_t,
+                                  top_t, do_t, with_sampling)
+        ready = None
+        if tokens.is_cuda:  # start the read-back now, behind this window only
+            host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+            host.copy_(tokens, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            tokens = host
+        snapshot: List[Optional[tuple]] = []
+        for slot, req in enumerate(self.slots):
+            if req is not None and charges[slot] > 0:
+                self._dispatched[req.request_id] += charges[slot]
+                snapshot.append((req, req.epoch))
+            else:
+                snapshot.append(None)
+        return _Window(tokens, ticks, snapshot, ready)
+
+    def _absorb(self, window: _Window) -> List[Request]:
+        """Read one window's tokens back (the only host synchronization) and
+        retire finished requests. Tokens of requests that retired, were
+        cancelled or were preempted after dispatch are discarded."""
+        if window.ready is not None:
+            window.ready.synchronize()
+        token_np = window.tokens.numpy()
+        finished: List[Request] = []
+        for slot, snap in enumerate(window.snapshot):
+            if snap is None:
+                continue
+            req, epoch = snap
+            if req.done or req.epoch != epoch or self.slots[slot] is not req:
+                continue  # retired/preempted since dispatch
+            now = time.perf_counter()
+            for t in range(window.ticks):
+                tok = int(token_np[t, slot])
+                req.tokens.append(tok)
+                if req.t_first_token is None:
+                    req.t_first_token = now
+                if req.on_token is not None:
+                    req.on_token(tok)
+                self._generated[req.request_id] += 1
+                out_of_budget = (
+                    self._generated[req.request_id] >= req.max_new_tokens
+                    or len(req.input_ids) + self._generated[req.request_id] >= self.max_seq_len
+                )
+                if tok == req.eos_token_id or out_of_budget:
+                    req.done = True
+                    req.t_finished = now
+                    finished.append(req)
+                    self.slots[slot] = None
+                    self._release_slot(slot)
+                    break  # overshoot tokens within the window are discarded
+        return finished
+
+    def step(self) -> List[Request]:
+        """One scheduler round, unpipelined: fill slots, decode one window,
+        read it back, retire finished requests. Returns the finished ones."""
+        window = self._dispatch()
+        return self._absorb(window) if window is not None else []
+
+    def run_to_completion(self, pipeline: Optional[bool] = None) -> List[Request]:
+        """Drain the queue. With ``pipeline`` (default: the engine's),
+        window N+1 is enqueued before window N is read back; each request's
+        tokens are the same, only retirement and admission shift by one
+        window."""
+        if pipeline is None:
+            pipeline = self.pipeline
+        done: List[Request] = []
+        if not pipeline:
+            while self.has_work:
+                done.extend(self.step())
+            return done
+        inflight: Optional[_Window] = None
+        while self.has_work or inflight is not None:
+            window = self._dispatch() if self.has_work else None
+            if inflight is not None:
+                done.extend(self._absorb(inflight))
+            elif window is None and self.has_work:
+                # nothing dispatchable and nothing in flight (the head of the
+                # queue cannot be admitted yet): one stepwise round
+                done.extend(self.step())
+            inflight = window
+        return done

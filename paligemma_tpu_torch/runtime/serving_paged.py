@@ -1,0 +1,276 @@
+"""Paged continuous-batching engine (port of
+paligemma_tpu/runtime/serving_paged.py, one device): the slot-pool scheduler
+of runtime/serving over a shared KV page pool instead of a
+``max_slots x max_seq_len`` reservation.
+
+* KV lives in fixed-size pages of one pool ``(L, n_pages, page_size, n_kv,
+  d)``; a request holds ``ceil(len / page_size)`` pages and grows a page at
+  a time while decoding, so memory follows live tokens.
+* Admission is FIFO until slots or pages run out (no skip-ahead).
+* Preemption: when the pool cannot cover the next window, the youngest
+  request is evicted, its pages freed, and it re-enters the queue front as
+  a recompute request (prompt + tokens so far, the original prompt as its
+  bidirectional prefix).
+
+``paged_kernel`` selects the decode tick on the kernel path
+(``fused_decode``, the default on a CUDA device): "fused" (and "staged",
+which maps onto it) runs kernels/decode_layer_paged, with the argmax head
+kernel for greedy windows; "one" | "multi" | "batched" | "runs" run the page
+walk with the paged attention kernel per layer; "xla" the page walk on
+plain torch ops. ``fused_decode=False`` runs every tick on the plain page
+walk ("xla"). A tree, config or page size the chosen kernels cannot take
+raises.
+
+Not ported: the mesh (tensor/data parallel), speculative decoding, LoRA
+banks, grammars, the prefix cache and W8A8 prefill.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import PaliGemmaConfig
+from ..kernels import decode_head as _dh
+from ..kernels import decode_layer as _dl
+from ..kernels import decode_layer_paged as _dlp
+from ..kernels import paged_attention as _pa
+from ..models import paligemma
+from .paged_cache import PagedKVCache
+from .serving import Request, ServingEngine
+
+PAGED_KERNELS = ("fused", "staged", "one", "multi", "batched", "runs", "xla")
+
+
+class PagedServingEngine(ServingEngine):
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        config: PaliGemmaConfig,
+        max_slots: int = 16,
+        max_seq_len: int = 1024,
+        page_size: int = 64,
+        n_pages: Optional[int] = None,
+        cache_dtype: Optional[torch.dtype] = None,
+        use_flash: Optional[bool] = None,
+        decode_params: Optional[Dict[str, Any]] = None,
+        sync_every: int = 8,
+        paged_kernel: str = "fused",
+        fused_decode: Optional[bool] = None,
+        pipeline: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
+        **not_ported,
+    ):
+        """``n_pages``: physical pool size, page 0 being the garbage page
+        (default: half the dense engine's reservation). ``max_seq_len``
+        bounds one request's length (the page table's width) and reserves
+        nothing. ``not_ported``: the dense engine's mesh, spec_decode,
+        lora_bank, grammars, prefix_cache and int8_act_prefill, which raise
+        when set."""
+        if max_seq_len % page_size:
+            raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
+                             f"{page_size}")
+        if paged_kernel not in PAGED_KERNELS:
+            raise ValueError(f"paged_kernel {paged_kernel!r} not in {PAGED_KERNELS}")
+        if n_pages is None:
+            n_pages = max(max_slots * max_seq_len // page_size // 2, 8)
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.paged_kernel = paged_kernel
+        self._admission_order: List[int] = []  # slot ids, oldest first
+        self.preemptions = 0  # recompute evictions so far
+        super().__init__(
+            params, config, max_slots=max_slots, max_seq_len=max_seq_len,
+            cache_dtype=cache_dtype, use_flash=use_flash, decode_params=decode_params,
+            sync_every=sync_every, fused_decode=fused_decode, pipeline=pipeline,
+            generator=generator, **not_ported,
+        )
+        # page-aligned prefill buckets: a short prompt takes exactly its pages
+        self._bucket_gran = max(page_size, 16)
+
+    def _setup_fused(self, fused: bool) -> bool:
+        """Decide the tick once: the plain page walk without ``fused``;
+        else the kernels ``paged_kernel`` names, which raise on what they
+        cannot take."""
+        if not fused:
+            self.paged_kernel = "xla"
+            return False
+        tc = self.config.text_config
+        layers = self.decode_params["lm"]["layers"]
+        if self.paged_kernel == "staged":
+            self.paged_kernel = "fused"  # the TPU's staging hybrid: one chain here
+        if self.paged_kernel == "fused":
+            if not _dlp.supported(tc, layers, self.max_slots, self.page_size):
+                raise ValueError(
+                    "paged_kernel='fused' on the kernel path needs one KV head, the int8 "
+                    "decode tree of runtime.quantize.quantize_lm_for_serving and a page size "
+                    "that kernels/decode_layer_paged.supported accepts; pass decode_params="
+                    "that tree, a page-walk paged_kernel, or fused_decode=False")
+            dp = dict(self.decode_params)
+            dp["lm"] = dict(dp["lm"])
+            dp["lm"]["layers"] = _dl.repack_layers(layers)
+            if "head_q" in dp["lm"]:
+                dp["lm"]["head_q"] = _dh.repack_head(dp["lm"]["head_q"])
+            self.decode_params = dp
+        elif self.paged_kernel != "xla" and not _pa.supported(self.page_size, tc.head_dim):
+            raise ValueError(f"paged_kernel={self.paged_kernel!r}: the paged attention kernel "
+                             f"cannot take page_size {self.page_size} / head_dim {tc.head_dim}")
+        return True
+
+    # -- backend hooks --------------------------------------------------
+    def _init_cache(self):
+        """Page pool instead of the dense max_slots x max_seq_len block."""
+        self.paged = PagedKVCache(
+            self.config.text_config, n_pages=self.n_pages, page_size=self.page_size,
+            max_slots=self.max_slots, max_pages_per_slot=self.max_seq_len // self.page_size,
+            dtype=self.cache_dtype, device=self.device,
+        )
+        return self.paged.pool
+
+    def _zero_state(self) -> Dict[str, torch.Tensor]:
+        # no validity bitmap: paged rows are [0, write_pos] by construction
+        state = super()._zero_state()
+        del state["valid"]
+        return state
+
+    def _admit(self, free_slots: list) -> List[Request]:
+        """FIFO admission bounded by free slots and free pages, each request
+        with one decode page of headroom; stops at the first request that
+        does not fit (no skip-ahead, so long prompts are not starved)."""
+        take: List[Request] = []
+        budget = self.paged.free_pages()
+        for req in self.pending:
+            if len(take) == len(free_slots):
+                break
+            need = self.paged.pages_for(self._bucket_of(req)) + 1
+            if budget < need:
+                break
+            budget -= need
+            take.append(req)
+        del self.pending[: len(take)]
+        return take
+
+    def _insert_chunk(self, seated, cache1, mask, last_logits) -> None:
+        """Each row's KV lands in its slot's pages (the tables differ per
+        row, so the seat is per row)."""
+        for r, (slot, req) in enumerate(seated):
+            self._insert_row(slot, req, r, cache1, mask, last_logits)
+
+    def _insert_row(self, slot: int, req: Request, row: int, cache1, mask, last_logits) -> None:
+        """Copy prefill row ``row`` into the slot's pages (one copy per K/V
+        slab, all layers) and seat its state."""
+        bucket = mask.shape[1]
+        if not self.paged.grow_to(slot, bucket):
+            raise RuntimeError("admission reserved the pages; grow_to must succeed")
+        n_chunks = bucket // self.page_size
+        pages = self._upload(np.asarray(self.paged.slot_pages(slot)[:n_chunks], np.int64))
+        for n in ("k", "v"):
+            rows = cache1[n][:, row].reshape(cache1[n].shape[0], n_chunks, self.page_size,
+                                             *cache1[n].shape[3:])
+            self.cache[n][:, pages] = rows.to(self.cache_dtype)
+        st = self.state
+        prompt_len = len(req.input_ids)
+        st["write_pos"][slot] = prompt_len
+        st["pos_ids"][slot] = prompt_len + 1
+        st["logits"][slot] = last_logits[row]
+        st["next_tok"][slot] = last_logits[row].argmax().to(torch.int32)
+        self._admission_order.append(slot)
+
+    def _release_slot(self, slot: int) -> None:
+        self.paged.release(slot)
+        if slot in self._admission_order:
+            self._admission_order.remove(slot)
+
+    def _before_window(self, ticks: int) -> None:
+        """Grow every active slot's pages to cover this window, oldest first;
+        preempt the youngest request whenever the pool is short. Growth
+        covers dispatched positions (an in-flight window writes its KV
+        before its tokens are read back)."""
+        for slot in list(self._admission_order):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            need = len(req.input_ids) + self._dispatched[req.request_id] + ticks
+            while not self.paged.grow_to(slot, min(need, self.max_seq_len)):
+                if self._preempt_youngest(exclude=slot) is None:
+                    raise RuntimeError(
+                        f"page pool too small for a single request of {need} tokens "
+                        f"(pool={self.n_pages} pages x {self.page_size})")
+
+    def _preempt_youngest(self, exclude: int) -> Optional[int]:
+        """Evict the most recently admitted request (except ``exclude``):
+        free its pages and put it back at the queue front as a recompute
+        request (prompt + tokens so far; the remaining budget)."""
+        for slot in reversed(self._admission_order):
+            if slot == exclude or self.slots[slot] is None:
+                continue
+            req = self.slots[slot]
+            gen = self._generated.pop(req.request_id, 0)
+            self._dispatched.pop(req.request_id, None)
+            req.epoch += 1  # in-flight windows carry tokens past ``gen``
+            if req.prefix_len is None:
+                # the original prompt stays the bidirectional prefix; the
+                # regenerated suffix is re-encoded causally
+                req.prefix_len = len(req.input_ids)
+            emitted = req.tokens[len(req.tokens) - gen:] if gen else []
+            req.input_ids = np.concatenate([np.asarray(req.input_ids, np.int32),
+                                            np.asarray(emitted, np.int32)])
+            req.max_new_tokens = max(req.max_new_tokens - gen, 1)
+            self.slots[slot] = None
+            self._release_slot(slot)
+            self._sched_cache = None  # slot composition changed
+            self.pending.insert(0, req)
+            self.preemptions += 1
+            return slot
+        return None
+
+    def _pages_bucket(self, ticks: int) -> int:
+        """Smallest power-of-two count of logical pages covering every
+        active slot through this window: reads follow live tokens."""
+        need = max((self.paged.pages_for(len(r.input_ids) + self._dispatched[r.request_id]
+                                         + ticks) for r in self.slots if r is not None),
+                   default=1)
+        b = 1
+        while b < need:
+            b *= 2
+        return min(b, self.max_seq_len // self.page_size)
+
+    def _kernel_for_bucket(self, pages_bucket: int) -> str:
+        """The TPU engine drops to the page walk when a window's K/V ring
+        would not fit its VMEM budget. The port's chain keeps no ring (each
+        layer reads the pages straight from the pool), so every bucket runs
+        the chosen kernel."""
+        return self.paged_kernel
+
+    def _tick_paged(self, active, temps, top_ps, do_samples, with_sampling, pages_bucket,
+                    kernel, table):
+        """One lockstep paged step; returns the (max_slots,) token consumed."""
+        st = self.state
+        kw = dict(write_pos=st["write_pos"], position_ids=st["pos_ids"],
+                  pages_bucket=pages_bucket)
+        if not with_sampling and kernel == "fused":
+            # greedy fast path: the argmax head kernel returns the ids and
+            # the stored logits go stale (greedy selection never reads them)
+            token = st["next_tok"]
+            next_tok, _ = paligemma.decode_step_greedy_paged(
+                self.decode_params, self.config, token, self.cache, table, **kw)
+            self._advance(active, next_tok)
+            return token
+        token = self._select(temps, top_ps, do_samples, with_sampling)
+        new_logits, _ = paligemma.decode_step_paged(
+            self.decode_params, self.config, token, self.cache, table, paged_kernel=kernel,
+            **kw)
+        self._advance(active, None, new_logits)
+        return token
+
+    def _run_window(self, ticks, lefts, temps, top_ps, do_samples, with_sampling):
+        # the JAX engine's _decode_window_paged: the base window loop over
+        # _tick_paged. The page table is fixed through a window:
+        # _before_window grew every row's pages up front
+        table = self.paged.page_table
+        pages_bucket = self._pages_bucket(ticks)
+        kernel = self._kernel_for_bucket(pages_bucket)
+        return self._decode_window(lefts, ticks, lambda active: self._tick_paged(
+            active, temps, top_ps, do_samples, with_sampling, pages_bucket, kernel, table))

@@ -13,6 +13,7 @@ from paligemma_tpu_torch.kernels import decode_elementwise as t_elem
 from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import flash_attention as t_flash
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
+from paligemma_tpu_torch.kernels import paged_attention as t_paged
 
 torch.set_num_threads(2)
 
@@ -77,3 +78,59 @@ def test_kernels_match_plain_versions_on_card():
         logits = t_gemv.int8_gemv(x, w8n, sn).float()
         assert torch.equal(ids.long(), logits.argmax(-1))
         assert torch.equal(mx, logits.max(-1).values)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_match_plain_versions_on_card():
+    """The paged attention kernel (GQA groupings, a fragmented table, an
+    empty row, the layer-stacked pool) and the paged RoPE/KV write against
+    their plain versions; and the paged kernel equals decode_attention bit
+    for bit where a table maps the same keys as a dense cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvcc and triton on its host)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    ps, d, n_pages = 16, 128, 12
+    table = torch.tensor([[3, 7, 1, 0], [5, 0, 0, 0], [2, 9, 11, 4]], dtype=torch.int32,
+                         device=dev)
+    kv_len = torch.tensor([37, 0, 64], dtype=torch.int32, device=dev)
+    for hq, hkv in ((8, 1), (8, 2), (4, 4)):
+        q = rnd(3, hq, d)
+        kp, vp = rnd(2, n_pages, ps, hkv, d), rnd(2, n_pages, ps, hkv, d)
+        got = t_paged.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=1)
+        want = t_paged.reference_paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=1)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        assert torch.count_nonzero(got[1]) == 0  # kv_len 0 -> exact zeros
+
+    # shared keys: row b's pages are consecutive slices of its dense cache row
+    b, s_len, w = 2, 128, 96
+    q = rnd(b, 8, d)
+    kc, vc = rnd(b, s_len, d), rnd(b, s_len, d)
+    lens = torch.tensor([70, 96], dtype=torch.int32, device=dev)
+    valid = torch.arange(w, device=dev)[None] < lens[:, None].long()
+    pool_k = kc.reshape(b * s_len // ps, ps, 1, d)
+    pool_v = vc.reshape(b * s_len // ps, ps, 1, d)
+    tab = (torch.arange(w // ps, device=dev)[None] + (s_len // ps) * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+    dense = t_dattn.decode_attention(q, kc, vc, valid.contiguous(), d**-0.5)
+    paged = t_paged.paged_decode_attention(q, pool_k, pool_v, tab, lens)
+    assert torch.equal(dense.reshape(b, 8, d), paged)
+
+    qkv = rnd(2, 6 * 128)
+    ang = torch.rand(2, 128, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    pos = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    ptab = torch.tensor([[2, 0, 0], [4, 1, 3]], dtype=torch.int32, device=dev)
+    pools = [torch.zeros(5, 16, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
+    outs = [torch.empty(2, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
+    qk, _, _ = t_elem.rope_kv_write_paged(qkv, cos, sin, pos, 4, pools[0], pools[1], ptab,
+                                          outs[0], outs[1])
+    qp, _, _ = t_elem.rope_kv_write_paged_reference(qkv, cos, sin, pos, 4, pools[2], pools[3],
+                                                    ptab, outs[2], outs[3])
+    torch.testing.assert_close(qk.float(), qp.float(), rtol=2e-2, atol=2e-2)
+    for got, want in zip(pools[:2] + outs[:2], pools[2:] + outs[2:]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert torch.count_nonzero(pools[0][3, 8]) > 0  # row 1: page 3, slot 40 % 16

@@ -156,8 +156,9 @@ def test_sampled_generate_same_draws_at_any_sync():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port, runs a tiny CPU generate and
-    never imports jax."""
+    """A fresh interpreter imports the port (the serving modules included),
+    runs a tiny CPU generate and a tiny paged serving run, and never
+    imports jax."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -166,6 +167,8 @@ def test_port_runs_without_jax():
         from paligemma_tpu_torch.convert import init_params
         from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
         from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+        from paligemma_tpu_torch.runtime.serving import Request, ServingEngine
+        from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
         torch.set_num_threads(1)
         cfg = paligemma_tpu_torch.tiny_test_config()
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -176,6 +179,13 @@ def test_port_runs_without_jax():
         out = eng.generate(np.zeros((1, 3, 28, 28), np.float32), ids, np.ones_like(ids),
                            max_new_tokens=3, eos_token_id=-1)
         assert out.shape == (1, 3), out.shape
+        paged = PagedServingEngine(params, cfg, max_slots=2, max_seq_len=32, page_size=16)
+        for i in range(3):
+            paged.submit(Request(request_id=i, input_ids=ids[0], max_new_tokens=3,
+                                 pixel_values=np.zeros((3, 28, 28), np.float32),
+                                 eos_token_id=-1))
+        done = paged.run_to_completion()
+        assert sorted(len(r.tokens) for r in done) == [3, 3, 3]
         assert "jax" not in sys.modules
         print("ok")
     """)
