@@ -1,7 +1,7 @@
 """GPU smoke run of paligemma_tpu_torch: build the hand-written Hopper
 kernels, check each against its plain PyTorch version at the shapes of the
 main paths, then drive PaliGemma-3B-224 (full widths, random weights from a
-seed, int8 decode tree) through its two main paths:
+seed, int8 decode tree) through its three main paths:
 
 * the int8 greedy inference path, PaliGemmaEngine.generate, held against
   the plain path;
@@ -10,20 +10,30 @@ seed, int8 decode tree) through its two main paths:
   tokens, the paged engine preempts and recomputes from a small pool, its
   page walk agrees with its fused chain, sampled neighbours leave the
   greedy rows' tokens unchanged, and a request that fills its cache to the
-  last position leaves its neighbour's tokens unchanged.
+  last position leaves its neighbour's tokens unchanged;
+* single-GPU LoRA training, Trainer.train_step at full width and depth
+  (B=2, S=512, remat): the flash kernels' forward and backward against the
+  plain attention path on the first step, the loss falling over 8 steps,
+  gradient accumulation, one step each over an int8 and an NF4 base, and
+  the merged adapters served by PaliGemmaEngine.generate.
 
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
-Prints per-phase lines, then a JSON line with one entry per kernel (its
-``launches`` summed over the served runs (a)-(e) of the serving phase; each
-run's counts are zeroed just before it and read just after), the card's name
-and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
-is not 0 and the last line is never printed.
+Prints per-phase lines, then a JSON line with one entry per kernel: its
+``launches`` summed over the counted runs of the paths (the served runs
+(a)-(e) and the 8 training steps; each run's counts are zeroed just before
+it and read just after), its error against its plain version, its time,
+the plain version's and one PyTorch library call's where one computes the
+same function, and its bound (the larger of bytes / 3.35 TB/s and
+operations / 989 TFLOP/s at the timed shapes). Then the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
+failed check raises, so the exit code is not 0 and the last line is never
+printed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 N_TEXT = 10  # text tokens after the 256 image tokens
@@ -76,6 +87,27 @@ SMALL_POOL = 44
 # budget is capped at submit (68 tokens), beside a 260-token prompt that
 # decodes 100 tokens
 FILL_SEQ = 384
+# H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): bf16 tensor
+# cores and HBM3
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# training phase: B=2 rows of 512 tokens, 256 image + 12 prompt tokens as
+# the prefix, suffix labels; row 1 padded to 400 real tokens
+TRAIN_B, TRAIN_S, TRAIN_PROMPT, TRAIN_REAL1 = 2, 512, 12, 400
+TRAIN_STEPS = 8
+# the training step's kernels: the flash forward runs twice per layer (the
+# forward and remat's recompute), each backward kernel once
+TRAIN_PER_STEP = {"flash_attention_fwd": 36, "flash_attention_bwd_dq": 18,
+                  "flash_attention_bwd_dkv": 18}
+TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# first step, flash kernels vs the plain attention path from the same
+# adapters: both run bf16 activations through 18 layers but round at other
+# places (the kernels keep p and ds in fp32; the plain path rounds the
+# softmax weights and their gradient to bf16), so the loss differs in the
+# fourth digit and each LoRA-b gradient by ~1e-2 of its largest element
+# (measured in PERF.md); a dropped or garbled term is off by O(1)
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -113,8 +145,18 @@ def timed_pair(kernel_fn, plain_fn, iters: int):
     return min(k1, k2), min(p1, p2)
 
 
+def bound_ms(flops: float, nbytes: float) -> float:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over HBM bandwidth."""
+    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class KernelReport:
-    """Per-kernel max error, tolerance check and times."""
+    """Per-kernel max error, tolerance check, times and bound."""
 
     def __init__(self):
         self.rows = {}
@@ -133,12 +175,40 @@ class KernelReport:
         if not ok:
             raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
 
-    def time(self, name, label, kernel_fn, plain_fn, iters=20):
+    def time(self, name, label, kernel_fn, plain_fn, flops, n_bytes, library_fn=None,
+             iters=20):
+        """Kernel vs plain version (plain, kernel, kernel, plain), the
+        library call if there is one, and the bound of this call's work
+        (``flops`` operations, ``n_bytes`` bytes read once and written once)."""
         k, p = timed_pair(kernel_fn, plain_fn, iters)
-        print(f"  {name:20s} {label:44s} kernel {k:.4f} ms  plain {p:.4f} ms", flush=True)
+        lib = None
+        if library_fn is not None:
+            try:
+                lib = min(cuda_ms(library_fn, iters), cuda_ms(library_fn, iters))
+            except RuntimeError as e:  # a yardstick only: report, do not fail
+                print(f"  {name:20s} {label:44s} library call failed: {e}", flush=True)
+        bound = bound_ms(flops, n_bytes)
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"  {name:20s} {label:44s} kernel {k:.4f} ms  plain {p:.4f} ms  library "
+              f"{lib_txt}  bound {bound:.4f} ms ({flops / 1e9:.3f} GFLOP, "
+              f"{n_bytes / 1e6:.3f} MB)", flush=True)
         row = self.rows[name]
         row["ms"] = row.get("ms", 0.0) + k
         row["plain_ms"] = row.get("plain_ms", 0.0) + p
+        row["bound_ms"] = row.get("bound_ms", 0.0) + bound
+        row["flops_ms"] = row.get("flops_ms", 0.0) + flops / PEAK_FLOPS * 1e3
+        row["bytes_ms"] = row.get("bytes_ms", 0.0) + n_bytes / PEAK_BYTES * 1e3
+        if library_fn is not None:
+            prev = row.get("library_ms", 0.0)
+            row["library_ms"] = None if lib is None or prev is None else prev + lib
+        else:
+            row.setdefault("library_ms", None)
+
+
+def _sdpa_args(q, k, v, allowed):
+    """(B, S, H, D) q/k/v and a (B, Sq, Skv) visibility mask in the layout
+    of F.scaled_dot_product_attention (views, no copies)."""
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), allowed[:, None]
 
 
 def kernel_phase(report: KernelReport, dev):
@@ -176,9 +246,72 @@ def kernel_phase(report: KernelReport, dev):
         sync()
         report.case("flash_attention_fwd", label, got, want, 1e-2)
         if timed:
+            allowed = fa._allowed(s, s, pfx, kv_len, 0, dev)
+            args = _sdpa_args(q, k, v, allowed)
             report.time("flash_attention_fwd", label,
                         lambda: fa.flash_attention(q, k, v, pfx, kv_len),
-                        lambda: fa.reference_attention(q, k, v, pfx, kv_len))
+                        lambda: fa.reference_attention(q, k, v, pfx, kv_len),
+                        flops=4 * d * hq * int(allowed.sum()), n_bytes=nbytes(q, k, v, got),
+                        library_fn=lambda: F.scaled_dot_product_attention(
+                            args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True))
+
+    # -- flash attention backward (B6) and the forward's lse: the training
+    # shape (prefix 268 = 256 image + 12 prompt tokens, kv_len 512 and 400),
+    # GQA with a padded row tile, SigLIP's head_dim 72, a row with kv_len 0
+    print("kernels: flash_attention_bwd_dq, flash_attention_bwd_dkv, forward lse", flush=True)
+    for label, (b, s, hq, hkv, d), pfx, kvl, timed in [
+        ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 8, 1, 256), [268, 268], [512, 400], True),
+        ("GQA B2 S199 Hq4 Hkv2 D256", (2, 199, 4, 2, 256), [60, 100], [199, 150], False),
+        ("vision B2 S256 H16 D72", (2, 256, 16, 16, 72), [256, 100], [256, 230], False),
+        ("kv_len 0 row B2 S128 Hq8 Hkv1 D256", (2, 128, 8, 1, 256), [40, 0], [128, 0], False),
+    ]:
+        q, k, v, dout = bf(b, s, hq, d), bf(b, s, hkv, d), bf(b, s, hkv, d), bf(b, s, hq, d)
+        pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_with_lse(q, k, v, pl, kl)
+        want_out, want_lse = fa._reference_forward(q, k, v, pl, kl, d**-0.5, 0)
+        delta = fa._delta(out, dout)
+        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, d**-0.5)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, d**-0.5)
+        want = fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, d**-0.5, 0)
+        sync()
+        report.case("flash_attention_fwd", f"{label} out", out, want_out, 1e-2)
+        report.case("flash_attention_fwd", f"{label} lse", lse, want_lse, 1e-4)
+        report.case("flash_attention_bwd_dq", label, dq, want[0], 1e-2)
+        report.case("flash_attention_bwd_dkv", f"{label} dk", dk, want[1], 1e-2)
+        report.case("flash_attention_bwd_dkv", f"{label} dv", dv, want[2], 1e-2)
+        if kvl[1] == 0 and any(bool(t[1].any()) for t in (out, lse, dq, dk, dv)):
+            raise AssertionError("flash attention: the kv_len 0 row is not exact zeros")
+        if timed:
+            allowed = fa._allowed(s, s, pl, kl, 0, dev)
+            pairs = hq * int(allowed.sum())  # visible (query head, row, key) triples
+            stats = nbytes(lse, delta)
+            lib_bwd = None
+            try:  # SDPA's backward (dq, dk and dv in one call) on the same inputs
+                leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+                a = _sdpa_args(*leaves, allowed)
+                lib_out = F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3],
+                                                         enable_gqa=True)
+                lib_grad = dout.transpose(1, 2)
+
+                def lib_bwd():
+                    return torch.autograd.grad(lib_out, leaves, lib_grad, retain_graph=True)
+            except RuntimeError as e:
+                print(f"  flash backward: library call failed: {e}", flush=True)
+            scale = d**-0.5
+            report.time("flash_attention_bwd_dq", label,
+                        lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, scale),
+                        lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale,
+                                                       0)[0],
+                        flops=6 * d * pairs, n_bytes=nbytes(q, k, v, dout, dq) + stats,
+                        library_fn=lib_bwd)
+            report.time("flash_attention_bwd_dkv", label,
+                        lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl,
+                                                           scale),
+                        lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale,
+                                                       0)[1:],
+                        flops=8 * d * pairs, n_bytes=nbytes(q, k, v, dout, dk, dv) + stats,
+                        library_fn=lib_bwd)
 
     # -- int8 GEMV at the four layer projections and the LM head
     print("kernels: int8_gemv", flush=True)
@@ -202,7 +335,10 @@ def kernel_phase(report: KernelReport, dev):
             # ms in the JSON: one layer's four GEMVs at B=1 (head apart)
             if b == 1 and name != "head":
                 report.time("int8_gemv", label, lambda: gv.int8_gemv(x, w8, s, **args),
-                            lambda: gv.int8_gemv_reference(x, w8, s, **args))
+                            lambda: gv.int8_gemv_reference(x, w8, s, **args),
+                            flops=2 * b * k * n,
+                            n_bytes=nbytes(x, w8, s, got,
+                                           *[t for t in args.values() if torch.is_tensor(t)]))
             elif b == 1:
                 k_ms, p_ms = timed_pair(lambda: gv.int8_gemv(x, w8, s),
                                         lambda: gv.int8_gemv_reference(x, w8, s), 5)
@@ -228,9 +364,16 @@ def kernel_phase(report: KernelReport, dev):
             label = f"B{b} W{w} D256 Hq8"
             report.case("decode_attention", label, got, want, 1e-2)
             if b == 1 and w == 2048:
+                n_keys = int(valid.sum())  # the keys this call needs
+                sdpa = (q[:, :, None], kc[:, None, :w], vc[:, None, :w], valid[:, None, None])
                 report.time("decode_attention", label,
                             lambda: da.decode_attention(q, kc, vc, valid, 256**-0.5),
-                            lambda: da.decode_attention_reference(q, kc, vc, valid, 256**-0.5))
+                            lambda: da.decode_attention_reference(q, kc, vc, valid, 256**-0.5),
+                            flops=4 * 256 * 8 * n_keys,
+                            n_bytes=nbytes(q, valid, got) + 2 * n_keys * 256 * 2,
+                            library_fn=lambda: F.scaled_dot_product_attention(
+                                sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3],
+                                scale=256**-0.5, enable_gqa=True))
 
     # -- RMSNorm and the fused RoPE + cache write
     print("kernels: rms_norm, rope_kv_write", flush=True)
@@ -240,8 +383,11 @@ def kernel_phase(report: KernelReport, dev):
         sync()
         report.case("rms_norm", f"B{b} K2048", got, want, 1e-2)
         if b == 1:
+            w1 = (1.0 + wn.float()).to(x.dtype)  # Gemma's (1 + w) scale
             report.time("rms_norm", f"B{b} K2048", lambda: el.rms_norm(x, wn, 1e-6),
-                        lambda: el.rms_norm_reference(x, wn, 1e-6))
+                        lambda: el.rms_norm_reference(x, wn, 1e-6),
+                        flops=4 * x.numel(), n_bytes=nbytes(x, wn, got),
+                        library_fn=lambda: F.rms_norm(x, (2048,), w1, 1e-6))
         qkv = bf(b, 2560)
         ang = torch.from_numpy(rng.random((b, 256), dtype=np.float32) * 6.28).to(dev)
         cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
@@ -258,9 +404,12 @@ def kernel_phase(report: KernelReport, dev):
                     torch.cat([c.flatten() for c in caches[:2] + rows[:2]]),
                     torch.cat([c.flatten() for c in caches[2:] + rows[2:]]), 1e-2)
         if b == 1:
+            # reads qkv, cos, sin, pos; writes q, the two cache rows, k_new, v_new
             report.time("rope_kv_write", f"B{b} Hq8 D256",
                         lambda: el.rope_kv_write(*kern),
-                        lambda: el.rope_kv_write_reference(*plain))
+                        lambda: el.rope_kv_write_reference(*plain),
+                        flops=6 * qkv.numel(),
+                        n_bytes=nbytes(qkv, cos, sin, pos, qk) + 2 * nbytes(rows[0], rows[1]))
 
     # -- paged decode attention over the layer-stacked pool at layer 17 and
     # the paged RoPE + KV write (page size 64)
@@ -289,10 +438,13 @@ def kernel_phase(report: KernelReport, dev):
         if b > 1 and torch.count_nonzero(got[3]):
             raise AssertionError("paged_decode_attention: kv_len == 0 row is not exact zeros")
         if b == 8 and w == 1024 and hkv == 1:
+            n_keys = sum(lens)  # the keys this call needs, over every row
             report.time("paged_decode_attention", label,
                         lambda: pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17),
                         lambda: pa.reference_paged_decode_attention(q, kp, vp, table, kv_len,
-                                                                    layer_idx=17))
+                                                                    layer_idx=17),
+                        flops=4 * 256 * 8 * n_keys,
+                        n_bytes=nbytes(q, table, kv_len, got) + 2 * n_keys * hkv * 256 * 2)
         del kp, vp
     # shared keys: each row's pages are consecutive slices of its dense cache
     # row; the paged kernel must return decode_attention's bits, also over a
@@ -338,7 +490,10 @@ def kernel_phase(report: KernelReport, dev):
         if b == 8:
             report.time("rope_kv_write_paged", f"B{b} Hq8 D256 ps64",
                         lambda: el.rope_kv_write_paged(*kern),
-                        lambda: el.rope_kv_write_paged_reference(*plain))
+                        lambda: el.rope_kv_write_paged_reference(*plain),
+                        flops=6 * qkv.numel(),
+                        n_bytes=(nbytes(qkv, cos, sin, pos, table, qk)
+                                 + 2 * nbytes(rows[0], rows[1])))
 
     # -- LM-head argmax: random inputs, then a planted three-way tie
     print("kernels: head_argmax", flush=True)
@@ -361,7 +516,8 @@ def kernel_phase(report: KernelReport, dev):
         if b == 1:
             report.time("head_argmax", f"B{b} 2048->257152",
                         lambda: dh.head_argmax_fused(y, head),
-                        lambda: dh.reference_head_argmax(y, {"w8": w8, "s": s}), iters=5)
+                        lambda: dh.reference_head_argmax(y, {"w8": w8, "s": s}),
+                        flops=2 * b * w8.numel(), n_bytes=nbytes(y, w8, s, ids, mx), iters=5)
     y = bf(1, 2048)
     j0, dups = 1000, (70000, 257000)
     w8[:, j0] = torch.where(y[0] > 0, 127, -127).to(torch.int8)
@@ -692,7 +848,7 @@ def serving_phase(params, decode, cfg, dev, card):
 
     print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
           flush=True)
-    missing = [k for k, v in total.items() if v == 0]
+    missing = [k for k, v in total.items() if v == 0 and k not in TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -781,24 +937,30 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
     return worst
 
 
-def _profile(label, fn, per, card, top=8):
+def _profile(label, fn, per, card, top=8, unit=None):
     """torch.profiler over ``fn()``: device-busy time against wall time per
     ``per`` (steps), and the kernels with the most device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    unit = unit or ("step" if per > 1 else "prefill")
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [k for k in prof.key_averages() if k.self_device_time_total > 0]
+    # device-side events only: a CPU op (aten::mm, or the autograd node that
+    # launches a kernel through ctypes) also carries its kernels' time, and
+    # counting both would count that time twice
+    rows = [k for k in prof.key_averages()
+            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
     busy = sum(k.self_device_time_total for k in rows) / 1e3
     if not rows:
         print(f"profile: {label}: device time not measured (the profiler saw no "
               f"device activity); wall {wall / per:.3f} ms", flush=True)
         return
-    print(f"profile: {label}: per {'step' if per > 1 else 'prefill'} wall "
+    print(f"profile: {label}: per {unit} wall "
           f"{wall / per:.3f} ms, device busy {busy / per:.3f} ms "
           f"({100 * busy / wall:.1f} %)  [{card}]", flush=True)
     for k in sorted(rows, key=lambda k: -k.self_device_time_total)[:top]:
@@ -846,6 +1008,174 @@ def _compare(lk, lp, label, emitted):
     return rel, 1
 
 
+def train_batch(cfg):
+    """The training phase's batch (numpy, seeded): 256 image tokens and a
+    12-token prompt as the prefix, suffix tokens as labels, row 1 padded to
+    400 real tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    n_img = cfg.vision_config.num_patches
+    ids = np.concatenate([np.full((TRAIN_B, n_img), cfg.image_token_index),
+                          rng.integers(2, min(1000, cfg.image_token_index),
+                                       (TRAIN_B, TRAIN_S - n_img))], 1).astype(np.int32)
+    ttype = np.broadcast_to(np.arange(TRAIN_S) >= n_img + TRAIN_PROMPT, ids.shape).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, TRAIN_REAL1:] = 0
+    ids[1, TRAIN_REAL1:] = cfg.pad_token_id
+    labels = np.where((ttype == 1) & (mask == 1), ids, -100).astype(np.int32)
+    px = cfg.vision_config.image_size
+    return {"pixel_values": rng.standard_normal((TRAIN_B, 3, px, px), dtype=np.float32),
+            "input_ids": ids, "attention_mask": mask, "token_type_ids": ttype, "labels": labels}
+
+
+def _timed_step(tr, batch):
+    """(loss, ms) of one train_step, CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = tr.train_step(batch)
+    end.record()
+    sync()
+    return loss, start.elapsed_time(end)
+
+
+def _counted_step(tr, batch):
+    """One train_step with the launch counts zeroed just before it and read
+    just after; the flash kernels must launch exactly TRAIN_PER_STEP times
+    (kernel path) or not at all (plain path), every other kernel never."""
+    from paligemma_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    loss, ms = _timed_step(tr, batch)
+    counts = kernels.launch_counts()
+    want = {k: (TRAIN_PER_STEP.get(k, 0) if tr.use_flash else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"train step launches {counts}, want {want}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"train step: non-finite loss {loss}")
+    return loss, ms, counts
+
+
+def train_phase(params, cfg, dev, card):
+    """Single-GPU LoRA training at full width and depth (r=8, alpha 8, fp32
+    adapters, remat): (a) first-step loss and LoRA-b gradients, flash
+    kernels vs plain attention; (b) the loss falls over 8 steps at lr 1e-3;
+    (c) grad_accum_steps=2 moves the adapters on every second step only;
+    (d) one step over an int8 and an NF4 base; (e) exact launch counts per
+    step; (f) the merged adapters serve a generate call. Returns the launch
+    counts summed over the 8 counted steps of (b)."""
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import (quantize_lm_for_serving,
+                                                      quantize_lm_for_training)
+    from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batch = train_batch(cfg)
+    n_tok, n_real = TRAIN_B * TRAIN_S, int(batch["attention_mask"].sum())
+    tc = TrainConfig(lora_rank=8, lora_alpha=8.0, learning_rate=1e-3, remat=True)
+
+    def trainer(**kw):
+        return Trainer(params, cfg, dataclasses.replace(tc, **kw),
+                       generator=torch.Generator(dev).manual_seed(SEED))
+
+    kern, plain = trainer(), trainer(use_flash=False)
+    if not kern.use_flash or plain.use_flash:
+        raise AssertionError("the trainer did not select the flash kernels on CUDA")
+
+    # (a) first step from the same adapters: kernels vs plain attention
+    loss_k, grads_k = kern.loss_and_grads(batch)
+    loss_p, grads_p = plain.loss_and_grads(batch)
+    sync()
+    names = [(t, key) for t, leaf in kern.lora["layers"].items() for key in leaf]
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_at = 0.0, None
+    for (target, key), gk, gp in zip(names, grads_k, grads_p):
+        if key != "b":
+            continue
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"train (a): non-finite gradient of {target}.b")
+        rel = float((gk - gp).abs().max()) / float(gp.abs().max())
+        if rel > worst:
+            worst, worst_at = rel, target
+    print(f"train (a): first step, flash kernels vs plain attention: loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_REL_TOL}); LoRA-b gradients "
+          f"max rel err {worst:.3e} ({worst_at}.b; tol {TRAIN_GRAD_REL_TOL})  [{card}]",
+          flush=True)
+    if loss_rel > TRAIN_LOSS_REL_TOL or worst > TRAIN_GRAD_REL_TOL:
+        raise AssertionError("train (a): kernel and plain first steps disagree")
+    del grads_k, grads_p
+
+    # (b) + (e): 8 steps on the fixed batch, each counted on its own
+    losses, times, total = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        loss, ms, counts = _counted_step(kern, batch)
+        losses.append(loss)
+        times.append(ms)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    peak_k = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train (b): LoRA r8 lr 1e-3, {TRAIN_STEPS} steps on one batch: loss "
+          f"{' '.join(f'{x:.5f}' for x in losses)}  [{card}]", flush=True)
+    print(f"train (e): every step launched exactly {json.dumps(TRAIN_PER_STEP)} and no other "
+          f"kernel; summed over the {TRAIN_STEPS} steps: {json.dumps(total)}", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (b): the loss did not fall ({losses[0]} -> {losses[-1]})")
+
+    plain_times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        plain_times.append(_counted_step(plain, batch)[1])
+    peak_p = torch.cuda.max_memory_allocated() / 2**30
+    for name, ts, peak in (("kernels", times[1:], peak_k), ("plain", plain_times[1:], peak_p)):
+        ms = float(np.median(ts))
+        print(f"train: {name:7s} step B{TRAIN_B} S{TRAIN_S} LoRA r8 remat: {ms:.1f} ms "
+              f"(median of {len(ts)}), {n_tok / ms * 1e3:.0f} tok/s over all positions "
+              f"({n_real / ms * 1e3:.0f} real), peak allocated {peak:.2f} GiB (weights and "
+              f"the serving trees included)  [{card}]", flush=True)
+
+    # (c) accumulation over 2 steps: the adapters move on steps 2 and 4 only
+    acc = trainer(grad_accum_steps=2)
+    moved = []
+    for _ in range(4):
+        before = [leaf["b"].clone() for leaf in acc.lora["layers"].values()]
+        _counted_step(acc, batch)
+        moved.append(not all(torch.equal(b0, leaf["b"])
+                             for b0, leaf in zip(before, acc.lora["layers"].values())))
+    print(f"train (c): grad_accum_steps=2, adapters moved on steps 1-4: {moved}", flush=True)
+    if moved != [False, True, False, True]:
+        raise AssertionError("train (c): accumulation did not hold the adapters between updates")
+    del acc
+
+    # (d) one step over quantized bases (the trainer's int8 base is unfused)
+    for name, quantize in (("int8", lambda: quantize_lm_for_serving(params, fuse=False)),
+                           ("nf4", lambda: quantize_lm_for_training(params, "nf4", 64,
+                                                                     fuse=False))):
+        base = quantize()
+        tq = Trainer(base, cfg, tc, generator=torch.Generator(dev).manual_seed(SEED))
+        loss, ms, _ = _counted_step(tq, batch)
+        print(f"train (d): one LoRA step over the {name} base: loss {loss:.5f}, {ms:.1f} ms  "
+              f"[{card}]", flush=True)
+        del base, tq
+
+    # (f) the merged adapters serve
+    merged = kern.merged_params()
+    eng = PaliGemmaEngine(merged, cfg, max_seq_len=512,
+                          decode_params=quantize_lm_for_serving(merged))
+    n_img = cfg.vision_config.num_patches
+    prompt = batch["input_ids"][:1, : n_img + TRAIN_PROMPT]
+    toks = eng.generate(batch["pixel_values"][:1], prompt, np.ones_like(prompt),
+                        max_new_tokens=8, eos_token_id=-1)
+    moved_q = not torch.equal(merged["lm"]["layers"]["attn"]["q"], params["lm"]["layers"]["attn"]["q"])
+    print(f"train (f): merged_params() served by PaliGemmaEngine.generate: {toks[0].tolist()} "
+          f"(merged q differs from the base: {moved_q})", flush=True)
+    if toks.shape != (1, 8) or not ((toks >= 0) & (toks < cfg.vocab_size)).all() or not moved_q:
+        raise AssertionError("train (f): the merged parameters did not serve")
+    del eng, merged
+
+    kern.train_step(batch)  # warm, then one profiled step
+    _profile(f"train step B{TRAIN_B} S{TRAIN_S} LoRA r8 remat", lambda: kern.train_step(batch), 1,
+             card, top=10, unit="step")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -875,6 +1205,15 @@ def main() -> int:
     t0 = time.perf_counter()
     counts = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    del decode
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_counts = train_phase(params, cfg, dev, card)
+    print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts = {k: counts.get(k, 0) + train_counts.get(k, 0) for k in kernels.WRAPPERS}
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {missing}")
 
     src = {
         "flash_attention_fwd": ("cuda", "paligemma_tpu_torch/csrc/flash_attention.cu",
@@ -893,6 +1232,10 @@ def main() -> int:
                                    "paligemma_tpu/kernels/paged_attention.py:42"),
         "rope_kv_write_paged": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
                                 "paligemma_tpu/kernels/decode_layer_paged.py:56"),
+        "flash_attention_bwd_dq": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "paligemma_tpu/kernels/flash_attention.py:262"),
+        "flash_attention_bwd_dkv": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "paligemma_tpu/kernels/flash_attention.py:321"),
     }
     rows = []
     for name in kernels.WRAPPERS:
@@ -900,7 +1243,9 @@ def main() -> int:
         r = report.rows[name]
         rows.append({"name": name, "route": route, "source": source, "replaces": replaces,
                      "launches": counts[name], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": "operations" if r["flops_ms"] > r["bytes_ms"] else "bytes",
+                     "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

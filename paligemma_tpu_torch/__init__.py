@@ -1,15 +1,16 @@
 """PyTorch + CUDA port of paligemma_tpu for NVIDIA Hopper (sm_90a).
 
 The JAX package ``paligemma_tpu`` is the reference; this package mirrors its
-module layout (``ops/``, ``kernels/``, ``models/``, ``runtime/``) with the
-same function names and the same parameter layout (nested dicts, per-layer
-tensors stacked on a leading L axis, weights stored (in, out), int8 leaves
-``{"w8", "s"}``), so each module is held against its counterpart.
+module layout (``ops/``, ``kernels/``, ``models/``, ``runtime/``, ``train/``,
+``checkpoints/``) with the same function names and the same parameter
+layout (nested dicts, per-layer tensors stacked on a leading L axis, weights
+stored (in, out), int8 leaves ``{"w8", "s"}``, 4-bit leaves
+``{"w4", "s4", "grid"}``, LoRA leaves ``{"a", "b", "alpha"}``), so each
+module is held against its counterpart.
 
-Run-time imports are torch, numpy and the standard library only. The config
-dataclasses are re-exported from ``paligemma_tpu.core.config``, which imports
-nothing but the standard library; no other module of the JAX package is
-imported.
+Run-time imports are torch, numpy and the standard library only; nothing
+of the JAX package is imported (``core/config.py`` is the port's own copy of
+the config dataclasses).
 
 Every TPU kernel on the ported path has a hand-written Hopper kernel under
 ``csrc/`` (CUDA C++) or in its wrapper module (Triton), built on first use
@@ -22,5 +23,7 @@ from .core.config import (  # noqa: F401
     PaliGemmaConfig,
     SiglipVisionConfig,
     paligemma_3b_224,
+    paligemma_3b_448,
+    paligemma_3b_896,
     tiny_test_config,
 )

@@ -2,9 +2,10 @@
 
 ``params_from_numpy`` turns a nested dict of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives for the JAX package's params) into
-the port's tensors; bf16 arrays (``ml_dtypes.bfloat16``) go through an fp32
-round trip, which is exact. ``init_params`` makes full-width random weights
-directly on a device from a ``torch.Generator``, in the JAX package's layout.
+the port's tensors (model, int8, 4-bit and LoRA trees alike); bf16 arrays
+(``ml_dtypes.bfloat16``) go through an fp32 round trip, which is exact.
+``init_params`` makes full-width random weights directly on a device from a
+``torch.Generator``, in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from .core.config import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
 
 Params = Dict[str, Any]
+_QUANT_META = ("s", "s4", "grid")  # fp32 leaves of quantized weights
 
 
 def _to_tensor(a: np.ndarray, device, dtype: Optional[torch.dtype], is_scale: bool):
@@ -24,7 +26,7 @@ def _to_tensor(a: np.ndarray, device, dtype: Optional[torch.dtype], is_scale: bo
         t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32))).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))  # a writable copy
-    # quantization scales ("s") stay fp32 whatever the parameter dtype
+    # quantization scales and codebooks stay fp32 whatever the parameter dtype
     if dtype is not None and t.is_floating_point() and not is_scale:
         t = t.to(dtype)
     return t.to(device)
@@ -34,11 +36,12 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None, _key: s
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
 
     ``dtype`` casts floating leaves (None keeps each leaf's own type);
-    int8 weights and the fp32 "s" scales of int8 leaves keep theirs."""
+    int8 / uint8 weights and the fp32 "s" (int8), "s4" and "grid" (4-bit)
+    of quantized leaves keep theirs."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, np.ndarray) or np.isscalar(tree):
-        return _to_tensor(np.asarray(tree), device, dtype, _key == "s")
+        return _to_tensor(np.asarray(tree), device, dtype, _key in _QUANT_META)
     return tree
 
 

@@ -6,7 +6,11 @@
 // Query heads that share a KV head are folded into the rows of one block
 // (row = g * Sq + i), as the TPU kernel does, so K/V tiles are read once per
 // KV head. Online softmax in fp32 with NEG_INF = -1e30; a row with no
-// visible key writes 0.
+// visible key writes 0. With a non-null ``lse`` the kernel also writes each
+// row's log-sum-exp of the scaled scores, fp32 (B, Hq, Sq), for the backward
+// pass (csrc/flash_attention_bwd.cu); a row with no visible key gets 0, as
+// in the TPU kernel. The store does not touch the arithmetic, so the output
+// bits are the same with and without it.
 //
 // What bounds it at the LM prefill shape (Sq = Skv ~ 266, Hq = 8, Hkv = 1,
 // D = 256): arithmetic, ~0.6 GFLOP per layer, done here as scalar fp32 FMAs
@@ -26,8 +30,9 @@
 __global__ void __launch_bounds__(FA_THREADS)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ prefix_len,
-                     const int* __restrict__ kv_len, bf16* __restrict__ out, int Sq, int Skv,
-                     int Hq, int Hkv, int D, float scale, int q_offset) {
+                     const int* __restrict__ kv_len, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int D,
+                     float scale, int q_offset) {
   __shared__ __align__(16) bf16 qs[FA_BQ][FA_LD];
   __shared__ __align__(16) bf16 ks[FA_BK][FA_LD];
   __shared__ __align__(16) bf16 vs[FA_BK][FA_LD];
@@ -150,17 +155,20 @@ __global__ void __launch_bounds__(FA_THREADS)
         for (int e = 0; e < 8; ++e) op[d0 + e] = f2bf(acc[cc][e] * inv);
       }
     }
+    // (B, Hq, Sq) row of head kvh * group + my_g is folded row my_row of (b, kvh)
+    if (lse != nullptr && sub == 0)
+      lse[((size_t)b * Hkv + kvh) * rows + my_row] = l > 0.f ? m + logf(l) : 0.f;
   }
 }
 
 PG_EXPORT int pg_flash_attention_fwd(const void* q, const void* k, const void* v,
                                      const void* prefix_len, const void* kv_len, void* out,
-                                     int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                                     int q_offset, void* stream) {
+                                     void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                                     float scale, int q_offset, void* stream) {
   const int rows = (Hq / Hkv) * Sq;
   dim3 grid((rows + FA_BQ - 1) / FA_BQ, Hkv, B);
   flash_fwd_kernel<<<grid, FA_THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)prefix_len,
-      (const int*)kv_len, (bf16*)out, Sq, Skv, Hq, Hkv, D, scale, q_offset);
+      (const int*)kv_len, (bf16*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale, q_offset);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,8 @@ WRAPPERS = {
     "head_argmax": _decode_head.head_argmax_fused,
     "paged_decode_attention": _paged_attention.paged_decode_attention,
     "rope_kv_write_paged": _decode_elementwise.rope_kv_write_paged,
+    "flash_attention_bwd_dq": _flash_attention.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": _flash_attention.flash_attention_bwd_dkv,
 }
 
 

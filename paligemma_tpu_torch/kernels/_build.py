@@ -37,9 +37,15 @@ NVCC_FLAGS = [
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (every entry returns int cudaError_t)
 SIGNATURES = {
-    # q, k, v, prefix_len, kv_len, out, B, Sq, Skv, Hq, Hkv, D, scale,
-    # q_offset, stream
-    "pg_flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, prefix_len, kv_len, out, lse (or NULL), B, Sq, Skv, Hq, Hkv,
+    # D, scale, q_offset, stream
+    "pg_flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq, Hkv,
+    # D, scale, q_offset, stream
+    "pg_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv, dk,
+    # dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, stream
+    "pg_flash_attention_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     # x, w8, part, B, K, N, k_chunk, stream
     "pg_int8_gemv_partial": [_P] * 3 + [_I] * 4 + [_P],
     # part, nsplit, B, N, s, residual, out, mode, stream

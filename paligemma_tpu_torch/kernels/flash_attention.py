@@ -1,4 +1,4 @@
-"""Prefix-LM flash attention, forward (port of
+"""Prefix-LM flash attention, forward and backward (port of
 paligemma_tpu/kernels/flash_attention.py).
 
 Mask rule: key ``j`` is visible to the query at absolute position ``i`` iff
@@ -6,22 +6,61 @@ Mask rule: key ``j`` is visible to the query at absolute position ``i`` iff
     j < kv_len[b]  AND  (j < prefix_len[b]  OR  j <= i)
 
 with ``i = query index + q_offset``. Prefill passes ``prefix_len == kv_len``
-(bidirectional over valid tokens). A row with no visible key gives 0.
+(bidirectional over valid tokens); training passes the image + prompt
+length as ``prefix_len``. A row with no visible key gives 0 and lse 0.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
-and runs :func:`reference_attention` for CPU tensors. The backward pass of
-the TPU kernel (training) is not ported yet.
+``flash_attention`` is differentiable: when an input requires grad it runs
+as a ``torch.autograd.Function`` whose forward also returns the fp32
+log-sum-exp (B, Hq, Sq) and whose backward is FlashAttention-2:
+``delta = rowsum(dO * O)`` in fp32 torch (the reference computes it in XLA),
+then the dq kernel and the dk/dv kernel (``csrc/flash_attention_bwd.cu``),
+which recompute the probabilities from (q, k, lse). For CUDA tensors the
+wrappers launch ``csrc/flash_attention.cu`` and the backward kernels or
+raise; for CPU tensors they run the plain versions here: fp32 scores and
+softmax, and the same FA2 arithmetic in fp32 torch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
+BWD_TILE = 16  # folded rows / keys per block of the backward kernels
+# dk/dv blocks wanted in flight: 4 per SM of an H100 (132 SMs)
+_DKV_TARGET_BLOCKS = 4 * 132
+
+
+def _allowed(sq, skv, prefix_len, kv_len, q_offset, dev) -> torch.Tensor:
+    """(B, Sq, Skv) bool: may query i attend key j."""
+    row = torch.arange(sq, device=dev)[None, :, None] + q_offset
+    col = torch.arange(skv, device=dev)[None, None, :]
+    kvl = kv_len.to(dev).long()[:, None, None]
+    pfx = prefix_len.to(dev).long()[:, None, None]
+    return (col < kvl) & ((col < pfx) | (col <= row))
+
+
+def _reference_forward(q, k, v, prefix_len, kv_len, scale, q_offset):
+    """Plain version of the forward: (out (B, Sq, Hq, D) in q's dtype,
+    lse (B, Hq, Sq) fp32)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    allowed = _allowed(sq, skv, prefix_len, kv_len, q_offset, q.device)
+    qg = q.reshape(b, sq, hkv, g, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    s = s.masked_fill(~allowed[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(den > 0, den, torch.ones_like(den))  # no key -> 0
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    lse = torch.where(den > 0, m + torch.log(den), torch.zeros_like(den))
+    return out.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
 
 
 def reference_attention(
@@ -34,43 +73,48 @@ def reference_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version: fp32 scores and softmax over the visible keys."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _reference_forward(q, k, v, prefix_len, kv_len, scale, q_offset)[0]
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, (B, Hq, Sq)."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset):
+    """Plain version of the backward kernels: FA2 in fp32 from (q, k, lse)
+    and delta. Returns (dq, dk, dv) in the inputs' dtypes."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    if scale is None:
-        scale = d**-0.5
-    dev = q.device
-    row = torch.arange(sq, device=dev)[None, :, None] + q_offset
-    col = torch.arange(skv, device=dev)[None, None, :]
-    kvl = kv_len.to(dev).long()[:, None, None]
-    pfx = prefix_len.to(dev).long()[:, None, None]
-    allowed = (col < kvl) & ((col < pfx) | (col <= row))  # (B, Sq, Skv)
+    allowed = _allowed(sq, skv, prefix_len, kv_len, q_offset, q.device)[:, None, None]
     qg = q.reshape(b, sq, hkv, g, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    s = s.masked_fill(~allowed[:, None, None], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(s - m)
-    den = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(den > 0, den, torch.ones_like(den))  # no key -> 0
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    dog = dout.reshape(b, sq, hkv, g, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    lse_g = lse.reshape(b, hkv, g, sq, 1)
+    p = torch.where(allowed, torch.exp(s - lse_g), torch.zeros_like(s))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = p * (dp - delta.reshape(b, hkv, g, sq, 1))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    prefix_len: torch.Tensor,
-    kv_len: torch.Tensor,
-    scale: Optional[float] = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Blockwise prefix-LM attention; (B, Sq, Hq, D) out."""
+def reference_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len,
+                                 scale=None, q_offset=0):
+    """Plain FA2 backward: (dq, dk, dv) from the forward's out and lse."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not q.is_cuda:
-        return reference_attention(q, k, v, prefix_len, kv_len, scale, q_offset)
+    return _reference_backward(q, k, v, dout, lse, _delta(out, dout), prefix_len, kv_len,
+                               scale, q_offset)
+
+
+def _check(q, k, v, prefix_len, kv_len):
+    """Raise on anything the kernels do not take; returns the int32 lengths."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -87,16 +131,166 @@ def flash_attention(
         if t.shape != (b,) or t.dtype != torch.int32 or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be (B,) int32 on {q.device}")
         lens.append(t.contiguous())
+    return lens
+
+
+def _check_bwd(q, dout, lse, delta):
+    """The backward kernels' extra inputs: dO like q, lse and delta fp32
+    (B, Hq, Sq), all contiguous on q's device."""
+    b, sq, hq, _ = q.shape
+    if (dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous()
+            or dout.device != q.device or dout.data_ptr() % 16):
+        raise ValueError(f"flash_attention backward: dout must be contiguous, 16-byte aligned "
+                         f"bf16 {tuple(q.shape)} on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, hq, sq) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 "
+                             f"{(b, hq, sq)} on {q.device}")
+
+
+def _forward_kernel(q, k, v, prefix_len, kv_len, scale, q_offset, with_lse):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    lens = _check(q, k, v, prefix_len, kv_len)
     out = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.pg_flash_attention_fwd(
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    err = _build.library().pg_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(),
-        out.data_ptr(), b, sq, skv, hq, hkv, d, float(scale), int(q_offset),
-        _build.stream_ptr(q.device),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d,
+        float(scale), int(q_offset), _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: torch.Tensor,
+    kv_len: torch.Tensor, scale: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward with the log-sum-exp: (out (B, Sq, Hq, D), lse (B, Hq, Sq)
+    fp32). Not differentiable; :func:`flash_attention` is."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return _reference_forward(q, k, v, prefix_len, kv_len, scale, q_offset)
+    return _forward_kernel(q, k, v, prefix_len, kv_len, scale, q_offset, True)
+
+
+class _Flash(torch.autograd.Function):
+    """flash_attention with the FA2 backward (the reference's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, kv_len, scale, q_offset):
+        out, lse = flash_attention_with_lse(q, k, v, prefix_len, kv_len, scale, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, prefix_len, kv_len)
+        ctx.scale, ctx.q_offset = scale, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, prefix_len, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), prefix_len,
+                                              kv_len, ctx.scale, ctx.q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    prefix_len: torch.Tensor,
+    kv_len: torch.Tensor,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Blockwise prefix-LM attention; (B, Sq, Hq, D) out. Differentiable in
+    q, k and v (the forward then also writes the lse the backward reads)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, prefix_len, kv_len, float(scale), int(q_offset))
+    if not q.is_cuda:
+        return reference_attention(q, k, v, prefix_len, kv_len, scale, q_offset)
+    return _forward_kernel(q, k, v, prefix_len, kv_len, scale, q_offset, False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len, scale=None,
+                             q_offset=0):
+    """(dq, dk, dv) of :func:`flash_attention` given its out and lse: delta
+    in fp32 torch, then the dq and dk/dv kernels (plain version on CPU)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return reference_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len,
+                                            scale, q_offset)
+    delta = _delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                     q_offset)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
+    """dq (B, Sq, Hq, D): one kernel block per 16 folded rows, KV head and
+    batch row, sweeping the key tiles its rows see."""
+    if not q.is_cuda:
+        return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                   q_offset)[0]
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    lens = _check(q, k, v, prefix_len, kv_len)
+    _check_bwd(q, dout, lse, delta)
+    dq = torch.empty_like(q)
+    err = _build.library().pg_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), dq.data_ptr(),
+        b, sq, skv, hq, hkv, d, float(scale), int(q_offset), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def dkv_splits(b: int, hkv: int, rows: int, skv: int) -> int:
+    """Row ranges the dk/dv sweep is split into, so that about
+    ``_DKV_TARGET_BLOCKS`` blocks run (Gemma's one KV head leaves only
+    Skv/16 * B key tiles), never more than there are row tiles."""
+    key_blocks = -(-skv // BWD_TILE) * hkv * b
+    row_tiles = -(-rows // BWD_TILE)
+    return max(1, min(row_tiles, -(-_DKV_TARGET_BLOCKS // key_blocks)))
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
+    """(dk, dv) (B, Skv, Hkv, D): one kernel block per 16 keys, KV head,
+    batch row and row split, summing over every query head of the KV head;
+    a second pass adds the splits' fp32 partials in a fixed order."""
+    if not q.is_cuda:
+        return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                   q_offset)[1:]
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    lens = _check(q, k, v, prefix_len, kv_len)
+    _check_bwd(q, dout, lse, delta)
+    nsplit = dkv_splits(b, hkv, (hq // hkv) * sq, skv)
+    part = torch.empty((2, nsplit, b, hkv, skv, d), dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().pg_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d, nsplit,
+        float(scale), int(q_offset), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0

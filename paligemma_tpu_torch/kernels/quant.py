@@ -1,10 +1,16 @@
-"""Int8 weight-only quantization (port of the int8 part of
-paligemma_tpu/kernels/quant.py).
+"""Int8 weight-only and blockwise 4-bit quantization (port of
+paligemma_tpu/kernels/quant.py; W8A8 is not ported).
 
-Layout: weights (K, N) int8, scales (N,) fp32; per-output-channel symmetric
-quantization, ``w ~= w8 * s[None, :]``. ``matmul_any`` is plain torch math,
-as the reference left it to XLA; the decode-time int8 products run in the
-hand-written GEMV (kernels/int8_gemv.py).
+int8 layout: weights (K, N) int8, scales (N,) fp32; per-output-channel
+symmetric quantization, ``w ~= w8 * s[None, :]``. 4-bit layout (the
+training-side QLoRA base, NF4 or symmetric int4) for (..., K, N) weights:
+
+* ``"w4"``: (..., K/2, N) uint8, byte i holds rows ``2i | (2i+1) << 4``;
+* ``"s4"``: (..., K/group, N) fp32 absmax per block of ``group`` rows;
+* ``"grid"``: (16,) fp32 codebook, or (L, 16) when stacked over layers.
+
+``matmul_any`` is plain torch math, as the reference left it to XLA; the
+decode-time int8 products run in the hand-written GEMV (kernels/int8_gemv.py).
 """
 
 from __future__ import annotations
@@ -63,7 +69,67 @@ def _int8_matmul(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Te
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
-    """Dispatch: int8 ``{"w8", "s"}`` leaf or dense ``x @ w``."""
+    """Dispatch: int8 ``{"w8", "s"}``, 4-bit ``{"w4", "s4", "grid"}`` or
+    dense ``x @ w``. Differentiable in ``x`` (quantized bases are frozen)."""
     if isinstance(w, dict) and "w8" in w:
         return _int8_matmul(x, w["w8"], w["s"])
+    if isinstance(w, dict) and "w4" in w:
+        return x @ dequantize_4bit(w, x.dtype)
     return x @ w
+
+
+# QLoRA NF4 grid (Dettmers et al. 2023; bitsandbytes' "nf4" codebook)
+NF4_GRID = (
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0,
+)
+# symmetric int4: [-7..7]/7 padded to 16 entries (index 15 duplicates +1.0;
+# the nearest-midpoint search never emits it)
+INT4_GRID = tuple(i / 7.0 for i in range(-7, 8)) + (1.0,)
+
+
+def _quantize_4bit_one(w: torch.Tensor, grid: torch.Tensor, group: int):
+    wf = w.float()
+    k, n = wf.shape[-2], wf.shape[-1]
+    lead = tuple(wf.shape[:-2])
+    g = wf.reshape(lead + (k // group, group, n))
+    scale = g.abs().amax(dim=-2).clamp(min=1e-8)  # (..., K/g, N)
+    x = g / scale[..., None, :]
+    mids = (grid[1:] + grid[:-1]) / 2.0
+    idx = torch.searchsorted(mids, x.contiguous()).to(torch.uint8).reshape(lead + (k, n))
+    packed = idx[..., 0::2, :] | (idx[..., 1::2, :] << 4)
+    return {"w4": packed.contiguous(), "s4": scale, "grid": grid}
+
+
+def quantize_4bit(
+    w: torch.Tensor, kind: str = "nf4", group: int = 64,
+    chunk_elems: int = 64 * 1024 * 1024,
+) -> Dict[str, torch.Tensor]:
+    """(..., K, N) weights -> blockwise 4-bit dict (layout above). ``kind``:
+    "nf4" or "int4". Stacked (L, K, N) tensors above ``chunk_elems``
+    elements go one layer at a time (bounded fp32 temporaries)."""
+    grids = {"nf4": NF4_GRID, "int4": INT4_GRID}
+    if kind not in grids:
+        raise ValueError(f"unknown 4-bit kind {kind!r} (nf4|int4)")
+    grid = torch.tensor(grids[kind], dtype=torch.float32, device=w.device)
+    if w.shape[-2] % group or w.shape[-2] % 2:
+        raise ValueError(f"K={w.shape[-2]} must divide group={group} and be even")
+    if w.dim() == 3 and w.numel() > chunk_elems:
+        outs = [_quantize_4bit_one(w[i], grid, group) for i in range(w.shape[0])]
+        return {"w4": torch.stack([o["w4"] for o in outs]),
+                "s4": torch.stack([o["s4"] for o in outs]), "grid": grid}
+    return _quantize_4bit_one(w, grid, group)
+
+
+def dequantize_4bit(q: Dict[str, torch.Tensor], dtype=torch.float32) -> torch.Tensor:
+    packed, scale, grid = q["w4"], q["s4"], q["grid"]
+    grid = grid.reshape(-1, 16)[0]  # a stacked (L, 16) grid repeats one codebook
+    lead = tuple(packed.shape[:-2])
+    k, n = 2 * packed.shape[-2], packed.shape[-1]
+    group = k // scale.shape[-2]
+    idx = torch.stack([packed & 0xF, packed >> 4], dim=-2).reshape(lead + (k, n))
+    vals = grid[idx.long()].reshape(lead + (k // group, group, n))
+    return (vals * scale[..., None, :].float()).reshape(lead + (k, n)).to(dtype)

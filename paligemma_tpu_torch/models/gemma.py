@@ -18,6 +18,11 @@ Prefill attention takes the flash kernel when ``flash_lens`` is given.
 Decode rows may sit at different cache positions (``cache_pos`` a (B,)
 tensor: continuous batching).
 
+Training (``forward_train``) runs the blocks without a cache, with
+un-merged LoRA adapters (``_lora_delta``), the flash kernel's forward and
+backward when ``flash_lens`` is given, and ``torch.utils.checkpoint`` per
+layer with ``remat``.
+
 Over a paged KV pool (runtime/paged_cache, (L, n_pages, page_size, n_kv, d)):
 * ``forward_paged_decode``: the page walk, torch projections and one paged
   attention per layer (kernels/paged_attention, or its plain version);
@@ -30,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import GemmaConfig
 from ..kernels import decode_layer, decode_layer_paged
@@ -68,8 +74,26 @@ def _embed_scale(cfg: GemmaConfig, dtype: torch.dtype) -> float:
     return float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
 
 
-def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params):
-    """q/k/v projections, fused ``qkv`` serving layout or separate weights."""
+def _lora_delta(y: torch.Tensor, lora_lp: Optional[Params], name: str):
+    """``y @ A @ B * (alpha / r)`` for projection ``name`` of one layer's
+    adapters, or None. Computed in the adapter dtype (fp32 adapters over a
+    bf16 base), returned in the activation dtype."""
+    if lora_lp is None or name not in lora_lp:
+        return None
+    a, b = lora_lp[name]["a"], lora_lp[name]["b"]
+    scale = lora_lp[name]["alpha"] / a.shape[-1]
+    return (((y.to(a.dtype) @ a) @ b) * scale.to(a.dtype)).to(y.dtype)
+
+
+def _plus_lora(base: torch.Tensor, y: torch.Tensor, lora_lp: Optional[Params], name: str):
+    delta = _lora_delta(y, lora_lp, name)
+    return base if delta is None else base + delta
+
+
+def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params,
+               lora_lp: Optional[Params] = None):
+    """q/k/v projections (+ LoRA), fused ``qkv`` serving layout or separate
+    weights."""
     b, s, _ = y.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "qkv" in lp["attn"]:
@@ -80,20 +104,22 @@ def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params):
         q = matmul_any(y, lp["attn"]["q"])
         k = matmul_any(y, lp["attn"]["k"])
         v = matmul_any(y, lp["attn"]["v"])
+    q, k, v = (_plus_lora(t, y, lora_lp, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
     return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
             v.reshape(b, s, nkv, hd))
 
 
-def _mlp(y: torch.Tensor, lp: Params) -> torch.Tensor:
-    """GeGLU MLP, fused ``gateup`` or separate weights."""
+def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None) -> torch.Tensor:
+    """GeGLU MLP (+ LoRA), fused ``gateup`` or separate weights."""
     if "gateup" in lp["mlp"]:
         gu = matmul_any(y, lp["mlp"]["gateup"])
         inter = gu.shape[-1] // 2
-        gate, up = gelu_tanh(gu[..., :inter]), gu[..., inter:]
+        gate, up = gu[..., :inter], gu[..., inter:]
     else:
-        gate = gelu_tanh(matmul_any(y, lp["mlp"]["gate"]))
+        gate = matmul_any(y, lp["mlp"]["gate"])
         up = matmul_any(y, lp["mlp"]["up"])
-    return matmul_any(gate * up, lp["mlp"]["down"])
+    h = gelu_tanh(_plus_lora(gate, y, lora_lp, "gate")) * _plus_lora(up, y, lora_lp, "up")
+    return _plus_lora(matmul_any(h, lp["mlp"]["down"]), h, lora_lp, "down")
 
 
 def _decoder_block(
@@ -102,48 +128,54 @@ def _decoder_block(
     lp: Params,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    kv_cache: KVCache,
+    kv_cache: Optional[KVCache],  # None: training, attend over this block's k/v
     layer_idx: int,
     cache_pos: CachePos,
     mask: Optional[torch.Tensor],  # (B, 1, S, W) additive (plain attention)
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     kv_bucket: Optional[int] = None,
+    lora_lp: Optional[Params] = None,
 ) -> torch.Tensor:
-    """One pre-norm decoder block; writes its K/V rows into the cache."""
+    """One pre-norm decoder block; writes its K/V rows into the cache, if
+    there is one."""
     b, s, _ = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
 
     residual = x
     y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q, k, v = _attn_proj(cfg, y, lp)
+    q, k, v = _attn_proj(cfg, y, lp, lora_lp)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    k_all, v_all = kv_cache["k"], kv_cache["v"]
-    # in-place cache write (the reference donates the cache instead)
-    if torch.is_tensor(cache_pos):  # per-row positions, one token per row
-        rows = torch.arange(b, device=x.device)
-        k_all[layer_idx, rows, cache_pos.long()] = k[:, 0].to(k_all.dtype)
-        v_all[layer_idx, rows, cache_pos.long()] = v[:, 0].to(v_all.dtype)
-    else:
-        k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
-        v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
+    if kv_cache is not None:
+        k_all, v_all = kv_cache["k"], kv_cache["v"]
+        # in-place cache write (the reference donates the cache instead)
+        if torch.is_tensor(cache_pos):  # per-row positions, one token per row
+            rows = torch.arange(b, device=x.device)
+            k_all[layer_idx, rows, cache_pos.long()] = k[:, 0].to(k_all.dtype)
+            v_all[layer_idx, rows, cache_pos.long()] = v[:, 0].to(v_all.dtype)
+        else:
+            k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
+            v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
 
     if flash_lens is not None:
-        # prefill: the fresh k/v are exactly cache slots [0, S)
+        # prefill and training: the fresh k/v are the whole sequence
         prefix_lens, seq_lens = flash_lens
         a = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             prefix_lens, seq_lens, scale=hd**-0.5)
+    elif kv_cache is None:
+        a = attention.gqa(q, k, v, mask, scale=hd**-0.5)
     else:
         window = min(kv_bucket or k_all.shape[2], k_all.shape[2])
         k_att = k_all[layer_idx, :, :window].to(q.dtype)
         v_att = v_all[layer_idx, :, :window].to(q.dtype)
         a = attention.gqa(q, k_att, v_att, mask, scale=hd**-0.5)
-    x = residual + matmul_any(a.reshape(b, s, nh * hd), lp["attn"]["o"])
+    a = a.reshape(b, s, nh * hd)
+    x = residual + _plus_lora(matmul_any(a, lp["attn"]["o"]), a, lora_lp, "o")
 
     residual = x
     y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return residual + _mlp(y, lp)
+    return residual + _mlp(y, lp, lora_lp)
 
 
 def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -343,3 +375,39 @@ def forward_paged_decode_fused(
     )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return _decode_head(params, h, greedy_head), pool
+
+
+def forward_train(
+    params: Params,
+    cfg: GemmaConfig,
+    input_embeds: torch.Tensor,  # (B, S, H)
+    position_ids: torch.Tensor,  # (B, S)
+    pairwise_valid: Optional[torch.Tensor],  # (B, S, S) bool: q row may attend k col
+    lora: Optional[Params] = None,
+    remat: bool = True,
+    flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """No-cache forward for training (prefix-LM: bidirectional prefix,
+    causal suffix, from ``pairwise_valid`` or, on the flash path, from
+    ``flash_lens`` = (prefix_lens, kv_lens)). Returns fp32 logits
+    (B, S, vocab). ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations."""
+    dtype = input_embeds.dtype
+    x = input_embeds * _embed_scale(cfg, dtype)
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
+    mask = None if flash_lens is not None else attention.make_additive_mask(pairwise_valid)
+
+    def block(h, lp, lora_lp):
+        return _decoder_block(cfg, h, lp, cos, sin, None, 0, 0, mask,
+                              flash_lens=flash_lens, lora_lp=lora_lp)
+
+    for i in range(params["layers"]["input_norm"].shape[0]):
+        lp = layer_params(params["layers"], i)
+        lora_lp = None if lora is None else layer_params(lora["layers"], i)
+        if remat:
+            x = checkpoint(block, x, lp, lora_lp, use_reentrant=False)
+        else:
+            x = block(x, lp, lora_lp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return lm_head(params, x).float()

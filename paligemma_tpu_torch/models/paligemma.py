@@ -2,7 +2,8 @@
 
 SigLIP tower -> bias-free linear projector -> projected image features,
 scaled by projection_dim**-0.5, placed at the <image> token slots of the
-embedded prompt -> Gemma decoder. The vision tower runs once, at prefill.
+embedded prompt -> Gemma decoder. The vision tower runs once, at prefill;
+``forward_train`` is the supervised forward of training (no cache).
 """
 
 from __future__ import annotations
@@ -207,3 +208,67 @@ def decode_step_greedy_paged(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
         write_pos, pages_bucket=pages_bucket or page_table.shape[1], greedy_head=True,
     )
+
+
+def train_attention_mask(
+    attention_mask: torch.Tensor,  # (B, S) 1 = real token
+    token_type_ids: torch.Tensor,  # (B, S) 0 = prefix (image + prompt), 1 = suffix
+) -> torch.Tensor:
+    """PaliGemma's training mask: bidirectional over the prefix, causal over
+    the suffix, real keys only. (B, S, S) bool."""
+    valid_k = attention_mask.bool()[:, None, :]
+    is_prefix_k = (token_type_ids == 0)[:, None, :]
+    s = attention_mask.shape[1]
+    pos = torch.arange(s, device=attention_mask.device)
+    causal = pos[None, :, None] >= pos[None, None, :]  # q >= k
+    return valid_k & (is_prefix_k | causal)
+
+
+def _needs_grad(*trees) -> bool:
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif torch.is_tensor(t):
+            yield t
+    return any(t.requires_grad for tree in trees for t in leaves(tree))
+
+
+def forward_train(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    pixel_values: torch.Tensor,  # (B, C, H, W)
+    input_ids: torch.Tensor,  # (B, S)
+    attention_mask: torch.Tensor,  # (B, S)
+    token_type_ids: torch.Tensor,  # (B, S) 0 = prefix, 1 = suffix
+    lora: Optional[Dict[str, Any]] = None,
+    remat: bool = True,
+    use_flash: bool = False,
+) -> torch.Tensor:
+    """Supervised forward (no KV cache): fp32 logits (B, S, vocab).
+
+    The vision tower keeps plain attention at head_dim 72 (as the reference
+    does in training); when neither it nor the projector requires grad it
+    runs without building an autograd graph. The flash path assumes the
+    prefix (image + prompt) is contiguous at the start of each row, as
+    processor-built batches are: prefix_lens = real prefix tokens, kv_lens =
+    real tokens."""
+    dtype = params["lm"]["embed"].dtype
+    vision_attn = "flash" if use_flash and cfg.vision_config.head_dim % 128 == 0 else "xla"
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and _needs_grad(params["vision"], params["projector"])):
+        image_features = siglip.encode(params["vision"], cfg.vision_config,
+                                       pixel_values.to(dtype), attn=vision_attn)
+        image_embeds = project_image_features(params, image_features)
+    text_embeds = params["lm"]["embed"][input_ids.long()]
+    merged = merge_embeddings(cfg, input_ids, text_embeds, image_embeds)
+    position_ids = prefill_position_ids(attention_mask)
+    if use_flash:
+        real = attention_mask == 1
+        prefix_lens = ((token_type_ids == 0) & real).sum(dim=-1).to(torch.int32)
+        kv_lens = attention_mask.sum(dim=-1).to(torch.int32)
+        return gemma.forward_train(params["lm"], cfg.text_config, merged, position_ids, None,
+                                   lora=lora, remat=remat, flash_lens=(prefix_lens, kv_lens))
+    pairwise = train_attention_mask(attention_mask, token_type_ids)
+    return gemma.forward_train(params["lm"], cfg.text_config, merged, position_ids, pairwise,
+                               lora=lora, remat=remat)

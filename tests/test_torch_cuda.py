@@ -134,3 +134,47 @@ def test_paged_kernels_match_plain_versions_on_card():
     for got, want in zip(pools[:2] + outs[:2], pools[2:] + outs[2:]):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
     assert torch.count_nonzero(pools[0][3, 8]) > 0  # row 1: page 3, slot 40 % 16
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_match_plain_version_on_card():
+    """The flash forward's lse and the B6 backward kernels (dq, dk/dv with
+    the split row sweep) against the plain FA2 backward on the same inputs:
+    prefix-LM MQA with a padded row, GQA at head_dim 72, a kv_len 0 row
+    (exact zeros); and flash_attention's autograd path launches each
+    kernel once per backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvcc and triton on its host)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for b, s, hq, hkv, d, pfx, kvl in ((2, 70, 8, 1, 256, [30, 41], [70, 52]),
+                                       (2, 40, 4, 2, 72, [17, 0], [40, 0])):
+        q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out, lse = t_flash.flash_attention_with_lse(q, k, v, pl, kl)
+        want_out, want_lse = t_flash._reference_forward(q, k, v, pl, kl, d**-0.5, 0)
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+        delta = t_flash._delta(out, dout)
+        dq = t_flash.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, d**-0.5)
+        dk, dv = t_flash.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, d**-0.5)
+        want = t_flash._reference_backward(q, k, v, dout, lse, delta, pl, kl, d**-0.5, 0)
+        for got, ref in zip((dq, dk, dv), want):
+            scale = float(ref.float().abs().max())
+            assert float((got.float() - ref.float()).abs().max()) <= 2e-2 * max(1.0, scale)
+        if kvl[1] == 0:
+            assert not dq[1].any() and not dk[1].any() and not dv[1].any()
+            assert not out[1].any() and not lse[1].any()
+
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    n_fwd, n_dq, n_dkv = (t_flash.flash_attention.launches, t_flash.flash_attention_bwd_dq.launches,
+                          t_flash.flash_attention_bwd_dkv.launches)
+    t_flash.flash_attention(q, k, v, pl, kl).float().square().sum().backward()
+    assert (t_flash.flash_attention.launches - n_fwd, t_flash.flash_attention_bwd_dq.launches - n_dq,
+            t_flash.flash_attention_bwd_dkv.launches - n_dkv) == (1, 1, 1)
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()

@@ -156,9 +156,10 @@ def test_sampled_generate_same_draws_at_any_sync():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port (the serving modules included),
-    runs a tiny CPU generate and a tiny paged serving run, and never
-    imports jax."""
+    """A fresh interpreter imports the port (the serving and training
+    modules included), runs a tiny CPU generate, a tiny paged serving run
+    and a training step, and never imports jax or any module of the JAX
+    package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -169,6 +170,7 @@ def test_port_runs_without_jax():
         from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
         from paligemma_tpu_torch.runtime.serving import Request, ServingEngine
         from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+        from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
         torch.set_num_threads(1)
         cfg = paligemma_tpu_torch.tiny_test_config()
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -186,7 +188,15 @@ def test_port_runs_without_jax():
                                  eos_token_id=-1))
         done = paged.run_to_completion()
         assert sorted(len(r.tokens) for r in done) == [3, 3, 3]
+        tr = Trainer(params, cfg, TrainConfig(lora_rank=2, use_flash=True))
+        loss = tr.train_step({"pixel_values": np.zeros((1, 3, 28, 28), np.float32),
+                              "input_ids": ids, "attention_mask": np.ones_like(ids),
+                              "token_type_ids": (np.arange(ids.shape[1]) >= n)[None].astype(np.int32),
+                              "labels": ids})
+        assert np.isfinite(loss), loss
         assert "jax" not in sys.modules
+        foreign = [m for m in sys.modules if m.split(".")[0] == "paligemma_tpu"]
+        assert not foreign, foreign
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
