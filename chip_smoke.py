@@ -34,7 +34,12 @@ printed.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
+import os
+import pathlib
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -58,22 +63,50 @@ LOGIT_REL_TOL = 3e-2
 # the kernels of the int8 greedy inference path (PaliGemmaEngine.generate)
 GENERATE_KERNELS = ("flash_attention_fwd", "int8_gemv", "decode_attention", "rms_norm",
                     "rope_kv_write", "head_argmax")
+# the tensor-parallel wrappers (B7, B7b, B8 and the fp32-partial epilogue):
+# no one-card kernel path launches them
+TP_KERNELS = ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp", "attn_decode_paged_tp")
 # the serving engines' kernels: (must launch, must not launch, once per layer
 # and tick); the dense tick is the generate chain, the paged fused tick the
 # same chain with kernels B and A, the page walk kernel A with torch ops
-DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged"),
+DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged") + TP_KERNELS,
               ("decode_attention", "rope_kv_write"))
 PAGED_FUSED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "head_argmax",
                      "paged_decode_attention", "rope_kv_write_paged"),
-                    ("decode_attention", "rope_kv_write"),
+                    ("decode_attention", "rope_kv_write") + TP_KERNELS,
                     ("paged_decode_attention", "rope_kv_write_paged"))
 # sampled ticks take the int8 GEMV head, so a mixed run need not reach the
 # argmax head kernel
 PAGED_MIXED_TICK = (tuple(k for k in PAGED_FUSED_TICK[0] if k != "head_argmax"),
                     *PAGED_FUSED_TICK[1:])
 PAGE_WALK_TICK = (("flash_attention_fwd", "paged_decode_attention"),
-                  ("decode_attention", "rope_kv_write", "rope_kv_write_paged"),
+                  ("decode_attention", "rope_kv_write", "rope_kv_write_paged") + TP_KERNELS,
                   ("paged_decode_attention",))
+# the tensor-parallel ticks at world size 1 (run (b)): the dense TP tick is
+# B7 (its chain counts rms_norm, int8_gemv, rope_kv_write, decode_attention
+# and int8_gemv_f32 each) and B7b per layer, then the vocab-shard argmax
+# head; the paged TP tick is B8 and B7b per layer, then the gathered int8
+# GEMV head
+TP_DENSE_TICK = (GENERATE_KERNELS + ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp"),
+                 ("paged_decode_attention", "rope_kv_write_paged", "attn_decode_paged_tp"),
+                 ("attn_decode_tp", "mlp_decode_fused", "decode_attention", "rope_kv_write"))
+TP_PAGED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "paged_decode_attention",
+                  "rope_kv_write_paged", "int8_gemv_f32", "mlp_decode_fused",
+                  "attn_decode_paged_tp"),
+                 ("decode_attention", "rope_kv_write", "attn_decode_tp", "head_argmax"),
+                 ("attn_decode_paged_tp", "mlp_decode_fused", "paged_decode_attention",
+                  "rope_kv_write_paged"))
+# host-side profiler rows of the collectives (c10d's dispatch and NCCL's own
+# range); the gloo path stages through host copies, counted as copies
+COLLECTIVE_KEYS = ("c10d::", "nccl:", "record_param_comms", "allreduce", "all_gather",
+                   "all_reduce")
+# the kernel cases' model axis sizes (the H100 runs one rank's shard at a
+# time): 8 query heads and I = 16384 split into 8 / m heads and I / m; the
+# widths are Gemma-2B's in PaliGemma-3B-224
+TP_SIZES = (1, 2, 4, 8)
+TP_LAYER = dict(hidden=2048, heads=8, head_dim=256, inter=16384, vocab=257152)
+# run (c): two ranks sharing the one card over gloo; the seconds it may take
+TP2_TIMEOUT = 600
 # serving phase: 12 requests (256 image tokens + 4..60 text tokens, 16..64 new
 # tokens) over 8 slots; the small pool makes the paged engine preempt (the
 # scheduler is host bookkeeping, independent of the tokens: with these
@@ -161,12 +194,15 @@ class KernelReport:
     def __init__(self):
         self.rows = {}
 
-    def case(self, name, label, got, want, rel_tol):
+    def case(self, name, label, got, want, rel_tol, floor=1.0):
+        """``got`` within ``rel_tol`` of max(``floor``, max |want|); floor 0
+        makes it relative to the largest element (the TP partials, whose
+        elements lie far below 1)."""
         got, want = got.float(), want.float()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: non-finite output")
         err = float((got - want).abs().max())
-        tol = rel_tol * max(1.0, float(want.abs().max()))
+        tol = rel_tol * max(floor, float(want.abs().max()))
         ok = err <= tol
         print(f"  {name:20s} {label:44s} max_abs_err {err:.3e}  tol {tol:.3e}  "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -536,6 +572,216 @@ def kernel_phase(report: KernelReport, dev):
     del w8, s, head
 
 
+def tp_kernel_phase(report: KernelReport, dev):
+    """The tensor-parallel kernels on one rank's shard of one decoder layer
+    of PaliGemma-3B-224 at full width (K 2048, 8 heads of 256, I 16384), for
+    m = 1, 2, 4 and 8 ranks: B7 (attn_decode_tp), B8 (attn_decode_paged_tp)
+    and B7b (mlp_decode_fused) at ranks 0 and m-1 against their plain
+    versions; the sum of all m ranks' fp32 partials, cast, against the
+    unsharded result (m = 1, whose cast partial is the one-card chain's
+    int8_gemv output); the fp32-partial epilogue; the vocab-shard argmax
+    combine, with a tie planted across two shards."""
+    from paligemma_tpu_torch.core.mesh import Mesh, shard_params
+    from paligemma_tpu_torch.kernels import decode_head as dh
+    from paligemma_tpu_torch.kernels import decode_layer_paged_tp as ptp
+    from paligemma_tpu_torch.kernels import decode_layer_tp as tp
+    from paligemma_tpu_torch.kernels import decode_mlp as dm
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+
+    rng = np.random.default_rng(SEED + 4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    kdim, heads, hd, inter, vocab = (TP_LAYER[k] for k in ("hidden", "heads", "head_dim",
+                                                          "inter", "vocab"))
+    n_layers, layer, eps = 2, 1, 1e-6
+    seq, ps = MAX_SEQ, PAGE
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def int8(*shape):  # stacked (.., K, N) int8 weight, per-column fp32 scales
+        w8 = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(shape[:-2] + shape[-1:], generator=g, device=dev)
+        return {"w8": w8, "s": (s + 0.5) / (127.0 * shape[-2] ** 0.5)}
+
+    layers = {"input_norm": bf(n_layers, kdim, scale=0.1),
+              "post_norm": bf(n_layers, kdim, scale=0.1),
+              "attn": {"qkv": int8(n_layers, kdim, (heads + 2) * hd),
+                       "o": int8(n_layers, heads * hd, kdim)},
+              "mlp": {"gateup": int8(n_layers, kdim, 2 * inter),
+                      "down": int8(n_layers, inter, kdim)}}
+
+    print("kernels: attn_decode_tp, attn_decode_paged_tp, mlp_decode_fused (one rank's shard)",
+          flush=True)
+    for b in (1, 8):
+        x, y2 = bf(b, kdim), bf(b, kdim)
+        kc, vc = bf(n_layers, b, seq, hd), bf(n_layers, b, seq, hd)
+        pos = torch.tensor([seq - 1 - 229 * i % (seq // 2) for i in range(b)], dtype=torch.int32,
+                           device=dev)
+        valid = (torch.arange(seq, device=dev)[None] <= pos[:, None].long()).contiguous()
+        n_keys = int(valid.sum())  # this token's position included
+        ang = torch.rand(b, hd, generator=g, device=dev) * 6.28
+        cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+        # the page pool holds the dense cache's rows, each row's pages shuffled
+        n_p = seq // ps
+        table = torch.from_numpy(
+            (rng.permutation(b * n_p) + 1).reshape(b, n_p).astype(np.int32)).to(dev)
+        kp = torch.zeros((n_layers, b * n_p + 1, ps, hd), dtype=torch.bfloat16, device=dev)
+        vp = torch.zeros_like(kp)
+        kp[:, table.flatten().long()] = kc.reshape(n_layers, b * n_p, ps, hd)
+        vp[:, table.flatten().long()] = vc.reshape(n_layers, b * n_p, ps, hd)
+        unsharded = {}
+        for m in TP_SIZES:
+            sums = {}
+            for r in range(m):
+                local = shard_params({"layers": layers}, Mesh(model=m, rank=r))["layers"]
+                hl, il = heads // m, inter // m
+                check = r in (0, m - 1)
+                caches = [(kc.clone(), vc.clone()) for _ in range(1 + check)]
+                pools = [(kp.clone(), vp.clone()) for _ in range(1 + check)]
+                dense_args = (valid, pos, cos, sin, hd, eps)
+                paged_args = (table, pos, cos, sin, n_p, hd, eps)
+                got = tp.attn_decode_tp(x, local, *caches[0], layer, *dense_args)
+                gotp = ptp.attn_decode_paged_tp(x, local, *pools[0], layer, *paged_args)
+                gotm = dm.mlp_decode_fused(y2, local["mlp"], layer, out_dtype=torch.float32)
+                for name, part in (("attn_decode_tp", got[0]), ("attn_decode_paged_tp", gotp[0]),
+                                   ("mlp_decode_fused", gotm)):
+                    sums[name] = part if r == 0 else sums[name] + part
+                if not check:
+                    continue
+                want = tp.attn_decode_tp_reference(x, local, *caches[1], layer, *dense_args)
+                wantp = ptp.attn_decode_paged_tp_reference(x, local, *pools[1], layer,
+                                                           *paged_args)
+                wantm = dm.reference_mlp(y2, local["mlp"], layer, torch.float32)
+                sync()
+                label = f"m{m} r{r} B{b} Hl{hl}"
+                rows = torch.arange(b, device=dev)
+                slot = table[rows, pos.long() // ps].long(), pos.long() % ps
+                report.case("attn_decode_tp", f"{label} o partial (fp32)", got[0], want[0], 1e-2,
+                            floor=0.0)
+                report.case("attn_decode_tp", f"{label} k/v new and cache rows",
+                            torch.cat([*got[1:], caches[0][0][layer, rows, pos.long()],
+                                       caches[0][1][layer, rows, pos.long()]]),
+                            torch.cat([*want[1:], caches[1][0][layer, rows, pos.long()],
+                                       caches[1][1][layer, rows, pos.long()]]), 1e-2)
+                report.case("attn_decode_paged_tp", f"{label} o partial (fp32)", gotp[0],
+                            wantp[0], 1e-2, floor=0.0)
+                report.case("attn_decode_paged_tp", f"{label} k/v new and pool slots",
+                            torch.cat([*gotp[1:], pools[0][0][layer][slot],
+                                       pools[0][1][layer][slot]]),
+                            torch.cat([*wantp[1:], pools[1][0][layer][slot],
+                                       pools[1][1][layer][slot]]), 1e-2)
+                report.case("mlp_decode_fused", f"m{m} r{r} B{b} I/m {il} down partial (fp32)",
+                            gotm, wantm, 1e-2, floor=0.0)
+                if b == 1 and r == 0 and m in (1, 8):
+                    qkv, o = local["attn"]["qkv"], local["attn"]["o"]
+                    gu, dn = local["mlp"]["gateup"], local["mlp"]["down"]
+                    w_attn = (nbytes(x, layers["input_norm"][layer], qkv["w8"][layer],
+                                     qkv["s"][layer], o["w8"][layer], o["s"][layer], cos, sin,
+                                     pos, got[0], *got[1:])
+                              + 2 * n_keys * hd * 2  # the keys and values this call needs
+                              + 2 * b * hd * 2)  # the fresh K/V rows written into the cache
+                    f_attn = (2 * b * kdim * (hl + 2) * hd + 4 * hd * hl * n_keys
+                              + 2 * b * hl * hd * kdim)
+                    report.time("attn_decode_tp", label,
+                                lambda: tp.attn_decode_tp(x, local, *caches[0], layer, *dense_args),
+                                lambda: tp.attn_decode_tp_reference(x, local, *caches[1], layer,
+                                                                    *dense_args),
+                                flops=f_attn, n_bytes=w_attn + nbytes(valid))
+                    report.time("attn_decode_paged_tp", label,
+                                lambda: ptp.attn_decode_paged_tp(x, local, *pools[0], layer,
+                                                                 *paged_args),
+                                lambda: ptp.attn_decode_paged_tp_reference(x, local, *pools[1],
+                                                                           layer, *paged_args),
+                                flops=f_attn, n_bytes=w_attn + nbytes(table))
+                    report.time("mlp_decode_fused", f"m{m} r{r} B{b} I/m {il}",
+                                lambda: dm.mlp_decode_fused(y2, local["mlp"], layer,
+                                                            out_dtype=torch.float32),
+                                lambda: dm.reference_mlp(y2, local["mlp"], layer, torch.float32),
+                                flops=2 * b * kdim * 2 * il + 2 * b * il * kdim,
+                                n_bytes=nbytes(y2, gu["w8"][layer], gu["s"][layer],
+                                               dn["w8"][layer], dn["s"][layer], gotm))
+                del local, caches, pools
+            for name, part in sums.items():
+                if m == 1:
+                    unsharded[name] = part.to(torch.bfloat16)
+                else:
+                    report.case(name, f"m{m} B{b} sum of {m} fp32 partials, cast, vs m1",
+                                part.to(torch.bfloat16), unsharded[name], 1e-2, floor=0.0)
+        # the unsharded MLP on one card: the bf16 epilogue of the same chain
+        one = dm.mlp_decode_fused(y2, layers["mlp"], layer)
+        sync()
+        if not torch.equal(one, unsharded["mlp_decode_fused"]):
+            raise AssertionError("mlp_decode_fused: the fp32 partial at m=1, cast, differs "
+                                 "from the bf16 epilogue's bits")
+        print(f"  {'mlp_decode_fused':20s} {f'B{b} m1 fp32 partial, cast == bf16 output':44s} "
+              f"torch.equal True  ok", flush=True)
+        del kc, vc, kp, vp
+
+    print("kernels: int8_gemv_f32 (the fp32-partial epilogue)", flush=True)
+    for name, k, n in (("o rows m1", heads * hd, kdim), ("o rows m8", hd, kdim),
+                       ("down rows m1", inter, kdim), ("down rows m8", inter // 8, kdim)):
+        w = int8(k, n)
+        for b in (1, 8):
+            x = bf(b, k)
+            got = gv.int8_gemv_f32(x, w["w8"], w["s"])
+            want = gv.int8_gemv_reference(x, w["w8"], w["s"], out_fp32=True)
+            bits = gv.int8_gemv(x, w["w8"], w["s"])
+            sync()
+            label = f"{name} B{b} {k}->{n}"
+            report.case("int8_gemv_f32", label, got, want, 1e-2, floor=0.0)
+            if got.dtype != torch.float32 or not torch.equal(got.to(torch.bfloat16), bits):
+                raise AssertionError(f"int8_gemv_f32 {label}: cast differs from int8_gemv's bits")
+            if b == 1 and name.startswith("down"):
+                report.time("int8_gemv_f32", label,
+                            lambda: gv.int8_gemv_f32(x, w["w8"], w["s"]),
+                            lambda: gv.int8_gemv_reference(x, w["w8"], w["s"], out_fp32=True),
+                            flops=2 * b * k * n, n_bytes=nbytes(x, w["w8"], w["s"], got))
+                # the same GEMV with the bf16 epilogue, timed in turns with it
+                f32_ms, bf16_ms = timed_pair(lambda: gv.int8_gemv_f32(x, w["w8"], w["s"]),
+                                             lambda: gv.int8_gemv(x, w["w8"], w["s"]), 20)
+                print(f"  {'int8_gemv_f32':20s} {label:44s} fp32 out {f32_ms:.4f} ms, bf16 "
+                      f"out {bf16_ms:.4f} ms (int8_gemv, not in the JSON)", flush=True)
+        del w
+    print(f"  {'int8_gemv_f32':20s} {'cast of the fp32 partial == int8_gemv bits':44s} ok",
+          flush=True)
+    del layers
+
+    print("kernels: head_argmax over vocab shards, combined across ranks", flush=True)
+    head = int8(kdim, vocab)
+    w8, s = head["w8"], head["s"]
+
+    def combine(y, m):
+        vl = vocab // m
+        mx, ids = [], []
+        for r in range(m):
+            blk = dh.repack_head({"w8": w8[:, r * vl:(r + 1) * vl].contiguous(),
+                                  "s": s[r * vl:(r + 1) * vl].contiguous()})
+            i, v = dh.head_argmax_fused(y, blk, return_max=True)
+            ids.append(i + r * vl)
+            mx.append(v)
+        return tp.pick_first_max(torch.stack(mx), torch.stack(ids))
+
+    y = bf(8, kdim)
+    plain = ((y.float() @ w8.float()) * s).to(torch.bfloat16).float()
+    for m in TP_SIZES[1:]:
+        ids = combine(y, m)
+        sync()
+        report.case("head_argmax", f"m{m} combined shards B8, winning logit vs plain max",
+                    plain.gather(1, ids.long()[:, None])[:, 0], plain.max(-1).values, 1e-2)
+    y = bf(1, kdim)
+    j0, dup = 1000, vocab - 1000  # in shard 0 and in shard m-1 for every m
+    w8[:, j0] = torch.where(y[0] > 0, 127, -127).to(torch.int8)
+    w8[:, dup] = w8[:, j0]
+    s[j0] = s[dup] = 1.0
+    for m in TP_SIZES[1:]:
+        tie = int(combine(y, m)[0])
+        print(f"  {'head_argmax':20s} {f'm{m} tie planted at {(j0, dup)}':44s} -> id {tie}  "
+              f"{'ok' if tie == j0 else 'FAIL'}", flush=True)
+        if tie != j0:
+            raise AssertionError(f"vocab-shard combine: planted tie resolved to {tie}, not {j0}")
+    del head, w8, s
+
+
 def make_inputs(cfg, dev):
     rng = np.random.default_rng(SEED)
     n_img = cfg.vision_config.num_patches
@@ -566,6 +812,10 @@ def main_path(dev, card):
         raise AssertionError("kernel engine did not select the kernel paths")
     plain = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
                             use_flash=False, fused_layer=False)
+    # the one-card fused_mlp route: plain layers, each layer's decode MLP
+    # through B7b (kernels/decode_mlp)
+    mlp_eng = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
+                              fused_layer=False, fused_mlp=True)
     pixels, ids, mask = make_inputs(cfg, dev)
 
     kernels.reset_launch_counts()
@@ -582,43 +832,82 @@ def main_path(dev, card):
     missing = [k for k in GENERATE_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    n_layers = cfg.text_config.num_hidden_layers
+    kernels.reset_launch_counts()
+    tok_mlp = mlp_eng.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1,
+                               sync_every=16)
+    sync()
+    mlp_counts = kernels.launch_counts()
+    print(f"main: launches during generate(fused_mlp=True, fused_layer=False): "
+          f"{json.dumps(mlp_counts)}", flush=True)
+    if (mlp_counts["mlp_decode_fused"] != n_layers * N_NEW or mlp_counts["decode_attention"]
+            or mlp_counts["attn_decode_tp"] or mlp_counts["int8_gemv_f32"]):
+        raise AssertionError("fused_mlp: B7b must run once per layer and step, and no "
+                             "decode-layer kernel")
 
-    # teacher-force the emitted tokens through both engines
+    # teacher-force the emitted tokens through the kernel, plain and
+    # fused_mlp engines
     lk, sk = eng.prefill(pixels, ids, mask)
     lp, sp = plain.prefill(pixels, ids, mask)
+    lm, sm = mlp_eng.prefill(pixels, ids, mask)
     worst, flips = _compare(lk, lp, "prefill", tok1[0, 0])
+    worst_m, f = _compare(lk, lm, "fused_mlp prefill", tok1[0, 0])
+    ties_m = [0] if f else []
     for t in range(N_NEW - 1):
         tok = torch.from_numpy(tok1[:, t])
         lk, sk = eng.decode_step(tok, sk)
         lp, sp = plain.decode_step(tok, sp)
+        lm, sm = mlp_eng.decode_step(tok, sm)
         w, f = _compare(lk, lp, f"decode {t}", tok1[0, t + 1])
         worst, flips = max(worst, w), flips + f
+        # fused_mlp's greedy token must be the emitted one unless near a tie
+        w, f = _compare(lk, lm, f"fused_mlp decode {t}", tok1[0, t + 1])
+        worst_m = max(worst_m, w)
+        if f:
+            ties_m.append(t + 1)
     sync()
     print(f"main: teacher-forced logits, kernel vs plain path: max rel err {worst:.3e} "
           f"(tol {LOGIT_REL_TOL}) over prefill + {N_NEW - 1} steps; "
           f"near-tie steps skipped in the token check: {flips}", flush=True)
+    differ = [t for t in range(N_NEW) if tok_mlp[0, t] != tok1[0, t]]
+    print(f"main: fused_mlp vs fused_layer: {N_NEW - len(differ)}/{N_NEW} tokens identical"
+          f"{f', first divergence at token {differ[0]}' if differ else ''}; teacher-forced "
+          f"logits max rel err {worst_m:.3e} (tol {LOGIT_REL_TOL}); near-tie steps {ties_m}",
+          flush=True)
+    if differ and differ[0] not in ties_m:
+        raise AssertionError(f"fused_mlp tokens diverge from fused_layer's at token {differ[0]}, "
+                             "which is no near tie")
+    del mlp_eng
 
-    # speed: TTFT (prefill incl. vision) and b1 decode tok/s, CUDA events
-    perf = {}
     for name, e in (("kernels", eng), ("plain", plain)):
-        ttft = sorted(cuda_ms(lambda: e.prefill(pixels, ids, mask), 1) for _ in range(3))[1]
-        logits, state = e.prefill(pixels, ids, mask)
-        n = 32
-        bucket = e.kv_bucket_for(ids.shape[1] + n)
-        e.decode_chunk(logits, state, 4, kv_bucket=bucket)  # warm-up
-        logits, state = e.prefill(pixels, ids, mask)
-        sync()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        e.decode_chunk(logits, state, n, kv_bucket=bucket)
-        end.record()
-        sync()
-        step_ms = start.elapsed_time(end) / n
-        perf[name] = (ttft, 1000.0 / step_ms)
-        print(f"main: {name:7s} TTFT {ttft:.2f} ms  b1 int8 greedy decode "
-              f"{1000.0 / step_ms:.1f} tok/s ({step_ms:.3f} ms/step)  [{card}]", flush=True)
+        decode_rate(f"main: {name:7s}", e, pixels, ids, mask, card)
     profile_phase(eng, pixels, ids, mask, card)
-    return params, decode, cfg
+    return params, decode, cfg, tok1
+
+
+def decode_step_ms(e, pixels, ids, mask, n=32) -> float:
+    """b1 greedy decode ms per step over ``n`` steps of ``decode_chunk``
+    after a prefill, CUDA events."""
+    logits, state = e.prefill(pixels, ids, mask)
+    bucket = e.kv_bucket_for(ids.shape[1] + n)
+    e.decode_chunk(logits, state, 4, kv_bucket=bucket)  # warm-up
+    logits, state = e.prefill(pixels, ids, mask)
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    e.decode_chunk(logits, state, n, kv_bucket=bucket)
+    end.record()
+    sync()
+    return start.elapsed_time(end) / n
+
+
+def decode_rate(label, e, pixels, ids, mask, card, n=32):
+    """Prints TTFT (prefill incl. vision, the median of 3) and the b1 greedy
+    decode rate over ``n`` steps of ``decode_chunk``, CUDA events."""
+    ttft = sorted(cuda_ms(lambda: e.prefill(pixels, ids, mask), 1) for _ in range(3))[1]
+    step_ms = decode_step_ms(e, pixels, ids, mask, n)
+    print(f"{label} TTFT {ttft:.2f} ms  b1 int8 greedy decode {1000.0 / step_ms:.1f} tok/s "
+          f"({step_ms:.3f} ms/step)  [{card}]", flush=True)
 
 
 def serving_requests(cfg, sample=False):
@@ -736,7 +1025,8 @@ def serving_phase(params, decode, cfg, dev, card):
     """The continuous-batching serving path at full width: dense vs paged
     tokens, preemption, the page walk, a mixed greedy/sampled batch, and
     throughput beside the plain path. Returns the launch counts summed over
-    the served runs (a)-(e)."""
+    the served runs (a)-(e), and run (a)'s tokens of the dense and the paged
+    engine."""
     from paligemma_tpu_torch.models import gemma, paligemma
     from paligemma_tpu_torch.runtime.serving import ServingEngine
 
@@ -848,7 +1138,7 @@ def serving_phase(params, decode, cfg, dev, card):
 
     print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
           flush=True)
-    missing = [k for k, v in total.items() if v == 0 and k not in TRAIN_ONLY]
+    missing = [k for k, v in total.items() if v == 0 and k not in TRAIN_ONLY + TP_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -878,7 +1168,7 @@ def serving_phase(params, decode, cfg, dev, card):
         print(f"serve: {name:13s} {N_REQ} requests, 8 slots: {tok_s(toks, wall):.1f} tok/s "
               f"aggregate (all tokens / run wall {wall:.2f} s), TTFT p50 {ttft:.1f} ms  "
               f"[{card}]", flush=True)
-    return total
+    return total, tok_d, tok_a
 
 
 def _window_without_sync(eng):
@@ -937,9 +1227,12 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
     return worst
 
 
-def _profile(label, fn, per, card, top=8, unit=None):
+def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
     """torch.profiler over ``fn()``: device-busy time against wall time per
-    ``per`` (steps), and the kernels with the most device time."""
+    ``per`` (steps), and the kernels with the most device time. With
+    ``host_top``: the host side too, the ops' self CPU time (the
+    collectives' apart) against the wall time, and the ``host_top`` ops
+    with the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -967,20 +1260,40 @@ def _profile(label, fn, per, card, top=8, unit=None):
         print(f"profile:   {k.key[:48]:48s} {k.count / per:6.1f} calls "
               f"{k.self_device_time_total / per:9.1f} us  "
               f"({k.self_device_time_total / k.count:.2f} us each)", flush=True)
+    if not host_top:
+        return
+    # host-side events: each op's self CPU time (its children excluded), so
+    # the rows add up; what is outside every op is Python, the ctypes
+    # launches of the hand-written kernels and the profiler's own cost
+    ops = [k for k in prof.key_averages()
+           if k.device_type == DeviceType.CPU and k.self_cpu_time_total > 0]
+    coll = [k for k in ops if any(t in k.key for t in COLLECTIVE_KEYS)]
+    ops_ms = sum(k.self_cpu_time_total for k in ops) / 1e3
+    coll_ms = sum(k.self_cpu_time_total for k in coll) / 1e3
+    print(f"profile: {label}: host per {unit}: ops' self CPU {ops_ms / per:.3f} ms, of it "
+          f"collectives {coll_ms / per:.3f} ms ({sum(k.count for k in coll) / per:.1f} "
+          f"calls); outside any op {(wall - ops_ms) / per:.3f} ms of wall "
+          f"{wall / per:.3f} ms", flush=True)
+    for k in sorted(ops, key=lambda k: -k.self_cpu_time_total)[:host_top]:
+        print(f"profile:   host {k.key[:43]:43s} {k.count / per:6.1f} calls "
+              f"{k.self_cpu_time_total / per:9.1f} us  "
+              f"({k.self_cpu_time_total / k.count:.2f} us each)", flush=True)
 
 
-def profile_phase(eng, pixels, ids, mask, card, n_steps=8):
+def profile_phase(eng, pixels, ids, mask, card, n_steps=8, buckets=(512, None), prefix="",
+                  host_top=10):
     """Where the kernel path's time goes: one prefill, and ``n_steps``
-    greedy decode steps at the 512-slot window and at the full cache."""
+    greedy decode steps at each window of ``buckets`` (None: the full
+    cache), the decode on the device and on the host."""
     eng.prefill(pixels, ids, mask)  # warm-up at this shape
-    _profile("prefill B1 266 tokens", lambda: eng.prefill(pixels, ids, mask), 1, card)
-    for bucket in (512, None):
+    _profile(f"{prefix}prefill B1 266 tokens", lambda: eng.prefill(pixels, ids, mask), 1, card)
+    for bucket in buckets:
         ls = eng.prefill(pixels, ids, mask)
         eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket)  # warm-up
         ls = eng.prefill(pixels, ids, mask)
-        _profile(f"greedy decode B1 W{bucket or MAX_SEQ}, {n_steps} steps",
+        _profile(f"{prefix}greedy decode B1 W{bucket or MAX_SEQ}, {n_steps} steps",
                  lambda: eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket), n_steps,
-                 card)
+                 card, host_top=host_top)
 
 
 def _leaves(tree):
@@ -1006,6 +1319,273 @@ def _compare(lk, lp, label, emitted):
             raise AssertionError(f"{label}: plain greedy {int(lp[0].argmax())} != emitted {emitted}")
         return rel, 0
     return rel, 1
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def collective_host_times(mesh, dev, card, calls=400):
+    """Host time per collective of the TP decode step, without the
+    profiler: ``calls`` back-to-back calls of each at the step's shapes
+    (the B1 partial and the head's (logit, id) pair), timed on the host's
+    clock around a final synchronization."""
+    from paligemma_tpu_torch.core.mesh import all_gather, psum
+
+    part = torch.randn(1, 2048, device=dev)
+    mx = torch.randn(1, device=dev)
+    for name, fn in (("psum (1, 2048) fp32", lambda: psum(part, mesh)),
+                     ("all_gather (1,) fp32", lambda: all_gather(mx, mesh))):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / calls
+        print(f"tp (b): host time per collective, {name}, {mesh.backend} world size "
+              f"{mesh.model}: {ms:.4f} ms ({calls} back-to-back calls)  [{card}]", flush=True)
+
+
+def tp_step_attribution(eng, one, pixels, ids, mask, card, rounds=3):
+    """How much of the TP step's extra time over one card the collectives
+    take, at world size 1, where each collective is an identity: b1 decode
+    ms per step of the one-card engine ``one``, of the TP engine ``eng``,
+    and of ``eng`` with ``psum`` / ``all_gather`` replaced by their m = 1
+    results (no torch.distributed call), in turns; medians of ``rounds``."""
+    from paligemma_tpu_torch.core import mesh as mesh_lib
+
+    real = (mesh_lib.psum, mesh_lib.all_gather)
+    identity = (lambda x, mesh: x, lambda x, mesh: x.contiguous()[None])
+    times = {"one card": [], "TP": [], "TP, collectives as identities": []}
+    try:
+        for _ in range(rounds):
+            times["one card"].append(decode_step_ms(one, pixels, ids, mask))
+            times["TP"].append(decode_step_ms(eng, pixels, ids, mask))
+            mesh_lib.psum, mesh_lib.all_gather = identity
+            times["TP, collectives as identities"].append(decode_step_ms(eng, pixels, ids, mask))
+            mesh_lib.psum, mesh_lib.all_gather = real
+    finally:
+        mesh_lib.psum, mesh_lib.all_gather = real
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"tp (b): b1 decode ms/step in turns, median of {rounds}: "
+          + ", ".join(f"{k} {v:.3f} ({', '.join(f'{x:.3f}' for x in times[k])})"
+                      for k, v in med.items()) + f"  [{card}]", flush=True)
+    extra = med["TP"] - med["one card"]
+    coll = med["TP"] - med["TP, collectives as identities"]
+    print(f"tp (b): the TP step's extra time over one card {extra:.3f} ms/step, of it the "
+          f"collectives {coll:.3f} ms ({100 * coll / extra:.1f} %), the rest of the TP chain "
+          f"{extra - coll:.3f} ms  [{card}]", flush=True)
+
+
+def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_paged):
+    """Run (b): the tensor-parallel engines at world size 1 over NCCL. At
+    m = 1 the TP chain (B7 / B8, B7b, the fp32 partials summed by an
+    all-reduce and cast after it, the vocab-shard argmax combine) computes
+    the one-card chain's bits, so generate and the dense and paged serving
+    runs must give the one-card kernel engines' tokens exactly. Each run's
+    launch counts are zeroed just before it and read just after; B7 or B8
+    and B7b run once per layer and step or tick. Then one decode window per
+    TP engine under CUDA's sync debug mode. Returns the summed counts."""
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.core.mesh import make_mesh
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    Paged = _recording_engine()
+    vocab, n_layers = cfg.vocab_size, cfg.text_config.num_hidden_layers
+    total: dict = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host, no cluster
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        print(f"tp (b): process group {dist.get_backend()} world size "
+              f"{dist.get_world_size()}, mesh data {mesh.data} x model {mesh.model}", flush=True)
+        eng = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode, mesh=mesh)
+        if not (eng.fused_layer and eng.use_flash and eng._greedy_head_fused):
+            raise AssertionError("the TP engine did not select the kernel paths")
+        pixels, ids, mask = make_inputs(cfg, dev)
+        kernels.reset_launch_counts()
+        tok = eng.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1,
+                           sync_every=16)
+        sync()
+        counts = kernels.launch_counts()
+        print(f"tp (b): launches during TP generate(sync_every=16): {json.dumps(counts)}",
+              flush=True)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        per_step = {k: counts[k] for k in ("attn_decode_tp", "mlp_decode_fused")}
+        if (set(per_step.values()) != {n_layers * N_NEW}
+                or counts["int8_gemv_f32"] != 2 * n_layers * N_NEW
+                or counts["head_argmax"] != N_NEW or counts["attn_decode_paged_tp"]):
+            raise AssertionError(f"tp (b) generate: launch counts off ({N_NEW} steps)")
+        same = np.array_equal(tok, tok_gen)
+        print(f"tp (b): TP generate m=1 vs the one-card kernel engine: {N_NEW} tokens identical "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"tp (b): TP generate tokens differ:\n{tok}\n{tok_gen}")
+        decode_rate("tp (b): TP m=1 ", eng, pixels, ids, mask, card)
+        profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="TP m=1 NCCL ")
+        collective_host_times(mesh, dev, card)
+        one = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
+        tp_step_attribution(eng, one, pixels, ids, mask, card)
+        del one
+        del eng
+
+        for label, make, tick, want in (
+                ("(b) dense TP m=1", lambda: ServingEngine(params, cfg, decode_params=decode,
+                                                           mesh=mesh, **SERVE),
+                 TP_DENSE_TICK, tok_dense),
+                ("(b) paged TP m=1", lambda: Paged(params, cfg, decode_params=decode, mesh=mesh,
+                                                   page_size=PAGE, n_pages=FULL_POOL, **SERVE),
+                 TP_PAGED_TICK, tok_paged)):
+            served = make()
+            if not served.fused_decode or getattr(served, "paged_kernel", "fused_tp") != "fused_tp":
+                raise AssertionError(f"serve {label}: the engine did not select the TP kernels")
+            (toks, wall, ttft), counts = _served(label, served, serving_requests(cfg), vocab,
+                                                 n_layers, tick)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            differ = [i for i in want if toks[i] != want[i]]
+            print(f"serve {label}: {N_REQ - len(differ)}/{N_REQ} requests with the one-card "
+                  f"kernel engine's tokens; {sum(map(len, toks.values())) / wall:.1f} tok/s "
+                  f"aggregate, TTFT p50 {ttft:.1f} ms  [{card}]", flush=True)
+            if differ:
+                raise AssertionError(f"serve {label}: requests {differ} differ from one card")
+            del served
+
+        engines = {"dense TP greedy": ServingEngine(params, cfg, decode_params=decode,
+                                                    mesh=mesh, **SERVE),
+                   "paged TP": Paged(params, cfg, decode_params=decode, mesh=mesh,
+                                     page_size=PAGE, n_pages=FULL_POOL, **SERVE)}
+        for served in engines.values():
+            for r in serving_requests(cfg)[:8]:
+                r.max_new_tokens = 64
+                served.submit(r)
+            served.step()  # prefill the 8 rows and decode a first window
+            _window_without_sync(served)
+        print(f"tp (b): no host synchronization inside a decode window: {', '.join(engines)}",
+              flush=True)
+        del engines
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def _teacher_logits(eng, req, tokens):
+    """fp32 logits (len(tokens), vocab) on the host: the prefill's, then one
+    decode step per token fed back (the last one is not fed)."""
+    ids = torch.from_numpy(req.input_ids[None].astype(np.int64))
+    logits, state = eng.prefill(req.pixel_values[None], ids, torch.ones_like(ids))
+    out = [logits[0].cpu()]
+    for t in tokens[:-1]:
+        logits, state = eng.decode_step(torch.tensor([t]), state)
+        out.append(logits[0].cpu())
+    return torch.stack(out)
+
+
+def _tp2_rank(rank, world, init, out_dir, teacher):
+    """One rank of run (c) (a spawned process on the shared card): the
+    dense TP ServingEngine on the 12 requests over gloo, then request 0's
+    one-card tokens teacher-forced through the TP kernel engine. Rank 0
+    also runs the one-card kernel engine on the same tokens. Writes its
+    tokens and logits' agreement to ``out_dir``."""
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch import paligemma_3b_224
+    from paligemma_tpu_torch.convert import init_params
+    from paligemma_tpu_torch.core.mesh import make_mesh
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP2_TIMEOUT))
+    try:
+        cfg = paligemma_3b_224()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                             torch.bfloat16)
+        decode = quantize_lm_for_serving(params)
+        mesh = make_mesh(1, world)
+        eng = ServingEngine(params, cfg, decode_params=decode, mesh=mesh, **SERVE)
+        if not eng.fused_decode:
+            raise AssertionError("run (c): the TP serving engine did not select the kernels")
+        toks, wall, ttft = _serve(eng, serving_requests(cfg), cfg.vocab_size)
+        del eng
+        req = serving_requests(cfg)[0]
+        tp = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode, mesh=mesh)
+        lt = _teacher_logits(tp, req, teacher)
+        del tp
+        out = {"tokens": toks, "wall": wall, "ttft": ttft}
+        if rank == 0:
+            one = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode)
+            lo = _teacher_logits(one, req, teacher)
+            if not torch.isfinite(lt).all():
+                raise AssertionError("run (c): non-finite TP logits")
+            out["rel_err"] = float(((lt - lo).abs().amax(-1) / lo.abs().amax(-1)).max())
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_two_rank_phase(cfg, card, tok_dense):
+    """Run (c): two processes share the one card as the two ranks of a
+    model axis of 2 (gloo; the collectives stage through host memory, the
+    products stay on the card), serving the 12 requests with the dense TP
+    ServingEngine. Gate: every rank emits the same tokens, and request 0's
+    teacher-forced logits lie within LOGIT_REL_TOL of the one-card kernel
+    path's. Printed, not gated: greedy agreement with the one-card tokens,
+    since a bf16 near tie can flip at full width with random weights."""
+    import torch.multiprocessing as mp
+
+    world = 2
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_tp2_rank, args=(world, str(work / "init"), str(work),
+                                              tok_dense[0]),
+                             nprocs=world, start_method="spawn", join=False)
+    try:
+        deadline = time.monotonic() + TP2_TIMEOUT
+        while not ctx.join(timeout=5):  # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"run (c): {world} ranks did not finish in {TP2_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    toks = outs[0]["tokens"]
+    if any(o["tokens"] != toks for o in outs[1:]):
+        raise AssertionError("run (c): the ranks emitted different tokens")
+    same = sum(toks[i] == tok_dense[i] for i in tok_dense)
+    n_tok = sum(map(len, tok_dense.values()))
+    agree = sum(x == y for i in tok_dense for x, y in zip(toks[i], tok_dense[i]))
+    first = [(i, next(j for j, (x, y) in enumerate(zip(toks[i], tok_dense[i])) if x != y))
+             for i in sorted(tok_dense) if toks[i] != tok_dense[i]]
+    print(f"tp (c): {world} ranks on one card over gloo, dense TP ServingEngine, {N_REQ} "
+          f"requests in {time.perf_counter() - t0:.1f} s (process start and weights included): "
+          f"every rank emitted the same tokens; {same}/{N_REQ} requests and {agree}/{n_tok} "
+          f"tokens equal the one-card kernel engine's; first divergence (request, token): "
+          f"{first[0] if first else 'none'}; serving wall {outs[0]['wall']:.2f} s, TTFT p50 "
+          f"{outs[0]['ttft']:.1f} ms  [{card}]", flush=True)
+    worst = outs[0]["rel_err"]
+    print(f"tp (c): request 0's {len(tok_dense[0])} one-card tokens teacher-forced, TP m=2 vs "
+          f"one-card kernel logits: max rel err {worst:.3e} (tol {LOGIT_REL_TOL})", flush=True)
+    if not worst <= LOGIT_REL_TOL:
+        raise AssertionError(f"run (c): TP m=2 logits rel err {worst} > {LOGIT_REL_TOL}")
 
 
 def train_batch(cfg):
@@ -1198,19 +1778,26 @@ def main() -> int:
     report = KernelReport()
     t0 = time.perf_counter()
     kernel_phase(report, dev)
+    tp_kernel_phase(report, dev)
     sync()
+    torch.cuda.empty_cache()
     print(f"kernels: all cases within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    params, decode, cfg = main_path(dev, card)
+    params, decode, cfg, tok_gen = main_path(dev, card)
     t0 = time.perf_counter()
-    counts = serving_phase(params, decode, cfg, dev, card)
+    counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tp_counts = tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_paged)
     del decode
     torch.cuda.empty_cache()
+    tp_two_rank_phase(cfg, card, tok_dense)
+    print(f"tp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = {k: counts.get(k, 0) + train_counts.get(k, 0) for k in kernels.WRAPPERS}
+    counts = {k: counts.get(k, 0) + tp_counts.get(k, 0) + train_counts.get(k, 0)
+              for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
@@ -1236,6 +1823,16 @@ def main() -> int:
                                    "paligemma_tpu/kernels/flash_attention.py:262"),
         "flash_attention_bwd_dkv": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "paligemma_tpu/kernels/flash_attention.py:321"),
+        "int8_gemv_f32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
+                          "paligemma_tpu/kernels/decode_layer_tp.py:79"),
+        # chains of the port's kernels (CUDA GEMVs and attention, Triton
+        # norm and RoPE), each counted once per call
+        "mlp_decode_fused": ("cuda", "paligemma_tpu_torch/kernels/decode_mlp.py",
+                             "paligemma_tpu/kernels/decode_mlp.py:49"),
+        "attn_decode_tp": ("cuda", "paligemma_tpu_torch/kernels/decode_layer_tp.py",
+                           "paligemma_tpu/kernels/decode_layer_tp.py:79"),
+        "attn_decode_paged_tp": ("cuda", "paligemma_tpu_torch/kernels/decode_layer_paged_tp.py",
+                                 "paligemma_tpu/kernels/decode_layer_paged_tp.py:58"),
     }
     rows = []
     for name in kernels.WRAPPERS:

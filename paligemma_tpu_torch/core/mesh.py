@@ -1,0 +1,275 @@
+"""Device mesh, Megatron tensor-parallel sharding and the collectives, over
+torch.distributed (port of paligemma_tpu/core/mesh.py).
+
+JAX is single-controller: one program holds global arrays with
+NamedShardings and XLA inserts the collectives. PyTorch runs one process
+per card (SPMD), so here each rank holds its own slices and the model code
+calls the collectives itself:
+
+* ``Mesh`` names this rank's place: ``data`` x ``model`` ranks, its
+  ``rank`` on the model axis, the process group and its backend.
+  Only the model axis is ported: ``make_mesh(data > 1)`` raises.
+* ``shard_params`` returns this rank's contiguous slices, by the JAX rules
+  of ``_spec_for_leaf`` (here as tuples, one entry per dimension,
+  ``"model"`` or None). The JAX ``param_specs`` tree has no counterpart: a
+  rank holds its slices, not a global array with a sharding. Two
+  differences from the JAX rules: k and v
+  narrower than q (Gemma's one KV head) are replicated, as the JAX decode
+  kernels' ``repack_for_tp`` replicates them, and SigLIP's patch embedding
+  stays replicated (JAX shards its D; here the encoder blocks take the
+  whole embedding as their input, which a D-sharded embedding would need
+  gathered again).
+* Fused matrices are split at their boundaries before sharding:
+  ``qkv`` becomes ``[q_r | k | v]`` and ``gateup`` ``[gate_r | up_r]``. A
+  plain column slice of the fused matrix would give rank 0 all of q (or of
+  gate), and the GeGLU epilogue, which splits its input at N/2, would pair
+  the wrong columns.
+* ``psum`` and ``all_gather`` are the collectives: NCCL on the card; over
+  gloo (the CPU tests, or processes that share one card) a CUDA tensor is
+  staged through host memory inside the helper. That is a transport choice:
+  every product stays on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .config import GemmaConfig
+
+MODEL = "model"
+_COL_PROJ = {"q", "k", "v", "gate", "up", "fc1", "qkv", "gateup"}
+_ROW_PROJ = {"o", "down", "fc2"}
+_WEIGHT_NAMES = ("w8", "kernel")  # the (..., K, N) leaf of an int8 / dense dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a ``data`` x ``model`` mesh. ``group`` None is
+    the default process group. A Mesh built by hand (no process group) is
+    enough for ``shard_params`` and the per-rank kernels; the collectives
+    need ``make_mesh``'s."""
+
+    model: int = 1
+    rank: int = 0
+    data: int = 1
+    group: Any = None
+    backend: str = "gloo"
+
+
+def make_mesh(data: int = 1, model: Optional[int] = None, group=None) -> Mesh:
+    """The mesh of an initialized process group (``init_process_group`` with
+    its address, world size and rank first). ``model`` defaults to the world
+    size."""
+    if data != 1:
+        raise NotImplementedError("make_mesh: only the model axis is ported (data == 1)")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: call torch.distributed.init_process_group first")
+    world = dist.get_world_size(group)
+    model = world if model is None else model
+    if data * model != world:
+        raise ValueError(f"make_mesh: data {data} x model {model} != world size {world}")
+    return Mesh(model=model, rank=dist.get_rank(group), data=data, group=group,
+                backend=dist.get_backend(group))
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+def _spec_for_leaf(names, ndim: int) -> Tuple:
+    """Which dimension of a leaf shards on "model" (paligemma_tpu/core/
+    mesh.py ``_spec_for_leaf``, with the patch embedding replicated)."""
+
+    def axis(from_end: int) -> Tuple:
+        spec = [None] * ndim
+        spec[ndim - 1 - from_end] = MODEL
+        return tuple(spec)
+
+    rep = (None,) * ndim
+    if "head_q" in names:
+        return axis(0)  # w8 (K, V) and s (V,): the vocab
+    if names[-1] == "embed":
+        return axis(1)  # (V, H): the vocab
+    if names[-1] in ("pos_embed", "final_norm", "grid") or "patch_embed" in names:
+        return rep
+    proj = next((n for n in names if n in _COL_PROJ | _ROW_PROJ), None)
+    if proj is None:
+        return rep  # norms, the projector
+    if proj in _COL_PROJ:
+        return axis(0)  # weights, scales and biases: the output columns
+    return axis(1) if names[-1] in _WEIGHT_NAMES or names[-1] == proj else rep
+
+
+def _slice(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """Rows / columns [lo, hi) of ``dim``, contiguous and not sharing the
+    full tensor's storage (the whole tensor itself when nothing is cut)."""
+    if lo == 0 and hi == t.shape[dim]:
+        return t
+    return t.narrow(dim, lo, hi - lo).clone(memory_format=torch.contiguous_format)
+
+
+def _cols(leaf, lo: int, hi: int):
+    """Output columns [lo, hi) of a column-parallel leaf: every tensor in it
+    (weight, int8 scales, bias) has them last."""
+    if isinstance(leaf, dict):
+        return {k: _cols(v, lo, hi) for k, v in leaf.items()}
+    return _slice(leaf, leaf.dim() - 1, lo, hi)
+
+
+def _cat_cols(*leaves):
+    if isinstance(leaves[0], dict):
+        return {k: _cat_cols(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+    return torch.cat(leaves, dim=-1)
+
+
+def _width(leaf) -> int:
+    w = leaf[next(n for n in _WEIGHT_NAMES if n in leaf)] if isinstance(leaf, dict) else leaf
+    return w.shape[-1]
+
+
+def _rows(leaf, m: int, r: int):
+    """This rank's input rows of a row-parallel leaf: the weight's K rows;
+    the int8 scales and the bias are replicated (added once, after the sum)."""
+    if isinstance(leaf, dict):
+        if "w4" in leaf:
+            raise NotImplementedError("shard_params: 4-bit trees are not sharded")
+        return {k: _rows(v, m, r) if k in _WEIGHT_NAMES else v for k, v in leaf.items()}
+    k = leaf.shape[-2]
+    return _slice(leaf, leaf.dim() - 2, r * k // m, (r + 1) * k // m)
+
+
+def _shard_cols(leaf, m: int, r: int):
+    n = _width(leaf)
+    if n % m:
+        raise ValueError(f"shard_params: {n} columns do not split over {m} ranks")
+    return _cols(leaf, r * n // m, (r + 1) * n // m)
+
+
+def _shard_attn(attn: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
+    """q sharded by heads, o by rows; k and v sharded too when they are as
+    wide as q, replicated when narrower (one KV head)."""
+    o = attn["o"]  # (nq, K): its rows are q's width
+    nq = (o[next(n for n in _WEIGHT_NAMES if n in o)] if isinstance(o, dict) else o).shape[-2]
+    out = {"o": _rows(o, m, r)}
+    if "qkv" in attn:
+        qkv = attn["qkv"]
+        nkv = (_width(qkv) - nq) // 2
+        q, k, v = (_cols(qkv, 0, nq), _cols(qkv, nq, nq + nkv), _cols(qkv, nq + nkv, nq + 2 * nkv))
+    else:
+        q, k, v = attn["q"], attn["k"], attn["v"]
+        nkv = _width(k)
+    q = _shard_cols(q, m, r)
+    if nkv == nq:
+        k, v = _shard_cols(k, m, r), _shard_cols(v, m, r)
+    out.update({"qkv": _cat_cols(q, k, v)} if "qkv" in attn else {"q": q, "k": k, "v": v})
+    for name, leaf in attn.items():
+        if name not in ("q", "k", "v", "qkv", "o"):
+            raise NotImplementedError(f"shard_params: attention leaf {name!r}")
+    return out
+
+
+def _shard_mlp(mlp: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
+    out = {}
+    for name, leaf in mlp.items():
+        if name == "gateup":  # [gate_r | up_r]
+            inter = _width(leaf) // 2
+            out[name] = _cat_cols(_shard_cols(_cols(leaf, 0, inter), m, r),
+                                  _shard_cols(_cols(leaf, inter, 2 * inter), m, r))
+        elif name in ("down", "fc2"):
+            out[name] = _rows(leaf, m, r)
+        else:  # gate, up, fc1
+            out[name] = _shard_cols(leaf, m, r)
+    return out
+
+
+def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's slices of a (dense or int8) params tree, or of one of its
+    subtrees (e.g. ``params["lm"]``): column-parallel projections by output
+    columns, row-parallel ones (o, down, fc2) by input rows, the embedding
+    and the int8 head by vocab, everything else replicated (the same
+    tensors). Fused ``qkv`` / ``gateup`` are split at their boundaries
+    first (module docstring)."""
+    m, r = mesh.model, mesh.rank
+
+    def walk(t, names):
+        if not isinstance(t, dict):
+            spec = _spec_for_leaf(names, t.dim())
+            if MODEL not in spec:
+                return t
+            d = spec.index(MODEL)
+            n = t.shape[d]
+            if n % m:
+                raise ValueError(f"shard_params: {'.'.join(names)} dim {d} ({n}) does not "
+                                 f"split over {m} ranks")
+            return _slice(t, d, r * n // m, (r + 1) * n // m)
+        if names and names[-1] == "attn":
+            return _shard_attn(t, m, r)
+        if names and names[-1] == "mlp":
+            return _shard_mlp(t, m, r)
+        return {k: walk(v, names + (k,)) for k, v in t.items()}
+
+    return walk(params, ())
+
+
+def local_text_config(cfg: GemmaConfig, model: int) -> GemmaConfig:
+    """The decoder config one rank computes with: its share of the query
+    heads and of the MLP width (one KV head stays whole)."""
+    h, nkv, inter = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+    if h % model or inter % model or cfg.vocab_size % model or nkv not in (1, h):
+        raise NotImplementedError(
+            f"tensor parallel over {model} ranks needs heads ({h}), intermediate size "
+            f"({inter}) and vocab ({cfg.vocab_size}) divisible by it, and one KV head or "
+            f"one per query head (got {nkv})")
+    return dataclasses.replace(cfg, num_attention_heads=h // model,
+                               num_key_value_heads=1 if nkv == 1 else nkv // model,
+                               intermediate_size=inter // model)
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
+    return mesh.backend != "nccl" and x.is_cuda
+
+
+def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum of ``x`` over the model axis, in place; returns ``x``."""
+    if _staged(mesh, x):
+        host = x.cpu()
+        dist.all_reduce(host, group=mesh.group)
+        return x.copy_(host)
+    dist.all_reduce(x, group=mesh.group)
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order: (model, *x.shape)."""
+    x = x.contiguous()
+    if mesh.backend != "nccl":
+        host = x.cpu()
+        parts = [torch.empty_like(host) for _ in range(mesh.model)]
+        dist.all_gather(parts, host, group=mesh.group)
+        return torch.stack(parts).to(x.device)
+    out = torch.empty((mesh.model,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=mesh.group)
+    return out
+
+
+def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """(..., V/m) logits of this rank's vocab shard -> (..., V), in fp32."""
+    parts = all_gather(logits.float(), mesh)  # (m, ..., V/m)
+    return torch.cat(parts.unbind(0), dim=-1)
+
+
+def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rows of a vocab-sharded (V/m, H) embedding for global ``ids``: each
+    rank gathers the ids in its shard (zeros elsewhere) and the ranks' rows
+    are summed, which is exact (one nonzero term per id)."""
+    vl = table.shape[0]
+    local = ids.long() - mesh.rank * vl
+    mine = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)].float() * mine[..., None]
+    return psum(rows, mesh).to(table.dtype)

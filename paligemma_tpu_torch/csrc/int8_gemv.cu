@@ -9,6 +9,14 @@
 //   out       = cast_bf16(residual + cast_bf16(...))              mode 1
 //   out(B, I) = cast_bf16(gelu_tanh(g_j) * u_j), N = 2I,          mode 2
 //               g_j = column j, u_j = column I + j (fused gateup)
+//   out(B, N) = (x . w8) fp32 * s, written as fp32                mode 3
+//
+// Mode 3, the fp32 partial, serves the tensor-parallel decode: it replaces
+// the o-proj partial of paligemma_tpu/kernels/decode_layer_tp.py:_attn_kernel
+// and the down-proj partial of paligemma_tpu/kernels/decode_mlp.py:_kernel
+// under out_dtype=float32. Each rank's partial leaves here uncast; the ranks'
+// sum is cast once after the all-reduce, so on one rank the result has the
+// bits of mode 1's cast-then-add.
 //
 // What bounds it: at decode batches (tens of rows) each weight byte is used B times, far below
 // the ~295 flop/byte where the card turns compute-bound, so it is bound by
@@ -43,7 +51,7 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
 __global__ void int8_gemv_epilogue_kernel(const float* __restrict__ part, int nsplit, int B,
                                           int N, const float* __restrict__ s,
                                           const bf16* __restrict__ residual,
-                                          bf16* __restrict__ out, int mode) {
+                                          void* __restrict__ out, int mode) {
   const int n_out = mode == 2 ? N / 2 : N;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)B * n_out) return;
@@ -55,12 +63,16 @@ __global__ void int8_gemv_epilogue_kernel(const float* __restrict__ part, int ns
     for (int sp = 0; sp < nsplit; ++sp) up += part[((size_t)sp * B + b) * N + n_out + j];
     const float g = acc * s[j];
     const float u = up * s[n_out + j];
-    out[idx] = f2bf(gelu_tanh_f(g) * u);
+    ((bf16*)out)[idx] = f2bf(gelu_tanh_f(g) * u);
+    return;
+  }
+  if (mode == 3) {
+    ((float*)out)[idx] = acc * s[j];
     return;
   }
   bf16 v = f2bf(acc * s[j]);
   if (mode == 1) v = f2bf(bf2f(residual[idx]) + bf2f(v));
-  out[idx] = v;
+  ((bf16*)out)[idx] = v;
 }
 
 PG_EXPORT int pg_int8_gemv_partial(const void* x, const void* w8, void* part, int B, int K, int N,
@@ -89,6 +101,6 @@ PG_EXPORT int pg_int8_gemv_epilogue(const void* part, int nsplit, int B, int N, 
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   int8_gemv_epilogue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, (bf16*)out, mode);
+      (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, out, mode);
   return (int)cudaGetLastError();
 }

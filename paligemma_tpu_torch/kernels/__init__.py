@@ -2,7 +2,9 @@
 
 Each wrapper carries an integer ``launches`` attribute that it increments
 where it launches its kernel (never on the plain CPU path), so a run can
-show which kernels its main path went through.
+show which kernels its main path went through. A wrapper of a chain of
+kernels (``mlp_decode_fused``, ``attn_decode_tp``, ``attn_decode_paged_tp``)
+counts its own launches, and each kernel of the chain counts its own.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from typing import Dict
 from . import decode_attention as _decode_attention
 from . import decode_elementwise as _decode_elementwise
 from . import decode_head as _decode_head
+from . import decode_layer_paged_tp as _decode_layer_paged_tp
+from . import decode_layer_tp as _decode_layer_tp
+from . import decode_mlp as _decode_mlp
 from . import flash_attention as _flash_attention
 from . import int8_gemv as _int8_gemv
 from . import paged_attention as _paged_attention
@@ -28,6 +33,10 @@ WRAPPERS = {
     "rope_kv_write_paged": _decode_elementwise.rope_kv_write_paged,
     "flash_attention_bwd_dq": _flash_attention.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": _flash_attention.flash_attention_bwd_dkv,
+    "int8_gemv_f32": _int8_gemv.int8_gemv_f32,
+    "mlp_decode_fused": _decode_mlp.mlp_decode_fused,
+    "attn_decode_tp": _decode_layer_tp.attn_decode_tp,
+    "attn_decode_paged_tp": _decode_layer_paged_tp.attn_decode_paged_tp,
 }
 
 

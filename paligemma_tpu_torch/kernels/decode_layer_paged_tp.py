@@ -1,0 +1,125 @@
+"""Tensor-parallel paged decode: one layer's attention half on one rank with
+the window read through the page table (port of
+paligemma_tpu/kernels/decode_layer_paged_tp.py ``attn_decode_paged_tp``,
+B8), and the layer loop.
+
+This is kernels/decode_layer_tp's attention half with the two cache steps
+of kernels/decode_layer_paged:
+
+    rms_norm (Triton) -> int8_gemv over [q_r | k | v] ->
+    rope_kv_write_paged (Triton, Hl = H/m heads) -> paged_decode_attention
+    over Hl heads (csrc/paged_attention.cu) -> int8_gemv_f32 o-rows
+
+The page pool (L, n_pages, ps, D) is replicated: Gemma has one KV head, so
+every rank computes the same K/V from the replicated kv projection and
+writes the same slots of its own pool (decode_layer_paged_tp.py:13-18).
+The fresh row lands in slot ``table[r, pos // ps] * ps + pos % ps`` before
+the attention reads pages [0, pos] through the table; the JAX kernel mixes
+it in arithmetically instead, which is the same function.
+
+The JAX step ``decode_step_paged_tp`` is here models/paligemma.
+decode_step_paged with ``paged_kernel="fused_tp"`` and ``mesh``:
+models/gemma.forward_paged_decode_fused runs :func:`layers_decode_paged_tp`
+and the final norm, then gathers the vocab-sharded int8 head's logits
+(the paged engine's state carries per-slot logits for sampling).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import decode_layer_tp
+from .decode_elementwise import rope_kv_write_paged, rope_kv_write_paged_reference
+from .paged_attention import paged_decode_attention, reference_paged_decode_attention
+from .paged_attention import supported as attention_supported
+
+
+def supported(cfg, mesh, layers: Dict, batch: int, page_size: int) -> bool:
+    """The dense TP gate (decode_layer_tp.supported) plus a page size the
+    paged kernels take."""
+    return (decode_layer_tp.supported(cfg, mesh, layers, batch)
+            and attention_supported(page_size, cfg.head_dim))
+
+
+def _paged_chain(plain, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos, sin,
+                 pages_bucket, head_dim, eps):
+    rope, attend = ((rope_kv_write_paged_reference, reference_paged_decode_attention) if plain
+                    else (rope_kv_write_paged, paged_decode_attention))
+    table = page_table.to(torch.int32)
+    pb = min(pages_bucket or table.shape[1], table.shape[1])
+
+    def write_attend(qkv, hl, k_new, v_new):
+        q, _, _ = rope(qkv, cos, sin, write_pos, hl, k_pool[layer_idx], v_pool[layer_idx], table,
+                       k_new, v_new)
+        return attend(q, k_pool[:, :, :, None], v_pool[:, :, :, None], table[:, :pb],
+                      write_pos + 1, head_dim**-0.5, layer_idx=layer_idx)
+
+    return decode_layer_tp.attn_chain(plain, x, layers, layer_idx, head_dim, eps, k_pool.dtype,
+                                      write_attend)
+
+
+def attn_decode_paged_tp_reference(x, layers, k_pool, v_pool, layer_idx, page_table, write_pos,
+                                   cos, sin, pages_bucket, head_dim, eps):
+    """Plain version of :func:`attn_decode_paged_tp` (writes the pool slots in place)."""
+    return _paged_chain(True, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos,
+                        sin, pages_bucket, head_dim, eps)
+
+
+def attn_decode_paged_tp(
+    x: torch.Tensor,  # (B, K) raw hidden state (pre-norm)
+    layers: Dict,  # this rank's stacked decode tree (decode_layer_tp.repack_for_tp)
+    k_pool: torch.Tensor,  # (L, n_pages, ps, D) replicated pool, written in place
+    v_pool: torch.Tensor,
+    layer_idx: int,
+    page_table: torch.Tensor,  # (B, P_max) int32, the whole table
+    write_pos: torch.Tensor,  # (B,) int32 logical position of this token
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,
+    pages_bucket: Optional[int],  # logical pages attended (covers every row's pos)
+    head_dim: int,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder layer's attention half on this rank over the page pool.
+    Returns (o-proj partial (B, K) fp32, k_new (B, D), v_new (B, D))."""
+    if not x.is_cuda:
+        return attn_decode_paged_tp_reference(x, layers, k_pool, v_pool, layer_idx, page_table,
+                                              write_pos, cos, sin, pages_bucket, head_dim, eps)
+    out = _paged_chain(False, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos,
+                       sin, pages_bucket, head_dim, eps)
+    attn_decode_paged_tp.launches += 1
+    return out
+
+
+attn_decode_paged_tp.launches = 0
+
+
+def layers_decode_paged_tp(
+    x: torch.Tensor,  # (B, 1, K)
+    layers: Dict,  # this rank's stacked decode tree
+    k_pool: torch.Tensor,  # (L, n_pages, ps, D)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (B, P_max) int32
+    write_pos: torch.Tensor,  # (B,) int32
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,
+    pages_bucket: Optional[int],
+    head_dim: int,
+    eps: float,
+    mesh,
+) -> torch.Tensor:
+    """All L layers for B lockstep rows on this rank; (B, 1, K) hidden.
+    Every ``write_pos`` lies below the table's width times the page size
+    (the engines clamp stale positions)."""
+    b, _, k = x.shape
+    cos = cos.to(x.dtype).contiguous()
+    sin = sin.to(x.dtype).contiguous()
+    write_pos = write_pos.to(torch.int32)
+
+    def attn_half(h, l):
+        return attn_decode_paged_tp(h, layers, k_pool, v_pool, l, page_table, write_pos, cos,
+                                    sin, pages_bucket, head_dim, eps)[0]
+
+    return decode_layer_tp.run_layers(x.reshape(b, k), layers, k_pool.shape[0], eps, mesh,
+                                      attn_half).reshape(b, 1, k)

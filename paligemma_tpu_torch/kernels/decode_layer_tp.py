@@ -1,0 +1,236 @@
+"""Tensor-parallel decode: one layer's attention half on one rank (port of
+paligemma_tpu/kernels/decode_layer_tp.py ``attn_decode_tp``, B7), the
+layer loop with the all-reduces between the halves, and the vocab-sharded
+greedy head.
+
+One decode layer splits at its two reduction points (Megatron):
+
+    [attn_decode_tp: norm -> local-q + replicated-kv int8 proj -> RoPE ->
+     MQA over the window -> o-proj partial in fp32]  --psum-->  residual ->
+    norm -> [decode_mlp.mlp_decode_fused: local gate/up -> GeGLU -> down
+     partial in fp32]  --psum-->  residual
+
+The TPU runs the attention half as one Pallas kernel per layer; here it is
+the chain of the port's own kernels that the one-card layer runs
+(kernels/decode_layer), on this rank's slice:
+
+    rms_norm (Triton) -> int8_gemv over [q_r | k | v] -> rope_kv_write
+    (Triton, Hl = H/m heads) -> decode_attention over Hl heads ->
+    int8_gemv_f32 o-rows (the fp32-partial epilogue)
+
+The JAX kernel reads the window before the cache write and mixes the fresh
+token in arithmetically (its posmask); this chain writes the fresh K/V into
+the cache first and then attends, which is the same function. Gemma has one
+KV head, so every rank computes the same k/v from the replicated kv
+projection and writes its own identical cache.
+
+Numerics (decode_layer_tp.py:24-27): the partials leave the kernels in fp32
+with the scale applied, are summed across ranks, and only then cast and
+added to the residual. On one rank that is the one-card chain's bits
+(kernels/decode_layer.layers_decode_fused): its epilogue casts the same
+fp32 sum and adds it to the same residual.
+
+Token selection (decode_layer_tp.py:533-540): each rank runs the argmax
+head kernel on its vocab shard (padded to the tile by
+decode_head.repack_head, so padding never wins) and offsets its id by
+``rank * V/m``; an all-gather of (logit, id) picks the first maximum, so a
+tie goes to the lowest shard, which holds the lowest global id.
+
+The JAX step ``decode_step_greedy_tp`` is here models/paligemma.
+decode_step_greedy with ``mesh`` and ``fused_layer``: models/gemma.forward
+runs :func:`layers_decode_tp`, the final norm and :func:`head_argmax_tp`
+for greedy rows, or gathers the vocab-sharded int8 head's logits for
+sampled ones. The plain version of the whole step is the model's plain
+sharded decode (models/gemma.forward with ``mesh`` and
+``fused_layer=False``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from ..core import mesh as mesh_lib
+from ..ops.norms import rms_norm as rms_norm_reference
+from .decode_attention import MAX_BATCH, MAX_HEADS, decode_attention, decode_attention_reference
+from .decode_elementwise import rms_norm, rope_kv_write, rope_kv_write_reference
+from .decode_head import head_argmax_fused, repack_head
+from .decode_layer import repack_layers
+from .decode_mlp import mlp_decode_fused, pick_block
+from .int8_gemv import int8_gemv, int8_gemv_f32, int8_gemv_reference
+
+
+def supported(cfg, mesh, layers: Dict, batch: int) -> bool:
+    """The JAX gate (decode_layer_tp.supported) with the port's kernel
+    limits: a mesh, one KV head, heads, vocab and the MLP width divisible
+    by the model axis, at most MAX_HEADS local heads, head_dim a multiple
+    of 8 up to 256 with a power-of-two half (RoPE), the int8 serving tree
+    (``layers`` is the whole, unsharded one) and a batch the attention
+    kernel's grid takes."""
+    if mesh is None:
+        return False
+    m = mesh.model
+    half = cfg.head_dim // 2
+    down = layers.get("mlp", {}).get("down")
+    inter = down["w8"].shape[-2] if isinstance(down, dict) and "w8" in down else None
+    qkv = layers.get("attn", {}).get("qkv")
+    return (
+        1 <= batch <= MAX_BATCH
+        and cfg.num_key_value_heads == 1
+        and cfg.num_attention_heads % m == 0
+        and cfg.num_attention_heads // m <= MAX_HEADS
+        and cfg.vocab_size % m == 0
+        and cfg.head_dim % 8 == 0
+        and cfg.head_dim <= 256
+        and half & (half - 1) == 0
+        and isinstance(qkv, dict)
+        and "w8" in qkv
+        and isinstance(layers.get("mlp", {}).get("gateup"), dict)
+        and inter is not None
+        and inter % m == 0
+        and pick_block(inter // m) is not None
+    )
+
+
+def repack_for_tp(lm: Dict, cfg, mesh) -> Dict:
+    """The whole int8 serving LM tree -> this rank's decode tree: the
+    layers' fused matrices split at their boundaries and sharded
+    (``qkv`` -> [q_r | k | v], ``gateup`` -> [gate_r | up_r], o and down by
+    rows; core/mesh.shard_params), the embedding and the int8 head by vocab,
+    the head padded to the kernel's tile (decode_head.repack_head). Norms
+    stay whole. Raises on a tree or config :func:`supported` refuses."""
+    if not supported(cfg, mesh, lm["layers"], batch=1) or "head_q" not in lm:
+        raise ValueError("repack_for_tp: the tensor-parallel kernels need one KV head, the int8 "
+                         "decode tree of runtime.quantize.quantize_lm_for_serving (with its "
+                         "head) and heads, vocab and MLP width divisible by the model axis")
+    local = mesh_lib.shard_params(lm, mesh)
+    local["layers"] = repack_layers(local["layers"])
+    local["head_q"] = repack_head(local["head_q"])
+    return local
+
+
+def attn_chain(plain: bool, x, layers, layer_idx, head_dim, eps, cache_dtype, write_attend):
+    """The attention half on this rank for either cache layout: rms_norm ->
+    int8_gemv over [q_r | k | v] -> ``write_attend(qkv, hl, k_new, v_new)``
+    (RoPE over the Hl local heads, the fresh K/V rows into the cache in
+    place, attention over the window) -> int8_gemv_f32 o rows. ``plain``:
+    the kernels' plain versions. Returns (partial (B, K) fp32, k_new, v_new)."""
+    norm, gemv, gemv_f32 = _PLAIN if plain else _KERNELS
+    b = x.shape[0]
+    attn = layers["attn"]
+    hl = attn["qkv"]["w8"].shape[-1] // head_dim - 2  # local query heads
+    y = norm(x, layers["input_norm"][layer_idx], eps)
+    qkv = gemv(y, attn["qkv"]["w8"][layer_idx], attn["qkv"]["s"][layer_idx])
+    k_new = torch.empty((b, head_dim), dtype=cache_dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    a = write_attend(qkv, hl, k_new, v_new)
+    part = gemv_f32(a.reshape(b, -1), attn["o"]["w8"][layer_idx], attn["o"]["s"][layer_idx])
+    return part, k_new, v_new
+
+
+_KERNELS = (rms_norm, int8_gemv, int8_gemv_f32)
+_PLAIN = (rms_norm_reference, int8_gemv_reference,
+          functools.partial(int8_gemv_reference, out_fp32=True))
+
+
+def _dense_chain(plain, x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos, sin,
+                 head_dim, eps):
+    rope, attend = ((rope_kv_write_reference, decode_attention_reference) if plain
+                    else (rope_kv_write, decode_attention))
+    k_l, v_l = k_cache[layer_idx], v_cache[layer_idx]
+
+    def write_attend(qkv, hl, k_new, v_new):
+        q, _, _ = rope(qkv, cos, sin, cache_pos, hl, k_l, v_l, k_new, v_new)
+        return attend(q, k_l, v_l, valid, head_dim**-0.5)
+
+    return attn_chain(plain, x, layers, layer_idx, head_dim, eps, k_cache.dtype, write_attend)
+
+
+def attn_decode_tp_reference(x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos,
+                             sin, head_dim, eps):
+    """Plain version of :func:`attn_decode_tp` (writes the cache rows in place)."""
+    return _dense_chain(True, x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos,
+                        sin, head_dim, eps)
+
+
+def attn_decode_tp(
+    x: torch.Tensor,  # (B, K) raw hidden state (pre-norm)
+    layers: Dict,  # this rank's stacked decode tree (repack_for_tp()["layers"])
+    k_cache: torch.Tensor,  # (L, B, S, D) replicated cache, fresh rows written in place
+    v_cache: torch.Tensor,
+    layer_idx: int,
+    valid: torch.Tensor,  # (B, W) bool attendable slots, this token's included
+    cache_pos: torch.Tensor,  # (B,) int32 write position per row
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,
+    head_dim: int,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder layer's attention half on this rank. Returns (o-proj
+    partial (B, K) fp32, k_new (B, D), v_new (B, D))."""
+    if not x.is_cuda:
+        return attn_decode_tp_reference(x, layers, k_cache, v_cache, layer_idx, valid,
+                                        cache_pos, cos, sin, head_dim, eps)
+    out = _dense_chain(False, x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos,
+                       sin, head_dim, eps)
+    attn_decode_tp.launches += 1
+    return out
+
+
+attn_decode_tp.launches = 0
+
+
+def run_layers(h: torch.Tensor, layers: Dict, n_layers: int, eps: float, mesh,
+               attn_half) -> torch.Tensor:
+    """All layers on this rank for (B, K) rows: ``attn_half(h, l)`` gives
+    layer l's fp32 o partial, the MLP half (decode_mlp) its fp32 down
+    partial; each is summed across ranks, cast, added to the residual."""
+    for l in range(n_layers):
+        h = h + mesh_lib.psum(attn_half(h, l), mesh).to(h.dtype)
+        y = rms_norm(h, layers["post_norm"][l], eps)
+        pm = mlp_decode_fused(y, layers["mlp"], l, out_dtype=torch.float32)
+        h = h + mesh_lib.psum(pm, mesh).to(h.dtype)
+    return h
+
+
+def layers_decode_tp(
+    x: torch.Tensor,  # (B, 1, K)
+    layers: Dict,  # this rank's stacked decode tree
+    k_cache: torch.Tensor,  # (L, B, S, D), fresh rows written in place
+    v_cache: torch.Tensor,
+    cache_pos: torch.Tensor,  # (B,) int32
+    valid: torch.Tensor,  # (B, W) bool, this token's slot included
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,
+    head_dim: int,
+    eps: float,
+    mesh,
+) -> torch.Tensor:
+    """All L layers for B lockstep rows on this rank; (B, 1, K) hidden."""
+    b, _, k = x.shape
+    cos = cos.to(x.dtype).contiguous()
+    sin = sin.to(x.dtype).contiguous()
+
+    def attn_half(h, l):
+        return attn_decode_tp(h, layers, k_cache, v_cache, l, valid, cache_pos, cos, sin,
+                              head_dim, eps)[0]
+
+    return run_layers(x.reshape(b, k), layers, k_cache.shape[0], eps, mesh,
+                      attn_half).reshape(b, 1, k)
+
+
+def pick_first_max(maxes: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(m, B) per-shard winning logits and global ids -> (B,) ids of the
+    first maximum over shards (ties: the lowest shard, the lowest id)."""
+    win = maxes.argmax(dim=0)
+    return ids.gather(0, win[None])[0]
+
+
+def head_argmax_tp(y: torch.Tensor, head_blk: Dict, mesh) -> torch.Tensor:
+    """Greedy ids (B,) int32 from this rank's vocab shard of the int8 head
+    (decode_head.repack_head of the shard) and the other ranks'."""
+    ids, mx = head_argmax_fused(y, head_blk, return_max=True)
+    ids = ids + mesh.rank * head_blk["s"].shape[0]
+    return pick_first_max(mesh_lib.all_gather(mx, mesh), mesh_lib.all_gather(ids, mesh))

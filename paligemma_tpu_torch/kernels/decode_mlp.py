@@ -1,0 +1,104 @@
+"""One layer's int8 GeGLU MLP at decode (port of
+paligemma_tpu/kernels/decode_mlp.py ``mlp_decode_fused``, B7b).
+
+    out = (gelu_tanh((y @ Wg) * sg) * ((y @ Wu) * su)) @ Wd * sd
+
+The TPU kernel streams the layer's gate, up and down weights through VMEM
+in double-buffered chunks so that the MLP is one launch instead of three
+XLA ops. On Hopper it is the chain of the hand-written GEMV
+(``csrc/int8_gemv.cu``) that the decode layer already runs: the gate/up GEMV
+with the GeGLU epilogue over ``[gate | up]``, then the down GEMV with
+
+* ``out_dtype=None``: the bf16 epilogue (the one-card ``fused_mlp`` route
+  of models/gemma.forward, whose caller adds the residual);
+* ``out_dtype=torch.float32``: the fp32-partial epilogue
+  (``int8_gemv_f32``), which a tensor-parallel rank's down-projection
+  leaves in fp32 for the sum across ranks.
+
+What bounds it: streaming the layer's int8 weights (3 K x I bytes: 100 MB
+per layer of Gemma-2B at one rank, 12.6 MB at eight), read once each.
+
+The TPU's chunk-major relayout of gate/up (``repack``) is a DMA layout; the
+GEMV reads the (K, 2I) serving tree as it is, so ``repack`` returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..ops.activations import gelu_tanh
+from .int8_gemv import int8_gemv, int8_gemv_f32
+
+
+def pick_block(inter: int) -> Optional[int]:
+    """The TPU kernel's chunk width over the intermediate dimension, or
+    None where it takes the XLA path (kept as the JAX gate: ``supported``)."""
+    for bs in (1024, 512, 256):
+        if inter % bs == 0 and inter >= bs:
+            return bs
+    return None
+
+
+def supported(mlp: Dict) -> bool:
+    """True for the int8 serving MLP (fused ``gateup`` and ``down``) at an
+    intermediate size the JAX kernel takes."""
+    return (
+        isinstance(mlp.get("gateup"), dict)
+        and "w8" in mlp["gateup"]
+        and isinstance(mlp.get("down"), dict)
+        and "w8" in mlp["down"]
+        and pick_block(mlp["down"]["w8"].shape[-2]) is not None
+    )
+
+
+def repack(mlp: Dict) -> Dict:
+    """The tree :func:`mlp_decode_fused` reads: the serving tree itself. A
+    leaf the GEMV cannot read raises here, not at the first decode step."""
+    for name in ("gateup", "down"):
+        leaf = mlp[name]
+        if not (leaf["w8"].dtype == torch.int8 and leaf["w8"].is_contiguous()
+                and leaf["s"].dtype == torch.float32 and leaf["s"].is_contiguous()):
+            raise ValueError(f"decode_mlp.repack: {name} must be contiguous int8 w8 with "
+                             "contiguous fp32 s")
+    return mlp
+
+
+def reference_mlp(y: torch.Tensor, mlp: Dict, layer_idx: int,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version: the GeGLU on fp32 gate and up, rounded to the
+    activation dtype, then the fp32 down product and scale, rounded to
+    ``out_dtype`` (default: y's)."""
+    gu, dn = mlp["gateup"], mlp["down"]
+    v = (y.float() @ gu["w8"][layer_idx].float()) * gu["s"][layer_idx]
+    inter = v.shape[-1] // 2
+    t = (gelu_tanh(v[..., :inter]) * v[..., inter:]).to(y.dtype)
+    out = (t.float() @ dn["w8"][layer_idx].float()) * dn["s"][layer_idx]
+    return out.to(out_dtype or y.dtype)
+
+
+def mlp_decode_fused(
+    y: torch.Tensor,  # (B, 1, K) or (B, K): one token per row
+    mlp: Dict,  # stacked int8 serving MLP ({"gateup", "down"}, (L, ...))
+    layer_idx: int,
+    out_dtype: Optional[torch.dtype] = None,  # None: y's dtype; or torch.float32
+) -> torch.Tensor:
+    """Layer ``layer_idx``'s MLP for one token per row; y-shaped output."""
+    if not y.is_cuda:
+        return reference_mlp(y, mlp, layer_idx, out_dtype)
+    if out_dtype not in (None, y.dtype, torch.float32):
+        raise ValueError(f"mlp_decode_fused: out_dtype {out_dtype} (None or torch.float32)")
+    shape = y.shape
+    y2 = y.reshape(-1, shape[-1])
+    gu, dn = mlp["gateup"], mlp["down"]
+    t = int8_gemv(y2, gu["w8"][layer_idx], gu["s"][layer_idx], geglu=True)
+    if out_dtype == torch.float32:
+        out = int8_gemv_f32(t, dn["w8"][layer_idx], dn["s"][layer_idx])
+    else:
+        out = int8_gemv(t, dn["w8"][layer_idx], dn["s"][layer_idx])
+    mlp_decode_fused.launches += 1
+    return out.reshape(shape)
+
+
+mlp_decode_fused.launches = 0

@@ -219,6 +219,20 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def flash_attention_sharded(q, k, v, prefix_len, kv_len, mesh, scale=None) -> torch.Tensor:
+    """:func:`flash_attention` under a tensor-parallel mesh (port of
+    paligemma_tpu/kernels/flash_attention.py ``flash_attention_sharded``).
+    Query heads shard over the model axis and attention is independent per
+    head, so on a rank it is the kernel over that rank's heads: q holds its
+    Hq/m heads, k and v their KV heads (one KV head: replicated). No
+    collective runs here."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"flash_attention_sharded: {hq} local query heads over {hkv} KV heads "
+                         f"(model axis {mesh.model})")
+    return flash_attention(q, k, v, prefix_len, kv_len, scale=scale)
+
+
 def flash_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len, scale=None,
                              q_offset=0):
     """(dq, dk, dv) of :func:`flash_attention` given its out and lse: delta

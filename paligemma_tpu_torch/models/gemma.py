@@ -28,6 +28,16 @@ Over a paged KV pool (runtime/paged_cache, (L, n_pages, page_size, n_kv, d)):
   attention per layer (kernels/paged_attention, or its plain version);
 * ``forward_paged_decode_fused``: kernels/decode_layer_paged, then the same
   head as the fused dense path.
+
+Under a tensor-parallel ``mesh`` (core/mesh) the params are this rank's
+slices (core/mesh.shard_params): the plain paths compute with the rank's
+share of heads and MLP width, sum the o and down partials across ranks in
+fp32 before the cast (``_row_parallel``), look the embedding up in its
+vocab shard (``embed_tokens``) and gather the head's vocab shards
+(``lm_head``); ``fused_layer`` decode runs kernels/decode_layer_tp and the
+fused paged decode kernels/decode_layer_paged_tp. The
+one-card ``fused_mlp`` decode runs each layer's MLP through
+kernels/decode_mlp.
 """
 
 from __future__ import annotations
@@ -37,12 +47,15 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import mesh as mesh_lib
 from ..core.config import GemmaConfig
-from ..kernels import decode_layer, decode_layer_paged
+from ..kernels import decode_layer, decode_layer_paged, decode_layer_paged_tp
+from ..kernels import decode_layer_tp
 from ..kernels import paged_attention as paged_attn
 from ..kernels.decode_elementwise import rms_norm as rms_norm_kernel
 from ..kernels.decode_head import head_argmax_fused
-from ..kernels.flash_attention import flash_attention
+from ..kernels.decode_mlp import mlp_decode_fused
+from ..kernels.flash_attention import flash_attention, flash_attention_sharded
 from ..kernels.int8_gemv import int8_gemv
 from ..kernels.quant import matmul_any
 from ..ops import attention
@@ -65,6 +78,14 @@ def init_kv_cache(
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def embed_tokens(params: Params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Embedding rows of ``ids``; under a mesh from the vocab-sharded table
+    (core/mesh.vocab_parallel_embed)."""
+    if mesh is None:
+        return params["embed"][ids.long()]
+    return mesh_lib.vocab_parallel_embed(params["embed"], ids, mesh)
 
 
 def _embed_scale(cfg: GemmaConfig, dtype: torch.dtype) -> float:
@@ -109,7 +130,21 @@ def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params,
             v.reshape(b, s, nkv, hd))
 
 
-def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None) -> torch.Tensor:
+def _row_parallel(y: torch.Tensor, w, mesh) -> torch.Tensor:
+    """A row-parallel projection (o, down). Under a mesh each rank's fp32
+    partial (int8: dot then scale; dense: the bf16 product) is summed across
+    ranks and cast once, so one rank gives ``matmul_any``'s bits."""
+    if mesh is None:
+        return matmul_any(y, w)
+    if isinstance(w, dict) and "w8" in w:
+        part = (y.float() @ w["w8"].float()) * w["s"]
+    else:
+        part = matmul_any(y, w).float()
+    return mesh_lib.psum(part, mesh).to(y.dtype)
+
+
+def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None,
+         mesh=None) -> torch.Tensor:
     """GeGLU MLP (+ LoRA), fused ``gateup`` or separate weights."""
     if "gateup" in lp["mlp"]:
         gu = matmul_any(y, lp["mlp"]["gateup"])
@@ -119,7 +154,7 @@ def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None) -> torch
         gate = matmul_any(y, lp["mlp"]["gate"])
         up = matmul_any(y, lp["mlp"]["up"])
     h = gelu_tanh(_plus_lora(gate, y, lora_lp, "gate")) * _plus_lora(up, y, lora_lp, "up")
-    return _plus_lora(matmul_any(h, lp["mlp"]["down"]), h, lora_lp, "down")
+    return _plus_lora(_row_parallel(h, lp["mlp"]["down"], mesh), h, lora_lp, "down")
 
 
 def _decoder_block(
@@ -135,9 +170,11 @@ def _decoder_block(
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     kv_bucket: Optional[int] = None,
     lora_lp: Optional[Params] = None,
+    mesh=None,
+    mlp_full: Optional[Params] = None,  # stacked int8 MLP: kernels/decode_mlp at layer_idx
 ) -> torch.Tensor:
     """One pre-norm decoder block; writes its K/V rows into the cache, if
-    there is one."""
+    there is one. ``cfg`` is the rank's local config under a mesh."""
     b, s, _ = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
 
@@ -161,8 +198,9 @@ def _decoder_block(
     if flash_lens is not None:
         # prefill and training: the fresh k/v are the whole sequence
         prefix_lens, seq_lens = flash_lens
-        a = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            prefix_lens, seq_lens, scale=hd**-0.5)
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), prefix_lens, seq_lens)
+        a = (flash_attention(*args, scale=hd**-0.5) if mesh is None
+             else flash_attention_sharded(*args, mesh, scale=hd**-0.5))
     elif kv_cache is None:
         a = attention.gqa(q, k, v, mask, scale=hd**-0.5)
     else:
@@ -171,31 +209,42 @@ def _decoder_block(
         v_att = v_all[layer_idx, :, :window].to(q.dtype)
         a = attention.gqa(q, k_att, v_att, mask, scale=hd**-0.5)
     a = a.reshape(b, s, nh * hd)
-    x = residual + _plus_lora(matmul_any(a, lp["attn"]["o"]), a, lora_lp, "o")
+    x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh), a, lora_lp, "o")
 
     residual = x
     y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return residual + _mlp(y, lp, lora_lp)
+    if mlp_full is not None:
+        return residual + mlp_decode_fused(y, mlp_full, layer_idx)
+    return residual + _mlp(y, lp, lora_lp, mesh)
 
 
-def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied bias-free LM head; the int8 copy ("head_q") when present."""
+def lm_head(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Tied bias-free LM head; the int8 copy ("head_q") when present. Under
+    a mesh the rank's vocab shard, gathered (fp32 logits)."""
     if "head_q" in params:
-        return matmul_any(x, params["head_q"])
-    return x @ params["embed"].T.to(x.dtype)
+        logits = matmul_any(x, params["head_q"])
+    else:
+        logits = x @ params["embed"].T.to(x.dtype)
+    return logits if mesh is None else mesh_lib.gather_vocab(logits, mesh)
 
 
-def _decode_head(params: Params, h: torch.Tensor, greedy_head: bool):
+def decode_head(params: Params, h: torch.Tensor, greedy_head: bool, mesh=None):
     """Head of the kernel decode paths on the final-normed (B, K) rows:
     greedy ids from the argmax kernel (the (B, vocab) logits row is never
-    written), or fp32 logits (B, 1, vocab) from the int8 GEMV head."""
+    written; under a mesh each rank's shard, combined across ranks), or fp32
+    logits (B, 1, vocab) from the int8 GEMV head (under a mesh each rank's
+    vocab shard, gathered)."""
     head_q = params.get("head_q", {})
     if greedy_head and "w8_blk" in head_q:
+        if mesh is not None:
+            return decode_layer_tp.head_argmax_tp(h, head_q, mesh)
         return head_argmax_fused(h, head_q)
     if "w8" in head_q:
         logits = int8_gemv(h, head_q["w8"], head_q["s"])
+        if mesh is not None:
+            logits = mesh_lib.gather_vocab(logits, mesh)
     else:
-        logits = lm_head(params, h)
+        logits = lm_head(params, h, mesh)
     logits = logits.float()[:, None, :]
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
@@ -205,11 +254,13 @@ def _decode_head(params: Params, h: torch.Tensor, greedy_head: bool):
 def _fused_decode(
     params: Params, cfg: GemmaConfig, x: torch.Tensor, cos, sin,
     kv_cache: KVCache, cache_pos: CachePos, kv_valid: torch.Tensor,
-    kv_bucket: Optional[int], greedy_head: bool,
+    kv_bucket: Optional[int], greedy_head: bool, mesh=None,
 ):
-    """Single-token decode through the hand-written kernels."""
+    """Single-token decode through the hand-written kernels; under a mesh
+    the tensor-parallel chain (kernels/decode_layer_tp) of this rank's
+    decode_layer_tp.repack_for_tp tree."""
     b = x.shape[0]
-    if not decode_layer.supported(cfg, params["layers"], b):
+    if mesh is None and not decode_layer.supported(cfg, params["layers"], b):
         raise ValueError(
             "fused_layer: the decode kernels need the int8 serving tree of "
             "runtime.quantize and a config/batch that decode_layer.supported "
@@ -226,13 +277,17 @@ def _fused_decode(
     valid = kv_valid[:, :window].contiguous()  # one copy for all layers
     # the layer chain writes the fresh K/V rows of every layer into the
     # cache in place (kernels/decode_layer), so k_new/v_new need no write here
-    h, _, _ = decode_layer.layers_decode_fused(
-        x, params["layers"], k_flat, v_flat, pos, valid,
-        cos[:, 0], sin[:, 0], window, cfg.num_attention_heads, hd,
-        cfg.rms_norm_eps,
-    )
+    if mesh is not None:
+        h = decode_layer_tp.layers_decode_tp(x, params["layers"], k_flat, v_flat, pos, valid,
+                                             cos[:, 0], sin[:, 0], hd, cfg.rms_norm_eps, mesh)
+    else:
+        h, _, _ = decode_layer.layers_decode_fused(
+            x, params["layers"], k_flat, v_flat, pos, valid,
+            cos[:, 0], sin[:, 0], window, cfg.num_attention_heads, hd,
+            cfg.rms_norm_eps,
+        )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
-    return _decode_head(params, h, greedy_head), kv_cache
+    return decode_head(params, h, greedy_head, mesh), kv_cache
 
 
 def forward(
@@ -249,9 +304,12 @@ def forward(
     kv_bucket: Optional[int] = None,  # attend-window (decode)
     fused_layer: bool = False,  # decode (S == 1) through the kernels, or raise
     greedy_head: bool = False,  # return argmax token ids, not logits
+    mesh=None,  # tensor parallel: params are this rank's slices
+    fused_mlp: bool = False,  # one-card decode: each layer's MLP via kernels/decode_mlp
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
-    int32 ids with ``greedy_head``, the cache updated in place)."""
+    int32 ids with ``greedy_head``, the cache updated in place). ``cfg`` is
+    the whole model's config, also under a mesh."""
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
@@ -261,7 +319,9 @@ def forward(
 
     if fused_layer and s == 1:
         return _fused_decode(params, cfg, x, cos, sin, kv_cache, cache_pos,
-                             kv_valid, kv_bucket, greedy_head)
+                             kv_valid, kv_bucket, greedy_head, mesh)
+    lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
+    mlp_full = params["layers"]["mlp"] if fused_mlp and s == 1 and mesh is None else None
 
     mask = None
     if flash_lens is None:
@@ -273,14 +333,15 @@ def forward(
     n_layers = kv_cache["k"].shape[0]
     for i in range(n_layers):
         x = _decoder_block(
-            cfg, x, layer_params(params["layers"], i), cos, sin, kv_cache, i,
-            cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket,
+            lcfg, x, layer_params(params["layers"], i), cos, sin, kv_cache, i,
+            cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket, mesh=mesh,
+            mlp_full=mlp_full,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if logits_idx is not None:
         # project only the requested positions (each row's last valid token)
         x = x[torch.arange(b, device=x.device), logits_idx.long()][:, None]
-    logits = lm_head(params, x).float()
+    logits = lm_head(params, x, mesh).float()
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
     return logits, kv_cache
@@ -297,6 +358,7 @@ def forward_paged_decode(
     use_kernel: bool = True,
     pages_bucket: Optional[int] = None,  # logical pages attended (covers every row)
     paged_kernel: str = "multi",  # "one"|"multi"|"batched"|"runs": one kernel here
+    mesh=None,  # tensor parallel: params are this rank's slices, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
     """Single-token decode over the paged pool, the page walk: per layer,
     write this token's K/V into page ``table[r, pos // ps]`` at slot
@@ -307,6 +369,7 @@ def forward_paged_decode(
     b = input_embeds.shape[0]
     hd = cfg.head_dim
     ps = pool["k"].shape[2]
+    lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta, dtype)
@@ -325,19 +388,19 @@ def forward_paged_decode(
         lp = layer_params(params["layers"], i)
         residual = x
         y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _attn_proj(cfg, y, lp)
+        q, k, v = _attn_proj(lcfg, y, lp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         pool["k"][i, page_of, off_of] = k[:, 0].to(pool["k"].dtype)
         pool["v"][i, page_of, off_of] = v[:, 0].to(pool["v"].dtype)
         a = attend(q[:, 0].contiguous(), pool["k"], pool["v"], table, kv_len,
                    hd**-0.5, layer_idx=i)
-        x = residual + matmul_any(a.reshape(b, 1, -1), lp["attn"]["o"])
+        x = residual + _row_parallel(a.reshape(b, 1, -1), lp["attn"]["o"], mesh)
         residual = x
         y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = residual + _mlp(y, lp)
+        x = residual + _mlp(y, lp, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return lm_head(params, x).float(), pool
+    return lm_head(params, x, mesh).float(), pool
 
 
 def forward_paged_decode_fused(
@@ -350,15 +413,19 @@ def forward_paged_decode_fused(
     write_pos: torch.Tensor,  # (B,) int32
     pages_bucket: int,
     greedy_head: bool = False,  # return argmax token ids, not logits
+    mesh=None,  # tensor parallel: this rank's repack_for_tp tree, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
     """Paged decode through kernels/decode_layer_paged, then the final norm
     kernel and the head of the fused dense path (argmax kernel with
     ``greedy_head`` and a blocked head, else int8 GEMV logits). Needs the
     int8 serving tree (kernels/decode_layer.repack_layers); raises on a
-    tree, config or batch the kernels cannot take."""
+    tree, config or batch the kernels cannot take. Under a mesh the
+    tensor-parallel chain (kernels/decode_layer_paged_tp) of this rank's
+    decode_layer_tp.repack_for_tp tree, its head shards combined across
+    ranks."""
     b = input_embeds.shape[0]
     n_layers, n_pages, ps = pool["k"].shape[:3]
-    if not decode_layer_paged.supported(cfg, params["layers"], b, ps):
+    if mesh is None and not decode_layer_paged.supported(cfg, params["layers"], b, ps):
         raise ValueError(
             "paged fused decode: the kernels need the int8 serving tree of "
             "runtime.quantize, one KV head and a page size that "
@@ -367,14 +434,20 @@ def forward_paged_decode_fused(
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta, dtype)
-    h, _, _ = decode_layer_paged.layers_decode_fused_paged(
-        x, params["layers"], pool["k"].view(n_layers, n_pages, ps, hd),
-        pool["v"].view(n_layers, n_pages, ps, hd), page_table, write_pos,
-        cos[:, 0], sin[:, 0], cfg.num_attention_heads, hd, cfg.rms_norm_eps,
-        pages_bucket=pages_bucket,
-    )
+    k_flat = pool["k"].view(n_layers, n_pages, ps, hd)  # n_kv == 1
+    v_flat = pool["v"].view(n_layers, n_pages, ps, hd)
+    if mesh is not None:
+        h = decode_layer_paged_tp.layers_decode_paged_tp(
+            x, params["layers"], k_flat, v_flat, page_table, write_pos, cos[:, 0], sin[:, 0],
+            pages_bucket, hd, cfg.rms_norm_eps, mesh)
+    else:
+        h, _, _ = decode_layer_paged.layers_decode_fused_paged(
+            x, params["layers"], k_flat, v_flat, page_table, write_pos,
+            cos[:, 0], sin[:, 0], cfg.num_attention_heads, hd, cfg.rms_norm_eps,
+            pages_bucket=pages_bucket,
+        )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
-    return _decode_head(params, h, greedy_head), pool
+    return decode_head(params, h, greedy_head, mesh), pool
 
 
 def forward_train(

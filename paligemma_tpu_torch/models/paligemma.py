@@ -4,6 +4,11 @@ SigLIP tower -> bias-free linear projector -> projected image features,
 scaled by projection_dim**-0.5, placed at the <image> token slots of the
 embedded prompt -> Gemma decoder. The vision tower runs once, at prefill;
 ``forward_train`` is the supervised forward of training (no cache).
+
+``mesh`` (core/mesh): tensor parallel, the params being this rank's slices
+(core/mesh.shard_params, or for the kernel decode steps
+kernels/decode_layer_tp.repack_for_tp). Every rank gets the same logits
+and tokens.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ def prefill(
     use_flash: bool = False,
     last_only: bool = False,
     prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Vision encode + merge + decoder prefill. Returns (logits, cache);
     ``last_only`` projects each row's last valid token only ((B, 1, vocab)).
@@ -84,10 +90,10 @@ def prefill(
     dtype = params["lm"]["embed"].dtype
     image_features = siglip.encode(
         params["vision"], cfg.vision_config, pixel_values.to(dtype),
-        attn=_vision_attn_mode(cfg, use_flash),
+        attn=_vision_attn_mode(cfg, use_flash), mesh=mesh,
     )
     image_embeds = project_image_features(params, image_features)
-    text_embeds = params["lm"]["embed"][input_ids.long()]
+    text_embeds = gemma.embed_tokens(params["lm"], input_ids, mesh)
     merged = merge_embeddings(cfg, input_ids, text_embeds, image_embeds)
 
     position_ids = prefill_position_ids(attention_mask)
@@ -111,7 +117,7 @@ def prefill(
     return gemma.forward(
         params["lm"], cfg.text_config, merged, position_ids, kv_cache,
         cache_pos=0, kv_valid=kv_valid, flash_lens=flash_lens,
-        logits_idx=logits_idx,
+        logits_idx=logits_idx, mesh=mesh,
     )
 
 
@@ -125,13 +131,17 @@ def decode_step(
     position_ids: torch.Tensor,  # (B,) RoPE position of this token
     kv_bucket: Optional[int] = None,
     fused_layer: bool = False,
+    mesh=None,
+    fused_mlp: bool = False,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
-    """Single-token decode. Returns ((B, vocab) fp32 logits, cache)."""
-    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    """Single-token decode. Returns ((B, vocab) fp32 logits, cache).
+    ``fused_mlp`` (one card, plain layers): each layer's MLP through
+    kernels/decode_mlp."""
+    embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
     logits, kv_cache = gemma.forward(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
         cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
-        fused_layer=fused_layer,
+        fused_layer=fused_layer, mesh=mesh, fused_mlp=fused_mlp,
     )
     return logits[:, 0, :], kv_cache
 
@@ -146,15 +156,18 @@ def decode_step_greedy(
     position_ids: torch.Tensor,
     kv_bucket: Optional[int] = None,
     fused_layer: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Greedy single-token decode: (next token (B,) int32, cache). With the
     kernels on, the int8 head streams through the argmax kernel and the
-    logits row is never written."""
-    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    logits row is never written. Under a mesh with the kernels on, the
+    tensor-parallel chain (kernels/decode_layer_tp) and the vocab-shard
+    argmax combined across ranks: the JAX ``decode_step_greedy_tp``."""
+    embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
     return gemma.forward(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
         cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
-        fused_layer=fused_layer, greedy_head=True,
+        fused_layer=fused_layer, greedy_head=True, mesh=mesh,
     )
 
 
@@ -168,24 +181,30 @@ def decode_step_paged(
     position_ids: torch.Tensor,  # (B,) RoPE position of this token
     pages_bucket: Optional[int] = None,  # logical pages attended (host-managed)
     paged_kernel: str = "multi",
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Single-token decode over the paged pool. Returns ((B, vocab) fp32
     logits, pool). ``paged_kernel``: "fused" (or "staged", the TPU's staging
     hybrid, which maps onto it here) runs kernels/decode_layer_paged and
     needs the int8 tree; "one" | "multi" | "batched" | "runs" run the page
     walk with the paged attention kernel; "xla" runs the page walk on plain
-    torch ops only."""
-    embeds = params["lm"]["embed"][token.long()][:, None, :]
-    if paged_kernel in ("fused", "staged"):
+    torch ops only. Under a mesh: "fused_tp" runs
+    kernels/decode_layer_paged_tp and gathers the vocab-sharded int8 head's
+    logits (the JAX ``decode_step_paged_tp``); "xla" the plain sharded page
+    walk."""
+    if mesh is not None and paged_kernel not in ("fused_tp", "xla"):
+        raise ValueError(f"paged_kernel {paged_kernel!r} under a mesh: 'fused_tp' or 'xla'")
+    embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
+    if paged_kernel in ("fused", "staged", "fused_tp"):
         logits, pool = gemma.forward_paged_decode_fused(
             params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
-            write_pos, pages_bucket=pages_bucket or page_table.shape[1],
+            write_pos, pages_bucket=pages_bucket or page_table.shape[1], mesh=mesh,
         )
     else:
         logits, pool = gemma.forward_paged_decode(
             params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
             write_pos, use_kernel=paged_kernel != "xla", pages_bucket=pages_bucket,
-            paged_kernel="multi" if paged_kernel == "xla" else paged_kernel,
+            paged_kernel="multi" if paged_kernel == "xla" else paged_kernel, mesh=mesh,
         )
     return logits[:, 0, :], pool
 

@@ -4,6 +4,13 @@ Patch embedding as one GEMM over reshaped patches (the stride == kernel
 convolution is exactly that), learned positions, pre-LN encoder blocks
 (MHA -> tanh-GELU MLP), final LayerNorm. Stacked per-layer params, weights
 (in, out).
+
+Under a tensor-parallel ``mesh`` (core/mesh) the blocks are Megatron-split:
+each rank holds its share of the heads (q/k/v columns) and of fc1's
+columns, and the o and fc2 partials are summed across ranks in fp32 before
+the cast and the (replicated) bias. The patch embedding stays replicated
+(the JAX package shards its D over the model axis): every rank embeds all
+patches, as the blocks need the whole embedding as their input.
 """
 
 from __future__ import annotations
@@ -12,8 +19,9 @@ from typing import Any, Dict
 
 import torch
 
+from ..core import mesh as mesh_lib
 from ..core.config import SiglipVisionConfig
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_sharded
 from ..ops import attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
@@ -42,11 +50,20 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     return x @ p["kernel"] + p["bias"]
 
 
+def _dense_row(x: torch.Tensor, p: Params, mesh) -> torch.Tensor:
+    """A row-parallel dense layer (o, fc2): under a mesh the ranks' partial
+    products are summed in fp32 and cast, then the bias is added once."""
+    if mesh is None:
+        return _dense(x, p)
+    return mesh_lib.psum((x @ p["kernel"]).float(), mesh).to(x.dtype) + p["bias"]
+
+
 def _encoder_block(
-    cfg: SiglipVisionConfig, x: torch.Tensor, lp: Params, attn: str = "xla"
+    cfg: SiglipVisionConfig, x: torch.Tensor, lp: Params, attn: str = "xla", mesh=None,
 ) -> torch.Tensor:
-    b, s, d = x.shape
-    h, hd = cfg.num_attention_heads, cfg.head_dim
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = lp["attn"]["q"]["kernel"].shape[-1] // hd  # this rank's heads under a mesh
     eps = cfg.layer_norm_eps
 
     residual = x
@@ -56,15 +73,16 @@ def _encoder_block(
     v = _dense(y, lp["attn"]["v"]).reshape(b, s, h, hd)
     if attn == "flash":
         full = torch.full((b,), s, dtype=torch.int32, device=x.device)
-        a = flash_attention(q, k, v, full, full)
+        a = (flash_attention(q, k, v, full, full) if mesh is None
+             else flash_attention_sharded(q, k, v, full, full, mesh))
     else:
         a = attention.mha(q, k, v)  # non-causal full attention over patches
-    x = residual + _dense(a.reshape(b, s, d), lp["attn"]["o"])
+    x = residual + _dense_row(a.reshape(b, s, h * hd), lp["attn"]["o"], mesh)
 
     residual = x
     y = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
     y = gelu_tanh(_dense(y, lp["mlp"]["fc1"]))
-    return residual + _dense(y, lp["mlp"]["fc2"])
+    return residual + _dense_row(y, lp["mlp"]["fc2"], mesh)
 
 
 def encode(
@@ -72,17 +90,19 @@ def encode(
     cfg: SiglipVisionConfig,
     pixel_values: torch.Tensor,  # (B, C, H, W)
     attn: str = "xla",
+    mesh=None,
 ) -> torch.Tensor:
     """Vision forward: (B, C, H, W) pixels -> (B, num_patches, hidden).
 
     ``attn``: "xla" (plain attention; the choice at 224 px, see
-    models/paligemma._vision_attn_mode) or "flash" (the flash kernel)."""
+    models/paligemma._vision_attn_mode) or "flash" (the flash kernel).
+    ``mesh``: tensor parallel over this rank's slices (module docstring)."""
     x = pixel_values.permute(0, 2, 3, 1)  # NCHW -> NHWC
     dtype = params["pos_embed"].dtype
     patches = patchify(x, cfg.patch_size).to(dtype)
     h = _dense(patches, params["patch_embed"]) + params["pos_embed"][None]
     for i in range(cfg.num_hidden_layers):
-        h = _encoder_block(cfg, h, layer_params(params["layers"], i), attn=attn)
+        h = _encoder_block(cfg, h, layer_params(params["layers"], i), attn=attn, mesh=mesh)
     return layer_norm(
         h, params["post_ln"]["scale"], params["post_ln"]["bias"], cfg.layer_norm_eps
     )

@@ -1,5 +1,5 @@
-"""Inference engine (port of paligemma_tpu/runtime/engine.py, without the
-mesh, speculative decoding and tensor-parallel paths).
+"""Inference engine (port of paligemma_tpu/runtime/engine.py, without
+speculative decoding).
 
 * ``prefill``: vision encode + merge + decoder over the prompt, writing the
   preallocated KV cache at [0, S).
@@ -15,6 +15,19 @@ mesh, speculative decoding and tensor-parallel paths).
 attention then runs the flash kernel and decode the hand-written decode
 kernels. False keeps the plain torch path. A decode tree or config the
 kernels cannot take raises when ``fused_layer`` is on; it never falls back.
+``fused_mlp`` (one card, off by default, as in the JAX engine) keeps the
+plain layers but runs each layer's decode MLP through kernels/decode_mlp.
+
+``mesh`` (core/mesh.make_mesh; one process per rank): tensor parallel over
+the model axis. The engine takes the whole params on every rank and keeps
+this rank's slices (core/mesh.shard_params). Prefill runs the plain sharded
+models; with ``fused_layer`` (or ``fused_mlp``) decode runs the
+tensor-parallel kernels (kernels/decode_layer_tp) on the
+``repack_for_tp`` tree, the greedy chunks through its vocab-sharded argmax
+head, sampled chunks through the gathered int8-head logits; without, the
+plain sharded decode. Every rank returns the same tokens: the same seed
+gives each rank's sampling generator the same draws over the same gathered
+logits.
 """
 
 from __future__ import annotations
@@ -24,9 +37,12 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core import mesh as mesh_lib
 from ..core.config import PaliGemmaConfig
 from ..kernels import decode_head as _dh
 from ..kernels import decode_layer as _dl
+from ..kernels import decode_layer_tp as _tp
+from ..kernels import decode_mlp as _dm
 from ..models import gemma, paligemma
 from ..ops import sampling
 
@@ -50,6 +66,8 @@ class PaliGemmaEngine:
         use_flash: Optional[bool] = None,
         decode_params: Optional[Dict[str, Any]] = None,
         fused_layer: Optional[bool] = None,
+        mesh=None,
+        fused_mlp: Optional[bool] = None,
     ):
         """``decode_params``: optional second weight set used only for
         decode (e.g. the int8 tree of runtime.quantize) while ``params``
@@ -63,10 +81,33 @@ class PaliGemmaEngine:
         on_cuda = self.device.type == "cuda"
         self.use_flash = on_cuda if use_flash is None else use_flash
         self.fused_layer = on_cuda if fused_layer is None else fused_layer
-        self.params = params
-        self.decode_params = decode_params if decode_params is not None else params
+        self.fused_mlp = bool(fused_mlp)
+        self.mesh = mesh
+        full_decode = decode_params if decode_params is not None else params
+        self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
+        if mesh is not None:
+            # under a mesh either flag selects the tensor-parallel kernels
+            self.fused_layer = self.fused_layer or self.fused_mlp
+            self.fused_mlp = False
+            if self.fused_layer:
+                self.decode_params = {"lm": _tp.repack_for_tp(full_decode["lm"],
+                                                              config.text_config, mesh)}
+            else:
+                self.decode_params = (self.params if decode_params is None
+                                      else mesh_lib.shard_params(decode_params, mesh))
+            self._greedy_head_fused = self.fused_layer
+            return
+        self.decode_params = full_decode
 
         layers = self.decode_params["lm"]["layers"]
+        if self.fused_mlp and not self.fused_layer:
+            if not _dm.supported(layers["mlp"]):
+                raise ValueError("fused_mlp needs the int8 decode tree of "
+                                 "runtime.quantize.quantize_lm_for_serving")
+            dp = dict(self.decode_params)
+            dp["lm"] = dict(dp["lm"])
+            dp["lm"]["layers"] = dict(layers, mlp=_dm.repack(layers["mlp"]))
+            self.decode_params = dp
         # decided here, once; batch 1 here, gemma.forward checks the real batch
         if self.fused_layer and not _dl.supported(config.text_config, layers, batch=1):
             raise ValueError(
@@ -105,7 +146,7 @@ class PaliGemmaEngine:
         cache = self.init_state_cache(b)
         logits, cache = paligemma.prefill(
             self.params, self.config, pixel_values, input_ids, attention_mask,
-            cache, use_flash=self.use_flash, last_only=True,
+            cache, use_flash=self.use_flash, last_only=True, mesh=self.mesh,
         )
         valid = torch.zeros((b, self.max_seq_len), dtype=torch.bool, device=self.device)
         valid[:, :s] = attention_mask.bool()
@@ -121,7 +162,8 @@ class PaliGemmaEngine:
         logits, cache = paligemma.decode_step(
             self.decode_params, self.config, self._as_tensor(token, torch.int64),
             state.cache, cache_pos=state.write_pos, kv_valid=state.valid,
-            position_ids=state.pos_ids, fused_layer=self.fused_layer,
+            position_ids=state.pos_ids, fused_layer=self.fused_layer, mesh=self.mesh,
+            fused_mlp=self.fused_mlp,
         )
         return logits, KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
 
@@ -167,7 +209,7 @@ class PaliGemmaEngine:
                 token, cache = paligemma.decode_step_greedy(
                     self.decode_params, self.config, token, state.cache,
                     cache_pos=state.write_pos, kv_valid=state.valid,
-                    position_ids=state.pos_ids, kv_bucket=kv_bucket,
+                    position_ids=state.pos_ids, kv_bucket=kv_bucket, mesh=self.mesh,
                 )
                 state = KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
             return token, state, torch.stack(tokens, dim=1), done
@@ -184,7 +226,7 @@ class PaliGemmaEngine:
                 self.decode_params, self.config, token, state.cache,
                 cache_pos=state.write_pos, kv_valid=state.valid,
                 position_ids=state.pos_ids, kv_bucket=kv_bucket,
-                fused_layer=self.fused_layer,
+                fused_layer=self.fused_layer, mesh=self.mesh, fused_mlp=self.fused_mlp,
             )
             state = KVState(cache, state.valid, state.write_pos + 1, state.pos_ids + 1)
         return logits, state, torch.stack(tokens, dim=1), done

@@ -22,9 +22,21 @@ ticks then run the decode kernel chain with the argmax head kernel, sampled
 ticks the chain with the int8 GEMV head, and prefill the flash kernel. A
 decode tree or config the kernels cannot take raises.
 
-Not ported: the mesh (tensor/data parallel), speculative decoding, grammars,
-LoRA banks, the prefix cache, W8A8 prefill and ``warmup`` (XLA compiles);
-the constructor raises ``NotImplementedError`` for them.
+``mesh`` (core/mesh.make_mesh, one process per rank, ``data == 1``):
+tensor parallel over the model axis, as the JAX engine's pure-TP serving.
+Every rank builds the engine from the whole params (it keeps its slices,
+core/mesh.shard_params), holds the whole replicated KV cache (one KV head)
+and must be given the same requests in the same order: the scheduler is
+host bookkeeping over tokens that every rank reads back identically
+(gathered logits and the cross-rank argmax), and each rank's ``generator``
+draws the same numbers from the same seed. On the kernel path the greedy
+tick runs the TP chain of kernels/decode_layer_tp with the vocab-shard
+argmax combined across ranks, the sampled tick the same chain with the
+gathered int8-head logits.
+
+Not ported: the data axis, speculative decoding, grammars, LoRA banks, the
+prefix cache, W8A8 prefill and ``warmup`` (XLA compiles); the constructor
+raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -36,9 +48,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core import mesh as mesh_lib
 from ..core.config import PaliGemmaConfig
 from ..kernels import decode_head as _dh
 from ..kernels import decode_layer as _dl
+from ..kernels import decode_layer_tp as _tp
 from ..models import gemma, paligemma
 from ..ops import sampling
 
@@ -99,8 +113,7 @@ class _Window:
     ready: Optional[torch.cuda.Event] = None  # the host copy landed (CUDA)
 
 
-_NOT_PORTED = ("mesh", "spec_decode", "lora_bank", "grammars", "prefix_cache",
-               "int8_act_prefill")
+_NOT_PORTED = ("spec_decode", "lora_bank", "grammars", "prefix_cache", "int8_act_prefill")
 
 
 class ServingEngine:
@@ -133,7 +146,7 @@ class ServingEngine:
         by up to that many tokens (the overshoot is discarded).
         ``generator``: the draws of sampled requests (default: seed 0 on the
         device)."""
-        given = dict(mesh=mesh, spec_decode=spec_decode, lora_bank=lora_bank,
+        given = dict(spec_decode=spec_decode, lora_bank=lora_bank,
                      grammars=grammars, prefix_cache=prefix_cache,
                      int8_act_prefill=int8_act_prefill)
         unported = [k for k in _NOT_PORTED if given[k]]
@@ -142,8 +155,10 @@ class ServingEngine:
         self.config = config
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
-        self.params = params
+        self.mesh = mesh
+        # whole trees: _setup_fused shards (or repacks) the decode tree
         self.decode_params = decode_params if decode_params is not None else params
+        self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
         self.device = params["lm"]["embed"].device
         self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
         on_cuda = self.device.type == "cuda"
@@ -167,10 +182,30 @@ class ServingEngine:
         # page size so that buckets stay page-aligned)
         self._bucket_gran = 64
 
+    def _shard_decode(self, fused: bool) -> None:
+        """Under a mesh: this rank's decode tree, the tensor-parallel kernels'
+        (kernels/decode_layer_tp.repack_for_tp, which raises on a tree they
+        cannot take) or the plain sharded one."""
+        if fused:
+            if not _tp.supported(self.config.text_config, self.mesh,
+                                 self.decode_params["lm"]["layers"], self.max_slots):
+                raise ValueError(
+                    "fused_decode under a mesh needs what kernels/decode_layer_tp.supported "
+                    "accepts at max_slots rows (the int8 decode tree, one KV head, heads / "
+                    "vocab / MLP width divisible by the model axis); pass fused_decode=False "
+                    "for the plain sharded path")
+            self.decode_params = {"lm": _tp.repack_for_tp(self.decode_params["lm"],
+                                                          self.config.text_config, self.mesh)}
+        else:
+            self.decode_params = mesh_lib.shard_params(self.decode_params, self.mesh)
+
     def _setup_fused(self, fused: bool) -> bool:
         """Decide the kernel decode path once: the dense kernel chain needs
         what kernels/decode_layer.supported accepts at ``max_slots`` rows; a
         tree or config it cannot take raises, it never falls back."""
+        if self.mesh is not None:
+            self._shard_decode(fused)
+            return fused
         if not fused:
             return False
         layers = self.decode_params["lm"]["layers"]
@@ -328,7 +363,7 @@ class ServingEngine:
             logits, cache1 = paligemma.prefill(
                 self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
                 mask, cache1, use_flash=self.use_flash, last_only=True,
-                prefix_lens=self._upload(pfx_np),
+                prefix_lens=self._upload(pfx_np), mesh=self.mesh,
             )
             self.prefill_calls += 1
             self._insert_chunk(seated, cache1, mask, logits[:, 0])
@@ -385,12 +420,12 @@ class ServingEngine:
             # (slots, vocab) logits row is never written (stored logits go
             # stale, and greedy selection never reads them)
             next_tok, _ = paligemma.decode_step_greedy(
-                self.decode_params, self.config, token, self.cache, **kw)
+                self.decode_params, self.config, token, self.cache, mesh=self.mesh, **kw)
             self._advance(active, next_tok)
         else:
             new_logits, _ = paligemma.decode_step(
                 self.decode_params, self.config, token, self.cache,
-                fused_layer=self.fused_decode, **kw)
+                fused_layer=self.fused_decode, mesh=self.mesh, **kw)
             self._advance(active, None, new_logits)
         return token
 

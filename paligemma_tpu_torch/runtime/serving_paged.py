@@ -21,8 +21,14 @@ plain torch ops. ``fused_decode=False`` runs every tick on the plain page
 walk ("xla"). A tree, config or page size the chosen kernels cannot take
 raises.
 
-Not ported: the mesh (tensor/data parallel), speculative decoding, LoRA
-banks, grammars, the prefix cache and W8A8 prefill.
+Under a tensor-parallel ``mesh`` (the dense engine's contract, data == 1)
+the pool is replicated on every rank (one KV head) and the kernel path's
+tick is ``paged_kernel="fused_tp"``: kernels/decode_layer_paged_tp, then
+the gathered logits of the vocab-sharded int8 head, for greedy and sampled
+windows alike; ``fused_decode=False`` runs the plain sharded page walk.
+
+Not ported: the data axis (the JAX engine's DP pool), speculative decoding,
+LoRA banks, grammars, the prefix cache and W8A8 prefill.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..core.config import PaliGemmaConfig
 from ..kernels import decode_head as _dh
 from ..kernels import decode_layer as _dl
 from ..kernels import decode_layer_paged as _dlp
+from ..kernels import decode_layer_paged_tp as _ptp
 from ..kernels import paged_attention as _pa
 from ..models import paligemma
 from .paged_cache import PagedKVCache
@@ -66,9 +73,9 @@ class PagedServingEngine(ServingEngine):
         """``n_pages``: physical pool size, page 0 being the garbage page
         (default: half the dense engine's reservation). ``max_seq_len``
         bounds one request's length (the page table's width) and reserves
-        nothing. ``not_ported``: the dense engine's mesh, spec_decode,
-        lora_bank, grammars, prefix_cache and int8_act_prefill, which raise
-        when set."""
+        nothing. ``not_ported``: the dense engine's ``mesh`` (tensor
+        parallel, module docstring), and its spec_decode, lora_bank,
+        grammars, prefix_cache and int8_act_prefill, which raise when set."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")
@@ -96,9 +103,20 @@ class PagedServingEngine(ServingEngine):
         cannot take."""
         if not fused:
             self.paged_kernel = "xla"
+            if self.mesh is not None:
+                self._shard_decode(False)
             return False
         tc = self.config.text_config
         layers = self.decode_params["lm"]["layers"]
+        if self.mesh is not None:
+            if not _ptp.supported(tc, self.mesh, layers, self.max_slots, self.page_size):
+                raise ValueError(
+                    "the paged engine under a mesh needs what "
+                    "kernels/decode_layer_paged_tp.supported accepts at max_slots rows; pass "
+                    "fused_decode=False for the plain sharded page walk")
+            self._shard_decode(True)
+            self.paged_kernel = "fused_tp"
+            return True
         if self.paged_kernel == "staged":
             self.paged_kernel = "fused"  # the TPU's staging hybrid: one chain here
         if self.paged_kernel == "fused":
@@ -261,7 +279,7 @@ class PagedServingEngine(ServingEngine):
         token = self._select(temps, top_ps, do_samples, with_sampling)
         new_logits, _ = paligemma.decode_step_paged(
             self.decode_params, self.config, token, self.cache, table, paged_kernel=kernel,
-            **kw)
+            mesh=self.mesh, **kw)
         self._advance(active, None, new_logits)
         return token
 

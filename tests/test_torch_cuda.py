@@ -178,3 +178,80 @@ def test_flash_backward_kernels_match_plain_version_on_card():
     assert (t_flash.flash_attention.launches - n_fwd, t_flash.flash_attention_bwd_dq.launches - n_dq,
             t_flash.flash_attention_bwd_dkv.launches - n_dkv) == (1, 1, 1)
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.cuda
+def test_tp_kernels_match_plain_versions_on_card():
+    """The tensor-parallel kernels on one rank's shard against their plain
+    versions: the fp32-partial GEMV epilogue, the decode MLP (B7b) with the
+    fp32 and the bf16 output, and the attention half over a dense cache
+    (B7) and over a page pool (B8) with 1 and 2 local heads; each wrapper
+    counts one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvcc and triton on its host)")
+    from paligemma_tpu_torch.kernels import decode_layer_paged_tp as t_ptp
+    from paligemma_tpu_torch.kernels import decode_layer_tp as t_tp
+    from paligemma_tpu_torch.kernels import decode_mlp as t_mlp
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def int8(*shape):
+        w8 = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(shape[:-2] + shape[-1:], generator=g, device=dev)
+        return {"w8": w8, "s": (s + 0.5) / (127 * shape[-2] ** 0.5)}
+
+    def close(got, want, rel):
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= rel * scale
+
+    b, k, d, n_layers = 2, 256, 128, 2
+    x = rnd(b, k)
+    w = int8(k, 384)
+    n0 = t_gemv.int8_gemv_f32.launches
+    part = t_gemv.int8_gemv_f32(x, w["w8"], w["s"])
+    assert part.dtype == torch.float32 and t_gemv.int8_gemv_f32.launches == n0 + 1
+    close(part, t_gemv.int8_gemv_reference(x, w["w8"], w["s"], out_fp32=True), 1e-4)
+
+    mlp = {"gateup": int8(n_layers, k, 2 * 512), "down": int8(n_layers, 512, k)}
+    for out_dtype, rel in ((torch.float32, 1e-3), (None, 2e-2)):
+        n0 = t_mlp.mlp_decode_fused.launches
+        got = t_mlp.mlp_decode_fused(x[:, None], mlp, 1, out_dtype=out_dtype)
+        assert t_mlp.mlp_decode_fused.launches == n0 + 1
+        assert got.dtype == (out_dtype or torch.bfloat16) and got.shape == (b, 1, k)
+        close(got, t_mlp.reference_mlp(x[:, None], mlp, 1, out_dtype), rel)
+
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    pos = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    ps, seq = 16, 64
+    table = torch.tensor([[2, 0, 0, 0], [4, 1, 3, 6]], dtype=torch.int32, device=dev)
+    for hl in (1, 2):
+        layers = {"input_norm": rnd(n_layers, k),
+                  "attn": {"qkv": int8(n_layers, k, (hl + 2) * d), "o": int8(n_layers, hl * d, k)}}
+        kc, vc = rnd(n_layers, b, seq, d), rnd(n_layers, b, seq, d)
+        valid = (torch.arange(seq, device=dev)[None] <= pos[:, None]).contiguous()
+        caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+        n0 = t_tp.attn_decode_tp.launches
+        got = t_tp.attn_decode_tp(x, layers, *caches[0], 1, valid, pos, cos, sin, d, 1e-6)
+        want = t_tp.attn_decode_tp_reference(x, layers, *caches[1], 1, valid, pos, cos, sin, d,
+                                             1e-6)
+        assert t_tp.attn_decode_tp.launches == n0 + 1 and got[0].dtype == torch.float32
+        close(got[0], want[0], 2e-2)
+        for a, r in zip(got[1:] + caches[0], want[1:] + caches[1]):
+            close(a, r, 2e-2)
+
+        kp, vp = rnd(n_layers, 8, ps, d), rnd(n_layers, 8, ps, d)
+        pools = [(kp.clone(), vp.clone()) for _ in range(2)]
+        n0 = t_ptp.attn_decode_paged_tp.launches
+        got = t_ptp.attn_decode_paged_tp(x, layers, *pools[0], 1, table, pos, cos, sin, 4, d,
+                                         1e-6)
+        want = t_ptp.attn_decode_paged_tp_reference(x, layers, *pools[1], 1, table, pos, cos,
+                                                    sin, 4, d, 1e-6)
+        assert t_ptp.attn_decode_paged_tp.launches == n0 + 1
+        close(got[0], want[0], 2e-2)
+        for a, r in zip(got[1:] + pools[0], want[1:] + pools[1]):
+            close(a, r, 2e-2)

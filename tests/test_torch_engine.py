@@ -88,6 +88,34 @@ def test_generate_int8_kernel_path_matches_jax_engine(sync_every):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def test_generate_fused_mlp_matches_jax_engine(monkeypatch):
+    """fused_mlp=True with fused_layer=False: plain layers, each layer's
+    decode MLP through kernels/decode_mlp (B7b; its plain version on the
+    CPU), against the JAX engine's fused_mlp path (the Pallas MLP kernel in
+    interpret mode) on the same int8 tree: the same greedy tokens."""
+    from paligemma_tpu_torch.models import gemma as t_gemma
+
+    cfg = _mqa_config()
+    jp = j_pg.init_params(jax.random.PRNGKey(3), cfg)
+    jq = j_qserve(jp)
+    pixels, ids, mask = _inputs(cfg, seed=3)
+    jeng = JaxEngine(jp, cfg, max_seq_len=64, use_flash=False, decode_params=jq,
+                     fused_layer=False, fused_mlp=True)
+    assert jeng.fused_mlp and "gate_blk" in jeng.decode_params["lm"]["layers"]["mlp"]
+    want = jeng.generate(jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask),
+                         max_new_tokens=6, eos_token_id=-1)
+    calls = []
+    mlp = t_gemma.mlp_decode_fused
+    monkeypatch.setattr(t_gemma, "mlp_decode_fused",
+                        lambda y, *a, **kw: calls.append(y.shape) or mlp(y, *a, **kw))
+    eng = PaliGemmaEngine(_to_port(jp), cfg, max_seq_len=64, decode_params=_to_port(jq),
+                          use_flash=False, fused_layer=False, fused_mlp=True)
+    assert eng.fused_mlp and not eng.fused_layer
+    got = eng.generate(pixels, ids, mask, max_new_tokens=6, eos_token_id=-1)
+    assert len(calls) == 6 * cfg.text_config.num_hidden_layers  # every layer of every step
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 @pytest.mark.parametrize("case", ["gqa_config", "dense_decode_tree"])
 def test_fused_layer_on_unsupported_tree_raises(case):
     """An explicit fused_layer=True the kernels cannot take raises; the
