@@ -66,6 +66,10 @@ GENERATE_KERNELS = ("flash_attention_fwd", "int8_gemv", "decode_attention", "rms
 # the tensor-parallel wrappers (B7, B7b, B8 and the fp32-partial epilogue):
 # no one-card kernel path launches them
 TP_KERNELS = ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp", "attn_decode_paged_tp")
+# the ablation shelf's wrappers (kernels/ablation): only their own entry
+# points and siglip.encode(attn="fused") launch them (the ablation phase)
+ABLATION_KERNELS = ("vision_attention", "seg_decode_attention", "int4_matmul", "int8_matmul",
+                    "int8_matmul_nmajor")
 # the serving engines' kernels: (must launch, must not launch, once per layer
 # and tick); the dense tick is the generate chain, the paged fused tick the
 # same chain with kernels B and A, the page walk kernel A with torch ops
@@ -120,6 +124,13 @@ SMALL_POOL = 44
 # budget is capped at submit (68 tokens), beside a 260-token prompt that
 # decodes 100 tokens
 FILL_SEQ = 384
+# ablation phase (B9, B11): Gemma-2B's four projections of one layer at
+# decode rows (1, 8), the TTFT prompt's prefill (266) and the training batch
+# (B2 x S512 = 1024)
+PROJECTIONS = (("qkv", 2048, 2560), ("o", 2048, 2048), ("gateup", 2048, 32768),
+               ("down", 16384, 2048))
+INT4_ROWS = (1, 8, 266)
+INT8_ROWS = (1, 266, 1024)
 # H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): bf16 tensor
 # cores and HBM3
 PEAK_FLOPS = 989e12
@@ -212,10 +223,13 @@ class KernelReport:
             raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
 
     def time(self, name, label, kernel_fn, plain_fn, flops, n_bytes, library_fn=None,
-             iters=20):
+             iters=20, in_json=True):
         """Kernel vs plain version (plain, kernel, kernel, plain), the
         library call if there is one, and the bound of this call's work
-        (``flops`` operations, ``n_bytes`` bytes read once and written once)."""
+        (``flops`` operations, ``n_bytes`` bytes read once and written once).
+        ``in_json``: add the times to the kernel's row of the JSON line
+        (else they are printed only). Returns (kernel, plain, library or
+        None, bound) in ms."""
         k, p = timed_pair(kernel_fn, plain_fn, iters)
         lib = None
         if library_fn is not None:
@@ -227,7 +241,10 @@ class KernelReport:
         lib_txt = "none" if lib is None else f"{lib:.4f} ms"
         print(f"  {name:20s} {label:44s} kernel {k:.4f} ms  plain {p:.4f} ms  library "
               f"{lib_txt}  bound {bound:.4f} ms ({flops / 1e9:.3f} GFLOP, "
-              f"{n_bytes / 1e6:.3f} MB)", flush=True)
+              f"{n_bytes / 1e6:.3f} MB){'' if in_json else ' (not in the JSON sum)'}",
+              flush=True)
+        if not in_json:
+            return k, p, lib, bound
         row = self.rows[name]
         row["ms"] = row.get("ms", 0.0) + k
         row["plain_ms"] = row.get("plain_ms", 0.0) + p
@@ -239,6 +256,7 @@ class KernelReport:
             row["library_ms"] = None if lib is None or prev is None else prev + lib
         else:
             row.setdefault("library_ms", None)
+        return k, p, lib, bound
 
 
 def _sdpa_args(q, k, v, allowed):
@@ -782,6 +800,242 @@ def tp_kernel_phase(report: KernelReport, dev):
     del head, w8, s
 
 
+def ablation_phase(report: KernelReport, dev, card):
+    """The ablation shelf's kernels (kernels/ablation: B12 vision_attention,
+    B10 the length-aware decode attention, B9 int4_matmul, B11 int8_matmul
+    and int8_matmul_nmajor) against their plain versions at PaliGemma-3B's
+    widths, timed beside one PyTorch call where one computes the same
+    function; then their counted runs through their own entry points:
+    siglip.encode(attn="fused") on the 224 and 448 px towers (27 layers,
+    random bf16 weights; exactly one B12 launch per layer, features held
+    against attn="xla"), and one call per decode case, projection and row
+    count. Returns the counted runs' launches."""
+    from paligemma_tpu_torch import kernels, paligemma_3b_224, paligemma_3b_448
+    from paligemma_tpu_torch.convert import init_vision_params
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as sda
+    from paligemma_tpu_torch.kernels.ablation import quant4 as q4
+    from paligemma_tpu_torch.kernels.ablation import quant_pallas as qp
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as va
+    from paligemma_tpu_torch.models import siglip
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    print("kernels: vision_attention (B12; SigLIP-So400m H16 D72)", flush=True)
+    for label, s in (("224px B1 S256 H16 D72", 256), ("448px B1 S1024 H16 D72", 1024)):
+        q, k, v = bf(1, s, 16, 72), bf(1, s, 16, 72), bf(1, s, 16, 72)
+        got = va.vision_attention(q, k, v)
+        want = va.vision_attention_reference(q, k, v, 72**-0.5)
+        sync()
+        report.case("vision_attention", label, got, want, 1e-2)
+        sdpa = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        report.time("vision_attention", label, lambda: va.vision_attention(q, k, v),
+                    lambda: va.vision_attention_reference(q, k, v, 72**-0.5),
+                    flops=4 * s * s * 72 * 16, n_bytes=nbytes(q, k, v, got),
+                    library_fn=lambda: F.scaled_dot_product_attention(*sdpa))
+    big = bf(1, 4096, 16, 72)
+    try:
+        va.vision_attention(big, big, big)
+    except ValueError as e:
+        print(f"  {'vision_attention':20s} {'896px S4096 H16 D72 raises':44s} {e}", flush=True)
+    else:
+        raise AssertionError("vision_attention: S 4096 must raise (shared memory), not run")
+    del big
+
+    # rows: contiguous to the cache's end, kv_len at 32-key tile edges (64,
+    # 1024), holes (row 3's [256, 640) and the rows past kv_len are whole
+    # tiles, so they are never read), a 33-key row
+    print("kernels: seg_decode_attention (B10; Gemma-2B cache S_max 2048 D256)", flush=True)
+    seg_rows = ([2048, 64, 250, 256, 300, 33, 97, 700], [2048, 64, 266, 640, 300, 33, 1200, 700],
+                [2048, 64, 1000, 1024, 300, 33, 1500, 700])
+    seg_cases = []
+    for b, hq, hkv in ((1, 8, 1), (8, 8, 1), (8, 8, 2), (8, 4, 4)):
+        q, kc, vc = bf(b, hq, 256), bf(b, MAX_SEQ, hkv, 256), bf(b, MAX_SEQ, hkv, 256)
+        segs = [torch.tensor(r[:b], dtype=torch.int32, device=dev) for r in seg_rows]
+        label = f"B{b} Hq{hq} Hkv{hkv} W{MAX_SEQ} D256" + (" holes" if b > 1 else "")
+        got = sda.decode_attention(q, kc, vc, *segs)
+        want = sda.reference_decode_attention(q, kc, vc, *segs)
+        sync()
+        report.case("seg_decode_attention", label, got, want, 1e-2)
+        seg_cases.append((q, kc, vc, segs))
+        col = torch.arange(MAX_SEQ, device=dev)[None]
+        n_keys = int(((col < segs[0][:, None]) | ((col >= segs[1][:, None])
+                                                  & (col < segs[2][:, None]))).sum())
+        if hkv == 1:
+            mask = ((col < segs[0][:, None]) | ((col >= segs[1][:, None])
+                                               & (col < segs[2][:, None])))[:, None, None]
+            sdpa = (q[:, :, None], kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), mask)
+            report.time("seg_decode_attention", label,
+                        lambda: sda.decode_attention(q, kc, vc, *segs),
+                        lambda: sda.reference_decode_attention(q, kc, vc, *segs),
+                        flops=4 * 256 * hq * n_keys,
+                        n_bytes=nbytes(q, got, *segs) + 2 * n_keys * hkv * 256 * 2,
+                        library_fn=lambda: F.scaled_dot_product_attention(
+                            sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], enable_gqa=True),
+                        in_json=b == 1)
+        if b == 8 and hkv == 1:  # NaN in the skipped tiles: they are never read
+            kp, vp = kc.clone(), vc.clone()
+            for t in (kp, vp):
+                t[3, 256:640] = float("nan")
+                t[1, 64:] = float("nan")
+                t[5, 64:] = float("nan")
+            poisoned = sda.decode_attention(q, kp, vp, *segs)
+            sync()
+            same = torch.equal(poisoned, got)
+            print(f"  {'seg_decode_attention':20s} {'NaN in the hole and past kv_len':44s} "
+                  f"torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise AssertionError("seg_decode_attention read a tile it must skip")
+            del kp, vp
+
+    print("kernels: int4_matmul, int8_matmul, int8_matmul_nmajor (B9, B11; Gemma-2B "
+          "projections)", flush=True)
+    proj, layer_ms = [], {}
+    for name, k, n in PROJECTIONS:
+        w4p = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
+        s4 = (torch.rand(n, generator=g, device=dev) + 0.5) / (7.0 * k**0.5)
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        w8t = w8.t().contiguous()
+        s8 = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+        s8_bf = s8.to(torch.bfloat16)  # the library call takes x's dtype
+        proj.append((name, k, n, w4p, s4, w8, w8t, s8))
+        for m in sorted(set(INT4_ROWS + INT8_ROWS)):
+            x = bf(m, k)
+            label = f"{name} M{m} {k}->{n}"
+            calls = []
+            if m in INT4_ROWS:
+                calls.append(("int4_matmul", lambda: q4.int4_matmul(x, w4p, s4),
+                              lambda: q4.int4_matmul_reference(x, w4p, s4), w4p, s4, None))
+            if m in INT8_ROWS:
+                lib = lambda: torch._weight_int8pack_mm(x, w8t, s8_bf)  # noqa: E731
+                calls += [("int8_matmul", lambda: qp.int8_matmul(x, w8, s8),
+                           lambda: qp.int8_matmul_reference(x, w8, s8), w8, s8, lib),
+                          ("int8_matmul_nmajor", lambda: qp.int8_matmul_nmajor(x, w8t, s8),
+                           lambda: qp.int8_matmul_nmajor_reference(x, w8t, s8), w8t, s8, lib)]
+            for kname, kern, plain, w, sc, lib in calls:
+                got, want = kern(), plain()
+                sync()
+                report.case(kname, label, got, want, 1e-2)
+                if m in (1, 266, 1024):
+                    t = report.time(kname, label, kern, plain, flops=2 * m * k * n,
+                                    n_bytes=nbytes(x, w, sc, got), library_fn=lib,
+                                    in_json=m == 1)
+                    acc = layer_ms.setdefault((kname, m), [0.0, 0.0, 0.0, 0.0])
+                    for i, v in enumerate(t):
+                        acc[i] = None if v is None or acc[i] is None else acc[i] + v
+            del x
+    for (kname, m), (k_ms, p_ms, lib_ms, b_ms) in layer_ms.items():
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        label = f"one layer, {len(PROJECTIONS)} projections, M{m}"
+        print(f"  {kname:20s} {label:44s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+              f"library {lib_txt}  bound {b_ms:.4f} ms", flush=True)
+    # backward of the autograd wrappers: dx = (g * s) @ w8^T against a plain
+    # fp32 product (one projection, training rows)
+    name, k, n, _, _, w8, w8t, s8 = proj[0]
+    x = bf(1024, k).requires_grad_(True)
+    gout = bf(1024, n)
+    want = ((gout.float() * s8) @ w8.float().T).to(torch.bfloat16)
+    for fn, w in ((qp._int8_matmul_diffable, w8), (qp._int8_matmul_nmajor_diffable, w8t)):
+        x.grad = None
+        fn(x, w, s8).backward(gout)
+        sync()
+        report.case("int8_matmul_nmajor" if w is w8t else "int8_matmul",
+                    f"{name} M1024 dx (autograd backward)", x.grad, want, 1e-2)
+    del x, gout
+
+    # the counted runs: each kernel through its entry point
+    cfg224, cfg448 = paligemma_3b_224().vision_config, paligemma_3b_448().vision_config
+    towers = {}
+    counts = {}
+    for label, vcfg in (("224px", cfg224), ("448px", cfg448)):
+        vp = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                torch.bfloat16)
+        px = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (1, 3, vcfg.image_size, vcfg.image_size), dtype=np.float32)).to(dev)
+        kernels.reset_launch_counts()
+        fused = siglip.encode(vp, vcfg, px, attn="fused")
+        sync()
+        c = kernels.launch_counts()
+        want = {k: (vcfg.num_hidden_layers if k == "vision_attention" else 0) for k in c}
+        if c != want:
+            raise AssertionError(f"siglip.encode(attn='fused') {label}: launches {c}, want {want}")
+        counts["vision_attention"] = counts.get("vision_attention", 0) + c["vision_attention"]
+        plain = siglip.encode(vp, vcfg, px, attn="xla")
+        flash = siglip.encode(vp, vcfg, px, attn="flash")
+        sync()
+        if fused.shape != (1, vcfg.num_patches, vcfg.hidden_size):
+            raise AssertionError(f"tower {label}: features of shape {tuple(fused.shape)}")
+
+        def rel_err(a):
+            return float((a.float() - plain.float()).abs().max() / plain.float().abs().max())
+
+        rel = rel_err(fused)
+        ok = bool(torch.isfinite(fused).all()) and rel <= LOGIT_REL_TOL
+        print(f"ablation: siglip.encode(attn='fused') {label}: {c['vision_attention']} "
+              f"vision_attention launches; features vs attn='xla' max rel err {rel:.3e} "
+              f"(tol {LOGIT_REL_TOL}; attn='flash' vs 'xla' {rel_err(flash):.3e}, not gated)  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"tower {label}: fused features off by {rel}")
+        towers[label] = (vp, vcfg, px)
+
+    kernels.reset_launch_counts()
+    for q, kc, vc, segs in seg_cases:
+        sda.decode_attention(q, kc, vc, *segs)
+    for name, k, n, w4p, s4, w8, w8t, s8 in proj:
+        for m in INT4_ROWS:
+            q4.int4_matmul(bf(m, k), w4p, s4)
+        for m in INT8_ROWS:
+            x = bf(m, k)
+            qp.int8_matmul(x, w8, s8)
+            qp.int8_matmul_nmajor(x, w8t, s8)
+    sync()
+    c = kernels.launch_counts()
+    want = {k: 0 for k in c}
+    want.update(seg_decode_attention=len(seg_cases), int4_matmul=len(proj) * len(INT4_ROWS),
+                int8_matmul=len(proj) * len(INT8_ROWS),
+                int8_matmul_nmajor=len(proj) * len(INT8_ROWS))
+    print(f"ablation: launches of the entry-point runs: {json.dumps(c)}", flush=True)
+    if c != want:
+        raise AssertionError(f"ablation entry points: launches {c}, want {want}")
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+
+    # device times (the back-to-back times above are the host's launch rate
+    # for the small calls): one call of each kernel at the JSON line's shapes
+    qv = [bf(1, s, 16, 72) for s in (256, 1024) for _ in range(3)]
+    q, kc, vc, segs = seg_cases[0]
+
+    def one_each():
+        va.vision_attention(*qv[:3])
+        va.vision_attention(*qv[3:])
+        sda.decode_attention(q, kc, vc, *segs)
+        for name, k, n, w4p, s4, w8, w8t, s8 in proj:
+            x = bf(1, k)
+            q4.int4_matmul(x, w4p, s4)
+            qp.int8_matmul(x, w8, s8)
+            qp.int8_matmul_nmajor(x, w8t, s8)
+
+    one_each()
+    _profile("ablation kernels: B12 S256 + S1024, B10 B1 W2048, B9 / B11 x 4 projections M1",
+             one_each, 1, card, top=16, unit="round")
+    del proj, seg_cases, qv
+
+    # the tower with each attention path, timed in turns (after the counts)
+    for label, (vp, vcfg, px) in towers.items():
+        paths = ("xla", "flash", "fused")
+        ms = {a: [] for a in paths}
+        for a in paths + paths[::-1]:
+            ms[a].append(cuda_ms(lambda: siglip.encode(vp, vcfg, px, attn=a), 5))
+        print(f"ablation: tower {label} ({vcfg.num_patches} patches, {vcfg.num_hidden_layers} "
+              f"layers) ms per encode: "
+              + ", ".join(f"{a} {min(ms[a]):.3f}" for a in paths) + f"  [{card}]", flush=True)
+    del towers
+    return counts
+
+
 def make_inputs(cfg, dev):
     rng = np.random.default_rng(SEED)
     n_img = cfg.vision_config.num_patches
@@ -1138,7 +1392,8 @@ def serving_phase(params, decode, cfg, dev, card):
 
     print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
           flush=True)
-    missing = [k for k, v in total.items() if v == 0 and k not in TRAIN_ONLY + TP_KERNELS]
+    missing = [k for k, v in total.items()
+               if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -1782,6 +2037,10 @@ def main() -> int:
     sync()
     torch.cuda.empty_cache()
     print(f"kernels: all cases within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    ablation_counts = ablation_phase(report, dev, card)
+    torch.cuda.empty_cache()
+    print(f"ablation: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     params, decode, cfg, tok_gen = main_path(dev, card)
     t0 = time.perf_counter()
@@ -1796,7 +2055,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = {k: counts.get(k, 0) + tp_counts.get(k, 0) + train_counts.get(k, 0)
+    counts = {k: sum(c.get(k, 0) for c in (counts, tp_counts, train_counts, ablation_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -1833,6 +2092,16 @@ def main() -> int:
                            "paligemma_tpu/kernels/decode_layer_tp.py:79"),
         "attn_decode_paged_tp": ("cuda", "paligemma_tpu_torch/kernels/decode_layer_paged_tp.py",
                                  "paligemma_tpu/kernels/decode_layer_paged_tp.py:58"),
+        "vision_attention": ("cuda", "paligemma_tpu_torch/csrc/vision_attention.cu",
+                             "paligemma_tpu/kernels/ablation/vision_attention.py:47"),
+        "seg_decode_attention": ("cuda", "paligemma_tpu_torch/csrc/seg_attention.cu",
+                                 "paligemma_tpu/kernels/ablation/decode_attention.py:46"),
+        "int4_matmul": ("cuda", "paligemma_tpu_torch/csrc/int4_matmul.cu",
+                        "paligemma_tpu/kernels/ablation/quant4.py:66"),
+        "int8_matmul": ("cuda", "paligemma_tpu_torch/csrc/int8_matmul.cu",
+                        "paligemma_tpu/kernels/ablation/quant_pallas.py:22"),
+        "int8_matmul_nmajor": ("cuda", "paligemma_tpu_torch/csrc/int8_matmul.cu",
+                               "paligemma_tpu/kernels/ablation/quant_pallas.py:109"),
     }
     rows = []
     for name in kernels.WRAPPERS:

@@ -57,7 +57,9 @@ def _dense(i, o, gen, device, dtype, lead=()):
     }
 
 
-def _init_vision(cfg: SiglipVisionConfig, gen, device, dtype) -> Params:
+def init_vision_params(cfg: SiglipVisionConfig, gen, device, dtype) -> Params:
+    """Random SigLIP tower weights at the config's full width, made on
+    ``device`` with the generator ``gen`` (which must live there)."""
     d, inter, p = cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
     n = (cfg.num_hidden_layers,)
 
@@ -110,7 +112,7 @@ def init_params(
     generator must live there too), with the JAX package's init scales."""
     vc = cfg.vision_config
     return {
-        "vision": _init_vision(vc, generator, device, dtype),
+        "vision": init_vision_params(vc, generator, device, dtype),
         "projector": {"kernel": _normal((vc.hidden_size, cfg.projection_dim),
                                         vc.hidden_size**-0.5, generator, device, dtype)},
         "lm": _init_gemma(cfg.text_config, generator, device, dtype),

@@ -1,18 +1,20 @@
 // Split-over-keys single-token attention, shared by decode_attention.cu
-// (contiguous per-row KV cache with a validity mask) and paged_attention.cu
-// (KV pages addressed through a page table, keys [0, kv_len) visible).
+// (contiguous per-row KV cache with a validity mask), paged_attention.cu
+// (KV pages addressed through a page table, keys [0, kv_len) visible) and
+// seg_attention.cu (a dense (B, S, Hkv, D) cache with two visible segments).
 //
-// Both kernels run the same two passes with the same arithmetic; only the
-// address of key j and the rule that makes it visible differ, and those come
-// from the address policy (DenseKV or PagedKV). So on the same keys the two
-// kernels return bit-identical outputs, which lets the dense and the paged
-// serving engines emit identical tokens.
+// The kernels run the same two passes with the same arithmetic; only the
+// address of key j, the rule that makes it visible and the test that skips
+// a tile differ, and those come from the address policy (DenseKV, PagedKV
+// or SegKV). So on the same keys the kernels return bit-identical outputs,
+// which lets the dense and the paged serving engines emit identical tokens.
 //
 // Pass 1 (attn_split), one block per (32-key tile, row, KV head): the tile's
 // K/V rows are staged in shared memory with independent 16-byte loads, the
 // G query heads that share the KV head are scored against it, and the block
-// writes an unnormalized (max, sum, output) triple. A tile with no visible
-// key writes (PG_NEG_INF, 0, 0) without reading anything.
+// writes an unnormalized (max, sum, output) triple. A tile the policy's
+// skip() rules out (it holds no visible key) writes (PG_NEG_INF, 0, 0)
+// without reading anything.
 // Pass 2 (attn_combine), one block per (query head, row, KV head): the
 // triples are merged in split order with the usual rescaling. An empty
 // split adds exp(-1e30 - m) * 0 = +0 to every sum, an exact identity, so a
@@ -40,7 +42,7 @@ struct DenseKV {
   __device__ __forceinline__ bool visible(int b, int j) const {
     return valid[(size_t)b * W + j] != 0;
   }
-  __device__ __forceinline__ int len(int) const { return W; }
+  __device__ __forceinline__ bool skip(int, int k0, int) const { return k0 >= W; }
 };
 
 // Page pool (n_pages, ps, Hkv, D) of one layer (layer_off elements into a
@@ -59,7 +61,31 @@ struct PagedKV {
     return (size_t)layer_off + ((page * ps + j % ps) * Hkv + hk) * (size_t)D;
   }
   __device__ __forceinline__ bool visible(int b, int j) const { return j < kv_len[b]; }
-  __device__ __forceinline__ int len(int b) const { return kv_len[b]; }
+  __device__ __forceinline__ bool skip(int b, int k0, int) const { return k0 >= kv_len[b]; }
+};
+
+// Dense cache (B, S, Hkv, D) with three scalars per row: key j is visible
+// iff j < seg0[b] or seg1[b] <= j < kv_len[b] (a right-padded prompt
+// [0, seg0), a pad hole [seg0, seg1), the decode window [seg1, kv_len)).
+// A tile [k0, k0 + nk) is skipped iff it holds no visible key: wholly past
+// kv_len (and seg0), or wholly inside the hole, so the hole is never read.
+struct SegKV {
+  const bf16* k;
+  const bf16* v;
+  const int* seg0;
+  const int* seg1;
+  const int* kv_len;
+  int S, Hkv, D;
+  __device__ __forceinline__ size_t row(int b, int hk, int j) const {
+    return (((size_t)b * S + j) * Hkv + hk) * (size_t)D;
+  }
+  __device__ __forceinline__ bool visible(int b, int j) const {
+    return j < seg0[b] || (j >= seg1[b] && j < kv_len[b]);
+  }
+  __device__ __forceinline__ bool skip(int b, int k0, int nk) const {
+    const int s1 = max(seg1[b], k0);  // the second segment's part at or past k0
+    return k0 >= seg0[b] && (s1 >= kv_len[b] || s1 >= k0 + nk);
+  }
 };
 
 // grid (nsplit, B * Hkv); G query heads per KV head, q (B, Hkv * G, D).
@@ -87,7 +113,7 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nchunk = D / 8;
   const size_t part = (size_t)bh * nsplit + split;
-  if (k0 >= kv.len(b)) {  // no visible key in this tile: the combine's identity
+  if (kv.skip(b, k0, nk)) {  // no visible key in this tile: the combine's identity
     if (tid < G) {
       part_m[part * G + tid] = PG_NEG_INF;
       part_l[part * G + tid] = 0.f;

@@ -113,3 +113,36 @@ __device__ __forceinline__ float gemv_tile_sum(const GemvSmem<BT>& sm, int r, in
   for (int y = 0; y < GV_TY; ++y) s += sm.red[y][r][cl];
   return s;
 }
+
+// ---------------------------------------------------------------------------
+// One warp-wide bf16 tensor-core product, mma.sync.m16n8k16 with fp32
+// accumulators: c (16x8) += a (16x16, row-major) . b (16x8, column-major).
+// With g = lane / 4 and t = lane % 4, the fragments hold
+//   a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],
+//   a[2] = A[g][2t+8..+9],   a[3] = A[g+8][2t+8..+9],
+//   b[0] = B[2t..2t+1][g],   b[1] = B[2t+8..+9][g],
+//   c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..2t+1],
+// each 32-bit register two bf16 with the lower index in the low half.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 values (lo at the lower index) in one 32-bit register.
+__device__ __forceinline__ uint32_t pack_bf16x2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two fp32 values rounded to bf16 (round to nearest even) in one register.
+__device__ __forceinline__ uint32_t pack_f32_bf16x2(float lo, float hi) {
+  return pack_bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// The 32-bit register at a 4-byte aligned bf16 address in shared memory.
+__device__ __forceinline__ uint32_t ld_bf16x2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}

@@ -20,6 +20,10 @@ from . import decode_mlp as _decode_mlp
 from . import flash_attention as _flash_attention
 from . import int8_gemv as _int8_gemv
 from . import paged_attention as _paged_attention
+from .ablation import decode_attention as _seg_attention
+from .ablation import quant4 as _quant4
+from .ablation import quant_pallas as _quant_pallas
+from .ablation import vision_attention as _vision_attention
 
 # kernel name -> wrapper
 WRAPPERS = {
@@ -37,6 +41,13 @@ WRAPPERS = {
     "mlp_decode_fused": _decode_mlp.mlp_decode_fused,
     "attn_decode_tp": _decode_layer_tp.attn_decode_tp,
     "attn_decode_paged_tp": _decode_layer_paged_tp.attn_decode_paged_tp,
+    # the ablation shelf (kernels/ablation), reached through its own entry
+    # points and siglip.encode(attn="fused")
+    "vision_attention": _vision_attention.vision_attention,
+    "seg_decode_attention": _seg_attention.decode_attention,
+    "int4_matmul": _quant4.int4_matmul,
+    "int8_matmul": _quant_pallas.int8_matmul,
+    "int8_matmul_nmajor": _quant_pallas.int8_matmul_nmajor,
 }
 
 

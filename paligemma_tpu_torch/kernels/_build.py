@@ -59,6 +59,15 @@ SIGNATURES = {
     # y, w8, s, part_max, part_idx, ids, maxv, B, K, N, n_valid, k_chunk,
     # stream
     "pg_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, out, B, S, H, D, scale, stream
+    "pg_vision_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # q, k_cache, v_cache, seg0, seg1, kv_len, part_m, part_l, part_o, out, B,
+    # Hq, Hkv, D, S, nsplit, scale, stream
+    "pg_seg_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # x, w8, s, part, out, M, K, N, k_chunk, nmajor, stream
+    "pg_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    # x, w4p, s, part, out, M, K, N, k_chunk, stream
+    "pg_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib = None  # the loaded library; one per process, like the CUDA context

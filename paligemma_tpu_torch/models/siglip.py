@@ -27,6 +27,7 @@ from ..ops.activations import gelu_tanh
 from ..ops.norms import layer_norm
 
 Params = Dict[str, Any]
+ATTN_MODES = ("xla", "flash", "fused")
 
 
 def layer_params(tree: Params, i: int) -> Params:
@@ -75,8 +76,15 @@ def _encoder_block(
         full = torch.full((b,), s, dtype=torch.int32, device=x.device)
         a = (flash_attention(q, k, v, full, full) if mesh is None
              else flash_attention_sharded(q, k, v, full, full, mesh))
-    else:
+    elif attn == "fused":
+        # the one-shot softmax kernel of the ablation shelf, opt-in only
+        from ..kernels.ablation.vision_attention import vision_attention
+
+        a = vision_attention(q, k, v)
+    elif attn == "xla":
         a = attention.mha(q, k, v)  # non-causal full attention over patches
+    else:
+        raise ValueError(f"siglip attn must be one of {ATTN_MODES}, got {attn!r}")
     x = residual + _dense_row(a.reshape(b, s, h * hd), lp["attn"]["o"], mesh)
 
     residual = x
@@ -95,7 +103,9 @@ def encode(
     """Vision forward: (B, C, H, W) pixels -> (B, num_patches, hidden).
 
     ``attn``: "xla" (plain attention; the choice at 224 px, see
-    models/paligemma._vision_attn_mode) or "flash" (the flash kernel).
+    models/paligemma._vision_attn_mode), "flash" (the flash kernel) or
+    "fused" (the one-shot softmax kernel of kernels/ablation, opt-in only);
+    any other value raises ``ValueError``.
     ``mesh``: tensor parallel over this rank's slices (module docstring)."""
     x = pixel_values.permute(0, 2, 3, 1)  # NCHW -> NHWC
     dtype = params["pos_embed"].dtype

@@ -103,7 +103,7 @@ class PagedKVCache:
         max_slots: int,
         max_pages_per_slot: int,
         dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device="cuda",
     ):
         if page_size % 16:
             raise ValueError(f"page_size {page_size} must be a multiple of 16")

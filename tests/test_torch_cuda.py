@@ -255,3 +255,115 @@ def test_tp_kernels_match_plain_versions_on_card():
         close(got[0], want[0], 2e-2)
         for a, r in zip(got[1:] + pools[0], want[1:] + pools[1]):
             close(a, r, 2e-2)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nvcc and triton on its host)")
+    return torch.device("cuda")
+
+
+def _close_rel(got, want, rel=2e-2):
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= rel * scale
+
+
+@pytest.mark.cuda
+def test_vision_attention_kernel_on_card():
+    """B12 against its plain version (one launch per call); an fp32 input on
+    the card raises instead of running the plain version."""
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 128, 3, 72, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    n0 = t_va.vision_attention.launches
+    got = t_va.vision_attention(q, k, v)
+    assert t_va.vision_attention.launches == n0 + 1
+    _close_rel(got, t_va.vision_attention_reference(q, k, v, 72**-0.5))
+    with pytest.raises(ValueError):
+        t_va.vision_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+def test_seg_decode_attention_kernel_on_card():
+    """B10 against its plain version with a pad hole, a kv_len at a tile
+    edge and GQA; NaN in tiles wholly inside the hole or past kv_len is
+    never read; an fp32 q on the card raises."""
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(3, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(3, 256, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    segs = [torch.tensor(r, dtype=torch.int32, device=dev)
+            for r in ([10, 64, 32], [20, 64, 128], [25, 64, 200])]
+    n0 = t_sda.decode_attention.launches
+    got = t_sda.decode_attention(q, kc, vc, *segs)
+    assert t_sda.decode_attention.launches == n0 + 1
+    _close_rel(got, t_sda.reference_decode_attention(q, kc, vc, *segs))
+    kp, vp = kc.clone(), vc.clone()
+    for t in (kp, vp):
+        t[1, 64:] = float("nan")
+        t[2, 32:128] = float("nan")
+    assert torch.equal(t_sda.decode_attention(q, kp, vp, *segs), got)
+    with pytest.raises(ValueError):
+        t_sda.decode_attention(q.float(), kc, vc, *segs)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_kernel_on_card():
+    """B9 against its plain version at decode and prefill rows, with a
+    column count that is not a multiple of the 64-column tile; an fp32 x on
+    the card raises."""
+    from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = t_q4.quantize_int4(torch.randn(512, 208, generator=g, device=dev) * 0.05)
+    for m in (1, 40):
+        x = torch.randn(m, 512, generator=g, device=dev).to(torch.bfloat16)
+        n0 = t_q4.int4_matmul.launches
+        got = t_q4.int4_matmul(x, q["w4p"], q["s"])
+        assert t_q4.int4_matmul.launches == n0 + 1
+        _close_rel(got, t_q4.int4_matmul_reference(x, q["w4p"], q["s"]))
+    with pytest.raises(ValueError):
+        t_q4.int4_matmul(x.float(), q["w4p"], q["s"])
+
+
+@pytest.mark.parametrize("nmajor", [False, True])
+@pytest.mark.cuda
+def test_int8_matmul_kernels_on_card(nmajor):
+    """B11 (both layouts) against the plain version at decode and prefill
+    rows, its autograd dx against the fp32 product; an fp32 x on the card
+    raises."""
+    from paligemma_tpu_torch.kernels.ablation import quant_pallas as t_qp
+    from paligemma_tpu_torch.kernels.quant import quantize_int8
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn(256, 144, generator=g, device=dev) * 0.05
+    if nmajor:
+        q = t_qp.quantize_int8_nmajor(w)
+        w8, fn, ref, diff = (q["w8t"], t_qp.int8_matmul_nmajor, t_qp.int8_matmul_nmajor_reference,
+                             t_qp._int8_matmul_nmajor_diffable)
+        w8_kn = w8.T
+    else:
+        q = quantize_int8(w)
+        w8, fn, ref, diff = q["w8"], t_qp.int8_matmul, t_qp.int8_matmul_reference, \
+            t_qp._int8_matmul_diffable
+        w8_kn = w8
+    for m in (3, 70):
+        x = torch.randn(m, 256, generator=g, device=dev).to(torch.bfloat16)
+        n0 = fn.launches
+        got = fn(x, w8, q["s"])
+        assert fn.launches == n0 + 1
+        _close_rel(got, ref(x, w8, q["s"]))
+    xg = x.clone().requires_grad_(True)
+    gout = torch.randn(70, 144, generator=g, device=dev).to(torch.bfloat16)
+    diff(xg, w8, q["s"]).backward(gout)
+    _close_rel(xg.grad, (gout.float() * q["s"]) @ w8_kn.float().T)
+    with pytest.raises(ValueError):
+        fn(x.float(), w8, q["s"])

@@ -184,21 +184,26 @@ def test_sampled_generate_same_draws_at_any_sync():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port (the serving and training
-    modules included), runs a tiny CPU generate, a tiny paged serving run
-    and a training step, and never imports jax or any module of the JAX
+    """A fresh interpreter imports the port (the serving, training and
+    ablation modules included), runs a tiny CPU generate, a tiny paged
+    serving run, a training step, the tower with attn="fused" and the
+    ablation entry points, and never imports jax or any module of the JAX
     package."""
     code = textwrap.dedent("""
+        import dataclasses
         import sys
         import numpy as np
         import torch
         import paligemma_tpu_torch
-        from paligemma_tpu_torch.convert import init_params
+        from paligemma_tpu_torch.convert import init_params, init_vision_params
         from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
         from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
         from paligemma_tpu_torch.runtime.serving import Request, ServingEngine
         from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
         from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+        from paligemma_tpu_torch.kernels.ablation import (
+            decode_attention, quant4, quant_pallas, vision_attention)
+        from paligemma_tpu_torch.models import siglip
         torch.set_num_threads(1)
         cfg = paligemma_tpu_torch.tiny_test_config()
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -222,6 +227,20 @@ def test_port_runs_without_jax():
                               "token_type_ids": (np.arange(ids.shape[1]) >= n)[None].astype(np.int32),
                               "labels": ids})
         assert np.isfinite(loss), loss
+        vcfg = dataclasses.replace(cfg.vision_config, image_size=32, patch_size=2)
+        vp = init_vision_params(vcfg, torch.Generator().manual_seed(1), "cpu", torch.float32)
+        feats = siglip.encode(vp, vcfg, torch.zeros(1, 3, 32, 32), attn="fused")
+        assert feats.shape == (1, 256, vcfg.hidden_size), feats.shape
+        x = torch.randn(2, 128)
+        q4 = quant4.quantize_int4(torch.randn(128, 32))
+        assert quant4.int4_matmul(x, q4["w4p"], q4["s"]).shape == (2, 32)
+        q8 = quant_pallas.quantize_int8_nmajor(torch.randn(128, 32))
+        assert quant_pallas.int8_matmul_nmajor(x, q8["w8t"], q8["s"]).shape == (2, 32)
+        n = torch.tensor([5, 9])
+        out = decode_attention.decode_attention(torch.randn(2, 4, 16), torch.randn(2, 12, 2, 16),
+                                                torch.randn(2, 12, 2, 16), n, n, n)
+        assert out.shape == (2, 4, 16)
+        assert vision_attention.vision_attention.launches == 0
         assert "jax" not in sys.modules
         foreign = [m for m in sys.modules if m.split(".")[0] == "paligemma_tpu"]
         assert not foreign, foreign

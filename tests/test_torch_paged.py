@@ -67,7 +67,7 @@ def test_allocator_and_cache_follow_jax_on_random_sequence():
     tcfg = tiny_test_config().text_config
     jc = j_cache.PagedKVCache(tcfg, n_pages=24, page_size=16, max_slots=3, max_pages_per_slot=6)
     tc = t_cache.PagedKVCache(tcfg, n_pages=24, page_size=16, max_slots=3, max_pages_per_slot=6,
-                              dtype=torch.float32)
+                              dtype=torch.float32, device="cpu")
     assert tuple(tc.pool["k"].shape) == tuple(jc.pool["k"].shape)
     for _ in range(200):
         slot = int(rng.integers(0, 3))
@@ -115,7 +115,8 @@ def test_page_allocator_prefers_contiguous_runs():
 
 def test_paged_cache_grow_and_release():
     tcfg = tiny_test_config().text_config
-    c = t_cache.PagedKVCache(tcfg, n_pages=9, page_size=16, max_slots=2, max_pages_per_slot=4)
+    c = t_cache.PagedKVCache(tcfg, n_pages=9, page_size=16, max_slots=2, max_pages_per_slot=4,
+                             device="cpu")
     assert c.grow_to(0, 33) and len(c.slot_pages(0)) == 3
     assert c.grow_to(0, 40) and len(c.slot_pages(0)) == 3  # no-op
     assert c.grow_to(1, 16 * 4)
@@ -134,7 +135,8 @@ def test_paged_cache_borrowed_prefix():
     """Borrowed prefix pages fill the leading table entries, count toward
     growth, and stay with their owner when the slot is released."""
     tcfg = tiny_test_config().text_config
-    c = t_cache.PagedKVCache(tcfg, n_pages=12, page_size=16, max_slots=2, max_pages_per_slot=5)
+    c = t_cache.PagedKVCache(tcfg, n_pages=12, page_size=16, max_slots=2, max_pages_per_slot=5,
+                             device="cpu")
     shared = c.alloc.alloc(-2, 2)  # a prefix-cache entry's pages
     c.set_borrowed(0, shared)
     assert c.grow_to(0, 40)  # 3 pages: 2 borrowed + 1 owned
