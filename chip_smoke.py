@@ -1,7 +1,7 @@
 """GPU smoke run of paligemma_tpu_torch: build the hand-written Hopper
 kernels, check each against its plain PyTorch version at the shapes of the
 main paths, then drive PaliGemma-3B-224 (full widths, random weights from a
-seed, int8 decode tree) through its three main paths:
+seed, int8 decode tree) through its main paths:
 
 * the int8 greedy inference path, PaliGemmaEngine.generate, held against
   the plain path;
@@ -11,6 +11,11 @@ seed, int8 decode tree) through its three main paths:
   page walk agrees with its fused chain, sampled neighbours leave the
   greedy rows' tokens unchanged, and a request that fills its cache to the
   last position leaves its neighbour's tokens unchanged;
+* multi-LoRA serving: a bank of 3 adapters over the same requests, each
+  under its own adapter or the base model, through the dense and paged
+  kernel ticks (the LoRA shrink kernel and the GEMV's LoRA epilogue) and
+  the plain tick, held against each other and against an engine without
+  a bank;
 * single-GPU LoRA training, Trainer.train_step at full width and depth
   (B=2, S=512, remat): the flash kernels' forward and backward against the
   plain attention path on the first step, the loss falling over 8 steps,
@@ -21,8 +26,8 @@ seed, int8 decode tree) through its three main paths:
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
 ``launches`` summed over the counted runs of the paths (the served runs
-(a)-(e) and the 8 training steps; each run's counts are zeroed just before
-it and read just after), its error against its plain version, its time,
+(a)-(e), the multi-LoRA runs and the 8 training steps; each run's counts
+are zeroed just before it and read just after), its error against its plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
 operations / 989 TFLOP/s at the timed shapes). Then the card's name and
@@ -73,11 +78,11 @@ ABLATION_KERNELS = ("vision_attention", "seg_decode_attention", "int4_matmul", "
 # the serving engines' kernels: (must launch, must not launch, once per layer
 # and tick); the dense tick is the generate chain, the paged fused tick the
 # same chain with kernels B and A, the page walk kernel A with torch ops
-DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged") + TP_KERNELS,
-              ("decode_attention", "rope_kv_write"))
+DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged", "lora_shrink")
+              + TP_KERNELS, ("decode_attention", "rope_kv_write"))
 PAGED_FUSED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "head_argmax",
                      "paged_decode_attention", "rope_kv_write_paged"),
-                    ("decode_attention", "rope_kv_write") + TP_KERNELS,
+                    ("decode_attention", "rope_kv_write", "lora_shrink") + TP_KERNELS,
                     ("paged_decode_attention", "rope_kv_write_paged"))
 # sampled ticks take the int8 GEMV head, so a mixed run need not reach the
 # argmax head kernel
@@ -86,18 +91,24 @@ PAGED_MIXED_TICK = (tuple(k for k in PAGED_FUSED_TICK[0] if k != "head_argmax"),
 PAGE_WALK_TICK = (("flash_attention_fwd", "paged_decode_attention"),
                   ("decode_attention", "rope_kv_write", "rope_kv_write_paged") + TP_KERNELS,
                   ("paged_decode_attention",))
+# the multi-LoRA tick adds lora_shrink (kernels/lora) four times per layer
+# (qkv, o, gate|up, down); no run without a bank launches it
+LORA_KERNELS = ("lora_shrink",)
+LORA_SHRINKS_PER_LAYER = 4
 # the tensor-parallel ticks at world size 1 (run (b)): the dense TP tick is
 # B7 (its chain counts rms_norm, int8_gemv, rope_kv_write, decode_attention
 # and int8_gemv_f32 each) and B7b per layer, then the vocab-shard argmax
 # head; the paged TP tick is B8 and B7b per layer, then the gathered int8
 # GEMV head
 TP_DENSE_TICK = (GENERATE_KERNELS + ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp"),
-                 ("paged_decode_attention", "rope_kv_write_paged", "attn_decode_paged_tp"),
+                 ("paged_decode_attention", "rope_kv_write_paged", "attn_decode_paged_tp",
+                  "lora_shrink"),
                  ("attn_decode_tp", "mlp_decode_fused", "decode_attention", "rope_kv_write"))
 TP_PAGED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "paged_decode_attention",
                   "rope_kv_write_paged", "int8_gemv_f32", "mlp_decode_fused",
                   "attn_decode_paged_tp"),
-                 ("decode_attention", "rope_kv_write", "attn_decode_tp", "head_argmax"),
+                 ("decode_attention", "rope_kv_write", "attn_decode_tp", "head_argmax",
+                  "lora_shrink"),
                  ("attn_decode_paged_tp", "mlp_decode_fused", "paged_decode_attention",
                   "rope_kv_write_paged"))
 # host-side profiler rows of the collectives (c10d's dispatch and NCCL's own
@@ -124,6 +135,23 @@ SMALL_POOL = 44
 # budget is capped at submit (68 tokens), beside a 260-token prompt that
 # decodes 100 tokens
 FILL_SEQ = 384
+# multilora phase: 3 adapters of rank 8, alpha 8, on q/k/v/o/gate/up/down
+# (the reference's fine-tune recipe, cli/finetune.py), fp32 as init_lora
+# makes them, with seeded nonzero B (a trained adapter, not init's B = 0);
+# the serving phase's 12 requests take [base, a, b, c] in turn. The random
+# 3B model repeats one token with a wide margin: B of std 0.05 (each delta
+# ~14 % of its base projection's norm, a fine-tune's size) changed no token
+# on an H100, so the served bank's B has std 0.5 (deltas ~1.4x the base),
+# for every adapter to move tokens. The kernel tick rounds the adapter
+# basis z to bf16 where the TPU kernel does, the plain tick keeps it in
+# fp32 as JAX's XLA path does (with fp32 activations the two compute the
+# same function, tests/test_torch_multilora.py
+# test_kernel_tick_equals_plain_tick_in_fp32); at 1.4x deltas that rounding alone moves the teacher-forced logits by
+# 6.6e-2 of the largest on an H100, so the logit gate runs a bank of the
+# fine-tune's size (B std 0.05) and the large bank's reading is printed
+LORA_RANK, LORA_ALPHA, LORA_B_STD, LORA_B_STD_GATE = 8, 8.0, 0.5, 0.05
+LORA_NAMES = ("a", "b", "c")
+CASE_LAYER = 5  # the layer of the kernel cases
 # ablation phase (B9, B11): Gemma-2B's four projections of one layer at
 # decode rows (1, 8), the TTFT prompt's prefill (266) and the training batch
 # (B2 x S512 = 1024)
@@ -386,13 +414,18 @@ def kernel_phase(report: KernelReport, dev):
             sync()
             label = f"{name} B{b} {k}->{n}"
             report.case("int8_gemv", label, got, want, 1e-2)
-            # ms in the JSON: one layer's four GEMVs at B=1 (head apart)
+            # ms in the JSON: one layer's four GEMVs at B=1 (head apart),
+            # beside torch's int8 weight-only matmul on the N-major copy with
+            # bf16 scales (the product alone, without the epilogue)
             if b == 1 and name != "head":
+                w8t, s_bf = w8.t().contiguous(), s.to(torch.bfloat16)
                 report.time("int8_gemv", label, lambda: gv.int8_gemv(x, w8, s, **args),
                             lambda: gv.int8_gemv_reference(x, w8, s, **args),
                             flops=2 * b * k * n,
                             n_bytes=nbytes(x, w8, s, got,
-                                           *[t for t in args.values() if torch.is_tensor(t)]))
+                                           *[t for t in args.values() if torch.is_tensor(t)]),
+                            library_fn=lambda: torch._weight_int8pack_mm(x, w8t, s_bf))
+                del w8t
             elif b == 1:
                 k_ms, p_ms = timed_pair(lambda: gv.int8_gemv(x, w8, s),
                                         lambda: gv.int8_gemv_reference(x, w8, s), 5)
@@ -806,11 +839,12 @@ def ablation_phase(report: KernelReport, dev, card):
     and int8_matmul_nmajor) against their plain versions at PaliGemma-3B's
     widths, timed beside one PyTorch call where one computes the same
     function; then their counted runs through their own entry points:
-    siglip.encode(attn="fused") on the 224 and 448 px towers (27 layers,
+    siglip.encode(attn="fused") on the 224, 448 and 896 px towers (27 layers,
     random bf16 weights; exactly one B12 launch per layer, features held
     against attn="xla"), and one call per decode case, projection and row
     count. Returns the counted runs' launches."""
     from paligemma_tpu_torch import kernels, paligemma_3b_224, paligemma_3b_448
+    from paligemma_tpu_torch.core.config import paligemma_3b_896
     from paligemma_tpu_torch.convert import init_vision_params
     from paligemma_tpu_torch.kernels.ablation import decode_attention as sda
     from paligemma_tpu_torch.kernels.ablation import quant4 as q4
@@ -824,7 +858,8 @@ def ablation_phase(report: KernelReport, dev, card):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     print("kernels: vision_attention (B12; SigLIP-So400m H16 D72)", flush=True)
-    for label, s in (("224px B1 S256 H16 D72", 256), ("448px B1 S1024 H16 D72", 1024)):
+    for label, s in (("224px B1 S256 H16 D72", 256), ("448px B1 S1024 H16 D72", 1024),
+                     ("896px B1 S4096 H16 D72", 4096)):
         q, k, v = bf(1, s, 16, 72), bf(1, s, 16, 72), bf(1, s, 16, 72)
         got = va.vision_attention(q, k, v)
         want = va.vision_attention_reference(q, k, v, 72**-0.5)
@@ -835,14 +870,6 @@ def ablation_phase(report: KernelReport, dev, card):
                     lambda: va.vision_attention_reference(q, k, v, 72**-0.5),
                     flops=4 * s * s * 72 * 16, n_bytes=nbytes(q, k, v, got),
                     library_fn=lambda: F.scaled_dot_product_attention(*sdpa))
-    big = bf(1, 4096, 16, 72)
-    try:
-        va.vision_attention(big, big, big)
-    except ValueError as e:
-        print(f"  {'vision_attention':20s} {'896px S4096 H16 D72 raises':44s} {e}", flush=True)
-    else:
-        raise AssertionError("vision_attention: S 4096 must raise (shared memory), not run")
-    del big
 
     # rows: contiguous to the cache's end, kv_len at 32-key tile edges (64,
     # 1024), holes (row 3's [256, 640) and the rows past kv_len are whole
@@ -946,10 +973,11 @@ def ablation_phase(report: KernelReport, dev, card):
     del x, gout
 
     # the counted runs: each kernel through its entry point
-    cfg224, cfg448 = paligemma_3b_224().vision_config, paligemma_3b_448().vision_config
     towers = {}
     counts = {}
-    for label, vcfg in (("224px", cfg224), ("448px", cfg448)):
+    for label, vcfg in (("224px", paligemma_3b_224().vision_config),
+                        ("448px", paligemma_3b_448().vision_config),
+                        ("896px", paligemma_3b_896().vision_config)):
         vp = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
                                 torch.bfloat16)
         px = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
@@ -1005,12 +1033,13 @@ def ablation_phase(report: KernelReport, dev, card):
 
     # device times (the back-to-back times above are the host's launch rate
     # for the small calls): one call of each kernel at the JSON line's shapes
-    qv = [bf(1, s, 16, 72) for s in (256, 1024) for _ in range(3)]
+    qv = [bf(1, s, 16, 72) for s in (256, 1024, 4096) for _ in range(3)]
     q, kc, vc, segs = seg_cases[0]
 
     def one_each():
         va.vision_attention(*qv[:3])
-        va.vision_attention(*qv[3:])
+        va.vision_attention(*qv[3:6])
+        va.vision_attention(*qv[6:])
         sda.decode_attention(q, kc, vc, *segs)
         for name, k, n, w4p, s4, w8, w8t, s8 in proj:
             x = bf(1, k)
@@ -1019,7 +1048,8 @@ def ablation_phase(report: KernelReport, dev, card):
             qp.int8_matmul_nmajor(x, w8t, s8)
 
     one_each()
-    _profile("ablation kernels: B12 S256 + S1024, B10 B1 W2048, B9 / B11 x 4 projections M1",
+    _profile("ablation kernels: B12 S256 + S1024 + S4096, B10 B1 W2048, B9 / B11 x 4 "
+             "projections M1",
              one_each, 1, card, top=16, unit="round")
     del proj, seg_cases, qv
 
@@ -1393,7 +1423,7 @@ def serving_phase(params, decode, cfg, dev, card):
     print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
           flush=True)
     missing = [k for k, v in total.items()
-               if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS]
+               if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS + LORA_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -1424,6 +1454,306 @@ def serving_phase(params, decode, cfg, dev, card):
               f"aggregate (all tokens / run wall {wall:.2f} s), TTFT p50 {ttft:.1f} ms  "
               f"[{card}]", flush=True)
     return total, tok_d, tok_a
+
+
+def lora_bank_adapters(cfg, dev, b_std):
+    """LORA_NAMES adapters from init_lora (seeded), each with a seeded
+    nonzero B of std ``b_std``."""
+    from paligemma_tpu_torch.train.lora import init_lora
+
+    out = {}
+    for i, name in enumerate(LORA_NAMES):
+        g = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
+        ad = init_lora(g, cfg.text_config, rank=LORA_RANK, alpha=LORA_ALPHA)
+        for p in ad["layers"].values():
+            p["b"] = torch.randn(p["b"].shape, generator=g, device=dev) * b_std
+        out[name] = ad
+    return out
+
+
+def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
+    """lora_shrink and int8_gemv's LoRA epilogue against their plain
+    versions at one layer's shapes (B = 1 and 8 rows, the fp32 bank and a
+    bf16 copy); the epilogue with base rows only (a delta of exactly 0)
+    bit-equal to the epilogue without LoRA; then the times of one layer's
+    four groups, shrink and GEMV with and without the expand."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    tc = cfg.text_config
+    nq, hd, inter = tc.num_attention_heads * tc.head_dim, tc.head_dim, tc.intermediate_size
+    lay = decode["lm"]["layers"]
+    g_cols, rank = pack["o_b"].shape[1], pack["rank"]
+    groups = (("qkv", lay["attn"]["qkv"], (nq, nq + hd), {}),
+              ("o", lay["attn"]["o"], (), {"residual": True}),
+              ("gu", lay["mlp"]["gateup"], (inter,), {"geglu": True}),
+              ("down", lay["mlp"]["down"], (), {"residual": True}))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    print(f"kernels: lora_shrink + int8_gemv LoRA epilogue ({len(LORA_NAMES)} adapters, rank "
+          f"{rank}, G {g_cols}; Gemma-2B layer {CASE_LAYER})", flush=True)
+    layer_ms = {}
+    for b in (1, 8):
+        ids = torch.arange(b, device=dev, dtype=torch.int32) % (len(LORA_NAMES) + 1)
+        base_ids = torch.zeros_like(ids)
+        for name, leaf, bounds, kw in groups:
+            w8, sc = leaf["w8"][CASE_LAYER], leaf["s"][CASE_LAYER]
+            k = w8.shape[0]
+            x = (torch.randn(b, k, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            res = None
+            if kw.get("residual"):
+                res = torch.randn(b, w8.shape[1], generator=gen, device=dev).to(torch.bfloat16)
+            gkw = {"residual": res} if res is not None else dict(kw)
+            for dtype in (torch.float32, torch.bfloat16):
+                a = pack[name + "_a"][CASE_LAYER].to(dtype).contiguous()
+                lb = pack[name + "_b"][CASE_LAYER].to(dtype).contiguous()
+                tag = f"{name} B{b} K{k} nG{a.shape[1]} {'fp32' if dtype == torch.float32 else 'bf16'}"
+                z = kl.lora_shrink(x, a, ids, rank, g_cols)
+                zp = kl.lora_shrink_reference(x, a, ids, rank, g_cols)
+                sync()
+                report.case("lora_shrink", tag, z, zp, 1e-2)
+                got = gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw)
+                want = gv.int8_gemv_reference(x, w8, sc, lora=(zp, lb, bounds), **gkw)
+                sync()
+                report.case("int8_gemv", f"{name} B{b} LoRA epilogue "
+                            f"{'fp32' if dtype == torch.float32 else 'bf16'} B", got, want, 1e-2)
+            z0 = kl.lora_shrink(x, pack[name + "_a"][CASE_LAYER], base_ids, rank, g_cols)
+            same = (not z0.any() and torch.equal(
+                gv.int8_gemv(x, w8, sc, lora=(z0, pack[name + "_b"][CASE_LAYER], bounds), **gkw),
+                gv.int8_gemv(x, w8, sc, **gkw)))
+            print(f"  {'int8_gemv':20s} {name + f' B{b} base rows: LoRA == no LoRA':44s} "
+                  f"torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise AssertionError(f"int8_gemv {name}: a zero delta changed the epilogue's bits")
+            if b != 8:
+                continue
+            # times at the serving shape (8 rows, the fp32 bank)
+            a, lb = pack[name + "_a"][CASE_LAYER], pack[name + "_b"][CASE_LAYER]
+            z = kl.lora_shrink(x, a, ids, rank, g_cols)
+            t_s = report.time("lora_shrink", f"{name} B8 K{k} nG{a.shape[1]} fp32",
+                              lambda: kl.lora_shrink(x, a, ids, rank, g_cols),
+                              lambda: kl.lora_shrink_reference(x, a, ids, rank, g_cols),
+                              flops=2 * b * k * a.shape[1], n_bytes=nbytes(x, a, ids, z))
+            out = gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw)
+            t_e = report.time("int8_gemv", f"{name} B8 + LoRA expand epilogue",
+                              lambda: gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw),
+                              lambda: gv.int8_gemv_reference(x, w8, sc, lora=(z, lb, bounds),
+                                                             **gkw),
+                              flops=2 * b * (k * w8.shape[1] + lb.numel()),
+                              n_bytes=nbytes(x, w8, sc, z, lb, out)
+                              + (nbytes(res) if res is not None else 0), in_json=False)
+            t_0 = report.time("int8_gemv", f"{name} B8 without LoRA",
+                              lambda: gv.int8_gemv(x, w8, sc, **gkw),
+                              lambda: gv.int8_gemv_reference(x, w8, sc, **gkw),
+                              flops=2 * b * k * w8.shape[1],
+                              n_bytes=nbytes(x, w8, sc, out)
+                              + (nbytes(res) if res is not None else 0), in_json=False)
+            for key, t in (("shrink", t_s), ("gemv+expand", t_e), ("gemv", t_0)):
+                acc = layer_ms.setdefault(key, [0.0, 0.0, 0.0])
+                acc[0], acc[1], acc[2] = acc[0] + t[0], acc[1] + t[1], acc[2] + t[3]
+    sk, sp, sb = layer_ms["shrink"]
+    ek, ep, eb = layer_ms["gemv+expand"]
+    bk, bp, bb = layer_ms["gemv"]
+    print(f"  lora: one layer B8, 4 groups: shrink {sk:.4f} ms (plain {sp:.4f}, bound {sb:.4f}); "
+          f"GEMVs with the expand {ek:.4f} ms (plain {ep:.4f}, bound {eb:.4f}) vs without "
+          f"{bk:.4f} ms (bound {bb:.4f}); LoRA chain {sk + ek:.4f} ms, bound {sb + eb:.4f} ms",
+          flush=True)
+
+
+def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, paligemma):
+    """Prefill one adapter request with the bank, then feed it its tokens
+    through the kernel tick (the chain with the bank's kernel operands) and
+    the plain tick (the bank through torch projections) from two copies of
+    the cache; returns the largest logit difference relative to the
+    largest plain logit."""
+    n = len(req.input_ids)
+    bucket = -(-n // PAGE) * PAGE
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = req.input_ids
+    mask = np.zeros((1, bucket), np.int32)
+    mask[0, :n] = 1
+    aid = torch.tensor([eng_k._lora_index[req.lora]], dtype=torch.int32, device=dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, dev)
+    _, cache1 = paligemma.prefill(params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
+                                  torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                                  cache1, use_flash=True, last_only=True, lora=eng_k.lora_bank,
+                                  adapter_ids=aid)
+    max_seq = SERVE["max_seq_len"]
+    caches = []
+    for _ in range(2):
+        c = gemma.init_kv_cache(cfg.text_config, 1, max_seq, torch.bfloat16, dev)
+        for name in ("k", "v"):
+            c[name][:, :, :bucket] = cache1[name]
+        caches.append(c)
+    valid = torch.zeros((1, max_seq), dtype=torch.bool, device=dev)
+    valid[0, :n] = True
+    worst = 0.0
+    for t, tok in enumerate(tokens[:-1]):
+        tok = torch.tensor([tok], device=dev)
+        pos = torch.tensor([n + t], dtype=torch.int32, device=dev)
+        valid[0, n + t] = True
+        kw = dict(cache_pos=pos, kv_valid=valid, position_ids=pos + 1, adapter_ids=aid)
+        lk, _ = paligemma.decode_step(eng_k.decode_params, cfg, tok, caches[0],
+                                      fused_layer=True, lora=eng_k._lora_arg(), **kw)
+        lp, _ = paligemma.decode_step(eng_p.decode_params, cfg, tok, caches[1],
+                                      fused_layer=False, lora=eng_p._lora_arg(), **kw)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"multilora teacher forcing step {t}: non-finite logits")
+        worst = max(worst, float((lk - lp).abs().max()) / float(lp.abs().max()))
+    return worst
+
+
+def multilora_phase(report: KernelReport, params, decode, cfg, dev, card):
+    """Multi-LoRA serving at full width: a bank of 3 adapters (rank 8, all
+    seven targets, fp32) served by the dense engine's kernel tick, the
+    paged engine's fused tick and the plain tick, the serving phase's 12
+    requests taking [base, a, b, c] in turn. Gates: the kernels against
+    their plain versions; base rows equal an engine with no bank; dense ==
+    paged; an adapter row's teacher-forced logits, kernel tick vs plain
+    tick; every adapter changes some tokens; 4 lora_shrink launches per
+    layer and tick. Returns the launch counts of the served runs."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    Paged = _recording_engine()
+    vocab = cfg.vocab_size
+    n_layers = cfg.text_config.num_hidden_layers
+    adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
+    names = [None, *LORA_NAMES]
+
+    def requests():
+        reqs = serving_requests(cfg)
+        for r in reqs:
+            r.lora = names[r.request_id % len(names)]
+        return reqs
+
+    def dense(**kw):
+        return ServingEngine(params, cfg, decode_params=decode, **SERVE, **kw)
+
+    def paged(**kw):
+        return Paged(params, cfg, decode_params=decode, page_size=PAGE, n_pages=FULL_POOL,
+                     **SERVE, **kw)
+
+    eng_d = dense(lora_bank=adapters)
+    if not (eng_d.fused_decode and eng_d._lora_fused_pack is not None):
+        raise AssertionError("multilora: the dense engine did not take the kernel tick")
+    pack = eng_d._lora_fused_pack
+    lora_kernel_cases(report, pack, eng_d.decode_params, cfg, dev)
+
+    # the adapters' size against the base projections (layer 0, 8 rows)
+    tc = cfg.text_config
+    nq, hd, inter = tc.num_attention_heads * tc.head_dim, tc.head_dim, tc.intermediate_size
+    lay = eng_d.decode_params["lm"]["layers"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    ids = torch.ones(8, dtype=torch.int32, device=dev)
+    ratios = []
+    for name, leaf, bounds in (("qkv", lay["attn"]["qkv"], (nq, nq + hd)),
+                               ("o", lay["attn"]["o"], ()),
+                               ("gu", lay["mlp"]["gateup"], (inter,)),
+                               ("down", lay["mlp"]["down"], ())):
+        x = torch.randn(8, leaf["w8"].shape[-2], generator=gen, device=dev).to(torch.bfloat16)
+        z = kl.lora_shrink_reference(x, pack[name + "_a"][0], ids, pack["rank"],
+                                     pack["o_b"].shape[1])
+        delta = gv.lora_expand_reference(z, pack[name + "_b"][0], bounds, torch.bfloat16)
+        base = (x.float() @ leaf["w8"][0].float()) * leaf["s"][0]
+        ratios.append(f"{name} {float(delta.norm() / base.norm()):.3f}")
+    print(f"multilora: adapter 'a' delta / base projection norm, layer 0: {', '.join(ratios)}",
+          flush=True)
+
+    total: dict = {}
+
+    def served(label, eng, tick_kernels, per_tick_attn, reqs=None):
+        (toks, wall, ttft), counts = _served(label, eng, reqs or requests(), vocab, n_layers,
+                                             tick_kernels)
+        if per_tick_attn is not None:
+            want = LORA_SHRINKS_PER_LAYER * counts[per_tick_attn]
+            if counts["lora_shrink"] != want:
+                raise AssertionError(f"multilora {label}: {counts['lora_shrink']} lora_shrink "
+                                     f"launches, want {LORA_SHRINKS_PER_LAYER} per layer and "
+                                     f"tick ({want})")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return toks, wall, ttft
+
+    # warm-up (first calls of the new shapes) off the clock
+    for make in (lambda: dense(lora_bank=adapters),
+                 lambda: paged(paged_kernel="fused", lora_bank=adapters)):
+        warm = requests()[:2]
+        for r in warm:
+            r.max_new_tokens = 9
+        _serve(make(), warm, vocab)
+
+    dense_lora = (DENSE_TICK[0] + LORA_KERNELS, DENSE_TICK[1][:2] + TP_KERNELS, DENSE_TICK[2])
+    paged_lora = (PAGED_FUSED_TICK[0] + LORA_KERNELS, PAGED_FUSED_TICK[1][:2] + TP_KERNELS,
+                  PAGED_FUSED_TICK[2])
+    tok_d, wall_d, ttft_d = served("multilora dense", eng_d, dense_lora, "decode_attention")
+    eng_p = paged(paged_kernel="fused", lora_bank=adapters)
+    tok_p, wall_p, ttft_p = served("multilora paged fused", eng_p, paged_lora,
+                                   "paged_decode_attention")
+    eng_x = dense(lora_bank=adapters, fused_decode=False, use_flash=False)
+    tok_x, wall_x, ttft_x = served("multilora plain", eng_x, None, None)
+    # the same requests without adapter names, on an engine without a bank
+    tok_0, wall_0, ttft_0 = served("no bank, dense", dense(), DENSE_TICK, None,
+                                   serving_requests(cfg))
+
+    n_tok = sum(map(len, tok_d.values()))
+    differ = [i for i in tok_d if tok_d[i] != tok_p[i]]
+    base_rows = [i for i in tok_d if names[i % len(names)] is None]
+    base_off = [i for i in base_rows if tok_d[i] != tok_0[i]]
+    moved = {n: sum(tok_d[i] != tok_0[i] for i in tok_d if names[i % len(names)] == n)
+             for n in LORA_NAMES}
+    agree = sum(x == y for i in tok_d for x, y in zip(tok_d[i], tok_x[i]))
+    print(f"multilora: dense vs paged(fused) with the bank: {N_REQ - len(differ)}/{N_REQ} "
+          f"requests with identical tokens ({n_tok} tokens); base rows {base_rows} equal to "
+          f"the engine without a bank: {len(base_rows) - len(base_off)}/{len(base_rows)}; "
+          f"requests changed by each adapter: {json.dumps(moved)}; plain tick tokens agreeing "
+          f"with the kernel tick: {agree}/{n_tok}", flush=True)
+    if differ:
+        raise AssertionError(f"multilora: requests {differ} differ between dense and paged")
+    if base_off:
+        raise AssertionError(f"multilora: base rows {base_off} differ from the engine without "
+                             "a bank")
+    if not all(moved.values()):
+        raise AssertionError(f"multilora: an adapter changed no request's tokens: {moved}")
+    req = requests()[1]
+    big = _teacher_force_lora(params, eng_d, eng_x, cfg, dev, req, tok_d[1], gemma, paligemma)
+    gate_bank = lora_bank_adapters(cfg, dev, LORA_B_STD_GATE)
+    worst = _teacher_force_lora(params, dense(lora_bank=gate_bank),
+                                dense(lora_bank=gate_bank, fused_decode=False, use_flash=False),
+                                cfg, dev, req, tok_d[1], gemma, paligemma)
+    ok = worst <= LOGIT_REL_TOL
+    print(f"multilora: teacher-forced request 1 (adapter {req.lora!r}, {len(tok_d[1])} tokens), "
+          f"kernel tick vs plain tick logits: max rel err {worst:.3e} with B std "
+          f"{LORA_B_STD_GATE} (tol {LOGIT_REL_TOL})  {'ok' if ok else 'FAIL'}; {big:.3e} with "
+          f"the served bank's B std {LORA_B_STD} (not gated)", flush=True)
+    if not ok:
+        raise AssertionError(f"multilora: kernel vs plain tick logits rel err {worst}")
+
+    # no host synchronization inside a window, and the device time per tick
+    # with the bank and without it (8 live rows, greedy)
+    engines = {"dense + bank": dense(lora_bank=adapters), "dense": dense(),
+               "paged fused + bank": paged(paged_kernel="fused", lora_bank=adapters),
+               "paged fused": paged(paged_kernel="fused")}
+    for name, eng in engines.items():
+        for r in (requests() if eng.lora_bank is not None else serving_requests(cfg))[:8]:
+            r.max_new_tokens = 64
+            eng.submit(r)
+        eng.step()
+        _window_without_sync(eng)
+    print(f"multilora: no host synchronization inside a decode window: {', '.join(engines)}",
+          flush=True)
+    for name, eng in engines.items():
+        _profile(f"multilora {name} greedy window B8, {SERVE['sync_every']} ticks", eng.step,
+                 SERVE["sync_every"], card)
+    for name, toks, wall, ttft in (("dense + bank", tok_d, wall_d, ttft_d),
+                                   ("paged + bank", tok_p, wall_p, ttft_p),
+                                   ("plain + bank", tok_x, wall_x, ttft_x),
+                                   ("dense, no bank", tok_0, wall_0, ttft_0)):
+        print(f"multilora: {name:14s} {N_REQ} requests, 8 slots: "
+              f"{sum(map(len, toks.values())) / wall:.1f} tok/s aggregate (run wall {wall:.2f} s), "
+              f"TTFT p50 {ttft:.1f} ms  [{card}]", flush=True)
+    return total
 
 
 def _window_without_sync(eng):
@@ -2047,6 +2377,10 @@ def main() -> int:
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    lora_counts = multilora_phase(report, params, decode, cfg, dev, card)
+    torch.cuda.empty_cache()
+    print(f"multilora: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     tp_counts = tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_paged)
     del decode
     torch.cuda.empty_cache()
@@ -2055,7 +2389,8 @@ def main() -> int:
     t0 = time.perf_counter()
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = {k: sum(c.get(k, 0) for c in (counts, tp_counts, train_counts, ablation_counts))
+    counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
+                                           ablation_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -2084,6 +2419,10 @@ def main() -> int:
                                     "paligemma_tpu/kernels/flash_attention.py:321"),
         "int8_gemv_f32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
                           "paligemma_tpu/kernels/decode_layer_tp.py:79"),
+        # the LoRA shrink of B2 / B4 with lora=True (its expand is in
+        # int8_gemv's epilogue)
+        "lora_shrink": ("cuda", "paligemma_tpu_torch/csrc/lora.cu",
+                        "paligemma_tpu/kernels/decode_layer.py:95"),
         # chains of the port's kernels (CUDA GEMVs and attention, Triton
         # norm and RoPE), each counted once per call
         "mlp_decode_fused": ("cuda", "paligemma_tpu_torch/kernels/decode_mlp.py",

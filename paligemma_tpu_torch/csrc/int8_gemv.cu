@@ -11,6 +11,24 @@
 //               g_j = column j, u_j = column I + j (fused gateup)
 //   out(B, N) = (x . w8) fp32 * s, written as fp32                mode 3
 //
+// Modes 0-2 have a second epilogue kernel with the LoRA expand
+// (pg_int8_gemv_epilogue_lora): the adapter delta of each row,
+// d(b, j) = sum_g z(b, zoff(j) + g) * B(g, j) in fp32, with z (B, nz) the
+// masked adapter basis of kernels/lora (csrc/lora.cu) and B (G, N) the
+// alpha-folded adapter rows, fp32 or bf16, each element rounded to bf16 as
+// the TPU kernel casts its operands. It is added where the TPU kernel
+// (paligemma_tpu/kernels/decode_layer.py _kernel_all, lora=True) adds it:
+//   mode 0 (qkv):     out = cast(cast(acc * s) + cast(d))
+//   mode 1 (o, down): out = cast(cast(residual + cast(acc * s)) + cast(d))
+//   mode 2 (gate/up): g = acc_g * s_g + d_g, u = acc_u * s_u + d_u in fp32,
+//                     before the GeGLU
+// A column reads only its own target's G rows of z: zoff(j) = G times the
+// number of target boundaries seg1 <= seg2 at or below j (q | k | v for
+// qkv, gate | up for gateup, one target for o and down). Each B element is
+// read once per 8 rows (it is staged in shared memory for a tile of 32
+// columns and 8 rows). The kernel without LoRA is untouched, so its bits
+// are what they were.
+//
 // Mode 3, the fp32 partial, serves the tensor-parallel decode: it replaces
 // the o-proj partial of paligemma_tpu/kernels/decode_layer_tp.py:_attn_kernel
 // and the down-proj partial of paligemma_tpu/kernels/decode_mlp.py:_kernel
@@ -102,5 +120,92 @@ PG_EXPORT int pg_int8_gemv_epilogue(const void* part, int nsplit, int B, int N, 
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   int8_gemv_epilogue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, out, mode);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The epilogue with the LoRA expand (modes 0-2). A block covers EL_TX
+// output columns and EL_TY rows, a thread one element; the tile's columns
+// of B are staged in shared memory EL_GC adapter rows at a time, so each B
+// element is read once per EL_TY rows.
+// ---------------------------------------------------------------------------
+#define EL_TX 32
+#define EL_TY 8
+#define EL_GC 64
+
+struct LoraExpand {
+  const bf16* z;   // (B, nz) masked adapter basis
+  const void* lb;  // (G, N) adapter rows, fp32 (lb_f32) or bf16
+  int lb_f32, G, nz, seg1, seg2;
+
+  // element (g, col) of B, rounded to bf16
+  __device__ __forceinline__ float b_at(int g, int col, int N) const {
+    const size_t at = (size_t)g * N + col;
+    return lb_f32 ? bf2f(f2bf(((const float*)lb)[at])) : bf2f(((const bf16*)lb)[at]);
+  }
+  // row b's G-wide block of z for output column col
+  __device__ __forceinline__ const bf16* z_block(int b, int col) const {
+    return z + (size_t)b * nz + G * ((col >= seg1) + (col >= seg2));
+  }
+};
+
+__global__ void __launch_bounds__(EL_TX* EL_TY)
+    int8_gemv_epilogue_lora_kernel(const float* __restrict__ part, int nsplit, int B, int N,
+                                   const float* __restrict__ s, const bf16* __restrict__ residual,
+                                   bf16* __restrict__ out, int mode, LoraExpand lora) {
+  __shared__ float bs[2][EL_GC][EL_TX];  // B of the tile's columns (and up columns)
+  const int n_out = mode == 2 ? N / 2 : N;
+  const int nt = mode == 2 ? 2 : 1;  // columns of w8 per output element
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * EL_TX + tx;
+  const int b = blockIdx.y * EL_TY + ty;
+  const bool live = j < n_out && b < B;
+  // the row's deltas at column j (and at up column n_out + j), summed over g in order
+  float d[2] = {0.f, 0.f};
+  for (int g0 = 0; g0 < lora.G; g0 += EL_GC) {
+    const int gn = min(EL_GC, lora.G - g0);
+    __syncthreads();  // the previous rows of B are no longer read
+    for (int i = ty; i < nt * gn; i += EL_TY) {
+      const int t = i / gn, g = i - t * gn;
+      bs[t][g][tx] = j < n_out ? lora.b_at(g0 + g, j + t * n_out, N) : 0.f;
+    }
+    __syncthreads();
+    if (live) {
+      for (int t = 0; t < nt; ++t) {
+        const bf16* zr = lora.z_block(b, j + t * n_out) + g0;
+        for (int g = 0; g < gn; ++g) d[t] = fmaf(bf2f(zr[g]), bs[t][g][tx], d[t]);
+      }
+    }
+  }
+  if (!live) return;
+  const size_t idx = (size_t)b * n_out + j;
+  float acc = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) acc += part[((size_t)sp * B + b) * N + j];
+  if (mode == 2) {
+    float up = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) up += part[((size_t)sp * B + b) * N + n_out + j];
+    // __fmul_rn: the product is rounded before the delta is added (no FMA
+    // contraction), as the TPU kernel adds them
+    const float g = __fmul_rn(acc, s[j]) + d[0];
+    const float u = __fmul_rn(up, s[n_out + j]) + d[1];
+    out[idx] = f2bf(gelu_tanh_f(g) * u);
+    return;
+  }
+  bf16 v = f2bf(acc * s[j]);
+  if (mode == 1) v = f2bf(bf2f(residual[idx]) + bf2f(v));
+  out[idx] = f2bf(bf2f(v) + bf2f(f2bf(d[0])));
+}
+
+// Modes 0-2 with the LoRA expand: z (B, nz) bf16, lb (G, N) fp32 or bf16,
+// column boundaries seg1 <= seg2 (N where there is none).
+PG_EXPORT int pg_int8_gemv_epilogue_lora(const void* part, int nsplit, int B, int N,
+                                         const void* s, const void* residual, void* out,
+                                         int mode, const void* z, const void* lb, int lb_f32,
+                                         int G, int nz, int seg1, int seg2, void* stream) {
+  const int n_out = mode == 2 ? N / 2 : N;
+  dim3 grid((n_out + EL_TX - 1) / EL_TX, (B + EL_TY - 1) / EL_TY);
+  int8_gemv_epilogue_lora_kernel<<<grid, dim3(EL_TX, EL_TY), 0, (cudaStream_t)stream>>>(
+      (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, (bf16*)out, mode,
+      LoraExpand{(const bf16*)z, lb, lb_f32, G, nz, seg1, seg2});
   return (int)cudaGetLastError();
 }

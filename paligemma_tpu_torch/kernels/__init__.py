@@ -19,6 +19,7 @@ from . import decode_layer_tp as _decode_layer_tp
 from . import decode_mlp as _decode_mlp
 from . import flash_attention as _flash_attention
 from . import int8_gemv as _int8_gemv
+from . import lora as _lora
 from . import paged_attention as _paged_attention
 from .ablation import decode_attention as _seg_attention
 from .ablation import quant4 as _quant4
@@ -41,6 +42,9 @@ WRAPPERS = {
     "mlp_decode_fused": _decode_mlp.mlp_decode_fused,
     "attn_decode_tp": _decode_layer_tp.attn_decode_tp,
     "attn_decode_paged_tp": _decode_layer_paged_tp.attn_decode_paged_tp,
+    # the multi-LoRA shrink of the decode chains (kernels/decode_layer,
+    # decode_layer_paged with lora_pack); its expand is int8_gemv's epilogue
+    "lora_shrink": _lora.lora_shrink,
     # the ablation shelf (kernels/ablation), reached through its own entry
     # points and siglip.encode(attn="fused")
     "vision_attention": _vision_attention.vision_attention,

@@ -50,6 +50,11 @@ SIGNATURES = {
     "pg_int8_gemv_partial": [_P] * 3 + [_I] * 4 + [_P],
     # part, nsplit, B, N, s, residual, out, mode, stream
     "pg_int8_gemv_epilogue": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    # part, nsplit, B, N, s, residual, out, mode, z, lb, lb_f32, G, nz, seg1,
+    # seg2, stream
+    "pg_int8_gemv_epilogue_lora": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
+    # x, a, a_f32, part, ids, z, B, K, NG, G, rank, k_chunk, stream
+    "pg_lora_shrink": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -59,8 +64,8 @@ SIGNATURES = {
     # y, w8, s, part_max, part_idx, ids, maxv, B, K, N, n_valid, k_chunk,
     # stream
     "pg_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
-    # q, k, v, out, B, S, H, D, scale, stream
-    "pg_vision_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # q, k, v, out, B, S, H, D, warps, scale, stream
+    "pg_vision_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k_cache, v_cache, seg0, seg1, kv_len, part_m, part_l, part_o, out, B,
     # Hq, Hkv, D, S, nsplit, scale, stream
     "pg_seg_attention": [_P] * 10 + [_I] * 6 + [_F, _P],

@@ -1,14 +1,16 @@
-"""One-shot softmax MHA for the SigLIP vision tower (port of
+"""Vision-tower MHA (port of
 paligemma_tpu/kernels/ablation/vision_attention.py); the kernel is
 ``csrc/vision_attention.cu``.
 
 Non-causal, unmasked attention over all S patches (256 at 224 px, 1024 at
-448 px, head_dim 72 for So400m), with the TPU kernel's arithmetic:
+448 px, 4096 at 896 px, head_dim 72 for So400m), with the TPU kernel's
+arithmetic:
 
     s = q k^T * scale (fp32),  p = exp(s - rowmax),  o = (p.astype(v) v) / rowsum(p)
 
-The kernel keeps 16 query rows' fp32 score rows in shared memory, so S is
-bounded by its 227 KB (S = 2048 fits, S = 4096 raises ``ValueError``).
+The plain version is that one-shot softmax. The kernel streams K and V with
+an online softmax (a running max and sum per row), so it holds no row of
+scores whole and takes any S the TPU kernel takes (a multiple of 128).
 """
 
 from __future__ import annotations
@@ -19,18 +21,18 @@ import torch
 
 from .. import _build
 
-ROWS_PER_BLOCK = 16  # csrc/vision_attention.cu VA_BQ
 MAX_HEAD_DIM = 128  # VA_DMAX
-# the kernel's static shared memory: Q and K/V tiles of VA_LD = 136 bf16 per
-# row, and the 16 row sums
-_STATIC_SMEM = 2 * (ROWS_PER_BLOCK + 64) * (MAX_HEAD_DIM + 8) + 4 * ROWS_PER_BLOCK
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 MAX_GRID_YZ = 65535
+TARGET_BLOCKS = 132  # one block per SM of an H100
 
 
-def _smem_bytes(s: int, d: int) -> int:
-    """Shared memory of one block at (S, D): scores, partial outputs, tiles."""
-    return _STATIC_SMEM + 4 * (ROWS_PER_BLOCK * (s + 4) + 4 * ROWS_PER_BLOCK * d)
+def warps_per_block(b: int, s: int, h: int) -> int:
+    """16-row query groups per block: the most (up to 4, which share each
+    staged K/V tile) that still give every SM a block."""
+    for w in (4, 2):
+        if (s // (16 * w)) * h * b >= TARGET_BLOCKS:
+            return w
+    return 1
 
 
 def vision_attention_reference(q, k, v, scale: float) -> torch.Tensor:
@@ -54,8 +56,9 @@ def vision_attention(
 
     ``head_block`` is checked (it must divide H) for parity with the TPU
     kernel, whose grid step took that many heads; it does not change the
-    Hopper launch (one block per 16 query rows and head). S must be a
-    multiple of 128, as on the TPU: the tower never pads its patches."""
+    Hopper launch (one block per 16, 32 or 64 query rows and head). S must
+    be a multiple of 128, as on the TPU: the tower never pads its
+    patches."""
     b, s, h, d = q.shape
     if scale is None:
         scale = d**-0.5
@@ -76,14 +79,10 @@ def vision_attention(
     if d % 8 or d > MAX_HEAD_DIM or h > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"vision_attention: head_dim {d} must be a multiple of 8 <= "
                          f"{MAX_HEAD_DIM}, H and B <= {MAX_GRID_YZ}")
-    if _smem_bytes(s, d) > SMEM_LIMIT:
-        raise ValueError(f"vision_attention: S {s} at head_dim {d} needs {_smem_bytes(s, d)} "
-                         f"bytes of shared memory per block, above the {SMEM_LIMIT} an H100 "
-                         "block may use (the 16 score rows are held whole)")
     out = torch.empty_like(q)
     err = _build.library().pg_vision_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, float(scale),
-        _build.stream_ptr(dev))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+        warps_per_block(b, s, h), float(scale), _build.stream_ptr(dev))
     _build.check(err, "vision_attention")
     vision_attention.launches += 1
     return out

@@ -14,19 +14,29 @@ v_new (L,B,D))``. In this port ``rope_kv_write`` also writes each layer's
 fresh K/V rows into the cache in place (the TPU kernel leaves that to the
 caller), because the attention kernel reads the fresh token from the cache.
 
-Without the TPU kernel's merged-head and in-kernel LoRA operands: the greedy
-head runs as kernels/decode_head right after this function.
+With ``lora_pack`` (:func:`repack_lora_bank_fused`) and ``adapter_ids``
+each row decodes under its own adapter of a multi-LoRA bank, as in the TPU
+kernel: per target group a ``lora_shrink`` (kernels/lora) computes the
+row's masked adapter basis z = cast(y @ A_cat) * mask, and the GEMV of that
+projection adds z @ B in its epilogue (kernels/int8_gemv ``lora=``): q/k/v
+after the cast, o and down after the residual, gate and up in fp32 before
+the GeGLU; the down basis is summed over the whole intermediate dimension
+before its one cast. Four shrinks per layer.
+
+Without the TPU kernel's merged head: the greedy head runs as
+kernels/decode_head right after this function.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .decode_attention import MAX_BATCH, MAX_HEADS, decode_attention
 from .decode_elementwise import rms_norm, rope_kv_write
 from .int8_gemv import int8_gemv
+from .lora import block_mask, lora_shrink
 
 
 def supported(cfg, layers: Dict, batch: int) -> bool:
@@ -67,6 +77,81 @@ def repack_layers(layers: Dict) -> Dict:
     return layers
 
 
+def repack_lora_bank_fused(bank_layers: Dict, n_heads: int, head_dim: int, hidden: int,
+                           intermediate: int) -> Dict:
+    """Multi-LoRA bank (``train/lora.stack_lora_bank(...)["layers"]``, with
+    its concat basis a_cat (L, in, G) and alpha-folded b_cat (L, G, out),
+    G = (N+1)*r) -> the operands of the LoRA chain, per layer:
+
+      qkv_a (L, K, 3G)    q | k | v bases side by side
+      qkv_b (L, G, NQ2)   each column's own target rows: q rows in the q
+                          columns of the fused qkv output, k in k's, v in v's
+      o_a (L, NQ, G), o_b (L, G, K)
+      gu_a (L, K, 2G)     gate | up bases
+      gu_b (L, G, 2I)     gate rows in the gate columns of the fused
+                          gateup output, up rows in the up columns
+      down_a (L, I, G), down_b (L, G, K)
+
+    The TPU layout (decode_layer.py ``repack_lora_bank_fused``) differs
+    where its kernel differs: its qkv_b is block-diagonal (3G, NQ2) and its
+    gate/up/down blocks are chunk-major like its MLP weight chunks; here the
+    GEMV epilogue reads each column's own G rows, and the MLP is the fused
+    (K, 2I) gateup of the int8 tree. Missing targets become zeros (delta
+    0). G is padded to a multiple of 8, as in the TPU pack; the pad columns
+    map to block ids > N and are never selected. The bank's dtype is kept
+    (the kernels round each element to the activation dtype on load)."""
+    ref = next(iter(bank_layers.values()))
+    n_layers, _, g_true = ref["a_cat"].shape
+    g = -(-g_true // 8) * 8
+    nq = n_heads * head_dim
+    opts = dict(dtype=ref["a_cat"].dtype, device=ref["a_cat"].device)
+
+    def cat(name, in_dim):
+        if name in bank_layers:
+            return torch.nn.functional.pad(bank_layers[name]["a_cat"], (0, g - g_true))
+        return torch.zeros((n_layers, in_dim, g), **opts)
+
+    def bmat(name, out_dim):
+        if name in bank_layers:
+            return torch.nn.functional.pad(bank_layers[name]["b_cat"], (0, 0, 0, g - g_true))
+        return torch.zeros((n_layers, g, out_dim), **opts)
+
+    return {
+        "qkv_a": torch.cat([cat("q", hidden), cat("k", hidden), cat("v", hidden)], dim=-1),
+        "qkv_b": torch.cat([bmat("q", nq), bmat("k", head_dim), bmat("v", head_dim)], dim=-1),
+        "o_a": cat("o", nq).contiguous(),
+        "o_b": bmat("o", hidden).contiguous(),
+        "gu_a": torch.cat([cat("gate", hidden), cat("up", hidden)], dim=-1),
+        "gu_b": torch.cat([bmat("gate", intermediate), bmat("up", intermediate)], dim=-1),
+        "down_a": cat("down", intermediate).contiguous(),
+        "down_b": bmat("down", hidden).contiguous(),
+        "g_true": g_true,
+        "rank": ref["a"].shape[-1],
+    }
+
+
+def lora_row_masks(adapter_ids: torch.Tensor, g: int, rank: int, dtype: torch.dtype):
+    """(B,) adapter ids -> (mask1 (B, G), mask2 (B, 2G), mask3 (B, 3G)): 1
+    on the columns of the row's adapter block, 0 elsewhere (the TPU
+    kernel's masks; ``lora_shrink`` builds the same mask in its kernel)."""
+    return tuple(block_mask(adapter_ids, n * g, g, rank, dtype) for n in (1, 2, 3))
+
+
+def lora_gemv(x: torch.Tensor, leaf: Dict, l: int, pack: Optional[Dict], name: str,
+              adapter_ids: Optional[torch.Tensor], bounds: Sequence[int] = (),
+              **kw) -> torch.Tensor:
+    """``int8_gemv`` of layer ``l`` of ``leaf``, plus each row's adapter
+    delta of the ``name`` target group ("qkv", "o", "gu", "down") when
+    ``pack`` is given: the shrink of ``x`` against ``pack[name + "_a"]``,
+    then the expand in the GEMV's epilogue."""
+    lora = None
+    if pack is not None:
+        g = pack["o_b"].shape[1]
+        z = lora_shrink(x, pack[name + "_a"][l], adapter_ids, pack["rank"], g)
+        lora = (z, pack[name + "_b"][l], bounds)
+    return int8_gemv(x, leaf["w8"][l], leaf["s"][l], lora=lora, **kw)
+
+
 def layers_decode_fused(
     x: torch.Tensor,  # (B, 1, K)
     layers: Dict,  # stacked int8 serving tree (repack_layers)
@@ -80,9 +165,14 @@ def layers_decode_fused(
     n_heads: int,
     head_dim: int,
     eps: float,
+    lora_pack: Optional[Dict] = None,  # repack_lora_bank_fused() output
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All L layers for B lockstep rows. Returns (hidden (B,1,K),
-    k_new (L,B,D), v_new (L,B,D))."""
+    k_new (L,B,D), v_new (L,B,D)). With ``lora_pack`` and ``adapter_ids``
+    each row's adapter applies inside the chain (module docstring)."""
+    if (lora_pack is None) != (adapter_ids is None):
+        raise ValueError("layers_decode_fused: lora_pack and adapter_ids go together")
     b, _, k = x.shape
     n_layers = k_cache.shape[0]
     window = min(window, k_cache.shape[2])
@@ -95,15 +185,18 @@ def layers_decode_fused(
     k_new = torch.empty((n_layers, b, head_dim), dtype=k_cache.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
     h = x.reshape(b, k)
+    ids = None if adapter_ids is None else adapter_ids.to(torch.int32).contiguous()
+    nq = n_heads * head_dim
+    inter = mlp["gateup"]["w8"].shape[-1] // 2
     for l in range(n_layers):
         y = rms_norm(h, layers["input_norm"][l], eps)
-        qkv = int8_gemv(y, attn["qkv"]["w8"][l], attn["qkv"]["s"][l])
+        qkv = lora_gemv(y, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim))
         # writes this layer's fresh K/V rows into the cache (in place)
         q, _, _ = rope_kv_write(qkv, cos, sin, cache_pos, n_heads, k_cache[l],
                                 v_cache[l], k_new[l], v_new[l])
         a = decode_attention(q, k_cache[l], v_cache[l], kv_valid_window, scale)
-        h = int8_gemv(a, attn["o"]["w8"][l], attn["o"]["s"][l], residual=h)
+        h = lora_gemv(a, attn["o"], l, lora_pack, "o", ids, residual=h)
         y2 = rms_norm(h, layers["post_norm"][l], eps)
-        t = int8_gemv(y2, mlp["gateup"]["w8"][l], mlp["gateup"]["s"][l], geglu=True)
-        h = int8_gemv(t, mlp["down"]["w8"][l], mlp["down"]["s"][l], residual=h)
+        t = lora_gemv(y2, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True)
+        h = lora_gemv(t, mlp["down"], l, lora_pack, "down", ids, residual=h)
     return h.reshape(b, 1, k), k_new, v_new

@@ -19,6 +19,11 @@ chain also writes the fresh rows into the pool in place (the TPU kernel
 leaves that to its caller), because the attention kernel reads the fresh
 token from the pool. The pool has no per-layer copy and the chain keeps no
 window ring, so there is no window-size budget (the TPU's VMEM cap).
+
+``lora_pack`` / ``adapter_ids``: the in-kernel multi-LoRA operands of the
+TPU kernel (the same pack, kernels/decode_layer.repack_lora_bank_fused),
+applied as in the dense chain: four ``lora_shrink`` per layer, each
+expand in the epilogue of its projection's GEMV.
 """
 
 from __future__ import annotations
@@ -28,8 +33,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import decode_layer
+from .decode_layer import lora_gemv
 from .decode_elementwise import rms_norm, rope_kv_write_paged
-from .int8_gemv import int8_gemv
 from .paged_attention import paged_decode_attention
 from .paged_attention import supported as attention_supported
 
@@ -54,6 +59,8 @@ def layers_decode_fused_paged(
     head_dim: int,
     eps: float,
     pages_bucket: Optional[int] = None,  # logical pages attended (covers every pos)
+    lora_pack: Optional[Dict] = None,  # decode_layer.repack_lora_bank_fused() output
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All L layers for B lockstep rows. Returns (hidden (B,1,K),
     k_new (L,B,D), v_new (L,B,D)).
@@ -64,6 +71,8 @@ def layers_decode_fused_paged(
     into the garbage page. Every ``write_pos`` must lie below the table's
     width times the page size (the serving engines clamp stale positions to
     ``max_seq_len - 1``)."""
+    if (lora_pack is None) != (adapter_ids is None):
+        raise ValueError("layers_decode_fused_paged: lora_pack and adapter_ids go together")
     b, _, k = x.shape
     n_layers, _, ps, _ = k_pool.shape
     pb = min(pages_bucket or page_table.shape[1], page_table.shape[1])
@@ -79,15 +88,18 @@ def layers_decode_fused_paged(
     k_new = torch.empty((n_layers, b, head_dim), dtype=k_pool.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
     h = x.reshape(b, k)
+    ids = None if adapter_ids is None else adapter_ids.to(torch.int32).contiguous()
+    nq = n_heads * head_dim
+    inter = mlp["gateup"]["w8"].shape[-1] // 2
     for l in range(n_layers):
         y = rms_norm(h, layers["input_norm"][l], eps)
-        qkv = int8_gemv(y, attn["qkv"]["w8"][l], attn["qkv"]["s"][l])
+        qkv = lora_gemv(y, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim))
         # writes this layer's fresh K/V rows into their pool slots (in place)
         q, _, _ = rope_kv_write_paged(qkv, cos, sin, write_pos, n_heads, k_pool[l], v_pool[l],
                                       table, k_new[l], v_new[l])
         a = paged_decode_attention(q, k_pool5, v_pool5, window, kv_len, scale, layer_idx=l)
-        h = int8_gemv(a.reshape(b, -1), attn["o"]["w8"][l], attn["o"]["s"][l], residual=h)
+        h = lora_gemv(a.reshape(b, -1), attn["o"], l, lora_pack, "o", ids, residual=h)
         y2 = rms_norm(h, layers["post_norm"][l], eps)
-        t = int8_gemv(y2, mlp["gateup"]["w8"][l], mlp["gateup"]["s"][l], geglu=True)
-        h = int8_gemv(t, mlp["down"]["w8"][l], mlp["down"]["s"][l], residual=h)
+        t = lora_gemv(y2, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True)
+        h = lora_gemv(t, mlp["down"], l, lora_pack, "down", ids, residual=h)
     return h.reshape(b, 1, k), k_new, v_new

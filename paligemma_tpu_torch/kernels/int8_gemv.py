@@ -19,11 +19,22 @@ launches are counted apart from the bf16 epilogues'.
 
 The GeGLU epilogue works on the fp32 gate and up values, as the TPU kernel
 does (its XLA path rounds both to the activation dtype first).
+
+``lora=(z, b, bounds)`` adds each row's LoRA delta in the epilogue (the
+expand of the TPU kernel's in-kernel multi-LoRA, decode_layer.py
+``_kernel_all`` with ``lora=True``): ``z (B, nz)`` is the row's masked
+adapter basis from kernels/lora, ``b (G, N)`` the alpha-folded adapter rows
+(fp32 or bf16, cast to the activation dtype), and ``bounds`` the output
+columns where the next target's G-wide block of ``z`` starts ((q | k | v):
+``(nq, nq + hd)``; (gate | up): ``(I,)``; o and down: ``()``). The delta
+is cast and added after the residual (plain and residual modes) or added
+in fp32 to the gate and up values before the GeGLU, as the TPU kernel adds
+it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +56,20 @@ def gemv_k_chunk(k: int, n: int) -> int:
     return -(-chunk // 8) * 8
 
 
+LoraExpand = Tuple[torch.Tensor, torch.Tensor, Sequence[int]]  # (z, b, bounds)
+
+
+def lora_expand_reference(z: torch.Tensor, b: torch.Tensor, bounds: Sequence[int],
+                          dtype: torch.dtype) -> torch.Tensor:
+    """(B, N) fp32 LoRA delta: the columns of target t, between its bounds,
+    take z's t-th G-wide block times b cast to ``dtype``."""
+    g = b.shape[0]
+    edges = [0, *bounds, b.shape[1]]
+    bq = b.to(dtype).float()
+    return torch.cat([z[:, t * g:(t + 1) * g].float() @ bq[:, lo:hi]
+                      for t, (lo, hi) in enumerate(zip(edges[:-1], edges[1:]))], dim=-1)
+
+
 def int8_gemv_reference(
     x: torch.Tensor,  # (B, K)
     w8: torch.Tensor,  # (K, N) int8
@@ -52,18 +77,25 @@ def int8_gemv_reference(
     residual: Optional[torch.Tensor] = None,  # (B, N)
     geglu: bool = False,
     out_fp32: bool = False,
+    lora: Optional[LoraExpand] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`int8_gemv` (and, with ``out_fp32``, of
     :func:`int8_gemv_f32`)."""
     v = (x.float() @ w8.float()) * s.float()
     if out_fp32:
         return v
+    delta = None if lora is None else lora_expand_reference(*lora, x.dtype)
     if geglu:
         inter = v.shape[-1] // 2
-        return (gelu_tanh(v[:, :inter]) * v[:, inter:]).to(x.dtype)
+        g, u = v[:, :inter], v[:, inter:]
+        if delta is not None:
+            g, u = g + delta[:, :inter], u + delta[:, inter:]
+        return (gelu_tanh(g) * u).to(x.dtype)
     out = v.to(x.dtype)
     if residual is not None:
         out = residual + out
+    if delta is not None:
+        out = out + delta.to(x.dtype)
     return out
 
 
@@ -72,9 +104,26 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"int8_gemv: {msg}")
 
 
-def _launch(x, w8, s, residual, mode: int) -> torch.Tensor:
+def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
+    """Validates the expand operands; returns (G, seg1, seg2)."""
+    z, lb, bounds = lora
+    g = lb.shape[0] if lb.dim() == 2 else 0
+    _check(lb.dim() == 2 and lb.shape[1] == n and lb.is_contiguous() and lb.device == dev
+           and lb.dtype in (torch.float32, torch.bfloat16),
+           f"lora b must be contiguous fp32 or bf16 (G, {n}), got {tuple(lb.shape)} {lb.dtype}")
+    _check(len(bounds) <= 2 and list(bounds) == sorted(bounds) and all(0 < c < n for c in bounds),
+           f"lora bounds {tuple(bounds)} must be at most two sorted columns inside (0, {n})")
+    _check(z.dtype == torch.bfloat16 and z.shape == (b, g * (len(bounds) + 1))
+           and z.is_contiguous() and z.device == dev,
+           f"lora z must be contiguous bf16 ({b}, {g * (len(bounds) + 1)})")
+    segs = list(bounds) + [n] * (2 - len(bounds))
+    return g, segs[0], segs[1]
+
+
+def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) -> torch.Tensor:
     """Both kernels of one GEMV (K-split partials, then the epilogue of
-    ``mode``: 0 plain, 1 + residual, 2 GeGLU, 3 fp32 out)."""
+    ``mode``: 0 plain, 1 + residual, 2 GeGLU, 3 fp32 out; modes 0-2 with
+    the LoRA expand when ``lora`` is given)."""
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
@@ -91,6 +140,8 @@ def _launch(x, w8, s, residual, mode: int) -> torch.Tensor:
         _check(residual.dtype == torch.bfloat16 and residual.shape == (b, n)
                and residual.is_contiguous() and residual.device == dev,
                "residual must be contiguous bf16 (B, N)")
+    if lora is not None:
+        g, seg1, seg2 = _check_lora(lora, b, n, dev)
     chunk = gemv_k_chunk(k, n)
     nsplit = -(-k // chunk)
     part = torch.empty((nsplit, b, n), dtype=torch.float32, device=dev)
@@ -101,10 +152,17 @@ def _launch(x, w8, s, residual, mode: int) -> torch.Tensor:
     _build.check(lib.pg_int8_gemv_partial(
         x.data_ptr(), w8.data_ptr(), part.data_ptr(), b, k, n, chunk, stream,
     ), "int8_gemv partial")
-    _build.check(lib.pg_int8_gemv_epilogue(
-        part.data_ptr(), nsplit, b, n, s.data_ptr(),
-        residual.data_ptr() if mode == 1 else None, out.data_ptr(), mode, stream,
-    ), "int8_gemv epilogue")
+    res_ptr = residual.data_ptr() if mode == 1 else None
+    if lora is None:
+        err = lib.pg_int8_gemv_epilogue(part.data_ptr(), nsplit, b, n, s.data_ptr(), res_ptr,
+                                        out.data_ptr(), mode, stream)
+    else:
+        z, lb, _ = lora
+        err = lib.pg_int8_gemv_epilogue_lora(
+            part.data_ptr(), nsplit, b, n, s.data_ptr(), res_ptr, out.data_ptr(), mode,
+            z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1],
+            seg1, seg2, stream)
+    _build.check(err, "int8_gemv epilogue")
     return out
 
 
@@ -114,12 +172,14 @@ def int8_gemv(
     s: torch.Tensor,
     residual: Optional[torch.Tensor] = None,
     geglu: bool = False,
+    lora: Optional[LoraExpand] = None,
 ) -> torch.Tensor:
-    """``x (B, K)`` times an int8 ``(K, N)`` weight with per-column scales."""
+    """``x (B, K)`` times an int8 ``(K, N)`` weight with per-column scales
+    (``lora``: plus each row's adapter delta, module docstring)."""
     if not x.is_cuda:
-        return int8_gemv_reference(x, w8, s, residual, geglu)
+        return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora)
     _check(not (geglu and residual is not None), "geglu takes no residual")
-    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0))
+    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora)
     int8_gemv.launches += 1
     return out
 

@@ -18,8 +18,11 @@ Prefill attention takes the flash kernel when ``flash_lens`` is given.
 Decode rows may sit at different cache positions (``cache_pos`` a (B,)
 tensor: continuous batching).
 
-Training (``forward_train``) runs the blocks without a cache, with
-un-merged LoRA adapters (``_lora_delta``), the flash kernel's forward and
+Adapters run un-merged (``_lora_delta``): a LoRA tree, or a multi-LoRA
+bank with per-row ids in prefill and the plain decode paths, or, on the
+kernel decode paths, the bank's kernel operands (kernels/decode_layer
+``lora_pack``). Training (``forward_train``) runs the blocks without a
+cache, with un-merged LoRA adapters, the flash kernel's forward and
 backward when ``flash_lens`` is given, and ``torch.utils.checkpoint`` per
 layer with ``remat``.
 
@@ -98,11 +101,30 @@ def _embed_scale(cfg: GemmaConfig, dtype: torch.dtype) -> float:
 def _lora_delta(y: torch.Tensor, lora_lp: Optional[Params], name: str):
     """``y @ A @ B * (alpha / r)`` for projection ``name`` of one layer's
     adapters, or None. Computed in the adapter dtype (fp32 adapters over a
-    bf16 base), returned in the activation dtype."""
+    bf16 base), returned in the activation dtype.
+
+    A multi-LoRA bank slice (``a`` (N+1, in, r), train/lora.stack_lora_bank)
+    gives every batch row its own adapter, picked by the (B,) ids under
+    ``lora_lp["__ids__"]`` (models/paligemma.lora_with_ids; id 0 is the
+    zero adapter of the base model): through the concat basis when the bank
+    has it, ``(y @ a_cat) * block_mask @ b_cat`` with alpha folded into
+    b_cat, else by gathering each row's a, b and scale."""
     if lora_lp is None or name not in lora_lp:
         return None
     a, b = lora_lp[name]["a"], lora_lp[name]["b"]
     scale = lora_lp[name]["alpha"] / a.shape[-1]
+    if a.dim() == 3:
+        ids = lora_lp["__ids__"].long()
+        if "a_cat" in lora_lp[name]:
+            a_cat, b_cat = lora_lp[name]["a_cat"], lora_lp[name]["b_cat"]
+            col_ad = torch.arange(a_cat.shape[-1], device=a_cat.device) // a.shape[-1]
+            mask = (col_ad[None] == ids[:, None]).to(a_cat.dtype)
+            z = (y.to(a_cat.dtype) @ a_cat) * mask[:, None, :]
+            return (z @ b_cat).to(y.dtype)
+        s_rows = scale[ids].to(a.dtype)
+        delta = torch.einsum("bsi,bir->bsr", y.to(a.dtype), a[ids])
+        delta = torch.einsum("bsr,bro->bso", delta, b[ids])
+        return (delta * s_rows[:, None, None]).to(y.dtype)
     return (((y.to(a.dtype) @ a) @ b) * scale.to(a.dtype)).to(y.dtype)
 
 
@@ -255,10 +277,12 @@ def _fused_decode(
     params: Params, cfg: GemmaConfig, x: torch.Tensor, cos, sin,
     kv_cache: KVCache, cache_pos: CachePos, kv_valid: torch.Tensor,
     kv_bucket: Optional[int], greedy_head: bool, mesh=None,
+    lora_pack: Optional[Params] = None, adapter_ids: Optional[torch.Tensor] = None,
 ):
     """Single-token decode through the hand-written kernels; under a mesh
     the tensor-parallel chain (kernels/decode_layer_tp) of this rank's
-    decode_layer_tp.repack_for_tp tree."""
+    decode_layer_tp.repack_for_tp tree. ``lora_pack`` / ``adapter_ids``:
+    each row's adapter inside the chain (kernels/decode_layer)."""
     b = x.shape[0]
     if mesh is None and not decode_layer.supported(cfg, params["layers"], b):
         raise ValueError(
@@ -284,10 +308,35 @@ def _fused_decode(
         h, _, _ = decode_layer.layers_decode_fused(
             x, params["layers"], k_flat, v_flat, pos, valid,
             cos[:, 0], sin[:, 0], window, cfg.num_attention_heads, hd,
-            cfg.rms_norm_eps,
+            cfg.rms_norm_eps, lora_pack=lora_pack, adapter_ids=adapter_ids,
         )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return decode_head(params, h, greedy_head, mesh), kv_cache
+
+
+def _refuse_tp_lora(lora: Optional[Params], mesh) -> None:
+    if lora is not None and mesh is not None:
+        raise NotImplementedError("LoRA adapters under tensor parallelism (a mesh) are not "
+                                  "ported")
+
+
+def _layer_lora(lora: Optional[Params], i: int) -> Optional[Params]:
+    """Layer ``i``'s slice of an adapter tree or bank (its ids included)."""
+    return None if lora is None else layer_params(lora["layers"], i)
+
+
+def fused_lora_operands(lora: Optional[Params]):
+    """(lora_pack, adapter_ids) of the kernel decode chains: a bank with its
+    kernel operands and per-row ids (models/paligemma.lora_with_ids), or
+    (None, None) without adapters."""
+    if lora is None:
+        return None, None
+    if "__fused_pack__" not in lora or "__ids__" not in lora.get("layers", {}):
+        raise ValueError(
+            "the kernel decode paths take LoRA only as a multi-LoRA bank with per-row ids "
+            "and its kernel operands (lora['__fused_pack__'] = kernels/decode_layer."
+            "repack_lora_bank_fused); use a plain decode path otherwise")
+    return lora["__fused_pack__"], lora["layers"]["__ids__"][0]
 
 
 def forward(
@@ -306,10 +355,18 @@ def forward(
     greedy_head: bool = False,  # return argmax token ids, not logits
     mesh=None,  # tensor parallel: params are this rank's slices
     fused_mlp: bool = False,  # one-card decode: each layer's MLP via kernels/decode_mlp
+    lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
     int32 ids with ``greedy_head``, the cache updated in place). ``cfg`` is
-    the whole model's config, also under a mesh."""
+    the whole model's config, also under a mesh.
+
+    ``lora``: adapters applied un-merged in every layer, or a multi-LoRA
+    bank with per-row ids (models/paligemma.lora_with_ids). The kernel
+    decode (``fused_layer``) takes a bank only with its kernel operands
+    (``lora["__fused_pack__"]``, kernels/decode_layer.repack_lora_bank_fused)
+    and raises otherwise; under a mesh adapters are not ported and raise."""
+    _refuse_tp_lora(lora, mesh)
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
@@ -318,10 +375,12 @@ def forward(
         kv_bucket = min(kv_bucket, kv_valid.shape[-1])
 
     if fused_layer and s == 1:
+        pack, ids = fused_lora_operands(lora)
         return _fused_decode(params, cfg, x, cos, sin, kv_cache, cache_pos,
-                             kv_valid, kv_bucket, greedy_head, mesh)
+                             kv_valid, kv_bucket, greedy_head, mesh, pack, ids)
     lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
-    mlp_full = params["layers"]["mlp"] if fused_mlp and s == 1 and mesh is None else None
+    mlp_full = (params["layers"]["mlp"] if fused_mlp and s == 1 and mesh is None
+                and lora is None else None)
 
     mask = None
     if flash_lens is None:
@@ -334,8 +393,8 @@ def forward(
     for i in range(n_layers):
         x = _decoder_block(
             lcfg, x, layer_params(params["layers"], i), cos, sin, kv_cache, i,
-            cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket, mesh=mesh,
-            mlp_full=mlp_full,
+            cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket,
+            lora_lp=_layer_lora(lora, i), mesh=mesh, mlp_full=mlp_full,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if logits_idx is not None:
@@ -359,13 +418,16 @@ def forward_paged_decode(
     pages_bucket: Optional[int] = None,  # logical pages attended (covers every row)
     paged_kernel: str = "multi",  # "one"|"multi"|"batched"|"runs": one kernel here
     mesh=None,  # tensor parallel: params are this rank's slices, the pool replicated
+    lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
 ) -> Tuple[torch.Tensor, KVCache]:
     """Single-token decode over the paged pool, the page walk: per layer,
     write this token's K/V into page ``table[r, pos // ps]`` at slot
     ``pos % ps``, then attend over the row's logical pages ``[0, pos]`` with
     kernels/paged_attention reading the layer-stacked pool by offset
     (``use_kernel=False``: its plain version). Returns (fp32 logits
-    (B, 1, vocab), the pool)."""
+    (B, 1, vocab), the pool). ``lora`` rides the torch projections, as in
+    ``forward``."""
+    _refuse_tp_lora(lora, mesh)
     b = input_embeds.shape[0]
     hd = cfg.head_dim
     ps = pool["k"].shape[2]
@@ -386,19 +448,21 @@ def forward_paged_decode(
         paged_attn.reference_paged_decode_attention)
     for i in range(pool["k"].shape[0]):
         lp = layer_params(params["layers"], i)
+        lora_lp = _layer_lora(lora, i)
         residual = x
         y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _attn_proj(lcfg, y, lp)
+        q, k, v = _attn_proj(lcfg, y, lp, lora_lp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         pool["k"][i, page_of, off_of] = k[:, 0].to(pool["k"].dtype)
         pool["v"][i, page_of, off_of] = v[:, 0].to(pool["v"].dtype)
         a = attend(q[:, 0].contiguous(), pool["k"], pool["v"], table, kv_len,
                    hd**-0.5, layer_idx=i)
-        x = residual + _row_parallel(a.reshape(b, 1, -1), lp["attn"]["o"], mesh)
+        a = a.reshape(b, 1, -1)
+        x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh), a, lora_lp, "o")
         residual = x
         y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = residual + _mlp(y, lp, mesh=mesh)
+        x = residual + _mlp(y, lp, lora_lp, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return lm_head(params, x, mesh).float(), pool
 
@@ -412,6 +476,8 @@ def forward_paged_decode_fused(
     page_table: torch.Tensor,  # (B, P_max) int32
     write_pos: torch.Tensor,  # (B,) int32
     pages_bucket: int,
+    lora_pack: Optional[Params] = None,  # kernels/decode_layer.repack_lora_bank_fused
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
     greedy_head: bool = False,  # return argmax token ids, not logits
     mesh=None,  # tensor parallel: this rank's repack_for_tp tree, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
@@ -422,7 +488,9 @@ def forward_paged_decode_fused(
     tree, config or batch the kernels cannot take. Under a mesh the
     tensor-parallel chain (kernels/decode_layer_paged_tp) of this rank's
     decode_layer_tp.repack_for_tp tree, its head shards combined across
-    ranks."""
+    ranks. ``lora_pack`` / ``adapter_ids``: each row's adapter inside the
+    chain (one card only)."""
+    _refuse_tp_lora(lora_pack, mesh)
     b = input_embeds.shape[0]
     n_layers, n_pages, ps = pool["k"].shape[:3]
     if mesh is None and not decode_layer_paged.supported(cfg, params["layers"], b, ps):
@@ -444,7 +512,7 @@ def forward_paged_decode_fused(
         h, _, _ = decode_layer_paged.layers_decode_fused_paged(
             x, params["layers"], k_flat, v_flat, page_table, write_pos,
             cos[:, 0], sin[:, 0], cfg.num_attention_heads, hd, cfg.rms_norm_eps,
-            pages_bucket=pages_bucket,
+            pages_bucket=pages_bucket, lora_pack=lora_pack, adapter_ids=adapter_ids,
         )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return decode_head(params, h, greedy_head, mesh), pool

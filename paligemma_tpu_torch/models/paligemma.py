@@ -5,6 +5,11 @@ scaled by projection_dim**-0.5, placed at the <image> token slots of the
 embedded prompt -> Gemma decoder. The vision tower runs once, at prefill;
 ``forward_train`` is the supervised forward of training (no cache).
 
+``lora`` / ``adapter_ids``: un-merged adapters, or a multi-LoRA bank
+(train/lora.stack_lora_bank) with each batch row's bank index
+(``lora_with_ids``); a bank carrying ``"__fused_pack__"``
+(kernels/decode_layer.repack_lora_bank_fused) keeps the kernel decode ticks.
+
 ``mesh`` (core/mesh): tensor parallel, the params being this rank's slices
 (core/mesh.shard_params, or for the kernel decode steps
 kernels/decode_layer_tp.repack_for_tp). Every rank gets the same logits
@@ -67,6 +72,20 @@ def _vision_attn_mode(cfg: PaliGemmaConfig, use_flash: bool) -> str:
     return "xla"
 
 
+def lora_with_ids(lora: Optional[Params], adapter_ids: Optional[torch.Tensor],
+                  n_layers: int) -> Optional[Params]:
+    """Attach per-row adapter ids to a multi-LoRA bank: ``adapter_ids`` (B,)
+    picks each batch row's adapter (0 = the zero adapter of the base
+    model), broadcast to (L, B) under ``lora["layers"]["__ids__"]`` so that
+    every layer's slice carries them (gemma._lora_delta). With
+    ``adapter_ids`` None the tree passes through untouched."""
+    if lora is None or adapter_ids is None:
+        return lora
+    layers = dict(lora["layers"])
+    layers["__ids__"] = adapter_ids[None, :].expand(n_layers, adapter_ids.shape[0])
+    return {**lora, "layers": layers}  # keeps extras, e.g. "__fused_pack__"
+
+
 def prefill(
     params: Params,
     cfg: PaliGemmaConfig,
@@ -78,6 +97,8 @@ def prefill(
     last_only: bool = False,
     prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
     mesh=None,
+    lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Vision encode + merge + decoder prefill. Returns (logits, cache);
     ``last_only`` projects each row's last valid token only ((B, 1, vocab)).
@@ -118,6 +139,7 @@ def prefill(
         params["lm"], cfg.text_config, merged, position_ids, kv_cache,
         cache_pos=0, kv_valid=kv_valid, flash_lens=flash_lens,
         logits_idx=logits_idx, mesh=mesh,
+        lora=lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers),
     )
 
 
@@ -133,6 +155,8 @@ def decode_step(
     fused_layer: bool = False,
     mesh=None,
     fused_mlp: bool = False,
+    lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Single-token decode. Returns ((B, vocab) fp32 logits, cache).
     ``fused_mlp`` (one card, plain layers): each layer's MLP through
@@ -142,6 +166,7 @@ def decode_step(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
         cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
         fused_layer=fused_layer, mesh=mesh, fused_mlp=fused_mlp,
+        lora=lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers),
     )
     return logits[:, 0, :], kv_cache
 
@@ -157,17 +182,22 @@ def decode_step_greedy(
     kv_bucket: Optional[int] = None,
     fused_layer: bool = True,
     mesh=None,
+    lora: Optional[Params] = None,  # multi-LoRA bank (+ "__fused_pack__")
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Greedy single-token decode: (next token (B,) int32, cache). With the
     kernels on, the int8 head streams through the argmax kernel and the
-    logits row is never written. Under a mesh with the kernels on, the
-    tensor-parallel chain (kernels/decode_layer_tp) and the vocab-shard
-    argmax combined across ranks: the JAX ``decode_step_greedy_tp``."""
+    logits row is never written; a bank carrying its kernel operands keeps
+    that tick, each row's adapter applied inside the chain. Under a mesh
+    with the kernels on, the tensor-parallel chain (kernels/decode_layer_tp)
+    and the vocab-shard argmax combined across ranks: the JAX
+    ``decode_step_greedy_tp``."""
     embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
     return gemma.forward(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], kv_cache,
         cache_pos=cache_pos, kv_valid=kv_valid, kv_bucket=kv_bucket,
         fused_layer=fused_layer, greedy_head=True, mesh=mesh,
+        lora=lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers),
     )
 
 
@@ -182,6 +212,8 @@ def decode_step_paged(
     pages_bucket: Optional[int] = None,  # logical pages attended (host-managed)
     paged_kernel: str = "multi",
     mesh=None,
+    lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Single-token decode over the paged pool. Returns ((B, vocab) fp32
     logits, pool). ``paged_kernel``: "fused" (or "staged", the TPU's staging
@@ -191,20 +223,28 @@ def decode_step_paged(
     torch ops only. Under a mesh: "fused_tp" runs
     kernels/decode_layer_paged_tp and gathers the vocab-sharded int8 head's
     logits (the JAX ``decode_step_paged_tp``); "xla" the plain sharded page
-    walk."""
+    walk.
+
+    ``lora`` on the page walks rides the torch projections; the "fused"
+    chain takes a bank only with its kernel operands (``"__fused_pack__"``)
+    and applies each row's adapter inside the chain."""
     if mesh is not None and paged_kernel not in ("fused_tp", "xla"):
         raise ValueError(f"paged_kernel {paged_kernel!r} under a mesh: 'fused_tp' or 'xla'")
     embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
+    n_layers = cfg.text_config.num_hidden_layers
     if paged_kernel in ("fused", "staged", "fused_tp"):
+        pack, ids = gemma.fused_lora_operands(lora_with_ids(lora, adapter_ids, n_layers))
         logits, pool = gemma.forward_paged_decode_fused(
             params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
-            write_pos, pages_bucket=pages_bucket or page_table.shape[1], mesh=mesh,
+            write_pos, pages_bucket=pages_bucket or page_table.shape[1], lora_pack=pack,
+            adapter_ids=ids, mesh=mesh,
         )
     else:
         logits, pool = gemma.forward_paged_decode(
             params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
             write_pos, use_kernel=paged_kernel != "xla", pages_bucket=pages_bucket,
             paged_kernel="multi" if paged_kernel == "xla" else paged_kernel, mesh=mesh,
+            lora=lora_with_ids(lora, adapter_ids, n_layers),
         )
     return logits[:, 0, :], pool
 
@@ -218,14 +258,19 @@ def decode_step_greedy_paged(
     write_pos: torch.Tensor,
     position_ids: torch.Tensor,
     pages_bucket: Optional[int] = None,
+    lora: Optional[Params] = None,  # bank carrying "__fused_pack__"
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Greedy paged step through kernels/decode_layer_paged and the argmax
     head kernel: (next token (B,) int32, pool); the (B, vocab) logits row is
     never written. Same tokens as ``argmax(decode_step_paged(..., "fused"))``."""
     embeds = params["lm"]["embed"][token.long()][:, None, :]
+    pack, ids = gemma.fused_lora_operands(
+        lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers))
     return gemma.forward_paged_decode_fused(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
-        write_pos, pages_bucket=pages_bucket or page_table.shape[1], greedy_head=True,
+        write_pos, pages_bucket=pages_bucket or page_table.shape[1], lora_pack=pack,
+        adapter_ids=ids, greedy_head=True,
     )
 
 

@@ -15,7 +15,7 @@ patches, as the blocks need the whole embedding as their input.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -97,16 +97,20 @@ def encode(
     params: Params,
     cfg: SiglipVisionConfig,
     pixel_values: torch.Tensor,  # (B, C, H, W)
-    attn: str = "xla",
+    use_flash: bool = False,
     mesh=None,
+    attn: Optional[str] = None,
 ) -> torch.Tensor:
     """Vision forward: (B, C, H, W) pixels -> (B, num_patches, hidden).
 
     ``attn``: "xla" (plain attention; the choice at 224 px, see
     models/paligemma._vision_attn_mode), "flash" (the flash kernel) or
-    "fused" (the one-shot softmax kernel of kernels/ablation, opt-in only);
-    any other value raises ``ValueError``.
+    "fused" (the vision attention kernel of kernels/ablation, opt-in only);
+    any other value raises ``ValueError``. ``attn=None`` derives it from
+    ``use_flash``, as the JAX function does: "flash" if set, else "xla".
     ``mesh``: tensor parallel over this rank's slices (module docstring)."""
+    if attn is None:
+        attn = "flash" if use_flash else "xla"
     x = pixel_values.permute(0, 2, 3, 1)  # NCHW -> NHWC
     dtype = params["pos_embed"].dtype
     patches = patchify(x, cfg.patch_size).to(dtype)

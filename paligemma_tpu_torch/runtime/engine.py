@@ -62,22 +62,33 @@ class PaliGemmaEngine:
         params: Dict[str, Any],
         config: PaliGemmaConfig,
         max_seq_len: int = 1024,
+        cache_dtype: Optional[torch.dtype] = None,
         eos_token_id: int = 1,
         use_flash: Optional[bool] = None,
-        decode_params: Optional[Dict[str, Any]] = None,
-        fused_layer: Optional[bool] = None,
         mesh=None,
+        decode_params: Optional[Dict[str, Any]] = None,
+        *,
         fused_mlp: Optional[bool] = None,
+        fused_layer: Optional[bool] = None,
+        int8_act_prefill: bool = False,
     ):
-        """``decode_params``: optional second weight set used only for
+        """The JAX engine's parameters in its order, up to its
+        ``decode_scan_block`` (a TPU workaround the port does not take);
+        the rest are keyword-only.
+
+        ``decode_params``: optional second weight set used only for
         decode (e.g. the int8 tree of runtime.quantize) while ``params``
-        serves the prefill. The device is the one the params live on, and
-        the KV cache takes the embedding table's dtype."""
+        serves the prefill. The device is the one the params live on; the
+        KV cache takes ``cache_dtype``, by default the embedding table's.
+        ``int8_act_prefill`` (W8A8 prefill) is not ported and raises."""
+        if int8_act_prefill:
+            raise NotImplementedError("PaliGemmaEngine: int8_act_prefill (W8A8 prefill) "
+                                      "not ported")
         self.config = config
         self.max_seq_len = max_seq_len
         self.eos_token_id = eos_token_id
         self.device = params["lm"]["embed"].device
-        self.cache_dtype = params["lm"]["embed"].dtype
+        self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
         on_cuda = self.device.type == "cuda"
         self.use_flash = on_cuda if use_flash is None else use_flash
         self.fused_layer = on_cuda if fused_layer is None else fused_layer

@@ -34,9 +34,21 @@ tick runs the TP chain of kernels/decode_layer_tp with the vocab-shard
 argmax combined across ranks, the sampled tick the same chain with the
 gathered int8-head logits.
 
-Not ported: the data axis, speculative decoding, grammars, LoRA banks, the
-prefix cache, W8A8 prefill and ``warmup`` (XLA compiles); the constructor
-raises ``NotImplementedError`` for them.
+``lora_bank`` ({name: adapter tree}, train/lora.init_lora's layout):
+multi-LoRA serving. A request names its adapter (``Request.lora``; None =
+the base model) and every prefill and tick applies each row's adapter,
+row 0 of the stacked bank (train/lora.stack_lora_bank) being the zero
+adapter of the base model. The per-slot bank index lives on the device
+(``state["adapter"]``, set when a row is seated). Prefill and the plain
+tick take the bank through the torch projections (models/gemma
+``_lora_delta``); the kernel ticks take its kernel operands
+(kernels/decode_layer.repack_lora_bank_fused) and apply each row's adapter
+inside the decode chain. Not with a ``mesh``: tensor-parallel LoRA serving
+is not ported and raises ``NotImplementedError``.
+
+Not ported: the data axis, speculative decoding, grammars, the prefix
+cache, W8A8 prefill and ``warmup`` (XLA compiles); the constructor raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from ..kernels import decode_layer as _dl
 from ..kernels import decode_layer_tp as _tp
 from ..models import gemma, paligemma
 from ..ops import sampling
+from ..train.lora import stack_lora_bank
 
 
 @dataclasses.dataclass
@@ -67,7 +80,7 @@ class Request:
     top_p: float = 0.9
     do_sample: bool = False
     eos_token_id: int = 1
-    lora: Optional[str] = None  # multi-LoRA serving: not ported (must stay None)
+    lora: Optional[str] = None  # the engine's lora_bank adapter to decode with (None: base)
     grammar: Optional[str] = None  # constrained decoding: not ported (must stay None)
     # host-side callback with each accepted token id, as the scheduler absorbs it
     on_token: Optional[Any] = None
@@ -113,7 +126,7 @@ class _Window:
     ready: Optional[torch.cuda.Event] = None  # the host copy landed (CUDA)
 
 
-_NOT_PORTED = ("spec_decode", "lora_bank", "grammars", "prefix_cache", "int8_act_prefill")
+_NOT_PORTED = ("spec_decode", "grammars", "prefix_cache", "int8_act_prefill")
 
 
 class ServingEngine:
@@ -127,31 +140,39 @@ class ServingEngine:
         use_flash: Optional[bool] = None,
         decode_params: Optional[Dict[str, Any]] = None,
         sync_every: int = 8,
+        mesh=None,
         fused_decode: Optional[bool] = None,
         pipeline: Optional[bool] = None,
-        generator: Optional[torch.Generator] = None,
-        mesh=None,
         spec_decode: bool = False,
-        lora_bank=None,
+        *,
+        lora_bank: Optional[Dict[str, Any]] = None,
         grammars=None,
         prefix_cache: bool = False,
         int8_act_prefill: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
-        """``decode_params``: optional second weight set (the int8 tree of
+        """The JAX engine's parameters in its order, up to its
+        ``spec_draft_k`` (speculative decoding is not ported); the rest are
+        keyword-only.
+
+        ``decode_params``: optional second weight set (the int8 tree of
         runtime.quantize) for the lockstep decode while ``params`` serves the
         prefills. The device is the one the params live on; the KV cache
         takes the embedding table's dtype unless ``cache_dtype`` is given.
 
         ``sync_every``: decode ticks per host read-back; EOS detection lags
         by up to that many tokens (the overshoot is discarded).
-        ``generator``: the draws of sampled requests (default: seed 0 on the
-        device)."""
-        given = dict(spec_decode=spec_decode, lora_bank=lora_bank,
-                     grammars=grammars, prefix_cache=prefix_cache,
-                     int8_act_prefill=int8_act_prefill)
+        ``lora_bank``: {name: adapter tree} for multi-LoRA serving (module
+        docstring). ``generator``: the draws of sampled requests (default:
+        seed 0 on the device)."""
+        given = dict(spec_decode=spec_decode, grammars=grammars,
+                     prefix_cache=prefix_cache, int8_act_prefill=int8_act_prefill)
         unported = [k for k in _NOT_PORTED if given[k]]
         if unported:
             raise NotImplementedError(f"ServingEngine: {', '.join(unported)} not ported")
+        if lora_bank and mesh is not None:
+            raise NotImplementedError("ServingEngine: lora_bank with a mesh (tensor-parallel "
+                                      "multi-LoRA serving) is not ported yet")
         self.config = config
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -166,7 +187,24 @@ class ServingEngine:
         self.pipeline = on_cuda if pipeline is None else pipeline
         self.generator = generator if generator is not None else (
             torch.Generator(device=self.device).manual_seed(0))
+        # multi-LoRA: adapter name -> bank row (0: the base model)
+        self.lora_bank = None
+        self._lora_index: Dict[Optional[str], int] = {None: 0}
+        if lora_bank:
+            names = list(lora_bank)
+            bank = stack_lora_bank([lora_bank[n] for n in names])
+            self.lora_bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
+                                         for t, p in bank["layers"].items()}}
+            self._lora_index.update({n: i + 1 for i, n in enumerate(names)})
         self.fused_decode = self._setup_fused(on_cuda if fused_decode is None else fused_decode)
+        self._lora_fused_pack = None
+        if self.lora_bank is not None and self._chain_tick():
+            # the kernel ticks' operands: each row's adapter inside the chain
+            tc = config.text_config
+            self._lora_fused_pack = _dl.repack_lora_bank_fused(
+                self.lora_bank["layers"], n_heads=tc.num_attention_heads,
+                head_dim=tc.head_dim, hidden=tc.hidden_size,
+                intermediate=tc.intermediate_size)
 
         self._rows = torch.arange(max_slots, device=self.device)
         self.cache = self._init_cache()
@@ -222,6 +260,11 @@ class ServingEngine:
         self.decode_params = dp
         return True
 
+    def _chain_tick(self) -> bool:
+        """Whether the ticks run the decode kernel chain (which takes a
+        bank's kernel operands; hook: the paged engine's page walks do not)."""
+        return self.fused_decode
+
     def _init_cache(self):
         """Allocate the KV backend (hook: the paged engine allocates pages)."""
         return gemma.init_kv_cache(self.config.text_config, self.max_slots,
@@ -243,6 +286,8 @@ class ServingEngine:
             "write_pos": torch.zeros((n,), dtype=torch.int32, device=dev),
             "pos_ids": torch.ones((n,), dtype=torch.int32, device=dev),
             "logits": torch.zeros((n, self.config.vocab_size), dtype=torch.float32, device=dev),
+            # per-slot multi-LoRA bank row (0 = the base model)
+            "adapter": torch.zeros((n,), dtype=torch.int32, device=dev),
         }
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -263,9 +308,14 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.request_id}: prompt of {len(req.input_ids)} tokens exceeds the "
                 f"per-slot budget ({budget} = max_seq_len {self.max_seq_len} - 1 decode slot)")
-        if req.lora is not None or req.grammar is not None:
-            raise NotImplementedError(
-                f"request {req.request_id}: LoRA adapters and grammars are not ported")
+        if req.lora not in self._lora_index:
+            known = sorted(k for k in self._lora_index if k is not None)
+            raise ValueError(
+                f"request {req.request_id}: unknown LoRA adapter {req.lora!r} (engine has "
+                f"{known or 'no adapters'}; pass lora_bank={{name: adapter_tree}} at "
+                "construction)")
+        if req.grammar is not None:
+            raise NotImplementedError(f"request {req.request_id}: grammars are not ported")
         # prompt + generated never writes past max_seq_len
         req.max_new_tokens = min(req.max_new_tokens, self.max_seq_len - len(req.input_ids))
         req.t_submit = time.perf_counter()
@@ -320,9 +370,22 @@ class ServingEngine:
         st["pos_ids"][slots] = mask.sum(dim=-1).to(torch.int32) + 1
         st["logits"][slots] = last_logits
         st["next_tok"][slots] = last_logits.argmax(dim=-1).to(torch.int32)
+        if self.lora_bank is not None:
+            st["adapter"][slots] = self._adapter_ids([req for _, req in seated])
 
     def _release_slot(self, slot: int) -> None:
         """Called when a request retires (hook: the paged engine frees pages)."""
+
+    def _adapter_ids(self, reqs: List[Request]) -> torch.Tensor:
+        """(n,) int32 bank rows of ``reqs`` on the device."""
+        return self._upload(np.asarray([self._lora_index[r.lora] for r in reqs], np.int32))
+
+    def _lora_arg(self) -> Optional[Dict[str, Any]]:
+        """The bank of the decode ticks, with its kernel operands when the
+        ticks run the kernels."""
+        if self.lora_bank is None or self._lora_fused_pack is None:
+            return self.lora_bank
+        return {**self.lora_bank, "__fused_pack__": self._lora_fused_pack}
 
     def _fill_slots(self) -> None:
         free = [i for i in range(self.max_slots) if self.slots[i] is None]
@@ -360,10 +423,14 @@ class ServingEngine:
             # the prefill writes exactly [0, bucket): a bucket-long cache
             cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
                                          self.device)
+            lora_kw = {}
+            if self.lora_bank is not None:
+                lora_kw = dict(lora=self.lora_bank,
+                               adapter_ids=self._adapter_ids([req for _, req in seated]))
             logits, cache1 = paligemma.prefill(
                 self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
                 mask, cache1, use_flash=self.use_flash, last_only=True,
-                prefix_lens=self._upload(pfx_np), mesh=self.mesh,
+                prefix_lens=self._upload(pfx_np), mesh=self.mesh, **lora_kw,
             )
             self.prefill_calls += 1
             self._insert_chunk(seated, cache1, mask, logits[:, 0])
@@ -414,7 +481,7 @@ class ServingEngine:
         st = self.state
         st["valid"][self._rows, st["write_pos"].long()] = active
         kw = dict(cache_pos=st["write_pos"], kv_valid=st["valid"],
-                  position_ids=st["pos_ids"], kv_bucket=kv_bucket)
+                  position_ids=st["pos_ids"], kv_bucket=kv_bucket, **self._tick_lora())
         if not with_sampling and self.fused_decode:
             # greedy tick: the argmax head kernel returns the ids; the
             # (slots, vocab) logits row is never written (stored logits go
@@ -428,6 +495,12 @@ class ServingEngine:
                 fused_layer=self.fused_decode, mesh=self.mesh, **kw)
             self._advance(active, None, new_logits)
         return token
+
+    def _tick_lora(self) -> Dict[str, Any]:
+        """The bank and each slot's bank row for a tick ({} without a bank)."""
+        if self.lora_bank is None:
+            return {}
+        return dict(lora=self._lora_arg(), adapter_ids=self.state["adapter"])
 
     def _decode_window(self, lefts, ticks: int, tick) -> torch.Tensor:
         """``ticks`` lockstep steps enqueued with no host synchronization;

@@ -27,8 +27,13 @@ tick is ``paged_kernel="fused_tp"``: kernels/decode_layer_paged_tp, then
 the gathered logits of the vocab-sharded int8 head, for greedy and sampled
 windows alike; ``fused_decode=False`` runs the plain sharded page walk.
 
+``lora_bank``: multi-LoRA serving as in the dense engine. The "fused" tick
+(and "staged", which maps onto it) applies each row's adapter inside the
+chain; the page walks take the bank through the torch projections. A
+preempted request keeps its adapter when it is seated again.
+
 Not ported: the data axis (the JAX engine's DP pool), speculative decoding,
-LoRA banks, grammars, the prefix cache and W8A8 prefill.
+grammars, the prefix cache and W8A8 prefill.
 """
 
 from __future__ import annotations
@@ -64,18 +69,27 @@ class PagedServingEngine(ServingEngine):
         use_flash: Optional[bool] = None,
         decode_params: Optional[Dict[str, Any]] = None,
         sync_every: int = 8,
+        mesh=None,
         paged_kernel: str = "fused",
-        fused_decode: Optional[bool] = None,
+        prefix_cache: bool = False,
+        *,
+        spec_decode: bool = False,
         pipeline: Optional[bool] = None,
+        lora_bank: Optional[Dict[str, Any]] = None,
+        grammars=None,
+        int8_act_prefill: bool = False,
+        fused_decode: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
-        **not_ported,
     ):
-        """``n_pages``: physical pool size, page 0 being the garbage page
-        (default: half the dense engine's reservation). ``max_seq_len``
-        bounds one request's length (the page table's width) and reserves
-        nothing. ``not_ported``: the dense engine's ``mesh`` (tensor
-        parallel, module docstring), and its spec_decode, lora_bank,
-        grammars, prefix_cache and int8_act_prefill, which raise when set."""
+        """The JAX engine's parameters in its order, up to its
+        ``prefix_cache_entries`` (the prefix cache is not ported); the rest
+        are keyword-only. ``n_pages``: physical pool size, page 0 being the
+        garbage page (default: half the dense engine's reservation).
+        ``max_seq_len`` bounds one request's length (the page table's width)
+        and reserves nothing. ``mesh``: tensor parallel (module docstring).
+        ``lora_bank``: multi-LoRA serving (module docstring).
+        ``spec_decode``, ``grammars``, ``prefix_cache`` and
+        ``int8_act_prefill`` are not ported and raise when set."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")
@@ -91,8 +105,9 @@ class PagedServingEngine(ServingEngine):
         super().__init__(
             params, config, max_slots=max_slots, max_seq_len=max_seq_len,
             cache_dtype=cache_dtype, use_flash=use_flash, decode_params=decode_params,
-            sync_every=sync_every, fused_decode=fused_decode, pipeline=pipeline,
-            generator=generator, **not_ported,
+            sync_every=sync_every, mesh=mesh, fused_decode=fused_decode, pipeline=pipeline,
+            spec_decode=spec_decode, lora_bank=lora_bank, grammars=grammars,
+            prefix_cache=prefix_cache, int8_act_prefill=int8_act_prefill, generator=generator,
         )
         # page-aligned prefill buckets: a short prompt takes exactly its pages
         self._bucket_gran = max(page_size, 16)
@@ -136,6 +151,9 @@ class PagedServingEngine(ServingEngine):
             raise ValueError(f"paged_kernel={self.paged_kernel!r}: the paged attention kernel "
                              f"cannot take page_size {self.page_size} / head_dim {tc.head_dim}")
         return True
+
+    def _chain_tick(self) -> bool:
+        return self.paged_kernel == "fused"
 
     # -- backend hooks --------------------------------------------------
     def _init_cache(self):
@@ -194,6 +212,8 @@ class PagedServingEngine(ServingEngine):
         st["pos_ids"][slot] = prompt_len + 1
         st["logits"][slot] = last_logits[row]
         st["next_tok"][slot] = last_logits[row].argmax().to(torch.int32)
+        if self.lora_bank is not None:
+            st["adapter"][slot] = self._adapter_ids([req])[0]
         self._admission_order.append(slot)
 
     def _release_slot(self, slot: int) -> None:
@@ -267,7 +287,7 @@ class PagedServingEngine(ServingEngine):
         """One lockstep paged step; returns the (max_slots,) token consumed."""
         st = self.state
         kw = dict(write_pos=st["write_pos"], position_ids=st["pos_ids"],
-                  pages_bucket=pages_bucket)
+                  pages_bucket=pages_bucket, **self._tick_lora())
         if not with_sampling and kernel == "fused":
             # greedy fast path: the argmax head kernel returns the ids and
             # the stored logits go stale (greedy selection never reads them)

@@ -1,16 +1,19 @@
-"""LoRA adapters for the Gemma decoder (port of paligemma_tpu/train/lora.py;
-the multi-adapter serving bank ``stack_lora_bank`` is not ported).
+"""LoRA adapters for the Gemma decoder (port of paligemma_tpu/train/lora.py).
 
 Rank r, alpha, targets q/k/v/o/gate/up/down of every decoder layer (the
 reference's Q-LoRA recipe). Adapters are a separate tree stacked over
 layers, ``{"layers": {name: {"a": (L, in, r), "b": (L, r, out),
 "alpha": (L,)}}}``, applied un-merged in the forward
 (models/gemma._lora_delta), so only they get gradients and optimizer state.
+
+``stack_lora_bank`` stacks several adapters into the multi-LoRA serving bank
+(runtime/serving ``lora_bank``): each batch row decodes under its own
+adapter, row 0 of the bank being the all-zero adapter of the base model.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +59,50 @@ def init_lora(
             "b": torch.zeros((n_layers, rank, out_dim), dtype=dtype, device=dev),
             "alpha": torch.full((n_layers,), alpha, dtype=dtype, device=dev),
         }
+    return {"layers": layers}
+
+
+def stack_lora_bank(adapters: Sequence[Dict[str, Any]],
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Stack adapters into a multi-LoRA serving bank.
+
+    Returns ``{"layers": {name: {"a": (L, N+1, in, r), "b": (L, N+1, r,
+    out), "alpha": (L, N+1), "a_cat": (L, in, (N+1)*r), "b_cat": (L,
+    (N+1)*r, out)}}}``. The adapter axis is second, so one layer's slice is
+    an (N+1, ...) bank that per-row ids gather from (models/gemma
+    ``_lora_delta``). Index 0 is an all-zero adapter: rows serving the base
+    model select it and get a delta of exactly 0. ``a_cat`` puts every
+    adapter's A columns side by side and ``b_cat`` stacks the B rows with
+    alpha / r folded in, so a row's delta is ``(y @ a_cat) * block_mask @
+    b_cat``. Adapters must share their targets and rank."""
+    if not adapters:
+        raise ValueError("stack_lora_bank needs at least one adapter")
+    ref = adapters[0]["layers"]
+    for i, ad in enumerate(adapters[1:], start=1):
+        for name, p in ad["layers"].items():
+            if name not in ref:
+                raise ValueError(f"adapter {i} has target '{name}' the first adapter lacks; "
+                                 "multi-LoRA serving needs identical targets")
+            if p["a"].shape != ref[name]["a"].shape:
+                raise ValueError(
+                    f"adapter {i} target '{name}' rank/shape {tuple(p['a'].shape)} != "
+                    f"{tuple(ref[name]['a'].shape)}; multi-LoRA serving needs one shared rank "
+                    "(pad or retrain)")
+        if set(ad["layers"]) != set(ref):
+            raise ValueError("adapters disagree on target sets; multi-LoRA serving needs "
+                             "identical targets")
+    layers = {}
+    for name in ref:
+        p = {k: torch.stack([torch.zeros_like(ref[name][k])]
+                            + [ad["layers"][name][k] for ad in adapters], dim=1)
+             for k in ("a", "b", "alpha")}
+        if dtype is not None:
+            p = {k: x.to(dtype) for k, x in p.items()}
+        n_layers, n1, in_dim, r = p["a"].shape
+        p["a_cat"] = p["a"].permute(0, 2, 1, 3).reshape(n_layers, in_dim, n1 * r)
+        scale = (p["alpha"] / r)[:, :, None, None].to(p["b"].dtype)
+        p["b_cat"] = (p["b"] * scale).reshape(n_layers, n1 * r, -1)
+        layers[name] = p
     return {"layers": layers}
 
 

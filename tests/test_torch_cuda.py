@@ -287,6 +287,54 @@ def test_vision_attention_kernel_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 4096])
+def test_vision_attention_streams_long_sequences_on_card(s):
+    """B12 at the 224 px and 896 px towers' S (H16, D72): the streamed
+    softmax holds no row of scores, so S = 4096 runs."""
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(1, s, 16, 72, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    _close_rel(t_va.vision_attention(q, k, v), t_va.vision_attention_reference(q, k, v, 72**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+def test_lora_shrink_and_gemv_lora_epilogue_on_card(a_dtype):
+    """lora_shrink and the three LoRA epilogue modes of int8_gemv against
+    their plain versions (rows on the base model, adapter 1 and 2 of a
+    rank-4 bank, G 16); base rows only: the epilogue's bits without LoRA."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, k, n, gcols, rank = 5, 320, 256, 16, 4
+    x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.tensor([0, 1, 2, 1, 0], dtype=torch.int32, device=dev)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 1e-2
+    res = torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)
+    for bounds, kw in (((96, 160), {}), ((), {"residual": res}), ((n // 2,), {"geglu": True})):
+        ntarget = len(bounds) + 1
+        a = torch.randn(k, ntarget * gcols, generator=g, device=dev).to(a_dtype) * 0.1
+        for t in range(ntarget):
+            a[:, t * gcols:t * gcols + rank] = 0  # bank row 0: the zero adapter
+        lb = torch.randn(gcols, n, generator=g, device=dev).to(a_dtype)
+        z = t_lora.lora_shrink(x, a, ids, rank, gcols)
+        zp = t_lora.lora_shrink_reference(x, a, ids, rank, gcols)
+        _close_rel(z, zp)
+        got = t_gemv.int8_gemv(x, w8, s, lora=(z, lb, bounds), **kw)
+        _close_rel(got, t_gemv.int8_gemv_reference(x, w8, s, lora=(zp, lb, bounds), **kw))
+        plain = t_gemv.int8_gemv(x, w8, s, **kw)
+        assert torch.equal(got[ids == 0], plain[ids == 0])
+        assert not torch.equal(got[ids != 0], plain[ids != 0])
+    with pytest.raises(ValueError):
+        t_lora.lora_shrink(x.float(), a, ids, rank, gcols)
+
+
+@pytest.mark.cuda
 def test_seg_decode_attention_kernel_on_card():
     """B10 against its plain version with a pad hole, a kv_len at a tile
     edge and GQA; NaN in tiles wholly inside the hole or past kv_len is

@@ -184,11 +184,11 @@ def test_sampled_generate_same_draws_at_any_sync():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port (the serving, training and
-    ablation modules included), runs a tiny CPU generate, a tiny paged
-    serving run, a training step, the tower with attn="fused" and the
-    ablation entry points, and never imports jax or any module of the JAX
-    package."""
+    """A fresh interpreter imports the port (the serving, training, LoRA
+    and ablation modules included), runs a tiny CPU generate, a tiny paged
+    serving run, one with a multi-LoRA bank, a training step, the tower
+    with attn="fused" and the ablation entry points, and never imports jax
+    or any module of the JAX package."""
     code = textwrap.dedent("""
         import dataclasses
         import sys
@@ -201,6 +201,8 @@ def test_port_runs_without_jax():
         from paligemma_tpu_torch.runtime.serving import Request, ServingEngine
         from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
         from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+        from paligemma_tpu_torch.train.lora import init_lora, stack_lora_bank
+        from paligemma_tpu_torch.kernels import lora as kernels_lora
         from paligemma_tpu_torch.kernels.ablation import (
             decode_attention, quant4, quant_pallas, vision_attention)
         from paligemma_tpu_torch.models import siglip
@@ -221,6 +223,16 @@ def test_port_runs_without_jax():
                                  eos_token_id=-1))
         done = paged.run_to_completion()
         assert sorted(len(r.tokens) for r in done) == [3, 3, 3]
+        bank = {"x": init_lora(torch.Generator().manual_seed(3), cfg.text_config, rank=2)}
+        assert stack_lora_bank(list(bank.values()))["layers"]["q"]["a"].shape[1] == 2
+        paged = PagedServingEngine(params, cfg, max_slots=2, max_seq_len=32, page_size=16,
+                                   lora_bank=bank)
+        for i, name in enumerate((None, "x")):
+            paged.submit(Request(request_id=i, input_ids=ids[0], max_new_tokens=2, lora=name,
+                                 pixel_values=np.zeros((3, 28, 28), np.float32),
+                                 eos_token_id=-1))
+        assert [len(r.tokens) for r in paged.run_to_completion()] == [2, 2]
+        assert kernels_lora.lora_shrink.launches == 0
         tr = Trainer(params, cfg, TrainConfig(lora_rank=2, use_flash=True))
         loss = tr.train_step({"pixel_values": np.zeros((1, 3, 28, 28), np.float32),
                               "input_ids": ids, "attention_mask": np.ones_like(ids),
