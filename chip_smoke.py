@@ -173,10 +173,12 @@ TRAIN_PER_STEP = {"flash_attention_fwd": 36, "flash_attention_bwd_dq": 18,
                   "flash_attention_bwd_dkv": 18}
 TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # first step, flash kernels vs the plain attention path from the same
-# adapters: both run bf16 activations through 18 layers but round at other
-# places (the kernels keep p and ds in fp32; the plain path rounds the
-# softmax weights and their gradient to bf16), so the loss differs in the
-# fourth digit and each LoRA-b gradient by ~1e-2 of its largest element
+# adapters: both run bf16 activations through 18 layers and round the
+# softmax weights to bf16 before their product with V, but round the rest
+# at other places (the kernels round ds to bf16 before dQ and dK, where the
+# TPU kernels do; the plain path rounds the weights' gradient dP, through
+# autograd of its bf16 cast, and keeps ds in fp32), so the loss differs in
+# the fourth digit and each LoRA-b gradient by ~1e-2 of its largest element
 # (measured in PERF.md); a dropped or garbled term is off by O(1)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
@@ -206,6 +208,46 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10):
+    """Device time per call of ``fn``: torch.profiler's device-side events
+    (kernels, copies, memsets) over ``iters`` calls after a warm-up call,
+    summed and divided by ``iters``, so the host's issue time is not in it
+    (back to back, a call of a few tens of us can measure the host). Returns
+    (ms, [(event, us per call), ...] largest first), or (None, []) when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    rows = [k for k in prof.key_averages()
+            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    if not rows:
+        return None, []
+    parts = sorted(((k.key, k.self_device_time_total / iters) for k in rows), key=lambda x: -x[1])
+    return sum(us for _, us in parts) / 1e3, parts
+
+
+def device_times(label, fns, iters: int = 10):
+    """Print the device time per call (:func:`device_ms`) of each (name, fn)
+    with its largest events; returns {name: ms or None}."""
+    out = {}
+    for name, fn in fns:
+        ms, parts = device_ms(fn, iters)
+        out[name] = ms
+        if ms is None:
+            print(f"  device {name:26s} {label:40s} not measured (the profiler saw no device "
+                  f"activity)", flush=True)
+            continue
+        detail = ", ".join(f"{k[:44]} {us:.2f} us" for k, us in parts[:4])
+        print(f"  device {name:26s} {label:40s} {ms:.4f} ms per call ({detail})", flush=True)
+    return out
 
 
 def timed_pair(kernel_fn, plain_fn, iters: int):
@@ -336,6 +378,10 @@ def kernel_phase(report: KernelReport, dev):
                         flops=4 * d * hq * int(allowed.sum()), n_bytes=nbytes(q, k, v, got),
                         library_fn=lambda: F.scaled_dot_product_attention(
                             args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True))
+            device_times(label, [
+                ("flash_attention_fwd", lambda: fa.flash_attention(q, k, v, pfx, kv_len)),
+                ("SDPA", lambda: F.scaled_dot_product_attention(
+                    args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True))])
 
     # -- flash attention backward (B6) and the forward's lse: the training
     # shape (prefix 268 = 256 image + 12 prompt tokens, kv_len 512 and 400),
@@ -381,19 +427,32 @@ def kernel_phase(report: KernelReport, dev):
             except RuntimeError as e:
                 print(f"  flash backward: library call failed: {e}", flush=True)
             scale = d**-0.5
-            report.time("flash_attention_bwd_dq", label,
-                        lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, scale),
-                        lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale,
-                                                       0)[0],
-                        flops=6 * d * pairs, n_bytes=nbytes(q, k, v, dout, dq) + stats,
-                        library_fn=lib_bwd)
-            report.time("flash_attention_bwd_dkv", label,
-                        lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl,
-                                                           scale),
-                        lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale,
-                                                       0)[1:],
-                        flops=8 * d * pairs, n_bytes=nbytes(q, k, v, dout, dk, dv) + stats,
-                        library_fn=lib_bwd)
+
+            def run_dq():
+                return fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, scale)
+
+            def run_dkv():
+                return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, scale)
+
+            bound_dq = report.time(
+                "flash_attention_bwd_dq", label, run_dq,
+                lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale, 0)[0],
+                flops=6 * d * pairs, n_bytes=nbytes(q, k, v, dout, dq) + stats,
+                library_fn=lib_bwd)[3]
+            bound_dkv = report.time(
+                "flash_attention_bwd_dkv", label, run_dkv,
+                lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale, 0)[1:],
+                flops=8 * d * pairs, n_bytes=nbytes(q, k, v, dout, dk, dv) + stats,
+                library_fn=lib_bwd)[3]
+            dt = device_times(label, [("flash_attention_bwd_dq", run_dq),
+                                      ("flash_attention_bwd_dkv", run_dkv)]
+                              + ([("SDPA backward", lib_bwd)] if lib_bwd else []))
+            if None not in (dt["flash_attention_bwd_dq"], dt["flash_attention_bwd_dkv"]):
+                both = dt["flash_attention_bwd_dq"] + dt["flash_attention_bwd_dkv"]
+                lib_txt = ("not measured" if dt.get("SDPA backward") is None
+                           else f"{dt['SDPA backward']:.4f} ms")
+                print(f"  device B6 dq + dk/dv (sum included) {label}: {both:.4f} ms, bound "
+                      f"{bound_dq + bound_dkv:.4f} ms, one SDPA backward {lib_txt}", flush=True)
 
     # -- int8 GEMV at the four layer projections and the LM head
     print("kernels: int8_gemv", flush=True)
@@ -475,6 +534,9 @@ def kernel_phase(report: KernelReport, dev):
                         lambda: el.rms_norm_reference(x, wn, 1e-6),
                         flops=4 * x.numel(), n_bytes=nbytes(x, wn, got),
                         library_fn=lambda: F.rms_norm(x, (2048,), w1, 1e-6))
+            device_times(f"B{b} K2048", [
+                ("rms_norm", lambda: el.rms_norm(x, wn, 1e-6)),
+                ("F.rms_norm", lambda: F.rms_norm(x, (2048,), w1, 1e-6))])
         qkv = bf(b, 2560)
         ang = torch.from_numpy(rng.random((b, 256), dtype=np.float32) * 6.28).to(dev)
         cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)

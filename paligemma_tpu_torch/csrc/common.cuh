@@ -146,3 +146,65 @@ __device__ __forceinline__ uint32_t pack_f32_bf16x2(float lo, float hi) {
 __device__ __forceinline__ uint32_t ld_bf16x2(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
+
+// ---------------------------------------------------------------------------
+// Tile movement for the mma.sync kernels (flash_attention_bwd.cu).
+//
+// ldmatrix: a warp reads four 8x8 bf16 matrices from shared memory; lanes
+// 8i .. 8i+7 give the addresses of the 8 rows (16 contiguous bytes each) of
+// matrix i, and register i of lane l receives matrix i's row l / 4, columns
+// 2(l % 4) and 2(l % 4) + 1. With .trans lane l receives rows 2(l % 4) and
+// 2(l % 4) + 1 of column l / 4 instead, i.e. the transposed matrix's
+// fragment. So, with lr = lane % 8 and lm = lane / 8 and a row-major tile T:
+//   A fragment of rows r0.., columns c0.. (m16 x k16): row r0 + (lm & 1) * 8
+//     + lr, column c0 + (lm >> 1) * 8, plain;
+//   B fragments of two n8 tiles n0, n0 + 8 at depth c0.. with T[n][k]
+//     (B = T^T): row n0 + (lm >> 1) * 8 + lr, column c0 + (lm & 1) * 8, plain;
+//     registers 0-1 are tile n0's b[0..1], 2-3 tile n0 + 8's;
+//   the same with T[k][n] (B = T): row k0 + (lm & 1) * 8 + lr, column n0 +
+//     (lm >> 1) * 8, .trans.
+// Rows padded to a stride of 16 bytes mod 128 keep all four free of bank
+// conflicts.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Asynchronous copies from device to shared memory (sm_80+): 16 bytes
+// (both addresses 16-byte aligned) or 4 bytes; with ok false nothing is
+// read (src may be any valid address) and the destination is zero-filled,
+// which is how a tile's ragged edge is padded.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight
+// (a __syncthreads() after it makes every thread's copies visible).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}

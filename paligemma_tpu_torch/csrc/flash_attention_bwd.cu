@@ -1,4 +1,4 @@
-// Prefix-LM flash attention, backward (FlashAttention-2).
+// Prefix-LM flash attention, backward (FlashAttention-2) on the tensor cores.
 //
 // Replaces paligemma_tpu/kernels/flash_attention.py:_bwd_dq_kernel and
 // _bwd_dkv_kernel (via _flash_backward, under the custom VJP _flash). Same
@@ -7,191 +7,282 @@
 // Query heads sharing a KV head are folded into rows (row = g * Sq + i), as
 // in the forward and the TPU kernels. Inputs: q, k, v, dO (bf16), the
 // forward's lse and delta = rowsum(dO * O) (fp32, (B, Hq, Sq), i.e.
-// (B, Hkv, rows)). Per visible (row, key) pair, in fp32:
+// (B, Hkv, rows)). Per visible (row, key) pair:
 //
-//   p  = exp(scale * q.k - lse)        ds = p * (dO.v - delta)
-//   dq = scale * sum_j ds k_j          dk = scale * sum_i ds q_i    dv = sum_i p dO_i
+//   p  = exp(scale * q.k - lse)          ds = p * (dO.v - delta)      (fp32)
+//   dq = scale * sum_j bf16(ds) k_j      dk = scale * sum_i bf16(ds) q_i
+//   dv = sum_i bf16(p) dO_i                                 (fp32 sums)
 //
-// p and ds stay fp32 (the TPU kernel rounds both to bf16 before its
-// products); dq, dk and dv are rounded to bf16 once, at the end. A masked
-// pair, a padded row and a row with no visible key contribute exactly 0.
+// p and ds are rounded to bf16 before their products, where the TPU kernels
+// round them; dq, dk and dv are rounded to bf16 once, at the end. A masked
+// pair, a padded row and a row with no visible key get p = ds = 0 by a
+// select (never by exp(-inf)), so they contribute exactly 0.
 //
-// Kernels:
-// * flash_bwd_dq_kernel: one block per (16 folded rows, KV head, batch); it
-//   sweeps the key tiles up to the last key any of its rows sees.
-// * flash_bwd_dkv_kernel: one block per (16 keys, KV head, batch, split);
-//   it sweeps the folded rows of its split (all query heads of the KV head,
-//   so the GQA/MQA sum over heads happens in the block, as in
-//   _bwd_dkv_kernel), skipping row tiles that see none of its keys, and
-//   writes fp32 partials. With Gemma's one KV head the grid would be only
-//   Skv/16 * B blocks (64 at S=512, B=2: half a wave on 132 SMs), so the
-//   rows are split into `nsplit` ranges, and flash_bwd_dkv_sum adds the
-//   partials in split order (deterministic, no atomics), scales dk and
-//   rounds to bf16.
+// What bounds it: at the training shape (B = 2, S = 512, Hq = 8, Hkv = 1,
+// D = 256, prefix 268, kv_len 512 / 400) the visible (head, row, key)
+// triples number 2.62 M. dq does 6 D flops per triple (4.0 GFLOP: 4.1 us at
+// 989 TFLOP/s, about the time of its 13.7 MB at 3.35 TB/s), dk/dv 8 D (5.4
+// GFLOP, 5.4 us), so the tensor cores bound both. All five products (S, dP,
+// dQ, dK, dV) run on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), their
+// operands staged in shared memory by cp.async and read by ldmatrix
+// (common.cuh).
 //
-// What bounds it at the training shape (B=2, S=512, Hq=8, Hkv=1, D=256):
-// arithmetic, about 10 * 4096 * 512 * 256 * 2 = 10.7 GFLOP per layer if every
-// pair were visible (~11 us at 989 TFLOP/s on the tensor cores); here it
-// runs as scalar fp32 FMAs from shared memory, like the forward (mma/wgmma
-// tiles are later work). 16-row / 16-key tiles of Q, dO, K and V (rows
-// padded by 8 bf16 for conflict-free 16-byte reads) take 34-36 KB of static
-// shared memory at any head_dim that is a multiple of 8 up to 256.
+// * flash_bwd_dq_kernel: a block of 8 warps owns 64 folded rows of one
+//   (batch, KV head): 128 blocks at the training shape, one wave on 132
+//   SMs. Its Q and dO tiles stay in shared memory; 64-key K / V tiles stream
+//   through a two-stage cp.async ring up to the last key any of its rows
+//   sees. Warp (wg, wr) owns rows 16 wr .. + 15 and keys 32 wg .. + 31 of each
+//   tile: S = Q K^T and dP = dO V^T land in C fragments, p and ds are
+//   computed in registers, and the C fragments of bf16(ds) are the A
+//   fragments of dQ += dS K (no trip through shared memory), with K read by
+//   ldmatrix.trans. dQ's 16 x D fp32 accumulator is D / 2 registers a
+//   thread; at the end warp group 1 hands its accumulators to group 0
+//   through shared memory, which adds them (the key split puts 8 warps on
+//   each SM where 64 rows of 4 warps would leave 4).
+// * flash_bwd_dkv_kernel: a block of 8 warps owns 64 keys of one (batch,
+//   KV head) and one range of 64-row tiles (a split). K and V stay
+//   resident; the tiles of Q, dO, lse and delta stream through the ring,
+//   skipping tiles that see none of the block's keys. Warp (kg, h) computes
+//   S^T = K Q^T and dP^T = V dO^T for keys 16 kg .. + 15 against rows
+//   32 h .. + 31 of the tile, stores bf16 P^T and dS^T in shared memory,
+//   and after a barrier accumulates dV += P^T dO and dK += dS^T Q for keys
+//   16 kg .. + 15 and half h of D's columns: the two fp32 accumulators cost
+//   D / 2 registers a thread, as in dq. Each split writes fp32 partials
+//   (B, Hkv, Skv, D) to device memory; flash_bwd_dkv_sum adds them in split
+//   order (the same bits on every call, no atomics), scales dk and rounds
+//   both to bf16. The wrapper takes the fewest splits that give every SM
+//   one block (8 at the training shape: 128 blocks, 8 x 2.1 MB of partials).
+//
+// Every head_dim that is a multiple of 8 up to 256 runs: the depth of S and
+// dP is D rounded up to 16 with zero columns (SigLIP's 72 -> 80), and the
+// n8 tiles over D need no padding. The kernels are compiled for D <= 128 and
+// D <= 256 (the accumulators' size). Tile rows are padded by 16 bytes, so
+// ldmatrix is free of bank conflicts. Shared memory is dynamic: 198 KB (dq)
+// and 217 KB (dk/dv) at D <= 256, one block per SM. wgmma and TMA (FA3's
+// warp-specialised backward) are later work.
 #include "common.cuh"
 
-#define FB_T 16  // folded rows and keys per tile
-#define FB_THREADS 128
-#define FB_DMAX 256
-#define FB_LD (FB_DMAX + 8)
+#define BW_M 64            // folded rows of a dq block; rows of a streamed dk/dv tile
+#define BW_N 64            // keys of a streamed K / V tile of the dq block; of a dk/dv block
+#define BW_NQ 32           // keys of a dq warp's half of the K / V tile
+#define BW_PLD (BW_M + 8)  // bf16 row stride of the P^T / dS^T tiles
 
-typedef bf16 Tile[FB_LD];
+template <int DMAX>
+struct BwdSmem {
+  static constexpr int LD = DMAX + 8;  // bf16 row stride of the Q / dO / K / V tiles
+  // dq: Q, dO, then two stages of (K, V); the ring then holds the dQ hand-off
+  static constexpr int DQ_BYTES = (2 * BW_M + 4 * BW_N) * LD * (int)sizeof(bf16);
+  static_assert(BW_M * DMAX * sizeof(float) <= 4 * BW_N * LD * sizeof(bf16), "dQ hand-off");
+  // dk/dv: K, V, two stages of (Q, dO), P^T, dS^T, two stages of (lse, delta)
+  static constexpr int DKV_BYTES = (2 * BW_N + 4 * BW_M) * LD * (int)sizeof(bf16) +
+                                   2 * BW_N * BW_PLD * (int)sizeof(bf16) +
+                                   4 * BW_M * (int)sizeof(float);
+};
 
-// Folded rows row0 .. row0+FB_T-1 of a (B, Sq, Hq, D) tensor into smem, 0 past `rows`.
-__device__ __forceinline__ void load_rows(Tile* dst, const bf16* __restrict__ src, int b, int kvh,
-                                          int row0, int rows, int Sq, int Hq, int group, int D) {
-  const int nchunk = D / 8;
-  for (int idx = threadIdx.x; idx < FB_T * nchunk; idx += FB_THREADS) {
-    const int rr = idx / nchunk, c = idx - rr * nchunk;
-    const int row = row0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows) {
+// Folded rows row0 .. row0+n-1 of a (B, Sq, Hq, D) tensor into a tile of
+// stride DMAX + 8, columns [0, DP): one 16-byte cp.async per chunk, zeros
+// past `rows` and past D.
+template <int DMAX, int NT>
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* __restrict__ src, int n, int b,
+                                        int kvh, int row0, int rows, int Sq, int Hq, int group,
+                                        int D, int DP) {
+  constexpr int CH = DMAX / 8;
+  for (int idx = threadIdx.x; idx < n * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, row = row0 + r;
+    if (c * 8 >= DP) continue;
+    const bool ok = row < rows && c * 8 < D;
+    const bf16* p = src;
+    if (ok) {
       const int g = row / Sq, i = row - g * Sq;
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * Sq + i) * Hq + kvh * group + g) * D + c * 8);
+      p = src + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + g) * D + c * 8;
     }
-    *reinterpret_cast<uint4*>(&dst[rr][c * 8]) = val;
+    cp_async_16(dst + r * (DMAX + 8) + c * 8, p, ok);
   }
 }
 
-// Keys k0 .. k0+FB_T-1 of a (B, Skv, Hkv, D) tensor into smem, 0 past `klen`.
-__device__ __forceinline__ void load_keys(Tile* dst, const bf16* __restrict__ src, int b, int kvh,
-                                          int k0, int klen, int Skv, int Hkv, int D) {
-  const int nchunk = D / 8;
-  for (int idx = threadIdx.x; idx < FB_T * nchunk; idx += FB_THREADS) {
-    const int jj = idx / nchunk, c = idx - jj * nchunk;
-    const int key = k0 + jj;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (key < klen)
-      val = *reinterpret_cast<const uint4*>(src + (((size_t)b * Skv + key) * Hkv + kvh) * D + c * 8);
-    *reinterpret_cast<uint4*>(&dst[jj][c * 8]) = val;
+// Keys k0 .. k0+n-1 of a (B, Skv, Hkv, D) tensor, as cp_rows: zeros at and
+// past klen (so a masked key's 0 weight never meets a stale value) and past D.
+template <int DMAX, int NT>
+__device__ __forceinline__ void cp_keys(bf16* dst, const bf16* __restrict__ src, int n, int b,
+                                        int kvh, int k0, int klen, int Skv, int Hkv, int D,
+                                        int DP) {
+  constexpr int CH = DMAX / 8;
+  for (int idx = threadIdx.x; idx < n * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, key = k0 + r;
+    if (c * 8 >= DP) continue;
+    const bool ok = key < klen && c * 8 < D;
+    const bf16* p = ok ? src + (((size_t)b * Skv + key) * Hkv + kvh) * D + c * 8 : src;
+    cp_async_16(dst + r * (DMAX + 8) + c * 8, p, ok);
   }
 }
 
-// One past the last key any folded row of the tile at row0 sees.
+// One past the last key any folded row of the 64-row tile at row0 sees.
 __device__ __forceinline__ int tile_key_end(int row0, int rows, int Sq, int q_offset, int plen,
                                             int klen) {
-  const int last = min(row0 + FB_T, rows) - 1;
+  const int last = min(row0 + BW_M, rows) - 1;
   if (last < row0) return 0;
   const int max_i = (row0 / Sq == last / Sq) ? last - (last / Sq) * Sq : Sq - 1;
   return min(klen, max(plen, max_i + q_offset + 1));
 }
 
-// p and ds of row r = tid / 8 against keys sub and sub + 8 (sub = tid % 8) of
-// the key tile at k0: two dot products of length D per key.
-__device__ __forceinline__ void score_pair(Tile* qs, Tile* dos, Tile* ks, Tile* vs, int D,
-                                           float scale, float lse_r, float delta_r, bool row_ok,
-                                           int pos, int plen, int klen, int k0, float* p,
-                                           float* ds) {
-  const int r = threadIdx.x >> 3, sub = threadIdx.x & 7;
-  float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-  for (int c = 0; c < D / 8; ++c) {
-    float qf[8], of[8];
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(&qs[r][c * 8]), qf);
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(&dos[r][c * 8]), of);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      float kf[8], vf[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(&ks[sub + 8 * t][c * 8]), kf);
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(&vs[sub + 8 * t][c * 8]), vf);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[t] = fmaf(qf[e], kf[e], s[t]);
-        dp[t] = fmaf(of[e], vf[e], dp[t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int key = k0 + sub + 8 * t;
-    const bool allowed = row_ok && key < klen && (key < plen || key <= pos);
-    p[t] = allowed ? __expf(s[t] * scale - lse_r) : 0.f;
-    ds[t] = p[t] * (dp[t] - delta_r);
-  }
-}
-
-__global__ void __launch_bounds__(FB_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(256, 1)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const int* __restrict__ prefix_len, const int* __restrict__ kv_len,
                         bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
                         float scale, int q_offset) {
-  __shared__ __align__(16) bf16 qs[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 dos[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 ks[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 vs[FB_T][FB_LD];
-  __shared__ float dss[FB_T][FB_T];
+  constexpr int LD = BwdSmem<DMAX>::LD, NT = DMAX / 8;  // NT: n8 tiles over D
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + BW_M * LD;
+  bf16* kvs = dos + BW_M * LD;  // stage s: K at kvs + 2 s BW_N LD, V after it
 
-  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * FB_T;
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * BW_M;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int r = threadIdx.x >> 3, sub = threadIdx.x & 7;
-  load_rows(qs, q, b, kvh, row0, rows, Sq, Hq, group, D);
-  load_rows(dos, dout, b, kvh, row0, rows, Sq, Hq, group, D);
-
-  const int my_row = row0 + r;
-  const bool row_ok = my_row < rows;
-  const int my_g = my_row / Sq, my_i = my_row - my_g * Sq;
-  const size_t stat = ((size_t)b * Hkv + kvh) * rows + my_row;
-  const float lse_r = row_ok ? lse[stat] : 0.f, delta_r = row_ok ? delta[stat] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp & 3, wg = warp >> 2;  // rows 16 wr .., keys 32 wg .. of each tile
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int DP = (D + 15) & ~15;
   const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
   const int kend = tile_key_end(row0, rows, Sq, q_offset, plen, klen);
+  const int n_kt = (kend + BW_N - 1) / BW_N;
 
-  float acc[4][8];
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[cc][e] = 0.f;
+  if (n_kt > 0) {
+    cp_rows<DMAX, 256>(qs, q, BW_M, b, kvh, row0, rows, Sq, Hq, group, D, DP);
+    cp_rows<DMAX, 256>(dos, dout, BW_M, b, kvh, row0, rows, Sq, Hq, group, D, DP);
+    cp_keys<DMAX, 256>(kvs, k, BW_N, b, kvh, 0, klen, Skv, Hkv, D, DP);
+    cp_keys<DMAX, 256>(kvs + BW_N * LD, v, BW_N, b, kvh, 0, klen, Skv, Hkv, D, DP);
+    cp_async_commit();
+  }
 
-  for (int k0 = 0; k0 < kend; k0 += FB_T) {
-    __syncthreads();  // the Q/dO loads are done, the previous K/V tile is no longer read
-    load_keys(ks, k, b, kvh, k0, klen, Skv, Hkv, D);
-    load_keys(vs, v, b, kvh, k0, klen, Skv, Hkv, D);
-    __syncthreads();
-    float p[2], ds[2];
-    score_pair(qs, dos, ks, vs, D, scale, lse_r, delta_r, row_ok, my_i + q_offset, plen, klen, k0,
-               p, ds);
-    dss[r][sub] = ds[0];
-    dss[r][sub + 8] = ds[1];
-    __syncwarp();  // dss[r][*] is written and read by the same 8 lanes
+  // this thread's rows of the warp's 16: g and g + 8
+  bool rok[2];
+  int pos[2];
+  float lse_r[2], dl_r[2];
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int d0 = sub * 8 + 64 * cc;
-      if (d0 < D) {
-        for (int j = 0; j < FB_T; ++j) {
-          const float w = dss[r][j];
-          float kf[8];
-          bf16x8_to_float(*reinterpret_cast<const uint4*>(&ks[j][d0]), kf);
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + wr * 16 + g + 8 * h;
+    const size_t stat = ((size_t)b * Hkv + kvh) * rows + row;
+    rok[h] = row < rows;
+    pos[h] = row % Sq + q_offset;
+    lse_r[h] = rok[h] ? lse[stat] : 0.f;
+    dl_r[h] = rok[h] ? delta[stat] : 0.f;
+  }
+
+  float acc[NT][4];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[cc][e] = fmaf(w, kf[e], acc[cc][e]);
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  const int a_off = (wr * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;  // A of Q, dO
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt is visible to all; tile kt - 1's stage is no longer read
+    if (kt + 1 < n_kt) {
+      bf16* nxt = kvs + ((kt + 1) & 1) * 2 * BW_N * LD;
+      const int k1 = (kt + 1) * BW_N;
+      cp_keys<DMAX, 256>(nxt, k, BW_N, b, kvh, k1, klen, Skv, Hkv, D, DP);
+      cp_keys<DMAX, 256>(nxt + BW_N * LD, v, BW_N, b, kvh, k1, klen, Skv, Hkv, D, DP);
+      cp_async_commit();
+    }
+    const int k0 = kt * BW_N + wg * BW_NQ;
+    if (k0 >= kend) continue;  // warp-uniform: this warp's keys are past every row's last
+    const bf16* ks = kvs + (kt & 1) * 2 * BW_N * LD + wg * BW_NQ * LD;
+    const bf16* vs = ks + BW_N * LD;
+
+    // S and dP of the warp's 16 rows against the tile's 32 keys
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      if (kk * 16 < DP) {
+        uint32_t a_q[4], a_o[4];
+        ldsm_x4(a_q, qs + a_off + kk * 16);
+        ldsm_x4(a_o, dos + a_off + kk * 16);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int off = (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8;
+          uint32_t b_k[4], b_v[4];
+          ldsm_x4(b_k, ks + off);
+          ldsm_x4(b_v, vs + off);
+          mma_bf16_16816(s[2 * np], a_q, b_k);
+          mma_bf16_16816(s[2 * np + 1], a_q, b_k + 2);
+          mma_bf16_16816(dp[2 * np], a_o, b_v);
+          mma_bf16_16816(dp[2 * np + 1], a_o, b_v + 2);
         }
       }
     }
-    __syncwarp();
+
+    // p and ds of rows g, g + 8 against keys k0 + 8 nt + 2t (+ 1); the C
+    // fragments of key tiles 2 kk and 2 kk + 1 are the A fragment of keys
+    // 16 kk .. + 15
+    uint32_t a_ds[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = k0 + nt * 8 + 2 * t + (e & 1);
+        const bool ok = rok[h] && key < klen && (key < plen || key <= pos[h]);
+        ds[e] = ok ? __expf(s[nt][e] * scale - lse_r[h]) * (dp[nt][e] - dl_r[h]) : 0.f;
+      }
+      a_ds[nt >> 1][(nt & 1) * 2] = pack_f32_bf16x2(ds[0], ds[1]);
+      a_ds[nt >> 1][(nt & 1) * 2 + 1] = pack_f32_bf16x2(ds[2], ds[3]);
+    }
+
+    // dQ += dS K, with K[key][d] as B[k = key][n = d]
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int pr = 0; pr < DMAX / 16; ++pr) {
+        if (pr * 16 < DP) {
+          uint32_t b_k[4];
+          ldsm_x4_trans(b_k, ks + (kk * 16 + (lm & 1) * 8 + lr) * LD + pr * 16 + (lm >> 1) * 8);
+          mma_bf16_16816(acc[2 * pr], a_ds[kk], b_k);
+          mma_bf16_16816(acc[2 * pr + 1], a_ds[kk], b_k + 2);
+        }
+      }
+    }
   }
 
-  if (row_ok) {
-    bf16* dp = dq + (((size_t)b * Sq + my_i) * Hq + kvh * group + my_g) * D;
+  // warp group 1's dQ to group 0 through the ring (each value to the lane
+  // that holds the same element), then group 0 adds it and stores
+  __syncthreads();  // every warp is done with the ring
+  float* hand = reinterpret_cast<float*>(kvs) + wr * NT * 4 * 32 + lane;
+  if (wg == 1) {
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int d0 = sub * 8 + 64 * cc;
-      if (d0 < D) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dp[d0 + e] = f2bf(acc[cc][e] * scale);
-      }
+      for (int e = 0; e < 4; ++e) hand[(nt * 4 + e) * 32] = acc[nt][e];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += hand[(nt * 4 + e) * 32];
+
+  // dq of rows g and g + 8: columns 8 nt + 2t, + 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rok[h]) continue;
+    const int row = row0 + wr * 16 + g + 8 * h, gi = row / Sq, i = row - gi * Sq;
+    bf16* dst = dq + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * 8 < D)
+        *reinterpret_cast<uint32_t*>(dst + nt * 8) =
+            pack_f32_bf16x2(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
     }
   }
 }
 
-__global__ void __launch_bounds__(FB_THREADS)
+template <int DMAX>
+__global__ void __launch_bounds__(256, 1)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
@@ -199,85 +290,167 @@ __global__ void __launch_bounds__(FB_THREADS)
                          float* __restrict__ part_dk, float* __restrict__ part_dv, int Sq,
                          int Skv, int Hq, int Hkv, int D, float scale, int q_offset,
                          int tiles_per_split) {
-  __shared__ __align__(16) bf16 qs[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 dos[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 ks[FB_T][FB_LD];
-  __shared__ __align__(16) bf16 vs[FB_T][FB_LD];
-  __shared__ float ps[FB_T][FB_T];
-  __shared__ float dss[FB_T][FB_T];
+  constexpr int LD = BwdSmem<DMAX>::LD, NH = DMAX / 16;  // NH: n8 tiles of half of D
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + BW_N * LD;
+  bf16* qd = vs + BW_N * LD;       // stage s: Q at qd + 2 s BW_M LD, dO after it
+  bf16* pts = qd + 4 * BW_M * LD;  // P^T (BW_N keys x BW_M rows)
+  bf16* dsts = pts + BW_N * BW_PLD;  // dS^T
+  float* stats = reinterpret_cast<float*>(dsts + BW_N * BW_PLD);  // stage s: lse, then delta
 
-  const int nkt = (Skv + FB_T - 1) / FB_T;
+  const int nkt = (Skv + BW_N - 1) / BW_N;
   const int kt = blockIdx.x % nkt, split = blockIdx.x / nkt;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = kt * FB_T;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = kt * BW_N;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int r = threadIdx.x >> 3, sub = threadIdx.x & 7;  // r: row in the score pass, key after
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int kg = warp & 3, hh = warp >> 2;
+  const int DP = (D + 15) & ~15;
   const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  const int t_end = min((rows + BW_M - 1) / BW_M, (split + 1) * tiles_per_split);
+  const size_t stat0 = ((size_t)b * Hkv + kvh) * rows;
 
-  float acc_dk[4][8], acc_dv[4][8];
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc_dk[cc][e] = acc_dv[cc][e] = 0.f;
+  // the first row tile at or after tt that sees a key of this block (t_end: none)
+  auto next_tile = [&](int tt) {
+    while (tt < t_end && tile_key_end(tt * BW_M, rows, Sq, q_offset, plen, klen) <= k0) ++tt;
+    return tt;
+  };
+  auto load_tile = [&](int tt, int st) {
+    bf16* qst = qd + st * 2 * BW_M * LD;
+    cp_rows<DMAX, 256>(qst, q, BW_M, b, kvh, tt * BW_M, rows, Sq, Hq, group, D, DP);
+    cp_rows<DMAX, 256>(qst + BW_M * LD, dout, BW_M, b, kvh, tt * BW_M, rows, Sq, Hq, group, D,
+                       DP);
+    if (threadIdx.x < 2 * BW_M) {  // lse by threads 0-63, delta by 64-127
+      const int row = tt * BW_M + (threadIdx.x & (BW_M - 1));
+      const float* src = threadIdx.x < BW_M ? lse : delta;
+      cp_async_4(stats + st * 2 * BW_M + threadIdx.x, row < rows ? src + stat0 + row : src,
+                 row < rows);
+    }
+  };
 
-  if (k0 < klen) {
-    load_keys(ks, k, b, kvh, k0, klen, Skv, Hkv, D);
-    load_keys(vs, v, b, kvh, k0, klen, Skv, Hkv, D);
-    const int n_tiles = (rows + FB_T - 1) / FB_T;
-    const int t_end = min(n_tiles, (split + 1) * tiles_per_split);
-    for (int t = split * tiles_per_split; t < t_end; ++t) {
-      const int row0 = t * FB_T;
-      if (tile_key_end(row0, rows, Sq, q_offset, plen, klen) <= k0) continue;  // block-uniform
-      __syncthreads();  // the previous tile's Q/dO/p/ds are no longer read
-      load_rows(qs, q, b, kvh, row0, rows, Sq, Hq, group, D);
-      load_rows(dos, dout, b, kvh, row0, rows, Sq, Hq, group, D);
-      const int my_row = row0 + r;
-      const bool row_ok = my_row < rows;
-      const int my_i = my_row - (my_row / Sq) * Sq;
-      const size_t stat = ((size_t)b * Hkv + kvh) * rows + my_row;
-      const float lse_r = row_ok ? lse[stat] : 0.f, delta_r = row_ok ? delta[stat] : 0.f;
-      __syncthreads();
-      float p[2], ds[2];
-      score_pair(qs, dos, ks, vs, D, scale, lse_r, delta_r, row_ok, my_i + q_offset, plen, klen,
-                 k0, p, ds);
-      ps[r][sub] = p[0];
-      ps[r][sub + 8] = p[1];
-      dss[r][sub] = ds[0];
-      dss[r][sub + 8] = ds[1];
-      __syncthreads();
-      // thread (key r, sub): dv[r] += p[i][r] dO[i], dk[r] += ds[i][r] q[i]
-      for (int i = 0; i < FB_T; ++i) {
-        const float pv = ps[i][r], dsv = dss[i][r];
+  float acc_dv[NH][4], acc_dk[NH][4];
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int d0 = sub * 8 + 64 * cc;
-          if (d0 < D) {
-            float of[8], qf[8];
-            bf16x8_to_float(*reinterpret_cast<const uint4*>(&dos[i][d0]), of);
-            bf16x8_to_float(*reinterpret_cast<const uint4*>(&qs[i][d0]), qf);
+  for (int nt = 0; nt < NH; ++nt)
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              acc_dv[cc][e] = fmaf(pv, of[e], acc_dv[cc][e]);
-              acc_dk[cc][e] = fmaf(dsv, qf[e], acc_dk[cc][e]);
-            }
-          }
+    for (int e = 0; e < 4; ++e) acc_dv[nt][e] = acc_dk[nt][e] = 0.f;
+
+  int tt = k0 < klen ? next_tile(split * tiles_per_split) : t_end;
+  if (tt < t_end) {
+    cp_keys<DMAX, 256>(ks, k, BW_N, b, kvh, k0, klen, Skv, Hkv, D, DP);
+    cp_keys<DMAX, 256>(vs, v, BW_N, b, kvh, k0, klen, Skv, Hkv, D, DP);
+    load_tile(tt, 0);
+    cp_async_commit();
+  }
+  const int a_off = (kg * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;  // A of K, V
+  const int pa_off = (kg * 16 + (lm & 1) * 8 + lr) * BW_PLD + (lm >> 1) * 8;  // A of P^T, dS^T
+  for (int it = 0; tt < t_end; ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile tt is visible to all; the previous tile's stage, P^T and dS^T are free
+    const int tn = next_tile(tt + 1);
+    if (tn < t_end) {
+      load_tile(tn, st ^ 1);
+      cp_async_commit();
+    }
+    const bf16* qst = qd + st * 2 * BW_M * LD;
+    const bf16* dost = qst + BW_M * LD;
+    const float* lse_s = stats + st * 2 * BW_M;
+    const int row0 = tt * BW_M;
+
+    // S^T and dP^T of keys 16 kg .. + 15 against rows 32 hh .. + 31
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      if (kk * 16 < DP) {
+        uint32_t a_k[4], a_v[4];
+        ldsm_x4(a_k, ks + a_off + kk * 16);
+        ldsm_x4(a_v, vs + a_off + kk * 16);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int off = (hh * 32 + np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8;
+          uint32_t b_q[4], b_o[4];
+          ldsm_x4(b_q, qst + off);
+          ldsm_x4(b_o, dost + off);
+          mma_bf16_16816(s[2 * np], a_k, b_q);
+          mma_bf16_16816(s[2 * np + 1], a_k, b_q + 2);
+          mma_bf16_16816(dp[2 * np], a_v, b_o);
+          mma_bf16_16816(dp[2 * np + 1], a_v, b_o + 2);
         }
       }
     }
+
+    // bf16 P^T and dS^T into shared memory: element e of tile nt is key
+    // 16 kg + g + 8 (e >> 1) against row 32 hh + 8 nt + 2t + (e & 1)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = hh * 32 + nt * 8 + 2 * t + c, row = row0 + r;
+        const bool rok = row < rows;
+        const int pos = row % Sq + q_offset;
+        const float l = lse_s[r], dl = lse_s[BW_M + r];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = k0 + kg * 16 + g + 8 * h, e = 2 * h + c;
+          const bool ok = rok && key < klen && (key < plen || key <= pos);
+          p[e] = ok ? __expf(s[nt][e] * scale - l) : 0.f;
+          ds[e] = ok ? p[e] * (dp[nt][e] - dl) : 0.f;
+        }
+      }
+      const int at = (kg * 16 + g) * BW_PLD + hh * 32 + nt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(pts + at) = pack_f32_bf16x2(p[0], p[1]);
+      *reinterpret_cast<uint32_t*>(pts + at + 8 * BW_PLD) = pack_f32_bf16x2(p[2], p[3]);
+      *reinterpret_cast<uint32_t*>(dsts + at) = pack_f32_bf16x2(ds[0], ds[1]);
+      *reinterpret_cast<uint32_t*>(dsts + at + 8 * BW_PLD) = pack_f32_bf16x2(ds[2], ds[3]);
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 rows, for the columns
+    // of half hh of D (dO[row][d] and Q[row][d] as B[k = row][n = d])
+#pragma unroll
+    for (int kk = 0; kk < BW_M / 16; ++kk) {
+      uint32_t a_p[4], a_s[4];
+      ldsm_x4(a_p, pts + pa_off + kk * 16);
+      ldsm_x4(a_s, dsts + pa_off + kk * 16);
+#pragma unroll
+      for (int pr = 0; pr < NH / 2; ++pr) {
+        const int c0 = hh * (DMAX / 2) + pr * 16;
+        if (c0 < DP) {
+          const int off = (kk * 16 + (lm & 1) * 8 + lr) * LD + c0 + (lm >> 1) * 8;
+          uint32_t b_o[4], b_q[4];
+          ldsm_x4_trans(b_o, dost + off);
+          ldsm_x4_trans(b_q, qst + off);
+          mma_bf16_16816(acc_dv[2 * pr], a_p, b_o);
+          mma_bf16_16816(acc_dv[2 * pr + 1], a_p, b_o + 2);
+          mma_bf16_16816(acc_dk[2 * pr], a_s, b_q);
+          mma_bf16_16816(acc_dk[2 * pr + 1], a_s, b_q + 2);
+        }
+      }
+    }
+    tt = tn;
   }
 
-  const int key = k0 + r;
-  if (key < Skv) {
-    const size_t total = (size_t)gridDim.z * Hkv * Skv * D;
-    const size_t off = split * total + (((size_t)b * Hkv + kvh) * Skv + key) * D;
+  // fp32 partials of keys k0 + 16 kg + g (+ 8), columns hh D / 2 + 8 nt + 2t
+  const size_t total = (size_t)gridDim.z * Hkv * Skv * D;
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int d0 = sub * 8 + 64 * cc;
-      if (d0 < D) {
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kg * 16 + g + 8 * h;
+    if (key >= Skv) continue;
+    const size_t off = split * total + (((size_t)b * Hkv + kvh) * Skv + key) * D + 2 * t;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          part_dk[off + d0 + e] = acc_dk[cc][e];
-          part_dv[off + d0 + e] = acc_dv[cc][e];
-        }
+    for (int nt = 0; nt < NH; ++nt) {
+      const int col = hh * (DMAX / 2) + nt * 8;
+      if (col < D) {
+        *reinterpret_cast<float2*>(part_dk + off + col) =
+            make_float2(acc_dk[nt][2 * h], acc_dk[nt][2 * h + 1]);
+        *reinterpret_cast<float2*>(part_dv + off + col) =
+            make_float2(acc_dv[nt][2 * h], acc_dv[nt][2 * h + 1]);
       }
     }
   }
@@ -285,40 +458,89 @@ __global__ void __launch_bounds__(FB_THREADS)
 
 // dk = scale * sum of the dk partials, dv = sum of the dv partials, in split
 // order; partials are (nsplit, B, Hkv, Skv, D), outputs (B, Skv, Hkv, D).
+// Each thread adds 4 consecutive columns (D % 8 == 0).
 __global__ void flash_bwd_dkv_sum(const float* __restrict__ part_dk,
                                   const float* __restrict__ part_dv, bf16* __restrict__ dk,
                                   bf16* __restrict__ dv, int nsplit, int B, int Skv, int Hkv,
                                   int D, float scale) {
   const size_t total = (size_t)B * Hkv * Skv * D;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t idx = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (idx >= total) return;
   const int d = idx % D;
   size_t rest = idx / D;
   const int key = rest % Skv;
   rest /= Skv;
   const int kvh = rest % Hkv, b = rest / Hkv;
-  float sk = 0.f, sv = 0.f;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
   for (int s = 0; s < nsplit; ++s) {
-    sk += part_dk[s * total + idx];
-    sv += part_dv[s * total + idx];
+    const float4 a = *reinterpret_cast<const float4*>(part_dk + s * total + idx);
+    const float4 c = *reinterpret_cast<const float4*>(part_dv + s * total + idx);
+    sk.x += a.x, sk.y += a.y, sk.z += a.z, sk.w += a.w;
+    sv.x += c.x, sv.y += c.y, sv.z += c.z, sv.w += c.w;
   }
   const size_t out = (((size_t)b * Skv + key) * Hkv + kvh) * D + d;
-  dk[out] = f2bf(sk * scale);
-  dv[out] = f2bf(sv);
+  *reinterpret_cast<uint2*>(dk + out) =
+      make_uint2(pack_f32_bf16x2(sk.x * scale, sk.y * scale),
+                 pack_f32_bf16x2(sk.z * scale, sk.w * scale));
+  *reinterpret_cast<uint2*>(dv + out) =
+      make_uint2(pack_f32_bf16x2(sv.x, sv.y), pack_f32_bf16x2(sv.z, sv.w));
 }
 
+// The kernel's dynamic shared memory above 48 KB, allowed once per process.
+template <typename Kernel>
+static int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DMAX>
+static int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* prefix_len,
+                     const void* kv_len, void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
+                     int D, float scale, int q_offset, cudaStream_t st) {
+  constexpr int bytes = BwdSmem<DMAX>::DQ_BYTES;
+  static const int attr = allow_smem(flash_bwd_dq_kernel<DMAX>, bytes);
+  if (attr != 0) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  dim3 grid((rows + BW_M - 1) / BW_M, Hkv, B);
+  flash_bwd_dq_kernel<DMAX><<<grid, 256, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (bf16*)dq, Sq, Skv, Hq,
+      Hkv, D, scale, q_offset);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+static int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, const void* prefix_len,
+                      const void* kv_len, void* part_dk, void* part_dv, int B, int Sq, int Skv,
+                      int Hq, int Hkv, int D, int nsplit, float scale, int q_offset,
+                      cudaStream_t st) {
+  constexpr int bytes = BwdSmem<DMAX>::DKV_BYTES;
+  static const int attr = allow_smem(flash_bwd_dkv_kernel<DMAX>, bytes);
+  if (attr != 0) return attr;
+  const int n_tiles = ((Hq / Hkv) * Sq + BW_M - 1) / BW_M;
+  const int tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
+  dim3 grid(((Skv + BW_N - 1) / BW_N) * nsplit, Hkv, B);
+  flash_bwd_dkv_kernel<DMAX><<<grid, 256, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (float*)part_dk,
+      (float*)part_dv, Sq, Skv, Hq, Hkv, D, scale, q_offset, tiles_per_split);
+  return (int)cudaGetLastError();
+}
+
+// q, dout: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) bf16, contiguous, 16-byte
+// aligned, D % 8 == 0 and D <= 256 (the wrapper checks these).
 PG_EXPORT int pg_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         const void* prefix_len, const void* kv_len, void* dq,
                                         int B, int Sq, int Skv, int Hq, int Hkv, int D,
                                         float scale, int q_offset, void* stream) {
-  const int rows = (Hq / Hkv) * Sq;
-  dim3 grid((rows + FB_T - 1) / FB_T, Hkv, B);
-  flash_bwd_dq_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (bf16*)dq, Sq, Skv, Hq,
-      Hkv, D, scale, q_offset);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq,
+                          Hkv, D, scale, q_offset, st);
+  return launch_dq<256>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq, Hkv,
+                        D, scale, q_offset, st);
 }
 
 PG_EXPORT int pg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -327,22 +549,17 @@ PG_EXPORT int pg_flash_attention_bwd_dkv(const void* q, const void* k, const voi
                                          void* part_dk, void* part_dv, void* dk, void* dv, int B,
                                          int Sq, int Skv, int Hq, int Hkv, int D, int nsplit,
                                          float scale, int q_offset, void* stream) {
-  const int rows = (Hq / Hkv) * Sq;
-  const int n_tiles = (rows + FB_T - 1) / FB_T;
-  const int tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
-  const int nkt = (Skv + FB_T - 1) / FB_T;
-  dim3 grid(nkt * nsplit, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, FB_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (float*)part_dk,
-      (float*)part_dv, Sq, Skv, Hq, Hkv, D, scale, q_offset, tiles_per_split);
-  int err = (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err =
+      D <= 128 ? launch_dkv<128>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk,
+                                 part_dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st)
+               : launch_dkv<256>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk,
+                                 part_dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
   if (err != 0) return err;
-  const size_t total = (size_t)B * Hkv * Skv * D;
+  const size_t quads = (size_t)B * Hkv * Skv * D / 4;
   const int threads = 256;
-  flash_bwd_dkv_sum<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                      (cudaStream_t)stream>>>((const float*)part_dk, (const float*)part_dv,
-                                              (bf16*)dk, (bf16*)dv, nsplit, B, Skv, Hkv, D,
-                                              scale);
+  flash_bwd_dkv_sum<<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
+      (const float*)part_dk, (const float*)part_dv, (bf16*)dk, (bf16*)dv, nsplit, B, Skv, Hkv,
+      D, scale);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@ then the dq kernel and the dk/dv kernel (``csrc/flash_attention_bwd.cu``),
 which recompute the probabilities from (q, k, lse). For CUDA tensors the
 wrappers launch ``csrc/flash_attention.cu`` and the backward kernels or
 raise; for CPU tensors they run the plain versions here: fp32 scores and
-softmax, and the same FA2 arithmetic in fp32 torch.
+softmax, and the same FA2 arithmetic in fp32 torch, with p and ds rounded to
+the inputs' dtype before their products where the TPU kernels (and the CUDA
+kernels' bf16 tensor-core operands) round them.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-BWD_TILE = 16  # folded rows / keys per block of the backward kernels
-# dk/dv blocks wanted in flight: 4 per SM of an H100 (132 SMs)
-_DKV_TARGET_BLOCKS = 4 * 132
+BWD_ROWS = 64  # folded rows per streamed tile of the dk/dv kernel (and per dq block)
+BWD_KEYS = 64  # keys per dk/dv block
+# an H100's SMs: a dk/dv block (8 warps, 217 KB of shared memory) fills one
+_SMS = 132
 
 
 def _allowed(sq, skv, prefix_len, kv_len, q_offset, dev) -> torch.Tensor:
@@ -85,7 +88,11 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset):
     """Plain version of the backward kernels: FA2 in fp32 from (q, k, lse)
-    and delta. Returns (dq, dk, dv) in the inputs' dtypes."""
+    and delta, with p rounded to dO's dtype before dV and ds to q's dtype
+    before dQ and dK, as the TPU kernels round them
+    (paligemma_tpu/kernels/flash_attention.py ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel``; the identity for fp32 inputs). Returns (dq, dk, dv)
+    in the inputs' dtypes."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -98,9 +105,10 @@ def _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_
     p = torch.where(allowed, torch.exp(s - lse_g), torch.zeros_like(s))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
     ds = p * (dp - delta.reshape(b, hkv, g, sq, 1))
+    ds = ds.to(q.dtype).float()
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dout.dtype).float(), dog)
     return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -250,8 +258,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len, scale=
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
-    """dq (B, Sq, Hq, D): one kernel block per 16 folded rows, KV head and
-    batch row, sweeping the key tiles its rows see."""
+    """dq (B, Sq, Hq, D): one kernel block per 64 folded rows, KV head and
+    batch row, streaming the key tiles its rows see."""
     if not q.is_cuda:
         return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
                                    q_offset)[0]
@@ -274,16 +282,18 @@ flash_attention_bwd_dq.launches = 0
 
 
 def dkv_splits(b: int, hkv: int, rows: int, skv: int) -> int:
-    """Row ranges the dk/dv sweep is split into, so that about
-    ``_DKV_TARGET_BLOCKS`` blocks run (Gemma's one KV head leaves only
-    Skv/16 * B key tiles), never more than there are row tiles."""
-    key_blocks = -(-skv // BWD_TILE) * hkv * b
-    row_tiles = -(-rows // BWD_TILE)
-    return max(1, min(row_tiles, -(-_DKV_TARGET_BLOCKS // key_blocks)))
+    """Row ranges the dk/dv sweep is split into: the most that keep all
+    blocks in one wave of one block per SM (Gemma's one KV head leaves only
+    Skv/64 * B key blocks), never more than there are row tiles. Each split
+    writes B * Hkv * Skv * D fp32 partials of dk and of dv, so no more
+    splits than the SMs need."""
+    key_blocks = -(-skv // BWD_KEYS) * hkv * b
+    row_tiles = -(-rows // BWD_ROWS)
+    return max(1, min(row_tiles, _SMS // key_blocks))
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
-    """(dk, dv) (B, Skv, Hkv, D): one kernel block per 16 keys, KV head,
+    """(dk, dv) (B, Skv, Hkv, D): one kernel block per 64 keys, KV head,
     batch row and row split, summing over every query head of the KV head;
     a second pass adds the splits' fp32 partials in a fixed order."""
     if not q.is_cuda:

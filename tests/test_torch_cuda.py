@@ -140,8 +140,11 @@ def test_paged_kernels_match_plain_versions_on_card():
 def test_flash_backward_kernels_match_plain_version_on_card():
     """The flash forward's lse and the B6 backward kernels (dq, dk/dv with
     the split row sweep) against the plain FA2 backward on the same inputs:
-    prefix-LM MQA with a padded row, GQA at head_dim 72, a kv_len 0 row
-    (exact zeros); and flash_attention's autograd path launches each
+    the training shape (prefix 268 = 256 image + 12 prompt tokens, kv_len
+    512 / 400), GQA at S 199 (64-row tiles straddle two query heads),
+    prefix-LM MQA with a padded row, GQA at head_dim 72 with a kv_len 0 row
+    (exact zeros); a second call gives the same bits (dk/dv partials added
+    in a fixed order); and flash_attention's autograd path launches each
     kernel once per backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (nvcc and triton on its host)")
@@ -151,7 +154,9 @@ def test_flash_backward_kernels_match_plain_version_on_card():
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    for b, s, hq, hkv, d, pfx, kvl in ((2, 70, 8, 1, 256, [30, 41], [70, 52]),
+    for b, s, hq, hkv, d, pfx, kvl in ((2, 512, 8, 1, 256, [268, 268], [512, 400]),
+                                       (2, 199, 4, 2, 256, [60, 100], [199, 150]),
+                                       (2, 70, 8, 1, 256, [30, 41], [70, 52]),
                                        (2, 40, 4, 2, 72, [17, 0], [40, 0])):
         q, k, v, dout = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
         pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
@@ -167,6 +172,9 @@ def test_flash_backward_kernels_match_plain_version_on_card():
         for got, ref in zip((dq, dk, dv), want):
             scale = float(ref.float().abs().max())
             assert float((got.float() - ref.float()).abs().max()) <= 2e-2 * max(1.0, scale)
+        again = (t_flash.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, d**-0.5),
+                 *t_flash.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, d**-0.5))
+        assert all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv)))
         if kvl[1] == 0:
             assert not dq[1].any() and not dk[1].any() and not dv[1].any()
             assert not out[1].any() and not lse[1].any()

@@ -166,6 +166,48 @@ def test_flash_forward_backward_matches_pallas(b, s, hq, hkv, d, case):
     assert not out.detach().numpy()[~seen].any() and not lse.numpy().transpose(0, 2, 1)[~seen].any()
 
 
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d",
+    [
+        (2, 130, 8, 1, 256),  # Gemma's heads, a padded 128-row tile, prefix-LM
+        (2, 40, 4, 2, 72),  # GQA, SigLIP's head_dim 72
+    ],
+)
+def test_flash_backward_bf16_matches_pallas(b, s, hq, hkv, d):
+    """dq/dk/dv of the port's flash attention (plain version on the CPU) at
+    bf16 inputs against the Pallas backward in interpret mode under
+    jax.vjp. Both round p and ds to bf16 before their products; they differ
+    by the forward's bf16 out (delta) and the order of fp32 sums: within
+    1e-2 of the largest element (at most 4.2e-3 measured)."""
+    rng = np.random.default_rng(s + d)
+    q, k, v, dout = (rng.normal(size=shape).astype(np.float32)
+                     for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    kv_len = np.array([s - 5 * i for i in range(b)], np.int32)
+    prefix = (kv_len - 9).astype(np.int32)
+    seen = np.asarray(t_flash._allowed(s, s, torch.from_numpy(prefix),
+                                       torch.from_numpy(kv_len), 0, "cpu")).any(-1)
+    dout *= seen[:, :, None, None]
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+
+    def fwd(q_, k_, v_):
+        return j_flash.flash_attention(q_, k_, v_, jnp.asarray(prefix), jnp.asarray(kv_len),
+                                       interpret=True)
+
+    _, vjp = jax.vjp(fwd, jq, jk, jv)
+    want = vjp(jdo)
+
+    def bf16(x):  # the same bf16 values on the torch side
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+
+    tq, tk, tv = (bf16(x).requires_grad_(True) for x in (jq, jk, jv))
+    out = t_flash.flash_attention(tq, tk, tv, torch.from_numpy(prefix), torch.from_numpy(kv_len))
+    got = torch.autograd.grad(out, (tq, tk, tv), bf16(jdo))
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == torch.bfloat16
+        err = _rel(g_.float().numpy(), np.asarray(w_.astype(jnp.float32)))
+        assert err < 1e-2, (name, err)
+
+
 def test_flash_backward_wrappers_on_cpu_are_the_plain_version():
     """The dq and dk/dv wrappers take their plain version for CPU tensors,
     given the same lse and delta as flash_attention_backward."""
@@ -182,7 +224,7 @@ def test_flash_backward_wrappers_on_cpu_are_the_plain_version():
     assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv)
     assert (t_flash.flash_attention_bwd_dq.launches,
             t_flash.flash_attention_bwd_dkv.launches) == launched  # no kernel on the CPU
-    assert t_flash.dkv_splits(2, 1, 8 * 512, 512) == 9  # 64 key tiles -> 576 blocks
+    assert t_flash.dkv_splits(2, 1, 8 * 512, 512) == 8  # 16 key blocks -> 128 blocks
 
 
 # -------------------------------------------------------- loss and mask ----
