@@ -163,6 +163,26 @@ INT8_ROWS = (1, 266, 1024)
 # cores and HBM3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the flash forward's (B1) cases: label, (b, sq, skv, hq, hkv, d), prefix_len,
+# kv_len, q_offset, timing ("json": the kernels line's times and device
+# times; "device": device times beside SDPA (and B12 at the tower's shape);
+# None: checked only). LM prefill (256 image + 10 text tokens), a causal
+# suffix, the training shape, SigLIP's head_dim at 224 px and the 896 px
+# tower, head_dim 64 with 64-row tiles across two heads, queries after a
+# cached prefix, and a row with kv_len 0 (exact zeros)
+FLASH_FWD_CASES = (
+    ("LM prefill B1 S266 Hq8 Hkv1 D256", (1, 266, 266, 8, 1, 256), [266], [266], 0, "json"),
+    ("prefix<kv_len B2 S266 Hq8 Hkv1 D256", (2, 266, 266, 8, 1, 256), [226, 219], [266, 259], 0,
+     None),
+    ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 512, 8, 1, 256), [268, 268], [512, 400], 0,
+     "device"),
+    ("vision B2 S256 H16 D72", (2, 256, 256, 16, 16, 72), [256, 249], [256, 249], 0, None),
+    ("tower B1 S4096 H16 D72", (1, 4096, 4096, 16, 16, 72), [4096], [4096], 0, "device"),
+    ("GQA B2 S199 Hq4 Hkv2 D64", (2, 199, 199, 4, 2, 64), [60, 100], [199, 150], 0, None),
+    ("q_offset 266 B2 Sq64 Skv330 D256", (2, 64, 330, 8, 1, 256), [256, 256], [330, 300], 266,
+     None),
+    ("kv_len 0 row B2 S128 Hq8 Hkv1 D256", (2, 128, 128, 8, 1, 256), [40, 0], [128, 0], 0, None),
+)
 # training phase: B=2 rows of 512 tokens, 256 image + 12 prompt tokens as
 # the prefix, suffix labels; row 1 padded to 400 real tokens
 TRAIN_B, TRAIN_S, TRAIN_PROMPT, TRAIN_REAL1 = 2, 512, 12, 400
@@ -335,6 +355,40 @@ def _sdpa_args(q, k, v, allowed):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), allowed[:, None]
 
 
+def flash_fwd_device_times(label, q, k, v, pl, kl, q_off):
+    """Device time per call of the flash forward (B1) beside SDPA on the
+    same inputs (without a mask where every key is visible), and beside B12
+    at a vision tower's shape; prints them with the bound of the call.
+    Returns (B1 call, SDPA call, flops, bytes)."""
+    from paligemma_tpu_torch.kernels import flash_attention as fa
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as va
+
+    sq, hq, d = q.shape[1:]
+    skv, hkv = k.shape[1:3]
+    allowed = fa._allowed(sq, skv, pl, kl, q_off, q.device)
+    args = _sdpa_args(q, k, v, allowed)
+    mask = None if bool(allowed.all()) else args[3]
+
+    def run():
+        return fa.flash_attention(q, k, v, pl, kl, q_offset=q_off)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(args[0], args[1], args[2], attn_mask=mask,
+                                              enable_gqa=True)
+
+    fns = [("flash_attention_fwd", run), ("SDPA", sdpa)]
+    if hkv == hq and mask is None and sq % 128 == 0:
+        fns.append(("vision_attention (B12)", lambda: va.vision_attention(q, k, v)))
+    dt = device_times(label, fns)
+    flops, n_bytes = 4 * d * hq * int(allowed.sum()), 2 * nbytes(q) + nbytes(k, v)  # out as q
+    print(f"  device B1 {label}: "
+          + ", ".join(f"{n} {'not measured' if ms is None else f'{ms:.4f} ms'}"
+                      for n, ms in dt.items())
+          + f"; bound {bound_ms(flops, n_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP, "
+          f"{n_bytes / 1e6:.3f} MB)", flush=True)
+    return run, sdpa, flops, n_bytes
+
+
 def kernel_phase(report: KernelReport, dev):
     from paligemma_tpu_torch.kernels import decode_attention as da
     from paligemma_tpu_torch.kernels import decode_elementwise as el
@@ -354,34 +408,32 @@ def kernel_phase(report: KernelReport, dev):
         s = torch.from_numpy((rng.random(n, dtype=np.float32) + 0.5) / (127.0 * k**0.5)).to(dev)
         return w8, s
 
-    # -- flash attention forward: LM prefill (256 image + 10 text tokens),
-    # a causal suffix (prefix < kv_len), the 896 px vision tower's head_dim
+    # -- flash attention forward (B1) at FLASH_FWD_CASES: out within 1e-2
+    # and lse within 1e-4 of max(1, |plain|), a second call the same bits
     print("kernels: flash_attention_fwd", flush=True)
-    for label, (b, s, hq, hkv, d), pfx_gap, timed in [
-        ("LM prefill B1 S266 Hq8 Hkv1 D256", (1, 266, 8, 1, 256), 0, True),
-        ("prefix<kv_len B2 S266 Hq8 Hkv1 D256", (2, 266, 8, 1, 256), 40, False),
-        ("vision B2 S256 H16 D72", (2, 256, 16, 16, 72), 0, False),
-    ]:
-        q, k, v = bf(b, s, hq, d), bf(b, s, hkv, d), bf(b, s, hkv, d)
-        kv_len = torch.tensor([s - 7 * i for i in range(b)], dtype=torch.int32, device=dev)
-        pfx = (kv_len - pfx_gap).to(torch.int32)
-        got = fa.flash_attention(q, k, v, pfx, kv_len)
-        want = fa.reference_attention(q, k, v, pfx, kv_len)
+    for label, (b, sq, skv, hq, hkv, d), pfx, kvl, q_off, timing in FLASH_FWD_CASES:
+        q, k, v = bf(b, sq, hq, d), bf(b, skv, hkv, d), bf(b, skv, hkv, d)
+        pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_off)
+        again = fa.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_off)
+        want_out, want_lse = fa._reference_forward(q, k, v, pl, kl, d**-0.5, q_off)
         sync()
-        report.case("flash_attention_fwd", label, got, want, 1e-2)
-        if timed:
-            allowed = fa._allowed(s, s, pfx, kv_len, 0, dev)
-            args = _sdpa_args(q, k, v, allowed)
-            report.time("flash_attention_fwd", label,
-                        lambda: fa.flash_attention(q, k, v, pfx, kv_len),
-                        lambda: fa.reference_attention(q, k, v, pfx, kv_len),
-                        flops=4 * d * hq * int(allowed.sum()), n_bytes=nbytes(q, k, v, got),
-                        library_fn=lambda: F.scaled_dot_product_attention(
-                            args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True))
-            device_times(label, [
-                ("flash_attention_fwd", lambda: fa.flash_attention(q, k, v, pfx, kv_len)),
-                ("SDPA", lambda: F.scaled_dot_product_attention(
-                    args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True))])
+        report.case("flash_attention_fwd", f"{label} out", out, want_out, 1e-2)
+        report.case("flash_attention_fwd", f"{label} lse", lse, want_lse, 1e-4)
+        del want_out, want_lse
+        if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+            raise AssertionError(f"flash_attention_fwd {label}: a second call gave other bits")
+        if kvl[-1] == 0 and (out[-1].any() or lse[-1].any()):
+            raise AssertionError(f"flash_attention_fwd {label}: the kv_len 0 row is not zeros")
+        if timing is None:
+            continue
+        run, sdpa, flops, n_bytes = flash_fwd_device_times(label, q, k, v, pl, kl, q_off)
+        if timing == "json":
+            report.time("flash_attention_fwd", label, run,
+                        lambda: fa.reference_attention(q, k, v, pl, kl, q_offset=q_off),
+                        flops=flops, n_bytes=n_bytes, library_fn=sdpa)
+        del q, k, v, out, lse, again
 
     # -- flash attention backward (B6) and the forward's lse: the training
     # shape (prefix 268 = 256 image + 12 prompt tokens, kv_len 512 and 400),
@@ -520,6 +572,13 @@ def kernel_phase(report: KernelReport, dev):
                             library_fn=lambda: F.scaled_dot_product_attention(
                                 sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3],
                                 scale=256**-0.5, enable_gqa=True))
+                # device times (back to back, the host's issue rate): the
+                # kernel's split + combine beside the same SDPA call
+                device_times(label, [
+                    ("decode_attention", lambda: da.decode_attention(q, kc, vc, valid, 256**-0.5)),
+                    ("SDPA", lambda: F.scaled_dot_product_attention(
+                        sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], scale=256**-0.5,
+                        is_causal=False, enable_gqa=True))])
 
     # -- RMSNorm and the fused RoPE + cache write
     print("kernels: rms_norm, rope_kv_write", flush=True)
@@ -1061,14 +1120,20 @@ def ablation_phase(report: KernelReport, dev, card):
         def rel_err(a):
             return float((a.float() - plain.float()).abs().max() / plain.float().abs().max())
 
-        rel = rel_err(fused)
-        ok = bool(torch.isfinite(fused).all()) and rel <= LOGIT_REL_TOL
+        # attn='flash' is gated where the engines take it (>= 2048 patches:
+        # the 896 px tower); at 224 / 448 px it is printed
+        rel, rel_flash = rel_err(fused), rel_err(flash)
+        gate_flash = vcfg.num_patches >= 2048
+        ok = (bool(torch.isfinite(fused).all()) and rel <= LOGIT_REL_TOL
+              and bool(torch.isfinite(flash).all())
+              and (rel_flash <= LOGIT_REL_TOL or not gate_flash))
         print(f"ablation: siglip.encode(attn='fused') {label}: {c['vision_attention']} "
               f"vision_attention launches; features vs attn='xla' max rel err {rel:.3e} "
-              f"(tol {LOGIT_REL_TOL}; attn='flash' vs 'xla' {rel_err(flash):.3e}, not gated)  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {LOGIT_REL_TOL}); attn='flash' vs 'xla' {rel_flash:.3e}"
+              f"{'' if gate_flash else ', not gated'}  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"tower {label}: fused features off by {rel}")
+            raise AssertionError(f"tower {label}: features off by {rel} (fused), "
+                                 f"{rel_flash} (flash)")
         towers[label] = (vp, vcfg, px)
 
     kernels.reset_launch_counts()

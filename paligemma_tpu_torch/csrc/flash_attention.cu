@@ -1,174 +1,440 @@
-// Prefix-LM flash attention, forward.
+// Prefix-LM flash attention, forward (FlashAttention-2) on the tensor cores.
 //
 // Replaces paligemma_tpu/kernels/flash_attention.py:_flash_kernel (via
 // _flash_forward / flash_attention). Key j is visible to query i of batch b
 // iff  j < kv_len[b]  and  (j < prefix_len[b]  or  j <= i + q_offset).
 // Query heads that share a KV head are folded into the rows of one block
-// (row = g * Sq + i), as the TPU kernel does, so K/V tiles are read once per
-// KV head. Online softmax in fp32 with NEG_INF = -1e30; a row with no
-// visible key writes 0. With a non-null ``lse`` the kernel also writes each
-// row's log-sum-exp of the scaled scores, fp32 (B, Hq, Sq), for the backward
-// pass (csrc/flash_attention_bwd.cu); a row with no visible key gets 0, as
-// in the TPU kernel. The store does not touch the arithmetic, so the output
-// bits are the same with and without it.
+// (row = g * Sq + i), as the TPU kernel does, so a block reads each K/V tile
+// once per KV head. Per row, with fp32 scores s = scale * q.k:
 //
-// What bounds it at the LM prefill shape (Sq = Skv ~ 266, Hq = 8, Hkv = 1,
-// D = 256): arithmetic, ~0.6 GFLOP per layer, done here as scalar fp32 FMAs
-// from shared memory (no tensor cores yet: mma/wgmma is later work). Blocks
-// of 16 folded rows give ~133 blocks per layer, one wave on 132 SMs. K and V
-// tiles of 32 keys sit in shared memory with rows padded by 8 bf16, so the
-// 8 threads of a row group read 8 different keys without bank conflicts.
-// Any head_dim that is a multiple of 8 up to 256 works (D = 72 for SigLIP).
+//   m = running max of s,  p = exp(s - m)  (fp32),  l = sum of p  (fp32)
+//   out = (sum_j bf16(p_j) v_j) / l,        lse = m + log l   (fp32)
+//
+// p is rounded to bf16 as the A operand of p.V, where the TPU kernel rounds
+// it; l sums the fp32 p. Online softmax with NEG_INF = -1e30; a masked key
+// gets p = 0 by a select, so a row with no visible key writes exact zeros
+// to out and (with a non-null ``lse``) to lse (B, Hq, Sq), which the
+// backward (csrc/flash_attention_bwd.cu) reads.
+//
+// Design. A block owns 64 folded rows of one (batch, KV head), four
+// 16-row groups. 64-key K and V tiles stream through a cp.async ring in the
+// order K_0, V_0, K_1, V_1, ... and every warp of the block reads each
+// staged tile: S = Q K^T lands in mma.sync.m16n8k16 C fragments (K's B
+// fragments by ldmatrix), the online softmax runs on them in registers (in
+// log2 units: one multiply-add and one ex2 per score; O is rescaled only
+// when a row max grew), and the C fragments of bf16(p) are the A fragments
+// of O += P V (V's B fragments by ldmatrix.trans), with no trip through
+// shared memory. The ring has NS slots, and a load is issued NS - 1 loads
+// ahead.
+// Q stays in shared memory and is re-read by ldmatrix each k16 step.
+// * D <= 80 (SigLIP's 72, and 64): one warp per row group (4 warps), four
+//   ring slots (the next tile's K and V load while this one computes),
+//   registers held to 128 a thread so that 4 blocks (16 warps) share an
+//   SM: Q's A fragments kept in registers instead cost that occupancy or
+//   spills (measured at the 896 px tower, PERF.md).
+// * 80 < D <= 256 (Gemma's 256), depth 256: a warp's 16 x 256 fp32 O
+//   accumulator already takes 128 registers a thread, and the ring has two
+//   slots (FA2's schedule: V_j loads during S_j, K_{j+1} during P_j V_j;
+//   four 64 x 256 tiles would take 135 KB). Two warps share each row
+//   group, one per 32-key half of every tile (8 warps), and add their
+//   (m, l, O) once at the end in a fixed order: twice the warps to hide
+//   the latency of each ldmatrix and mma, and twice the threads issuing
+//   each tile's copies.
+// The depth is D rounded up to DP in {64, 80, 256}: cp.async
+// zero-fills the columns past D, the keys past kv_len and the rows past
+// the tensor, so a masked key's 0 weight never meets a stale value.
+//
+// Hidden work is skipped: a block's sweep ends at min(kv_len, max(prefix_len,
+// the largest position among its rows + 1)) (a block that straddles two
+// heads holds position Sq - 1), a warp computes only the tiles its own rows
+// see, and a tile that every row of the warp sees skips the mask. A row's
+// arithmetic depends on its own data, DP and the fixed tiling only, never
+// on the other rows of the grid: a row gives the same bits in any batch,
+// which dense == paged serving and TP at world size 1 == one card rest on.
+//
+// Rows per block (measured on an H100, PERF.md): 64-row blocks beat smaller
+// ones that give every SM a block (34 blocks of 64 rows beat 133 of 16 at
+// the LM prefill): each block copies every K/V tile its rows see, so
+// smaller blocks multiply the L2 traffic and leave fewer threads to issue
+// it.
+//
+// What bounds it (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s): at the LM prefill
+// (B1 S266 Hq8 Hkv1 D256, 0.58 GFLOP, 2.4 MB) the bytes, 0.7 us; at the
+// training shape (B2 S512, prefix 268, kv_len 512 / 400) the bytes, 9.4 MB
+// in 2.8 us, about the 2.7 us of the visible pairs' 2.7 GFLOP; at the 896
+// px tower (B1 S4096 H16 D72, depth 80) the operations, 77 GFLOP, 78 us.
+// Measured on an H100 (PERF.md): 22 us, 33 us and 0.51 ms. What holds it
+// above the bounds: instruction issue. With one 16-row m-tile per warp
+// every K / V fragment feeds two mma.sync, and the softmax, the fragment
+// loads and the copies cost several instructions per mma; wgmma and TMA
+// are later work.
 #include "common.cuh"
 
-#define FA_BQ 16
-#define FA_BK 32
-#define FA_THREADS 128
-#define FA_DMAX 256
-#define FA_LD (FA_DMAX + 8)
+#define FA_BK 64  // keys per K / V tile
+#define FA_WR 4   // 16-row groups per block
 
-__global__ void __launch_bounds__(FA_THREADS)
+// The kernel's shape at depth DP: a block has NW = FA_WR * WK warps; warp
+// (wr, wk) owns rows 16 wr .. 16 wr + 15 of the block's 64 and keys
+// KW wk .. KW wk + KW - 1 of every 64-key tile.
+template <int DP>
+struct FwdCfg {
+  static constexpr int LD = DP + 8;             // bf16 row stride: conflict-free ldmatrix
+  static constexpr int WK = DP <= 80 ? 1 : 2;   // warps that share a row group's keys
+  static constexpr int KW = FA_BK / WK;         // keys of a tile per warp
+  static constexpr int NW = FA_WR * WK;
+  static constexpr int NS = DP <= 80 ? 4 : 2;   // ring slots
+  // blocks per SM that the registers must allow (<= 128 registers a thread
+  // at 4), and the copies in a rolled loop to fit them
+  static constexpr int MIN_BLOCKS = DP <= 80 ? 4 : 1;
+  static constexpr bool ROLLED = DP <= 80;
+  static constexpr int BYTES = (16 * FA_WR + NS * FA_BK) * LD * (int)sizeof(bf16);
+};
+
+// 2^x (ex2.approx, as __expf uses): exp(s - m) is computed as
+// 2^(s log2(e) - m log2(e)) with the scale folded into one multiply-add.
+__device__ __forceinline__ float fa_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Folded rows row0 .. row0+n-1 of q (B, Sq, Hq, D) into a tile of stride
+// DP + 8, columns [0, DP): one 16-byte cp.async per chunk, zeros past
+// `rows` and past D.
+template <int DP, int NT>
+__device__ __forceinline__ void fa_load_rows(bf16* dst, const bf16* __restrict__ q, int n, int b,
+                                             int kvh, int row0, int rows, int Sq, int Hq,
+                                             int group, int D) {
+  constexpr int CH = DP / 8;
+  for (int idx = threadIdx.x; idx < n * CH; idx += NT) {
+    const int r = idx / CH, c = idx - r * CH, row = row0 + r;
+    const bool ok = row < rows && c * 8 < D;
+    const bf16* p = q;
+    if (ok) {
+      const int g = row / Sq, i = row - g * Sq;
+      p = q + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + g) * D + c * 8;
+    }
+    cp_async_16(dst + r * (DP + 8) + c * 8, p, ok);
+  }
+}
+
+// Keys k0 .. k0+FA_BK-1 of a (B, Skv, Hkv, D) tensor, as fa_load_rows:
+// zeros at and past klen and past D. Thread (r0, c) copies chunk c of rows
+// r0, r0 + RP, ...: one compare and two pointer steps per chunk.
+template <int DP, int NT, bool ROLLED>
+__device__ __forceinline__ void fa_load_keys(bf16* dst, const bf16* __restrict__ src, int k0,
+                                             int b, int kvh, int klen, int Skv, int Hkv, int D) {
+  constexpr int CH = DP / 8, RP = NT / CH;  // 16-byte chunks of a row, rows per pass
+  const int c = threadIdx.x % CH, r0 = threadIdx.x / CH;
+  if (r0 >= RP) return;
+  const size_t step = (size_t)RP * Hkv * D;
+  const bf16* p = src + (((size_t)b * Skv + k0 + r0) * Hkv + kvh) * D + c * 8;
+  bf16* d = dst + r0 * (DP + 8) + c * 8;
+  const bool cok = c * 8 < D;
+  const int left = klen - k0 - r0;  // rows r0 + RP i with RP i < left hold keys
+  auto copy = [&](int i) {
+    if (r0 + RP * i < FA_BK) {
+      const bool ok = cok && RP * i < left;
+      cp_async_16(d, ok ? p : src, ok);
+    }
+    p += step;
+    d += RP * (DP + 8);
+  };
+  if constexpr (ROLLED) {
+#pragma unroll 1
+    for (int i = 0; i < (FA_BK + RP - 1) / RP; ++i) copy(i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < (FA_BK + RP - 1) / RP; ++i) copy(i);
+  }
+}
+
+// Positions (i + q_offset) of the valid folded rows among row0 .. row0+n-1:
+// (smallest, largest), or (0, -1) when none is valid. Rows that straddle a
+// head boundary hold positions 0 and Sq - 1.
+__device__ __forceinline__ int2 fa_positions(int row0, int n, int rows, int Sq, int q_offset) {
+  const int last = min(row0 + n, rows) - 1;
+  if (last < row0) return make_int2(0, -1);
+  const int g0 = row0 / Sq, g1 = last / Sq;
+  if (g0 != g1) return make_int2(q_offset, Sq - 1 + q_offset);
+  return make_int2(row0 - g0 * Sq + q_offset, last - g1 * Sq + q_offset);
+}
+
+// One past the last key that a row with positions `pos` sees.
+__device__ __forceinline__ int fa_key_end(int2 pos, int plen, int klen) {
+  return pos.y < 0 ? 0 : min(klen, max(plen, pos.y + 1));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FwdCfg<DP>::NW * 32, FwdCfg<DP>::MIN_BLOCKS)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ prefix_len,
                      const int* __restrict__ kv_len, bf16* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int D,
                      float scale, int q_offset) {
-  __shared__ __align__(16) bf16 qs[FA_BQ][FA_LD];
-  __shared__ __align__(16) bf16 ks[FA_BK][FA_LD];
-  __shared__ __align__(16) bf16 vs[FA_BK][FA_LD];
-  __shared__ float ps[FA_BQ][FA_BK];
+  using Cfg = FwdCfg<DP>;
+  constexpr int LD = Cfg::LD, NS = Cfg::NS, NT = Cfg::NW * 32, KW = Cfg::KW;
+  constexpr int KD = DP / 16, ND = DP / 8;  // k16 steps over D, n8 tiles over D
+  // the key groups' hand-off (m, l and O of every lane) fits in the ring
+  static_assert((Cfg::WK - 1) * FA_WR * 32 * (ND * 4 + 4) * 4 <= NS * FA_BK * LD * 2, "hand-off");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = qs + 16 * FA_WR * LD;  // slot s at ring + s FA_BK LD
 
-  const int b = blockIdx.z, kvh = blockIdx.y, tile = blockIdx.x;
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * 16 * FA_WR;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int tid = threadIdx.x, r = tid >> 3, sub = tid & 7;
-  const int nchunk = D / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % FA_WR, wk = warp / FA_WR;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  const int n_tiles =
+      (fa_key_end(fa_positions(row0, 16 * FA_WR, rows, Sq, q_offset), plen, klen) + FA_BK - 1) /
+      FA_BK;
+  const int wrow0 = row0 + wr * 16;
+  const int2 wpos = fa_positions(wrow0, 16, rows, Sq, q_offset);
+  const int kend = fa_key_end(wpos, plen, klen);  // this warp's rows see no key past it
+  const float c2 = scale * 1.4426950408889634f;  // scores to log2 units
 
-  for (int idx = tid; idx < FA_BQ * nchunk; idx += FA_THREADS) {
-    const int rr = idx / nchunk, c = idx - rr * nchunk;
-    const int row = tile * FA_BQ + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows) {
-      const int g = row / Sq, i = row - g * Sq;
-      val = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * Sq + i) * Hq + kvh * group + g) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(&qs[rr][c * 8]) = val;
-  }
-
-  const int my_row = tile * FA_BQ + r;
-  const int my_g = my_row / Sq, my_i = my_row - my_g * Sq;
-  const int my_pos = my_i + q_offset;
-  const int plen = prefix_len[b];
-  const int klen = min(kv_len[b], Skv);
-
-  float m = PG_NEG_INF, l = 0.f;
-  float acc[4][8];
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[cc][e] = 0.f;
-
-  for (int k0 = 0; k0 < klen; k0 += FA_BK) {
-    __syncthreads();  // the previous tile's K/V are no longer read
-    for (int idx = tid; idx < FA_BK * nchunk; idx += FA_THREADS) {
-      const int jj = idx / nchunk, c = idx - jj * nchunk;
-      const int key = k0 + jj;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < klen) {
-        const size_t off = (((size_t)b * Skv + key) * Hkv + kvh) * D + c * 8;
-        kv4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[jj][c * 8]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[jj][c * 8]) = vv4;
-    }
+  // load n of the sweep (K_{n/2} or V_{n/2}) into slot n % NS; every thread
+  // commits a group per load, an empty one past the last
+  auto issue = [&](int n) {
+    if (n < 2 * n_tiles)
+      fa_load_keys<DP, NT, Cfg::ROLLED>(ring + (n % NS) * FA_BK * LD, (n & 1) ? v : k,
+                                        (n >> 1) * FA_BK, b, kvh, klen, Skv, Hkv, D);
+    cp_async_commit();
+  };
+  // wait for load n, then start load n + NS - 1 into the slot load n - 1
+  // used (every warp is past it after the barrier); returns load n's tile
+  auto take = [&](int n) {
+    cp_async_wait<NS - 2>();
     __syncthreads();
+    issue(n + NS - 1);
+    return ring + (n % NS) * FA_BK * LD;
+  };
 
-    // scores of row r against keys sub, sub+8, sub+16, sub+24
-    float s[4];
-    bool allowed[4];
+  fa_load_rows<DP, NT>(qs, q, 16 * FA_WR, b, kvh, row0, rows, Sq, Hq, group, D);
+  cp_async_commit();
 #pragma unroll
-    for (int t = 0; t < 4; ++t) s[t] = 0.f;
-    for (int c = 0; c < nchunk; ++c) {
-      float qf[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(&qs[r][c * 8]), qf);
+  for (int n = 0; n < NS - 1; ++n) issue(n);
+
+  const int a_off = (wr * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;  // A of Q
+
+  // rows g and g + 8 of the warp: position, running max (log2 units),
+  // this thread's share of the running sum, and the output columns
+  // 8 nt + 2t, + 1
+  int pos[2];
+  float m[2] = {PG_NEG_INF, PG_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float kf[8];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(&ks[sub + 8 * t][c * 8]), kf);
+  for (int h = 0; h < 2; ++h) pos[h] = (wrow0 + g + 8 * h) % Sq + q_offset;
+  float o[ND][4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) s[t] = fmaf(qf[e], kf[e], s[t]);
+  for (int nt = 0; nt < ND; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * FA_BK + wk * KW;  // this warp's keys: k0 .. k0 + KW - 1
+    const bool live = k0 < kend;         // warp-uniform
+    uint32_t pa[KW / 16][4];             // bf16(p): the A fragments of P V
+
+    const bf16* ks = take(2 * j) + wk * KW * LD;
+    if (live) {
+      // S = Q K^T for the warp's 16 rows and KW keys
+      float s[KW / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < KW / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + a_off + kk * 16);
+#pragma unroll
+        for (int np = 0; np < KW / 16; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, ks + (np * 16 + (lm >> 1) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8);
+          mma_bf16_16816(s[2 * np], a, bk);
+          mma_bf16_16816(s[2 * np + 1], a, bk + 2);
+        }
+      }
+
+      // mask: element e of tile nt is row g + 8 (e >> 1) against key
+      // k0 + 8 nt + 2t + (e & 1); bit 4 nt + e of `seen` records it
+      const bool full = k0 + KW <= klen && (k0 + KW <= plen || k0 + KW - 1 <= wpos.x);
+      uint32_t seen = 0xffffffffu;
+      float mx[2] = {PG_NEG_INF, PG_NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < KW / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!full) {
+            const int key = k0 + nt * 8 + 2 * t + (e & 1);
+            if (!(key < klen && (key < plen || key <= pos[e >> 1]))) {
+              s[nt][e] = PG_NEG_INF;
+              seen &= ~(1u << (4 * nt + e));
+            }
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      }
+      // the new row max (log2 units) over the quad that shares each row;
+      // O and l are rescaled only when a max grew somewhere in the warp
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * c2);
+        alpha[h] = fa_exp2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int nt = 0; nt < ND; ++nt) {
+          o[nt][0] *= alpha[0];
+          o[nt][1] *= alpha[0];
+          o[nt][2] *= alpha[1];
+          o[nt][3] *= alpha[1];
+        }
+      }
+      // p = 2^(s c2 - m) in fp32 (summed into l), then bf16: score tiles 2kk
+      // and 2kk + 1 are the A fragment of keys 16 kk .. + 15
+#pragma unroll
+      for (int nt = 0; nt < KW / 8; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = (seen >> (4 * nt + e)) & 1u ? fa_exp2(fmaf(s[nt][e], c2, -m[e >> 1])) : 0.f;
+          l[e >> 1] += p[e];
+        }
+        pa[nt >> 1][(nt & 1) * 2] = pack_f32_bf16x2(p[0], p[1]);
+        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_f32_bf16x2(p[2], p[3]);
       }
     }
-    float tmax = PG_NEG_INF;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int key = k0 + sub + 8 * t;
-      allowed[t] = key < klen && (key < plen || key <= my_pos);
-      s[t] = allowed[t] ? s[t] * scale : PG_NEG_INF;
-      tmax = fmaxf(tmax, s[t]);
-    }
-    // the 8 threads of a row are adjacent lanes of one warp
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = __expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float p = allowed[t] ? __expf(s[t] - m_new) : 0.f;
-      ps[r][sub + 8 * t] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // ps[r][*] is written and read by the same 8 lanes
 
+    const bf16* vs = take(2 * j + 1) + wk * KW * LD;
+    if (live) {
+      // O += P V, with V[key][d] as B[k = key][n = d]
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int d0 = sub * 8 + 64 * cc;
-      if (d0 < D) {
+      for (int kk = 0; kk < KW / 16; ++kk) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[cc][e] *= alpha;
-        for (int j = 0; j < FA_BK; ++j) {
-          const float p = ps[r][j];
-          float vf[8];
-          bf16x8_to_float(*reinterpret_cast<const uint4*>(&vs[j][d0]), vf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[cc][e] = fmaf(p, vf[e], acc[cc][e]);
+        for (int pr = 0; pr < DP / 16; ++pr) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vs + (kk * 16 + (lm & 1) * 8 + lr) * LD + pr * 16 + (lm >> 1) * 8);
+          mma_bf16_16816(o[2 * pr], pa[kk], bv);
+          mma_bf16_16816(o[2 * pr + 1], pa[kk], bv + 2);
         }
       }
     }
-    __syncwarp();
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // the row sums over the quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if constexpr (Cfg::WK > 1) {
+    // key groups 1 .. WK - 1 hand m, l and O to group 0 through the ring
+    // (each value to the lane that holds the same element), which adds
+    // them in group order: the same bits on every call
+    constexpr int PER = ND * 4 + 4;  // floats per lane
+    __syncthreads();                 // every warp is done with the ring
+    float* hand = reinterpret_cast<float*>(ring) + lane;
+    if (wk > 0) {
+      float* dst = hand + ((wk - 1) * FA_WR + wr) * PER * 32;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dst[h * 32] = m[h];
+        dst[(2 + h) * 32] = l[h];
+      }
+#pragma unroll
+      for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[(4 + nt * 4 + e) * 32] = o[nt][e];
+    }
+    __syncthreads();
+    if (wk > 0) return;
+    float mx[2] = {m[0], m[1]}, f[2];
+#pragma unroll
+    for (int w = 1; w < Cfg::WK; ++w)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mx[h] = fmaxf(mx[h], hand[((w - 1) * FA_WR + wr) * PER * 32 + h * 32]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      f[h] = fa_exp2(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= f[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] *= f[e >> 1];
+#pragma unroll
+    for (int w = 1; w < Cfg::WK; ++w) {
+      const float* src = hand + ((w - 1) * FA_WR + wr) * PER * 32;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[h] = fa_exp2(src[h * 32] - mx[h]);
+        l[h] += src[(2 + h) * 32] * f[h];
+      }
+#pragma unroll
+      for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] += src[(4 + nt * 4 + e) * 32] * f[e >> 1];
+    }
   }
 
-  if (my_row < rows) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* op = out + (((size_t)b * Sq + my_i) * Hq + kvh * group + my_g) * D;
+  // out = O / l and lse = m ln 2 + log l (0 for a row with no visible key)
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int d0 = sub * 8 + 64 * cc;
-      if (d0 < D) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow0 + g + 8 * h;
+    if (row >= rows) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    const int gi = row / Sq, i = row - gi * Sq;
+    bf16* dst = out + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D + 2 * t;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) op[d0 + e] = f2bf(acc[cc][e] * inv);
-      }
+    for (int nt = 0; nt < ND; ++nt) {
+      if (nt * 8 < D)
+        *reinterpret_cast<uint32_t*>(dst + nt * 8) =
+            pack_f32_bf16x2(o[nt][2 * h] * inv, o[nt][2 * h + 1] * inv);
     }
-    // (B, Hq, Sq) row of head kvh * group + my_g is folded row my_row of (b, kvh)
-    if (lse != nullptr && sub == 0)
-      lse[((size_t)b * Hkv + kvh) * rows + my_row] = l > 0.f ? m + logf(l) : 0.f;
+    // (B, Hq, Sq) row of head kvh * group + gi is folded row `row` of (b, kvh)
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * Hkv + kvh) * rows + row] =
+          l[h] > 0.f ? m[h] * 0.6931471805599453f + logf(l[h]) : 0.f;
   }
 }
 
+template <int DP>
+static int launch_fwd(const void* q, const void* k, const void* v, const void* prefix_len,
+                      const void* kv_len, void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                      int Hkv, int D, float scale, int q_offset, cudaStream_t st) {
+  constexpr int bytes = FwdCfg<DP>::BYTES;
+  // dynamic shared memory above 48 KB, allowed once per process
+  static const int attr = (int)cudaFuncSetAttribute(
+      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  dim3 grid((rows + 16 * FA_WR - 1) / (16 * FA_WR), Hkv, B);
+  flash_fwd_kernel<DP><<<grid, FwdCfg<DP>::NW * 32, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)prefix_len,
+      (const int*)kv_len, (bf16*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale, q_offset);
+  return (int)cudaGetLastError();
+}
+
+// q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) bf16, contiguous, 16-byte
+// aligned, D % 8 == 0 and D <= 256 (the wrapper checks these).
 PG_EXPORT int pg_flash_attention_fwd(const void* q, const void* k, const void* v,
                                      const void* prefix_len, const void* kv_len, void* out,
                                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
                                      float scale, int q_offset, void* stream) {
-  const int rows = (Hq / Hkv) * Sq;
-  dim3 grid((rows + FA_BQ - 1) / FA_BQ, Hkv, B);
-  flash_fwd_kernel<<<grid, FA_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)prefix_len,
-      (const int*)kv_len, (bf16*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale, q_offset);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_fwd<64>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                          q_offset, st);
+  if (D <= 80)
+    return launch_fwd<80>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                          q_offset, st);
+  return launch_fwd<256>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                         q_offset, st);
 }

@@ -17,9 +17,9 @@ then the dq kernel and the dk/dv kernel (``csrc/flash_attention_bwd.cu``),
 which recompute the probabilities from (q, k, lse). For CUDA tensors the
 wrappers launch ``csrc/flash_attention.cu`` and the backward kernels or
 raise; for CPU tensors they run the plain versions here: fp32 scores and
-softmax, and the same FA2 arithmetic in fp32 torch, with p and ds rounded to
-the inputs' dtype before their products where the TPU kernels (and the CUDA
-kernels' bf16 tensor-core operands) round them.
+softmax, and the same FA2 arithmetic in fp32 torch, with p (forward and
+backward) and ds rounded to the inputs' dtype before their products where
+the TPU kernels (and the CUDA kernels' bf16 tensor-core operands) round them.
 """
 
 from __future__ import annotations
@@ -48,7 +48,10 @@ def _allowed(sq, skv, prefix_len, kv_len, q_offset, dev) -> torch.Tensor:
 
 def _reference_forward(q, k, v, prefix_len, kv_len, scale, q_offset):
     """Plain version of the forward: (out (B, Sq, Hq, D) in q's dtype,
-    lse (B, Hq, Sq) fp32)."""
+    lse (B, Hq, Sq) fp32). p = exp(s - max) is summed in fp32 and rounded
+    to v's dtype before p·V, where the TPU kernel rounds it
+    (paligemma_tpu/kernels/flash_attention.py ``_flash_kernel``; the
+    identity for fp32 inputs); the division by the sum comes after."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -60,8 +63,9 @@ def _reference_forward(q, k, v, prefix_len, kv_len, scale, q_offset):
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(den > 0, den, torch.ones_like(den))  # no key -> 0
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    den_q = torch.where(den > 0, den, torch.ones_like(den)).permute(0, 3, 1, 2, 4)
+    out = out / den_q  # no key -> 0
     lse = torch.where(den > 0, m + torch.log(den), torch.zeros_like(den))
     return out.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
 

@@ -188,6 +188,46 @@ def test_flash_backward_kernels_match_plain_version_on_card():
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
+# B1 cases of chip_smoke.py's kernel phase: (b, sq, skv, hq, hkv, d), prefix_len,
+# kv_len, q_offset
+FLASH_FWD_CASES = {
+    "LM prefill B1 S266 Hq8 Hkv1 D256": ((1, 266, 266, 8, 1, 256), [266], [266], 0),
+    "prefix<kv_len B2 S266 Hq8 Hkv1 D256": ((2, 266, 266, 8, 1, 256), [226, 219], [266, 259], 0),
+    "train B2 S512 Hq8 Hkv1 D256": ((2, 512, 512, 8, 1, 256), [268, 268], [512, 400], 0),
+    "vision B2 S256 H16 D72": ((2, 256, 256, 16, 16, 72), [256, 249], [256, 249], 0),
+    "tower B1 S4096 H16 D72": ((1, 4096, 4096, 16, 16, 72), [4096], [4096], 0),
+    "GQA B2 S199 Hq4 Hkv2 D64": ((2, 199, 199, 4, 2, 64), [60, 100], [199, 150], 0),
+    "q_offset 266 B2 Sq64 Skv330 D256": ((2, 64, 330, 8, 1, 256), [256, 256], [330, 300], 266),
+    "kv_len 0 row B2 S128 Hq8 Hkv1 D256": ((2, 128, 128, 8, 1, 256), [40, 0], [128, 0], 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_FWD_CASES))
+def test_flash_forward_kernel_matches_plain_version_on_card(case):
+    """B1 (mma.sync tiles) against its plain version: out within 1e-2 and
+    lse within 1e-4 of max(1, |plain|); a kv_len 0 row gives exact zeros; a
+    second call gives the same bits; one launch per call."""
+    dev = _card()
+    (b, sq, skv, hq, hkv, d), pfx, kvl, q_offset = FLASH_FWD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    n0 = t_flash.flash_attention.launches
+    out, lse = t_flash.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_offset)
+    assert t_flash.flash_attention.launches == n0 + 1
+    want_out, want_lse = t_flash._reference_forward(q, k, v, pl, kl, d**-0.5, q_offset)
+    _close_rel(out, want_out, 1e-2)
+    _close_rel(lse, want_lse, 1e-4)
+    again = t_flash.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_offset)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert torch.equal(t_flash.flash_attention(q, k, v, pl, kl, q_offset=q_offset), out)
+    if kvl[-1] == 0:
+        assert not out[-1].any() and not lse[-1].any()
+
+
 @pytest.mark.cuda
 def test_tp_kernels_match_plain_versions_on_card():
     """The tensor-parallel kernels on one rank's shard against their plain

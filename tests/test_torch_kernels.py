@@ -69,6 +69,51 @@ def test_flash_attention_matches_pallas(b, sq, skv, hq, hkv, d, prefix_gap, q_of
         np.testing.assert_allclose(got[i][rows], want[i][rows], rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,d,prefix_gap,q_offset",
+    [
+        (1, 16, 16, 2, 1, 64, 0, 0),     # MQA, tiny
+        (2, 40, 40, 4, 2, 72, 0, 0),     # GQA, SigLIP head_dim 72
+        (1, 300, 300, 8, 1, 256, 0, 0),  # Gemma-2B prefill shape
+        (2, 64, 64, 4, 2, 64, 25, 0),    # prefix < kv_len: causal suffix
+        (1, 32, 48, 4, 1, 64, 40, 13),   # queries start at position 13
+        (2, 99, 99, 8, 2, 128, 30, 0),   # GQA: 64-row tiles straddle two heads
+    ],
+)
+def test_flash_attention_bf16_matches_pallas(b, sq, skv, hq, hkv, d, prefix_gap, q_offset):
+    """bf16 inputs: the port's forward (plain version on the CPU) against the
+    Pallas forward in interpret mode. Both round p to bf16 before p·V (the
+    TPU kernel against its running max, the plain version against the row's
+    max): out within 1e-2 of max |JAX| over live rows (at most 3.1e-3
+    measured), and the fp32 lse of flash_attention_with_lse within 1e-5
+    (4.8e-7 measured)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (jnp.asarray(rng.normal(size=shape).astype(np.float32), jnp.bfloat16)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    kv_len = np.array([skv - 3 - i for i in range(b)], np.int32)
+    prefix = (kv_len - prefix_gap).astype(np.int32)
+    want, w_lse = j_flash._flash_forward(q, k, v, jnp.asarray(prefix), jnp.asarray(kv_len),
+                                         d**-0.5, q_offset, 128, 128, True, return_lse=True)
+    want = _np(want.astype(jnp.float32))
+    sq_p = -(-sq // 128) * 128
+    w_lse = np.asarray(w_lse)[:, :, : (hq // hkv) * sq_p, 0].reshape(b, hkv, hq // hkv, sq_p)
+    w_lse = w_lse[..., :sq].reshape(b, hq, sq)
+
+    def bf16(x):  # the same bf16 values on the torch side
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+
+    tq, tk, tv = bf16(q), bf16(k), bf16(v)
+    got = t_flash.flash_attention(tq, tk, tv, _t(prefix), _t(kv_len), q_offset=q_offset)
+    _, lse = t_flash.flash_attention_with_lse(tq, tk, tv, _t(prefix), _t(kv_len),
+                                              q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    live = np.arange(sq)[None, :] < kv_len[:, None]  # (B, Sq): padded query rows are don't-care
+    err = np.abs(got.float().numpy() - want)[live].max() / np.abs(want[live]).max()
+    assert err < 1e-2, err
+    np.testing.assert_allclose(lse.numpy().transpose(0, 2, 1)[live],
+                               w_lse.transpose(0, 2, 1)[live], rtol=1e-5, atol=1e-5)
+
+
 def test_flash_attention_row_without_keys_is_zero():
     q = torch.ones(1, 4, 2, 8)
     k = torch.ones(1, 4, 1, 8)

@@ -1,7 +1,8 @@
-"""The flash attention kernels at the training shape and the LoRA training
-step, timed on one CUDA card with the ``paligemma_tpu_torch`` of the
-current directory, so that a change and its parent can be compared in one
-call on one card (run the trees in turns: parent, change, change, parent):
+"""The flash attention kernels, the 896 px vision tower and the LoRA
+training step, timed on one CUDA card with the ``paligemma_tpu_torch`` of
+the current directory, so that a change and its parent can be compared in
+one call on one card (run the trees in turns: parent, change, change,
+parent):
 
     cd <tree> && python3 <this repository>/tools/train_attention_bench.py [steps]
 
@@ -13,7 +14,14 @@ chip_smoke.py's (seeded), whichever tree runs:
    plain version (1e-2 of the largest element), then their device time per
    call (torch.profiler's device-side events) beside one SDPA call that
    computes the same function;
-2. PaliGemma-3B-224 at full width and depth (random weights), LoRA r8 on
+2. the forward (B1) at chip_smoke.py's timed shapes (LM prefill B1 S266
+   Hq8 Hkv1 D256, the training shape, the 896 px tower B1 S4096 H16 D72),
+   held to its plain version, then its device time per call beside SDPA's
+   (and B12's at the tower's shape) and the bound;
+3. one 896 px SigLIP-So400m encode with ``attn="flash"`` (27 B1 calls;
+   random weights): ms per encode (CUDA events, the least of two rounds of
+   5) and its device time (torch.profiler);
+4. PaliGemma-3B-224 at full width and depth (random weights), LoRA r8 on
    all seven targets, remat: the median step time over ``steps`` steps
    (CUDA events, the first step left out) and one profiled step.
 
@@ -92,6 +100,50 @@ def attention_kernels(cs, dev, tree):
               f"{dt['flash_attention_bwd_dq'] + dt['flash_attention_bwd_dkv']:.4f} ms", flush=True)
 
 
+def forward_kernels(cs, dev, tree):
+    from paligemma_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    for label, (b, sq, skv, hq, hkv, d), pfx, kvl, q_off, timing in cs.FLASH_FWD_CASES:
+        if timing is None:
+            continue
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+        pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out = fa.flash_attention(q, k, v, pl, kl, q_offset=q_off)
+        want = fa.reference_attention(q, k, v, pl, kl, q_offset=q_off)
+        cs.sync()
+        err = float((out.float() - want.float()).abs().max())
+        if err > 1e-2 * max(1.0, float(want.float().abs().max())):
+            raise AssertionError(f"[{tree}] B1 {label}: max_abs_err {err} against the plain "
+                                 "version")
+        del want
+        cs.flash_fwd_device_times(f"[{tree}] {label}", q, k, v, pl, kl, q_off)
+
+
+def tower_encode(cs, dev, tree, card):
+    from paligemma_tpu_torch.convert import init_vision_params
+    from paligemma_tpu_torch.core.config import paligemma_3b_896
+    from paligemma_tpu_torch.models import siglip
+
+    vcfg = paligemma_3b_896().vision_config
+    vp = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(cs.SEED), dev,
+                            torch.bfloat16)
+    px = torch.from_numpy(np.random.default_rng(cs.SEED).standard_normal(
+        (1, 3, vcfg.image_size, vcfg.image_size), dtype=np.float32)).to(dev)
+
+    def encode():
+        return siglip.encode(vp, vcfg, px, attn="flash")
+
+    ms = min(cs.cuda_ms(encode, 5), cs.cuda_ms(encode, 5))
+    dev_ms, parts = cs.device_ms(encode, 3)
+    busy = ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms ("
+            + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in parts[:3]) + ")")
+    print(f"tower [{tree}]: 896px ({vcfg.num_patches} patches, {vcfg.num_hidden_layers} layers) "
+          f"attn='flash': {ms:.3f} ms per encode; device {busy}  [{card}]", flush=True)
+
+
 def train_step(cs, dev, tree, card, steps):
     from paligemma_tpu_torch import paligemma_3b_224
     from paligemma_tpu_torch.convert import init_params
@@ -135,6 +187,8 @@ def main() -> int:
     print(f"bench [{tree}]: {Path(_build.__file__).parents[1]} built/loaded in "
           f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
     attention_kernels(cs, dev, tree)
+    forward_kernels(cs, dev, tree)
+    tower_encode(cs, dev, tree, card)
     train_step(cs, dev, tree, card, steps)
     return 0
 
