@@ -572,13 +572,28 @@ def kernel_phase(report: KernelReport, dev):
                             library_fn=lambda: F.scaled_dot_product_attention(
                                 sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3],
                                 scale=256**-0.5, enable_gqa=True))
-                # device times (back to back, the host's issue rate): the
-                # kernel's split + combine beside the same SDPA call
-                device_times(label, [
-                    ("decode_attention", lambda: da.decode_attention(q, kc, vc, valid, 256**-0.5)),
-                    ("SDPA", lambda: F.scaled_dot_product_attention(
-                        sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], scale=256**-0.5,
-                        is_causal=False, enable_gqa=True))])
+
+    # device times (back to back, a call of a few us measures the host): the
+    # split and the combine pass apart, beside SDPA with a bool mask and GQA,
+    # at the b1 decode step's window (512), the longest (2048) and B8
+    for b, w in ((1, 512), (1, 2048), (8, 2048)):
+        q = bf(b, 8, 256)
+        kc, vc = bf(b, MAX_SEQ, 256), bf(b, MAX_SEQ, 256)
+        lens = torch.tensor([w - 61 * i for i in range(b)], device=dev)
+        valid = (torch.arange(w, device=dev)[None] < lens[:, None]).contiguous()
+        sdpa = (q[:, :, None], kc[:, None, :w], vc[:, None, :w], valid[:, None, None])
+        n_keys = int(valid.sum())
+        label = f"B{b} W{w} D256 Hq8"
+        dt = device_times(label, [
+            ("decode_attention", lambda: da.decode_attention(q, kc, vc, valid, 256**-0.5)),
+            ("SDPA", lambda: F.scaled_dot_product_attention(
+                sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], scale=256**-0.5,
+                is_causal=False, enable_gqa=True))])
+        print(f"  device 3b {label}: " + ", ".join(
+            f"{n} {'not measured' if ms is None else f'{ms:.4f} ms'}" for n, ms in dt.items())
+            + f"; bound {bound_ms(4 * 256 * 8 * n_keys, nbytes(q, valid, q) + 4 * n_keys * 256):.5f}"
+            " ms (bytes)", flush=True)
+        del kc, vc
 
     # -- RMSNorm and the fused RoPE + cache write
     print("kernels: rms_norm, rope_kv_write", flush=True)
@@ -653,6 +668,16 @@ def kernel_phase(report: KernelReport, dev):
                                                                     layer_idx=17),
                         flops=4 * 256 * 8 * n_keys,
                         n_bytes=nbytes(q, table, kv_len, got) + 2 * n_keys * hkv * 256 * 2)
+            # device time beside SDPA over the same keys gathered densely
+            kd = kp[17][table.long()].reshape(b, w, 256)
+            vd = vp[17][table.long()].reshape(b, w, 256)
+            mask = (torch.arange(w, device=dev)[None] < kv_len[:, None].long())[:, None, None]
+            device_times(label, [
+                ("paged_decode_attention",
+                 lambda: pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)),
+                ("SDPA (keys gathered)", lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kd[:, None], vd[:, None], attn_mask=mask, enable_gqa=True))])
+            del kd, vd
         del kp, vp
     # shared keys: each row's pages are consecutive slices of its dense cache
     # row; the paged kernel must return decode_attention's bits, also over a
@@ -673,6 +698,23 @@ def kernel_phase(report: KernelReport, dev):
               f"torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
         if not same:
             raise AssertionError("paged_decode_attention differs from decode_attention on shared keys")
+    # the same keys through B10's policy (one segment) and through a 5-page
+    # table of page size 16 (W = 80, not a multiple of the 32-key tile)
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as sda
+    seg = sda.decode_attention(q, kc[:, :, None], vc[:, :, None], lens, lens, lens, 256**-0.5)
+    short = lens.clamp(max=80)
+    valid80 = (torch.arange(1024, device=dev)[None] < short[:, None].long()).contiguous()
+    dense80 = da.decode_attention(q, kc, vc, valid80, 256**-0.5).reshape(b, 8, 256)
+    kp16, vp16 = kc.view(b * 64, 16, 1, 256), vc.view(b * 64, 16, 1, 256)
+    table16 = (torch.arange(5, device=dev)[None] + 64 * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+    paged80 = pa.paged_decode_attention(q, kp16, vp16, table16, short, 256**-0.5)
+    sync()
+    for what, same in (("seg_decode_attention, one segment, vs dense W1024", torch.equal(seg, dense)),
+                       ("paged, 5 pages of 16 (W80) vs dense W1024", torch.equal(paged80, dense80))):
+        print(f"  {'shared keys':20s} {what:44s} torch.equal {same}  {'ok' if same else 'FAIL'}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"split attention policies differ on shared keys: {what}")
     del kc, vc, kp, vp
 
     for b in (1, 8):
@@ -978,6 +1020,9 @@ def ablation_phase(report: KernelReport, dev, card):
     def bf(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
+    from paligemma_tpu_torch.kernels import _build
+    from paligemma_tpu_torch.kernels import flash_attention as fa
+
     print("kernels: vision_attention (B12; SigLIP-So400m H16 D72)", flush=True)
     for label, s in (("224px B1 S256 H16 D72", 256), ("448px B1 S1024 H16 D72", 1024),
                      ("896px B1 S4096 H16 D72", 4096)):
@@ -987,10 +1032,42 @@ def ablation_phase(report: KernelReport, dev, card):
         sync()
         report.case("vision_attention", label, got, want, 1e-2)
         sdpa = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        flops = 4 * s * s * 72 * 16
         report.time("vision_attention", label, lambda: va.vision_attention(q, k, v),
                     lambda: va.vision_attention_reference(q, k, v, 72**-0.5),
-                    flops=4 * s * s * 72 * 16, n_bytes=nbytes(q, k, v, got),
+                    flops=flops, n_bytes=nbytes(q, k, v, got),
                     library_fn=lambda: F.scaled_dot_product_attention(*sdpa))
+        # device times beside SDPA and the flash forward (B1) on the same
+        # inputs, and the host time of the call's three tensor maps
+        lens = torch.tensor([s], dtype=torch.int32, device=dev)
+        dt = device_times(label, [
+            ("vision_attention (B12)", lambda: va.vision_attention(q, k, v)),
+            ("flash_attention_fwd (B1)", lambda: fa.flash_attention(q, k, v, lens, lens)),
+            ("SDPA", lambda: F.scaled_dot_product_attention(*sdpa))])
+        n_maps = 2000
+        t0 = time.perf_counter()
+        err = _build.library().pg_vision_attention_maps(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, s, 16, 72, va.rows_per_block(1, s, 16),
+            n_maps)
+        maps_us = (time.perf_counter() - t0) / n_maps * 1e6
+        _build.check(err, "pg_vision_attention_maps")
+        print(f"  device B12 {label}: " + ", ".join(
+            f"{n} {'not measured' if ms is None else f'{ms:.4f} ms'}" for n, ms in dt.items())
+            + f"; bound {bound_ms(flops, nbytes(q, k, v, got)):.4f} ms; tensor maps "
+            f"{maps_us:.2f} us per call on the host  [{card}]", flush=True)
+    # every depth instantiation (64, 80, 128), 64- and 128-row blocks, two
+    # batches in one tensor map; a second call gives the same bits
+    for b, s, h, d in ((2, 128, 3, 72), (1, 4096, 16, 64), (1, 256, 16, 64),
+                       (2, 2048, 8, 128), (1, 256, 4, 128)):
+        q, k, v = bf(b, s, h, d), bf(b, s, h, d), bf(b, s, h, d)
+        got = va.vision_attention(q, k, v)
+        again = va.vision_attention(q, k, v)
+        want = va.vision_attention_reference(q, k, v, d**-0.5)
+        sync()
+        label = f"B{b} S{s} H{h} D{d} ({va.rows_per_block(b, s, h)}-row blocks)"
+        report.case("vision_attention", label, got, want, 1e-2)
+        if not torch.equal(again, got):
+            raise AssertionError(f"vision_attention {label}: a second call gave other bits")
 
     # rows: contiguous to the cache's end, kv_len at 32-key tile edges (64,
     # 1024), holes (row 3's [256, 640) and the rows past kv_len are whole
@@ -1023,6 +1100,11 @@ def ablation_phase(report: KernelReport, dev, card):
                         library_fn=lambda: F.scaled_dot_product_attention(
                             sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], enable_gqa=True),
                         in_json=b == 1)
+        if hkv == 1:
+            device_times(label, [
+                ("seg_decode_attention", lambda: sda.decode_attention(q, kc, vc, *segs)),
+                ("SDPA", lambda: F.scaled_dot_product_attention(
+                    sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3], enable_gqa=True))])
         if b == 8 and hkv == 1:  # NaN in the skipped tiles: they are never read
             kp, vp = kc.clone(), vc.clone()
             for t in (kp, vp):

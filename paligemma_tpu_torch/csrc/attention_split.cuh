@@ -6,19 +6,29 @@
 // The kernels run the same two passes with the same arithmetic; only the
 // address of key j, the rule that makes it visible and the test that skips
 // a tile differ, and those come from the address policy (DenseKV, PagedKV
-// or SegKV). So on the same keys the kernels return bit-identical outputs,
-// which lets the dense and the paged serving engines emit identical tokens.
+// or SegKV). A key's K/V row is read only where it is visible (zeros stand
+// in for the others), so a tile's arithmetic sees the same values under
+// every policy and on the same keys the kernels return bit-identical
+// outputs, which lets the dense and the paged serving engines emit
+// identical tokens.
 //
-// Pass 1 (attn_split), one block per (32-key tile, row, KV head): the tile's
-// K/V rows are staged in shared memory with independent 16-byte loads, the
-// G query heads that share the KV head are scored against it, and the block
-// writes an unnormalized (max, sum, output) triple. A tile the policy's
-// skip() rules out (it holds no visible key) writes (PG_NEG_INF, 0, 0)
-// without reading anything.
-// Pass 2 (attn_combine), one block per (query head, row, KV head): the
-// triples are merged in split order with the usual rescaling. An empty
-// split adds exp(-1e30 - m) * 0 = +0 to every sum, an exact identity, so a
-// window padded with empty splits gives the same bits as the unpadded one.
+// Pass 1 (attn_split), one block per (32-key tile, row, KV head): the K and
+// V tile go to shared memory as two groups of cp.async copies, so the
+// scores start while V is still in flight. The G <= 8 query heads of the KV
+// head are the live rows of mma.sync m16n8k16 products: q.k^T by 8 warps
+// (four 8-key tiles, two depth halves added in a fixed order), a per-head
+// softmax over the tile's visible keys, then bf16(p).v by the warps' 32-
+// column strips (p's rounding point is the TPU kernel's). The block writes
+// an unnormalized (max, sum, output) triple; a tile the policy's skip()
+// rules out (it holds no visible key) writes (PG_NEG_INF, 0, 0) without
+// reading anything.
+// Pass 2 (attn_combine), one block per (32 output columns, query head,
+// row x KV head): split s is weighted by exp(m_s - max) and added by warp
+// s % DA_MERGE in ascending s, and the warps' sums are added in warp order.
+// The key tiles and this merge order depend on the split index only (not
+// on W, B or the policy), and an empty split adds exp(-1e30 - m) * 0 = +0,
+// an exact identity, so a window padded with empty splits gives the same
+// bits as the unpadded one.
 #pragma once
 
 #include "common.cuh"
@@ -27,6 +37,9 @@
 #define DA_THREADS 256  // 8 warps
 #define DA_HMAX 8       // query heads per KV head (Gemma-2B: 8)
 #define DA_DMAX 256
+#define DA_LD (DA_DMAX + 8)  // bf16 row stride of the K / V tiles: conflict-free fragment loads
+#define DA_PLD (DA_KT + 8)   // bf16 row stride of p
+#define DA_MERGE 8           // combine: split s is added by warp s % DA_MERGE
 
 // Contiguous per-row cache: key j of row b at b * stride_b + j * D; visible
 // where valid[b, j] (a (B, W) mask).
@@ -89,29 +102,24 @@ struct SegKV {
 };
 
 // grid (nsplit, B * Hkv); G query heads per KV head, q (B, Hkv * G, D).
-// Without a floor of blocks per SM, ptxas keeps this kernel at 48 registers
-// (5 blocks of 256 threads per SM, as many as its 42 KB of shared memory
-// allow) and spills 8 bytes in one instantiation or the other; with a floor
-// of 2 it takes 60 registers and spills nothing. Decode grids at B <= 8 hold
-// 16-256 blocks, at most 2 per SM, so the lower occupancy costs nothing
-// there (on an H100 the dense split then runs as fast as the untemplated
-// kernel it replaced).
+// A floor of 2 blocks per SM keeps ptxas from squeezing registers for more
+// blocks than the grids of decode ever place on an SM.
 template <class KV>
 __global__ void __launch_bounds__(DA_THREADS, 2)
     attn_split(const bf16* __restrict__ q, KV kv, float* __restrict__ part_m,
                float* __restrict__ part_l, float* __restrict__ part_o, int G, int Hkv, int D,
                int W, int nsplit, float scale) {
-  __shared__ float qs[DA_HMAX][DA_DMAX];
-  __shared__ __align__(16) bf16 ks[DA_KT][DA_DMAX];
-  __shared__ __align__(16) bf16 vs[DA_KT][DA_DMAX];
-  __shared__ float sc[DA_HMAX][DA_KT];
+  __shared__ __align__(16) bf16 ks[DA_KT][DA_LD];
+  __shared__ __align__(16) bf16 vs[DA_KT][DA_LD];
+  __shared__ __align__(16) bf16 ps[16][DA_PLD];  // p: heads as rows, 8 .. 15 zero
+  __shared__ float red[2][DA_HMAX][DA_KT];       // the two depth halves of q.k^T
   __shared__ uint8_t ok[DA_KT];
   const int bh = blockIdx.y, split = blockIdx.x;
   const int b = bh / Hkv, hk = bh - b * Hkv;
   const int k0 = split * DA_KT;
   const int nk = min(DA_KT, W - k0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nchunk = D / 8;
+  const int g = lane >> 2, t = lane & 3;
   const size_t part = (size_t)bh * nsplit + split;
   if (kv.skip(b, k0, nk)) {  // no visible key in this tile: the combine's identity
     if (tid < G) {
@@ -121,105 +129,174 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
     for (int i = tid; i < G * D; i += DA_THREADS) part_o[part * G * D + i] = 0.f;
     return;
   }
-  const bf16* qb = q + ((size_t)b * Hkv * G + (size_t)hk * G) * D;
-  for (int i = tid; i < DA_HMAX * DA_DMAX; i += DA_THREADS) {
-    const int h = i / DA_DMAX, d = i - h * DA_DMAX;
-    qs[h][d] = (h < G && d < D) ? bf2f(qb[(size_t)h * D + d]) : 0.f;
+  const int nchunk = D / 8;
+  const int dp = (D + 15) & ~15;  // q.k^T depth, zero padded to the k16 step
+  const int pchunk = dp / 8;
+
+  // K, then V: one 16-byte cp.async per chunk of a visible key, zeros for
+  // the other keys and for the columns D .. dp - 1
+  for (int half = 0; half < 2; ++half) {
+    const bf16* src = half ? kv.v : kv.k;
+    bf16(*dst)[DA_LD] = half ? vs : ks;
+    for (int i = tid; i < DA_KT * pchunk; i += DA_THREADS) {
+      const int j = i / pchunk, c = i - j * pchunk;
+      const bool on = c < nchunk && j < nk && kv.visible(b, k0 + j);
+      const bf16* from = on ? src + kv.row(b, hk, k0 + j) + c * 8 : src;
+      cp_async_16(&dst[j][c * 8], from, on);
+    }
+    cp_async_commit();
   }
-  if (tid < nk) ok[tid] = kv.visible(b, k0 + tid);
-  // stage the K/V tile with independent 16-byte loads (all in flight at once)
-  for (int i = tid; i < nk * nchunk; i += DA_THREADS) {
-    const int j = i / nchunk, c = i - j * nchunk;
-    const size_t r = kv.row(b, hk, k0 + j) + c * 8;
-    *reinterpret_cast<uint4*>(&ks[j][c * 8]) = *reinterpret_cast<const uint4*>(kv.k + r);
-    *reinterpret_cast<uint4*>(&vs[j][c * 8]) = *reinterpret_cast<const uint4*>(kv.v + r);
+  if (tid < DA_KT) ok[tid] = tid < nk && kv.visible(b, k0 + tid);
+
+  // this warp's q.k^T share: keys nt * 8 .. + 7, k16 steps [kb, ke); the A
+  // fragment's rows g are the query heads (rows g + 8 are zero)
+  const int nt = warp & 3, dh = warp >> 2;
+  const int ksteps = dp / 16, khalf = (ksteps + 1) / 2;
+  const int kb = dh * khalf, ke = min(ksteps, kb + khalf);
+  const bf16* qh = q + ((size_t)b * Hkv * G + (size_t)hk * G + g) * D;
+  uint32_t qa[DA_DMAX / 32][2];
+#pragma unroll
+  for (int kk = 0; kk < DA_DMAX / 32; ++kk) {
+    const int c = (kb + kk) * 16 + 2 * t;
+    const bool on = kb + kk < ke && g < G;
+    qa[kk][0] = on && c < D ? ld_bf16x2(qh + c) : 0u;
+    qa[kk][1] = on && c + 8 < D ? ld_bf16x2(qh + c + 8) : 0u;
   }
+  cp_async_wait<1>();  // K has landed (V may not have)
+  __syncthreads();
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < DA_DMAX / 32; ++kk) {
+    if (kb + kk < ke) {
+      const bf16* kp = &ks[nt * 8 + g][(kb + kk) * 16 + 2 * t];
+      const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+      const uint32_t bb[2] = {ld_bf16x2(kp), ld_bf16x2(kp + 8)};
+      mma_bf16_16816(sc, a, bb);
+    }
+  }
+  red[dh][g][nt * 8 + 2 * t] = sc[0];
+  red[dh][g][nt * 8 + 2 * t + 1] = sc[1];
   __syncthreads();
 
-  // scores: warp w takes keys w, w+8, ...; lane covers d = lane*8 .. +8
-  const bool lane_on = lane < nchunk;
-  for (int j = warp; j < nk; j += DA_THREADS / 32) {
-    float kf[8];
-    if (lane_on) bf16x8_to_float(*reinterpret_cast<const uint4*>(&ks[j][lane * 8]), kf);
-    float dots[DA_HMAX];
-#pragma unroll
-    for (int h = 0; h < DA_HMAX; ++h) {
-      float acc = 0.f;
-      if (lane_on) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc = fmaf(qs[h][lane * 8 + e], kf[e], acc);
-      }
-      dots[h] = acc;
-    }
-#pragma unroll
-    for (int h = 0; h < DA_HMAX; ++h) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dots[h] += __shfl_xor_sync(0xffffffffu, dots[h], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int h = 0; h < DA_HMAX; ++h) sc[h][j] = dots[h] * scale;
-    }
-  }
-  __syncthreads();
-
-  // per-head max and sum over this split's visible keys: warp h, lane = key
-  if (warp < G) {
-    const bool on = lane < nk && ok[lane];
-    float m = on ? sc[warp][lane] : PG_NEG_INF;
+  // per-head max and sum over this tile's visible keys: warp h, lane = key
+  {
+    const int h = warp;
+    const bool on = h < G && ok[lane];
+    const float s = (red[0][h][lane] + red[1][h][lane]) * scale;
+    float m = on ? s : PG_NEG_INF;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float p = on ? __expf(sc[warp][lane] - m) : 0.f;
-    if (lane < DA_KT) sc[warp][lane] = p;
+    const float p = on ? __expf(s - m) : 0.f;
+    ps[h][lane] = f2bf(p);
+    ps[h + 8][lane] = f2bf(0.f);
     float l = p;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) {
-      part_m[part * G + warp] = m;
-      part_l[part * G + warp] = l;
+    if (lane == 0 && h < G) {
+      part_m[part * G + h] = m;
+      part_l[part * G + h] = l;
     }
   }
+  cp_async_wait<0>();  // V has landed
   __syncthreads();
 
-  // unnormalized p @ V from the staged tile: thread d accumulates every head
-  const int d = tid;
-  if (d < D) {
-    float acc[DA_HMAX];
+  // unnormalized bf16(p) . V: warp w owns output columns 32 w .. + 31
+  const int n0 = warp * 32;
+  if (n0 < D) {
+    const int lr = lane & 7, lm = lane >> 3;
+    float acc[4][4];
 #pragma unroll
-    for (int h = 0; h < DA_HMAX; ++h) acc[h] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float vv = bf2f(vs[j][d]);
+    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll
-      for (int h = 0; h < DA_HMAX; ++h) acc[h] = fmaf(sc[h][j], vv, acc[h]);
+    for (int kk = 0; kk < DA_KT / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, &ps[(lm & 1) * 8 + lr][kk * 16 + (lm >> 1) * 8]);
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        if (n0 + pr * 16 < D) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, &vs[kk * 16 + (lm & 1) * 8 + lr][n0 + pr * 16 + (lm >> 1) * 8]);
+          mma_bf16_16816(acc[2 * pr], a, bv);
+          mma_bf16_16816(acc[2 * pr + 1], a, bv + 2);
+        }
+      }
     }
-    for (int h = 0; h < G; ++h) part_o[(part * G + h) * D + d] = acc[h];
+    if (g < G) {
+      float* po = part_o + (part * G + g) * D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + i * 8 + 2 * t;
+        if (col < D) *reinterpret_cast<float2*>(po + col) = make_float2(acc[i][0], acc[i][1]);
+      }
+    }
   }
 }
 
-// grid (G, B * Hkv): merges the nsplit partials of one query head in split
-// order into out (B, Hkv * G, D). (Templated on the address policy only so
-// that each source instantiates a kernel of its own.)
+// grid (ceil(D / 32), G, B * Hkv), 8 warps: merges the nsplit partials of
+// one query head into 32 columns of out (B, Hkv * G, D). (Templated on the
+// address policy only so that each source instantiates a kernel of its
+// own.)
 template <class KV>
-__global__ void attn_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                             const float* __restrict__ part_o, bf16* __restrict__ out, int G,
-                             int D, int nsplit) {
-  const int bh = blockIdx.y, h = blockIdx.x;
+__global__ void __launch_bounds__(DA_MERGE * 32)
+    attn_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                 const float* __restrict__ part_o, bf16* __restrict__ out, int G, int D,
+                 int nsplit) {
+  __shared__ float wmax[DA_MERGE];
+  __shared__ float wden[DA_MERGE];
+  __shared__ float wnum[DA_MERGE][32];
+  const int bh = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.x * 32 + lane;
   const size_t base = (size_t)bh * nsplit;
+  // the largest split max (a max is the same in any order)
   float mx = PG_NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[(base + s) * G + h]);
-  float den = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const size_t i = (base + s) * G + h;
-    den += __expf(part_m[i] - mx) * part_l[i];
-  }
-  const float inv = den > 0.f ? 1.f / den : 0.f;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float num = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t i = (base + s) * G + h;
-      num += __expf(part_m[i] - mx) * part_o[i * D + d];
+  for (int s = threadIdx.x; s < nsplit; s += DA_MERGE * 32)
+    mx = fmaxf(mx, part_m[(base + s) * G + h]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) wmax[warp] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < DA_MERGE; ++i) mx = fmaxf(mx, wmax[i]);
+  // warp w adds the splits w, w + 8, ... in ascending order, loading four
+  // of them ahead of the adds (a column past D reads column D - 1 and is
+  // not stored)
+  float den = 0.f, num = 0.f;
+  const int dc = min(d, D - 1);
+  int s = warp;
+  for (; s + 3 * DA_MERGE < nsplit; s += 4 * DA_MERGE) {
+    float mv[4], lv[4], ov[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const size_t i = (base + s + u * DA_MERGE) * G + h;
+      mv[u] = part_m[i];
+      lv[u] = part_l[i];
+      ov[u] = part_o[i * D + dc];
     }
-    out[((size_t)bh * G + h) * D + d] = f2bf(num * inv);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float wgt = __expf(mv[u] - mx);
+      den += wgt * lv[u];
+      num += wgt * ov[u];
+    }
+  }
+  for (; s < nsplit; s += DA_MERGE) {
+    const size_t i = (base + s) * G + h;
+    const float wgt = __expf(part_m[i] - mx);
+    den += wgt * part_l[i];
+    num += wgt * part_o[i * D + dc];
+  }
+  wnum[warp][lane] = num;
+  if (lane == 0) wden[warp] = den;
+  __syncthreads();
+  if (warp == 0 && d < D) {
+    float dt = 0.f, nt = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_MERGE; ++w) {
+      dt += wden[w];
+      nt += wnum[w][lane];
+    }
+    out[((size_t)bh * G + h) * D + d] = f2bf(nt * (dt > 0.f ? 1.f / dt : 0.f));
   }
 }
 
@@ -232,6 +309,7 @@ inline int attn_launch(const bf16* q, const KV& kv, float* part_m, float* part_l
                                                                 Hkv, D, W, nsplit, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_combine<KV><<<dim3(G, B * Hkv), 256, 0, st>>>(part_m, part_l, part_o, out, G, D, nsplit);
+  attn_combine<KV><<<dim3((D + 31) / 32, G, B * Hkv), DA_MERGE * 32, 0, st>>>(
+      part_m, part_l, part_o, out, G, D, nsplit);
   return (int)cudaGetLastError();
 }

@@ -9,16 +9,20 @@
 //                          of scale * q[b,h] . k[b,j];  no valid j -> 0
 //
 // What bounds it: reading the K and V window (2 * W * D * 2 bytes per row
-// and layer; 2 MB at W=2048, D=256); the flops are ~Hq per byte. All Hq query
-// heads share the one KV head, so each block reads a K/V tile once for all
-// heads. The window is split over blocks of DA_KT = 32 keys (split-K), so a
-// single row puts W/32 blocks on the card; each block stages its K/V tile in
-// shared memory with independent 16-byte loads (a first version that walked
-// 256 keys per block with one dependent load per key took 68 us per call at
-// W=512 on an H100 80GB HBM3 at 700 W),
-// writes an unnormalized (max, sum, output) triple, and a combine pass
-// merges the splits with the usual rescaling. The two passes live in
-// attention_split.cuh, shared with the paged kernel (paged_attention.cu).
+// and layer; 2 MB at W=2048, D=256); the flops are ~Hq per byte. All Hq
+// query heads share the one KV head, so each block reads a K/V tile once
+// for all heads, and scores it with tensor-core products whose live rows
+// are the heads. The window is split over blocks of DA_KT = 32 keys
+// (split-K), so a single row puts W/32 blocks on the card; each block
+// stages its K and V tiles as two groups of cp.async copies, writes an
+// unnormalized (max, sum, output) triple, and a combine pass of one block
+// per 32 output columns and head merges the splits in a fixed order. The
+// two passes live in attention_split.cuh, shared with the paged kernel
+// (paged_attention.cu) and the length-aware one (seg_attention.cu). (A
+// first version that walked 256 keys per block with one dependent load per
+// key took 68 us per call at W=512; the template's first version, scalar
+// FMAs and a combine of one block per head, 17.3 us at W=2048: both on an
+// H100 80GB HBM3 at 700 W.)
 #include "attention_split.cuh"
 
 PG_EXPORT int pg_decode_attention(const void* q, const void* k_cache, const void* v_cache,

@@ -13,13 +13,14 @@
 //
 // What bounds it: reading the row's K and V pages (2 * kv_len * D * 2 bytes
 // per row, KV head and layer). The design is decode_attention.cu's: split-K
-// over 32-key tiles, each tile staged in shared memory with independent
-// 16-byte loads (the page lookup is per key, so any page size works and a
-// fragmented table costs no more than a contiguous one), the G query heads
-// of a KV head scored against one staged tile, and a fixed-order combine
-// pass. Tiles past kv_len are skipped without a load, so reads follow the
-// live tokens and not the table's width. Both kernels are the same template
-// (attention_split.cuh): on the same keys they return the same bits.
+// over 32-key tiles, each tile staged in shared memory by cp.async (the page
+// lookup is per key, so any page size works and a fragmented table costs no
+// more than a contiguous one; a key past kv_len is never looked up), the G
+// query heads of a KV head scored against one staged tile on the tensor
+// cores, and a fixed-order combine pass. Tiles past kv_len are skipped
+// without a load, so reads follow the live tokens and not the table's
+// width. Both kernels are the same template (attention_split.cuh): on the
+// same keys they return the same bits.
 #include "attention_split.cuh"
 
 PG_EXPORT int pg_paged_attention(const void* q, const void* k_pool, const void* v_pool,

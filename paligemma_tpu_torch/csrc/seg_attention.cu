@@ -12,12 +12,13 @@
 // What bounds it: reading the visible keys and values (2 * D * 2 bytes per
 // key and KV head: 2.1 MB at kv_len 2048, D 256, one KV head); the flops
 // are G per byte. The design is the split/combine of attention_split.cuh
-// with the SegKV address policy: 32-key tiles staged with 16-byte loads,
-// the G query heads of a KV head scored against one staged tile, a tile
-// with no visible key (wholly past kv_len, or wholly inside the pad hole
-// [seg0, seg1)) skipped without a load, and a fixed-order combine. A page
-// table cannot express the hole, so this is a policy of its own rather
-// than the paged kernel over an identity table.
+// with the SegKV address policy: 32-key tiles staged by cp.async, only
+// their visible keys read, the G query heads of a KV head scored against
+// one staged tile on the tensor cores, a tile with no visible key (wholly
+// past kv_len, or wholly inside the pad hole [seg0, seg1)) skipped without
+// a load, and a fixed-order combine. A page table cannot express the hole,
+// so this is a policy of its own rather than the paged kernel over an
+// identity table.
 #include "attention_split.cuh"
 
 PG_EXPORT int pg_seg_attention(const void* q, const void* k_cache, const void* v_cache,

@@ -64,8 +64,10 @@ SIGNATURES = {
     # y, w8, s, part_max, part_idx, ids, maxv, B, K, N, n_valid, k_chunk,
     # stream
     "pg_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
-    # q, k, v, out, B, S, H, D, warps, scale, stream
+    # q, k, v, out, B, S, H, D, rows, scale, stream
     "pg_vision_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
+    # q, k, v, B, S, H, D, rows, iters (the tensor maps only, no launch)
+    "pg_vision_attention_maps": [_P] * 3 + [_I] * 6,
     # q, k_cache, v_cache, seg0, seg1, kv_len, part_m, part_l, part_o, out, B,
     # Hq, Hkv, D, S, nsplit, scale, stream
     "pg_seg_attention": [_P] * 10 + [_I] * 6 + [_F, _P],

@@ -22,13 +22,20 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..decode_attention import KEYS_PER_SPLIT, MAX_BATCH, MAX_HEADS
+from ..decode_attention import MAX_BATCH, MAX_HEADS, SplitPlan
 
 
 def supported(s_max: int, head_dim: int) -> bool:
     """Cache lengths and head sizes the kernel takes: any cache length, a
     head_dim that is a multiple of 8 up to 256."""
     return s_max > 0 and head_dim % 8 == 0 and 0 < head_dim <= 256
+
+
+def split_plan(q: torch.Tensor, k_cache: torch.Tensor) -> SplitPlan:
+    """The plan of a call: the cache's length is the window."""
+    b, hq, d = q.shape
+    s_max, hkv = k_cache.shape[1], k_cache.shape[2]
+    return SplitPlan(rows=b * hkv, groups=hq // hkv, head_dim=d, window=s_max)
 
 
 def reference_decode_attention(q, k_cache, v_cache, seg0_end, seg1_start, kv_len, scale=None):
@@ -92,16 +99,13 @@ def decode_attention(
         raise ValueError(f"decode_attention: Hq {hq} a multiple of Hkv {hkv} with at most "
                          f"{MAX_HEADS} per KV head, head_dim {d} a multiple of 8 <= 256, "
                          f"B*Hkv <= {MAX_BATCH}")
-    nsplit = -(-s_max // KEYS_PER_SPLIT)
-    g = hq // hkv
-    part_m = torch.empty((b * hkv, nsplit, g), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_o = torch.empty((b * hkv, nsplit, g, d), dtype=torch.float32, device=dev)
+    plan = split_plan(q, k_cache)
+    part_m, part_l, part_o = plan.scratch(dev)
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
     err = _build.library().pg_seg_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *(t.data_ptr() for t in segs),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-        s_max, nsplit, float(scale), _build.stream_ptr(dev))
+        s_max, plan.nsplit, float(scale), _build.stream_ptr(dev))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -8,9 +8,10 @@ arithmetic:
 
     s = q k^T * scale (fp32),  p = exp(s - rowmax),  o = (p.astype(v) v) / rowsum(p)
 
-The plain version is that one-shot softmax. The kernel streams K and V with
-an online softmax (a running max and sum per row), so it holds no row of
-scores whole and takes any S the TPU kernel takes (a multiple of 128).
+The plain version is that one-shot softmax. The kernel streams K and V in
+128-key tiles with an online softmax (a running max and sum per row) on
+wgmma tensor-core products fed by TMA, so it holds no row of scores whole
+and takes any S the TPU kernel takes (a multiple of 128).
 """
 
 from __future__ import annotations
@@ -21,18 +22,28 @@ import torch
 
 from .. import _build
 
-MAX_HEAD_DIM = 128  # VA_DMAX
+MAX_HEAD_DIM = 128  # the deepest instantiation of csrc/vision_attention.cu
 MAX_GRID_YZ = 65535
 TARGET_BLOCKS = 132  # one block per SM of an H100
+MAX_ROWS = 2**31 - 1  # B * S: TMA's row coordinate is a 32-bit int
 
 
-def warps_per_block(b: int, s: int, h: int) -> int:
-    """16-row query groups per block: the most (up to 4, which share each
-    staged K/V tile) that still give every SM a block."""
-    for w in (4, 2):
-        if (s // (16 * w)) * h * b >= TARGET_BLOCKS:
-            return w
-    return 1
+def rows_per_block(b: int, s: int, h: int) -> int:
+    """Query rows per block: 128 (two consumer warpgroups sharing each K/V
+    tile) unless that leaves most SMs idle, else 64 (one). On an H100 at
+    S1024 H16 D72, 128 blocks of 128 rows took 19 us against 34 for 256
+    blocks of 64 (tools/attention_times.py)."""
+    return 128 if (s // 128) * h * b >= TARGET_BLOCKS // 2 else 64
+
+
+def launch_plan(b: int, s: int, h: int, d: int) -> int:
+    """The kernel's rows per block for a (B, S, H, D) call; raises
+    ValueError for a shape the kernel does not take."""
+    if (d % 8 or not 0 < d <= MAX_HEAD_DIM or h > MAX_GRID_YZ or b > MAX_GRID_YZ
+            or b * s > MAX_ROWS):
+        raise ValueError(f"vision_attention: head_dim {d} must be a multiple of 8 <= "
+                         f"{MAX_HEAD_DIM}, H and B <= {MAX_GRID_YZ}, B * S <= {MAX_ROWS}")
+    return rows_per_block(b, s, h)
 
 
 def vision_attention_reference(q, k, v, scale: float) -> torch.Tensor:
@@ -56,7 +67,7 @@ def vision_attention(
 
     ``head_block`` is checked (it must divide H) for parity with the TPU
     kernel, whose grid step took that many heads; it does not change the
-    Hopper launch (one block per 16, 32 or 64 query rows and head). S must
+    Hopper launch (one block per 64 or 128 query rows and head). S must
     be a multiple of 128, as on the TPU: the tower never pads its
     patches."""
     b, s, h, d = q.shape
@@ -76,13 +87,11 @@ def vision_attention(
                 or t.device != dev or t.data_ptr() % 16):
             raise ValueError(f"vision_attention: {name} must be contiguous 16-byte aligned "
                              "bf16 (B, S, H, D) on q's device")
-    if d % 8 or d > MAX_HEAD_DIM or h > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"vision_attention: head_dim {d} must be a multiple of 8 <= "
-                         f"{MAX_HEAD_DIM}, H and B <= {MAX_GRID_YZ}")
+    rows = launch_plan(b, s, h, d)
     out = torch.empty_like(q)
     err = _build.library().pg_vision_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        warps_per_block(b, s, h), float(scale), _build.stream_ptr(dev))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, rows,
+        float(scale), _build.stream_ptr(dev))
     _build.check(err, "vision_attention")
     vision_attention.launches += 1
     return out

@@ -10,13 +10,64 @@ fresh token's K/V must already be in the cache (kernels/decode_elementwise
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from . import _build
 
-KEYS_PER_SPLIT = 32  # csrc/decode_attention.cu DA_KT
+KEYS_PER_SPLIT = 32  # csrc/attention_split.cuh DA_KT
+MERGE_LANES = 8  # DA_MERGE: the combine's warp that adds split s is s % 8
 MAX_HEADS = 8  # DA_HMAX
-MAX_BATCH = 65535  # one block row per batch row: the grid's y limit
+MAX_BATCH = 65535  # one block row per (batch row, KV head): the grid's y / z limit
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the split-K kernels of ``csrc/attention_split.cuh`` cut one call:
+    ``rows`` = B * Hkv rows of ``groups`` query heads each, ``window`` keys,
+    ``head_dim`` D. The dense (decode_attention), paged and seg
+    (ablation.decode_attention) wrappers all take their plan and scratch
+    from here."""
+
+    rows: int
+    groups: int
+    head_dim: int
+    window: int
+
+    @property
+    def nsplit(self) -> int:
+        return -(-self.window // KEYS_PER_SPLIT)
+
+    @staticmethod
+    def tile(split: int) -> tuple[int, int]:
+        """Keys [start, start + KEYS_PER_SPLIT) of a split (cut at the
+        window's end): fixed by the split index alone."""
+        return split * KEYS_PER_SPLIT, (split + 1) * KEYS_PER_SPLIT
+
+    @staticmethod
+    def merge_slot(split: int) -> tuple[int, int]:
+        """(warp, position): the combine's warp that adds a split, and its
+        place in that warp's ascending sum; the warps' sums are then added
+        in warp order."""
+        return split % MERGE_LANES, split // MERGE_LANES
+
+    def scratch_shapes(self) -> dict:
+        """The fp32 partials the split pass writes: a max and a sum per
+        split and head, an unnormalized output row per split and head."""
+        ml = (self.rows, self.nsplit, self.groups)
+        return {"part_m": ml, "part_l": ml, "part_o": ml + (self.head_dim,)}
+
+    def scratch(self, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        sh = self.scratch_shapes()
+        return tuple(torch.empty(sh[n], dtype=torch.float32, device=device)
+                     for n in ("part_m", "part_l", "part_o"))
+
+
+def split_plan(q: torch.Tensor, valid: torch.Tensor) -> SplitPlan:
+    """The plan of a dense call: one KV head, the (B, W) mask's window."""
+    b, h, d = q.shape
+    return SplitPlan(rows=b, groups=h, head_dim=d, window=valid.shape[1])
 
 
 def decode_attention_reference(
@@ -66,16 +117,14 @@ def decode_attention(
     if h > MAX_HEADS or d % 8 or d > 256 or b > MAX_BATCH:
         raise ValueError(f"decode_attention: H {h} <= {MAX_HEADS}, D {d} multiple of 8 <= 256, "
                          f"B {b} <= {MAX_BATCH}")
-    nsplit = -(-w // KEYS_PER_SPLIT)
-    part_m = torch.empty((b, nsplit, h), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_o = torch.empty((b, nsplit, h, d), dtype=torch.float32, device=dev)
+    plan = split_plan(q, valid)
+    part_m, part_l, part_o = plan.scratch(dev)
     out = torch.empty((b, h * d), dtype=torch.bfloat16, device=dev)
     lib = _build.library()
     err = lib.pg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(),
-        b, h, d, w, s_len * d, nsplit, float(scale), _build.stream_ptr(dev),
+        b, h, d, w, s_len * d, plan.nsplit, float(scale), _build.stream_ptr(dev),
     )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

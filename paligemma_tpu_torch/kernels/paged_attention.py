@@ -24,12 +24,19 @@ from typing import Optional
 import torch
 
 from . import _build
-from .decode_attention import KEYS_PER_SPLIT, MAX_BATCH, MAX_HEADS
+from .decode_attention import MAX_BATCH, MAX_HEADS, SplitPlan
 
 
 def supported(page_size: int, head_dim: int) -> bool:
     """Page and head sizes the kernel takes (the engine checks this once)."""
     return page_size % 16 == 0 and head_dim % 8 == 0 and head_dim <= 256
+
+
+def split_plan(q: torch.Tensor, k_pool: torch.Tensor, page_table: torch.Tensor) -> SplitPlan:
+    """The plan of a paged call: the table's width in keys is the window."""
+    b, hq, d = q.shape
+    ps, hkv = k_pool.shape[-3], k_pool.shape[-2]
+    return SplitPlan(rows=b * hkv, groups=hq // hkv, head_dim=d, window=page_table.shape[1] * ps)
 
 
 def _layer_view(k_pool, v_pool, layer_idx):
@@ -114,18 +121,15 @@ def paged_decode_attention(
                          f"{MAX_HEADS} per KV head, page_size {ps} a multiple of 16, head_dim "
                          f"{d} a multiple of 8 <= 256, B*Hkv <= {MAX_BATCH}")
     w = n_p * ps
-    nsplit = -(-w // KEYS_PER_SPLIT)
-    g = hq // hkv
-    part_m = torch.empty((b * hkv, nsplit, g), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_o = torch.empty((b * hkv, nsplit, g, d), dtype=torch.float32, device=dev)
+    plan = split_plan(q, k_pool, page_table)
+    part_m, part_l, part_o = plan.scratch(dev)
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
     layer_off = int(layer_idx) * n_pages * ps * hkv * d if stacked else 0
     kv_len = kv_len.contiguous()
     err = _build.library().pg_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         kv_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
-        out.data_ptr(), b, hq, hkv, d, w, ps, page_table.stride(0), layer_off, nsplit,
+        out.data_ptr(), b, hq, hkv, d, w, ps, page_table.stride(0), layer_off, plan.nsplit,
         float(scale), _build.stream_ptr(dev),
     )
     _build.check(err, "paged_decode_attention")

@@ -318,8 +318,9 @@ def _close_rel(got, want, rel=2e-2):
 
 @pytest.mark.cuda
 def test_vision_attention_kernel_on_card():
-    """B12 against its plain version (one launch per call); an fp32 input on
-    the card raises instead of running the plain version."""
+    """B12 against its plain version (one launch per call) at B2 S128 H3
+    (64-row blocks, two batches in one tensor map); an fp32 input on the
+    card raises instead of running the plain version."""
     from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
 
     dev = _card()
@@ -329,23 +330,43 @@ def test_vision_attention_kernel_on_card():
     n0 = t_va.vision_attention.launches
     got = t_va.vision_attention(q, k, v)
     assert t_va.vision_attention.launches == n0 + 1
-    _close_rel(got, t_va.vision_attention_reference(q, k, v, 72**-0.5))
+    _close_rel(got, t_va.vision_attention_reference(q, k, v, 72**-0.5), rel=1e-2)
     with pytest.raises(ValueError):
         t_va.vision_attention(q.float(), k.float(), v.float())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [256, 4096])
+@pytest.mark.parametrize("s", [256, 4096, 1024])
 def test_vision_attention_streams_long_sequences_on_card(s):
-    """B12 at the 224 px and 896 px towers' S (H16, D72): the streamed
-    softmax holds no row of scores, so S = 4096 runs."""
+    """B12 at the 224, 896 and 448 px towers' S (H16, D72): the streamed
+    softmax holds no row of scores, so S = 4096 runs; 64-row blocks at S256,
+    128-row blocks at S1024 and S4096."""
     from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn(1, s, 16, 72, generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
-    _close_rel(t_va.vision_attention(q, k, v), t_va.vision_attention_reference(q, k, v, 72**-0.5))
+    _close_rel(t_va.vision_attention(q, k, v), t_va.vision_attention_reference(q, k, v, 72**-0.5),
+               rel=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(1, 256, 16, 64), (1, 4096, 16, 64), (1, 256, 4, 128),
+                                     (2, 2048, 8, 128), (1, 512, 2, 8), (1, 384, 3, 96)])
+def test_vision_attention_depths_and_bits_on_card(b, s, h, d):
+    """B12 at each depth instantiation (64, 80 via the tests above, 128),
+    head dims below an atom (8) and between instantiations (96), with
+    64- and 128-row blocks; a second call gives the same bits."""
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    got = t_va.vision_attention(q, k, v)
+    _close_rel(got, t_va.vision_attention_reference(q, k, v, d**-0.5), rel=1e-2)
+    assert torch.equal(t_va.vision_attention(q, k, v), got)
 
 
 @pytest.mark.cuda
@@ -407,6 +428,63 @@ def test_seg_decode_attention_kernel_on_card():
     assert torch.equal(t_sda.decode_attention(q, kp, vp, *segs), got)
     with pytest.raises(ValueError):
         t_sda.decode_attention(q.float(), kc, vc, *segs)
+
+
+@pytest.mark.cuda
+def test_seg_decode_attention_hole_inside_a_tile_never_read_on_card():
+    """B10 reads only visible keys, also inside a 32-key tile that the hole
+    shares with the prompt (as tests/test_torch_ablation.py's poisoned-hole
+    test holds the plain version): NaN in the hole changes no bit."""
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(2, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(2, 128, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    segs = [torch.tensor(r, dtype=torch.int32, device=dev) for r in ([10, 20], [20, 20], [25, 25])]
+    got = t_sda.decode_attention(q, kc, vc, *segs)
+    _close_rel(got, t_sda.reference_decode_attention(q, kc, vc, *segs), rel=1e-2)
+    kp, vp = kc.clone(), vc.clone()
+    kp[0, 10:20] = float("nan")
+    vp[0, 10:20] = float("nan")
+    kp[:, 25:] = float("nan")  # past kv_len, in the same tile
+    vp[:, 25:] = float("nan")
+    assert torch.equal(t_sda.decode_attention(q, kp, vp, *segs), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grp", [1, 2, 4, 8])
+def test_split_attention_policies_agree_bit_for_bit_on_card(grp):
+    """3b (dense), B5 (paged) and B10 (seg) on the same keys give the same
+    bits: the paged window is 5 pages of 16 (80 keys, not a multiple of
+    the 32-key tile), the dense one 256 (padded past it) and 96; G query
+    heads per KV head; a row with no visible key gives zeros; a second call
+    gives the same bits."""
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8 + grp)
+    b, d, ps, s_len = 3, 128, 16, 256
+    q = torch.randn(b, grp, d, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(b, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.tensor([37, 0, 80], dtype=torch.int32, device=dev)
+    valid = (torch.arange(s_len, device=dev)[None] < lens[:, None].long()).contiguous()
+    dense = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5)
+    _close_rel(dense, t_dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5), rel=1e-2)
+    assert torch.count_nonzero(dense[1]) == 0
+    assert torch.equal(t_dattn.decode_attention(q, kc, vc, valid, d**-0.5), dense)
+    assert torch.equal(t_dattn.decode_attention(q, kc, vc, valid[:, :96].contiguous(), d**-0.5),
+                       dense)
+    pool_k = kc.reshape(b * s_len // ps, ps, 1, d)
+    pool_v = vc.reshape(b * s_len // ps, ps, 1, d)
+    tab = (torch.arange(5, device=dev)[None]
+           + (s_len // ps) * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+    paged = t_paged.paged_decode_attention(q, pool_k, pool_v, tab, lens, d**-0.5)
+    assert torch.equal(paged, dense.reshape(b, grp, d))
+    seg = t_sda.decode_attention(q, kc[:, :, None], vc[:, :, None], lens, lens, lens, d**-0.5)
+    assert torch.equal(seg, dense.reshape(b, grp, d))
 
 
 @pytest.mark.cuda
