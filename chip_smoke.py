@@ -163,6 +163,10 @@ INT8_ROWS = (1, 266, 1024)
 # cores and HBM3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the spin kernel that checks each profile's device clock (profiled): ~0.5
+# ms at the H100's clocks, so that the ~20 us the events add to a kernel
+# under the profiler stay inside the check's 15 %
+SPIN_CYCLES = 1_000_000
 # the flash forward's (B1) cases: label, (b, sq, skv, hq, hkv, d), prefix_len,
 # kv_len, q_offset, timing ("json": the kernels line's times and device
 # times; "device": device times beside SDPA (and B12 at the tower's shape);
@@ -204,6 +208,21 @@ TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
 
 
+def ptxas_lines(log_path, kernels_of_interest):
+    """Print ``-Xptxas -v``'s registers, shared memory and spills of every
+    instantiation of the named kernels (from the build's ptxas.log)."""
+    lines = log_path.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1]
+        if not any(k in name for k in kernels_of_interest):
+            continue
+        info = [ln.replace("ptxas info    :", "").strip() for ln in lines[i + 1:i + 4]
+                if "spill" in ln or "Used" in ln]
+        print(f"build: ptxas {name[:60]}: {'; '.join(info)}", flush=True)
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -230,27 +249,81 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10):
-    """Device time per call of ``fn``: torch.profiler's device-side events
-    (kernels, copies, memsets) over ``iters`` calls after a warm-up call,
-    summed and divided by ``iters``, so the host's issue time is not in it
-    (back to back, a call of a few tens of us can measure the host). Returns
-    (ms, [(event, us per call), ...] largest first), or (None, []) when the
-    profiler saw no device activity."""
+def profiled(fn, label, counts=None, check=None):
+    """``fn()`` under torch.profiler, checked, for on the H100's host a
+    run's device events come back wrong now and then: every kernel of a
+    tick at ~0.46-0.48 of its time, or some of a run's kernels missing
+    (an LM head at a quarter of its time, below its bytes bound), or no
+    device event at all.
+
+    * the clock: after ``fn`` a spin kernel of ``SPIN_CYCLES`` runs
+      between two CUDA events (behind a shorter spin, so that no launch gap
+      is in their time); the profiler's duration of it must be within 15 %
+      of theirs;
+    * the events: ``check(rows, grew)`` returns why the rows cannot be
+      right (events missing), or None.
+
+    A run that fails either is printed and done again, up to three runs. Returns (the device-side rows of ``key_averages()`` without the
+    spins, the profile, wall ms of ``fn``, what ``counts()`` (launch
+    counts) grew by: ``grew``), or None when no run passed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(1, 4):
         sync()
-    rows = [k for k in prof.key_averages()
-            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
-    if not rows:
+        before = counts() if counts else {}
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            ev0.record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            ev1.record()
+            sync()
+        grew = {k: v - before[k] for k, v in counts().items()} if counts else {}
+        events_ms = ev0.elapsed_time(ev1)
+        # the two spins are the last device events: fn's work ended before them
+        dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        spin = dev[-1] if len(dev) > 2 else None
+        rows = [k for k in prof.key_averages() if k.device_type == DeviceType.CUDA
+                and k.self_device_time_total > 0 and spin is not None and k.key != spin.name]
+        spin_ms = (spin.time_range.end - spin.time_range.start) / 1e3 if rows else 0.0
+        why = "no device event of fn" if not rows else (check(rows, grew) if check else None)
+        if not why and not 0.85 * events_ms <= spin_ms <= 1.15 * events_ms:
+            why = f"the profiler's spin kernel {spin_ms:.4f} ms against CUDA events' {events_ms:.4f} ms"
+        if not why:
+            return rows, prof, wall, grew
+        print(f"profile: {label}: run {attempt}: {why}: its times are not used", flush=True)
+    return None
+
+
+def device_ms(fn, iters: int = 10, label: str = "device_ms"):
+    """Device time per call of ``fn``: torch.profiler's device-side events
+    (kernels, copies, memsets) over ``iters`` calls after a warm-up call, so
+    the host's issue time is not in it (back to back, a call of a few tens
+    of us can measure the host). Each event's mean time times its events
+    per call (its count / ``iters``, rounded): the H100 host's profiler
+    sometimes keeps all but one event of a run, and the rest still time
+    right; a count far from a whole number of events per call is refused
+    (:func:`profiled` profiles again). Returns (ms, [(event, us per call),
+    ...] largest first), or (None, []) when no profile passed."""
+    def per_call(k):
+        return round(k.count / iters)
+
+    def whole_calls(rows, grew):
+        return next((f"{k.key[:40]}: {k.count} events in {iters} calls" for k in rows
+                     if per_call(k) == 0 or abs(k.count / iters - per_call(k)) > 0.25), None)
+
+    fn()
+    got = profiled(lambda: [fn() for _ in range(iters)], label, check=whole_calls)
+    if got is None:
         return None, []
-    parts = sorted(((k.key, k.self_device_time_total / iters) for k in rows), key=lambda x: -x[1])
+    parts = sorted(((k.key, k.self_device_time_total / k.count * per_call(k)) for k in got[0]),
+                   key=lambda x: -x[1])
     return sum(us for _, us in parts) / 1e3, parts
 
 
@@ -259,7 +332,7 @@ def device_times(label, fns, iters: int = 10):
     with its largest events; returns {name: ms or None}."""
     out = {}
     for name, fn in fns:
-        ms, parts = device_ms(fn, iters)
+        ms, parts = device_ms(fn, iters, f"{name} {label}")
         out[name] = ms
         if ms is None:
             print(f"  device {name:26s} {label:40s} not measured (the profiler saw no device "
@@ -389,6 +462,74 @@ def flash_fwd_device_times(label, q, k, v, pl, kl, q_off):
     return run, sdpa, flops, n_bytes
 
 
+def gemv_device_times(dev, label=""):
+    """Device time per call (torch.profiler) of int8_gemv at the decoder's
+    four projections and of head_argmax_fused at the LM head, B 1 and 8,
+    with the weights cold as in a decode step: each call takes the next of
+    enough weight copies to pass 60 MB (the L2 holds 50 MB). Beside them:
+    the bytes bound, and torch._weight_int8pack_mm on N-major copies with
+    bf16 scales (the product without the epilogue; never called by the
+    port), timed the same way. ``label`` tags the lines (tools/gemv_times.py
+    runs this on other trees)."""
+    from paligemma_tpu_torch.kernels import decode_head as dh
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def cycling(fns):
+        at = [0]
+
+        def run():
+            at[0] = (at[0] + 1) % len(fns)
+            return fns[at[0]]()
+        return run
+
+    def us(fn, calls):
+        ms = device_ms(fn, calls)[0]
+        return None if ms is None else ms * 1e3
+
+    def txt(v):
+        return "not measured" if v is None else f"{v:.2f} us"
+
+    tag = f"[{label}] " if label else ""
+    print(f"kernels: {tag}int8_gemv / head_argmax device time, weights cold", flush=True)
+    for name, k, n, epi in (("qkv", 2048, 2560, ""), ("o+res", 2048, 2048, "residual"),
+                            ("gateup+GeGLU", 2048, 32768, "geglu"),
+                            ("down+res", 16384, 2048, "residual"), ("head", 2048, 257152, "head")):
+        copies = max(1 if epi == "head" else 12, -(-60_000_000 // (k * n)))
+        w8s = [torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+               for _ in range(copies)]
+        s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+        w8ts, s_bf = [w.t().contiguous() for w in w8s], s.to(torch.bfloat16)
+        heads = [dh.repack_head({"w8": w, "s": s}) for w in w8s] if epi == "head" else []
+        calls = 4 * copies
+        for b in (1, 8):
+            x = (torch.randn(b, k, generator=g, device=dev)).to(torch.bfloat16)
+            kw = ({"residual": torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)}
+                  if epi == "residual" else {"geglu": epi == "geglu"})
+            out_bytes = 8 * b if epi == "head" else 2 * b * (n // 2 if epi == "geglu" else n)
+            n_bytes = (k * n + 4 * n + 2 * b * k + out_bytes
+                       + (2 * b * n if epi == "residual" else 0))
+            bound = n_bytes / PEAK_BYTES * 1e6
+            if epi == "head":
+                kern = cycling([lambda h=h: dh.head_argmax_fused(x, h) for h in heads])
+                kname = "head_argmax"
+            else:
+                kern = cycling([lambda w=w: gv.int8_gemv(x, w, s, **kw) for w in w8s])
+                kname = "int8_gemv"
+            k_us = us(kern, calls)
+            lib_us = us(cycling([lambda w=w: torch._weight_int8pack_mm(x, w, s_bf) for w in w8ts]),
+                        calls)
+            share = "" if k_us is None else f" ({100 * bound / k_us:.1f} % of it)"
+            print(f"  device {tag}{kname:20s} {name + f' B{b} {k}->{n}':36s} {txt(k_us)}  bound "
+                  f"{bound:.2f} us{share}  _weight_int8pack_mm {txt(lib_us)}", flush=True)
+            if epi == "head":
+                logits_us = us(cycling([lambda w=w: gv.int8_gemv(x, w, s) for w in w8s]), calls)
+                print(f"  device {tag}{'int8_gemv':20s} {name + f' B{b} logits path':36s} "
+                      f"{txt(logits_us)}", flush=True)
+        del w8s, w8ts, heads
+
+
 def kernel_phase(report: KernelReport, dev):
     from paligemma_tpu_torch.kernels import decode_attention as da
     from paligemma_tpu_torch.kernels import decode_elementwise as el
@@ -506,14 +647,23 @@ def kernel_phase(report: KernelReport, dev):
                 print(f"  device B6 dq + dk/dv (sum included) {label}: {both:.4f} ms, bound "
                       f"{bound_dq + bound_dkv:.4f} ms, one SDPA backward {lib_txt}", flush=True)
 
-    # -- int8 GEMV at the four layer projections and the LM head
+    # -- int8 GEMV (csrc/gemv_tile.cuh) at the four layer projections and
+    # the LM head, and at ragged shapes: K not a multiple of 16 (or of 4:
+    # x read element by element), N not a multiple of 128 (or of 16: weight
+    # bytes read one by one); B from 1 to 33 (no 32-row cap as on the TPU);
+    # a second call must give the same bits
     print("kernels: int8_gemv", flush=True)
-    shapes = [("qkv", 2048, 2560, {}), ("o+res", 2048, 2048, {"residual": True}),
-              ("gateup+GeGLU", 2048, 32768, {"geglu": True}),
-              ("down+res", 16384, 2048, {"residual": True}), ("head", 2048, 257152, {})]
-    for name, k, n, kw in shapes:
+    shapes = [("qkv", 2048, 2560, {}, (1, 2, 5, 8, 9, 33)),
+              ("o+res", 2048, 2048, {"residual": True}, (1, 8, 33)),
+              ("gateup+GeGLU", 2048, 32768, {"geglu": True}, (1, 8, 33)),
+              ("down+res", 16384, 2048, {"residual": True}, (1, 8, 33)),
+              ("head", 2048, 257152, {}, (1, 8, 33)),
+              ("ragged K", 2040, 2500, {}, (1, 5, 9)),
+              ("odd K", 1001, 388, {"residual": True}, (2, 8)),
+              ("small GeGLU", 77, 300, {"geglu": True}, (2, 33))]
+    for name, k, n, kw, batches in shapes:
         w8, s = int8_weight(k, n)
-        for b in (1, 8, 33):  # 33: no 32-row cap as on the TPU
+        for b in batches:
             x = bf(b, k)
             args = {}
             if kw.get("residual"):
@@ -521,14 +671,17 @@ def kernel_phase(report: KernelReport, dev):
             if kw.get("geglu"):
                 args["geglu"] = True
             got = gv.int8_gemv(x, w8, s, **args)
+            again = gv.int8_gemv(x, w8, s, **args)
             want = gv.int8_gemv_reference(x, w8, s, **args)
             sync()
             label = f"{name} B{b} {k}->{n}"
             report.case("int8_gemv", label, got, want, 1e-2)
+            if not torch.equal(got, again):
+                raise AssertionError(f"int8_gemv {label}: a second call gave other bits")
             # ms in the JSON: one layer's four GEMVs at B=1 (head apart),
             # beside torch's int8 weight-only matmul on the N-major copy with
             # bf16 scales (the product alone, without the epilogue)
-            if b == 1 and name != "head":
+            if b == 1 and name in ("qkv", "o+res", "gateup+GeGLU", "down+res"):
                 w8t, s_bf = w8.t().contiguous(), s.to(torch.bfloat16)
                 report.time("int8_gemv", label, lambda: gv.int8_gemv(x, w8, s, **args),
                             lambda: gv.int8_gemv_reference(x, w8, s, **args),
@@ -537,12 +690,14 @@ def kernel_phase(report: KernelReport, dev):
                                            *[t for t in args.values() if torch.is_tensor(t)]),
                             library_fn=lambda: torch._weight_int8pack_mm(x, w8t, s_bf))
                 del w8t
-            elif b == 1:
+            elif b == 1 and name == "head":
                 k_ms, p_ms = timed_pair(lambda: gv.int8_gemv(x, w8, s),
                                         lambda: gv.int8_gemv_reference(x, w8, s), 5)
                 print(f"  {'int8_gemv':20s} {label:44s} kernel {k_ms:.4f} ms  "
                       f"plain {p_ms:.4f} ms (not in the JSON sum)", flush=True)
         del w8, s
+    print(f"  {'int8_gemv':20s} {'a second call gives the same bits':44s} ok", flush=True)
+    gemv_device_times(dev)
 
     # -- decode attention over one layer's window, ragged validity at B=4
     print("kernels: decode_attention", flush=True)
@@ -757,6 +912,9 @@ def kernel_phase(report: KernelReport, dev):
         sync()
         if not (torch.equal(ids.long(), logits.argmax(-1)) and torch.equal(mx, logits.max(-1).values)):
             raise AssertionError("head_argmax: differs from argmax of the int8_gemv logits")
+        again = dh.head_argmax_fused(y, head, return_max=True)
+        if not (torch.equal(again[0], ids) and torch.equal(again[1], mx)):
+            raise AssertionError("head_argmax: a second call differs")
         # against the plain version: the kernel's winner is a maximum of the
         # plain logits up to the bf16 rounding of a reordered fp32 sum
         win_plain = plain.gather(1, ids.long()[:, None])[:, 0]
@@ -931,6 +1089,22 @@ def tp_kernel_phase(report: KernelReport, dev):
               f"torch.equal True  ok", flush=True)
         del kc, vc, kp, vp
 
+    print("kernels: int8_gemv on one rank's shard (m = 2, 8)", flush=True)
+    for m in (2, 8):
+        for name, k, n, kw in ((f"qkv m{m}", kdim, (heads // m + 2) * hd, {}),
+                               (f"gateup m{m}", kdim, 2 * inter // m, {"geglu": True})):
+            w = int8(k, n)
+            for b in (1, 8):
+                x = bf(b, k)
+                got = gv.int8_gemv(x, w["w8"], w["s"], **kw)
+                again = gv.int8_gemv(x, w["w8"], w["s"], **kw)
+                sync()
+                report.case("int8_gemv", f"{name} B{b} {k}->{n}", got,
+                            gv.int8_gemv_reference(x, w["w8"], w["s"], **kw), 1e-2)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"int8_gemv {name}: a second call gave other bits")
+            del w
+
     print("kernels: int8_gemv_f32 (the fp32-partial epilogue)", flush=True)
     for name, k, n in (("o rows m1", heads * hd, kdim), ("o rows m8", hd, kdim),
                        ("down rows m1", inter, kdim), ("down rows m8", inter // 8, kdim)):
@@ -964,13 +1138,22 @@ def tp_kernel_phase(report: KernelReport, dev):
     head = int8(kdim, vocab)
     w8, s = head["w8"], head["s"]
 
-    def combine(y, m):
+    def combine(y, m, bits=False):
+        """The vocab-shard argmax of m ranks; with ``bits`` each shard's id
+        and logit must equal argmax of its int8_gemv logits bit for bit
+        (the shard's vocab is padded to the tile, the logits' is not)."""
         vl = vocab // m
         mx, ids = [], []
         for r in range(m):
-            blk = dh.repack_head({"w8": w8[:, r * vl:(r + 1) * vl].contiguous(),
-                                  "s": s[r * vl:(r + 1) * vl].contiguous()})
-            i, v = dh.head_argmax_fused(y, blk, return_max=True)
+            shard = {"w8": w8[:, r * vl:(r + 1) * vl].contiguous(),
+                     "s": s[r * vl:(r + 1) * vl].contiguous()}
+            i, v = dh.head_argmax_fused(y, dh.repack_head(shard), return_max=True)
+            if bits:
+                logits = gv.int8_gemv(y, shard["w8"], shard["s"]).float()
+                if not (torch.equal(i.long(), logits.argmax(-1))
+                        and torch.equal(v, logits.max(-1).values)):
+                    raise AssertionError(f"head_argmax: shard {r} of {m} differs from argmax "
+                                         "of its int8_gemv logits")
             ids.append(i + r * vl)
             mx.append(v)
         return tp.pick_first_max(torch.stack(mx), torch.stack(ids))
@@ -978,10 +1161,12 @@ def tp_kernel_phase(report: KernelReport, dev):
     y = bf(8, kdim)
     plain = ((y.float() @ w8.float()) * s).to(torch.bfloat16).float()
     for m in TP_SIZES[1:]:
-        ids = combine(y, m)
+        ids = combine(y, m, bits=True)
         sync()
         report.case("head_argmax", f"m{m} combined shards B8, winning logit vs plain max",
                     plain.gather(1, ids.long()[:, None])[:, 0], plain.max(-1).values, 1e-2)
+    print(f"  {'head_argmax':20s} {'each shard == argmax of its int8_gemv logits':44s} "
+          f"torch.equal True  ok", flush=True)
     y = bf(1, kdim)
     j0, dup = 1000, vocab - 1000  # in shard 0 and in shard m-1 for every m
     w8[:, j0] = torch.where(y[0] > 0, 127, -127).to(torch.int8)
@@ -994,6 +1179,36 @@ def tp_kernel_phase(report: KernelReport, dev):
         if tie != j0:
             raise AssertionError(f"vocab-shard combine: planted tie resolved to {tie}, not {j0}")
     del head, w8, s
+
+
+def int4_library_call(w4p, s4, label):
+    """x -> torch._weight_int4pack_mm on the same int4 weights (a yardstick
+    for B9; the port never calls it): the values q + 8 in tinygemm's (N,
+    K/2) byte layout through torch._convert_weight_to_int4pack, the
+    per-column scale repeated for every 128-row group in bf16, zero points
+    0. None, with the reason printed, where this build refuses the form."""
+    from paligemma_tpu_torch.kernels.ablation import quant4 as q4
+
+    q = q4._unpack(w4p)  # (K, N), -8..7
+    k, n = q.shape
+    try:
+        u = (q + 8).t().contiguous().to(torch.uint8)
+        packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+        sz = torch.zeros((k // 128, n, 2), dtype=torch.bfloat16, device=w4p.device)
+        sz[:, :, 0] = s4.to(torch.bfloat16)
+
+        def call(x):
+            return torch._weight_int4pack_mm(x, packed, 128, sz)
+
+        x = torch.randn(1, k, device=w4p.device).to(torch.bfloat16)
+        err = float((call(x).float() - q4.int4_matmul_reference(x, w4p, s4).float()).abs().max())
+        print(f"  {'int4_matmul':20s} {label + ' _weight_int4pack_mm form':44s} max_abs_err vs "
+              f"plain {err:.3e} (bf16 scales)", flush=True)
+        return call
+    except RuntimeError as e:
+        print(f"  {'int4_matmul':20s} {label:44s} torch._weight_int4pack_mm refused: "
+              f"{str(e).splitlines()[0][:160]}", flush=True)
+        return None
 
 
 def ablation_phase(report: KernelReport, dev, card):
@@ -1126,6 +1341,7 @@ def ablation_phase(report: KernelReport, dev, card):
     for name, k, n in PROJECTIONS:
         w4p = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
         s4 = (torch.rand(n, generator=g, device=dev) + 0.5) / (7.0 * k**0.5)
+        lib4 = int4_library_call(w4p, s4, name)
         w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
         w8t = w8.t().contiguous()
         s8 = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
@@ -1137,7 +1353,8 @@ def ablation_phase(report: KernelReport, dev, card):
             calls = []
             if m in INT4_ROWS:
                 calls.append(("int4_matmul", lambda: q4.int4_matmul(x, w4p, s4),
-                              lambda: q4.int4_matmul_reference(x, w4p, s4), w4p, s4, None))
+                              lambda: q4.int4_matmul_reference(x, w4p, s4), w4p, s4,
+                              None if lib4 is None else (lambda: lib4(x))))
             if m in INT8_ROWS:
                 lib = lambda: torch._weight_int8pack_mm(x, w8t, s8_bf)  # noqa: E731
                 calls += [("int8_matmul", lambda: qp.int8_matmul(x, w8, s8),
@@ -2021,32 +2238,40 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
     return worst
 
 
+def _gemv_events(rows, grew):
+    """Why the GEMV tile's device events in ``rows`` cannot be right: one
+    per wrapper call (``grew``: the wrappers' counts over the run)."""
+    want = {"int8_gemv_kernel": grew["int8_gemv"] + grew["int8_gemv_f32"],
+            "head_argmax_kernel": grew["head_argmax"]}
+    for name, n in want.items():
+        got = sum(k.count for k in rows if name in k.key)
+        if got != n:
+            return f"{got} {name} events of {n} launches"
+    return None
+
+
 def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
-    """torch.profiler over ``fn()``: device-busy time against wall time per
-    ``per`` (steps), and the kernels with the most device time. With
+    """torch.profiler over ``fn()`` (:func:`profiled`: its clock checked
+    against CUDA events): device-busy time against wall time per ``per``
+    (steps), and the kernels with the most device time. With
     ``host_top``: the host side too, the ops' self CPU time (the
     collectives' apart) against the wall time, and the ``host_top`` ops
     with the most of it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from paligemma_tpu_torch import kernels
 
     unit = unit or ("step" if per > 1 else "prefill")
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
+    got = profiled(fn, label, counts=kernels.launch_counts, check=_gemv_events)
+    if got is None:
+        print(f"profile: {label}: device time not measured (no run passed the clock check)",
+              flush=True)
+        return
     # device-side events only: a CPU op (aten::mm, or the autograd node that
     # launches a kernel through ctypes) also carries its kernels' time, and
     # counting both would count that time twice
-    rows = [k for k in prof.key_averages()
-            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    rows, prof, wall, wrapped = got
     busy = sum(k.self_device_time_total for k in rows) / 1e3
-    if not rows:
-        print(f"profile: {label}: device time not measured (the profiler saw no "
-              f"device activity); wall {wall / per:.3f} ms", flush=True)
-        return
     print(f"profile: {label}: per {unit} wall "
           f"{wall / per:.3f} ms, device busy {busy / per:.3f} ms "
           f"({100 * busy / wall:.1f} %)  [{card}]", flush=True)
@@ -2054,6 +2279,19 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
         print(f"profile:   {k.key[:48]:48s} {k.count / per:6.1f} calls "
               f"{k.self_device_time_total / per:9.1f} us  "
               f"({k.self_device_time_total / k.count:.2f} us each)", flush=True)
+    # the GEMV tile's kernels on the device (one launch per GEMV) beside
+    # the wrappers' calls
+    gemv = [k for k in rows if any(t in k.key for t in ("int8_gemv", "head_argmax"))]
+    if gemv:
+        dev_txt = ", ".join(f"{k.key.split('(')[0].replace('void ', '')[:34]} "
+                            f"{k.count / per:.1f} launches {k.self_device_time_total / per:.1f} us"
+                            for k in sorted(gemv, key=lambda k: k.key))
+        calls = ", ".join(f"{k} {wrapped[k] / per:.1f}"
+                          for k in ("int8_gemv", "int8_gemv_f32", "head_argmax") if wrapped[k])
+        busy_gemv = sum(k.self_device_time_total for k in gemv) / 1e3
+        print(f"profile: {label}: GEMV tile per {unit}: {busy_gemv / per:.3f} ms of device "
+              f"busy {busy / per:.3f} ms; device: {dev_txt}; wrapper calls: {calls}",
+              flush=True)
     if not host_top:
         return
     # host-side events: each op's self CPU time (its children excluded), so
@@ -2568,6 +2806,7 @@ def main() -> int:
     _build.library()
     print(f"build: {lib_path.parent.name} built/loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    ptxas_lines(lib_path.parent / "ptxas.log", ("int8_gemv_kernel", "head_argmax_kernel"))
 
     report = KernelReport()
     t0 = time.perf_counter()

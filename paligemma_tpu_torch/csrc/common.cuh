@@ -38,83 +38,6 @@ __device__ __forceinline__ float gelu_tanh_f(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// The int8 weight-only GEMV tile, shared by int8_gemv.cu and decode_head.cu so
-// that the LM head's logits come out bit-identical from both kernels (the
-// greedy token of the logits path and of the fused argmax path must agree).
-//
-// A block of GV_TX x GV_TY threads covers GV_TX * GV_COLS output columns and
-// one K range; thread (tx, ty) reads 4 consecutive int8 columns (one 4-byte
-// load, a warp reads 128 contiguous bytes of a weight row) of the rows
-// k = kbeg + ty, kbeg + ty + GV_TY, ...; the GV_TY partial sums are then
-// added in ty order through shared memory.
-// ---------------------------------------------------------------------------
-#define GV_TX 32
-#define GV_TY 8
-#define GV_COLS 4
-#define GV_TILE_N (GV_TX * GV_COLS)
-#define GV_KC_MAX 512
-
-template <int BT>
-struct GemvSmem {
-  bf16 xs[BT][GV_KC_MAX];
-  float red[GV_TY][BT][GV_TILE_N];
-};
-
-// Computes, for rows b0 .. b0+nb-1 of x (B, K) and the columns
-// col0 .. col0+GV_TILE_N-1 of w8 (K, N), the partial dot over [kbeg, kend).
-// On return sm.red holds the per-ty partials; reduce them with gemv_tile_sum.
-// Requires N % 4 == 0 and kend - kbeg <= GV_KC_MAX.
-template <int BT>
-__device__ __forceinline__ void gemv_tile(GemvSmem<BT>& sm, const bf16* __restrict__ x,
-                                          const int8_t* __restrict__ w, int K, int N,
-                                          int b0, int nb, int col0, int kbeg, int kend) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * GV_TX + tx;
-  const int kc = kend - kbeg;
-  for (int idx = tid; idx < BT * kc; idx += GV_TX * GV_TY) {
-    const int r = idx / kc, kk = idx - r * kc;
-    sm.xs[r][kk] = r < nb ? x[(size_t)(b0 + r) * K + kbeg + kk] : f2bf(0.f);
-  }
-  __syncthreads();
-  float acc[BT][GV_COLS];
-#pragma unroll
-  for (int r = 0; r < BT; ++r)
-#pragma unroll
-    for (int c = 0; c < GV_COLS; ++c) acc[r][c] = 0.f;
-  const int col = col0 + tx * GV_COLS;
-  if (col < N) {
-    const int8_t* wp = w + col;
-#pragma unroll 4
-    for (int k = kbeg + ty; k < kend; k += GV_TY) {
-      const char4 wv = *reinterpret_cast<const char4*>(wp + (size_t)k * N);
-      const float w0 = wv.x, w1 = wv.y, w2 = wv.z, w3 = wv.w;
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float xv = bf2f(sm.xs[r][k - kbeg]);
-        acc[r][0] = fmaf(xv, w0, acc[r][0]);
-        acc[r][1] = fmaf(xv, w1, acc[r][1]);
-        acc[r][2] = fmaf(xv, w2, acc[r][2]);
-        acc[r][3] = fmaf(xv, w3, acc[r][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < BT; ++r)
-#pragma unroll
-    for (int c = 0; c < GV_COLS; ++c) sm.red[ty][r][tx * GV_COLS + c] = acc[r][c];
-  __syncthreads();
-}
-
-// Sum of the GV_TY partials of element (r, cl) of the tile, in ty order.
-template <int BT>
-__device__ __forceinline__ float gemv_tile_sum(const GemvSmem<BT>& sm, int r, int cl) {
-  float s = 0.f;
-#pragma unroll
-  for (int y = 0; y < GV_TY; ++y) s += sm.red[y][r][cl];
-  return s;
-}
-
-// ---------------------------------------------------------------------------
 // One warp-wide bf16 tensor-core product, mma.sync.m16n8k16 with fp32
 // accumulators: c (16x8) += a (16x16, row-major) . b (16x8, column-major).
 // With g = lane / 4 and t = lane % 4, the fragments hold

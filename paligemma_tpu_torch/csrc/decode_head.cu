@@ -6,67 +6,69 @@
 // winning logit is returned beside the id.
 //
 // What bounds it: reading the 2048 x 257152 int8 head (~527 MB) once per
-// step; the (B, 257152) logits are never written to device memory. Pass 1
-// gives each block a 128-column vocab tile and runs the same GEMV tile code
-// (common.cuh gemv_tile, same K split) as int8_gemv.cu, so its rounded
-// logits are bit-identical to the logits path's; each block writes one
-// (max, first index of max) per row. Pass 2 reduces the per-block pairs of a
-// row; blocks are scanned in vocab order and a later block must be strictly
-// greater, so the lowest index wins ties, as in the TPU kernel.
+// step; the (B, 257152) logits are never written to device memory. One
+// launch: the GEMV tile of gemv_tile.cuh runs over the plan of the logits
+// path's int8_gemv at the unpadded vocab (kernels/gemv_plan.py), so its
+// fp32 sums, and the rounded logits, are bit-identical to the logits
+// path's; each rank of a cluster takes a share of its tile's columns and
+// reduces each row to (max, first index of max), which it folds into the
+// row's 64-bit key in device memory by an integer atomicMax: the logit's
+// bits made order-preserving above, ~index below, so the larger logit wins
+// and equal logits go to the lower index, as in the TPU kernel, in any
+// order of the CTAs. The last CTA to finish (a counter) turns the keys
+// into ids and logits and zeroes the keys and the counter for the next
+// call.
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "gemv_tile.cuh"
 
-template <int BT>
-__global__ void __launch_bounds__(GV_TX* GV_TY)
-    head_argmax_pass1(const bf16* __restrict__ y, const int8_t* __restrict__ w,
-                      const float* __restrict__ s, float* __restrict__ part_max,
-                      int* __restrict__ part_idx, int B, int K, int N, int n_valid, int k_chunk) {
-  __shared__ GemvSmem<BT> sm;
-  __shared__ float lg[BT][GV_TILE_N];
-  const int col0 = blockIdx.x * GV_TILE_N;
-  const int b0 = blockIdx.y * BT;
-  const int nb = min(BT, B - b0);
-  const int tid = threadIdx.y * GV_TX + threadIdx.x;
-  constexpr int PER = (BT * GV_TILE_N + GV_TX * GV_TY - 1) / (GV_TX * GV_TY);
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  // same K partition and the same summation order as int8_gemv's
-  // partial + epilogue kernels
-  for (int kbeg = 0; kbeg < K; kbeg += k_chunk) {
-    const int kend = min(K, kbeg + k_chunk);
-    gemv_tile<BT>(sm, y, w, K, N, b0, nb, col0, kbeg, kend);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = tid + i * GV_TX * GV_TY;
-      if (idx < BT * GV_TILE_N) {
-        const int r = idx / GV_TILE_N, cl = idx - r * GV_TILE_N;
-        acc[i] += gemv_tile_sum<BT>(sm, r, cl);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = tid + i * GV_TX * GV_TY;
-    if (idx < BT * GV_TILE_N) {
-      const int r = idx / GV_TILE_N, cl = idx - r * GV_TILE_N;
-      const int col = col0 + cl;
-      float v = -CUDART_INF_F;
-      if (col < n_valid) v = bf2f(f2bf(acc[i] * s[col]));  // activation-dtype round
-      lg[r][cl] = v;
-    }
+// A logit and its column as one key: larger keys are larger logits, and
+// at equal logits lower columns.
+__device__ __forceinline__ unsigned long long head_key(float v, int col) {
+  const uint32_t u = __float_as_uint(v);
+  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)ord << 32) | (uint32_t)(0xffffffffu - (uint32_t)col);
+}
+
+template <bool FAST>
+__global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
+    head_argmax_kernel(const bf16* __restrict__ y, const int8_t* __restrict__ w,
+                       const float* __restrict__ s, unsigned long long* __restrict__ keys,
+                       unsigned int* __restrict__ done, int* __restrict__ ids,
+                       float* __restrict__ maxv, int B, int K, int N, int n_valid,
+                       int k_per_cta, int x8) {
+  __shared__ GemvSmem sm;
+  __shared__ unsigned long long row_key[GT_BT];
+  __shared__ bool last;
+  const int rank = cluster_rank(), cs = cluster_size();
+  const int col0 = (blockIdx.x / cs) * GT_COLS;
+  const int b0 = blockIdx.z * GT_BT;
+  const int nb = min(GT_BT, B - b0);
+  const int kbeg = rank * k_per_cta;
+  const int kend = min(K, kbeg + k_per_cta);
+  const int g = (threadIdx.x & 31) >> 2;
+  gemv_tile_sums<FAST>(sm, y, w, K, N, b0, nb, col0 + 16 * g, kbeg, kend, x8 != 0);
+  cluster_sync_all();
+  // this rank's columns [c_lo, c_hi) of the tile, as activation-dtype
+  // logits (padded columns -inf) in sm.red, free after the barrier
+  float(*lg)[GT_COLS] = sm.red[0];
+  const int per = (GT_COLS + cs - 1) / cs;
+  const int c_lo = rank * per;
+  const int c_hi = min(GT_COLS, c_lo + per);
+  for (int idx = threadIdx.x; idx < nb * (c_hi - c_lo); idx += blockDim.x) {
+    const int r = idx / (c_hi - c_lo), c = c_lo + idx % (c_hi - c_lo);
+    const float acc = gt_cluster_sum(sm, r, c, cs);
+    lg[r][c] = col0 + c < n_valid ? bf2f(f2bf(acc * s[col0 + c])) : -CUDART_INF_F;
   }
   __syncthreads();
-  // warp r reduces row r of the tile (BT <= GV_TY warps)
-  const int warp = threadIdx.y, lane = threadIdx.x;
-  if (warp < nb) {
+  // warp w reduces rows w, w + warps, ...
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nb; r += blockDim.x >> 5) {
     float best = -CUDART_INF_F;
     int bi = 0x7fffffff;
-    for (int cl = lane; cl < GV_TILE_N; cl += GV_TX) {
-      const float v = lg[warp][cl];
-      const int j = col0 + cl;
-      if (v > best || (v == best && j < bi)) { best = v; bi = j; }
+    for (int c = c_lo + lane; c < c_hi; c += 32) {
+      const float v = lg[r][c];
+      if (v > best || (v == best && col0 + c < bi)) { best = v; bi = col0 + c; }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -74,67 +76,46 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
     }
-    if (lane == 0) {
-      part_max[(size_t)blockIdx.x * B + b0 + warp] = best;
-      part_idx[(size_t)blockIdx.x * B + b0 + warp] = bi;
+    if (lane == 0) row_key[r] = head_key(best, bi);
+  }
+  cluster_sync_all();  // every rank has read this CTA's sums; row_key is set
+  // one warp folds the CTA's rows into the keys at once, then counts the
+  // CTA as done once they are visible
+  if (warp == 0) {
+    if (lane < nb) {
+      atomicMax(&keys[b0 + lane], row_key[lane]);
+      __threadfence();
     }
+    __syncwarp();
+    if (lane == 0) last = atomicAdd(done, 1u) == gridDim.x * gridDim.y * gridDim.z - 1;
   }
-}
-
-__global__ void head_argmax_pass2(const float* __restrict__ part_max,
-                                  const int* __restrict__ part_idx, int nblk, int B,
-                                  int* __restrict__ ids, float* __restrict__ maxv) {
-  const int b = blockIdx.x;
-  __shared__ float sv[256];
-  __shared__ int si[256];
-  float best = -CUDART_INF_F;
-  int bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < nblk; i += blockDim.x) {
-    const float v = part_max[(size_t)i * B + b];
-    const int j = part_idx[(size_t)i * B + b];
-    if (v > best || (v == best && j < bi)) { best = v; bi = j; }
-  }
-  sv[threadIdx.x] = best;
-  si[threadIdx.x] = bi;
   __syncthreads();
-  for (int step = blockDim.x / 2; step > 0; step >>= 1) {
-    if (threadIdx.x < step) {
-      const float ov = sv[threadIdx.x + step];
-      const int oi = si[threadIdx.x + step];
-      if (ov > sv[threadIdx.x] || (ov == sv[threadIdx.x] && oi < si[threadIdx.x])) {
-        sv[threadIdx.x] = ov;
-        si[threadIdx.x] = oi;
-      }
-    }
-    __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const unsigned long long key = atomicExch(&keys[b], 0ull);
+    const uint32_t ord = (uint32_t)(key >> 32);
+    const uint32_t u = (ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord;
+    ids[b] = key == 0ull ? 0 : (int)(0xffffffffu - (uint32_t)key);
+    maxv[b] = key == 0ull ? -CUDART_INF_F : __uint_as_float(u);
   }
-  if (threadIdx.x == 0) {
-    ids[b] = si[0] == 0x7fffffff ? 0 : si[0];
-    maxv[b] = sv[0];
-  }
+  if (threadIdx.x == 0) atomicExch(done, 0u);
 }
 
-PG_EXPORT int pg_head_argmax(const void* y, const void* w8, const void* s, void* part_max,
-                             void* part_idx, void* ids, void* maxv, int B, int K, int N,
-                             int n_valid, int k_chunk, void* stream) {
-  const int bt = B >= 8 ? 8 : (B >= 4 ? 4 : (B >= 2 ? 2 : 1));
-  const int nblk = (N + GV_TILE_N - 1) / GV_TILE_N;
-  dim3 grid(nblk, (B + bt - 1) / bt);
-  dim3 block(GV_TX, GV_TY);
-  cudaStream_t st = (cudaStream_t)stream;
-  const bf16* yp = (const bf16*)y;
-  const int8_t* wp = (const int8_t*)w8;
-  const float* sp = (const float*)s;
-  float* pm = (float*)part_max;
-  int* pi = (int*)part_idx;
-  switch (bt) {
-    case 8: head_argmax_pass1<8><<<grid, block, 0, st>>>(yp, wp, sp, pm, pi, B, K, N, n_valid, k_chunk); break;
-    case 4: head_argmax_pass1<4><<<grid, block, 0, st>>>(yp, wp, sp, pm, pi, B, K, N, n_valid, k_chunk); break;
-    case 2: head_argmax_pass1<2><<<grid, block, 0, st>>>(yp, wp, sp, pm, pi, B, K, N, n_valid, k_chunk); break;
-    default: head_argmax_pass1<1><<<grid, block, 0, st>>>(yp, wp, sp, pm, pi, B, K, N, n_valid, k_chunk); break;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  head_argmax_pass2<<<B, 256, 0, st>>>(pm, pi, nblk, B, (int*)ids, (float*)maxv);
-  return (int)cudaGetLastError();
+// y (B, K) bf16, w8 (K, N) int8 with N a multiple of 128 (the padded
+// vocab), s (N,) fp32, columns >= n_valid never win; cluster, warps and
+// k_per_cta from the plan of the unpadded vocab; ws: B 64-bit keys and a
+// counter, all zero (each call leaves them so).
+PG_EXPORT int pg_head_argmax(const void* y, const void* w8, const void* s, void* ws, void* ids,
+                             void* maxv, int B, int K, int N, int n_valid, int cluster, int warps,
+                             int k_per_cta, void* stream) {
+  const dim3 grid((N / GT_COLS) * cluster, 1, (B + GT_BT - 1) / GT_BT);
+  const bool fast = N % 16 == 0 && (uintptr_t)w8 % 16 == 0;
+  const int x8 = K % 4 == 0 && (uintptr_t)y % 8 == 0;
+  auto kernel = &head_argmax_kernel<false>;
+  if (fast) kernel = &head_argmax_kernel<true>;
+  unsigned long long* keys = (unsigned long long*)ws;
+  return gt_launch(kernel, grid, cluster, warps, (cudaStream_t)stream, (const bf16*)y,
+                   (const int8_t*)w8, (const float*)s, keys, (unsigned int*)(keys + B), (int*)ids,
+                   (float*)maxv, B, K, N, n_valid, k_per_cta, x8);
 }

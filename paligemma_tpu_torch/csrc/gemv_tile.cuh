@@ -1,0 +1,288 @@
+// The int8 weight-only GEMV tile on the tensor cores, shared by
+// int8_gemv.cu and decode_head.cu so that the LM head's logits come out
+// bit-identical from both kernels (the greedy token of the logits path and
+// of the fused argmax path must agree). kernels/gemv_plan.py is the host
+// side: it fixes the cluster size and each CTA's K range.
+//
+// The product is out^T = W^T . x^T on mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate): A is 16 weight columns x 16 k, the int8 weights converted to
+// bf16 in registers (exact: |q| <= 127 fits bf16's 8-bit significand); B is
+// x^T, 16 k x 8 rows of x (one n8 tile holds a batch of up to 8).
+//
+// Layout. w8 stays (K, N) with N contiguous. A warp covers 128 columns:
+// lane (g, t) = (lane / 4, lane % 4) loads 16 bytes (columns 16g .. 16g+15
+// of the tile) from each of the rows 4t .. 4t+3 of a 16-row step, so a
+// warp reads 128 contiguous bytes of each row (GeGLU: 64 of the gate and
+// 64 of the paired up columns). The A fragment wants, for mma row g, k
+// pairs {2t, 2t+1} and {2t+8, 2t+9}: inside each step the logical k {2t,
+// 2t+1, 2t+8, 2t+9} is relabelled to the physical rows 4t .. 4t+3, and x's
+// B fragment (row g of x, k 4t .. 4t+3: one 8-byte load) takes the same
+// relabelling, so the sum over k is unchanged. The mma rows are paired with
+// the columns the lane loaded: in m-tile m (0..7), mma row g is column
+// 16g + 2m and row g + 8 is column 16g + 2m + 1; prmt (__byte_perm) picks
+// each byte out of the four row words, so the transpose costs nothing
+// beyond the conversion. The accumulators come out as (column 16g + 2m +
+// {0, 1}, x row 2t + {0, 1}).
+//
+// The conversion: (byte ^ 0x80) placed under the exponent of 2^23 is the
+// float 2^23 + q + 128; one subtraction gives q exactly, and the upper half
+// of that float is q in bf16 (one prmt per pair).
+//
+// Split-K: the CTA's W warps (4 or 8) take its 16-row steps in turn (warp
+// w: steps w, w + W, ...), each with GT_STAGES steps of loads in flight in
+// registers (128 registers a thread: 16 warps fit on an SM); their sums go
+// to shared memory and are added in warp order. The CTAs of a cluster take
+// consecutive K ranges; after a cluster barrier each rank reads every
+// rank's sums for its share of the columns through distributed shared
+// memory, adds them in rank order and applies the epilogue. So a sum's
+// order is fixed by the plan: no atomics, and a second call gives the same
+// bits.
+#pragma once
+
+#include "common.cuh"
+
+#define GT_MAX_WARPS 8  // warps per CTA: 4 or 8 (kernels/gemv_plan.py)
+#define GT_COLS 128     // weight columns of a tile
+#define GT_BT 8
+#define GT_STAGES 3  // 16-row steps of loads in flight per warp
+
+struct __align__(16) GemvSmem {
+  float red[GT_MAX_WARPS][GT_BT][GT_COLS];  // each warp's sums
+  float sum[GT_BT][GT_COLS];                // the CTA's sums, read by the cluster
+};
+
+// ---------------------------------------------------------------------------
+// Clusters (sm_90): this CTA's rank, the cluster's size, a barrier of every
+// thread of the cluster (release / acquire: shared-memory writes before it
+// are visible to the other ranks after it), and a load from another rank's
+// shared memory.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster_f32(const float* p, int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_addr(p)), "r"((uint32_t)rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// 16 weight bytes, streamed: read once, so they are not kept in L1.
+__device__ __forceinline__ uint4 ldg_stream16(const int8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint2 ldg_8(const bf16* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+
+// 0x4B000000 (2^23 as a float) in a register the compiler cannot see
+// through: prmt then takes its selector as the immediate, instead of
+// holding four selectors in registers.
+__device__ __forceinline__ uint32_t gt_magic() {
+  uint32_t m;
+  asm volatile("mov.b32 %0, 0x4B000000;\n" : "=r"(m));
+  return m;
+}
+
+// Byte i of the word w ^ 0x80808080 as a float: exactly the int8 value.
+template <int I>
+__device__ __forceinline__ float s8_at(uint32_t wx, uint32_t magic) {
+  return __uint_as_float(__byte_perm(wx, magic, 0x7440 | I)) - 8388736.f;
+}
+
+// Two small integral floats as bf16x2 (lo in the low half): their upper
+// halves, exact.
+__device__ __forceinline__ uint32_t pack_int_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// One 16-row step: rows 4t .. 4t+3 of the lane's 16 columns (wv[r], r the
+// row) and x row g at k 4t .. 4t+3 (xv), into the 8 m-tiles' accumulators.
+__device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv)[4], uint2 xv,
+                                            uint32_t magic) {
+  uint32_t wx[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    wx[r][0] = wv[r].x ^ 0x80808080u;
+    wx[r][1] = wv[r].y ^ 0x80808080u;
+    wx[r][2] = wv[r].z ^ 0x80808080u;
+    wx[r][3] = wv[r].w ^ 0x80808080u;
+  }
+  const uint32_t b[2] = {xv.x, xv.y};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // the m-tiles 2j (bytes 0, 1) and 2j + 1 (bytes 2, 3)
+    uint32_t a[4];
+    a[0] = pack_int_bf16x2(s8_at<0>(wx[0][j], magic), s8_at<0>(wx[1][j], magic));
+    a[1] = pack_int_bf16x2(s8_at<1>(wx[0][j], magic), s8_at<1>(wx[1][j], magic));
+    a[2] = pack_int_bf16x2(s8_at<0>(wx[2][j], magic), s8_at<0>(wx[3][j], magic));
+    a[3] = pack_int_bf16x2(s8_at<1>(wx[2][j], magic), s8_at<1>(wx[3][j], magic));
+    mma_bf16_16816(acc[2 * j], a, b);
+    a[0] = pack_int_bf16x2(s8_at<2>(wx[0][j], magic), s8_at<2>(wx[1][j], magic));
+    a[1] = pack_int_bf16x2(s8_at<3>(wx[0][j], magic), s8_at<3>(wx[1][j], magic));
+    a[2] = pack_int_bf16x2(s8_at<2>(wx[2][j], magic), s8_at<2>(wx[3][j], magic));
+    a[3] = pack_int_bf16x2(s8_at<3>(wx[2][j], magic), s8_at<3>(wx[3][j], magic));
+    mma_bf16_16816(acc[2 * j + 1], a, b);
+  }
+}
+
+// The loads of one step for a lane: its 4 weight rows from p (the first
+// row's 16 columns; rows n1 bytes apart), of which the first nrow exist,
+// and x's 4 elements from xp (its first nrow). Rows past kend and columns
+// past N read as zeros (FAST: N % 16 == 0 and a 16-byte aligned w8, one
+// 16-byte load per row; else byte loads), as do x's elements past kend
+// (x8: K % 4 == 0 and x 8-byte aligned).
+template <bool FAST>
+__device__ __forceinline__ void gt_load(uint4 (&wv)[4], uint2& xv, const int8_t* __restrict__ p,
+                                        size_t n1, int ncol, const bf16* __restrict__ xp,
+                                        bool xrow, int nrow, bool x8) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    uint32_t wd[4] = {0u, 0u, 0u, 0u};
+    if (r < nrow && ncol > 0) {
+      if (FAST) {
+        const uint4 v = ldg_stream16(p + r * n1);
+        wd[0] = v.x, wd[1] = v.y, wd[2] = v.z, wd[3] = v.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (c < ncol) wd[c >> 2] |= (uint32_t)(uint8_t)__ldg(p + r * n1 + c) << (8 * (c & 3));
+      }
+    }
+    wv[r] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+  }
+  uint32_t lo = 0u, hi = 0u;
+  if (xrow) {
+    if (x8 && nrow == 4) {
+      const uint2 v = ldg_8(xp);
+      lo = v.x;
+      hi = v.y;
+    } else {
+      uint32_t e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = j < nrow ? (uint32_t)__bfloat16_as_ushort(xp[j]) : 0u;
+      lo = e[0] | (e[1] << 16);
+      hi = e[2] | (e[3] << 16);
+    }
+  }
+  xv = make_uint2(lo, hi);
+}
+
+// The CTA's sums over [kbeg, kend) of x rows b0 .. b0+nb-1 and the tile's
+// 128 columns: quad g of every warp reads the 16 weight columns from qcol
+// (its own, so a tile may be two column ranges, as GeGLU's gate | up). On
+// return sm.sum[r][c] holds them (r < nb), in a fixed order: each warp's
+// steps in turn, then the warps in order.
+template <bool FAST>
+__device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restrict__ x,
+                                               const int8_t* __restrict__ w, int K, int N, int b0,
+                                               int nb, int qcol, int kbeg, int kend, bool x8) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = kend > kbeg ? (kend - kbeg + 15) >> 4 : 0;
+  const int mine = steps > warp ? (steps - warp + warps - 1) / warps : 0;
+  const int ncol = N - qcol;
+  const bool xrow = g < nb;
+  const int row0 = kbeg + 16 * warp + 4 * t;  // the lane's first row of step 0
+  const int stride = 16 * warps;              // rows between a warp's steps
+  const size_t n1 = (size_t)N;
+  // the lane's weights and x at row0; a step moves them stride rows on
+  const int8_t* wp = w + (size_t)row0 * n1 + qcol;
+  const bf16* xp = x + (size_t)(b0 + (xrow ? g : 0)) * K + row0;
+  const size_t wstep = (size_t)stride * n1;
+  const uint32_t magic = gt_magic();
+
+  float acc[8][4];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+  uint4 wb[GT_STAGES][4];
+  uint2 xb[GT_STAGES];
+#pragma unroll
+  for (int s = 0; s < GT_STAGES; ++s)
+    if (s < mine)
+      gt_load<FAST>(wb[s], xb[s], wp + s * wstep, n1, ncol, xp + s * stride, xrow,
+                    min(4, kend - row0 - s * stride), x8);
+  for (int i0 = 0; i0 < mine; i0 += GT_STAGES) {
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s) {
+      const int i = i0 + s;
+      if (i < mine) {
+        gt_mma_step(acc, wb[s], xb[s], magic);
+        const int next = i + GT_STAGES;
+        if (next < mine)
+          gt_load<FAST>(wb[s], xb[s], wp + next * wstep, n1, ncol, xp + next * stride, xrow,
+                        min(4, kend - row0 - next * stride), x8);
+      }
+    }
+  }
+  // acc[m] = (column 16g + 2m, row 2t), (16g + 2m, 2t + 1), (16g + 2m + 1, 2t),
+  // (16g + 2m + 1, 2t + 1)
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    *reinterpret_cast<float2*>(&sm.red[warp][2 * t][16 * g + 2 * m]) =
+        make_float2(acc[m][0], acc[m][2]);
+    *reinterpret_cast<float2*>(&sm.red[warp][2 * t + 1][16 * g + 2 * m]) =
+        make_float2(acc[m][1], acc[m][3]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nb * GT_COLS; e += blockDim.x) {
+    const int r = e / GT_COLS, c = e % GT_COLS;
+    float v = 0.f;
+    for (int i = 0; i < warps; ++i) v += sm.red[i][r][c];
+    sm.sum[r][c] = v;
+  }
+}
+
+// The cluster's sum of element (r, c): every rank's, in rank order.
+__device__ __forceinline__ float gt_cluster_sum(const GemvSmem& sm, int r, int c, int cs) {
+  float v = 0.f;
+  for (int q = 0; q < cs; ++q) v += ld_cluster_f32(&sm.sum[r][c], q);
+  return v;
+}
+
+// Launch CTAs of `warps` warps (4 or 8) in clusters of `cs` along x
+// (cudaLaunchKernelEx); returns the launch's error, or else
+// cudaGetLastError().
+template <typename... KArgs, typename... Args>
+inline int gt_launch(void (*kernel)(KArgs...), dim3 grid, int cs, int warps, cudaStream_t st,
+                     Args... args) {
+  if (warps != 4 && warps != GT_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}

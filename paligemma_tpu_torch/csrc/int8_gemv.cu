@@ -10,11 +10,19 @@
 //   out(B, I) = cast_bf16(gelu_tanh(g_j) * u_j), N = 2I,          mode 2
 //               g_j = column j, u_j = column I + j (fused gateup)
 //   out(B, N) = (x . w8) fp32 * s, written as fp32                mode 3
+//   out(B, N) = (x . w8) fp32, unscaled, written as fp32          mode 4
 //
-// Modes 0-2 have a second epilogue kernel with the LoRA expand
-// (pg_int8_gemv_epilogue_lora): the adapter delta of each row,
-// d(b, j) = sum_g z(b, zoff(j) + g) * B(g, j) in fp32, with z (B, nz) the
-// masked adapter basis of kernels/lora (csrc/lora.cu) and B (G, N) the
+// One launch per GEMV: the product runs on the tensor cores over the
+// shared tile of gemv_tile.cuh, K is split over the CTAs of a thread-block
+// cluster and reduced through distributed shared memory, and the epilogue
+// of the mode runs in the same kernel. kernels/gemv_plan.py fixes the
+// split: the cluster size and each CTA's K range, from (K, N) alone.
+//
+// Mode 4 feeds the LoRA expand (pg_int8_gemv_epilogue_lora, below, with
+// nsplit = 1): modes 0-2 with a LoRA adapter write the cluster-reduced sums
+// to scratch and that kernel adds each row's adapter delta: d(b, j) =
+// sum_g z(b, zoff(j) + g) * B(g, j) in fp32, with z (B, nz) the masked
+// adapter basis of kernels/lora (csrc/lora.cu) and B (G, N) the
 // alpha-folded adapter rows, fp32 or bf16, each element rounded to bf16 as
 // the TPU kernel casts its operands. It is added where the TPU kernel
 // (paligemma_tpu/kernels/decode_layer.py _kernel_all, lora=True) adds it:
@@ -26,8 +34,8 @@
 // number of target boundaries seg1 <= seg2 at or below j (q | k | v for
 // qkv, gate | up for gateup, one target for o and down). Each B element is
 // read once per 8 rows (it is staged in shared memory for a tile of 32
-// columns and 8 rows). The kernel without LoRA is untouched, so its bits
-// are what they were.
+// columns and 8 rows). With a zero delta its bits are those of the fused
+// epilogue.
 //
 // Mode 3, the fp32 partial, serves the tensor-parallel decode: it replaces
 // the o-proj partial of paligemma_tpu/kernels/decode_layer_tp.py:_attn_kernel
@@ -36,91 +44,85 @@
 // sum is cast once after the all-reduce, so on one rank the result has the
 // bits of mode 1's cast-then-add.
 //
-// What bounds it: at decode batches (tens of rows) each weight byte is used B times, far below
-// the ~295 flop/byte where the card turns compute-bound, so it is bound by
-// reading w8 from device memory. The design reads each weight byte once per
-// batch tile in 128-byte coalesced warp rows, and splits K over blocks so
-// that even the 2048-column projections put enough blocks on the 132 SMs;
-// fp32 partials (k_split, B, N) go to scratch and a second small kernel sums
-// them in split order and applies the scale and the epilogue (the partials
-// are ~1% of the weight bytes at these shapes).
-#include "common.cuh"
+// What bounds it: at decode batches each weight byte is used B times, far
+// below the ~295 flop/byte where the card turns compute-bound, so it is
+// bound by reading w8 from device memory (110 MB per layer of Gemma-2B:
+// 32.9 us at 3.35 TB/s). The design keeps three 16-row steps of 16-byte
+// weight loads in flight per warp and the plan puts ~16 warps on every SM
+// (the rate follows the resident warps, not the depth of the pipeline),
+// spends ~3 instructions per weight byte (the conversion; the products are
+// 8 mma.sync per 2 KB), reads each weight byte once per 8 rows of x, and
+// writes no partials to device memory.
+#include "gemv_tile.cuh"
 
-template <int BT>
-__global__ void __launch_bounds__(GV_TX* GV_TY)
-    int8_gemv_partial_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                             float* __restrict__ part, int B, int K, int N, int k_chunk) {
-  __shared__ GemvSmem<BT> sm;
-  const int col0 = blockIdx.x * GV_TILE_N;
-  const int split = blockIdx.y;
-  const int b0 = blockIdx.z * BT;
-  const int nb = min(BT, B - b0);
-  const int kbeg = split * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-  gemv_tile<BT>(sm, x, w, K, N, b0, nb, col0, kbeg, kend);
-  const int tid = threadIdx.y * GV_TX + threadIdx.x;
-  for (int idx = tid; idx < nb * GV_TILE_N; idx += GV_TX * GV_TY) {
-    const int r = idx / GV_TILE_N, cl = idx - r * GV_TILE_N;
-    const int col = col0 + cl;
-    if (col < N) part[((size_t)split * B + b0 + r) * N + col] = gemv_tile_sum<BT>(sm, r, cl);
+template <bool FAST>
+__global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
+    int8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ s, const bf16* __restrict__ residual,
+                     void* __restrict__ out, int B, int K, int N, int mode, int k_per_cta,
+                     int x8) {
+  __shared__ GemvSmem sm;
+  const int rank = cluster_rank(), cs = cluster_size();
+  const int tile = blockIdx.x / cs;
+  const int b0 = blockIdx.z * GT_BT;
+  const int nb = min(GT_BT, B - b0);
+  const int kbeg = rank * k_per_cta;
+  const int kend = min(K, kbeg + k_per_cta);
+  // tile-local column c is weight column tile * 128 + c, or with GeGLU
+  // gate column tile * 64 + c (c < 64) and up column I + tile * 64 + c - 64
+  const int inter = N / 2;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tile_out = mode == 2 ? GT_COLS / 2 : GT_COLS;  // output columns per tile
+  const int qcol = mode == 2 ? (g < 4 ? 0 : inter) + tile * tile_out + 16 * (g & 3)
+                             : tile * GT_COLS + 16 * g;
+  gemv_tile_sums<FAST>(sm, x, w, K, N, b0, nb, qcol, kbeg, kend, x8 != 0);
+  cluster_sync_all();
+  // rank r applies the epilogue to its share of the tile's output columns
+  const int n_out = mode == 2 ? inter : N;
+  const int per = (tile_out + cs - 1) / cs;
+  const int c_lo = rank * per;
+  const int width = min(tile_out, c_lo + per) - c_lo;
+  for (int idx = threadIdx.x; idx < nb * width; idx += blockDim.x) {
+    const int r = idx / width, c = c_lo + idx % width;
+    const int j = tile * tile_out + c;
+    if (j >= n_out) continue;
+    const float acc = gt_cluster_sum(sm, r, c, cs);
+    const size_t o = (size_t)(b0 + r) * n_out + j;
+    if (mode == 2) {
+      // the products rounded before the GeGLU (no FMA contraction), as
+      // the LoRA epilogue rounds them before it adds the delta
+      const float gate = __fmul_rn(acc, s[j]);
+      const float up = __fmul_rn(gt_cluster_sum(sm, r, c + GT_COLS / 2, cs), s[inter + j]);
+      ((bf16*)out)[o] = f2bf(gelu_tanh_f(gate) * up);
+    } else if (mode == 3) {
+      ((float*)out)[o] = acc * s[j];
+    } else if (mode == 4) {
+      ((float*)out)[o] = acc;
+    } else {
+      bf16 v = f2bf(acc * s[j]);
+      if (mode == 1) v = f2bf(bf2f(residual[o]) + bf2f(v));
+      ((bf16*)out)[o] = v;
+    }
   }
+  cluster_sync_all();  // every rank has read this CTA's sums
 }
 
-__global__ void int8_gemv_epilogue_kernel(const float* __restrict__ part, int nsplit, int B,
-                                          int N, const float* __restrict__ s,
-                                          const bf16* __restrict__ residual,
-                                          void* __restrict__ out, int mode) {
-  const int n_out = mode == 2 ? N / 2 : N;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * n_out) return;
-  const int b = (int)(idx / n_out), j = (int)(idx - (size_t)b * n_out);
-  float acc = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) acc += part[((size_t)sp * B + b) * N + j];
-  if (mode == 2) {
-    float up = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) up += part[((size_t)sp * B + b) * N + n_out + j];
-    const float g = acc * s[j];
-    const float u = up * s[n_out + j];
-    ((bf16*)out)[idx] = f2bf(gelu_tanh_f(g) * u);
-    return;
-  }
-  if (mode == 3) {
-    ((float*)out)[idx] = acc * s[j];
-    return;
-  }
-  bf16 v = f2bf(acc * s[j]);
-  if (mode == 1) v = f2bf(bf2f(residual[idx]) + bf2f(v));
-  ((bf16*)out)[idx] = v;
-}
-
-PG_EXPORT int pg_int8_gemv_partial(const void* x, const void* w8, void* part, int B, int K, int N,
-                                   int k_chunk, void* stream) {
-  const int nsplit = (K + k_chunk - 1) / k_chunk;
-  const int bt = B >= 8 ? 8 : (B >= 4 ? 4 : (B >= 2 ? 2 : 1));
-  dim3 grid((N + GV_TILE_N - 1) / GV_TILE_N, nsplit, (B + bt - 1) / bt);
-  dim3 block(GV_TX, GV_TY);
-  cudaStream_t st = (cudaStream_t)stream;
-  const bf16* xp = (const bf16*)x;
-  const int8_t* wp = (const int8_t*)w8;
-  float* pp = (float*)part;
-  switch (bt) {
-    case 8: int8_gemv_partial_kernel<8><<<grid, block, 0, st>>>(xp, wp, pp, B, K, N, k_chunk); break;
-    case 4: int8_gemv_partial_kernel<4><<<grid, block, 0, st>>>(xp, wp, pp, B, K, N, k_chunk); break;
-    case 2: int8_gemv_partial_kernel<2><<<grid, block, 0, st>>>(xp, wp, pp, B, K, N, k_chunk); break;
-    default: int8_gemv_partial_kernel<1><<<grid, block, 0, st>>>(xp, wp, pp, B, K, N, k_chunk); break;
-  }
-  return (int)cudaGetLastError();
-}
-
-PG_EXPORT int pg_int8_gemv_epilogue(const void* part, int nsplit, int B, int N, const void* s,
-                                    const void* residual, void* out, int mode, void* stream) {
-  const int n_out = mode == 2 ? N / 2 : N;
-  const size_t total = (size_t)B * n_out;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  int8_gemv_epilogue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, out, mode);
-  return (int)cudaGetLastError();
+// x (B, K) bf16, w8 (K, N) int8, s (N,) fp32, residual (B, N) bf16 (mode
+// 1), out (B, N) or (B, N / 2) (mode 2); cluster, warps and k_per_cta from
+// kernels/gemv_plan.py.
+PG_EXPORT int pg_int8_gemv(const void* x, const void* w8, const void* s, const void* residual,
+                           void* out, int B, int K, int N, int mode, int cluster, int warps,
+                           int k_per_cta, void* stream) {
+  const int tiles = mode == 2 ? (N / 2 + GT_COLS / 2 - 1) / (GT_COLS / 2)
+                              : (N + GT_COLS - 1) / GT_COLS;
+  const dim3 grid(tiles * cluster, 1, (B + GT_BT - 1) / GT_BT);
+  const bool fast = N % (mode == 2 ? 32 : 16) == 0 && (uintptr_t)w8 % 16 == 0;
+  const int x8 = K % 4 == 0 && (uintptr_t)x % 8 == 0;
+  auto kernel = &int8_gemv_kernel<false>;
+  if (fast) kernel = &int8_gemv_kernel<true>;
+  return gt_launch(kernel, grid, cluster, warps, (cudaStream_t)stream, (const bf16*)x,
+                   (const int8_t*)w8, (const float*)s, (const bf16*)residual, out, B, K, N, mode,
+                   k_per_cta, x8);
 }
 
 // ---------------------------------------------------------------------------

@@ -13,6 +13,28 @@
 // them into shared memory.
 #include "wq_gemm.cuh"
 
+// The split-K sum of the fp32 partials (nsplit, M, N) of this kernel and of
+// int4_matmul.cu, in split order, scaled and cast to bf16
+// (kernels/ablation/_wq_gemm.py).
+__global__ void wq_split_sum_kernel(const float* __restrict__ part, int nsplit, int M, int N,
+                                    const float* __restrict__ s, bf16* __restrict__ out) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)M * N) return;
+  const int j = (int)(idx % N);
+  float acc = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) acc += part[(size_t)sp * M * N + idx];
+  out[idx] = f2bf(acc * s[j]);
+}
+
+PG_EXPORT int pg_wq_split_sum(const void* part, int nsplit, int M, int N, const void* s, void* out,
+                              void* stream) {
+  const size_t total = (size_t)M * N;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  wq_split_sum_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)part, nsplit, M, N,
+                                                                (const float*)s, (bf16*)out);
+  return (int)cudaGetLastError();
+}
+
 PG_EXPORT int pg_int8_matmul(const void* x, const void* w8, const void* s, void* part, void* out,
                              int M, int K, int N, int k_chunk, int nmajor, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

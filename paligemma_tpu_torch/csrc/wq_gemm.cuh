@@ -21,7 +21,7 @@
 // loads). Small M uses BM = 16 (no wasted rows in flight), larger M BM = 64.
 // Where the output tiles alone leave the card's SMs idle, K is split over
 // blocks into fp32 partials (split, M, N) that a second kernel adds in split
-// order and scales (int8_gemv.cu's epilogue, mode 0); otherwise the tile is
+// order and scales (pg_wq_split_sum, int8_matmul.cu); otherwise the tile is
 // scaled and stored directly.
 #pragma once
 

@@ -46,10 +46,9 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv, dk,
     # dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, stream
     "pg_flash_attention_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
-    # x, w8, part, B, K, N, k_chunk, stream
-    "pg_int8_gemv_partial": [_P] * 3 + [_I] * 4 + [_P],
-    # part, nsplit, B, N, s, residual, out, mode, stream
-    "pg_int8_gemv_epilogue": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    # x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta,
+    # stream
+    "pg_int8_gemv": [_P] * 5 + [_I] * 7 + [_P],
     # part, nsplit, B, N, s, residual, out, mode, z, lb, lb_f32, G, nz, seg1,
     # seg2, stream
     "pg_int8_gemv_epilogue_lora": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
@@ -61,9 +60,9 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, kv_len, part_m, part_l, part_o, out, B, Hq,
     # Hkv, D, W, page_size, table_stride, layer_off, nsplit, scale, stream
     "pg_paged_attention": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
-    # y, w8, s, part_max, part_idx, ids, maxv, B, K, N, n_valid, k_chunk,
+    # y, w8, s, ws, ids, maxv, B, K, N, n_valid, cluster, warps, k_per_cta,
     # stream
-    "pg_head_argmax": [_P] * 7 + [_I] * 5 + [_P],
+    "pg_head_argmax": [_P] * 6 + [_I] * 7 + [_P],
     # q, k, v, out, B, S, H, D, rows, scale, stream
     "pg_vision_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k, v, B, S, H, D, rows, iters (the tensor maps only, no launch)
@@ -75,6 +74,8 @@ SIGNATURES = {
     "pg_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # x, w4p, s, part, out, M, K, N, k_chunk, stream
     "pg_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # part, nsplit, M, N, s, out, stream
+    "pg_wq_split_sum": [_P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None  # the loaded library; one per process, like the CUDA context

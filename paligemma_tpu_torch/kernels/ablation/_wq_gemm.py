@@ -36,8 +36,8 @@ def launch(entry: str, x2: torch.Tensor, w: torch.Tensor, s: torch.Tensor, k: in
            k_rows: int, *extra: int) -> torch.Tensor:
     """Run ``entry`` on x2 (M, K) and return (M, N) bf16. K is split over
     blocks when the output tiles alone would leave SMs idle; the fp32
-    partials are then added in split order and scaled by int8_gemv.cu's
-    epilogue (mode 0)."""
+    partials are then added in split order and scaled by
+    ``pg_wq_split_sum`` (csrc/int8_matmul.cu)."""
     m = x2.shape[0]
     dev = x2.device
     bm = BM_SMALL if m <= BM_SMALL else BM_LARGE
@@ -54,7 +54,7 @@ def launch(entry: str, x2: torch.Tensor, w: torch.Tensor, s: torch.Tensor, k: in
                               out.data_ptr(), m, k, n, k_chunk, *extra, stream)
     _build.check(err, entry)
     if nsplit > 1:
-        err = lib.pg_int8_gemv_epilogue(part.data_ptr(), nsplit, m, n, s.data_ptr(), None,
-                                        out.data_ptr(), 0, stream)
+        err = lib.pg_wq_split_sum(part.data_ptr(), nsplit, m, n, s.data_ptr(), out.data_ptr(),
+                                  stream)
         _build.check(err, f"{entry} epilogue")
     return out

@@ -4,19 +4,20 @@ paligemma_tpu/kernels/decode_head.py); the kernel is ``csrc/decode_head.cu``.
 ``argmax(round_to_act_dtype(y @ w8 * s))`` over the vocab without writing
 the logits: ties go to the first index, padded columns (``>= n_valid``)
 never win, and the winning logit comes back beside the id. The kernel
-computes each logit with the same GEMV tile and K split as
-kernels/int8_gemv.py, so its token equals ``argmax`` of the logits path's
-int8 head bit for bit.
+computes each logit with the same GEMV tile as kernels/int8_gemv.py
+(``csrc/gemv_tile.cuh``) over the :class:`~.gemv_plan.GemvPlan` of the
+unpadded vocab, so its token equals ``argmax`` of the logits path's int8
+head bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
-from .int8_gemv import TILE_N, gemv_k_chunk
+from .gemv_plan import TILE_N, GemvPlan
 
 
 def repack_head(head_q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -48,6 +49,19 @@ def reference_head_argmax(
     return (ids, mx) if return_max else ids
 
 
+_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int, b: int) -> torch.Tensor:
+    """The kernel's B row keys and its counter (int64 each), zero: every
+    call leaves them so. One per (device, stream), so that calls on two
+    streams never share one; it grows with B."""
+    ws = _workspaces.get((dev, stream))
+    if ws is None or ws.numel() < b + 1:
+        ws = _workspaces[(dev, stream)] = torch.zeros(b + 1, dtype=torch.int64, device=dev)
+    return ws
+
+
 def head_argmax_fused(
     y: torch.Tensor,  # (B, 1, K) or (B, K) final-norm output
     head_blk: Dict[str, torch.Tensor],  # repack_head() output
@@ -71,18 +85,19 @@ def head_argmax_fused(
         raise ValueError("head_argmax_fused: w8_blk must be contiguous int8 (K, V_pad) from repack_head")
     if s.dtype != torch.float32 or s.shape != (n,) or not s.is_contiguous():
         raise ValueError("head_argmax_fused: s_blk must be contiguous fp32 (V_pad,)")
-    nblk = n // TILE_N
-    part_max = torch.empty((nblk, b), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((nblk, b), dtype=torch.int32, device=dev)
+    # the K split of the logits path's int8_gemv over the unpadded head
+    plan = GemvPlan.make(k, n_valid)
+    stream = _build.stream_ptr(dev)
+    ws = _workspace(dev, stream, b)
     ids = torch.empty((b,), dtype=torch.int32, device=dev)
     mx = torch.empty((b,), dtype=torch.float32, device=dev)
     lib = _build.library()
     err = lib.pg_head_argmax(
-        y2.data_ptr(), w8.data_ptr(), s.data_ptr(), part_max.data_ptr(),
-        part_idx.data_ptr(), ids.data_ptr(), mx.data_ptr(), b, k, n, n_valid,
-        # the K split of the logits path's int8_gemv over the unpadded head
-        gemv_k_chunk(k, head_blk["w8"].shape[1]), _build.stream_ptr(dev),
+        y2.data_ptr(), w8.data_ptr(), s.data_ptr(), ws.data_ptr(), ids.data_ptr(), mx.data_ptr(),
+        b, k, n, n_valid, plan.cluster, plan.warps, plan.k_per_cta, stream,
     )
+    if err != 0:
+        _workspaces.pop((dev, stream), None)  # a failed launch may leave it dirty
     _build.check(err, "head_argmax")
     head_argmax_fused.launches += 1
     return (ids, mx) if return_max else ids

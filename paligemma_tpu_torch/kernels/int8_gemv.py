@@ -3,7 +3,9 @@
 The weight streams of the TPU kernel paligemma_tpu/kernels/decode_layer.py
 ``_kernel_all`` (qkv, o-proj + residual, gate/up + GeGLU, down + residual)
 and the int8 LM head of the logits path (models/gemma.lm_head) run through
-``int8_gemv``; ``csrc/int8_gemv.cu`` is the kernel.
+``int8_gemv``; ``csrc/int8_gemv.cu`` is the kernel: one launch per GEMV,
+the product on the tensor cores, K split over a thread-block cluster as
+:class:`~.gemv_plan.GemvPlan` says, the epilogue in the same launch.
 
     out = cast(x @ w8 (fp32) * s)                      plain
     out = residual + cast(x @ w8 * s)                  residual=...
@@ -40,21 +42,7 @@ import torch
 
 from ..ops.activations import gelu_tanh
 from . import _build
-
-TILE_N = 128  # output columns per block (csrc/common.cuh GV_TILE_N)
-KC_MAX = 512  # max K rows per split (GV_KC_MAX)
-TARGET_BLOCKS = 264  # ~2 blocks per SM on the H100's 132 SMs
-
-
-def gemv_k_chunk(k: int, n: int) -> int:
-    """K rows per split block. Shared with the LM-head argmax kernel, which
-    must sum the same splits in the same order to match bit for bit."""
-    col_blocks = -(-n // TILE_N)
-    nsplit = max(-(-TARGET_BLOCKS // col_blocks), -(-k // KC_MAX))
-    nsplit = min(nsplit, max(1, k // 8))
-    chunk = -(-k // nsplit)
-    return -(-chunk // 8) * 8
-
+from .gemv_plan import TILE_N, GemvPlan  # noqa: F401  (TILE_N: the head's padding)
 
 LoraExpand = Tuple[torch.Tensor, torch.Tensor, Sequence[int]]  # (z, b, bounds)
 
@@ -121,12 +109,13 @@ def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
 
 
 def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) -> torch.Tensor:
-    """Both kernels of one GEMV (K-split partials, then the epilogue of
-    ``mode``: 0 plain, 1 + residual, 2 GeGLU, 3 fp32 out; modes 0-2 with
-    the LoRA expand when ``lora`` is given)."""
+    """One GEMV of ``mode`` (0 plain, 1 + residual, 2 GeGLU, 3 fp32 out).
+    With ``lora`` (modes 0-2) the kernel writes its unscaled fp32 sums
+    (mode 4) and the LoRA epilogue kernel adds the expand."""
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
+    _check(b > 0, "x has no rows")
     _check(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
     _check(w8.dtype == torch.int8 and w8.shape == (k, n) and w8.is_contiguous(),
            f"w8 must be contiguous int8 ({k}, N), got {tuple(w8.shape)} {w8.dtype}")
@@ -142,27 +131,26 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) ->
                "residual must be contiguous bf16 (B, N)")
     if lora is not None:
         g, seg1, seg2 = _check_lora(lora, b, n, dev)
-    chunk = gemv_k_chunk(k, n)
-    nsplit = -(-k // chunk)
-    part = torch.empty((nsplit, b, n), dtype=torch.float32, device=dev)
+    plan = GemvPlan.make(k, n)
     out = torch.empty((b, n // 2 if mode == 2 else n),
                       dtype=torch.float32 if mode == 3 else torch.bfloat16, device=dev)
     lib = _build.library()
     stream = _build.stream_ptr(dev)
-    _build.check(lib.pg_int8_gemv_partial(
-        x.data_ptr(), w8.data_ptr(), part.data_ptr(), b, k, n, chunk, stream,
-    ), "int8_gemv partial")
     res_ptr = residual.data_ptr() if mode == 1 else None
     if lora is None:
-        err = lib.pg_int8_gemv_epilogue(part.data_ptr(), nsplit, b, n, s.data_ptr(), res_ptr,
-                                        out.data_ptr(), mode, stream)
-    else:
-        z, lb, _ = lora
-        err = lib.pg_int8_gemv_epilogue_lora(
-            part.data_ptr(), nsplit, b, n, s.data_ptr(), res_ptr, out.data_ptr(), mode,
-            z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1],
-            seg1, seg2, stream)
-    _build.check(err, "int8_gemv epilogue")
+        _build.check(lib.pg_int8_gemv(
+            x.data_ptr(), w8.data_ptr(), s.data_ptr(), res_ptr, out.data_ptr(), b, k, n, mode,
+            plan.cluster, plan.warps, plan.k_per_cta, stream), "int8_gemv")
+        return out
+    sums = torch.empty((1, b, n), dtype=torch.float32, device=dev)
+    _build.check(lib.pg_int8_gemv(
+        x.data_ptr(), w8.data_ptr(), s.data_ptr(), None, sums.data_ptr(), b, k, n, 4,
+        plan.cluster, plan.warps, plan.k_per_cta, stream), "int8_gemv")
+    z, lb, _ = lora
+    _build.check(lib.pg_int8_gemv_epilogue_lora(
+        sums.data_ptr(), 1, b, n, s.data_ptr(), res_ptr, out.data_ptr(), mode, z.data_ptr(),
+        lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1], seg1, seg2, stream),
+        "int8_gemv LoRA epilogue")
     return out
 
 

@@ -541,3 +541,75 @@ def test_int8_matmul_kernels_on_card(nmajor):
     _close_rel(xg.grad, (gout.float() * q["s"]) @ w8_kn.float().T)
     with pytest.raises(ValueError):
         fn(x.float(), w8, q["s"])
+
+
+# (K, N, epilogue, rows of x): the four projections of PaliGemma-3B-224's
+# decoder and its LM head, the tensor-parallel shards at m = 8, and ragged
+# shapes (K not a multiple of 16, 4 or even; N not a multiple of 128 or 16)
+GEMV_TILE_CASES = [
+    (2048, 2560, "plain", (1, 2, 5, 8, 9, 33)), (2048, 2048, "residual", (1, 8, 33)),
+    (2048, 32768, "geglu", (1, 8)), (16384, 2048, "residual", (1, 8)),
+    (2048, 257152, "plain", (1, 8)),
+    (2048, 768, "plain", (1, 8)), (256, 2048, "f32", (1, 8)), (2048, 4096, "geglu", (1, 8)),
+    (2048, 2048, "f32", (1, 8)), (2048, 32144, "plain", (8,)),
+    (1000, 388, "plain", (1, 5, 9)), (2040, 2560, "residual", (2, 8)), (1001, 300, "plain", (3,)),
+    (77, 300, "geglu", (2, 8)), (64, 96, "f32", (33,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,epi,rows", GEMV_TILE_CASES)
+def test_int8_gemv_tile_on_card(k, n, epi, rows):
+    """The tensor-core GEMV (csrc/gemv_tile.cuh) against its plain version
+    within 1e-2 of max(1, |plain|) (bf16 output rounding of fp32 sums taken
+    in another order); a second call gives the same bits; the fp32
+    partial, cast, has the bits of the bf16 epilogue."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full fp32
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    for b in rows:
+        x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
+        kw = {"residual": torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)} \
+            if epi == "residual" else {"geglu": epi == "geglu"}
+        if epi == "f32":
+            got, again = t_gemv.int8_gemv_f32(x, w8, s), t_gemv.int8_gemv_f32(x, w8, s)
+            want = t_gemv.int8_gemv_reference(x, w8, s, out_fp32=True)
+            assert torch.equal(got.to(torch.bfloat16), t_gemv.int8_gemv(x, w8, s))
+        else:
+            got, again = t_gemv.int8_gemv(x, w8, s, **kw), t_gemv.int8_gemv(x, w8, s, **kw)
+            want = t_gemv.int8_gemv_reference(x, w8, s, **kw)
+        _close_rel(got, want, 1e-2)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [257152, 32144, 4096, 300])
+def test_head_argmax_equals_argmax_of_int8_gemv_on_card(vocab):
+    """head_argmax_fused == argmax of the logits path's int8_gemv, id and
+    logit bit for bit, at B 1, 8, 33 and 2 and again in a second call, over
+    the whole vocab, a vocab shard of m = 8 (padded to the tile) and smaller
+    ones; then a three-way tie
+    planted in one tile's two cluster ranks and in another tile goes to the
+    first index."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(vocab)
+    w8 = torch.randint(-127, 128, (2048, vocab), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(vocab, generator=g, device=dev) + 0.5) / (127 * 2048**0.5)
+    head = t_head.repack_head({"w8": w8, "s": s})
+    for b in (1, 8, 33, 2):  # 33: five batch tiles; then B 2 after B 33
+        y = torch.randn(b, 2048, generator=g, device=dev).to(torch.bfloat16)
+        ids, mx = t_head.head_argmax_fused(y, head, return_max=True)
+        logits = t_gemv.int8_gemv(y, w8, s).float()
+        assert torch.equal(ids.long(), logits.argmax(-1))
+        assert torch.equal(mx, logits.max(-1).values)
+        again = t_head.head_argmax_fused(y, head, return_max=True)  # the keys were reset
+        assert torch.equal(again[0], ids) and torch.equal(again[1], mx)
+    y = torch.randn(1, 2048, generator=g, device=dev).to(torch.bfloat16)
+    j0, dups = 5, (100, vocab - 7)
+    w8[:, j0] = torch.where(y[0] > 0, 127, -127).to(torch.int8)
+    s[j0] = 1.0
+    for j in dups:
+        w8[:, j], s[j] = w8[:, j0], s[j0]
+    assert int(t_head.head_argmax_fused(y, t_head.repack_head({"w8": w8, "s": s}))[0]) == j0

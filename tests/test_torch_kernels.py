@@ -143,13 +143,6 @@ def test_int8_gemv_plain_matches_jax_math(mode):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)  # fp32 dot order
 
 
-def test_gemv_k_chunk_covers_k():
-    for k, n in [(2048, 2560), (2048, 2048), (2048, 32768), (16384, 2048), (2048, 257152), (64, 96)]:
-        c = t_gemv.gemv_k_chunk(k, n)
-        assert c % 8 == 0 and 8 <= c <= t_gemv.KC_MAX
-        assert -(-k // c) * c >= k
-
-
 # ------------------------------------------------------ decode attention ----
 def test_decode_attention_plain_matches_gqa():
     rng = np.random.default_rng(2)
