@@ -13,9 +13,9 @@ seed, int8 decode tree) through its main paths:
   last position leaves its neighbour's tokens unchanged;
 * multi-LoRA serving: a bank of 3 adapters over the same requests, each
   under its own adapter or the base model, through the dense and paged
-  kernel ticks (the LoRA shrink kernel and the GEMV's LoRA epilogue) and
-  the plain tick, held against each other and against an engine without
-  a bank;
+  kernel ticks (the LoRA shrink kernel and the LoRA expand in the int8
+  GEMV's epilogue) and the plain tick, held against each other and against
+  an engine without a bank;
 * single-GPU LoRA training, Trainer.train_step at full width and depth
   (B=2, S=512, remat): the flash kernels' forward and backward against the
   plain attention path on the first step, the loss falling over 8 steps,
@@ -92,9 +92,12 @@ PAGE_WALK_TICK = (("flash_attention_fwd", "paged_decode_attention"),
                   ("decode_attention", "rope_kv_write", "rope_kv_write_paged") + TP_KERNELS,
                   ("paged_decode_attention",))
 # the multi-LoRA tick adds lora_shrink (kernels/lora) four times per layer
-# (qkv, o, gate|up, down); no run without a bank launches it
+# (qkv, o, gate|up, down), and each of the four int8_gemv launches of the
+# layer adds the expand in its epilogue: 8 LoRA-related launches per layer
+# and tick, one shrink and one GEMV per target group; no run without a bank
+# launches lora_shrink
 LORA_KERNELS = ("lora_shrink",)
-LORA_SHRINKS_PER_LAYER = 4
+LORA_LAUNCHES_PER_LAYER = {"lora_shrink": 4, "int8_gemv": 4}
 # the tensor-parallel ticks at world size 1 (run (b)): the dense TP tick is
 # B7 (its chain counts rms_norm, int8_gemv, rope_kv_write, decode_attention
 # and int8_gemv_f32 each) and B7b per layer, then the vocab-shard argmax
@@ -528,6 +531,78 @@ def gemv_device_times(dev, label=""):
                 print(f"  device {tag}{'int8_gemv':20s} {name + f' B{b} logits path':36s} "
                       f"{txt(logits_us)}", flush=True)
         del w8s, w8ts, heads
+
+
+def lora_device_times(dev, label=""):
+    """Device time per call (torch.profiler) of one decoder layer's LoRA
+    operands at B8 with a bank of LORA_NAMES adapters of rank LORA_RANK
+    (fp32, G = (N+1) * rank): the four shrinks (kernels/lora) and the four
+    int8 GEMVs with the expand in their epilogue against the same GEMVs
+    without it, the weights and the bank cold as in a decode tick (each
+    call takes the next of enough copies to pass 60 MB); beside them the
+    bytes bound of the bank's extra work (A and B read once, z written) and
+    the cuBLAS products alone (x @ A, z @ B in bf16; never called by the
+    port). Prints the bank's extra device time per layer and per tick of
+    the 18 layers; ``label`` tags the lines (tools/gemv_times.py runs this
+    on other trees)."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, rank, n_layers = 8, LORA_RANK, 18
+    gcols = (len(LORA_NAMES) + 1) * rank
+    ids = (torch.arange(b, device=dev) % (len(LORA_NAMES) + 1)).to(torch.int32)
+    tag = f"[{label}] " if label else ""
+    print(f"kernels: {tag}LoRA shrink and expand device time, B{b}, G {gcols}, weights and "
+          f"bank cold", flush=True)
+    groups = (("qkv", 2048, 2560, (2048, 2304), {}), ("o", 2048, 2048, (), {"residual": True}),
+              ("gu", 2048, 32768, (16384,), {"geglu": True}),
+              ("down", 16384, 2048, (), {"residual": True}))
+    tot = {}
+    for name, k, n, bounds, kw in groups:
+        ng = gcols * (len(bounds) + 1)
+        copies = max(12, -(-60_000_000 // (k * n)))
+        x = (torch.randn(b, k, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        gkw = ({"residual": torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)}
+               if kw.get("residual") else dict(kw))
+        ops = []
+        for _ in range(copies):
+            w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+            s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+            a = torch.randn(k, ng, generator=g, device=dev) * k**-0.5
+            lb = torch.randn(gcols, n, generator=g, device=dev) * 0.05
+            z = kl.lora_shrink_reference(x, a, ids, rank, gcols)
+            ops.append((w8, s, a, lb, z, a.to(torch.bfloat16), lb.to(torch.bfloat16)))
+        fns = {
+            "shrink": [lambda o=o: kl.lora_shrink(x, o[2], ids, rank, gcols) for o in ops],
+            "GEMV + expand": [lambda o=o: gv.int8_gemv(x, o[0], o[1], lora=(o[4], o[3], bounds),
+                                                       **gkw) for o in ops],
+            "GEMV": [lambda o=o: gv.int8_gemv(x, o[0], o[1], **gkw) for o in ops],
+            "x @ A (cuBLAS)": [lambda o=o: x @ o[5] for o in ops],
+            "z @ B (cuBLAS)": [lambda o=o: o[4][:, :gcols] @ o[6] for o in ops],
+        }
+        got = {}
+        for what, f in fns.items():
+            got[what] = device_ms(_cycling(f), 2 * copies)[0]
+            tot[what] = None if got[what] is None or tot.get(what, 0.0) is None else (
+                tot.get(what, 0.0) + got[what])
+        bank_bytes = 4 * (k * ng + gcols * n) + 2 * b * (k + ng)
+        tot["bound"] = tot.get("bound", 0.0) + bank_bytes / PEAK_BYTES * 1e3
+        print(f"  device {tag}lora {name:5s} K{k} N{n} nG{ng}: " + ", ".join(
+            f"{w} {'not measured' if v is None else f'{v * 1e3:.2f} us'}"
+            for w, v in got.items()) + f"; the bank's bytes bound "
+            f"{bank_bytes / PEAK_BYTES * 1e6:.2f} us", flush=True)
+        del ops, fns
+    if None in (tot["shrink"], tot["GEMV + expand"], tot["GEMV"]):
+        print(f"  device {tag}lora: the bank's extra time not measured", flush=True)
+        return
+    extra = tot["shrink"] + tot["GEMV + expand"] - tot["GEMV"]
+    print(f"  device {tag}lora one layer B{b}: shrinks {tot['shrink'] * 1e3:.2f} us, GEMVs with "
+          f"the expand {tot['GEMV + expand'] * 1e3:.2f} us against {tot['GEMV'] * 1e3:.2f} "
+          f"without; the bank's extra {extra * 1e3:.2f} us a layer, {extra * n_layers:.4f} ms "
+          f"a tick of {n_layers} layers (bound {tot['bound'] * n_layers:.4f} ms); cuBLAS "
+          f"x @ A {tot['x @ A (cuBLAS)']} ms, z @ B {tot['z @ B (cuBLAS)']} ms a layer",
+          flush=True)
 
 
 def kernel_phase(report: KernelReport, dev):
@@ -1010,20 +1085,22 @@ def tp_kernel_phase(report: KernelReport, dev):
                 check = r in (0, m - 1)
                 caches = [(kc.clone(), vc.clone()) for _ in range(1 + check)]
                 pools = [(kp.clone(), vp.clone()) for _ in range(1 + check)]
-                dense_args = (valid, pos, cos, sin, hd, eps)
-                paged_args = (table, pos, cos, sin, n_p, hd, eps)
-                got = tp.attn_decode_tp(x, local, *caches[0], layer, *dense_args)
-                gotp = ptp.attn_decode_paged_tp(x, local, *pools[0], layer, *paged_args)
+                dense_args = dict(valid=valid, cache_pos=pos, cos=cos, sin=sin, head_dim=hd,
+                                  eps=eps)
+                paged_args = dict(page_table=table, write_pos=pos, cos=cos, sin=sin,
+                                  pages_bucket=n_p, head_dim=hd, eps=eps)
+                got = tp.attn_decode_tp(x, local, *caches[0], layer, **dense_args)
+                gotp = ptp.attn_decode_paged_tp(x, local, *pools[0], layer, **paged_args)
                 gotm = dm.mlp_decode_fused(y2, local["mlp"], layer, out_dtype=torch.float32)
                 for name, part in (("attn_decode_tp", got[0]), ("attn_decode_paged_tp", gotp[0]),
                                    ("mlp_decode_fused", gotm)):
                     sums[name] = part if r == 0 else sums[name] + part
                 if not check:
                     continue
-                want = tp.attn_decode_tp_reference(x, local, *caches[1], layer, *dense_args)
+                want = tp.attn_decode_tp_reference(x, local, *caches[1], layer, **dense_args)
                 wantp = ptp.attn_decode_paged_tp_reference(x, local, *pools[1], layer,
-                                                           *paged_args)
-                wantm = dm.reference_mlp(y2, local["mlp"], layer, torch.float32)
+                                                           **paged_args)
+                wantm = dm.reference_mlp(y2, local["mlp"], layer, out_dtype=torch.float32)
                 sync()
                 label = f"m{m} r{r} B{b} Hl{hl}"
                 rows = torch.arange(b, device=dev)
@@ -1055,23 +1132,33 @@ def tp_kernel_phase(report: KernelReport, dev):
                     f_attn = (2 * b * kdim * (hl + 2) * hd + 4 * hd * hl * n_keys
                               + 2 * b * hl * hd * kdim)
                     report.time("attn_decode_tp", label,
-                                lambda: tp.attn_decode_tp(x, local, *caches[0], layer, *dense_args),
+                                lambda: tp.attn_decode_tp(x, local, *caches[0], layer,
+                                                          **dense_args),
                                 lambda: tp.attn_decode_tp_reference(x, local, *caches[1], layer,
-                                                                    *dense_args),
+                                                                    **dense_args),
                                 flops=f_attn, n_bytes=w_attn + nbytes(valid))
                     report.time("attn_decode_paged_tp", label,
                                 lambda: ptp.attn_decode_paged_tp(x, local, *pools[0], layer,
-                                                                 *paged_args),
+                                                                 **paged_args),
                                 lambda: ptp.attn_decode_paged_tp_reference(x, local, *pools[1],
-                                                                           layer, *paged_args),
+                                                                           layer, **paged_args),
                                 flops=f_attn, n_bytes=w_attn + nbytes(table))
                     report.time("mlp_decode_fused", f"m{m} r{r} B{b} I/m {il}",
                                 lambda: dm.mlp_decode_fused(y2, local["mlp"], layer,
                                                             out_dtype=torch.float32),
-                                lambda: dm.reference_mlp(y2, local["mlp"], layer, torch.float32),
+                                lambda: dm.reference_mlp(y2, local["mlp"], layer,
+                                                         out_dtype=torch.float32),
                                 flops=2 * b * kdim * 2 * il + 2 * b * il * kdim,
                                 n_bytes=nbytes(y2, gu["w8"][layer], gu["s"][layer],
                                                dn["w8"][layer], dn["s"][layer], gotm))
+                    # rows 5, 6, 8 of PERF.md: the chains' device time per call
+                    device_times(label, [
+                        ("attn_decode_tp", lambda: tp.attn_decode_tp(x, local, *caches[0], layer,
+                                                                     **dense_args)),
+                        ("attn_decode_paged_tp", lambda: ptp.attn_decode_paged_tp(
+                            x, local, *pools[0], layer, **paged_args)),
+                        ("mlp_decode_fused", lambda: dm.mlp_decode_fused(
+                            y2, local["mlp"], layer, out_dtype=torch.float32))])
                 del local, caches, pools
             for name, part in sums.items():
                 if m == 1:
@@ -1181,26 +1268,33 @@ def tp_kernel_phase(report: KernelReport, dev):
     del head, w8, s
 
 
-def int4_library_call(w4p, s4, label):
-    """x -> torch._weight_int4pack_mm on the same int4 weights (a yardstick
-    for B9; the port never calls it): the values q + 8 in tinygemm's (N,
-    K/2) byte layout through torch._convert_weight_to_int4pack, the
-    per-column scale repeated for every 128-row group in bf16, zero points
-    0. None, with the reason printed, where this build refuses the form."""
+def int4_library_pack(w4p, s4):
+    """The same int4 weights in the form torch._weight_int4pack_mm takes
+    (a yardstick for B9; the port never calls it): the values q + 8 in
+    tinygemm's (N, K/2) byte layout through torch._convert_weight_to_int4pack,
+    the per-column scale repeated for every 128-row group in bf16, zero
+    points 0. Returns x -> the product; raises RuntimeError where this build
+    refuses the form."""
     from paligemma_tpu_torch.kernels.ablation import quant4 as q4
 
     q = q4._unpack(w4p)  # (K, N), -8..7
     k, n = q.shape
+    u = (q + 8).t().contiguous().to(torch.uint8)
+    packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
+    sz = torch.zeros((k // 128, n, 2), dtype=torch.bfloat16, device=w4p.device)
+    sz[:, :, 0] = s4.to(torch.bfloat16)
+    return lambda x: torch._weight_int4pack_mm(x, packed, 128, sz)
+
+
+def int4_library_call(w4p, s4, label):
+    """:func:`int4_library_pack` with its error against the plain version
+    printed; None, with the reason printed, where this build refuses the
+    form."""
+    from paligemma_tpu_torch.kernels.ablation import quant4 as q4
+
     try:
-        u = (q + 8).t().contiguous().to(torch.uint8)
-        packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).contiguous(), 8)
-        sz = torch.zeros((k // 128, n, 2), dtype=torch.bfloat16, device=w4p.device)
-        sz[:, :, 0] = s4.to(torch.bfloat16)
-
-        def call(x):
-            return torch._weight_int4pack_mm(x, packed, 128, sz)
-
-        x = torch.randn(1, k, device=w4p.device).to(torch.bfloat16)
+        call = int4_library_pack(w4p, s4)
+        x = torch.randn(1, w4p.shape[0] * 2, device=w4p.device).to(torch.bfloat16)
         err = float((call(x).float() - q4.int4_matmul_reference(x, w4p, s4).float()).abs().max())
         print(f"  {'int4_matmul':20s} {label + ' _weight_int4pack_mm form':44s} max_abs_err vs "
               f"plain {err:.3e} (bf16 scales)", flush=True)
@@ -1209,6 +1303,94 @@ def int4_library_call(w4p, s4, label):
         print(f"  {'int4_matmul':20s} {label:44s} torch._weight_int4pack_mm refused: "
               f"{str(e).splitlines()[0][:160]}", flush=True)
         return None
+
+
+def _cycling(fns):
+    """A call that runs the next of ``fns`` each time (cold weights: each
+    fn reads its own copy)."""
+    at = [0]
+
+    def run():
+        at[0] = (at[0] + 1) % len(fns)
+        return fns[at[0]]()
+    return run
+
+
+def wq_device_times(dev, label="", kinds=("int4", "int8")):
+    """Device time per call (torch.profiler, :func:`device_ms`) of B9
+    (int4_matmul at INT4_ROWS) and B11 (int8_matmul, int8_matmul_nmajor at
+    INT8_ROWS) at Gemma-2B's four projections, with the weights cold as in a
+    decode step (each call takes the next of enough copies to pass 60 MB),
+    beside the bound and the library call on the same weights
+    (torch._weight_int4pack_mm, torch._weight_int8pack_mm; never called by
+    the port); per projection and summed over one layer's four. Returns
+    {(kernel, M): (kernel ms, library ms, bound ms)} (None where not
+    measured). ``label`` tags the lines (tools/gemv_times.py runs this on
+    other trees)."""
+    from paligemma_tpu_torch.kernels.ablation import quant4 as q4
+    from paligemma_tpu_torch.kernels.ablation import quant_pallas as qp
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    tag = f"[{label}] " if label else ""
+    print(f"kernels: {tag}int4_matmul / int8_matmul device time, weights cold", flush=True)
+    sums = {}
+
+    def add(key, vals):
+        acc = sums.setdefault(key, [0.0, 0.0, 0.0])
+        for i, v in enumerate(vals):
+            acc[i] = None if v is None or acc[i] is None else acc[i] + v
+
+    def ms_of(fns, calls):
+        return device_ms(_cycling(fns), calls)[0]
+
+    def txt(v):
+        return "not measured" if v is None else f"{v * 1e3:.2f} us"
+
+    for name, k, n in PROJECTIONS:
+        runs = []  # (kernel, M, kernel fns, library fns, weight bytes, scale bytes)
+        if "int4" in kinds:
+            copies = max(4, -(-60_000_000 // (k * n // 2)))
+            w4s = [torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                                 dtype=torch.int8) for _ in range(copies)]
+            s4 = (torch.rand(n, generator=g, device=dev) + 0.5) / (7.0 * k**0.5)
+            try:
+                libs = [int4_library_pack(w, s4) for w in w4s]
+            except RuntimeError:
+                libs = None
+            for m in INT4_ROWS:
+                x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+                runs.append(("int4_matmul", m, [lambda w=w, x=x: q4.int4_matmul(x, w, s4)
+                                                for w in w4s],
+                             None if libs is None else [lambda c=c, x=x: c(x) for c in libs],
+                             k * n // 2, 4 * n))
+        if "int8" in kinds:
+            copies = max(4, -(-60_000_000 // (k * n)))
+            w8s = [torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+                   for _ in range(copies)]
+            w8ts = [w.t().contiguous() for w in w8s]
+            s8 = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+            s8_bf = s8.to(torch.bfloat16)
+            for m in INT8_ROWS:
+                x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+                lib = [lambda w=w, x=x: torch._weight_int8pack_mm(x, w, s8_bf) for w in w8ts]
+                runs.append(("int8_matmul", m, [lambda w=w, x=x: qp.int8_matmul(x, w, s8)
+                                                for w in w8s], lib, k * n, 4 * n))
+                runs.append(("int8_matmul_nmajor", m,
+                             [lambda w=w, x=x: qp.int8_matmul_nmajor(x, w, s8) for w in w8ts],
+                             lib, k * n, 4 * n))
+        for kname, m, kern, lib, w_bytes, s_bytes in runs:
+            calls = 2 * len(kern)
+            k_ms = ms_of(kern, calls)
+            l_ms = None if lib is None else ms_of(lib, calls)
+            b_ms = bound_ms(2 * m * k * n, w_bytes + s_bytes + 2 * m * k + 2 * m * n)
+            add((kname, m), (k_ms, l_ms, b_ms))
+            print(f"  device {tag}{kname:20s} {name} M{m} {k}->{n}: {txt(k_ms)}  bound "
+                  f"{b_ms * 1e3:.2f} us  library {txt(l_ms)}", flush=True)
+        del runs
+    for (kname, m), (k_ms, l_ms, b_ms) in sums.items():
+        print(f"  device {tag}{kname:20s} one layer, {len(PROJECTIONS)} projections, M{m}: "
+              f"{txt(k_ms)}  bound {b_ms * 1e3:.2f} us  library {txt(l_ms)}", flush=True)
+    return {key: tuple(v) for key, v in sums.items()}
 
 
 def ablation_phase(report: KernelReport, dev, card):
@@ -1378,6 +1560,9 @@ def ablation_phase(report: KernelReport, dev, card):
         label = f"one layer, {len(PROJECTIONS)} projections, M{m}"
         print(f"  {kname:20s} {label:44s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
               f"library {lib_txt}  bound {b_ms:.4f} ms", flush=True)
+    # B9 at its decode rows (1, 8) and 266 and B11 on the device, weights
+    # cold (the back-to-back times above are the host's rate at M1)
+    wq_device_times(dev)
     # backward of the autograd wrappers: dx = (g * s) @ w8^T against a plain
     # fp32 product (one projection, training rows)
     name, k, n, _, _, w8, w8t, s8 = proj[0]
@@ -1898,11 +2083,13 @@ def lora_bank_adapters(cfg, dev, b_std):
 
 
 def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
-    """lora_shrink and int8_gemv's LoRA epilogue against their plain
-    versions at one layer's shapes (B = 1 and 8 rows, the fp32 bank and a
-    bf16 copy); the epilogue with base rows only (a delta of exactly 0)
-    bit-equal to the epilogue without LoRA; then the times of one layer's
-    four groups, shrink and GEMV with and without the expand."""
+    """lora_shrink and int8_gemv's LoRA expand against their plain versions
+    at one layer's shapes (B = 1 and 8 rows, the fp32 bank and a bf16 copy);
+    the expand with base rows only (a delta of exactly 0) bit-equal to the
+    GEMV without LoRA, and a second call's bits; then one layer's four
+    groups at B8: shrink and GEMV with and without the expand, back to back
+    and on the device (torch.profiler), beside the cuBLAS products alone
+    (x @ A and z @ B in bf16, never called by the port)."""
     from paligemma_tpu_torch.kernels import int8_gemv as gv
     from paligemma_tpu_torch.kernels import lora as kl
 
@@ -1915,9 +2102,10 @@ def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
               ("gu", lay["mlp"]["gateup"], (inter,), {"geglu": True}),
               ("down", lay["mlp"]["down"], (), {"residual": True}))
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    print(f"kernels: lora_shrink + int8_gemv LoRA epilogue ({len(LORA_NAMES)} adapters, rank "
+    print(f"kernels: lora_shrink + int8_gemv LoRA expand ({len(LORA_NAMES)} adapters, rank "
           f"{rank}, G {g_cols}; Gemma-2B layer {CASE_LAYER})", flush=True)
     layer_ms = {}
+    device = []  # (name, fn) of the B8 calls, timed on the device below
     for b in (1, 8):
         ids = torch.arange(b, device=dev, dtype=torch.int32) % (len(LORA_NAMES) + 1)
         base_ids = torch.zeros_like(ids)
@@ -1932,7 +2120,8 @@ def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
             for dtype in (torch.float32, torch.bfloat16):
                 a = pack[name + "_a"][CASE_LAYER].to(dtype).contiguous()
                 lb = pack[name + "_b"][CASE_LAYER].to(dtype).contiguous()
-                tag = f"{name} B{b} K{k} nG{a.shape[1]} {'fp32' if dtype == torch.float32 else 'bf16'}"
+                dt = "fp32" if dtype == torch.float32 else "bf16"
+                tag = f"{name} B{b} K{k} nG{a.shape[1]} {dt}"
                 z = kl.lora_shrink(x, a, ids, rank, g_cols)
                 zp = kl.lora_shrink_reference(x, a, ids, rank, g_cols)
                 sync()
@@ -1940,8 +2129,11 @@ def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
                 got = gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw)
                 want = gv.int8_gemv_reference(x, w8, sc, lora=(zp, lb, bounds), **gkw)
                 sync()
-                report.case("int8_gemv", f"{name} B{b} LoRA epilogue "
-                            f"{'fp32' if dtype == torch.float32 else 'bf16'} B", got, want, 1e-2)
+                report.case("int8_gemv", f"{name} B{b} LoRA expand {dt} B", got, want, 1e-2)
+                again = (kl.lora_shrink(x, a, ids, rank, g_cols),
+                         gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw))
+                if not (torch.equal(again[0], z) and torch.equal(again[1], got)):
+                    raise AssertionError(f"LoRA {tag}: a second call gave other bits")
             z0 = kl.lora_shrink(x, pack[name + "_a"][CASE_LAYER], base_ids, rank, g_cols)
             same = (not z0.any() and torch.equal(
                 gv.int8_gemv(x, w8, sc, lora=(z0, pack[name + "_b"][CASE_LAYER], bounds), **gkw),
@@ -1954,19 +2146,22 @@ def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
                 continue
             # times at the serving shape (8 rows, the fp32 bank)
             a, lb = pack[name + "_a"][CASE_LAYER], pack[name + "_b"][CASE_LAYER]
+            a_bf, lb_bf = a.to(torch.bfloat16), lb.to(torch.bfloat16)
             z = kl.lora_shrink(x, a, ids, rank, g_cols)
             t_s = report.time("lora_shrink", f"{name} B8 K{k} nG{a.shape[1]} fp32",
                               lambda: kl.lora_shrink(x, a, ids, rank, g_cols),
                               lambda: kl.lora_shrink_reference(x, a, ids, rank, g_cols),
-                              flops=2 * b * k * a.shape[1], n_bytes=nbytes(x, a, ids, z))
+                              flops=2 * b * k * a.shape[1], n_bytes=nbytes(x, a, ids, z),
+                              library_fn=lambda: x @ a_bf)
             out = gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw)
-            t_e = report.time("int8_gemv", f"{name} B8 + LoRA expand epilogue",
+            t_e = report.time("int8_gemv", f"{name} B8 + LoRA expand",
                               lambda: gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw),
                               lambda: gv.int8_gemv_reference(x, w8, sc, lora=(z, lb, bounds),
                                                              **gkw),
                               flops=2 * b * (k * w8.shape[1] + lb.numel()),
                               n_bytes=nbytes(x, w8, sc, z, lb, out)
-                              + (nbytes(res) if res is not None else 0), in_json=False)
+                              + (nbytes(res) if res is not None else 0),
+                              library_fn=lambda: z[:, :g_cols] @ lb_bf, in_json=False)
             t_0 = report.time("int8_gemv", f"{name} B8 without LoRA",
                               lambda: gv.int8_gemv(x, w8, sc, **gkw),
                               lambda: gv.int8_gemv_reference(x, w8, sc, **gkw),
@@ -1974,15 +2169,34 @@ def lora_kernel_cases(report: KernelReport, pack, decode, cfg, dev):
                               n_bytes=nbytes(x, w8, sc, out)
                               + (nbytes(res) if res is not None else 0), in_json=False)
             for key, t in (("shrink", t_s), ("gemv+expand", t_e), ("gemv", t_0)):
-                acc = layer_ms.setdefault(key, [0.0, 0.0, 0.0])
+                acc = layer_ms.setdefault(key, [0.0, 0.0, 0.0, 0.0])
                 acc[0], acc[1], acc[2] = acc[0] + t[0], acc[1] + t[1], acc[2] + t[3]
-    sk, sp, sb = layer_ms["shrink"]
-    ek, ep, eb = layer_ms["gemv+expand"]
-    bk, bp, bb = layer_ms["gemv"]
-    print(f"  lora: one layer B8, 4 groups: shrink {sk:.4f} ms (plain {sp:.4f}, bound {sb:.4f}); "
-          f"GEMVs with the expand {ek:.4f} ms (plain {ep:.4f}, bound {eb:.4f}) vs without "
-          f"{bk:.4f} ms (bound {bb:.4f}); LoRA chain {sk + ek:.4f} ms, bound {sb + eb:.4f} ms",
-          flush=True)
+                acc[3] = None if acc[3] is None or t[2] is None else acc[3] + t[2]
+            device += [
+                (f"{name} shrink", lambda x=x, a=a, ids=ids: kl.lora_shrink(x, a, ids, rank,
+                                                                           g_cols)),
+                (f"{name} x @ A (cuBLAS)", lambda x=x, a_bf=a_bf: x @ a_bf),
+                (f"{name} GEMV + expand", lambda x=x, w8=w8, sc=sc, z=z, lb=lb, bounds=bounds,
+                 gkw=gkw: gv.int8_gemv(x, w8, sc, lora=(z, lb, bounds), **gkw)),
+                (f"{name} GEMV", lambda x=x, w8=w8, sc=sc, gkw=gkw: gv.int8_gemv(x, w8, sc, **gkw)),
+                (f"{name} z @ B (cuBLAS)", lambda z=z, lb_bf=lb_bf: z[:, :g_cols] @ lb_bf)]
+    sk, sp, sb, sl = layer_ms["shrink"]
+    ek, ep, eb, el = layer_ms["gemv+expand"]
+    bk, bp, bb, _ = layer_ms["gemv"]
+    print(f"  lora: one layer B8, 4 groups, back to back: shrink {sk:.4f} ms (plain {sp:.4f}, "
+          f"x @ A {sl:.4f}, bound {sb:.4f}); GEMVs with the expand {ek:.4f} ms (plain "
+          f"{ep:.4f}, bound {eb:.4f}) vs without {bk:.4f} ms (bound {bb:.4f}); z @ B {el:.4f} "
+          f"ms", flush=True)
+    # device times: the same calls (weights warm in the L2: a layer's GEMV
+    # operands are re-read each call)
+    dt = device_times("B8 layer 5", device)
+    per = {}
+    for label, ms in dt.items():
+        what = label.split(" ", 1)[1]
+        per[what] = None if ms is None or per.get(what, 0.0) is None else per.get(what, 0.0) + ms
+    txt = ", ".join(f"{w} {'not measured' if v is None else f'{v:.4f} ms'}"
+                    for w, v in per.items())
+    print(f"  lora: one layer B8, 4 groups, device: {txt}", flush=True)
 
 
 def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, paligemma):
@@ -1998,7 +2212,7 @@ def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, pali
     mask = np.zeros((1, bucket), np.int32)
     mask[0, :n] = 1
     aid = torch.tensor([eng_k._lora_index[req.lora]], dtype=torch.int32, device=dev)
-    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, device=dev)
     _, cache1 = paligemma.prefill(params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
                                   torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
                                   cache1, use_flash=True, last_only=True, lora=eng_k.lora_bank,
@@ -2006,7 +2220,7 @@ def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, pali
     max_seq = SERVE["max_seq_len"]
     caches = []
     for _ in range(2):
-        c = gemma.init_kv_cache(cfg.text_config, 1, max_seq, torch.bfloat16, dev)
+        c = gemma.init_kv_cache(cfg.text_config, 1, max_seq, torch.bfloat16, device=dev)
         for name in ("k", "v"):
             c[name][:, :, :bucket] = cache1[name]
         caches.append(c)
@@ -2092,12 +2306,15 @@ def multilora_phase(report: KernelReport, params, decode, cfg, dev, card):
     def served(label, eng, tick_kernels, per_tick_attn, reqs=None):
         (toks, wall, ttft), counts = _served(label, eng, reqs or requests(), vocab, n_layers,
                                              tick_kernels)
-        if per_tick_attn is not None:
-            want = LORA_SHRINKS_PER_LAYER * counts[per_tick_attn]
-            if counts["lora_shrink"] != want:
-                raise AssertionError(f"multilora {label}: {counts['lora_shrink']} lora_shrink "
-                                     f"launches, want {LORA_SHRINKS_PER_LAYER} per layer and "
-                                     f"tick ({want})")
+        if per_tick_attn is not None:  # one attention launch per layer and tick
+            want = {k: n * counts[per_tick_attn] for k, n in LORA_LAUNCHES_PER_LAYER.items()}
+            got = {k: counts[k] for k in want}
+            print(f"multilora {label}: LoRA-related launches per layer and tick "
+                  f"{sum(got.values()) / counts[per_tick_attn]:.1f} ({json.dumps(got)} over "
+                  f"{counts[per_tick_attn]} layer-ticks)", flush=True)
+            if got != want:
+                raise AssertionError(f"multilora {label}: launches {got}, want {want} "
+                                     f"({LORA_LAUNCHES_PER_LAYER} per layer and tick)")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         return toks, wall, ttft
@@ -2169,9 +2386,30 @@ def multilora_phase(report: KernelReport, params, decode, cfg, dev, card):
         _window_without_sync(eng)
     print(f"multilora: no host synchronization inside a decode window: {', '.join(engines)}",
           flush=True)
+    busy = {}
     for name, eng in engines.items():
-        _profile(f"multilora {name} greedy window B8, {SERVE['sync_every']} ticks", eng.step,
-                 SERVE["sync_every"], card)
+        got = _profile(f"multilora {name} greedy window B8, {SERVE['sync_every']} ticks",
+                       eng.step, SERVE["sync_every"], card, unit="tick")
+        busy[name] = None if got is None else got[0]
+        if got is not None and eng.lora_bank is not None:
+            # the LoRA-related launches on the device: the shrinks and the
+            # GEMVs (each with its expand), per layer and tick
+            ev = {k: sum(r.count for r in got[1] if k in r.key)
+                  for k in ("lora_shrink_kernel", "int8_gemv_kernel", "attn_split")}
+            layer_ticks = ev.pop("attn_split")  # one attention split per layer and tick
+            per_lt = sum(ev.values()) / max(1, layer_ticks)
+            print(f"multilora: {name}: device launches per layer and tick: {json.dumps(ev)} / "
+                  f"{layer_ticks} layer-ticks = {per_lt:.2f}", flush=True)
+            if per_lt != sum(LORA_LAUNCHES_PER_LAYER.values()):
+                raise AssertionError(f"multilora {name}: {per_lt} LoRA-related device launches "
+                                     f"per layer and tick, want "
+                                     f"{sum(LORA_LAUNCHES_PER_LAYER.values())}")
+    for kind in ("dense", "paged fused"):
+        with_bank, without = busy[kind + " + bank"], busy[kind]
+        extra = ("not measured" if with_bank is None or without is None
+                 else f"+{with_bank - without:.3f} ms ({with_bank:.3f} against {without:.3f})")
+        print(f"multilora: the bank's extra device time per {kind} tick, 8 live rows: {extra}  "
+              f"[{card}]", flush=True)
     for name, toks, wall, ttft in (("dense + bank", tok_d, wall_d, ttft_d),
                                    ("paged + bank", tok_p, wall_p, ttft_p),
                                    ("plain + bank", tok_x, wall_x, ttft_x),
@@ -2207,7 +2445,7 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
     ids[0, :n] = req.input_ids
     mask = np.zeros((1, bucket), np.int32)
     mask[0, :n] = 1
-    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, device=dev)
     _, cache1 = paligemma.prefill(params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
                                   torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
                                   cache1, use_flash=True, last_only=True)
@@ -2216,7 +2454,7 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
     table = torch.from_numpy(order[None]).to(dev)
     pools = []
     for _ in range(2):
-        pool = gemma.init_kv_cache(cfg.text_config, n_p + 1, PAGE, torch.bfloat16, dev)
+        pool = gemma.init_kv_cache(cfg.text_config, n_p + 1, PAGE, torch.bfloat16, device=dev)
         for name in ("k", "v"):
             rows = cache1[name][:, 0].reshape(cfg.text_config.num_hidden_layers, bucket // PAGE,
                                               PAGE, 1, -1)
@@ -2239,10 +2477,12 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
 
 
 def _gemv_events(rows, grew):
-    """Why the GEMV tile's device events in ``rows`` cannot be right: one
-    per wrapper call (``grew``: the wrappers' counts over the run)."""
+    """Why the GEMV tile's and the LoRA shrink's device events in ``rows``
+    cannot be right: one per wrapper call (``grew``: the wrappers' counts
+    over the run)."""
     want = {"int8_gemv_kernel": grew["int8_gemv"] + grew["int8_gemv_f32"],
-            "head_argmax_kernel": grew["head_argmax"]}
+            "head_argmax_kernel": grew["head_argmax"],
+            "lora_shrink_kernel": grew["lora_shrink"]}
     for name, n in want.items():
         got = sum(k.count for k in rows if name in k.key)
         if got != n:
@@ -2256,7 +2496,8 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
     (steps), and the kernels with the most device time. With
     ``host_top``: the host side too, the ops' self CPU time (the
     collectives' apart) against the wall time, and the ``host_top`` ops
-    with the most of it."""
+    with the most of it. Returns (device busy ms per ``per``, the
+    device-side rows), or None when no profile passed."""
     from torch.autograd import DeviceType
 
     from paligemma_tpu_torch import kernels
@@ -2266,7 +2507,7 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
     if got is None:
         print(f"profile: {label}: device time not measured (no run passed the clock check)",
               flush=True)
-        return
+        return None
     # device-side events only: a CPU op (aten::mm, or the autograd node that
     # launches a kernel through ctypes) also carries its kernels' time, and
     # counting both would count that time twice
@@ -2293,7 +2534,7 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
               f"busy {busy / per:.3f} ms; device: {dev_txt}; wrapper calls: {calls}",
               flush=True)
     if not host_top:
-        return
+        return busy / per, rows
     # host-side events: each op's self CPU time (its children excluded), so
     # the rows add up; what is outside every op is Python, the ctypes
     # launches of the hand-written kernels and the profiler's own cost
@@ -2310,6 +2551,7 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
         print(f"profile:   host {k.key[:43]:43s} {k.count / per:6.1f} calls "
               f"{k.self_cpu_time_total / per:9.1f} us  "
               f"({k.self_cpu_time_total / k.count:.2f} us each)", flush=True)
+    return busy / per, rows
 
 
 def profile_phase(eng, pixels, ids, mask, card, n_steps=8, buckets=(512, None), prefix="",
@@ -2806,7 +3048,8 @@ def main() -> int:
     _build.library()
     print(f"build: {lib_path.parent.name} built/loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    ptxas_lines(lib_path.parent / "ptxas.log", ("int8_gemv_kernel", "head_argmax_kernel"))
+    ptxas_lines(lib_path.parent / "ptxas.log", ("int8_gemv_kernel", "head_argmax_kernel",
+                                                 "int4_gemv_kernel", "lora_shrink_kernel"))
 
     report = KernelReport()
     t0 = time.perf_counter()

@@ -46,7 +46,7 @@ _ROW_PROJ = {"o", "down", "fc2"}
 _WEIGHT_NAMES = ("w8", "kernel")  # the (..., K, N) leaf of an int8 / dense dict
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, kw_only=True)
 class Mesh:
     """This rank's place in a ``data`` x ``model`` mesh. ``group`` None is
     the default process group. A Mesh built by hand (no process group) is
@@ -60,7 +60,7 @@ class Mesh:
     backend: str = "gloo"
 
 
-def make_mesh(data: int = 1, model: Optional[int] = None, group=None) -> Mesh:
+def make_mesh(data: int = 1, model: Optional[int] = None, *, group=None) -> Mesh:
     """The mesh of an initialized process group (``init_process_group`` with
     its address, world size and rank first). ``model`` defaults to the world
     size."""

@@ -28,6 +28,18 @@
 // float 2^23 + q + 128; one subtraction gives q exactly, and the upper half
 // of that float is q in bf16 (one prmt per pair).
 //
+// The weight format is a template parameter. GT_INT8 is the above. GT_INT4
+// (kernels/ablation/quant4, "K-halves"): the (K/2, N) stored rows hold
+// q[k, n] in the low nibble of row k and q[k + K/2, n] in its high nibble,
+// both signed. The tile walks the stored rows exactly as int8 rows (the
+// same loads, the plan of (K/2, N)); each step feeds two products into the
+// same accumulators, the low nibbles against x at k and then the high ones
+// against x at k + K/2 (two 8-byte x loads). A prmt pairs two rows' bytes
+// of two columns in one word; a nibble pair masked out of it ((v & 0xF) ^ 8
+// = q + 8) under bf16's 128 (0x4300) is the bf16 pair 136 + q, and one
+// bf16x2 subtraction of 136 gives q exactly: ~1.5 instructions a weight
+// (int8: ~2.75).
+//
 // Split-K: the CTA's W warps (4 or 8) take its 16-row steps in turn (warp
 // w: steps w, w + W, ...), each with GT_STAGES steps of loads in flight in
 // registers (128 registers a thread: 16 warps fit on an SM); their sums go
@@ -45,6 +57,8 @@
 #define GT_COLS 128     // weight columns of a tile
 #define GT_BT 8
 #define GT_STAGES 3  // 16-row steps of loads in flight per warp
+
+enum GtFormat { GT_INT8 = 0, GT_INT4 = 1 };  // the weight format of a stored row
 
 struct __align__(16) GemvSmem {
   float red[GT_MAX_WARPS][GT_BT][GT_COLS];  // each warp's sums
@@ -148,6 +162,27 @@ __device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv
   }
 }
 
+// x's 4 elements of a step from xp, of which the first nrow exist (the
+// rest read as zeros; x8: one 8-byte load).
+__device__ __forceinline__ void gt_load_x(uint2& xv, const bf16* __restrict__ xp, bool xrow,
+                                          int nrow, bool x8) {
+  uint32_t lo = 0u, hi = 0u;
+  if (xrow) {
+    if (x8 && nrow == 4) {
+      const uint2 v = ldg_8(xp);
+      lo = v.x;
+      hi = v.y;
+    } else {
+      uint32_t e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = j < nrow ? (uint32_t)__bfloat16_as_ushort(xp[j]) : 0u;
+      lo = e[0] | (e[1] << 16);
+      hi = e[2] | (e[3] << 16);
+    }
+  }
+  xv = make_uint2(lo, hi);
+}
+
 // The loads of one step for a lane: its 4 weight rows from p (the first
 // row's 16 columns; rows n1 bytes apart), of which the first nrow exist,
 // and x's 4 elements from xp (its first nrow). Rows past kend and columns
@@ -173,29 +208,61 @@ __device__ __forceinline__ void gt_load(uint4 (&wv)[4], uint2& xv, const int8_t*
     }
     wv[r] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
   }
-  uint32_t lo = 0u, hi = 0u;
-  if (xrow) {
-    if (x8 && nrow == 4) {
-      const uint2 v = ldg_8(xp);
-      lo = v.x;
-      hi = v.y;
-    } else {
-      uint32_t e[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e[j] = j < nrow ? (uint32_t)__bfloat16_as_ushort(xp[j]) : 0u;
-      lo = e[0] | (e[1] << 16);
-      hi = e[2] | (e[3] << 16);
-    }
-  }
-  xv = make_uint2(lo, hi);
+  gt_load_x(xv, xp, xrow, nrow, x8);
 }
 
-// The CTA's sums over [kbeg, kend) of x rows b0 .. b0+nb-1 and the tile's
-// 128 columns: quad g of every warp reads the 16 weight columns from qcol
-// (its own, so a tile may be two column ranges, as GeGLU's gate | up). On
-// return sm.sum[r][c] holds them (r < nb), in a fixed order: each warp's
-// steps in turn, then the warps in order.
-template <bool FAST>
+// The nibbles of v at bits 0-3 and 16-19 (SHIFT moves them there) as the
+// bf16 pair q (low half) and q' (high half).
+template <int SHIFT>
+__device__ __forceinline__ uint32_t s4_pair(uint32_t v) {
+  const uint32_t biased = ((v >> SHIFT) & 0x000F000Fu) ^ 0x43084308u;  // 136 + q
+  uint32_t q;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(q)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // * 1 - 136
+  return q;
+}
+
+// One int4 step: stored rows 4t .. 4t+3 of the lane's 16 columns (wv[r]),
+// x row g at k 4t .. 4t+3 of the low half (xl) and of the high half (xh).
+// A pair word holds rows (r, r + 1) of two columns: bytes (row r col c,
+// row r col c + 1, row r + 1 col c, row r + 1 col c + 1).
+__device__ __forceinline__ void gt_mma_step_int4(float (&acc)[8][4], const uint4 (&wv)[4],
+                                                 uint2 xl, uint2 xh) {
+  const uint32_t bl[2] = {xl.x, xl.y}, bh[2] = {xh.x, xh.y};
+  const uint32_t w[4][4] = {{wv[0].x, wv[0].y, wv[0].z, wv[0].w},
+                            {wv[1].x, wv[1].y, wv[1].z, wv[1].w},
+                            {wv[2].x, wv[2].y, wv[2].z, wv[2].w},
+                            {wv[3].x, wv[3].y, wv[3].z, wv[3].w}};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // the m-tiles 2j (bytes 0, 1) and 2j + 1 (bytes 2, 3)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t sel = h ? 0x7632u : 0x5410u;
+      const uint32_t p01 = __byte_perm(w[0][j], w[1][j], sel);
+      const uint32_t p23 = __byte_perm(w[2][j], w[3][j], sel);
+      uint32_t a[4];
+      a[0] = s4_pair<0>(p01);
+      a[1] = s4_pair<8>(p01);
+      a[2] = s4_pair<0>(p23);
+      a[3] = s4_pair<8>(p23);
+      mma_bf16_16816(acc[2 * j + h], a, bl);
+      a[0] = s4_pair<4>(p01);
+      a[1] = s4_pair<12>(p01);
+      a[2] = s4_pair<4>(p23);
+      a[3] = s4_pair<12>(p23);
+      mma_bf16_16816(acc[2 * j + h], a, bh);
+    }
+  }
+}
+
+// The CTA's sums over the stored rows [kbeg, kend) of x rows b0 ..
+// b0+nb-1 and the tile's 128 columns: quad g of every warp reads the 16
+// weight columns from qcol (its own, so a tile may be two column ranges, as
+// GeGLU's gate | up). x is (B, K); with GT_INT4 stored row k carries x's
+// columns k and K/2 + k. On return sm.sum[r][c] holds them (r < nb), in a
+// fixed order: each warp's steps in turn, then the warps in order.
+template <bool FAST, int FMT = GT_INT8>
 __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restrict__ x,
                                                const int8_t* __restrict__ w, int K, int N, int b0,
                                                int nb, int qcol, int kbeg, int kend, bool x8) {
@@ -221,21 +288,32 @@ __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restr
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
   uint4 wb[GT_STAGES][4];
   uint2 xb[GT_STAGES];
+  uint2 xh[FMT == GT_INT4 ? GT_STAGES : 1];  // int4: x at the high half's k
+  const int xhalf = K / 2;
 #pragma unroll
   for (int s = 0; s < GT_STAGES; ++s)
-    if (s < mine)
-      gt_load<FAST>(wb[s], xb[s], wp + s * wstep, n1, ncol, xp + s * stride, xrow,
-                    min(4, kend - row0 - s * stride), x8);
+    if (s < mine) {
+      const int nrow = min(4, kend - row0 - s * stride);
+      gt_load<FAST>(wb[s], xb[s], wp + s * wstep, n1, ncol, xp + s * stride, xrow, nrow, x8);
+      if constexpr (FMT == GT_INT4) gt_load_x(xh[s], xp + xhalf + s * stride, xrow, nrow, x8);
+    }
   for (int i0 = 0; i0 < mine; i0 += GT_STAGES) {
 #pragma unroll
     for (int s = 0; s < GT_STAGES; ++s) {
       const int i = i0 + s;
       if (i < mine) {
-        gt_mma_step(acc, wb[s], xb[s], magic);
+        if constexpr (FMT == GT_INT4)
+          gt_mma_step_int4(acc, wb[s], xb[s], xh[s]);
+        else
+          gt_mma_step(acc, wb[s], xb[s], magic);
         const int next = i + GT_STAGES;
-        if (next < mine)
+        if (next < mine) {
+          const int nrow = min(4, kend - row0 - next * stride);
           gt_load<FAST>(wb[s], xb[s], wp + next * wstep, n1, ncol, xp + next * stride, xrow,
-                        min(4, kend - row0 - next * stride), x8);
+                        nrow, x8);
+          if constexpr (FMT == GT_INT4)
+            gt_load_x(xh[s], xp + xhalf + next * stride, xrow, nrow, x8);
+        }
       }
     }
   }
@@ -264,17 +342,16 @@ __device__ __forceinline__ float gt_cluster_sum(const GemvSmem& sm, int r, int c
   return v;
 }
 
-// Launch CTAs of `warps` warps (4 or 8) in clusters of `cs` along x
-// (cudaLaunchKernelEx); returns the launch's error, or else
-// cudaGetLastError().
+// Launch CTAs of `threads` threads and `smem` bytes of dynamic shared
+// memory in clusters of `cs` along x (cudaLaunchKernelEx); returns the
+// launch's error, or else cudaGetLastError().
 template <typename... KArgs, typename... Args>
-inline int gt_launch(void (*kernel)(KArgs...), dim3 grid, int cs, int warps, cudaStream_t st,
-                     Args... args) {
-  if (warps != 4 && warps != GT_MAX_WARPS) return (int)cudaErrorInvalidValue;
+inline int cluster_launch(void (*kernel)(KArgs...), dim3 grid, int threads, int cs, int smem,
+                          cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(32 * warps);
-  cfg.dynamicSmemBytes = 0;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -285,4 +362,12 @@ inline int gt_launch(void (*kernel)(KArgs...), dim3 grid, int cs, int warps, cud
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The GEMV tile's launch: CTAs of `warps` warps (4 or 8).
+template <typename... KArgs, typename... Args>
+inline int gt_launch(void (*kernel)(KArgs...), dim3 grid, int cs, int warps, cudaStream_t st,
+                     Args... args) {
+  if (warps != 4 && warps != GT_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  return cluster_launch(kernel, grid, 32 * warps, cs, 0, st, args...);
 }

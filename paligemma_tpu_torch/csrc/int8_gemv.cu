@@ -10,7 +10,6 @@
 //   out(B, I) = cast_bf16(gelu_tanh(g_j) * u_j), N = 2I,          mode 2
 //               g_j = column j, u_j = column I + j (fused gateup)
 //   out(B, N) = (x . w8) fp32 * s, written as fp32                mode 3
-//   out(B, N) = (x . w8) fp32, unscaled, written as fp32          mode 4
 //
 // One launch per GEMV: the product runs on the tensor cores over the
 // shared tile of gemv_tile.cuh, K is split over the CTAs of a thread-block
@@ -18,24 +17,27 @@
 // of the mode runs in the same kernel. kernels/gemv_plan.py fixes the
 // split: the cluster size and each CTA's K range, from (K, N) alone.
 //
-// Mode 4 feeds the LoRA expand (pg_int8_gemv_epilogue_lora, below, with
-// nsplit = 1): modes 0-2 with a LoRA adapter write the cluster-reduced sums
-// to scratch and that kernel adds each row's adapter delta: d(b, j) =
-// sum_g z(b, zoff(j) + g) * B(g, j) in fp32, with z (B, nz) the masked
-// adapter basis of kernels/lora (csrc/lora.cu) and B (G, N) the
+// The LoRA expand (pg_int8_gemv_lora, modes 0-2) of the TPU kernel's
+// in-kernel multi-LoRA (paligemma_tpu/kernels/decode_layer.py _kernel_all
+// with lora=True) runs in the same epilogue: after the cluster reduction the
+// rank that owns column j adds each row's adapter delta d(b, j) = sum_g
+// z(b, zoff(j) + g) * B(g, j) in fp32 (g in order), with z (B, nz) the
+// masked adapter basis of kernels/lora (csrc/lora.cu) and B (G, N) the
 // alpha-folded adapter rows, fp32 or bf16, each element rounded to bf16 as
-// the TPU kernel casts its operands. It is added where the TPU kernel
-// (paligemma_tpu/kernels/decode_layer.py _kernel_all, lora=True) adds it:
+// the TPU kernel casts its operands. It is added where the TPU kernel adds
+// it:
 //   mode 0 (qkv):     out = cast(cast(acc * s) + cast(d))
 //   mode 1 (o, down): out = cast(cast(residual + cast(acc * s)) + cast(d))
 //   mode 2 (gate/up): g = acc_g * s_g + d_g, u = acc_u * s_u + d_u in fp32,
 //                     before the GeGLU
 // A column reads only its own target's G rows of z: zoff(j) = G times the
 // number of target boundaries seg1 <= seg2 at or below j (q | k | v for
-// qkv, gate | up for gateup, one target for o and down). Each B element is
-// read once per 8 rows (it is staged in shared memory for a tile of 32
-// columns and 8 rows). With a zero delta its bits are those of the fused
-// epilogue.
+// qkv, gate | up for gateup, one target for o and down). At its start the
+// CTA copies its rank's columns of B and the tile's rows of z (LE_GC
+// adapter rows of each) into shared memory with cp.async that skip L1, so
+// the copies are in flight during the weight stream and each B element is
+// read once per 8 rows of x; the deltas go to the shared memory the warps'
+// sums used. With a zero delta a column has the bits of the fused epilogue.
 //
 // Mode 3, the fp32 partial, serves the tensor-parallel decode: it replaces
 // the o-proj partial of paligemma_tpu/kernels/decode_layer_tp.py:_attn_kernel
@@ -47,7 +49,8 @@
 // What bounds it: at decode batches each weight byte is used B times, far
 // below the ~295 flop/byte where the card turns compute-bound, so it is
 // bound by reading w8 from device memory (110 MB per layer of Gemma-2B:
-// 32.9 us at 3.35 TB/s). The design keeps three 16-row steps of 16-byte
+// 32.9 us at 3.35 TB/s; a rank-8 bank of 3 fp32 adapters adds B's 4.9 MB).
+// The design keeps three 16-row steps of 16-byte
 // weight loads in flight per warp and the plan puts ~16 warps on every SM
 // (the rate follows the resident warps, not the depth of the pipeline),
 // spends ~3 instructions per weight byte (the conversion; the products are
@@ -55,13 +58,158 @@
 // writes no partials to device memory.
 #include "gemv_tile.cuh"
 
-template <bool FAST>
+#define LE_GC 32  // adapter rows of B staged at a time
+
+struct LoraExpand {
+  const bf16* z;   // (B, nz) masked adapter basis
+  const void* lb;  // (G, N) adapter rows, fp32 (lb_f32) or bf16
+  int lb_f32, G, nz, seg1, seg2;
+
+  // the target of weight column col: its block of z
+  __device__ __forceinline__ int target(int col) const { return (col >= seg1) + (col >= seg2); }
+};
+
+// The expand's operands of LE_GC adapter rows, in dynamic shared memory:
+// B's rows for the rank's columns in B's dtype (ldb bytes a row, 16-byte
+// aligned), then the tile's rows of z (bf16, LE_GC per target).
+__host__ __device__ __forceinline__ int lora_ldb(int ncols, int b_f32) {
+  return (ncols * (b_f32 ? 4 : 2) + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int lora_stage_bytes(int ldb) {
+  return LE_GC * ldb + GT_BT * 3 * LE_GC * 2;
+}
+
+// Column cc of the rank's columns: output columns col0 + cc (cc < width)
+// and with GeGLU the up columns up0 + cc - width.
+__device__ __forceinline__ int lora_col(int cc, int col0, int up0, int width) {
+  return cc < width ? col0 + cc : up0 + cc - width;
+}
+
+// Start copying rows g0 .. g0 + LE_GC of the expand's operands: 16-byte
+// cp.async that skip L1 (where the GEMV's x lives) wherever the rank's
+// column ranges are 16-byte aligned (every plan at Gemma-2B's shapes), else
+// 4-byte ones (fp32) or plain loads (bf16). One commit group; columns past N
+// read as zeros.
+__device__ __forceinline__ void lora_prefetch(uint8_t* st, int ldb, const LoraExpand& lora,
+                                              int g0, int b0, int nb, int col0, int up0,
+                                              int width, int nt, int N) {
+  const int gn = min(LE_GC, lora.G - g0), ncols = nt * width, nz_t = lora.nz / lora.G;
+  const int esize = lora.lb_f32 ? 4 : 2, per16 = 16 / esize;  // elements per 16 bytes
+  const uint8_t* lb = (const uint8_t*)lora.lb;
+  const bool aligned = (uintptr_t)lb % 16 == 0 && N % per16 == 0 && col0 % per16 == 0 &&
+                       width % per16 == 0 && (nt == 1 || up0 % per16 == 0);
+  if (aligned) {
+    const int chunks = ncols / per16;  // 16-byte pieces of a row
+    for (int i = threadIdx.x; i < gn * chunks; i += blockDim.x) {
+      const int g = i / chunks, cc = (i % chunks) * per16;
+      const int col = lora_col(cc, col0, up0, width);
+      cp_async_16(st + g * ldb + cc * esize,
+                  lb + ((size_t)(g0 + g) * N + min(col, N - per16)) * esize, col < N);
+    }
+  } else {
+    for (int i = threadIdx.x; i < gn * ncols; i += blockDim.x) {
+      const int g = i / ncols, cc = i % ncols;
+      const int col = lora_col(cc, col0, up0, width);
+      const size_t at = (size_t)(g0 + g) * N + min(col, N - 1);
+      if (lora.lb_f32)
+        cp_async_4(st + g * ldb + cc * 4, (const float*)lora.lb + at, col < N);
+      else
+        reinterpret_cast<bf16*>(st + g * ldb)[cc] =
+            col < N ? ((const bf16*)lora.lb)[at] : __float2bfloat16(0.f);
+    }
+  }
+  bf16* zs = reinterpret_cast<bf16*>(st + LE_GC * ldb);
+  const int zchunks = gn / 8;  // G % 8 == 0: 16-byte pieces of each target's block
+  for (int i = threadIdx.x; i < nb * nz_t * zchunks; i += blockDim.x) {
+    const int r = i / (nz_t * zchunks), t = (i / zchunks) % nz_t, c = (i % zchunks) * 8;
+    cp_async_16(&zs[(r * 3 + t) * LE_GC + c],
+                lora.z + (size_t)(b0 + r) * lora.nz + t * lora.G + g0 + c, true);
+  }
+  cp_async_commit();
+}
+
+// Column cc's deltas of rows r0, r0 + rstep, ... (ROWS of them at most)
+// over the staged adapter rows g < gn, added in g order to ds (first: from
+// 0): B is read, and rounded to bf16 as the TPU kernel casts its operands,
+// once for those rows.
+template <int ROWS>
+__device__ __forceinline__ void lora_column(float* ds, const uint8_t* st, const bf16* zt,
+                                            int ldb, int cc, int r0, int rstep, int nb, int gn,
+                                            bool first, bool b_f32) {
+  float d[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + i * rstep;
+    d[i] = first || r >= nb ? 0.f : ds[r * GT_COLS + cc];
+  }
+#pragma unroll 4
+  for (int g = 0; g < gn; ++g) {
+    const uint8_t* row = st + g * ldb;
+    const float bv = b_f32 ? bf2f(f2bf(reinterpret_cast<const float*>(row)[cc]))
+                           : bf2f(reinterpret_cast<const bf16*>(row)[cc]);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = r0 + i * rstep;
+      if (r < nb) d[i] = fmaf(bf2f(zt[r * 3 * LE_GC + g]), bv, d[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + i * rstep;
+    if (r < nb) ds[r * GT_COLS + cc] = d[i];
+  }
+}
+
+// The adapter deltas of this rank's columns, into ds[r][cc] (GT_COLS per
+// row, cc as in lora_col), each summed over g in order: a thread takes a
+// column and every rstep-th row of the tile (rstep: the CTA's threads per
+// column). The first LE_GC rows were prefetched at the kernel's start;
+// later ones are copied here. Uses sm.red (free after the cluster barrier
+// that follows the tile's sums); ends with a CTA barrier.
+__device__ __forceinline__ const float* lora_deltas(GemvSmem& sm, uint8_t* st, int ldb,
+                                                    const LoraExpand& lora, int b0, int nb,
+                                                    int col0, int up0, int nt, int width,
+                                                    int N) {
+  float* ds = &sm.red[0][0][0];  // [GT_BT][GT_COLS]
+  const bf16* zs = reinterpret_cast<const bf16*>(st + LE_GC * ldb);
+  const int ncols = nt * width;
+  const int rstep = ncols > 0 ? max(1, (int)blockDim.x / ncols) : 0;
+  const int rows = rstep > 0 ? (GT_BT + rstep - 1) / rstep : 0;  // per thread
+  for (int g0 = 0; g0 < lora.G; g0 += LE_GC) {
+    const int gn = min(LE_GC, lora.G - g0);
+    if (g0 > 0) {
+      __syncthreads();  // the previous rows are no longer read
+      lora_prefetch(st, ldb, lora, g0, b0, nb, col0, up0, width, nt, N);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int item = threadIdx.x; item < ncols * rstep; item += blockDim.x) {
+      const int cc = item % ncols, r0 = item / ncols;
+      const int col = lora_col(cc, col0, up0, width);
+      const bf16* zt = zs + (col < N ? lora.target(col) : 0) * LE_GC;
+      const bool f32 = lora.lb_f32;
+      if (rows == 1)
+        lora_column<1>(ds, st, zt, ldb, cc, r0, rstep, nb, gn, g0 == 0, f32);
+      else if (rows == 2)
+        lora_column<2>(ds, st, zt, ldb, cc, r0, rstep, nb, gn, g0 == 0, f32);
+      else if (rows <= 4)
+        lora_column<4>(ds, st, zt, ldb, cc, r0, rstep, nb, gn, g0 == 0, f32);
+      else
+        lora_column<GT_BT>(ds, st, zt, ldb, cc, r0, rstep, nb, gn, g0 == 0, f32);
+    }
+  }
+  __syncthreads();
+  return ds;
+}
+
+template <bool FAST, bool LORA>
 __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
     int8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ s, const bf16* __restrict__ residual,
                      void* __restrict__ out, int B, int K, int N, int mode, int k_per_cta,
-                     int x8) {
+                     int x8, LoraExpand lora) {
   __shared__ GemvSmem sm;
+  extern __shared__ __align__(16) uint8_t lora_smem[];  // LORA: lora_stage_bytes(ldb)
   const int rank = cluster_rank(), cs = cluster_size();
   const int tile = blockIdx.x / cs;
   const int b0 = blockIdx.z * GT_BT;
@@ -75,13 +223,21 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
   const int tile_out = mode == 2 ? GT_COLS / 2 : GT_COLS;  // output columns per tile
   const int qcol = mode == 2 ? (g < 4 ? 0 : inter) + tile * tile_out + 16 * (g & 3)
                              : tile * GT_COLS + 16 * g;
-  gemv_tile_sums<FAST>(sm, x, w, K, N, b0, nb, qcol, kbeg, kend, x8 != 0);
-  cluster_sync_all();
   // rank r applies the epilogue to its share of the tile's output columns
   const int n_out = mode == 2 ? inter : N;
   const int per = (tile_out + cs - 1) / cs;
   const int c_lo = rank * per;
   const int width = min(tile_out, c_lo + per) - c_lo;
+  const int nt = mode == 2 ? 2 : 1, ldb = lora_ldb(per * nt, lora.lb_f32);
+  if constexpr (LORA)  // in flight during the weight stream
+    lora_prefetch(lora_smem, ldb, lora, 0, b0, nb, tile * tile_out + c_lo,
+                  inter + tile * tile_out + c_lo, width, nt, N);
+  gemv_tile_sums<FAST>(sm, x, w, K, N, b0, nb, qcol, kbeg, kend, x8 != 0);
+  cluster_sync_all();
+  const float* ds = nullptr;
+  if constexpr (LORA)
+    ds = lora_deltas(sm, lora_smem, ldb, lora, b0, nb, tile * tile_out + c_lo,
+                     inter + tile * tile_out + c_lo, nt, width, N);
   for (int idx = threadIdx.x; idx < nb * width; idx += blockDim.x) {
     const int r = idx / width, c = c_lo + idx % width;
     const int j = tile * tile_out + c;
@@ -90,21 +246,51 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
     const size_t o = (size_t)(b0 + r) * n_out + j;
     if (mode == 2) {
       // the products rounded before the GeGLU (no FMA contraction), as
-      // the LoRA epilogue rounds them before it adds the delta
-      const float gate = __fmul_rn(acc, s[j]);
-      const float up = __fmul_rn(gt_cluster_sum(sm, r, c + GT_COLS / 2, cs), s[inter + j]);
+      // the TPU kernel rounds them before it adds the LoRA delta
+      float gate = __fmul_rn(acc, s[j]);
+      float up = __fmul_rn(gt_cluster_sum(sm, r, c + GT_COLS / 2, cs), s[inter + j]);
+      if constexpr (LORA) {
+        gate += ds[r * GT_COLS + idx % width];
+        up += ds[r * GT_COLS + width + idx % width];
+      }
       ((bf16*)out)[o] = f2bf(gelu_tanh_f(gate) * up);
-    } else if (mode == 3) {
+    } else if (!LORA && mode == 3) {
       ((float*)out)[o] = acc * s[j];
-    } else if (mode == 4) {
-      ((float*)out)[o] = acc;
     } else {
       bf16 v = f2bf(acc * s[j]);
       if (mode == 1) v = f2bf(bf2f(residual[o]) + bf2f(v));
+      if constexpr (LORA) v = f2bf(bf2f(v) + bf2f(f2bf(ds[r * GT_COLS + idx % width])));
       ((bf16*)out)[o] = v;
     }
   }
   cluster_sync_all();  // every rank has read this CTA's sums
+}
+
+template <bool LORA>
+static int launch_gemv(const void* x, const void* w8, const void* s, const void* residual,
+                       void* out, int B, int K, int N, int mode, int cluster, int warps,
+                       int k_per_cta, LoraExpand lora, void* stream) {
+  const int tiles = mode == 2 ? (N / 2 + GT_COLS / 2 - 1) / (GT_COLS / 2)
+                              : (N + GT_COLS - 1) / GT_COLS;
+  const dim3 grid(tiles * cluster, 1, (B + GT_BT - 1) / GT_BT);
+  const bool fast = N % (mode == 2 ? 32 : 16) == 0 && (uintptr_t)w8 % 16 == 0;
+  const int x8 = K % 4 == 0 && (uintptr_t)x % 8 == 0;
+  auto kernel = &int8_gemv_kernel<false, LORA>;
+  if (fast) kernel = &int8_gemv_kernel<true, LORA>;
+  if (warps != 4 && warps != GT_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  int smem = 0;
+  if constexpr (LORA) {
+    // the rank's columns of B, as the kernel sizes them; with the static
+    // GemvSmem it may pass the 48 KB default
+    const int nt = mode == 2 ? 2 : 1, tile_out = GT_COLS / nt;
+    smem = lora_stage_bytes(lora_ldb((tile_out + cluster - 1) / cluster * nt, lora.lb_f32));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return cluster_launch(kernel, grid, 32 * warps, cluster, smem, (cudaStream_t)stream,
+                        (const bf16*)x, (const int8_t*)w8, (const float*)s,
+                        (const bf16*)residual, out, B, K, N, mode, k_per_cta, x8, lora);
 }
 
 // x (B, K) bf16, w8 (K, N) int8, s (N,) fp32, residual (B, N) bf16 (mode
@@ -113,101 +299,20 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
 PG_EXPORT int pg_int8_gemv(const void* x, const void* w8, const void* s, const void* residual,
                            void* out, int B, int K, int N, int mode, int cluster, int warps,
                            int k_per_cta, void* stream) {
-  const int tiles = mode == 2 ? (N / 2 + GT_COLS / 2 - 1) / (GT_COLS / 2)
-                              : (N + GT_COLS - 1) / GT_COLS;
-  const dim3 grid(tiles * cluster, 1, (B + GT_BT - 1) / GT_BT);
-  const bool fast = N % (mode == 2 ? 32 : 16) == 0 && (uintptr_t)w8 % 16 == 0;
-  const int x8 = K % 4 == 0 && (uintptr_t)x % 8 == 0;
-  auto kernel = &int8_gemv_kernel<false>;
-  if (fast) kernel = &int8_gemv_kernel<true>;
-  return gt_launch(kernel, grid, cluster, warps, (cudaStream_t)stream, (const bf16*)x,
-                   (const int8_t*)w8, (const float*)s, (const bf16*)residual, out, B, K, N, mode,
-                   k_per_cta, x8);
-}
-
-// ---------------------------------------------------------------------------
-// The epilogue with the LoRA expand (modes 0-2). A block covers EL_TX
-// output columns and EL_TY rows, a thread one element; the tile's columns
-// of B are staged in shared memory EL_GC adapter rows at a time, so each B
-// element is read once per EL_TY rows.
-// ---------------------------------------------------------------------------
-#define EL_TX 32
-#define EL_TY 8
-#define EL_GC 64
-
-struct LoraExpand {
-  const bf16* z;   // (B, nz) masked adapter basis
-  const void* lb;  // (G, N) adapter rows, fp32 (lb_f32) or bf16
-  int lb_f32, G, nz, seg1, seg2;
-
-  // element (g, col) of B, rounded to bf16
-  __device__ __forceinline__ float b_at(int g, int col, int N) const {
-    const size_t at = (size_t)g * N + col;
-    return lb_f32 ? bf2f(f2bf(((const float*)lb)[at])) : bf2f(((const bf16*)lb)[at]);
-  }
-  // row b's G-wide block of z for output column col
-  __device__ __forceinline__ const bf16* z_block(int b, int col) const {
-    return z + (size_t)b * nz + G * ((col >= seg1) + (col >= seg2));
-  }
-};
-
-__global__ void __launch_bounds__(EL_TX* EL_TY)
-    int8_gemv_epilogue_lora_kernel(const float* __restrict__ part, int nsplit, int B, int N,
-                                   const float* __restrict__ s, const bf16* __restrict__ residual,
-                                   bf16* __restrict__ out, int mode, LoraExpand lora) {
-  __shared__ float bs[2][EL_GC][EL_TX];  // B of the tile's columns (and up columns)
-  const int n_out = mode == 2 ? N / 2 : N;
-  const int nt = mode == 2 ? 2 : 1;  // columns of w8 per output element
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * EL_TX + tx;
-  const int b = blockIdx.y * EL_TY + ty;
-  const bool live = j < n_out && b < B;
-  // the row's deltas at column j (and at up column n_out + j), summed over g in order
-  float d[2] = {0.f, 0.f};
-  for (int g0 = 0; g0 < lora.G; g0 += EL_GC) {
-    const int gn = min(EL_GC, lora.G - g0);
-    __syncthreads();  // the previous rows of B are no longer read
-    for (int i = ty; i < nt * gn; i += EL_TY) {
-      const int t = i / gn, g = i - t * gn;
-      bs[t][g][tx] = j < n_out ? lora.b_at(g0 + g, j + t * n_out, N) : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      for (int t = 0; t < nt; ++t) {
-        const bf16* zr = lora.z_block(b, j + t * n_out) + g0;
-        for (int g = 0; g < gn; ++g) d[t] = fmaf(bf2f(zr[g]), bs[t][g][tx], d[t]);
-      }
-    }
-  }
-  if (!live) return;
-  const size_t idx = (size_t)b * n_out + j;
-  float acc = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) acc += part[((size_t)sp * B + b) * N + j];
-  if (mode == 2) {
-    float up = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) up += part[((size_t)sp * B + b) * N + n_out + j];
-    // __fmul_rn: the product is rounded before the delta is added (no FMA
-    // contraction), as the TPU kernel adds them
-    const float g = __fmul_rn(acc, s[j]) + d[0];
-    const float u = __fmul_rn(up, s[n_out + j]) + d[1];
-    out[idx] = f2bf(gelu_tanh_f(g) * u);
-    return;
-  }
-  bf16 v = f2bf(acc * s[j]);
-  if (mode == 1) v = f2bf(bf2f(residual[idx]) + bf2f(v));
-  out[idx] = f2bf(bf2f(v) + bf2f(f2bf(d[0])));
+  return launch_gemv<false>(x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta,
+                            LoraExpand{}, stream);
 }
 
 // Modes 0-2 with the LoRA expand: z (B, nz) bf16, lb (G, N) fp32 or bf16,
-// column boundaries seg1 <= seg2 (N where there is none).
-PG_EXPORT int pg_int8_gemv_epilogue_lora(const void* part, int nsplit, int B, int N,
-                                         const void* s, const void* residual, void* out,
-                                         int mode, const void* z, const void* lb, int lb_f32,
-                                         int G, int nz, int seg1, int seg2, void* stream) {
-  const int n_out = mode == 2 ? N / 2 : N;
-  dim3 grid((n_out + EL_TX - 1) / EL_TX, (B + EL_TY - 1) / EL_TY);
-  int8_gemv_epilogue_lora_kernel<<<grid, dim3(EL_TX, EL_TY), 0, (cudaStream_t)stream>>>(
-      (const float*)part, nsplit, B, N, (const float*)s, (const bf16*)residual, (bf16*)out, mode,
-      LoraExpand{(const bf16*)z, lb, lb_f32, G, nz, seg1, seg2});
-  return (int)cudaGetLastError();
+// column boundaries seg1 <= seg2 (N where there is none), nz = G x the
+// targets.
+PG_EXPORT int pg_int8_gemv_lora(const void* x, const void* w8, const void* s,
+                                const void* residual, void* out, int B, int K, int N, int mode,
+                                int cluster, int warps, int k_per_cta, const void* z,
+                                const void* lb, int lb_f32, int G, int nz, int seg1, int seg2,
+                                void* stream) {
+  if (mode < 0 || mode > 2 || G <= 0 || G % 8 || nz % G || nz / G > 3)
+    return (int)cudaErrorInvalidValue;
+  return launch_gemv<true>(x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta,
+                           LoraExpand{(const bf16*)z, lb, lb_f32, G, nz, seg1, seg2}, stream);
 }

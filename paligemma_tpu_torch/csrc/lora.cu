@@ -19,110 +19,174 @@
 // of the int8 GEMV of the same projection (csrc/int8_gemv.cu).
 //
 // What bounds it: the bytes of A (0.26-2.1 MB per target group at
-// Gemma-2B with 3 fp32 adapters of rank 8); x and z are a few KB. The
-// design reads each A element once per batch tile of up to 8 rows, a warp
-// reading 32 consecutive columns of one A row against the tile's rows of x
-// staged in shared memory, and splits K over blocks (fp32 partials, 64-512
-// rows each) so that every group puts enough blocks on the SMs. A second
-// small kernel adds the partials in split order, so the sum over K is one
-// fp32 sum cast once, as the TPU kernel sums the down basis over the whole
-// intermediate dimension before its one cast.
-#include "common.cuh"
+// Gemma-2B with 3 fp32 adapters of rank 8: 0.08-0.63 us at 3.35 TB/s); x
+// and z are a few KB, the products 2 B K nG flops. At these sizes a launch
+// is latency: one launch, with every load of A in flight at once. A CTA of
+// 256 or 512 threads covers LS_COLS columns of A and one rank's K range of
+// a cluster of up to 8 CTAs (kernels/lora.ShrinkPlan, from (K, nG) alone:
+// up to 2048 rows a rank). Its threads read A in 16-byte vectors (4 fp32 or
+// 8 bf16 columns of one row), LOADS rows each in flight (128 bytes),
+// against x's rows of the batch tile copied to shared memory (cp.async, all
+// in flight at once). Each thread sums its rows in order; the warp's row
+// lanes are added by a fixed butterfly of shuffles, the warps in order in
+// shared memory, and the cluster's ranks in rank order through distributed
+// shared memory by the last rank, which applies the mask and the one bf16
+// cast. So the sum over K is one fp32 sum cast once, as the TPU kernel sums
+// the down basis over the whole intermediate dimension before its one cast,
+// and its order depends on (K, nG) and A's dtype only.
+#include "gemv_tile.cuh"
 
-#define LS_TX 32      // columns per block
-#define LS_TY 8       // K rows in flight per block
-#define LS_KC_MAX 512  // K rows per split, at most
+#define LS_MAX_THREADS 512  // threads per CTA: 256 or 512 (kernels/lora.ShrinkPlan)
+#define LS_COLS 8           // columns of A per CTA
+#define LS_XROWS 2048       // K rows of x staged at a time
 
-__device__ __forceinline__ float bf16_rounded(float v) { return bf2f(f2bf(v)); }
-__device__ __forceinline__ float bf16_rounded(bf16 v) { return bf2f(v); }
+struct __align__(16) ShrinkSmem {
+  bf16 xs[GT_BT][LS_XROWS];                        // x rows b0 .. b0+7 at the chunk's K rows
+  float red[LS_MAX_THREADS / 32][GT_BT][LS_COLS];  // each warp's sums
+  float sum[GT_BT][LS_COLS];                       // the CTA's sums, read by the cluster
+};
 
-template <int BT, typename TA>
-__global__ void __launch_bounds__(LS_TX* LS_TY)
-    lora_shrink_partial_kernel(const bf16* __restrict__ x, const TA* __restrict__ a,
-                               float* __restrict__ part, int B, int K, int NG, int k_chunk) {
-  __shared__ float xs[BT][LS_KC_MAX];
-  __shared__ float red[LS_TY][BT][LS_TX];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * LS_TX + tx;
-  const int col = blockIdx.x * LS_TX + tx;
-  const int split = blockIdx.y;
-  const int b0 = blockIdx.z * BT;
-  const int nb = min(BT, B - b0);
-  const int kbeg = split * k_chunk;
-  const int kc = min(K, kbeg + k_chunk) - kbeg;
-  for (int i = tid; i < BT * kc; i += LS_TX * LS_TY) {
-    const int r = i / kc, kk = i - r * kc;
-    xs[r][kk] = r < nb ? bf2f(x[(size_t)(b0 + r) * K + kbeg + kk]) : 0.f;
+// 16 bytes of A as CPT values rounded to bf16
+__device__ __forceinline__ void a_values(const uint4& v, float (&w)[4]) {
+  const float f[4] = {__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
+                      __uint_as_float(v.w)};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) w[c] = bf2f(f2bf(f[c]));
+}
+__device__ __forceinline__ void a_values(const uint4& v, float (&w)[8]) { bf16x8_to_float(v, w); }
+
+// Reduce-scatter over the lanes that differ in bits M, M/2, .., MIN: at
+// each step a lane keeps half of its N values and adds its partner's; after
+// it the lane with bits (..) holds the sums of values base .. base + N_end
+// - 1, base = the sum of N_step / 2 over the steps whose bit it has. The
+// order of every sum is fixed by the lanes alone.
+template <int N, int M, int MIN>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (M >= MIN) {
+    const bool upper = lane & M;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = upper ? v[i] : v[i + N / 2];
+      const float keep = upper ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    reduce_scatter<N / 2, M / 2, MIN>(v, lane);
   }
-  __syncthreads();
-  float acc[BT];
+}
+
+// CPT: A's columns per 16-byte load (4 fp32, 8 bf16); TPR = LS_COLS / CPT
+// threads share a K row, so the CTA has THREADS / TPR row lanes.
+template <typename TA, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
+    lora_shrink_kernel(const bf16* __restrict__ x, const TA* __restrict__ a,
+                       const int* __restrict__ ids, bf16* __restrict__ z, int B, int K, int NG,
+                       int G, int rank_size, int k_per_cta) {
+  constexpr int CPT = 16 / sizeof(TA), TPR = LS_COLS / CPT, LANES = THREADS / TPR;
+  constexpr int LOADS = 32 / CPT;  // rows of A in flight per thread: 128 bytes
+  constexpr int V = GT_BT * CPT;  // a thread's sums: batch row x column
+  __shared__ ShrinkSmem sm;
+  const int rank = cluster_rank(), cs = cluster_size();
+  const int col0 = (blockIdx.x / cs) * LS_COLS;
+  const int b0 = blockIdx.z * GT_BT;
+  const int nb = min(GT_BT, B - b0);
+  const int kbeg = rank * k_per_cta, kend = min(K, kbeg + k_per_cta);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rl = tid / TPR, ch = tid % TPR;  // row lane, column part
+  const TA* ap = a + col0 + ch * CPT;
+
+  float acc[V];
 #pragma unroll
-  for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-  if (col < NG) {
-    const TA* ap = a + (size_t)kbeg * NG + col;
-    for (int k = ty; k < kc; k += LS_TY) {
-      const float w = bf16_rounded(ap[(size_t)k * NG]);
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  for (int c0 = kbeg; c0 < kend; c0 += LS_XROWS) {
+    const int c1 = min(kend, c0 + LS_XROWS);
+    const int mine = c1 - c0 > rl ? (c1 - c0 - rl + LANES - 1) / LANES : 0;  // rows of this lane
+    uint4 wv[LOADS];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = fmaf(xs[r][k], w, acc[r]);
+    for (int i = 0; i < LOADS; ++i)  // in flight while x is staged
+      if (i < mine)
+        wv[i] = *reinterpret_cast<const uint4*>(ap + (size_t)(c0 + rl + i * LANES) * NG);
+    __syncthreads();  // the previous chunk of x is no longer read
+    const int n8 = (c1 - c0) / 8;
+    for (int i = tid; i < GT_BT * n8; i += THREADS) {  // rows past B read as zeros
+      const int r = i / n8, k8 = (i % n8) * 8;
+      cp_async_16(&sm.xs[r][k8], x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8, r < nb);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i0 = 0; i0 < mine; i0 += LOADS) {
+      if (i0 > 0) {
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i)
+          if (i0 + i < mine)
+            wv[i] = *reinterpret_cast<const uint4*>(
+                ap + (size_t)(c0 + rl + (i0 + i) * LANES) * NG);
+      }
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i) {
+        if (i0 + i >= mine) break;
+        const int k = rl + (i0 + i) * LANES;
+        float w[CPT];
+        a_values(wv[i], w);
+#pragma unroll
+        for (int r = 0; r < GT_BT; ++r) {
+          const float xr = bf2f(sm.xs[r][k]);
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[r * CPT + c] = fmaf(xr, w[c], acc[r * CPT + c]);
+        }
+      }
     }
   }
+  // the warp's row lanes (lane bits log2(TPR) .. 4): each lane keeps 2 sums
+  reduce_scatter<V, 16, TPR>(acc, lane);
+  const int base = (lane / TPR) * 2;
 #pragma unroll
-  for (int r = 0; r < BT; ++r) red[ty][r][tx] = acc[r];
+  for (int i = 0; i < 2; ++i) {
+    const int r = (base + i) / CPT, c = (base + i) % CPT;
+    sm.red[warp][r][ch * CPT + c] = acc[i];
+  }
   __syncthreads();
-  if (col < NG) {
-    // thread (tx, ty) sums row ty of the tile over the LS_TY partials, in order
-    for (int r = ty; r < nb; r += LS_TY) {
-      float s = 0.f;
-#pragma unroll
-      for (int y = 0; y < LS_TY; ++y) s += red[y][r][tx];
-      part[((size_t)split * B + b0 + r) * NG + col] = s;
-    }
+  if (tid < GT_BT * LS_COLS) {
+    const int r = tid / LS_COLS, c = tid % LS_COLS;
+    float v = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) v += sm.red[w][r][c];
+    sm.sum[r][c] = v;
   }
-}
-
-__global__ void lora_shrink_finish_kernel(const float* __restrict__ part, int nsplit, int B,
-                                          int NG, const int* __restrict__ ids, int G, int rank,
-                                          bf16* __restrict__ z) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * NG) return;
-  const int b = (int)(idx / NG), c = (int)(idx - (size_t)b * NG);
-  float acc = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) acc += part[((size_t)sp * B + b) * NG + c];
-  const float m = ((c % G) / rank == ids[b]) ? 1.f : 0.f;
-  z[idx] = f2bf(bf2f(f2bf(acc)) * m);
-}
-
-template <typename TA>
-static void shrink_partial(const bf16* x, const TA* a, float* part, int B, int K, int NG,
-                           int k_chunk, cudaStream_t st) {
-  const int nsplit = (K + k_chunk - 1) / k_chunk;
-  const int bt = B >= 8 ? 8 : (B >= 4 ? 4 : (B >= 2 ? 2 : 1));
-  dim3 grid((NG + LS_TX - 1) / LS_TX, nsplit, (B + bt - 1) / bt);
-  dim3 block(LS_TX, LS_TY);
-  switch (bt) {
-    case 8: lora_shrink_partial_kernel<8, TA><<<grid, block, 0, st>>>(x, a, part, B, K, NG, k_chunk); break;
-    case 4: lora_shrink_partial_kernel<4, TA><<<grid, block, 0, st>>>(x, a, part, B, K, NG, k_chunk); break;
-    case 2: lora_shrink_partial_kernel<2, TA><<<grid, block, 0, st>>>(x, a, part, B, K, NG, k_chunk); break;
-    default: lora_shrink_partial_kernel<1, TA><<<grid, block, 0, st>>>(x, a, part, B, K, NG, k_chunk); break;
+  cluster_sync_all();
+  if (rank == cs - 1 && tid < nb * LS_COLS) {
+    const int r = tid / LS_COLS, c = tid % LS_COLS, col = col0 + c;
+    float v = 0.f;
+    for (int q = 0; q < cs; ++q) v += ld_cluster_f32(&sm.sum[r][c], q);
+    const float m = (col % G) / rank_size == ids[b0 + r] ? 1.f : 0.f;
+    z[(size_t)(b0 + r) * NG + col] = f2bf(bf2f(f2bf(v)) * m);
   }
+  cluster_sync_all();  // the last rank has read every rank's sums
 }
 
-// x (B, K) bf16, a (K, NG) fp32 (a_f32) or bf16, part (nsplit, B, NG) fp32
-// scratch, ids (B,) int32, z (B, NG) bf16 out; NG % G == 0, k_chunk <= 512.
-PG_EXPORT int pg_lora_shrink(const void* x, const void* a, int a_f32, void* part, const void* ids,
-                             void* z, int B, int K, int NG, int G, int rank, int k_chunk,
-                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (a_f32)
-    shrink_partial((const bf16*)x, (const float*)a, (float*)part, B, K, NG, k_chunk, st);
-  else
-    shrink_partial((const bf16*)x, (const bf16*)a, (float*)part, B, K, NG, k_chunk, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nsplit = (K + k_chunk - 1) / k_chunk;
-  const size_t total = (size_t)B * NG;
-  const int threads = 256;
-  lora_shrink_finish_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-      (const float*)part, nsplit, B, NG, (const int*)ids, G, rank, (bf16*)z);
-  return (int)cudaGetLastError();
+template <typename TA, int THREADS>
+static int launch_shrink(const void* x, const void* a, const void* ids, void* z, int B, int K,
+                         int NG, int G, int rank, int cluster, int k_per_cta, void* stream) {
+  const dim3 grid(NG / LS_COLS * cluster, 1, (B + GT_BT - 1) / GT_BT);
+  return cluster_launch(&lora_shrink_kernel<TA, THREADS>, grid, THREADS, cluster, 0,
+                        (cudaStream_t)stream, (const bf16*)x, (const TA*)a, (const int*)ids,
+                        (bf16*)z, B, K, NG, G, rank, k_per_cta);
+}
+
+// x (B, K) bf16, a (K, NG) fp32 (a_f32) or bf16, ids (B,) int32, z (B, NG)
+// bf16 out; NG % 8 == 0, K % 8 == 0, x and a 16-byte aligned; cluster,
+// k_per_cta (a multiple of 8) and threads (256 or 512) from
+// kernels/lora.ShrinkPlan.
+PG_EXPORT int pg_lora_shrink(const void* x, const void* a, int a_f32, const void* ids, void* z,
+                             int B, int K, int NG, int G, int rank, int cluster, int k_per_cta,
+                             int threads, void* stream) {
+  if (threads == 256)
+    return a_f32 ? launch_shrink<float, 256>(x, a, ids, z, B, K, NG, G, rank, cluster,
+                                             k_per_cta, stream)
+                 : launch_shrink<bf16, 256>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
+                                            stream);
+  if (threads != LS_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  return a_f32 ? launch_shrink<float, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
+                                           stream)
+               : launch_shrink<bf16, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
+                                          stream);
 }

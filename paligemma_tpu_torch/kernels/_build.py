@@ -49,11 +49,12 @@ SIGNATURES = {
     # x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta,
     # stream
     "pg_int8_gemv": [_P] * 5 + [_I] * 7 + [_P],
-    # part, nsplit, B, N, s, residual, out, mode, z, lb, lb_f32, G, nz, seg1,
-    # seg2, stream
-    "pg_int8_gemv_epilogue_lora": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
-    # x, a, a_f32, part, ids, z, B, K, NG, G, rank, k_chunk, stream
-    "pg_lora_shrink": [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    # x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta, z,
+    # lb, lb_f32, G, nz, seg1, seg2, stream
+    "pg_int8_gemv_lora": [_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P],
+    # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads,
+    # stream
+    "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -74,6 +75,8 @@ SIGNATURES = {
     "pg_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # x, w4p, s, part, out, M, K, N, k_chunk, stream
     "pg_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w4p, s, out, M, K, N, cluster, warps, k_per_cta, stream
+    "pg_int4_gemv": [_P] * 4 + [_I] * 6 + [_P],
     # part, nsplit, M, N, s, out, stream
     "pg_wq_split_sum": [_P, _I, _I, _I, _P, _P, _P],
 }

@@ -1,6 +1,9 @@
 """Int4 weight-only quantization with an unpack-in-kernel matmul (port of
-paligemma_tpu/kernels/ablation/quant4.py); the kernel is
-``csrc/int4_matmul.cu``.
+paligemma_tpu/kernels/ablation/quant4.py); the kernels are
+``csrc/int4_matmul.cu``: at decode rows (M <= ``GEMV_ROWS``) the int8 GEMV's
+tensor-core tile in its int4 form, one launch with K split over a cluster
+as :class:`~..gemv_plan.GemvPlan` plans the (K/2, N) stored rows; above
+that the dequantizing tile of ``csrc/wq_gemm.cuh``.
 
 Packing ("K-halves"): weights (K, N) become (K/2, N) int8 where
 
@@ -18,7 +21,11 @@ from typing import Dict
 
 import torch
 
+from .. import _build
+from ..gemv_plan import GemvPlan
 from . import _wq_gemm
+
+GEMV_ROWS = 16  # rows of x at most for the GEMV tile (two 8-row tiles)
 
 
 def quantize_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -65,7 +72,7 @@ def int4_matmul(
 ) -> torch.Tensor:
     """``x @ dequant_int4(w4p, s)`` with in-kernel nibble unpacking. The
     ``block_*`` arguments are accepted for parity with the TPU kernel's
-    block sizes; the Hopper tile is fixed (csrc/wq_gemm.cuh)."""
+    block sizes; the Hopper tiles are fixed (csrc/int4_matmul.cu)."""
     k2, n = w4p.shape
     *lead, k = x.shape
     if k != 2 * k2:
@@ -75,9 +82,17 @@ def int4_matmul(
     x2 = x.reshape(-1, k).contiguous()
     s = s.to(torch.float32).contiguous()
     _wq_gemm.check_operands("int4_matmul", x2, w4p, s, k2, n)
-    out = _wq_gemm.launch("pg_int4_matmul", x2, w4p, s, k, n, k2).reshape(*lead, n)
+    m = x2.shape[0]
+    if m > GEMV_ROWS:
+        out = _wq_gemm.launch("pg_int4_matmul", x2, w4p, s, k, n, k2)
+    else:
+        plan = GemvPlan.make(k2, n)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+        _build.check(_build.library().pg_int4_gemv(
+            x2.data_ptr(), w4p.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, plan.cluster,
+            plan.warps, plan.k_per_cta, _build.stream_ptr(x2.device)), "int4_matmul")
     int4_matmul.launches += 1
-    return out
+    return out.reshape(*lead, n)
 
 
 int4_matmul.launches = 0

@@ -37,7 +37,7 @@ def repack_head(head_q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def reference_head_argmax(
-    y: torch.Tensor, head_q: Dict[str, torch.Tensor], return_max: bool = False
+    y: torch.Tensor, head_q: Dict[str, torch.Tensor], *, return_max: bool = False
 ):
     """Plain greedy head over the unpadded {"w8", "s"}: logits rounded to the
     activation dtype, then the first maximal index (models/gemma.lm_head +
@@ -65,12 +65,13 @@ def _workspace(dev: torch.device, stream: int, b: int) -> torch.Tensor:
 def head_argmax_fused(
     y: torch.Tensor,  # (B, 1, K) or (B, K) final-norm output
     head_blk: Dict[str, torch.Tensor],  # repack_head() output
+    *,
     return_max: bool = False,
 ):
     """Greedy token ids (B,) int32; with ``return_max`` also the winning
     logits (B,) fp32."""
     if not y.is_cuda:
-        return reference_head_argmax(y, head_blk, return_max)
+        return reference_head_argmax(y, head_blk, return_max=return_max)
     k = y.shape[-1]
     y2 = y.reshape(-1, k)
     b = y2.shape[0]

@@ -77,7 +77,7 @@ def repack_layers(layers: Dict) -> Dict:
     return layers
 
 
-def repack_lora_bank_fused(bank_layers: Dict, n_heads: int, head_dim: int, hidden: int,
+def repack_lora_bank_fused(bank_layers: Dict, *, n_heads: int, head_dim: int, hidden: int,
                            intermediate: int) -> Dict:
     """Multi-LoRA bank (``train/lora.stack_lora_bank(...)["layers"]``, with
     its concat basis a_cat (L, in, G) and alpha-folded b_cat (L, G, out),
@@ -165,6 +165,7 @@ def layers_decode_fused(
     n_heads: int,
     head_dim: int,
     eps: float,
+    *,
     lora_pack: Optional[Dict] = None,  # repack_lora_bank_fused() output
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

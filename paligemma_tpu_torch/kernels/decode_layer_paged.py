@@ -39,7 +39,7 @@ from .paged_attention import paged_decode_attention
 from .paged_attention import supported as attention_supported
 
 
-def supported(cfg, layers: Dict, batch: int, page_size: int) -> bool:
+def supported(cfg, layers: Dict, batch: int, *, page_size: int) -> bool:
     """The dense chain's limits (kernels/decode_layer.supported: one KV head,
     the int8 serving tree) plus a page size the paged kernels take."""
     return (decode_layer.supported(cfg, layers, batch)
@@ -58,6 +58,7 @@ def layers_decode_fused_paged(
     n_heads: int,
     head_dim: int,
     eps: float,
+    *,
     pages_bucket: Optional[int] = None,  # logical pages attended (covers every pos)
     lora_pack: Optional[Dict] = None,  # decode_layer.repack_lora_bank_fused() output
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows

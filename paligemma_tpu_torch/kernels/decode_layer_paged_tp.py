@@ -36,7 +36,7 @@ from .paged_attention import paged_decode_attention, reference_paged_decode_atte
 from .paged_attention import supported as attention_supported
 
 
-def supported(cfg, mesh, layers: Dict, batch: int, page_size: int) -> bool:
+def supported(cfg, mesh, layers: Dict, batch: int, *, page_size: int) -> bool:
     """The dense TP gate (decode_layer_tp.supported) plus a page size the
     paged kernels take."""
     return (decode_layer_tp.supported(cfg, mesh, layers, batch)
@@ -73,6 +73,7 @@ def attn_decode_paged_tp(
     k_pool: torch.Tensor,  # (L, n_pages, ps, D) replicated pool, written in place
     v_pool: torch.Tensor,
     layer_idx: int,
+    *,
     page_table: torch.Tensor,  # (B, P_max) int32, the whole table
     write_pos: torch.Tensor,  # (B,) int32 logical position of this token
     cos: torch.Tensor,  # (B, D)
@@ -118,8 +119,9 @@ def layers_decode_paged_tp(
     write_pos = write_pos.to(torch.int32)
 
     def attn_half(h, l):
-        return attn_decode_paged_tp(h, layers, k_pool, v_pool, l, page_table, write_pos, cos,
-                                    sin, pages_bucket, head_dim, eps)[0]
+        return attn_decode_paged_tp(h, layers, k_pool, v_pool, l, page_table=page_table,
+                                    write_pos=write_pos, cos=cos, sin=sin,
+                                    pages_bucket=pages_bucket, head_dim=head_dim, eps=eps)[0]
 
     return decode_layer_tp.run_layers(x.reshape(b, k), layers, k_pool.shape[0], eps, mesh,
                                       attn_half).reshape(b, 1, k)

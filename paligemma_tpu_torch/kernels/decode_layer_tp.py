@@ -161,6 +161,7 @@ def attn_decode_tp(
     k_cache: torch.Tensor,  # (L, B, S, D) replicated cache, fresh rows written in place
     v_cache: torch.Tensor,
     layer_idx: int,
+    *,
     valid: torch.Tensor,  # (B, W) bool attendable slots, this token's included
     cache_pos: torch.Tensor,  # (B,) int32 write position per row
     cos: torch.Tensor,  # (B, D)
@@ -214,8 +215,8 @@ def layers_decode_tp(
     sin = sin.to(x.dtype).contiguous()
 
     def attn_half(h, l):
-        return attn_decode_tp(h, layers, k_cache, v_cache, l, valid, cache_pos, cos, sin,
-                              head_dim, eps)[0]
+        return attn_decode_tp(h, layers, k_cache, v_cache, l, valid=valid, cache_pos=cache_pos,
+                              cos=cos, sin=sin, head_dim=head_dim, eps=eps)[0]
 
     return run_layers(x.reshape(b, k), layers, k_cache.shape[0], eps, mesh,
                       attn_half).reshape(b, 1, k)

@@ -65,7 +65,7 @@ def repack(mlp: Dict) -> Dict:
     return mlp
 
 
-def reference_mlp(y: torch.Tensor, mlp: Dict, layer_idx: int,
+def reference_mlp(y: torch.Tensor, mlp: Dict, layer_idx: int, *,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: the GeGLU on fp32 gate and up, rounded to the
     activation dtype, then the fp32 down product and scale, rounded to
@@ -82,11 +82,12 @@ def mlp_decode_fused(
     y: torch.Tensor,  # (B, 1, K) or (B, K): one token per row
     mlp: Dict,  # stacked int8 serving MLP ({"gateup", "down"}, (L, ...))
     layer_idx: int,
+    *,
     out_dtype: Optional[torch.dtype] = None,  # None: y's dtype; or torch.float32
 ) -> torch.Tensor:
     """Layer ``layer_idx``'s MLP for one token per row; y-shaped output."""
     if not y.is_cuda:
-        return reference_mlp(y, mlp, layer_idx, out_dtype)
+        return reference_mlp(y, mlp, layer_idx, out_dtype=out_dtype)
     if out_dtype not in (None, y.dtype, torch.float32):
         raise ValueError(f"mlp_decode_fused: out_dtype {out_dtype} (None or torch.float32)")
     shape = y.shape

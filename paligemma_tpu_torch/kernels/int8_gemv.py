@@ -31,7 +31,8 @@ columns where the next target's G-wide block of ``z`` starts ((q | k | v):
 ``(nq, nq + hd)``; (gate | up): ``(I,)``; o and down: ``()``). The delta
 is cast and added after the residual (plain and residual modes) or added
 in fp32 to the gate and up values before the GeGLU, as the TPU kernel adds
-it.
+it, by the same launch (``pg_int8_gemv_lora``: each rank adds its columns'
+deltas after the cluster's sum).
 """
 
 from __future__ import annotations
@@ -97,21 +98,22 @@ def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
     z, lb, bounds = lora
     g = lb.shape[0] if lb.dim() == 2 else 0
     _check(lb.dim() == 2 and lb.shape[1] == n and lb.is_contiguous() and lb.device == dev
-           and lb.dtype in (torch.float32, torch.bfloat16),
-           f"lora b must be contiguous fp32 or bf16 (G, {n}), got {tuple(lb.shape)} {lb.dtype}")
+           and lb.dtype in (torch.float32, torch.bfloat16) and g % 8 == 0
+           and lb.data_ptr() % 4 == 0,
+           f"lora b must be contiguous 4-byte aligned fp32 or bf16 (G, {n}) with G a multiple "
+           f"of 8, got {tuple(lb.shape)} {lb.dtype}")
     _check(len(bounds) <= 2 and list(bounds) == sorted(bounds) and all(0 < c < n for c in bounds),
            f"lora bounds {tuple(bounds)} must be at most two sorted columns inside (0, {n})")
     _check(z.dtype == torch.bfloat16 and z.shape == (b, g * (len(bounds) + 1))
-           and z.is_contiguous() and z.device == dev,
-           f"lora z must be contiguous bf16 ({b}, {g * (len(bounds) + 1)})")
+           and z.is_contiguous() and z.device == dev and z.data_ptr() % 16 == 0,
+           f"lora z must be contiguous 16-byte aligned bf16 ({b}, {g * (len(bounds) + 1)})")
     segs = list(bounds) + [n] * (2 - len(bounds))
     return g, segs[0], segs[1]
 
 
 def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) -> torch.Tensor:
-    """One GEMV of ``mode`` (0 plain, 1 + residual, 2 GeGLU, 3 fp32 out).
-    With ``lora`` (modes 0-2) the kernel writes its unscaled fp32 sums
-    (mode 4) and the LoRA epilogue kernel adds the expand."""
+    """One GEMV launch of ``mode`` (0 plain, 1 + residual, 2 GeGLU, 3 fp32
+    out); with ``lora`` (modes 0-2) its epilogue adds the expand."""
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
@@ -136,21 +138,16 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) ->
                       dtype=torch.float32 if mode == 3 else torch.bfloat16, device=dev)
     lib = _build.library()
     stream = _build.stream_ptr(dev)
-    res_ptr = residual.data_ptr() if mode == 1 else None
+    args = (x.data_ptr(), w8.data_ptr(), s.data_ptr(),
+            residual.data_ptr() if mode == 1 else None, out.data_ptr(), b, k, n, mode,
+            plan.cluster, plan.warps, plan.k_per_cta)
     if lora is None:
-        _build.check(lib.pg_int8_gemv(
-            x.data_ptr(), w8.data_ptr(), s.data_ptr(), res_ptr, out.data_ptr(), b, k, n, mode,
-            plan.cluster, plan.warps, plan.k_per_cta, stream), "int8_gemv")
+        _build.check(lib.pg_int8_gemv(*args, stream), "int8_gemv")
         return out
-    sums = torch.empty((1, b, n), dtype=torch.float32, device=dev)
-    _build.check(lib.pg_int8_gemv(
-        x.data_ptr(), w8.data_ptr(), s.data_ptr(), None, sums.data_ptr(), b, k, n, 4,
-        plan.cluster, plan.warps, plan.k_per_cta, stream), "int8_gemv")
     z, lb, _ = lora
-    _build.check(lib.pg_int8_gemv_epilogue_lora(
-        sums.data_ptr(), 1, b, n, s.data_ptr(), res_ptr, out.data_ptr(), mode, z.data_ptr(),
-        lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1], seg1, seg2, stream),
-        "int8_gemv LoRA epilogue")
+    _build.check(lib.pg_int8_gemv_lora(
+        *args, z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1], seg1,
+        seg2, stream), "int8_gemv LoRA")
     return out
 
 

@@ -13,27 +13,52 @@ G-wide block per target: 3 for qkv, 2 for gate | up, 1 for o and down),
 fp32 or bf16; ``cast`` rounds to the activation dtype, as the TPU kernel
 casts its LoRA operands and its basis. The expand ``z @ B`` runs in the
 int8 GEMV's epilogue (kernels/int8_gemv ``lora=``).
+
+One launch per call: each cluster of CTAs covers ``COLS_PER_CTA`` columns
+of A and splits K over its ranks as :class:`ShrinkPlan` says; the ranks'
+sums are added in rank order through distributed shared memory, and the
+last rank applies the mask and the cast.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import _build
 
-COLS_PER_BLOCK = 32  # csrc/lora.cu LS_TX
-KC_MAX = 512  # K rows per split, at most (LS_KC_MAX: x's rows in shared memory)
-TARGET_BLOCKS = 264  # ~2 blocks per SM on the H100's 132 SMs
-MIN_CHUNK = 64  # K rows per split, at least: the fp32 partials stay below A's bytes
+COLS_PER_CTA = 8  # columns of A per CTA (csrc/lora.cu LS_COLS)
+MIN_ROWS_PER_RANK = 256  # K rows per rank, at least, before K is split further
+MAX_CLUSTER = 8  # the portable cluster size
+STEP_K = 8  # a rank's K range is a multiple of this (x's 16-byte loads)
+THREAD_CHOICES = (256, 512)  # threads per CTA: 256 up to SMALL_RANK rows a rank
+SMALL_RANK = 256
 
 
-def shrink_k_chunk(k: int, ng: int) -> int:
-    """K rows per split block: enough splits to fill the card, each of
-    MIN_CHUNK to KC_MAX rows."""
-    col_blocks = -(-ng // COLS_PER_BLOCK)
-    nsplit = max(1, min(-(-TARGET_BLOCKS // col_blocks), -(-k // MIN_CHUNK)), -(-k // KC_MAX))
-    chunk = -(-k // nsplit)
-    return -(-chunk // 8) * 8
+@dataclasses.dataclass(frozen=True)
+class ShrinkPlan:
+    k: int
+    ng: int
+    cluster: int  # CTAs per cluster: the K splits of one column block
+    k_per_cta: int  # K rows of each rank but the last (a multiple of STEP_K)
+    threads: int  # threads per CTA (THREAD_CHOICES)
+
+    @classmethod
+    def make(cls, k: int, ng: int) -> "ShrinkPlan":
+        """Split K over up to MAX_CLUSTER ranks of at least
+        MIN_ROWS_PER_RANK rows each; CTAs of 256 threads where a rank has
+        at most SMALL_RANK rows (3.6-3.8 us against 4.1-4.4 with 512 at K
+        2048, B8, on an NVIDIA H100 80GB HBM3 at 700 W), else 512 (more loads
+        in flight). Depends on (K, nG) only, so a row's sum has the same
+        order in every batch."""
+        if k % STEP_K or ng % COLS_PER_CTA or min(k, ng) < 1:
+            raise ValueError(f"ShrinkPlan: K {k} must be a multiple of {STEP_K} and nG {ng} "
+                             f"of {COLS_PER_CTA}")
+        cluster = max(1, min(MAX_CLUSTER, -(-k // MIN_ROWS_PER_RANK)))
+        per = -(-(-(-k // cluster)) // STEP_K) * STEP_K
+        threads = THREAD_CHOICES[0] if per <= SMALL_RANK else THREAD_CHOICES[1]
+        return cls(k, ng, -(-k // per), per, threads)
 
 
 def block_mask(adapter_ids: torch.Tensor, n_cols: int, group: int, rank: int,
@@ -75,13 +100,13 @@ def lora_shrink(
         raise ValueError("lora_shrink: adapter_ids must be contiguous int32 (B,) on x's device")
     if group <= 0 or rank <= 0 or ng % group:
         raise ValueError(f"lora_shrink: nG {ng} must be a multiple of G {group} (rank {rank})")
-    chunk = shrink_k_chunk(k, ng)
-    nsplit = -(-k // chunk)
-    part = torch.empty((nsplit, b, ng), dtype=torch.float32, device=dev)
+    if x.data_ptr() % 16 or a.data_ptr() % 16:
+        raise ValueError("lora_shrink: x and a must be 16-byte aligned")
+    plan = ShrinkPlan.make(k, ng)  # raises unless K % 8 == 0 and nG % 8 == 0
     z = torch.empty((b, ng), dtype=torch.bfloat16, device=dev)
     _build.check(_build.library().pg_lora_shrink(
-        x.data_ptr(), a.data_ptr(), int(a.dtype == torch.float32), part.data_ptr(),
-        adapter_ids.data_ptr(), z.data_ptr(), b, k, ng, group, rank, chunk,
+        x.data_ptr(), a.data_ptr(), int(a.dtype == torch.float32), adapter_ids.data_ptr(),
+        z.data_ptr(), b, k, ng, group, rank, plan.cluster, plan.k_per_cta, plan.threads,
         _build.stream_ptr(dev)), "lora_shrink")
     lora_shrink.launches += 1
     return z

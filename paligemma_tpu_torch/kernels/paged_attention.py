@@ -87,6 +87,7 @@ def paged_decode_attention(
     page_table: torch.Tensor,
     kv_len: torch.Tensor,
     scale: Optional[float] = None,
+    *,
     layer_idx: Optional[int] = None,
 ) -> torch.Tensor:
     """Length-aware paged decode attention; (B, Hq, D) out."""

@@ -73,7 +73,7 @@ CachePos = Union[int, torch.Tensor]  # one write offset, or (B,) int per row
 
 
 def init_kv_cache(
-    cfg: GemmaConfig, batch: int, max_seq: int, dtype: torch.dtype,
+    cfg: GemmaConfig, batch: int, max_seq: int, dtype: torch.dtype, *,
     device: torch.device,
 ) -> KVCache:
     shape = (cfg.num_hidden_layers, batch, max_seq, cfg.num_key_value_heads, cfg.head_dim)
@@ -240,7 +240,7 @@ def _decoder_block(
     return residual + _mlp(y, lp, lora_lp, mesh)
 
 
-def lm_head(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+def lm_head(params: Params, x: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Tied bias-free LM head; the int8 copy ("head_q") when present. Under
     a mesh the rank's vocab shard, gathered (fp32 logits)."""
     if "head_q" in params:
@@ -266,7 +266,7 @@ def decode_head(params: Params, h: torch.Tensor, greedy_head: bool, mesh=None):
         if mesh is not None:
             logits = mesh_lib.gather_vocab(logits, mesh)
     else:
-        logits = lm_head(params, h, mesh)
+        logits = lm_head(params, h, mesh=mesh)
     logits = logits.float()[:, None, :]
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32)
@@ -348,13 +348,14 @@ def forward(
     cache_pos: CachePos,  # write offset into the cache, or (B,) per row (S == 1)
     kv_valid: torch.Tensor,  # (B, max_seq) bool: attendable slots AFTER write,
     # or pairwise (B, S, max_seq) (recompute prefills, plain path)
+    *,
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     logits_idx: Optional[torch.Tensor] = None,  # (B,) positions to project
+    mesh=None,  # tensor parallel: params are this rank's slices
     kv_bucket: Optional[int] = None,  # attend-window (decode)
+    fused_mlp: bool = False,  # one-card decode: each layer's MLP via kernels/decode_mlp
     fused_layer: bool = False,  # decode (S == 1) through the kernels, or raise
     greedy_head: bool = False,  # return argmax token ids, not logits
-    mesh=None,  # tensor parallel: params are this rank's slices
-    fused_mlp: bool = False,  # one-card decode: each layer's MLP via kernels/decode_mlp
     lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
@@ -400,7 +401,7 @@ def forward(
     if logits_idx is not None:
         # project only the requested positions (each row's last valid token)
         x = x[torch.arange(b, device=x.device), logits_idx.long()][:, None]
-    logits = lm_head(params, x, mesh).float()
+    logits = lm_head(params, x, mesh=mesh).float()
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
     return logits, kv_cache
@@ -417,8 +418,9 @@ def forward_paged_decode(
     use_kernel: bool = True,
     pages_bucket: Optional[int] = None,  # logical pages attended (covers every row)
     paged_kernel: str = "multi",  # "one"|"multi"|"batched"|"runs": one kernel here
-    mesh=None,  # tensor parallel: params are this rank's slices, the pool replicated
     lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
+    *,
+    mesh=None,  # tensor parallel: params are this rank's slices, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
     """Single-token decode over the paged pool, the page walk: per layer,
     write this token's K/V into page ``table[r, pos // ps]`` at slot
@@ -464,7 +466,7 @@ def forward_paged_decode(
         y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = residual + _mlp(y, lp, lora_lp, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return lm_head(params, x, mesh).float(), pool
+    return lm_head(params, x, mesh=mesh).float(), pool
 
 
 def forward_paged_decode_fused(
@@ -479,6 +481,7 @@ def forward_paged_decode_fused(
     lora_pack: Optional[Params] = None,  # kernels/decode_layer.repack_lora_bank_fused
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
     greedy_head: bool = False,  # return argmax token ids, not logits
+    *,
     mesh=None,  # tensor parallel: this rank's repack_for_tp tree, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
     """Paged decode through kernels/decode_layer_paged, then the final norm
@@ -493,7 +496,7 @@ def forward_paged_decode_fused(
     _refuse_tp_lora(lora_pack, mesh)
     b = input_embeds.shape[0]
     n_layers, n_pages, ps = pool["k"].shape[:3]
-    if mesh is None and not decode_layer_paged.supported(cfg, params["layers"], b, ps):
+    if mesh is None and not decode_layer_paged.supported(cfg, params["layers"], b, page_size=ps):
         raise ValueError(
             "paged fused decode: the kernels need the int8 serving tree of "
             "runtime.quantize, one KV head and a page size that "

@@ -95,8 +95,8 @@ def prefill(
     kv_cache: gemma.KVCache,
     use_flash: bool = False,
     last_only: bool = False,
-    prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
     mesh=None,
+    prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
     lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
@@ -152,11 +152,12 @@ def decode_step(
     kv_valid: torch.Tensor,  # (B, max_seq) bool incl. this token's slot
     position_ids: torch.Tensor,  # (B,) RoPE position of this token
     kv_bucket: Optional[int] = None,
-    fused_layer: bool = False,
-    mesh=None,
+    *,
     fused_mlp: bool = False,
+    fused_layer: bool = False,
     lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Single-token decode. Returns ((B, vocab) fp32 logits, cache).
     ``fused_mlp`` (one card, plain layers): each layer's MLP through
@@ -181,9 +182,10 @@ def decode_step_greedy(
     position_ids: torch.Tensor,
     kv_bucket: Optional[int] = None,
     fused_layer: bool = True,
-    mesh=None,
     lora: Optional[Params] = None,  # multi-LoRA bank (+ "__fused_pack__")
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Greedy single-token decode: (next token (B,) int32, cache). With the
     kernels on, the int8 head streams through the argmax kernel and the
@@ -211,9 +213,10 @@ def decode_step_paged(
     position_ids: torch.Tensor,  # (B,) RoPE position of this token
     pages_bucket: Optional[int] = None,  # logical pages attended (host-managed)
     paged_kernel: str = "multi",
-    mesh=None,
     lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Single-token decode over the paged pool. Returns ((B, vocab) fp32
     logits, pool). ``paged_kernel``: "fused" (or "staged", the TPU's staging

@@ -53,6 +53,7 @@ def sample_top_p(
     logits: torch.Tensor,  # (B, vocab)
     temperature: PerRow,
     top_p: PerRow,
+    *,
     noise: Optional[torch.Tensor] = None,  # (B, vocab) Gumbel draws
 ) -> torch.Tensor:
     """Temperature + top-p sample. Returns (B,) int32 token ids.
@@ -78,6 +79,7 @@ def sample(
     temperature: PerRow = 0.8,
     top_p: PerRow = 0.9,
     do_sample: bool = False,
+    *,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dispatch matching the reference CLI defaults."""

@@ -140,7 +140,7 @@ class PaliGemmaEngine:
     def init_state_cache(self, batch: int) -> Dict[str, torch.Tensor]:
         return gemma.init_kv_cache(
             self.config.text_config, batch, self.max_seq_len, self.cache_dtype,
-            self.device,
+            device=self.device,
         )
 
     def _as_tensor(self, x, dtype=None) -> torch.Tensor:

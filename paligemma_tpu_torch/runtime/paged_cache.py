@@ -103,6 +103,7 @@ class PagedKVCache:
         max_slots: int,
         max_pages_per_slot: int,
         dtype: torch.dtype = torch.bfloat16,
+        *,
         device="cuda",
     ):
         if page_size % 16:

@@ -268,7 +268,7 @@ class ServingEngine:
     def _init_cache(self):
         """Allocate the KV backend (hook: the paged engine allocates pages)."""
         return gemma.init_kv_cache(self.config.text_config, self.max_slots,
-                                   self.max_seq_len, self.cache_dtype, self.device)
+                                   self.max_seq_len, self.cache_dtype, device=self.device)
 
     def _kv_bucket(self, highest_write_pos: int) -> Optional[int]:
         """Smallest power-of-two cache window (>= 512) covering the position;
@@ -422,7 +422,7 @@ class ServingEngine:
             mask = self._upload(mask_np)
             # the prefill writes exactly [0, bucket): a bucket-long cache
             cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
-                                         self.device)
+                                         device=self.device)
             lora_kw = {}
             if self.lora_bank is not None:
                 lora_kw = dict(lora=self.lora_bank,

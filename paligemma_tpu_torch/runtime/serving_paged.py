@@ -124,7 +124,7 @@ class PagedServingEngine(ServingEngine):
         tc = self.config.text_config
         layers = self.decode_params["lm"]["layers"]
         if self.mesh is not None:
-            if not _ptp.supported(tc, self.mesh, layers, self.max_slots, self.page_size):
+            if not _ptp.supported(tc, self.mesh, layers, self.max_slots, page_size=self.page_size):
                 raise ValueError(
                     "the paged engine under a mesh needs what "
                     "kernels/decode_layer_paged_tp.supported accepts at max_slots rows; pass "
@@ -135,7 +135,7 @@ class PagedServingEngine(ServingEngine):
         if self.paged_kernel == "staged":
             self.paged_kernel = "fused"  # the TPU's staging hybrid: one chain here
         if self.paged_kernel == "fused":
-            if not _dlp.supported(tc, layers, self.max_slots, self.page_size):
+            if not _dlp.supported(tc, layers, self.max_slots, page_size=self.page_size):
                 raise ValueError(
                     "paged_kernel='fused' on the kernel path needs one KV head, the int8 "
                     "decode tree of runtime.quantize.quantize_lm_for_serving and a page size "

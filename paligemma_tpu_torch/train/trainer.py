@@ -152,6 +152,7 @@ class Trainer:
         train_config: TrainConfig = TrainConfig(),
         mesh=None,
         generator: Optional[torch.Generator] = None,
+        *,
         lora: Optional[Params] = None,
     ):
         if mesh is not None or train_config.fsdp:

@@ -213,6 +213,24 @@ def test_int4_matmul_matches_jax(m, k, n):
     _close(got, want, 1e-4)  # the JAX test's tolerance: fp32 sums over K
 
 
+@pytest.mark.parametrize("m", [8, 17, 266])
+def test_int4_matmul_reference_matches_jax_at_the_kernels_rows(m):
+    """The plain version the card's kernels are held to (the GEMV tile's int4
+    form at M <= 16, csrc/wq_gemm.cuh above) against the TPU kernel in
+    interpret mode, at a stored-row count of 128 and a column count that is
+    not a multiple of the 128-column tile."""
+    rng = np.random.default_rng(m)
+    k, n = 256, 208
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jq = j_q4.quantize_int4(jnp.asarray(rng.standard_normal((k, n)).astype(np.float32) * 0.2))
+    want = j_q4.int4_matmul(jnp.asarray(x), jq["w4p"], jq["s"], interpret=True)
+    got = t_q4.int4_matmul_reference(torch.from_numpy(x),
+                                     torch.from_numpy(np.asarray(jq["w4p"])),
+                                     torch.from_numpy(np.asarray(jq["s"])))
+    assert got.shape == (m, n)
+    _close(got, want, 1e-4)  # the JAX test's tolerance: fp32 sums over K
+
+
 def test_int4_matmul_bf16_and_lead_dims():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 3, 256)).astype(np.float32)

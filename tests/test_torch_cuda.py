@@ -270,7 +270,7 @@ def test_tp_kernels_match_plain_versions_on_card():
         got = t_mlp.mlp_decode_fused(x[:, None], mlp, 1, out_dtype=out_dtype)
         assert t_mlp.mlp_decode_fused.launches == n0 + 1
         assert got.dtype == (out_dtype or torch.bfloat16) and got.shape == (b, 1, k)
-        close(got, t_mlp.reference_mlp(x[:, None], mlp, 1, out_dtype), rel)
+        close(got, t_mlp.reference_mlp(x[:, None], mlp, 1, out_dtype=out_dtype), rel)
 
     ang = torch.rand(b, d, generator=g, device=dev) * 6.28
     cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
@@ -284,7 +284,8 @@ def test_tp_kernels_match_plain_versions_on_card():
         valid = (torch.arange(seq, device=dev)[None] <= pos[:, None]).contiguous()
         caches = [(kc.clone(), vc.clone()) for _ in range(2)]
         n0 = t_tp.attn_decode_tp.launches
-        got = t_tp.attn_decode_tp(x, layers, *caches[0], 1, valid, pos, cos, sin, d, 1e-6)
+        got = t_tp.attn_decode_tp(x, layers, *caches[0], 1, valid=valid, cache_pos=pos, cos=cos,
+                                  sin=sin, head_dim=d, eps=1e-6)
         want = t_tp.attn_decode_tp_reference(x, layers, *caches[1], 1, valid, pos, cos, sin, d,
                                              1e-6)
         assert t_tp.attn_decode_tp.launches == n0 + 1 and got[0].dtype == torch.float32
@@ -295,8 +296,9 @@ def test_tp_kernels_match_plain_versions_on_card():
         kp, vp = rnd(n_layers, 8, ps, d), rnd(n_layers, 8, ps, d)
         pools = [(kp.clone(), vp.clone()) for _ in range(2)]
         n0 = t_ptp.attn_decode_paged_tp.launches
-        got = t_ptp.attn_decode_paged_tp(x, layers, *pools[0], 1, table, pos, cos, sin, 4, d,
-                                         1e-6)
+        got = t_ptp.attn_decode_paged_tp(x, layers, *pools[0], 1, page_table=table,
+                                         write_pos=pos, cos=cos, sin=sin, pages_bucket=4,
+                                         head_dim=d, eps=1e-6)
         want = t_ptp.attn_decode_paged_tp_reference(x, layers, *pools[1], 1, table, pos, cos,
                                                     sin, 4, d, 1e-6)
         assert t_ptp.attn_decode_paged_tp.launches == n0 + 1
@@ -404,6 +406,43 @@ def test_lora_shrink_and_gemv_lora_epilogue_on_card(a_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,bounds,kw", [
+    (2048, 2560, (2048, 2304), {}), (2048, 4096, (2048,), {"geglu": True}),
+    (16384, 2048, (), {"residual": True})])
+def test_int8_gemv_lora_expand_at_3b_plans_on_card(a_dtype, k, n, bounds, kw):
+    """The expand at Gemma-2B's plans (16-byte copies of B and z) with a bank
+    wider than one staged chunk (G 48: 5 adapters of rank 8 and the zero
+    one, two chunks of adapter rows), B 8 and 9 (two batch tiles): within
+    1e-2 of the plain version, base rows the GEMV's bits without LoRA, a
+    second call the same bits."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    gcols, rank = 48, 8
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    ntarget = len(bounds) + 1
+    a = torch.randn(k, ntarget * gcols, generator=g, device=dev) * k**-0.5
+    a[:, torch.arange(ntarget * gcols, device=dev) % gcols < rank] = 0  # the zero adapter
+    lb = (torch.randn(gcols, n, generator=g, device=dev) * 0.5).to(a_dtype)
+    for b in (8, 9):
+        x = torch.randn(b, k, generator=g, device=dev).to(torch.bfloat16)
+        ids = (torch.arange(b, device=dev) % (gcols // rank)).to(torch.int32)
+        res = torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)
+        gkw = {"residual": res} if kw.get("residual") else dict(kw)
+        z = t_lora.lora_shrink(x, a.to(a_dtype), ids, rank, gcols)
+        got = t_gemv.int8_gemv(x, w8, s, lora=(z, lb, bounds), **gkw)
+        _close_rel(got, t_gemv.int8_gemv_reference(x, w8, s, lora=(z, lb, bounds), **gkw),
+                   rel=1e-2)
+        assert torch.equal(t_gemv.int8_gemv(x, w8, s, lora=(z, lb, bounds), **gkw), got)
+        plain = t_gemv.int8_gemv(x, w8, s, **gkw)
+        assert torch.equal(got[ids == 0], plain[ids == 0])
+        assert not torch.equal(got[ids != 0], plain[ids != 0])
+
+
+@pytest.mark.cuda
 def test_seg_decode_attention_kernel_on_card():
     """B10 against its plain version with a pad hole, a kv_len at a tile
     edge and GQA; NaN in tiles wholly inside the hole or past kv_len is
@@ -505,6 +544,122 @@ def test_int4_matmul_kernel_on_card():
         _close_rel(got, t_q4.int4_matmul_reference(x, q["w4p"], q["s"]))
     with pytest.raises(ValueError):
         t_q4.int4_matmul(x.float(), q["w4p"], q["s"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 266])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (16384, 2048), (256, 208)])
+def test_int4_matmul_rows_on_card(k, n, m):
+    """B9 at decode rows (M <= 16: the GEMV tile's int4 form, one launch)
+    and above them (csrc/wq_gemm.cuh) against its plain version within 1e-2
+    of max(1, |plain|), at two Gemma-2B projections and a column count that
+    is not a multiple of the 128-column tile; a second call gives the same
+    bits."""
+    from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    w4p = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (7.0 * k**0.5)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    n0 = t_q4.int4_matmul.launches
+    got = t_q4.int4_matmul(x, w4p, s)
+    assert t_q4.int4_matmul.launches == n0 + 1
+    _close_rel(got, t_q4.int4_matmul_reference(x, w4p, s), rel=1e-2)
+    assert torch.equal(t_q4.int4_matmul(x, w4p, s), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,ng", [(8, 16384, 32), (9, 2048, 96), (2, 40000, 16), (1, 8, 8)])
+def test_lora_shrink_cluster_split_on_card(a_dtype, b, k, ng):
+    """The shrink in one launch at Gemma-2B's down (a cluster of 8 ranks of
+    2048 rows) and qkv groups, over two batch tiles, with x staged in
+    chunks (K 40000) and one row: within 1e-2 of its plain version, base
+    rows exactly 0, a second call the same bits."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(b + k + ng)
+    gcols, rank = 8 if ng % 16 else 16, 4
+    x = (torch.randn(b, k, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    a = (torch.randn(k, ng, generator=g, device=dev) * k**-0.5).to(a_dtype)
+    a[:, torch.arange(ng, device=dev) % gcols < rank] = 0  # bank row 0: the zero adapter
+    ids = (torch.arange(1, b + 1, device=dev) % (gcols // rank)).to(torch.int32)
+    n0 = t_lora.lora_shrink.launches
+    z = t_lora.lora_shrink(x, a, ids, rank, gcols)
+    assert t_lora.lora_shrink.launches == n0 + 1
+    _close_rel(z, t_lora.lora_shrink_reference(x, a, ids, rank, gcols), rel=1e-2)
+    assert not z[ids == 0].any() and z[ids != 0].any()
+    assert torch.equal(t_lora.lora_shrink(x, a, ids, rank, gcols), z)
+
+
+def _tiny_int8_layers(dev, g, n_layers, k, n_heads, d, inter):
+    def int8(*shape):
+        w8 = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(shape[0], shape[-1], generator=g, device=dev) + 0.5
+        return {"w8": w8, "s": s / (127 * shape[-2]**0.5)}
+
+    norm = torch.randn(n_layers, k, generator=g, device=dev).to(torch.bfloat16) * 0.1
+    return {"input_norm": norm, "post_norm": norm.clone(),
+            "attn": {"qkv": int8(n_layers, k, (n_heads + 2) * d),
+                     "o": int8(n_layers, n_heads * d, k)},
+            "mlp": {"gateup": int8(n_layers, k, 2 * inter), "down": int8(n_layers, inter, k)}}
+
+
+@pytest.mark.cuda
+def test_dense_equals_paged_with_a_lora_bank_on_card():
+    """The dense chain (kernels/decode_layer) and the paged one
+    (kernels/decode_layer_paged) with the same bank and a table that maps
+    the dense cache's keys give the same bits; base rows of the bank have
+    the bits of a chain without it; adapter rows move."""
+    from paligemma_tpu_torch.kernels import decode_layer as t_dl
+    from paligemma_tpu_torch.kernels import decode_layer_paged as t_dlp
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_layers, k, h, d, inter, b, s_len, ps = 2, 256, 4, 128, 512, 4, 128, 16
+    layers = _tiny_int8_layers(dev, g, n_layers, k, h, d, inter)
+    gcols, rank = 16, 4  # the zero adapter and 3 adapters of rank 4
+
+    def bank(in_dim, n_t, out_dim):
+        a = torch.randn(n_layers, in_dim, n_t * gcols, generator=g, device=dev) * in_dim**-0.5
+        for t in range(n_t):
+            a[:, :, t * gcols:t * gcols + rank] = 0
+        return a, torch.randn(n_layers, gcols, out_dim, generator=g, device=dev) * 0.5
+
+    pack = {"g_true": gcols, "rank": rank}
+    for name, in_dim, n_t, out_dim in (("qkv", k, 3, (h + 2) * d), ("o", h * d, 1, k),
+                                       ("gu", k, 2, 2 * inter), ("down", inter, 1, k)):
+        pack[name + "_a"], pack[name + "_b"] = bank(in_dim, n_t, out_dim)
+    ids = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)
+    x = torch.randn(b, 1, k, generator=g, device=dev).to(torch.bfloat16)
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    pos = torch.tensor([69, 95, 5, 40], dtype=torch.int32, device=dev)
+    w = 96  # six pages of 16
+    kc = torch.randn(n_layers, b, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(n_layers, b, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+    valid = (torch.arange(w, device=dev)[None] <= pos[:, None].long()).contiguous()
+    table = (torch.arange(s_len // ps, device=dev)[None]
+             + (s_len // ps) * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+
+    def dense(**kw):
+        return t_dl.layers_decode_fused(x, layers, kc.clone(), vc.clone(), pos, valid, cos, sin,
+                                        w, h, d, 1e-6, **kw)[0]
+
+    def paged(**kw):
+        kp = kc.clone().reshape(n_layers, b * s_len // ps, ps, d)
+        vp = vc.clone().reshape(n_layers, b * s_len // ps, ps, d)
+        return t_dlp.layers_decode_fused_paged(x, layers, kp, vp, table, pos, cos, sin, h, d,
+                                               1e-6, pages_bucket=w // ps, **kw)[0]
+
+    with_bank = dense(lora_pack=pack, adapter_ids=ids)
+    assert torch.equal(paged(lora_pack=pack, adapter_ids=ids), with_bank)
+    base = dense()
+    assert torch.equal(base[0], with_bank[0]) and torch.equal(paged()[0], base[0])
+    assert not torch.equal(base[1:], with_bank[1:])
 
 
 @pytest.mark.parametrize("nmajor", [False, True])

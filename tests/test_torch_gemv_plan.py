@@ -1,11 +1,13 @@
 """The split of the int8 GEMV (``kernels/gemv_plan.GemvPlan``) on the CPU,
 at PaliGemma-3B-224's decode shapes (Gemma-2B: hidden 2048, 8 heads of
 256, one KV head, intermediate 16384, vocab 257152) and at the
-tensor-parallel shards of m = 2, 4, 8 ranks; and the launches the two
-wrappers over the tile (``int8_gemv``, ``head_argmax_fused``) make, read
-from a stand-in for the kernel library, so that the split they hand the
-card is checked here (the kernels themselves run on the card:
-tests/test_torch_cuda.py).
+tensor-parallel shards of m = 2, 4, 8 ranks; and the launches the
+wrappers over the tile (``int8_gemv`` with and without a LoRA expand,
+``head_argmax_fused``, ``int4_matmul`` at decode rows on the (K/2, N)
+stored rows) and the LoRA shrink (``lora_shrink``, ``kernels/lora.
+ShrinkPlan``) make, read from a stand-in for the kernel library, so that
+the split they hand the card is checked here (the kernels themselves run
+on the card: tests/test_torch_cuda.py).
 """
 
 import pytest
@@ -15,6 +17,8 @@ from paligemma_tpu_torch.kernels import _build
 from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import gemv_plan as t_plan
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
+from paligemma_tpu_torch.kernels import lora as t_lora
+from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
 
 torch.set_num_threads(2)
 
@@ -115,7 +119,8 @@ class _Library:
 @pytest.fixture
 def library(monkeypatch):
     lib = _Library()
-    for fn in (t_gemv.int8_gemv, t_gemv.int8_gemv_f32, t_head.head_argmax_fused):
+    for fn in (t_gemv.int8_gemv, t_gemv.int8_gemv_f32, t_head.head_argmax_fused,
+               t_lora.lora_shrink, t_q4.int4_matmul):
         monkeypatch.setattr(fn, "launches", 0)  # the counts come back after the test
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
@@ -184,9 +189,9 @@ def test_int8_gemv_accepts_the_shapes_it_took(library, b, k, n, kw):
 
 
 @pytest.mark.parametrize("geglu", [False, True])
-def test_int8_gemv_lora_takes_the_sums_then_the_expand(library, geglu):
-    """With a LoRA adapter the tile writes its unscaled sums (mode 4), one
-    (1, B, N) split, and the LoRA epilogue reads them with nsplit = 1."""
+def test_int8_gemv_lora_expands_in_one_launch(library, geglu):
+    """With a LoRA adapter the GEMV is one launch of the plan of (K, N),
+    the expand's operands beside it: no sums to scratch, no second launch."""
     b, k, n, g = 8, 2048, 4096, 8
     x = _card(torch.zeros((b, k), dtype=torch.bfloat16))
     w8, s = _card(torch.zeros((k, n), dtype=torch.int8)), _card(torch.ones(n))
@@ -195,10 +200,117 @@ def test_int8_gemv_lora_takes_the_sums_then_the_expand(library, geglu):
     lb = _card(torch.zeros((g, n)))
     t_gemv.int8_gemv(x, w8, s, geglu=geglu, lora=(z, lb, bounds))
     plan = t_plan.GemvPlan.make(k, n)
-    assert _gemv_split(library) == [(b, k, n, 4, plan.cluster, plan.warps, plan.k_per_cta)]
-    [(name, args)] = [c for c in library.calls if c[0] != "pg_int8_gemv"]
-    assert name == "pg_int8_gemv_epilogue_lora" and args[1:4] == (1, b, n)
-    assert args[7] == (2 if geglu else 0)
+    [(name, args)] = library.calls
+    assert name == "pg_int8_gemv_lora" and t_gemv.int8_gemv.launches == 1
+    assert args[5:12] == (b, k, n, 2 if geglu else 0, plan.cluster, plan.warps, plan.k_per_cta)
+    # lb_f32, G, nz, seg1, seg2
+    assert args[14:19] == (1, g, z.shape[1], n // 2 if geglu else n, n)
+
+
+@pytest.mark.parametrize("bounds,kw", [((2048, 2304), {}), ((), {"residual": True})])
+def test_int8_gemv_lora_hands_the_kernel_each_targets_block(library, bounds, kw):
+    """qkv's two target boundaries and o's none reach the kernel as (seg1,
+    seg2), N where there is none; a bf16 B is passed as such."""
+    b, k, n, g = 3, 2048, 2560, 16
+    x = _card(torch.zeros((b, k), dtype=torch.bfloat16))
+    w8, s = _card(torch.zeros((k, n), dtype=torch.int8)), _card(torch.ones(n))
+    res = _card(torch.zeros((b, n), dtype=torch.bfloat16)) if kw else None
+    z = _card(torch.zeros((b, g * (len(bounds) + 1)), dtype=torch.bfloat16))
+    lb = _card(torch.zeros((g, n), dtype=torch.bfloat16))
+    out = t_gemv.int8_gemv(x, w8, s, residual=res, lora=(z, lb, bounds))
+    assert out.shape == (b, n) and out.dtype == torch.bfloat16
+    [(name, args)] = library.calls
+    segs = list(bounds) + [n] * (2 - len(bounds))
+    assert name == "pg_int8_gemv_lora" and args[8] == (1 if kw else 0)
+    assert args[14:19] == (0, g, z.shape[1], *segs)
+
+
+# (label, K, N) of Gemma-2B's four projections for the int4 tile, and
+# ragged ones: stored rows K/2 a multiple of 64, N of 16 but not of 128
+INT4_SHAPES = [("qkv", HIDDEN, (HEADS + 2) * HEAD_DIM), ("o", HEADS * HEAD_DIM, HIDDEN),
+               ("gateup", HIDDEN, 2 * INTER), ("down", INTER, HIDDEN), ("small", 256, 208),
+               ("K 128", 128, 96)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("label,k,n", INT4_SHAPES, ids=[c[0] for c in INT4_SHAPES])
+def test_int4_matmul_decode_rows_take_the_stored_row_plan(library, label, k, n, m):
+    """At M <= 16 int4_matmul is one launch of the GEMV tile in its int4
+    form, split as GemvPlan plans the (K/2, N) stored rows: every rank's
+    range a multiple of 16 stored rows, K/2 covered once, the split a
+    function of (K, N) whatever M."""
+    x = _card(torch.zeros((m, k), dtype=torch.bfloat16))
+    w4p = _card(torch.empty((k // 2, n), dtype=torch.int8))  # never read
+    out = t_q4.int4_matmul(x, w4p, _card(torch.ones(n)))
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    [(name, args)] = library.calls
+    assert name == "pg_int4_gemv" and t_q4.int4_matmul.launches == 1
+    gm, gk, gn, *split = args[4:10]
+    assert (gm, gk, gn) == (m, k, n)
+    _check_covers_k(k // 2, *split)
+    plan = t_plan.GemvPlan.make(k // 2, n)
+    assert split == [plan.cluster, plan.warps, plan.k_per_cta]
+
+
+@pytest.mark.parametrize("m", [17, 266])
+def test_int4_matmul_prefill_rows_keep_the_dequantizing_tile(library, m):
+    """Above 16 rows int4_matmul stays on csrc/wq_gemm.cuh (pg_int4_matmul,
+    with its split sum where the K split leaves partials)."""
+    k, n = HIDDEN, 2048
+    x = _card(torch.zeros((m, k), dtype=torch.bfloat16))
+    t_q4.int4_matmul(x, _card(torch.empty((k // 2, n), dtype=torch.int8)), _card(torch.ones(n)))
+    names = [name for name, _ in library.calls]
+    assert names[0] == "pg_int4_matmul" and set(names) <= {"pg_int4_matmul", "pg_wq_split_sum"}
+    assert library.calls[0][1][5:8] == (m, k, n) and t_q4.int4_matmul.launches == 1
+
+
+# (label, K, nG) of the LoRA shrink at Gemma-2B with a bank of 3 rank-8
+# adapters (G 32): qkv, o, gate | up, down; and small ones
+SHRINK_SHAPES = [("qkv", HIDDEN, 96), ("o", HEADS * HEAD_DIM, 32), ("gu", HIDDEN, 64),
+                 ("down", INTER, 32), ("K 320", 320, 48), ("K 8", 8, 8), ("K 40000", 40000, 16)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 33])
+@pytest.mark.parametrize("label,k,ng", SHRINK_SHAPES, ids=[c[0] for c in SHRINK_SHAPES])
+def test_lora_shrink_is_one_launch_of_its_plan(library, label, k, ng, b):
+    """lora_shrink is one launch; its K split (the cluster's ranks, each a
+    multiple of 8 rows, consecutive, none empty) covers K once and is the
+    plan of (K, nG) whatever B."""
+    g = 8 if ng % 16 else 16
+    x = _card(torch.zeros((b, k), dtype=torch.bfloat16))
+    a = _card(torch.zeros((k, ng)))
+    ids = _card(torch.zeros(b, dtype=torch.int32))
+    z = t_lora.lora_shrink(x, a, ids, 4, g)
+    assert z.shape == (b, ng) and z.dtype == torch.bfloat16
+    [(name, args)] = library.calls
+    assert name == "pg_lora_shrink" and args[2] == 1 and t_lora.lora_shrink.launches == 1
+    gb, gk, gng, gg, grank, cluster, per, threads = args[5:13]
+    assert (gb, gk, gng, gg, grank) == (b, k, ng, g, 4)
+    assert 1 <= cluster <= t_lora.MAX_CLUSTER and per % t_lora.STEP_K == 0
+    assert (cluster - 1) * per < k <= cluster * per and threads in t_lora.THREAD_CHOICES
+    plan = t_lora.ShrinkPlan.make(k, ng)
+    assert (cluster, per, threads) == (plan.cluster, plan.k_per_cta, plan.threads)
+
+
+@pytest.mark.parametrize("label,k,ng,want", [
+    ("qkv", HIDDEN, 96, (8, 256, 256)), ("down", INTER, 32, (8, 2048, 512)),
+    ("K 320", 320, 48, (2, 160, 256)), ("K 8", 8, 8, (1, 8, 256)),
+])
+def test_shrink_plan_at_the_3b_shapes(label, k, ng, want):
+    """At Gemma-2B's widths every rank of a full cluster takes 256 (hidden,
+    CTAs of 256 threads) or 2048 (intermediate, 512 threads) rows of A: one
+    round of its loads in flight."""
+    plan = t_lora.ShrinkPlan.make(k, ng)
+    assert (plan.cluster, plan.k_per_cta, plan.threads) == want
+
+
+@pytest.mark.parametrize("k,ng", [(100, 32), (2048, 20)])
+def test_lora_shrink_refuses_what_the_kernel_cannot_take(library, k, ng):
+    x = _card(torch.zeros((2, k), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple"):
+        t_lora.lora_shrink(x, _card(torch.zeros((k, ng))),
+                           _card(torch.zeros(2, dtype=torch.int32)), 2, 4)
+    assert library.calls == []
 
 
 @pytest.mark.parametrize("k,n,msg", [(64, 98, "N % 4"), (64, 6, "N % 4")])

@@ -64,7 +64,7 @@ def test_gemma_forward_prefill_and_bucketed_decode():
     valid = np.zeros((b, max_seq), bool)
     valid[:, :s] = True
     jc = j_gemma.init_kv_cache(tc, b, max_seq)
-    tcache = gemma.init_kv_cache(tc, b, max_seq, torch.float32, "cpu")
+    tcache = gemma.init_kv_cache(tc, b, max_seq, torch.float32, device="cpu")
     jl, jc = j_gemma.forward(jp["lm"], tc, jnp.asarray(emb), jnp.asarray(pos), jc,
                              jnp.asarray(0, jnp.int32), jnp.asarray(valid))
     tl, tcache = gemma.forward(tp["lm"], tc, torch.from_numpy(emb), torch.from_numpy(pos),
@@ -92,7 +92,7 @@ def test_prefill_then_decode_steps():
     b, s = ids.shape
     max_seq = 32
     jc = j_gemma.init_kv_cache(tc, b, max_seq)
-    tcache = gemma.init_kv_cache(tc, b, max_seq, torch.float32, "cpu")
+    tcache = gemma.init_kv_cache(tc, b, max_seq, torch.float32, device="cpu")
     jl, jc = j_pg.prefill(jp, CFG, jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask),
                           jc, last_only=True)
     tl, tcache = paligemma.prefill(tp, CFG, torch.from_numpy(pixels), torch.from_numpy(ids),
@@ -128,7 +128,7 @@ def test_fused_decode_on_dense_gqa_tree_raises():
     the kernels cannot take, gemma.forward raises instead of going plain."""
     _, tp = _params()
     b, max_seq = 2, 16
-    cache = gemma.init_kv_cache(CFG.text_config, b, max_seq, torch.float32, "cpu")
+    cache = gemma.init_kv_cache(CFG.text_config, b, max_seq, torch.float32, device="cpu")
     valid = torch.zeros((b, max_seq), dtype=torch.bool)
     valid[:, :4] = True
     with pytest.raises(ValueError, match="fused_layer"):

@@ -16,6 +16,7 @@ The config is tests/test_lora_fused.py's (hidden 128, head_dim 128, MQA,
 to both frameworks."""
 
 import functools
+import importlib
 import inspect
 
 import jax
@@ -326,6 +327,45 @@ def test_layers_decode_fused_with_lora_matches_pallas(dtype):
     assert not torch.equal(base[1:], th[1:])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_decode_fused_with_lora_eight_rows_matches_pallas(dtype):
+    """The LoRA tick at a full batch tile of the card's kernels (8 rows,
+    every bank row twice or more, positions across the window) against the
+    TPU kernel with lora=True in interpret mode; hidden and fresh K/V
+    within 2e-2 of the largest element (bf16: the kernels round z to bf16
+    where the TPU kernel does, after fp32 sums in another order); base rows
+    equal the chain without the bank."""
+    cfg, jlm, tlm = _layer_inputs()
+    jpack, tpack = _packs()
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    n_layers, b, s_len, w, hd = 2, 8, 32, 32, 128
+    x = rng.normal(size=(b, 1, cfg.hidden_size)).astype(np.float32)
+    kc = (rng.normal(size=(n_layers, b, s_len, hd)) * 0.5).astype(np.float32)
+    vc = (rng.normal(size=(n_layers, b, s_len, hd)) * 0.5).astype(np.float32)
+    pos = np.array([7, 11, 4, 31, 0, 19, 23, 16], np.int32)
+    valid = np.arange(w)[None] <= pos[:, None]
+    ids = np.array([0, 1, 2, 0, 2, 1, 1, 0], np.int32)
+    cos, sin = j_rope.rope_cos_sin(jnp.asarray(pos + 1)[:, None], hd)
+    jh, jk, jv = j_layer.layers_decode_fused(
+        jnp.asarray(x, jd), j_layer.repack_layers(jlm["layers"]), jnp.asarray(kc, jd),
+        jnp.asarray(vc, jd), jnp.asarray(pos), jnp.asarray(valid), cos[:, 0], sin[:, 0], w,
+        cfg.num_attention_heads, hd, cfg.rms_norm_eps, interpret=True, lora_pack=jpack,
+        adapter_ids=jnp.asarray(ids))
+    args = (t_layer.repack_layers(tlm["layers"]), _t(kc).to(td), _t(vc).to(td), _t(pos),
+            _t(valid), _t(np.asarray(cos[:, 0])), _t(np.asarray(sin[:, 0])), w,
+            cfg.num_attention_heads, hd, cfg.rms_norm_eps)
+    th, tk, tv = t_layer.layers_decode_fused(_t(x).to(td), *args, lora_pack=tpack,
+                                             adapter_ids=_t(ids))
+    for got, want in ((th, jh), (tk, jk), (tv, jv)):
+        want = _np(want)
+        assert got.shape == want.shape
+        assert np.max(np.abs(got.float().numpy() - want)) / np.max(np.abs(want)) < 2e-2
+    base, _, _ = t_layer.layers_decode_fused(_t(x).to(td), *args)
+    rows = torch.from_numpy(ids == 0)
+    assert torch.equal(base[rows], th[rows]) and not torch.equal(base[~rows], th[~rows])
+
+
 @pytest.mark.parametrize("frag", [False, True])
 def test_layers_decode_fused_paged_with_lora_matches_pallas(frag):
     cfg, jlm, tlm = _layer_inputs()
@@ -510,7 +550,7 @@ def test_kernel_tick_equals_plain_tick_in_fp32():
     ek = t_serving.ServingEngine(tp, CFG, fused_decode=True, **kw)
     ep = t_serving.ServingEngine(tp, CFG, fused_decode=False, **kw)
     ids = torch.tensor([0, 1, 2], dtype=torch.int32)
-    caches = [t_gemma.init_kv_cache(TC, 3, 64, torch.float32, "cpu") for _ in range(2)]
+    caches = [t_gemma.init_kv_cache(TC, 3, 64, torch.float32, device="cpu") for _ in range(2)]
     rng = np.random.default_rng(11)
     init = torch.from_numpy(rng.normal(size=caches[0]["k"][:, :, :8].shape).astype(np.float32))
     for c in caches:
@@ -535,7 +575,7 @@ def test_kernel_tick_without_pack_raises():
     """The kernel decode takes a bank only with its kernel operands."""
     _, _, _, tq = _weights()
     _, tb = _banks()
-    cache = t_gemma.init_kv_cache(TC, 1, 16, torch.float32, "cpu")
+    cache = t_gemma.init_kv_cache(TC, 1, 16, torch.float32, device="cpu")
     tok = torch.zeros(1, dtype=torch.int32)
     valid = torch.ones(1, 16, dtype=torch.bool)
     with pytest.raises(ValueError, match="__fused_pack__"):
@@ -554,6 +594,65 @@ def test_tensor_parallel_with_bank_raises():
 
 
 # ---------------------------------------------------------- signatures ----
+# A JAX parameter the port takes under another name, in the same slot: the
+# port's names for it, the first one it has being the one compared
+TRANSLATED = {"key": ("generator",), "rng": ("generator",), "devices": ("group",),
+              "packed": ("layers", "mlp"), "G": ("g",)}
+# Functions whose operands differ in kind from JAX's after their shared
+# leading parameters: (JAX's operands that differ, why). Those take no
+# translation, and every parameter after the last one shared is
+# keyword-only
+OPERANDS_DIFFER = {
+    "core.mesh.Mesh.__init__": (("devices", "axis_names", "axis_types"),
+                                "JAX's Mesh holds a device array and axis names, the port's "
+                                "one rank's place in a torch.distributed group"),
+    "core.mesh.make_mesh": (("devices",), "JAX's devices are jax devices, the port's group a "
+                                          "torch.distributed process group"),
+    "kernels.decode_layer_tp.attn_decode_tp": (("bias", "posmask", "window"),
+                                               "JAX's bias and posmask arrays against the "
+                                               "port's valid mask and cache positions"),
+    "kernels.decode_layer_paged_tp.attn_decode_paged_tp": (
+        ("start", "contig", "pt", "bias", "posmask"),
+        "JAX's start, contig, pt, bias and posmask against the port's page table and write "
+        "positions"),
+}
+# every public function of the port with a JAX namesake beyond the engines
+# and siglip.encode (C5)
+C5_FUNCTIONS = (
+    "models.paligemma.prefill", "models.paligemma.decode_step",
+    "models.paligemma.decode_step_greedy", "models.paligemma.decode_step_paged",
+    "models.gemma.forward", "models.gemma.forward_paged_decode",
+    "models.gemma.forward_paged_decode_fused", "models.gemma.init_kv_cache",
+    "models.gemma.lm_head", "runtime.paged_cache.PagedKVCache.__init__",
+    "train.trainer.Trainer.__init__", "train.lora.init_lora",
+    "kernels.decode_head.head_argmax_fused", "kernels.decode_head.reference_head_argmax",
+    "kernels.paged_attention.paged_decode_attention",
+    "kernels.paged_attention.paged_decode_attention_multi",
+    "kernels.paged_attention.paged_decode_attention_batched",
+    "kernels.paged_attention.paged_decode_attention_runs",
+    "kernels.decode_mlp.mlp_decode_fused", "kernels.decode_mlp.reference_mlp",
+    "kernels.decode_layer.layers_decode_fused", "kernels.decode_layer.repack_lora_bank_fused",
+    "kernels.decode_layer.lora_row_masks", "kernels.decode_layer_paged.supported",
+    "kernels.decode_layer_paged.layers_decode_fused_paged",
+    "kernels.decode_layer_paged_tp.supported", "ops.sampling.sample",
+    "ops.sampling.sample_top_p", *OPERANDS_DIFFER,
+)
+
+
+def _resolve(package, path):
+    """``package.path``: the longest importable module prefix, then attributes."""
+    parts = path.split(".")
+    for cut in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join([package, *parts[:cut]]))
+        except ImportError:
+            continue
+        for name in parts[cut:]:
+            obj = getattr(obj, name)
+        return obj
+    raise ImportError(path)
+
+
 def _positional(fn):
     kinds = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
     return [p.name for p in inspect.signature(fn).parameters.values() if p.kind in kinds]
@@ -570,19 +669,34 @@ def _names(fn):
     ("PagedServingEngine", j_paged.PagedServingEngine.__init__,
      t_paged.PagedServingEngine.__init__),
     ("siglip.encode", j_siglip.encode, t_siglip.encode),
-])
+] + [(f, _resolve("paligemma_tpu", f), _resolve("paligemma_tpu_torch", f))
+     for f in C5_FUNCTIONS])
 def test_signature_follows_jax_order(name, jax_fn, port_fn):
     """A call in JAX's order binds each argument to the same name in the
     port: the port's positional parameters are a prefix of JAX's, every
     other name they share is keyword-only in the port, in JAX's relative
-    order, and the port's own names are keyword-only."""
-    jax_pos, port_pos = _positional(jax_fn), _positional(port_fn)
+    order, and the port's own names are keyword-only. A JAX name counts as
+    the port's translation of it (TRANSLATED), except where the operands
+    differ in kind (OPERANDS_DIFFER)."""
+    port_all = _names(port_fn)
+
+    def same_slot(n):
+        if n in OPERANDS_DIFFER.get(name, ((), ""))[0]:
+            return n
+        return next((t for t in TRANSLATED.get(n, ()) if t in port_all), n)
+
+    jax_pos = [same_slot(n) for n in _positional(jax_fn)]
+    jax_all = [same_slot(n) for n in _names(jax_fn)]
+    port_pos = _positional(port_fn)
     assert port_pos == jax_pos[:len(port_pos)], (name, port_pos)
-    jax_all, port_all = _names(jax_fn), _names(port_fn)
     shared = [n for n in port_all if n in jax_all]
     assert shared == [n for n in jax_all if n in port_all], name
     if len(port_pos) < len(jax_pos):  # the next JAX name is not in the port
         assert jax_pos[len(port_pos)] not in port_all, name
+    if name in OPERANDS_DIFFER:
+        kw_only = [n for n in port_all if n not in port_pos]
+        params = inspect.signature(port_fn).parameters
+        assert all(params[n].kind == inspect.Parameter.KEYWORD_ONLY for n in kw_only), name
 
 
 def _cast(tree, dtype):

@@ -239,7 +239,7 @@ def test_layers_decode_fused_paged_matches_pallas(frag):
         jnp.asarray(table[:, :pb]), jnp.asarray(pos), cos[:, 0], sin[:, 0],
         cfg.num_attention_heads, hd, cfg.rms_norm_eps, interpret=True)
     tkp, tvp = _t(kp), _t(vp)
-    assert t_dlp.supported(cfg, tlm["layers"], b, ps)
+    assert t_dlp.supported(cfg, tlm["layers"], b, page_size=ps)
     th, tk, tv = t_dlp.layers_decode_fused_paged(
         _t(x), t_layer.repack_layers(tlm["layers"]), tkp, tvp, _t(table), _t(pos),
         _t(np.asarray(cos[:, 0])), _t(np.asarray(sin[:, 0])), cfg.num_attention_heads, hd,
@@ -289,7 +289,7 @@ def test_prefill_prefix_lens_matches_jax(use_flash):
     jc = j_gemma.init_kv_cache(cfg.text_config, 2, 16, jnp.float32)
     want, jc = j_pg.prefill(jp, cfg, jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask),
                             jc, use_flash=False, last_only=True, prefix_lens=jnp.asarray(pfx))
-    tc = t_gemma.init_kv_cache(cfg.text_config, 2, 16, torch.float32, torch.device("cpu"))
+    tc = t_gemma.init_kv_cache(cfg.text_config, 2, 16, torch.float32, device=torch.device("cpu"))
     got, tc = t_pg.prefill(_to_port(jp), cfg, _t(pixels), _t(ids).long(), _t(mask), tc,
                            use_flash=use_flash, last_only=True, prefix_lens=_t(pfx))
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-4, atol=2e-4)

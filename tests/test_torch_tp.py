@@ -211,8 +211,8 @@ def test_attn_half_matches_jax_on_each_shard(m, paged):
         kt, vt = _bf(kc), _bf(vc)
         if not paged:
             part, kn, vn = t_tp.attn_decode_tp(
-                _bf(x), local, kt, vt, layer, torch.from_numpy(valid), torch.from_numpy(pos),
-                _bf(cos), _bf(sin), HD, eps)
+                _bf(x), local, kt, vt, layer, valid=torch.from_numpy(valid),
+                cache_pos=torch.from_numpy(pos), cos=_bf(cos), sin=_bf(sin), head_dim=HD, eps=eps)
             wpart, wk, wv = j_tp.attn_decode_tp(
                 *jargs, jlocal, jnp.asarray(kc, jnp.bfloat16), jnp.asarray(vc, jnp.bfloat16),
                 jnp.asarray(layer, jnp.int32), jnp.asarray(bias), jnp.asarray(posmask), *cs,
@@ -230,8 +230,9 @@ def test_attn_half_matches_jax_on_each_shard(m, paged):
                     pool_v[:, table[row, j]] = vc[:, row, j * ps:(j + 1) * ps]
             pk, pv = _bf(pool_k), _bf(pool_v)
             part, kn, vn = t_ptp.attn_decode_paged_tp(
-                _bf(x), local, pk, pv, layer, torch.from_numpy(table), torch.from_numpy(pos),
-                _bf(cos), _bf(sin), 2, HD, eps)
+                _bf(x), local, pk, pv, layer, page_table=torch.from_numpy(table),
+                write_pos=torch.from_numpy(pos), cos=_bf(cos), sin=_bf(sin), pages_bucket=2,
+                head_dim=HD, eps=eps)
             start = table[:, 0]
             wpart, wk, wv = j_ptp.attn_decode_paged_tp(
                 *jargs, jlocal, jnp.asarray(pool_k, jnp.bfloat16),

@@ -1,12 +1,21 @@
-"""Device time of the int8 GEMV (``int8_gemv``, row 3a) at PaliGemma-3B-224's
-four decoder projections and of the fused LM-head argmax
-(``head_argmax_fused``, B3) of the ``paligemma_tpu_torch`` in the current
-directory, at B = 1 and 8, each beside its bytes bound and beside
-``torch._weight_int8pack_mm``, with the weights cold as in a decode step:
-``chip_smoke.gemv_device_times`` of this repository, run on that tree. It
-checks nothing, so diagnostic builds run too:
+"""Device times of the ``paligemma_tpu_torch`` in the current directory,
+with the weights cold as in a decode step, each beside its bound and a
+library call (never called by the port), by this repository's chip_smoke
+functions run on that tree:
 
-    cd <tree> && python3 <this repository>/tools/gemv_times.py [--label L]
+* ``gemv``: the int8 GEMV (``int8_gemv``, row 3a) at PaliGemma-3B-224's four
+  decoder projections and the fused LM-head argmax (``head_argmax_fused``,
+  B3), B = 1 and 8, beside ``torch._weight_int8pack_mm``
+  (``chip_smoke.gemv_device_times``);
+* ``int4``: B9 (``int4_matmul``) at the four projections, M = 1, 8, 266,
+  beside ``torch._weight_int4pack_mm`` (``chip_smoke.wq_device_times``);
+* ``lora``: one layer's multi-LoRA operands at B8 (the four shrinks, the
+  GEMVs with the expand against the GEMVs alone) and the bank's extra time
+  per tick (``chip_smoke.lora_device_times``).
+
+It checks nothing, so diagnostic builds run too:
+
+    cd <tree> && python3 <this repository>/tools/gemv_times.py [--label L] [--what gemv,int4,lora]
 
 (``--label``: printed beside the tree's name.) Run several trees in turns
 in one call on one card to compare them; tools/gemv_variants.py runs it on
@@ -39,13 +48,23 @@ def _chip_smoke():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
+    ap.add_argument("--what", default="gemv,int4,lora")
     args = ap.parse_args(argv)
     tree = " ".join(filter(None, [os.path.basename(os.getcwd()), args.label]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"gemv [{tree}] card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    _chip_smoke().gemv_device_times(torch.device("cuda"), label=tree)
+    cs, dev = _chip_smoke(), torch.device("cuda")
+    for what in args.what.split(","):
+        if what == "gemv":
+            cs.gemv_device_times(dev, label=tree)
+        elif what == "int4":
+            cs.wq_device_times(dev, label=tree, kinds=("int4",))
+        elif what == "lora":
+            cs.lora_device_times(dev, label=tree)
+        else:
+            raise SystemExit(f"gemv_times: --what takes gemv, int4, lora (got {what!r})")
     return 0
 
 

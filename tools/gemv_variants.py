@@ -1,7 +1,8 @@
-"""Builds of the int8 GEMV tile (``csrc/gemv_tile.cuh``) and its plan with
-one change each, timed by tools/gemv_times.py:
+"""Builds of the GEMV tile (``csrc/gemv_tile.cuh``: the int8 GEMV and B9's
+int4 form), its plan and the LoRA shrink with one change each, timed by
+tools/gemv_times.py:
 
-    python3 tools/gemv_variants.py [NAME ...]      # default: all of VARIANTS
+    python3 tools/gemv_variants.py [--what gemv,int4,lora] [NAME ...]   # default: all
 
 A variant is a copy of ``paligemma_tpu_torch`` under
 ``build/gemv_variants/NAME/`` with the text replacements of ``VARIANTS[NAME]``
@@ -21,13 +22,21 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "paligemma_tpu_torch"
 TILE = "csrc/gemv_tile.cuh"
+_INT4 = "csrc/int4_matmul.cu"
+_GEMV = "csrc/int8_gemv.cu"
 
 # the loads alone: every loaded word kept alive by a cheap sum, no mma
 _LOADS_ONLY = """        acc[0][0] += __uint_as_float((wb[s][0].x ^ wb[s][1].y ^ wb[s][2].z ^ wb[s][3].w ^
                                       wb[s][0].w ^ wb[s][1].z ^ wb[s][2].y ^ wb[s][3].x ^
                                       xb[s].x) & 0x3fffffffu);
 """
-# the arithmetic with no weight loads: each row word a constant
+# the int4 step's loads alone: the two x fragments and the weight words kept
+# alive by a cheap sum, no conversion and no mma
+_INT4_LOADS_ONLY = """          acc[0][0] += __uint_as_float((wb[s][0].x ^ wb[s][1].y ^ wb[s][2].z ^ wb[s][3].w ^
+                                        wb[s][0].w ^ wb[s][1].z ^ wb[s][2].y ^ wb[s][3].x ^
+                                        xb[s].x ^ xh[s].y) & 0x3fffffffu);
+"""
+# the arithmetic with no weight loads (both formats): each row word a constant
 _NO_WEIGHT_LOADS = (TILE, "const uint4 v = ldg_stream16(p + r * n1);",
                     "const uint32_t c = 0x01010101u * (uint32_t)(nrow + r);\n"
                     "        const uint4 v = make_uint4(c, c, c, c);")
@@ -36,15 +45,41 @@ VARIANTS = {
     "default": [],
     "stages2": [(TILE, "#define GT_STAGES 3", "#define GT_STAGES 2")],
     "stages4": [(TILE, "#define GT_STAGES 3", "#define GT_STAGES 4")],
-    "loads": [(TILE, "        gt_mma_step(acc, wb[s], xb[s], magic);\n", _LOADS_ONLY)],
+    "loads": [(TILE, "          gt_mma_step(acc, wb[s], xb[s], magic);\n", _LOADS_ONLY)],
+    "int4_loads": [(TILE, "          gt_mma_step_int4(acc, wb[s], xb[s], xh[s]);\n",
+                    _INT4_LOADS_ONLY)],
     "math_x": [_NO_WEIGHT_LOADS],
     "math": [_NO_WEIGHT_LOADS,
              (TILE, "  uint32_t lo = 0u, hi = 0u;\n  if (xrow) {",
               "  uint32_t lo = (uint32_t)nrow, hi = 0u;\n  if (false) {")],
     "warps4": [("kernels/gemv_plan.py", "WARP_CHOICES = (4, 8)", "WARP_CHOICES = (4,)")],
+    # B9's tile with one CTA an SM allowed (up to 255 registers), with 3 or 4
+    # steps of loads in flight (time with --what int4)
+    "int4_lb1": [(_INT4, "__launch_bounds__(32 * GT_MAX_WARPS, 2)\n    int4_gemv_kernel",
+                  "__launch_bounds__(32 * GT_MAX_WARPS, 1)\n    int4_gemv_kernel")],
+    "int4_lb1_stages4": [(_INT4, "__launch_bounds__(32 * GT_MAX_WARPS, 2)\n    int4_gemv_kernel",
+                          "__launch_bounds__(32 * GT_MAX_WARPS, 1)\n    int4_gemv_kernel"),
+                         (TILE, "#define GT_STAGES 3", "#define GT_STAGES 4")],
+    # the LoRA shrink (time with --what lora): ranks of 512 K rows at least
+    # (clusters of 4 at K 2048), or CTAs of 512 threads everywhere
+    "shrink_rows512": [("kernels/lora.py", "MIN_ROWS_PER_RANK = 256", "MIN_ROWS_PER_RANK = 512")],
+    "shrink_t512": [("kernels/lora.py", "SMALL_RANK = 256", "SMALL_RANK = 0")],
+    # ranks of 1024 or 2048 K rows at least: clusters of 2 or 1 CTA at K 2048
+    "shrink_rows1024": [("kernels/lora.py", "MIN_ROWS_PER_RANK = 256",
+                         "MIN_ROWS_PER_RANK = 1024")],
+    "shrink_rows2048": [("kernels/lora.py", "MIN_ROWS_PER_RANK = 256",
+                         "MIN_ROWS_PER_RANK = 2048")],
+    # the LoRA expand in the GEMV (time with --what lora): the most shared
+    # memory an SM can carve out, or the deltas not computed (what the rest
+    # of the LoRA path costs; wrong outputs)
+    "expand_carveout": [(_GEMV, "    if (err != cudaSuccess) return (int)err;\n  }",
+                         "    if (err != cudaSuccess) return (int)err;\n"
+                         "    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,"
+                         " 100);\n  }")],
+    "expand_nodelta": [(_GEMV, "item < ncols * rstep; item += blockDim.x", "item < 0; item += 1")],
     "target2x": [("kernels/gemv_plan.py", "TARGET_WARPS = 16 * 132", "TARGET_WARPS = 32 * 132")],
 }
-KERNELS = ("int8_gemv_kernel", "head_argmax_kernel")
+KERNELS = ("int8_gemv_kernel", "head_argmax_kernel", "int4_gemv_kernel")
 
 
 def make_copy(name: str) -> str:
@@ -69,12 +104,16 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from chip_smoke import ptxas_lines
 
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    what = []
+    if args[:1] == ["--what"]:
+        what, args = ["--what", args[1]], args[2:]
+    names = args or list(VARIANTS)
     rc = 0
     for name in names:
         top = make_copy(name)
-        res = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "gemv_times.py")],
-                             cwd=top)
+        res = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "gemv_times.py"),
+                              *what], cwd=top)
         rc |= res.returncode
         print(f"variant [{name}]: gemv_times rc {res.returncode}", flush=True)
         for log in pathlib.Path(top, "build", PKG).glob("*/ptxas.log"):
