@@ -65,9 +65,20 @@ MAX_SEQ = 2048
 # NVIDIA H100 80GB HBM3 at 700 W. The tolerance is about 4x that reading; a
 # kernel that dropped or garbled a term is off by O(1).
 LOGIT_REL_TOL = 3e-2
-# the kernels of the int8 greedy inference path (PaliGemmaEngine.generate)
+# the kernels of the int8 greedy inference path (PaliGemmaEngine.generate):
+# per decode layer the qkv GEMV with the input norm and RoPE + KV write
+# (int8_gemv_rope_kv), attention, and the o, gateup (post-attention norm in
+# its prologue) and down GEMVs; rms_norm is the final norm, once a step
 GENERATE_KERNELS = ("flash_attention_fwd", "int8_gemv", "decode_attention", "rms_norm",
-                    "rope_kv_write", "head_argmax")
+                    "int8_gemv_rope_kv", "head_argmax")
+# device launches per decode layer without a LoRA bank: the qkv GEMV, the
+# attention's split and combine, o, gateup, down (9 before the norms and
+# RoPE moved into the GEMVs); and the final norm, once a step or tick
+LAYER_LAUNCHES = 6
+# the device events of a decode layer's kernels (the profile's gate), and
+# the final norm's
+LAYER_EVENTS = ("int8_gemv_kernel", "attn_split", "attn_combine", "rope_kv_write_kernel")
+NORM_EVENT = "rms_norm_kernel"
 # the tensor-parallel wrappers (B7, B7b, B8 and the fp32-partial epilogue):
 # no one-card kernel path launches them
 TP_KERNELS = ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp", "attn_decode_paged_tp")
@@ -77,43 +88,44 @@ ABLATION_KERNELS = ("vision_attention", "seg_decode_attention", "int4_matmul", "
                     "int8_matmul_nmajor")
 # the serving engines' kernels: (must launch, must not launch, once per layer
 # and tick); the dense tick is the generate chain, the paged fused tick the
-# same chain with kernels B and A, the page walk kernel A with torch ops
-DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "rope_kv_write_paged", "lora_shrink")
-              + TP_KERNELS, ("decode_attention", "rope_kv_write"))
+# same chain with kernels B and A (the qkv GEMV writing page slots), the
+# page walk kernel A with torch ops. A tick that launches rms_norm (the
+# final norm) launches it once
+DENSE_TICK = (GENERATE_KERNELS, ("paged_decode_attention", "lora_shrink") + TP_KERNELS,
+              ("decode_attention", "int8_gemv_rope_kv"))
 PAGED_FUSED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "head_argmax",
-                     "paged_decode_attention", "rope_kv_write_paged"),
-                    ("decode_attention", "rope_kv_write", "lora_shrink") + TP_KERNELS,
-                    ("paged_decode_attention", "rope_kv_write_paged"))
+                     "paged_decode_attention", "int8_gemv_rope_kv"),
+                    ("decode_attention", "lora_shrink") + TP_KERNELS,
+                    ("paged_decode_attention", "int8_gemv_rope_kv"))
 # sampled ticks take the int8 GEMV head, so a mixed run need not reach the
 # argmax head kernel
 PAGED_MIXED_TICK = (tuple(k for k in PAGED_FUSED_TICK[0] if k != "head_argmax"),
                     *PAGED_FUSED_TICK[1:])
 PAGE_WALK_TICK = (("flash_attention_fwd", "paged_decode_attention"),
-                  ("decode_attention", "rope_kv_write", "rope_kv_write_paged") + TP_KERNELS,
+                  ("decode_attention", "int8_gemv_rope_kv") + TP_KERNELS,
                   ("paged_decode_attention",))
 # the multi-LoRA tick adds lora_shrink (kernels/lora) four times per layer
-# (qkv, o, gate|up, down), and each of the four int8_gemv launches of the
-# layer adds the expand in its epilogue: 8 LoRA-related launches per layer
-# and tick, one shrink and one GEMV per target group; no run without a bank
-# launches lora_shrink
+# (qkv, o, gate|up, down), and each of the four GEMV launches of the layer
+# (int8_gemv_rope_kv for qkv, int8_gemv for the other three) adds the
+# expand in its epilogue: 8 LoRA-related launches per layer and tick, one
+# shrink and one GEMV per target group; no run without a bank launches
+# lora_shrink
 LORA_KERNELS = ("lora_shrink",)
-LORA_LAUNCHES_PER_LAYER = {"lora_shrink": 4, "int8_gemv": 4}
+LORA_LAUNCHES_PER_LAYER = {"lora_shrink": 4, "int8_gemv": 3, "int8_gemv_rope_kv": 1}
 # the tensor-parallel ticks at world size 1 (run (b)): the dense TP tick is
-# B7 (its chain counts rms_norm, int8_gemv, rope_kv_write, decode_attention
-# and int8_gemv_f32 each) and B7b per layer, then the vocab-shard argmax
-# head; the paged TP tick is B8 and B7b per layer, then the gathered int8
-# GEMV head
+# B7 (its chain counts int8_gemv_rope_kv, decode_attention and
+# int8_gemv_f32 each) and B7b per layer, then the vocab-shard argmax head;
+# the paged TP tick is B8 and B7b per layer, then the gathered int8 GEMV
+# head
 TP_DENSE_TICK = (GENERATE_KERNELS + ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp"),
-                 ("paged_decode_attention", "rope_kv_write_paged", "attn_decode_paged_tp",
-                  "lora_shrink"),
-                 ("attn_decode_tp", "mlp_decode_fused", "decode_attention", "rope_kv_write"))
+                 ("paged_decode_attention", "attn_decode_paged_tp", "lora_shrink"),
+                 ("attn_decode_tp", "mlp_decode_fused", "decode_attention", "int8_gemv_rope_kv"))
 TP_PAGED_TICK = (("flash_attention_fwd", "int8_gemv", "rms_norm", "paged_decode_attention",
-                  "rope_kv_write_paged", "int8_gemv_f32", "mlp_decode_fused",
+                  "int8_gemv_rope_kv", "int8_gemv_f32", "mlp_decode_fused",
                   "attn_decode_paged_tp"),
-                 ("decode_attention", "rope_kv_write", "attn_decode_tp", "head_argmax",
-                  "lora_shrink"),
+                 ("decode_attention", "attn_decode_tp", "head_argmax", "lora_shrink"),
                  ("attn_decode_paged_tp", "mlp_decode_fused", "paged_decode_attention",
-                  "rope_kv_write_paged"))
+                  "int8_gemv_rope_kv"))
 # host-side profiler rows of the collectives (c10d's dispatch and NCCL's own
 # range); the gloo path stages through host copies, counted as copies
 COLLECTIVE_KEYS = ("c10d::", "nccl:", "record_param_comms", "allreduce", "all_gather",
@@ -605,6 +617,258 @@ def lora_device_times(dev, label=""):
           flush=True)
 
 
+def _cold(make, n_bytes_each):
+    """Enough copies from ``make()`` to pass 60 MB (the L2 holds 50 MB), so
+    that each call of a cycled run finds its weights cold."""
+    return [make() for _ in range(max(12, -(-60_000_000 // n_bytes_each)))]
+
+
+def fused_gemv_cases(report: KernelReport, dev):
+    """The layer's RMSNorm in the int8 GEMV's prologue and RoPE + the KV
+    write in the qkv GEMV's epilogue (kernels/int8_gemv ``norm=``,
+    ``int8_gemv_rope_kv``) against the plain chains they replaced, within
+    1e-2, at B1 and B8: qkv and gateup at Gemma-2B's widths and one TP
+    rank's (m = 8: one local head, I/8), into a dense cache and a page pool
+    (shuffled pages), with and without a LoRA bank (3 fp32 adapters of rank
+    8, the shrink with the same norm). Bit rules: dense == paged; the cast
+    q|k|v are the plain-epilogue GEMV's bits (v copied, q and k rotated as
+    the plain version rotates them); base rows of a bank the bits without
+    one; one y everywhere (three plans' GEMVs over identity weights and the
+    shrink return the same normalized rows); a second call the same bits.
+    Then the times: back to back at B1 (the JSON's), and the device times
+    of :func:`fused_device_times`."""
+    from paligemma_tpu_torch.kernels import decode_elementwise as el
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    kdim, heads, hd, inter = (TP_LAYER[k] for k in ("hidden", "heads", "head_dim", "inter"))
+    eps, s_len, ps = 1e-6, MAX_SEQ, PAGE
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def int8(k, n):
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        return w8, (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+
+    print("kernels: int8_gemv with the norm prologue", flush=True)
+    norm = (bf(kdim, scale=0.1), eps)
+    for name, n, kw in (("qkv", (heads + 2) * hd, {}), ("gateup+GeGLU", 2 * inter, {"geglu": True}),
+                        ("qkv m8", 3 * hd, {}), ("gateup+GeGLU m8", 2 * inter // 8,
+                                                 {"geglu": True})):
+        w8, s = int8(kdim, n)
+        for b in (1, 8):
+            x = bf(b, kdim, scale=3.0)
+            got = gv.int8_gemv(x, w8, s, norm=norm, **kw)
+            again = gv.int8_gemv(x, w8, s, norm=norm, **kw)
+            want = gv.int8_gemv_reference(x, w8, s, norm=norm, **kw)
+            sync()
+            report.case("int8_gemv", f"{name} + norm B{b} {kdim}->{n}", got, want, 1e-2)
+            if not torch.equal(got, again):
+                raise AssertionError(f"int8_gemv {name} + norm: a second call gave other bits")
+        del w8
+    eye = torch.eye(kdim, device=dev, dtype=torch.int8)
+    unit = torch.zeros(kdim, 8, device=dev, dtype=torch.bfloat16)
+    unit[torch.arange(1000, 1008, device=dev), torch.arange(8, device=dev)] = 1.0
+    for b in (1, 8):
+        x = bf(b, kdim, scale=3.0)
+        ys = []
+        for reps in (1, 2, 16):  # plans of 256, 256 and 1024 K rows a CTA
+            out = gv.int8_gemv(x, eye.repeat(1, reps).contiguous(),
+                               torch.ones(kdim * reps, device=dev), norm=norm)
+            ys += list(out.split(kdim, dim=1))
+        z = kl.lora_shrink(x, unit, torch.zeros(b, dtype=torch.int32, device=dev), 8, 8,
+                           norm=norm)
+        sync()
+        report.case("int8_gemv", f"norm prologue's y B{b} vs rms_norm", ys[0],
+                    el.rms_norm_reference(x, *norm), 1e-2)
+        same = all(torch.equal(t, ys[0]) for t in ys) and torch.equal(z, ys[0][:, 1000:1008])
+        print(f"  {'int8_gemv':20s} {f'one y: 3 plans and the shrink, B{b}':44s} torch.equal "
+              f"{same}  {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError("the norm prologue's y differs between plans or the shrink")
+    del eye
+
+    print("kernels: int8_gemv_rope_kv (qkv + norm + RoPE + KV write)", flush=True)
+    gcols, rank = (len(LORA_NAMES) + 1) * LORA_RANK, LORA_RANK
+    for hl in (heads, 1):
+        n = (hl + 2) * hd
+        w8, s = int8(kdim, n)
+        a = torch.randn(kdim, 3 * gcols, generator=g, device=dev) * kdim**-0.5
+        a[:, torch.arange(3 * gcols, device=dev) % gcols < rank] = 0  # the zero adapter
+        lb = torch.randn(gcols, n, generator=g, device=dev) * 0.5
+        for b in (1, 8):
+            x = bf(b, kdim, scale=3.0)
+            ang = torch.rand(b, hd, generator=g, device=dev) * 6.28
+            cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+            pos = torch.tensor([s_len - 1 - 229 * i % (s_len // 2) for i in range(b)],
+                               dtype=torch.int32, device=dev)
+            n_p = s_len // ps
+            table = (torch.randperm(b * n_p, generator=g, device=dev) + 1).to(torch.int32)
+            table = table.reshape(b, n_p)
+            ids = (torch.arange(b, device=dev) % (len(LORA_NAMES) + 1)).to(torch.int32)
+            rows = torch.arange(b, device=dev)
+            slot = table[rows, pos.long() // ps].long(), pos.long() % ps
+
+            def run(fn, paged, lora):
+                shape = (b * n_p + 1, ps, hd) if paged else (b, s_len, hd)
+                kd, vd = (torch.zeros(shape, dtype=torch.bfloat16, device=dev) for _ in range(2))
+                kn, vn = (torch.empty(b, hd, dtype=torch.bfloat16, device=dev) for _ in range(2))
+                q, _, _ = fn(x, w8, s, cos, sin, pos, hl, kd, vd, kn, vn, norm=norm,
+                             page_table=table if paged else None, lora=lora)
+                at = slot if paged else (rows, pos.long())
+                return q, kn, vn, kd[at], vd[at]
+
+            base = None
+            for bank in (False, True):
+                lora = None
+                if bank:
+                    z = kl.lora_shrink(x, a, ids, rank, gcols, norm=norm)
+                    zp = kl.lora_shrink_reference(x, a, ids, rank, gcols, norm=norm)
+                    sync()
+                    report.case("lora_shrink", f"norm B{b} K{kdim} nG{3 * gcols}", z, zp, 1e-2)
+                    lora = (z, lb, (hl * hd, (hl + 1) * hd))
+                label = f"B{b} Hl{hl} D{hd}{' bank' if bank else ''}"
+                dense = run(gv.int8_gemv_rope_kv, False, lora)
+                paged = run(gv.int8_gemv_rope_kv, True, lora)
+                again = run(gv.int8_gemv_rope_kv, False, lora)
+                qkv = gv.int8_gemv(x, w8, s, norm=norm, lora=lora)  # mode 0's epilogue
+                for layout, got in (("dense", dense), ("paged", paged)):
+                    want = run(gv.int8_gemv_rope_kv_reference, layout == "paged", lora)
+                    sync()
+                    report.case("int8_gemv_rope_kv", f"{label} {layout} q", got[0], want[0], 1e-2)
+                    report.case("int8_gemv_rope_kv", f"{label} {layout} k/v rows, k_new/v_new",
+                                torch.cat([t.flatten() for t in got[1:]]),
+                                torch.cat([t.flatten() for t in want[1:]]), 1e-2)
+                kc, vc = (torch.zeros(b, s_len, hd, dtype=torch.bfloat16, device=dev)
+                          for _ in range(2))
+                kn, vn = (torch.empty(b, hd, dtype=torch.bfloat16, device=dev) for _ in range(2))
+                mode0 = el.rope_kv_write_reference(qkv, cos, sin, pos, hl, kc, vc, kn, vn)
+                sync()
+                checks = {"dense == paged": all(map(torch.equal, dense, paged)),
+                          "a second call": all(map(torch.equal, dense, again)),
+                          "mode 0's bits, rotated plainly": all(map(torch.equal, dense[:3],
+                                                                    mode0))}
+                if bank:
+                    checks["base rows == no bank"] = all(
+                        torch.equal(u[ids == 0], v[ids == 0]) for u, v in zip(dense[:3], base))
+                else:
+                    base = dense[:3]
+                print(f"  {'int8_gemv_rope_kv':20s} {label:44s} bits: " + ", ".join(
+                    f"{k} {v}" for k, v in checks.items())
+                    + f"  {'ok' if all(checks.values()) else 'FAIL'}", flush=True)
+                if not all(checks.values()):
+                    raise AssertionError(f"int8_gemv_rope_kv {label}: bit rules {checks}")
+            if b == 1 and hl == heads:
+                kd, vd = (torch.zeros(b, s_len, hd, dtype=torch.bfloat16, device=dev)
+                          for _ in range(2))
+                kn, vn = (torch.empty(b, hd, dtype=torch.bfloat16, device=dev) for _ in range(2))
+                args = (x, w8, s, cos, sin, pos, hl, kd, vd, kn, vn)
+                # reads x, the norm weight, the weights and scales, cos, sin, pos; writes q
+                # and the fresh rows (cache and k_new / v_new)
+                report.time("int8_gemv_rope_kv", f"{label} dense",
+                            lambda: gv.int8_gemv_rope_kv(*args, norm=norm),
+                            lambda: gv.int8_gemv_rope_kv_reference(*args, norm=norm),
+                            flops=2 * b * kdim * n + 6 * b * n,
+                            n_bytes=(nbytes(x, norm[0], w8, s, cos, sin, pos) + 2 * b * hl * hd
+                                     + 4 * nbytes(kn)))
+        del w8, a, lb
+    fused_device_times(dev)
+
+
+def fused_device_times(dev, label=""):
+    """Device time per call (torch.profiler, weights cold: each call takes
+    the next of enough copies to pass 60 MB) of one decode layer's norm and
+    RoPE work at B1 and B8, on the tree under test (tools/decode_times.py
+    runs it on others), each beside its bytes bound:
+
+    * where kernels/int8_gemv has ``int8_gemv_rope_kv``: the qkv GEMV with
+      the norm prologue and the RoPE + KV write epilogue (dense rows and
+      page slots), with the norm alone, and with neither; gateup with and
+      without the norm;
+    * else (the chain before it): rms_norm, the qkv GEMV, rope_kv_write and
+      rope_kv_write_paged (Triton), gateup.
+
+    Prints the layer's sum: the two norms, qkv and RoPE, gateup."""
+    from paligemma_tpu_torch.kernels import decode_elementwise as el
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+
+    fused = hasattr(gv, "int8_gemv_rope_kv")
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    kdim, heads, hd, inter = (TP_LAYER[k] for k in ("hidden", "heads", "head_dim", "inter"))
+    nq, ng, ps, eps = (heads + 2) * hd, 2 * inter, PAGE, 1e-6
+    tag = f"[{label}] " if label else ""
+    print(f"kernels: {tag}the layer's norms and RoPE, device time, weights cold "
+          f"({'fused into the GEMVs' if fused else 'the chain of separate kernels'})", flush=True)
+
+    def leaf(n):
+        return (torch.randint(-127, 128, (kdim, n), generator=g, device=dev, dtype=torch.int8),
+                (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * kdim**0.5))
+
+    qkvs, gus = _cold(lambda: leaf(nq), kdim * nq), _cold(lambda: leaf(ng), kdim * ng)
+    wn = (torch.randn(kdim, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    for b in (1, 8):
+        x = (torch.randn(b, kdim, generator=g, device=dev) * 3).to(torch.bfloat16)
+        ang = torch.rand(b, hd, generator=g, device=dev) * 6.28
+        cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+        pos = torch.tensor([300 + 13 * i for i in range(b)], dtype=torch.int32, device=dev)
+        kc, vc = (torch.zeros(b, MAX_SEQ, hd, dtype=torch.bfloat16, device=dev) for _ in range(2))
+        kp, vp = (torch.zeros(8 * b + 1, ps, hd, dtype=torch.bfloat16, device=dev)
+                  for _ in range(2))
+        table = (torch.arange(8 * b, device=dev) + 1).to(torch.int32).reshape(b, 8)
+        kn, vn = (torch.empty(b, hd, dtype=torch.bfloat16, device=dev) for _ in range(2))
+        qkv_bytes = kdim * nq + 4 * nq + 2 * b * kdim  # weights, scales, x
+        # cos, sin, pos in; q out, k and v into the cache and k_new / v_new
+        rope_out = nbytes(cos, sin, pos) + 2 * b * heads * hd + 4 * nbytes(kn)
+        rope_bytes = 2 * b * nq + rope_out  # the separate kernel reads q|k|v
+        gu_bytes = kdim * ng + 4 * ng + 2 * b * kdim + b * ng
+        norm_bytes = 4 * b * kdim + 2 * kdim
+        if fused:
+            rope = (cos, sin, pos)
+            fns = [("qkv + norm + RoPE, dense", [lambda w=w: gv.int8_gemv_rope_kv(
+                        x, *w, *rope, heads, kc, vc, kn, vn, norm=(wn, eps)) for w in qkvs],
+                    qkv_bytes + 2 * kdim + rope_out),
+                   ("qkv + norm + RoPE, paged", [lambda w=w: gv.int8_gemv_rope_kv(
+                       x, *w, *rope, heads, kp, vp, kn, vn, norm=(wn, eps), page_table=table)
+                       for w in qkvs], qkv_bytes + 2 * kdim + rope_out + nbytes(table)),
+                   ("qkv + norm", [lambda w=w: gv.int8_gemv(x, *w, norm=(wn, eps))
+                                   for w in qkvs], qkv_bytes + 2 * kdim + 2 * b * nq),
+                   ("qkv", [lambda w=w: gv.int8_gemv(x, *w) for w in qkvs],
+                    qkv_bytes + 2 * b * nq),
+                   ("gateup + norm", [lambda w=w: gv.int8_gemv(x, *w, geglu=True, norm=(wn, eps))
+                                      for w in gus], gu_bytes + 2 * kdim),
+                   ("gateup", [lambda w=w: gv.int8_gemv(x, *w, geglu=True) for w in gus],
+                    gu_bytes)]
+            layer = ("qkv + norm + RoPE, dense", "gateup + norm")
+        else:
+            qkv_out = gv.int8_gemv(x, *qkvs[0])
+            fns = [("rms_norm", [lambda: el.rms_norm(x, wn, eps)], norm_bytes),
+                   ("qkv", [lambda w=w: gv.int8_gemv(x, *w) for w in qkvs],
+                    qkv_bytes + 2 * b * nq),
+                   ("rope_kv_write", [lambda: el.rope_kv_write(qkv_out, cos, sin, pos, heads, kc,
+                                                               vc, kn, vn)], rope_bytes),
+                   ("rope_kv_write_paged", [lambda: el.rope_kv_write_paged(
+                       qkv_out, cos, sin, pos, heads, kp, vp, table, kn, vn)],
+                    rope_bytes + nbytes(table)),
+                   ("gateup", [lambda w=w: gv.int8_gemv(x, *w, geglu=True) for w in gus],
+                    gu_bytes)]
+            layer = ("rms_norm", "rms_norm", "qkv", "rope_kv_write", "gateup")
+        got = {}
+        for name, calls, n_bytes in fns:
+            ms = device_ms(_cycling(calls), max(10, 2 * len(calls)), f"{name} B{b}")[0]
+            got[name] = ms
+            print(f"  device {tag}{name:26s} B{b}: "
+                  f"{'not measured' if ms is None else f'{ms * 1e3:.2f} us'}  bound "
+                  f"{n_bytes / PEAK_BYTES * 1e6:.3f} us (bytes)", flush=True)
+        parts = [got[k] for k in layer]
+        total = "not measured" if None in parts else f"{sum(parts) * 1e3:.2f} us"
+        print(f"  device {tag}one layer's norms, qkv, RoPE and gateup B{b}: {total} "
+              f"({' + '.join(layer)})", flush=True)
+        del kc, vc, kp, vp
+    del qkvs, gus
+
+
 def kernel_phase(report: KernelReport, dev):
     from paligemma_tpu_torch.kernels import decode_attention as da
     from paligemma_tpu_torch.kernels import decode_elementwise as el
@@ -753,17 +1017,23 @@ def kernel_phase(report: KernelReport, dev):
             report.case("int8_gemv", label, got, want, 1e-2)
             if not torch.equal(got, again):
                 raise AssertionError(f"int8_gemv {label}: a second call gave other bits")
-            # ms in the JSON: one layer's four GEMVs at B=1 (head apart),
-            # beside torch's int8 weight-only matmul on the N-major copy with
-            # bf16 scales (the product alone, without the epilogue)
+            # ms in the JSON: the three int8_gemv calls of a decode layer at
+            # B=1 (o, gateup with the post-attention norm in its prologue,
+            # down; qkv is int8_gemv_rope_kv's and printed only), beside
+            # torch's int8 weight-only matmul on the N-major copy with bf16
+            # scales (the product alone, without the epilogue or the norm)
             if b == 1 and name in ("qkv", "o+res", "gateup+GeGLU", "down+res"):
                 w8t, s_bf = w8.t().contiguous(), s.to(torch.bfloat16)
-                report.time("int8_gemv", label, lambda: gv.int8_gemv(x, w8, s, **args),
-                            lambda: gv.int8_gemv_reference(x, w8, s, **args),
+                tkw = dict(args, norm=(bf(k, scale=0.1), 1e-6)) if args.get("geglu") else args
+                report.time("int8_gemv", label + (" + norm" if "norm" in tkw else ""),
+                            lambda: gv.int8_gemv(x, w8, s, **tkw),
+                            lambda: gv.int8_gemv_reference(x, w8, s, **tkw),
                             flops=2 * b * k * n,
                             n_bytes=nbytes(x, w8, s, got,
-                                           *[t for t in args.values() if torch.is_tensor(t)]),
-                            library_fn=lambda: torch._weight_int8pack_mm(x, w8t, s_bf))
+                                           *[t for t in args.values() if torch.is_tensor(t)])
+                            + (2 * k if "norm" in tkw else 0),
+                            library_fn=lambda: torch._weight_int8pack_mm(x, w8t, s_bf),
+                            in_json=name != "qkv")
                 del w8t
             elif b == 1 and name == "head":
                 k_ms, p_ms = timed_pair(lambda: gv.int8_gemv(x, w8, s),
@@ -825,8 +1095,8 @@ def kernel_phase(report: KernelReport, dev):
             " ms (bytes)", flush=True)
         del kc, vc
 
-    # -- RMSNorm and the fused RoPE + cache write
-    print("kernels: rms_norm, rope_kv_write", flush=True)
+    # -- the final RMSNorm (Triton; the layers' norms are GEMV prologues)
+    print("kernels: rms_norm (the final norm before the head)", flush=True)
     for b in (1, 8):
         x, wn = bf(b, 2048), bf(2048, scale=0.1)
         got, want = el.rms_norm(x, wn, 1e-6), el.rms_norm_reference(x, wn, 1e-6)
@@ -841,32 +1111,10 @@ def kernel_phase(report: KernelReport, dev):
             device_times(f"B{b} K2048", [
                 ("rms_norm", lambda: el.rms_norm(x, wn, 1e-6)),
                 ("F.rms_norm", lambda: F.rms_norm(x, (2048,), w1, 1e-6))])
-        qkv = bf(b, 2560)
-        ang = torch.from_numpy(rng.random((b, 256), dtype=np.float32) * 6.28).to(dev)
-        cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
-        pos = torch.tensor([300 + 13 * i for i in range(b)], dtype=torch.int32, device=dev)
-        caches = [torch.zeros((b, MAX_SEQ, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
-        rows = [torch.empty((b, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
-        kern = (qkv, cos, sin, pos, 8, caches[0], caches[1], rows[0], rows[1])
-        plain = (qkv, cos, sin, pos, 8, caches[2], caches[3], rows[2], rows[3])
-        qk, _, _ = el.rope_kv_write(*kern)
-        qp, _, _ = el.rope_kv_write_reference(*plain)
-        sync()
-        report.case("rope_kv_write", f"B{b} q", qk, qp, 1e-2)
-        report.case("rope_kv_write", f"B{b} k/v cache rows and k_new/v_new",
-                    torch.cat([c.flatten() for c in caches[:2] + rows[:2]]),
-                    torch.cat([c.flatten() for c in caches[2:] + rows[2:]]), 1e-2)
-        if b == 1:
-            # reads qkv, cos, sin, pos; writes q, the two cache rows, k_new, v_new
-            report.time("rope_kv_write", f"B{b} Hq8 D256",
-                        lambda: el.rope_kv_write(*kern),
-                        lambda: el.rope_kv_write_reference(*plain),
-                        flops=6 * qkv.numel(),
-                        n_bytes=nbytes(qkv, cos, sin, pos, qk) + 2 * nbytes(rows[0], rows[1]))
+    fused_gemv_cases(report, dev)
 
-    # -- paged decode attention over the layer-stacked pool at layer 17 and
-    # the paged RoPE + KV write (page size 64)
-    print("kernels: paged_decode_attention, rope_kv_write_paged", flush=True)
+    # -- paged decode attention over the layer-stacked pool at layer 17
+    print("kernels: paged_decode_attention", flush=True)
     ps, n_layers = 64, 18
     for b, w, hkv, frag in [(1, 512, 1, False), (1, 1024, 1, True), (8, 512, 1, True),
                             (8, 1024, 1, False), (8, 1024, 2, True)]:
@@ -946,34 +1194,6 @@ def kernel_phase(report: KernelReport, dev):
         if not same:
             raise AssertionError(f"split attention policies differ on shared keys: {what}")
     del kc, vc, kp, vp
-
-    for b in (1, 8):
-        n_pages = 8 * b + 1
-        qkv = bf(b, 2560)
-        ang = torch.from_numpy(rng.random((b, 256), dtype=np.float32) * 6.28).to(dev)
-        cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
-        pos = torch.tensor([300 + 13 * i for i in range(b)], dtype=torch.int32, device=dev)
-        ids = np.arange(1, n_pages)
-        rng.shuffle(ids)
-        table = torch.from_numpy(ids.reshape(b, 8).astype(np.int32)).to(dev)
-        pools = [torch.zeros((n_pages, ps, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
-        rows = [torch.empty((b, 256), dtype=torch.bfloat16, device=dev) for _ in range(4)]
-        kern = (qkv, cos, sin, pos, 8, pools[0], pools[1], table, rows[0], rows[1])
-        plain = (qkv, cos, sin, pos, 8, pools[2], pools[3], table, rows[2], rows[3])
-        qk, _, _ = el.rope_kv_write_paged(*kern)
-        qp, _, _ = el.rope_kv_write_paged_reference(*plain)
-        sync()
-        report.case("rope_kv_write_paged", f"B{b} q", qk, qp, 1e-2)
-        report.case("rope_kv_write_paged", f"B{b} k/v pool slots and k_new/v_new",
-                    torch.cat([c.flatten() for c in pools[:2] + rows[:2]]),
-                    torch.cat([c.flatten() for c in pools[2:] + rows[2:]]), 1e-2)
-        if b == 8:
-            report.time("rope_kv_write_paged", f"B{b} Hq8 D256 ps64",
-                        lambda: el.rope_kv_write_paged(*kern),
-                        lambda: el.rope_kv_write_paged_reference(*plain),
-                        flops=6 * qkv.numel(),
-                        n_bytes=(nbytes(qkv, cos, sin, pos, table, qk)
-                                 + 2 * nbytes(rows[0], rows[1])))
 
     # -- LM-head argmax: random inputs, then a planted three-way tie
     print("kernels: head_argmax", flush=True)
@@ -1091,7 +1311,9 @@ def tp_kernel_phase(report: KernelReport, dev):
                                   pages_bucket=n_p, head_dim=hd, eps=eps)
                 got = tp.attn_decode_tp(x, local, *caches[0], layer, **dense_args)
                 gotp = ptp.attn_decode_paged_tp(x, local, *pools[0], layer, **paged_args)
-                gotm = dm.mlp_decode_fused(y2, local["mlp"], layer, out_dtype=torch.float32)
+                post = (layers["post_norm"][layer], eps)  # in the gate/up GEMV's prologue
+                gotm = dm.mlp_decode_fused(y2, local["mlp"], layer, out_dtype=torch.float32,
+                                           norm=post)
                 for name, part in (("attn_decode_tp", got[0]), ("attn_decode_paged_tp", gotp[0]),
                                    ("mlp_decode_fused", gotm)):
                     sums[name] = part if r == 0 else sums[name] + part
@@ -1100,7 +1322,8 @@ def tp_kernel_phase(report: KernelReport, dev):
                 want = tp.attn_decode_tp_reference(x, local, *caches[1], layer, **dense_args)
                 wantp = ptp.attn_decode_paged_tp_reference(x, local, *pools[1], layer,
                                                            **paged_args)
-                wantm = dm.reference_mlp(y2, local["mlp"], layer, out_dtype=torch.float32)
+                wantm = dm.reference_mlp(y2, local["mlp"], layer, out_dtype=torch.float32,
+                                         norm=post)
                 sync()
                 label = f"m{m} r{r} B{b} Hl{hl}"
                 rows = torch.arange(b, device=dev)
@@ -1145,11 +1368,11 @@ def tp_kernel_phase(report: KernelReport, dev):
                                 flops=f_attn, n_bytes=w_attn + nbytes(table))
                     report.time("mlp_decode_fused", f"m{m} r{r} B{b} I/m {il}",
                                 lambda: dm.mlp_decode_fused(y2, local["mlp"], layer,
-                                                            out_dtype=torch.float32),
+                                                            out_dtype=torch.float32, norm=post),
                                 lambda: dm.reference_mlp(y2, local["mlp"], layer,
-                                                         out_dtype=torch.float32),
+                                                         out_dtype=torch.float32, norm=post),
                                 flops=2 * b * kdim * 2 * il + 2 * b * il * kdim,
-                                n_bytes=nbytes(y2, gu["w8"][layer], gu["s"][layer],
+                                n_bytes=nbytes(y2, post[0], gu["w8"][layer], gu["s"][layer],
                                                dn["w8"][layer], dn["s"][layer], gotm))
                     # rows 5, 6, 8 of PERF.md: the chains' device time per call
                     device_times(label, [
@@ -1158,7 +1381,7 @@ def tp_kernel_phase(report: KernelReport, dev):
                         ("attn_decode_paged_tp", lambda: ptp.attn_decode_paged_tp(
                             x, local, *pools[0], layer, **paged_args)),
                         ("mlp_decode_fused", lambda: dm.mlp_decode_fused(
-                            y2, local["mlp"], layer, out_dtype=torch.float32))])
+                            y2, local["mlp"], layer, out_dtype=torch.float32, norm=post))])
                 del local, caches, pools
             for name, part in sums.items():
                 if m == 1:
@@ -1167,7 +1390,8 @@ def tp_kernel_phase(report: KernelReport, dev):
                     report.case(name, f"m{m} B{b} sum of {m} fp32 partials, cast, vs m1",
                                 part.to(torch.bfloat16), unsharded[name], 1e-2, floor=0.0)
         # the unsharded MLP on one card: the bf16 epilogue of the same chain
-        one = dm.mlp_decode_fused(y2, layers["mlp"], layer)
+        one = dm.mlp_decode_fused(y2, layers["mlp"], layer,
+                                  norm=(layers["post_norm"][layer], eps))
         sync()
         if not torch.equal(one, unsharded["mlp_decode_fused"]):
             raise AssertionError("mlp_decode_fused: the fp32 partial at m=1, cast, differs "
@@ -1728,6 +1952,13 @@ def main_path(dev, card):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     n_layers = cfg.text_config.num_hidden_layers
+    # one final norm a decode step, one qkv GEMV (with the layer's norm and
+    # RoPE) a layer and step (the steps: one attention a layer and step)
+    steps = counts["decode_attention"] // n_layers
+    if counts["rms_norm"] != steps or counts["int8_gemv_rope_kv"] != n_layers * steps:
+        raise AssertionError(f"generate: {counts['rms_norm']} rms_norm and "
+                             f"{counts['int8_gemv_rope_kv']} int8_gemv_rope_kv launches over "
+                             f"{steps} steps of {n_layers} layers")
     kernels.reset_launch_counts()
     tok_mlp = mlp_eng.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1,
                                sync_every=16)
@@ -1736,7 +1967,8 @@ def main_path(dev, card):
     print(f"main: launches during generate(fused_mlp=True, fused_layer=False): "
           f"{json.dumps(mlp_counts)}", flush=True)
     if (mlp_counts["mlp_decode_fused"] != n_layers * N_NEW or mlp_counts["decode_attention"]
-            or mlp_counts["attn_decode_tp"] or mlp_counts["int8_gemv_f32"]):
+            or mlp_counts["attn_decode_tp"] or mlp_counts["int8_gemv_f32"]
+            or mlp_counts["int8_gemv_rope_kv"] or mlp_counts["rms_norm"]):
         raise AssertionError("fused_mlp: B7b must run once per layer and step, and no "
                              "decode-layer kernel")
 
@@ -1776,7 +2008,7 @@ def main_path(dev, card):
 
     for name, e in (("kernels", eng), ("plain", plain)):
         decode_rate(f"main: {name:7s}", e, pixels, ids, mask, card)
-    profile_phase(eng, pixels, ids, mask, card)
+    profile_phase(eng, pixels, ids, mask, card, layers=n_layers)
     return params, decode, cfg, tok1
 
 
@@ -1887,7 +2119,8 @@ def _serve(eng, reqs, vocab):
 def _served(label, eng, reqs, vocab, n_layers, tick_kernels=None):
     """``_serve`` with the launch counts zeroed just before the run and read
     just after it. ``tick_kernels`` (must launch, must not launch, once per
-    layer and tick) is checked against the counts and the engine's ticks;
+    layer and tick) is checked against the counts and the engine's ticks,
+    and a tick that must launch rms_norm (the final norm) launches it once;
     None: the run must launch no kernel. Returns ``_serve``'s result and the
     run's counts."""
     from paligemma_tpu_torch import kernels
@@ -1909,7 +2142,8 @@ def _served(label, eng, reqs, vocab, n_layers, tick_kernels=None):
     else:
         need, absent, per_tick = tick_kernels
         bad = ([k for k in need if counts[k] == 0] + [k for k in absent if counts[k]]
-               + [k for k in per_tick if counts[k] != n_layers * ticks[0]])
+               + [k for k in per_tick if counts[k] != n_layers * ticks[0]]
+               + [k for k in ("rms_norm",) if k in need and counts[k] != ticks[0]])
     if bad or not ticks[0]:
         raise AssertionError(f"serve {label}: launch counts off for {bad} "
                              f"({ticks[0]} ticks, {n_layers} layers)")
@@ -2057,7 +2291,8 @@ def serving_phase(params, decode, cfg, dev, card):
     print(f"serve: no host synchronization inside a decode window: {', '.join(engines)}",
           flush=True)
     _profile(f"paged fused greedy window B8, {SERVE['sync_every']} ticks",
-             engines["paged greedy"][0].step, SERVE["sync_every"], card)
+             engines["paged greedy"][0].step, SERVE["sync_every"], card, unit="tick",
+             layers=n_layers)
     for name, toks, wall, ttft in (("paged kernels", tok_a, wall_a, ttft_a),
                                    ("dense kernels", tok_d, wall_d, ttft_d),
                                    ("paged plain", tok_p, wall_p, ttft_p)):
@@ -2327,8 +2562,11 @@ def multilora_phase(report: KernelReport, params, decode, cfg, dev, card):
             r.max_new_tokens = 9
         _serve(make(), warm, vocab)
 
-    dense_lora = (DENSE_TICK[0] + LORA_KERNELS, DENSE_TICK[1][:2] + TP_KERNELS, DENSE_TICK[2])
-    paged_lora = (PAGED_FUSED_TICK[0] + LORA_KERNELS, PAGED_FUSED_TICK[1][:2] + TP_KERNELS,
+    # the ticks without a bank, lora_shrink moved from "must not" to "must"
+    dense_lora = (DENSE_TICK[0] + LORA_KERNELS,
+                  tuple(k for k in DENSE_TICK[1] if k not in LORA_KERNELS), DENSE_TICK[2])
+    paged_lora = (PAGED_FUSED_TICK[0] + LORA_KERNELS,
+                  tuple(k for k in PAGED_FUSED_TICK[1] if k not in LORA_KERNELS),
                   PAGED_FUSED_TICK[2])
     tok_d, wall_d, ttft_d = served("multilora dense", eng_d, dense_lora, "decode_attention")
     eng_p = paged(paged_kernel="fused", lora_bank=adapters)
@@ -2389,7 +2627,7 @@ def multilora_phase(report: KernelReport, params, decode, cfg, dev, card):
     busy = {}
     for name, eng in engines.items():
         got = _profile(f"multilora {name} greedy window B8, {SERVE['sync_every']} ticks",
-                       eng.step, SERVE["sync_every"], card, unit="tick")
+                       eng.step, SERVE["sync_every"], card, unit="tick", layers=n_layers)
         busy[name] = None if got is None else got[0]
         if got is not None and eng.lora_bank is not None:
             # the LoRA-related launches on the device: the shrinks and the
@@ -2479,8 +2717,9 @@ def _teacher_force_paged(params, dparams, cfg, dev, req, tokens, gemma, paligemm
 def _gemv_events(rows, grew):
     """Why the GEMV tile's and the LoRA shrink's device events in ``rows``
     cannot be right: one per wrapper call (``grew``: the wrappers' counts
-    over the run)."""
-    want = {"int8_gemv_kernel": grew["int8_gemv"] + grew["int8_gemv_f32"],
+    over the run; a tree without int8_gemv_rope_kv has none of its calls)."""
+    want = {"int8_gemv_kernel": (grew["int8_gemv"] + grew["int8_gemv_f32"]
+                                 + grew.get("int8_gemv_rope_kv", 0)),
             "head_argmax_kernel": grew["head_argmax"],
             "lora_shrink_kernel": grew["lora_shrink"]}
     for name, n in want.items():
@@ -2490,13 +2729,29 @@ def _gemv_events(rows, grew):
     return None
 
 
-def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
+def layer_launches(rows, n_layers):
+    """(device launches per decode layer, final norms per step or tick,
+    events of the retired RoPE kernel) from a decode profile's device
+    ``rows``: the layer kernels' events (LAYER_EVENTS; the head is the
+    argmax kernel, not a GEMV) over the layer-steps (one attention split
+    each), and the norm kernel's events beyond one a step."""
+    ev = {k: sum(r.count for r in rows if k in r.key) for k in LAYER_EVENTS + (NORM_EVENT,)}
+    layer_steps = ev["attn_split"]
+    steps = layer_steps / n_layers
+    per_layer = (sum(ev[k] for k in LAYER_EVENTS) + ev[NORM_EVENT] - steps) / max(1, layer_steps)
+    return per_layer, ev[NORM_EVENT] / max(1, steps), ev["rope_kv_write_kernel"]
+
+
+def _profile(label, fn, per, card, top=8, unit=None, host_top=0, layers=None):
     """torch.profiler over ``fn()`` (:func:`profiled`: its clock checked
     against CUDA events): device-busy time against wall time per ``per``
     (steps), and the kernels with the most device time. With
     ``host_top``: the host side too, the ops' self CPU time (the
     collectives' apart) against the wall time, and the ``host_top`` ops
-    with the most of it. Returns (device busy ms per ``per``, the
+    with the most of it. With ``layers`` (a decode step or tick of that
+    many layers, greedy, without a LoRA bank): the device launches per
+    layer and the final norms per step (:func:`layer_launches`), which
+    must be LAYER_LAUNCHES and 1. Returns (device busy ms per ``per``, the
     device-side rows), or None when no profile passed."""
     from torch.autograd import DeviceType
 
@@ -2513,9 +2768,20 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
     # counting both would count that time twice
     rows, prof, wall, wrapped = got
     busy = sum(k.self_device_time_total for k in rows) / 1e3
+    n_events = sum(k.count for k in rows)
     print(f"profile: {label}: per {unit} wall "
           f"{wall / per:.3f} ms, device busy {busy / per:.3f} ms "
-          f"({100 * busy / wall:.1f} %)  [{card}]", flush=True)
+          f"({100 * busy / wall:.1f} %), {n_events / per:.1f} device events  [{card}]",
+          flush=True)
+    if layers:
+        per_layer, norms, rope = layer_launches(rows, layers)
+        ok = per_layer == LAYER_LAUNCHES and norms == 1 and rope == 0
+        print(f"profile: {label}: device launches per decode layer {per_layer:.2f} (want "
+              f"{LAYER_LAUNCHES}), final norms per {unit} {norms:.2f} (want 1), separate RoPE "
+              f"kernels {rope}  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"profile {label}: {per_layer} device launches per layer, "
+                                 f"{norms} norms per {unit}, {rope} RoPE kernels")
     for k in sorted(rows, key=lambda k: -k.self_device_time_total)[:top]:
         print(f"profile:   {k.key[:48]:48s} {k.count / per:6.1f} calls "
               f"{k.self_device_time_total / per:9.1f} us  "
@@ -2555,10 +2821,11 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0):
 
 
 def profile_phase(eng, pixels, ids, mask, card, n_steps=8, buckets=(512, None), prefix="",
-                  host_top=10):
+                  host_top=10, layers=None):
     """Where the kernel path's time goes: one prefill, and ``n_steps``
     greedy decode steps at each window of ``buckets`` (None: the full
-    cache), the decode on the device and on the host."""
+    cache), the decode on the device and on the host; ``layers``: gate the
+    device launches per layer (:func:`_profile`)."""
     eng.prefill(pixels, ids, mask)  # warm-up at this shape
     _profile(f"{prefix}prefill B1 266 tokens", lambda: eng.prefill(pixels, ids, mask), 1, card)
     for bucket in buckets:
@@ -2567,7 +2834,7 @@ def profile_phase(eng, pixels, ids, mask, card, n_steps=8, buckets=(512, None), 
         ls = eng.prefill(pixels, ids, mask)
         _profile(f"{prefix}greedy decode B1 W{bucket or MAX_SEQ}, {n_steps} steps",
                  lambda: eng.decode_chunk(ls[0], ls[1], n_steps, kv_bucket=bucket), n_steps,
-                 card, host_top=host_top)
+                 card, host_top=host_top, layers=layers)
 
 
 def _leaves(tree):
@@ -2704,7 +2971,8 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
         if not same:
             raise AssertionError(f"tp (b): TP generate tokens differ:\n{tok}\n{tok_gen}")
         decode_rate("tp (b): TP m=1 ", eng, pixels, ids, mask, card)
-        profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="TP m=1 NCCL ")
+        profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="TP m=1 NCCL ",
+                      layers=n_layers)
         collective_host_times(mesh, dev, card)
         one = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
         tp_step_attribution(eng, one, pixels, ids, mask, card)
@@ -3094,16 +3362,18 @@ def main() -> int:
                       "paligemma_tpu/kernels/decode_layer.py:95"),
         "decode_attention": ("cuda", "paligemma_tpu_torch/csrc/decode_attention.cu",
                              "paligemma_tpu/kernels/decode_layer.py:95"),
+        # the final norm (the layers' norms are the GEMVs' prologues)
         "rms_norm": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
                      "paligemma_tpu/kernels/decode_layer.py:95"),
-        "rope_kv_write": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
-                          "paligemma_tpu/kernels/decode_layer.py:95"),
+        # the qkv GEMV with the input norm, RoPE and the fresh K/V rows
+        # (dense rows, or page slots as the paged kernel's caller writes them)
+        "int8_gemv_rope_kv": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
+                              "paligemma_tpu/kernels/decode_layer.py:95 / "
+                              "paligemma_tpu/kernels/decode_layer_paged.py:56"),
         "head_argmax": ("cuda", "paligemma_tpu_torch/csrc/decode_head.cu",
                         "paligemma_tpu/kernels/decode_head.py:35"),
         "paged_decode_attention": ("cuda", "paligemma_tpu_torch/csrc/paged_attention.cu",
                                    "paligemma_tpu/kernels/paged_attention.py:42"),
-        "rope_kv_write_paged": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
-                                "paligemma_tpu/kernels/decode_layer_paged.py:56"),
         "flash_attention_bwd_dq": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
                                    "paligemma_tpu/kernels/flash_attention.py:262"),
         "flash_attention_bwd_dkv": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3114,8 +3384,8 @@ def main() -> int:
         # int8_gemv's epilogue)
         "lora_shrink": ("cuda", "paligemma_tpu_torch/csrc/lora.cu",
                         "paligemma_tpu/kernels/decode_layer.py:95"),
-        # chains of the port's kernels (CUDA GEMVs and attention, Triton
-        # norm and RoPE), each counted once per call
+        # chains of the port's kernels (CUDA GEMVs and attention), each
+        # counted once per call
         "mlp_decode_fused": ("cuda", "paligemma_tpu_torch/kernels/decode_mlp.py",
                              "paligemma_tpu/kernels/decode_mlp.py:49"),
         "attn_decode_tp": ("cuda", "paligemma_tpu_torch/kernels/decode_layer_tp.py",

@@ -3,7 +3,7 @@
 // Replaces the attention piece of paligemma_tpu/kernels/decode_layer.py:
 // _kernel_all (per-row MQA over cache slots [0, W) with a (B, W) validity
 // mask; fp32 softmax). The fresh token's K/V is already in the cache (the
-// rope_kv_write kernel wrote it), so no arithmetic merge is needed here.
+// qkv GEMV's RoPE epilogue wrote it), so no arithmetic merge is needed here.
 //
 //   out[b, h*D:(h+1)*D] = sum_j p[b,h,j] v[b,j],  p = softmax over valid j
 //                          of scale * q[b,h] . k[b,j];  no valid j -> 0

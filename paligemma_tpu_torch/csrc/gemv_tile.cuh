@@ -49,6 +49,19 @@
 // memory, adds them in rank order and applies the epilogue. So a sum's
 // order is fixed by the plan: no atomics, and a second call gives the same
 // bits.
+//
+// The RMSNorm prologue (NORM; the input and post-attention norms of the
+// TPU kernel paligemma_tpu/kernels/decode_layer.py:_kernel_all, which
+// normalizes in the kernel that streams the weights): the tile multiplies
+// y = bf16((x * r) * (1 + w)), r = rsqrt(mean(x^2) + eps), instead of x.
+// Every kernel that reads a normalized row (the GEMV of each plan and the
+// LoRA shrink, csrc/lora.cu) must compute y with the same bits, so r must
+// not depend on a plan: one warp sums the squares of the whole row in an
+// order fixed by K alone (gt_row_rsqrt; the row, 4 KB at K = 2048, is read
+// from L2 by every CTA). The CTA first issues its first GT_STAGES steps of
+// weight loads, so that HBM streams while r is computed; then its warps
+// write y for the CTA's K range into shared memory (the warps' sum buffer,
+// free until the K loop ends), and the loop reads x's fragments from there.
 #pragma once
 
 #include "common.cuh"
@@ -60,9 +73,17 @@
 
 enum GtFormat { GT_INT8 = 0, GT_INT4 = 1 };  // the weight format of a stored row
 
+#define GT_NORM_PAD 8  // bf16 between two staged rows of y: 4 banks, 2-way reads at most
+
 struct __align__(16) GemvSmem {
-  float red[GT_MAX_WARPS][GT_BT][GT_COLS];  // each warp's sums
+  float red[GT_MAX_WARPS][GT_BT][GT_COLS];  // each warp's sums (NORM: y before the K loop)
   float sum[GT_BT][GT_COLS];                // the CTA's sums, read by the cluster
+};
+
+// The norm's operands: y = bf16((x * r) * (1 + w)), r = rsqrt(mean(x^2) + eps).
+struct NormIn {
+  const bf16* w;  // (K,) bf16, 16-byte aligned
+  float eps;
 };
 
 // ---------------------------------------------------------------------------
@@ -101,6 +122,14 @@ __device__ __forceinline__ float ld_cluster_f32(const float* p, int rank) {
 __device__ __forceinline__ uint4 ldg_stream16(const int8_t* p) {
   uint4 v;
   asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ldg_16(const bf16* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
@@ -190,9 +219,8 @@ __device__ __forceinline__ void gt_load_x(uint2& xv, const bf16* __restrict__ xp
 // 16-byte load per row; else byte loads), as do x's elements past kend
 // (x8: K % 4 == 0 and x 8-byte aligned).
 template <bool FAST>
-__device__ __forceinline__ void gt_load(uint4 (&wv)[4], uint2& xv, const int8_t* __restrict__ p,
-                                        size_t n1, int ncol, const bf16* __restrict__ xp,
-                                        bool xrow, int nrow, bool x8) {
+__device__ __forceinline__ void gt_load_w(uint4 (&wv)[4], const int8_t* __restrict__ p, size_t n1,
+                                          int ncol, int nrow) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     uint32_t wd[4] = {0u, 0u, 0u, 0u};
@@ -208,7 +236,85 @@ __device__ __forceinline__ void gt_load(uint4 (&wv)[4], uint2& xv, const int8_t*
     }
     wv[r] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
   }
+}
+
+template <bool FAST>
+__device__ __forceinline__ void gt_load(uint4 (&wv)[4], uint2& xv, const int8_t* __restrict__ p,
+                                        size_t n1, int ncol, const bf16* __restrict__ xp,
+                                        bool xrow, int nrow, bool x8) {
+  gt_load_w<FAST>(wv, p, n1, ncol, nrow);
   gt_load_x(xv, xp, xrow, nrow, x8);
+}
+
+// x's 4 elements of a step from the staged y (shared memory, zeros past
+// the CTA's K range).
+__device__ __forceinline__ uint2 gt_load_xs(const bf16* xs, bool xrow) {
+  return xrow ? *reinterpret_cast<const uint2*>(xs) : make_uint2(0u, 0u);
+}
+
+// ---------------------------------------------------------------------------
+// The RMSNorm prologue.
+// ---------------------------------------------------------------------------
+// rsqrt(mean(x^2) + eps) of the row xr of K elements (K % 8 == 0, 16-byte
+// aligned), computed by one warp: lane l sums the squares of the 8-element
+// chunks l, l + 32, l + 64, ... in order (four loads in flight), then a
+// butterfly of shuffles adds the lanes (each addition commutative, so
+// every lane ends with the same sum). The order depends on K alone.
+__device__ __forceinline__ float gt_row_rsqrt(const bf16* __restrict__ xr, int K, float eps) {
+  const int lane = threadIdx.x & 31, chunks = K >> 3;
+  float acc = 0.f;
+  for (int c0 = lane; c0 < chunks; c0 += 4 * 32) {
+    uint4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = c0 + 32 * i < chunks ? ldg_16(xr + 8 * (c0 + 32 * i)) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float f[8];
+      bf16x8_to_float(v[i], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc = fmaf(f[j], f[j], acc);
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
+  return rsqrtf(__fadd_rn(__fdiv_rn(acc, (float)K), eps));
+}
+
+// y of 8 elements: bf16((x * r) * (1 + w)), each product rounded (no FMA),
+// in the order of the plain version (ops/norms.rms_norm).
+__device__ __forceinline__ uint4 gt_norm8(uint4 xv, uint4 wv, float r) {
+  float xf[8], wf[8];
+  bf16x8_to_float(xv, xf);
+  bf16x8_to_float(wv, wf);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = pack_f32_bf16x2(__fmul_rn(__fmul_rn(xf[2 * i], r), __fadd_rn(1.f, wf[2 * i])),
+                           __fmul_rn(__fmul_rn(xf[2 * i + 1], r), __fadd_rn(1.f, wf[2 * i + 1])));
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// y of x rows b0 .. b0+nb-1 at K rows [kbeg, kend) into ys (ld bf16 a row:
+// the plan's k_per_cta + GT_NORM_PAD; zeros from kend to kbeg + ld -
+// GT_NORM_PAD). Warp w takes rows w, w + warps, ...: its row's r, then its
+// row's y (x from L1, the row just read). Ends with a CTA barrier.
+__device__ __forceinline__ void gt_norm_stage(bf16* ys, int ld, const bf16* __restrict__ x,
+                                              NormIn norm, int K, int b0, int nb, int kbeg,
+                                              int kend) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int chunks = (ld - GT_NORM_PAD) >> 3;
+  for (int r = warp; r < nb; r += warps) {
+    const bf16* xr = x + (size_t)(b0 + r) * K;
+    const float rs = gt_row_rsqrt(xr, K, norm.eps);
+    for (int c = lane; c < chunks; c += 32) {
+      const int k = kbeg + 8 * c;
+      uint4 y = make_uint4(0u, 0u, 0u, 0u);
+      if (k < kend) y = gt_norm8(ldg_16(xr + k), ldg_16(norm.w + k), rs);
+      *reinterpret_cast<uint4*>(ys + (size_t)r * ld + 8 * c) = y;
+    }
+  }
+  __syncthreads();
 }
 
 // The nibbles of v at bits 0-3 and 16-19 (SHIFT moves them there) as the
@@ -259,13 +365,17 @@ __device__ __forceinline__ void gt_mma_step_int4(float (&acc)[8][4], const uint4
 // The CTA's sums over the stored rows [kbeg, kend) of x rows b0 ..
 // b0+nb-1 and the tile's 128 columns: quad g of every warp reads the 16
 // weight columns from qcol (its own, so a tile may be two column ranges, as
-// GeGLU's gate | up). x is (B, K); with GT_INT4 stored row k carries x's
-// columns k and K/2 + k. On return sm.sum[r][c] holds them (r < nb), in a
-// fixed order: each warp's steps in turn, then the warps in order.
-template <bool FAST, int FMT = GT_INT8>
+// GeGLU's gate | up; qcol >= N: none). x is (B, K); with GT_INT4 stored row
+// k carries x's columns k and K/2 + k. With NORM the tile multiplies the
+// normalized rows (gt_norm_stage; ld: the plan's k_per_cta + GT_NORM_PAD).
+// On return sm.sum[r][c] holds them (r < nb), in a fixed order: each
+// warp's steps in turn, then the warps in order.
+template <bool FAST, int FMT = GT_INT8, bool NORM = false>
 __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restrict__ x,
                                                const int8_t* __restrict__ w, int K, int N, int b0,
-                                               int nb, int qcol, int kbeg, int kend, bool x8) {
+                                               int nb, int qcol, int kbeg, int kend, bool x8,
+                                               NormIn norm = NormIn{}, int ld = 0) {
+  static_assert(!(NORM && FMT == GT_INT4), "the norm prologue reads int8 rows");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int steps = kend > kbeg ? (kend - kbeg + 15) >> 4 : 0;
@@ -290,13 +400,28 @@ __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restr
   uint2 xb[GT_STAGES];
   uint2 xh[FMT == GT_INT4 ? GT_STAGES : 1];  // int4: x at the high half's k
   const int xhalf = K / 2;
+  // NORM: the lane's x fragments come from the staged y (row g, the CTA's
+  // K range) in sm.red
+  bf16* ys = reinterpret_cast<bf16*>(&sm.red[0][0][0]);
+  const bf16* xsp = ys + (size_t)(xrow ? g : 0) * ld + (row0 - kbeg);
+  if constexpr (NORM) {
 #pragma unroll
-  for (int s = 0; s < GT_STAGES; ++s)
-    if (s < mine) {
-      const int nrow = min(4, kend - row0 - s * stride);
-      gt_load<FAST>(wb[s], xb[s], wp + s * wstep, n1, ncol, xp + s * stride, xrow, nrow, x8);
-      if constexpr (FMT == GT_INT4) gt_load_x(xh[s], xp + xhalf + s * stride, xrow, nrow, x8);
-    }
+    for (int s = 0; s < GT_STAGES; ++s)  // the weights stream while y is made
+      if (s < mine)
+        gt_load_w<FAST>(wb[s], wp + s * wstep, n1, ncol, min(4, kend - row0 - s * stride));
+    gt_norm_stage(ys, ld, x, norm, K, b0, nb, kbeg, kend);
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s)
+      if (s < mine) xb[s] = gt_load_xs(xsp + s * stride, xrow);
+  } else {
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s)
+      if (s < mine) {
+        const int nrow = min(4, kend - row0 - s * stride);
+        gt_load<FAST>(wb[s], xb[s], wp + s * wstep, n1, ncol, xp + s * stride, xrow, nrow, x8);
+        if constexpr (FMT == GT_INT4) gt_load_x(xh[s], xp + xhalf + s * stride, xrow, nrow, x8);
+      }
+  }
   for (int i0 = 0; i0 < mine; i0 += GT_STAGES) {
 #pragma unroll
     for (int s = 0; s < GT_STAGES; ++s) {
@@ -309,14 +434,20 @@ __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restr
         const int next = i + GT_STAGES;
         if (next < mine) {
           const int nrow = min(4, kend - row0 - next * stride);
-          gt_load<FAST>(wb[s], xb[s], wp + next * wstep, n1, ncol, xp + next * stride, xrow,
-                        nrow, x8);
+          if constexpr (NORM) {
+            gt_load_w<FAST>(wb[s], wp + next * wstep, n1, ncol, nrow);
+            xb[s] = gt_load_xs(xsp + next * stride, xrow);
+          } else {
+            gt_load<FAST>(wb[s], xb[s], wp + next * wstep, n1, ncol, xp + next * stride, xrow,
+                          nrow, x8);
+          }
           if constexpr (FMT == GT_INT4)
             gt_load_x(xh[s], xp + xhalf + next * stride, xrow, nrow, x8);
         }
       }
     }
   }
+  if constexpr (NORM) __syncthreads();  // every warp has read y before sm.red takes the sums
   // acc[m] = (column 16g + 2m, row 2t), (16g + 2m, 2t + 1), (16g + 2m + 1, 2t),
   // (16g + 2m + 1, 2t + 1)
 #pragma unroll
@@ -340,6 +471,19 @@ __device__ __forceinline__ float gt_cluster_sum(const GemvSmem& sm, int r, int c
   float v = 0.f;
   for (int q = 0; q < cs; ++q) v += ld_cluster_f32(&sm.sum[r][c], q);
   return v;
+}
+
+// The cluster's sums of elements (r, c) and (r, c2), each in rank order,
+// their loads interleaved (two chains in flight: a pair's two columns).
+__device__ __forceinline__ float2 gt_cluster_sum2(const GemvSmem& sm, int r, int c, int c2,
+                                                  int cs) {
+  float v = 0.f, v2 = 0.f;
+  for (int q = 0; q < cs; ++q) {
+    const float a = ld_cluster_f32(&sm.sum[r][c], q), b = ld_cluster_f32(&sm.sum[r][c2], q);
+    v += a;
+    v2 += b;
+  }
+  return make_float2(v, v2);
 }
 
 // Launch CTAs of `threads` threads and `smem` bytes of dynamic shared

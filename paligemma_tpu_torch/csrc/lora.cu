@@ -34,6 +34,11 @@
 // cast. So the sum over K is one fp32 sum cast once, as the TPU kernel sums
 // the down basis over the whole intermediate dimension before its one cast,
 // and its order depends on (K, nG) and A's dtype only.
+//
+// With a norm (NORM: the TPU kernel's shrink reads the normalized row, as
+// its qkv and gate/up dots do) the staged rows are y = bf16((x * r) * (1 +
+// w)) instead of x, with r and y computed by gemv_tile.cuh's gt_row_rsqrt
+// and gt_norm8: the bits the GEMV of the same row multiplies.
 #include "gemv_tile.cuh"
 
 #define LS_MAX_THREADS 512  // threads per CTA: 256 or 512 (kernels/lora.ShrinkPlan)
@@ -41,7 +46,8 @@
 #define LS_XROWS 2048       // K rows of x staged at a time
 
 struct __align__(16) ShrinkSmem {
-  bf16 xs[GT_BT][LS_XROWS];                        // x rows b0 .. b0+7 at the chunk's K rows
+  bf16 xs[GT_BT][LS_XROWS];                        // x (or y) rows b0 .. b0+7 at the chunk's K rows
+  float rnorm[GT_BT];                              // NORM: each row's rsqrt(mean(x^2) + eps)
   float red[LS_MAX_THREADS / 32][GT_BT][LS_COLS];  // each warp's sums
   float sum[GT_BT][LS_COLS];                       // the CTA's sums, read by the cluster
 };
@@ -76,11 +82,11 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
 
 // CPT: A's columns per 16-byte load (4 fp32, 8 bf16); TPR = LS_COLS / CPT
 // threads share a K row, so the CTA has THREADS / TPR row lanes.
-template <typename TA, int THREADS>
+template <typename TA, int THREADS, bool NORM>
 __global__ void __launch_bounds__(THREADS, 1)
     lora_shrink_kernel(const bf16* __restrict__ x, const TA* __restrict__ a,
                        const int* __restrict__ ids, bf16* __restrict__ z, int B, int K, int NG,
-                       int G, int rank_size, int k_per_cta) {
+                       int G, int rank_size, int k_per_cta, NormIn norm) {
   constexpr int CPT = 16 / sizeof(TA), TPR = LS_COLS / CPT, LANES = THREADS / TPR;
   constexpr int LOADS = 32 / CPT;  // rows of A in flight per thread: 128 bytes
   constexpr int V = GT_BT * CPT;  // a thread's sums: batch row x column
@@ -97,6 +103,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  if constexpr (NORM) {  // each row's r, one warp a row
+    for (int r = warp; r < nb; r += THREADS / 32) {
+      const float rs = gt_row_rsqrt(x + (size_t)(b0 + r) * K, K, norm.eps);
+      if (lane == 0) sm.rnorm[r] = rs;
+    }
+  }
   for (int c0 = kbeg; c0 < kend; c0 += LS_XROWS) {
     const int c1 = min(kend, c0 + LS_XROWS);
     const int mine = c1 - c0 > rl ? (c1 - c0 - rl + LANES - 1) / LANES : 0;  // rows of this lane
@@ -105,14 +117,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < LOADS; ++i)  // in flight while x is staged
       if (i < mine)
         wv[i] = *reinterpret_cast<const uint4*>(ap + (size_t)(c0 + rl + i * LANES) * NG);
-    __syncthreads();  // the previous chunk of x is no longer read
+    __syncthreads();  // the previous chunk of x is no longer read (NORM: r is written)
     const int n8 = (c1 - c0) / 8;
     for (int i = tid; i < GT_BT * n8; i += THREADS) {  // rows past B read as zeros
       const int r = i / n8, k8 = (i % n8) * 8;
-      cp_async_16(&sm.xs[r][k8], x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8, r < nb);
+      const bf16* src = x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8;
+      if constexpr (NORM)
+        *reinterpret_cast<uint4*>(&sm.xs[r][k8]) =
+            r < nb ? gt_norm8(ldg_16(src), ldg_16(norm.w + c0 + k8), sm.rnorm[r])
+                   : make_uint4(0u, 0u, 0u, 0u);
+      else
+        cp_async_16(&sm.xs[r][k8], src, r < nb);
     }
-    cp_async_commit();
-    cp_async_wait<0>();
+    if constexpr (!NORM) {
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
     __syncthreads();
     for (int i0 = 0; i0 < mine; i0 += LOADS) {
       if (i0 > 0) {
@@ -165,28 +185,33 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <typename TA, int THREADS>
 static int launch_shrink(const void* x, const void* a, const void* ids, void* z, int B, int K,
-                         int NG, int G, int rank, int cluster, int k_per_cta, void* stream) {
+                         int NG, int G, int rank, int cluster, int k_per_cta, NormIn norm,
+                         void* stream) {
   const dim3 grid(NG / LS_COLS * cluster, 1, (B + GT_BT - 1) / GT_BT);
-  return cluster_launch(&lora_shrink_kernel<TA, THREADS>, grid, THREADS, cluster, 0,
-                        (cudaStream_t)stream, (const bf16*)x, (const TA*)a, (const int*)ids,
-                        (bf16*)z, B, K, NG, G, rank, k_per_cta);
+  auto kernel = norm.w != nullptr ? &lora_shrink_kernel<TA, THREADS, true>
+                                  : &lora_shrink_kernel<TA, THREADS, false>;
+  return cluster_launch(kernel, grid, THREADS, cluster, 0, (cudaStream_t)stream, (const bf16*)x,
+                        (const TA*)a, (const int*)ids, (bf16*)z, B, K, NG, G, rank, k_per_cta,
+                        norm);
 }
 
 // x (B, K) bf16, a (K, NG) fp32 (a_f32) or bf16, ids (B,) int32, z (B, NG)
 // bf16 out; NG % 8 == 0, K % 8 == 0, x and a 16-byte aligned; cluster,
 // k_per_cta (a multiple of 8) and threads (256 or 512) from
-// kernels/lora.ShrinkPlan.
+// kernels/lora.ShrinkPlan; nw (K,) bf16, 16-byte aligned, or null: the
+// norm of x by nw and eps before the product.
 PG_EXPORT int pg_lora_shrink(const void* x, const void* a, int a_f32, const void* ids, void* z,
                              int B, int K, int NG, int G, int rank, int cluster, int k_per_cta,
-                             int threads, void* stream) {
+                             int threads, const void* nw, float eps, void* stream) {
+  const NormIn norm{(const bf16*)nw, eps};
   if (threads == 256)
     return a_f32 ? launch_shrink<float, 256>(x, a, ids, z, B, K, NG, G, rank, cluster,
-                                             k_per_cta, stream)
+                                             k_per_cta, norm, stream)
                  : launch_shrink<bf16, 256>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                            stream);
+                                            norm, stream);
   if (threads != LS_MAX_THREADS) return (int)cudaErrorInvalidValue;
   return a_f32 ? launch_shrink<float, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                           stream)
+                                           norm, stream)
                : launch_shrink<bf16, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                          stream);
+                                          norm, stream);
 }

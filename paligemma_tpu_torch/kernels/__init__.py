@@ -31,11 +31,13 @@ WRAPPERS = {
     "flash_attention_fwd": _flash_attention.flash_attention,
     "int8_gemv": _int8_gemv.int8_gemv,
     "decode_attention": _decode_attention.decode_attention,
+    # the final norm before the head (the layers' norms are GEMV prologues)
     "rms_norm": _decode_elementwise.rms_norm,
-    "rope_kv_write": _decode_elementwise.rope_kv_write,
+    # the qkv GEMV with RoPE and the fresh K/V rows (dense rows or page
+    # slots) in its epilogue
+    "int8_gemv_rope_kv": _int8_gemv.int8_gemv_rope_kv,
     "head_argmax": _decode_head.head_argmax_fused,
     "paged_decode_attention": _paged_attention.paged_decode_attention,
-    "rope_kv_write_paged": _decode_elementwise.rope_kv_write_paged,
     "flash_attention_bwd_dq": _flash_attention.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": _flash_attention.flash_attention_bwd_dkv,
     "int8_gemv_f32": _int8_gemv.int8_gemv_f32,

@@ -52,9 +52,13 @@ SIGNATURES = {
     # x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta, z,
     # lb, lb_f32, G, nz, seg1, seg2, stream
     "pg_int8_gemv_lora": [_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P],
-    # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads,
-    # stream
-    "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P],
+    # the same with the norm (nw, eps) and mode 4's RoPE + KV write (cos,
+    # sin, pos, k_dst, v_dst, k_new, v_new, table, H, D, rows, tstride)
+    "pg_int8_gemv_fused": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F] + [_P] * 8
+                           + [_I] * 4 + [_P]),
+    # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
+    # eps, stream
+    "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -4,8 +4,8 @@ paligemma_tpu/kernels/decode_layer.py ``_kernel_all``); the kernel is
 
 One query token per row, Hq query heads sharing the single KV head, cache
 slots ``[0, W)`` of one layer with a (B, W) validity mask, fp32 softmax. The
-fresh token's K/V must already be in the cache (kernels/decode_elementwise
-``rope_kv_write`` puts it there) and its slot marked valid.
+fresh token's K/V must already be in the cache (kernels/int8_gemv
+``int8_gemv_rope_kv`` puts it there) and its slot marked valid.
 """
 
 from __future__ import annotations

@@ -2,24 +2,32 @@
 paligemma_tpu/kernels/decode_layer.py ``layers_decode_fused``).
 
 The TPU runs all L layers in one Pallas kernel so that its weight DMAs never
-drain between layers. On Hopper a launch is cheap, so each layer runs as a
-short chain of hand-written kernels, each with its plain version beside it:
+drain between layers. On Hopper each layer runs as a short chain of
+hand-written kernels, each with its plain version beside it, six launches
+a layer:
 
-    rms_norm (Triton) -> int8_gemv qkv -> rope_kv_write (Triton) ->
-    decode_attention -> int8_gemv o + residual -> rms_norm ->
-    int8_gemv gateup + GeGLU -> int8_gemv down + residual
+    int8_gemv_rope_kv (input norm in the prologue; q|k|v, RoPE and the
+    fresh K/V rows in the epilogue) -> decode_attention (split + combine)
+    -> int8_gemv o + residual -> int8_gemv gateup + GeGLU (post-attention
+    norm in the prologue) -> int8_gemv down + residual
+
+As in the TPU kernel, the two norms run inside the kernel that streams the
+weights they feed, and RoPE on the qkv product in the same kernel
+(decode_layer.py:267-274, :303-307, :321-324, :364).
 
 The contract is the TPU function's: ``(h (B,1,K), k_new (L,B,D),
-v_new (L,B,D))``. In this port ``rope_kv_write`` also writes each layer's
-fresh K/V rows into the cache in place (the TPU kernel leaves that to the
-caller), because the attention kernel reads the fresh token from the cache.
+v_new (L,B,D))``. In this port the qkv GEMV's epilogue also writes each
+layer's fresh K/V rows into the cache in place (the TPU kernel leaves that
+to the caller), because the attention kernel reads the fresh token from
+the cache.
 
 With ``lora_pack`` (:func:`repack_lora_bank_fused`) and ``adapter_ids``
 each row decodes under its own adapter of a multi-LoRA bank, as in the TPU
 kernel: per target group a ``lora_shrink`` (kernels/lora) computes the
-row's masked adapter basis z = cast(y @ A_cat) * mask, and the GEMV of that
-projection adds z @ B in its epilogue (kernels/int8_gemv ``lora=``): q/k/v
-after the cast, o and down after the residual, gate and up in fp32 before
+row's masked adapter basis z = cast(y @ A_cat) * mask (y normalized in the
+shrink as in the GEMV: the same bits), and the GEMV of that projection adds
+z @ B in its epilogue (kernels/int8_gemv ``lora=``): q/k/v after the cast
+and before RoPE, o and down after the residual, gate and up in fp32 before
 the GeGLU; the down basis is summed over the whole intermediate dimension
 before its one cast. Four shrinks per layer.
 
@@ -34,9 +42,28 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .decode_attention import MAX_BATCH, MAX_HEADS, decode_attention
-from .decode_elementwise import rms_norm, rope_kv_write
-from .int8_gemv import int8_gemv
+from .gemv_plan import GemvPlan, norm_fits
+from .int8_gemv import int8_gemv, int8_gemv_rope_kv
 from .lora import block_mask, lora_shrink
+
+
+def fused_gemvs_fit(k: int, n_qkv: int, n_gateup: int, n_heads: int, head_dim: int) -> bool:
+    """The qkv (K, N_qkv) and gateup (K, N_gateup) GEMVs as the norm
+    prologue and the RoPE epilogue take them: N_qkv = (H + 2) D with D / 2
+    a multiple of 16 (a quad's 16 columns in one head's half), and each
+    plan's K range per CTA within the prologue's buffer
+    (kernels/gemv_plan.norm_fits)."""
+    return ((head_dim // 2) % 16 == 0 and n_qkv == (n_heads + 2) * head_dim
+            and norm_fits(GemvPlan.make(k, n_qkv)) and norm_fits(GemvPlan.make(k, n_gateup)))
+
+
+def int8_leaves(layers: Dict):
+    """The (qkv, gateup) int8 weights of the serving tree, or None."""
+    qkv = layers.get("attn", {}).get("qkv")
+    gateup = layers.get("mlp", {}).get("gateup")
+    if isinstance(qkv, dict) and "w8" in qkv and isinstance(gateup, dict) and "w8" in gateup:
+        return qkv["w8"], gateup["w8"]
+    return None
 
 
 def supported(cfg, layers: Dict, batch: int) -> bool:
@@ -44,21 +71,21 @@ def supported(cfg, layers: Dict, batch: int) -> bool:
     and raises when the kernel path was asked for and this is False).
 
     The limits are the CUDA kernels' own: one KV head, at most MAX_HEADS
-    query heads, head_dim a multiple of 8 up to 256 with a power-of-two
-    half (RoPE), the int8 serving tree, and a batch that fits the grid's y
+    query heads, head_dim a multiple of 32 up to 256 (the RoPE epilogue
+    pairs 16 columns of a head's half in a quad; the attention kernel's
+    depth), the int8 serving tree with qkv and gateup as
+    :func:`fused_gemvs_fit` takes them, and a batch that fits the grid's y
     dimension (decode_attention runs one block row per batch row)."""
-    half = cfg.head_dim // 2
-    qkv = layers.get("attn", {}).get("qkv")
+    leaves = int8_leaves(layers)
     return (
         1 <= batch <= MAX_BATCH
         and cfg.num_key_value_heads == 1
         and cfg.num_attention_heads <= MAX_HEADS
-        and cfg.head_dim % 8 == 0
+        and cfg.head_dim % 32 == 0
         and cfg.head_dim <= 256
-        and half & (half - 1) == 0
-        and isinstance(qkv, dict)
-        and "w8" in qkv
-        and isinstance(layers.get("mlp", {}).get("gateup"), dict)
+        and leaves is not None
+        and fused_gemvs_fit(leaves[0].shape[-2], leaves[0].shape[-1], leaves[1].shape[-1],
+                            cfg.num_attention_heads, cfg.head_dim)
     )
 
 
@@ -138,18 +165,19 @@ def lora_row_masks(adapter_ids: torch.Tensor, g: int, rank: int, dtype: torch.dt
 
 
 def lora_gemv(x: torch.Tensor, leaf: Dict, l: int, pack: Optional[Dict], name: str,
-              adapter_ids: Optional[torch.Tensor], bounds: Sequence[int] = (),
-              **kw) -> torch.Tensor:
-    """``int8_gemv`` of layer ``l`` of ``leaf``, plus each row's adapter
-    delta of the ``name`` target group ("qkv", "o", "gu", "down") when
-    ``pack`` is given: the shrink of ``x`` against ``pack[name + "_a"]``,
-    then the expand in the GEMV's epilogue."""
+              adapter_ids: Optional[torch.Tensor], bounds: Sequence[int] = (), *,
+              gemv=int8_gemv, norm=None, **kw):
+    """``gemv`` (``int8_gemv`` or ``int8_gemv_rope_kv``) of layer ``l`` of
+    ``leaf`` (of x's RMSNorm with ``norm``), plus each row's adapter delta
+    of the ``name`` target group ("qkv", "o", "gu", "down") when ``pack``
+    is given: the shrink of the same (normalized) ``x`` against
+    ``pack[name + "_a"]``, then the expand in the GEMV's epilogue."""
     lora = None
     if pack is not None:
         g = pack["o_b"].shape[1]
-        z = lora_shrink(x, pack[name + "_a"][l], adapter_ids, pack["rank"], g)
+        z = lora_shrink(x, pack[name + "_a"][l], adapter_ids, pack["rank"], g, norm=norm)
         lora = (z, pack[name + "_b"][l], bounds)
-    return int8_gemv(x, leaf["w8"][l], leaf["s"][l], lora=lora, **kw)
+    return gemv(x, leaf["w8"][l], leaf["s"][l], lora=lora, norm=norm, **kw)
 
 
 def layers_decode_fused(
@@ -189,15 +217,16 @@ def layers_decode_fused(
     ids = None if adapter_ids is None else adapter_ids.to(torch.int32).contiguous()
     nq = n_heads * head_dim
     inter = mlp["gateup"]["w8"].shape[-1] // 2
+    pos = cache_pos.to(torch.int32)
     for l in range(n_layers):
-        y = rms_norm(h, layers["input_norm"][l], eps)
-        qkv = lora_gemv(y, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim))
         # writes this layer's fresh K/V rows into the cache (in place)
-        q, _, _ = rope_kv_write(qkv, cos, sin, cache_pos, n_heads, k_cache[l],
-                                v_cache[l], k_new[l], v_new[l])
+        q, _, _ = lora_gemv(h, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim),
+                            gemv=int8_gemv_rope_kv, norm=(layers["input_norm"][l], eps),
+                            cos=cos, sin=sin, pos=pos, n_heads=n_heads, k_dst=k_cache[l],
+                            v_dst=v_cache[l], k_new=k_new[l], v_new=v_new[l])
         a = decode_attention(q, k_cache[l], v_cache[l], kv_valid_window, scale)
         h = lora_gemv(a, attn["o"], l, lora_pack, "o", ids, residual=h)
-        y2 = rms_norm(h, layers["post_norm"][l], eps)
-        t = lora_gemv(y2, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True)
+        t = lora_gemv(h, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True,
+                      norm=(layers["post_norm"][l], eps))
         h = lora_gemv(t, mlp["down"], l, lora_pack, "down", ids, residual=h)
     return h.reshape(b, 1, k), k_new, v_new

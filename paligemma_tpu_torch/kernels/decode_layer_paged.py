@@ -4,13 +4,14 @@ paligemma_tpu/kernels/decode_layer_paged.py ``layers_decode_fused_paged``).
 The TPU runs all L layers in one Pallas kernel that DMAs each row's window
 out of the page pool (one copy per physically consecutive run, per-page
 copies otherwise). Here each layer is the chain of kernels/decode_layer with
-the two cache steps swapped for their paged forms:
+the two cache steps swapped for their paged forms, six launches a layer:
 
-    rms_norm -> int8_gemv qkv -> rope_kv_write_paged (Triton) ->
-    paged_decode_attention -> int8_gemv o + residual -> rms_norm ->
-    int8_gemv gateup + GeGLU -> int8_gemv down + residual
+    int8_gemv_rope_kv with the page table (input norm, q|k|v, RoPE, the
+    fresh K/V rows into their slots) -> paged_decode_attention (split +
+    combine) -> int8_gemv o + residual -> int8_gemv gateup + GeGLU
+    (post-attention norm in the prologue) -> int8_gemv down + residual
 
-``rope_kv_write_paged`` puts each row's fresh K/V in its slot
+The qkv GEMV's epilogue puts each row's fresh K/V in its slot
 ``table[r, pos // ps] * ps + pos % ps`` (computed on the device), and the
 paged attention kernel reads the row's pages ``[0, pos]`` through the table
 by pointer offset into the layer-stacked pool. The contract is the TPU
@@ -34,14 +35,16 @@ import torch
 
 from . import decode_layer
 from .decode_layer import lora_gemv
-from .decode_elementwise import rms_norm, rope_kv_write_paged
+from .int8_gemv import int8_gemv_rope_kv
 from .paged_attention import paged_decode_attention
 from .paged_attention import supported as attention_supported
 
 
 def supported(cfg, layers: Dict, batch: int, *, page_size: int) -> bool:
     """The dense chain's limits (kernels/decode_layer.supported: one KV head,
-    the int8 serving tree) plus a page size the paged kernels take."""
+    the int8 serving tree, the fused GEMVs' shapes) plus a page size the
+    paged kernels take. The page table's own checks (int32, one row per
+    batch row, unit column stride) are the qkv GEMV's, at its call."""
     return (decode_layer.supported(cfg, layers, batch)
             and attention_supported(page_size, cfg.head_dim))
 
@@ -93,14 +96,14 @@ def layers_decode_fused_paged(
     nq = n_heads * head_dim
     inter = mlp["gateup"]["w8"].shape[-1] // 2
     for l in range(n_layers):
-        y = rms_norm(h, layers["input_norm"][l], eps)
-        qkv = lora_gemv(y, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim))
         # writes this layer's fresh K/V rows into their pool slots (in place)
-        q, _, _ = rope_kv_write_paged(qkv, cos, sin, write_pos, n_heads, k_pool[l], v_pool[l],
-                                      table, k_new[l], v_new[l])
+        q, _, _ = lora_gemv(h, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim),
+                            gemv=int8_gemv_rope_kv, norm=(layers["input_norm"][l], eps),
+                            cos=cos, sin=sin, pos=write_pos, n_heads=n_heads, k_dst=k_pool[l],
+                            v_dst=v_pool[l], k_new=k_new[l], v_new=v_new[l], page_table=table)
         a = paged_decode_attention(q, k_pool5, v_pool5, window, kv_len, scale, layer_idx=l)
         h = lora_gemv(a.reshape(b, -1), attn["o"], l, lora_pack, "o", ids, residual=h)
-        y2 = rms_norm(h, layers["post_norm"][l], eps)
-        t = lora_gemv(y2, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True)
+        t = lora_gemv(h, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True,
+                      norm=(layers["post_norm"][l], eps))
         h = lora_gemv(t, mlp["down"], l, lora_pack, "down", ids, residual=h)
     return h.reshape(b, 1, k), k_new, v_new

@@ -6,9 +6,10 @@ B8), and the layer loop.
 This is kernels/decode_layer_tp's attention half with the two cache steps
 of kernels/decode_layer_paged:
 
-    rms_norm (Triton) -> int8_gemv over [q_r | k | v] ->
-    rope_kv_write_paged (Triton, Hl = H/m heads) -> paged_decode_attention
-    over Hl heads (csrc/paged_attention.cu) -> int8_gemv_f32 o-rows
+    int8_gemv_rope_kv over [q_r | k | v] with the page table (the input
+    norm, RoPE over Hl = H/m heads, the fresh K/V rows into their slots) ->
+    paged_decode_attention over Hl heads (csrc/paged_attention.cu) ->
+    int8_gemv_f32 o-rows
 
 The page pool (L, n_pages, ps, D) is replicated: Gemma has one KV head, so
 every rank computes the same K/V from the replicated kv projection and
@@ -31,7 +32,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import decode_layer_tp
-from .decode_elementwise import rope_kv_write_paged, rope_kv_write_paged_reference
 from .paged_attention import paged_decode_attention, reference_paged_decode_attention
 from .paged_attention import supported as attention_supported
 
@@ -45,19 +45,15 @@ def supported(cfg, mesh, layers: Dict, batch: int, *, page_size: int) -> bool:
 
 def _paged_chain(plain, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos, sin,
                  pages_bucket, head_dim, eps):
-    rope, attend = ((rope_kv_write_paged_reference, reference_paged_decode_attention) if plain
-                    else (rope_kv_write_paged, paged_decode_attention))
+    attend = reference_paged_decode_attention if plain else paged_decode_attention
     table = page_table.to(torch.int32)
+    pos = write_pos.to(torch.int32)
     pb = min(pages_bucket or table.shape[1], table.shape[1])
-
-    def write_attend(qkv, hl, k_new, v_new):
-        q, _, _ = rope(qkv, cos, sin, write_pos, hl, k_pool[layer_idx], v_pool[layer_idx], table,
-                       k_new, v_new)
-        return attend(q, k_pool[:, :, :, None], v_pool[:, :, :, None], table[:, :pb],
-                      write_pos + 1, head_dim**-0.5, layer_idx=layer_idx)
-
-    return decode_layer_tp.attn_chain(plain, x, layers, layer_idx, head_dim, eps, k_pool.dtype,
-                                      write_attend)
+    return decode_layer_tp.attn_chain(
+        plain, x, layers, layer_idx, head_dim, eps, (cos, sin, pos),
+        (k_pool[layer_idx], v_pool[layer_idx], table),
+        lambda q: attend(q, k_pool[:, :, :, None], v_pool[:, :, :, None], table[:, :pb],
+                         pos + 1, head_dim**-0.5, layer_idx=layer_idx))
 
 
 def attn_decode_paged_tp_reference(x, layers, k_pool, v_pool, layer_idx, page_table, write_pos,

@@ -14,9 +14,13 @@ The TPU runs the attention half as one Pallas kernel per layer; here it is
 the chain of the port's own kernels that the one-card layer runs
 (kernels/decode_layer), on this rank's slice:
 
-    rms_norm (Triton) -> int8_gemv over [q_r | k | v] -> rope_kv_write
-    (Triton, Hl = H/m heads) -> decode_attention over Hl heads ->
-    int8_gemv_f32 o-rows (the fp32-partial epilogue)
+    int8_gemv_rope_kv over [q_r | k | v] (the input norm in its prologue,
+    RoPE over Hl = H/m heads and the fresh K/V rows in its epilogue) ->
+    decode_attention over Hl heads -> int8_gemv_f32 o-rows (the
+    fp32-partial epilogue)
+
+and the MLP half is decode_mlp.mlp_decode_fused with the post-attention
+norm in the gate/up GEMV's prologue: six launches a layer, as on one card.
 
 The JAX kernel reads the window before the cache write and mixes the fresh
 token in arithmetically (its posmask); this chain writes the fresh K/V into
@@ -53,44 +57,44 @@ from typing import Dict, Tuple
 import torch
 
 from ..core import mesh as mesh_lib
-from ..ops.norms import rms_norm as rms_norm_reference
 from .decode_attention import MAX_BATCH, MAX_HEADS, decode_attention, decode_attention_reference
-from .decode_elementwise import rms_norm, rope_kv_write, rope_kv_write_reference
 from .decode_head import head_argmax_fused, repack_head
-from .decode_layer import repack_layers
+from .decode_layer import fused_gemvs_fit, int8_leaves, repack_layers
 from .decode_mlp import mlp_decode_fused, pick_block
-from .int8_gemv import int8_gemv, int8_gemv_f32, int8_gemv_reference
+from .int8_gemv import (int8_gemv_f32, int8_gemv_reference, int8_gemv_rope_kv,
+                        int8_gemv_rope_kv_reference)
 
 
 def supported(cfg, mesh, layers: Dict, batch: int) -> bool:
     """The JAX gate (decode_layer_tp.supported) with the port's kernel
     limits: a mesh, one KV head, heads, vocab and the MLP width divisible
     by the model axis, at most MAX_HEADS local heads, head_dim a multiple
-    of 8 up to 256 with a power-of-two half (RoPE), the int8 serving tree
-    (``layers`` is the whole, unsharded one) and a batch the attention
-    kernel's grid takes."""
+    of 32 up to 256 (the RoPE epilogue's pairs, the attention kernel's
+    depth), the int8 serving tree (``layers`` is the whole, unsharded one)
+    with each rank's qkv and gateup shards as the fused GEMVs take them
+    (decode_layer.fused_gemvs_fit) and a batch the attention kernel's grid
+    takes."""
     if mesh is None:
         return False
     m = mesh.model
-    half = cfg.head_dim // 2
+    hl, hd = cfg.num_attention_heads // m, cfg.head_dim
     down = layers.get("mlp", {}).get("down")
     inter = down["w8"].shape[-2] if isinstance(down, dict) and "w8" in down else None
-    qkv = layers.get("attn", {}).get("qkv")
+    leaves = int8_leaves(layers)
     return (
         1 <= batch <= MAX_BATCH
         and cfg.num_key_value_heads == 1
         and cfg.num_attention_heads % m == 0
-        and cfg.num_attention_heads // m <= MAX_HEADS
+        and hl <= MAX_HEADS
         and cfg.vocab_size % m == 0
-        and cfg.head_dim % 8 == 0
-        and cfg.head_dim <= 256
-        and half & (half - 1) == 0
-        and isinstance(qkv, dict)
-        and "w8" in qkv
-        and isinstance(layers.get("mlp", {}).get("gateup"), dict)
+        and hd % 32 == 0
+        and hd <= 256
+        and leaves is not None
         and inter is not None
         and inter % m == 0
         and pick_block(inter // m) is not None
+        # one rank's shards: [q_r | k | v] and [gate_r | up_r]
+        and fused_gemvs_fit(leaves[0].shape[-2], (hl + 2) * hd, 2 * inter // m, hl, hd)
     )
 
 
@@ -111,41 +115,40 @@ def repack_for_tp(lm: Dict, cfg, mesh) -> Dict:
     return local
 
 
-def attn_chain(plain: bool, x, layers, layer_idx, head_dim, eps, cache_dtype, write_attend):
-    """The attention half on this rank for either cache layout: rms_norm ->
-    int8_gemv over [q_r | k | v] -> ``write_attend(qkv, hl, k_new, v_new)``
-    (RoPE over the Hl local heads, the fresh K/V rows into the cache in
-    place, attention over the window) -> int8_gemv_f32 o rows. ``plain``:
-    the kernels' plain versions. Returns (partial (B, K) fp32, k_new, v_new)."""
-    norm, gemv, gemv_f32 = _PLAIN if plain else _KERNELS
+def attn_chain(plain: bool, x, layers, layer_idx, head_dim, eps, rope, dst, attend):
+    """The attention half on this rank for either cache layout:
+    int8_gemv_rope_kv over [q_r | k | v] (the input norm, RoPE over the Hl
+    local heads, the fresh K/V rows into ``dst = (k_dst, v_dst,
+    page_table or None)`` in place) -> ``attend(q)`` (attention over the
+    window) -> int8_gemv_f32 o rows. ``rope = (cos, sin, pos)``. ``plain``:
+    the kernels' plain versions. Returns (partial (B, K) fp32, k_new,
+    v_new)."""
+    qkv_fn, gemv_f32 = _PLAIN if plain else _KERNELS
     b = x.shape[0]
     attn = layers["attn"]
     hl = attn["qkv"]["w8"].shape[-1] // head_dim - 2  # local query heads
-    y = norm(x, layers["input_norm"][layer_idx], eps)
-    qkv = gemv(y, attn["qkv"]["w8"][layer_idx], attn["qkv"]["s"][layer_idx])
-    k_new = torch.empty((b, head_dim), dtype=cache_dtype, device=x.device)
+    k_dst, v_dst, table = dst
+    k_new = torch.empty((b, head_dim), dtype=k_dst.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
-    a = write_attend(qkv, hl, k_new, v_new)
+    q, _, _ = qkv_fn(x, attn["qkv"]["w8"][layer_idx], attn["qkv"]["s"][layer_idx], *rope, hl,
+                     k_dst, v_dst, k_new, v_new, norm=(layers["input_norm"][layer_idx], eps),
+                     page_table=table)
+    a = attend(q)
     part = gemv_f32(a.reshape(b, -1), attn["o"]["w8"][layer_idx], attn["o"]["s"][layer_idx])
     return part, k_new, v_new
 
 
-_KERNELS = (rms_norm, int8_gemv, int8_gemv_f32)
-_PLAIN = (rms_norm_reference, int8_gemv_reference,
-          functools.partial(int8_gemv_reference, out_fp32=True))
+_KERNELS = (int8_gemv_rope_kv, int8_gemv_f32)
+_PLAIN = (int8_gemv_rope_kv_reference, functools.partial(int8_gemv_reference, out_fp32=True))
 
 
 def _dense_chain(plain, x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos, sin,
                  head_dim, eps):
-    rope, attend = ((rope_kv_write_reference, decode_attention_reference) if plain
-                    else (rope_kv_write, decode_attention))
+    attend = decode_attention_reference if plain else decode_attention
     k_l, v_l = k_cache[layer_idx], v_cache[layer_idx]
-
-    def write_attend(qkv, hl, k_new, v_new):
-        q, _, _ = rope(qkv, cos, sin, cache_pos, hl, k_l, v_l, k_new, v_new)
-        return attend(q, k_l, v_l, valid, head_dim**-0.5)
-
-    return attn_chain(plain, x, layers, layer_idx, head_dim, eps, k_cache.dtype, write_attend)
+    return attn_chain(plain, x, layers, layer_idx, head_dim, eps,
+                      (cos, sin, cache_pos.to(torch.int32)), (k_l, v_l, None),
+                      lambda q: attend(q, k_l, v_l, valid, head_dim**-0.5))
 
 
 def attn_decode_tp_reference(x, layers, k_cache, v_cache, layer_idx, valid, cache_pos, cos,
@@ -186,12 +189,13 @@ attn_decode_tp.launches = 0
 def run_layers(h: torch.Tensor, layers: Dict, n_layers: int, eps: float, mesh,
                attn_half) -> torch.Tensor:
     """All layers on this rank for (B, K) rows: ``attn_half(h, l)`` gives
-    layer l's fp32 o partial, the MLP half (decode_mlp) its fp32 down
-    partial; each is summed across ranks, cast, added to the residual."""
+    layer l's fp32 o partial, the MLP half (decode_mlp, the post-attention
+    norm in its gate/up GEMV) its fp32 down partial; each is summed across
+    ranks, cast, added to the residual."""
     for l in range(n_layers):
         h = h + mesh_lib.psum(attn_half(h, l), mesh).to(h.dtype)
-        y = rms_norm(h, layers["post_norm"][l], eps)
-        pm = mlp_decode_fused(y, layers["mlp"], l, out_dtype=torch.float32)
+        pm = mlp_decode_fused(h, layers["mlp"], l, out_dtype=torch.float32,
+                              norm=(layers["post_norm"][l], eps))
         h = h + mesh_lib.psum(pm, mesh).to(h.dtype)
     return h
 

@@ -15,6 +15,11 @@ with the GeGLU epilogue over ``[gate | up]``, then the down GEMV with
   (``int8_gemv_f32``), which a tensor-parallel rank's down-projection
   leaves in fp32 for the sum across ranks.
 
+``norm=(w, eps)``: the MLP of y's Gemma RMSNorm (the post-attention norm
+of the decode layer), computed in the gate/up GEMV's prologue
+(kernels/int8_gemv ``norm=``), as the TPU decode layer normalizes h in the
+kernel that streams the gate/up weights.
+
 What bounds it: streaming the layer's int8 weights (3 K x I bytes: 100 MB
 per layer of Gemma-2B at one rank, 12.6 MB at eight), read once each.
 
@@ -29,7 +34,7 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.activations import gelu_tanh
-from .int8_gemv import int8_gemv, int8_gemv_f32
+from .int8_gemv import Norm, int8_gemv, int8_gemv_f32, normed
 
 
 def pick_block(inter: int) -> Optional[int]:
@@ -66,10 +71,12 @@ def repack(mlp: Dict) -> Dict:
 
 
 def reference_mlp(y: torch.Tensor, mlp: Dict, layer_idx: int, *,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain version: the GeGLU on fp32 gate and up, rounded to the
-    activation dtype, then the fp32 down product and scale, rounded to
-    ``out_dtype`` (default: y's)."""
+                  out_dtype: Optional[torch.dtype] = None,
+                  norm: Optional[Norm] = None) -> torch.Tensor:
+    """Plain version: (with ``norm``, of y's RMSNorm) the GeGLU on fp32 gate
+    and up, rounded to the activation dtype, then the fp32 down product and
+    scale, rounded to ``out_dtype`` (default: y's)."""
+    y = normed(y, norm)
     gu, dn = mlp["gateup"], mlp["down"]
     v = (y.float() @ gu["w8"][layer_idx].float()) * gu["s"][layer_idx]
     inter = v.shape[-1] // 2
@@ -84,16 +91,17 @@ def mlp_decode_fused(
     layer_idx: int,
     *,
     out_dtype: Optional[torch.dtype] = None,  # None: y's dtype; or torch.float32
+    norm: Optional[Norm] = None,  # (w (K,), eps): the MLP of y's RMSNorm
 ) -> torch.Tensor:
     """Layer ``layer_idx``'s MLP for one token per row; y-shaped output."""
     if not y.is_cuda:
-        return reference_mlp(y, mlp, layer_idx, out_dtype=out_dtype)
+        return reference_mlp(y, mlp, layer_idx, out_dtype=out_dtype, norm=norm)
     if out_dtype not in (None, y.dtype, torch.float32):
         raise ValueError(f"mlp_decode_fused: out_dtype {out_dtype} (None or torch.float32)")
     shape = y.shape
     y2 = y.reshape(-1, shape[-1])
     gu, dn = mlp["gateup"], mlp["down"]
-    t = int8_gemv(y2, gu["w8"][layer_idx], gu["s"][layer_idx], geglu=True)
+    t = int8_gemv(y2, gu["w8"][layer_idx], gu["s"][layer_idx], geglu=True, norm=norm)
     if out_dtype == torch.float32:
         out = int8_gemv_f32(t, dn["w8"][layer_idx], dn["s"][layer_idx])
     else:

@@ -26,6 +26,16 @@ only: not on B, on the batch tile of its row, on the epilogue, or on the
 order in which CTAs run. The LM-head argmax (``kernels/decode_head``)
 takes the plan of the unpadded vocab, so its logits have the bits of the
 logits path's ``int8_gemv``.
+
+Two pieces of the kernel's layout live here as well, so that the CPU tests
+can check them:
+
+* the norm prologue stages the CTA's K range of the normalized rows in the
+  warps' sum buffer (``NORM_STAGE_BYTES``): :func:`norm_fits`;
+* the qkv GEMV's RoPE epilogue (``int8_gemv_rope_kv``) pairs column j of
+  a head with column j + D/2 inside one tile: :func:`rope_quad_col` is the
+  weight column each quad of a tile reads, :func:`epilogue_share` the
+  output columns (pairs) each cluster rank finishes.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ WARP_CHOICES = (4, 8)  # warps per CTA (GT_MAX_WARPS = 8)
 STEP_K = 16  # K rows per mma step
 MAX_CLUSTER = 8  # the portable cluster size
 TARGET_WARPS = 16 * 132  # 16 resident warps on each of the H100's 132 SMs
+NORM_PAD = 8  # bf16 between two staged rows of y (GT_NORM_PAD)
+NORM_STAGE_BYTES = 8 * BATCH_TILE * TILE_N * 4  # GemvSmem::red: 8 warps' sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +73,30 @@ class GemvPlan:
         warps = max(w for w in WARP_CHOICES if w == WARP_CHOICES[0] or cluster * w <= per_tile)
         per = -(-steps // cluster)
         return cls(k, n, -(-steps // per), warps, per * STEP_K)
+
+
+def norm_fits(plan: GemvPlan) -> bool:
+    """True where the norm prologue's staged rows (a batch tile of the
+    CTA's K range, bf16) fit the kernel's buffer, and K is a whole number
+    of 8-element chunks (the rows are read 16 bytes at a time)."""
+    return plan.k % 8 == 0 and BATCH_TILE * (plan.k_per_cta + NORM_PAD) * 2 <= NORM_STAGE_BYTES
+
+
+def rope_quad_col(tile: int, quad: int, n_heads: int, head_dim: int):
+    """The first of the 16 weight columns quad ``quad`` (0-7) of tile
+    ``tile`` reads in the RoPE epilogue's GEMV over N = (H + 2) D, or None
+    past the last pair. A tile covers ``TILE_N // 2`` pairs (j, j + D/2) of
+    one head: quads 0-3 read 16 pairs' first columns, quads 4-7 the same
+    pairs' partners (csrc/int8_gemv.cu, mode 4)."""
+    half = head_dim // 2
+    p = tile * (TILE_N // 2) + 16 * (quad % 4)
+    if p >= (n_heads + 2) * half:
+        return None
+    return (p // half) * head_dim + p % half + (0 if quad < 4 else half)
+
+
+def epilogue_share(cluster: int, tile_out: int = TILE_N // 2):
+    """[lo, hi) of the tile's output columns (GeGLU and RoPE: pairs) that
+    each cluster rank finishes, rank by rank."""
+    per = -(-tile_out // cluster)
+    return [(r * per, min(tile_out, (r + 1) * per)) for r in range(cluster)]

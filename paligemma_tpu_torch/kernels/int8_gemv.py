@@ -33,6 +33,25 @@ is cast and added after the residual (plain and residual modes) or added
 in fp32 to the gate and up values before the GeGLU, as the TPU kernel adds
 it, by the same launch (``pg_int8_gemv_lora``: each rank adds its columns'
 deltas after the cluster's sum).
+
+``norm=(w, eps)`` multiplies the Gemma RMSNorm of x instead of x,
+``y = cast((x * rsqrt(mean(x^2) + eps)) * (1 + w))``, computed in the
+kernel's prologue (``pg_int8_gemv_fused``) as the TPU kernel normalizes in
+the kernel that streams the weights. Its r depends on x's row alone, so
+every kernel that reads the row (each GEMV plan and ``lora_shrink`` with the
+same ``norm``) multiplies the same bits; on the CPU the plain version runs
+ops/norms.rms_norm first, which is the chain the prologue replaces.
+
+``int8_gemv_rope_kv`` is the qkv projection with the TPU kernel's RoPE and
+the fresh K/V rows in its epilogue (decode_layer.py ``_kernel_all``;
+decode_layer_paged.py ``_kernel_paged``, whose caller writes the fresh row
+into its page slot): one launch computes q|k|v, casts it (plus the LoRA
+delta, as the plain epilogue adds it), rotates q and k half-split in fp32,
+writes q and the K/V rows at ``pos`` (a dense cache row, or a page slot
+through ``page_table``) and ``k_new`` / ``v_new``. It is a wrapper of its
+own, counted apart. Its plain version is the chain it replaces:
+:func:`int8_gemv_reference` then decode_elementwise's
+``rope_kv_write_reference`` / ``rope_kv_write_paged_reference``.
 """
 
 from __future__ import annotations
@@ -42,10 +61,18 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..ops.activations import gelu_tanh
+from ..ops.norms import rms_norm as rms_norm_reference
 from . import _build
-from .gemv_plan import TILE_N, GemvPlan  # noqa: F401  (TILE_N: the head's padding)
+from .decode_elementwise import rope_kv_write_paged_reference, rope_kv_write_reference
+from .gemv_plan import TILE_N, GemvPlan, norm_fits  # noqa: F401  (TILE_N: the head's padding)
 
 LoraExpand = Tuple[torch.Tensor, torch.Tensor, Sequence[int]]  # (z, b, bounds)
+Norm = Tuple[torch.Tensor, float]  # (w (K,), eps) of a Gemma RMSNorm
+
+
+def normed(x: torch.Tensor, norm: Optional[Norm]) -> torch.Tensor:
+    """x, or its plain Gemma RMSNorm by ``norm = (w, eps)``."""
+    return x if norm is None else rms_norm_reference(x, norm[0], norm[1])
 
 
 def lora_expand_reference(z: torch.Tensor, b: torch.Tensor, bounds: Sequence[int],
@@ -67,9 +94,12 @@ def int8_gemv_reference(
     geglu: bool = False,
     out_fp32: bool = False,
     lora: Optional[LoraExpand] = None,
+    *,
+    norm: Optional[Norm] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`int8_gemv` (and, with ``out_fp32``, of
     :func:`int8_gemv_f32`)."""
+    x = normed(x, norm)
     v = (x.float() @ w8.float()) * s.float()
     if out_fp32:
         return v
@@ -111,9 +141,23 @@ def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
     return g, segs[0], segs[1]
 
 
-def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) -> torch.Tensor:
+def _check_norm(norm: Norm, x: torch.Tensor, plan: GemvPlan) -> None:
+    w, _ = norm
+    _check(w.dtype == torch.bfloat16 and w.shape == (plan.k,) and w.is_contiguous()
+           and w.device == x.device and w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0,
+           f"norm weight must be contiguous 16-byte aligned bf16 ({plan.k},) on x's device, "
+           "and x 16-byte aligned")
+    _check(norm_fits(plan), f"the norm prologue takes K % 8 == 0 and a K range per CTA that "
+           f"fits its buffer (K {plan.k}, N {plan.n}: {plan.k_per_cta} rows a CTA)")
+
+
+def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
+            norm: Optional[Norm] = None, rope=None) -> torch.Tensor:
     """One GEMV launch of ``mode`` (0 plain, 1 + residual, 2 GeGLU, 3 fp32
-    out); with ``lora`` (modes 0-2) its epilogue adds the expand."""
+    out, 4 RoPE + KV write with ``rope``: (out q, cos, sin, pos, k_dst,
+    v_dst, k_new, v_new, table or None, H, D)); with ``lora`` (modes 0-2,
+    4) its epilogue adds the expand; with ``norm`` its prologue normalizes
+    x."""
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
@@ -131,23 +175,43 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None) ->
         _check(residual.dtype == torch.bfloat16 and residual.shape == (b, n)
                and residual.is_contiguous() and residual.device == dev,
                "residual must be contiguous bf16 (B, N)")
+    g = seg1 = seg2 = 0
     if lora is not None:
         g, seg1, seg2 = _check_lora(lora, b, n, dev)
     plan = GemvPlan.make(k, n)
-    out = torch.empty((b, n // 2 if mode == 2 else n),
-                      dtype=torch.float32 if mode == 3 else torch.bfloat16, device=dev)
+    if norm is not None:
+        _check_norm(norm, x, plan)
+    if mode == 4:
+        out = rope[0]
+    else:
+        out = torch.empty((b, n // 2 if mode == 2 else n),
+                          dtype=torch.float32 if mode == 3 else torch.bfloat16, device=dev)
     lib = _build.library()
     stream = _build.stream_ptr(dev)
     args = (x.data_ptr(), w8.data_ptr(), s.data_ptr(),
             residual.data_ptr() if mode == 1 else None, out.data_ptr(), b, k, n, mode,
             plan.cluster, plan.warps, plan.k_per_cta)
-    if lora is None:
-        _build.check(lib.pg_int8_gemv(*args, stream), "int8_gemv")
+    lora_args = (None, None, 0, 0, 0, 0, 0)
+    if lora is not None:
+        z, lb, _ = lora
+        lora_args = (z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1],
+                     seg1, seg2)
+    if norm is None and rope is None:
+        if lora is None:
+            _build.check(lib.pg_int8_gemv(*args, stream), "int8_gemv")
+        else:
+            _build.check(lib.pg_int8_gemv_lora(*args, *lora_args, stream), "int8_gemv LoRA")
         return out
-    z, lb, _ = lora
-    _build.check(lib.pg_int8_gemv_lora(
-        *args, z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1], seg1,
-        seg2, stream), "int8_gemv LoRA")
+    rope_args = (None,) * 8 + (0, 0, 0, 0)
+    if rope is not None:
+        _, cos, sin, pos, k_dst, v_dst, k_new, v_new, table, h, d = rope
+        rope_args = (cos.data_ptr(), sin.data_ptr(), pos.data_ptr(), k_dst.data_ptr(),
+                     v_dst.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                     None if table is None else table.data_ptr(), h, d, k_dst.shape[1],
+                     0 if table is None else table.stride(0))
+    _build.check(lib.pg_int8_gemv_fused(
+        *args, *lora_args, None if norm is None else norm[0].data_ptr(),
+        0.0 if norm is None else float(norm[1]), *rope_args, stream), "int8_gemv fused")
     return out
 
 
@@ -158,13 +222,17 @@ def int8_gemv(
     residual: Optional[torch.Tensor] = None,
     geglu: bool = False,
     lora: Optional[LoraExpand] = None,
+    *,
+    norm: Optional[Norm] = None,
 ) -> torch.Tensor:
     """``x (B, K)`` times an int8 ``(K, N)`` weight with per-column scales
-    (``lora``: plus each row's adapter delta, module docstring)."""
+    (``lora``: plus each row's adapter delta; ``norm``: of x's RMSNorm;
+    module docstring)."""
     if not x.is_cuda:
-        return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora)
+        return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora, norm=norm)
     _check(not (geglu and residual is not None), "geglu takes no residual")
-    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora)
+    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora,
+                  norm)
     int8_gemv.launches += 1
     return out
 
@@ -183,3 +251,77 @@ def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.T
 
 
 int8_gemv_f32.launches = 0
+
+
+def int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, k_new, v_new, *,
+                                norm, page_table=None, lora=None):
+    """Plain version of :func:`int8_gemv_rope_kv`: the chain it replaces
+    (writes the cache rows or pool slots in place)."""
+    qkv = int8_gemv_reference(x, w8, s, lora=lora, norm=norm)
+    if page_table is None:
+        return rope_kv_write_reference(qkv, cos, sin, pos, n_heads, k_dst, v_dst, k_new, v_new)
+    return rope_kv_write_paged_reference(qkv, cos, sin, pos, n_heads, k_dst, v_dst, page_table,
+                                         k_new, v_new)
+
+
+def _check_rope(b, n, n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, dev):
+    d = cos.shape[-1]
+    _check(d > 0 and (d // 2) % 16 == 0 and d % 2 == 0 and n == (n_heads + 2) * d,
+           f"RoPE takes N = (H + 2) * D with D / 2 a multiple of 16, got N {n}, H {n_heads}, "
+           f"D {d}")
+    for arg, t, shape in (("cos", cos, (b, d)), ("sin", sin, (b, d)), ("k_new", k_new, (b, d)),
+                          ("v_new", v_new, (b, d))):
+        _check(t.dtype == torch.bfloat16 and t.shape == shape and t.is_contiguous()
+               and t.device == dev, f"{arg} must be contiguous bf16 {shape} on x's device")
+    _check(pos.dtype == torch.int32 and pos.shape == (b,) and pos.is_contiguous()
+           and pos.device == dev, "pos must be contiguous int32 (B,) on x's device")
+    for arg, t in (("k_dst", k_dst), ("v_dst", v_dst)):
+        _check(t.dtype == torch.bfloat16 and t.dim() == 3 and t.shape[2] == d
+               and t.is_contiguous() and t.device == dev and t.shape == k_dst.shape,
+               f"{arg} must be contiguous bf16 (rows, S or page size, D) on x's device")
+    if page_table is None:
+        _check(k_dst.shape[0] == b, "a dense cache takes one row of slots per batch row")
+    else:
+        _check(page_table.dtype == torch.int32 and page_table.dim() == 2
+               and page_table.shape[0] == b and page_table.stride(1) == 1
+               and page_table.device == dev,
+               "page_table must be (B, P) int32 with unit column stride on x's device")
+
+
+def int8_gemv_rope_kv(
+    x: torch.Tensor,  # (B, K) the layer's input (with norm: before its RMSNorm)
+    w8: torch.Tensor,  # (K, (H + 2) * D) int8 q|k|v
+    s: torch.Tensor,  # ((H + 2) * D,) fp32
+    cos: torch.Tensor,  # (B, D)
+    sin: torch.Tensor,  # (B, D)
+    pos: torch.Tensor,  # (B,) int32 position of this token per row
+    n_heads: int,  # H: query heads (a tensor-parallel rank's local ones)
+    k_dst: torch.Tensor,  # (B, S, D) dense cache of the layer, or (n_pages, ps, D) its pool
+    v_dst: torch.Tensor,
+    k_new: torch.Tensor,  # (B, D) out: the fresh key row
+    v_new: torch.Tensor,  # (B, D) out: the fresh value row
+    *,
+    norm: Norm,  # (w (K,), eps): the layer's input RMSNorm, in the prologue
+    page_table: Optional[torch.Tensor] = None,  # (B, P) int32: k_dst / v_dst are a page pool
+    lora: Optional[LoraExpand] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The qkv projection of ``x``'s RMSNorm by ``norm`` (plus each row's
+    adapter delta with ``lora``) with half-split RoPE on q and k, k
+    and v written into row ``pos`` of the cache (dense: ``k_dst[b, pos]``;
+    paged: slot ``page_table[b, pos // ps] * ps + pos % ps``, a row whose
+    table is all 0 writes into the garbage page 0) and into ``k_new`` /
+    ``v_new``, in place. One launch. Returns (q (B, H, D), k_new, v_new)."""
+    if not x.is_cuda:
+        return int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, k_new,
+                                           v_new, norm=norm, page_table=page_table, lora=lora)
+    b, d = x.shape[0], cos.shape[-1]
+    _check_rope(b, w8.shape[-1], n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table,
+                x.device)
+    q = torch.empty((b, n_heads, d), dtype=torch.bfloat16, device=x.device)
+    _launch(x, w8, s, None, 4, lora, norm,
+            (q, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, n_heads, d))
+    int8_gemv_rope_kv.launches += 1
+    return q, k_new, v_new
+
+
+int8_gemv_rope_kv.launches = 0

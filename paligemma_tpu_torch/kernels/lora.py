@@ -18,15 +18,22 @@ One launch per call: each cluster of CTAs covers ``COLS_PER_CTA`` columns
 of A and splits K over its ranks as :class:`ShrinkPlan` says; the ranks'
 sums are added in rank order through distributed shared memory, and the
 last rank applies the mask and the cast.
+
+``norm=(w, eps)``: the shrink of x's Gemma RMSNorm, computed in the kernel
+with the bits the int8 GEMV's norm prologue gives the same row
+(kernels/int8_gemv ``norm=``), so the basis and the projection read one y.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from typing import Optional
+
 import torch
 
 from . import _build
+from .int8_gemv import Norm, normed
 
 COLS_PER_CTA = 8  # columns of A per CTA (csrc/lora.cu LS_COLS)
 MIN_ROWS_PER_RANK = 256  # K rows per rank, at least, before K is split further
@@ -70,8 +77,9 @@ def block_mask(adapter_ids: torch.Tensor, n_cols: int, group: int, rank: int,
 
 
 def lora_shrink_reference(x: torch.Tensor, a: torch.Tensor, adapter_ids: torch.Tensor,
-                          rank: int, group: int) -> torch.Tensor:
+                          rank: int, group: int, *, norm: Optional[Norm] = None) -> torch.Tensor:
     """Plain version of :func:`lora_shrink`."""
+    x = normed(x, norm)
     z = (x.float() @ a.to(x.dtype).float()).to(x.dtype)
     return z * block_mask(adapter_ids, a.shape[-1], group, rank, x.dtype)
 
@@ -82,10 +90,12 @@ def lora_shrink(
     adapter_ids: torch.Tensor,  # (B,) int32 bank rows (0 = base model)
     rank: int,
     group: int,  # G: the width of one target's block of columns
+    *,
+    norm: Optional[Norm] = None,  # (w (K,), eps): the basis of x's RMSNorm
 ) -> torch.Tensor:
     """Each row's masked adapter basis ``z (B, nG)`` in x's dtype."""
     if not x.is_cuda:
-        return lora_shrink_reference(x, a, adapter_ids, rank, group)
+        return lora_shrink_reference(x, a, adapter_ids, rank, group, norm=norm)
     b, k = x.shape
     ng = a.shape[-1]
     dev = x.device
@@ -102,11 +112,17 @@ def lora_shrink(
         raise ValueError(f"lora_shrink: nG {ng} must be a multiple of G {group} (rank {rank})")
     if x.data_ptr() % 16 or a.data_ptr() % 16:
         raise ValueError("lora_shrink: x and a must be 16-byte aligned")
+    if norm is not None and not (norm[0].dtype == torch.bfloat16 and norm[0].shape == (k,)
+                                 and norm[0].is_contiguous() and norm[0].device == dev
+                                 and norm[0].data_ptr() % 16 == 0):
+        raise ValueError(f"lora_shrink: the norm weight must be contiguous 16-byte aligned bf16 "
+                         f"({k},) on x's device")
     plan = ShrinkPlan.make(k, ng)  # raises unless K % 8 == 0 and nG % 8 == 0
     z = torch.empty((b, ng), dtype=torch.bfloat16, device=dev)
     _build.check(_build.library().pg_lora_shrink(
         x.data_ptr(), a.data_ptr(), int(a.dtype == torch.float32), adapter_ids.data_ptr(),
         z.data_ptr(), b, k, ng, group, rank, plan.cluster, plan.k_per_cta, plan.threads,
+        None if norm is None else norm[0].data_ptr(), 0.0 if norm is None else float(norm[1]),
         _build.stream_ptr(dev)), "lora_shrink")
     lora_shrink.launches += 1
     return z

@@ -234,9 +234,10 @@ def _decoder_block(
     x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh), a, lora_lp, "o")
 
     residual = x
+    if mlp_full is not None:  # the post-attention norm in the gate/up GEMV's prologue
+        return residual + mlp_decode_fused(x, mlp_full, layer_idx,
+                                           norm=(lp["post_norm"], cfg.rms_norm_eps))
     y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    if mlp_full is not None:
-        return residual + mlp_decode_fused(y, mlp_full, layer_idx)
     return residual + _mlp(y, lp, lora_lp, mesh)
 
 

@@ -54,15 +54,21 @@ def test_kernels_match_plain_versions_on_card():
                                t_dattn.decode_attention_reference(qd, kc, vc, valid, 128**-0.5).float(),
                                rtol=2e-2, atol=2e-2)
 
-    qkv = rnd(2, 6 * 128)
+    # the qkv GEMV with the norm prologue and the RoPE + KV write epilogue
+    # against the plain chain it replaced (norm -> GEMV -> RoPE + write)
+    w8q = torch.randint(-127, 128, (256, 6 * 128), generator=g, device=dev, dtype=torch.int8)
+    sq = torch.rand(6 * 128, generator=g, device=dev) * 1e-2
+    norm = (rnd(256) * 0.1, 1e-6)
     ang = torch.rand(2, 128, generator=g, device=dev) * 6.28
     cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
     pos = torch.tensor([5, 9], dtype=torch.int32, device=dev)
     bufs = [torch.zeros(2, 16, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
     outs = [torch.empty(2, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
-    qk, _, _ = t_elem.rope_kv_write(qkv, cos, sin, pos, 4, bufs[0], bufs[1], outs[0], outs[1])
-    qp, _, _ = t_elem.rope_kv_write_reference(qkv, cos, sin, pos, 4, bufs[2], bufs[3],
-                                              outs[2], outs[3])
+    xq = x[:2].contiguous()
+    qk, _, _ = t_gemv.int8_gemv_rope_kv(xq, w8q, sq, cos, sin, pos, 4, bufs[0], bufs[1], outs[0],
+                                        outs[1], norm=norm)
+    qp, _, _ = t_gemv.int8_gemv_rope_kv_reference(xq, w8q, sq, cos, sin, pos, 4, bufs[2], bufs[3],
+                                                  outs[2], outs[3], norm=norm)
     torch.testing.assert_close(qk.float(), qp.float(), rtol=2e-2, atol=2e-2)
     for got, want in zip(bufs[:2] + outs[:2], bufs[2:] + outs[2:]):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
@@ -119,17 +125,23 @@ def test_paged_kernels_match_plain_versions_on_card():
     paged = t_paged.paged_decode_attention(q, pool_k, pool_v, tab, lens)
     assert torch.equal(dense.reshape(b, 8, d), paged)
 
-    qkv = rnd(2, 6 * 128)
+    # the qkv GEMV's RoPE epilogue writing into page slots, against the
+    # plain chain (norm -> GEMV -> paged RoPE + write)
+    xq = rnd(2, 256)
+    w8q = torch.randint(-127, 128, (256, 6 * 128), generator=g, device=dev, dtype=torch.int8)
+    sq = torch.rand(6 * 128, generator=g, device=dev) * 1e-2
+    norm = (rnd(256) * 0.1, 1e-6)
     ang = torch.rand(2, 128, generator=g, device=dev) * 6.28
     cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
     pos = torch.tensor([5, 40], dtype=torch.int32, device=dev)
     ptab = torch.tensor([[2, 0, 0], [4, 1, 3]], dtype=torch.int32, device=dev)
     pools = [torch.zeros(5, 16, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
     outs = [torch.empty(2, 128, dtype=torch.bfloat16, device=dev) for _ in range(4)]
-    qk, _, _ = t_elem.rope_kv_write_paged(qkv, cos, sin, pos, 4, pools[0], pools[1], ptab,
-                                          outs[0], outs[1])
-    qp, _, _ = t_elem.rope_kv_write_paged_reference(qkv, cos, sin, pos, 4, pools[2], pools[3],
-                                                    ptab, outs[2], outs[3])
+    qk, _, _ = t_gemv.int8_gemv_rope_kv(xq, w8q, sq, cos, sin, pos, 4, pools[0], pools[1],
+                                        outs[0], outs[1], norm=norm, page_table=ptab)
+    qp, _, _ = t_gemv.int8_gemv_rope_kv_reference(xq, w8q, sq, cos, sin, pos, 4, pools[2],
+                                                  pools[3], outs[2], outs[3], norm=norm,
+                                                  page_table=ptab)
     torch.testing.assert_close(qk.float(), qp.float(), rtol=2e-2, atol=2e-2)
     for got, want in zip(pools[:2] + outs[:2], pools[2:] + outs[2:]):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
@@ -768,3 +780,137 @@ def test_head_argmax_equals_argmax_of_int8_gemv_on_card(vocab):
     for j in dups:
         w8[:, j], s[j] = w8[:, j0], s[j0]
     assert int(t_head.head_argmax_fused(y, t_head.repack_head({"w8": w8, "s": s}))[0]) == j0
+
+
+def _norm_operands(dev, g, b, k):
+    x = (torch.randn(b, k, generator=g, device=dev) * 3.0).to(torch.bfloat16)
+    return x, ((torch.randn(k, generator=g, device=dev) * 0.1).to(torch.bfloat16), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("label,k,n,kw", [
+    ("qkv", 2048, 2560, {}), ("gateup", 2048, 32768, {"geglu": True}),
+    ("qkv m8", 2048, 768, {}), ("gateup m8", 2048, 4096, {"geglu": True})])
+def test_int8_gemv_norm_prologue_on_card(b, label, k, n, kw):
+    """The GEMV with the RMSNorm in its prologue against the plain chain
+    (ops/norms.rms_norm, then the GEMV's plain version) at Gemma-2B's qkv
+    and gateup and one TP rank's shards: within 1e-2, a second call the
+    same bits, one launch a call."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11 + n + b)
+    x, norm = _norm_operands(dev, g, b, k)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    n0 = t_gemv.int8_gemv.launches
+    got = t_gemv.int8_gemv(x, w8, s, norm=norm, **kw)
+    assert t_gemv.int8_gemv.launches == n0 + 1
+    _close_rel(got, t_gemv.int8_gemv_reference(x, w8, s, norm=norm, **kw), rel=1e-2)
+    assert torch.equal(t_gemv.int8_gemv(x, w8, s, norm=norm, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+def test_norm_prologue_gives_one_y_everywhere_on_card(b):
+    """Every kernel that reads a normalized row multiplies the same y: the
+    GEMV over (2048, 2048), (2048, 4096) and (2048, 32768) identity-like
+    weights (three plans: K ranges of 256, 256 and 1024 rows a CTA) returns
+    y itself, bit for bit the same in all three, and the LoRA shrink with
+    the same norm (a unit basis) returns the same y; y is within 1e-2 of
+    ops/norms.rms_norm."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+    from paligemma_tpu_torch.ops.norms import rms_norm
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(21 + b)
+    k = 2048
+    x, norm = _norm_operands(dev, g, b, k)
+    eye = torch.eye(k, device=dev, dtype=torch.int8)
+    ys = []
+    for reps in (1, 2, 16):
+        w8 = eye.repeat(1, reps).contiguous()
+        out = t_gemv.int8_gemv(x, w8, torch.ones(k * reps, device=dev), norm=norm)
+        ys += list(out.split(k, dim=1))
+    y = ys[0]
+    _close_rel(y, rms_norm(x, *norm), rel=1e-2)
+    assert all(torch.equal(t, y) for t in ys)
+    ids = torch.zeros(b, dtype=torch.int32, device=dev)
+    for c0 in (0, 1000, k - 8):
+        a = torch.zeros(k, 8, device=dev, dtype=torch.bfloat16)
+        a[torch.arange(c0, c0 + 8, device=dev), torch.arange(8, device=dev)] = 1.0
+        z = t_lora.lora_shrink(x, a, ids, 8, 8, norm=norm)
+        assert torch.equal(z, y[:, c0:c0 + 8])
+
+
+def _rope_operands(dev, g, b, hl, d, n_layers_pos=300):
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    pos = torch.tensor([n_layers_pos + 37 * i for i in range(b)], dtype=torch.int32, device=dev)
+    return ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("hl,d", [(8, 256), (4, 256), (1, 256), (4, 128), (2, 32)])
+@pytest.mark.parametrize("bank", [False, True])
+def test_int8_gemv_rope_kv_on_card(b, hl, d, bank):
+    """The qkv GEMV with the norm prologue and the RoPE + KV write epilogue
+    against the plain chain it replaced (norm -> GEMV -> RoPE + write),
+    into a dense cache and into a page pool, with and without a LoRA bank:
+    within 1e-2; dense == paged bit for bit; its cast q|k|v have mode 0's
+    bits (v_new is the plain-epilogue GEMV's v columns, q and k the plain
+    rotation of its q and k columns); base rows of the bank the bits
+    without one; a second call the same bits."""
+    from paligemma_tpu_torch.kernels import decode_elementwise as t_el
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(31 + b + hl + d)
+    k, n, s_len, ps = 2048, (hl + 2) * d, 1024, 64
+    x, norm = _norm_operands(dev, g, b, k)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    cos, sin, pos = _rope_operands(dev, g, b, hl, d)
+    lora, ids = None, torch.arange(b, device=dev).to(torch.int32) % 3
+    if bank:
+        gcols, rank = 24, 8
+        a = torch.randn(k, 3 * gcols, generator=g, device=dev) * k**-0.5
+        a[:, torch.arange(3 * gcols, device=dev) % gcols < rank] = 0  # the zero adapter
+        lb = torch.randn(gcols, n, generator=g, device=dev) * 0.5
+        z = t_lora.lora_shrink(x, a, ids, rank, gcols, norm=norm)
+        lora = (z, lb, (hl * d, (hl + 1) * d))
+    n_pages = b * s_len // ps + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(torch.int32)
+    table = table.reshape(b, s_len // ps)
+
+    def run(fn, paged):
+        shape = (n_pages, ps, d) if paged else (b, s_len, d)
+        kd, vd = (torch.zeros(shape, dtype=torch.bfloat16, device=dev) for _ in range(2))
+        kn, vn = (torch.empty(b, d, dtype=torch.bfloat16, device=dev) for _ in range(2))
+        q, _, _ = fn(x, w8, s, cos, sin, pos, hl, kd, vd, kn, vn, norm=norm,
+                     page_table=table if paged else None, lora=lora)
+        rows = torch.arange(b, device=dev)
+        if paged:
+            slot = table[rows, pos.long() // ps].long(), pos.long() % ps
+            krow, vrow = kd[slot], vd[slot]
+        else:
+            krow, vrow = kd[rows, pos.long()], vd[rows, pos.long()]
+        assert torch.equal(krow, kn) and torch.equal(vrow, vn)
+        return q, kn, vn
+
+    n0 = t_gemv.int8_gemv_rope_kv.launches
+    dense = run(t_gemv.int8_gemv_rope_kv, False)
+    paged = run(t_gemv.int8_gemv_rope_kv, True)
+    assert t_gemv.int8_gemv_rope_kv.launches == n0 + 2
+    for got, want in zip(dense, run(t_gemv.int8_gemv_rope_kv_reference, False)):
+        _close_rel(got, want, rel=1e-2)
+    assert all(torch.equal(u, v) for u, v in zip(dense, paged))
+    assert all(torch.equal(u, v) for u, v in zip(dense, run(t_gemv.int8_gemv_rope_kv, False)))
+    qkv = t_gemv.int8_gemv(x, w8, s, norm=norm, lora=lora)  # mode 0's epilogue
+    kc, vc = (torch.zeros(b, s_len, d, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    kn, vn = (torch.empty(b, d, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    want = t_el.rope_kv_write_reference(qkv, cos, sin, pos, hl, kc, vc, kn, vn)
+    assert all(torch.equal(u, v) for u, v in zip(dense, want))
+    if bank:
+        lora = None
+        base = run(t_gemv.int8_gemv_rope_kv, False)
+        assert all(torch.equal(u[ids == 0], v[ids == 0]) for u, v in zip(dense, base))

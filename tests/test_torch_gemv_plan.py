@@ -119,8 +119,8 @@ class _Library:
 @pytest.fixture
 def library(monkeypatch):
     lib = _Library()
-    for fn in (t_gemv.int8_gemv, t_gemv.int8_gemv_f32, t_head.head_argmax_fused,
-               t_lora.lora_shrink, t_q4.int4_matmul):
+    for fn in (t_gemv.int8_gemv, t_gemv.int8_gemv_f32, t_gemv.int8_gemv_rope_kv,
+               t_head.head_argmax_fused, t_lora.lora_shrink, t_q4.int4_matmul):
         monkeypatch.setattr(fn, "launches", 0)  # the counts come back after the test
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
@@ -319,3 +319,98 @@ def test_int8_gemv_still_refuses(library, k, n, msg):
     with pytest.raises(ValueError, match=msg):
         t_gemv.int8_gemv(x, _card(torch.zeros((k, n), dtype=torch.int8)), _card(torch.ones(n)))
     assert library.calls == []
+
+
+def _norm(k):
+    return (_card(torch.zeros(k, dtype=torch.bfloat16)), 1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 8, 9])
+@pytest.mark.parametrize("label,k,n,geglu", [
+    ("qkv", HIDDEN, (HEADS + 2) * HEAD_DIM, False), ("gateup", HIDDEN, 2 * INTER, True),
+    ("qkv m8", HIDDEN, 3 * HEAD_DIM, False), ("gateup m8", HIDDEN, 2 * INTER // 8, True)])
+def test_int8_gemv_with_norm_is_one_fused_launch_of_its_plan(library, b, label, k, n, geglu):
+    """With a norm the GEMV is one launch (pg_int8_gemv_fused) of the plan of
+    (K, N), the norm's weight and eps beside it, no LoRA and no RoPE
+    operands; the plan's staged rows fit the prologue's buffer."""
+    x = _card(torch.zeros((b, k), dtype=torch.bfloat16))
+    w8, s = _card(torch.zeros((k, n), dtype=torch.int8)), _card(torch.ones(n))
+    norm = _norm(k)
+    out = t_gemv.int8_gemv(x, w8, s, geglu=geglu, norm=norm)
+    assert out.shape == (b, n // 2 if geglu else n) and t_gemv.int8_gemv.launches == 1
+    [(name, args)] = library.calls
+    plan = t_plan.GemvPlan.make(k, n)
+    assert name == "pg_int8_gemv_fused" and t_plan.norm_fits(plan)
+    assert args[5:12] == (b, k, n, 2 if geglu else 0, plan.cluster, plan.warps, plan.k_per_cta)
+    assert args[12:19] == (None, None, 0, 0, 0, 0, 0)  # no LoRA
+    assert args[19:21] == (norm[0].data_ptr(), 1e-6)
+    assert args[21:29] == (None,) * 8 and args[29:33] == (0, 0, 0, 0)  # no RoPE
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("hl", [HEADS, 1])
+def test_int8_gemv_rope_kv_is_one_launch_of_mode_4(library, paged, hl):
+    """int8_gemv_rope_kv hands the kernel mode 4 over the plan of (K, (H +
+    2) D), q as its output, the heads, the depth and the destination's rows
+    (S of a dense cache, the page size of a pool) and the table's stride."""
+    b, d, s_len, ps = 3, HEAD_DIM, 1024, 64
+    n = (hl + 2) * d
+    x = _card(torch.zeros((b, HIDDEN), dtype=torch.bfloat16))
+    w8, s = _card(torch.zeros((HIDDEN, n), dtype=torch.int8)), _card(torch.ones(n))
+    cos = sin = _card(torch.zeros((b, d), dtype=torch.bfloat16))
+    pos = _card(torch.zeros(b, dtype=torch.int32))
+    shape = (40, ps, d) if paged else (b, s_len, d)
+    kd, vd = (_card(torch.zeros(shape, dtype=torch.bfloat16)) for _ in range(2))
+    kn, vn = (_card(torch.zeros((b, d), dtype=torch.bfloat16)) for _ in range(2))
+    table = _card(torch.zeros((b, 16), dtype=torch.int32)) if paged else None
+    q, k_new, _ = t_gemv.int8_gemv_rope_kv(x, w8, s, cos, sin, pos, hl, kd, vd, kn, vn,
+                                           norm=_norm(HIDDEN), page_table=table)
+    assert q.shape == (b, hl, d) and k_new is kn and t_gemv.int8_gemv_rope_kv.launches == 1
+    [(name, args)] = library.calls
+    plan = t_plan.GemvPlan.make(HIDDEN, n)
+    assert name == "pg_int8_gemv_fused" and args[4] == q.data_ptr()
+    assert args[5:12] == (b, HIDDEN, n, 4, plan.cluster, plan.warps, plan.k_per_cta)
+    assert args[21] == cos.data_ptr() and args[23] == pos.data_ptr()
+    assert args[28] == (table.data_ptr() if paged else None)
+    assert args[29:33] == (hl, d, ps if paged else s_len, 16 if paged else 0)
+
+
+def test_norm_and_rope_refuse_what_the_kernel_cannot_take(library):
+    """A K range per CTA past the prologue's buffer (a plan of one CTA over
+    K 2048), K not a multiple of 8, a head whose half is not a multiple of
+    16, N other than (H + 2) D: each raises before any launch."""
+    x = _card(torch.zeros((2, HIDDEN), dtype=torch.bfloat16))
+    wide = 40000
+    assert not t_plan.norm_fits(t_plan.GemvPlan.make(HIDDEN, wide))
+    with pytest.raises(ValueError, match="norm prologue"):
+        t_gemv.int8_gemv(x, _card(torch.zeros((HIDDEN, wide), dtype=torch.int8)),
+                         _card(torch.ones(wide)), norm=_norm(HIDDEN))
+    x12 = _card(torch.zeros((2, 12), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="norm prologue"):
+        t_gemv.int8_gemv(x12, _card(torch.zeros((12, 64), dtype=torch.int8)),
+                         _card(torch.ones(64)), norm=_norm(12))
+    for hl, d, n in ((2, 16, 64), (2, 64, 5 * 64)):  # D/2 = 8; N != (H + 2) D
+        cs = _card(torch.zeros((2, d), dtype=torch.bfloat16))
+        kd = _card(torch.zeros((2, 32, d), dtype=torch.bfloat16))
+        kn = _card(torch.zeros((2, d), dtype=torch.bfloat16))
+        with pytest.raises(ValueError, match="RoPE"):
+            t_gemv.int8_gemv_rope_kv(x, _card(torch.zeros((HIDDEN, n), dtype=torch.int8)),
+                                     _card(torch.ones(n)), cs, cs,
+                                     _card(torch.zeros(2, dtype=torch.int32)), hl, kd, kd, kn, kn,
+                                     norm=_norm(HIDDEN))
+    assert library.calls == []
+
+
+def test_lora_shrink_hands_the_kernel_the_norm(library):
+    """lora_shrink with a norm passes its weight and eps; without one a
+    null weight (the plain shrink)."""
+    b, k, ng = 8, HIDDEN, 96
+    x = _card(torch.zeros((b, k), dtype=torch.bfloat16))
+    a = _card(torch.zeros((k, ng)))
+    ids = _card(torch.zeros(b, dtype=torch.int32))
+    norm = _norm(k)
+    t_lora.lora_shrink(x, a, ids, 8, 32, norm=norm)
+    t_lora.lora_shrink(x, a, ids, 8, 32)
+    [(_, with_norm), (_, plain)] = library.calls
+    assert with_norm[13:15] == (norm[0].data_ptr(), 1e-6) and plain[13:15] == (None, 0.0)
+    assert with_norm[:4] == plain[:4] and with_norm[5:13] == plain[5:13]  # 4: each call's z

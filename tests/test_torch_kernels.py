@@ -23,7 +23,6 @@ from paligemma_tpu.ops import rope as j_rope
 from paligemma_tpu.runtime.quantize import quantize_lm_for_serving as j_qserve
 from paligemma_tpu_torch.convert import params_from_numpy
 from paligemma_tpu_torch.kernels import decode_attention as t_dattn
-from paligemma_tpu_torch.kernels import decode_elementwise as t_elem
 from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import decode_layer as t_layer
 from paligemma_tpu_torch.kernels import flash_attention as t_flash
@@ -206,14 +205,23 @@ def test_layers_decode_fused_matches_pallas():
 
 
 def test_rope_kv_write_plain_writes_rows():
+    """The qkv GEMV's RoPE + KV write (int8_gemv_rope_kv, which replaced
+    the separate rope_kv_write) on the CPU: its plain version's q, k and v
+    against JAX's apply_rope on the same q|k|v (the GEMV of the normalized
+    rows), the rows written at pos."""
     rng = np.random.default_rng(4)
-    b, h, d, s_len = 2, 3, 8, 10
-    qkv = _t(rng.normal(size=(b, (h + 2) * d)).astype(np.float32))
+    b, h, d, s_len, k = 2, 3, 32, 10, 24
+    x = _t(rng.normal(size=(b, k)).astype(np.float32))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (k, (h + 2) * d), dtype=np.int8))
+    s = _t((rng.random((h + 2) * d) * 0.02).astype(np.float32))
+    norm = (_t(rng.normal(size=k).astype(np.float32) * 0.1), 1e-6)
+    qkv = t_gemv.int8_gemv_reference(x, w8, s, norm=norm)
     pos = torch.tensor([4, 9], dtype=torch.int32)
     cos, sin = (t[:, 0] for t in j_rope.rope_cos_sin(jnp.asarray([[5], [10]]), d))
     kc, vc = torch.zeros(b, s_len, d), torch.zeros(b, s_len, d)
     kn, vn = torch.empty(b, d), torch.empty(b, d)
-    q, _, _ = t_elem.rope_kv_write(qkv, _t(cos), _t(sin), pos, h, kc, vc, kn, vn)
+    q, _, _ = t_gemv.int8_gemv_rope_kv(x, w8, s, _t(cos), _t(sin), pos, h, kc, vc, kn, vn,
+                                       norm=norm)
     x = np.asarray(qkv).reshape(b, 1, h + 2, d)
     want = _np(j_rope.apply_rope(jnp.asarray(x), cos[:, None], sin[:, None]))[:, 0]
     np.testing.assert_allclose(q.numpy(), want[:, :h], rtol=1e-6, atol=1e-6)

@@ -11,11 +11,14 @@ functions run on that tree:
   beside ``torch._weight_int4pack_mm`` (``chip_smoke.wq_device_times``);
 * ``lora``: one layer's multi-LoRA operands at B8 (the four shrinks, the
   GEMVs with the expand against the GEMVs alone) and the bank's extra time
-  per tick (``chip_smoke.lora_device_times``).
+  per tick (``chip_smoke.lora_device_times``);
+* ``norm``: one layer's norms, qkv, RoPE and gateup at B1 and B8, the norm
+  in the GEMVs' prologue and RoPE in the qkv GEMV's epilogue where the tree
+  has them (``chip_smoke.fused_device_times``).
 
 It checks nothing, so diagnostic builds run too:
 
-    cd <tree> && python3 <this repository>/tools/gemv_times.py [--label L] [--what gemv,int4,lora]
+    cd <tree> && python3 <this repository>/tools/gemv_times.py [--label L] [--what gemv,int4,lora,norm]
 
 (``--label``: printed beside the tree's name.) Run several trees in turns
 in one call on one card to compare them; tools/gemv_variants.py runs it on
@@ -63,8 +66,10 @@ def main(argv=None) -> int:
             cs.wq_device_times(dev, label=tree, kinds=("int4",))
         elif what == "lora":
             cs.lora_device_times(dev, label=tree)
+        elif what == "norm":
+            cs.fused_device_times(dev, label=tree)
         else:
-            raise SystemExit(f"gemv_times: --what takes gemv, int4, lora (got {what!r})")
+            raise SystemExit(f"gemv_times: --what takes gemv, int4, lora, norm (got {what!r})")
     return 0
 
 

@@ -1,8 +1,8 @@
 """Builds of the GEMV tile (``csrc/gemv_tile.cuh``: the int8 GEMV and B9's
-int4 form), its plan and the LoRA shrink with one change each, timed by
-tools/gemv_times.py:
+int4 form, the norm prologue), its plan and the LoRA shrink with one change
+each, timed by tools/gemv_times.py:
 
-    python3 tools/gemv_variants.py [--what gemv,int4,lora] [NAME ...]   # default: all
+    python3 tools/gemv_variants.py [--what gemv,int4,lora,norm] [NAME ...]   # default: all
 
 A variant is a copy of ``paligemma_tpu_torch`` under
 ``build/gemv_variants/NAME/`` with the text replacements of ``VARIANTS[NAME]``
@@ -79,6 +79,127 @@ VARIANTS = {
     "expand_nodelta": [(_GEMV, "item < ncols * rstep; item += blockDim.x", "item < 0; item += 1")],
     "target2x": [("kernels/gemv_plan.py", "TARGET_WARPS = 16 * 132", "TARGET_WARPS = 32 * 132")],
 }
+# the norm prologue's r from chunk sums of squares exchanged through the
+# cluster's distributed shared memory (each CTA squares only its own K
+# range; one more cluster barrier) instead of every CTA's pass over the
+# whole row; the shrink likewise (time with --what norm)
+_NORM_DSMEM_STAGE = """__device__ __forceinline__ float gt_sq8(uint4 v) {
+  float f[8];
+  bf16x8_to_float(v, f);
+  float a = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a = fmaf(f[j], f[j], a);
+  return a;
+}
+
+__device__ __forceinline__ float gt_cluster_rsqrt(const float* sq_row, int K, int k_per_cta,
+                                                  float eps) {
+  const int lane = threadIdx.x & 31, chunks = K >> 3, per = k_per_cta >> 3;
+  float acc = 0.f;
+  for (int c0 = lane; c0 < chunks; c0 += 8 * 32) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = c0 + 32 * i;
+      v[i] = c < chunks ? ld_cluster_f32(sq_row + c % per, c / per) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc = __fadd_rn(acc, v[i]);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
+  return rsqrtf(__fadd_rn(__fdiv_rn(acc, (float)K), eps));
+}
+
+__device__ __forceinline__ void gt_norm_stage(GemvSmem& sm, bf16* ys, int ld,
+                                              const bf16* __restrict__ x, NormIn norm, int K,
+                                              int b0, int nb, int kbeg, int kend) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int k_per_cta = ld - GT_NORM_PAD, chunks = k_per_cta >> 3;
+  const int tpc = max(1, (int)blockDim.x / chunks);
+  const int c = threadIdx.x / tpc, sub = threadIdx.x % tpc;
+  const int k = kbeg + 8 * c;
+  const bool in = c < chunks && k < kend;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 wv = in ? ldg_16(norm.w + k) : zero;
+  uint4 xv[GT_BT];
+#pragma unroll
+  for (int i = 0; i < GT_BT; ++i) {
+    const int r = sub + i * tpc;
+    xv[i] = in && r < nb ? ldg_16(x + (size_t)(b0 + r) * K + k) : zero;
+  }
+#pragma unroll
+  for (int i = 0; i < GT_BT; ++i) {
+    const int r = sub + i * tpc;
+    if (c < chunks && r < nb) sm.sq[r][c] = gt_sq8(xv[i]);
+  }
+  cluster_sync_all();
+  for (int r = warp; r < nb; r += warps) {
+    const float rs = gt_cluster_rsqrt(&sm.sq[r][0], K, k_per_cta, norm.eps);
+    if (lane == 0) sm.rnorm[r] = rs;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < GT_BT; ++i) {
+    const int r = sub + i * tpc;
+    if (c < chunks && r < nb)
+      *reinterpret_cast<uint4*>(ys + (size_t)r * ld + 8 * c) =
+          in ? gt_norm8(xv[i], wv, sm.rnorm[r]) : zero;
+  }
+  __syncthreads();
+}
+"""
+_NORM_DSMEM_SHRINK = """    if constexpr (NORM) {
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const int r = tid / n8, k8 = (tid % n8) * 8;
+      const bool item = tid < GT_BT * n8, live = item && r < nb;
+      const uint4 xv = live ? ldg_16(x + (size_t)(b0 + r) * K + c0 + k8) : zero;
+      const uint4 nw = item ? ldg_16(norm.w + c0 + k8) : zero;
+      if (live) sm.sq[r][k8 / 8] = gt_sq8(xv);
+      cluster_sync_all();
+      for (int rr = warp; rr < nb; rr += THREADS / 32) {
+        const float rs = gt_cluster_rsqrt(&sm.sq[rr][0], K, k_per_cta, norm.eps);
+        if (lane == 0) sm.rnorm[rr] = rs;
+      }
+      __syncthreads();
+      if (item)
+        *reinterpret_cast<uint4*>(&sm.xs[r][k8]) = live ? gt_norm8(xv, nw, sm.rnorm[r]) : zero;
+    } else {
+      for (int i = tid; i < GT_BT * n8; i += THREADS) {
+        const int r = i / n8, k8 = (i % n8) * 8;
+        cp_async_16(&sm.xs[r][k8], x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8, r < nb);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();"""
+_LORA = "csrc/lora.cu"
+VARIANTS["norm_dsmem"] = [
+    (TILE, "  float sum[GT_BT][GT_COLS];                // the CTA's sums, read by the cluster\n",
+     "  float sum[GT_BT][GT_COLS];\n  float sq[GT_BT][128];\n  float rnorm[GT_BT];\n"),
+    (TILE, "__device__ __forceinline__ void gt_norm_stage(", _NORM_DSMEM_STAGE
+     + "__device__ __forceinline__ void gt_norm_stage_whole_row("),
+    (TILE, "    gt_norm_stage(ys, ld, x, norm, K, b0, nb, kbeg, kend);",
+     "    gt_norm_stage(sm, ys, ld, x, norm, K, b0, nb, kbeg, kend);"),
+    (_LORA, "  float rnorm[GT_BT];", "  float sq[GT_BT][LS_MAX_THREADS / 8];\n  float rnorm[GT_BT];"),
+    (_LORA, "      const float rs = gt_row_rsqrt(x + (size_t)(b0 + r) * K, K, norm.eps);",
+     "      const float rs = 0.f;"),
+    (_LORA, """    for (int i = tid; i < GT_BT * n8; i += THREADS) {  // rows past B read as zeros
+      const int r = i / n8, k8 = (i % n8) * 8;
+      const bf16* src = x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8;
+      if constexpr (NORM)
+        *reinterpret_cast<uint4*>(&sm.xs[r][k8]) =
+            r < nb ? gt_norm8(ldg_16(src), ldg_16(norm.w + c0 + k8), sm.rnorm[r])
+                   : make_uint4(0u, 0u, 0u, 0u);
+      else
+        cp_async_16(&sm.xs[r][k8], src, r < nb);
+    }
+    if constexpr (!NORM) {
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();""", _NORM_DSMEM_SHRINK),
+]
 KERNELS = ("int8_gemv_kernel", "head_argmax_kernel", "int4_gemv_kernel")
 
 
