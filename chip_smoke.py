@@ -168,12 +168,16 @@ LORA_RANK, LORA_ALPHA, LORA_B_STD, LORA_B_STD_GATE = 8, 8.0, 0.5, 0.05
 LORA_NAMES = ("a", "b", "c")
 CASE_LAYER = 5  # the layer of the kernel cases
 # ablation phase (B9, B11): Gemma-2B's four projections of one layer at
-# decode rows (1, 8), the TTFT prompt's prefill (266) and the training batch
-# (B2 x S512 = 1024)
+# decode rows (1, 8), the first row past the decode routes (17), the TTFT
+# prompt's prefill (266) and the training batch (B2 x S512 = 1024)
 PROJECTIONS = (("qkv", 2048, 2560), ("o", 2048, 2048), ("gateup", 2048, 32768),
                ("down", 16384, 2048))
-INT4_ROWS = (1, 8, 266)
-INT8_ROWS = (1, 266, 1024)
+INT4_ROWS = (1, 8, 17, 266, 1024)
+INT8_ROWS = (1, 8, 17, 266, 1024)
+# the device events of B9 / B11 (one per call): the wgmma tile, the GEMV
+# tile of B11's (K, N) decode rows and B9's int4 form
+WQ_EVENTS = ("wq_wgmma_kernel", "int8_gemv_kernel", "int4_gemv_kernel")
+WQ_WRAPPERS = ("int4_matmul", "int8_matmul", "int8_matmul_nmajor")
 # H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): bf16 tensor
 # cores and HBM3
 PEAK_FLOPS = 989e12
@@ -289,6 +293,11 @@ def profiled(fn, label, counts=None, check=None):
         before = counts() if counts else {}
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a few short spins first: the H100 host's profiler drops a run's
+            # first device events now and then (3 of 8 calls)
+            for _ in range(3):
+                torch.cuda._sleep(SPIN_CYCLES // 100)
+            sync()
             t0 = time.perf_counter()
             fn()
             sync()
@@ -1547,10 +1556,13 @@ def wq_device_times(dev, label="", kinds=("int4", "int8")):
     decode step (each call takes the next of enough copies to pass 60 MB),
     beside the bound and the library call on the same weights
     (torch._weight_int4pack_mm, torch._weight_int8pack_mm; never called by
-    the port); per projection and summed over one layer's four. Returns
-    {(kernel, M): (kernel ms, library ms, bound ms)} (None where not
-    measured). ``label`` tags the lines (tools/gemv_times.py runs this on
-    other trees)."""
+    the port); per projection and summed over one layer's four. At M >= 266
+    also cuBLAS's ``x @ w_bf16`` on the weights dequantized and scaled
+    beforehand: a different function (it reads twice the int8 weight bytes,
+    four times the int4), the yardstick of dequantizing ahead of time, never
+    called by the port. Returns {(kernel, M): (kernel ms, library ms, bound
+    ms, cuBLAS ms)} (None where not measured). ``label`` tags the lines
+    (tools/gemv_times.py runs this on other trees)."""
     from paligemma_tpu_torch.kernels.ablation import quant4 as q4
     from paligemma_tpu_torch.kernels.ablation import quant_pallas as qp
 
@@ -1560,7 +1572,7 @@ def wq_device_times(dev, label="", kinds=("int4", "int8")):
     sums = {}
 
     def add(key, vals):
-        acc = sums.setdefault(key, [0.0, 0.0, 0.0])
+        acc = sums.setdefault(key, [0.0, 0.0, 0.0, 0.0])
         for i, v in enumerate(vals):
             acc[i] = None if v is None or acc[i] is None else acc[i] + v
 
@@ -1570,8 +1582,15 @@ def wq_device_times(dev, label="", kinds=("int4", "int8")):
     def txt(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
 
+    def cublas_fns(wqs, m, k):
+        """x @ w_bf16 over the dequantized copies (M >= 266), else None."""
+        if m < 266:
+            return None
+        x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+        return [lambda w=w: x @ w for w in wqs]
+
     for name, k, n in PROJECTIONS:
-        runs = []  # (kernel, M, kernel fns, library fns, weight bytes, scale bytes)
+        runs = []  # (kernel, M, kernel fns, library fns, weight bytes, scale bytes, cuBLAS fns)
         if "int4" in kinds:
             copies = max(4, -(-60_000_000 // (k * n // 2)))
             w4s = [torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
@@ -1581,12 +1600,14 @@ def wq_device_times(dev, label="", kinds=("int4", "int8")):
                 libs = [int4_library_pack(w, s4) for w in w4s]
             except RuntimeError:
                 libs = None
+            w4bf = [q4.dequantize_int4({"w4p": w, "s": s4}, torch.bfloat16)
+                    for w in w4s[:max(4, -(-60_000_000 // (2 * k * n)))]]
             for m in INT4_ROWS:
                 x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
                 runs.append(("int4_matmul", m, [lambda w=w, x=x: q4.int4_matmul(x, w, s4)
                                                 for w in w4s],
                              None if libs is None else [lambda c=c, x=x: c(x) for c in libs],
-                             k * n // 2, 4 * n))
+                             k * n // 2, 4 * n, cublas_fns(w4bf, m, k)))
         if "int8" in kinds:
             copies = max(4, -(-60_000_000 // (k * n)))
             w8s = [torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
@@ -1594,26 +1615,37 @@ def wq_device_times(dev, label="", kinds=("int4", "int8")):
             w8ts = [w.t().contiguous() for w in w8s]
             s8 = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
             s8_bf = s8.to(torch.bfloat16)
+            w8bf = [(w.float() * s8).to(torch.bfloat16)
+                    for w in w8s[:max(4, -(-60_000_000 // (2 * k * n)))]]
             for m in INT8_ROWS:
                 x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
                 lib = [lambda w=w, x=x: torch._weight_int8pack_mm(x, w, s8_bf) for w in w8ts]
+                cub = cublas_fns(w8bf, m, k)
                 runs.append(("int8_matmul", m, [lambda w=w, x=x: qp.int8_matmul(x, w, s8)
-                                                for w in w8s], lib, k * n, 4 * n))
+                                                for w in w8s], lib, k * n, 4 * n, cub))
                 runs.append(("int8_matmul_nmajor", m,
                              [lambda w=w, x=x: qp.int8_matmul_nmajor(x, w, s8) for w in w8ts],
-                             lib, k * n, 4 * n))
-        for kname, m, kern, lib, w_bytes, s_bytes in runs:
+                             lib, k * n, 4 * n, cub))
+        cublas = {}  # one cuBLAS time per (M, weights' kind): the same function for both layouts
+        for kname, m, kern, lib, w_bytes, s_bytes, cub in runs:
             calls = 2 * len(kern)
             k_ms = ms_of(kern, calls)
             l_ms = None if lib is None else ms_of(lib, calls)
+            c_key = (m, kname == "int4_matmul")
+            if cub is not None and c_key not in cublas:
+                cublas[c_key] = ms_of(cub, 2 * len(cub))
+            c_ms = cublas.get(c_key)
             b_ms = bound_ms(2 * m * k * n, w_bytes + s_bytes + 2 * m * k + 2 * m * n)
-            add((kname, m), (k_ms, l_ms, b_ms))
+            add((kname, m), (k_ms, l_ms, b_ms, c_ms))
             print(f"  device {tag}{kname:20s} {name} M{m} {k}->{n}: {txt(k_ms)}  bound "
-                  f"{b_ms * 1e3:.2f} us  library {txt(l_ms)}", flush=True)
+                  f"{b_ms * 1e3:.2f} us  library {txt(l_ms)}"
+                  + ("" if cub is None else f"  cuBLAS x @ w_bf16 (dequantized beforehand, "
+                                            f"another function) {txt(c_ms)}"), flush=True)
         del runs
-    for (kname, m), (k_ms, l_ms, b_ms) in sums.items():
+    for (kname, m), (k_ms, l_ms, b_ms, c_ms) in sums.items():
         print(f"  device {tag}{kname:20s} one layer, {len(PROJECTIONS)} projections, M{m}: "
-              f"{txt(k_ms)}  bound {b_ms * 1e3:.2f} us  library {txt(l_ms)}", flush=True)
+              f"{txt(k_ms)}  bound {b_ms * 1e3:.2f} us  library {txt(l_ms)}"
+              + (f"  cuBLAS x @ w_bf16 {txt(c_ms)}" if m >= 266 else ""), flush=True)
     return {key: tuple(v) for key, v in sums.items()}
 
 
@@ -1743,6 +1775,25 @@ def ablation_phase(report: KernelReport, dev, card):
 
     print("kernels: int4_matmul, int8_matmul, int8_matmul_nmajor (B9, B11; Gemma-2B "
           "projections)", flush=True)
+    # first one 128-column tile at the least depth (one stage of 64 stored
+    # rows; two ranks at N 144): the wgmma tile's descriptors, swizzles and
+    # TMA boxes, before the full sizes
+    for k, n in ((64, 128), (128, 144)):
+        w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        w4p = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(n, generator=g, device=dev) + 0.5
+        for m in (1, 17, 65):
+            x = bf(m, k)
+            cases = [("int8_matmul", qp.int8_matmul(x, w8, sc),
+                      qp.int8_matmul_reference(x, w8, sc)),
+                     ("int8_matmul_nmajor", qp.int8_matmul_nmajor(x, w8.t().contiguous(), sc),
+                      qp.int8_matmul_reference(x, w8, sc))]
+            if k % 128 == 0:
+                cases.append(("int4_matmul", q4.int4_matmul(x, w4p, sc),
+                              q4.int4_matmul_reference(x, w4p, sc)))
+            sync()
+            for kname, got, want in cases:
+                report.case(kname, f"one tile M{m} K{k} N{n}", got, want, 1e-2)
     proj, layer_ms = [], {}
     for name, k, n in PROJECTIONS:
         w4p = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
@@ -1768,9 +1819,11 @@ def ablation_phase(report: KernelReport, dev, card):
                           ("int8_matmul_nmajor", lambda: qp.int8_matmul_nmajor(x, w8t, s8),
                            lambda: qp.int8_matmul_nmajor_reference(x, w8t, s8), w8t, s8, lib)]
             for kname, kern, plain, w, sc, lib in calls:
-                got, want = kern(), plain()
+                got, want, again = kern(), plain(), kern()
                 sync()
                 report.case(kname, label, got, want, 1e-2)
+                if not torch.equal(again, got):
+                    raise AssertionError(f"{kname} {label}: a second call gave other bits")
                 if m in (1, 266, 1024):
                     t = report.time(kname, label, kern, plain, flops=2 * m * k * n,
                                     n_bytes=nbytes(x, w, sc, got), library_fn=lib,
@@ -1871,21 +1924,33 @@ def ablation_phase(report: KernelReport, dev, card):
     qv = [bf(1, s, 16, 72) for s in (256, 1024, 4096) for _ in range(3)]
     q, kc, vc, segs = seg_cases[0]
 
+    xs = {m: [bf(m, k) for _, k, *_ in proj] for m in (1, 266)}
+
+    def wq_round(m):
+        for x, (name, k, n, w4p, s4, w8, w8t, s8) in zip(xs[m], proj):
+            q4.int4_matmul(x, w4p, s4)
+            qp.int8_matmul(x, w8, s8)
+            qp.int8_matmul_nmajor(x, w8t, s8)
+
     def one_each():
         va.vision_attention(*qv[:3])
         va.vision_attention(*qv[3:6])
         va.vision_attention(*qv[6:])
         sda.decode_attention(q, kc, vc, *segs)
-        for name, k, n, w4p, s4, w8, w8t, s8 in proj:
-            x = bf(1, k)
-            q4.int4_matmul(x, w4p, s4)
-            qp.int8_matmul(x, w8, s8)
-            qp.int8_matmul_nmajor(x, w8t, s8)
+        wq_round(1)
 
-    one_each()
-    _profile("ablation kernels: B12 S256 + S1024 + S4096, B10 B1 W2048, B9 / B11 x 4 "
-             "projections M1",
-             one_each, 1, card, top=16, unit="round")
+    # each B9 / B11 call is one device launch (gated): the rounds at M1 (the
+    # GEMV tiles and the 16-row wgmma tile) and at M266 (the wgmma tile)
+    for label, fn in (("ablation kernels: B12 S256 + S1024 + S4096, B10 B1 W2048, B9 / B11 x 4 "
+                       "projections M1", one_each),
+                      ("ablation kernels: B9 / B11 x 4 projections M266", lambda: wq_round(266))):
+        fn()
+        got = _profile(label, fn, 1, card, top=16, unit="round", check=_wq_events)
+        if got is None:
+            raise AssertionError(f"profile {label}: no run showed one device launch per B9 / "
+                                 f"B11 call")
+        print(f"profile: {label}: {sum(k.count for k in got[1] if _is_wq(k.key))} B9 / B11 "
+              f"device events, one per call  ok", flush=True)
     del proj, seg_cases, qv
 
     # the tower with each attention path, timed in turns (after the counts)
@@ -2729,6 +2794,18 @@ def _gemv_events(rows, grew):
     return None
 
 
+def _is_wq(key):
+    return any(t in key for t in WQ_EVENTS)
+
+
+def _wq_events(rows, grew):
+    """Why ``rows`` cannot be one device event per B9 / B11 call (``grew``:
+    the wrappers' counts over the run; no other GEMV runs in it)."""
+    calls = sum(grew[k] for k in WQ_WRAPPERS)
+    got = sum(k.count for k in rows if _is_wq(k.key))
+    return None if got == calls else f"{got} B9 / B11 device events of {calls} calls"
+
+
 def layer_launches(rows, n_layers):
     """(device launches per decode layer, final norms per step or tick,
     events of the retired RoPE kernel) from a decode profile's device
@@ -2742,7 +2819,7 @@ def layer_launches(rows, n_layers):
     return per_layer, ev[NORM_EVENT] / max(1, steps), ev["rope_kv_write_kernel"]
 
 
-def _profile(label, fn, per, card, top=8, unit=None, host_top=0, layers=None):
+def _profile(label, fn, per, card, top=8, unit=None, host_top=0, layers=None, check=None):
     """torch.profiler over ``fn()`` (:func:`profiled`: its clock checked
     against CUDA events): device-busy time against wall time per ``per``
     (steps), and the kernels with the most device time. With
@@ -2751,14 +2828,15 @@ def _profile(label, fn, per, card, top=8, unit=None, host_top=0, layers=None):
     with the most of it. With ``layers`` (a decode step or tick of that
     many layers, greedy, without a LoRA bank): the device launches per
     layer and the final norms per step (:func:`layer_launches`), which
-    must be LAYER_LAUNCHES and 1. Returns (device busy ms per ``per``, the
-    device-side rows), or None when no profile passed."""
+    must be LAYER_LAUNCHES and 1. ``check`` replaces :func:`_gemv_events`
+    as the test of a profile's events. Returns (device busy ms per ``per``,
+    the device-side rows), or None when no profile passed."""
     from torch.autograd import DeviceType
 
     from paligemma_tpu_torch import kernels
 
     unit = unit or ("step" if per > 1 else "prefill")
-    got = profiled(fn, label, counts=kernels.launch_counts, check=_gemv_events)
+    got = profiled(fn, label, counts=kernels.launch_counts, check=check or _gemv_events)
     if got is None:
         print(f"profile: {label}: device time not measured (no run passed the clock check)",
               flush=True)

@@ -23,14 +23,19 @@
 //   through distributed shared memory in rank order, and the scale and the
 //   bf16 cast run in the same launch. M takes 8-row tiles on the grid.
 // * M > 16 (prefill and training rows), pg_int4_matmul: bound by the
-//   products (2 M K N flops); the dequantizing mma.sync tile of wq_gemm.cuh,
-//   whose staging of the (K, N) weights is still scattered 2-byte stores.
-#include "gemv_tile.cuh"
-#include "wq_gemm.cuh"
+//   products (2 M K N flops); the wgmma + TMA tile of wq_wgmma.cuh, which
+//   converts each stored row's low and high nibbles into two register A
+//   operands of wgmma against x at k and at K/2 + k.
+#include "wq_wgmma.cuh"
 
-PG_EXPORT int pg_int4_matmul(const void* x, const void* w4p, const void* s, void* part, void* out,
-                             int M, int K, int N, int k_chunk, void* stream) {
-  return wq_gemm_launch<WQ_INT4>(x, w4p, s, part, out, M, K, N, k_chunk, (cudaStream_t)stream);
+// x (M, K) bf16, w4p (K/2, N) int8, s (N,) fp32, out (M, N) bf16; rows
+// (256, 136, 128 or 64), cluster, kst (stages of 64 stored rows) and ctas from
+// kernels/ablation/_wq_gemm.py's plan.
+PG_EXPORT int pg_int4_matmul(const void* x, const void* w4p, const void* s, void* out, int M,
+                             int K, int N, int rows, int cluster, int kst, int ctas,
+                             void* stream) {
+  return wq_launch<WQ_INT4>(x, w4p, s, out, M, K, N, rows, cluster, kst, ctas,
+                            (cudaStream_t)stream);
 }
 
 // N % 16 == 0, w4p 16-byte aligned (one 16-byte load per stored row), K %

@@ -6,38 +6,34 @@
 //
 // Replaces paligemma_tpu/kernels/ablation/quant_pallas.py:_int8_matmul_kernel
 // and :_int8_matmul_nmajor_kernel, which differ only in the weights'
-// layout; on Hopper one templated kernel serves both (wq_gemm.cuh, which
-// states what bounds it and how the tile is laid out). The N-major layout
-// stages each output column's 64 K values with contiguous 16-byte loads;
-// the (K, N) layout stages 16 columns of one K row per load and transposes
-// them into shared memory.
-#include "wq_gemm.cuh"
+// layout. kernels/ablation/_wq_gemm.py plans each call by rows:
+//
+// * M > 16 (prefill and training rows, bound by the products): the wgmma +
+//   TMA tile of wq_wgmma.cuh (which states its design): 128 output columns
+//   by 64, 128, 136 or 256 rows of x, the weights converted to bf16 in registers as
+//   wgmma's A operand (out^T = W^T x^T), K split over a cluster where the
+//   tiles leave SMs idle, else persistent CTAs.
+// * M <= 16 (decode rows, bound by the weight bytes): (K, N) weights run on
+//   the int8 GEMV's tile (int8_gemv.cu, mode 0: pg_int8_gemv); (N, K)
+//   weights on wq_wgmma.cuh's tile with 16 rows of x (wgmma's n16).
+#include "wq_wgmma.cuh"
 
-// The split-K sum of the fp32 partials (nsplit, M, N) of this kernel and of
-// int4_matmul.cu, in split order, scaled and cast to bf16
-// (kernels/ablation/_wq_gemm.py).
-__global__ void wq_split_sum_kernel(const float* __restrict__ part, int nsplit, int M, int N,
-                                    const float* __restrict__ s, bf16* __restrict__ out) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)M * N) return;
-  const int j = (int)(idx % N);
-  float acc = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) acc += part[(size_t)sp * M * N + idx];
-  out[idx] = f2bf(acc * s[j]);
-}
-
-PG_EXPORT int pg_wq_split_sum(const void* part, int nsplit, int M, int N, const void* s, void* out,
-                              void* stream) {
-  const size_t total = (size_t)M * N;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  wq_split_sum_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)part, nsplit, M, N,
-                                                                (const float*)s, (bf16*)out);
-  return (int)cudaGetLastError();
-}
-
-PG_EXPORT int pg_int8_matmul(const void* x, const void* w8, const void* s, void* part, void* out,
-                             int M, int K, int N, int k_chunk, int nmajor, void* stream) {
+// x (M, K) bf16, w8 (K, N) or (N, K) int8, s (N,) fp32, out (M, N) bf16;
+// rows (256, 136, 128, 64, or 16 for (N, K) weights at M <= 16), cluster, kst and
+// ctas from kernels/ablation/_wq_gemm.py's plan.
+PG_EXPORT int pg_int8_matmul(const void* x, const void* w8, const void* s, void* out, int M, int K,
+                             int N, int nmajor, int rows, int cluster, int kst, int ctas,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return nmajor ? wq_gemm_launch<WQ_NK>(x, w8, s, part, out, M, K, N, k_chunk, st)
-                : wq_gemm_launch<WQ_KN>(x, w8, s, part, out, M, K, N, k_chunk, st);
+  return nmajor ? wq_launch<WQ_NK>(x, w8, s, out, M, K, N, rows, cluster, kst, ctas, st)
+                : wq_launch<WQ_KN>(x, w8, s, out, M, K, N, rows, cluster, kst, ctas, st);
+}
+
+// The most clusters of `cluster` CTAs of wq_wgmma.cuh's tile (layout 0-2:
+// int8 (K, N), int8 (N, K), int4; rows 16-256) that the card holds at once,
+// into *out; launches nothing (for measurement: the plan's cluster cap).
+PG_EXPORT int pg_wq_max_clusters(int layout, int rows, int cluster, int* out) {
+  if (layout == WQ_NK) return wq_max_clusters<WQ_NK>(rows, cluster, out);
+  if (layout == WQ_INT4) return wq_max_clusters<WQ_INT4>(rows, cluster, out);
+  return wq_max_clusters<WQ_KN>(rows, cluster, out);
 }

@@ -44,6 +44,7 @@
 // tile j's q.k^T issued with tile j - 1's p.v, the two warpgroups taking
 // turns through named barriers, K/V multicast to a 2-CTA cluster.
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 #define VA_BN 128           // keys per K / V tile
 #define VA_SMEM_MAX 232448  // dynamic shared memory a block may use (227 KB)
@@ -248,43 +249,18 @@ __global__ void __launch_bounds__(VaCfg<NA, NWG>::THREADS, NWG == 1 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the tensor maps, built per call from the pointers.
-// cuTensorMapEncodeTiled lives in libcuda; the runtime looks it up for us
-// (by name, below), so the library links no libcuda.
+// Host side: the tensor maps, built per call from the pointers
+// (tensor_map.cuh).
 // ---------------------------------------------------------------------------
-typedef CUresult (*VaEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static VaEncodeTiled va_encoder() {
-  static VaEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<VaEncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (B, S, H, D) bf16 as a 3-D map (D, H, B * S) whose box is 16 columns of
 // one head by `rows` positions, written in the 32-byte swizzle; columns at
 // or past D read as zeros. Returns a cudaError_t.
 static int va_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows) {
-  VaEncodeTiled enc = va_encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)B * (cuuint64_t)S};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2};
   const cuuint32_t box[3] = {16, 1, (cuuint32_t)rows};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box,
+                 CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 static int va_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B, int S,

@@ -75,14 +75,14 @@ SIGNATURES = {
     # q, k_cache, v_cache, seg0, seg1, kv_len, part_m, part_l, part_o, out, B,
     # Hq, Hkv, D, S, nsplit, scale, stream
     "pg_seg_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
-    # x, w8, s, part, out, M, K, N, k_chunk, nmajor, stream
-    "pg_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    # x, w4p, s, part, out, M, K, N, k_chunk, stream
-    "pg_int4_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w8, s, out, M, K, N, nmajor, rows, cluster, kst, ctas, stream
+    "pg_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    # x, w4p, s, out, M, K, N, rows, cluster, kst, ctas, stream
+    "pg_int4_matmul": [_P] * 4 + [_I] * 7 + [_P],
     # x, w4p, s, out, M, K, N, cluster, warps, k_per_cta, stream
     "pg_int4_gemv": [_P] * 4 + [_I] * 6 + [_P],
-    # part, nsplit, M, N, s, out, stream
-    "pg_wq_split_sum": [_P, _I, _I, _I, _P, _P, _P],
+    # layout, rows, cluster, out (int *): the wgmma tile's resident clusters
+    "pg_wq_max_clusters": [_I] * 3 + [_P],
 }
 
 _lib = None  # the loaded library; one per process, like the CUDA context

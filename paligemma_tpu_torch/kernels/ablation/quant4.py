@@ -1,9 +1,9 @@
 """Int4 weight-only quantization with an unpack-in-kernel matmul (port of
 paligemma_tpu/kernels/ablation/quant4.py); the kernels are
-``csrc/int4_matmul.cu``: at decode rows (M <= ``GEMV_ROWS``) the int8 GEMV's
-tensor-core tile in its int4 form, one launch with K split over a cluster
-as :class:`~..gemv_plan.GemvPlan` plans the (K/2, N) stored rows; above
-that the dequantizing tile of ``csrc/wq_gemm.cuh``.
+``csrc/int4_matmul.cu``, one launch a call as ``_wq_gemm.WqPlan`` plans it:
+at decode rows (M <= 16) the int8 GEMV's tensor-core tile in its int4 form,
+K split over a cluster as :class:`~..gemv_plan.GemvPlan` plans the (K/2, N)
+stored rows; above that the wgmma + TMA tile of ``csrc/wq_wgmma.cuh``.
 
 Packing ("K-halves"): weights (K, N) become (K/2, N) int8 where
 
@@ -21,11 +21,7 @@ from typing import Dict
 
 import torch
 
-from .. import _build
-from ..gemv_plan import GemvPlan
 from . import _wq_gemm
-
-GEMV_ROWS = 16  # rows of x at most for the GEMV tile (two 8-row tiles)
 
 
 def quantize_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -72,7 +68,7 @@ def int4_matmul(
 ) -> torch.Tensor:
     """``x @ dequant_int4(w4p, s)`` with in-kernel nibble unpacking. The
     ``block_*`` arguments are accepted for parity with the TPU kernel's
-    block sizes; the Hopper tiles are fixed (csrc/int4_matmul.cu)."""
+    block sizes; the Hopper tiles are fixed by the plan."""
     k2, n = w4p.shape
     *lead, k = x.shape
     if k != 2 * k2:
@@ -81,16 +77,8 @@ def int4_matmul(
         return int4_matmul_reference(x, w4p, s)
     x2 = x.reshape(-1, k).contiguous()
     s = s.to(torch.float32).contiguous()
-    _wq_gemm.check_operands("int4_matmul", x2, w4p, s, k2, n)
-    m = x2.shape[0]
-    if m > GEMV_ROWS:
-        out = _wq_gemm.launch("pg_int4_matmul", x2, w4p, s, k, n, k2)
-    else:
-        plan = GemvPlan.make(k2, n)
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-        _build.check(_build.library().pg_int4_gemv(
-            x2.data_ptr(), w4p.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, plan.cluster,
-            plan.warps, plan.k_per_cta, _build.stream_ptr(x2.device)), "int4_matmul")
+    out = _wq_gemm.launch("int4_matmul", _wq_gemm.WqPlan.make(x2.shape[0], k, n, "int4"),
+                          x2, w4p, s)
     int4_matmul.launches += 1
     return out.reshape(*lead, n)
 

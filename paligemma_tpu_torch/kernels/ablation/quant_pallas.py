@@ -4,14 +4,18 @@ paligemma_tpu/kernels/ablation/quant_pallas.py); the kernel is
 
 ``x @ dequant(w8, s)`` for int8 weights stored (K, N) (``int8_matmul``) or
 N-major (N, K) (``int8_matmul_nmajor``), with a per-column fp32 scale
-applied once after the K sweep; the output takes x's dtype. The two
+applied once after the K sweep; the output takes x's dtype. Each call is one
+launch, planned by ``_wq_gemm.WqPlan`` from (M, K, N, layout): above 16 rows
+of x the wgmma + TMA tile of ``csrc/wq_wgmma.cuh``; at decode rows the int8
+GEMV's tile for (K, N) weights (the decode GEMV's function on the same
+bytes) and wq_wgmma.cuh's swapped tile for (N, K) ones. The two
 ``_diffable`` functions are ``torch.autograd.Function``s for a frozen
 quantized base: ``dx = (g * s) @ w8^T`` in fp32 (plain torch, as the JAX
 backward is XLA outside Pallas), no gradient for the weights.
 
 The production path does not use these: ``kernels/quant.matmul_any`` stays
 on its torch op. The ``block_*`` arguments are accepted for parity with the
-TPU kernels' block sizes; the Hopper tile is fixed (csrc/wq_gemm.cuh).
+TPU kernels' block sizes; the Hopper tiles are fixed by the plan.
 """
 
 from __future__ import annotations
@@ -34,14 +38,14 @@ def int8_matmul_nmajor_reference(x: torch.Tensor, w8t: torch.Tensor,
     return ((x.float() @ w8t.float().T) * s.float()).to(x.dtype)
 
 
-def _launch(name, x, w, s, k, n, nmajor):
+def _launch(name, x, w, s, k, n, layout):
     *lead, kx = x.shape
     if kx != k:
         raise ValueError(f"{name}: x's K {kx} differs from the weights' {k}")
     x2 = x.reshape(-1, k).contiguous()
     s = s.to(torch.float32).contiguous()
-    _wq_gemm.check_operands(name, x2, w, s, k, n)
-    return _wq_gemm.launch("pg_int8_matmul", x2, w, s, k, n, k, nmajor).reshape(*lead, n)
+    plan = _wq_gemm.WqPlan.make(x2.shape[0], k, n, layout)
+    return _wq_gemm.launch(name, plan, x2, w, s).reshape(*lead, n)
 
 
 def int8_matmul(
@@ -56,7 +60,7 @@ def int8_matmul(
     if not x.is_cuda:
         return int8_matmul_reference(x, w8, s)
     k, n = w8.shape
-    out = _launch("int8_matmul", x, w8, s, k, n, 0)
+    out = _launch("int8_matmul", x, w8, s, k, n, "kn")
     int8_matmul.launches += 1
     return out
 
@@ -84,7 +88,7 @@ def int8_matmul_nmajor(
     if not x.is_cuda:
         return int8_matmul_nmajor_reference(x, w8t, s)
     n, k = w8t.shape
-    out = _launch("int8_matmul_nmajor", x, w8t, s, k, n, 1)
+    out = _launch("int8_matmul_nmajor", x, w8t, s, k, n, "nk")
     int8_matmul_nmajor.launches += 1
     return out
 

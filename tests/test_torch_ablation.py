@@ -216,7 +216,7 @@ def test_int4_matmul_matches_jax(m, k, n):
 @pytest.mark.parametrize("m", [8, 17, 266])
 def test_int4_matmul_reference_matches_jax_at_the_kernels_rows(m):
     """The plain version the card's kernels are held to (the GEMV tile's int4
-    form at M <= 16, csrc/wq_gemm.cuh above) against the TPU kernel in
+    form at M <= 16, csrc/wq_wgmma.cuh above) against the TPU kernel in
     interpret mode, at a stored-row count of 128 and a column count that is
     not a multiple of the 128-column tile."""
     rng = np.random.default_rng(m)
@@ -278,6 +278,36 @@ def test_int8_matmul_nmajor_matches_jax(m, k, n):
     got = t_qp.int8_matmul_nmajor(torch.from_numpy(x), torch.from_numpy(np.asarray(jq["w8t"])),
                                   torch.from_numpy(np.asarray(jq["s"])))
     _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["int8_matmul", "int8_matmul_nmajor", "int4_matmul"])
+@pytest.mark.parametrize("m", [16, 17, 65])
+def test_wq_matmul_boundary_rows_match_jax(kernel, m):
+    """B9 and B11 at the rows where the card's plan changes route or tile:
+    16 (the last decode row), 17 (the first wgmma row, 64-row tiles) and 65
+    (the first 128-row tile), against the TPU kernels in interpret mode, at
+    a stored-row count of 128 and a column count that is not a multiple of
+    the 128-column tile."""
+    k, n = 256, 208
+    x, w = _int8_case(m, k, n, seed=m + len(kernel))
+    if kernel == "int4_matmul":
+        jq = j_q4.quantize_int4(jnp.asarray(w))
+        want = j_q4.int4_matmul(jnp.asarray(x), jq["w4p"], jq["s"], interpret=True)
+        got = t_q4.int4_matmul(torch.from_numpy(x), torch.from_numpy(np.asarray(jq["w4p"])),
+                               torch.from_numpy(np.asarray(jq["s"])))
+    elif kernel == "int8_matmul":
+        jq = j_qp.quantize_int8(jnp.asarray(w))
+        want = j_qp.int8_matmul(jnp.asarray(x), jq["w8"], jq["s"], interpret=True)
+        got = t_qp.int8_matmul(torch.from_numpy(x), torch.from_numpy(np.asarray(jq["w8"])),
+                               torch.from_numpy(np.asarray(jq["s"])))
+    else:
+        jq = j_qp.quantize_int8_nmajor(jnp.asarray(w))
+        want = j_qp.int8_matmul_nmajor(jnp.asarray(x), jq["w8t"], jq["s"], interpret=True)
+        got = t_qp.int8_matmul_nmajor(torch.from_numpy(x),
+                                      torch.from_numpy(np.asarray(jq["w8t"])),
+                                      torch.from_numpy(np.asarray(jq["s"])))
+    assert got.shape == (m, n)
+    _close(got, want, 1e-4)  # the JAX tests' tolerance: fp32 sums over K
 
 
 @pytest.mark.parametrize("nmajor", [False, True])

@@ -559,11 +559,11 @@ def test_int4_matmul_kernel_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 16, 17, 266])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 65, 266, 1024])
 @pytest.mark.parametrize("k,n", [(2048, 2560), (16384, 2048), (256, 208)])
 def test_int4_matmul_rows_on_card(k, n, m):
     """B9 at decode rows (M <= 16: the GEMV tile's int4 form, one launch)
-    and above them (csrc/wq_gemm.cuh) against its plain version within 1e-2
+    and above them (csrc/wq_wgmma.cuh) against its plain version within 1e-2
     of max(1, |plain|), at two Gemma-2B projections and a column count that
     is not a multiple of the 128-column tile; a second call gives the same
     bits."""
@@ -708,6 +708,34 @@ def test_int8_matmul_kernels_on_card(nmajor):
     _close_rel(xg.grad, (gout.float() * q["s"]) @ w8_kn.float().T)
     with pytest.raises(ValueError):
         fn(x.float(), w8, q["s"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nmajor", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 65, 266, 1024])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (16384, 2048), (256, 208)])
+def test_int8_matmul_rows_on_card(k, n, m, nmajor):
+    """B11 on every route of its plan (kernels/ablation/_wq_gemm.py): (K, N)
+    weights on the GEMV tile at M <= 16, (N, K) weights on the wgmma tile's
+    16-row form, both on the wgmma tile above (64-, 128-, 136- and 256-row
+    tiles, split-K clusters and persistent CTAs), within 1e-2 of max(1, |plain|) at
+    ragged rows, two Gemma-2B projections and a column count that is not a
+    multiple of the 128-column tile; one launch a call, and a second call
+    gives the same bits."""
+    from paligemma_tpu_torch.kernels.ablation import quant_pallas as t_qp
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(k + n + m + nmajor)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127.0 * k**0.5)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    fn, w = (t_qp.int8_matmul_nmajor, w8.t().contiguous()) if nmajor else (t_qp.int8_matmul, w8)
+    n0 = fn.launches
+    got = fn(x, w, s)
+    assert fn.launches == n0 + 1
+    _close_rel(got, t_qp.int8_matmul_reference(x, w8, s), rel=1e-2)
+    assert torch.equal(fn(x, w, s), got)
 
 
 # (K, N, epilogue, rows of x): the four projections of PaliGemma-3B-224's

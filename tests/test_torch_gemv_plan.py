@@ -18,6 +18,7 @@ from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import gemv_plan as t_plan
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
 from paligemma_tpu_torch.kernels import lora as t_lora
+from paligemma_tpu_torch.kernels.ablation import _wq_gemm
 from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
 
 torch.set_num_threads(2)
@@ -254,14 +255,17 @@ def test_int4_matmul_decode_rows_take_the_stored_row_plan(library, label, k, n, 
 
 @pytest.mark.parametrize("m", [17, 266])
 def test_int4_matmul_prefill_rows_keep_the_dequantizing_tile(library, m):
-    """Above 16 rows int4_matmul stays on csrc/wq_gemm.cuh (pg_int4_matmul,
-    with its split sum where the K split leaves partials)."""
+    """Above 16 rows int4_matmul is one launch of the dequantizing wgmma
+    tile (csrc/wq_wgmma.cuh, pg_int4_matmul), its K split added in the same
+    launch: no second call, the plan of (M, K, N)."""
     k, n = HIDDEN, 2048
     x = _card(torch.zeros((m, k), dtype=torch.bfloat16))
     t_q4.int4_matmul(x, _card(torch.empty((k // 2, n), dtype=torch.int8)), _card(torch.ones(n)))
-    names = [name for name, _ in library.calls]
-    assert names[0] == "pg_int4_matmul" and set(names) <= {"pg_int4_matmul", "pg_wq_split_sum"}
-    assert library.calls[0][1][5:8] == (m, k, n) and t_q4.int4_matmul.launches == 1
+    [(name, args)] = library.calls
+    plan = _wq_gemm.WqPlan.make(m, k, n, "int4")
+    assert name == "pg_int4_matmul" and args[4:7] == (m, k, n)
+    assert args[7:10] == (plan.rows, plan.cluster, plan.k_per_cta // _wq_gemm.BK)
+    assert t_q4.int4_matmul.launches == 1
 
 
 # (label, K, nG) of the LoRA shrink at Gemma-2B with a bank of 3 rank-8

@@ -7,8 +7,11 @@ functions run on that tree:
   decoder projections and the fused LM-head argmax (``head_argmax_fused``,
   B3), B = 1 and 8, beside ``torch._weight_int8pack_mm``
   (``chip_smoke.gemv_device_times``);
-* ``int4``: B9 (``int4_matmul``) at the four projections, M = 1, 8, 266,
-  beside ``torch._weight_int4pack_mm`` (``chip_smoke.wq_device_times``);
+* ``int4``: B9 (``int4_matmul``) at the four projections, M = 1, 8, 17, 266,
+  1024, beside ``torch._weight_int4pack_mm`` (``chip_smoke.wq_device_times``);
+* ``int8``: B11 (``int8_matmul``, ``int8_matmul_nmajor``) at the same
+  projections and rows beside ``torch._weight_int8pack_mm``; both, at M >=
+  266, beside cuBLAS on weights dequantized beforehand;
 * ``lora``: one layer's multi-LoRA operands at B8 (the four shrinks, the
   GEMVs with the expand against the GEMVs alone) and the bank's extra time
   per tick (``chip_smoke.lora_device_times``);
@@ -18,7 +21,9 @@ functions run on that tree:
 
 It checks nothing, so diagnostic builds run too:
 
-    cd <tree> && python3 <this repository>/tools/gemv_times.py [--label L] [--what gemv,int4,lora,norm]
+    cd <tree> && python3 <repo>/tools/gemv_times.py [--label L] [--what gemv,int4,int8,lora,norm]
+
+(``<repo>``: this repository.)
 
 (``--label``: printed beside the tree's name.) Run several trees in turns
 in one call on one card to compare them; tools/gemv_variants.py runs it on
@@ -62,14 +67,15 @@ def main(argv=None) -> int:
     for what in args.what.split(","):
         if what == "gemv":
             cs.gemv_device_times(dev, label=tree)
-        elif what == "int4":
-            cs.wq_device_times(dev, label=tree, kinds=("int4",))
+        elif what in ("int4", "int8"):
+            cs.wq_device_times(dev, label=tree, kinds=(what,))
         elif what == "lora":
             cs.lora_device_times(dev, label=tree)
         elif what == "norm":
             cs.fused_device_times(dev, label=tree)
         else:
-            raise SystemExit(f"gemv_times: --what takes gemv, int4, lora, norm (got {what!r})")
+            raise SystemExit(f"gemv_times: --what takes gemv, int4, int8, lora, norm "
+                             f"(got {what!r})")
     return 0
 
 

@@ -200,7 +200,21 @@ VARIANTS["norm_dsmem"] = [
     }
     __syncthreads();""", _NORM_DSMEM_SHRINK),
 ]
-KERNELS = ("int8_gemv_kernel", "head_argmax_kernel", "int4_gemv_kernel")
+# B9 / B11 above 16 rows (csrc/wq_wgmma.cuh; time with --what int8, (K, N)
+# rows): the fragments without the int8 conversion (raw words, wrong
+# sums), or the loads and conversion without the products
+_WQ = "csrc/wq_wgmma.cuh"
+VARIANTS["wq_noconvert"] = [(_WQ, """        a[st][0] = wq_s8_pair<0, 2>(x0, magic);
+        a[st][1] = wq_s8_pair<1, 3>(x0, magic);
+        a[st][2] = wq_s8_pair<0, 2>(x1, magic);
+        a[st][3] = wq_s8_pair<1, 3>(x1, magic);""", """        a[st][0] = x0;
+        a[st][1] = x0 >> 8;
+        a[st][2] = x1;
+        a[st][3] = x1 >> 8;""")]
+_WQ_MMA = "        wq_mma<XN>(acc, cur[kk], wgmma_desc128(xtile(gs % ST, u % C::HALVES) + kk * 32));"
+VARIANTS["wq_nomma"] = [(_WQ, _WQ_MMA, """        acc[kk] += __uint_as_float(
+            (cur[kk][0] ^ cur[kk][1] ^ cur[kk][2] ^ cur[kk][3]) & 0x3fffffffu);""")]
+KERNELS = ("int8_gemv_kernel", "head_argmax_kernel", "int4_gemv_kernel", "wq_wgmma_kernel")
 
 
 def make_copy(name: str) -> str:
