@@ -5,6 +5,12 @@ seed, int8 decode tree) through its main paths:
 
 * the int8 greedy inference path, PaliGemmaEngine.generate, held against
   the plain path;
+* the reference job through the port's CLI (cli.infer.main): the same
+  weights written as a full-size HF checkpoint (fp32 safetensors) and
+  loaded back bit for bit, then a caption of a seeded image with
+  --quantize_int8 (its ids equal to generate's on the in-memory tree, the
+  pixels through the native C++ preprocessor) and a sampled batch of two,
+  the same text at the same seed;
 * the continuous-batching serving path: the dense ServingEngine and the
   paged PagedServingEngine serve the same 12 requests with identical
   tokens, the paged engine preempts and recomputes from a small pool, its
@@ -25,8 +31,9 @@ seed, int8 decode tree) through its main paths:
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
-``launches`` summed over the counted runs of the paths (the served runs
-(a)-(e), the multi-LoRA runs and the 8 training steps; each run's counts
+``launches`` summed over the counted runs of the paths (the three CLI runs,
+the served runs (a)-(e), the multi-LoRA runs, the TP runs, the ablation
+phase's runs and the 8 training steps; each run's counts
 are zeroed just before it and read just after), its error against its plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
@@ -186,6 +193,11 @@ PEAK_BYTES = 3.35e12
 # ms at the H100's clocks, so that the ~20 us the events add to a kernel
 # under the profiler stay inside the check's 15 %
 SPIN_CYCLES = 1_000_000
+# profiles of one function before its device times are given up: the card's
+# host has dropped a function's events in three runs in a row
+PROFILE_RUNS = 6
+# short spin kernels that open every profile (profiled)
+PROFILE_OPENING_SPINS = 8
 # the flash forward's (B1) cases: label, (b, sq, skv, hq, hkv, d), prefix_len,
 # kv_len, q_offset, timing ("json": the kernels line's times and device
 # times; "device": device times beside SDPA (and B12 at the tower's shape);
@@ -282,20 +294,22 @@ def profiled(fn, label, counts=None, check=None):
     * the events: ``check(rows, grew)`` returns why the rows cannot be
       right (events missing), or None.
 
-    A run that fails either is printed and done again, up to three runs. Returns (the device-side rows of ``key_averages()`` without the
+    A run that fails either is printed and done again, up to
+    ``PROFILE_RUNS`` runs. Returns (the device-side rows of ``key_averages()`` without the
     spins, the profile, wall ms of ``fn``, what ``counts()`` (launch
     counts) grew by: ``grew``), or None when no run passed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, 4):
+    for attempt in range(1, PROFILE_RUNS + 1):
         sync()
         before = counts() if counts else {}
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # a few short spins first: the H100 host's profiler drops a run's
-            # first device events now and then (3 of 8 calls)
-            for _ in range(3):
+            # short spins first: the H100 host's profiler drops a run's first
+            # device events now and then (3 of 8 calls; 3 of 10 behind three
+            # spins), and these absorb them
+            for _ in range(PROFILE_OPENING_SPINS):
                 torch.cuda._sleep(SPIN_CYCLES // 100)
             sync()
             t0 = time.perf_counter()
@@ -2102,6 +2116,353 @@ def decode_rate(label, e, pixels, ids, mask, card, n=32):
           f"({step_ms:.3f} ms/step)  [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------- the CLI ----
+CLI_NEW = 32  # greedy tokens of the CLI's caption
+CLI_IMAGE = (480, 640)  # the seeded RGB frame's (H, W)
+CLI_PROMPTS = ("caption en", "answer en what is in the picture on the left")
+# room asked of a directory before the checkpoint is written there, beyond
+# the file itself
+CLI_DISK_SLACK = 1 << 30
+
+
+class _StubImage:
+    """Stands in for a PIL image (the card's host has no PIL): ``.size``
+    and ``.convert("RGB")`` over the uint8 (H, W, 3) array saved in the
+    "image file" (``np.save``)."""
+
+    def __init__(self, arr):
+        self._arr = arr
+        self.size = (arr.shape[1], arr.shape[0])
+
+    def convert(self, mode):
+        if mode != "RGB":
+            raise ValueError(f"stub image: mode {mode}")
+        return self._arr
+
+
+class _WordTokenizer:
+    """Stands in for ``AutoTokenizer.from_pretrained`` (the card's host has
+    no transformers): a whitespace word-level tokenizer with the interface
+    the processor and the CLI use (tests/test_processing.py's
+    StubTokenizer). ``<image>`` is the config's image token; every id is
+    below the vocabulary. ``decode`` records the rows it is given."""
+
+    bos_token = "<bos>"
+    eos_token_id = 1
+    _SPECIAL = ("<pad>", "<eos>", "<bos>", "<image>")
+
+    def __init__(self, image_token_id):
+        self.vocab = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "\n": 3, "<image>": image_token_id}
+        self._next = 4
+        self.decoded = []
+
+    def _add(self, t):
+        if t not in self.vocab:
+            self.vocab[t] = self._next
+            self._next += 1
+
+    def add_special_tokens(self, d):
+        for t in d.get("additional_special_tokens", []):
+            self._add(t)
+
+    def add_tokens(self, toks):
+        for t in toks:
+            self._add(t)
+
+    def convert_tokens_to_ids(self, tok):
+        return self.vocab[tok]
+
+    def _encode(self, s):
+        ids = []
+        while s:
+            for t in ("<image>", self.bos_token, "\n"):
+                if s.startswith(t):
+                    ids.append(self.vocab[t])
+                    s = s[len(t):]
+                    break
+            else:
+                if s.startswith(" "):
+                    s = s[1:]
+                    continue
+                w = s.split(" ")[0].split("\n")[0].split("<")[0] or s[0]
+                self._add(w)
+                ids.append(self.vocab[w])
+                s = s[len(w):]
+        return ids
+
+    def __call__(self, texts, return_tensors="np", truncation=True, padding="longest"):
+        seqs = [self._encode(t) for t in texts]
+        n = max(len(q) for q in seqs)
+        ids = np.zeros((len(seqs), n), np.int64)
+        mask = np.zeros((len(seqs), n), np.int64)
+        for i, q in enumerate(seqs):
+            ids[i, :len(q)], mask[i, :len(q)] = q, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, row, skip_special_tokens=True):
+        row = [int(t) for t in row]
+        self.decoded.append(row)
+        words = {v: k for k, v in self.vocab.items()}
+        skip = {self.vocab[t] for t in self._SPECIAL} if skip_special_tokens else set()
+        return "".join(f" {words.get(t, f'w{t}')}" for t in row if t not in skip)
+
+
+class _StandIns:
+    """Installs ``PIL.Image.open`` and ``transformers.AutoTokenizer`` stand-ins
+    in ``sys.modules`` for the ``with`` block and restores what was there;
+    ``tokenizers`` lists every tokenizer handed out."""
+
+    def __init__(self, image_token_id):
+        import types
+
+        self.tokenizers = []
+        pil, image, tf = (types.ModuleType(n) for n in ("PIL", "PIL.Image", "transformers"))
+        image.open = lambda path: _StubImage(np.load(path))
+        pil.Image = image
+
+        def from_pretrained(path, **kw):
+            tok = _WordTokenizer(image_token_id)
+            self.tokenizers.append(tok)
+            return tok
+
+        tf.AutoTokenizer = types.SimpleNamespace(from_pretrained=from_pretrained)
+        self._mods = {"PIL": pil, "PIL.Image": image, "transformers": tf}
+        self._saved = {}
+
+    def __enter__(self):
+        self._saved = {k: sys.modules.get(k) for k in self._mods}
+        sys.modules.update(self._mods)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def _checkpoint_dir(need_fp32, need_bf16):
+    """A directory with room for the checkpoint: the checkout's build/ (git
+    ignores it) or the temporary directory. Returns (parent, dtype)."""
+    import tempfile
+
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    cands = [str(build), tempfile.gettempdir()]
+    free = {c: shutil.disk_usage(c).free for c in cands}
+    print("cli: free bytes " + ", ".join(f"{c}: {f}" for c, f in free.items())
+          + f" (the fp32 checkpoint needs {need_fp32}, bf16 {need_bf16})", flush=True)
+    for need, dtype in ((need_fp32, torch.float32), (need_bf16, torch.bfloat16)):
+        for c in cands:
+            if free[c] >= need + CLI_DISK_SLACK:
+                if dtype == torch.bfloat16:
+                    print(f"cli: no directory has room for the fp32 checkpoint: writing bf16 "
+                          f"({need_bf16} bytes) instead", flush=True)
+                return c, dtype
+    raise AssertionError("cli: no directory has room for the checkpoint, not even in bf16")
+
+
+def _cli_call(infer, argv, stand_ins):
+    """``infer.main(argv)`` with its stdout and stderr captured and the
+    launch counts zeroed just before and read just after. Returns (its
+    stdout, the timings JSON, counts, wall s, the rows the CLI decoded, the
+    text it should have printed for them after "Running inference")."""
+    import contextlib
+    import io
+
+    from paligemma_tpu_torch import kernels
+
+    out, err = io.StringIO(), io.StringIO()
+    n_tok = len(stand_ins.tokenizers)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            infer.main(argv)
+    except BaseException:  # SystemExit included: show what the CLI said
+        print(f"cli: the CLI failed; its stdout:\n{out.getvalue()}its stderr:\n"
+              f"{err.getvalue()}", flush=True)
+        raise
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if len(stand_ins.tokenizers) != n_tok + 1:
+        raise AssertionError("cli: the CLI did not load one tokenizer")
+    timings = json.loads(err.getvalue().split("timings: ", 1)[1].splitlines()[0])
+    tok = stand_ins.tokenizers[-1]
+    rows = list(tok.decoded)
+    prompts = [argv[i + 1] for i, a in enumerate(argv) if a == "--prompt"]
+    want = "".join(f"{p}{tok.decode(r)}\n" for p, r in zip(prompts, rows))
+    return out.getvalue(), timings, counts, wall, rows, want
+
+
+def _cli_launches(label, counts, n_layers, greedy):
+    """A CLI answer's one prefill: one flash forward a layer; its decode
+    steps: one int8_gemv_rope_kv and one attention a layer, one final norm,
+    and one head_argmax if greedy (none if sampled)."""
+    steps = counts["decode_attention"] // n_layers
+    print(f"cli {label}: launches over 1 prefill and {steps} decode steps: "
+          f"{json.dumps(counts)}", flush=True)
+    want = {"flash_attention_fwd": n_layers, "int8_gemv_rope_kv": n_layers * steps,
+            "decode_attention": n_layers * steps, "rms_norm": steps,
+            "head_argmax": steps if greedy else 0}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or not steps:
+        raise AssertionError(f"cli {label}: launch counts (got, want) off: {bad}, {steps} steps")
+
+
+def _timing_line(label, t, wall, card):
+    parts = [f"load {t['load_s']:.3f} s"]
+    if "quantize_s" in t:
+        parts.append(f"quantize {t['quantize_s']:.3f} s")
+    parts += [f"preprocess {t['preprocess_ms']:.3f} ms", f"prefill {t['prefill_ms']:.3f} ms",
+              f"decode {t['decode_ms']:.3f} ms ({t['tokens']} tokens, "
+              f"{t['decode_ms'] / t['tokens']:.3f} ms/token)"]
+    print(f"cli {label}: wall {wall:.3f} s per answer: {', '.join(parts)}  [{card}]", flush=True)
+
+
+def cli_phase(params, decode, cfg, dev, card):
+    """The reference job through the port's CLI at full width and depth:
+    write ``params`` as an HF checkpoint (fp32 safetensors, as the
+    official one ships), load it back bit for bit, caption a seeded image
+    greedily with ``--quantize_int8`` (tokens equal to PaliGemmaEngine on
+    the in-memory int8 tree ``decode``, native preprocessing), then a
+    sampled batch of two, twice (the same text). Returns the launch counts
+    summed over the three CLI runs."""
+    import tempfile
+
+    from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.cli import infer
+    from paligemma_tpu_torch.processing import native
+    from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+
+    n_layers = cfg.text_config.num_hidden_layers
+    n_el = sum(t.numel() for t in _leaves(params))
+    parent, dtype = _checkpoint_dir(4 * n_el, 2 * n_el)
+    d = tempfile.mkdtemp(prefix="cli_ckpt_", dir=parent)
+    total: dict = {}
+    try:
+        t0 = time.perf_counter()
+        n_bytes = export_hf_checkpoint(cfg, params, d, dtype=dtype)
+        secs = time.perf_counter() - t0
+        print(f"cli: export_hf_checkpoint of the 3B-224 tree ({n_el} parameters, {n_bytes} "
+              f"bytes of {'fp32' if dtype == torch.float32 else 'bf16'} safetensors) in "
+              f"{secs:.2f} s ({n_bytes / secs / 1e9:.2f} GB/s into the page cache, not synced) "
+              f"under {parent}  [{card}]", flush=True)
+
+        sync()
+        t0 = time.perf_counter()
+        loaded, lcfg = load_hf_model(d, torch.bfloat16)
+        sync()
+        secs = time.perf_counter() - t0
+        got, want = list(_leaves(loaded)), list(_leaves(params))
+        if lcfg != cfg or len(got) != len(want) or not all(
+                a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, want)):
+            raise AssertionError("cli: the loaded tree differs from the exported one")
+        print(f"cli: load_hf_model to {torch.cuda.get_device_name(0)} in {secs:.2f} s "
+              f"({n_bytes / secs / 1e9:.2f} GB/s of file, page cache warm: the file was just "
+              f"written): {len(got)} leaves bit-identical to the exported tree  [{card}]",
+              flush=True)
+        del loaded, got
+
+        rng = np.random.default_rng(SEED + 3)
+        img = [os.path.join(d, f"img{i}.npy") for i in range(2)]
+        raws = [rng.integers(0, 256, (*CLI_IMAGE, 3), dtype=np.uint8) for _ in img]
+        for path, raw in zip(img, raws):
+            np.save(path, raw)
+        if not native.native_available():
+            raise AssertionError("cli: the native preprocessing library did not build")
+        for b in (1, 8):
+            batch = np.stack([raws[0]] * b)
+            native.preprocess_images_native(batch, cfg.vision_config.image_size)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                native.preprocess_images_native(batch, cfg.vision_config.image_size)
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            print(f"cli: native preprocessing {CLI_IMAGE[0]}x{CLI_IMAGE[1]} -> "
+                  f"{cfg.vision_config.image_size}: {ms / b:.3f} ms per image at batch {b} "
+                  f"({min(b, os.cpu_count() or 1)} threads, {os.cpu_count()} cores)  [{card}]",
+                  flush=True)
+        sync()
+        t0 = time.perf_counter()
+        quantize_lm_for_serving(params)
+        sync()
+        print(f"cli: quantize_lm_for_serving of the 3B tree {time.perf_counter() - t0:.3f} s  "
+              f"[{card}]", flush=True)
+
+        stand = _StandIns(cfg.image_token_index)
+        print("cli: stand-ins in sys.modules for this phase only (the card's host has neither "
+              "package): PIL.Image.open (reads the np.save'd frame) and "
+              "transformers.AutoTokenizer.from_pretrained (a word-level tokenizer, ids below "
+              f"{cfg.vocab_size})", flush=True)
+        with stand:
+            # greedy caption, int8 decode
+            argv = ["--model_path", d, "--image_file_path", img[0], "--prompt", CLI_PROMPTS[0],
+                    "--quantize_int8", "--max_tokens_to_generate", str(CLI_NEW)]
+            text, t, counts, wall, rows, want = _cli_call(infer, argv, stand)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            _cli_launches("greedy", counts, n_layers, True)
+            ids = np.asarray(rows)
+            first, rest = text.split("\n", 1)
+            if (not first.startswith("Device in use: ")
+                    or rest != f"Loading model\nRunning inference\n{want}"):
+                raise AssertionError(f"cli greedy: printed {text!r}, want the rows {want!r}")
+            proc = PaliGemmaProcessor(_WordTokenizer(cfg.image_token_index),
+                                      cfg.vision_config.num_image_tokens,
+                                      cfg.vision_config.image_size)
+            inputs = proc(images=[_StubImage(raws[0])], text=[CLI_PROMPTS[0]])
+            if proc.last_route != "native":
+                raise AssertionError(f"cli: pixels took the {proc.last_route} route")
+            eng = PaliGemmaEngine(params, cfg, max_seq_len=1024,
+                                  eos_token_id=_WordTokenizer.eos_token_id, decode_params=decode)
+            ref = eng.generate(inputs["pixel_values"], inputs["input_ids"],
+                               inputs["attention_mask"], max_new_tokens=CLI_NEW,
+                               sync_every=infer.SYNC_EVERY)
+            del eng
+            if not np.array_equal(ids, ref) or not (
+                    ids.shape[1] == CLI_NEW or ids[0, -1] == _WordTokenizer.eos_token_id):
+                raise AssertionError(f"cli greedy: ids {ids.tolist()} != engine {ref.tolist()}")
+            print(f"cli greedy: {first!r}, then {want[:60]!r}...; its {ids.shape[1]} ids equal "
+                  f"PaliGemmaEngine.generate on the in-memory int8 tree, int for int: "
+                  f"{ids[0, :8].tolist()} ...; pixels through the native route", flush=True)
+            _timing_line("greedy", t, wall, card)
+
+            # a sampled batch of two images of one size, prompts of two lengths
+            argv = ["--model_path", d, "--quantize_int8", "--max_tokens_to_generate",
+                    str(CLI_NEW), "--do_sample", "--seed", "0"]
+            for path, prompt in zip(img, CLI_PROMPTS):
+                argv += ["--image_file_path", path, "--prompt", prompt]
+            runs = []
+            for r in range(2):
+                text, t, counts, wall, rows, want = _cli_call(infer, argv, stand)
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                _cli_launches(f"sampled run {r}", counts, n_layers, False)
+                _timing_line(f"sampled B2 run {r}", t, wall, card)
+                printed = text.split("Running inference\n", 1)[1]
+                if printed != want or len(rows) != 2:
+                    raise AssertionError(f"cli sampled: printed {printed!r}, want {want!r}")
+                runs.append((printed, rows))
+            if runs[0] != runs[1]:
+                raise AssertionError(f"cli sampled: two runs at --seed 0 differ:\n{runs}")
+            mask = proc(images=[_StubImage(r) for r in raws], text=list(CLI_PROMPTS))[
+                "attention_mask"]
+            if not (mask[0].sum() < mask.shape[1] == mask[1].sum()
+                    and (np.diff(mask, axis=1) <= 0).all()):
+                raise AssertionError(f"cli sampled: the batch is not right-padded: {mask.sum(1)}")
+            print(f"cli sampled: two runs at --seed 0 print the same {len(runs[0][1])} rows; "
+                  f"prompts of {mask.sum(1).tolist()} tokens, right-padded", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
 def serving_requests(cfg, sample=False):
     """The phase's 12 requests, made anew (the engines mutate them); with
     ``sample`` the odd ids sample (temperature 0.8, top-p 0.9)."""
@@ -3411,6 +3772,10 @@ def main() -> int:
 
     params, decode, cfg, tok_gen = main_path(dev, card)
     t0 = time.perf_counter()
+    cli_counts = cli_phase(params, decode, cfg, dev, card)
+    torch.cuda.empty_cache()
+    print(f"cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -3427,7 +3792,7 @@ def main() -> int:
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
-                                           ablation_counts))
+                                           ablation_counts, cli_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

@@ -1,0 +1,243 @@
+"""Inference CLI (port of paligemma_tpu/cli/infer.py).
+
+Mirrors the reference entrypoint and its flags (ref: inference.py:109-154,
+launched by launch_inference.sh): load an HF checkpoint directory, process
+one or more images + prompts, generate with greedy or temperature/top-p
+sampling, print prompt + decoded continuation.
+
+    python -m paligemma_tpu_torch.cli.infer --model_path <dir> \\
+        --prompt "caption en" --image_file_path pic.jpg --quantize_int8
+
+Device: the card (``cuda:0``), or the CPU with ``--only_cpu``; with no card
+and no ``--only_cpu`` it exits with an error and never runs on the CPU by
+itself. On the card prefill attention runs the flash kernel, which takes
+bf16 only, so ``--dtype float32`` needs ``--only_cpu``.
+
+Decode: with ``--quantize_int8`` the engine decodes from the int8 tree
+(runtime.quantize) with its kernel defaults (on the card: the
+hand-written decode layer and head kernels); without it, the plain bf16
+decode (``fused_layer=False``), as the JAX package's bf16 decode is XLA.
+
+Flags of parts not yet ported (``--int8_prefill``, ``--speculative``,
+``--data_parallel`` / ``--model_parallel`` above 1) exit with an error that
+names them.
+
+Besides the printed rows, the run's phases (load, quantize, preprocess,
+prefill, decode) are written as one ``timings:`` JSON line to stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .errors import CliError, require, user_errors
+
+# decode steps per host check for EOS (engine.generate's sync_every): the
+# same tokens at any value, and above 1 a greedy row takes its next token
+# from the head kernel's on-device argmax instead of copying logits out
+SYNC_EVERY = 8
+
+# flag -> why it is refused (the ROADMAP item that ports it)
+_NOT_PORTED = {
+    "int8_prefill": "--int8_prefill (W8A8 prefill) is not ported yet (ROADMAP item 13)",
+    "speculative": "--speculative (n-gram speculative decoding) is not ported yet "
+                   "(ROADMAP item 8)",
+}
+
+
+@dataclasses.dataclass
+class InferResult:
+    tokens: np.ndarray  # (B, <= max_tokens_to_generate) int32
+    texts: List[str]  # prompt + decoded, one per row
+    pixel_route: str  # "native" or "pil" (processing.processor)
+    timings: Dict[str, float]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="PaliGemma inference (PyTorch + CUDA)")
+    p.add_argument("--model_path", required=True, help="HF checkpoint directory")
+    p.add_argument("--prompt", required=True, action="append",
+                   help="prefix prompt (repeat for a batch)")
+    p.add_argument("--image_file_path", required=True, action="append",
+                   help="image path (repeat for a batch)")
+    p.add_argument("--max_tokens_to_generate", type=int, default=100)
+    p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--top_p", type=float, default=0.9)
+    p.add_argument("--do_sample", action="store_true")
+    p.add_argument("--only_cpu", action="store_true")
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--int8_prefill", action="store_true",
+                   help="not ported: exits with an error")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8 weight-only quantization of the decoder")
+    p.add_argument("--max_seq_len", type=int, default=1024)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="not ported above 1: exits with an error")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="not ported above 1: exits with an error")
+    p.add_argument("--speculative", action="store_true",
+                   help="not ported: exits with an error")
+    p.add_argument("--draft_k", type=int, default=8,
+                   help="draft tokens proposed per speculative cycle (with --speculative)")
+    p.add_argument("--decode_detections", action="store_true",
+                   help="parse <loc####>/<seg###> tokens in the output "
+                        "('detect ...' / 'segment ...' prompts) and print "
+                        "one JSON line of pixel boxes per image")
+    return p.parse_args(argv)
+
+
+def _device(args) -> torch.device:
+    for flag, why in _NOT_PORTED.items():
+        require(not getattr(args, flag), why)
+    require(args.data_parallel * args.model_parallel == 1,
+            "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
+            "the port's mesh runs one process per rank under torchrun)")
+    if args.only_cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise CliError("no CUDA device found; pass --only_cpu to run on the CPU")
+    require(args.dtype == "bfloat16",
+            "--dtype float32 runs only with --only_cpu: on the card prefill attention "
+            "runs the flash kernel, which takes bf16")
+    return torch.device("cuda", 0)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
+    """The CLI's body: prints as the CLI does and returns the tokens, the
+    printed rows and the timings. ``tokenizer``: used in place of
+    ``AutoTokenizer.from_pretrained(args.model_path)`` when given."""
+    device = _device(args)
+    prompts = list(args.prompt)
+    require(
+        len(args.image_file_path) == len(prompts),
+        f"got {len(prompts)} --prompt but {len(args.image_file_path)} "
+        "--image_file_path; pass one image per prompt",
+    )
+    require(args.max_tokens_to_generate >= 1, "--max_tokens_to_generate must be at least 1")
+
+    from PIL import Image
+
+    from ..checkpoints.hf_loader import load_hf_model
+    from ..processing.processor import PaliGemmaProcessor
+    from ..runtime.engine import PaliGemmaEngine
+    from ..runtime.quantize import quantize_lm_for_serving
+
+    # opened (not decoded) before the load, so a wrong path fails at once
+    images = [Image.open(f) for f in args.image_file_path]
+    timings: Dict[str, float] = {}
+    name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
+    print(f"Device in use: {device}{name}")
+    print("Loading model")
+    t0 = time.perf_counter()
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    params, config = load_hf_model(args.model_path, dtype, device=device)
+    _sync(device)
+    timings["load_s"] = time.perf_counter() - t0
+    # split precision: bf16 weights for the compute-bound prefill, int8 for
+    # the bandwidth-bound decode
+    decode_params = None
+    if args.quantize_int8:
+        t0 = time.perf_counter()
+        decode_params = quantize_lm_for_serving(params)
+        _sync(device)
+        timings["quantize_s"] = time.perf_counter() - t0
+
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.model_path, padding_side="right")
+    processor = PaliGemmaProcessor(
+        tokenizer,
+        num_image_tokens=config.vision_config.num_image_tokens,
+        image_size=config.vision_config.image_size,
+    )
+    t0 = time.perf_counter()
+    inputs = processor(images=images, text=prompts)
+    timings["preprocess_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # grow the cache to fit prompt + budget (the reference's torch.cat cache
+    # grows unboundedly, ref: modeling_gemma.py:54-55; ours is preallocated,
+    # so size it up front instead of silently clamping writes)
+    need = inputs["input_ids"].shape[1] + args.max_tokens_to_generate
+    max_seq_len = max(args.max_seq_len, ((need + 127) // 128) * 128)
+    engine = PaliGemmaEngine(
+        params, config,
+        max_seq_len=max_seq_len,
+        eos_token_id=tokenizer.eos_token_id,
+        decode_params=decode_params,
+        # the plain bf16 decode unless the int8 tree was asked for
+        fused_layer=None if args.quantize_int8 else False,
+    )
+    print("Running inference")
+    prefill = engine.prefill
+
+    def timed_prefill(*a, **kw):  # the prefill's own time, vision included
+        t = time.perf_counter()
+        out = prefill(*a, **kw)
+        _sync(device)
+        timings["prefill_ms"] = (time.perf_counter() - t) * 1e3
+        return out
+
+    engine.prefill = timed_prefill
+    t0 = time.perf_counter()
+    try:
+        tokens = engine.generate(
+            inputs["pixel_values"],
+            inputs["input_ids"],
+            inputs["attention_mask"],
+            max_new_tokens=args.max_tokens_to_generate,
+            temperature=args.temperature,
+            top_p=args.top_p,
+            do_sample=args.do_sample,
+            generator=torch.Generator(device=device).manual_seed(args.seed),
+            sync_every=SYNC_EVERY,
+        )
+    finally:
+        del engine.prefill  # no reference cycle keeps the weights alive
+    timings["decode_ms"] = (time.perf_counter() - t0) * 1e3 - timings["prefill_ms"]
+    timings["tokens"] = int(tokens.shape[1])
+
+    texts = []
+    for prompt, row, image in zip(prompts, tokens, images):
+        decoded = tokenizer.decode(row, skip_special_tokens=True)
+        texts.append(prompt + decoded)
+        print(prompt + decoded)
+        if args.decode_detections:
+            from ..processing.detection import extract_objects
+
+            w, h = image.size
+            objs = [
+                {
+                    "label": o.label,
+                    "box_yxyx": list(o.box_pixels(h, w)),
+                    "has_mask": o.seg_indices is not None,
+                }
+                for o in extract_objects(decoded)
+            ]
+            print(json.dumps(objs))
+    print(f"timings: {json.dumps(timings)}", file=sys.stderr)
+    return InferResult(tokens=tokens, texts=texts, pixel_route=processor.last_route,
+                       timings=timings)
+
+
+def main(argv=None) -> None:
+    with user_errors():
+        run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

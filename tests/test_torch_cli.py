@@ -1,0 +1,218 @@
+"""The port's inference CLI (``python -m paligemma_tpu_torch.cli.infer``)
+against the JAX package's CLI, on a fabricated tiny HF checkpoint directory
+(config.json + model.safetensors + fast tokenizer), the artifact a user
+points ``--model_path`` at (CPU):
+
+* ``--only_cpu --dtype float32`` prints the JAX CLI's ``prompt + decoded``
+  lines exactly, for one row and with ``--decode_detections``;
+* a sampled batch is deterministic per ``--seed``;
+* ``--quantize_int8`` gives the port engine's tokens on the int8 tree;
+* user mistakes, flags of parts not yet ported, a missing card and
+  ``--dtype float32`` on a card exit 2 with a one-line reason.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+transformers = pytest.importorskip("transformers")
+
+from paligemma_tpu_torch.cli import infer as t_infer
+from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+
+torch.set_num_threads(2)
+
+VOCAB = 288
+
+
+# ---- fixture copied from tests/test_cli.py ----
+@pytest.fixture(scope="module")
+def checkpoint_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt")
+
+    # ---- tiny HF PaliGemma with real safetensors ----
+    cfg = transformers.PaliGemmaConfig(
+        vision_config=dict(
+            image_size=28, patch_size=14, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=4, projection_dim=48,
+            vision_use_head=False,
+        ),
+        text_config=dict(
+            vocab_size=VOCAB, hidden_size=48, intermediate_size=96,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=16, model_type="gemma",
+            bos_token_id=2, eos_token_id=1, pad_token_id=0,
+        ),
+        projection_dim=48, image_token_index=280, pad_token_id=0,
+        vocab_size=VOCAB,
+    )
+    torch.manual_seed(0)
+    model = transformers.PaliGemmaForConditionalGeneration(cfg).eval()
+    model.save_pretrained(str(d), safe_serialization=True)
+
+    # ---- tiny fast tokenizer (word-level) ----
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    words = ["this", "building", "is", "a", "answer", "in", "english", "hello",
+             "world", "describe", "the", "image", "extract", "json"]
+    vocab = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "\n": 3, "<unk>": 4}
+    for w in words:
+        vocab[w] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    fast = transformers.PreTrainedTokenizerFast(
+        tokenizer_object=tok,
+        pad_token="<pad>", eos_token="<eos>", bos_token="<bos>", unk_token="<unk>",
+    )
+    fast.save_pretrained(str(d))
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def image_path(tmp_path_factory):
+    from PIL import Image
+
+    p = tmp_path_factory.mktemp("img") / "pic1.png"
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 255, (40, 40, 3), dtype=np.uint8)).save(p)
+    return str(p)
+# ---- end of the copied fixture ----
+
+
+def _rows(out: str):
+    """The lines printed after "Running inference"."""
+    lines = out.splitlines()
+    return lines[lines.index("Running inference") + 1:]
+
+
+def _argv(checkpoint_dir, image_path, prompts, *extra):
+    argv = ["--model_path", checkpoint_dir]
+    for p in prompts:
+        argv += ["--prompt", p, "--image_file_path", image_path]
+    return argv + list(extra)
+
+
+@pytest.mark.parametrize("prompts,extra", [
+    (["describe the image"], []),
+    (["detect this building", "answer in english"], ["--decode_detections"]),
+], ids=["one_row", "detections"])
+def test_cli_prints_the_jax_cli_rows(checkpoint_dir, image_path, capsys, prompts, extra):
+    from paligemma_tpu.cli.infer import main as jax_main
+
+    argv = _argv(checkpoint_dir, image_path, prompts, "--max_tokens_to_generate", "5",
+                 "--dtype", "float32", *extra)
+    jax_main(argv)
+    want = _rows(capsys.readouterr().out)
+    t_infer.main(argv + ["--only_cpu"])
+    cap = capsys.readouterr()
+    got = _rows(cap.out)
+    assert got == want
+    assert len(got) == len(prompts) * (2 if extra else 1)
+    assert all(r.startswith(p) for r, p in zip(got[::2 if extra else 1], prompts))
+    if extra:
+        assert all(isinstance(json.loads(r), list) for r in got[1::2])
+    assert cap.out.splitlines()[:2] == ["Device in use: cpu", "Loading model"]
+    timings = json.loads(cap.err.split("timings: ", 1)[1].splitlines()[0])
+    assert timings["tokens"] == 5 and timings["prefill_ms"] > 0 and "quantize_s" not in timings
+
+
+def test_cli_sampled_batch_is_deterministic_per_seed(checkpoint_dir, image_path, capsys):
+    def sample(seed):
+        argv = _argv(checkpoint_dir, image_path, ["hello world", "this building is a"],
+                     "--max_tokens_to_generate", "6", "--do_sample", "--temperature", "0.7",
+                     "--top_p", "0.9", "--seed", str(seed), "--only_cpu")
+        res = t_infer.run(t_infer.parse_args(argv))
+        # a decoded row may hold a newline token
+        assert _rows(capsys.readouterr().out) == "\n".join(res.texts).splitlines()
+        return res
+
+    a, b, c = sample(0), sample(0), sample(1)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert a.texts == b.texts and a.texts[0].startswith("hello world")
+    assert not np.array_equal(a.tokens, c.tokens)
+
+
+def test_cli_quantize_int8_gives_the_engine_tokens(checkpoint_dir, image_path, capsys):
+    """The CLI (default bf16, --quantize_int8) against PaliGemmaEngine on
+    the int8 tree of the same checkpoint, fed the port processor's inputs
+    for the same image and prompts."""
+    from PIL import Image
+
+    prompts = ["describe the image", "hello"]
+    res = t_infer.run(t_infer.parse_args(_argv(
+        checkpoint_dir, image_path, prompts, "--max_tokens_to_generate", "7",
+        "--quantize_int8", "--only_cpu")))
+    capsys.readouterr()
+    assert res.pixel_route in ("native", "pil") and "quantize_s" in res.timings
+
+    params, cfg = load_hf_model(checkpoint_dir, torch.bfloat16, device="cpu")
+    tok = transformers.AutoTokenizer.from_pretrained(checkpoint_dir, padding_side="right")
+    proc = PaliGemmaProcessor(tok, cfg.vision_config.num_image_tokens,
+                              cfg.vision_config.image_size)
+    inputs = proc(images=[Image.open(image_path)] * 2, text=prompts)
+    assert proc.last_route == res.pixel_route
+    eng = PaliGemmaEngine(params, cfg, max_seq_len=1024, eos_token_id=tok.eos_token_id,
+                          decode_params=quantize_lm_for_serving(params))
+    want = eng.generate(inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"],
+                        max_new_tokens=7, sync_every=t_infer.SYNC_EVERY)
+    np.testing.assert_array_equal(res.tokens, want)
+
+
+def test_cli_friendly_errors(checkpoint_dir, image_path, capsys):
+    """User mistakes exit 2 with a one-line message (as the JAX CLI's)."""
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(["--model_path", checkpoint_dir, "--prompt", "a", "--prompt", "b",
+                      "--image_file_path", image_path, "--only_cpu"])
+    assert ei.value.code == 2
+    assert "one image per prompt" in capsys.readouterr().err
+
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(["--model_path", checkpoint_dir, "--prompt", "a",
+                      "--image_file_path", "/nonexistent/pic.png", "--only_cpu"])
+    assert ei.value.code == 2
+    assert "file not found" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--int8_prefill", "--quantize_int8"], "13"),
+    (["--speculative"], "8"),
+    (["--data_parallel", "2"], "14"),
+    (["--model_parallel", "2"], "14"),
+])
+def test_cli_unported_flags_exit_2(checkpoint_dir, image_path, capsys, flag, item):
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--only_cpu", *flag))
+    assert ei.value.code == 2
+    cap = capsys.readouterr()
+    assert flag[0] in cap.err and f"ROADMAP item {item}" in cap.err
+    assert "Loading model" not in cap.out
+
+
+def test_cli_without_a_card_does_not_run_on_the_cpu(checkpoint_dir, image_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(checkpoint_dir, image_path, ["a"]))
+    assert ei.value.code == 2
+    cap = capsys.readouterr()
+    assert "no CUDA device" in cap.err and "--only_cpu" in cap.err
+    assert "Loading model" not in cap.out
+    with pytest.raises(t_infer.CliError):
+        t_infer.run(t_infer.parse_args(_argv(checkpoint_dir, image_path, ["a"])))
+
+
+def test_cli_float32_on_the_card_exits_2(checkpoint_dir, image_path, capsys, monkeypatch):
+    """The flash kernel takes bf16 only: fp32 on the card is refused before
+    anything loads, not run with the kernel turned off."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--dtype", "float32"))
+    assert ei.value.code == 2
+    cap = capsys.readouterr()
+    assert "--dtype float32 runs only with --only_cpu" in cap.err
+    assert "Loading model" not in cap.out

@@ -942,3 +942,52 @@ def test_int8_gemv_rope_kv_on_card(b, hl, d, bank):
         lora = None
         base = run(t_gemv.int8_gemv_rope_kv, False)
         assert all(torch.equal(u[ids == 0], v[ids == 0]) for u, v in zip(dense, base))
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_load_hf_model_to_card_equals_cpu_load(tmp_path, dtype):
+    """The loader's upload, cast, transposes and stacking on the card give
+    the bits of the same steps on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paligemma_tpu_torch import tiny_test_config
+    from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.convert import init_params
+
+    cfg = tiny_test_config()
+    export_hf_checkpoint(cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                          torch.float32), str(tmp_path))
+    on_card, cfg_card = load_hf_model(str(tmp_path), dtype)
+    on_cpu, cfg_cpu = load_hf_model(str(tmp_path), dtype, device="cpu")
+    assert cfg_card == cfg_cpu == cfg
+    got, want = dict(_leaves(on_card)), dict(_leaves(on_cpu))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype == dtype, k
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_preprocess_device_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from paligemma_tpu_torch.processing.images import preprocess_device
+
+    for hw in ((300, 400), (500, 300), (100, 150)):
+        raw = np.random.default_rng(0).integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+        got = preprocess_device(raw, 224)  # numpy goes to the card
+        assert got.device.type == "cuda" and got.shape == (2, 3, 224, 224)
+        want = preprocess_device(raw, 224, device="cpu")
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)

@@ -184,17 +184,24 @@ def test_sampled_generate_same_draws_at_any_sync():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port (the serving, training, LoRA
-    and ablation modules included), runs a tiny CPU generate, a tiny paged
-    serving run, one with a multi-LoRA bank, a training step, the tower
-    with attn="fused" and the ablation entry points, and never imports jax
-    or any module of the JAX package."""
+    """A fresh interpreter imports the port (the serving, training, LoRA,
+    ablation, processing, checkpoint and CLI modules included), runs a tiny
+    CPU generate, a tiny paged serving run, one with a multi-LoRA bank, a
+    training step, the tower with attn="fused", the ablation entry points,
+    the device preprocessing and an HF export -> load round trip, and
+    never imports jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import dataclasses
         import sys
+        import tempfile
         import numpy as np
         import torch
         import paligemma_tpu_torch
+        from paligemma_tpu_torch.cli import infer
+        from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
+        from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+        from paligemma_tpu_torch.processing.images import preprocess_device
+        from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
         from paligemma_tpu_torch.convert import init_params, init_vision_params
         from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
         from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
@@ -253,6 +260,12 @@ def test_port_runs_without_jax():
                                                 torch.randn(2, 12, 2, 16), n, n, n)
         assert out.shape == (2, 4, 16)
         assert vision_attention.vision_attention.launches == 0
+        px = preprocess_device(np.zeros((1, 40, 30, 3), np.uint8), 28, device="cpu")
+        assert px.shape == (1, 3, 28, 28), px.shape
+        with tempfile.TemporaryDirectory() as d:
+            export_hf_checkpoint(cfg, params, d)
+            again, cfg2 = load_hf_model(d, torch.float32, device="cpu")
+        assert cfg2 == cfg and torch.equal(again["lm"]["embed"], params["lm"]["embed"])
         assert "jax" not in sys.modules
         foreign = [m for m in sys.modules if m.split(".")[0] == "paligemma_tpu"]
         assert not foreign, foreign

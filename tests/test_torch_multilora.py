@@ -635,7 +635,12 @@ C5_FUNCTIONS = (
     "kernels.decode_layer.lora_row_masks", "kernels.decode_layer_paged.supported",
     "kernels.decode_layer_paged.layers_decode_fused_paged",
     "kernels.decode_layer_paged_tp.supported", "ops.sampling.sample",
-    "ops.sampling.sample_top_p", *OPERANDS_DIFFER,
+    "ops.sampling.sample_top_p", "checkpoints.hf_loader.params_from_state_dict",
+    "checkpoints.hf_loader.load_state_dict_from_safetensors",
+    "checkpoints.hf_loader.load_hf_model", "checkpoints.hf_export.state_dict_from_params",
+    "checkpoints.hf_export.export_hf_checkpoint", "processing.images.process_images_host",
+    "processing.images.preprocess_device", "processing.native.preprocess_images_native",
+    "processing.processor.PaliGemmaProcessor.__init__", *OPERANDS_DIFFER,
 )
 
 
