@@ -11,6 +11,12 @@ seed, int8 decode tree) through its main paths:
   --quantize_int8 (its ids equal to generate's on the in-memory tree, the
   pixels through the native C++ preprocessor) and a sampled batch of two,
   the same text at the same seed;
+* the serving entry point (cli.serve.main) on that checkpoint: 12 requests
+  in batch mode through the dense and the paged engine (a ServingEngine's
+  tokens), twice with the prefix cache (hits with no prefill), with
+  grammars (constrained texts accepted, free rows unchanged, the logits
+  head), over HTTP (a cancel, 8 concurrent requests, a stream) and with
+  LoRA adapters saved by save_pytree;
 * the continuous-batching serving path: the dense ServingEngine and the
   paged PagedServingEngine serve the same 12 requests with identical
   tokens, the paged engine preempts and recomputes from a small pool, its
@@ -32,7 +38,7 @@ seed, int8 decode tree) through its main paths:
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
 ``launches`` summed over the counted runs of the paths (the three CLI runs,
-the served runs (a)-(e), the multi-LoRA runs, the TP runs, the ablation
+the serve_cli runs, the served runs (a)-(e), the multi-LoRA runs, the TP runs, the ablation
 phase's runs and the 8 training steps; each run's counts
 are zeroed just before it and read just after), its error against its plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
@@ -54,6 +60,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2143,18 +2150,39 @@ class _StubImage:
 class _WordTokenizer:
     """Stands in for ``AutoTokenizer.from_pretrained`` (the card's host has
     no transformers): a whitespace word-level tokenizer with the interface
-    the processor and the CLI use (tests/test_processing.py's
+    the processor and the CLIs use (tests/test_processing.py's
     StubTokenizer). ``<image>`` is the config's image token; every id is
-    below the vocabulary. ``decode`` records the rows it is given."""
+    below the vocabulary. ``decode`` records the rows it is given. Every id
+    has a surface text: a word's, or ``w<id>`` for an id no word took, each
+    after one space (``decode`` joins them so, and ``convert_ids_to_tokens``
+    gives them SentencePiece's way, with U+2581 for the space); ``words``
+    take their ids first, so that the ids of later words cannot move."""
 
     bos_token = "<bos>"
     eos_token_id = 1
     _SPECIAL = ("<pad>", "<eos>", "<bos>", "<image>")
 
-    def __init__(self, image_token_id):
+    def __init__(self, image_token_id, vocab_size=None, words=()):
         self.vocab = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "\n": 3, "<image>": image_token_id}
         self._next = 4
         self.decoded = []
+        self.vocab_size = vocab_size
+        for w in words:
+            self._add(w)
+
+    def __len__(self):
+        return self.vocab_size if self.vocab_size is not None else len(self.vocab)
+
+    @property
+    def all_special_ids(self):
+        return [self.vocab[t] for t in self._SPECIAL]
+
+    def _words(self):
+        return {v: k for k, v in self.vocab.items()}
+
+    def convert_ids_to_tokens(self, ids):
+        words = self._words()
+        return ["\u2581" + words.get(int(t), f"w{int(t)}") for t in ids]
 
     def _add(self, t):
         if t not in self.vocab:
@@ -2202,7 +2230,7 @@ class _WordTokenizer:
     def decode(self, row, skip_special_tokens=True):
         row = [int(t) for t in row]
         self.decoded.append(row)
-        words = {v: k for k, v in self.vocab.items()}
+        words = self._words()
         skip = {self.vocab[t] for t in self._SPECIAL} if skip_special_tokens else set()
         return "".join(f" {words.get(t, f'w{t}')}" for t in row if t not in skip)
 
@@ -2212,7 +2240,7 @@ class _StandIns:
     in ``sys.modules`` for the ``with`` block and restores what was there;
     ``tokenizers`` lists every tokenizer handed out."""
 
-    def __init__(self, image_token_id):
+    def __init__(self, image_token_id, vocab_size=None, words=()):
         import types
 
         self.tokenizers = []
@@ -2221,7 +2249,7 @@ class _StandIns:
         pil.Image = image
 
         def from_pretrained(path, **kw):
-            tok = _WordTokenizer(image_token_id)
+            tok = _WordTokenizer(image_token_id, vocab_size, words)
             self.tokenizers.append(tok)
             return tok
 
@@ -2329,7 +2357,8 @@ def cli_phase(params, decode, cfg, dev, card):
     greedily with ``--quantize_int8`` (tokens equal to PaliGemmaEngine on
     the in-memory int8 tree ``decode``, native preprocessing), then a
     sampled batch of two, twice (the same text). Returns the launch counts
-    summed over the three CLI runs."""
+    summed over the three CLI runs and the checkpoint's directory, which
+    the caller removes (the serve_cli phase serves from it)."""
     import tempfile
 
     from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
@@ -2458,8 +2487,647 @@ def cli_phase(params, decode, cfg, dev, card):
                 raise AssertionError(f"cli sampled: the batch is not right-padded: {mask.sum(1)}")
             print(f"cli sampled: two runs at --seed 0 print the same {len(runs[0][1])} rows; "
                   f"prompts of {mask.sum(1).tolist()} tokens, right-padded", flush=True)
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
+    return total, d
+
+
+# the serve_cli phase: 12 requests of these prompts (words without digits,
+# so that no prompt word takes the surface of a grammar's token), each with
+# a seeded frame of one of three sizes
+SERVE_CLI_PROMPTS = (
+    "caption en", "describe the scene in detail", "answer en what is on the table",
+    "question en how many people are there", "caption es", "ocr",
+    "answer en where is the red car parked", "describe en the colors of the sky and the sea",
+    "caption en briefly", "answer en is it raining",
+    "detect cat", "question en what is the man holding in his left hand")
+SERVE_CLI_SHAPES = ((224, 224), (480, 640), (300, 400))
+SERVE_CLI_FLAGS = ("--quantize_int8", "--max_slots", str(SERVE["max_slots"]), "--max_seq_len",
+                   str(SERVE["max_seq_len"]), "--sync_every", str(SERVE["sync_every"]))
+# over the stand-in tokenizer's surfaces (" word" or " w<id>"): "digits"
+# takes any run of ids no word took; "choice" is finite and stops its rows
+# (every proper prefix of its tokens' texts is the text of a word, so no
+# token can leave a row in a state it cannot finish)
+SERVE_CLI_GRAMMARS = {"digits": "( w[0-9]+)+", "choice": "( w5000| w5001 w5002)"}
+# the grammar of the run that preempts constrained rows: its start state
+# allows only " w1..." tokens and every later state only " w2..." ones, so a
+# row seated again in the start state would leave the grammar
+SERVE_CLI_LEAD = ("lead", " w1[0-9]*( w2[0-9]*)+")
+SERVE_CLI_LEAD_BUDGET = 160  # tokens a row: 7 pages of 64 with its ~270-token prompt
+SERVE_CLI_LEAD_POOL = 45  # pages: 7 rows seated, short once they reach their 7th page
+SERVE_CLI_HTTP_TIMEOUT = 300  # seconds, every client call of the HTTP run
+
+
+def _serve_cli_rows(d):
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    for i, prompt in enumerate(SERVE_CLI_PROMPTS):
+        path = os.path.join(d, f"serve_img{i}.npy")
+        np.save(path, rng.integers(0, 256, (*SERVE_CLI_SHAPES[i % 3], 3), dtype=np.uint8))
+        rows.append({"request_id": i, "prompt": prompt, "image": path,
+                     "max_new_tokens": int(rng.integers(16, 49))})
+    return rows
+
+
+def _count_ticks(eng):
+    """Counts the engine's ticks from now on, and those that took the argmax
+    head: ``[ticks, argmax-head ticks]``. A tick that takes the argmax head
+    with a constrained row seated raises."""
+    name = "_tick_paged" if hasattr(eng, "paged") else "_tick"
+    inner, decide, ticks = getattr(eng, name), eng._head_argmax_tick, [0, 0]
+
+    def counted(*a, **kw):
+        ticks[0] += 1
+        return inner(*a, **kw)
+
+    def head_tick(with_sampling):
+        took = decide(with_sampling)
+        if took and any(r is not None and r.grammar is not None for r in eng.slots):
+            raise AssertionError("the argmax head was taken with a constrained row seated")
+        ticks[1] += took
+        return took
+
+    setattr(eng, name, counted)
+    eng._head_argmax_tick = head_tick
+    return ticks
+
+
+def _serve_cli_call(serve, argv, stand, label, hook=None):
+    """``serve.main(argv)`` (batch mode) with its output captured and the
+    launch counts zeroed just before it and read just after; the server it
+    builds is kept, its ticks counted and ``run_batch`` timed (``hook``
+    sees the engine first). Returns the result lines, each request's ids
+    (the rows the CLI decoded), the counts, ticks, the wall of the served
+    run and the server."""
+    import contextlib
+    import io
+
+    from paligemma_tpu_torch import kernels
+
+    made = {}
+    build = serve.build_server
+
+    def capture(args):
+        srv = build(args)
+        made["ticks"] = _count_ticks(srv.engine)
+        if hook is not None:
+            hook(srv.engine)
+        run = srv.run_batch
+
+        def timed(path):
+            sync()
+            t0 = time.perf_counter()
+            run(path)
+            sync()
+            made["wall"] = time.perf_counter() - t0
+
+        srv.run_batch = timed
+        made["srv"] = srv
+        return srv
+
+    out, err = io.StringIO(), io.StringIO()
+    serve.build_server = capture
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            serve.main(argv)
+    except BaseException:  # SystemExit included: show what the CLI said
+        print(f"serve_cli {label}: the CLI failed; its stdout:\n{out.getvalue()}its stderr:\n"
+              f"{err.getvalue()}", flush=True)
+        raise
+    finally:
+        serve.build_server = build
+    sync()
+    counts = kernels.launch_counts()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+    rows = stand.tokenizers[-1].decoded
+    if len(rows) != len(lines) or f"served {len(lines)} requests" not in err.getvalue():
+        raise AssertionError(f"serve_cli {label}: {len(lines)} result lines, {len(rows)} rows "
+                             f"decoded; stderr {err.getvalue()!r}")
+    return dict(lines=lines, tokens={ln["request_id"]: r for ln, r in zip(lines, rows)},
+                counts=counts, ticks=made["ticks"][0], head_ticks=made["ticks"][1],
+                wall=made["wall"], srv=made["srv"])
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+
+def _serve_cli_line(label, lines, wall, counts, eng, ticks, card):
+    n_tok = sum(ln["num_tokens"] for ln in lines)
+    ttft = [ln["ttft_ms"] for ln in lines]
+    print(f"serve_cli: {label}: {len(lines)} requests, {n_tok} tokens, wall {wall:.3f} s, "
+          f"{n_tok / wall:.1f} tok/s aggregate, TTFT p50 {_pct(ttft, 50):.1f} ms p95 "
+          f"{_pct(ttft, 95):.1f} ms, prefill calls {eng.prefill_calls}, cache hits "
+          f"{eng.cache_hits}, {ticks} ticks, launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}  [{card}]", flush=True)
+
+
+def _serve_cli_launches(label, counts, ticks, eng, n_layers, head_ticks=None, lora=False):
+    """The launches of a served run: one flash forward a layer per prefill
+    call; per tick and layer the qkv GEMV with RoPE + KV write and the
+    attention (dense or paged) and three more GEMVs, the final norm once a
+    tick, and the head: the argmax head kernel on every tick, or, for a run
+    with grammars, on the ``head_ticks`` that took it (``_count_ticks``: none
+    with a constrained row seated) and the int8 GEMV head on the others,
+    which must be some; with a bank 4 LoRA shrinks per layer and tick, none
+    without."""
+    paged = hasattr(eng, "paged")
+    attn, other = (("paged_decode_attention", "decode_attention") if paged
+                   else ("decode_attention", "paged_decode_attention"))
+    argmax = ticks if head_ticks is None else head_ticks
+    want = {"flash_attention_fwd": n_layers * eng.prefill_calls, attn: n_layers * ticks,
+            "int8_gemv_rope_kv": n_layers * ticks, other: 0, "rms_norm": ticks,
+            "int8_gemv": 3 * n_layers * ticks + ticks - argmax, "head_argmax": argmax,
+            "lora_shrink": 4 * n_layers * ticks if lora else 0}
+    want.update({k: 0 for k in TP_KERNELS + ABLATION_KERNELS + TRAIN_ONLY})
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or not ticks or argmax == (0 if head_ticks is None else ticks):
+        raise AssertionError(f"serve_cli {label}: launch counts (got, want) off: {bad}, "
+                             f"{ticks} ticks")
+
+
+def _tick_compare(srvs, rows, n_layers, card, rounds=6):
+    """The dense tick of 8 live rows on each server's engine (``srvs``: name
+    -> (server, the grammar its rows take or None)): a window of each is
+    first dispatched under sync debug mode "error"; then windows in turns,
+    one of each per round (unpipelined, the read-back included), and one
+    profiled window of each. Returns {name: (median host ms per tick,
+    device busy ms per tick or None)}."""
+    for srv, grammar in srvs.values():
+        eng = srv.engine
+        for row in rows:
+            eng.submit(srv._to_request(dict(row, max_new_tokens=256,
+                                            **({"grammar": grammar} if grammar else {}))))
+        eng.step()
+        _window_without_sync(eng)
+    times = {name: [] for name in srvs}
+    for _ in range(rounds):
+        for name, (srv, _) in srvs.items():
+            sync()
+            t0 = time.perf_counter()
+            srv.engine.step()
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3 / srv.engine.sync_every)
+    out = {}
+    for name, (srv, grammar) in srvs.items():
+        # a grammar tick's head is an int8 GEMV, which the layer count would
+        # take for a layer's: its launches are gated by _serve_cli_launches
+        got = _profile(f"serve_cli {name} dense window B8, {srv.engine.sync_every} ticks",
+                       srv.engine.step, srv.engine.sync_every, card, unit="tick",
+                       layers=None if grammar else n_layers)
+        out[name] = (float(np.median(times[name])), got[0] if got else None)
+        for r in [r for r in srv.engine.slots if r is not None]:
+            srv.engine.cancel(r.request_id)
+    return out
+
+
+def _serve_cli_http(serve, d, rows, want, n_layers, card):
+    """HTTP mode on 127.0.0.1 and a free port: a /cancel of a request held
+    in the queue (the engine lock is held while it and its /generate are
+    handed over), 8 concurrent /generate calls (batch mode's text), /healthz,
+    one stream (its deltas join to batch mode's text), then the server
+    stops through ``max_requests``. Every client call has a timeout.
+    Returns the launch counts of the 8 calls."""
+    import urllib.request
+
+    from paligemma_tpu_torch import kernels
+
+    args = serve._build_parser().parse_args(["--model_path", d, "--http", "0",
+                                             *SERVE_CLI_FLAGS])
+    srv = serve.build_server(args)
+    port = _free_port()
+    ready = threading.Event()
+    th = threading.Thread(target=srv.serve_http, args=(port,),
+                          kwargs={"ready_event": ready, "max_requests": 9}, daemon=True)
+    th.start()
+    if not ready.wait(SERVE_CLI_HTTP_TIMEOUT):
+        raise AssertionError("serve_cli http: the server did not start")
+    base = f"http://127.0.0.1:{srv.http_port}"
+
+    def post(path, obj, out):
+        req = urllib.request.Request(base + path, data=json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=SERVE_CLI_HTTP_TIMEOUT) as resp:
+            out.append(json.loads(resp.read()))
+
+    def until(cond):
+        deadline = time.monotonic() + SERVE_CLI_HTTP_TIMEOUT
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError("serve_cli http: a call was not handed over")
+            time.sleep(0.005)
+
+    def joined(threads):
+        for t in threads:
+            t.join(SERVE_CLI_HTTP_TIMEOUT)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve_cli http: a client call did not return")
+
+    # a queued request and its cancel, handed over while the engine waits
+    victim, cancel = [], []
+    with srv.lock:
+        a = threading.Thread(target=post, args=("/generate", dict(rows[0], request_id=100),
+                                                victim), daemon=True)
+        a.start()
+        until(lambda: srv.inbox.qsize() == 1)
+        c = threading.Thread(target=post, args=("/cancel", {"request_id": 100}, cancel),
+                             daemon=True)
+        c.start()
+        until(lambda: srv.inbox.qsize() == 2)
+    joined([a, c])
+    if cancel != [{"request_id": 100, "cancelled": True}] or victim != [
+            {"request_id": 100, "cancelled": True, "num_tokens": None}]:
+        raise AssertionError(f"serve_cli http: cancel {cancel}, its /generate {victim}")
+
+    ticks = _count_ticks(srv.engine)
+    kernels.reset_launch_counts()
+    replies = [[] for _ in range(8)]
+    calls = [threading.Thread(target=post, args=("/generate", rows[i], replies[i]), daemon=True)
+             for i in range(8)]
+    t0 = time.perf_counter()
+    for t in calls:
+        t.start()
+    joined(calls)
+    wall = time.perf_counter() - t0
+    sync()
+    counts = kernels.launch_counts()
+    got = [r[0] for r in replies]
+    bad = [i for i, r in enumerate(got) if (r["request_id"], r["text"], r["num_tokens"]) != (
+        i, want[i]["text"], want[i]["num_tokens"])]
+    if bad:
+        raise AssertionError(f"serve_cli http: requests {bad} differ from batch mode")
+    _serve_cli_launches("http", counts, ticks[0], srv.engine, n_layers)
+    with urllib.request.urlopen(base + "/healthz", timeout=SERVE_CLI_HTTP_TIMEOUT) as resp:
+        health = json.loads(resp.read())
+    n_tok = sum(r["num_tokens"] for r in got)
+    if health != {"ok": True, "served": 8, "served_tokens": n_tok, "pending": 0}:
+        raise AssertionError(f"serve_cli http: /healthz {health}")
+    engine_ms = max(r["total_ms"] for r in got)
+    _serve_cli_line("http, 8 concurrent /generate (client wall)", got, wall, counts,
+                    srv.engine, ticks[0], card)
+    print(f"serve_cli: http: client wall {wall * 1e3:.1f} ms for 8 concurrent /generate, the "
+          f"slowest request's engine-side total {engine_ms:.1f} ms: {wall * 1e3 - engine_ms:.1f} "
+          f"ms outside the engine (preprocessing, hand-over, JSON, sockets)  [{card}]",
+          flush=True)
+
+    # one stream: its deltas join to batch mode's text
+    req = urllib.request.Request(base + "/generate",
+                                 data=json.dumps(dict(rows[8], stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=SERVE_CLI_HTTP_TIMEOUT) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[len("data: "):]))
+    text = "".join(e["text_delta"] for e in events[:-1])
+    done = events[-1] if events else {}
+    if not (done.get("done") and done["text"] == text == want[8]["text"]
+            and done["num_tokens"] == len(events) - 1 == want[8]["num_tokens"]):
+        raise AssertionError(f"serve_cli http: the stream's {len(events)} events do not join to "
+                             "batch mode's text")
+    th.join(SERVE_CLI_HTTP_TIMEOUT)
+    if th.is_alive():
+        raise AssertionError("serve_cli http: max_requests did not stop the server")
+    print(f"serve_cli: http: cancel of a queued request answered cancelled; 8 concurrent "
+          f"/generate gave batch mode's texts; /healthz served 8 ({n_tok} tokens); the stream's "
+          f"{len(events) - 1} deltas join to its text; the server stopped after "
+          f"max_requests=9", flush=True)
+    return counts
+
+
+def serve_cli_phase(params, decode, cfg, dev, card, d):
+    """The serving entry point, ``python -m paligemma_tpu_torch.cli.serve``,
+    at full width and depth on the checkpoint the cli phase wrote
+    (``--quantize_int8``, 8 slots, max_seq_len 1024, sync_every 8), with
+    the stand-ins of PIL and transformers, 12 seeded requests:
+
+    1. batch mode, dense and paged: each request's tokens equal a
+       ServingEngine's on the in-memory tree for the same requests (so
+       dense == paged);
+    2. ``--prefix_cache``, paged and dense, the requests twice: the second
+       wave's tokens equal the first's; the hits launch no flash forward
+       and make no prefill call;
+    3. ``--grammar``, dense and paged, constrained greedy and sampled rows
+       beside free ones: constrained texts are accepted by the grammar, the
+       choices grammar stops its rows, free rows keep run 1's tokens, and
+       no tick with a constrained row seated takes the argmax head (the
+       int8 GEMV head instead); then a paged pool that preempts rows of
+       ``SERVE_CLI_LEAD`` after they emitted tokens: every text stays in
+       the grammar;
+    4. HTTP mode (``_serve_cli_http``);
+    5. ``--lora`` with the multilora phase's adapters saved by
+       ``save_pytree``: the tokens of an engine with that bank.
+
+    Returns the launch counts summed over the runs."""
+    import gc
+
+    from paligemma_tpu_torch.checkpoints.local import save_pytree
+    from paligemma_tpu_torch.cli import serve
+    from paligemma_tpu_torch.processing import grammar as gr
+    from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    n_layers = cfg.text_config.num_hidden_layers
+    eos = _WordTokenizer.eos_token_id
+    words = sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()})
+    rows = _serve_cli_rows(d)
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def jsonl(name, rs):
+        path = os.path.join(d, name)
+        with open(path, "w") as fh:
+            fh.write("".join(json.dumps(r) + "\n" for r in rs))
+        return path
+
+    def argv(path, *extra):
+        return ["--model_path", d, "--requests_jsonl", path, *SERVE_CLI_FLAGS, *extra]
+
+    def released(run):
+        run.pop("srv", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    stand = _StandIns(cfg.image_token_index, cfg.vocab_size, words)
+    with stand:
+        tok = _WordTokenizer(cfg.image_token_index, cfg.vocab_size, words)
+        proc = PaliGemmaProcessor(tok, cfg.vision_config.num_image_tokens,
+                                  cfg.vision_config.image_size)
+        to_req = serve._Server(None, proc, tok, 100)._to_request
+
+        def reference(rs, timed=None, **kw):
+            """A ServingEngine's tokens for the requests of ``rs``; with
+            ``timed``, the wall of its run_to_completion and of converting
+            the rows (the CLI's preprocessing) go there."""
+            eng = ServingEngine(params, cfg, decode_params=decode, **SERVE, **kw)
+            t0 = time.perf_counter()
+            reqs = [to_req(r) for r in rs]
+            pre = time.perf_counter() - t0
+            for r in reqs:
+                eng.submit(r)
+            sync()
+            t0 = time.perf_counter()
+            eng.run_to_completion()
+            sync()
+            if timed is not None:
+                timed.update(run=time.perf_counter() - t0, pre=pre)
+            return {r.request_id: list(r.tokens) for r in reqs}
+
+        ref = reference(rows)  # the serving shapes' first calls, off the clock
+        engine_time: dict = {}
+        if reference(rows, engine_time) != ref:
+            raise AssertionError("serve_cli: two ServingEngine runs of the requests differ")
+
+        # 1. batch mode, dense and paged
+        path = jsonl("serve_reqs.jsonl", rows)
+        runs = {}
+        for engine in ("dense", "paged"):
+            run = _serve_cli_call(serve, argv(path, "--engine", engine), stand, engine)
+            add(run["counts"])
+            eng = run["srv"].engine
+            if not (eng.fused_decode and eng.use_flash and eng.pipeline) and dev.type == "cuda":
+                raise AssertionError(f"serve_cli {engine}: the engine is not on the kernel path")
+            _serve_cli_launches(engine, run["counts"], run["ticks"], eng, n_layers)
+            differ = [i for i in ref if run["tokens"].get(i) != ref[i]]
+            if differ:
+                raise AssertionError(f"serve_cli {engine}: requests {differ} differ from the "
+                                     "ServingEngine's tokens")
+            _serve_cli_line(f"batch {engine}", run["lines"], run["wall"], run["counts"], eng,
+                            run["ticks"], card)
+            if engine == "dense":
+                plain_srv = run.pop("srv")  # kept for the tick comparison of run 3
+            runs[engine] = run["lines"]
+            released(run)
+        by_id = {ln["request_id"]: ln for ln in runs["dense"]}
+        n_ref = sum(map(len, ref.values()))
+        print(f"serve_cli: batch dense and paged: 12/12 requests with the ServingEngine's "
+              f"tokens ({n_ref} tokens); {ref[0][:6]} ...; the same requests through "
+              f"ServingEngine.run_to_completion, no CLI: wall {engine_time['run']:.3f} s, "
+              f"{n_ref / engine_time['run']:.1f} tok/s; the CLI's conversion of the 12 rows "
+              f"(image file, processor, tokenizer) {engine_time['pre'] * 1e3:.1f} ms  [{card}]",
+              flush=True)
+
+        # 2. --prefix_cache, paged and dense: the requests, then the same again:
+        # all 12 paged (entries a row holds are not evicted); 8 dense, whose
+        # LRU keeps 8 entries (a cycle of 12 through 8 would never hit)
+        def twice(rs):
+            return rs + [dict(r, request_id=r["request_id"] + N_REQ) for r in rs]
+
+        def spy(eng, hits, prefilled, seat_ms):
+            """Which requests hit and which prefilled, and the card time of
+            seating a hit and of a prefill wave (synchronized around each)."""
+            insert, wave = eng._insert_cached, eng._prefill_wave
+
+            def insert_cached(slot, req):
+                sync()
+                t0 = time.perf_counter()
+                hit = insert(slot, req)
+                sync()
+                if hit:
+                    hits.add(req.request_id)
+                    seat_ms["hit"].append((time.perf_counter() - t0) * 1e3)
+                return hit
+
+            def prefill_wave(need):
+                prefilled.update(req.request_id for _, req in need)
+                sync()
+                t0 = time.perf_counter()
+                out = wave(need)
+                sync()
+                if need:
+                    seat_ms["prefill"].append(((time.perf_counter() - t0) * 1e3, len(need)))
+                return out
+
+            eng._insert_cached, eng._prefill_wave = insert_cached, prefill_wave
+
+        for engine in ("paged", "dense"):
+            hits, prefilled, seat_ms = set(), set(), {"hit": [], "prefill": []}
+            # a pool as large as the dense reservation: entries hold pages too
+            pool = ("--n_pages", str(FULL_POOL)) if engine == "paged" else ()
+            prows = twice(rows if engine == "paged" else rows[:8])
+            run = _serve_cli_call(
+                serve, argv(jsonl("serve_twice.jsonl", prows), "--engine", engine,
+                            "--prefix_cache", *pool), stand, f"prefix_cache {engine}",
+                lambda eng: spy(eng, hits, prefilled, seat_ms))
+            add(run["counts"])
+            eng = run["srv"].engine
+            _serve_cli_launches(f"prefix_cache {engine}", run["counts"], run["ticks"], eng,
+                                n_layers)
+            toks = run["tokens"]
+            differ = [r["request_id"] for r in prows
+                      if toks[r["request_id"]] != ref[r["request_id"] % N_REQ]]
+            if (differ or not hits or hits & prefilled or eng.cache_hits != len(hits)
+                    or len(prefilled) + len(hits) != len(prows)):
+                raise AssertionError(f"serve_cli prefix_cache {engine}: requests {differ} "
+                                     f"differ; hits {sorted(hits)}, prefilled {sorted(prefilled)}")
+            lines = {ln["request_id"]: ln for ln in run["lines"]}
+            ttft = {k: [lines[i]["ttft_ms"] for i in ids] for k, ids in (("hit", hits),
+                                                                           ("miss", prefilled))}
+            waves = seat_ms["prefill"]
+            _serve_cli_line(f"prefix_cache {engine}, {len(prows)} requests "
+                            f"({len(prows) // 2} twice)", run["lines"],
+                            run["wall"], run["counts"], eng, run["ticks"], card)
+            how = ("borrowed pages, one tail-page copy" if engine == "paged"
+                   else "a copy of the stored KV rows")
+            print(f"serve_cli: prefix_cache {engine}: second wave's tokens equal the first's; "
+                  f"{len(hits)} hits (ids {sorted(hits)}) seated with no prefill, "
+                  f"{len(prefilled)} prefilled in {eng.prefill_calls} calls ({n_layers} flash "
+                  f"launches each); TTFT p50 hits {_pct(ttft['hit'], 50):.1f} ms, misses "
+                  f"{_pct(ttft['miss'], 50):.1f} ms (both with their wait in the queue: the hits "
+                  f"are the later requests); seating a hit {_pct(seat_ms['hit'], 50):.3f} ms p50 "
+                  f"({how}) against a prefill wave "
+                  f"{sum(w for w, _ in waves) / max(len(waves), 1):.3f} ms mean for "
+                  f"{sum(n for _, n in waves) / max(len(waves), 1):.1f} rows  [{card}]",
+                  flush=True)
+            released(run)
+
+        # 3. --grammar, dense and paged: constrained greedy and sampled rows
+        # beside free ones
+        kinds = (None, "digits", "digits", "choice")
+        grows = []
+        for i, r in enumerate(rows):
+            g = kinds[i % 4]
+            grows.append(dict(r, **({} if g is None else {"grammar": g}),
+                              **({"do_sample": True} if i % 4 == 2 else {})))
+        gflags = [a for name, pattern in SERVE_CLI_GRAMMARS.items()
+                  for a in ("--grammar", f"{name}={pattern}")]
+        dfas = {n: gr.compile_regex(p) for n, p in (*SERVE_CLI_GRAMMARS.items(), SERVE_CLI_LEAD)}
+
+        def in_grammar(label, r, toks, text):
+            """A constrained row's text is accepted by its grammar, and the
+            choices grammar stops its rows."""
+            g = r["grammar"]
+            if not dfas[g].matches(text):
+                raise AssertionError(f"serve_cli {label}: request {r['request_id']}'s text "
+                                     f"{text!r} is not accepted by {g}")
+            if g == "choice" and not (toks[-1] == eos and len(toks) < r["max_new_tokens"]):
+                raise AssertionError(f"serve_cli {label}: the choices grammar did not stop "
+                                     f"request {r['request_id']}: {toks}")
+
+        grammar_runs = {}
+        for engine in ("dense", "paged"):
+            label = f"grammar {engine}"
+            run = _serve_cli_call(serve, argv(jsonl("serve_grammar.jsonl", grows), "--engine",
+                                              engine, *gflags), stand, label)
+            add(run["counts"])
+            eng = run["srv"].engine
+            _serve_cli_launches(label, run["counts"], run["ticks"], eng, n_layers,
+                                head_ticks=run["head_ticks"])
+            lines = {ln["request_id"]: ln for ln in run["lines"]}
+            for r in grows:
+                i, toks = r["request_id"], run["tokens"][r["request_id"]]
+                if r.get("grammar") is None:
+                    if toks != ref[i]:
+                        raise AssertionError(f"serve_cli {label}: free request {i} changed")
+                else:
+                    in_grammar(label, r, toks, lines[i]["text"])
+            _serve_cli_line(label, run["lines"], run["wall"], run["counts"], eng, run["ticks"],
+                            card)
+            print(f"serve_cli: {label}: " + "; ".join(
+                f"{r['request_id']} {r.get('grammar') or 'free'}"
+                f"{' sampled' if r.get('do_sample') else ''} "
+                f"{lines[r['request_id']]['text'][:40]!r}" for r in grows[:4])
+                + f" ...; free rows keep run 1's tokens; {run['head_ticks']} of {run['ticks']} "
+                f"ticks (no constrained row seated) took the argmax head", flush=True)
+            grammar_runs[engine] = run
+        greedy = [r["request_id"] for r in grows if r.get("grammar") and not r.get("do_sample")]
+        same = sum(grammar_runs["dense"]["tokens"][i] == grammar_runs["paged"]["tokens"][i]
+                   for i in greedy)
+        print(f"serve_cli: grammar: constrained greedy rows with the same tokens dense and paged: "
+              f"{same}/{len(greedy)} (printed, not gated)", flush=True)
+        released(grammar_runs.pop("paged"))
+        run = grammar_runs.pop("dense")
+
+        # 3b. a paged pool that preempts constrained rows: each is seated
+        # again in the DFA state its emitted tokens reach
+        lrows = [dict(r, grammar=SERVE_CLI_LEAD[0], max_new_tokens=SERVE_CLI_LEAD_BUDGET)
+                 for r in rows]
+        resumed = []
+
+        def spy_preempt(eng):
+            preempt = eng._preempt_youngest
+
+            def preempt_youngest(exclude):
+                slot = preempt(exclude)
+                if slot is not None:
+                    req = eng.pending[0]
+                    resumed.append((req.request_id, len(req.input_ids) - req.prefix_len))
+                return slot
+
+            eng._preempt_youngest = preempt_youngest
+
+        pre = _serve_cli_call(serve, argv(jsonl("serve_lead.jsonl", lrows), "--engine", "paged",
+                                          "--n_pages", str(SERVE_CLI_LEAD_POOL), "--grammar",
+                                          "=".join(SERVE_CLI_LEAD)), stand, "grammar preempted",
+                              spy_preempt)
+        add(pre["counts"])
+        eng = pre["srv"].engine
+        _serve_cli_launches("grammar preempted", pre["counts"], pre["ticks"], eng, n_layers,
+                            head_ticks=pre["head_ticks"])
+        if not (eng.preemptions and resumed and all(n > 0 for _, n in resumed)):
+            raise AssertionError(f"serve_cli grammar preempted: {eng.preemptions} preemptions, "
+                                 f"(request, tokens emitted before it) {resumed}")
+        lines = {ln["request_id"]: ln for ln in pre["lines"]}
+        for r in lrows:
+            in_grammar("grammar preempted", r, pre["tokens"][r["request_id"]],
+                       lines[r["request_id"]]["text"])
+        _serve_cli_line(f"grammar paged, {SERVE_CLI_LEAD_POOL}-page pool", pre["lines"],
+                        pre["wall"], pre["counts"], eng, pre["ticks"], card)
+        print(f"serve_cli: grammar preempted: {eng.preemptions} preemptions of constrained rows "
+              f"(request, tokens emitted before it: {resumed}); every row's text stays in "
+              f"{SERVE_CLI_LEAD[1]!r}, whose start state allows no later token", flush=True)
+        released(pre)
+        ticks = _tick_compare({"plain greedy": (plain_srv, None),
+                               "grammar greedy": (run["srv"], "digits")}, rows[:8], n_layers,
+                              card)
+        (host_p, dev_p), (host_g, dev_g) = ticks["plain greedy"], ticks["grammar greedy"]
+        busy = ("not measured" if dev_p is None or dev_g is None else
+                f"plain {dev_p:.3f} ms, grammar {dev_g:.3f} ms: {dev_g - dev_p:+.3f} ms")
+        print(f"serve_cli: dense tick of 8 live rows, windows of {SERVE['sync_every']} in turns "
+              f"(unpipelined, read-back included; median of 6 each): plain greedy {host_p:.3f} "
+              f"ms, grammar greedy {host_g:.3f} ms (the int8 GEMV head, the mask and the DFA "
+              f"step): {host_g - host_p:+.3f} ms; device busy per tick: {busy}  [{card}]",
+              flush=True)
+        del plain_srv
+        released(run)
+
+        # 4. HTTP mode
+        add(_serve_cli_http(serve, d, rows, by_id, n_layers, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. --lora with the multilora phase's adapters
+        adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
+        names = [None, *LORA_NAMES]
+        lflags = []
+        for name, ad in adapters.items():
+            save_pytree(os.path.join(d, f"lora_{name}"), {"lora": ad})
+            lflags += ["--lora", f"{name}={os.path.join(d, f'lora_{name}')}"]
+        lrows = [dict(r, **({"lora": names[i % 4]} if names[i % 4] else {}))
+                 for i, r in enumerate(rows)]
+        want = reference(lrows, lora_bank=adapters)
+        run = _serve_cli_call(serve, argv(jsonl("serve_lora.jsonl", lrows), *lflags), stand,
+                              "lora")
+        add(run["counts"])
+        eng = run["srv"].engine
+        _serve_cli_launches("lora", run["counts"], run["ticks"], eng, n_layers, lora=True)
+        differ = [i for i in want if run["tokens"].get(i) != want[i]]
+        if differ:
+            raise AssertionError(f"serve_cli lora: requests {differ} differ from the engine "
+                                 "with the same bank")
+        moved = sum(want[i] != ref[i] for i in want if names[i % 4])
+        _serve_cli_line("lora dense", run["lines"], run["wall"], run["counts"], eng,
+                        run["ticks"], card)
+        print(f"serve_cli: lora: 12/12 requests with the tokens of a ServingEngine with the "
+              f"same bank; {moved}/9 adapter rows differ from the base model", flush=True)
+        released(run)
+    print(f"serve_cli: launches summed over the runs: {json.dumps(total)}", flush=True)
     return total
 
 
@@ -3772,9 +4440,16 @@ def main() -> int:
 
     params, decode, cfg, tok_gen = main_path(dev, card)
     t0 = time.perf_counter()
-    cli_counts = cli_phase(params, decode, cfg, dev, card)
+    cli_counts, ckpt = cli_phase(params, decode, cfg, dev, card)
     torch.cuda.empty_cache()
     print(f"cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    try:
+        serve_cli_counts = serve_cli_phase(params, decode, cfg, dev, card, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3792,7 +4467,7 @@ def main() -> int:
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
-                                           ablation_counts, cli_counts))
+                                           ablation_counts, cli_counts, serve_cli_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

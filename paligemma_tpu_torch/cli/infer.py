@@ -95,20 +95,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def card_or_cpu(only_cpu: bool, dtype: str) -> torch.device:
+    """The card (``cuda:0``), or the CPU when asked; no card and no
+    ``--only_cpu`` is an error, never a silent run on the CPU."""
+    if only_cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise CliError("no CUDA device found; pass --only_cpu to run on the CPU")
+    require(dtype == "bfloat16",
+            "--dtype float32 runs only with --only_cpu: on the card prefill attention "
+            "runs the flash kernel, which takes bf16")
+    return torch.device("cuda", 0)
+
+
 def _device(args) -> torch.device:
     for flag, why in _NOT_PORTED.items():
         require(not getattr(args, flag), why)
     require(args.data_parallel * args.model_parallel == 1,
             "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
             "the port's mesh runs one process per rank under torchrun)")
-    if args.only_cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise CliError("no CUDA device found; pass --only_cpu to run on the CPU")
-    require(args.dtype == "bfloat16",
-            "--dtype float32 runs only with --only_cpu: on the card prefill attention "
-            "runs the flash kernel, which takes bf16")
-    return torch.device("cuda", 0)
+    return card_or_cpu(args.only_cpu, args.dtype)
 
 
 def _sync(device: torch.device) -> None:

@@ -158,6 +158,18 @@ class PagedKVCache:
         self._borrowed[slot] = len(pages)
         self._table_dev = None
 
+    def lend_prefix(self, slot: int, owner: int, n: int) -> List[int]:
+        """Move ownership of ``slot``'s first ``n`` pages to ``owner`` (a
+        prefix-cache entry) and keep them in the slot's table as borrowed:
+        the slot reads them on, ``owner`` frees them. Returns the pages."""
+        if self._borrowed.get(slot, 0):
+            raise ValueError(f"lend_prefix: slot {slot} already borrows pages")
+        if not n:
+            return []
+        pages = self.alloc.transfer(slot, owner, n)
+        self._borrowed[slot] = n
+        return pages
+
     def release(self, slot: int) -> None:
         """Free the slot's pages and point its table row back at the garbage
         page (borrowed prefix pages stay with their owner)."""

@@ -46,16 +46,41 @@ tick take the bank through the torch projections (models/gemma
 inside the decode chain. Not with a ``mesh``: tensor-parallel LoRA serving
 is not ported and raises ``NotImplementedError``.
 
-Not ported: the data axis, speculative decoding, grammars, the prefix
-cache, W8A8 prefill and ``warmup`` (XLA compiles); the constructor raises
-``NotImplementedError`` for them.
+``grammars`` ({name: processing/grammar.TokenDFA}): constrained decoding.
+A request names its grammar (``Request.grammar``; None = unconstrained) and
+every selection is masked by ``table[gid, dstate] >= 0``, the row's
+grammar id and live DFA state, both on the device (``state["gid"]``,
+``state["dstate"]``); the DFA advances by each consumed token on active
+rows. The table is one ``(G + 1, S_max, vocab)`` int16 tensor on the
+device, row 0 unconstrained (every token allowed, the state stays 0), so a
+mixed batch takes no branch. Stored logits stay unmasked; the pending
+greedy token is chosen under the mask. A window with a constrained row
+seated never takes the argmax head: on the kernel path its ticks run the
+decode chain with the int8 logits head (the sampled tick), then mask and
+take the argmax; greedy windows with no constrained row take the argmax
+head. A preempted constrained row is seated again in the DFA state its
+emitted tokens reach (``_seat_dstates``), not the start state.
+
+``prefix_cache``: exact-match prefix KV reuse. PaliGemma's prefix is
+bidirectional (image + prompt), so KV is reusable only for byte-identical
+``(input_ids, pixel_values)`` (and the same adapter). After a prefill each
+new prompt's KV row pair and last-logits row are kept (LRU, at most
+``prefix_cache_entries``); a later identical request is seated from them
+with no prefill (``cache_hits``), and identical requests admitted in one
+wave share one prefill.
+
+Not ported: the data axis, speculative decoding, W8A8 prefill and ``warmup``
+(XLA compiles); the constructor raises ``NotImplementedError`` for them,
+and for grammars or the prefix cache under a ``mesh`` (ROADMAP item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +106,7 @@ class Request:
     do_sample: bool = False
     eos_token_id: int = 1
     lora: Optional[str] = None  # the engine's lora_bank adapter to decode with (None: base)
-    grammar: Optional[str] = None  # constrained decoding: not ported (must stay None)
+    grammar: Optional[str] = None  # the engine's grammars entry to decode under (None: free)
     # host-side callback with each accepted token id, as the scheduler absorbs it
     on_token: Optional[Any] = None
     # engine-stamped wall-clock marks (time.perf_counter seconds): submit ->
@@ -100,6 +125,9 @@ class Request:
     # engine-managed: bumped on preemption or cancel so that windows
     # dispatched before it are discarded, not counted twice
     epoch: int = 0
+    # engine-managed: the prefix-cache key of the prompt as submitted
+    # (computed once, on first use)
+    cache_key: Optional[bytes] = None
 
     def metrics(self) -> Dict[str, Any]:
         """Latency/throughput summary ({} until finished)."""
@@ -126,7 +154,7 @@ class _Window:
     ready: Optional[torch.cuda.Event] = None  # the host copy landed (CUDA)
 
 
-_NOT_PORTED = ("spec_decode", "grammars", "prefix_cache", "int8_act_prefill")
+_NOT_PORTED = ("spec_decode", "int8_act_prefill")
 
 
 class ServingEngine:
@@ -146,8 +174,9 @@ class ServingEngine:
         spec_decode: bool = False,
         *,
         lora_bank: Optional[Dict[str, Any]] = None,
-        grammars=None,
+        grammars: Optional[Dict[str, Any]] = None,
         prefix_cache: bool = False,
+        prefix_cache_entries: int = 8,
         int8_act_prefill: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
@@ -162,17 +191,22 @@ class ServingEngine:
 
         ``sync_every``: decode ticks per host read-back; EOS detection lags
         by up to that many tokens (the overshoot is discarded).
-        ``lora_bank``: {name: adapter tree} for multi-LoRA serving (module
-        docstring). ``generator``: the draws of sampled requests (default:
-        seed 0 on the device)."""
-        given = dict(spec_decode=spec_decode, grammars=grammars,
-                     prefix_cache=prefix_cache, int8_act_prefill=int8_act_prefill)
+        ``lora_bank``: {name: adapter tree} for multi-LoRA serving;
+        ``grammars``: {name: TokenDFA} for constrained decoding;
+        ``prefix_cache`` / ``prefix_cache_entries``: exact-match prefix KV
+        reuse (module docstring). ``generator``: the draws of sampled
+        requests (default: seed 0 on the device)."""
+        given = dict(spec_decode=spec_decode, int8_act_prefill=int8_act_prefill)
         unported = [k for k in _NOT_PORTED if given[k]]
         if unported:
             raise NotImplementedError(f"ServingEngine: {', '.join(unported)} not ported")
         if lora_bank and mesh is not None:
             raise NotImplementedError("ServingEngine: lora_bank with a mesh (tensor-parallel "
                                       "multi-LoRA serving) is not ported yet")
+        for name, on in (("grammars", grammars), ("prefix_cache", prefix_cache)):
+            if on and mesh is not None:
+                raise NotImplementedError(f"ServingEngine: {name} with a mesh is not ported yet "
+                                          "(ROADMAP item 14)")
         self.config = config
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -196,6 +230,17 @@ class ServingEngine:
             self.lora_bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
                                          for t, p in bank["layers"].items()}}
             self._lora_index.update({n: i + 1 for i, n in enumerate(names)})
+        # constrained decoding: grammar name -> table row (0: unconstrained)
+        self.grammar_table: Optional[torch.Tensor] = None
+        self._grammar_index: Dict[Optional[str], int] = {None: 0}
+        self._grammars = dict(grammars or {})
+        if grammars:
+            self.grammar_table = self._grammar_table(self._grammars, config.vocab_size)
+        # exact-match prefix cache (the paged engine keeps its entries in pages)
+        self.prefix_cache = prefix_cache
+        self.prefix_cache_entries = prefix_cache_entries
+        self.cache_hits = 0  # prefills skipped
+        self._dense_pcache: "OrderedDict[bytes, Dict[str, Any]]" = OrderedDict()
         self.fused_decode = self._setup_fused(on_cuda if fused_decode is None else fused_decode)
         self._lora_fused_pack = None
         if self.lora_bank is not None and self._chain_tick():
@@ -219,6 +264,22 @@ class ServingEngine:
         # prefill prompt-length bucket granularity (the paged engine uses its
         # page size so that buckets stay page-aligned)
         self._bucket_gran = 64
+
+    def _grammar_table(self, grammars: Dict[str, Any], vocab: int) -> torch.Tensor:
+        """The ``(G + 1, S_max, vocab)`` int16 table on the device: row 0
+        unconstrained (all zeros), then each grammar padded with rejecting
+        states."""
+        s_max = max(g.num_states for g in grammars.values())
+        tables = [np.zeros((s_max, vocab), np.int16)]
+        for i, (name, g) in enumerate(grammars.items()):
+            if g.table.shape[1] != vocab:
+                raise ValueError(f"grammar {name!r} compiled for vocab {g.table.shape[1]}, "
+                                 f"model has {vocab}")
+            t = np.full((s_max, vocab), -1, np.int16)
+            t[: g.num_states] = g.table
+            tables.append(t)
+            self._grammar_index[name] = i + 1
+        return torch.from_numpy(np.stack(tables)).to(self.device)
 
     def _shard_decode(self, fused: bool) -> None:
         """Under a mesh: this rank's decode tree, the tensor-parallel kernels'
@@ -288,6 +349,9 @@ class ServingEngine:
             "logits": torch.zeros((n, self.config.vocab_size), dtype=torch.float32, device=dev),
             # per-slot multi-LoRA bank row (0 = the base model)
             "adapter": torch.zeros((n,), dtype=torch.int32, device=dev),
+            # per-slot grammar id (0 = unconstrained) and live DFA state
+            "gid": torch.zeros((n,), dtype=torch.int32, device=dev),
+            "dstate": torch.zeros((n,), dtype=torch.int32, device=dev),
         }
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -315,7 +379,18 @@ class ServingEngine:
                 f"{known or 'no adapters'}; pass lora_bank={{name: adapter_tree}} at "
                 "construction)")
         if req.grammar is not None:
-            raise NotImplementedError(f"request {req.request_id}: grammars are not ported")
+            if req.grammar not in self._grammar_index:
+                known = sorted(k for k in self._grammar_index if k is not None)
+                raise ValueError(
+                    f"request {req.request_id}: unknown grammar {req.grammar!r} (engine has "
+                    f"{known or 'no grammars'}; pass grammars={{name: TokenDFA}} at "
+                    "construction)")
+            g_eos = self._grammars[req.grammar].eos_token_id
+            if req.eos_token_id != g_eos:
+                raise ValueError(
+                    f"request {req.request_id}: grammar {req.grammar!r} was compiled with "
+                    f"eos_token_id {g_eos} but the request stops on {req.eos_token_id}: a "
+                    "completed match could never retire the row")
         # prompt + generated never writes past max_seq_len
         req.max_new_tokens = min(req.max_new_tokens, self.max_seq_len - len(req.input_ids))
         req.t_submit = time.perf_counter()
@@ -369,9 +444,112 @@ class ServingEngine:
                                                          np.int32))
         st["pos_ids"][slots] = mask.sum(dim=-1).to(torch.int32) + 1
         st["logits"][slots] = last_logits
-        st["next_tok"][slots] = last_logits.argmax(dim=-1).to(torch.int32)
+        reqs = [req for _, req in seated]
+        st["next_tok"][slots] = self._first_tokens(slots, reqs, last_logits)
         if self.lora_bank is not None:
-            st["adapter"][slots] = self._adapter_ids([req for _, req in seated])
+            st["adapter"][slots] = self._adapter_ids(reqs)
+        if self.prefix_cache:
+            for r, (_, req) in enumerate(seated):
+                self._register_dense(req, {n: cache1[n][:, r:r + 1] for n in ("k", "v")},
+                                     last_logits[r])
+
+    def _first_tokens(self, slots, reqs: List[Request], logits: torch.Tensor) -> torch.Tensor:
+        """The pending token of freshly seated rows (``logits``: (n, vocab)):
+        the argmax, under the seating DFA state (``_seat_dstates``) for
+        constrained rows, whose grammar id and DFA state are set here. Stored
+        logits stay unmasked."""
+        if self.grammar_table is None:
+            return logits.argmax(dim=-1).to(torch.int32)
+        gids = self._upload(np.asarray([self._grammar_index[r.grammar] for r in reqs], np.int32))
+        dstates = self._upload(self._seat_dstates(reqs))
+        st = self.state
+        st["gid"][slots] = gids
+        st["dstate"][slots] = dstates
+        return self._masked_argmax(logits, gids, dstates)
+
+    def _seat_dstates(self, reqs: List[Request]) -> np.ndarray:
+        """Each row's DFA state at seating: the start state, or, for a
+        recompute request (a preempted row seated again), the state its
+        grammar reaches over the tokens it already emitted (its ids past the
+        prefix), walked on the host table."""
+        out = np.zeros((len(reqs),), np.int32)
+        for i, r in enumerate(reqs):
+            if r.grammar is None or r.prefix_len is None:
+                continue
+            table, s = self._grammars[r.grammar].table, 0
+            for t in r.input_ids[r.prefix_len:]:
+                s = int(table[s, t])
+                if s < 0:
+                    raise RuntimeError(f"request {r.request_id}: its emitted tokens leave "
+                                       f"grammar {r.grammar!r}")
+            out[i] = s
+        return out
+
+    def _masked_argmax(self, logits, gids, dstates) -> torch.Tensor:
+        """Argmax over the tokens each row's grammar allows in its state."""
+        allowed = self.grammar_table[gids, dstates] >= 0
+        return torch.where(allowed, logits, -torch.inf).argmax(dim=-1).to(torch.int32)
+
+    def _register_dense(self, req: Request, kv: Dict[str, torch.Tensor], logits) -> None:
+        """Keep a freshly prefilled prompt's KV rows ((L, 1, bucket, ...))
+        and last-logits row as a prefix-cache entry (LRU at capacity)."""
+        key = self._pcache_key(req)
+        if key is None or key in self._dense_pcache:
+            return
+        self._dense_pcache[key] = dict(k=kv["k"].clone(), v=kv["v"].clone(),
+                                       logits=logits.clone(), prompt_len=len(req.input_ids))
+        while len(self._dense_pcache) > self.prefix_cache_entries:
+            self._dense_pcache.popitem(last=False)
+
+    def _pcache_key(self, req: Request) -> Optional[bytes]:
+        """Exact-match prefix-cache key, or None when uncacheable: the bytes
+        of the ids and pixels (the bidirectional prefix rules out partial
+        reuse) and the adapter name (the prefix KV is computed through the
+        adapter). Recompute requests (a preempted prompt + its regenerated
+        tokens) are not cacheable."""
+        if not self.prefix_cache or req.prefix_len is not None:
+            return None
+        if req.cache_key is None:
+            h = hashlib.sha1()
+            h.update(np.asarray(req.input_ids, np.int32).tobytes())
+            h.update(np.ascontiguousarray(np.asarray(req.pixel_values, np.float32)).tobytes())
+            if req.lora is not None:
+                h.update(req.lora.encode())
+            req.cache_key = h.digest()
+        return req.cache_key
+
+    def _insert_cached(self, slot: int, req: Request) -> bool:
+        """Seat ``req`` in ``slot`` from its prefix-cache entry, with no
+        prefill: copy the entry's KV rows into the slot and rebuild its
+        state from the stored logits (hook: the paged engine borrows
+        pages). False on a miss."""
+        key = self._pcache_key(req)
+        entry = self._dense_pcache.get(key) if key is not None else None
+        if entry is None:
+            return False
+        n = entry["k"].shape[2]
+        for name in ("k", "v"):
+            self.cache[name][:, slot:slot + 1, :n] = entry[name]
+        self._seat_state(slot, req, entry["prompt_len"], entry["logits"])
+        st = self.state
+        st["valid"][slot] = False
+        st["valid"][slot, :entry["prompt_len"]] = True
+        self._dense_pcache.move_to_end(key)
+        self.cache_hits += 1
+        return True
+
+    def _seat_state(self, slot: int, req: Request, prompt_len: int, logits) -> None:
+        """One seated row's state from its prompt's last-logits row
+        ((vocab,), a prefill's or a cache entry's): the prompt is dense in
+        [0, prompt_len)."""
+        st = self.state
+        st["write_pos"][slot] = prompt_len
+        st["pos_ids"][slot] = prompt_len + 1
+        st["logits"][slot] = logits
+        st["next_tok"][slot:slot + 1] = self._first_tokens(slice(slot, slot + 1), [req],
+                                                           logits[None])
+        if self.lora_bank is not None:
+            st["adapter"][slot:slot + 1] = self._adapter_ids([req])
 
     def _release_slot(self, slot: int) -> None:
         """Called when a request retires (hook: the paged engine frees pages)."""
@@ -392,8 +570,32 @@ class ServingEngine:
         if not free or not self.pending:
             return
         take = self._admit(free)
-        if take:
-            self._prefill_wave([(self._take_slot(free, req), req) for req in take])
+        assigned = [(self._take_slot(free, req), req) for req in take]
+        while assigned:
+            # cache hits seat at once; a duplicate of a request about to
+            # prefill in this wave (the same key) waits one pass and seats
+            # from the entry its leader registers
+            need_prefill, deferred, leaders = [], [], set()
+            for slot, req in assigned:
+                if self._insert_cached(slot, req):
+                    self._seated(slot, req)
+                    continue
+                key = self._pcache_key(req)
+                if key is not None and key in leaders:
+                    deferred.append((slot, req))
+                    continue
+                if key is not None:
+                    leaders.add(key)
+                need_prefill.append((slot, req))
+            self._prefill_wave(need_prefill)
+            # a follower whose leader registered nothing prefills next pass
+            assigned = deferred
+
+    def _seated(self, slot: int, req: Request) -> None:
+        self.slots[slot] = req
+        req.t_seated = time.perf_counter()
+        self._generated[req.request_id] = 0
+        self._dispatched[req.request_id] = 0
 
     def _prefill_wave(self, need_prefill: list) -> None:
         """Group by prompt-length bucket, then split each group into exact
@@ -435,10 +637,7 @@ class ServingEngine:
             self.prefill_calls += 1
             self._insert_chunk(seated, cache1, mask, logits[:, 0])
             for slot, req in seated:
-                self.slots[slot] = req
-                req.t_seated = time.perf_counter()
-                self._generated[req.request_id] = 0
-                self._dispatched[req.request_id] = 0
+                self._seated(slot, req)
 
     @property
     def has_work(self) -> bool:
@@ -451,11 +650,26 @@ class ServingEngine:
     def _select(self, temps, top_ps, do_samples, with_sampling: bool) -> torch.Tensor:
         """The token each row consumes this tick: the carried greedy token,
         or a top-p draw from the row's stored logits for sampled rows."""
-        greedy_tok = self.state["next_tok"]
+        st = self.state
+        greedy_tok = st["next_tok"]
         if not with_sampling:
             return greedy_tok
-        sampled = sampling.sample_top_p(self.generator, self.state["logits"], temps, top_ps)
+        logits = st["logits"]
+        if self.grammar_table is not None:
+            # sampled rows draw under their live DFA state's mask
+            allowed = self.grammar_table[st["gid"], st["dstate"]] >= 0
+            logits = torch.where(allowed, logits, -torch.inf)
+        sampled = sampling.sample_top_p(self.generator, logits, temps, top_ps)
         return torch.where(do_samples, sampled, greedy_tok)
+
+    def _advance_dfa(self, active, token) -> None:
+        """Each active row's DFA steps by the token it consumes; inactive
+        rows hold their state."""
+        if self.grammar_table is None:
+            return
+        st = self.state
+        nxt = self.grammar_table[st["gid"], st["dstate"], token.long()].to(torch.int32)
+        st["dstate"] = torch.where(active, nxt, st["dstate"])
 
     def _advance(self, active, next_tok, new_logits=None) -> None:
         """Per-row state after a tick: active rows step their positions and
@@ -472,17 +686,21 @@ class ServingEngine:
         st["pos_ids"] = st["pos_ids"] + inc
         if new_logits is not None:
             st["logits"] = torch.where(active[:, None], new_logits, st["logits"])
-            next_tok = new_logits.argmax(dim=-1).to(torch.int32)
+            if self.grammar_table is None:
+                next_tok = new_logits.argmax(dim=-1).to(torch.int32)
+            else:  # chosen under the state the DFA just stepped to
+                next_tok = self._masked_argmax(new_logits, st["gid"], st["dstate"])
         st["next_tok"] = torch.where(active, next_tok, st["next_tok"])
 
     def _tick(self, active, temps, top_ps, do_samples, with_sampling, kv_bucket):
         """One lockstep decode step; returns the (max_slots,) token consumed."""
         token = self._select(temps, top_ps, do_samples, with_sampling)
+        self._advance_dfa(active, token)
         st = self.state
         st["valid"][self._rows, st["write_pos"].long()] = active
         kw = dict(cache_pos=st["write_pos"], kv_valid=st["valid"],
                   position_ids=st["pos_ids"], kv_bucket=kv_bucket, **self._tick_lora())
-        if not with_sampling and self.fused_decode:
+        if self._head_argmax_tick(with_sampling):
             # greedy tick: the argmax head kernel returns the ids; the
             # (slots, vocab) logits row is never written (stored logits go
             # stale, and greedy selection never reads them)
@@ -495,6 +713,13 @@ class ServingEngine:
                 fused_layer=self.fused_decode, mesh=self.mesh, **kw)
             self._advance(active, None, new_logits)
         return token
+
+    def _head_argmax_tick(self, with_sampling: bool) -> bool:
+        """Whether a tick takes the argmax head kernel: greedy windows on the
+        kernel path with no constrained row seated (a grammar needs the
+        logits to mask; the host knows each seated row's grammar)."""
+        return (not with_sampling and self.fused_decode
+                and not any(r is not None and r.grammar is not None for r in self.slots))
 
     def _tick_lora(self) -> Dict[str, Any]:
         """The bank and each slot's bank row for a tick ({} without a bank)."""
@@ -615,26 +840,31 @@ class ServingEngine:
         window = self._dispatch()
         return self._absorb(window) if window is not None else []
 
+    def advance(self, inflight: Optional[_Window] = None, pipeline: Optional[bool] = None
+                ) -> Tuple[List[Request], Optional[_Window]]:
+        """One scheduler round of a caller's loop: returns the requests it
+        finished and the window left in flight, to pass to the next call
+        (run ``while engine.has_work or inflight is not None``). With
+        ``pipeline`` (default: the engine's), window N+1 is enqueued before
+        window N is read back; each request's tokens are the same, only
+        retirement and admission shift by one window. Without it no window
+        is left in flight."""
+        if not (self.pipeline if pipeline is None else pipeline):
+            return (self.step() if self.has_work else []), None
+        window = self._dispatch() if self.has_work else None
+        if inflight is not None:
+            return self._absorb(inflight), window
+        if window is None and self.has_work:
+            # nothing dispatchable and nothing in flight (the head of the
+            # queue cannot be admitted yet): one stepwise round
+            return self.step(), None
+        return [], window
+
     def run_to_completion(self, pipeline: Optional[bool] = None) -> List[Request]:
-        """Drain the queue. With ``pipeline`` (default: the engine's),
-        window N+1 is enqueued before window N is read back; each request's
-        tokens are the same, only retirement and admission shift by one
-        window."""
-        if pipeline is None:
-            pipeline = self.pipeline
+        """Drain the queue (``advance`` until nothing is left)."""
         done: List[Request] = []
-        if not pipeline:
-            while self.has_work:
-                done.extend(self.step())
-            return done
         inflight: Optional[_Window] = None
         while self.has_work or inflight is not None:
-            window = self._dispatch() if self.has_work else None
-            if inflight is not None:
-                done.extend(self._absorb(inflight))
-            elif window is None and self.has_work:
-                # nothing dispatchable and nothing in flight (the head of the
-                # queue cannot be admitted yet): one stepwise round
-                done.extend(self.step())
-            inflight = window
+            finished, inflight = self.advance(inflight, pipeline)
+            done.extend(finished)
         return done

@@ -32,12 +32,29 @@ windows alike; ``fused_decode=False`` runs the plain sharded page walk.
 chain; the page walks take the bank through the torch projections. A
 preempted request keeps its adapter when it is seated again.
 
-Not ported: the data axis (the JAX engine's DP pool), speculative decoding,
-grammars, the prefix cache and W8A8 prefill.
+``grammars``: constrained decoding as in the dense engine; a window with a
+constrained row seated never takes the argmax head ("fused" runs the chain
+with the int8 logits head, then masks), and a preempted constrained row
+resumes in the DFA state its emitted tokens reach.
+
+``prefix_cache``: exact-match prefix reuse (the dense engine's keys) by
+page sharing. When a prompt prefills, its full prefix pages move to a
+refcounted cache entry (no copy) and its partial tail page is copied once;
+a later identical request is seated with no prefill: it borrows the
+entry's read-only pages (``PagedKVCache.set_borrowed``; decode never
+writes them: its positions start past the prompt) and takes a private copy
+of the tail page. Entries no row holds are evicted LRU-first at
+``prefix_cache_entries`` and, under pool pressure, before admission fails
+or a live request is preempted.
+
+Not ported: the data axis (the JAX engine's DP pool, whose prefix-cache
+entries are shard-local: ROADMAP item 14), speculative decoding and W8A8
+prefill.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -72,24 +89,24 @@ class PagedServingEngine(ServingEngine):
         mesh=None,
         paged_kernel: str = "fused",
         prefix_cache: bool = False,
-        *,
+        prefix_cache_entries: int = 8,
         spec_decode: bool = False,
+        *,
         pipeline: Optional[bool] = None,
         lora_bank: Optional[Dict[str, Any]] = None,
-        grammars=None,
+        grammars: Optional[Dict[str, Any]] = None,
         int8_act_prefill: bool = False,
         fused_decode: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
     ):
         """The JAX engine's parameters in its order, up to its
-        ``prefix_cache_entries`` (the prefix cache is not ported); the rest
-        are keyword-only. ``n_pages``: physical pool size, page 0 being the
+        ``spec_decode`` (speculative decoding is not ported); the rest are
+        keyword-only. ``n_pages``: physical pool size, page 0 being the
         garbage page (default: half the dense engine's reservation).
         ``max_seq_len`` bounds one request's length (the page table's width)
-        and reserves nothing. ``mesh``: tensor parallel (module docstring).
-        ``lora_bank``: multi-LoRA serving (module docstring).
-        ``spec_decode``, ``grammars``, ``prefix_cache`` and
-        ``int8_act_prefill`` are not ported and raise when set."""
+        and reserves nothing. ``mesh``: tensor parallel; ``lora_bank``,
+        ``grammars``, ``prefix_cache``: module docstring. ``spec_decode``
+        and ``int8_act_prefill`` are not ported and raise when set."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")
@@ -102,12 +119,18 @@ class PagedServingEngine(ServingEngine):
         self.paged_kernel = paged_kernel
         self._admission_order: List[int] = []  # slot ids, oldest first
         self.preemptions = 0  # recompute evictions so far
+        # prefix cache: key -> entry (owner id, full pages, tail page,
+        # prompt length, logits row, refs); slot -> the key it borrows
+        self._pcache: "OrderedDict[bytes, Dict[str, Any]]" = OrderedDict()
+        self._slot_borrow: Dict[int, bytes] = {}
+        self._next_entry_owner = -2  # entries own pages under negative ids
         super().__init__(
             params, config, max_slots=max_slots, max_seq_len=max_seq_len,
             cache_dtype=cache_dtype, use_flash=use_flash, decode_params=decode_params,
             sync_every=sync_every, mesh=mesh, fused_decode=fused_decode, pipeline=pipeline,
             spec_decode=spec_decode, lora_bank=lora_bank, grammars=grammars,
-            prefix_cache=prefix_cache, int8_act_prefill=int8_act_prefill, generator=generator,
+            prefix_cache=prefix_cache, prefix_cache_entries=prefix_cache_entries,
+            int8_act_prefill=int8_act_prefill, generator=generator,
         )
         # page-aligned prefill buckets: a short prompt takes exactly its pages
         self._bucket_gran = max(page_size, 16)
@@ -181,6 +204,9 @@ class PagedServingEngine(ServingEngine):
             if len(take) == len(free_slots):
                 break
             need = self.paged.pages_for(self._bucket_of(req)) + 1
+            if budget < need and self._pcache and self._evict_pcache():
+                budget = self.paged.free_pages() - sum(
+                    self.paged.pages_for(self._bucket_of(r)) + 1 for r in take)
             if budget < need:
                 break
             budget -= need
@@ -206,17 +232,89 @@ class PagedServingEngine(ServingEngine):
             rows = cache1[n][:, row].reshape(cache1[n].shape[0], n_chunks, self.page_size,
                                              *cache1[n].shape[3:])
             self.cache[n][:, pages] = rows.to(self.cache_dtype)
-        st = self.state
-        prompt_len = len(req.input_ids)
-        st["write_pos"][slot] = prompt_len
-        st["pos_ids"][slot] = prompt_len + 1
-        st["logits"][slot] = last_logits[row]
-        st["next_tok"][slot] = last_logits[row].argmax().to(torch.int32)
-        if self.lora_bank is not None:
-            st["adapter"][slot] = self._adapter_ids([req])[0]
+        self._seat_state(slot, req, len(req.input_ids), last_logits[row])
         self._admission_order.append(slot)
+        key = self._pcache_key(req)
+        if key is not None and key not in self._pcache:
+            self._register_prefix(slot, req, key, last_logits[row])
+
+    # -- prefix cache (exact match; module docstring) --------------------
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Duplicate one physical page (all layers, K and V)."""
+        for n in ("k", "v"):
+            self.cache[n][:, dst] = self.cache[n][:, src]
+
+    def _insert_cached(self, slot: int, req: Request) -> bool:
+        """Seat a hit with no prefill: borrow the entry's full pages, copy
+        its tail page into a page of the slot's own (decode writes there),
+        resume from the stored logits. False on a miss, or when the pool
+        has no page for the tail (the request then prefills)."""
+        key = self._pcache_key(req)
+        entry = self._pcache.get(key) if key is not None else None
+        if entry is None:
+            return False
+        self.paged.set_borrowed(slot, entry["full_pages"])
+        if entry["tail_page"] is not None:
+            if not self.paged.grow_to(slot, entry["prompt_len"]):
+                self.paged.release(slot)  # clears the borrowed row
+                return False
+            self._copy_page(entry["tail_page"], self.paged.slot_pages(slot)[0])
+        self._seat_state(slot, req, entry["prompt_len"], entry["logits"])
+        entry["refs"] += 1
+        self._pcache.move_to_end(key)
+        self._slot_borrow[slot] = key
+        self._admission_order.append(slot)
+        self.cache_hits += 1
+        return True
+
+    def _register_prefix(self, slot: int, req: Request, key: bytes, logits) -> None:
+        """Adopt a freshly prefilled slot's prefix: its full pages move to a
+        new entry (no copy) and the slot borrows them back; its partial tail
+        page is copied into a page of the entry's (the slot keeps writing
+        its own). Best effort: skipped when no page is free for the tail."""
+        ps = self.page_size
+        prompt_len = len(req.input_ids)
+        n_full = prompt_len // ps
+        alloc = self.paged.alloc
+        owner = self._next_entry_owner
+        tail_page = None
+        if prompt_len % ps:
+            got = alloc.alloc(owner, 1)
+            if got is None:
+                return
+            tail_page = got[0]
+            self._copy_page(alloc.pages_of(slot)[n_full], tail_page)
+        self._next_entry_owner -= 1
+        full_pages = self.paged.lend_prefix(slot, owner, n_full)
+        self._pcache[key] = dict(owner=owner, full_pages=full_pages, tail_page=tail_page,
+                                 prompt_len=prompt_len, logits=logits.clone(), refs=1)
+        self._slot_borrow[slot] = key
+        # capacity: drop the least recently used entries no row holds
+        while len(self._pcache) > self.prefix_cache_entries:
+            victim = next((k for k, e in self._pcache.items() if e["refs"] <= 0), None)
+            if victim is None:
+                break
+            self._free_entry(victim)
+
+    def _free_entry(self, key: bytes) -> None:
+        self.paged.alloc.free(self._pcache.pop(key)["owner"])
+
+    def _evict_pcache(self) -> int:
+        """Free every entry no row holds (LRU first); returns the pages
+        recovered. Called under pool pressure before live work waits or is
+        preempted."""
+        freed = 0
+        for k in list(self._pcache):
+            e = self._pcache[k]
+            if e["refs"] <= 0:
+                freed += len(e["full_pages"]) + (e["tail_page"] is not None)
+                self._free_entry(k)
+        return freed
 
     def _release_slot(self, slot: int) -> None:
+        key = self._slot_borrow.pop(slot, None)
+        if key is not None and key in self._pcache:
+            self._pcache[key]["refs"] -= 1
         self.paged.release(slot)
         if slot in self._admission_order:
             self._admission_order.remove(slot)
@@ -232,6 +330,9 @@ class PagedServingEngine(ServingEngine):
                 continue
             need = len(req.input_ids) + self._dispatched[req.request_id] + ticks
             while not self.paged.grow_to(slot, min(need, self.max_seq_len)):
+                # cheapest relief first: entries no row holds
+                if self._pcache and self._evict_pcache():
+                    continue
                 if self._preempt_youngest(exclude=slot) is None:
                     raise RuntimeError(
                         f"page pool too small for a single request of {need} tokens "
@@ -288,7 +389,7 @@ class PagedServingEngine(ServingEngine):
         st = self.state
         kw = dict(write_pos=st["write_pos"], position_ids=st["pos_ids"],
                   pages_bucket=pages_bucket, **self._tick_lora())
-        if not with_sampling and kernel == "fused":
+        if kernel == "fused" and self._head_argmax_tick(with_sampling):
             # greedy fast path: the argmax head kernel returns the ids and
             # the stored logits go stale (greedy selection never reads them)
             token = st["next_tok"]
@@ -297,6 +398,7 @@ class PagedServingEngine(ServingEngine):
             self._advance(active, next_tok)
             return token
         token = self._select(temps, top_ps, do_samples, with_sampling)
+        self._advance_dfa(active, token)
         new_logits, _ = paligemma.decode_step_paged(
             self.decode_params, self.config, token, self.cache, table, paged_kernel=kernel,
             mesh=self.mesh, **kw)

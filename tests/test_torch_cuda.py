@@ -991,3 +991,114 @@ def test_preprocess_device_on_card_matches_cpu():
         assert got.device.type == "cuda" and got.shape == (2, 3, 224, 224)
         want = preprocess_device(raw, 224, device="cpu")
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def _serving_model(dev):
+    """A tiny MQA model the decode kernels take (head_dim 128, one KV head),
+    bf16 weights and its int8 decode tree on the card."""
+    from paligemma_tpu_torch.convert import init_params
+    from paligemma_tpu_torch.core.config import GemmaConfig, PaliGemmaConfig, SiglipVisionConfig
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+
+    cfg = PaliGemmaConfig(
+        vision_config=SiglipVisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                                         intermediate_size=64, num_hidden_layers=2,
+                                         num_attention_heads=4),
+        text_config=GemmaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=1, head_dim=128),
+        projection_dim=256, hidden_size=256, image_token_index=510, vocab_size=512)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    return cfg, params, quantize_lm_for_serving(params)
+
+
+def _serving_requests(cfg, n, grammar=None, same=False):
+    import numpy as np
+
+    from paligemma_tpu_torch.runtime.serving import Request
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(0 if same else i)
+        ids = np.concatenate([np.full((cfg.vision_config.num_patches,), cfg.image_token_index),
+                              rng.integers(3, 100, (6 + (0 if same else i),))]).astype(np.int32)
+        out.append(Request(request_id=i, input_ids=ids, max_new_tokens=12, eos_token_id=1,
+                           pixel_values=rng.normal(size=(3, 28, 28)).astype(np.float32),
+                           grammar=grammar if i % 2 == 0 else None))
+    return out
+
+
+def _served(eng, reqs):
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    return {r.request_id: list(r.tokens) for r in reqs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "paged"])
+def test_grammar_kernel_tick_equals_plain_grammar_tick_on_card(engine):
+    """A grammar engine on the kernel path (the decode chain with the int8
+    logits head, then the mask and the argmax; no argmax head while a
+    constrained row is seated) gives the plain grammar tick's tokens;
+    constrained rows stay in the grammar."""
+    import numpy as np
+
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.processing import grammar as t_grammar
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    dev = _card()
+    cfg, params, dq = _serving_model(dev)
+    strs = [""] * cfg.vocab_size
+    for t in range(100, 140):
+        strs[t] = chr(ord("a") + t % 26)
+    dfa = t_grammar.compile_regex("[a-m]+(x|y)?")
+    gs = {"g": t_grammar.compile_token_dfa(dfa, strs, 1)}
+    cls = PagedServingEngine if engine == "paged" else ServingEngine
+    kw = dict(max_slots=4, max_seq_len=128, decode_params=dq, grammars=gs, sync_every=4)
+    if engine == "paged":
+        kw["page_size"] = 16
+    kern = cls(params, cfg, **kw)
+    plain = cls(params, cfg, fused_decode=False, **kw)
+    assert kern.fused_decode
+    decide, took = kern._head_argmax_tick, []
+
+    def head_tick(with_sampling):
+        t = decide(with_sampling)
+        assert not (t and any(r is not None and r.grammar for r in kern.slots))
+        took.append(t)
+        return t
+
+    kern._head_argmax_tick = head_tick
+    n0 = kernels.launch_counts()
+    got = _served(kern, _serving_requests(cfg, 6, "g"))
+    n1 = kernels.launch_counts()
+    assert n1["head_argmax"] - n0["head_argmax"] == sum(took) and not all(took)
+    assert n1["int8_gemv"] > n0["int8_gemv"]
+    assert got == _served(plain, _serving_requests(cfg, 6, "g"))
+    for rid in range(0, 6, 2):
+        text = "".join(strs[t] for t in got[rid] if t != 1)
+        assert dfa.is_live_prefix(text) and len(text) > 0, (rid, got[rid])
+        assert got[rid][-1] != 1 or dfa.matches(text)
+    assert all(np.all(np.asarray(got[r]) >= 0) for r in got)
+
+
+@pytest.mark.cuda
+def test_paged_prefix_cache_hit_on_card():
+    """A paged kernel engine with the prefix cache: two hits of one prompt
+    give the miss's tokens, with one prefill (one flash launch a layer)."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    dev = _card()
+    cfg, params, dq = _serving_model(dev)
+    eng = PagedServingEngine(params, cfg, max_slots=1, max_seq_len=128, page_size=16,
+                             decode_params=dq, prefix_cache=True, sync_every=4)
+    n0 = kernels.launch_counts()["flash_attention_fwd"]
+    got = _served(eng, _serving_requests(cfg, 3, same=True))
+    assert eng.cache_hits == 2 and eng.prefill_calls == 1
+    fl = kernels.launch_counts()["flash_attention_fwd"] - n0
+    assert fl == cfg.text_config.num_hidden_layers, fl
+    assert got[1] == got[0] and got[2] == got[0] and len(got[0]) == 12

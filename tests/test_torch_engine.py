@@ -188,8 +188,9 @@ def test_port_runs_without_jax():
     ablation, processing, checkpoint and CLI modules included), runs a tiny
     CPU generate, a tiny paged serving run, one with a multi-LoRA bank, a
     training step, the tower with attn="fused", the ablation entry points,
-    the device preprocessing and an HF export -> load round trip, and
-    never imports jax or any module of the JAX package."""
+    the device preprocessing, an HF export -> load round trip and a batch
+    run of cli.serve on the export, and never imports jax or any module of
+    the JAX package."""
     code = textwrap.dedent("""
         import dataclasses
         import sys
@@ -197,7 +198,9 @@ def test_port_runs_without_jax():
         import numpy as np
         import torch
         import paligemma_tpu_torch
-        from paligemma_tpu_torch.cli import infer
+        import json
+        from chip_smoke import _StandIns
+        from paligemma_tpu_torch.cli import infer, serve
         from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
         from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
         from paligemma_tpu_torch.processing.images import preprocess_device
@@ -265,6 +268,21 @@ def test_port_runs_without_jax():
         with tempfile.TemporaryDirectory() as d:
             export_hf_checkpoint(cfg, params, d)
             again, cfg2 = load_hf_model(d, torch.float32, device="cpu")
+            # a batch run of the serving CLI, with chip_smoke's stand-ins
+            # for PIL.Image.open and transformers.AutoTokenizer (whose ids
+            # pass 1156: the processor adds 1153 tokens)
+            scfg = paligemma_tpu_torch.tiny_test_config(2048)
+            export_hf_checkpoint(scfg, init_params(scfg, torch.Generator().manual_seed(2),
+                                                   "cpu", torch.float32), d)
+            np.save(d + "/img.npy", np.zeros((40, 30, 3), np.uint8))
+            with open(d + "/reqs.jsonl", "w") as fh:
+                for p in ("caption en", "caption en", "describe"):
+                    fh.write(json.dumps({"prompt": p, "image": d + "/img.npy",
+                                         "max_new_tokens": 3}) + "\\n")
+            with _StandIns(scfg.image_token_index):
+                serve.main(["--model_path", d, "--requests_jsonl", d + "/reqs.jsonl",
+                            "--only_cpu", "--dtype", "float32", "--max_slots", "2",
+                            "--max_seq_len", "64", "--quantize_int8", "--prefix_cache"])
         assert cfg2 == cfg and torch.equal(again["lm"]["embed"], params["lm"]["embed"])
         assert "jax" not in sys.modules
         foreign = [m for m in sys.modules if m.split(".")[0] == "paligemma_tpu"]
@@ -276,3 +294,4 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+    assert res.stdout.count('"request_id"') == 3, res.stdout  # the serving CLI's lines

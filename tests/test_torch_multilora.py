@@ -640,7 +640,11 @@ C5_FUNCTIONS = (
     "checkpoints.hf_loader.load_hf_model", "checkpoints.hf_export.state_dict_from_params",
     "checkpoints.hf_export.export_hf_checkpoint", "processing.images.process_images_host",
     "processing.images.preprocess_device", "processing.native.preprocess_images_native",
-    "processing.processor.PaliGemmaProcessor.__init__", *OPERANDS_DIFFER,
+    "processing.processor.PaliGemmaProcessor.__init__", "processing.grammar.compile_regex",
+    "processing.grammar.compile_choices", "processing.grammar.compile_token_dfa",
+    "processing.grammar.token_strings_from_tokenizer", "cli.serve.main",
+    "cli.serve.build_server", "cli.serve._Server.__init__", "cli.serve._Server.run_batch",
+    "cli.serve._Server.serve_http", *OPERANDS_DIFFER,
 )
 
 

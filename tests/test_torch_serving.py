@@ -263,7 +263,7 @@ def test_kernel_path_raises_on_unsupported_tree():
         t_paged.PagedServingEngine(tp, cfg, max_slots=2, max_seq_len=32, page_size=16,
                                    fused_decode=True)
     with pytest.raises(NotImplementedError):
-        t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, prefix_cache=True)
+        t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, spec_decode=True)
     eng = t_serving.ServingEngine(tp, cfg, max_slots=1, max_seq_len=16)
     with pytest.raises(ValueError, match="exceeds the per-slot budget"):
         eng.submit(_req(t_serving.Request, _spec(0, 1, 20, 2)))
