@@ -23,6 +23,17 @@ seed, int8 decode tree) through its main paths:
   page walk agrees with its fused chain, sampled neighbours leave the
   greedy rows' tokens unchanged, and a request that fills its cache to the
   last position leaves its neighbour's tokens unchanged;
+* speculative decoding (the ``spec`` phase, every verify on the decode
+  kernels at B x (draft_k + 1) rows, a guard making the plain int8 product
+  raise on the card): PaliGemmaEngine.generate_spec against generate
+  (the same tokens, int for int), its tok/s against generate's in turns and
+  under the acceptance dial, a verify's device time against a decode
+  step's, then the dense and paged engines with spec_decode against the
+  engines without it (the prefix cache, a pool that preempts); the CLIs'
+  ``--speculative`` (the cli phase) and ``--spec_decode`` (the serve_cli
+  phase: dense with grammars and the prefix cache, paged with a grammar on
+  a pool that preempts); every gate holds the verify calls' launches
+  against the windows' cycle counts;
 * multi-LoRA serving: a bank of 3 adapters over the same requests, each
   under its own adapter or the base model, through the dense and paged
   kernel ticks (the LoRA shrink kernel and the LoRA expand in the int8
@@ -37,9 +48,9 @@ seed, int8 decode tree) through its main paths:
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
-``launches`` summed over the counted runs of the paths (the three CLI runs,
-the serve_cli runs, the served runs (a)-(e), the multi-LoRA runs, the TP runs, the ablation
-phase's runs and the 8 training steps; each run's counts
+``launches`` summed over the counted runs of the paths (the four CLI runs,
+the serve_cli runs, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs, the
+TP runs, the ablation phase's runs and the 8 training steps; each run's counts
 are zeroed just before it and read just after), its error against its plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
@@ -2462,6 +2473,24 @@ def cli_phase(params, decode, cfg, dev, card):
                   f"{ids[0, :8].tolist()} ...; pixels through the native route", flush=True)
             _timing_line("greedy", t, wall, card)
 
+            # the same caption with --speculative: the greedy ids, every
+            # verify on the decode kernels (no plain int8 product)
+            with _NoPlainInt8():
+                text, t, counts, wall, rows, want = _cli_call(
+                    infer, argv + ["--speculative", "--draft_k", str(SPEC_DRAFT_K)], stand)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            verifies = _spec_verifies(t["spec_cycles"], infer.SYNC_EVERY)
+            _spec_counts("cli --speculative", counts, verifies, n_layers, prefills=1)
+            if not np.array_equal(np.asarray(rows), ids) or not text.endswith(want):
+                raise AssertionError(f"cli --speculative: ids {rows} != the greedy CLI's "
+                                     f"{ids.tolist()}")
+            print(f"cli --speculative: the greedy CLI's {ids.shape[1]} ids in {t['spec_cycles']} "
+                  f"cycles ({verifies} verify calls in windows of {infer.SYNC_EVERY}, draft_k "
+                  f"{SPEC_DRAFT_K})",
+                  flush=True)
+            _timing_line("--speculative", t, wall, card)
+
             # a sampled batch of two images of one size, prompts of two lengths
             argv = ["--model_path", d, "--quantize_int8", "--max_tokens_to_generate",
                     str(CLI_NEW), "--do_sample", "--seed", "0"]
@@ -3044,28 +3073,64 @@ def serve_cli_phase(params, decode, cfg, dev, card, d):
         released(grammar_runs.pop("paged"))
         run = grammar_runs.pop("dense")
 
+        # 3c. --spec_decode with the grammars and the prefix cache, dense: the
+        # greedy rows of run 3's first 8, twice (the second wave seated from
+        # the cache); free rows keep run 1's tokens, constrained rows run 3's
+        srows = [r for r in grows[:8] if not r.get("do_sample")]
+        srows = srows + [dict(r, request_id=r["request_id"] + N_REQ) for r in srows]
+        cyc = {}
+
+        def spy_ticks(eng):
+            cyc["n"] = _count_spec_ticks(eng)
+
+        with _NoPlainInt8():
+            spec_run = _serve_cli_call(
+                serve, argv(jsonl("serve_spec.jsonl", srows), "--engine", "dense",
+                            "--prefix_cache", "--spec_decode", "--spec_draft_k",
+                            str(SPEC_DRAFT_K), *gflags), stand, "spec_decode", spy_ticks)
+        add(spec_run["counts"])
+        eng = spec_run["srv"].engine
+        n_all, n_argmax = cyc["n"]
+        _spec_counts("serve_cli spec_decode", spec_run["counts"], n_all, n_layers,
+                     greedy=None, prefills=eng.prefill_calls, argmax=n_argmax)
+        differ = [r["request_id"] for r in srows
+                  if spec_run["tokens"][r["request_id"]] != run["tokens"][r["request_id"] % N_REQ]]
+        n_half = len(srows) // 2
+        if differ or eng.cache_hits != n_half or not eng.spec_decode:
+            raise AssertionError(f"serve_cli spec_decode: requests {differ} differ from the "
+                                 f"runs without it, or {eng.cache_hits} hits of {n_half}")
+        _serve_cli_line("spec_decode dense, grammars, prefix cache", spec_run["lines"],
+                        spec_run["wall"], spec_run["counts"], eng, n_all, card)
+        print(f"serve_cli: spec_decode: {len(srows)} greedy requests ({n_half} twice, "
+              f"{sum(1 for r in srows if r.get('grammar'))} constrained) with the tokens of the "
+              f"runs without it; {eng.cache_hits} hits; {n_all} verify cycles, "
+              f"{n_argmax} of them (no constrained row seated) on the argmax head",
+              flush=True)
+        released(spec_run)
+
         # 3b. a paged pool that preempts constrained rows: each is seated
         # again in the DFA state its emitted tokens reach
         lrows = [dict(r, grammar=SERVE_CLI_LEAD[0], max_new_tokens=SERVE_CLI_LEAD_BUDGET)
                  for r in rows]
         resumed = []
 
-        def spy_preempt(eng):
-            preempt = eng._preempt_youngest
+        def spy_preempt(into):
+            def hook(eng):
+                preempt = eng._preempt_youngest
 
-            def preempt_youngest(exclude):
-                slot = preempt(exclude)
-                if slot is not None:
-                    req = eng.pending[0]
-                    resumed.append((req.request_id, len(req.input_ids) - req.prefix_len))
-                return slot
+                def preempt_youngest(exclude):
+                    slot = preempt(exclude)
+                    if slot is not None:
+                        req = eng.pending[0]
+                        into.append((req.request_id, len(req.input_ids) - req.prefix_len))
+                    return slot
 
-            eng._preempt_youngest = preempt_youngest
+                eng._preempt_youngest = preempt_youngest
+            return hook
 
-        pre = _serve_cli_call(serve, argv(jsonl("serve_lead.jsonl", lrows), "--engine", "paged",
-                                          "--n_pages", str(SERVE_CLI_LEAD_POOL), "--grammar",
-                                          "=".join(SERVE_CLI_LEAD)), stand, "grammar preempted",
-                              spy_preempt)
+        lead_argv = argv(jsonl("serve_lead.jsonl", lrows), "--engine", "paged", "--n_pages",
+                         str(SERVE_CLI_LEAD_POOL), "--grammar", "=".join(SERVE_CLI_LEAD))
+        pre = _serve_cli_call(serve, lead_argv, stand, "grammar preempted", spy_preempt(resumed))
         add(pre["counts"])
         eng = pre["srv"].engine
         _serve_cli_launches("grammar preempted", pre["counts"], pre["ticks"], eng, n_layers,
@@ -3083,6 +3148,56 @@ def serve_cli_phase(params, decode, cfg, dev, card, d):
               f"(request, tokens emitted before it: {resumed}); every row's text stays in "
               f"{SERVE_CLI_LEAD[1]!r}, whose start state allows no later token", flush=True)
         released(pre)
+
+        # 3d. the same with --spec_decode: the paged verify with the int8
+        # logits head at B x (draft_k + 1) rows and each position masked by
+        # its prefix's DFA state; each row's tokens before its first
+        # eviction (in either run) equal the run without spec (a recompute
+        # re-encodes the emitted tokens with the prefill's weights, so later
+        # tokens may move)
+        resumed_s = []
+
+        def spy_spec(eng):
+            spy_ticks(eng)
+            spy_preempt(resumed_s)(eng)
+
+        with _NoPlainInt8():
+            pspec = _serve_cli_call(serve, lead_argv + ["--spec_decode", "--spec_draft_k",
+                                                        str(SPEC_DRAFT_K)],
+                                    stand, "grammar preempted spec_decode", spy_spec)
+        add(pspec["counts"])
+        eng = pspec["srv"].engine
+        n_all, n_argmax = cyc["n"]
+        _spec_counts("serve_cli paged grammar spec_decode", pspec["counts"], n_all, n_layers,
+                     paged=True, greedy=None, prefills=eng.prefill_calls, argmax=n_argmax)
+        if not (eng.spec_decode and eng.preemptions and resumed_s):
+            raise AssertionError(f"serve_cli paged grammar spec_decode: {eng.preemptions} "
+                                 f"preemptions, evictions {resumed_s}")
+        first = {}
+        for rid, n_tok in resumed + resumed_s:
+            first[rid] = min(first.get(rid, n_tok), n_tok)
+        lines = {ln["request_id"]: ln for ln in pspec["lines"]}
+        differ = []
+        for r in lrows:
+            i = r["request_id"]
+            in_grammar("grammar preempted spec_decode", r, pspec["tokens"][i], lines[i]["text"])
+            n_tok = first.get(i)  # None: never evicted, the whole list
+            if pspec["tokens"][i][:n_tok] != pre["tokens"][i][:n_tok]:
+                differ.append(i)
+        if differ:
+            raise AssertionError(f"serve_cli paged grammar spec_decode: requests {differ} differ "
+                                 "from the run without spec before their first eviction")
+        agree = sum(x == y for r in lrows for x, y in zip(pspec["tokens"][r["request_id"]],
+                                                          pre["tokens"][r["request_id"]]))
+        n_pre = sum(len(pre["tokens"][r["request_id"]]) for r in lrows)
+        _serve_cli_line(f"grammar paged spec_decode, {SERVE_CLI_LEAD_POOL}-page pool",
+                        pspec["lines"], pspec["wall"], pspec["counts"], eng, n_all, card)
+        print(f"serve_cli: grammar preempted spec_decode: {eng.preemptions} preemptions "
+              f"(request, tokens emitted before it: {resumed_s}); {n_all} verify cycles, "
+              f"{n_argmax} on the argmax head; every row in the grammar and equal to the run "
+              f"without spec before its first eviction; {agree}/{n_pre} tokens agree in all",
+              flush=True)
+        released(pspec)
         ticks = _tick_compare({"plain greedy": (plain_srv, None),
                                "grammar greedy": (run["srv"], "digits")}, rows[:8], n_layers,
                               card)
@@ -4405,6 +4520,381 @@ def train_phase(params, cfg, dev, card):
     return total
 
 
+# ------------------------------------------------------ speculative decoding ----
+SPEC_SEQ = 2048  # generate_spec's cache
+SPEC_NEW = 128  # generate_spec's tokens
+SPEC_DRAFT_K = 8
+SPEC_SYNC = 8  # generate_spec's cycles per window
+SPEC_MATCH_N = 2
+SPEC_CORRUPT = (0.0, 0.5, 1.0)  # the acceptance dial's points
+SPEC_CYCLES_PROFILED = 8  # verify calls (and decode steps) per profile
+# the GEMV tile's rows against the verify's: a decode step (1, 8 slots),
+# a b1 verify (draft_k + 1) and an 8-slot one (8 (draft_k + 1))
+SPEC_GEMV_ROWS = (1, 8, 9, 16, 72)
+SPEC_LAYER = (("qkv", 2048, 2560), ("o", 2048, 2048), ("gateup", 2048, 32768),
+              ("down", 16384, 2048))  # 3B: (name, K, N) of a decode layer's GEMVs
+
+
+class _NoPlainInt8:
+    """While active, ``kernels.quant._int8_matmul`` (the plain int8 branch
+    of ``matmul_any``, which copies each weight to fp32) raises on a CUDA
+    tensor: the spec path must run on the decode kernels."""
+
+    def __enter__(self):
+        from paligemma_tpu_torch.kernels import quant
+
+        self.quant, self.inner = quant, quant._int8_matmul
+
+        def guarded(x, w8, s):
+            if x.is_cuda:
+                raise AssertionError("spec: a CUDA tensor reached quant._int8_matmul")
+            return self.inner(x, w8, s)
+
+        quant._int8_matmul = guarded
+        return self
+
+    def __exit__(self, *exc):
+        self.quant._int8_matmul = self.inner
+        return False
+
+
+def spec_kernel_cases(report: KernelReport, dev):
+    """The dense attention at a verify's rows (``rows_per_cache`` = draft_k
+    + 1 query rows per cache row, each its own mask row: the row's valid
+    slots and its block up to itself) against its plain version and against
+    the one-row-per-cache-row call on the repeated cache (the same bits);
+    then the device time of a layer's four GEMVs on the GEMV tile at the
+    decode and verify row counts, and B11's wgmma tile above 16 rows."""
+    from paligemma_tpu_torch.kernels import decode_attention as dattn
+    from paligemma_tpu_torch.kernels.ablation import quant_pallas
+    from paligemma_tpu_torch.kernels.int8_gemv import int8_gemv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    s, d, h = SPEC_DRAFT_K + 1, 256, 8
+    for b, w in ((1, 512), (8, 1024)):
+        kc = torch.randn((b, w, d), generator=g, device=dev).to(torch.bfloat16)
+        vc = torch.randn((b, w, d), generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randn((b * s, h, d), generator=g, device=dev).to(torch.bfloat16)
+        start = torch.randint(w // 4, w - s, (b,), generator=g, device=dev)
+        base = torch.rand((b, w), generator=g, device=dev) < 0.9
+        base &= torch.arange(w, device=dev)[None] < start[:, None]
+        j = torch.arange(w, device=dev)[None, None]
+        off = j - start[:, None, None]
+        vis = base[:, None] | ((off >= 0) & (off <= torch.arange(s, device=dev)[None, :, None]))
+        valid = vis.reshape(b * s, w).contiguous()
+        got = dattn.decode_attention(q, kc, vc, valid, d**-0.5, rows_per_cache=s)
+        want = dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5, s)
+        label = f"verify B{b} x {s} rows W{w}"
+        report.case("decode_attention", label, got, want, 1e-2)
+        kr, vr = kc.repeat_interleave(s, 0).contiguous(), vc.repeat_interleave(s, 0).contiguous()
+        if not torch.equal(got, dattn.decode_attention(q, kr, vr, valid, d**-0.5)):
+            raise AssertionError(f"decode_attention {label}: rows_per_cache changed bits")
+        # SDPA on the repeated cache (the repeat outside its time)
+        sdpa = (q[:, :, None], kr[:, None], vr[:, None], valid[:, None, None])
+        report.time("decode_attention", label,
+                    lambda: dattn.decode_attention(q, kc, vc, valid, d**-0.5, rows_per_cache=s),
+                    lambda: dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5, s),
+                    4 * b * s * h * w * d, nbytes(q, valid) + 2 * b * w * d * 2 + b * s * h * d * 2,
+                    library_fn=lambda: F.scaled_dot_product_attention(*sdpa), in_json=False)
+    print(f"  decode_attention verify: rows_per_cache={s} gives the bits of the call on the "
+          f"cache rows repeated {s} times", flush=True)
+
+    # a layer's GEMVs at the decode and verify row counts (weights cold: one
+    # weight set per call, cycled)
+    layers = [{n: (torch.randint(-127, 128, (k, nn), generator=g, device=dev,
+                                 dtype=torch.int8),
+                   torch.rand((nn,), generator=g, device=dev) * 0.01 + 1e-3)
+               for n, k, nn in SPEC_LAYER} for _ in range(2)]
+    xs = {m: {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+              for k in {k for _, k, _ in SPEC_LAYER}} for m in SPEC_GEMV_ROWS}
+    turn = [0]
+
+    def layer(fn, m):
+        def run():
+            lw = layers[turn[0] % 2]
+            turn[0] += 1
+            for n, k, _ in SPEC_LAYER:
+                fn(xs[m][k], *lw[n])
+        return run
+
+    fns = [(f"int8_gemv x4 M{m}", layer(int8_gemv, m)) for m in SPEC_GEMV_ROWS]
+    fns += [(f"B11 wgmma x4 M{m}", layer(quant_pallas.int8_matmul, m))
+            for m in SPEC_GEMV_ROWS if m > 16]
+    times = device_times("a 3B decode layer's qkv, o, gateup, down", fns)
+    n_bytes = sum(k * n for _, k, n in SPEC_LAYER)
+    base = times.get(f"int8_gemv x4 M1")
+    for name, ms in times.items():
+        if ms is not None and base:
+            print(f"  spec: {name}: {ms:.4f} ms, {ms / base:.2f}x the one-row layer; weight "
+                  f"bytes {n_bytes / 1e6:.1f} MB once = {n_bytes / PEAK_BYTES * 1e3:.4f} ms",
+                  flush=True)
+    return times
+
+
+def _spec_counts(label, counts, verifies, n_layers, paged=False, greedy=True, prefills=None,
+                 argmax=None):
+    """The launches of ``verifies`` verify calls: per call and layer the qkv
+    GEMV with RoPE + KV write, the attention and three GEMVs; per call one
+    final norm and the argmax head (``greedy``), or the int8 GEMV head
+    (False), or (None) the argmax head on ``argmax`` of them and the int8
+    GEMV head on the others (a grammar engine); ``prefills`` flash forwards
+    of a layer, when given."""
+    attn, other = (("paged_decode_attention", "decode_attention") if paged
+                   else ("decode_attention", "paged_decode_attention"))
+    heads = verifies if greedy else (0 if greedy is False else argmax)
+    want = {"int8_gemv_rope_kv": n_layers * verifies, attn: n_layers * verifies, other: 0,
+            "int8_gemv": 3 * n_layers * verifies + verifies - heads,
+            "rms_norm": verifies, "head_argmax": heads}
+    if prefills is not None:
+        want["flash_attention_fwd"] = n_layers * prefills
+    want.update({k: 0 for k in TP_KERNELS + ABLATION_KERNELS + TRAIN_ONLY + LORA_KERNELS})
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or not verifies:
+        raise AssertionError(f"spec {label}: launch counts (got, want) off: {bad}, "
+                             f"{verifies} verify calls")
+
+
+def _spec_verifies(cycles, sync_every):
+    """The verify calls of a generate_spec that emitted in ``cycles``
+    cycles: whole windows of ``sync_every`` (at least one), the host
+    reading the row's state once per window."""
+    return sync_every * max(1, -(-cycles // sync_every))
+
+
+def _count_spec_ticks(eng):
+    """Counts the ticks of the engine's spec windows from now on, as the
+    host sizes them, and those of windows that took the argmax head:
+    ``[ticks, argmax-head ticks]``."""
+    run, decide, n = eng._run_spec_window, eng._spec_greedy, [0, 0]
+    took = [False]
+
+    def greedy():
+        took[0] = decide()
+        return took[0]
+
+    def window(ticks):
+        out = run(ticks)
+        n[0] += ticks
+        n[1] += ticks * took[0]
+        return out
+
+    eng._spec_greedy, eng._run_spec_window = greedy, window
+    return n
+
+
+def spec_phase(report: KernelReport, params, decode, cfg, dev, card):
+    """Speculative decoding at full width (module docstring): the kernel
+    cases, generate_spec against generate (tokens, launches, tok/s in turns,
+    the acceptance dial), a verify's device time against a decode step's,
+    a window with no host sync, then the dense and paged engines with
+    spec_decode against the engines without it (and the prefix cache, and a
+    pool that preempts). Everything runs under :class:`_NoPlainInt8`.
+    Returns the launch counts summed over the counted runs."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    t_phase = time.perf_counter()
+    with _NoPlainInt8():
+        spec_kernel_cases(report, dev)
+        eng = PaliGemmaEngine(params, cfg, max_seq_len=SPEC_SEQ, decode_params=decode)
+        pixels, ids, mask = make_inputs(cfg, dev)
+        kw = dict(eos_token_id=-1, draft_k=SPEC_DRAFT_K, match_n=SPEC_MATCH_N,
+                  sync_every=SPEC_SYNC)
+        eng.generate_spec(pixels, ids, mask, max_new_tokens=16, **kw)  # first calls
+        want = eng.generate(pixels, ids, mask, max_new_tokens=SPEC_NEW, eos_token_id=-1,
+                            sync_every=8)
+        kernels.reset_launch_counts()
+        got = eng.generate_spec(pixels, ids, mask, max_new_tokens=SPEC_NEW, **kw)
+        sync()
+        counts = kernels.launch_counts()
+        add(counts)
+        cycles = eng.spec_cycles
+        verifies = _spec_verifies(cycles, SPEC_SYNC)
+        _spec_counts("generate_spec", counts, verifies, n_layers, prefills=1)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"spec: generate_spec tokens differ from generate's:\n{got}\n"
+                                 f"{want}")
+        print(f"spec: generate_spec B1 {SPEC_NEW} tokens, draft_k {SPEC_DRAFT_K}, match_n "
+              f"{SPEC_MATCH_N}: tokens equal generate's, int for int ({want[0, :8].tolist()} "
+              f"...); {cycles} cycles emitted, {(SPEC_NEW - 1) / cycles:.2f} tokens per cycle "
+              f"({(SPEC_NEW - 1) / cycles - 1:.2f} accepted drafts), {verifies} verify calls "
+              f"(windows of {SPEC_SYNC}); launches {json.dumps({k: v for k, v in counts.items() if v})}",
+              flush=True)
+
+        def wall(fn):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            return time.perf_counter() - t0
+
+        plain_fn = lambda: eng.generate(pixels, ids, mask, max_new_tokens=SPEC_NEW,  # noqa: E731
+                                        eos_token_id=-1, sync_every=8)
+        runs = {"plain": [], "spec": []}
+        for name in ("plain", "spec", "spec", "plain"):
+            runs[name].append(wall(plain_fn if name == "plain" else lambda: eng.generate_spec(
+                pixels, ids, mask, max_new_tokens=SPEC_NEW, **kw)))
+        t_plain, t_spec = min(runs["plain"]), min(runs["spec"])
+        print(f"spec: B1 {SPEC_NEW} tokens, whole call (prefill included), in turns plain, "
+              f"spec, spec, plain: generate {SPEC_NEW / t_plain:.1f} tok/s ({t_plain * 1e3:.1f} "
+              f"ms), generate_spec {SPEC_NEW / t_spec:.1f} tok/s ({t_spec * 1e3:.1f} ms): "
+              f"{t_plain / t_spec:.2f}x  [{card}]", flush=True)
+        for cf in SPEC_CORRUPT:
+            fn = lambda: eng.generate_spec(pixels, ids, mask, max_new_tokens=SPEC_NEW,  # noqa
+                                           corrupt_frac=cf, **kw)
+            fn()
+            tok = fn()
+            n_cyc = eng.spec_cycles
+            t = min(wall(fn), wall(fn))
+            if not np.array_equal(tok, want):
+                raise AssertionError(f"spec: corrupt_frac {cf} changed the tokens")
+            print(f"spec: corrupt_frac {cf}: {n_cyc} cycles, {(SPEC_NEW - 1) / n_cyc - 1:.2f} "
+                  f"accepted drafts per cycle, {SPEC_NEW / t:.1f} tok/s ({t * 1e3:.1f} ms; "
+                  f"generate {SPEC_NEW / t_plain:.1f} tok/s), tokens unchanged  [{card}]",
+                  flush=True)
+
+        # a verify call's device time against a decode step's, B1 and 8 rows
+        s = SPEC_DRAFT_K + 1
+        dp = eng.decode_params
+        busy = {}
+        for b in (1, 8):
+            max_seq = 1024
+            cache = gemma.init_kv_cache(cfg.text_config, b, max_seq, torch.bfloat16, device=dev)
+            for name in ("k", "v"):
+                cache[name].normal_(generator=torch.Generator(device=dev).manual_seed(SEED + 41))
+            wp = torch.full((b,), 300, dtype=torch.int32, device=dev)
+            valid = torch.zeros((b, max_seq), dtype=torch.bool, device=dev)
+            valid[:, :300] = True
+            pos = wp + 1
+            toks = torch.randint(2, 1000, (b, s), device=dev)
+            bucket = 512
+
+            def verify():
+                paligemma.decode_verify(dp, cfg, toks, cache, wp, valid, pos, kv_bucket=bucket,
+                                        fused_layer=True, greedy_head=True)
+
+            def step():
+                paligemma.decode_step_greedy(dp, cfg, toks[:, 0], cache, cache_pos=wp,
+                                             kv_valid=valid, position_ids=pos,
+                                             kv_bucket=bucket)
+
+            for name, fn in (("decode step", step), ("verify", verify)):
+                fn()
+                per = SPEC_CYCLES_PROFILED
+                got_p = _profile(f"spec {name} B{b} ({b * (s if name == 'verify' else 1)} rows) "
+                                 f"W{bucket}", lambda: [fn() for _ in range(per)], per, card,
+                                 unit="call", layers=n_layers)
+                busy[(b, name)] = None if got_p is None else got_p[0]
+        for b in (1, 8):
+            v, st_ = busy[(b, "verify")], busy[(b, "decode step")]
+            if v is None or st_ is None:
+                print(f"spec: B{b} verify vs decode step device time: not measured", flush=True)
+                continue
+            print(f"spec: B{b}: a verify call ({b * s} rows) {v:.3f} ms of device time against "
+                  f"a decode step's ({b} rows) {st_:.3f} ms: {v / st_:.2f}x, so a cycle breaks "
+                  f"even at {v / st_ - 1:.2f} accepted drafts per row  [{card}]", flush=True)
+
+        # no host synchronization inside a window of cycles
+        st = eng.spec_start(pixels, ids, mask, SPEC_NEW, -1, SPEC_DRAFT_K, SPEC_MATCH_N, 0.5)
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._spec_cycles(st, 8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        del eng, st
+
+        # serving: the 12 requests with spec_decode, against the engines without
+        Paged = _recording_engine()
+        vocab = cfg.vocab_size
+
+        def served(label, make, reqs, paged=False):
+            eng = make()
+            n = _count_spec_ticks(eng)
+            kernels.reset_launch_counts()
+            toks, wall_s, ttft = _serve(eng, reqs, vocab)
+            counts = kernels.launch_counts()
+            add(counts)
+            _spec_counts(label, counts, n[0], n_layers, paged=paged,
+                         prefills=eng.prefill_calls)
+            n_tok = sum(map(len, toks.values()))
+            print(f"spec: serve {label}: {n[0]} cycles, {n_tok} tokens, {n_tok / wall_s:.1f} "
+                  f"tok/s aggregate (wall {wall_s:.3f} s), TTFT p50 {ttft:.1f} ms, prefill "
+                  f"calls {eng.prefill_calls}, cache hits {eng.cache_hits}, preemptions "
+                  f"{getattr(eng, 'preemptions', 0)}  [{card}]", flush=True)
+            return toks, eng
+
+        def dense(**kw):
+            return lambda: ServingEngine(params, cfg, decode_params=decode, **SERVE, **kw)
+
+        def paged(n_pages=FULL_POOL, **kw):
+            return lambda: Paged(params, cfg, decode_params=decode, page_size=PAGE,
+                                 n_pages=n_pages, paged_kernel="fused", **SERVE, **kw)
+
+        spec_kw = dict(spec_decode=True, spec_draft_k=SPEC_DRAFT_K, spec_match_n=SPEC_MATCH_N)
+        warm = serving_requests(cfg)[:2]
+        for r in warm:
+            r.max_new_tokens = 9
+        _serve(dense(**spec_kw)(), warm, vocab)
+        base, base_wall, _ = _serve(dense()(), serving_requests(cfg), vocab)
+        tok_d, _ = served("dense", dense(**spec_kw), serving_requests(cfg))
+        tok_p, eng_p = served("paged", paged(**spec_kw), serving_requests(cfg), paged=True)
+        differ = [i for i in base if tok_d[i] != base[i] or tok_p[i] != base[i]]
+        if differ or eng_p.preemptions:
+            raise AssertionError(f"spec serve: requests {differ} differ from the engine without "
+                                 f"spec_decode, or the full pool preempted")
+        n_base = sum(map(len, base.values()))
+        print(f"spec: serve dense and paged with spec_decode: 12/12 requests with the tokens of "
+              f"the dense engine without it ({n_base} tokens, {n_base / base_wall:.1f} tok/s "
+              f"without spec)  [{card}]", flush=True)
+        tok_b, eng_b = served("paged preempting", paged(n_pages=SMALL_POOL, **spec_kw),
+                              serving_requests(cfg), paged=True)
+        if eng_b.preemptions < 1:
+            raise AssertionError("spec serve: the small pool never preempted")
+        for rid, n_tok in sorted(eng_b.first_eviction.items()):
+            if tok_b[rid][:n_tok] != base[rid][:n_tok]:
+                raise AssertionError(f"spec serve: request {rid}'s tokens before its eviction "
+                                     "differ")
+        agree = sum(x == y for i in base for x, y in zip(base[i], tok_b[i]))
+        print(f"spec: serve paged, {SMALL_POOL}-page pool: {eng_b.preemptions} preemptions "
+              f"(recomputed from scratch), tokens before each eviction equal; {agree}/{n_base} "
+              f"tokens agree with the engine without spec", flush=True)
+        reqs = serving_requests(cfg)[:8]
+        twice = reqs + [dataclasses.replace(r, request_id=r.request_id + N_REQ, tokens=[])
+                        for r in reqs]
+        tok_c, eng_c = served("dense prefix cache, 8 requests twice",
+                              dense(prefix_cache=True, **spec_kw), twice)
+        differ = [r.request_id for r in twice if tok_c[r.request_id] != base[r.request_id % N_REQ]]
+        if differ or eng_c.cache_hits != 8:
+            raise AssertionError(f"spec serve prefix cache: requests {differ} differ, "
+                                 f"{eng_c.cache_hits} hits")
+        print("spec: serve dense with the prefix cache: 8 hits seated with no prefill keep "
+              "speculating, 16/16 requests with the tokens of the engine without spec_decode",
+              flush=True)
+        eng = dense(**spec_kw)()
+        for r in serving_requests(cfg)[:8]:
+            # a window of 8 cycles can emit 72 tokens a row: leave some
+            r.max_new_tokens = 400
+            eng.submit(r)
+        eng.step()
+        _window_without_sync(eng)
+        print("spec: no host synchronization inside a generate_spec window of 8 cycles or a "
+              "dense spec serving window", flush=True)
+    print(f"spec: phase done in {time.perf_counter() - t_phase:.1f} s; launches summed over the "
+          f"counted runs: {json.dumps(total)}", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4453,6 +4943,8 @@ def main() -> int:
     t0 = time.perf_counter()
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    spec_counts = spec_phase(report, params, decode, cfg, dev, card)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lora_counts = multilora_phase(report, params, decode, cfg, dev, card)
     torch.cuda.empty_cache()
@@ -4467,7 +4959,8 @@ def main() -> int:
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
-                                           ablation_counts, cli_counts, serve_cli_counts))
+                                           ablation_counts, cli_counts, serve_cli_counts,
+                                           spec_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

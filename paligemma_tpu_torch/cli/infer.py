@@ -18,7 +18,10 @@ Decode: with ``--quantize_int8`` the engine decodes from the int8 tree
 hand-written decode layer and head kernels); without it, the plain bf16
 decode (``fused_layer=False``), as the JAX package's bf16 decode is XLA.
 
-Flags of parts not yet ported (``--int8_prefill``, ``--speculative``,
+``--speculative`` (greedy, one image and prompt) decodes with n-gram
+speculative decoding (runtime/engine ``generate_spec``, ``--draft_k``
+drafts a cycle): the tokens of greedy decoding, and the cycles in the
+``timings`` line. Flags of parts not yet ported (``--int8_prefill``,
 ``--data_parallel`` / ``--model_parallel`` above 1) exit with an error that
 names them.
 
@@ -48,8 +51,6 @@ SYNC_EVERY = 8
 # flag -> why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
     "int8_prefill": "--int8_prefill (W8A8 prefill) is not ported yet (ROADMAP item 13)",
-    "speculative": "--speculative (n-gram speculative decoding) is not ported yet "
-                   "(ROADMAP item 8)",
 }
 
 
@@ -85,7 +86,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model_parallel", type=int, default=1,
                    help="not ported above 1: exits with an error")
     p.add_argument("--speculative", action="store_true",
-                   help="not ported: exits with an error")
+                   help="n-gram speculative decoding (greedy, one image and prompt): "
+                        "draft tokens from the prompt and output so far, verified in "
+                        "one forward (runtime.engine.generate_spec); the tokens of "
+                        "greedy decoding")
     p.add_argument("--draft_k", type=int, default=8,
                    help="draft tokens proposed per speculative cycle (with --speculative)")
     p.add_argument("--decode_detections", action="store_true",
@@ -134,6 +138,10 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
         "--image_file_path; pass one image per prompt",
     )
     require(args.max_tokens_to_generate >= 1, "--max_tokens_to_generate must be at least 1")
+    if args.speculative:
+        require(not args.do_sample, "--speculative is greedy-only; drop --do_sample")
+        require(len(prompts) == 1, "--speculative serves one image/prompt at a time")
+        require(args.draft_k >= 1, "--draft_k must be at least 1")
 
     from PIL import Image
 
@@ -179,6 +187,8 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
     # grows unboundedly, ref: modeling_gemma.py:54-55; ours is preallocated,
     # so size it up front instead of silently clamping writes)
     need = inputs["input_ids"].shape[1] + args.max_tokens_to_generate
+    if args.speculative:  # a verify writes draft_k slots past the last token
+        need += args.draft_k
     max_seq_len = max(args.max_seq_len, ((need + 127) // 128) * 128)
     engine = PaliGemmaEngine(
         params, config,
@@ -201,17 +211,28 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
     engine.prefill = timed_prefill
     t0 = time.perf_counter()
     try:
-        tokens = engine.generate(
-            inputs["pixel_values"],
-            inputs["input_ids"],
-            inputs["attention_mask"],
-            max_new_tokens=args.max_tokens_to_generate,
-            temperature=args.temperature,
-            top_p=args.top_p,
-            do_sample=args.do_sample,
-            generator=torch.Generator(device=device).manual_seed(args.seed),
-            sync_every=SYNC_EVERY,
-        )
+        if args.speculative:
+            tokens = engine.generate_spec(
+                inputs["pixel_values"],
+                inputs["input_ids"],
+                inputs["attention_mask"],
+                max_new_tokens=args.max_tokens_to_generate,
+                draft_k=args.draft_k,
+                sync_every=SYNC_EVERY,
+            )
+            timings["spec_cycles"] = engine.spec_cycles
+        else:
+            tokens = engine.generate(
+                inputs["pixel_values"],
+                inputs["input_ids"],
+                inputs["attention_mask"],
+                max_new_tokens=args.max_tokens_to_generate,
+                temperature=args.temperature,
+                top_p=args.top_p,
+                do_sample=args.do_sample,
+                generator=torch.Generator(device=device).manual_seed(args.seed),
+                sync_every=SYNC_EVERY,
+            )
     finally:
         del engine.prefill  # no reference cycle keeps the weights alive
     timings["decode_ms"] = (time.perf_counter() - t0) * 1e3 - timings["prefill_ms"]

@@ -34,9 +34,13 @@ With ``--quantize_int8`` the engines decode from the int8 tree with their
 kernel defaults (on the card: the decode kernel chain); without it, the
 plain bf16 decode, as in cli/infer.
 
+``--spec_decode`` serves with n-gram speculative decoding (greedy only: a
+sampled request is refused with an error line; ``--spec_draft_k`` drafts a
+cycle), with the tokens of the engine without it.
+
 Flags of parts not yet ported exit 2 with the ROADMAP item that ports
-them: ``--spec_decode`` (item 8), ``--int8_prefill`` (item 13),
-``--data_parallel`` / ``--model_parallel`` above 1 (item 14). ``--lora``
+them: ``--int8_prefill`` (item 13), ``--data_parallel`` /
+``--model_parallel`` above 1 (item 14). ``--lora``
 reads the port's own adapter checkpoints (checkpoints/local.save_pytree of
 ``{"lora": ...}``), not the JAX package's orbax ones (item 7).
 """
@@ -60,8 +64,6 @@ from .errors import CliError, require, user_errors
 
 # flag -> why it is refused (the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "spec_decode": "--spec_decode (n-gram speculative decoding) is not ported yet "
-                   "(ROADMAP item 8)",
     "int8_prefill": "--int8_prefill (W8A8 prefill) is not ported yet (ROADMAP item 13)",
 }
 
@@ -92,7 +94,9 @@ def _build_parser():
                    help="exact-match prefix KV reuse: a byte-identical (image, prompt) pair "
                         "is seated with no prefill (paged: page sharing, dense: KV row "
                         "copies)")
-    p.add_argument("--spec_decode", action="store_true", help="not ported: exits with an error")
+    p.add_argument("--spec_decode", action="store_true",
+                   help="n-gram speculative decoding inside the batched window (greedy "
+                        "requests only; the tokens of the engine without it)")
     p.add_argument("--spec_draft_k", type=int, default=8,
                    help="drafted tokens per speculative cycle (with --spec_decode)")
     p.add_argument("--grammar", action="append", default=[], metavar="NAME=REGEX",
@@ -211,6 +215,7 @@ def build_server(args):
     kw = dict(max_slots=args.max_slots, max_seq_len=args.max_seq_len,
               decode_params=decode_params, sync_every=args.sync_every,
               prefix_cache=args.prefix_cache, lora_bank=lora_bank, grammars=grammars,
+              spec_decode=args.spec_decode, spec_draft_k=args.spec_draft_k,
               # the kernel tick takes the int8 tree; the bf16 decode is the plain one
               fused_decode=None if args.quantize_int8 else False)
     if args.engine == "paged":

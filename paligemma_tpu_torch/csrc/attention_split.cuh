@@ -41,16 +41,20 @@
 #define DA_PLD (DA_KT + 8)   // bf16 row stride of p
 #define DA_MERGE 8           // combine: split s is added by warp s % DA_MERGE
 
-// Contiguous per-row cache: key j of row b at b * stride_b + j * D; visible
-// where valid[b, j] (a (B, W) mask).
+// Contiguous per-row cache: key j of query row b at c * stride_b + j * D,
+// where c = b, or with kShared c = b / rpc (rpc query rows share a cache
+// row: the s positions of a speculative verify block; a decode step keeps
+// the division out of its address arithmetic); visible where valid[b, j]
+// (a (B, W) mask of query rows).
+template <bool kShared>
 struct DenseKV {
   const bf16* k;
   const bf16* v;
   const uint8_t* valid;
   long long stride_b;
-  int D, W;
+  int D, W, rpc;
   __device__ __forceinline__ size_t row(int b, int, int j) const {
-    return (size_t)b * stride_b + (size_t)j * D;
+    return (size_t)(kShared ? b / rpc : b) * stride_b + (size_t)j * D;
   }
   __device__ __forceinline__ bool visible(int b, int j) const {
     return valid[(size_t)b * W + j] != 0;

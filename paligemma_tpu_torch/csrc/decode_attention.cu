@@ -5,8 +5,13 @@
 // mask; fp32 softmax). The fresh token's K/V is already in the cache (the
 // qkv GEMV's RoPE epilogue wrote it), so no arithmetic merge is needed here.
 //
-//   out[b, h*D:(h+1)*D] = sum_j p[b,h,j] v[b,j],  p = softmax over valid j
-//                          of scale * q[b,h] . k[b,j];  no valid j -> 0
+//   out[b, h*D:(h+1)*D] = sum_j p[b,h,j] v[c,j],  p = softmax over valid j
+//                          of scale * q[b,h] . k[c,j];  no valid j -> 0
+//
+// where c = b / rows_per_cache: a speculative verify (models/paligemma
+// decode_verify on the kernel path) scores the s positions of a block as s
+// query rows of one cache row, each with its own row of the mask; a decode
+// step passes 1.
 //
 // What bounds it: reading the K and V window (2 * W * D * 2 bytes per row
 // and layer; 2 MB at W=2048, D=256); the flops are ~Hq per byte. All Hq
@@ -25,13 +30,23 @@
 // H100 80GB HBM3 at 700 W.)
 #include "attention_split.cuh"
 
-PG_EXPORT int pg_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                  const void* valid, void* part_m, void* part_l, void* part_o,
-                                  void* out, int B, int H, int D, int W, int stride_b,
-                                  int nsplit, float scale, void* stream) {
-  DenseKV kv{(const bf16*)k_cache, (const bf16*)v_cache, (const uint8_t*)valid,
-             (long long)stride_b, D, W};
+template <bool kShared>
+static int launch(const void* q, const void* k_cache, const void* v_cache, const void* valid,
+                  void* part_m, void* part_l, void* part_o, void* out, int B, int H, int D,
+                  int W, int stride_b, int rows_per_cache, int nsplit, float scale,
+                  void* stream) {
+  DenseKV<kShared> kv{(const bf16*)k_cache, (const bf16*)v_cache, (const uint8_t*)valid,
+                      (long long)stride_b, D, W, rows_per_cache};
   return attn_launch(
       (const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o, (bf16*)out, B, H,
       /*Hkv=*/1, D, W, nsplit, scale, (cudaStream_t)stream);
+}
+
+PG_EXPORT int pg_decode_attention(const void* q, const void* k_cache, const void* v_cache,
+                                  const void* valid, void* part_m, void* part_l, void* part_o,
+                                  void* out, int B, int H, int D, int W, int stride_b,
+                                  int rows_per_cache, int nsplit, float scale, void* stream) {
+  return (rows_per_cache == 1 ? launch<false> : launch<true>)(
+      q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
+      rows_per_cache, nsplit, scale, stream);
 }

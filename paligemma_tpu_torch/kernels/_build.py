@@ -60,8 +60,8 @@ SIGNATURES = {
     # eps, stream
     "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
-    # stride_b, nsplit, scale, stream
-    "pg_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # stride_b, rows_per_cache, nsplit, scale, stream
+    "pg_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q, k_pool, v_pool, table, kv_len, part_m, part_l, part_o, out, B, Hq,
     # Hkv, D, W, page_size, table_stride, layer_off, nsplit, scale, stream
     "pg_paged_attention": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],

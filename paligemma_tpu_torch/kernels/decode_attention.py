@@ -6,6 +6,12 @@ One query token per row, Hq query heads sharing the single KV head, cache
 slots ``[0, W)`` of one layer with a (B, W) validity mask, fp32 softmax. The
 fresh token's K/V must already be in the cache (kernels/int8_gemv
 ``int8_gemv_rope_kv`` puts it there) and its slot marked valid.
+
+``rows_per_cache`` = s sends query rows ``[c s, (c + 1) s)`` to cache row c,
+each with its own mask row: the s positions of a speculative verify block
+(kernels/decode_layer ``layers_decode_fused`` at B s rows), each seeing the cache's
+valid slots and the block's keys up to its own. On the same visible keys
+the result has the bits of a one-row-per-cache-row call.
 """
 
 from __future__ import annotations
@@ -65,21 +71,26 @@ class SplitPlan:
 
 
 def split_plan(q: torch.Tensor, valid: torch.Tensor) -> SplitPlan:
-    """The plan of a dense call: one KV head, the (B, W) mask's window."""
+    """The plan of a dense call: one KV head, the (B, W) mask's window
+    (B query rows)."""
     b, h, d = q.shape
     return SplitPlan(rows=b, groups=h, head_dim=d, window=valid.shape[1])
 
 
 def decode_attention_reference(
     q: torch.Tensor,  # (B, H, D)
-    k_cache: torch.Tensor,  # (B, S, D) one layer
-    v_cache: torch.Tensor,  # (B, S, D)
+    k_cache: torch.Tensor,  # (B / rows_per_cache, S, D) one layer
+    v_cache: torch.Tensor,  # (B / rows_per_cache, S, D)
     valid: torch.Tensor,  # (B, W) bool
     scale: float,
+    rows_per_cache: int = 1,
 ) -> torch.Tensor:
     """Plain version: (B, H*D) in q's dtype; a row with no valid slot gives 0."""
     b, h, d = q.shape
     w = valid.shape[1]
+    if rows_per_cache != 1:
+        c = torch.arange(b, device=q.device) // rows_per_cache
+        k_cache, v_cache = k_cache[:, :w][c], v_cache[:, :w][c]
     s = torch.einsum("bhd,bwd->bhw", q.float(), k_cache[:, :w].float()) * scale
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -97,20 +108,27 @@ def decode_attention(
     v_cache: torch.Tensor,
     valid: torch.Tensor,
     scale: float,
+    *,
+    rows_per_cache: int = 1,
 ) -> torch.Tensor:
-    """Attention of one token per row over the window; (B, H*D) out."""
+    """Attention of one token per row over the window; (B, H*D) out.
+    ``rows_per_cache``: query rows per cache row (module docstring)."""
     if not q.is_cuda:
-        return decode_attention_reference(q, k_cache, v_cache, valid, scale)
+        return decode_attention_reference(q, k_cache, v_cache, valid, scale, rows_per_cache)
     b, h, d = q.shape
     s_len = k_cache.shape[1]
     w = valid.shape[1]
     dev = q.device
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous bf16 (B, H, D)")
+    if rows_per_cache < 1 or b % rows_per_cache:
+        raise ValueError(f"decode_attention: B {b} must be a multiple of rows_per_cache "
+                         f"{rows_per_cache}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if (c.dtype != torch.bfloat16 or c.shape != (b, s_len, d)
+        if (c.dtype != torch.bfloat16 or c.shape != (b // rows_per_cache, s_len, d)
                 or not c.is_contiguous() or c.device != dev or c.data_ptr() % 16):
-            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned bf16 (B, S, D)")
+            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned bf16 "
+                             "(B / rows_per_cache, S, D)")
     if (valid.dtype != torch.bool or valid.shape != (b, w) or not valid.is_contiguous()
             or valid.device != dev or w > s_len):
         raise ValueError("decode_attention: valid must be contiguous bool (B, W) with W <= S")
@@ -124,7 +142,8 @@ def decode_attention(
     err = lib.pg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(),
-        b, h, d, w, s_len * d, plan.nsplit, float(scale), _build.stream_ptr(dev),
+        b, h, d, w, s_len * d, rows_per_cache, plan.nsplit, float(scale),
+        _build.stream_ptr(dev),
     )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

@@ -33,6 +33,19 @@ before its one cast. Four shrinks per layer.
 
 Without the TPU kernel's merged head: the greedy head runs as
 kernels/decode_head right after this function.
+
+The verify forward of speculative decoding (the TPU package runs it as
+plain XLA, models/paligemma.py ``decode_verify``) is this chain at B s
+rows: the s tokens of each row's block are s rows, each with its own
+write position and mask row. ``rows_per_cache`` = s sends them to their
+one cache row: the qkv GEMV's write sees the dense cache as a pool of one
+page per row (a (B s, 1) table whose entries are r, no kernel change) and
+the attention kernel reads the row's cache for each of its s query rows.
+(The attention keeps the dense kernel, not the paged one over the same
+view, because a dense row's valid slots need not be a prefix: a padded
+prompt leaves holes that only a mask expresses.) The GEMV tile's sums
+depend on (K, N) only, so each verify row has the bits of the decode step
+at its position.
 """
 
 from __future__ import annotations
@@ -183,8 +196,8 @@ def lora_gemv(x: torch.Tensor, leaf: Dict, l: int, pack: Optional[Dict], name: s
 def layers_decode_fused(
     x: torch.Tensor,  # (B, 1, K)
     layers: Dict,  # stacked int8 serving tree (repack_layers)
-    k_cache: torch.Tensor,  # (L, B, S, D), fresh rows written in place
-    v_cache: torch.Tensor,  # (L, B, S, D)
+    k_cache: torch.Tensor,  # (L, B / rows_per_cache, S, D), fresh rows written in place
+    v_cache: torch.Tensor,  # (L, B / rows_per_cache, S, D)
     cache_pos: torch.Tensor,  # (B,) int32 per-row write positions
     kv_valid_window: torch.Tensor,  # (B, W) bool, incl. this token's slot
     cos: torch.Tensor,  # (B, D)
@@ -196,13 +209,19 @@ def layers_decode_fused(
     *,
     lora_pack: Optional[Dict] = None,  # repack_lora_bank_fused() output
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
+    rows_per_cache: int = 1,  # rows sharing a cache row (a verify block's s)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All L layers for B lockstep rows. Returns (hidden (B,1,K),
     k_new (L,B,D), v_new (L,B,D)). With ``lora_pack`` and ``adapter_ids``
-    each row's adapter applies inside the chain (module docstring)."""
+    each row's adapter applies inside the chain; ``rows_per_cache``: rows
+    ``[c s, (c + 1) s)`` write into and attend cache row c (module
+    docstring)."""
     if (lora_pack is None) != (adapter_ids is None):
         raise ValueError("layers_decode_fused: lora_pack and adapter_ids go together")
     b, _, k = x.shape
+    if rows_per_cache < 1 or b != k_cache.shape[1] * rows_per_cache:
+        raise ValueError(f"layers_decode_fused: {b} rows != {k_cache.shape[1]} cache rows x "
+                         f"rows_per_cache {rows_per_cache}")
     n_layers = k_cache.shape[0]
     window = min(window, k_cache.shape[2])
     if kv_valid_window.shape != (b, window):
@@ -218,13 +237,17 @@ def layers_decode_fused(
     nq = n_heads * head_dim
     inter = mlp["gateup"]["w8"].shape[-1] // 2
     pos = cache_pos.to(torch.int32)
+    # rows_per_cache > 1: the cache as a pool of one page per cache row
+    table = None if rows_per_cache == 1 else (
+        torch.arange(b, dtype=torch.int32, device=x.device) // rows_per_cache)[:, None]
     for l in range(n_layers):
         # writes this layer's fresh K/V rows into the cache (in place)
         q, _, _ = lora_gemv(h, attn["qkv"], l, lora_pack, "qkv", ids, (nq, nq + head_dim),
                             gemv=int8_gemv_rope_kv, norm=(layers["input_norm"][l], eps),
                             cos=cos, sin=sin, pos=pos, n_heads=n_heads, k_dst=k_cache[l],
-                            v_dst=v_cache[l], k_new=k_new[l], v_new=v_new[l])
-        a = decode_attention(q, k_cache[l], v_cache[l], kv_valid_window, scale)
+                            v_dst=v_cache[l], k_new=k_new[l], v_new=v_new[l], page_table=table)
+        a = decode_attention(q, k_cache[l], v_cache[l], kv_valid_window, scale,
+                             rows_per_cache=rows_per_cache)
         h = lora_gemv(a, attn["o"], l, lora_pack, "o", ids, residual=h)
         t = lora_gemv(h, mlp["gateup"], l, lora_pack, "gu", ids, (inter,), geglu=True,
                       norm=(layers["post_norm"][l], eps))

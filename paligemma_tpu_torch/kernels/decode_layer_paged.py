@@ -25,6 +25,13 @@ window ring, so there is no window-size budget (the TPU's VMEM cap).
 TPU kernel (the same pack, kernels/decode_layer.repack_lora_bank_fused),
 applied as in the dense chain: four ``lora_shrink`` per layer, each
 expand in the epilogue of its projection's GEMV.
+
+The verify forward of speculative decoding over the pool (the TPU
+package's is plain XLA, models/gemma.py ``forward_paged_verify``) is this
+chain at B s rows (models/paligemma ``decode_verify_paged``): row r's table
+repeated s times, position j of its block written at ``write_pos[r] + j``
+(a block may cross a page) and attended with the length
+``write_pos[r] + j + 1``, the TPU function's per-query causal bound.
 """
 
 from __future__ import annotations

@@ -32,6 +32,12 @@ Over a paged KV pool (runtime/paged_cache, (L, n_pages, page_size, n_kv, d)):
 * ``forward_paged_decode_fused``: kernels/decode_layer_paged, then the same
   head as the fused dense path.
 
+Speculative verify (s tokens a row in one forward, models/paligemma
+``decode_verify``): the plain path is ``forward`` with a pairwise mask and
+per-row block writes, or over the pool ``forward_paged_verify``; the kernel
+path is the fused decode at B s rows (``forward`` with ``rows_per_cache``
+= s, or ``forward_paged_decode_fused`` with each row's table repeated).
+
 Under a tensor-parallel ``mesh`` (core/mesh) the params are this rank's
 slices (core/mesh.shard_params): the plain paths compute with the rank's
 share of heads and MLP width, sum the o and down partials across ranks in
@@ -209,10 +215,14 @@ def _decoder_block(
     if kv_cache is not None:
         k_all, v_all = kv_cache["k"], kv_cache["v"]
         # in-place cache write (the reference donates the cache instead)
-        if torch.is_tensor(cache_pos):  # per-row positions, one token per row
-            rows = torch.arange(b, device=x.device)
-            k_all[layer_idx, rows, cache_pos.long()] = k[:, 0].to(k_all.dtype)
-            v_all[layer_idx, rows, cache_pos.long()] = v[:, 0].to(v_all.dtype)
+        if torch.is_tensor(cache_pos):  # per-row positions: each row's s-token block
+            rows = torch.arange(b, device=x.device)[:, None]
+            # a finished row's block may reach past the cache end: clamped, it
+            # stays inside the row (such a row is never read again)
+            at = (cache_pos.long()[:, None] + torch.arange(s, device=x.device)[None]).clamp_(
+                max=k_all.shape[2] - 1)
+            k_all[layer_idx, rows, at] = k.to(k_all.dtype)
+            v_all[layer_idx, rows, at] = v.to(v_all.dtype)
         else:
             k_all[layer_idx, :, cache_pos : cache_pos + s] = k.to(k_all.dtype)
             v_all[layer_idx, :, cache_pos : cache_pos + s] = v.to(v_all.dtype)
@@ -279,21 +289,23 @@ def _fused_decode(
     kv_cache: KVCache, cache_pos: CachePos, kv_valid: torch.Tensor,
     kv_bucket: Optional[int], greedy_head: bool, mesh=None,
     lora_pack: Optional[Params] = None, adapter_ids: Optional[torch.Tensor] = None,
+    rows_per_cache: int = 1,
 ):
     """Single-token decode through the hand-written kernels; under a mesh
     the tensor-parallel chain (kernels/decode_layer_tp) of this rank's
     decode_layer_tp.repack_for_tp tree. ``lora_pack`` / ``adapter_ids``:
-    each row's adapter inside the chain (kernels/decode_layer)."""
+    each row's adapter inside the chain; ``rows_per_cache``: rows per
+    cache row (both kernels/decode_layer)."""
     b = x.shape[0]
     if mesh is None and not decode_layer.supported(cfg, params["layers"], b):
         raise ValueError(
             "fused_layer: the decode kernels need the int8 serving tree of "
             "runtime.quantize and a config/batch that decode_layer.supported "
             "accepts; pass fused_layer=False for the plain path")
-    n_layers, _, max_seq = kv_cache["k"].shape[:3]
+    n_layers, n_rows, max_seq = kv_cache["k"].shape[:3]
     hd = cfg.head_dim
-    k_flat = kv_cache["k"].view(n_layers, b, max_seq, hd)  # n_kv == 1
-    v_flat = kv_cache["v"].view(n_layers, b, max_seq, hd)
+    k_flat = kv_cache["k"].view(n_layers, n_rows, max_seq, hd)  # n_kv == 1
+    v_flat = kv_cache["v"].view(n_layers, n_rows, max_seq, hd)
     window = min(kv_bucket or max_seq, max_seq)
     if torch.is_tensor(cache_pos):
         pos = cache_pos.to(device=x.device, dtype=torch.int32)
@@ -310,6 +322,7 @@ def _fused_decode(
             x, params["layers"], k_flat, v_flat, pos, valid,
             cos[:, 0], sin[:, 0], window, cfg.num_attention_heads, hd,
             cfg.rms_norm_eps, lora_pack=lora_pack, adapter_ids=adapter_ids,
+            rows_per_cache=rows_per_cache,
         )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return decode_head(params, h, greedy_head, mesh), kv_cache
@@ -358,6 +371,7 @@ def forward(
     fused_layer: bool = False,  # decode (S == 1) through the kernels, or raise
     greedy_head: bool = False,  # return argmax token ids, not logits
     lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
+    rows_per_cache: int = 1,  # fused_layer: rows sharing a cache row (a verify's s)
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
     int32 ids with ``greedy_head``, the cache updated in place). ``cfg`` is
@@ -367,8 +381,14 @@ def forward(
     bank with per-row ids (models/paligemma.lora_with_ids). The kernel
     decode (``fused_layer``) takes a bank only with its kernel operands
     (``lora["__fused_pack__"]``, kernels/decode_layer.repack_lora_bank_fused)
-    and raises otherwise; under a mesh adapters are not ported and raise."""
+    and raises otherwise; under a mesh adapters are not ported and raise.
+    ``rows_per_cache`` = s (kernel decode only): the B rows are the s
+    positions of B / s verify blocks, rows ``[c s, (c + 1) s)`` writing
+    into and attending cache row c (kernels/decode_layer)."""
     _refuse_tp_lora(lora, mesh)
+    if rows_per_cache != 1 and not (fused_layer and input_embeds.shape[1] == 1
+                                    and mesh is None):
+        raise ValueError("rows_per_cache: the kernel decode (fused_layer) on one card only")
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
@@ -379,7 +399,7 @@ def forward(
     if fused_layer and s == 1:
         pack, ids = fused_lora_operands(lora)
         return _fused_decode(params, cfg, x, cos, sin, kv_cache, cache_pos,
-                             kv_valid, kv_bucket, greedy_head, mesh, pack, ids)
+                             kv_valid, kv_bucket, greedy_head, mesh, pack, ids, rows_per_cache)
     lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
     mlp_full = (params["layers"]["mlp"] if fused_mlp and s == 1 and mesh is None
                 and lora is None else None)
@@ -520,6 +540,62 @@ def forward_paged_decode_fused(
         )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return decode_head(params, h, greedy_head, mesh), pool
+
+
+def forward_paged_verify(
+    params: Params,
+    cfg: GemmaConfig,
+    input_embeds: torch.Tensor,  # (B, s, H): s = the seed token + s - 1 drafts
+    position_ids: torch.Tensor,  # (B, s) int RoPE positions
+    pool: KVCache,  # {"k","v"}: (L, n_pages, page_size, n_kv, d), updated in place
+    page_table: torch.Tensor,  # (B, P_max) int32
+    write_pos: torch.Tensor,  # (B,) int: logical position of each row's first token
+    pages_bucket: Optional[int] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Speculative verify over the pool, plain torch ops: per layer token j
+    of row r writes its K/V into page ``table[r, (wp + j) // ps]`` (a block
+    may cross a page; positions past the table's width are dropped), then
+    query j attends the row's logical positions ``[0, wp + j]``. Returns
+    ((B, s, vocab) fp32 logits, the pool)."""
+    b, s = input_embeds.shape[:2]
+    nkv, hd = cfg.num_key_value_heads, cfg.head_dim
+    ps = pool["k"].shape[2]
+    dev = input_embeds.device
+    x = input_embeds * _embed_scale(cfg, input_embeds.dtype)
+    cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta, x.dtype)
+    table_all = page_table.long()
+    n_slots = table_all.shape[1] * ps
+    tokpos = write_pos.to(dev).long()[:, None] + torch.arange(s, device=dev)[None]  # (B, s)
+    keep = tokpos < n_slots
+    at = tokpos.clamp(max=n_slots - 1)
+    slot = torch.gather(table_all, 1, at // ps) * ps + at % ps  # (B, s) pool slot
+    slot_w = slot[keep]
+    table = table_all
+    if pages_bucket is not None:
+        table = table[:, : min(pages_bucket, table.shape[1])]
+    w = table.shape[1] * ps
+    vis = torch.arange(w, device=dev)[None, None, :] <= tokpos[:, :, None]  # (B, s, W)
+    mask = attention.make_additive_mask(vis)
+    for i in range(pool["k"].shape[0]):
+        lp = layer_params(params["layers"], i)
+        residual = x
+        y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, y, lp)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        for name, t in (("k", k), ("v", v)):
+            flat = pool[name][i].view(-1, nkv, hd)
+            flat[slot_w] = t[keep].to(flat.dtype)
+        k_g = pool["k"][i][table].reshape(b, w, nkv, hd)
+        v_g = pool["v"][i][table].reshape(b, w, nkv, hd)
+        a = attention.gqa(q, k_g.to(q.dtype), v_g.to(q.dtype), mask, scale=hd**-0.5)
+        a = a.reshape(b, s, -1)
+        x = residual + matmul_any(a, lp["attn"]["o"])
+        residual = x
+        y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+        x = residual + _mlp(y, lp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return lm_head(params, x).float(), pool
 
 
 def forward_train(

@@ -10,6 +10,10 @@ embedded prompt -> Gemma decoder. The vision tower runs once, at prefill;
 (``lora_with_ids``); a bank carrying ``"__fused_pack__"``
 (kernels/decode_layer.repack_lora_bank_fused) keeps the kernel decode ticks.
 
+``decode_verify`` / ``decode_verify_paged``: the verify forward of
+speculative decoding (s tokens a row in one forward), plain or through the
+decode kernels at B s rows.
+
 ``mesh`` (core/mesh): tensor parallel, the params being this rank's slices
 (core/mesh.shard_params, or for the kernel decode steps
 kernels/decode_layer_tp.repack_for_tp). Every rank gets the same logits
@@ -275,6 +279,121 @@ def decode_step_greedy_paged(
         write_pos, pages_bucket=pages_bucket or page_table.shape[1], lora_pack=pack,
         adapter_ids=ids, greedy_head=True,
     )
+
+
+def verify_mask(kv_valid: torch.Tensor, cache_pos: gemma.CachePos, s: int) -> torch.Tensor:
+    """The verify block's pairwise mask (B, s, max_seq): query i sees the
+    slots valid before the block and the block's own slots
+    ``[cache_pos, cache_pos + i]`` (``cache_pos`` a scalar or (B,))."""
+    dev = kv_valid.device
+    idx = torch.arange(kv_valid.shape[-1], device=dev)[None, None, :]
+    start = (cache_pos.to(dev).long()[:, None, None] if torch.is_tensor(cache_pos)
+             else cache_pos)
+    off = idx - start  # the slot's index within the block
+    in_block = (off >= 0) & (off <= torch.arange(s, device=dev)[None, :, None])
+    return kv_valid[:, None, :] | in_block
+
+
+def _verify_positions(cache_pos: gemma.CachePos, b: int, s: int, limit: int,
+                      device) -> torch.Tensor:
+    """(B s,) int32 write positions of the kernel verify's rows:
+    ``cache_pos[r] + j``, clamped to ``limit - 1`` (a row that is done keeps
+    verifying in place until it is seated again; its writes stay inside its
+    own cache row or pages)."""
+    start = torch.as_tensor(cache_pos, dtype=torch.int32, device=device).reshape(-1).expand(b)
+    j = torch.arange(s, dtype=torch.int32, device=device)
+    return (start[:, None] + j[None]).clamp_(max=limit - 1).reshape(-1)
+
+
+def _verify_out(out: torch.Tensor, b: int, s: int, greedy_head: bool) -> torch.Tensor:
+    """The kernel decode head's B s rows as (B, s) ids or (B, s, vocab)
+    logits."""
+    return out.reshape(b, s) if greedy_head else out.reshape(b, s, -1)
+
+
+def decode_verify(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    tokens: torch.Tensor,  # (B, s): the last accepted token + s - 1 drafts
+    kv_cache: gemma.KVCache,  # written in place
+    cache_pos: gemma.CachePos,  # scalar or (B,): where tokens[:, 0] is written
+    kv_valid: torch.Tensor,  # (B, max_seq) bool: slots valid BEFORE this block
+    position_ids: torch.Tensor,  # (B,) RoPE position of tokens[:, 0]
+    kv_bucket: Optional[int] = None,
+    *,
+    fused_layer: bool = False,
+    greedy_head: bool = False,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Speculative verify: the s tokens of each row through the decoder in
+    one forward (one weight stream). Causal inside the block, full over the
+    slots valid before it (:func:`verify_mask`). The K/V of all s positions
+    is written; the caller marks only the accepted prefix valid, and the
+    next block starts at the first rejected slot and overwrites the rest.
+
+    Returns ((B, s, vocab) fp32 logits, cache): ``argmax(logits[:, i])`` is
+    the model's token after ``tokens[:, i]``. ``fused_layer``: the decode
+    kernels at B s rows, one row per block position (models/gemma.forward
+    with ``rows_per_cache`` = s), and with ``greedy_head`` the (B, s) argmax
+    ids from the head kernel instead of logits (the plain path takes the
+    argmax of its logits)."""
+    b, s = tokens.shape
+    embeds = params["lm"]["embed"][tokens.long()]
+    pos = position_ids.to(tokens.device)[:, None] + torch.arange(s, device=tokens.device)[None]
+    vis = verify_mask(kv_valid, cache_pos, s)
+    if fused_layer:
+        out, kv_cache = gemma.forward(
+            params["lm"], cfg.text_config, embeds.reshape(b * s, 1, -1), pos.reshape(b * s, 1),
+            kv_cache, cache_pos=_verify_positions(cache_pos, b, s, kv_cache["k"].shape[2],
+                                                tokens.device),
+            kv_valid=vis.reshape(b * s, -1), kv_bucket=kv_bucket, fused_layer=True,
+            greedy_head=greedy_head, rows_per_cache=s)
+        return _verify_out(out, b, s, greedy_head), kv_cache
+    logits, kv_cache = gemma.forward(
+        params["lm"], cfg.text_config, embeds, pos, kv_cache, cache_pos=cache_pos,
+        kv_valid=vis, kv_bucket=kv_bucket)
+    if greedy_head:
+        return logits.argmax(dim=-1).to(torch.int32), kv_cache
+    return logits, kv_cache
+
+
+def decode_verify_paged(
+    params: Params,
+    cfg: PaliGemmaConfig,
+    tokens: torch.Tensor,  # (B, s): the last accepted token + s - 1 drafts
+    pool: gemma.KVCache,  # page pool, written in place
+    page_table: torch.Tensor,  # (B, P_max) int32
+    write_pos: torch.Tensor,  # (B,) int: where tokens[:, 0] is written
+    position_ids: torch.Tensor,  # (B,) RoPE position of tokens[:, 0]
+    pages_bucket: Optional[int] = None,
+    *,
+    fused_layer: bool = False,
+    greedy_head: bool = False,
+) -> Tuple[torch.Tensor, gemma.KVCache]:
+    """Speculative verify over the page pool (models/gemma
+    ``forward_paged_verify``: per-query causal bounds instead of the dense
+    pairwise mask). Returns ((B, s, vocab) fp32 logits, pool). The pages
+    covering ``write_pos + s - 1`` must be reserved by the caller.
+    ``fused_layer`` / ``greedy_head``: as in :func:`decode_verify`: the
+    paged kernel decode at B s rows (models/gemma.forward_paged_decode_fused),
+    each row's table repeated s times and position j attending
+    ``[0, write_pos + j]``."""
+    b, s = tokens.shape
+    embeds = params["lm"]["embed"][tokens.long()]
+    pos = position_ids.to(tokens.device)[:, None] + torch.arange(s, device=tokens.device)[None]
+    if fused_layer:
+        table = page_table.to(torch.int32).repeat_interleave(s, dim=0)
+        out, pool = gemma.forward_paged_decode_fused(
+            params["lm"], cfg.text_config, embeds.reshape(b * s, 1, -1), pos.reshape(b * s, 1),
+            pool, table,
+            _verify_positions(write_pos, b, s, table.shape[1] * pool["k"].shape[2], tokens.device),
+            pages_bucket or page_table.shape[1], greedy_head=greedy_head)
+        return _verify_out(out, b, s, greedy_head), pool
+    logits, pool = gemma.forward_paged_verify(
+        params["lm"], cfg.text_config, embeds, pos, pool, page_table, write_pos,
+        pages_bucket=pages_bucket)
+    if greedy_head:
+        return logits.argmax(dim=-1).to(torch.int32), pool
+    return logits, pool
 
 
 def train_attention_mask(

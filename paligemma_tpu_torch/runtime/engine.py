@@ -1,5 +1,4 @@
-"""Inference engine (port of paligemma_tpu/runtime/engine.py, without
-speculative decoding).
+"""Inference engine (port of paligemma_tpu/runtime/engine.py).
 
 * ``prefill``: vision encode + merge + decoder over the prompt, writing the
   preallocated KV cache at [0, S).
@@ -10,6 +9,13 @@ speculative decoding).
   between steps instead of (B, vocab) logits.
 * ``generate``: the reference-compatible loop, at ``sync_every=1`` (host
   EOS check per token) or ``> 1`` (one check per chunk).
+* ``generate_spec``: greedy generation with n-gram speculative decoding
+  (B = 1): per cycle the proposer (ops/ngram) drafts ``draft_k`` tokens
+  from the history on the device, one verify forward
+  (models/paligemma.decode_verify) scores them, and the longest prefix
+  that matches the model's own argmax is kept, plus the model's token
+  after it. Cycles run in windows of ``sync_every`` with no host read
+  inside; the tokens equal ``generate``'s.
 
 ``use_flash`` and ``fused_layer`` default to True on a CUDA device: prefill
 attention then runs the flash kernel and decode the hand-written decode
@@ -45,6 +51,7 @@ from ..kernels import decode_layer_tp as _tp
 from ..kernels import decode_mlp as _dm
 from ..models import gemma, paligemma
 from ..ops import sampling
+from ..ops.ngram import propose_ngram
 
 
 class KVState(NamedTuple):
@@ -309,3 +316,142 @@ class PaliGemmaEngine:
                 break
             logits, state = self.decode_step(torch.from_numpy(token_np), state)
         return np.stack(out, axis=1)
+
+    # ------------------------------------------------------------------
+    def generate_spec(
+        self,
+        pixel_values,
+        input_ids,
+        attention_mask,
+        max_new_tokens: int = 100,
+        eos_token_id: Optional[int] = None,
+        draft_k: int = 8,
+        match_n: int = 2,
+        corrupt_frac: float = 0.0,
+        *,
+        sync_every: int = 8,
+        generator: Optional[torch.Generator] = None,
+    ) -> np.ndarray:
+        """Greedy generation with n-gram speculative decoding; B == 1.
+        Returns (1, n) int32 with n <= ``max_new_tokens``, the tokens of
+        ``generate(do_sample=False)`` up to and including the first EOS.
+
+        Per cycle: ``draft_k`` drafts from the history (ops/ngram,
+        ``match_n``-gram lookup), one verify forward of [last token,
+        drafts] (models/paligemma.decode_verify: the decode kernels at
+        ``draft_k + 1`` rows on the kernel path), then the longest draft
+        prefix equal to the model's argmax is emitted with the model's
+        token after it. Only the emitted positions become valid. The
+        cycles of a window of ``sync_every`` run with no host read (the
+        history, counts and flags stay on the device); a cycle after EOS or
+        the budget changes nothing, and the host checks once per window.
+        ``spec_cycles`` keeps the number of cycles that emitted.
+
+        ``corrupt_frac`` is a benchmark's acceptance dial: each draft is
+        replaced by ``(draft + 1) % vocab`` with that probability, drawn
+        from ``generator`` (on the device; default seed 0). The tokens do
+        not change: a rejected draft falls back to the model's own token."""
+        b, prompt_len = input_ids.shape
+        if b != 1:
+            raise ValueError("generate_spec is single-request (B == 1): rows accept different "
+                             "draft counts; use generate / decode_chunk for batches")
+        if prompt_len + max_new_tokens + draft_k > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) + draft_k "
+                f"({draft_k}) exceeds max_seq_len ({self.max_seq_len}); speculative decode "
+                "writes up to draft_k positions past the last accepted token")
+        if self.mesh is not None:
+            raise NotImplementedError("generate_spec under a mesh (tensor-parallel "
+                                      "speculation) is not ported (ROADMAP item 14)")
+        if self.fused_mlp:
+            raise ValueError("generate_spec runs the decode kernels (fused_layer) or the plain "
+                             "path, not fused_mlp")
+        st = self.spec_start(pixel_values, input_ids, attention_mask, max_new_tokens,
+                             eos_token_id, draft_k, match_n, corrupt_frac, generator=generator)
+        while not self.spec_window(st, sync_every):
+            pass
+        n = int(st["n_out"][0])
+        self.spec_cycles = int(st["cycles"][0])
+        return st["out"][:n].cpu().numpy().astype(np.int32)[None]
+
+    def spec_start(self, pixel_values, input_ids, attention_mask, max_new_tokens: int,
+                   eos_token_id: Optional[int], draft_k: int, match_n: int,
+                   corrupt_frac: float = 0.0, *,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Prefill and the device state of :meth:`generate_spec`'s cycles
+        (its guards are the caller's)."""
+        dev = self.device
+        if corrupt_frac > 0.0 and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        eos = self.eos_token_id if eos_token_id is None else eos_token_id
+        prompt_len = input_ids.shape[1]
+        logits, state = self.prefill(pixel_values, input_ids, attention_mask)
+        # the history's last column takes the writes of positions not kept
+        hist = torch.zeros((1, self.max_seq_len + 1), dtype=torch.int64, device=dev)
+        hist[:, :prompt_len] = self._as_tensor(input_ids, torch.int64)
+        token0 = logits.float().argmax(dim=-1)  # (1,)
+        hist[:, prompt_len] = token0
+        out = torch.full((max_new_tokens + 1,), eos, dtype=torch.int64, device=dev)
+        out[0] = token0[0]
+        return dict(
+            k=draft_k, match_n=match_n, corrupt_frac=corrupt_frac, generator=generator, eos=eos,
+            max_new=max_new_tokens, kv_bucket=self.kv_bucket_for(prompt_len + max_new_tokens
+                                                                 + draft_k),
+            hist=hist, hist_len=torch.full((1,), prompt_len + 1, dtype=torch.int64, device=dev),
+            out=out, n_out=torch.ones((1,), dtype=torch.int64, device=dev), done=token0 == eos,
+            last_tok=token0, cycles=torch.zeros((1,), dtype=torch.int64, device=dev),
+            valid=state.valid, cache=state.cache, pos_ids=state.pos_ids,
+            wp=torch.full((1,), state.write_pos, dtype=torch.int32, device=dev))
+
+    def spec_window(self, st: Dict[str, Any], cycles: int) -> bool:
+        """``cycles`` speculative cycles on ``st`` (:meth:`spec_start`),
+        enqueued with no host read; then one read: True when the row is
+        done (EOS or the budget)."""
+        self._spec_cycles(st, max(1, cycles))
+        return bool((st["done"] | (st["n_out"] >= st["max_new"])).all())
+
+    def _spec_cycles(self, st: Dict[str, Any], cycles: int) -> None:
+        """The cycles of :meth:`spec_window`, on the device only."""
+        dev = self.device
+        k, eos, max_new = st["k"], st["eos"], st["max_new"]
+        vocab = self.config.text_config.vocab_size
+        j = torch.arange(k + 1, device=dev)[None]  # (1, k + 1)
+        sidx = torch.arange(self.max_seq_len, device=dev)[None]
+        dump_out, dump_hist = max_new, self.max_seq_len
+        greedy_ids = self.fused_layer
+        for _ in range(cycles):
+            active = ~st["done"] & (st["n_out"] < max_new)  # (1,)
+            draft = propose_ngram(st["hist"], st["hist_len"], st["match_n"], k)  # (1, k)
+            if st["corrupt_frac"] > 0.0:
+                u = torch.rand((1, k), generator=st["generator"], device=dev)
+                draft = torch.where(u < st["corrupt_frac"], (draft + 1) % vocab, draft)
+            tokens_in = torch.cat([st["last_tok"][:, None], draft], dim=1)
+            g, st["cache"] = paligemma.decode_verify(
+                self.decode_params, self.config, tokens_in, st["cache"], st["wp"], st["valid"],
+                st["pos_ids"], kv_bucket=st["kv_bucket"], fused_layer=self.fused_layer,
+                greedy_head=greedy_ids)
+            if not greedy_ids:
+                g = g.argmax(dim=-1)
+            g = g.long()  # (1, k + 1): the model's token after each input
+            n_acc = torch.cumprod((draft == g[:, :k]).long(), dim=1).sum(dim=1)  # (1,)
+            draft_pad = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+            cand = torch.where(j < n_acc[:, None], draft_pad, g.gather(1, n_acc[:, None]))
+            n_emit = torch.minimum(n_acc + 1, max_new - st["n_out"])
+            is_eos = (cand == eos) & (j < n_emit[:, None])
+            any_eos = is_eos.any(dim=1)
+            n_keep = torch.where(any_eos, is_eos.long().argmax(dim=1) + 1, n_emit)
+            n_keep = torch.where(active, n_keep, torch.zeros_like(n_keep))
+            kept = j < n_keep[:, None]
+            wp, hist_len, n_out = st["wp"], st["hist_len"], st["n_out"]
+            st["out"].scatter_(0, torch.where(kept, n_out[:, None] + j, dump_out)[0], cand[0])
+            st["hist"].scatter_(1, torch.where(kept, hist_len[:, None] + j, dump_hist), cand)
+            st["hist_len"] = hist_len + n_keep
+            # only the emitted slots become attendable
+            st["valid"] |= (sidx >= wp[:, None]) & (sidx < (wp + n_keep)[:, None])
+            st["wp"] = wp + n_keep.to(torch.int32)
+            st["pos_ids"] = st["pos_ids"] + n_keep.to(st["pos_ids"].dtype)
+            last = cand.gather(1, (n_keep - 1).clamp(min=0)[:, None])[:, 0]
+            st["last_tok"] = torch.where(n_keep > 0, last, st["last_tok"])
+            st["n_out"] = n_out + n_keep
+            st["done"] = st["done"] | (any_eos & active)
+            st["cycles"] = st["cycles"] + active.long()

@@ -69,9 +69,30 @@ new prompt's KV row pair and last-logits row are kept (LRU, at most
 with no prefill (``cache_hits``), and identical requests admitted in one
 wave share one prefill.
 
-Not ported: the data axis, speculative decoding, W8A8 prefill and ``warmup``
-(XLA compiles); the constructor raises ``NotImplementedError`` for them,
-and for grammars or the prefix cache under a ``mesh`` (ROADMAP item 14).
+``spec_decode``: speculative continuous batching, greedy only (a sampled
+request raises at ``submit``). Every window is ``ticks`` verify cycles:
+per row the n-gram proposer (ops/ngram) drafts ``spec_draft_k`` tokens from
+the row's history on the device (``state["hist"]``: the prompt, the
+emitted tokens and the pending token, at their cache positions), one
+forward verifies [pending token, drafts] (models/paligemma.decode_verify,
+per-row positions; on the kernel path the decode chain at
+``max_slots * (spec_draft_k + 1)`` rows), and the row emits the accepted
+prefix of its inputs, 1 to ``spec_draft_k + 1`` tokens, the model's token
+after it becoming the pending one. Only emitted slots become valid. Rows
+retire on a budget counted down on the device (``state["left"]``): the
+host learns the accepted counts only at read-back. Grammar rows step their
+DFA through the block and mask each position's argmax with the state after
+its prefix, so a disallowed draft is rejected exactly there. A verify
+writes ``spec_draft_k`` slots past the last emitted token, so ``submit``
+caps each budget to leave them room. Tokens equal the non-speculative
+greedy engine's. ``spec_corrupt_frac``: a benchmark's acceptance dial
+(engine.generate_spec's ``corrupt_frac``; drawn from ``generator``).
+
+Not ported: the data axis, W8A8 prefill and ``warmup`` (XLA compiles); the
+constructor raises ``NotImplementedError`` for them, and for grammars, the
+prefix cache or speculative decoding under a ``mesh`` (ROADMAP item 14).
+Speculation with a ``lora_bank`` raises ``ValueError``, as in the JAX
+engine (its verify forward takes no adapters).
 """
 
 from __future__ import annotations
@@ -92,6 +113,7 @@ from ..kernels import decode_layer as _dl
 from ..kernels import decode_layer_tp as _tp
 from ..models import gemma, paligemma
 from ..ops import sampling
+from ..ops.ngram import propose_ngram
 from ..train.lora import stack_lora_bank
 
 
@@ -152,9 +174,26 @@ class _Window:
     ticks: int
     snapshot: List[Optional[tuple]]  # (request, epoch at dispatch) per slot
     ready: Optional[torch.cuda.Event] = None  # the host copy landed (CUDA)
+    # speculative windows: tokens is (ticks, max_slots, draft_k + 1) and
+    # cycle t of a slot emitted its first counts[t, slot] entries
+    counts: Optional[torch.Tensor] = None
 
 
-_NOT_PORTED = ("spec_decode", "int8_act_prefill")
+_NOT_PORTED = ("int8_act_prefill",)
+
+
+def _read_back(*tensors):
+    """Start copying a window's device tensors to pinned host memory,
+    behind this window only: (host tensors, the event that marks them
+    landed). CPU tensors come back as they are, with no event."""
+    if not tensors[0].is_cuda:
+        return tensors, None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors)
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
 
 
 class ServingEngine:
@@ -172,16 +211,18 @@ class ServingEngine:
         fused_decode: Optional[bool] = None,
         pipeline: Optional[bool] = None,
         spec_decode: bool = False,
-        *,
+        spec_draft_k: int = 8,
+        spec_match_n: int = 2,
+        spec_corrupt_frac: float = 0.0,
         lora_bank: Optional[Dict[str, Any]] = None,
         grammars: Optional[Dict[str, Any]] = None,
         prefix_cache: bool = False,
         prefix_cache_entries: int = 8,
         int8_act_prefill: bool = False,
+        *,
         generator: Optional[torch.Generator] = None,
     ):
-        """The JAX engine's parameters in its order, up to its
-        ``spec_draft_k`` (speculative decoding is not ported); the rest are
+        """The JAX engine's parameters in its order; ``generator`` is
         keyword-only.
 
         ``decode_params``: optional second weight set (the int8 tree of
@@ -194,16 +235,22 @@ class ServingEngine:
         ``lora_bank``: {name: adapter tree} for multi-LoRA serving;
         ``grammars``: {name: TokenDFA} for constrained decoding;
         ``prefix_cache`` / ``prefix_cache_entries``: exact-match prefix KV
-        reuse (module docstring). ``generator``: the draws of sampled
-        requests (default: seed 0 on the device)."""
-        given = dict(spec_decode=spec_decode, int8_act_prefill=int8_act_prefill)
+        reuse; ``spec_decode``, ``spec_draft_k``, ``spec_match_n``,
+        ``spec_corrupt_frac``: speculative decoding (module docstring).
+        ``generator``: the draws of sampled requests and of
+        ``spec_corrupt_frac`` (default: seed 0 on the device)."""
+        given = dict(int8_act_prefill=int8_act_prefill)
         unported = [k for k in _NOT_PORTED if given[k]]
         if unported:
             raise NotImplementedError(f"ServingEngine: {', '.join(unported)} not ported")
+        if spec_decode and lora_bank:
+            raise ValueError("spec_decode + lora_bank is unimplemented (the verify forward "
+                             "takes no adapters)")
         if lora_bank and mesh is not None:
             raise NotImplementedError("ServingEngine: lora_bank with a mesh (tensor-parallel "
                                       "multi-LoRA serving) is not ported yet")
-        for name, on in (("grammars", grammars), ("prefix_cache", prefix_cache)):
+        for name, on in (("grammars", grammars), ("prefix_cache", prefix_cache),
+                         ("spec_decode", spec_decode)):
             if on and mesh is not None:
                 raise NotImplementedError(f"ServingEngine: {name} with a mesh is not ported yet "
                                           "(ROADMAP item 14)")
@@ -211,6 +258,10 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.mesh = mesh
+        self.spec_decode = bool(spec_decode)
+        self.spec_draft_k = spec_draft_k
+        self.spec_match_n = spec_match_n
+        self.spec_corrupt_frac = float(spec_corrupt_frac)
         # whole trees: _setup_fused shards (or repacks) the decode tree
         self.decode_params = decode_params if decode_params is not None else params
         self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
@@ -308,7 +359,7 @@ class ServingEngine:
         if not fused:
             return False
         layers = self.decode_params["lm"]["layers"]
-        if not _dl.supported(self.config.text_config, layers, self.max_slots):
+        if not _dl.supported(self.config.text_config, layers, self._chain_rows()):
             raise ValueError(
                 "fused_decode (the default on a CUDA device) needs one KV head and the "
                 "int8 decode tree of runtime.quantize.quantize_lm_for_serving; pass "
@@ -320,6 +371,11 @@ class ServingEngine:
             dp["lm"]["head_q"] = _dh.repack_head(dp["lm"]["head_q"])
         self.decode_params = dp
         return True
+
+    def _chain_rows(self) -> int:
+        """Rows the decode chain takes at once: the slots, times the
+        verify block under speculation."""
+        return self.max_slots * ((self.spec_draft_k + 1) if self.spec_decode else 1)
 
     def _chain_tick(self) -> bool:
         """Whether the ticks run the decode kernel chain (which takes a
@@ -341,7 +397,7 @@ class ServingEngine:
 
     def _zero_state(self) -> Dict[str, torch.Tensor]:
         n, dev = self.max_slots, self.device
-        return {
+        state = {
             "next_tok": torch.zeros((n,), dtype=torch.int32, device=dev),
             "valid": torch.zeros((n, self.max_seq_len), dtype=torch.bool, device=dev),
             "write_pos": torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -353,6 +409,13 @@ class ServingEngine:
             "gid": torch.zeros((n,), dtype=torch.int32, device=dev),
             "dstate": torch.zeros((n,), dtype=torch.int32, device=dev),
         }
+        if self.spec_decode:
+            # each row's token history at its cache positions (the last
+            # column takes the writes of positions not kept) and its budget
+            # left, counted down on the device
+            state["hist"] = torch.zeros((n, self.max_seq_len + 1), dtype=torch.int64, device=dev)
+            state["left"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+        return state
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device without waiting for queued device work (a
@@ -393,6 +456,20 @@ class ServingEngine:
                     "completed match could never retire the row")
         # prompt + generated never writes past max_seq_len
         req.max_new_tokens = min(req.max_new_tokens, self.max_seq_len - len(req.input_ids))
+        if self.spec_decode:
+            if req.do_sample:
+                raise ValueError(
+                    f"request {req.request_id}: spec_decode serving is greedy-only (acceptance "
+                    "compares drafts with the model's argmax); submit with do_sample=False or "
+                    "use an engine without spec_decode")
+            # a verify writes spec_draft_k slots past the last emitted token
+            req.max_new_tokens = min(req.max_new_tokens,
+                                     self.max_seq_len - len(req.input_ids) - self.spec_draft_k)
+            if req.max_new_tokens < 1:
+                raise ValueError(
+                    f"request {req.request_id}: prompt of {len(req.input_ids)} tokens leaves no "
+                    f"room under spec_decode (spec_draft_k={self.spec_draft_k} slots past the "
+                    f"last token must fit in max_seq_len {self.max_seq_len})")
         req.t_submit = time.perf_counter()
         self.pending.append(req)
 
@@ -446,6 +523,7 @@ class ServingEngine:
         st["logits"][slots] = last_logits
         reqs = [req for _, req in seated]
         st["next_tok"][slots] = self._first_tokens(slots, reqs, last_logits)
+        self._seat_spec(slots, reqs)
         if self.lora_bank is not None:
             st["adapter"][slots] = self._adapter_ids(reqs)
         if self.prefix_cache:
@@ -466,6 +544,22 @@ class ServingEngine:
         st["gid"][slots] = gids
         st["dstate"][slots] = dstates
         return self._masked_argmax(logits, gids, dstates)
+
+    def _seat_spec(self, slots: torch.Tensor, reqs: List[Request]) -> None:
+        """Speculation's state of freshly seated rows: the history (the ids
+        the row was prefilled with, then its pending token at their end)
+        and the budget left."""
+        if not self.spec_decode:
+            return
+        st = self.state
+        hist = np.zeros((len(reqs), self.max_seq_len + 1), np.int64)
+        lens = np.zeros((len(reqs),), np.int64)
+        for i, r in enumerate(reqs):
+            lens[i] = len(r.input_ids)
+            hist[i, :lens[i]] = r.input_ids
+        st["hist"][slots] = self._upload(hist)
+        st["hist"][slots, self._upload(lens)] = st["next_tok"][slots].long()
+        st["left"][slots] = self._upload(np.asarray([r.max_new_tokens for r in reqs], np.int32))
 
     def _seat_dstates(self, reqs: List[Request]) -> np.ndarray:
         """Each row's DFA state at seating: the start state, or, for a
@@ -548,6 +642,8 @@ class ServingEngine:
         st["logits"][slot] = logits
         st["next_tok"][slot:slot + 1] = self._first_tokens(slice(slot, slot + 1), [req],
                                                            logits[None])
+        if self.spec_decode:
+            self._seat_spec(self._upload(np.asarray([slot], np.int64)), [req])
         if self.lora_bank is not None:
             st["adapter"][slot:slot + 1] = self._adapter_ids([req])
 
@@ -750,11 +846,135 @@ class ServingEngine:
         return self._decode_window(lefts, ticks, lambda active: self._tick(
             active, temps, top_ps, do_samples, with_sampling, kv_bucket))
 
+    # -- speculative windows (module docstring) --------------------------
+    def _verify(self, tokens_in, greedy: bool, kv_arg):
+        """The verify forward of a spec cycle over the slots' (B, s) inputs:
+        (B, s) ids with ``greedy`` (the argmax head), else (B, s, vocab)
+        logits (hook: the paged engine verifies over its pool)."""
+        st = self.state
+        return paligemma.decode_verify(
+            self.decode_params, self.config, tokens_in, self.cache, st["write_pos"],
+            st["valid"], st["pos_ids"], kv_bucket=kv_arg, fused_layer=self.fused_decode,
+            greedy_head=greedy)[0]
+
+    def _spec_cycle(self, greedy: bool, kv_arg):
+        """One verify cycle of every row on the device: drafts, verify,
+        acceptance, state. Returns ((B, k + 1) inputs, zero past each row's
+        count; (B,) count emitted)."""
+        st = self.state
+        kd = self.spec_draft_k
+        left, wp = st["left"], st["write_pos"]
+        active = left > 0
+        draft = propose_ngram(st["hist"], wp + 1, self.spec_match_n, kd)  # (B, k)
+        if self.spec_corrupt_frac > 0.0:
+            u = torch.rand(draft.shape, generator=self.generator, device=draft.device)
+            draft = torch.where(u < self.spec_corrupt_frac,
+                                (draft + 1) % self.config.text_config.vocab_size, draft)
+        tokens_in = torch.cat([st["next_tok"].long()[:, None], draft], dim=1)  # (B, k + 1)
+        out = self._verify(tokens_in, greedy, kv_arg)
+        dstates = None
+        if self.grammar_table is not None:
+            # s_{i+1}: the state after tokens_in[:, :i+1], from the live state
+            # (the one before the pending token); position i's argmax is
+            # masked by s_{i+1}. A -1 (left the grammar) is clamped for the
+            # gather: acceptance stops before such a position matters
+            gid, cur, states = st["gid"], st["dstate"], []
+            for i in range(kd + 1):
+                cur = self.grammar_table[gid, cur.clamp(min=0), tokens_in[:, i]].to(torch.int32)
+                states.append(cur)
+            dstates = torch.stack(states, dim=1)  # (B, k + 1)
+            if not greedy:  # a greedy verify has no constrained row seated
+                allowed = self.grammar_table[gid[:, None], dstates.clamp(min=0)] >= 0
+                out = torch.where(allowed, out, -torch.inf)
+        g = (out if greedy else out.argmax(dim=-1)).long()  # (B, k + 1)
+        n_acc = torch.cumprod((draft == g[:, :kd]).long(), dim=1).sum(dim=1)
+        n_keep = torch.where(active, torch.minimum(n_acc + 1, left.long()),
+                             torch.zeros_like(n_acc))
+        j = torch.arange(kd + 1, device=g.device)[None]
+        if "valid" in st:  # only the emitted slots become attendable
+            sidx = torch.arange(self.max_seq_len, device=g.device)[None]
+            st["valid"] |= (sidx >= wp[:, None]) & (sidx < (wp + n_keep)[:, None])
+        last = (n_keep - 1).clamp(min=0)[:, None]
+        nxt = torch.where(active, g.gather(1, last)[:, 0], st["next_tok"].long())
+        # history: the kept drafts at wp + 1 .., then the new pending token
+        dump = self.max_seq_len
+        tgt_d = torch.where((j[:, :kd] < (n_keep - 1)[:, None]) & active[:, None],
+                            wp.long()[:, None] + 1 + j[:, :kd], dump)
+        st["hist"].scatter_(1, tgt_d, draft)
+        tgt_n = torch.where(active, wp.long() + n_keep, dump)
+        st["hist"].scatter_(1, tgt_n[:, None], nxt[:, None])
+        st["next_tok"] = nxt.to(torch.int32)
+        st["write_pos"] = wp + n_keep.to(torch.int32)
+        st["pos_ids"] = st["pos_ids"] + n_keep.to(st["pos_ids"].dtype)
+        st["left"] = left - n_keep.to(torch.int32)
+        if dstates is not None:
+            kept_state = dstates.gather(1, last)[:, 0]
+            st["dstate"] = torch.where(n_keep > 0, kept_state, st["dstate"])
+        return torch.where(j < n_keep[:, None], tokens_in, torch.zeros_like(tokens_in)), n_keep
+
+    def _spec_window_arg(self, ticks: int):
+        """The attended window of a spec window (hook: pages for the paged
+        engine): every cycle may emit ``spec_draft_k + 1`` tokens and
+        writes ``spec_draft_k`` past them, plus under pipelining one window
+        the host has not read back yet."""
+        per_window = ticks * (self.spec_draft_k + 1)
+        lag = per_window if self.pipeline else 0
+        return self._kv_bucket(max(
+            (len(r.input_ids) + self._generated[r.request_id] for r in self.slots
+             if r is not None), default=0) + per_window + lag + self.spec_draft_k)
+
+    def _spec_greedy(self) -> bool:
+        """Whether the verify takes the argmax head: the kernel path with no
+        constrained row seated (hook: the paged engine's chain)."""
+        return self._head_argmax_tick(False)
+
+    def _run_spec_window(self, ticks: int):
+        """``ticks`` verify cycles enqueued with no host synchronization;
+        returns ((ticks, B, k + 1) tokens, (ticks, B) counts)."""
+        kv_arg = self._spec_window_arg(ticks)
+        greedy = self._spec_greedy()
+        outs = [self._spec_cycle(greedy, kv_arg) for _ in range(ticks)]
+        return (torch.stack([o for o, _ in outs]).to(torch.int32),
+                torch.stack([c for _, c in outs]).to(torch.int32))
+
+    def _dispatch_spec(self) -> Optional[_Window]:
+        """``_dispatch`` under speculation: the budgets live on the device
+        (``state["left"]``, set at seating), so the host sizes windows from
+        the counts it has read back; under pipelining they lag one window,
+        and a row whose device budget ran out emits nothing until its
+        window is absorbed. Page growth and the attended window assume
+        every cycle accepts every draft."""
+        def _lefts():
+            return [r.max_new_tokens - self._generated[r.request_id] if r is not None else 0
+                    for r in self.slots]
+
+        maxleft = max(_lefts(), default=0)
+        if maxleft <= 0:
+            return None
+        ticks = self.sync_every if maxleft >= self.sync_every else 1
+        per_window = ticks * (self.spec_draft_k + 1)
+        self._before_window(per_window + self.spec_draft_k)  # may preempt slots (paged)
+        lefts = _lefts()
+        if not any(l > 0 for l in lefts):
+            return None
+        (tokens, counts), ready = _read_back(*self._run_spec_window(ticks))
+        snapshot: List[Optional[tuple]] = []
+        for slot, req in enumerate(self.slots):
+            if req is not None and lefts[slot] > 0:
+                self._dispatched[req.request_id] = min(
+                    req.max_new_tokens, self._dispatched[req.request_id] + per_window)
+                snapshot.append((req, req.epoch))
+            else:
+                snapshot.append(None)
+        return _Window(tokens, ticks, snapshot, ready, counts)
+
     def _dispatch(self) -> Optional[_Window]:
         """Fill free slots, size one decode window from dispatched budgets
         and enqueue it. Returns the window (None when no slot can decode);
         ``ticks`` is ``sync_every``, or 1 for tail windows."""
         self._fill_slots()
+        if self.spec_decode:
+            return self._dispatch_spec()
 
         def _lefts():
             return [r.max_new_tokens - self._dispatched[r.request_id] if r is not None else 0
@@ -782,13 +1002,7 @@ class ServingEngine:
         charges = [min(ticks, max(l, 0)) for l in lefts]
         tokens = self._run_window(ticks, self._upload(np.asarray(charges, np.int32)), temps_t,
                                   top_t, do_t, with_sampling)
-        ready = None
-        if tokens.is_cuda:  # start the read-back now, behind this window only
-            host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
-            host.copy_(tokens, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            tokens = host
+        (tokens,), ready = _read_back(tokens)
         snapshot: List[Optional[tuple]] = []
         for slot, req in enumerate(self.slots):
             if req is not None and charges[slot] > 0:
@@ -805,6 +1019,7 @@ class ServingEngine:
         if window.ready is not None:
             window.ready.synchronize()
         token_np = window.tokens.numpy()
+        counts_np = None if window.counts is None else window.counts.numpy()
         finished: List[Request] = []
         for slot, snap in enumerate(window.snapshot):
             if snap is None:
@@ -813,8 +1028,12 @@ class ServingEngine:
             if req.done or req.epoch != epoch or self.slots[slot] is not req:
                 continue  # retired/preempted since dispatch
             now = time.perf_counter()
-            for t in range(window.ticks):
-                tok = int(token_np[t, slot])
+            if counts_np is None:
+                toks = [int(token_np[t, slot]) for t in range(window.ticks)]
+            else:  # cycle t emitted the first counts[t, slot] of its inputs
+                toks = [int(token_np[t, slot, i]) for t in range(window.ticks)
+                        for i in range(int(counts_np[t, slot]))]
+            for tok in toks:
                 req.tokens.append(tok)
                 if req.t_first_token is None:
                     req.t_first_token = now

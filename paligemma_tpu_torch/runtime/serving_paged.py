@@ -47,9 +47,21 @@ of the tail page. Entries no row holds are evicted LRU-first at
 ``prefix_cache_entries`` and, under pool pressure, before admission fails
 or a live request is preempted.
 
+``spec_decode``: speculative windows as in the dense engine, over the pool
+(models/paligemma.decode_verify_paged: position j of row r's block is
+written through the table at ``write_pos + j``, a block may cross a page,
+and it attends ``[0, write_pos + j]``). The kernel path runs the decode
+chain at ``max_slots * (spec_draft_k + 1)`` rows
+(kernels/decode_layer_paged.layers_decode_fused_paged), so a speculating
+engine takes ``paged_kernel`` "fused" (or "staged") or
+``fused_decode=False``; a page walk raises. Each window reserves pages for
+its worst case, ``ticks * (spec_draft_k + 1) + spec_draft_k`` positions
+past what was dispatched. A preempted row is recomputed from its prompt and
+emitted tokens. The verify writes start past the prompt, so they land in
+the row's own pages, never in a prefix-cache entry's borrowed ones.
+
 Not ported: the data axis (the JAX engine's DP pool, whose prefix-cache
-entries are shard-local: ROADMAP item 14), speculative decoding and W8A8
-prefill.
+entries are shard-local: ROADMAP item 14) and W8A8 prefill.
 """
 
 from __future__ import annotations
@@ -91,22 +103,24 @@ class PagedServingEngine(ServingEngine):
         prefix_cache: bool = False,
         prefix_cache_entries: int = 8,
         spec_decode: bool = False,
-        *,
+        spec_draft_k: int = 8,
+        spec_match_n: int = 2,
         pipeline: Optional[bool] = None,
         lora_bank: Optional[Dict[str, Any]] = None,
         grammars: Optional[Dict[str, Any]] = None,
         int8_act_prefill: bool = False,
+        *,
         fused_decode: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """The JAX engine's parameters in its order, up to its
-        ``spec_decode`` (speculative decoding is not ported); the rest are
-        keyword-only. ``n_pages``: physical pool size, page 0 being the
-        garbage page (default: half the dense engine's reservation).
-        ``max_seq_len`` bounds one request's length (the page table's width)
-        and reserves nothing. ``mesh``: tensor parallel; ``lora_bank``,
-        ``grammars``, ``prefix_cache``: module docstring. ``spec_decode``
-        and ``int8_act_prefill`` are not ported and raise when set."""
+        """The JAX engine's parameters in its order; ``fused_decode`` and
+        ``generator`` are keyword-only. ``n_pages``: physical
+        pool size, page 0 being the garbage page (default: half the dense
+        engine's reservation). ``max_seq_len`` bounds one request's length
+        (the page table's width) and reserves nothing. ``mesh``: tensor
+        parallel; ``lora_bank``, ``grammars``, ``prefix_cache``,
+        ``spec_decode``: module docstring. ``int8_act_prefill`` is not
+        ported and raises when set."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")
@@ -128,7 +142,8 @@ class PagedServingEngine(ServingEngine):
             params, config, max_slots=max_slots, max_seq_len=max_seq_len,
             cache_dtype=cache_dtype, use_flash=use_flash, decode_params=decode_params,
             sync_every=sync_every, mesh=mesh, fused_decode=fused_decode, pipeline=pipeline,
-            spec_decode=spec_decode, lora_bank=lora_bank, grammars=grammars,
+            spec_decode=spec_decode, spec_draft_k=spec_draft_k, spec_match_n=spec_match_n,
+            lora_bank=lora_bank, grammars=grammars,
             prefix_cache=prefix_cache, prefix_cache_entries=prefix_cache_entries,
             int8_act_prefill=int8_act_prefill, generator=generator,
         )
@@ -157,8 +172,13 @@ class PagedServingEngine(ServingEngine):
             return True
         if self.paged_kernel == "staged":
             self.paged_kernel = "fused"  # the TPU's staging hybrid: one chain here
+        if self.spec_decode and self.paged_kernel != "fused":
+            raise ValueError(
+                f"spec_decode with paged_kernel={self.paged_kernel!r}: the verify runs the "
+                "decode chain ('fused') or the plain path (fused_decode=False); a page walk "
+                "has no verify")
         if self.paged_kernel == "fused":
-            if not _dlp.supported(tc, layers, self.max_slots, page_size=self.page_size):
+            if not _dlp.supported(tc, layers, self._chain_rows(), page_size=self.page_size):
                 raise ValueError(
                     "paged_kernel='fused' on the kernel path needs one KV head, the int8 "
                     "decode tree of runtime.quantize.quantize_lm_for_serving and a page size "
@@ -414,3 +434,20 @@ class PagedServingEngine(ServingEngine):
         kernel = self._kernel_for_bucket(pages_bucket)
         return self._decode_window(lefts, ticks, lambda active: self._tick_paged(
             active, temps, top_ps, do_samples, with_sampling, pages_bucket, kernel, table))
+
+    # -- speculative windows (module docstring) --------------------------
+    def _verify(self, tokens_in, greedy: bool, kv_arg):
+        st = self.state
+        return paligemma.decode_verify_paged(
+            self.decode_params, self.config, tokens_in, self.cache, self.paged.page_table,
+            st["write_pos"], st["pos_ids"], pages_bucket=kv_arg,
+            fused_layer=self.paged_kernel == "fused", greedy_head=greedy)[0]
+
+    def _spec_window_arg(self, ticks: int) -> int:
+        """The logical pages a spec window attends: ``_dispatched`` already
+        assumes every cycle accepts every draft; plus the last cycle's
+        ``spec_draft_k`` slots past its tokens."""
+        return self._pages_bucket(ticks * (self.spec_draft_k + 1) + self.spec_draft_k)
+
+    def _spec_greedy(self) -> bool:
+        return self.paged_kernel == "fused" and self._head_argmax_tick(False)

@@ -7,6 +7,8 @@ points ``--model_path`` at (CPU):
   lines exactly, for one row and with ``--decode_detections``;
 * a sampled batch is deterministic per ``--seed``;
 * ``--quantize_int8`` gives the port engine's tokens on the int8 tree;
+* ``--speculative`` prints the JAX CLI's ``--speculative`` rows, which are
+  its greedy rows, and refuses sampling and batches as the JAX CLI does;
 * user mistakes, flags of parts not yet ported, a missing card and
   ``--dtype float32`` on a card exit 2 with a one-line reason.
 """
@@ -178,9 +180,45 @@ def test_cli_friendly_errors(checkpoint_dir, image_path, capsys):
     assert "file not found" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("extra", [[], ["--quantize_int8"]], ids=["bf16", "int8"])
+def test_cli_speculative_prints_the_jax_cli_rows(checkpoint_dir, image_path, capsys, extra):
+    """--speculative (generate_spec) against the JAX CLI's --speculative
+    (fp32 weights; each CLI quantizes its own int8 tree, so the int8 run is
+    held against the port's greedy rows only), and against the port's own
+    greedy rows."""
+    from paligemma_tpu.cli.infer import main as jax_main
+
+    argv = _argv(checkpoint_dir, image_path, ["describe the image"], "--max_tokens_to_generate",
+                 "9", "--dtype", "float32", *extra)
+    spec = t_infer.run(t_infer.parse_args(argv + ["--only_cpu", "--speculative",
+                                                  "--draft_k", "3"]))
+    got = _rows(capsys.readouterr().out)
+    greedy = t_infer.run(t_infer.parse_args(argv + ["--only_cpu"]))
+    capsys.readouterr()
+    if not extra:
+        jax_main(argv + ["--speculative", "--draft_k", "3"])
+        assert got == _rows(capsys.readouterr().out)
+    assert spec.texts == greedy.texts and len(got) == 1
+    np.testing.assert_array_equal(spec.tokens, greedy.tokens)
+    assert 1 <= spec.timings["spec_cycles"] <= spec.tokens.shape[1]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--do_sample"], "greedy-only"),
+    (["--prompt", "b", "--image_file_path", None], "one image/prompt"),
+], ids=["sampled", "batch"])
+def test_cli_speculative_rules_exit_2(checkpoint_dir, image_path, capsys, flags, match):
+    flags = [image_path if f is None else f for f in flags]
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--only_cpu", "--speculative",
+                           *flags))
+    assert ei.value.code == 2
+    cap = capsys.readouterr()
+    assert match in cap.err and "Loading model" not in cap.out
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--int8_prefill", "--quantize_int8"], "13"),
-    (["--speculative"], "8"),
     (["--data_parallel", "2"], "14"),
     (["--model_parallel", "2"], "14"),
 ])

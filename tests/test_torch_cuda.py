@@ -1102,3 +1102,65 @@ def test_paged_prefix_cache_hit_on_card():
     fl = kernels.launch_counts()["flash_attention_fwd"] - n0
     assert fl == cfg.text_config.num_hidden_layers, fl
     assert got[1] == got[0] and got[2] == got[0] and len(got[0]) == 12
+
+
+@pytest.mark.cuda
+def test_decode_attention_rows_per_cache_bits_on_card():
+    """The verify's dense attention: s query rows per cache row, each its own
+    mask row, against its plain version, and the bits of the call on the
+    cache rows repeated s times."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, s, w, d = 3, 5, 200, 256
+    kc, vc = (torch.randn(b, w, d, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(b * s, 8, d, generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.rand(b * s, w, generator=g, device=dev) < 0.6
+    got = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5, rows_per_cache=s)
+    _close_rel(got, t_dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5, s))
+    rep = t_dattn.decode_attention(q, kc.repeat_interleave(s, 0).contiguous(),
+                                   vc.repeat_interleave(s, 0).contiguous(), valid, d**-0.5)
+    assert torch.equal(got, rep)
+    with pytest.raises(ValueError, match="rows_per_cache"):
+        t_dattn.decode_attention(q[:4], kc, vc, valid[:4], d**-0.5, rows_per_cache=s)
+
+
+@pytest.mark.cuda
+def test_spec_on_card_keeps_the_decode_steps_tokens():
+    """generate_spec and both serving engines with spec_decode on the
+    decode kernels give the tokens of the non-speculative kernel path,
+    exactly (the verify rows have the decode step's bits); no CUDA tensor
+    reaches the plain int8 product."""
+    import numpy as np
+
+    from paligemma_tpu_torch.kernels import quant
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    dev = _card()
+    cfg, params, dq = _serving_model(dev)
+    eng = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq)
+    r = _serving_requests(cfg, 1)[0]
+    ids = r.input_ids[None]
+    px = torch.from_numpy(r.pixel_values[None]).to(dev)
+    want = eng.generate(px, ids, np.ones_like(ids), max_new_tokens=40, eos_token_id=-1,
+                        sync_every=8)
+    plain = quant._int8_matmul
+    quant._int8_matmul = lambda x, *a: (_ for _ in ()).throw(AssertionError("plain int8"))
+    try:
+        for cf in (0.0, 0.5):
+            got = eng.generate_spec(px, ids, np.ones_like(ids), max_new_tokens=40,
+                                    eos_token_id=-1, draft_k=6, corrupt_frac=cf)
+            assert np.array_equal(got, want)
+        base = _served(ServingEngine(params, cfg, max_slots=3, max_seq_len=128,
+                                     decode_params=dq, sync_every=4), _serving_requests(cfg, 5))
+        for make in (lambda: ServingEngine(params, cfg, max_slots=3, max_seq_len=128,
+                                           decode_params=dq, sync_every=4, spec_decode=True,
+                                           spec_draft_k=5),
+                     lambda: PagedServingEngine(params, cfg, max_slots=3, max_seq_len=128,
+                                                page_size=16, decode_params=dq, sync_every=4,
+                                                spec_decode=True, spec_draft_k=5)):
+            assert _served(make(), _serving_requests(cfg, 5)) == base
+    finally:
+        quant._int8_matmul = plain

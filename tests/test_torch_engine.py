@@ -226,6 +226,18 @@ def test_port_runs_without_jax():
         out = eng.generate(np.zeros((1, 3, 28, 28), np.float32), ids, np.ones_like(ids),
                            max_new_tokens=3, eos_token_id=-1)
         assert out.shape == (1, 3), out.shape
+        # speculative decoding: the proposer, generate_spec, both engines
+        from paligemma_tpu_torch.ops.ngram import propose_ngram
+        assert propose_ngram(torch.tensor([[1, 2, 1, 2]]), torch.tensor([4]), 1, 2).shape == (1, 2)
+        spec = eng.generate_spec(np.zeros((1, 3, 28, 28), np.float32), ids, np.ones_like(ids),
+                                 max_new_tokens=3, eos_token_id=-1, draft_k=2)
+        assert spec.tolist() == out.tolist(), (spec, out)
+        for cls, kw in ((ServingEngine, {}), (PagedServingEngine, {"page_size": 16})):
+            srv = cls(params, cfg, max_slots=2, max_seq_len=32, spec_decode=True, spec_draft_k=2,
+                      **kw)
+            srv.submit(Request(request_id=0, input_ids=ids[0], max_new_tokens=3,
+                               pixel_values=np.zeros((3, 28, 28), np.float32), eos_token_id=-1))
+            assert [len(r.tokens) for r in srv.run_to_completion()] == [3]
         paged = PagedServingEngine(params, cfg, max_slots=2, max_seq_len=32, page_size=16)
         for i in range(3):
             paged.submit(Request(request_id=i, input_ids=ids[0], max_new_tokens=3,

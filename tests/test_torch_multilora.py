@@ -621,6 +621,9 @@ OPERANDS_DIFFER = {
 C5_FUNCTIONS = (
     "models.paligemma.prefill", "models.paligemma.decode_step",
     "models.paligemma.decode_step_greedy", "models.paligemma.decode_step_paged",
+    "models.paligemma.decode_verify", "models.paligemma.decode_verify_paged",
+    "models.gemma.forward_paged_verify", "ops.ngram.propose_ngram",
+    "runtime.engine.PaliGemmaEngine.generate_spec",
     "models.gemma.forward", "models.gemma.forward_paged_decode",
     "models.gemma.forward_paged_decode_fused", "models.gemma.init_kv_cache",
     "models.gemma.lm_head", "runtime.paged_cache.PagedKVCache.__init__",

@@ -5,7 +5,8 @@ tests/test_torch_cli.py (CPU, ``--only_cpu --dtype float32``):
 * batch mode, dense and paged: the result lines give the JAX CLI's
   ``request_id``, ``text`` and ``num_tokens`` for greedy requests, plainly
   and with ``--grammar`` and ``--prefix_cache`` (constrained rows,
-  unconstrained rows and byte-identical duplicates in one file);
+  unconstrained rows and byte-identical duplicates in one file), and the
+  same with ``--spec_decode``;
 * HTTP mode in-process on a free port: /generate (path and base64 image),
   a stream whose events carry the tokens of the non-stream answer and end
   with a ``done`` event, /healthz, /cancel of a queued request (made
@@ -64,13 +65,15 @@ def _lines(out):
     return [json.loads(ln) for ln in out.strip().splitlines()]
 
 
-@pytest.mark.parametrize("variant", ["plain", "grammar_prefix_cache"])
+@pytest.mark.parametrize("variant", ["plain", "grammar_prefix_cache", "spec_decode"])
 @pytest.mark.parametrize("engine", ["dense", "paged"])
 def test_batch_matches_the_jax_cli(checkpoint_dir, image_path, tmp_path, capsys,  # noqa: F811
                                    engine, variant):
     from paligemma_tpu.cli.serve import main as jax_main
 
     rows, extra = (ROWS, []) if variant == "plain" else (ROWS_EXTRAS, EXTRAS)
+    if variant == "spec_decode":
+        extra = extra + ["--spec_decode", "--spec_draft_k", "3"]
     argv = ["--model_path", checkpoint_dir, "--engine", engine, "--requests_jsonl",
             _jsonl(tmp_path, rows, image_path), "--max_slots", "2", "--max_seq_len", "64",
             "--page_size", "16", "--sync_every", "2", "--dtype", "float32", *extra]
@@ -271,7 +274,6 @@ def _exit2(argv, capsys, match):
 
 @pytest.mark.parametrize("flags,match", [
     ([], "--requests_jsonl"),
-    (["--spec_decode"], "ROADMAP item 8"),
     (["--int8_prefill"], "ROADMAP item 13"),
     (["--data_parallel", "2"], "ROADMAP item 14"),
     (["--model_parallel", "2"], "ROADMAP item 14"),
@@ -279,7 +281,7 @@ def _exit2(argv, capsys, match):
     (["--grammar", "g=(ab"], "--grammar g"),
     (["--lora", "x"], "NAME=DIR"),
     (["--lora", "x=/nonexistent/adapter"], "not found"),
-], ids=["no_mode", "spec_decode", "int8_prefill", "data_parallel", "model_parallel",
+], ids=["no_mode", "int8_prefill", "data_parallel", "model_parallel",
         "grammar_form", "grammar_regex", "lora_form", "lora_missing"])
 def test_friendly_errors(checkpoint_dir, tmp_path, capsys, flags, match):  # noqa: F811
     mode = [] if not flags else ["--requests_jsonl", "-"]
@@ -301,6 +303,16 @@ def test_request_errors_exit_2(checkpoint_dir, image_path, tmp_path, capsys):  #
     save_pytree(str(not_lora), {"params": torch.zeros(2)})
     _exit2(base + ["--requests_jsonl", reqs, "--lora", f"x={not_lora}"], capsys,
            "not a LoRA adapter checkpoint")
+
+
+@pytest.mark.parametrize("engine", ["dense", "paged"])
+def test_spec_decode_refuses_a_sampled_request(checkpoint_dir, image_path, tmp_path,  # noqa: F811
+                                               capsys, engine):
+    """--spec_decode is greedy-only, as the JAX CLI's: a sampled row exits 2."""
+    reqs = _jsonl(tmp_path, [{"prompt": "hi", "do_sample": True}], image_path, "s.jsonl")
+    _exit2(["--model_path", checkpoint_dir, "--only_cpu", "--dtype", "float32", "--engine",
+            engine, "--page_size", "16", "--requests_jsonl", reqs, "--spec_decode"], capsys,
+           "greedy-only")
 
 
 def test_card_rule(checkpoint_dir, capsys, monkeypatch):  # noqa: F811

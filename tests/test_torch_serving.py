@@ -262,8 +262,9 @@ def test_kernel_path_raises_on_unsupported_tree():
     with pytest.raises(ValueError, match="paged_kernel='fused'"):
         t_paged.PagedServingEngine(tp, cfg, max_slots=2, max_seq_len=32, page_size=16,
                                    fused_decode=True)
-    with pytest.raises(NotImplementedError):
-        t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, spec_decode=True)
+    with pytest.raises(NotImplementedError, match="spec_decode with a mesh"):
+        t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, spec_decode=True,
+                                mesh=object())
     eng = t_serving.ServingEngine(tp, cfg, max_slots=1, max_seq_len=16)
     with pytest.raises(ValueError, match="exceeds the per-slot budget"):
         eng.submit(_req(t_serving.Request, _spec(0, 1, 20, 2)))
