@@ -17,6 +17,12 @@ seed, int8 decode tree) through its main paths:
   grammars (constrained texts accepted, free rows unchanged, the logits
   head), over HTTP (a cancel, 8 concurrent requests, a stream) and with
   LoRA adapters saved by save_pytree;
+* the fine-tuning entry point (cli.finetune.main) on that checkpoint: LoRA
+  r8 over a seeded manifest with evaluations and --export_hf, its losses
+  bit for bit a Trainer's on the batches derived here in the CLI's order,
+  its checkpoints restoring to that Trainer's state, its evaluations
+  recomputed, its export loaded back and answering through cli.infer, then
+  --resume_from, --base_quant nf4 and --full_finetune runs;
 * the continuous-batching serving path: the dense ServingEngine and the
   paged PagedServingEngine serve the same 12 requests with identical
   tokens, the paged engine preempts and recomputes from a small pool, its
@@ -49,9 +55,11 @@ seed, int8 decode tree) through its main paths:
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
 ``launches`` summed over the counted runs of the paths (the four CLI runs,
-the serve_cli runs, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs, the
-TP runs, the ablation phase's runs and the 8 training steps; each run's counts
-are zeroed just before it and read just after), its error against its plain version, its time,
+the serve_cli runs, the four finetune CLI runs and the answer from their
+export, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs,
+the TP runs, the ablation phase's runs and the 8 training steps; each run's
+counts are zeroed just before it and read just after), its error against its
+plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
 operations / 989 TFLOP/s at the timed shapes). Then the card's name and
@@ -2144,9 +2152,9 @@ CLI_DISK_SLACK = 1 << 30
 
 
 class _StubImage:
-    """Stands in for a PIL image (the card's host has no PIL): ``.size``
-    and ``.convert("RGB")`` over the uint8 (H, W, 3) array saved in the
-    "image file" (``np.save``)."""
+    """Stands in for a PIL image (the card's host has no PIL): ``.size``,
+    ``.convert("RGB")`` and ``.resize`` over the uint8 (H, W, 3) array
+    saved in the "image file" (``np.save``)."""
 
     def __init__(self, arr):
         self._arr = arr
@@ -2156,6 +2164,14 @@ class _StubImage:
         if mode != "RGB":
             raise ValueError(f"stub image: mode {mode}")
         return self._arr
+
+    def resize(self, size, resample=None):
+        """An antialiased bicubic resize to ``size`` (W, H) on the CPU,
+        rounded back to uint8 (PIL's filter differs in the last bits)."""
+        x = torch.from_numpy(self._arr).permute(2, 0, 1)[None].float()
+        y = F.interpolate(x, size=(size[1], size[0]), mode="bicubic", antialias=True,
+                          align_corners=False)
+        return _StubImage(y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy())
 
 
 class _WordTokenizer:
@@ -2245,11 +2261,21 @@ class _WordTokenizer:
         skip = {self.vocab[t] for t in self._SPECIAL} if skip_special_tokens else set()
         return "".join(f" {words.get(t, f'w{t}')}" for t in row if t not in skip)
 
+    def save_pretrained(self, path):
+        """Writes the vocabulary, which ``_StandIns``' ``from_pretrained``
+        of ``path`` reads back (the same ids for the same words)."""
+        with open(os.path.join(path, _WORDS_FILE), "w") as f:
+            json.dump({"vocab": self.vocab, "next": self._next}, f)
+
+
+_WORDS_FILE = "word_tokenizer.json"
+
 
 class _StandIns:
     """Installs ``PIL.Image.open`` and ``transformers.AutoTokenizer`` stand-ins
     in ``sys.modules`` for the ``with`` block and restores what was there;
-    ``tokenizers`` lists every tokenizer handed out."""
+    ``tokenizers`` lists every tokenizer handed out (one that
+    ``save_pretrained`` wrote under the path comes back with its words)."""
 
     def __init__(self, image_token_id, vocab_size=None, words=()):
         import types
@@ -2257,10 +2283,16 @@ class _StandIns:
         self.tokenizers = []
         pil, image, tf = (types.ModuleType(n) for n in ("PIL", "PIL.Image", "transformers"))
         image.open = lambda path: _StubImage(np.load(path))
+        image.Resampling = types.SimpleNamespace(BICUBIC="bicubic")
         pil.Image = image
 
         def from_pretrained(path, **kw):
             tok = _WordTokenizer(image_token_id, vocab_size, words)
+            saved = os.path.join(path, _WORDS_FILE)
+            if os.path.isfile(saved):
+                with open(saved) as f:
+                    state = json.load(f)
+                tok.vocab, tok._next = state["vocab"], state["next"]
             self.tokenizers.append(tok)
             return tok
 
@@ -4520,6 +4552,506 @@ def train_phase(params, cfg, dev, card):
     return total
 
 
+# ------------------------------------------------------------ fine-tuning CLI ----
+FT_ROWS, FT_EVAL_ROWS = 8, 2  # manifest rows
+FT_SHAPES = ((480, 640), (224, 224))  # frame (H, W), alternating
+FT_PROMPT = "extract JSON."  # the CLI's default prompt
+FT_WORDS = ("menu", "item", "coffee", "latte", "bagel", "total", "cash", "change", "tax",
+            "service", "water", "soup")
+FT_NEW = 16  # greedy tokens an evaluation row
+# the main run (plus --epochs 2, --eval_jsonl and --export_hf); warmup 0, so
+# that every second step's update moves the adapters (the CLI's default
+# warmup of 50 gives the first update a learning rate of 0)
+FT_FLAGS = ("--batch_size", "2", "--grad_accum", "2", "--lora_rank", "8", "--max_length", "512",
+            "--learning_rate", "1e-3", "--eval_every", "4", "--eval_subset", "2",
+            "--max_new_tokens_eval", str(FT_NEW), "--warmup_steps", "0")
+# the QLoRA and full fine-tune runs: 2 steps over the first 4 rows
+FT_QUICK = ("--epochs", "1", "--batch_size", "2", "--grad_accum", "1", "--lora_rank", "8",
+            "--max_length", "512", "--learning_rate", "1e-3", "--warmup_steps", "0")
+
+
+def _ft_rows(d, rng, n, tag):
+    """``n`` seeded manifest rows: frames of FT_SHAPES saved with np.save,
+    targets of 20-100 words, JSON objects (json2token's route) on every
+    other pair of rows and plain strings on the rest."""
+    rows = []
+    for i in range(n):
+        path = os.path.join(d, f"{tag}{i}.npy")
+        np.save(path, rng.integers(0, 256, (*FT_SHAPES[i % 2], 3), dtype=np.uint8))
+        words = [FT_WORDS[j] for j in rng.integers(0, len(FT_WORDS), int(rng.integers(20, 100)))]
+        if (i // 2) % 2 == 0:
+            k = len(words) // 4
+            target = {"menu": [{"nm": w, "price": f"{int(p)}.00"}
+                               for w, p in zip(words[:k], rng.integers(1, 30, k))],
+                      "total": f"{int(rng.integers(10, 300))}.00"}
+        else:
+            target = " ".join(words)
+        rows.append({"image": path, "prompt": FT_PROMPT, "target": target})
+    return rows
+
+
+def _ft_manifest(path, rows):
+    with open(path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return path
+
+
+def _ft_batches(rows, bs, epoch, processor, seed=0, max_length=512):
+    """The CLI's batches of one epoch, derived here on their own: the order
+    of ``np.random.default_rng(seed + epoch).shuffle``, a partial tail
+    filled with copies of its first row whose labels are all -100."""
+    from paligemma_tpu_torch.train.data import collate, json2token
+
+    order = list(range(len(rows)))
+    if seed >= 0:
+        np.random.default_rng(seed + epoch).shuffle(order)
+    for i in range(0, len(order), bs):
+        idx = order[i:i + bs]
+        n_real = len(idx)
+        chunk = [rows[j] for j in idx + [idx[0]] * (bs - n_real)]
+        targets = [r["target"] if isinstance(r["target"], str) else json2token(r["target"])
+                   for r in chunk]
+        batch = collate(processor, [_StubImage(np.load(r["image"])) for r in chunk],
+                        [r["prompt"] for r in chunk], targets, max_length=max_length)
+        if n_real < bs:
+            batch["labels"][n_real:] = -100
+        yield batch
+
+
+def _same_tree(a, b) -> bool:
+    """Nested dicts / lists equal: tensors bit for bit, on one device and
+    in one dtype, numbers by ==."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(_same_tree, a, b))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b))
+    return a == b
+
+
+class _TrainProbe:
+    """While active, each ``Trainer.train_step`` records its loss, host ms
+    (the step ends in a read of the loss), launch counts (the counters'
+    growth over the step), whether the adapters' B moved, and a copy of its
+    batch, and a CUDA tensor that reaches the plain LM attention
+    (``ops.attention.gqa``) inside a step raises; ``Trainer.save``,
+    ``cli.finetune._evaluate`` and ``export_hf_checkpoint`` are timed."""
+
+    def __init__(self):
+        self.steps, self.saves, self.evals, self.exports = [], [], [], []
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        inner = getattr(owner, name)
+        self._undo.append((owner, name, inner))
+        setattr(owner, name, make(inner))
+
+    def __enter__(self):
+        from paligemma_tpu_torch import kernels
+        from paligemma_tpu_torch.checkpoints import hf_export
+        from paligemma_tpu_torch.cli import finetune
+        from paligemma_tpu_torch.ops import attention
+        from paligemma_tpu_torch.train import trainer
+
+        probe, in_step = self, [False]
+
+        def step(inner):
+            def train_step(tr, batch):
+                before_b = (None if tr.lora is None else
+                            [leaf["b"].clone() for leaf in tr.lora["layers"].values()])
+                before = kernels.launch_counts()
+                in_step[0] = True
+                t0 = time.perf_counter()
+                try:
+                    loss = inner(tr, batch)
+                finally:
+                    in_step[0] = False
+                ms = (time.perf_counter() - t0) * 1e3
+                after = kernels.launch_counts()
+                moved = None if before_b is None else not all(
+                    torch.equal(b0, leaf["b"])
+                    for b0, leaf in zip(before_b, tr.lora["layers"].values()))
+                probe.steps.append({"loss": loss, "ms": ms, "moved": moved,
+                                    "counts": {k: after[k] - before[k] for k in after},
+                                    "batch": {k: np.array(v) for k, v in batch.items()}})
+                return loss
+            return train_step
+
+        def guard(inner):
+            def gqa(q, *a, **kw):
+                if in_step[0] and q.is_cuda:
+                    raise AssertionError("finetune: a CUDA tensor reached the plain LM "
+                                         "attention in a training step")
+                return inner(q, *a, **kw)
+            return gqa
+
+        def timed(out, result=False):
+            def make(inner):
+                def call(*a, **kw):
+                    sync()
+                    t0 = time.perf_counter()
+                    res = inner(*a, **kw)
+                    sync()
+                    out.append(((time.perf_counter() - t0) * 1e3, res if result else None))
+                    return res
+                return call
+            return make
+
+        self._patch(trainer.Trainer, "train_step", step)
+        self._patch(trainer.Trainer, "save", timed(self.saves))
+        self._patch(finetune, "_evaluate", timed(self.evals, result=True))
+        self._patch(hf_export, "export_hf_checkpoint", timed(self.exports, result=True))
+        self._patch(attention, "gqa", guard)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in reversed(self._undo):
+            setattr(owner, name, inner)
+        self._undo = []
+        return False
+
+
+def _ft_call(finetune, argv, stand_ins):
+    """``finetune.main(argv)`` with its stdout and stderr captured and the
+    launch counts zeroed just before and read just after. Returns (its
+    stdout, counts, wall s)."""
+    import contextlib
+    import io
+
+    from paligemma_tpu_torch import kernels
+
+    out, err = io.StringIO(), io.StringIO()
+    n_tok = len(stand_ins.tokenizers)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            finetune.main(argv)
+    except BaseException:  # SystemExit included: show what the CLI said
+        print(f"finetune: the CLI failed; its stdout:\n{out.getvalue()}its stderr:\n"
+              f"{err.getvalue()}", flush=True)
+        raise
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if len(stand_ins.tokenizers) != n_tok + 1:
+        raise AssertionError("finetune: the CLI did not load one tokenizer")
+    if not out.getvalue().endswith("done\n"):
+        raise AssertionError(f"finetune: the CLI did not finish: {out.getvalue()[-400:]!r}")
+    return out.getvalue(), counts, wall
+
+
+def _ft_steps(label, steps, accum, eval_rows, counts, n_layers):
+    """Every step launched exactly TRAIN_PER_STEP and no other kernel; the
+    adapters moved on every ``accum``-th step only; the run's counts are
+    its steps' plus one flash forward a layer for each evaluated row."""
+    for i, s in enumerate(steps):
+        want = {k: TRAIN_PER_STEP.get(k, 0) for k in s["counts"]}
+        if s["counts"] != want:
+            raise AssertionError(f"finetune {label}: step {i + 1} launched {s['counts']}, "
+                                 f"want {want}")
+        if s["moved"] is not None and s["moved"] != ((i + 1) % accum == 0):
+            raise AssertionError(f"finetune {label}: adapters moved on steps "
+                                 f"{[x['moved'] for x in steps]} at grad_accum {accum}")
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"finetune {label}: step {i + 1} loss {s['loss']}")
+    n = len(steps)
+    want = {k: 0 for k in counts}
+    want.update({k: v * n for k, v in TRAIN_PER_STEP.items()})
+    want["flash_attention_fwd"] += n_layers * eval_rows
+    if counts != want:
+        raise AssertionError(f"finetune {label}: the run launched {counts}, want {want}")
+
+
+def _ft_same_batches(label, recorded, mine):
+    if len(recorded) != len(mine) or not all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in zip(recorded, mine)):
+        raise AssertionError(f"finetune {label}: the CLI's batches differ from the ones "
+                             "derived here")
+
+
+def _ft_eval_check(label, trainer, rows, processor, decoded, dist, cfg):
+    """The CLI's evaluation at this step: the rows it decoded equal greedy
+    tokens of a plain-decode engine on ``trainer``'s merged tree, and its
+    val_edit_distance equals the mean distance recomputed from them."""
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.train.data import json2token, normalized_edit_distance
+
+    eng = PaliGemmaEngine(trainer.merged_params(), cfg, max_seq_len=512 + FT_NEW,
+                          eos_token_id=_WordTokenizer.eos_token_id, fused_layer=False)
+    scores = []
+    for row, got in zip(rows, decoded):
+        inputs = processor(images=[_StubImage(np.load(row["image"]))], text=[row["prompt"]])
+        toks = eng.generate(inputs["pixel_values"], inputs["input_ids"],
+                            inputs["attention_mask"], max_new_tokens=FT_NEW, do_sample=False)
+        if toks[0].tolist() != got:
+            raise AssertionError(f"finetune {label}: the CLI's eval tokens {got} != the "
+                                 f"engine's {toks[0].tolist()}")
+        target = row["target"] if isinstance(row["target"], str) else json2token(row["target"])
+        scores.append(normalized_edit_distance(processor.tokenizer.decode(got), target))
+    if float(np.mean(scores)) != dist:
+        raise AssertionError(f"finetune {label}: val_edit_distance {dist} != recomputed "
+                             f"{float(np.mean(scores))}")
+    del eng
+
+
+def finetune_phase(params, cfg, dev, card, ckpt):
+    """The fine-tuning entry point at full width and depth, from the cli
+    phase's HF checkpoint ``ckpt``: ``cli.finetune.main`` over a seeded
+    manifest (8 rows, 2 eval rows; 2 epochs, batch 2, grad_accum 2, LoRA r8,
+    evaluation every 4 steps, --export_hf), held step for step against a
+    Trainer driven here on the batches this function derives in the CLI's
+    order: (a) losses bit for bit; (b) launches per step; (c) the adapters
+    move on every second step only; (d) each val_edit_distance and its
+    tokens; (e) epoch_0, epoch_1 and final restore to the trainer's state;
+    (f) hf_export loads back as the merged tree; (g) ``cli.infer
+    --quantize_int8`` answers from the export with the engine's tokens on
+    the re-quantized merged tree; (h) metrics.jsonl's lines. Then a
+    --resume_from run of one epoch against a restored Trainer, and 2-step
+    runs with --base_quant nf4 and --full_finetune against Trainers on the
+    same bases. Returns the launch counts summed over the CLI runs (i)."""
+    import tempfile
+
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.cli import finetune, infer
+    from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import (quantize_lm_for_serving,
+                                                      quantize_lm_for_training)
+    from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    n_layers = cfg.text_config.num_hidden_layers
+    vc = cfg.vision_config
+    n_el = sum(t.numel() for t in _leaves(params))
+    n_lm = sum(t.numel() for t in _leaves(params["lm"]))
+    work = tempfile.mkdtemp(prefix="finetune_", dir=os.path.dirname(ckpt))
+    need_export, need_full = 4 * n_el, 2 * 3 * 2 * n_lm  # full FT: 2 saves of the LM + 2 moments
+    free = shutil.disk_usage(work).free
+    print(f"finetune: {free} bytes free under {work}: the fp32 export needs {need_export}, the "
+          f"full fine-tune's two checkpoints {need_full}", flush=True)
+    if free < max(need_export, need_full) + CLI_DISK_SLACK:
+        shutil.rmtree(work, ignore_errors=True)
+        raise AssertionError("finetune: no room for the phase's outputs")
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def proc():
+        return PaliGemmaProcessor(_WordTokenizer(cfg.image_token_index), vc.num_image_tokens,
+                                  vc.image_size)
+
+    tc = TrainConfig(learning_rate=1e-3, grad_accum_steps=2, warmup_steps=0, lora_rank=8)
+    tc_quick = dataclasses.replace(tc, grad_accum_steps=1)
+    try:
+        rng = np.random.default_rng(SEED + 17)
+        rows, eval_rows = _ft_rows(work, rng, FT_ROWS, "train"), _ft_rows(work, rng,
+                                                                            FT_EVAL_ROWS, "eval")
+        train = _ft_manifest(os.path.join(work, "train.jsonl"), rows)
+        quick = _ft_manifest(os.path.join(work, "quick.jsonl"), rows[:4])
+        ev = _ft_manifest(os.path.join(work, "eval.jsonl"), eval_rows)
+        out = os.path.join(work, "run")
+        stand = _StandIns(cfg.image_token_index)
+        with stand:
+            # ---- the main run ----
+            torch.cuda.reset_peak_memory_stats()
+            with _TrainProbe() as cli_probe:
+                _, counts, wall = _ft_call(finetune, [
+                    "--model_path", ckpt, "--train_jsonl", train, "--eval_jsonl", ev,
+                    "--output_dir", out, "--epochs", "2", *FT_FLAGS, "--export_hf"], stand)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            add(counts)
+            cli_tok = stand.tokenizers[-1]
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            _ft_steps("main run", cli_probe.steps, 2, 2 * FT_EVAL_ROWS, counts, n_layers)
+            print(f"finetune main run: 8 steps and 2 evaluations of {FT_EVAL_ROWS} rows in "
+                  f"{wall:.2f} s; every step launched exactly {json.dumps(TRAIN_PER_STEP)}, "
+                  f"the run {json.dumps({k: v for k, v in counts.items() if v})} (18 flash "
+                  f"forwards an evaluated row); no CUDA tensor reached the plain LM attention; "
+                  f"adapters moved on steps {[s['moved'] for s in cli_probe.steps]}  [{card}]",
+                  flush=True)
+
+            # (h) metrics.jsonl: a line per step, the evaluations at steps 4 and 8
+            train_keys = ["epoch", "step", "step_ms", "time", "tokens_per_sec", "train_loss"]
+            want = [train_keys] * 4 + [["step", "time", "val_edit_distance"]]
+            if [sorted(m) for m in metrics] != want * 2 or [m["step"] for m in metrics] != [
+                    1, 2, 3, 4, 4, 5, 6, 7, 8, 8]:
+                raise AssertionError(f"finetune (h): metrics.jsonl lines {metrics}")
+
+            # (a) the batches, derived here in the CLI's order, then a
+            # Trainer driven on them alone
+            p_mine = proc()
+            t0 = time.perf_counter()
+            mine = [b for e in (0, 1) for b in _ft_batches(rows, 2, e, p_mine)]
+            collate_ms = (time.perf_counter() - t0) * 1e3 / len(mine)
+            _ft_same_batches("main run", [s["batch"] for s in cli_probe.steps], mine)
+            if p_mine.tokenizer.vocab != cli_tok.vocab:
+                raise AssertionError("finetune: the CLI's tokenizer saw other words")
+            direct = Trainer(params, cfg, tc)
+            evals = [m["val_edit_distance"] for m in metrics if "val_edit_distance" in m]
+            with _TrainProbe() as d_probe:
+                for i, batch in enumerate(mine):
+                    direct.train_step(batch)
+                    if i % 4 != 3:
+                        continue
+                    # (d) the evaluation of this step
+                    k = i // 4
+                    _ft_eval_check(f"(d) step {i + 1}", direct, eval_rows, p_mine,
+                                   cli_tok.decoded[2 * k:2 * k + 2], evals[k], cfg)
+                    # (e) epoch_k restores to this state
+                    for name in (f"epoch_{k}",) + (("final",) if k else ()):
+                        again = Trainer(params, cfg, tc)
+                        again.restore(os.path.join(out, name))
+                        if not _same_tree(again._state(), direct._state()):
+                            raise AssertionError(f"finetune (e): {name} restores to another "
+                                                 "state than the trainer's")
+                        del again
+            cli_losses = [m["train_loss"] for m in metrics if "train_loss" in m]
+            d_losses = [s["loss"] for s in d_probe.steps]
+            if cli_losses != d_losses:
+                raise AssertionError(f"finetune (a): the CLI's losses {cli_losses} != the "
+                                     f"Trainer's {d_losses}")
+            print(f"finetune (a): the CLI's 8 losses equal a Trainer's on the batches derived "
+                  f"here, bit for bit: {' '.join(f'{x:.5f}' for x in cli_losses)}; (d) "
+                  f"val_edit_distance {evals} equal the distances recomputed from the eval "
+                  f"engine's tokens, which equal a plain-decode engine's on the trainer's "
+                  f"merged tree; (e) epoch_0, epoch_1 and final restore to its state, tensor "
+                  f"for tensor; (h) metrics.jsonl holds 8 step lines and 2 eval lines  [{card}]",
+                  flush=True)
+
+            # (f) the export reads back as the merged tree
+            export = os.path.join(out, "hf_export")
+            merged = direct.merged_params()
+            loaded, lcfg = load_hf_model(export, torch.bfloat16, device=dev)
+            if lcfg != cfg or not _same_tree(loaded, merged):
+                raise AssertionError("finetune (f): hf_export loads back as another tree")
+            del loaded
+            (export_ms, export_bytes), = cli_probe.exports
+            print(f"finetune (f): hf_export ({export_bytes} bytes of fp32 safetensors, the "
+                  f"tokenizer's {sorted(os.listdir(export))}) loads back equal to "
+                  f"merged_params(), tensor for tensor", flush=True)
+
+            # (g) cli.infer --quantize_int8 answers from the export
+            argv = ["--model_path", export, "--image_file_path", rows[0]["image"], "--prompt",
+                    CLI_PROMPTS[0], "--quantize_int8", "--max_tokens_to_generate", str(CLI_NEW)]
+            text, t, counts, wall_g, got_rows, want_text = _cli_call(infer, argv, stand)
+            add(counts)
+            _cli_launches("finetune export", counts, n_layers, True)
+            ref_tok = sys.modules["transformers"].AutoTokenizer.from_pretrained(export)
+            p_ref = PaliGemmaProcessor(ref_tok, vc.num_image_tokens, vc.image_size)
+            inputs = p_ref(images=[_StubImage(np.load(rows[0]["image"]))], text=[CLI_PROMPTS[0]])
+            eng = PaliGemmaEngine(merged, cfg, max_seq_len=1024,
+                                  eos_token_id=_WordTokenizer.eos_token_id,
+                                  decode_params=quantize_lm_for_serving(merged))
+            ref = eng.generate(inputs["pixel_values"], inputs["input_ids"],
+                               inputs["attention_mask"], max_new_tokens=CLI_NEW,
+                               sync_every=infer.SYNC_EVERY)
+            if not np.array_equal(np.asarray(got_rows), ref) or not text.endswith(want_text):
+                raise AssertionError(f"finetune (g): cli.infer on the export gave {got_rows}, "
+                                     f"the engine on the merged tree {ref.tolist()}")
+            print(f"finetune (g): cli.infer --quantize_int8 on hf_export answers with the "
+                  f"{ref.shape[1]} ids of PaliGemmaEngine on the re-quantized merged tree: "
+                  f"{ref[0, :8].tolist()} ...", flush=True)
+            _timing_line("finetune export", t, wall_g, card)
+            del eng, merged, inputs
+            shutil.rmtree(export)
+
+            # the resumed run: one epoch from final, against a restored Trainer
+            with _TrainProbe() as r_probe:
+                _, counts, _ = _ft_call(finetune, [
+                    "--model_path", ckpt, "--train_jsonl", train, "--output_dir",
+                    os.path.join(work, "resumed"), "--epochs", "1", *FT_FLAGS,
+                    "--resume_from", os.path.join(out, "final")], stand)
+            add(counts)
+            _ft_steps("resumed", r_probe.steps, 2, 0, counts, n_layers)
+            _ft_same_batches("resumed", [s["batch"] for s in r_probe.steps], mine[:4])
+            restored = Trainer(params, cfg, tc)
+            restored.restore(os.path.join(out, "final"))
+            with _TrainProbe() as rd_probe:
+                for batch in mine[:4]:
+                    restored.train_step(batch)
+            r_cli, r_dir = ([s["loss"] for s in p.steps] for p in (r_probe, rd_probe))
+            if r_cli != r_dir:
+                raise AssertionError(f"finetune resumed: losses {r_cli} != a restored "
+                                     f"Trainer's {r_dir}")
+            print(f"finetune resumed: --resume_from final, one epoch: its 4 losses equal a "
+                  f"Trainer restored from final on the same batches, bit for bit: "
+                  f"{' '.join(f'{x:.5f}' for x in r_cli)}", flush=True)
+            del restored, direct
+
+            # QLoRA and the full fine-tune: 2 steps each against a Trainer
+            quick_batches = list(_ft_batches(rows[:4], 2, 0, proc()))
+            quick_ms = {}
+            for label, flag, make in (
+                    ("nf4", ("--base_quant", "nf4"),
+                     lambda: Trainer(quantize_lm_for_training(params, kind="nf4", fuse=False),
+                                     cfg, tc_quick)),
+                    ("full", ("--full_finetune",),
+                     lambda: Trainer(params, cfg, dataclasses.replace(tc_quick,
+                                                                      lora_rank=None)))):
+                q_out = os.path.join(work, label)
+                with _TrainProbe() as q_probe:
+                    _, counts, _ = _ft_call(finetune, [
+                        "--model_path", ckpt, "--train_jsonl", quick, "--output_dir", q_out,
+                        *FT_QUICK, *flag], stand)
+                add(counts)
+                _ft_steps(label, q_probe.steps, 1, 0, counts, n_layers)
+                _ft_same_batches(label, [s["batch"] for s in q_probe.steps], quick_batches)
+                saved = sorted(os.listdir(q_out))
+                shutil.rmtree(q_out)
+                tq = make()
+                with _TrainProbe() as qd_probe:
+                    for batch in quick_batches:
+                        tq.train_step(batch)
+                del tq
+                torch.cuda.empty_cache()
+                q_cli, q_dir = ([s["loss"] for s in p.steps] for p in (q_probe, qd_probe))
+                if q_cli != q_dir:
+                    raise AssertionError(f"finetune {label}: losses {q_cli} != a Trainer's "
+                                         f"{q_dir}")
+                quick_ms[label] = ([s["ms"] for s in q_probe.steps], q_probe.saves)
+                print(f"finetune {label}: {flag[0]}{' ' + flag[1] if len(flag) > 1 else ''}, "
+                      f"2 steps: losses {' '.join(f'{x:.5f}' for x in q_cli)} equal a "
+                      f"Trainer's bit for bit; step ms {[round(s['ms'], 1) for s in q_probe.steps]}"
+                      f"; saves {[round(ms) for ms, _ in q_probe.saves]} ms ({saved})  [{card}]",
+                      flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the step through the CLI against the Trainer alone, in turns (CLI, Trainer,
+    # CLI resumed, Trainer restored): the main run meets each padded length
+    # first, the three after it run lengths already seen
+    runs = (("CLI", cli_probe), ("Trainer", d_probe), ("CLI resumed", r_probe),
+            ("Trainer restored", rd_probe))
+    lengths = [s["batch"]["input_ids"].shape[1] for s in cli_probe.steps]
+    print("finetune: step ms in turns, padded lengths " + " ".join(map(str, lengths)) + ": "
+          + "; ".join(f"{name} " + " ".join(f"{s['ms']:.1f}" for s in p.steps)
+                      for name, p in runs) + f"  [{card}]", flush=True)
+    cli_ms = [s["ms"] for s in r_probe.steps[1:]]
+    dir_ms = [s["ms"] for s in rd_probe.steps[1:]]
+    tps = [m["tokens_per_sec"] for m in metrics if "tokens_per_sec" in m]
+    print(f"finetune: step through the CLI {float(np.median(cli_ms)):.1f} ms against the Trainer "
+          f"alone {float(np.median(dir_ms)):.1f} ms (the resumed run and the restored Trainer, "
+          f"medians of their steps 2-4); {float(np.median(tps)):.0f} real tokens/s (median over "
+          f"the main run's steps); peak allocated {peak:.2f} GiB (the phase's caller's weights "
+          f"and int8 tree included)  [{card}]", flush=True)
+    eval_ms = [ms for ms, _ in cli_probe.evals]
+    save_ms = [ms for ms, _ in cli_probe.saves]
+    print(f"finetune: collate {collate_ms:.1f} ms a batch of 2 (host: the stand-in frames' "
+          f"resize and tokenizing); evaluation {float(np.mean(eval_ms)) / FT_EVAL_ROWS:.1f} ms "
+          f"a row ({FT_NEW} greedy tokens, plain bf16 decode, engine build included); LoRA "
+          f"saves {' '.join(f'{x:.1f}' for x in save_ms)} ms; export {export_ms / 1e3:.2f} s for "
+          f"{export_bytes} bytes ({export_bytes / export_ms / 1e6:.2f} GB/s into the page cache)"
+          f"  [{card}]", flush=True)
+    return total
+
+
 # ------------------------------------------------------ speculative decoding ----
 SPEC_SEQ = 2048  # generate_spec's cache
 SPEC_NEW = 128  # generate_spec's tokens
@@ -4936,10 +5468,14 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         serve_cli_counts = serve_cli_phase(params, decode, cfg, dev, card, ckpt)
+        torch.cuda.empty_cache()
+        print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        finetune_counts = finetune_phase(params, cfg, dev, card, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"finetune: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4960,7 +5496,7 @@ def main() -> int:
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
-                                           spec_counts))
+                                           spec_counts, finetune_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

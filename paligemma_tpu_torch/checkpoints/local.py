@@ -51,3 +51,8 @@ def restore_pytree(path: str, like: Optional[Any] = None) -> Any:
     tree = torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu",
                       weights_only=True)
     return tree if like is None else _like(tree, like, "")
+
+
+def has_pytree(path: str) -> bool:
+    """Whether ``path`` holds a checkpoint written by ``save_pytree``."""
+    return os.path.isfile(os.path.join(os.path.abspath(path), _FILE))

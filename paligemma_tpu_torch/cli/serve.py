@@ -42,7 +42,8 @@ Flags of parts not yet ported exit 2 with the ROADMAP item that ports
 them: ``--int8_prefill`` (item 13), ``--data_parallel`` /
 ``--model_parallel`` above 1 (item 14). ``--lora``
 reads the port's own adapter checkpoints (checkpoints/local.save_pytree of
-``{"lora": ...}``), not the JAX package's orbax ones (item 7).
+``{"lora": ...}``, as ``cli.finetune`` writes under ``final/``), not the
+JAX package's orbax ones (reading those needs jax).
 """
 
 from __future__ import annotations

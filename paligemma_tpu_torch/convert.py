@@ -4,6 +4,9 @@
 ``jax.tree.map(np.asarray, params)`` gives for the JAX package's params) into
 the port's tensors (model, int8, 4-bit and LoRA trees alike); bf16 arrays
 (``ml_dtypes.bfloat16``) go through an fp32 round trip, which is exact.
+It also carries the mask decoder's tree (processing/mask_vae: HWIO kernels
+kept as they are), and JAX's ``init_lora`` draw, so that both packages can
+train from the same adapters.
 ``init_params`` makes full-width random weights directly on a device from a
 ``torch.Generator``, in the JAX package's layout.
 """
@@ -81,7 +84,9 @@ def init_vision_params(cfg: SiglipVisionConfig, gen, device, dtype) -> Params:
     }
 
 
-def _init_gemma(cfg: GemmaConfig, gen, device, dtype) -> Params:
+def init_lm_params(cfg: GemmaConfig, gen, device, dtype) -> Params:
+    """Random Gemma decoder weights at the config's full width, made on
+    ``device`` with the generator ``gen`` (which must live there)."""
     h, inter = cfg.hidden_size, cfg.intermediate_size
     hq = cfg.num_attention_heads * cfg.head_dim
     hkv = cfg.num_key_value_heads * cfg.head_dim
@@ -115,5 +120,5 @@ def init_params(
         "vision": init_vision_params(vc, generator, device, dtype),
         "projector": {"kernel": _normal((vc.hidden_size, cfg.projection_dim),
                                         vc.hidden_size**-0.5, generator, device, dtype)},
-        "lm": _init_gemma(cfg.text_config, generator, device, dtype),
+        "lm": init_lm_params(cfg.text_config, generator, device, dtype),
     }

@@ -56,6 +56,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import convert
 from ..core import mesh as mesh_lib
 from ..core.config import GemmaConfig
 from ..kernels import decode_layer, decode_layer_paged, decode_layer_paged_tp
@@ -76,6 +77,13 @@ from .siglip import layer_params
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]  # {"k": (L,B,S,n_kv,d), "v": (L,B,S,n_kv,d)}
 CachePos = Union[int, torch.Tensor]  # one write offset, or (B,) int per row
+
+
+def init_params(generator: torch.Generator, cfg: GemmaConfig,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random decoder weights (``convert.init_lm_params``), made on the
+    generator's device."""
+    return convert.init_lm_params(cfg, generator, generator.device, dtype)
 
 
 def init_kv_cache(

@@ -26,10 +26,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import convert
 from ..core.config import PaliGemmaConfig
 from . import gemma, siglip
 
 Params = Dict[str, Any]
+
+
+def init_params(generator: torch.Generator, cfg: PaliGemmaConfig,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random weights of the whole model (``convert.init_params``), made on
+    the generator's device."""
+    return convert.init_params(cfg, generator, generator.device, dtype)
 
 
 def project_image_features(params: Params, image_features: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import convert
 from ..core import mesh as mesh_lib
 from ..core.config import SiglipVisionConfig
 from ..kernels.flash_attention import flash_attention, flash_attention_sharded
@@ -28,6 +29,13 @@ from ..ops.norms import layer_norm
 
 Params = Dict[str, Any]
 ATTN_MODES = ("xla", "flash", "fused")
+
+
+def init_params(generator: torch.Generator, cfg: SiglipVisionConfig,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random tower weights (``convert.init_vision_params``), made on the
+    generator's device."""
+    return convert.init_vision_params(cfg, generator, generator.device, dtype)
 
 
 def layer_params(tree: Params, i: int) -> Params:

@@ -1,4 +1,8 @@
-"""Activations (port of paligemma_tpu/ops/activations.py)."""
+"""Activations and the gated MLP (port of paligemma_tpu/ops/activations.py).
+
+Both towers use tanh-approximated GELU. The Gemma MLP is GeGLU:
+``down(gelu_tanh(gate(x)) * up(x))``.
+"""
 
 from __future__ import annotations
 
@@ -14,3 +18,9 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     out = 0.5 * xf * (1.0 + torch.tanh(_GELU_C * (xf + 0.044715 * xf**3)))
     return out.to(x.dtype)
+
+
+def geglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
+          down_w: torch.Tensor) -> torch.Tensor:
+    """Gemma GeGLU MLP; weights (in, out), so ``x @ w``."""
+    return (gelu_tanh(x @ gate_w) * (x @ up_w)) @ down_w

@@ -84,3 +84,10 @@ def quantize_lm_for_training(
         q_mlp = {name: q4(w) for name, w in mlp.items()}
     new_layers = {**layers, "attn": q_attn, "mlp": q_mlp}
     return {**params, "lm": {**lm, "layers": new_layers}}
+
+
+def quantized_bytes(params: Dict[str, Any]) -> int:
+    """Bytes held by the tree's tensor leaves (weights, scales, codebooks)."""
+    if isinstance(params, dict):
+        return sum(quantized_bytes(v) for v in params.values())
+    return params.numel() * params.element_size() if torch.is_tensor(params) else 0

@@ -55,6 +55,16 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _unflatten(tree, leaves: List[torch.Tensor]):
+    """``leaves`` (in ``_leaves(tree)`` order) laid out as ``tree``."""
+    it = iter(leaves)
+    return _map(lambda _: next(it), tree)
+
+
+# the optimizer state's lists aligned with the trainable leaves
+_PER_LEAF = ("mu", "nu", "acc")
+
+
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(c), adamw(lr, weight_decay=wd))``,
     wrapped in ``MultiSteps(k)`` when k > 1, with the same semantics:
@@ -215,7 +225,12 @@ class Trainer:
         return float(loss)
 
     def _state(self):
-        state = {"opt_state": self.opt_state}
+        # per-leaf moments are saved as trees keyed like the trainable
+        # tree, so a restore pairs them by name whatever order the
+        # restoring trainer's adapter dict was built in
+        trainable = self._trainable(self.params, self.lora)
+        state = {"opt_state": {k: _unflatten(trainable, v) if k in _PER_LEAF else v
+                               for k, v in self.opt_state.items()}}
         if self.lora is not None:
             state["lora"] = self.lora
         else:
@@ -232,7 +247,9 @@ class Trainer:
         from ..checkpoints.local import restore_pytree
 
         state = restore_pytree(path, like=self._state())
-        self.opt_state = state["opt_state"]
+        # the trees come back in this trainer's key order: flatten in it
+        self.opt_state = {k: _leaves(v) if k in _PER_LEAF else v
+                          for k, v in state["opt_state"].items()}
         if self.lora is not None:
             self.lora = state["lora"]
         else:

@@ -188,11 +188,13 @@ def test_port_runs_without_jax():
     ablation, processing, checkpoint and CLI modules included), runs a tiny
     CPU generate, a tiny paged serving run, one with a multi-LoRA bank, a
     training step, the tower with attn="fused", the ablation entry points,
-    the device preprocessing, an HF export -> load round trip and a batch
-    run of cli.serve on the export, and never imports jax or any module of
-    the JAX package."""
+    the device preprocessing, the mask decoder, an HF export -> load round
+    trip, a batch run of cli.serve on the export and one epoch of
+    cli.finetune on it (with an evaluation and --export_hf), and never
+    imports jax or any module of the JAX package."""
     code = textwrap.dedent("""
         import dataclasses
+        import os
         import sys
         import tempfile
         import numpy as np
@@ -200,7 +202,10 @@ def test_port_runs_without_jax():
         import paligemma_tpu_torch
         import json
         from chip_smoke import _StandIns
-        from paligemma_tpu_torch.cli import infer, serve
+        from paligemma_tpu_torch.cli import finetune, infer, serve
+        from paligemma_tpu_torch.processing import mask_vae
+        from paligemma_tpu_torch.runtime.logging import MetricsLogger
+        from paligemma_tpu_torch.train import data, hf_dataset
         from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
         from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
         from paligemma_tpu_torch.processing.images import preprocess_device
@@ -291,10 +296,28 @@ def test_port_runs_without_jax():
                 for p in ("caption en", "caption en", "describe"):
                     fh.write(json.dumps({"prompt": p, "image": d + "/img.npy",
                                          "max_new_tokens": 3}) + "\\n")
+            with open(d + "/train.jsonl", "w") as fh:
+                for t in ({"total": "7"}, "seven words"):
+                    fh.write(json.dumps({"image": d + "/img.npy", "prompt": "extract",
+                                         "target": t}) + "\\n")
             with _StandIns(scfg.image_token_index):
                 serve.main(["--model_path", d, "--requests_jsonl", d + "/reqs.jsonl",
                             "--only_cpu", "--dtype", "float32", "--max_slots", "2",
                             "--max_seq_len", "64", "--quantize_int8", "--prefix_cache"])
+                finetune.main(["--model_path", d, "--train_jsonl", d + "/train.jsonl",
+                               "--eval_jsonl", d + "/train.jsonl", "--eval_every", "1",
+                               "--max_new_tokens_eval", "2", "--output_dir", d + "/ft",
+                               "--epochs", "1", "--grad_accum", "1", "--lora_rank", "2",
+                               "--max_length", "64", "--export_hf", "--only_cpu"])
+            ft = [json.loads(x) for x in open(d + "/ft/metrics.jsonl")]
+            assert [sorted(r) for r in ft] == [
+                ["epoch", "step", "step_ms", "time", "tokens_per_sec", "train_loss"],
+                ["step", "time", "val_edit_distance"]], ft
+            assert sorted(os.listdir(d + "/ft")) == ["epoch_0", "final", "hf_export",
+                                                     "metrics.jsonl"]
+            masks = mask_vae.reconstruct_masks(mask_vae.init_params(torch.Generator(), 16),
+                                               np.zeros((1, 16), np.int32))
+            assert masks.shape == (1, 64, 64)
         assert cfg2 == cfg and torch.equal(again["lm"]["embed"], params["lm"]["embed"])
         assert "jax" not in sys.modules
         foreign = [m for m in sys.modules if m.split(".")[0] == "paligemma_tpu"]

@@ -647,7 +647,14 @@ C5_FUNCTIONS = (
     "processing.grammar.compile_choices", "processing.grammar.compile_token_dfa",
     "processing.grammar.token_strings_from_tokenizer", "cli.serve.main",
     "cli.serve.build_server", "cli.serve._Server.__init__", "cli.serve._Server.run_batch",
-    "cli.serve._Server.serve_http", *OPERANDS_DIFFER,
+    "cli.serve._Server.serve_http", "cli.finetune.main", "train.data.json2token",
+    "train.data.token2json", "train.data.normalized_edit_distance", "train.data.collate",
+    "train.hf_dataset.HFDatasetAdapter.__init__", "train.hf_dataset.load_hf_rows",
+    "runtime.logging.MetricsLogger.__init__", "runtime.logging.MetricsLogger.log",
+    "processing.mask_vae.reconstruct_masks", "processing.mask_vae.to_unit_range",
+    "processing.mask_vae.init_params", "processing.mask_vae.load_vae_oid_npz",
+    "ops.activations.geglu", "runtime.quantize.quantized_bytes", "models.siglip.init_params",
+    "models.gemma.init_params", "models.paligemma.init_params", *OPERANDS_DIFFER,
 )
 
 
