@@ -5,6 +5,13 @@ seed, int8 decode tree) through its main paths:
 
 * the int8 greedy inference path, PaliGemmaEngine.generate, held against
   the plain path;
+* single-copy int8 serving (the ``w8a8`` phase): the W8A8 prefill's two
+  kernels bit for bit against their plain versions at Gemma-2B's four
+  projections, the engine that holds only the int8 tree
+  (``int8_act_prefill``) against the weight-only int8 engine on that tree,
+  with no plain int8 product on the card; ``--int8_prefill`` through both
+  CLIs; the tensor-parallel single-copy prefill at world size 1 (NCCL) and
+  on two gloo ranks giving one card's bits;
 * the reference job through the port's CLI (cli.infer.main): the same
   weights written as a full-size HF checkpoint (fp32 safetensors) and
   loaded back bit for bit, then a caption of a seeded image with
@@ -54,15 +61,16 @@ seed, int8 decode tree) through its main paths:
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
-``launches`` summed over the counted runs of the paths (the four CLI runs,
-the serve_cli runs, the four finetune CLI runs and the answer from their
+``launches`` summed over the counted runs of the paths (the w8a8 phase's
+generate, the five CLI runs, the serve_cli runs, the four finetune CLI runs and the answer from their
 export, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs,
 the TP runs, the ablation phase's runs and the 8 training steps; each run's
 counts are zeroed just before it and read just after), its error against its
 plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
-operations / 989 TFLOP/s at the timed shapes). Then the card's name and
+operations / 989 TFLOP/s at the timed shapes; the W8A8 GEMM's int8
+operations / 1,979 TOPS). Then the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the exit code is not 0 and the last line is never
 printed.
@@ -166,6 +174,8 @@ COLLECTIVE_KEYS = ("c10d::", "nccl:", "record_param_comms", "allreduce", "all_ga
 # the kernel cases' model axis sizes (the H100 runs one rank's shard at a
 # time): 8 query heads and I = 16384 split into 8 / m heads and I / m; the
 # widths are Gemma-2B's in PaliGemma-3B-224
+# the W8A8 prefill's kernels: only the single-copy engines launch them
+W8A8_KERNELS = ("w8a8_quant_rows", "w8a8_gemm")
 TP_SIZES = (1, 2, 4, 8)
 TP_LAYER = dict(hidden=2048, heads=8, head_dim=256, inter=16384, vocab=257152)
 # run (c): two ranks sharing the one card over gloo; the seconds it may take
@@ -214,6 +224,8 @@ WQ_WRAPPERS = ("int4_matmul", "int8_matmul", "int8_matmul_nmajor")
 # H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): bf16 tensor
 # cores and HBM3
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second (H100 SXM)
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 # the spin kernel that checks each profile's device clock (profiled): ~0.5
 # ms at the H100's clocks, so that the ~20 us the events add to a kernel
@@ -416,10 +428,11 @@ def timed_pair(kernel_fn, plain_fn, iters: int):
     return min(k1, k2), min(p1, p2)
 
 
-def bound_ms(flops: float, nbytes: float) -> float:
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> float:
     """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over HBM bandwidth."""
-    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    over their peak rate (by default the bf16 tensor cores') and the bytes
+    over HBM bandwidth."""
+    return max(flops / peak, nbytes / PEAK_BYTES) * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -450,10 +463,11 @@ class KernelReport:
             raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
 
     def time(self, name, label, kernel_fn, plain_fn, flops, n_bytes, library_fn=None,
-             iters=20, in_json=True):
+             iters=20, in_json=True, peak=PEAK_FLOPS):
         """Kernel vs plain version (plain, kernel, kernel, plain), the
         library call if there is one, and the bound of this call's work
-        (``flops`` operations, ``n_bytes`` bytes read once and written once).
+        (``flops`` operations at ``peak`` per second, ``n_bytes`` bytes read
+        once and written once).
         ``in_json``: add the times to the kernel's row of the JSON line
         (else they are printed only). Returns (kernel, plain, library or
         None, bound) in ms."""
@@ -464,7 +478,7 @@ class KernelReport:
                 lib = min(cuda_ms(library_fn, iters), cuda_ms(library_fn, iters))
             except RuntimeError as e:  # a yardstick only: report, do not fail
                 print(f"  {name:20s} {label:44s} library call failed: {e}", flush=True)
-        bound = bound_ms(flops, n_bytes)
+        bound = bound_ms(flops, n_bytes, peak)
         lib_txt = "none" if lib is None else f"{lib:.4f} ms"
         print(f"  {name:20s} {label:44s} kernel {k:.4f} ms  plain {p:.4f} ms  library "
               f"{lib_txt}  bound {bound:.4f} ms ({flops / 1e9:.3f} GFLOP, "
@@ -476,7 +490,7 @@ class KernelReport:
         row["ms"] = row.get("ms", 0.0) + k
         row["plain_ms"] = row.get("plain_ms", 0.0) + p
         row["bound_ms"] = row.get("bound_ms", 0.0) + bound
-        row["flops_ms"] = row.get("flops_ms", 0.0) + flops / PEAK_FLOPS * 1e3
+        row["flops_ms"] = row.get("flops_ms", 0.0) + flops / peak * 1e3
         row["bytes_ms"] = row.get("bytes_ms", 0.0) + n_bytes / PEAK_BYTES * 1e3
         if library_fn is not None:
             prev = row.get("library_ms", 0.0)
@@ -2142,6 +2156,182 @@ def decode_rate(label, e, pixels, ids, mask, card, n=32):
           f"({step_ms:.3f} ms/step)  [{card}]", flush=True)
 
 
+# ----------------------------------------------------------- W8A8 prefill ----
+# rows of the W8A8 kernel cases: one 224 px prompt (256 image + 10 text
+# tokens) and a serving wave (8 prompts of 320 rows)
+W8A8_ROWS = (266, 2560)
+W8A8_TEACHER = 16  # decode steps teacher-forced through both engines
+# Single-copy (W8A8) logits against the weight-only int8 engine's on the same
+# int8 tree, relative to the largest |logit|: W8A8 rounds each activation to
+# half a code (1/254 of its row's amax) before every projection of 18 layers;
+# the decode after it is the same kernel path, on the two prefills' caches.
+# 1.50e-2 on an NVIDIA H100 80GB HBM3 at 700 W; the tolerance is about 3x that
+# reading; a product that dropped or garbled a term is off by O(1).
+W8A8_LOGIT_TOL = 5e-2
+
+
+def _held_bytes(eng) -> int:
+    """Bytes of the card tensors an engine's weight trees hold, each storage
+    once (the single-copy engine's prefill and decode trees share theirs)."""
+    seen = {}
+    for t in list(_leaves(eng.params)) + list(_leaves(eng.decode_params)):
+        if torch.is_tensor(t) and t.is_cuda:
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def w8a8_kernel_cases(report: KernelReport, decode, dev):
+    """K1 and K2 against their plain versions, bit for bit, at the four
+    projections of Gemma-2B (layer CASE_LAYER's int8 weights) and
+    ``W8A8_ROWS`` rows (rows over four decades of scale, row 0 all zero);
+    K2's int32 sums too; a second call's bits. Timed (plain, kernel, kernel,
+    plain; the M266 rows in the JSON line) beside torch._int_mm on the same
+    codes (its (N, K) copy made outside the timed window), then device times
+    (torch.profiler) of K2, _int_mm, cuBLAS bf16 on the weights dequantized
+    beforehand, and K1."""
+    from paligemma_tpu_torch.kernels import w8a8
+
+    layers = decode["lm"]["layers"]
+    groups = {"qkv": "attn", "o": "attn", "gateup": "mlp", "down": "mlp"}
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    sums = {}
+    for m in W8A8_ROWS:
+        for name, k, n in PROJECTIONS:
+            w8 = layers[groups[name]][name]["w8"][CASE_LAYER]
+            s = layers[groups[name]][name]["s"][CASE_LAYER]
+            x = (torch.randn(m, k, generator=g, device=dev)
+                 * 10.0 ** (torch.rand(m, 1, generator=g, device=dev) * 4 - 2)).to(torch.bfloat16)
+            x[0] = 0
+            label = f"{name} M{m} K{k} N{n}"
+            x8, a_s = w8a8.w8a8_quant_rows(x)
+            r8, rs = w8a8.quant_rows_reference(x)
+            report.case("w8a8_quant_rows", f"{label} codes", x8.float(), r8.float(), 0.0)
+            report.case("w8a8_quant_rows", f"{label} scales", a_s, rs, 0.0)
+            got = w8a8.w8a8_gemm(x8, w8, a_s, s)
+            report.case("w8a8_gemm", f"{label} bf16", got, w8a8.gemm_reference(x8, w8, a_s, s),
+                        0.0)
+            acc = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.int32)
+            if not torch.equal(acc, w8a8.int_sums_reference(x8, w8)):
+                raise AssertionError(f"w8a8_gemm {label}: int32 sums differ from the exact ones")
+            if not (torch.equal(w8a8.w8a8_gemm(x8, w8, a_s, s), got) and (got[0] == 0).all()):
+                raise AssertionError(f"w8a8_gemm {label}: a second call's bits differ, or the "
+                                     "all-zero row is not 0")
+            w_nk = w8.t().contiguous()  # torch._int_mm's layout, outside the timed window
+            w_deq = (w8.float() * s).to(torch.bfloat16)
+            in_json = m == W8A8_ROWS[0]
+            t2 = report.time("w8a8_gemm", label, lambda: w8a8.w8a8_gemm(x8, w8, a_s, s),
+                             lambda: w8a8.gemm_reference(x8, w8, a_s, s), 2.0 * m * k * n,
+                             nbytes(x8, w8, a_s, s, got),
+                             library_fn=lambda: torch._int_mm(x8, w_nk.t()), iters=10,
+                             in_json=in_json, peak=PEAK_INT8_OPS)
+            t1 = report.time("w8a8_quant_rows", label, lambda: w8a8.w8a8_quant_rows(x),
+                             lambda: w8a8.quant_rows_reference(x), 3.0 * m * k,
+                             nbytes(x, x8, a_s), iters=10, in_json=in_json,
+                             peak=PEAK_FP32_FLOPS)
+            dt = device_times(f"{label} (weights warm)", (
+                ("w8a8_gemm", lambda: w8a8.w8a8_gemm(x8, w8, a_s, s)),
+                ("torch._int_mm", lambda: torch._int_mm(x8, w_nk.t())),
+                ("cuBLAS bf16 x @ w_deq", lambda: x @ w_deq),
+                ("w8a8_quant_rows", lambda: w8a8.w8a8_quant_rows(x))))
+            acc_row = sums.setdefault(m, {})
+            for key, v in list(dt.items()) + [("bound", t2[3]), ("K1 bound", t1[3])]:
+                acc_row[key] = None if v is None or acc_row.get(key, 0.0) is None else (
+                    acc_row.get(key, 0.0) + v)
+            del w_nk, w_deq
+    for m, row in sums.items():
+        print(f"w8a8: one layer's four projections at M{m}, device ms: " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in row.items()),
+            flush=True)
+
+
+def w8a8_phase(report: KernelReport, params, decode, cfg, dev, card, tok_gen):
+    """W8A8 prefill (single-copy int8 serving) at full width and depth:
+
+    1. K1 and K2 against their plain versions (:func:`w8a8_kernel_cases`);
+    2. the single-copy engine (``params`` = ``decode_params`` = the int8
+       tree, ``int8_act_prefill``): one counted generate under
+       :class:`_NoPlainInt8` (no fp32 copy of an int8 weight, no plain
+       W8A8): 4 K1 and 4 K2 a layer at its prefill, the head's GEMV once;
+    3. its prefill and W8A8_TEACHER decode steps teacher-forced beside the
+       weight-only int8 engine on the same tree: logits within
+       W8A8_LOGIT_TOL, the emitted token wherever the top-2 gap exceeds it;
+       its tokens beside the two-copy engine's (printed);
+    4. TTFT (the prefill, tower included) of the two-copy and single-copy
+       engines in turns, each one's weight bytes and peak allocated memory
+       above the resident trees during a generate, and the prefill's device
+       time by kernel. Returns the launch counts of step 2."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+
+    t0 = time.perf_counter()
+    w8a8_kernel_cases(report, decode, dev)
+    print(f"w8a8: kernel cases done in {time.perf_counter() - t0:.1f} s", flush=True)
+    n_layers = cfg.text_config.num_hidden_layers
+    single = PaliGemmaEngine(decode, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
+                             int8_act_prefill=True)
+    if not (single.use_flash and single.fused_layer and single._greedy_head_fused):
+        raise AssertionError("w8a8: the single-copy engine did not select the kernel paths")
+    pixels, ids, mask = make_inputs(cfg, dev)
+    kernels.reset_launch_counts()
+    with _NoPlainInt8():
+        tok = single.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1,
+                              sync_every=16)
+        sync()
+    counts = kernels.launch_counts()
+    steps = counts["decode_attention"] // n_layers
+    want = {"w8a8_quant_rows": 4 * n_layers, "w8a8_gemm": 4 * n_layers,
+            "flash_attention_fwd": n_layers, "int8_gemv_rope_kv": n_layers * steps,
+            "int8_gemv": 3 * n_layers * steps + 1, "rms_norm": steps, "head_argmax": steps}
+    print(f"w8a8: single-copy generate ({ids.shape[1]} prompt rows, {N_NEW} tokens): launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad or not steps:
+        raise AssertionError(f"w8a8: launch counts (got, want) off: {bad}")
+    agree = int((tok == tok_gen).sum())
+    print(f"w8a8: single-copy vs two-copy (bf16 prefill) engine: {agree}/{N_NEW} tokens "
+          f"identical: {tok[0, :12].tolist()} ...", flush=True)
+
+    wo = PaliGemmaEngine(decode, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
+    ls, ss = single.prefill(pixels, ids, mask)
+    lw, sw = wo.prefill(pixels, ids, mask)
+    worst, ties = _compare(ls, lw, "w8a8 prefill", tok[0, 0], W8A8_LOGIT_TOL)
+    for t in range(W8A8_TEACHER):
+        step_tok = torch.from_numpy(tok[:, t])
+        ls, ss = single.decode_step(step_tok, ss)
+        lw, sw = wo.decode_step(step_tok, sw)
+        w, f = _compare(ls, lw, f"w8a8 decode {t}", tok[0, t + 1], W8A8_LOGIT_TOL)
+        worst, ties = max(worst, w), ties + f
+    sync()
+    print(f"w8a8: teacher-forced logits, single-copy vs the weight-only int8 engine on the same "
+          f"tree: max rel err {worst:.3e} (tol {W8A8_LOGIT_TOL}) over the prefill + "
+          f"{W8A8_TEACHER} steps; near-tie steps {ties}", flush=True)
+    del wo, ls, ss, lw, sw
+
+    two = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
+    ttft = {"two-copy": [], "single-copy": []}
+    for name, e in (("two-copy", two), ("single-copy", single), ("single-copy", single),
+                    ("two-copy", two)):
+        ttft[name].append(sorted(cuda_ms(lambda: e.prefill(pixels, ids, mask), 1)
+                                 for _ in range(3))[1])
+    for name, e in (("two-copy", two), ("single-copy", single)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1, sync_every=16)
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms, parts = device_ms(lambda: e.prefill(pixels, ids, mask), 3, f"w8a8 {name} prefill")
+        top = ", ".join(f"{k[:40]} {us:.1f} us" for k, us in parts[:6])
+        print(f"w8a8: {name} engine: TTFT (prefill, tower included, b1 {ids.shape[1]} tokens) "
+              f"{' / '.join(f'{v:.2f}' for v in ttft[name])} ms in turns; weights held "
+              f"{_held_bytes(e) / 2**30:.3f} GiB; peak allocated above them during a {N_NEW}-token "
+              f"generate {peak / 2**30:.3f} GiB; prefill device "
+              f"{'not measured' if ms is None else f'{ms:.3f} ms'} ({top})  [{card}]",
+              flush=True)
+    del two, single
+    return counts
+
+
 # ---------------------------------------------------------------- the CLI ----
 CLI_NEW = 32  # greedy tokens of the CLI's caption
 CLI_IMAGE = (480, 640)  # the seeded RGB frame's (H, W)
@@ -2523,6 +2713,32 @@ def cli_phase(params, decode, cfg, dev, card):
                   flush=True)
             _timing_line("--speculative", t, wall, card)
 
+            # the same caption from one int8 tree (--int8_prefill): the
+            # single-copy engine's ids, its prefill's products on K1 + K2
+            with _NoPlainInt8():
+                text, t, counts, wall, rows, want = _cli_call(infer, argv + ["--int8_prefill"],
+                                                              stand)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            _cli_launches("--int8_prefill", counts, n_layers, True)
+            if {counts["w8a8_quant_rows"], counts["w8a8_gemm"]} != {4 * n_layers}:
+                raise AssertionError(f"cli --int8_prefill: {counts['w8a8_quant_rows']} K1 and "
+                                     f"{counts['w8a8_gemm']} K2 launches, want {4 * n_layers}")
+            eng = PaliGemmaEngine(decode, cfg, max_seq_len=1024,
+                                  eos_token_id=_WordTokenizer.eos_token_id, decode_params=decode,
+                                  int8_act_prefill=True)
+            ref8 = eng.generate(inputs["pixel_values"], inputs["input_ids"],
+                                inputs["attention_mask"], max_new_tokens=CLI_NEW,
+                                sync_every=infer.SYNC_EVERY)
+            del eng
+            if not np.array_equal(np.asarray(rows), ref8) or not text.endswith(want):
+                raise AssertionError(f"cli --int8_prefill: ids {rows} != the single-copy "
+                                     f"engine's {ref8.tolist()}")
+            print(f"cli --int8_prefill: {ref8.shape[1]} ids equal the single-copy engine's on "
+                  f"the in-memory int8 tree; {int((ref8 == ids).sum())}/{ids.size} equal the "
+                  f"two-copy CLI's", flush=True)
+            _timing_line("--int8_prefill", t, wall, card)
+
             # a sampled batch of two images of one size, prompts of two lengths
             argv = ["--model_path", d, "--quantize_int8", "--max_tokens_to_generate",
                     str(CLI_NEW), "--do_sample", "--seed", "0"]
@@ -2693,7 +2909,8 @@ def _serve_cli_launches(label, counts, ticks, eng, n_layers, head_ticks=None, lo
     with grammars, on the ``head_ticks`` that took it (``_count_ticks``: none
     with a constrained row seated) and the int8 GEMV head on the others,
     which must be some; with a bank 4 LoRA shrinks per layer and tick, none
-    without."""
+    without; with ``--int8_prefill`` 4 K1 and 4 K2 a layer and wave and the
+    wave's head GEMV."""
     paged = hasattr(eng, "paged")
     attn, other = (("paged_decode_attention", "decode_attention") if paged
                    else ("decode_attention", "paged_decode_attention"))
@@ -2703,6 +2920,11 @@ def _serve_cli_launches(label, counts, ticks, eng, n_layers, head_ticks=None, lo
             "int8_gemv": 3 * n_layers * ticks + ticks - argmax, "head_argmax": argmax,
             "lora_shrink": 4 * n_layers * ticks if lora else 0}
     want.update({k: 0 for k in TP_KERNELS + ABLATION_KERNELS + TRAIN_ONLY})
+    # --int8_prefill: every wave (256 image tokens and more) is W8A8, and its
+    # head the int8 GEMV
+    waves = eng.prefill_calls if eng.int8_act_prefill else 0
+    want.update(w8a8_quant_rows=4 * n_layers * waves, w8a8_gemm=4 * n_layers * waves)
+    want["int8_gemv"] += waves
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if bad or not ticks or argmax == (0 if head_ticks is None else ticks):
         raise AssertionError(f"serve_cli {label}: launch counts (got, want) off: {bad}, "
@@ -2922,11 +3144,13 @@ def serve_cli_phase(params, decode, cfg, dev, card, d):
                                   cfg.vision_config.image_size)
         to_req = serve._Server(None, proc, tok, 100)._to_request
 
-        def reference(rs, timed=None, **kw):
+        def reference(rs, timed=None, single=False, **kw):
             """A ServingEngine's tokens for the requests of ``rs``; with
             ``timed``, the wall of its run_to_completion and of converting
-            the rows (the CLI's preprocessing) go there."""
-            eng = ServingEngine(params, cfg, decode_params=decode, **SERVE, **kw)
+            the rows (the CLI's preprocessing) go there; ``single``: the
+            single-copy engine (the int8 tree alone, W8A8 prefill)."""
+            eng = ServingEngine(decode if single else params, cfg, decode_params=decode,
+                                int8_act_prefill=single, **SERVE, **kw)
             t0 = time.perf_counter()
             reqs = [to_req(r) for r in rs]
             pre = time.perf_counter() - t0
@@ -2965,6 +3189,41 @@ def serve_cli_phase(params, decode, cfg, dev, card, d):
                 plain_srv = run.pop("srv")  # kept for the tick comparison of run 3
             runs[engine] = run["lines"]
             released(run)
+        # 1b. --int8_prefill (single-copy serving), dense and paged, with no
+        # plain int8 product; then dense without and with it, in turns
+        ref8 = reference(rows, single=True)
+        for engine in ("dense", "paged"):
+            label = f"{engine} --int8_prefill"
+            with _NoPlainInt8():
+                run = _serve_cli_call(serve, argv(path, "--engine", engine, "--int8_prefill"),
+                                      stand, label)
+            add(run["counts"])
+            eng = run["srv"].engine
+            if not eng.int8_act_prefill or "w8" not in eng.params["lm"]["layers"]["attn"]["qkv"]:
+                raise AssertionError(f"serve_cli {label}: the engine does not prefill W8A8 from "
+                                     "the int8 tree")
+            _serve_cli_launches(label, run["counts"], run["ticks"], eng, n_layers)
+            differ = [i for i in ref8 if run["tokens"].get(i) != ref8[i]]
+            if differ:
+                raise AssertionError(f"serve_cli {label}: requests {differ} differ from the "
+                                     "single-copy ServingEngine's tokens")
+            _serve_cli_line(f"batch {label}", run["lines"], run["wall"], run["counts"], eng,
+                            run["ticks"], card)
+            released(run)
+        same = sum(ref8[i] == ref[i] for i in ref)
+        print(f"serve_cli: --int8_prefill dense and paged: 12/12 requests with the single-copy "
+              f"ServingEngine's tokens; {same}/12 requests with the two-copy engine's",
+              flush=True)
+        for label, extra in (("dense (in turns)", ()),
+                             ("dense --int8_prefill (in turns)", ("--int8_prefill",))):
+            with _NoPlainInt8():
+                run = _serve_cli_call(serve, argv(path, "--engine", "dense", *extra), stand,
+                                      label)
+            add(run["counts"])
+            _serve_cli_line(f"batch {label}", run["lines"], run["wall"], run["counts"],
+                            run["srv"].engine, run["ticks"], card)
+            released(run)
+
         by_id = {ln["request_id"]: ln for ln in runs["dense"]}
         n_ref = sum(map(len, ref.values()))
         print(f"serve_cli: batch dense and paged: 12/12 requests with the ServingEngine's "
@@ -3509,7 +3768,8 @@ def serving_phase(params, decode, cfg, dev, card):
     print(f"serve: launches summed over the served runs (a)-(e): {json.dumps(total)}",
           flush=True)
     missing = [k for k, v in total.items()
-               if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS + LORA_KERNELS]
+               if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS + LORA_KERNELS
+               + W8A8_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -4099,17 +4359,17 @@ def _leaves(tree):
         yield tree
 
 
-def _compare(lk, lp, label, emitted):
+def _compare(lk, lp, label, emitted, tol=LOGIT_REL_TOL):
     """Relative logit error; and the plain path's greedy token must be the
     emitted one wherever its top-2 gap exceeds the tolerance."""
     if not torch.isfinite(lk).all():
         raise AssertionError(f"{label}: non-finite kernel-path logits")
     scale = float(lp.abs().max())
     rel = float((lk - lp).abs().max()) / scale
-    if rel > LOGIT_REL_TOL:
-        raise AssertionError(f"{label}: kernel vs plain logits rel err {rel} > {LOGIT_REL_TOL}")
+    if rel > tol:
+        raise AssertionError(f"{label}: kernel vs plain logits rel err {rel} > {tol}")
     top2 = lp[0].topk(2).values
-    if float(top2[0] - top2[1]) > LOGIT_REL_TOL * scale:
+    if float(top2[0] - top2[1]) > tol * scale:
         if int(lp[0].argmax()) != int(emitted):
             raise AssertionError(f"{label}: plain greedy {int(lp[0].argmax())} != emitted {emitted}")
         return rel, 0
@@ -4224,6 +4484,26 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
               f"{same}", flush=True)
         if not same:
             raise AssertionError(f"tp (b): TP generate tokens differ:\n{tok}\n{tok_gen}")
+        # W8A8 at m = 1: the single-copy TP engine's prefill gives one card's bits
+        single = PaliGemmaEngine(decode, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
+                                 int8_act_prefill=True)
+        lo, so = single.prefill(pixels, ids, mask)
+        del single
+        tp8 = PaliGemmaEngine(decode, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
+                              mesh=mesh, int8_act_prefill=True)
+        kernels.reset_launch_counts()
+        lt, st = tp8.prefill(pixels, ids, mask)
+        sync()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        same = torch.equal(lt, lo) and all(torch.equal(st.cache[n], so.cache[n]) for n in "kv")
+        print(f"tp (b): single-copy W8A8 prefill, TP m=1 vs one card: logits and KV cache "
+              f"bit-identical {same}; {counts['w8a8_quant_rows']} K1, {counts['w8a8_gemm']} K2",
+              flush=True)
+        if not same or {counts["w8a8_quant_rows"], counts["w8a8_gemm"]} != {4 * n_layers}:
+            raise AssertionError("tp (b): the TP m=1 single-copy prefill is not one card's")
+        del tp8, lo, so, lt, st
         decode_rate("tp (b): TP m=1 ", eng, pixels, ids, mask, card)
         profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="TP m=1 NCCL ",
                       layers=n_layers)
@@ -4285,6 +4565,29 @@ def _teacher_logits(eng, req, tokens):
     return torch.stack(out)
 
 
+def _w8a8_lm_prefill(tree, cfg, mesh, dev):
+    """The LM's single-copy W8A8 prefill of make_inputs' prompt
+    (gemma.forward with ``int8_act`` from the int8 ``tree``) over one card's
+    tower embeddings; under ``mesh`` from this rank's slices of the LM.
+    Returns (the last token's logits, the K cache, the V cache)."""
+    from paligemma_tpu_torch.core import mesh as mesh_lib
+    from paligemma_tpu_torch.models import gemma, paligemma, siglip
+
+    pixels, ids, mask = make_inputs(cfg, dev)
+    feats = siglip.encode(tree["vision"], cfg.vision_config, pixels.to(torch.bfloat16),
+                          attn=paligemma._vision_attn_mode(cfg, True))
+    merged = paligemma.merge_embeddings(cfg, ids, gemma.embed_tokens(tree["lm"], ids),
+                                        paligemma.project_image_features(tree, feats))
+    lm = tree["lm"] if mesh is None else mesh_lib.shard_params(tree["lm"], mesh)
+    tc = cfg.text_config
+    n = mask.sum(-1).to(torch.int32)
+    cache = gemma.init_kv_cache(tc, ids.shape[0], ids.shape[1], torch.bfloat16, device=dev)
+    logits, cache = gemma.forward(lm, tc, merged, paligemma.prefill_position_ids(mask), cache,
+                                  0, mask.bool(), flash_lens=(n, n), logits_idx=n - 1,
+                                  mesh=mesh, int8_act=True)
+    return logits, cache["k"], cache["v"]
+
+
 def _tp2_rank(rank, world, init, out_dir, teacher):
     """One rank of run (c) (a spawned process on the shared card): the
     dense TP ServingEngine on the 12 requests over gloo, then request 0's
@@ -4321,8 +4624,10 @@ def _tp2_rank(rank, world, init, out_dir, teacher):
         tp = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode, mesh=mesh)
         lt = _teacher_logits(tp, req, teacher)
         del tp
-        out = {"tokens": toks, "wall": wall, "ttft": ttft}
+        out = {"tokens": toks, "wall": wall, "ttft": ttft,
+               "w8a8": [t.cpu() for t in _w8a8_lm_prefill(decode, cfg, mesh, dev)]}
         if rank == 0:
+            out["w8a8_one"] = [t.cpu() for t in _w8a8_lm_prefill(decode, cfg, None, dev)]
             one = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode)
             lo = _teacher_logits(one, req, teacher)
             if not torch.isfinite(lt).all():
@@ -4377,6 +4682,13 @@ def tp_two_rank_phase(cfg, card, tok_dense):
           f"tokens equal the one-card kernel engine's; first divergence (request, token): "
           f"{first[0] if first else 'none'}; serving wall {outs[0]['wall']:.2f} s, TTFT p50 "
           f"{outs[0]['ttft']:.1f} ms  [{card}]", flush=True)
+    one = outs[0]["w8a8_one"]
+    same = all(torch.equal(a, b) for o in outs for a, b in zip(o["w8a8"], one))
+    print(f"tp (c): the LM's single-copy W8A8 prefill over one card's tower embeddings, "
+          f"{world} gloo ranks vs one card: last-token logits and KV cache bit-identical on "
+          f"every rank {same}", flush=True)
+    if not same:
+        raise AssertionError(f"tp (c): the W8A8 prefill at m={world} is not one card's bits")
     worst = outs[0]["rel_err"]
     print(f"tp (c): request 0's {len(tok_dense[0])} one-card tokens teacher-forced, TP m=2 vs "
           f"one-card kernel logits: max rel err {worst:.3e} (tol {LOGIT_REL_TOL})", flush=True)
@@ -5069,24 +5381,30 @@ SPEC_LAYER = (("qkv", 2048, 2560), ("o", 2048, 2048), ("gateup", 2048, 32768),
 
 class _NoPlainInt8:
     """While active, ``kernels.quant._int8_matmul`` (the plain int8 branch
-    of ``matmul_any``, which copies each weight to fp32) raises on a CUDA
-    tensor: the spec path must run on the decode kernels."""
+    of ``matmul_any``, which copies each weight to fp32) and
+    ``quant._w8a8_matmul`` (W8A8's plain version) raise on a CUDA tensor:
+    the spec path must run on the decode kernels, a single-copy prefill on
+    the W8A8 kernels and the GEMV tile."""
+
+    NAMES = ("_int8_matmul", "_w8a8_matmul")
 
     def __enter__(self):
         from paligemma_tpu_torch.kernels import quant
 
-        self.quant, self.inner = quant, quant._int8_matmul
+        self.quant = quant
+        self.inner = {n: getattr(quant, n) for n in self.NAMES}
+        for n, fn in self.inner.items():
+            def guarded(x, w8, s, n=n, fn=fn):
+                if x.is_cuda:
+                    raise AssertionError(f"a CUDA tensor reached quant.{n}")
+                return fn(x, w8, s)
 
-        def guarded(x, w8, s):
-            if x.is_cuda:
-                raise AssertionError("spec: a CUDA tensor reached quant._int8_matmul")
-            return self.inner(x, w8, s)
-
-        quant._int8_matmul = guarded
+            setattr(quant, n, guarded)
         return self
 
     def __exit__(self, *exc):
-        self.quant._int8_matmul = self.inner
+        for n, fn in self.inner.items():
+            setattr(self.quant, n, fn)
         return False
 
 
@@ -5446,7 +5764,8 @@ def main() -> int:
     print(f"build: {lib_path.parent.name} built/loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
     ptxas_lines(lib_path.parent / "ptxas.log", ("int8_gemv_kernel", "head_argmax_kernel",
-                                                 "int4_gemv_kernel", "lora_shrink_kernel"))
+                                                 "int4_gemv_kernel", "lora_shrink_kernel",
+                                                 "w8a8"))
 
     report = KernelReport()
     t0 = time.perf_counter()
@@ -5461,6 +5780,10 @@ def main() -> int:
     print(f"ablation: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     params, decode, cfg, tok_gen = main_path(dev, card)
+    t0 = time.perf_counter()
+    w8a8_counts = w8a8_phase(report, params, decode, cfg, dev, card, tok_gen)
+    torch.cuda.empty_cache()
+    print(f"w8a8: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     cli_counts, ckpt = cli_phase(params, decode, cfg, dev, card)
     torch.cuda.empty_cache()
@@ -5496,7 +5819,7 @@ def main() -> int:
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
-                                           spec_counts, finetune_counts))
+                                           spec_counts, finetune_counts, w8a8_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -5549,6 +5872,11 @@ def main() -> int:
                         "paligemma_tpu/kernels/ablation/quant_pallas.py:22"),
         "int8_matmul_nmajor": ("cuda", "paligemma_tpu_torch/csrc/int8_matmul.cu",
                                "paligemma_tpu/kernels/ablation/quant_pallas.py:109"),
+        # W8A8 prefill: XLA in the reference (_xla_w8a8_matmul), no Pallas kernel
+        "w8a8_quant_rows": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
+                            "paligemma_tpu/kernels/quant.py:92"),
+        "w8a8_gemm": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
+                      "paligemma_tpu/kernels/quant.py:92"),
     }
     rows = []
     for name in kernels.WRAPPERS:

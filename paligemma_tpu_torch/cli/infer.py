@@ -18,12 +18,17 @@ Decode: with ``--quantize_int8`` the engine decodes from the int8 tree
 hand-written decode layer and head kernels); without it, the plain bf16
 decode (``fused_layer=False``), as the JAX package's bf16 decode is XLA.
 
+``--int8_prefill`` (with ``--quantize_int8``) serves from one int8 tree:
+the bf16 copy of the LM is dropped once quantized, and the prefill runs
+its projections W8A8 (each row of activations quantized to int8; on the
+card the int8 x int8 GEMM of kernels/w8a8). Without ``--quantize_int8`` it
+exits with an error.
+
 ``--speculative`` (greedy, one image and prompt) decodes with n-gram
 speculative decoding (runtime/engine ``generate_spec``, ``--draft_k``
 drafts a cycle): the tokens of greedy decoding, and the cycles in the
-``timings`` line. Flags of parts not yet ported (``--int8_prefill``,
-``--data_parallel`` / ``--model_parallel`` above 1) exit with an error that
-names them.
+``timings`` line. ``--data_parallel`` / ``--model_parallel`` above 1 are
+not ported yet and exit with an error that names them.
 
 Besides the printed rows, the run's phases (load, quantize, preprocess,
 prefill, decode) are written as one ``timings:`` JSON line to stderr.
@@ -48,11 +53,6 @@ from .errors import CliError, require, user_errors
 # from the head kernel's on-device argmax instead of copying logits out
 SYNC_EVERY = 8
 
-# flag -> why it is refused (the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "int8_prefill": "--int8_prefill (W8A8 prefill) is not ported yet (ROADMAP item 13)",
-}
-
 
 @dataclasses.dataclass
 class InferResult:
@@ -76,7 +76,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--only_cpu", action="store_true")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--int8_prefill", action="store_true",
-                   help="not ported: exits with an error")
+                   help="prefill from the int8 tree too (single weight copy on the "
+                        "card; W8A8 prefill: int8 x int8 products). Requires "
+                        "--quantize_int8")
     p.add_argument("--quantize_int8", action="store_true",
                    help="int8 weight-only quantization of the decoder")
     p.add_argument("--max_seq_len", type=int, default=1024)
@@ -113,8 +115,7 @@ def card_or_cpu(only_cpu: bool, dtype: str) -> torch.device:
 
 
 def _device(args) -> torch.device:
-    for flag, why in _NOT_PORTED.items():
-        require(not getattr(args, flag), why)
+    require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     require(args.data_parallel * args.model_parallel == 1,
             "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
             "the port's mesh runs one process per rank under torchrun)")
@@ -169,6 +170,8 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
         decode_params = quantize_lm_for_serving(params)
         _sync(device)
         timings["quantize_s"] = time.perf_counter() - t0
+    if args.int8_prefill:
+        params = decode_params  # single-copy: the bf16 tree is dropped
 
     if tokenizer is None:
         from transformers import AutoTokenizer
@@ -197,6 +200,7 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
         decode_params=decode_params,
         # the plain bf16 decode unless the int8 tree was asked for
         fused_layer=None if args.quantize_int8 else False,
+        int8_act_prefill=args.int8_prefill,
     )
     print("Running inference")
     prefill = engine.prefill

@@ -38,9 +38,12 @@ plain bf16 decode, as in cli/infer.
 sampled request is refused with an error line; ``--spec_draft_k`` drafts a
 cycle), with the tokens of the engine without it.
 
+``--int8_prefill`` (with ``--quantize_int8``) serves from one int8 tree,
+as cli/infer: the bf16 copy of the LM is dropped and every prefill wave
+runs its projections W8A8; without ``--quantize_int8`` it exits 2.
+
 Flags of parts not yet ported exit 2 with the ROADMAP item that ports
-them: ``--int8_prefill`` (item 13), ``--data_parallel`` /
-``--model_parallel`` above 1 (item 14). ``--lora``
+them: ``--data_parallel`` / ``--model_parallel`` above 1 (item 14). ``--lora``
 reads the port's own adapter checkpoints (checkpoints/local.save_pytree of
 ``{"lora": ...}``, as ``cli.finetune`` writes under ``final/``), not the
 JAX package's orbax ones (reading those needs jax).
@@ -62,11 +65,6 @@ import numpy as np
 import torch
 
 from .errors import CliError, require, user_errors
-
-# flag -> why it is refused (the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "int8_prefill": "--int8_prefill (W8A8 prefill) is not ported yet (ROADMAP item 13)",
-}
 
 
 def main(argv=None):
@@ -114,7 +112,9 @@ def _build_parser():
     p.add_argument("--max_new_tokens", type=int, default=100, help="default per-request budget")
     p.add_argument("--quantize_int8", action="store_true",
                    help="int8 weight-only decode (the decode kernels on the card)")
-    p.add_argument("--int8_prefill", action="store_true", help="not ported: exits with an error")
+    p.add_argument("--int8_prefill", action="store_true",
+                   help="prefill from the int8 tree too (drops the bf16 copy from the card; "
+                        "W8A8 prefill: int8 x int8 products). Requires --quantize_int8")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--only_cpu", action="store_true")
     p.add_argument("--data_parallel", type=int, default=1,
@@ -138,8 +138,7 @@ def _main(argv=None):
 def _device(args) -> torch.device:
     from .infer import card_or_cpu
 
-    for flag, why in _NOT_PORTED.items():
-        require(not getattr(args, flag), why)
+    require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     require(args.data_parallel * args.model_parallel == 1,
             "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
             "the port's mesh runs one process per rank, and a front end over it is its own "
@@ -178,6 +177,8 @@ def build_server(args):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params, config = load_hf_model(args.model_path, dtype, device=device)
     decode_params = quantize_lm_for_serving(params) if args.quantize_int8 else None
+    if args.int8_prefill:
+        params = decode_params  # single-copy serving: the bf16 tree is dropped
     tokenizer = AutoTokenizer.from_pretrained(args.model_path, padding_side="right")
     processor = PaliGemmaProcessor(
         tokenizer,
@@ -217,6 +218,7 @@ def build_server(args):
               decode_params=decode_params, sync_every=args.sync_every,
               prefix_cache=args.prefix_cache, lora_bank=lora_bank, grammars=grammars,
               spec_decode=args.spec_decode, spec_draft_k=args.spec_draft_k,
+              int8_act_prefill=args.int8_prefill,
               # the kernel tick takes the int8 tree; the bf16 decode is the plain one
               fused_decode=None if args.quantize_int8 else False)
     if args.engine == "paged":

@@ -24,7 +24,7 @@ calls the collectives itself:
   plain column slice of the fused matrix would give rank 0 all of q (or of
   gate), and the GeGLU epilogue, which splits its input at N/2, would pair
   the wrong columns.
-* ``psum`` and ``all_gather`` are the collectives: NCCL on the card; over
+* ``psum``, ``pmax`` and ``all_gather`` are the collectives: NCCL on the card; over
   gloo (the CPU tests, or processes that share one card) a CUDA tensor is
   staged through host memory inside the helper. That is a transport choice:
   every product stays on the card.
@@ -242,6 +242,17 @@ def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         dist.all_reduce(host, group=mesh.group)
         return x.copy_(host)
     dist.all_reduce(x, group=mesh.group)
+    return x
+
+
+def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Elementwise max of ``x`` over the model axis, in place; returns ``x``
+    (a W8A8 row-parallel projection's per-row amax over the whole K)."""
+    if _staged(mesh, x):
+        host = x.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.MAX, group=mesh.group)
+        return x.copy_(host)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group)
     return x
 
 

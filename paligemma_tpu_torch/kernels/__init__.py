@@ -21,6 +21,7 @@ from . import flash_attention as _flash_attention
 from . import int8_gemv as _int8_gemv
 from . import lora as _lora
 from . import paged_attention as _paged_attention
+from . import w8a8 as _w8a8
 from .ablation import decode_attention as _seg_attention
 from .ablation import quant4 as _quant4
 from .ablation import quant_pallas as _quant_pallas
@@ -47,6 +48,10 @@ WRAPPERS = {
     # the multi-LoRA shrink of the decode chains (kernels/decode_layer,
     # decode_layer_paged with lora_pack); its expand is int8_gemv's epilogue
     "lora_shrink": _lora.lora_shrink,
+    # the W8A8 prefill products (kernels/quant.matmul_any with int8_act):
+    # each row of x quantized to int8, then the int8 x int8 product
+    "w8a8_quant_rows": _w8a8.w8a8_quant_rows,
+    "w8a8_gemm": _w8a8.w8a8_gemm,
     # the ablation shelf (kernels/ablation), reached through its own entry
     # points and siglip.encode(attn="fused")
     "vision_attention": _vision_attention.vision_attention,

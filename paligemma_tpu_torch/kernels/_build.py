@@ -83,6 +83,10 @@ SIGNATURES = {
     "pg_int4_gemv": [_P] * 4 + [_I] * 6 + [_P],
     # layout, rows, cluster, out (int *): the wgmma tile's resident clusters
     "pg_wq_max_clusters": [_I] * 3 + [_P],
+    # x, amax (or NULL), x8, a_s, M, K, stream
+    "pg_w8a8_quant_rows": [_P] * 4 + [_I] * 2 + [_P],
+    # x8, w8, a_s, s, out, M, K, N, out_int32, ctas, stream
+    "pg_w8a8_gemm": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib = None  # the loaded library; one per process, like the CUDA context

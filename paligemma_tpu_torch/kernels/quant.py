@@ -1,5 +1,5 @@
-"""Int8 weight-only and blockwise 4-bit quantization (port of
-paligemma_tpu/kernels/quant.py; W8A8 is not ported).
+"""Int8 weight-only and W8A8 matmuls, and blockwise 4-bit quantization
+(port of paligemma_tpu/kernels/quant.py).
 
 int8 layout: weights (K, N) int8, scales (N,) fp32; per-output-channel
 symmetric quantization, ``w ~= w8 * s[None, :]``. 4-bit layout (the
@@ -9,15 +9,30 @@ training-side QLoRA base, NF4 or symmetric int4) for (..., K, N) weights:
 * ``"s4"``: (..., K/group, N) fp32 absmax per block of ``group`` rows;
 * ``"grid"``: (16,) fp32 codebook, or (L, 16) when stacked over layers.
 
-``matmul_any`` is plain torch math, as the reference left it to XLA; the
-decode-time int8 products run in the hand-written GEMV (kernels/int8_gemv.py).
+``matmul_any`` dispatches as the reference's does. Weight-only int8 and
+4-bit products are plain torch math, as the reference left them to XLA
+(the decode-time int8 products run in the hand-written GEMV,
+kernels/int8_gemv.py). With ``int8_act`` (a W8A8 prefill, the single-copy
+serving of runtime/engine ``int8_act_prefill``) an int8 product of at least
+``W8A8_MIN_ROWS`` rows quantizes each row of x to int8 and takes an exact
+int32 dot: on the card kernels/w8a8 (K1 + K2), on the CPU
+:func:`_w8a8_matmul`; below the gate it stays weight-only, on the card
+through the int8 GEMV tile, so no fp32 copy of the weight is made.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+
+from . import w8a8
+from .int8_gemv import int8_gemv
+
+# rows of x at least, in x.shape[:-1], for a W8A8 product under int8_act
+# (the reference's gate: decode-sized calls keep the weight-only path)
+W8A8_MIN_ROWS = 256
 
 
 def _quantize_int8_one(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -68,10 +83,50 @@ def _int8_matmul(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Te
     return ((x.float() @ w8.float()) * s).to(x.dtype)
 
 
-def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
+def _w8a8_matmul(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """W8A8, the plain version of the reference's ``_xla_w8a8_matmul``:
+    ``a_s = max(amax_row |x|, 1e-8) / 127``, ``x8 = clip(round(x / a_s),
+    -127, 127)`` (round half to even), the exact integer dot, then
+    ``(float32(dot) * a_s) * s`` cast to x's dtype."""
+    k = x.shape[-1]
+    x8, a_s = w8a8.quant_rows_reference(x.reshape(-1, k))
+    out = w8a8.gemm_reference(x8, w8, a_s, s, out_dtype=x.dtype)
+    return out.reshape(*x.shape[:-1], w8.shape[-1])
+
+
+def int8_matmul_card(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ dequant(w8, s)``, weight-only, with no dequantized copy
+    of the weight: on the card the int8 GEMV tile (kernels/int8_gemv, any
+    row count, one launch); on the CPU :func:`_int8_matmul`."""
+    if not x.is_cuda:
+        return _int8_matmul(x, w8, s)
+    k = x.shape[-1]
+    out = int8_gemv(x.reshape(-1, k).contiguous(), w8, s)
+    return out.reshape(*x.shape[:-1], w8.shape[-1])
+
+
+def w8a8_rows(x: torch.Tensor) -> bool:
+    """Whether an int8 product over x takes W8A8 under ``int8_act``: at
+    least ``W8A8_MIN_ROWS`` rows in ``x.shape[:-1]``, the reference's gate."""
+    return math.prod(x.shape[:-1]) >= W8A8_MIN_ROWS
+
+
+def matmul_any(x: torch.Tensor, w, int8_act: bool = False) -> torch.Tensor:
     """Dispatch: int8 ``{"w8", "s"}``, 4-bit ``{"w4", "s4", "grid"}`` or
-    dense ``x @ w``. Differentiable in ``x`` (quantized bases are frozen)."""
+    dense ``x @ w``. Differentiable in ``x`` (quantized bases are frozen).
+
+    ``int8_act`` (W8A8 prefill): an int8 product of at least
+    ``W8A8_MIN_ROWS`` rows quantizes x's rows to int8 (kernels/w8a8 on the
+    card, :func:`_w8a8_matmul` on the CPU); a smaller one stays weight-only
+    (:func:`int8_matmul_card`), as in the reference, where decode-sized
+    calls keep the convert path."""
     if isinstance(w, dict) and "w8" in w:
+        if int8_act:
+            if not w8a8_rows(x):
+                return int8_matmul_card(x, w["w8"], w["s"])
+            if x.is_cuda:
+                return w8a8.w8a8_matmul(x, w["w8"], w["s"])
+            return _w8a8_matmul(x, w["w8"], w["s"])
         return _int8_matmul(x, w["w8"], w["s"])
     if isinstance(w, dict) and "w4" in w:
         return x @ dequantize_4bit(w, x.dtype)

@@ -41,12 +41,12 @@ path is the fused decode at B s rows (``forward`` with ``rows_per_cache``
 Under a tensor-parallel ``mesh`` (core/mesh) the params are this rank's
 slices (core/mesh.shard_params): the plain paths compute with the rank's
 share of heads and MLP width, sum the o and down partials across ranks in
-fp32 before the cast (``_row_parallel``), look the embedding up in its
-vocab shard (``embed_tokens``) and gather the head's vocab shards
-(``lm_head``); ``fused_layer`` decode runs kernels/decode_layer_tp and the
-fused paged decode kernels/decode_layer_paged_tp. The
-one-card ``fused_mlp`` decode runs each layer's MLP through
-kernels/decode_mlp.
+fp32 before the cast, or under W8A8 their int32 sums (``_row_parallel``),
+look the embedding up in its vocab shard (``embed_tokens``) and gather the
+head's vocab shards (``lm_head``); ``fused_layer`` decode runs
+kernels/decode_layer_tp and the fused paged decode
+kernels/decode_layer_paged_tp. The one-card ``fused_mlp`` decode runs each
+layer's MLP through kernels/decode_mlp.
 """
 
 from __future__ import annotations
@@ -66,8 +66,9 @@ from ..kernels.decode_elementwise import rms_norm as rms_norm_kernel
 from ..kernels.decode_head import head_argmax_fused
 from ..kernels.decode_mlp import mlp_decode_fused
 from ..kernels.flash_attention import flash_attention, flash_attention_sharded
-from ..kernels.int8_gemv import int8_gemv
-from ..kernels.quant import matmul_any
+from ..kernels.int8_gemv import int8_gemv, int8_gemv_f32
+from ..kernels.quant import int8_matmul_card, matmul_any, w8a8_rows
+from ..kernels.w8a8 import scale_sums, w8a8_gemm, w8a8_quant_rows
 from ..ops import attention
 from ..ops.activations import gelu_tanh
 from ..ops.norms import rms_norm
@@ -148,49 +149,73 @@ def _plus_lora(base: torch.Tensor, y: torch.Tensor, lora_lp: Optional[Params], n
 
 
 def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params,
-               lora_lp: Optional[Params] = None):
+               lora_lp: Optional[Params] = None, int8_act: bool = False):
     """q/k/v projections (+ LoRA), fused ``qkv`` serving layout or separate
-    weights."""
+    weights; ``int8_act``: W8A8 at prefill rows (quant.matmul_any)."""
     b, s, _ = y.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "qkv" in lp["attn"]:
-        qkv = matmul_any(y, lp["attn"]["qkv"])
+        qkv = matmul_any(y, lp["attn"]["qkv"], int8_act)
         nq = nh * hd
         q, k, v = qkv[..., :nq], qkv[..., nq : nq + nkv * hd], qkv[..., nq + nkv * hd :]
     else:
-        q = matmul_any(y, lp["attn"]["q"])
-        k = matmul_any(y, lp["attn"]["k"])
-        v = matmul_any(y, lp["attn"]["v"])
+        q = matmul_any(y, lp["attn"]["q"], int8_act)
+        k = matmul_any(y, lp["attn"]["k"], int8_act)
+        v = matmul_any(y, lp["attn"]["v"], int8_act)
     q, k, v = (_plus_lora(t, y, lora_lp, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
     return (q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
             v.reshape(b, s, nkv, hd))
 
 
-def _row_parallel(y: torch.Tensor, w, mesh) -> torch.Tensor:
+def _row_parallel(y: torch.Tensor, w, mesh, int8_act: bool = False) -> torch.Tensor:
     """A row-parallel projection (o, down). Under a mesh each rank's fp32
     partial (int8: dot then scale; dense: the bf16 product) is summed across
-    ranks and cast once, so one rank gives ``matmul_any``'s bits."""
+    ranks and cast once, so one rank gives ``matmul_any``'s bits. With
+    ``int8_act`` an int8 product at prefill rows is W8A8
+    (:func:`_w8a8_row_parallel`), and one below the gate on the card takes
+    the fp32-partial GEMV (no fp32 copy of the weight)."""
     if mesh is None:
-        return matmul_any(y, w)
+        return matmul_any(y, w, int8_act)
     if isinstance(w, dict) and "w8" in w:
-        part = (y.float() @ w["w8"].float()) * w["s"]
+        if int8_act and w8a8_rows(y):
+            return _w8a8_row_parallel(y, w, mesh)
+        if int8_act and y.is_cuda:
+            k = y.shape[-1]
+            part = int8_gemv_f32(y.reshape(-1, k).contiguous(), w["w8"], w["s"])
+            part = part.reshape(*y.shape[:-1], -1)
+        else:
+            part = (y.float() @ w["w8"].float()) * w["s"]
     else:
         part = matmul_any(y, w).float()
     return mesh_lib.psum(part, mesh).to(y.dtype)
 
 
+def _w8a8_row_parallel(y: torch.Tensor, w: Params, mesh) -> torch.Tensor:
+    """W8A8 of a row-parallel projection whose input ``y`` is this rank's K
+    shard: each row's amax over the whole K (the max across ranks, as the
+    reference's sharded program takes it), this shard quantized with it, the
+    int32 partial sums added across ranks (exact), then scaled and cast
+    once. So m ranks give the bits of one."""
+    k = y.shape[-1]
+    y2 = y.reshape(-1, k).contiguous()
+    amax = mesh_lib.pmax(y2.abs().amax(dim=-1).float(), mesh)
+    x8, a_s = w8a8_quant_rows(y2, amax)
+    acc = mesh_lib.psum(w8a8_gemm(x8, w["w8"], a_s, w["s"], out_dtype=torch.int32), mesh)
+    return scale_sums(acc, a_s, w["s"], y.dtype).reshape(*y.shape[:-1], -1)
+
+
 def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None,
-         mesh=None) -> torch.Tensor:
+         mesh=None, int8_act: bool = False) -> torch.Tensor:
     """GeGLU MLP (+ LoRA), fused ``gateup`` or separate weights."""
     if "gateup" in lp["mlp"]:
-        gu = matmul_any(y, lp["mlp"]["gateup"])
+        gu = matmul_any(y, lp["mlp"]["gateup"], int8_act)
         inter = gu.shape[-1] // 2
         gate, up = gu[..., :inter], gu[..., inter:]
     else:
-        gate = matmul_any(y, lp["mlp"]["gate"])
-        up = matmul_any(y, lp["mlp"]["up"])
+        gate = matmul_any(y, lp["mlp"]["gate"], int8_act)
+        up = matmul_any(y, lp["mlp"]["up"], int8_act)
     h = gelu_tanh(_plus_lora(gate, y, lora_lp, "gate")) * _plus_lora(up, y, lora_lp, "up")
-    return _plus_lora(_row_parallel(h, lp["mlp"]["down"], mesh), h, lora_lp, "down")
+    return _plus_lora(_row_parallel(h, lp["mlp"]["down"], mesh, int8_act), h, lora_lp, "down")
 
 
 def _decoder_block(
@@ -208,6 +233,7 @@ def _decoder_block(
     lora_lp: Optional[Params] = None,
     mesh=None,
     mlp_full: Optional[Params] = None,  # stacked int8 MLP: kernels/decode_mlp at layer_idx
+    int8_act: bool = False,  # W8A8 projections at prefill rows
 ) -> torch.Tensor:
     """One pre-norm decoder block; writes its K/V rows into the cache, if
     there is one. ``cfg`` is the rank's local config under a mesh."""
@@ -216,7 +242,7 @@ def _decoder_block(
 
     residual = x
     y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q, k, v = _attn_proj(cfg, y, lp, lora_lp)
+    q, k, v = _attn_proj(cfg, y, lp, lora_lp, int8_act)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -249,21 +275,27 @@ def _decoder_block(
         v_att = v_all[layer_idx, :, :window].to(q.dtype)
         a = attention.gqa(q, k_att, v_att, mask, scale=hd**-0.5)
     a = a.reshape(b, s, nh * hd)
-    x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh), a, lora_lp, "o")
+    x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh, int8_act), a, lora_lp,
+                              "o")
 
     residual = x
     if mlp_full is not None:  # the post-attention norm in the gate/up GEMV's prologue
         return residual + mlp_decode_fused(x, mlp_full, layer_idx,
                                            norm=(lp["post_norm"], cfg.rms_norm_eps))
     y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-    return residual + _mlp(y, lp, lora_lp, mesh)
+    return residual + _mlp(y, lp, lora_lp, mesh, int8_act)
 
 
-def lm_head(params: Params, x: torch.Tensor, *, mesh=None) -> torch.Tensor:
+def lm_head(params: Params, x: torch.Tensor, *, mesh=None, int8_act: bool = False
+            ) -> torch.Tensor:
     """Tied bias-free LM head; the int8 copy ("head_q") when present. Under
-    a mesh the rank's vocab shard, gathered (fp32 logits)."""
+    a mesh the rank's vocab shard, gathered (fp32 logits). ``int8_act`` (the
+    head of a W8A8 prefill): the int8 head stays weight-only, as the
+    reference's, and on the card takes the int8 GEMV tile
+    (quant.int8_matmul_card), never a dequantized copy of the head."""
     if "head_q" in params:
-        logits = matmul_any(x, params["head_q"])
+        hq = params["head_q"]
+        logits = int8_matmul_card(x, hq["w8"], hq["s"]) if int8_act else matmul_any(x, hq)
     else:
         logits = x @ params["embed"].T.to(x.dtype)
     return logits if mesh is None else mesh_lib.gather_vocab(logits, mesh)
@@ -379,6 +411,7 @@ def forward(
     fused_layer: bool = False,  # decode (S == 1) through the kernels, or raise
     greedy_head: bool = False,  # return argmax token ids, not logits
     lora: Optional[Params] = None,  # un-merged adapters or a per-row bank
+    int8_act: bool = False,  # W8A8 int8-weight projections at prefill rows
     rows_per_cache: int = 1,  # fused_layer: rows sharing a cache row (a verify's s)
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder stack. Returns (fp32 logits (B, S', vocab) or (B,)
@@ -392,7 +425,10 @@ def forward(
     and raises otherwise; under a mesh adapters are not ported and raise.
     ``rows_per_cache`` = s (kernel decode only): the B rows are the s
     positions of B / s verify blocks, rows ``[c s, (c + 1) s)`` writing
-    into and attending cache row c (kernels/decode_layer)."""
+    into and attending cache row c (kernels/decode_layer). ``int8_act``
+    (a prefill from the int8 tree): every int8 projection of at least 256
+    rows is W8A8 (kernels/quant.matmul_any); the head stays weight-only
+    (``lm_head``)."""
     _refuse_tp_lora(lora, mesh)
     if rows_per_cache != 1 and not (fused_layer and input_embeds.shape[1] == 1
                                     and mesh is None):
@@ -424,13 +460,13 @@ def forward(
         x = _decoder_block(
             lcfg, x, layer_params(params["layers"], i), cos, sin, kv_cache, i,
             cache_pos, mask, flash_lens=flash_lens, kv_bucket=kv_bucket,
-            lora_lp=_layer_lora(lora, i), mesh=mesh, mlp_full=mlp_full,
+            lora_lp=_layer_lora(lora, i), mesh=mesh, mlp_full=mlp_full, int8_act=int8_act,
         )
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if logits_idx is not None:
         # project only the requested positions (each row's last valid token)
         x = x[torch.arange(b, device=x.device), logits_idx.long()][:, None]
-    logits = lm_head(params, x, mesh=mesh).float()
+    logits = lm_head(params, x, mesh=mesh, int8_act=int8_act).float()
     if greedy_head:
         return logits[:, -1].argmax(dim=-1).to(torch.int32), kv_cache
     return logits, kv_cache

@@ -111,9 +111,12 @@ def prefill(
     prefix_lens: Optional[torch.Tensor] = None,  # (B,) int
     lora: Optional[Params] = None,  # adapter tree or multi-LoRA bank
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
+    int8_act: bool = False,  # W8A8 LM projections (int8 weights only)
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Vision encode + merge + decoder prefill. Returns (logits, cache);
     ``last_only`` projects each row's last valid token only ((B, 1, vocab)).
+    ``int8_act``: the LM's int8 projections at prefill rows run W8A8
+    (models/gemma ``forward``).
 
     ``prefix_lens``: bidirectional-prefix length per row; None = the whole
     prompt (PaliGemma's prefix-LM). A recompute prefill (a preempted serving
@@ -152,6 +155,7 @@ def prefill(
         cache_pos=0, kv_valid=kv_valid, flash_lens=flash_lens,
         logits_idx=logits_idx, mesh=mesh,
         lora=lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers),
+        int8_act=int8_act,
     )
 
 

@@ -1,7 +1,8 @@
 """Inference engine (port of paligemma_tpu/runtime/engine.py).
 
 * ``prefill``: vision encode + merge + decoder over the prompt, writing the
-  preallocated KV cache at [0, S).
+  preallocated KV cache at [0, S); with ``int8_act_prefill`` from the int8
+  tree, its LM projections W8A8 (single-copy serving).
 * ``decode_step``: one token; the cache and the validity bitmap of the
   state are updated in place (the reference donates them to the jit).
 * ``decode_chunk``: ``n_steps`` steps with token selection and per-row EOS
@@ -87,10 +88,14 @@ class PaliGemmaEngine:
         decode (e.g. the int8 tree of runtime.quantize) while ``params``
         serves the prefill. The device is the one the params live on; the
         KV cache takes ``cache_dtype``, by default the embedding table's.
-        ``int8_act_prefill`` (W8A8 prefill) is not ported and raises."""
-        if int8_act_prefill:
-            raise NotImplementedError("PaliGemmaEngine: int8_act_prefill (W8A8 prefill) "
-                                      "not ported")
+
+        ``int8_act_prefill``: when ``params`` itself is the int8 tree
+        (single-copy serving: ``params`` and ``decode_params`` the same
+        tree, no bf16 copy of the LM held), every prefill runs its LM
+        projections of at least 256 rows as W8A8, each row of activations
+        quantized to int8 (kernels/w8a8 on the card); the head and smaller
+        calls stay weight-only (kernels/quant.matmul_any)."""
+        self.int8_act_prefill = bool(int8_act_prefill)
         self.config = config
         self.max_seq_len = max_seq_len
         self.eos_token_id = eos_token_id
@@ -165,6 +170,7 @@ class PaliGemmaEngine:
         logits, cache = paligemma.prefill(
             self.params, self.config, pixel_values, input_ids, attention_mask,
             cache, use_flash=self.use_flash, last_only=True, mesh=self.mesh,
+            int8_act=self.int8_act_prefill,
         )
         valid = torch.zeros((b, self.max_seq_len), dtype=torch.bool, device=self.device)
         valid[:, :s] = attention_mask.bool()

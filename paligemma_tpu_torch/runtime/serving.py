@@ -88,9 +88,13 @@ caps each budget to leave them room. Tokens equal the non-speculative
 greedy engine's. ``spec_corrupt_frac``: a benchmark's acceptance dial
 (engine.generate_spec's ``corrupt_frac``; drawn from ``generator``).
 
-Not ported: the data axis, W8A8 prefill and ``warmup`` (XLA compiles); the
-constructor raises ``NotImplementedError`` for them, and for grammars, the
-prefix cache or speculative decoding under a ``mesh`` (ROADMAP item 14).
+``int8_act_prefill`` (single-copy serving from the int8 tree): every
+prefill wave runs its LM projections W8A8 (kernels/quant.matmul_any), with
+a LoRA bank, grammars, the prefix cache and ``spec_decode`` alike.
+
+Not ported: the data axis and ``warmup`` (XLA compiles); the constructor
+raises ``NotImplementedError`` for grammars, the prefix cache or
+speculative decoding under a ``mesh`` (ROADMAP item 14).
 Speculation with a ``lora_bank`` raises ``ValueError``, as in the JAX
 engine (its verify forward takes no adapters).
 """
@@ -179,9 +183,6 @@ class _Window:
     counts: Optional[torch.Tensor] = None
 
 
-_NOT_PORTED = ("int8_act_prefill",)
-
-
 def _read_back(*tensors):
     """Start copying a window's device tensors to pinned host memory,
     behind this window only: (host tensors, the event that marks them
@@ -237,12 +238,11 @@ class ServingEngine:
         ``prefix_cache`` / ``prefix_cache_entries``: exact-match prefix KV
         reuse; ``spec_decode``, ``spec_draft_k``, ``spec_match_n``,
         ``spec_corrupt_frac``: speculative decoding (module docstring).
+        ``int8_act_prefill``: every prefill wave runs its LM projections
+        W8A8 (runtime/engine ``PaliGemmaEngine``), for ``params`` that are
+        the int8 tree (single-copy serving).
         ``generator``: the draws of sampled requests and of
         ``spec_corrupt_frac`` (default: seed 0 on the device)."""
-        given = dict(int8_act_prefill=int8_act_prefill)
-        unported = [k for k in _NOT_PORTED if given[k]]
-        if unported:
-            raise NotImplementedError(f"ServingEngine: {', '.join(unported)} not ported")
         if spec_decode and lora_bank:
             raise ValueError("spec_decode + lora_bank is unimplemented (the verify forward "
                              "takes no adapters)")
@@ -258,6 +258,7 @@ class ServingEngine:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.mesh = mesh
+        self.int8_act_prefill = bool(int8_act_prefill)
         self.spec_decode = bool(spec_decode)
         self.spec_draft_k = spec_draft_k
         self.spec_match_n = spec_match_n
@@ -729,6 +730,7 @@ class ServingEngine:
                 self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
                 mask, cache1, use_flash=self.use_flash, last_only=True,
                 prefix_lens=self._upload(pfx_np), mesh=self.mesh, **lora_kw,
+                int8_act=self.int8_act_prefill,
             )
             self.prefill_calls += 1
             self._insert_chunk(seated, cache1, mask, logits[:, 0])

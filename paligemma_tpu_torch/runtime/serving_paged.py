@@ -61,7 +61,7 @@ emitted tokens. The verify writes start past the prompt, so they land in
 the row's own pages, never in a prefix-cache entry's borrowed ones.
 
 Not ported: the data axis (the JAX engine's DP pool, whose prefix-cache
-entries are shard-local: ROADMAP item 14) and W8A8 prefill.
+entries are shard-local: ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -119,8 +119,8 @@ class PagedServingEngine(ServingEngine):
         engine's reservation). ``max_seq_len`` bounds one request's length
         (the page table's width) and reserves nothing. ``mesh``: tensor
         parallel; ``lora_bank``, ``grammars``, ``prefix_cache``,
-        ``spec_decode``: module docstring. ``int8_act_prefill`` is not
-        ported and raises when set."""
+        ``spec_decode``: module docstring; ``int8_act_prefill``: W8A8
+        prefill waves (runtime/serving ``ServingEngine``)."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")

@@ -7,10 +7,13 @@ points ``--model_path`` at (CPU):
   lines exactly, for one row and with ``--decode_detections``;
 * a sampled batch is deterministic per ``--seed``;
 * ``--quantize_int8`` gives the port engine's tokens on the int8 tree;
+  ``--quantize_int8 --int8_prefill`` prints the JAX CLI's rows on a prompt
+  long enough for W8A8 (single-copy serving);
 * ``--speculative`` prints the JAX CLI's ``--speculative`` rows, which are
   its greedy rows, and refuses sampling and batches as the JAX CLI does;
-* user mistakes, flags of parts not yet ported, a missing card and
-  ``--dtype float32`` on a card exit 2 with a one-line reason.
+* user mistakes, flags of parts not yet ported, ``--int8_prefill`` without
+  ``--quantize_int8``, a missing card and ``--dtype float32`` on a card
+  exit 2 with a one-line reason.
 """
 
 import json
@@ -165,6 +168,28 @@ def test_cli_quantize_int8_gives_the_engine_tokens(checkpoint_dir, image_path, c
     np.testing.assert_array_equal(res.tokens, want)
 
 
+def test_cli_int8_prefill_prints_the_jax_cli_rows(checkpoint_dir, image_path, capsys,
+                                                  monkeypatch):
+    """--quantize_int8 --int8_prefill (single-copy, W8A8 prefill) on a
+    prompt of 260+ tokens: the JAX CLI's rows; the prefill's 4 products a
+    layer took W8A8."""
+    from paligemma_tpu.cli.infer import main as jax_main
+    from paligemma_tpu_torch.kernels import quant as t_quant
+
+    argv = _argv(checkpoint_dir, image_path, [" ".join(["hello", "world"] * 130)],
+                 "--max_tokens_to_generate", "5", "--dtype", "float32", "--quantize_int8",
+                 "--int8_prefill")
+    jax_main(argv)
+    want = _rows(capsys.readouterr().out)
+    calls = []
+    plain = t_quant._w8a8_matmul
+    monkeypatch.setattr(t_quant, "_w8a8_matmul", lambda *a: calls.append(a[0].shape) or plain(*a))
+    res = t_infer.run(t_infer.parse_args(argv + ["--only_cpu"]))
+    assert _rows(capsys.readouterr().out) == want
+    assert len(calls) == 4 * 2 and all(s[1] >= 256 for s in calls)
+    assert res.tokens.shape == (1, 5) and "quantize_s" in res.timings
+
+
 def test_cli_friendly_errors(checkpoint_dir, image_path, capsys):
     """User mistakes exit 2 with a one-line message (as the JAX CLI's)."""
     with pytest.raises(SystemExit) as ei:
@@ -217,17 +242,20 @@ def test_cli_speculative_rules_exit_2(checkpoint_dir, image_path, capsys, flags,
     assert match in cap.err and "Loading model" not in cap.out
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--int8_prefill", "--quantize_int8"], "13"),
-    (["--data_parallel", "2"], "14"),
-    (["--model_parallel", "2"], "14"),
+@pytest.mark.parametrize("flag,match", [
+    (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
+    (["--data_parallel", "2"], "ROADMAP item 14"),
+    (["--model_parallel", "2"], "ROADMAP item 14"),
 ])
-def test_cli_unported_flags_exit_2(checkpoint_dir, image_path, capsys, flag, item):
+def test_cli_unported_flags_exit_2(checkpoint_dir, image_path, capsys, flag, match):
+    """Flags of parts not ported exit 2 with the ROADMAP item that ports
+    them; --int8_prefill without --quantize_int8 exits 2 with the JAX CLI's
+    message. Nothing is loaded first."""
     with pytest.raises(SystemExit) as ei:
         t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--only_cpu", *flag))
     assert ei.value.code == 2
     cap = capsys.readouterr()
-    assert flag[0] in cap.err and f"ROADMAP item {item}" in cap.err
+    assert flag[0] in cap.err and match in cap.err
     assert "Loading model" not in cap.out
 
 

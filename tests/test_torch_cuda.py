@@ -1164,3 +1164,105 @@ def test_spec_on_card_keeps_the_decode_steps_tokens():
             assert _served(make(), _serving_requests(cfg, 5)) == base
     finally:
         quant._int8_matmul = plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 16), (129, 48, 48), (266, 2048, 2560),
+                                   (300, 2048, 2048), (266, 16384, 256), (640, 256, 384)])
+def test_w8a8_kernels_equal_their_plain_versions_on_card(m, k, n):
+    """K1 (codes and scales, own amax or a given one) and K2 (bf16 output
+    and int32 sums) against their plain versions, bit for bit: ragged M, K
+    past a stage, N past a tile, an all-zero row and an outlier."""
+    from paligemma_tpu_torch.kernels import w8a8
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=g, device=dev)
+         * 10.0 ** (torch.rand(m, 1, generator=g, device=dev) * 4 - 2)).to(torch.bfloat16)
+    x[-1, k // 2] = 80.0
+    x[0] = 0  # (at M 1 the outlier's row too)
+    x8, a_s = w8a8.w8a8_quant_rows(x)
+    r8, rs = w8a8.quant_rows_reference(x)
+    assert torch.equal(x8, r8) and torch.equal(a_s, rs)
+    amax = torch.rand(m, generator=g, device=dev) * 100 + x.float().abs().amax(-1)
+    assert all(torch.equal(a, b) for a, b in zip(w8a8.w8a8_quant_rows(x, amax),
+                                                 w8a8.quant_rows_reference(x, amax)))
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 1e-2
+    for dtype in (torch.bfloat16, torch.int32):
+        got = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=dtype)
+        want = w8a8.gemm_reference(x8, w8, a_s, s, out_dtype=dtype)
+        assert torch.equal(got, want), dtype
+        assert torch.equal(w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=dtype), got)  # a 2nd call
+    assert torch.equal(w8a8.w8a8_matmul(x, w8, s), w8a8.gemm_reference(r8, w8, rs, s))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_w8a8_routes_raise_on_bad_inputs_on_card():
+    """On the card the W8A8 route and the weight-only route below its gate
+    launch their kernels or raise: no fallback to a plain version."""
+    from paligemma_tpu_torch.kernels import quant, w8a8
+
+    dev = _card()
+    w = {"w8": torch.randint(-127, 128, (256, 384), device=dev, dtype=torch.int8),
+         "s": torch.rand(384, device=dev) * 1e-2}
+    x = torch.randn(300, 256, device=dev)
+    for rows in (300, 100):  # W8A8 (K1 takes bf16), and the GEMV tile below the gate
+        with pytest.raises(ValueError):
+            quant.matmul_any(x[:rows], w, int8_act=True)  # fp32 x
+    before = (w8a8.w8a8_quant_rows.launches, w8a8.w8a8_gemm.launches)
+    got = quant.matmul_any(x.bfloat16(), w, int8_act=True)
+    assert (w8a8.w8a8_quant_rows.launches, w8a8.w8a8_gemm.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert torch.equal(got, quant._w8a8_matmul(x.bfloat16(), w["w8"], w["s"]))
+    with pytest.raises(ValueError):
+        w8a8.w8a8_gemm(torch.zeros(4, 40, dtype=torch.int8, device=dev),
+                       torch.zeros(40, 32, dtype=torch.int8, device=dev),
+                       torch.ones(4, device=dev), torch.ones(32, device=dev))  # K % 16
+    with pytest.raises(ValueError):
+        w8a8.w8a8_gemm(torch.zeros(4, 64, dtype=torch.int8, device=dev), w["w8"],
+                       torch.ones(4, device=dev), w["s"])  # K differs from the weights'
+
+
+@pytest.mark.cuda
+def test_single_copy_engine_on_card_takes_the_w8a8_kernels():
+    """The single-copy engine (params = decode_params = the int8 tree) on
+    the card: each prefill of >= 256 rows launches K1 and K2 4 times a
+    layer and the head's GEMV once, never the plain int8 product; its
+    greedy tokens equal those of the same engine whose W8A8 products run
+    their plain version (the kernels' bits are the plain version's)."""
+    import numpy as np
+
+    from paligemma_tpu_torch.kernels import int8_gemv, quant, w8a8
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+
+    dev = _card()
+    cfg, params, dq = _serving_model(dev)
+    del params
+    rng = np.random.default_rng(0)
+    ids = np.concatenate([np.full((2, 4), cfg.image_token_index),
+                          rng.integers(3, 100, (2, 140))], 1).astype(np.int32)
+    px = torch.from_numpy(rng.normal(size=(2, 3, 28, 28)).astype(np.float32)).to(dev)
+    mask = np.ones_like(ids)
+    eng = PaliGemmaEngine(dq, cfg, max_seq_len=256, decode_params=dq, int8_act_prefill=True)
+    plain = quant._int8_matmul
+    quant._int8_matmul = lambda x, *a: (_ for _ in ()).throw(AssertionError("plain int8"))
+    try:
+        before = (w8a8.w8a8_quant_rows.launches, w8a8.w8a8_gemm.launches,
+                  int8_gemv.int8_gemv.launches)
+        eng.prefill(px, ids, mask)
+        torch.cuda.synchronize()
+        grew = (w8a8.w8a8_quant_rows.launches - before[0], w8a8.w8a8_gemm.launches - before[1],
+                int8_gemv.int8_gemv.launches - before[2])
+        assert grew == (8, 8, 1), grew
+        got = eng.generate(px, ids, mask, max_new_tokens=16, eos_token_id=-1, sync_every=8)
+    finally:
+        quant._int8_matmul = plain
+    kernels = quant.w8a8.w8a8_matmul
+    quant.w8a8.w8a8_matmul = lambda x, w8, s: quant._w8a8_matmul(x, w8, s)
+    try:
+        want = eng.generate(px, ids, mask, max_new_tokens=16, eos_token_id=-1, sync_every=8)
+    finally:
+        quant.w8a8.w8a8_matmul = kernels
+    assert np.array_equal(got, want)

@@ -186,8 +186,9 @@ def test_sampled_generate_same_draws_at_any_sync():
 def test_port_runs_without_jax():
     """A fresh interpreter imports the port (the serving, training, LoRA,
     ablation, processing, checkpoint and CLI modules included), runs a tiny
-    CPU generate, a tiny paged serving run, one with a multi-LoRA bank, a
-    training step, the tower with attn="fused", the ablation entry points,
+    CPU generate, a single-copy W8A8 generate, a tiny paged serving run, one
+    with a multi-LoRA bank, a training step, the tower with attn="fused",
+    the ablation entry points,
     the device preprocessing, the mask decoder, an HF export -> load round
     trip, a batch run of cli.serve on the export and one epoch of
     cli.finetune on it (with an evaluation and --export_hf), and never
@@ -231,6 +232,14 @@ def test_port_runs_without_jax():
         out = eng.generate(np.zeros((1, 3, 28, 28), np.float32), ids, np.ones_like(ids),
                            max_new_tokens=3, eos_token_id=-1)
         assert out.shape == (1, 3), out.shape
+        # single-copy serving: the int8 tree alone, a W8A8 prefill of 256 rows
+        from paligemma_tpu_torch.kernels import w8a8
+        q = quantize_lm_for_serving(params)
+        one = PaliGemmaEngine(q, cfg, max_seq_len=300, decode_params=q, int8_act_prefill=True)
+        long_ids = np.array([[cfg.image_token_index] * n + [5] * (256 - n)], np.int32)
+        out8 = one.generate(np.zeros((1, 3, 28, 28), np.float32), long_ids,
+                            np.ones_like(long_ids), max_new_tokens=2, eos_token_id=-1)
+        assert out8.shape == (1, 2) and w8a8.w8a8_gemm.launches == 0
         # speculative decoding: the proposer, generate_spec, both engines
         from paligemma_tpu_torch.ops.ngram import propose_ngram
         assert propose_ngram(torch.tensor([[1, 2, 1, 2]]), torch.tensor([4]), 1, 2).shape == (1, 2)

@@ -5,8 +5,9 @@ tests/test_torch_cli.py (CPU, ``--only_cpu --dtype float32``):
 * batch mode, dense and paged: the result lines give the JAX CLI's
   ``request_id``, ``text`` and ``num_tokens`` for greedy requests, plainly
   and with ``--grammar`` and ``--prefix_cache`` (constrained rows,
-  unconstrained rows and byte-identical duplicates in one file), and the
-  same with ``--spec_decode``;
+  unconstrained rows and byte-identical duplicates in one file), the same
+  with ``--spec_decode``, and two long prompts with ``--quantize_int8
+  --int8_prefill`` (single-copy serving, a W8A8 prefill wave);
 * HTTP mode in-process on a free port: /generate (path and base64 image),
   a stream whose events carry the tokens of the non-stream answer and end
   with a ``done`` event, /healthz, /cancel of a queued request (made
@@ -14,8 +15,9 @@ tests/test_torch_cli.py (CPU, ``--only_cpu --dtype float32``):
   its cancel are handed over), 400s for bad requests; every wait has its
   own timeout;
 * ``--lora`` reads a ``save_pytree`` directory;
-* user mistakes, flags of parts not yet ported, a missing card and
-  ``--dtype float32`` on a card exit 2 with a one-line reason.
+* user mistakes, flags of parts not yet ported, ``--int8_prefill``
+  without ``--quantize_int8``, a missing card and ``--dtype float32`` on a
+  card exit 2 with a one-line reason.
 """
 
 import base64
@@ -51,6 +53,11 @@ ROWS_EXTRAS = [
     {"prompt": "answer in english", "max_new_tokens": 5, "grammar": "yn"},
     {"prompt": "answer in english", "max_new_tokens": 5, "grammar": "yn"},
 ]
+# two prompts of 260+ tokens (with the image's): one wave of at least 256 rows
+ROWS_LONG = [
+    {"request_id": 3, "prompt": " ".join(["hello", "world"] * 65), "max_new_tokens": 4},
+    {"prompt": " ".join(["this", "building", "is", "a"] * 33), "max_new_tokens": 5},
+]
 EXTRAS = ["--prefix_cache", "--grammar", "g=(this|building|is|a| )+",
           "--grammar", "yn=(hello|world)"]
 
@@ -65,21 +72,34 @@ def _lines(out):
     return [json.loads(ln) for ln in out.strip().splitlines()]
 
 
-@pytest.mark.parametrize("variant", ["plain", "grammar_prefix_cache", "spec_decode"])
+@pytest.mark.parametrize("variant", ["plain", "grammar_prefix_cache", "spec_decode",
+                                     "int8_prefill"])
 @pytest.mark.parametrize("engine", ["dense", "paged"])
 def test_batch_matches_the_jax_cli(checkpoint_dir, image_path, tmp_path, capsys,  # noqa: F811
-                                   engine, variant):
+                                   engine, monkeypatch, variant):
+    """int8_prefill: single-copy serving from the int8 tree, two long
+    prompts seated in one wave (>= 256 rows: the W8A8 products, counted)."""
     from paligemma_tpu.cli.serve import main as jax_main
+    from paligemma_tpu_torch.kernels import quant as t_quant
 
     rows, extra = (ROWS, []) if variant == "plain" else (ROWS_EXTRAS, EXTRAS)
+    seq = ["--max_seq_len", "64"]
     if variant == "spec_decode":
         extra = extra + ["--spec_decode", "--spec_draft_k", "3"]
+    if variant == "int8_prefill":
+        rows, extra = ROWS_LONG, ["--quantize_int8", "--int8_prefill", "--n_pages", "40"]
+        seq = ["--max_seq_len", "256"]
     argv = ["--model_path", checkpoint_dir, "--engine", engine, "--requests_jsonl",
-            _jsonl(tmp_path, rows, image_path), "--max_slots", "2", "--max_seq_len", "64",
+            _jsonl(tmp_path, rows, image_path), "--max_slots", "2", *seq,
             "--page_size", "16", "--sync_every", "2", "--dtype", "float32", *extra]
     jax_main(argv)
     want = _lines(capsys.readouterr().out)
+    w8a8_calls = []
+    plain = t_quant._w8a8_matmul
+    monkeypatch.setattr(t_quant, "_w8a8_matmul",
+                        lambda *a: w8a8_calls.append(a[0].shape) or plain(*a))
     t_serve.main(argv + ["--only_cpu"])
+    assert len(w8a8_calls) == (8 if variant == "int8_prefill" else 0)  # 4 a layer, one wave
     cap = capsys.readouterr()
     got = _lines(cap.out)
     keys = ("request_id", "text", "num_tokens")
@@ -274,7 +294,7 @@ def _exit2(argv, capsys, match):
 
 @pytest.mark.parametrize("flags,match", [
     ([], "--requests_jsonl"),
-    (["--int8_prefill"], "ROADMAP item 13"),
+    (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
     (["--data_parallel", "2"], "ROADMAP item 14"),
     (["--model_parallel", "2"], "ROADMAP item 14"),
     (["--grammar", "nameless"], "NAME=REGEX"),
