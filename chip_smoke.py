@@ -52,6 +52,14 @@ seed, int8 decode tree) through its main paths:
   kernel ticks (the LoRA shrink kernel and the LoRA expand in the int8
   GEMV's epilogue) and the plain tick, held against each other and against
   an engine without a bank;
+* tensor-parallel serving at the JAX package's feature set: K1 (the fp32
+  partial with the LoRA expand) at the 3B shard shapes; at world size 1
+  over NCCL the TP engines with a bank, a grammar, a prefix repeat and
+  spec_decode (dense and paged) and generate_spec give the one-card kernel
+  engines' tokens, the bank applied inside the TP chain (4 shrinks and 2 K1
+  a layer and tick, no plain LoRA product in a tick); two gloo ranks on the
+  card run the same features alike; ``cli.infer`` and ``cli.serve`` (batch
+  and HTTP) with ``--model_parallel 2`` on the cli phase's checkpoint;
 * single-GPU LoRA training, Trainer.train_step at full width and depth
   (B=2, S=512, remat): the flash kernels' forward and backward against the
   plain attention path on the first step, the loss falling over 8 steps,
@@ -78,6 +86,7 @@ printed.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import json
@@ -122,7 +131,8 @@ LAYER_EVENTS = ("int8_gemv_kernel", "attn_split", "attn_combine", "rope_kv_write
 NORM_EVENT = "rms_norm_kernel"
 # the tensor-parallel wrappers (B7, B7b, B8 and the fp32-partial epilogue):
 # no one-card kernel path launches them
-TP_KERNELS = ("int8_gemv_f32", "mlp_decode_fused", "attn_decode_tp", "attn_decode_paged_tp")
+TP_KERNELS = ("int8_gemv_f32", "int8_gemv_f32_lora", "mlp_decode_fused", "attn_decode_tp",
+              "attn_decode_paged_tp")
 # the ablation shelf's wrappers (kernels/ablation): only their own entry
 # points and siglip.encode(attn="fused") launch them (the ablation phase)
 ABLATION_KERNELS = ("vision_attention", "seg_decode_attention", "int4_matmul", "int8_matmul",
@@ -208,6 +218,10 @@ FILL_SEQ = 384
 # 6.6e-2 of the largest on an H100, so the logit gate runs a bank of the
 # fine-tune's size (B std 0.05) and the large bank's reading is printed
 LORA_RANK, LORA_ALPHA, LORA_B_STD, LORA_B_STD_GATE = 8, 8.0, 0.5, 0.05
+# K1's partials of m = 2 ranks, summed and added, against one card: each rank
+# rounds its basis z_r to bf16 (ROADMAP C, "LoRA rounding"), relative to the
+# largest element
+K1_SUM_TOL = 3e-2
 LORA_NAMES = ("a", "b", "c")
 CASE_LAYER = 5  # the layer of the kernel cases
 # ablation phase (B9, B11): Gemma-2B's four projections of one layer at
@@ -1506,6 +1520,7 @@ def tp_kernel_phase(report: KernelReport, dev):
         del w
     print(f"  {'int8_gemv_f32':20s} {'cast of the fp32 partial == int8_gemv bits':44s} ok",
           flush=True)
+    k1_cases(report, dev, int8, bf)
     del layers
 
     print("kernels: head_argmax over vocab shards, combined across ranks", flush=True)
@@ -1553,6 +1568,98 @@ def tp_kernel_phase(report: KernelReport, dev):
         if tie != j0:
             raise AssertionError(f"vocab-shard combine: planted tie resolved to {tie}, not {j0}")
     del head, w8, s
+
+
+def k1_cases(report: KernelReport, dev, int8, bf):
+    """K1 (int8_gemv_f32_lora): a tensor-parallel rank's o or down partial
+    with the multilora phase's bank (LORA_NAMES adapters and the base row,
+    rank LORA_RANK, fp32) at the 3B shard shapes, m = 1 and 2, B 1 and 8:
+    each half against the plain version on the same basis z (the base half
+    within 1e-2, the delta half within 1e-3 of its largest element: the
+    same products in another fp32 order) and a second call's bits; the
+    ranks' partials summed and added as decode_layer_tp.add_partial adds
+    them, against the one-card residual epilogue with the expand: the same
+    bits at m = 1, within K1_SUM_TOL at m = 2 (each rank rounds its z_r).
+    Then K1's time at B8 on rank 0 of m = 2, beside cuBLAS's x_r @ A_r and
+    z @ B (bf16; no single PyTorch call computes K1's function)."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    kdim, heads, hd, inter = (TP_LAYER[k] for k in ("hidden", "heads", "head_dim", "inter"))
+    gcols = (len(LORA_NAMES) + 1) * LORA_RANK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    print(f"kernels: int8_gemv_f32_lora (K1: the fp32 partial with the LoRA expand; bank of "
+          f"{len(LORA_NAMES) + 1} rows, rank {LORA_RANK}, G {gcols})", flush=True)
+    for name, k_full in (("o", heads * hd), ("down", inter)):
+        w = int8(k_full, kdim)
+        a = torch.randn(k_full, gcols, generator=gen, device=dev) * k_full**-0.5
+        lb = torch.randn(gcols, kdim, generator=gen, device=dev) * LORA_B_STD
+        for b in (1, 8):
+            ids = (torch.arange(b, device=dev) % (len(LORA_NAMES) + 1)).to(torch.int32)
+            x, h = bf(b, k_full, scale=0.5), bf(b, kdim)
+            z1 = kl.lora_shrink(x, a, ids, LORA_RANK, gcols)
+            one = gv.int8_gemv(x, w["w8"], w["s"], residual=h, lora=(z1, lb, ()))
+            for m in (1, 2):
+                total = None
+                for r in range(m):
+                    rows = slice(r * k_full // m, (r + 1) * k_full // m)
+                    xr = x[:, rows].contiguous()
+                    wr, ar = w["w8"][rows].contiguous(), a[rows].contiguous()
+                    zr = kl.lora_shrink(xr, ar, ids, LORA_RANK, gcols)
+                    got = gv.int8_gemv_f32(xr, wr, w["s"], lora=(zr, lb, ()))
+                    again = gv.int8_gemv_f32(xr, wr, w["s"], lora=(zr, lb, ()))
+                    want = gv.int8_gemv_reference(xr, wr, w["s"], out_fp32=True,
+                                                  lora=(zr, lb, ()))
+                    sync()
+                    label = f"{name} m{m} r{r} B{b} K{xr.shape[1]}->{kdim}"
+                    report.case("int8_gemv_f32_lora", f"{label} base half", got[:, :kdim],
+                                want[:, :kdim], 1e-2, floor=0.0)
+                    report.case("int8_gemv_f32_lora", f"{label} delta half", got[:, kdim:],
+                                want[:, kdim:], 1e-3, floor=0.0)
+                    if got.shape != (b, 2 * kdim) or not torch.equal(got, again):
+                        raise AssertionError(f"int8_gemv_f32_lora {label}: shape "
+                                             f"{tuple(got.shape)} or a second call's bits")
+                    total = got if total is None else total + got
+                    if b == 8 and m == 2 and r == 0:
+                        k1_timed(report, label, xr, wr, w["s"], ar, zr, lb, ids, got)
+                summed = (h + total[:, :kdim].to(h.dtype)) + total[:, kdim:].to(h.dtype)
+                if m == 1:
+                    same = torch.equal(summed, one)
+                    print(f"  {'int8_gemv_f32_lora':20s} {f'{name} m1 B{b} added == one card':44s}"
+                          f" torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
+                    if not same:
+                        raise AssertionError(f"K1 {name} B{b}: m=1 is not the one-card "
+                                             "residual epilogue with the expand")
+                else:  # not K1 against its plain version: not in the JSON's max_abs_err
+                    err = float((summed.float() - one.float()).abs().max())
+                    tol = K1_SUM_TOL * max(1.0, float(one.float().abs().max()))
+                    print(f"  {'int8_gemv_f32_lora':20s} {f'{name} m{m} B{b} sum, added, vs one card':44s}"
+                          f" max_abs_err {err:.3e}  tol {tol:.3e}  {'ok' if err <= tol else 'FAIL'}",
+                          flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"K1 {name} m{m} B{b}: {err} > {tol} against one card")
+        del w, a, lb
+
+
+def k1_timed(report, label, xr, wr, s, ar, zr, lb, ids, got):
+    """K1's time (the JSON row) beside the cuBLAS products of its delta."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+
+    b, k = xr.shape
+    n, g = wr.shape[1], lb.shape[0]
+    ar_bf, lb_bf = ar.to(torch.bfloat16), lb.to(torch.bfloat16)
+    report.time("int8_gemv_f32_lora", f"{label} G{g}",
+                lambda: gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ())),
+                lambda: gv.int8_gemv_reference(xr, wr, s, out_fp32=True, lora=(zr, lb, ())),
+                flops=2 * b * k * n + 2 * b * g * n, n_bytes=nbytes(xr, wr, s, zr, lb, got))
+    xa, zb = cuda_ms(lambda: xr @ ar_bf, 20), cuda_ms(lambda: zr @ lb_bf, 20)
+    print(f"  {'int8_gemv_f32_lora':20s} {label:44s} cuBLAS x_r @ A_r {xa:.4f} ms + z @ B "
+          f"{zb:.4f} ms = {xa + zb:.4f} ms (bf16; the delta alone, never called by the port)",
+          flush=True)
+    device_times(label, [
+        ("int8_gemv_f32_lora", lambda: gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ()))),
+        ("int8_gemv_f32", lambda: gv.int8_gemv_f32(xr, wr, s)),
+        ("x_r @ A_r (cuBLAS)", lambda: xr @ ar_bf), ("z @ B (cuBLAS)", lambda: zr @ lb_bf)])
 
 
 def int4_library_pack(w4p, s4):
@@ -2590,8 +2697,9 @@ def cli_phase(params, decode, cfg, dev, card):
     greedily with ``--quantize_int8`` (tokens equal to PaliGemmaEngine on
     the in-memory int8 tree ``decode``, native preprocessing), then a
     sampled batch of two, twice (the same text). Returns the launch counts
-    summed over the three CLI runs and the checkpoint's directory, which
-    the caller removes (the serve_cli phase serves from it)."""
+    summed over the CLI runs, the checkpoint's directory, which the caller
+    removes (the serve_cli and cli_tp phases serve from it), and the greedy
+    caption's ids."""
     import tempfile
 
     from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
@@ -2767,7 +2875,194 @@ def cli_phase(params, decode, cfg, dev, card):
     except BaseException:
         shutil.rmtree(d, ignore_errors=True)
         raise
-    return total, d
+    return total, d, ids[0]
+
+
+CLI_TP_NEW = 16  # tokens of the tensor-parallel CLI runs
+CLI_TP_TIMEOUT = 600  # seconds, the spawn of two ranks that runs both CLIs
+
+
+def _cli_tp_entry(argv, rank):
+    """One rank of the CLIs' ``--model_parallel 2`` runs, both in one spawn
+    of two ranks (cli/ranks): ``argv`` = [out_dir, image token id, vocab,
+    cli.infer's flags (JSON), cli.serve's flags (JSON)]. First cli.infer's
+    rank entry on the cli phase's stand-ins (its tokenizer, so that the
+    caption's ids compare with the one-card caption's), then cli.serve's
+    rank body on one server in both modes: the batch of ``--requests_jsonl``,
+    then HTTP on ``--http`` until one /generate is answered (rank 1 follows
+    rank 0's calls), on the serve_cli phase's stand-ins (every id a
+    surface, the prompts' words first). Stand-ins are installed here, since
+    a spawned process starts without them. Each CLI's stdout and stderr are
+    captured; the rank writes them, the caption's ids and the text they
+    decode to, its device and backend to ``out_dir``."""
+    import contextlib
+    import io
+
+    from paligemma_tpu_torch.cli import infer, serve
+
+    out_dir, image_token, vocab = argv[0], int(argv[1]), int(argv[2])
+    infer_argv, serve_argv = json.loads(argv[3]), json.loads(argv[4])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"device": str(rank.device), "backend": rank.backend}
+
+    def captured(what, stand, body):
+        out, err = io.StringIO(), io.StringIO()
+        try:
+            with stand, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                body()
+        finally:
+            rec[what] = {"stdout": out.getvalue(), "stderr": err.getvalue()}
+
+    def serve_both():
+        args = serve._build_parser().parse_args(serve_argv)
+        srv = serve.build_server(args, rank=rank)
+        srv.run_batch(args.requests_jsonl)
+        if rank.lead:
+            srv.serve_http(args.http, max_requests=1)
+        else:
+            srv.follow()
+
+    try:
+        stand = _StandIns(image_token)
+        captured("infer", stand, lambda: infer._rank_main(infer_argv, rank))
+        tok = stand.tokenizers[-1]
+        rec["rows"] = list(tok.decoded)
+        prompts = [infer_argv[i + 1] for i, a in enumerate(infer_argv) if a == "--prompt"]
+        rec["want"] = "".join(f"{p}{tok.decode(r)}\n" for p, r in zip(prompts, rec["rows"]))
+        words = sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()})
+        captured("serve", _StandIns(image_token, vocab, words), serve_both)
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank.rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def cli_tp_phase(cfg, card, ckpt, one_card_ids):
+    """The CLIs' tensor-parallel mode on the cli phase's checkpoint, in one
+    spawn of two ranks that share the card (cli/ranks; gloo: a correctness
+    run, the collectives staging through host memory): ``cli.infer
+    --quantize_int8 --model_parallel 2`` (a greedy caption), then one
+    ``cli.serve --model_parallel 2`` server with ``--lora``, ``--grammar``
+    and ``--prefix_cache`` that runs a batch and answers one HTTP request
+    (_cli_tp_entry). Gates: exit code 0, both ranks on cuda:0 over gloo,
+    rank 1 prints nothing; the caption has the one-card caption's length
+    (``one_card_ids``, the cli phase's greedy ids on the same checkpoint,
+    image, prompt and tokenizer, cut to CLI_TP_NEW: its share of equal ids
+    is printed, not gated, as m = 2 rounds its partial sums differently)
+    and rank 0 prints exactly its rows; the batch's lines well formed, a
+    constrained row in its grammar, the repeat a cache hit; the HTTP answer
+    the batch's text for the same request (every rank holds the same
+    tokens: the CLIs check it themselves)."""
+    import urllib.request
+
+    from paligemma_tpu_torch.checkpoints.local import save_pytree
+    from paligemma_tpu_torch.cli import ranks
+    from paligemma_tpu_torch.processing import grammar as gr
+
+    work = pathlib.Path(ckpt) / "cli_tp"
+    work.mkdir()
+    img = [os.path.join(ckpt, f"img{i}.npy") for i in range(2)]
+    ad = lora_bank_adapters(cfg, torch.device("cuda", 0), LORA_B_STD)["a"]
+    save_pytree(str(work / "lora_a"), {"lora": {"layers": {
+        t: {k: v.cpu() for k, v in p.items()} for t, p in ad["layers"].items()}}})
+    del ad
+    rows = [{"request_id": 0, "prompt": SERVE_CLI_PROMPTS[0], "image": img[0],
+             "max_new_tokens": CLI_TP_NEW},
+            {"prompt": SERVE_CLI_PROMPTS[1], "image": img[1], "max_new_tokens": CLI_TP_NEW,
+             "lora": "a"},
+            {"prompt": SERVE_CLI_PROMPTS[0], "image": img[1], "max_new_tokens": CLI_TP_NEW,
+             "grammar": "digits"},
+            {"prompt": SERVE_CLI_PROMPTS[0], "image": img[0], "max_new_tokens": CLI_TP_NEW}]
+    jsonl = work / "reqs.jsonl"
+    jsonl.write_text("\n".join(json.dumps(r) for r in rows))
+    port = _free_port()
+    infer_argv = ["--model_path", ckpt, "--image_file_path", img[0], "--prompt", CLI_PROMPTS[0],
+                  "--quantize_int8", "--max_tokens_to_generate", str(CLI_TP_NEW),
+                  "--model_parallel", "2"]
+    serve_argv = ["--model_path", ckpt, "--quantize_int8", "--max_slots", "4", "--max_seq_len",
+                  "1024", "--sync_every", "8", "--requests_jsonl", str(jsonl), "--http",
+                  str(port), "--prefix_cache", "--lora", f"a={work / 'lora_a'}", "--grammar",
+                  f"digits={SERVE_CLI_GRAMMARS['digits']}", "--model_parallel", "2"]
+    result = {}
+
+    def launch():
+        try:
+            ranks.launch(_cli_tp_entry, [str(work), str(cfg.image_token_index),
+                                         str(cfg.vocab_size), json.dumps(infer_argv),
+                                         json.dumps(serve_argv)], 2, False, CLI_TP_TIMEOUT)
+        except BaseException as e:  # SystemExit included: reported by this thread's caller
+            result["error"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=launch, daemon=True)
+    th.start()
+    deadline = time.monotonic() + CLI_TP_TIMEOUT
+    body = json.dumps({"prompt": SERVE_CLI_PROMPTS[0], "image": img[0],
+                       "max_new_tokens": CLI_TP_NEW}).encode()
+    answer = None
+    while answer is None and th.is_alive() and time.monotonic() < deadline:
+        try:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=SERVE_CLI_HTTP_TIMEOUT) as resp:
+                answer = (resp.status, json.loads(resp.read()))
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(1.0)
+    th.join(CLI_TP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(p.read_text()) if p.is_file() else {}
+            for p in (work / f"rank{r}.json" for r in range(2))]
+    if "error" in result or th.is_alive() or answer is None:
+        for r, rec in enumerate(recs):
+            for what in ("infer", "serve"):
+                if what in rec:
+                    print(f"cli_tp {what}: rank {r}'s stdout:\n{rec[what]['stdout']}stderr:\n"
+                          f"{rec[what]['stderr']}", flush=True)
+        raise AssertionError(f"cli_tp: {result.get('error')!r}, HTTP answer {answer}")
+    if any(rec["device"] != "cuda:0" or rec["backend"] != "gloo" for rec in recs):
+        raise AssertionError(f"cli_tp: ranks on {[(r['device'], r['backend']) for r in recs]}"
+                             ", want cuda:0 over gloo (two ranks share the card)")
+    if recs[1]["infer"]["stdout"] or recs[1]["serve"]["stdout"]:
+        raise AssertionError(f"cli_tp: rank 1 printed {recs[1]['infer']['stdout']!r}, "
+                             f"{recs[1]['serve']['stdout']!r}")
+
+    inf = recs[0]["infer"]
+    timings = json.loads(inf["stderr"].split("timings: ", 1)[1].splitlines()[0])
+    ref = [int(t) for t in one_card_ids[:CLI_TP_NEW]]
+    eos = _WordTokenizer.eos_token_id
+    ref = ref[:ref.index(eos) + 1] if eos in ref else ref
+    got = recs[0]["rows"]
+    first, rest = inf["stdout"].split("\n", 1)
+    if (len(got) != 1 or len(got[0]) != len(ref) or timings["tokens"] != len(ref)
+            or not first.startswith("Device in use: cuda:0")
+            or rest != f"Loading model\nRunning inference\n{recs[0]['want']}"):
+        raise AssertionError(f"cli_tp infer: rank 0 printed {inf['stdout']!r} for the ids {got}"
+                             f", want {len(ref)} ids (the one-card caption's {ref})")
+    same = sum(a == b for a, b in zip(got[0], ref))
+    print(f"cli_tp: cli.infer --quantize_int8 --model_parallel 2 (two ranks on cuda:0 over "
+          f"gloo): rank 0 printed the row of its {len(got[0])} ids, the one-card caption's "
+          f"length; {same}/{len(ref)} ids equal the one-card caption's (m = 2 rounds its "
+          f"partial sums apart: printed, not gated)", flush=True)
+
+    lines = [json.loads(ln) for ln in recs[0]["serve"]["stdout"].splitlines()]
+    if (sorted(g["request_id"] for g in lines) != list(range(len(rows)))
+            or not all({"text", "num_tokens", "ttft_ms"} <= set(g) for g in lines)
+            or f"served {len(rows)} requests" not in recs[0]["serve"]["stderr"]):
+        raise AssertionError(f"cli_tp serve: rank 0 printed {recs[0]['serve']['stdout']!r}")
+    by_id = {g["request_id"]: g for g in lines}
+    digits = gr.compile_regex(SERVE_CLI_GRAMMARS["digits"])
+    if not digits.matches(by_id[2]["text"]) or by_id[3]["text"] != by_id[0]["text"]:
+        raise AssertionError(f"cli_tp serve: the constrained row {by_id[2]['text']!r} or the "
+                             "repeat's text")
+    if answer[0] != 200 or answer[1]["text"] != by_id[0]["text"]:
+        raise AssertionError(f"cli_tp serve --http: answered {answer}, want the batch's "
+                             f"{by_id[0]['text']!r}")
+    print(f"cli_tp: cli.serve --model_parallel 2 (--lora --grammar --prefix_cache), one server: "
+          f"the batch's {len(lines)} result lines from rank 0, the constrained row in its "
+          f"grammar, the repeat's text the first's; then one /generate over HTTP answered by "
+          f"rank 0 with the batch's text, and both ranks shut down with exit code 0; one spawn "
+          f"of two ranks for both CLIs, wall {wall:.1f} s (process start and four checkpoint "
+          f"loads included)  [{card}]", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 # the serve_cli phase: 12 requests of these prompts (words without digits,
@@ -2845,8 +3140,8 @@ def _serve_cli_call(serve, argv, stand, label, hook=None):
     made = {}
     build = serve.build_server
 
-    def capture(args):
-        srv = build(args)
+    def capture(args, **kw):
+        srv = build(args, **kw)
         made["ticks"] = _count_ticks(srv.engine)
         if hook is not None:
             hook(srv.engine)
@@ -4510,8 +4805,34 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
         collective_host_times(mesh, dev, card)
         one = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
         tp_step_attribution(eng, one, pixels, ids, mask, card)
+        # generate_spec under the mesh: the verify on the TP chain at draft_k + 1 rows
+        spec_kw = dict(max_new_tokens=N_NEW, eos_token_id=-1, draft_k=SPEC_DRAFT_K,
+                       match_n=SPEC_MATCH_N, sync_every=SPEC_SYNC)
+        spec_one = one.generate_spec(pixels, ids, mask, **spec_kw)
+        kernels.reset_launch_counts()
+        spec_tp = eng.generate_spec(pixels, ids, mask, **spec_kw)
+        sync()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        same = np.array_equal(spec_tp, spec_one) and np.array_equal(spec_tp, tok)
+        print(f"tp (b): TP generate_spec m=1 ({eng.spec_cycles} cycles, draft_k "
+              f"{SPEC_DRAFT_K}): {spec_tp.shape[1]} tokens identical to the one-card "
+              f"generate_spec's and to TP generate's {same}; {counts['attn_decode_tp']} B7, "
+              f"{counts['head_argmax']} head calls", flush=True)
+        if not same or counts["attn_decode_tp"] != n_layers * _spec_verifies(
+                eng.spec_cycles, SPEC_SYNC):
+            raise AssertionError("tp (b): TP generate_spec differs from one card, or its "
+                                 "verify calls did not run the TP chain")
         del one
         del eng
+        feats_one, c_one = tp_feature_runs("(b) one card", params, decode, cfg, dev, card,
+                                           None, None)
+        feats_tp, c_tp = tp_feature_runs("(b) TP m=1", params, decode, cfg, dev, card, mesh,
+                                         feats_one)
+        for c in (c_one, c_tp):
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
 
         for label, make, tick, want in (
                 ("(b) dense TP m=1", lambda: ServingEngine(params, cfg, decode_params=decode,
@@ -4553,6 +4874,183 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
     return total
 
 
+TP_FEATURE_REQ = 8  # requests of each feature run of tp (b) / (c)
+TP_FEATURE_NEW = 24  # their budget, at most
+TP_GRAMMAR = ("g", "(x[0-9])+")  # ids 5000-5009 are "x0".."x9" (tp_grammars)
+TP_GRAMMAR_ROW, TP_REPEAT_ROW = 5, 7  # the constrained request; request 1's byte copy
+
+
+def tp_feature_requests(cfg, bank: bool):
+    """The feature runs' requests: the first TP_FEATURE_REQ of the serving
+    phase's, budgets capped at TP_FEATURE_NEW; with ``bank`` they take
+    [base, a, b, c] in turn. Request TP_GRAMMAR_ROW decodes under TP_GRAMMAR
+    (its EOS the grammar's), request TP_REPEAT_ROW is a byte copy of request
+    1 (a prefix-cache hit)."""
+    reqs = serving_requests(cfg)[:TP_FEATURE_REQ]
+    names = [None, *LORA_NAMES]
+    for r in reqs:
+        r.max_new_tokens = min(r.max_new_tokens, TP_FEATURE_NEW)
+        r.lora = names[r.request_id % len(names)] if bank else None
+    reqs[TP_GRAMMAR_ROW].grammar, reqs[TP_GRAMMAR_ROW].eos_token_id = TP_GRAMMAR[0], 1
+    src, rep = reqs[1], reqs[TP_REPEAT_ROW]
+    rep.input_ids, rep.pixel_values = src.input_ids.copy(), src.pixel_values.copy()
+    rep.lora, rep.max_new_tokens = src.lora, src.max_new_tokens
+    return reqs
+
+
+def tp_grammars(cfg):
+    """TP_GRAMMAR over surfaces " w<id>" for every id but EOS (1) and ids
+    5000-5009, which are "x0".."x9": only those ten continue a match."""
+    from paligemma_tpu_torch.processing import grammar as gr
+
+    strs = [f" w{i}" for i in range(cfg.vocab_size)]
+    strs[1] = ""
+    for k in range(10):
+        strs[5000 + k] = f"x{k}"
+    return {TP_GRAMMAR[0]: gr.compile_token_dfa(gr.compile_regex(TP_GRAMMAR[1]), strs, 1)}
+
+
+class _PlainLoraInTicks:
+    """Counts the plain LoRA products (models/gemma._lora_delta returning a
+    delta) made inside the decode ticks of ``eng`` (prefill takes the bank
+    through the torch projections; a kernel tick never should), and the
+    ticks."""
+
+    def __init__(self, eng):
+        self.eng, self.calls, self.ticks, self._inside = eng, 0, 0, False
+
+    def __enter__(self):
+        from paligemma_tpu_torch.models import gemma
+
+        self._gemma, self._delta = gemma, gemma._lora_delta
+        name = "_tick_paged" if hasattr(self.eng, "paged") else "_tick"
+        self._name, tick = name, getattr(self.eng, name)
+
+        def delta(*a, **kw):
+            out = self._delta(*a, **kw)
+            self.calls += self._inside and out is not None
+            return out
+
+        def counted(*a, **kw):
+            self.ticks, self._inside = self.ticks + 1, True
+            try:
+                return tick(*a, **kw)
+            finally:
+                self._inside = False
+
+        gemma._lora_delta = delta
+        setattr(self.eng, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        self._gemma._lora_delta = self._delta
+        delattr(self.eng, self._name)
+
+
+def _feature_serve(eng, reqs):
+    """Run ``reqs`` to completion (a constrained row may stop at its EOS):
+    ({id: tokens}, wall s)."""
+    for r in reqs:
+        eng.submit(r)
+    sync()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    sync()
+    if not all(r.done for r in reqs):
+        raise AssertionError("tp features: a request did not finish")
+    return {r.request_id: list(r.tokens) for r in reqs}, time.perf_counter() - t0
+
+
+def _check_grammar_rows(label, toks):
+    """The constrained row emitted only TP_GRAMMAR's tokens (ids 5000-5009)
+    up to its EOS."""
+    row = toks[TP_GRAMMAR_ROW]
+    body = row[:-1] if row and row[-1] == 1 else row
+    if not body or not all(5000 <= t <= 5009 for t in body):
+        raise AssertionError(f"tp {label}: the constrained row left the grammar: {row}")
+
+
+def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=print):
+    """The TP engines at the JAX package's feature set against the one-card
+    kernel engines (``one_card``: {run: tokens}, None to run them here):
+    dense and paged serving with a bank of LORA_NAMES adapters, a grammar
+    row and a prefix repeat ("bank"), and spec_decode with the grammar row
+    and the repeat ("spec"). Gates: the tokens (``one_card`` given: within
+    the caller's own rule); the grammar row in its grammar; the repeat a
+    cache hit; per layer and tick of a bank run 4 shrinks, 2 K1, the qkv
+    and gate/up expands in their GEMVs, and no plain LoRA product inside
+    a tick. Returns ({run: tokens}, summed launch counts)."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    Paged = _recording_engine()
+    n_layers = cfg.text_config.num_hidden_layers
+    adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
+    grammars = tp_grammars(cfg)
+    out, total = {}, {}
+    for run in ("bank dense", "bank paged", "spec dense", "spec paged"):
+        bank, paged = run.startswith("bank"), run.endswith("paged")
+        kw = dict(decode_params=decode, grammars=grammars, prefix_cache=True, mesh=mesh,
+                  lora_bank=adapters if bank else None, spec_decode=not bank,
+                  spec_draft_k=SPEC_DRAFT_K, fused_decode=True, **SERVE)
+        eng = (Paged(params, cfg, page_size=PAGE, n_pages=FULL_POOL, **kw) if paged
+               else ServingEngine(params, cfg, **kw))
+        want_kernel = ("fused" if mesh is None else "fused_tp") if paged else None
+        if not eng.fused_decode or getattr(eng, "paged_kernel", None) != want_kernel:
+            raise AssertionError(f"tp {label} {run}: the engine did not take the kernel tick")
+        kernels.reset_launch_counts()
+        with _PlainLoraInTicks(eng) as probe:
+            toks, wall = _feature_serve(eng, tp_feature_requests(cfg, bank))
+        sync()
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        _check_grammar_rows(f"{label} {run}", toks)
+        if eng.cache_hits < 1:
+            raise AssertionError(f"tp {label} {run}: the repeat was not a prefix-cache hit")
+        lt = n_layers * probe.ticks
+        say(f"tp {label} {run}: launches over {probe.ticks} ticks: {json.dumps(counts)}; "
+            f"{eng.cache_hits} cache hits, {probe.calls} plain LoRA products in ticks; "
+            f"{sum(map(len, toks.values())) / wall:.1f} tok/s  [{card}]", flush=True)
+        if bank:
+            tp_chain = mesh is not None
+            attn = ("attn_decode_paged_tp" if paged else "attn_decode_tp") if tp_chain else (
+                "paged_decode_attention" if paged else "decode_attention")
+            want = {"lora_shrink": 4 * lt, "int8_gemv_rope_kv": lt, attn: lt}
+            if tp_chain:
+                want.update({"int8_gemv_f32_lora": 2 * lt, "int8_gemv_f32": 0,
+                             "mlp_decode_fused": lt})
+            bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+            say(f"tp {label} {run}: per layer and tick {counts['lora_shrink'] / lt:.0f} "
+                f"shrinks, the qkv and gate/up expands in their GEMVs, "
+                + (f"{counts['int8_gemv_f32_lora'] / lt:.0f} K1 (o, down)" if tp_chain
+                   else "the o and down expands in their residual GEMVs"), flush=True)
+            if bad or probe.calls or not probe.ticks:
+                raise AssertionError(f"tp {label} {run}: launch counts (got, want) {bad}, "
+                                     f"{probe.calls} plain LoRA products inside ticks")
+        elif mesh is not None and (counts["int8_gemv_f32_lora"] or not counts[
+                "attn_decode_paged_tp" if paged else "attn_decode_tp"]):
+            raise AssertionError(f"tp {label} {run}: K1 launched without a bank, or the verify "
+                                 "did not run the TP chain")
+        out[run] = toks
+        if one_card is not None:
+            differ = [i for i in toks if toks[i] != one_card[run][i]]
+            say(f"tp {label} {run}: {len(toks) - len(differ)}/{len(toks)} requests with the "
+                f"one-card kernel engine's tokens", flush=True)
+            if differ:
+                raise AssertionError(f"tp {label} {run}: requests {differ} differ from one card")
+        if bank and mesh is not None and mesh.backend == "nccl":  # gloo stages on the host
+            for r in tp_feature_requests(cfg, bank)[:8]:
+                r.max_new_tokens = 64
+                eng.submit(r)
+            eng.step()
+            _window_without_sync(eng)
+            say(f"tp {label} {run}: no host synchronization inside a bank window", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    return out, total
+
+
 def _teacher_logits(eng, req, tokens):
     """fp32 logits (len(tokens), vocab) on the host: the prefill's, then one
     decode step per token fed back (the last one is not fed)."""
@@ -4562,6 +5060,44 @@ def _teacher_logits(eng, req, tokens):
     for t in tokens[:-1]:
         logits, state = eng.decode_step(torch.tensor([t]), state)
         out.append(logits[0].cpu())
+    return torch.stack(out)
+
+
+def _teacher_bank_logits(eng, cfg, req, tokens):
+    """A dense serving engine with a bank (kernel tick; under its mesh the
+    TP chain): prefill ``req`` under its adapter, then feed it ``tokens``
+    one decode step each (the last one is not fed). fp32 logits
+    (len(tokens), vocab) on the host."""
+    from paligemma_tpu_torch.models import gemma, paligemma
+
+    dev = eng.device
+    n = len(req.input_ids)
+    bucket = -(-n // PAGE) * PAGE
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = req.input_ids
+    mask = np.zeros((1, bucket), np.int32)
+    mask[0, :n] = 1
+    aid = torch.tensor([eng._lora_index[req.lora]], dtype=torch.int32, device=dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, device=dev)
+    logits, cache1 = paligemma.prefill(
+        eng.params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
+        torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache1, use_flash=True,
+        last_only=True, lora=eng.lora_bank, adapter_ids=aid, mesh=eng.mesh)
+    cache = gemma.init_kv_cache(cfg.text_config, 1, SERVE["max_seq_len"], torch.bfloat16,
+                                device=dev)
+    for name in ("k", "v"):
+        cache[name][:, :, :bucket] = cache1[name]
+    valid = torch.zeros((1, SERVE["max_seq_len"]), dtype=torch.bool, device=dev)
+    valid[0, :n] = True
+    out = [logits[0, 0].cpu()]
+    for t, tok in enumerate(tokens[:-1]):
+        pos = torch.tensor([n + t], dtype=torch.int32, device=dev)
+        valid[0, n + t] = True
+        lk, _ = paligemma.decode_step(eng.decode_params, cfg, torch.tensor([tok], device=dev),
+                                      cache, cache_pos=pos, kv_valid=valid, position_ids=pos + 1,
+                                      fused_layer=True, lora=eng._lora_arg(), adapter_ids=aid,
+                                      mesh=eng.mesh)
+        out.append(lk[0].cpu())
     return torch.stack(out)
 
 
@@ -4588,12 +5124,15 @@ def _w8a8_lm_prefill(tree, cfg, mesh, dev):
     return logits, cache["k"], cache["v"]
 
 
-def _tp2_rank(rank, world, init, out_dir, teacher):
+def _tp2_rank(rank, world, init, out_dir, teacher, card):
     """One rank of run (c) (a spawned process on the shared card): the
     dense TP ServingEngine on the 12 requests over gloo, then request 0's
-    one-card tokens teacher-forced through the TP kernel engine. Rank 0
-    also runs the one-card kernel engine on the same tokens. Writes its
-    tokens and logits' agreement to ``out_dir``."""
+    one-card tokens teacher-forced through the TP kernel engine; the
+    feature runs (tp_feature_runs: a bank, a grammar, a prefix repeat,
+    spec_decode, dense and paged) and an adapter request's tokens
+    teacher-forced through the TP engine with the gate bank. Rank 0 also
+    runs the one-card kernel engines on the same tokens. Writes its tokens
+    and logits' agreement to ``out_dir``."""
     import torch.distributed as dist
 
     from paligemma_tpu_torch import paligemma_3b_224
@@ -4626,6 +5165,17 @@ def _tp2_rank(rank, world, init, out_dir, teacher):
         del tp
         out = {"tokens": toks, "wall": wall, "ttft": ttft,
                "w8a8": [t.cpu() for t in _w8a8_lm_prefill(decode, cfg, mesh, dev)]}
+        t0 = time.perf_counter()
+        out["features"], _ = tp_feature_runs(
+            f"(c) m={world} rank {rank}", params, decode, cfg, dev, card, mesh, None,
+            say=print if rank == 0 else (lambda *a, **kw: None))
+        out["features_s"] = time.perf_counter() - t0
+        gate = lora_bank_adapters(cfg, dev, LORA_B_STD_GATE)
+        lreq = tp_feature_requests(cfg, True)[1]  # adapter "a"
+        tp_bank = ServingEngine(params, cfg, decode_params=decode, mesh=mesh, lora_bank=gate,
+                                **SERVE)
+        lt_bank = _teacher_bank_logits(tp_bank, cfg, lreq, out["features"]["bank dense"][1])
+        del tp_bank
         if rank == 0:
             out["w8a8_one"] = [t.cpu() for t in _w8a8_lm_prefill(decode, cfg, None, dev)]
             one = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode)
@@ -4633,6 +5183,14 @@ def _tp2_rank(rank, world, init, out_dir, teacher):
             if not torch.isfinite(lt).all():
                 raise AssertionError("run (c): non-finite TP logits")
             out["rel_err"] = float(((lt - lo).abs().amax(-1) / lo.abs().amax(-1)).max())
+            del one
+            one_bank = ServingEngine(params, cfg, decode_params=decode, lora_bank=gate, **SERVE)
+            lo_bank = _teacher_bank_logits(one_bank, cfg, lreq, out["features"]["bank dense"][1])
+            if not torch.isfinite(lt_bank).all():
+                raise AssertionError("run (c): non-finite TP logits with the bank")
+            out["bank_rel_err"] = float(((lt_bank - lo_bank).abs().amax(-1)
+                                         / lo_bank.abs().amax(-1)).max())
+            out["bank_tokens"] = len(lo_bank)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4654,7 +5212,7 @@ def tp_two_rank_phase(cfg, card, tok_dense):
     work.mkdir(parents=True)
     t0 = time.perf_counter()
     ctx = mp.start_processes(_tp2_rank, args=(world, str(work / "init"), str(work),
-                                              tok_dense[0]),
+                                              tok_dense[0], card),
                              nprocs=world, start_method="spawn", join=False)
     try:
         deadline = time.monotonic() + TP2_TIMEOUT
@@ -4694,6 +5252,20 @@ def tp_two_rank_phase(cfg, card, tok_dense):
           f"one-card kernel logits: max rel err {worst:.3e} (tol {LOGIT_REL_TOL})", flush=True)
     if not worst <= LOGIT_REL_TOL:
         raise AssertionError(f"run (c): TP m=2 logits rel err {worst} > {LOGIT_REL_TOL}")
+    feats = outs[0]["features"]
+    if any(o["features"] != feats for o in outs[1:]):
+        raise AssertionError("run (c): the ranks emitted different tokens in the feature runs")
+    print(f"tp (c): feature runs ({', '.join(feats)}; {TP_FEATURE_REQ} requests each) in "
+          f"{outs[0]['features_s']:.1f} s over gloo: every rank emitted the same tokens "
+          f"(a correctness run: the collectives stage through host memory)  [{card}]",
+          flush=True)
+    worst = outs[0]["bank_rel_err"]
+    print(f"tp (c): an adapter request's {outs[0]['bank_tokens']} tokens teacher-forced with "
+          f"the bank (B std {LORA_B_STD_GATE}), TP m=2 kernel tick vs one-card kernel tick "
+          f"logits: max rel err {worst:.3e} (tol {LOGIT_REL_TOL})", flush=True)
+    if not worst <= LOGIT_REL_TOL:
+        raise AssertionError(f"run (c): TP m=2 logits with the bank rel err {worst} > "
+                             f"{LOGIT_REL_TOL}")
 
 
 def train_batch(cfg):
@@ -5785,18 +6357,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"w8a8: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    cli_counts, ckpt = cli_phase(params, decode, cfg, dev, card)
+    cli_counts, ckpt, cli_ids = cli_phase(params, decode, cfg, dev, card)
     torch.cuda.empty_cache()
     print(f"cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    atexit.register(shutil.rmtree, ckpt, True)  # the cli_tp phase, last, reads it too
     t0 = time.perf_counter()
-    try:
-        serve_cli_counts = serve_cli_phase(params, decode, cfg, dev, card, ckpt)
-        torch.cuda.empty_cache()
-        print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        finetune_counts = finetune_phase(params, cfg, dev, card, ckpt)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    serve_cli_counts = serve_cli_phase(params, decode, cfg, dev, card, ckpt)
+    torch.cuda.empty_cache()
+    print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    finetune_counts = finetune_phase(params, cfg, dev, card, ckpt)
     torch.cuda.empty_cache()
     print(f"finetune: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -5817,6 +6387,14 @@ def main() -> int:
     t0 = time.perf_counter()
     train_counts = train_phase(params, cfg, dev, card)
     print(f"train: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    # last, after every profile of this process: in runs where the CLIs'
+    # spawned ranks ran before the spec and multilora phases, those phases'
+    # larger profiles lost 1-3 of ~576 GEMV events on every try
+    t0 = time.perf_counter()
+    cli_tp_phase(cfg, card, ckpt, cli_ids)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"cli_tp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
                                            spec_counts, finetune_counts, w8a8_counts))
@@ -5850,6 +6428,10 @@ def main() -> int:
                                     "paligemma_tpu/kernels/flash_attention.py:321"),
         "int8_gemv_f32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
                           "paligemma_tpu/kernels/decode_layer_tp.py:79"),
+        # K1: a TP rank's o / down partial with its LoRA delta; XLA under
+        # GSPMD in the reference (the mesh's multi-LoRA tick), no Pallas kernel
+        "int8_gemv_f32_lora": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
+                               "paligemma_tpu/runtime/serving.py:223"),
         # the LoRA shrink of B2 / B4 with lora=True (its expand is in
         # int8_gemv's epilogue)
         "lora_shrink": ("cuda", "paligemma_tpu_torch/csrc/lora.cu",

@@ -27,8 +27,17 @@ exits with an error.
 ``--speculative`` (greedy, one image and prompt) decodes with n-gram
 speculative decoding (runtime/engine ``generate_spec``, ``--draft_k``
 drafts a cycle): the tokens of greedy decoding, and the cycles in the
-``timings`` line. ``--data_parallel`` / ``--model_parallel`` above 1 are
-not ported yet and exit with an error that names them.
+``timings`` line.
+
+``--model_parallel N`` (N > 1) serves the model tensor-parallel over N
+ranks, one process each (cli/ranks: spawned here, or one per process under
+``torchrun --nproc_per_node N``): every rank loads the checkpoint and the
+images, keeps its slices (core/mesh.shard_params) and runs the same
+``PaliGemmaEngine(mesh=...)``; rank 0 prints the rows and the timings.
+Each rank takes ``cuda:(rank % device_count)``; ranks that share a card
+run over gloo (a correctness run: every collective stages through host
+memory). ``--data_parallel`` above 1 is not ported yet and exits with an
+error that names it.
 
 Besides the printed rows, the run's phases (load, quantize, preprocess,
 prefill, decode) are written as one ``timings:`` JSON line to stderr.
@@ -46,6 +55,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import ranks
 from .errors import CliError, require, user_errors
 
 # decode steps per host check for EOS (engine.generate's sync_every): the
@@ -86,7 +96,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--data_parallel", type=int, default=1,
                    help="not ported above 1: exits with an error")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
+                   help="tensor parallel over N ranks, one process each (spawned, or under "
+                        "torchrun --nproc_per_node N); ranks sharing a card run over gloo")
     p.add_argument("--speculative", action="store_true",
                    help="n-gram speculative decoding (greedy, one image and prompt): "
                         "draft tokens from the prompt and output so far, verified in "
@@ -114,11 +125,19 @@ def card_or_cpu(only_cpu: bool, dtype: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def check_parallel(args) -> None:
+    """The mesh flags both CLIs take: a model axis of at least 1; no data
+    axis yet."""
+    require(args.data_parallel == 1,
+            "--data_parallel above 1 is not ported yet (ROADMAP item 14, the data axis: "
+            "the paged engine's shards, DP training and FSDP); --model_parallel N serves "
+            "a tensor-parallel model axis")
+    require(args.model_parallel >= 1, "--model_parallel must be at least 1")
+
+
 def _device(args) -> torch.device:
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
-    require(args.data_parallel * args.model_parallel == 1,
-            "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
-            "the port's mesh runs one process per rank under torchrun)")
+    check_parallel(args)
     return card_or_cpu(args.only_cpu, args.dtype)
 
 
@@ -127,11 +146,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
+def run(args: argparse.Namespace, tokenizer=None, *, rank: "ranks.Rank" = None) -> InferResult:
     """The CLI's body: prints as the CLI does and returns the tokens, the
     printed rows and the timings. ``tokenizer``: used in place of
-    ``AutoTokenizer.from_pretrained(args.model_path)`` when given."""
+    ``AutoTokenizer.from_pretrained(args.model_path)`` when given.
+    ``rank``: this process's place among ``--model_parallel``'s ranks
+    (cli/ranks); only rank 0 prints."""
     device = _device(args)
+    say = print
+    if rank is not None:
+        device, say = rank.device, rank.say
     prompts = list(args.prompt)
     require(
         len(args.image_file_path) == len(prompts),
@@ -155,8 +179,8 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
     images = [Image.open(f) for f in args.image_file_path]
     timings: Dict[str, float] = {}
     name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
-    print(f"Device in use: {device}{name}")
-    print("Loading model")
+    say(f"Device in use: {device}{name}")
+    say("Loading model")
     t0 = time.perf_counter()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params, config = load_hf_model(args.model_path, dtype, device=device)
@@ -201,8 +225,9 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
         # the plain bf16 decode unless the int8 tree was asked for
         fused_layer=None if args.quantize_int8 else False,
         int8_act_prefill=args.int8_prefill,
+        mesh=None if rank is None else rank.mesh,
     )
-    print("Running inference")
+    say("Running inference")
     prefill = engine.prefill
 
     def timed_prefill(*a, **kw):  # the prefill's own time, vision included
@@ -241,12 +266,14 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
         del engine.prefill  # no reference cycle keeps the weights alive
     timings["decode_ms"] = (time.perf_counter() - t0) * 1e3 - timings["prefill_ms"]
     timings["tokens"] = int(tokens.shape[1])
+    if rank is not None:
+        rank.agree(tokens.tolist(), "the generated tokens")
 
     texts = []
     for prompt, row, image in zip(prompts, tokens, images):
         decoded = tokenizer.decode(row, skip_special_tokens=True)
         texts.append(prompt + decoded)
-        print(prompt + decoded)
+        say(prompt + decoded)
         if args.decode_detections:
             from ..processing.detection import extract_objects
 
@@ -259,15 +286,27 @@ def run(args: argparse.Namespace, tokenizer=None) -> InferResult:
                 }
                 for o in extract_objects(decoded)
             ]
-            print(json.dumps(objs))
-    print(f"timings: {json.dumps(timings)}", file=sys.stderr)
+            say(json.dumps(objs))
+    say(f"timings: {json.dumps(timings)}", file=sys.stderr)
     return InferResult(tokens=tokens, texts=texts, pixel_route=processor.last_route,
                        timings=timings)
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     with user_errors():
-        run(parse_args(argv))
+        args = parse_args(argv)
+        if args.model_parallel > 1:
+            _device(args)  # the flags' errors before any rank starts
+            ranks.launch(_rank_main, argv, args.model_parallel, args.only_cpu)
+        else:
+            run(args)
+
+
+def _rank_main(argv, rank: "ranks.Rank") -> None:
+    """One rank of ``--model_parallel`` (cli/ranks)."""
+    with user_errors():
+        run(parse_args(argv), rank=rank)
 
 
 if __name__ == "__main__":

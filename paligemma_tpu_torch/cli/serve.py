@@ -42,8 +42,22 @@ cycle), with the tokens of the engine without it.
 as cli/infer: the bf16 copy of the LM is dropped and every prefill wave
 runs its projections W8A8; without ``--quantize_int8`` it exits 2.
 
+``--model_parallel N`` (N > 1) serves tensor-parallel over N ranks, one
+process each (cli/ranks: spawned here, or one per process under ``torchrun
+--nproc_per_node N``), with every flag above. Every rank loads the
+checkpoint (and the ``--lora`` adapters, each rank keeping its shard) and
+builds the same engine with the mesh. Batch mode: rank 0 reads the
+requests and hands them to the other ranks over the ranks' control group;
+every rank runs the same batch and only rank 0 prints. HTTP mode: rank 0
+runs the front end, and its engine thread hands every engine call
+(submit, cancel, one scheduler round, stop) to the other ranks before it
+makes it; they apply the calls in that order (``_Server.follow``). Every
+rank reads back the same tokens (held against each other at the end);
+only rank 0 answers. An idle server waits on the control group, whose
+timeout an idle server does not reach (cli/ranks).
+
 Flags of parts not yet ported exit 2 with the ROADMAP item that ports
-them: ``--data_parallel`` / ``--model_parallel`` above 1 (item 14). ``--lora``
+them: ``--data_parallel`` above 1 (item 14, the data axis). ``--lora``
 reads the port's own adapter checkpoints (checkpoints/local.save_pytree of
 ``{"lora": ...}``, as ``cli.finetune`` writes under ``final/``), not the
 JAX package's orbax ones (reading those needs jax).
@@ -53,10 +67,14 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
+import dataclasses
 import io
 import json
+import os
 import queue
 import sys
+import tempfile
 import threading
 import traceback
 from typing import Dict, Optional
@@ -64,10 +82,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import ranks
 from .errors import CliError, require, user_errors
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     with user_errors():
         _main(argv)
 
@@ -120,29 +140,67 @@ def _build_parser():
     p.add_argument("--data_parallel", type=int, default=1,
                    help="not ported above 1: exits with an error")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
+                   help="tensor parallel over N ranks, one process each (spawned, or under "
+                        "torchrun --nproc_per_node N); ranks sharing a card run over gloo")
     return p
 
 
-def _main(argv=None):
+def _main(argv):
     args = _build_parser().parse_args(argv)
     require(args.requests_jsonl is not None or args.http is not None,
             "pass --requests_jsonl FILE (or -) for batch mode, or --http PORT for server mode")
-    srv = build_server(args)
-    if args.http is not None:
+    if args.model_parallel > 1:
+        _device(args)  # the flags' errors before any rank starts
+        with _stdin_as_file(args, argv) as rank_argv:
+            ranks.launch(_rank_main, rank_argv, args.model_parallel, args.only_cpu)
+        return
+    _serve(args)
+
+
+@contextlib.contextmanager
+def _stdin_as_file(args, argv):
+    """``--requests_jsonl -`` for spawned ranks: a spawned process reads no
+    stdin, so this process reads it into a temporary file and rank 0 reads
+    that (under torchrun rank 0 reads its own stdin)."""
+    if args.requests_jsonl != "-" or "WORLD_SIZE" in os.environ:
+        yield argv
+        return
+    fd, path = tempfile.mkstemp(prefix="paligemma_requests_", suffix=".jsonl")
+    try:
+        with os.fdopen(fd, "w") as fh:
+            fh.write(sys.stdin.read())
+        out = list(argv)
+        for i, a in enumerate(out):
+            if a == "--requests_jsonl=-":
+                out[i] = f"--requests_jsonl={path}"
+            elif a == "-" and i > 0 and out[i - 1] == "--requests_jsonl":
+                out[i] = path
+        yield out
+    finally:
+        os.remove(path)
+
+
+def _serve(args, rank: "ranks.Rank" = None) -> None:
+    srv = build_server(args, rank=rank)
+    if args.http is None:
+        srv.run_batch(args.requests_jsonl)
+    elif rank is None or rank.lead:
         srv.serve_http(args.http)
     else:
-        srv.run_batch(args.requests_jsonl)
+        srv.follow()
+
+
+def _rank_main(argv, rank: "ranks.Rank") -> None:
+    """One rank of ``--model_parallel`` (cli/ranks)."""
+    with user_errors():
+        _serve(_build_parser().parse_args(argv), rank)
 
 
 def _device(args) -> torch.device:
-    from .infer import card_or_cpu
+    from .infer import card_or_cpu, check_parallel
 
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
-    require(args.data_parallel * args.model_parallel == 1,
-            "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
-            "the port's mesh runs one process per rank, and a front end over it is its own "
-            "design)")
+    check_parallel(args)
     return card_or_cpu(args.only_cpu, args.dtype)
 
 
@@ -158,10 +216,14 @@ def _named(specs, what, form):
     return out
 
 
-def build_server(args):
+def build_server(args, *, rank: "ranks.Rank" = None):
     """Load the model and wire up a ready-to-run ``_Server`` (apart from
-    ``_main`` so that tests can drive HTTP mode in-process)."""
+    ``_main`` so that tests can drive HTTP mode in-process). ``rank``: this
+    process's place among ``--model_parallel``'s ranks (cli/ranks)."""
     device = _device(args)
+    say = print
+    if rank is not None:
+        device, say = rank.device, rank.say
     lora_specs = _named(args.lora, "lora", "NAME=DIR")
     grammar_specs = _named(args.grammar, "grammar", "NAME=REGEX")
     from transformers import AutoTokenizer
@@ -173,7 +235,7 @@ def build_server(args):
     from ..runtime.serving_paged import PagedServingEngine
 
     name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
-    print(f"Device in use: {device}{name}", file=sys.stderr)
+    say(f"Device in use: {device}{name}", file=sys.stderr)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params, config = load_hf_model(args.model_path, dtype, device=device)
     decode_params = quantize_lm_for_serving(params) if args.quantize_int8 else None
@@ -218,7 +280,7 @@ def build_server(args):
               decode_params=decode_params, sync_every=args.sync_every,
               prefix_cache=args.prefix_cache, lora_bank=lora_bank, grammars=grammars,
               spec_decode=args.spec_decode, spec_draft_k=args.spec_draft_k,
-              int8_act_prefill=args.int8_prefill,
+              int8_act_prefill=args.int8_prefill, mesh=None if rank is None else rank.mesh,
               # the kernel tick takes the int8 tree; the bf16 decode is the plain one
               fused_decode=None if args.quantize_int8 else False)
     if args.engine == "paged":
@@ -226,7 +288,7 @@ def build_server(args):
                                     n_pages=args.n_pages, **kw)
     else:
         engine = ServingEngine(params, config, **kw)
-    return _Server(engine, processor, tokenizer, args.max_new_tokens)
+    return _Server(engine, processor, tokenizer, args.max_new_tokens, rank=rank)
 
 
 class _Call:
@@ -247,10 +309,16 @@ class _Call:
 
 
 class _Server:
-    """Shared request plumbing for batch and HTTP modes."""
+    """Shared request plumbing for batch and HTTP modes. ``rank``: under
+    ``--model_parallel``, this process's place among the ranks (module
+    docstring); rank 0 reads, answers and prints."""
 
-    def __init__(self, engine, processor, tokenizer, default_max_new):
+    def __init__(self, engine, processor, tokenizer, default_max_new, *,
+                 rank: "ranks.Rank" = None):
         self.engine = engine
+        self.rank = rank
+        self.lead = rank is None or rank.lead
+        self._submitted: list = []  # the requests every rank submitted, in order
         self.processor = processor
         self.tokenizer = tokenizer
         self.default_max_new = default_max_new
@@ -310,7 +378,7 @@ class _Server:
 
     # ---- batch mode ----
 
-    def run_batch(self, path):
+    def _read_batch(self, path):
         fh = sys.stdin if path == "-" else open(path)
         try:
             rows = [json.loads(ln) for ln in fh if ln.strip()]
@@ -320,31 +388,89 @@ class _Server:
             if fh is not sys.stdin:
                 fh.close()
         require(rows, "requests file is empty")
-        for row in rows:
-            self.engine.submit(self._to_request(row))
+        return [self._to_request(row) for row in rows]
+
+    def _agree(self) -> None:
+        """Under ``--model_parallel``: every rank read back the same tokens."""
+        if self.rank is not None:
+            self.rank.agree([(r.request_id, list(r.tokens)) for r in self._submitted],
+                            "the tokens of the requests served")
+
+    def run_batch(self, path):
+        reqs, error = None, None
+        if self.lead:
+            try:
+                reqs = self._read_batch(path)
+            except Exception as e:  # the other ranks stop with it
+                error = e
+        if self.rank is not None:  # rank 0's requests, to every rank
+            kind, got = self.rank.share(("error", str(error)) if error is not None
+                                        else ("ok", reqs))
+            if kind == "error" and not self.lead:
+                raise CliError(f"rank 0 could not read the requests: {got}")
+            reqs = got
+        if error is not None:
+            raise error
+        for req in reqs:
+            self.engine.submit(req)
+            self._submitted.append(req)
         inflight = None
         while self.engine.has_work or inflight is not None:
             finished, inflight = self.engine.advance(inflight)
             for req in finished:
-                print(json.dumps(self._result(req)), flush=True)
-        print(f"served {self._served} requests", file=sys.stderr)
+                if self.lead:
+                    print(json.dumps(self._result(req)), flush=True)
+        self._agree()
+        if self.lead:
+            print(f"served {self._served} requests", file=sys.stderr)
 
     # ---- HTTP mode ----
+
+    def _publish(self, op: str, arg=None) -> None:
+        """Under ``--model_parallel``: hand an engine call to the other
+        ranks before making it (:meth:`follow`)."""
+        if self.rank is not None:
+            self.rank.share((op, arg))
+
+    def follow(self) -> None:
+        """HTTP mode on a rank other than 0: apply rank 0's engine calls in
+        its order until it stops. The wait for the next call is on the
+        ranks' control group, which an idle server does not time out."""
+        inflight = None
+        while True:
+            op, arg = self.rank.share()
+            if op == "stop":
+                break
+            if op == "submit":
+                try:
+                    self.engine.submit(arg)
+                except ValueError:  # refused on rank 0 too
+                    continue
+                self._submitted.append(arg)
+            elif op == "cancel":
+                self.engine.cancel(arg)
+            else:
+                _, inflight = self.engine.advance(inflight)
+        self._agree()
 
     def _take(self, call: _Call, waiting: Dict[int, _Call]) -> None:
         """Apply one call on the engine's thread."""
         if call.cancel is not None:
+            self._publish("cancel", call.cancel)
             ok = self.engine.cancel(call.cancel)
             victim = waiting.pop(call.cancel, None)
             if victim is not None:  # answer its /generate
                 victim.finish({"request_id": call.cancel, "cancelled": True, "num_tokens": None})
             call.finish({"request_id": call.cancel, "cancelled": ok})
             return
+        # the other ranks' copy: no callback (it streams from rank 0)
+        self._publish("submit", dataclasses.replace(call.req, on_token=None))
         try:
             self.engine.submit(call.req)
         except ValueError as e:  # a bad request, not a server fault
             call.finish({"error": str(e)}, 400)
             return
+        self._submitted.append(call.req)
         waiting[call.req.request_id] = call
         call.accepted.set()
 
@@ -359,6 +485,7 @@ class _Server:
         stop = threading.Event()
         waiting: Dict[int, _Call] = {}  # request_id -> its /generate call
         srv_ref = {}
+        failed = []  # the engine thread's exception
 
         def engine_loop():
             inflight = None
@@ -367,6 +494,7 @@ class _Server:
                     if inflight is None and not self.engine.has_work:
                         work.wait()
                     if stop.is_set():
+                        self._publish("stop")
                         return
                     work.clear()
                     finished = []
@@ -377,12 +505,14 @@ class _Server:
                             except queue.Empty:
                                 break
                         if self.engine.has_work or inflight is not None:
+                            self._publish("advance")
                             finished, inflight = self.engine.advance(inflight)
                     for req in finished:
                         call = waiting.pop(req.request_id, None)
                         if call is not None:  # None: a /cancel answered it
                             call.finish(self._result(req))
-            except Exception:  # the engine failed: answer the waiting calls, stop
+            except Exception as e:  # the engine failed: answer the waiting calls, stop
+                failed.append(e)
                 traceback.print_exc()
                 for call in waiting.values():
                     call.finish({"error": "the engine failed; see the server's log"}, 500)
@@ -493,6 +623,10 @@ class _Server:
             stop.set()
             work.set()
             loop.join()
+        if self.rank is not None:
+            if failed:  # the other ranks are ended with this one
+                raise RuntimeError("the engine failed on rank 0") from failed[0]
+            self._agree()
 
 
 if __name__ == "__main__":

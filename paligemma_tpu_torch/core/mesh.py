@@ -8,7 +8,8 @@ calls the collectives itself:
 
 * ``Mesh`` names this rank's place: ``data`` x ``model`` ranks, its
   ``rank`` on the model axis, the process group and its backend.
-  Only the model axis is ported: ``make_mesh(data > 1)`` raises.
+  Only the model axis is ported: ``make_mesh(data > 1)`` raises, and the
+  engines refuse a hand-built ``Mesh(data > 1)`` (``model_axis_only``).
 * ``shard_params`` returns this rank's contiguous slices, by the JAX rules
   of ``_spec_for_leaf`` (here as tuples, one entry per dimension,
   ``"model"`` or None). The JAX ``param_specs`` tree has no counterpart: a
@@ -19,6 +20,13 @@ calls the collectives itself:
   stays replicated (JAX shards its D; here the encoder blocks take the
   whole embedding as their input, which a D-sharded embedding would need
   gathered again).
+* ``shard_lora`` slices a LoRA tree or a multi-LoRA bank the same way
+  (the counterpart of JAX's ``lora_specs``): column-parallel targets (q,
+  gate, up) take B's output columns with A whole, row-parallel ones (o,
+  down) take A's input rows with B whole, so a row-parallel target's
+  delta leaves each rank as a partial that is summed with the projection's
+  own partial. k and v narrower than q keep A and B whole, as their
+  weights do (JAX shards their B): every rank computes the same k and v.
 * Fused matrices are split at their boundaries before sharding:
   ``qkv`` becomes ``[q_r | k | v]`` and ``gateup`` ``[gate_r | up_r]``. A
   plain column slice of the fused matrix would give rank 0 all of q (or of
@@ -74,6 +82,14 @@ def make_mesh(data: int = 1, model: Optional[int] = None, *, group=None) -> Mesh
         raise ValueError(f"make_mesh: data {data} x model {model} != world size {world}")
     return Mesh(model=model, rank=dist.get_rank(group), data=data, group=group,
                 backend=dist.get_backend(group))
+
+
+def model_axis_only(mesh: Optional[Mesh], what: str) -> None:
+    """Raise for a mesh with a data axis (a hand-built ``Mesh(data > 1)``):
+    only the model axis is ported."""
+    if mesh is not None and mesh.data != 1:
+        raise NotImplementedError(f"{what}: a mesh with a data axis (data {mesh.data}) is not "
+                                  "ported (ROADMAP item 14, the data axis)")
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +228,51 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
         return {k: walk(v, names + (k,)) for k, v in t.items()}
 
     return walk(params, ())
+
+
+def shard_lora(lora: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's slices of a LoRA tree (train/lora.init_lora: ``a`` (L,
+    in, r), ``b`` (L, r, out)) or of a stacked bank (train/lora.
+    stack_lora_bank: the adapter axis second, and ``a_cat`` (L, in, G),
+    ``b_cat`` (L, G, out)); other entries (``alpha``, ``__ids__``) stay
+    whole. q, gate and up: B's (and b_cat's) output columns; o and down:
+    A's (and a_cat's) input rows; k and v: whole when narrower than q (one
+    KV head; JAX's ``lora_specs`` shards their B), else as q. Every rank
+    then adds its own q / gate / up columns' delta, the same k / v delta,
+    and for o and down a partial delta, summed across ranks beside the
+    projection's partial (models/gemma ``_row_parallel``,
+    kernels/decode_layer_tp)."""
+    m, r = mesh.model, mesh.rank
+    layers = lora["layers"]
+    if "q" in layers:
+        nq = layers["q"]["b"].shape[-1]
+    elif "o" in layers:
+        nq = layers["o"]["a"].shape[-2]
+    else:
+        nq = None
+
+    def cut(t, dim):
+        n = t.shape[dim]
+        if n % m:
+            raise ValueError(f"shard_lora: {n} does not split over {m} ranks")
+        return _slice(t, t.dim() + dim, r * n // m, (r + 1) * n // m)
+
+    out = {}
+    for name, p in layers.items():
+        if not isinstance(p, dict):
+            out[name] = p  # the per-row ids of a bank (models/paligemma.lora_with_ids)
+            continue
+        if name in ("o", "down"):
+            keys, dim = ("a", "a_cat"), -2
+        elif name in ("k", "v"):
+            if nq is None:
+                raise ValueError("shard_lora: k / v adapters need q or o beside them to tell "
+                                 "one KV head from one per query head")
+            keys, dim = (("b", "b_cat") if p["b"].shape[-1] == nq else ()), -1
+        else:
+            keys, dim = ("b", "b_cat"), -1
+        out[name] = {k: cut(v, dim) if k in keys else v for k, v in p.items()}
+    return {**lora, "layers": out}
 
 
 def local_text_config(cfg: GemmaConfig, model: int) -> GemmaConfig:

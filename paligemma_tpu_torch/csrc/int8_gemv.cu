@@ -69,6 +69,16 @@
 // sum is cast once after the all-reduce, so on one rank the result has the
 // bits of mode 1's cast-then-add.
 //
+// Mode 3 with the LoRA expand (pg_int8_gemv_lora) is a tensor-parallel
+// rank's o or down partial under a multi-LoRA bank, the function the JAX
+// package leaves to XLA under GSPMD (paligemma_tpu/runtime/serving.py, the
+// mesh's multi-LoRA tick): out is (B, 2N) fp32, [acc * s | d], the base
+// partial beside the delta partial d = z_r . B of the rank's masked basis
+// z_r (kernels/lora at the rank's K rows). Both halves are summed across
+// ranks in one all-reduce and the caller adds them as mode 1 does:
+// h = cast(cast(h + cast(sum base)) + cast(sum d)), so on one rank the
+// result has the bits of mode 1 with the expand.
+//
 // What bounds it: at decode batches each weight byte is used B times, far
 // below the ~295 flop/byte where the card turns compute-bound, so it is
 // bound by reading w8 from device memory (110 MB per layer of Gemma-2B:
@@ -373,9 +383,15 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
         up += ds[r * GT_COLS + width + idx % width];
       }
       ((bf16*)out)[o] = f2bf(gelu_tanh_f(gate) * up);
-    } else if (!LORA && mode == 3) {
+    } else if (mode == 3) {
       const float sj = s[j];
-      ((float*)out)[o] = gt_cluster_sum(sm, r, c, cs) * sj;
+      if constexpr (LORA) {  // [base | delta], each (B, N)
+        const size_t o2 = (size_t)(b0 + r) * 2 * N + j;
+        ((float*)out)[o2] = gt_cluster_sum(sm, r, c, cs) * sj;
+        ((float*)out)[o2 + N] = ds[r * GT_COLS + idx % width];
+      } else {
+        ((float*)out)[o] = gt_cluster_sum(sm, r, c, cs) * sj;
+      }
     } else {
       const float sj = s[j];
       const float res = mode == 1 ? bf2f(residual[o]) : 0.f;
@@ -430,15 +446,15 @@ PG_EXPORT int pg_int8_gemv(const void* x, const void* w8, const void* s, const v
                                    k_per_cta, LoraExpand{}, NormIn{}, RopeKV{}, stream);
 }
 
-// Modes 0-2 with the LoRA expand: z (B, nz) bf16, lb (G, N) fp32 or bf16,
+// Modes 0-3 with the LoRA expand: z (B, nz) bf16, lb (G, N) fp32 or bf16,
 // column boundaries seg1 <= seg2 (N where there is none), nz = G x the
-// targets.
+// targets; mode 3 writes out (B, 2N) fp32, [base | delta].
 PG_EXPORT int pg_int8_gemv_lora(const void* x, const void* w8, const void* s,
                                 const void* residual, void* out, int B, int K, int N, int mode,
                                 int cluster, int warps, int k_per_cta, const void* z,
                                 const void* lb, int lb_f32, int G, int nz, int seg1, int seg2,
                                 void* stream) {
-  if (mode < 0 || mode > 2 || G <= 0 || G % 8 || nz % G || nz / G > 3)
+  if (mode < 0 || mode > 3 || G <= 0 || G % 8 || nz % G || nz / G > 3)
     return (int)cudaErrorInvalidValue;
   return launch_gemv<true, false>(x, w8, s, residual, out, B, K, N, mode, cluster, warps,
                                   k_per_cta, LoraExpand{(const bf16*)z, lb, lb_f32, G, nz, seg1,

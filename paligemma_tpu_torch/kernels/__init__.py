@@ -42,6 +42,9 @@ WRAPPERS = {
     "flash_attention_bwd_dq": _flash_attention.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": _flash_attention.flash_attention_bwd_dkv,
     "int8_gemv_f32": _int8_gemv.int8_gemv_f32,
+    # K1: the fp32 partial with the LoRA expand beside it (a tensor-parallel
+    # rank's o / down under a multi-LoRA bank)
+    "int8_gemv_f32_lora": _int8_gemv.int8_gemv_f32_lora,
     "mlp_decode_fused": _decode_mlp.mlp_decode_fused,
     "attn_decode_tp": _decode_layer_tp.attn_decode_tp,
     "attn_decode_paged_tp": _decode_layer_paged_tp.attn_decode_paged_tp,

@@ -139,7 +139,14 @@ def repack_lora_bank_fused(bank_layers: Dict, *, n_heads: int, head_dim: int, hi
     (K, 2I) gateup of the int8 tree. Missing targets become zeros (delta
     0). G is padded to a multiple of 8, as in the TPU pack; the pad columns
     map to block ids > N and are never selected. The bank's dtype is kept
-    (the kernels round each element to the activation dtype on load)."""
+    (the kernels round each element to the activation dtype on load).
+
+    Under a tensor-parallel mesh ``bank_layers`` is this rank's shard
+    (core/mesh.shard_lora) and ``n_heads`` / ``intermediate`` the rank's
+    widths (H/m, I/m): qkv_b's columns are then [q_r | k | v], split at
+    (H/m D, H/m D + D) as the rank's fused qkv weight is, gu_b's [gate_r |
+    up_r] at I/m, and o_a / down_a hold the rank's K rows. A target whose
+    widths disagree with these raises."""
     ref = next(iter(bank_layers.values()))
     n_layers, _, g_true = ref["a_cat"].shape
     g = -(-g_true // 8) * 8
@@ -148,12 +155,20 @@ def repack_lora_bank_fused(bank_layers: Dict, *, n_heads: int, head_dim: int, hi
 
     def cat(name, in_dim):
         if name in bank_layers:
-            return torch.nn.functional.pad(bank_layers[name]["a_cat"], (0, g - g_true))
+            a = bank_layers[name]["a_cat"]
+            if a.shape[-2] != in_dim:
+                raise ValueError(f"repack_lora_bank_fused: {name} A has {a.shape[-2]} input "
+                                 f"rows, the layer {in_dim}")
+            return torch.nn.functional.pad(a, (0, g - g_true))
         return torch.zeros((n_layers, in_dim, g), **opts)
 
     def bmat(name, out_dim):
         if name in bank_layers:
-            return torch.nn.functional.pad(bank_layers[name]["b_cat"], (0, 0, 0, g - g_true))
+            b = bank_layers[name]["b_cat"]
+            if b.shape[-1] != out_dim:
+                raise ValueError(f"repack_lora_bank_fused: {name} B has {b.shape[-1]} output "
+                                 f"columns, the layer {out_dim}")
+            return torch.nn.functional.pad(b, (0, 0, 0, g - g_true))
         return torch.zeros((n_layers, g, out_dim), **opts)
 
     return {

@@ -18,6 +18,11 @@ The fresh row lands in slot ``table[r, pos // ps] * ps + pos % ps`` before
 the attention reads pages [0, pos] through the table; the JAX kernel mixes
 it in arithmetically instead, which is the same function.
 
+``lora_pack`` / ``adapter_ids``: each row's adapter of a multi-LoRA bank
+inside the chain, as in kernels/decode_layer_tp (K1 on o and down). The
+speculative verify at B s rows needs nothing more: each row's table
+repeated s times (models/paligemma ``decode_verify_paged``).
+
 The JAX step ``decode_step_paged_tp`` is here models/paligemma.
 decode_step_paged with ``paged_kernel="fused_tp"`` and ``mesh``:
 models/gemma.forward_paged_decode_fused runs :func:`layers_decode_paged_tp`
@@ -44,7 +49,7 @@ def supported(cfg, mesh, layers: Dict, batch: int, *, page_size: int) -> bool:
 
 
 def _paged_chain(plain, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos, sin,
-                 pages_bucket, head_dim, eps):
+                 pages_bucket, head_dim, eps, lora_pack=None, adapter_ids=None):
     attend = reference_paged_decode_attention if plain else paged_decode_attention
     table = page_table.to(torch.int32)
     pos = write_pos.to(torch.int32)
@@ -53,14 +58,16 @@ def _paged_chain(plain, x, layers, k_pool, v_pool, layer_idx, page_table, write_
         plain, x, layers, layer_idx, head_dim, eps, (cos, sin, pos),
         (k_pool[layer_idx], v_pool[layer_idx], table),
         lambda q: attend(q, k_pool[:, :, :, None], v_pool[:, :, :, None], table[:, :pb],
-                         pos + 1, head_dim**-0.5, layer_idx=layer_idx))
+                         pos + 1, head_dim**-0.5, layer_idx=layer_idx),
+        decode_layer_tp._lora_arg(lora_pack, adapter_ids))
 
 
 def attn_decode_paged_tp_reference(x, layers, k_pool, v_pool, layer_idx, page_table, write_pos,
-                                   cos, sin, pages_bucket, head_dim, eps):
+                                   cos, sin, pages_bucket, head_dim, eps, *, lora_pack=None,
+                                   adapter_ids=None):
     """Plain version of :func:`attn_decode_paged_tp` (writes the pool slots in place)."""
     return _paged_chain(True, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos,
-                        sin, pages_bucket, head_dim, eps)
+                        sin, pages_bucket, head_dim, eps, lora_pack, adapter_ids)
 
 
 def attn_decode_paged_tp(
@@ -77,14 +84,19 @@ def attn_decode_paged_tp(
     pages_bucket: Optional[int],  # logical pages attended (covers every row's pos)
     head_dim: int,
     eps: float,
+    lora_pack: Optional[Dict] = None,  # this rank's repack_lora_bank_fused pack
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer's attention half on this rank over the page pool.
-    Returns (o-proj partial (B, K) fp32, k_new (B, D), v_new (B, D))."""
+    Returns (o-proj partial (B, K) fp32, or (B, 2K) [base | delta] with
+    ``lora_pack`` (kernels/decode_layer_tp), k_new (B, D), v_new (B, D))."""
+    kw = dict(lora_pack=lora_pack, adapter_ids=adapter_ids)
     if not x.is_cuda:
         return attn_decode_paged_tp_reference(x, layers, k_pool, v_pool, layer_idx, page_table,
-                                              write_pos, cos, sin, pages_bucket, head_dim, eps)
+                                              write_pos, cos, sin, pages_bucket, head_dim, eps,
+                                              **kw)
     out = _paged_chain(False, x, layers, k_pool, v_pool, layer_idx, page_table, write_pos, cos,
-                       sin, pages_bucket, head_dim, eps)
+                       sin, pages_bucket, head_dim, eps, **kw)
     attn_decode_paged_tp.launches += 1
     return out
 
@@ -105,10 +117,14 @@ def layers_decode_paged_tp(
     head_dim: int,
     eps: float,
     mesh,
+    *,
+    lora_pack: Optional[Dict] = None,  # this rank's repack_lora_bank_fused pack
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> torch.Tensor:
     """All L layers for B lockstep rows on this rank; (B, 1, K) hidden.
     Every ``write_pos`` lies below the table's width times the page size
-    (the engines clamp stale positions)."""
+    (the engines clamp stale positions). ``lora_pack`` / ``adapter_ids``:
+    each row's adapter inside the chain (kernels/decode_layer_tp)."""
     b, _, k = x.shape
     cos = cos.to(x.dtype).contiguous()
     sin = sin.to(x.dtype).contiguous()
@@ -117,7 +133,8 @@ def layers_decode_paged_tp(
     def attn_half(h, l):
         return attn_decode_paged_tp(h, layers, k_pool, v_pool, l, page_table=page_table,
                                     write_pos=write_pos, cos=cos, sin=sin,
-                                    pages_bucket=pages_bucket, head_dim=head_dim, eps=eps)[0]
+                                    pages_bucket=pages_bucket, head_dim=head_dim, eps=eps,
+                                    lora_pack=lora_pack, adapter_ids=adapter_ids)[0]
 
     return decode_layer_tp.run_layers(x.reshape(b, k), layers, k_pool.shape[0], eps, mesh,
-                                      attn_half).reshape(b, 1, k)
+                                      attn_half, lora_pack, adapter_ids).reshape(b, 1, k)

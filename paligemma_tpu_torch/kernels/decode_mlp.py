@@ -20,6 +20,13 @@ of the decode layer), computed in the gate/up GEMV's prologue
 (kernels/int8_gemv ``norm=``), as the TPU decode layer normalizes h in the
 kernel that streams the gate/up weights.
 
+``lora_pack`` / ``adapter_ids`` (a tensor-parallel rank's MLP under a
+multi-LoRA bank, kernels/decode_layer_tp; ``out_dtype=torch.float32``
+only): the gate/up GEMV adds each row's gate and up deltas before the
+GeGLU, and the down partial is K1 (``int8_gemv_f32_lora``), the rank's
+partial delta beside the base partial, (B, 2K). On the CPU that chain runs
+its kernels' plain versions.
+
 What bounds it: streaming the layer's int8 weights (3 K x I bytes: 100 MB
 per layer of Gemma-2B at one rank, 12.6 MB at eight), read once each.
 
@@ -34,7 +41,9 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.activations import gelu_tanh
+from .decode_layer import lora_gemv
 from .int8_gemv import Norm, int8_gemv, int8_gemv_f32, normed
+from .lora import lora_shrink
 
 
 def pick_block(inter: int) -> Optional[int]:
@@ -92,22 +101,36 @@ def mlp_decode_fused(
     *,
     out_dtype: Optional[torch.dtype] = None,  # None: y's dtype; or torch.float32
     norm: Optional[Norm] = None,  # (w (K,), eps): the MLP of y's RMSNorm
+    lora_pack: Optional[Dict] = None,  # a rank's decode_layer.repack_lora_bank_fused pack
+    adapter_ids: Optional[torch.Tensor] = None,  # (B,) int32 bank rows
 ) -> torch.Tensor:
-    """Layer ``layer_idx``'s MLP for one token per row; y-shaped output."""
-    if not y.is_cuda:
+    """Layer ``layer_idx``'s MLP for one token per row; y-shaped output
+    ((B, 2K) [base | delta] fp32 with ``lora_pack``)."""
+    if lora_pack is None and not y.is_cuda:
         return reference_mlp(y, mlp, layer_idx, out_dtype=out_dtype, norm=norm)
     if out_dtype not in (None, y.dtype, torch.float32):
         raise ValueError(f"mlp_decode_fused: out_dtype {out_dtype} (None or torch.float32)")
+    if lora_pack is not None and (out_dtype != torch.float32 or adapter_ids is None):
+        raise ValueError("mlp_decode_fused: lora_pack takes out_dtype=torch.float32 (the "
+                         "tensor-parallel partial) and adapter_ids")
     shape = y.shape
     y2 = y.reshape(-1, shape[-1])
+    ids = None if adapter_ids is None else adapter_ids.to(torch.int32).contiguous()
     gu, dn = mlp["gateup"], mlp["down"]
-    t = int8_gemv(y2, gu["w8"][layer_idx], gu["s"][layer_idx], geglu=True, norm=norm)
+    t = lora_gemv(y2, gu, layer_idx, lora_pack, "gu", ids, (gu["w8"].shape[-1] // 2,),
+                  geglu=True, norm=norm)
     if out_dtype == torch.float32:
-        out = int8_gemv_f32(t, dn["w8"][layer_idx], dn["s"][layer_idx])
+        lora = None
+        if lora_pack is not None:  # K1: the down shrink over this rank's I rows
+            z = lora_shrink(t, lora_pack["down_a"][layer_idx], ids, lora_pack["rank"],
+                            lora_pack["o_b"].shape[1])
+            lora = (z, lora_pack["down_b"][layer_idx], ())
+        out = int8_gemv_f32(t, dn["w8"][layer_idx], dn["s"][layer_idx], lora=lora)
     else:
         out = int8_gemv(t, dn["w8"][layer_idx], dn["s"][layer_idx])
-    mlp_decode_fused.launches += 1
-    return out.reshape(shape)
+    if y.is_cuda:
+        mlp_decode_fused.launches += 1
+    return out.reshape(*shape[:-1], -1)
 
 
 mlp_decode_fused.launches = 0

@@ -17,7 +17,13 @@ the product on the tensor cores, K split over a thread-block cluster as
 ``_attn_kernel`` and the down-proj partial of paligemma_tpu/kernels/
 decode_mlp.py ``_kernel``): each rank's partial is summed across ranks in
 fp32 and cast once, after the sum. It is a wrapper of its own so that its
-launches are counted apart from the bf16 epilogues'.
+launches are counted apart from the bf16 epilogues'. With ``lora=`` it is
+:func:`int8_gemv_f32_lora` (K1 of the tensor-parallel multi-LoRA chain):
+``[x @ w8 * s | z @ b]`` as one (B, 2N) fp32 partial, the rank's delta
+beside its base partial, both summed by one all-reduce and added as the
+one-card residual epilogue with the expand adds them (base, then delta,
+each cast), so that one rank gives that epilogue's bits
+(kernels/decode_layer_tp ``add_partial``).
 
 The GeGLU epilogue works on the fp32 gate and up values, as the TPU kernel
 does (its XLA path rounds both to the activation dtype first).
@@ -101,9 +107,9 @@ def int8_gemv_reference(
     :func:`int8_gemv_f32`)."""
     x = normed(x, norm)
     v = (x.float() @ w8.float()) * s.float()
-    if out_fp32:
-        return v
     delta = None if lora is None else lora_expand_reference(*lora, x.dtype)
+    if out_fp32:
+        return v if delta is None else torch.cat([v, delta], dim=-1)
     if geglu:
         inter = v.shape[-1] // 2
         g, u = v[:, :inter], v[:, inter:]
@@ -155,9 +161,9 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
             norm: Optional[Norm] = None, rope=None) -> torch.Tensor:
     """One GEMV launch of ``mode`` (0 plain, 1 + residual, 2 GeGLU, 3 fp32
     out, 4 RoPE + KV write with ``rope``: (out q, cos, sin, pos, k_dst,
-    v_dst, k_new, v_new, table or None, H, D)); with ``lora`` (modes 0-2,
-    4) its epilogue adds the expand; with ``norm`` its prologue normalizes
-    x."""
+    v_dst, k_new, v_new, table or None, H, D)); with ``lora`` its epilogue
+    adds the expand (mode 3: writes it beside the base partial); with
+    ``norm`` its prologue normalizes x (not mode 3)."""
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
@@ -183,9 +189,10 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
         _check_norm(norm, x, plan)
     if mode == 4:
         out = rope[0]
-    else:
-        out = torch.empty((b, n // 2 if mode == 2 else n),
-                          dtype=torch.float32 if mode == 3 else torch.bfloat16, device=dev)
+    else:  # mode 3 with the expand: [base | delta]
+        width = n // 2 if mode == 2 else (2 * n if mode == 3 and lora is not None else n)
+        out = torch.empty((b, width), dtype=torch.float32 if mode == 3 else torch.bfloat16,
+                          device=dev)
     lib = _build.library()
     stream = _build.stream_ptr(dev)
     args = (x.data_ptr(), w8.data_ptr(), s.data_ptr(),
@@ -240,9 +247,13 @@ def int8_gemv(
 int8_gemv.launches = 0
 
 
-def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor, *,
+                  lora: Optional[LoraExpand] = None) -> torch.Tensor:
     """The fp32 partial ``x (B, K) @ w8 * s`` of one tensor-parallel rank:
-    (B, N) fp32, no cast and no residual."""
+    (B, N) fp32, no cast and no residual. With ``lora``: (B, 2N), the
+    rank's partial adapter delta beside it (:func:`int8_gemv_f32_lora`)."""
+    if lora is not None:
+        return int8_gemv_f32_lora(x, w8, s, lora)
     if not x.is_cuda:
         return int8_gemv_reference(x, w8, s, out_fp32=True)
     out = _launch(x, w8, s, None, 3)
@@ -251,6 +262,25 @@ def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.T
 
 
 int8_gemv_f32.launches = 0
+
+
+def int8_gemv_f32_lora(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor,
+                       lora: LoraExpand) -> torch.Tensor:
+    """K1: a tensor-parallel rank's o or down partial under a multi-LoRA
+    bank, ``[x @ w8 * s | z @ b]`` (B, 2N) fp32 in one launch (mode 3 with
+    the expand; module docstring). ``lora = (z, b, ())``: z (B, G) the
+    masked basis of the rank's K rows (kernels/lora), b (G, N) the whole
+    alpha-folded adapter rows. The delta half is z @ cast(b) summed in fp32
+    over the G rows in order, the one-card expand's sum before its cast."""
+    if not x.is_cuda:
+        return int8_gemv_reference(x, w8, s, out_fp32=True, lora=lora)
+    _check(len(lora[2]) == 0, "the fp32 partial takes one LoRA target (no bounds)")
+    out = _launch(x, w8, s, None, 3, lora)
+    int8_gemv_f32_lora.launches += 1
+    return out
+
+
+int8_gemv_f32_lora.launches = 0
 
 
 def int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, k_new, v_new, *,

@@ -45,8 +45,11 @@ fp32 before the cast, or under W8A8 their int32 sums (``_row_parallel``),
 look the embedding up in its vocab shard (``embed_tokens``) and gather the
 head's vocab shards (``lm_head``); ``fused_layer`` decode runs
 kernels/decode_layer_tp and the fused paged decode
-kernels/decode_layer_paged_tp. The one-card ``fused_mlp`` decode runs each
-layer's MLP through kernels/decode_mlp.
+kernels/decode_layer_paged_tp. A LoRA tree or bank under a mesh is this
+rank's shard (core/mesh.shard_lora): a row-parallel target's partial delta
+is summed beside the projection's partial (``_row_parallel``), and the
+kernel chains take the pack of the shard. The one-card ``fused_mlp`` decode
+runs each layer's MLP through kernels/decode_mlp.
 """
 
 from __future__ import annotations
@@ -113,10 +116,11 @@ def _embed_scale(cfg: GemmaConfig, dtype: torch.dtype) -> float:
     return float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
 
 
-def _lora_delta(y: torch.Tensor, lora_lp: Optional[Params], name: str):
+def _lora_delta(y: torch.Tensor, lora_lp: Optional[Params], name: str, cast: bool = True):
     """``y @ A @ B * (alpha / r)`` for projection ``name`` of one layer's
     adapters, or None. Computed in the adapter dtype (fp32 adapters over a
-    bf16 base), returned in the activation dtype.
+    bf16 base), returned in the activation dtype (``cast=False``: in the
+    adapter dtype, a row-parallel rank's partial before its sum).
 
     A multi-LoRA bank slice (``a`` (N+1, in, r), train/lora.stack_lora_bank)
     gives every batch row its own adapter, picked by the (B,) ids under
@@ -135,12 +139,14 @@ def _lora_delta(y: torch.Tensor, lora_lp: Optional[Params], name: str):
             col_ad = torch.arange(a_cat.shape[-1], device=a_cat.device) // a.shape[-1]
             mask = (col_ad[None] == ids[:, None]).to(a_cat.dtype)
             z = (y.to(a_cat.dtype) @ a_cat) * mask[:, None, :]
-            return (z @ b_cat).to(y.dtype)
-        s_rows = scale[ids].to(a.dtype)
-        delta = torch.einsum("bsi,bir->bsr", y.to(a.dtype), a[ids])
-        delta = torch.einsum("bsr,bro->bso", delta, b[ids])
-        return (delta * s_rows[:, None, None]).to(y.dtype)
-    return (((y.to(a.dtype) @ a) @ b) * scale.to(a.dtype)).to(y.dtype)
+            delta = z @ b_cat
+        else:
+            s_rows = scale[ids].to(a.dtype)
+            delta = torch.einsum("bsi,bir->bsr", y.to(a.dtype), a[ids])
+            delta = torch.einsum("bsr,bro->bso", delta, b[ids]) * s_rows[:, None, None]
+    else:
+        delta = ((y.to(a.dtype) @ a) @ b) * scale.to(a.dtype)
+    return delta.to(y.dtype) if cast else delta
 
 
 def _plus_lora(base: torch.Tensor, y: torch.Tensor, lora_lp: Optional[Params], name: str):
@@ -167,18 +173,26 @@ def _attn_proj(cfg: GemmaConfig, y: torch.Tensor, lp: Params,
             v.reshape(b, s, nkv, hd))
 
 
-def _row_parallel(y: torch.Tensor, w, mesh, int8_act: bool = False) -> torch.Tensor:
-    """A row-parallel projection (o, down). Under a mesh each rank's fp32
-    partial (int8: dot then scale; dense: the bf16 product) is summed across
-    ranks and cast once, so one rank gives ``matmul_any``'s bits. With
-    ``int8_act`` an int8 product at prefill rows is W8A8
+def _row_parallel(y: torch.Tensor, w, mesh, int8_act: bool = False,
+                  lora_lp: Optional[Params] = None, name: str = "") -> torch.Tensor:
+    """A row-parallel projection (o, down), plus target ``name``'s adapter
+    delta with ``lora_lp``. Under a mesh each rank's fp32 partial (int8: dot
+    then scale; dense: the bf16 product) is summed across ranks and cast
+    once, so one rank gives ``matmul_any``'s bits; the rank's partial delta
+    (its K rows of y against its rows of A, core/mesh.shard_lora) rides the
+    same all-reduce beside it and is cast and added after the base, as on
+    one card. With ``int8_act`` an int8 product at prefill rows is W8A8
     (:func:`_w8a8_row_parallel`), and one below the gate on the card takes
     the fp32-partial GEMV (no fp32 copy of the weight)."""
     if mesh is None:
-        return matmul_any(y, w, int8_act)
+        return _plus_lora(matmul_any(y, w, int8_act), y, lora_lp, name)
+    delta = _lora_delta(y, lora_lp, name, cast=False)
     if isinstance(w, dict) and "w8" in w:
         if int8_act and w8a8_rows(y):
-            return _w8a8_row_parallel(y, w, mesh)
+            base = _w8a8_row_parallel(y, w, mesh)
+            if delta is None:
+                return base
+            return base + mesh_lib.psum(delta.float(), mesh).to(y.dtype)
         if int8_act and y.is_cuda:
             k = y.shape[-1]
             part = int8_gemv_f32(y.reshape(-1, k).contiguous(), w["w8"], w["s"])
@@ -187,7 +201,11 @@ def _row_parallel(y: torch.Tensor, w, mesh, int8_act: bool = False) -> torch.Ten
             part = (y.float() @ w["w8"].float()) * w["s"]
     else:
         part = matmul_any(y, w).float()
-    return mesh_lib.psum(part, mesh).to(y.dtype)
+    if delta is None:
+        return mesh_lib.psum(part, mesh).to(y.dtype)
+    n = part.shape[-1]
+    both = mesh_lib.psum(torch.cat([part, delta.float()], dim=-1), mesh)
+    return both[..., :n].to(y.dtype) + both[..., n:].to(y.dtype)
 
 
 def _w8a8_row_parallel(y: torch.Tensor, w: Params, mesh) -> torch.Tensor:
@@ -215,7 +233,7 @@ def _mlp(y: torch.Tensor, lp: Params, lora_lp: Optional[Params] = None,
         gate = matmul_any(y, lp["mlp"]["gate"], int8_act)
         up = matmul_any(y, lp["mlp"]["up"], int8_act)
     h = gelu_tanh(_plus_lora(gate, y, lora_lp, "gate")) * _plus_lora(up, y, lora_lp, "up")
-    return _plus_lora(_row_parallel(h, lp["mlp"]["down"], mesh, int8_act), h, lora_lp, "down")
+    return _row_parallel(h, lp["mlp"]["down"], mesh, int8_act, lora_lp, "down")
 
 
 def _decoder_block(
@@ -275,8 +293,7 @@ def _decoder_block(
         v_att = v_all[layer_idx, :, :window].to(q.dtype)
         a = attention.gqa(q, k_att, v_att, mask, scale=hd**-0.5)
     a = a.reshape(b, s, nh * hd)
-    x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh, int8_act), a, lora_lp,
-                              "o")
+    x = residual + _row_parallel(a, lp["attn"]["o"], mesh, int8_act, lora_lp, "o")
 
     residual = x
     if mlp_full is not None:  # the post-attention norm in the gate/up GEMV's prologue
@@ -355,8 +372,10 @@ def _fused_decode(
     # the layer chain writes the fresh K/V rows of every layer into the
     # cache in place (kernels/decode_layer), so k_new/v_new need no write here
     if mesh is not None:
-        h = decode_layer_tp.layers_decode_tp(x, params["layers"], k_flat, v_flat, pos, valid,
-                                             cos[:, 0], sin[:, 0], hd, cfg.rms_norm_eps, mesh)
+        h = decode_layer_tp.layers_decode_tp(
+            x, params["layers"], k_flat, v_flat, pos, valid, cos[:, 0], sin[:, 0], hd,
+            cfg.rms_norm_eps, mesh, lora_pack=lora_pack, adapter_ids=adapter_ids,
+            rows_per_cache=rows_per_cache)
     else:
         h, _, _ = decode_layer.layers_decode_fused(
             x, params["layers"], k_flat, v_flat, pos, valid,
@@ -366,12 +385,6 @@ def _fused_decode(
         )
     h = rms_norm_kernel(h.reshape(b, -1), params["final_norm"], cfg.rms_norm_eps)
     return decode_head(params, h, greedy_head, mesh), kv_cache
-
-
-def _refuse_tp_lora(lora: Optional[Params], mesh) -> None:
-    if lora is not None and mesh is not None:
-        raise NotImplementedError("LoRA adapters under tensor parallelism (a mesh) are not "
-                                  "ported")
 
 
 def _layer_lora(lora: Optional[Params], i: int) -> Optional[Params]:
@@ -422,17 +435,17 @@ def forward(
     bank with per-row ids (models/paligemma.lora_with_ids). The kernel
     decode (``fused_layer``) takes a bank only with its kernel operands
     (``lora["__fused_pack__"]``, kernels/decode_layer.repack_lora_bank_fused)
-    and raises otherwise; under a mesh adapters are not ported and raise.
+    and raises otherwise; under a mesh the adapters are this rank's shard
+    (core/mesh.shard_lora) and the pack is built from it.
     ``rows_per_cache`` = s (kernel decode only): the B rows are the s
     positions of B / s verify blocks, rows ``[c s, (c + 1) s)`` writing
-    into and attending cache row c (kernels/decode_layer). ``int8_act``
+    into and attending cache row c (kernels/decode_layer, or under a mesh
+    kernels/decode_layer_tp). ``int8_act``
     (a prefill from the int8 tree): every int8 projection of at least 256
     rows is W8A8 (kernels/quant.matmul_any); the head stays weight-only
     (``lm_head``)."""
-    _refuse_tp_lora(lora, mesh)
-    if rows_per_cache != 1 and not (fused_layer and input_embeds.shape[1] == 1
-                                    and mesh is None):
-        raise ValueError("rows_per_cache: the kernel decode (fused_layer) on one card only")
+    if rows_per_cache != 1 and not (fused_layer and input_embeds.shape[1] == 1):
+        raise ValueError("rows_per_cache: the kernel decode (fused_layer) only")
     dtype = input_embeds.dtype
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
@@ -493,8 +506,7 @@ def forward_paged_decode(
     kernels/paged_attention reading the layer-stacked pool by offset
     (``use_kernel=False``: its plain version). Returns (fp32 logits
     (B, 1, vocab), the pool). ``lora`` rides the torch projections, as in
-    ``forward``."""
-    _refuse_tp_lora(lora, mesh)
+    ``forward`` (under a mesh, this rank's shard of it)."""
     b = input_embeds.shape[0]
     hd = cfg.head_dim
     ps = pool["k"].shape[2]
@@ -526,7 +538,7 @@ def forward_paged_decode(
         a = attend(q[:, 0].contiguous(), pool["k"], pool["v"], table, kv_len,
                    hd**-0.5, layer_idx=i)
         a = a.reshape(b, 1, -1)
-        x = residual + _plus_lora(_row_parallel(a, lp["attn"]["o"], mesh), a, lora_lp, "o")
+        x = residual + _row_parallel(a, lp["attn"]["o"], mesh, lora_lp=lora_lp, name="o")
         residual = x
         y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = residual + _mlp(y, lp, lora_lp, mesh=mesh)
@@ -557,8 +569,7 @@ def forward_paged_decode_fused(
     tensor-parallel chain (kernels/decode_layer_paged_tp) of this rank's
     decode_layer_tp.repack_for_tp tree, its head shards combined across
     ranks. ``lora_pack`` / ``adapter_ids``: each row's adapter inside the
-    chain (one card only)."""
-    _refuse_tp_lora(lora_pack, mesh)
+    chain (under a mesh, the pack of this rank's shard of the bank)."""
     b = input_embeds.shape[0]
     n_layers, n_pages, ps = pool["k"].shape[:3]
     if mesh is None and not decode_layer_paged.supported(cfg, params["layers"], b, page_size=ps):
@@ -575,7 +586,8 @@ def forward_paged_decode_fused(
     if mesh is not None:
         h = decode_layer_paged_tp.layers_decode_paged_tp(
             x, params["layers"], k_flat, v_flat, page_table, write_pos, cos[:, 0], sin[:, 0],
-            pages_bucket, hd, cfg.rms_norm_eps, mesh)
+            pages_bucket, hd, cfg.rms_norm_eps, mesh, lora_pack=lora_pack,
+            adapter_ids=adapter_ids)
     else:
         h, _, _ = decode_layer_paged.layers_decode_fused_paged(
             x, params["layers"], k_flat, v_flat, page_table, write_pos,
@@ -595,13 +607,17 @@ def forward_paged_verify(
     page_table: torch.Tensor,  # (B, P_max) int32
     write_pos: torch.Tensor,  # (B,) int: logical position of each row's first token
     pages_bucket: Optional[int] = None,
+    *,
+    mesh=None,  # tensor parallel: params are this rank's slices, the pool replicated
 ) -> Tuple[torch.Tensor, KVCache]:
     """Speculative verify over the pool, plain torch ops: per layer token j
     of row r writes its K/V into page ``table[r, (wp + j) // ps]`` (a block
     may cross a page; positions past the table's width are dropped), then
     query j attends the row's logical positions ``[0, wp + j]``. Returns
-    ((B, s, vocab) fp32 logits, the pool)."""
+    ((B, s, vocab) fp32 logits, the pool). Under a mesh the plain sharded
+    layers (as ``forward_paged_decode``)."""
     b, s = input_embeds.shape[:2]
+    lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
     nkv, hd = cfg.num_key_value_heads, cfg.head_dim
     ps = pool["k"].shape[2]
     dev = input_embeds.device
@@ -624,7 +640,7 @@ def forward_paged_verify(
         lp = layer_params(params["layers"], i)
         residual = x
         y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _attn_proj(cfg, y, lp)
+        q, k, v = _attn_proj(lcfg, y, lp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         for name, t in (("k", k), ("v", v)):
@@ -634,12 +650,12 @@ def forward_paged_verify(
         v_g = pool["v"][i][table].reshape(b, w, nkv, hd)
         a = attention.gqa(q, k_g.to(q.dtype), v_g.to(q.dtype), mask, scale=hd**-0.5)
         a = a.reshape(b, s, -1)
-        x = residual + matmul_any(a, lp["attn"]["o"])
+        x = residual + _row_parallel(a, lp["attn"]["o"], mesh)
         residual = x
         y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = residual + _mlp(y, lp)
+        x = residual + _mlp(y, lp, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return lm_head(params, x).float(), pool
+    return lm_head(params, x, mesh=mesh).float(), pool
 
 
 def forward_train(

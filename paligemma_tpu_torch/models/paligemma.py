@@ -279,17 +279,21 @@ def decode_step_greedy_paged(
     pages_bucket: Optional[int] = None,
     lora: Optional[Params] = None,  # bank carrying "__fused_pack__"
     adapter_ids: Optional[torch.Tensor] = None,  # (B,) rows into the bank
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Greedy paged step through kernels/decode_layer_paged and the argmax
     head kernel: (next token (B,) int32, pool); the (B, vocab) logits row is
-    never written. Same tokens as ``argmax(decode_step_paged(..., "fused"))``."""
-    embeds = params["lm"]["embed"][token.long()][:, None, :]
+    never written. Same tokens as ``argmax(decode_step_paged(..., "fused"))``.
+    Under a mesh kernels/decode_layer_paged_tp and the vocab-shard argmax
+    combined across ranks (``argmax(decode_step_paged(..., "fused_tp"))``)."""
+    embeds = gemma.embed_tokens(params["lm"], token, mesh)[:, None, :]
     pack, ids = gemma.fused_lora_operands(
         lora_with_ids(lora, adapter_ids, cfg.text_config.num_hidden_layers))
     return gemma.forward_paged_decode_fused(
         params["lm"], cfg.text_config, embeds, position_ids[:, None], pool, page_table,
         write_pos, pages_bucket=pages_bucket or page_table.shape[1], lora_pack=pack,
-        adapter_ids=ids, greedy_head=True,
+        adapter_ids=ids, greedy_head=True, mesh=mesh,
     )
 
 
@@ -335,6 +339,7 @@ def decode_verify(
     *,
     fused_layer: bool = False,
     greedy_head: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Speculative verify: the s tokens of each row through the decoder in
     one forward (one weight stream). Causal inside the block, full over the
@@ -347,9 +352,11 @@ def decode_verify(
     kernels at B s rows, one row per block position (models/gemma.forward
     with ``rows_per_cache`` = s), and with ``greedy_head`` the (B, s) argmax
     ids from the head kernel instead of logits (the plain path takes the
-    argmax of its logits)."""
+    argmax of its logits). ``mesh``: tensor parallel, as ``decode_step``
+    (the kernel path: kernels/decode_layer_tp at B s rows and the
+    vocab-shard argmax head combined across ranks)."""
     b, s = tokens.shape
-    embeds = params["lm"]["embed"][tokens.long()]
+    embeds = gemma.embed_tokens(params["lm"], tokens, mesh)
     pos = position_ids.to(tokens.device)[:, None] + torch.arange(s, device=tokens.device)[None]
     vis = verify_mask(kv_valid, cache_pos, s)
     if fused_layer:
@@ -358,11 +365,11 @@ def decode_verify(
             kv_cache, cache_pos=_verify_positions(cache_pos, b, s, kv_cache["k"].shape[2],
                                                 tokens.device),
             kv_valid=vis.reshape(b * s, -1), kv_bucket=kv_bucket, fused_layer=True,
-            greedy_head=greedy_head, rows_per_cache=s)
+            greedy_head=greedy_head, rows_per_cache=s, mesh=mesh)
         return _verify_out(out, b, s, greedy_head), kv_cache
     logits, kv_cache = gemma.forward(
         params["lm"], cfg.text_config, embeds, pos, kv_cache, cache_pos=cache_pos,
-        kv_valid=vis, kv_bucket=kv_bucket)
+        kv_valid=vis, kv_bucket=kv_bucket, mesh=mesh)
     if greedy_head:
         return logits.argmax(dim=-1).to(torch.int32), kv_cache
     return logits, kv_cache
@@ -380,6 +387,7 @@ def decode_verify_paged(
     *,
     fused_layer: bool = False,
     greedy_head: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, gemma.KVCache]:
     """Speculative verify over the page pool (models/gemma
     ``forward_paged_verify``: per-query causal bounds instead of the dense
@@ -388,9 +396,10 @@ def decode_verify_paged(
     ``fused_layer`` / ``greedy_head``: as in :func:`decode_verify`: the
     paged kernel decode at B s rows (models/gemma.forward_paged_decode_fused),
     each row's table repeated s times and position j attending
-    ``[0, write_pos + j]``."""
+    ``[0, write_pos + j]``. ``mesh``: tensor parallel (the kernel path:
+    kernels/decode_layer_paged_tp at B s rows)."""
     b, s = tokens.shape
-    embeds = params["lm"]["embed"][tokens.long()]
+    embeds = gemma.embed_tokens(params["lm"], tokens, mesh)
     pos = position_ids.to(tokens.device)[:, None] + torch.arange(s, device=tokens.device)[None]
     if fused_layer:
         table = page_table.to(torch.int32).repeat_interleave(s, dim=0)
@@ -398,11 +407,11 @@ def decode_verify_paged(
             params["lm"], cfg.text_config, embeds.reshape(b * s, 1, -1), pos.reshape(b * s, 1),
             pool, table,
             _verify_positions(write_pos, b, s, table.shape[1] * pool["k"].shape[2], tokens.device),
-            pages_bucket or page_table.shape[1], greedy_head=greedy_head)
+            pages_bucket or page_table.shape[1], greedy_head=greedy_head, mesh=mesh)
         return _verify_out(out, b, s, greedy_head), pool
     logits, pool = gemma.forward_paged_verify(
         params["lm"], cfg.text_config, embeds, pos, pool, page_table, write_pos,
-        pages_bucket=pages_bucket)
+        pages_bucket=pages_bucket, mesh=mesh)
     if greedy_head:
         return logits.argmax(dim=-1).to(torch.int32), pool
     return logits, pool

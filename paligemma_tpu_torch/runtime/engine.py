@@ -34,7 +34,9 @@ tensor-parallel kernels (kernels/decode_layer_tp) on the
 head, sampled chunks through the gathered int8-head logits; without, the
 plain sharded decode. Every rank returns the same tokens: the same seed
 gives each rank's sampling generator the same draws over the same gathered
-logits.
+logits. ``generate_spec`` under a mesh verifies through the same chain at
+``draft_k + 1`` rows (or the plain sharded forward), and every rank accepts
+the same drafts.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ class PaliGemmaEngine:
         projections of at least 256 rows as W8A8, each row of activations
         quantized to int8 (kernels/w8a8 on the card); the head and smaller
         calls stay weight-only (kernels/quant.matmul_any)."""
+        mesh_lib.model_axis_only(mesh, "PaliGemmaEngine")
         self.int8_act_prefill = bool(int8_act_prefill)
         self.config = config
         self.max_seq_len = max_seq_len
@@ -366,9 +369,7 @@ class PaliGemmaEngine:
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) + draft_k "
                 f"({draft_k}) exceeds max_seq_len ({self.max_seq_len}); speculative decode "
                 "writes up to draft_k positions past the last accepted token")
-        if self.mesh is not None:
-            raise NotImplementedError("generate_spec under a mesh (tensor-parallel "
-                                      "speculation) is not ported (ROADMAP item 14)")
+        mesh_lib.model_axis_only(self.mesh, "generate_spec")
         if self.fused_mlp:
             raise ValueError("generate_spec runs the decode kernels (fused_layer) or the plain "
                              "path, not fused_mlp")
@@ -435,7 +436,7 @@ class PaliGemmaEngine:
             g, st["cache"] = paligemma.decode_verify(
                 self.decode_params, self.config, tokens_in, st["cache"], st["wp"], st["valid"],
                 st["pos_ids"], kv_bucket=st["kv_bucket"], fused_layer=self.fused_layer,
-                greedy_head=greedy_ids)
+                greedy_head=greedy_ids, mesh=self.mesh)
             if not greedy_ids:
                 g = g.argmax(dim=-1)
             g = g.long()  # (1, k + 1): the model's token after each input

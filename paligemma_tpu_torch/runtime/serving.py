@@ -23,16 +23,21 @@ ticks the chain with the int8 GEMV head, and prefill the flash kernel. A
 decode tree or config the kernels cannot take raises.
 
 ``mesh`` (core/mesh.make_mesh, one process per rank, ``data == 1``):
-tensor parallel over the model axis, as the JAX engine's pure-TP serving.
-Every rank builds the engine from the whole params (it keeps its slices,
-core/mesh.shard_params), holds the whole replicated KV cache (one KV head)
-and must be given the same requests in the same order: the scheduler is
-host bookkeeping over tokens that every rank reads back identically
-(gathered logits and the cross-rank argmax), and each rank's ``generator``
-draws the same numbers from the same seed. On the kernel path the greedy
-tick runs the TP chain of kernels/decode_layer_tp with the vocab-shard
-argmax combined across ranks, the sampled tick the same chain with the
-gathered int8-head logits.
+tensor parallel over the model axis, as the JAX engine's pure-TP serving,
+with every feature below. Every rank builds the engine from the whole
+params (it keeps its slices, core/mesh.shard_params), holds the whole
+replicated KV cache (one KV head) and must be given the same requests in
+the same order (and the same cancels between the same rounds): the
+scheduler is host bookkeeping over tokens that every rank reads back
+identically (gathered logits and the cross-rank argmax), and each rank's
+``generator`` draws the same numbers from the same seed. So admission,
+preemption, prefix-cache hits and evictions (keys hashed from the inputs
+alone), spec accept counts and DFA states are the same on every rank; a
+rank that seated another row would deadlock at the next collective. On
+the kernel path the greedy tick runs the TP chain of kernels/decode_layer_tp
+with the vocab-shard argmax combined across ranks, the sampled tick (and
+a tick with a constrained row seated) the same chain with the gathered
+int8-head logits, masked and selected on every rank alike.
 
 ``lora_bank`` ({name: adapter tree}, train/lora.init_lora's layout):
 multi-LoRA serving. A request names its adapter (``Request.lora``; None =
@@ -43,8 +48,9 @@ adapter of the base model. The per-slot bank index lives on the device
 tick take the bank through the torch projections (models/gemma
 ``_lora_delta``); the kernel ticks take its kernel operands
 (kernels/decode_layer.repack_lora_bank_fused) and apply each row's adapter
-inside the decode chain. Not with a ``mesh``: tensor-parallel LoRA serving
-is not ported and raises ``NotImplementedError``.
+inside the decode chain. Under a ``mesh`` each rank keeps its shard of the
+stacked bank (core/mesh.shard_lora) and packs it at its own widths; the TP
+chain applies it (kernels/decode_layer_tp, K1 on o and down).
 
 ``grammars`` ({name: processing/grammar.TokenDFA}): constrained decoding.
 A request names its grammar (``Request.grammar``; None = unconstrained) and
@@ -92,11 +98,9 @@ greedy engine's. ``spec_corrupt_frac``: a benchmark's acceptance dial
 prefill wave runs its LM projections W8A8 (kernels/quant.matmul_any), with
 a LoRA bank, grammars, the prefix cache and ``spec_decode`` alike.
 
-Not ported: the data axis and ``warmup`` (XLA compiles); the constructor
-raises ``NotImplementedError`` for grammars, the prefix cache or
-speculative decoding under a ``mesh`` (ROADMAP item 14).
-Speculation with a ``lora_bank`` raises ``ValueError``, as in the JAX
-engine (its verify forward takes no adapters).
+Not ported: the data axis (ROADMAP item 14, its data half) and ``warmup``
+(XLA compiles). Speculation with a ``lora_bank`` raises ``ValueError``, as
+in the JAX engine (its verify forward takes no adapters).
 """
 
 from __future__ import annotations
@@ -246,14 +250,7 @@ class ServingEngine:
         if spec_decode and lora_bank:
             raise ValueError("spec_decode + lora_bank is unimplemented (the verify forward "
                              "takes no adapters)")
-        if lora_bank and mesh is not None:
-            raise NotImplementedError("ServingEngine: lora_bank with a mesh (tensor-parallel "
-                                      "multi-LoRA serving) is not ported yet")
-        for name, on in (("grammars", grammars), ("prefix_cache", prefix_cache),
-                         ("spec_decode", spec_decode)):
-            if on and mesh is not None:
-                raise NotImplementedError(f"ServingEngine: {name} with a mesh is not ported yet "
-                                          "(ROADMAP item 14)")
+        mesh_lib.model_axis_only(mesh, type(self).__name__)
         self.config = config
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -279,8 +276,10 @@ class ServingEngine:
         if lora_bank:
             names = list(lora_bank)
             bank = stack_lora_bank([lora_bank[n] for n in names])
-            self.lora_bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
-                                         for t, p in bank["layers"].items()}}
+            bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
+                               for t, p in bank["layers"].items()}}
+            # under a mesh: this rank's slices (prefill, the plain tick and the pack)
+            self.lora_bank = bank if mesh is None else mesh_lib.shard_lora(bank, mesh)
             self._lora_index.update({n: i + 1 for i, n in enumerate(names)})
         # constrained decoding: grammar name -> table row (0: unconstrained)
         self.grammar_table: Optional[torch.Tensor] = None
@@ -297,7 +296,10 @@ class ServingEngine:
         self._lora_fused_pack = None
         if self.lora_bank is not None and self._chain_tick():
             # the kernel ticks' operands: each row's adapter inside the chain
+            # (under a mesh at the rank's widths)
             tc = config.text_config
+            if mesh is not None:
+                tc = mesh_lib.local_text_config(tc, mesh.model)
             self._lora_fused_pack = _dl.repack_lora_bank_fused(
                 self.lora_bank["layers"], n_heads=tc.num_attention_heads,
                 head_dim=tc.head_dim, hidden=tc.hidden_size,
@@ -857,7 +859,7 @@ class ServingEngine:
         return paligemma.decode_verify(
             self.decode_params, self.config, tokens_in, self.cache, st["write_pos"],
             st["valid"], st["pos_ids"], kv_bucket=kv_arg, fused_layer=self.fused_decode,
-            greedy_head=greedy)[0]
+            greedy_head=greedy, mesh=self.mesh)[0]
 
     def _spec_cycle(self, greedy: bool, kv_arg):
         """One verify cycle of every row on the device: drafts, verify,

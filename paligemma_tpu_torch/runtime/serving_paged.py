@@ -25,7 +25,12 @@ Under a tensor-parallel ``mesh`` (the dense engine's contract, data == 1)
 the pool is replicated on every rank (one KV head) and the kernel path's
 tick is ``paged_kernel="fused_tp"``: kernels/decode_layer_paged_tp, then
 the gathered logits of the vocab-sharded int8 head, for greedy and sampled
-windows alike; ``fused_decode=False`` runs the plain sharded page walk.
+windows alike (a greedy spec verify takes the vocab-shard argmax head);
+``fused_decode=False`` runs the plain sharded page walk. A LoRA bank (each
+rank's shard, applied inside the "fused_tp" chain), grammars, the prefix
+cache and ``spec_decode`` (the "fused_tp" chain at B s rows, or the plain
+sharded verify) work under it as on one card: page allocation, prefix
+entries and preemption are host bookkeeping that every rank repeats alike.
 
 ``lora_bank``: multi-LoRA serving as in the dense engine. The "fused" tick
 (and "staged", which maps onto it) applies each row's adapter inside the
@@ -61,7 +66,7 @@ emitted tokens. The verify writes start past the prompt, so they land in
 the row's own pages, never in a prefix-cache entry's borrowed ones.
 
 Not ported: the data axis (the JAX engine's DP pool, whose prefix-cache
-entries are shard-local: ROADMAP item 14).
+entries are shard-local: ROADMAP item 14, its data half).
 """
 
 from __future__ import annotations
@@ -196,7 +201,7 @@ class PagedServingEngine(ServingEngine):
         return True
 
     def _chain_tick(self) -> bool:
-        return self.paged_kernel == "fused"
+        return self.paged_kernel in ("fused", "fused_tp")
 
     # -- backend hooks --------------------------------------------------
     def _init_cache(self):
@@ -441,7 +446,7 @@ class PagedServingEngine(ServingEngine):
         return paligemma.decode_verify_paged(
             self.decode_params, self.config, tokens_in, self.cache, self.paged.page_table,
             st["write_pos"], st["pos_ids"], pages_bucket=kv_arg,
-            fused_layer=self.paged_kernel == "fused", greedy_head=greedy)[0]
+            fused_layer=self._chain_tick(), greedy_head=greedy, mesh=self.mesh)[0]
 
     def _spec_window_arg(self, ticks: int) -> int:
         """The logical pages a spec window attends: ``_dispatched`` already
@@ -450,4 +455,4 @@ class PagedServingEngine(ServingEngine):
         return self._pages_bucket(ticks * (self.spec_draft_k + 1) + self.spec_draft_k)
 
     def _spec_greedy(self) -> bool:
-        return self.paged_kernel == "fused" and self._head_argmax_tick(False)
+        return self._chain_tick() and self._head_argmax_tick(False)

@@ -13,7 +13,11 @@ points ``--model_path`` at (CPU):
   its greedy rows, and refuses sampling and batches as the JAX CLI does;
 * user mistakes, flags of parts not yet ported, ``--int8_prefill`` without
   ``--quantize_int8``, a missing card and ``--dtype float32`` on a card
-  exit 2 with a one-line reason.
+  exit 2 with a one-line reason;
+* ``--only_cpu --model_parallel 2`` (two spawned gloo ranks, cli/ranks) on
+  a checkpoint with one KV head prints, from rank 0 only, the JAX CLI's
+  ``--model_parallel 2`` rows and the port's one-rank rows, greedy and
+  ``--speculative``; a rank that raises makes the command exit nonzero.
 """
 
 import json
@@ -245,12 +249,13 @@ def test_cli_speculative_rules_exit_2(checkpoint_dir, image_path, capsys, flags,
 @pytest.mark.parametrize("flag,match", [
     (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
     (["--data_parallel", "2"], "ROADMAP item 14"),
-    (["--model_parallel", "2"], "ROADMAP item 14"),
+    (["--model_parallel", "2", "--data_parallel", "2"], "ROADMAP item 14"),
 ])
 def test_cli_unported_flags_exit_2(checkpoint_dir, image_path, capsys, flag, match):
     """Flags of parts not ported exit 2 with the ROADMAP item that ports
-    them; --int8_prefill without --quantize_int8 exits 2 with the JAX CLI's
-    message. Nothing is loaded first."""
+    them (a data axis, also beside a model axis, which is ported and named
+    in the message); --int8_prefill without --quantize_int8 exits 2 with
+    the JAX CLI's message. Nothing is loaded first."""
     with pytest.raises(SystemExit) as ei:
         t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--only_cpu", *flag))
     assert ei.value.code == 2
@@ -282,3 +287,79 @@ def test_cli_float32_on_the_card_exits_2(checkpoint_dir, image_path, capsys, mon
     cap = capsys.readouterr()
     assert "--dtype float32 runs only with --only_cpu" in cap.err
     assert "Loading model" not in cap.out
+
+
+# ---- tensor parallel: --model_parallel 2 on two spawned gloo ranks ----
+@pytest.fixture(scope="module")
+def mqa_checkpoint_dir(tmp_path_factory):
+    """The fixture's checkpoint with one KV head (the port's tensor-parallel
+    rule: one KV head, or one per query head) and 4 query heads of 32, in
+    the fixture's tokenizer."""
+    d = tmp_path_factory.mktemp("mqa_ckpt")
+    cfg = transformers.PaliGemmaConfig(
+        vision_config=dict(
+            image_size=28, patch_size=14, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=4, projection_dim=64,
+            vision_use_head=False,
+        ),
+        text_config=dict(
+            vocab_size=VOCAB, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=1,
+            head_dim=32, model_type="gemma",
+            bos_token_id=2, eos_token_id=1, pad_token_id=0,
+        ),
+        projection_dim=64, image_token_index=280, pad_token_id=0,
+        vocab_size=VOCAB,
+    )
+    torch.manual_seed(1)
+    transformers.PaliGemmaForConditionalGeneration(cfg).eval().save_pretrained(
+        str(d), safe_serialization=True)
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    words = ["this", "building", "is", "a", "answer", "in", "english", "hello",
+             "world", "describe", "the", "image", "extract", "json"]
+    vocab = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "\n": 3, "<unk>": 4}
+    for w in words:
+        vocab[w] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    transformers.PreTrainedTokenizerFast(
+        tokenizer_object=tok, pad_token="<pad>", eos_token="<eos>", bos_token="<bos>",
+        unk_token="<unk>").save_pretrained(str(d))
+    return str(d)
+
+
+@pytest.mark.parametrize("extra", [[], ["--speculative", "--draft_k", "3"]],
+                         ids=["greedy", "speculative"])
+def test_cli_model_parallel_prints_the_jax_cli_rows(mqa_checkpoint_dir, image_path, capfd,
+                                                    extra):
+    """Rank 0 alone prints the rows and the timings; both ranks on the CPU
+    over gloo; the rows are the JAX CLI's --model_parallel 2 rows (its
+    make_mesh(1, 2) on the virtual devices) and the port's one-rank rows."""
+    from paligemma_tpu.cli.infer import main as jax_main
+
+    argv = _argv(mqa_checkpoint_dir, image_path, ["describe the image"],
+                 "--max_tokens_to_generate", "6", "--dtype", "float32", *extra)
+    jax_main(argv + ["--model_parallel", "2"])
+    want = _rows(capfd.readouterr().out)
+    t_infer.main(argv + ["--only_cpu", "--model_parallel", "2"])
+    cap = capfd.readouterr()
+    got = _rows(cap.out)
+    t_infer.main(argv + ["--only_cpu"])
+    one = _rows(capfd.readouterr().out)
+    assert got == want == one and len(got) == 1
+    assert cap.out.count("Running inference") == 1 and cap.err.count("timings: ") == 1
+    assert "ranks: 2 over gloo, devices cpu, cpu" in cap.err
+    timings = json.loads(cap.err.split("timings: ", 1)[1].splitlines()[0])
+    assert timings["tokens"] == 6 and ("spec_cycles" in timings) == bool(extra)
+
+
+def test_cli_model_parallel_rank_failure_exits_nonzero(mqa_checkpoint_dir, image_path, capfd):
+    """--model_parallel 3 over 4 heads: every rank raises while sharding;
+    the command exits nonzero with the rank's reason (no hang, no rows)."""
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(mqa_checkpoint_dir, image_path, ["a"], "--only_cpu", "--dtype",
+                           "float32", "--model_parallel", "3"))
+    assert ei.value.code not in (0, None)
+    cap = capfd.readouterr()
+    assert "do not split over 3 ranks" in cap.err and "Running inference" not in cap.out

@@ -621,6 +621,92 @@ def _tiny_int8_layers(dev, g, n_layers, k, n_heads, d, inter):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("k", [1024, 8192])
+def test_k1_fp32_partial_with_the_expand_on_card(b, k):
+    """K1 (int8_gemv_f32_lora) against its plain version on the same basis,
+    one launch counted on its own counter; its [base | delta], added as
+    decode_layer_tp.add_partial adds them, has the bits of the residual
+    GEMV with the expand (one rank's sum is the one-card epilogue)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(19)
+    n, gcols = 2048, 32
+    x = (torch.randn(b, k, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    h = torch.randn(b, n, generator=g, device=dev).to(torch.bfloat16)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    lb = torch.randn(gcols, n, generator=g, device=dev) * 0.5
+    z = (torch.randn(b, gcols, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+    n0, f0 = t_gemv.int8_gemv_f32_lora.launches, t_gemv.int8_gemv_f32.launches
+    got = t_gemv.int8_gemv_f32(x, w8, s, lora=(z, lb, ()))
+    assert t_gemv.int8_gemv_f32_lora.launches == n0 + 1
+    assert t_gemv.int8_gemv_f32.launches == f0
+    assert got.shape == (b, 2 * n) and got.dtype == torch.float32
+    want = t_gemv.int8_gemv_reference(x, w8, s, out_fp32=True, lora=(z, lb, ()))
+    _close_rel(got[:, :n], want[:, :n], 1e-3)
+    scale = float(want[:, n:].abs().max())
+    assert float((got[:, n:] - want[:, n:]).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got, t_gemv.int8_gemv_f32(x, w8, s, lora=(z, lb, ())))
+    added = (h + got[:, :n].to(h.dtype)) + got[:, n:].to(h.dtype)
+    assert torch.equal(added, t_gemv.int8_gemv(x, w8, s, residual=h, lora=(z, lb, ())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cache", [1, 3])
+def test_tp_chain_with_a_bank_is_the_one_card_chain_on_card(tmp_path, rows_per_cache):
+    """The TP chain (kernels/decode_layer_tp) at world size 1 with a bank's
+    pack (K1 on o and down) has the one-card chain's bits, also at verify
+    rows (``rows_per_cache``); 4 shrinks and 2 K1 a layer."""
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch.core.mesh import make_mesh
+    from paligemma_tpu_torch.kernels import decode_layer as t_dl
+    from paligemma_tpu_torch.kernels import decode_layer_tp as t_tp
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(12)
+    n_layers, k, h, d, inter, n_cache, s_len = 2, 256, 4, 128, 512, 2, 128
+    layers = _tiny_int8_layers(dev, g, n_layers, k, h, d, inter)
+    gcols, rank = 16, 4
+    pack = {"g_true": gcols, "rank": rank}
+    for name, in_dim, n_t, out_dim in (("qkv", k, 3, (h + 2) * d), ("o", h * d, 1, k),
+                                       ("gu", k, 2, 2 * inter), ("down", inter, 1, k)):
+        pack[name + "_a"] = torch.randn(n_layers, in_dim, n_t * gcols, generator=g,
+                                        device=dev) * in_dim**-0.5
+        pack[name + "_b"] = torch.randn(n_layers, gcols, out_dim, generator=g, device=dev) * 0.5
+    b = n_cache * rows_per_cache
+    ids = (torch.arange(b, device=dev) % 4).to(torch.int32)
+    x = torch.randn(b, 1, k, generator=g, device=dev).to(torch.bfloat16)
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    start = torch.tensor([40, 70], device=dev)
+    pos = (start[:, None] + torch.arange(rows_per_cache, device=dev)[None]).reshape(-1)
+    pos = pos.to(torch.int32)
+    w = 96
+    valid = (torch.arange(w, device=dev)[None] <= pos[:, None].long()).contiguous()
+    kc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+    caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+    one = t_dl.layers_decode_fused(x, layers, *caches[0], pos, valid, cos, sin, w, h, d, 1e-6,
+                                   lora_pack=pack, adapter_ids=ids,
+                                   rows_per_cache=rows_per_cache)[0]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        s0, k0 = t_lora.lora_shrink.launches, t_gemv.int8_gemv_f32_lora.launches
+        got = t_tp.layers_decode_tp(x, layers, *caches[1], pos, valid, cos, sin, d, 1e-6,
+                                    make_mesh(1, 1), lora_pack=pack, adapter_ids=ids,
+                                    rows_per_cache=rows_per_cache)
+        assert t_lora.lora_shrink.launches - s0 == 4 * n_layers
+        assert t_gemv.int8_gemv_f32_lora.launches - k0 == 2 * n_layers
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, one)
+    assert all(torch.equal(a, c) for a, c in zip(caches[0], caches[1]))
+
+
+@pytest.mark.cuda
 def test_dense_equals_paged_with_a_lora_bank_on_card():
     """The dense chain (kernels/decode_layer) and the paged one
     (kernels/decode_layer_paged) with the same bank and a table that maps

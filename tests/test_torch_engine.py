@@ -203,7 +203,8 @@ def test_port_runs_without_jax():
         import paligemma_tpu_torch
         import json
         from chip_smoke import _StandIns
-        from paligemma_tpu_torch.cli import finetune, infer, serve
+        from paligemma_tpu_torch.cli import finetune, infer, ranks, serve
+        from paligemma_tpu_torch.core.mesh import Mesh, shard_lora
         from paligemma_tpu_torch.processing import mask_vae
         from paligemma_tpu_torch.runtime.logging import MetricsLogger
         from paligemma_tpu_torch.train import data, hf_dataset
@@ -224,6 +225,11 @@ def test_port_runs_without_jax():
         from paligemma_tpu_torch.models import siglip
         torch.set_num_threads(1)
         cfg = paligemma_tpu_torch.tiny_test_config()
+        # the TP launcher's pieces and a rank's shard of a bank
+        assert ranks.backend_for([torch.device("cpu")] * 2) == "gloo"
+        bank = stack_lora_bank([init_lora(torch.Generator(), cfg.text_config, rank=2)])
+        half = shard_lora(bank, Mesh(model=2, rank=1))["layers"]
+        assert half["o"]["a_cat"].shape[-2] * 2 == bank["layers"]["o"]["a_cat"].shape[-2]
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
         eng = PaliGemmaEngine(params, cfg, max_seq_len=32,
                               decode_params=quantize_lm_for_serving(params))

@@ -366,12 +366,15 @@ def test_grammar_rejections():
     other = t_grammar.compile_token_dfa(t_grammar.compile_regex("a+"), TOKEN_STRS[:100], EOS)
     with pytest.raises(ValueError, match="compiled for vocab 100"):
         t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, grammars={"g": other})
+    # a mesh with a data axis: grammars run under a model axis only
+    from paligemma_tpu_torch.core.mesh import Mesh
+
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, mesh=object(),
+        t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, mesh=Mesh(data=2),
                                 grammars=_grammars(t_grammar, ("g",)))
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=64, page_size=16,
-                                   mesh=object(), grammars=_grammars(t_grammar, ("g",)))
+                                   mesh=Mesh(data=2), grammars=_grammars(t_grammar, ("g",)))
 
 
 def test_grammar_table_layout():

@@ -584,13 +584,25 @@ def test_kernel_tick_without_pack_raises():
 
 
 def test_tensor_parallel_with_bank_raises():
+    """A bank under a mesh with a data axis raises (ROADMAP item 14, the
+    data axis). Under a model axis (a hand-built Mesh names the rank; no
+    collective runs at construction) both engines keep this rank's shard of
+    the stacked bank (core/mesh.shard_lora)."""
+    from paligemma_tpu_torch.core.mesh import Mesh, shard_lora
+
     _, _, tp, _ = _weights()
-    with pytest.raises(NotImplementedError, match="tensor-parallel multi-LoRA"):
-        t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, mesh=object(),
-                                lora_bank=_port_bank())
-    with pytest.raises(NotImplementedError, match="tensor-parallel multi-LoRA"):
-        t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=64, mesh=object(),
-                                   lora_bank=_port_bank())
+    bank = _port_bank()
+    for cls in (t_serving.ServingEngine, t_paged.PagedServingEngine):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            cls(tp, CFG, max_slots=2, max_seq_len=64, mesh=Mesh(model=1, data=2),
+                lora_bank=bank)
+        mesh = Mesh(model=2, rank=1)
+        eng = cls(tp, CFG, max_slots=2, max_seq_len=64, mesh=mesh, lora_bank=bank,
+                  fused_decode=False)
+        want = shard_lora(t_lora.stack_lora_bank([bank[n] for n in bank]), mesh)
+        for name, p in want["layers"].items():
+            for key, t in p.items():
+                assert torch.equal(eng.lora_bank["layers"][name][key], t), (name, key)
 
 
 # ---------------------------------------------------------- signatures ----
@@ -621,6 +633,7 @@ OPERANDS_DIFFER = {
 C5_FUNCTIONS = (
     "models.paligemma.prefill", "models.paligemma.decode_step",
     "models.paligemma.decode_step_greedy", "models.paligemma.decode_step_paged",
+    "models.paligemma.decode_step_greedy_paged", "cli.infer.main",
     "models.paligemma.decode_verify", "models.paligemma.decode_verify_paged",
     "models.gemma.forward_paged_verify", "ops.ngram.propose_ngram",
     "runtime.engine.PaliGemmaEngine.generate_spec",

@@ -182,11 +182,17 @@ def test_sampled_hits_reuse_the_stored_logits(paged, monkeypatch):
 
 
 def test_prefix_cache_under_a_mesh_raises():
+    """Under a mesh with a data axis (the JAX engine's shard-local entries:
+    ROADMAP item 14, the data axis); a model axis takes the prefix cache
+    (tests/test_torch_tp_features.py)."""
+    from paligemma_tpu_torch.core.mesh import Mesh
+
     _, _, tp, tq = _weights()
     for cls, kw in ((t_serving.ServingEngine, {}), (t_paged.PagedServingEngine,
                                                     dict(page_size=16))):
         with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            cls(tp, CFG, max_slots=2, max_seq_len=32, mesh=object(), prefix_cache=True, **kw)
+            cls(tp, CFG, max_slots=2, max_seq_len=32, mesh=Mesh(data=2), prefix_cache=True,
+                **kw)
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])

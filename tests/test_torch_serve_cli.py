@@ -15,12 +15,20 @@ tests/test_torch_cli.py (CPU, ``--only_cpu --dtype float32``):
   its cancel are handed over), 400s for bad requests; every wait has its
   own timeout;
 * ``--lora`` reads a ``save_pytree`` directory;
+* ``--only_cpu --model_parallel 2`` (two spawned gloo ranks, cli/ranks,
+  on tests/test_torch_cli.py's one-KV-head checkpoint): batch mode with
+  ``--lora``, ``--grammar`` and ``--prefix_cache`` (dense) and with
+  ``--grammar``, ``--prefix_cache`` and ``--spec_decode`` from stdin
+  (paged) prints the one-rank result lines, from rank 0 only; HTTP mode
+  answers a request, a stream and a cancel, stays up while idle for longer
+  than the ranks' collective timeout, and both ranks shut down cleanly;
 * user mistakes, flags of parts not yet ported, ``--int8_prefill``
   without ``--quantize_int8``, a missing card and ``--dtype float32`` on a
   card exit 2 with a one-line reason.
 """
 
 import base64
+import io
 import json
 import threading
 import time
@@ -33,7 +41,7 @@ import torch
 transformers = pytest.importorskip("transformers")
 
 from paligemma_tpu_torch.cli import serve as t_serve  # noqa: E402
-from tests.test_torch_cli import checkpoint_dir, image_path  # noqa: E402,F401
+from tests.test_torch_cli import checkpoint_dir, image_path, mqa_checkpoint_dir  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -296,7 +304,7 @@ def _exit2(argv, capsys, match):
     ([], "--requests_jsonl"),
     (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
     (["--data_parallel", "2"], "ROADMAP item 14"),
-    (["--model_parallel", "2"], "ROADMAP item 14"),
+    (["--model_parallel", "2", "--data_parallel", "2"], "ROADMAP item 14"),
     (["--grammar", "nameless"], "NAME=REGEX"),
     (["--grammar", "g=(ab"], "--grammar g"),
     (["--lora", "x"], "NAME=DIR"),
@@ -359,3 +367,149 @@ def test_http_engine_failure_answers_500_and_stops(checkpoint_dir, image_path): 
     assert code == 500 and "engine failed" in r["error"]
     t.join(WAIT)
     assert not t.is_alive()
+
+
+# ---- tensor parallel: --model_parallel 2 on two spawned gloo ranks ----
+TP_ROWS = [
+    {"request_id": 0, "prompt": "describe the image", "max_new_tokens": 5},
+    {"prompt": "hello world", "max_new_tokens": 5, "lora": "x"},
+    {"prompt": "describe the image", "max_new_tokens": 6, "grammar": "g"},
+    {"prompt": "hello world", "max_new_tokens": 5, "lora": "x"},
+    {"prompt": "describe the image", "max_new_tokens": 5},
+]
+TP_GRAMMAR = ["--prefix_cache", "--grammar", "g=(this|building|is|a| )+"]
+
+
+@pytest.fixture(scope="module")
+def mqa_lora_dir(mqa_checkpoint_dir, tmp_path_factory):  # noqa: F811
+    """An adapter of the one-KV-head checkpoint with nonzero B, written by
+    checkpoints/local.save_pytree."""
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.checkpoints.local import save_pytree
+    from paligemma_tpu_torch.train.lora import init_lora
+
+    _, cfg = load_hf_model(mqa_checkpoint_dir, torch.float32, device="cpu")
+    lora = init_lora(torch.Generator().manual_seed(3), cfg.text_config, rank=4)
+    g = torch.Generator().manual_seed(4)
+    for p in lora["layers"].values():
+        p["b"] = torch.randn(p["b"].shape, generator=g) * 0.5
+    d = tmp_path_factory.mktemp("mqa_lora") / "x"
+    save_pytree(str(d), {"lora": lora})
+    return str(d)
+
+
+@pytest.mark.parametrize("engine", ["dense", "paged"])
+def test_batch_model_parallel_prints_the_one_rank_lines(mqa_checkpoint_dir, mqa_lora_dir,  # noqa: F811
+                                                        image_path, tmp_path, capfd,
+                                                        monkeypatch, engine):
+    """dense: --lora --grammar --prefix_cache; paged: --grammar --prefix_cache
+    --spec_decode with the requests on stdin (rank 0 reads them through the
+    launcher). The m = 2 lines are the m = 1 lines; rank 0 alone prints."""
+    rows = TP_ROWS if engine == "dense" else [{k: v for k, v in r.items() if k != "lora"}
+                                              for r in TP_ROWS]
+    extra = (["--lora", f"x={mqa_lora_dir}"] if engine == "dense"
+             else ["--spec_decode", "--spec_draft_k", "3"])
+    path = _jsonl(tmp_path, rows, image_path)
+    base = ["--model_path", mqa_checkpoint_dir, "--engine", engine, "--max_slots", "2",
+            "--max_seq_len", "64", "--page_size", "16", "--sync_every", "2", "--dtype",
+            "float32", "--only_cpu", *TP_GRAMMAR, *extra]
+    if engine == "paged":
+        monkeypatch.setattr("sys.stdin", io.StringIO(open(path).read()))
+        t_serve.main(base + ["--requests_jsonl", "-", "--model_parallel", "2"])
+    else:
+        t_serve.main(base + ["--requests_jsonl", path, "--model_parallel", "2"])
+    cap = capfd.readouterr()
+    got = _lines(cap.out)
+    t_serve.main(base + ["--requests_jsonl", path])
+    want = _lines(capfd.readouterr().out)
+    keys = ("request_id", "text", "num_tokens")
+    assert [{k: r[k] for k in keys} for r in got] == [{k: r[k] for k in keys} for r in want]
+    assert len(got) == len(rows)
+    assert cap.err.count(f"served {len(rows)} requests") == 1
+    assert "ranks: 2 over gloo, devices cpu, cpu" in cap.err
+
+
+HTTP_TP_REQUESTS = 3  # /generate answers before the TP HTTP test's server shuts down
+
+
+def _http_rank(argv, rank):
+    """cli/ranks entry of the TP HTTP test: one rank of ``cli.serve
+    --model_parallel`` in HTTP mode (cli/serve ``_serve``), with rank 0's
+    server shut down after HTTP_TP_REQUESTS answers (then it hands the stop
+    call to rank 1)."""
+    args = t_serve._build_parser().parse_args(argv)
+    srv = t_serve.build_server(args, rank=rank)
+    if rank.lead:
+        srv.serve_http(args.http, max_requests=HTTP_TP_REQUESTS)
+    else:
+        srv.follow()
+
+
+def _launch_in_thread(entry, argv, timeout_s):
+    """cli/ranks.launch of two CPU ranks in a thread: (thread, {"code":
+    exit code})."""
+    from paligemma_tpu_torch.cli import ranks
+
+    out = {}
+
+    def run():
+        try:
+            ranks.launch(entry, argv, 2, True, timeout_s)
+            out["code"] = 0
+        except SystemExit as e:
+            out["code"] = e.code
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, out
+
+
+def test_http_model_parallel_round_trips_and_idles(mqa_checkpoint_dir, image_path):  # noqa: F811
+    """Rank 0 runs the front end and hands each engine call to rank 1: a
+    request, its stream (the same tokens), a cancel of a running stream;
+    then an idle wait longer than the model group's collective timeout (the
+    ranks wait on their control group, not a collective), a last request,
+    and the shutdown after HTTP_TP_REQUESTS answers ends both ranks with
+    exit code 0."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rank_timeout = 6
+    t, out = _launch_in_thread(_http_rank, [
+        "--model_path", mqa_checkpoint_dir, "--http", str(port), "--max_slots", "2",
+        "--max_seq_len", "256", "--sync_every", "2", "--dtype", "float32", "--only_cpu",
+        "--model_parallel", "2"], rank_timeout)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 3 * WAIT
+    while True:  # the ranks load the checkpoint first
+        try:
+            assert _get(base, "/healthz")["ok"]
+            break
+        except (urllib.error.URLError, ConnectionError):
+            assert t.is_alive() and time.monotonic() < deadline, out
+            time.sleep(0.2)
+    row = {"prompt": "describe the image", "image": image_path, "max_new_tokens": 4}
+    code, r1 = _post(base, "/generate", row)
+    assert code == 200 and r1["num_tokens"] == 4
+    req = urllib.request.Request(base + "/generate", data=json.dumps({**row, "stream": True})
+                                 .encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=WAIT) as resp:
+        events = [json.loads(ln.decode()[len("data: "):]) for ln in resp
+                  if ln.startswith(b"data: ")]
+    assert events[-1]["done"] and events[-1]["text"] == r1["text"] and len(events) == 5
+    long = {**row, "request_id": 50, "max_new_tokens": 200, "stream": True}
+    req = urllib.request.Request(base + "/generate", data=json.dumps(long).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=WAIT) as resp:
+        assert resp.readline().startswith(b"data: {\"token\"")  # seated and decoding
+        assert _post(base, "/cancel", {"request_id": 50}) == (
+            200, {"request_id": 50, "cancelled": True})
+        last = [ln for ln in resp if ln.startswith(b"data: ")][-1]
+    assert json.loads(last.decode()[len("data: "):])["cancelled"]
+    time.sleep(rank_timeout + 2)  # idle past the ranks' collective timeout
+    code, r3 = _post(base, "/generate", row)
+    assert code == 200 and r3["text"] == r1["text"]
+    t.join(WAIT)
+    assert not t.is_alive() and out["code"] == 0

@@ -262,9 +262,11 @@ def test_kernel_path_raises_on_unsupported_tree():
     with pytest.raises(ValueError, match="paged_kernel='fused'"):
         t_paged.PagedServingEngine(tp, cfg, max_slots=2, max_seq_len=32, page_size=16,
                                    fused_decode=True)
-    with pytest.raises(NotImplementedError, match="spec_decode with a mesh"):
+    from paligemma_tpu_torch.core.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="data axis"):  # ROADMAP item 14
         t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, spec_decode=True,
-                                mesh=object())
+                                mesh=Mesh(data=2))
     eng = t_serving.ServingEngine(tp, cfg, max_slots=1, max_seq_len=16)
     with pytest.raises(ValueError, match="exceeds the per-slot budget"):
         eng.submit(_req(t_serving.Request, _spec(0, 1, 20, 2)))

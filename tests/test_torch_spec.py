@@ -379,7 +379,9 @@ def test_generate_spec_guards():
                           np.concatenate([mask, mask]), max_new_tokens=4)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.generate_spec(px, ids, mask, max_new_tokens=30, draft_k=8)
-    eng.mesh = object()
+    from paligemma_tpu_torch.core.mesh import Mesh
+
+    eng.mesh = Mesh(data=2)  # a model axis speculates (tests/test_torch_tp_features.py)
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         eng.generate_spec(px, ids, mask, max_new_tokens=4)
 
