@@ -2883,8 +2883,9 @@ CLI_TP_TIMEOUT = 600  # seconds, the spawn of two ranks that runs both CLIs
 
 
 def _cli_tp_entry(argv, rank):
-    """One rank of the CLIs' ``--model_parallel 2`` runs, both in one spawn
-    of two ranks (cli/ranks): ``argv`` = [out_dir, image token id, vocab,
+    """One rank of the CLIs' ``--model_parallel 2`` (or ``--data_parallel
+    2``) runs, both in one spawn of two ranks (cli/ranks): ``argv`` =
+    [out_dir, image token id, vocab,
     cli.infer's flags (JSON), cli.serve's flags (JSON)]. First cli.infer's
     rank entry on the cli phase's stand-ins (its tokenizer, so that the
     caption's ids compare with the one-card caption's), then cli.serve's
@@ -2936,30 +2937,34 @@ def _cli_tp_entry(argv, rank):
             json.dump(rec, f)
 
 
-def cli_tp_phase(cfg, card, ckpt, one_card_ids):
-    """The CLIs' tensor-parallel mode on the cli phase's checkpoint, in one
-    spawn of two ranks that share the card (cli/ranks; gloo: a correctness
-    run, the collectives staging through host memory): ``cli.infer
-    --quantize_int8 --model_parallel 2`` (a greedy caption), then one
-    ``cli.serve --model_parallel 2`` server with ``--lora``, ``--grammar``
-    and ``--prefix_cache`` that runs a batch and answers one HTTP request
+def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
+    """The CLIs' tensor-parallel mode (``data`` 1: ``--model_parallel 2``)
+    or their data axis (``data`` 2: ``--data_parallel 2``, the paged
+    engine, two prompts) on the cli phase's checkpoint, in one spawn of two
+    ranks that share the card (cli/ranks; gloo: a correctness run, the
+    collectives staging through host memory): ``cli.infer --quantize_int8``
+    (a greedy caption; with a data axis one row a rank), then one
+    ``cli.serve`` server with ``--lora``, ``--grammar`` and
+    ``--prefix_cache`` that runs a batch and answers one HTTP request
     (_cli_tp_entry). Gates: exit code 0, both ranks on cuda:0 over gloo,
-    rank 1 prints nothing; the caption has the one-card caption's length
-    (``one_card_ids``, the cli phase's greedy ids on the same checkpoint,
-    image, prompt and tokenizer, cut to CLI_TP_NEW: its share of equal ids
-    is printed, not gated, as m = 2 rounds its partial sums differently)
-    and rank 0 prints exactly its rows; the batch's lines well formed, a
+    rank 1 prints nothing; the caption of the first prompt has the one-card
+    caption's length (``one_card_ids``, the cli phase's greedy ids on the
+    same checkpoint, image, prompt and tokenizer, cut to CLI_TP_NEW: its
+    share of equal ids is printed, not gated, as m = 2 rounds its partial
+    sums differently and a batch of two pads the prompt) and rank 0 prints
+    exactly its rows, in prompt order; the batch's lines well formed, a
     constrained row in its grammar, the repeat a cache hit; the HTTP answer
     the batch's text for the same request (every rank holds the same
-    tokens: the CLIs check it themselves)."""
+    tokens and seats: the CLIs check it themselves)."""
     import urllib.request
 
     from paligemma_tpu_torch.checkpoints.local import save_pytree
     from paligemma_tpu_torch.cli import ranks
     from paligemma_tpu_torch.processing import grammar as gr
 
-    work = pathlib.Path(ckpt) / "cli_tp"
+    work = pathlib.Path(ckpt) / label
     work.mkdir()
+    mesh = ["--data_parallel", "2"] if data > 1 else ["--model_parallel", "2"]
     img = [os.path.join(ckpt, f"img{i}.npy") for i in range(2)]
     ad = lora_bank_adapters(cfg, torch.device("cuda", 0), LORA_B_STD)["a"]
     save_pytree(str(work / "lora_a"), {"lora": {"layers": {
@@ -2972,23 +2977,31 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids):
             {"prompt": SERVE_CLI_PROMPTS[0], "image": img[1], "max_new_tokens": CLI_TP_NEW,
              "grammar": "digits"},
             {"prompt": SERVE_CLI_PROMPTS[0], "image": img[0], "max_new_tokens": CLI_TP_NEW}]
+    if data > 1:
+        # one slot a shard: the repeat is admitted once request 0's entry
+        # exists, first of its wave, so it is pinned to the entry's shard
+        rows[2], rows[3] = rows[3], rows[2]
     jsonl = work / "reqs.jsonl"
     jsonl.write_text("\n".join(json.dumps(r) for r in rows))
     port = _free_port()
-    infer_argv = ["--model_path", ckpt, "--image_file_path", img[0], "--prompt", CLI_PROMPTS[0],
-                  "--quantize_int8", "--max_tokens_to_generate", str(CLI_TP_NEW),
-                  "--model_parallel", "2"]
-    serve_argv = ["--model_path", ckpt, "--quantize_int8", "--max_slots", "4", "--max_seq_len",
-                  "1024", "--sync_every", "8", "--requests_jsonl", str(jsonl), "--http",
-                  str(port), "--prefix_cache", "--lora", f"a={work / 'lora_a'}", "--grammar",
-                  f"digits={SERVE_CLI_GRAMMARS['digits']}", "--model_parallel", "2"]
+    n_prompts = 2 if data > 1 else 1
+    infer_argv = ["--model_path", ckpt, "--quantize_int8", "--max_tokens_to_generate",
+                  str(CLI_TP_NEW), *mesh]
+    for i in range(n_prompts):
+        infer_argv += ["--image_file_path", img[i], "--prompt", CLI_PROMPTS[i]]
+    serve_argv = ["--model_path", ckpt, "--quantize_int8", "--max_slots",
+                  "2" if data > 1 else "4", "--max_seq_len", "1024", "--sync_every", "8",
+                  "--requests_jsonl", str(jsonl), "--http", str(port), "--prefix_cache", "--lora",
+                  f"a={work / 'lora_a'}", "--grammar", f"digits={SERVE_CLI_GRAMMARS['digits']}",
+                  *mesh, *(["--engine", "paged"] if data > 1 else [])]
     result = {}
 
     def launch():
         try:
             ranks.launch(_cli_tp_entry, [str(work), str(cfg.image_token_index),
                                          str(cfg.vocab_size), json.dumps(infer_argv),
-                                         json.dumps(serve_argv)], 2, False, CLI_TP_TIMEOUT)
+                                         json.dumps(serve_argv)], 2 // data, False,
+                          CLI_TP_TIMEOUT, data_parallel=data)
         except BaseException as e:  # SystemExit included: reported by this thread's caller
             result["error"] = e
 
@@ -3015,14 +3028,14 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids):
         for r, rec in enumerate(recs):
             for what in ("infer", "serve"):
                 if what in rec:
-                    print(f"cli_tp {what}: rank {r}'s stdout:\n{rec[what]['stdout']}stderr:\n"
+                    print(f"{label} {what}: rank {r}'s stdout:\n{rec[what]['stdout']}stderr:\n"
                           f"{rec[what]['stderr']}", flush=True)
-        raise AssertionError(f"cli_tp: {result.get('error')!r}, HTTP answer {answer}")
+        raise AssertionError(f"{label}: {result.get('error')!r}, HTTP answer {answer}")
     if any(rec["device"] != "cuda:0" or rec["backend"] != "gloo" for rec in recs):
-        raise AssertionError(f"cli_tp: ranks on {[(r['device'], r['backend']) for r in recs]}"
+        raise AssertionError(f"{label}: ranks on {[(r['device'], r['backend']) for r in recs]}"
                              ", want cuda:0 over gloo (two ranks share the card)")
     if recs[1]["infer"]["stdout"] or recs[1]["serve"]["stdout"]:
-        raise AssertionError(f"cli_tp: rank 1 printed {recs[1]['infer']['stdout']!r}, "
+        raise AssertionError(f"{label}: rank 1 printed {recs[1]['infer']['stdout']!r}, "
                              f"{recs[1]['serve']['stdout']!r}")
 
     inf = recs[0]["infer"]
@@ -3032,31 +3045,39 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids):
     ref = ref[:ref.index(eos) + 1] if eos in ref else ref
     got = recs[0]["rows"]
     first, rest = inf["stdout"].split("\n", 1)
-    if (len(got) != 1 or len(got[0]) != len(ref) or timings["tokens"] != len(ref)
+    # a batch of two runs to its longer row (a row past its EOS holds EOS)
+    n_tok = timings["tokens"]
+    if (len(got) != n_prompts or any(len(r) != n_tok for r in got)
+            or not (n_tok == len(ref) if data == 1 else 1 <= n_tok <= CLI_TP_NEW)
             or not first.startswith("Device in use: cuda:0")
             or rest != f"Loading model\nRunning inference\n{recs[0]['want']}"):
-        raise AssertionError(f"cli_tp infer: rank 0 printed {inf['stdout']!r} for the ids {got}"
-                             f", want {len(ref)} ids (the one-card caption's {ref})")
+        raise AssertionError(f"{label} infer: rank 0 printed {inf['stdout']!r} for the ids {got}"
+                             f", want {n_prompts} row(s) of {n_tok} ids (the one-card caption's "
+                             f"{ref})")
     same = sum(a == b for a, b in zip(got[0], ref))
-    print(f"cli_tp: cli.infer --quantize_int8 --model_parallel 2 (two ranks on cuda:0 over "
-          f"gloo): rank 0 printed the row of its {len(got[0])} ids, the one-card caption's "
-          f"length; {same}/{len(ref)} ids equal the one-card caption's (m = 2 rounds its "
-          f"partial sums apart: printed, not gated)", flush=True)
+    print(f"{label}: cli.infer --quantize_int8 {' '.join(mesh)} (two ranks on cuda:0 over "
+          f"gloo): rank 0 printed {n_prompts} row(s) in prompt order, the first of "
+          f"{len(got[0])} ids; {same}/{len(ref)} ids equal the one-card caption's (printed, "
+          f"not gated: " + ("m = 2 rounds its partial sums apart)" if data == 1 else
+                            "the batch of two pads the prompt)"), flush=True)
 
     lines = [json.loads(ln) for ln in recs[0]["serve"]["stdout"].splitlines()]
     if (sorted(g["request_id"] for g in lines) != list(range(len(rows)))
             or not all({"text", "num_tokens", "ttft_ms"} <= set(g) for g in lines)
             or f"served {len(rows)} requests" not in recs[0]["serve"]["stderr"]):
-        raise AssertionError(f"cli_tp serve: rank 0 printed {recs[0]['serve']['stdout']!r}")
+        raise AssertionError(f"{label} serve: rank 0 printed {recs[0]['serve']['stdout']!r}")
     by_id = {g["request_id"]: g for g in lines}
     digits = gr.compile_regex(SERVE_CLI_GRAMMARS["digits"])
-    if not digits.matches(by_id[2]["text"]) or by_id[3]["text"] != by_id[0]["text"]:
-        raise AssertionError(f"cli_tp serve: the constrained row {by_id[2]['text']!r} or the "
-                             "repeat's text")
+    g_row, r_row = (3, 2) if data > 1 else (2, 3)
+    if not digits.matches(by_id[g_row]["text"]) or by_id[r_row]["text"] != by_id[0]["text"]:
+        raise AssertionError(f"{label} serve: the constrained row {by_id[g_row]['text']!r} or "
+                             "the repeat's text")
     if answer[0] != 200 or answer[1]["text"] != by_id[0]["text"]:
-        raise AssertionError(f"cli_tp serve --http: answered {answer}, want the batch's "
+        raise AssertionError(f"{label} serve --http: answered {answer}, want the batch's "
                              f"{by_id[0]['text']!r}")
-    print(f"cli_tp: cli.serve --model_parallel 2 (--lora --grammar --prefix_cache), one server: "
+    engine = " --engine paged" if data > 1 else ""
+    print(f"{label}: cli.serve {' '.join(mesh)}{engine} (--lora --grammar --prefix_cache), "
+          f"one server: "
           f"the batch's {len(lines)} result lines from rank 0, the constrained row in its "
           f"grammar, the repeat's text the first's; then one /generate over HTTP answered by "
           f"rank 0 with the batch's text, and both ranks shut down with exit code 0; one spawn "
@@ -3704,8 +3725,8 @@ def serve_cli_phase(params, decode, cfg, dev, card, d):
             def hook(eng):
                 preempt = eng._preempt_youngest
 
-                def preempt_youngest(exclude):
-                    slot = preempt(exclude)
+                def preempt_youngest(exclude, shard):
+                    slot = preempt(exclude, shard)
                     if slot is not None:
                         req = eng.pending[0]
                         into.append((req.request_id, len(req.input_ids) - req.prefix_len))
@@ -3879,9 +3900,9 @@ def _recording_engine():
             super()._before_window(ticks)
             self.peak_pages = max(self.peak_pages, self.n_pages - 1 - self.paged.free_pages())
 
-        def _preempt_youngest(self, exclude):
+        def _preempt_youngest(self, exclude, shard):
             seen = {r.request_id: len(r.tokens) for r in self.slots if r is not None}
-            slot = super()._preempt_youngest(exclude)
+            slot = super()._preempt_youngest(exclude, shard)
             if slot is not None:
                 rid = self.pending[0].request_id
                 self.first_eviction.setdefault(rid, seen[rid])
@@ -4738,7 +4759,8 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
     runs must give the one-card kernel engines' tokens exactly. Each run's
     launch counts are zeroed just before it and read just after; B7 or B8
     and B7b run once per layer and step or tick. Then one decode window per
-    TP engine under CUDA's sync debug mode. Returns the summed counts."""
+    TP engine under CUDA's sync debug mode. Returns the summed counts and
+    the one-card kernel engines' feature-run tokens."""
     import torch.distributed as dist
 
     from paligemma_tpu_torch import kernels
@@ -4871,7 +4893,7 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
         del engines
     finally:
         dist.destroy_process_group()
-    return total
+    return total, feats_one
 
 
 TP_FEATURE_REQ = 8  # requests of each feature run of tp (b) / (c)
@@ -5266,6 +5288,294 @@ def tp_two_rank_phase(cfg, card, tok_dense):
     if not worst <= LOGIT_REL_TOL:
         raise AssertionError(f"run (c): TP m=2 logits with the bank rel err {worst} > "
                              f"{LOGIT_REL_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# dp: the data axis of serving and inference, its ranks sharing the one card
+# ---------------------------------------------------------------------------
+DP_TIMEOUT = 900  # seconds, each spawn of the dp phase
+DP_POOL = SMALL_POOL  # run (b)'s pool, 22 pages a shard: a shard must preempt
+DP_FULL_POOL = FULL_POOL + 1  # an even pool (65 pages a shard): no preemption
+DPTP_NEW = 16  # the DP x TP run: the serving phase's first TP_FEATURE_REQ requests, 16 tokens
+# the DP x TP paged tick: run (b)'s TP paged tick at the rank's 4 slots
+DPTP_TICK = TP_PAGED_TICK
+
+
+def _near_ties(label, one, cfg, reqs, toks, want, bank=None):
+    """Rows of ``toks`` ({id: tokens}) that differ from ``want`` (the
+    one-card kernel engine's): each is teacher-forced along its own tokens
+    through the one-card kernel engine ``one`` (a PaliGemmaEngine, or with
+    ``bank`` a dense ServingEngine with the bank), and every token it
+    emitted must lie within LOGIT_REL_TOL of the top logit (of max |logit|):
+    a bf16 near tie that another prefill batch size's bits may flip.
+    Constrained rows are held by their grammar instead. Returns a phrase:
+    the identical rows, and the largest gap seen over max |logit|."""
+    worst = 0.0
+    by_id = {r.request_id: r for r in reqs}
+    differ = [i for i in toks if toks[i] != want[i]]
+    for i in differ:
+        req = by_id[i]
+        if req.grammar is not None:
+            continue
+        tokens = toks[i]
+        lg = (_teacher_bank_logits(one, cfg, req, tokens) if bank else
+              _teacher_logits(one, req, tokens))
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"dp {label}: non-finite teacher-forced logits")
+        picked = lg.gather(1, torch.tensor(tokens)[:, None])[:, 0]
+        gap = float(((lg.max(dim=1).values - picked) / lg.abs().amax(dim=1)).max())
+        worst = max(worst, gap)
+        if gap > LOGIT_REL_TOL:
+            raise AssertionError(f"dp {label}: request {i}'s tokens leave the one-card logits' "
+                                 f"top by {gap:.3e} of max |logit| (tol {LOGIT_REL_TOL})")
+    said = f"{len(toks) - len(differ)}/{len(toks)} requests with the one-card kernel engine's " \
+        "tokens"
+    if differ:
+        said += (f"; the others' tokens within {worst:.3e} of max |logit| of the one-card top "
+                 f"logit, teacher-forced (tol {LOGIT_REL_TOL})")
+    return said
+
+
+def _dp_rank(rank, world, data, init, out_dir, refs_file, card):
+    """One rank of the dp phase's engine runs (a spawned process on the
+    shared card; gloo): PaliGemma-3B at full width and depth from seed 0,
+    the int8 decode tree, under ``make_mesh(data, world // data)``. With a
+    model axis of 1 (pure DP): the paged engine on the serving phase's 12
+    requests with run (b)'s 44-page pool (a shard preempts), the feature
+    runs (a bank, a grammar row, a prefix repeat; spec_decode with the
+    grammar row and the repeat), one decode window under CUDA's sync debug
+    mode, and generate at B = 2. With a model axis of 2 (DP x TP): the
+    paged engine on the TP paged chain, TP_FEATURE_REQ requests of
+    DPTP_NEW tokens, and request 0's one-card tokens teacher-forced
+    through the DP x TP PaliGemmaEngine. Each run's launch counts are
+    zeroed just before it and read just after, and gated. Rank 0 holds the
+    tokens against the one-card kernel engine's (``refs_file``; differing
+    rows must be near ties, ``_near_ties``). Every rank writes its tokens
+    to ``out_dir``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch import kernels, paligemma_3b_224
+    from paligemma_tpu_torch.convert import init_params
+    from paligemma_tpu_torch.core.mesh import make_mesh
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    try:
+        with quiet:
+            cfg = paligemma_3b_224()
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                 torch.bfloat16)
+            decode = quantize_lm_for_serving(params)
+            mesh = make_mesh(data, world // data)
+            refs = torch.load(refs_file, weights_only=False)
+            Paged = _recording_engine()
+            vocab, n_layers = cfg.vocab_size, cfg.text_config.num_hidden_layers
+            tag = f"d={mesh.data} x m={mesh.model}"
+            out, lines = {}, []
+
+            def paged(n_pages, **kw):
+                eng = Paged(params, cfg, decode_params=decode, page_size=PAGE, n_pages=n_pages,
+                            mesh=mesh, **SERVE, **kw)
+                want = "fused" if mesh.model == 1 else "fused_tp"
+                if (eng.paged_kernel != want or not eng.fused_decode or not eng.use_flash
+                        or eng.paged.n_shards != data):
+                    raise AssertionError(f"dp {tag}: the engine did not take the kernel tick")
+                return eng
+
+            def seats(reqs):
+                return {r.request_id: r.slot for r in reqs}
+
+            if mesh.model == 1:
+                reqs = serving_requests(cfg)
+                eng = paged(DP_POOL)
+                (toks, wall, ttft), counts = _served(f"dp {tag} (pool {DP_POOL})", eng, reqs,
+                                                     vocab, n_layers, PAGED_FUSED_TICK)
+                if eng.preemptions < 1:
+                    raise AssertionError(f"dp {tag}: the {DP_POOL}-page pool did not preempt")
+                out["serve"] = (toks, seats(reqs), eng.preemptions, eng.prefill_calls)
+                lines.append(f"serve: {N_REQ} requests, {SERVE['max_slots']} slots "
+                             f"({SERVE['max_slots'] // data} a shard), a {DP_POOL}-page pool "
+                             f"({DP_POOL // data} a shard): {eng.preemptions} preemptions "
+                             f"(first evictions after {eng.first_eviction} tokens), "
+                             f"{sum(map(len, toks.values())) / wall:.1f} tok/s, TTFT p50 "
+                             f"{ttft:.1f} ms")
+                del eng
+                adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
+                grammars = tp_grammars(cfg)
+                for run, bank in (("bank paged", True), ("spec paged", False)):
+                    eng = paged(DP_FULL_POOL, grammars=grammars, prefix_cache=True,
+                                lora_bank=adapters if bank else None, spec_decode=not bank,
+                                spec_draft_k=SPEC_DRAFT_K)
+                    kernels.reset_launch_counts()
+                    reqs = tp_feature_requests(cfg, bank)
+                    toks, wall = _feature_serve(eng, reqs)
+                    sync()
+                    counts = kernels.launch_counts()
+                    _check_grammar_rows(f"dp {run}", toks)
+                    need = ["flash_attention_fwd", "int8_gemv_rope_kv", "paged_decode_attention",
+                            "rms_norm"] + (["lora_shrink"] if bank else [])
+                    if eng.cache_hits < 1 or any(counts[k] == 0 for k in need):
+                        raise AssertionError(f"dp {tag} {run}: {eng.cache_hits} cache hits, "
+                                             f"launches {counts}")
+                    out[run] = (toks, seats(reqs))
+                    lines.append(f"{run}: launches {json.dumps(counts)}; {eng.cache_hits} "
+                                 f"cache hits; {sum(map(len, toks.values())) / wall:.1f} tok/s")
+                    del eng
+                    torch.cuda.empty_cache()
+                eng = paged(DP_FULL_POOL)
+                for r in serving_requests(cfg)[:8]:
+                    r.max_new_tokens = 64
+                    eng.submit(r)
+                eng.step()
+                _window_without_sync(eng)
+                lines.append("no host synchronization inside a decode window (CUDA's sync debug "
+                             "mode; the shards' tokens are gathered at the read-back)")
+                del eng
+                gen = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode,
+                                      mesh=mesh)
+                pixels, ids, mask = make_inputs(cfg, dev)
+                pixels2 = torch.cat([pixels, pixels.flip(-1)])
+                ids2, mask2 = ids.repeat(2, 1), mask.repeat(2, 1)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                out["generate"] = gen.generate(pixels2, ids2, mask2, max_new_tokens=N_NEW,
+                                               eos_token_id=-1, sync_every=16)
+                sync()
+                counts = kernels.launch_counts()
+                if any(counts[k] == 0 for k in GENERATE_KERNELS):
+                    raise AssertionError(f"dp {tag} generate: launch counts {counts}")
+                lines.append(f"generate B=2 (one row a rank): {out['generate'].shape[1]} tokens "
+                             f"a row in {time.perf_counter() - t0:.2f} s; launches "
+                             f"{json.dumps(counts)}")
+                del gen
+            else:
+                reqs = serving_requests(cfg)[:TP_FEATURE_REQ]
+                for r in reqs:
+                    r.max_new_tokens = DPTP_NEW
+                eng = paged(DP_FULL_POOL)
+                (toks, wall, ttft), counts = _served(f"dp {tag}", eng, reqs, vocab, n_layers,
+                                                     DPTP_TICK)
+                out["dptp"] = (toks, seats(reqs))
+                lines.append(f"TP paged chain: {len(reqs)} requests of {DPTP_NEW} tokens, "
+                             f"{SERVE['max_slots'] // data} slots a shard: "
+                             f"{sum(map(len, toks.values())) / wall:.1f} tok/s, TTFT p50 "
+                             f"{ttft:.1f} ms")
+                del eng
+                torch.cuda.empty_cache()
+                tp = PaliGemmaEngine(params, cfg, max_seq_len=1024, decode_params=decode,
+                                     mesh=mesh)
+                lt = _teacher_logits(tp, serving_requests(cfg)[0], refs["serve"][0][:DPTP_NEW])
+                del tp
+            if rank == 0:
+                one = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
+                if mesh.model == 1:
+                    lines.append("serve: " + _near_ties("serve", one, cfg, serving_requests(cfg),
+                                                        out["serve"][0], refs["serve"]))
+                    one_gen = one.generate(pixels2, ids2, mask2, max_new_tokens=N_NEW,
+                                           eos_token_id=-1, sync_every=16)
+                    gen_reqs = [dataclasses.replace(serving_requests(cfg)[0], request_id=i,
+                                                    input_ids=ids2[i].cpu().numpy(),
+                                                    pixel_values=pixels2[i].cpu().numpy())
+                                for i in range(2)]
+                    lines.append("generate B=2: " + _near_ties(
+                        "generate", one, cfg, gen_reqs,
+                        {i: out["generate"][i].tolist() for i in range(2)},
+                        {i: one_gen[i].tolist() for i in range(2)}))
+                    for run, bank in (("bank paged", True), ("spec paged", False)):
+                        judge = one if not bank else ServingEngine(
+                            params, cfg, decode_params=decode, lora_bank=adapters, **SERVE)
+                        lines.append(f"{run}: " + _near_ties(
+                            run, judge, cfg, tp_feature_requests(cfg, bank), out[run][0],
+                            refs[run], bank))
+                        del judge
+                else:
+                    want = {i: refs["serve"][i][:DPTP_NEW] for i in range(TP_FEATURE_REQ)}
+                    fresh = serving_requests(cfg)[:TP_FEATURE_REQ]
+                    said = _near_ties("dptp", one, cfg, fresh, out["dptp"][0], want)
+                    lo = _teacher_logits(one, fresh[0], want[0])
+                    if not torch.isfinite(lt).all():
+                        raise AssertionError(f"dp {tag}: non-finite DP x TP logits")
+                    rel = float(((lt - lo).abs().amax(-1) / lo.abs().amax(-1)).max())
+                    lines.append(f"TP paged chain: {said}; request 0's {DPTP_NEW} one-card "
+                                 f"tokens teacher-forced, DP x TP vs one card logits: max rel "
+                                 f"err {rel:.3e} (tol {LOGIT_REL_TOL})")
+                    if not rel <= LOGIT_REL_TOL:
+                        raise AssertionError(f"dp {tag}: logits rel err {rel} > {LOGIT_REL_TOL}")
+                del one
+            torch.save({"out": out, "lines": lines},
+                       os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_spawn(label, data, model, work, refs_file, card):
+    """Spawn ``data x model`` ranks of ``_dp_rank`` on the card; their
+    outputs, every rank's the same (else raises)."""
+    import torch.multiprocessing as mp
+
+    world = data * model
+    d = work / label
+    d.mkdir(parents=True)
+    ctx = mp.start_processes(_dp_rank, args=(world, data, str(d / "init"), str(d), refs_file,
+                                             card),
+                             nprocs=world, start_method="spawn", join=False)
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT
+        while not ctx.join(timeout=5):  # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"dp {label}: {world} ranks did not finish in {DP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    for o in outs[1:]:
+        for k, v in outs[0]["out"].items():
+            same = (np.array_equal(v, o["out"][k]) if isinstance(v, np.ndarray)
+                    else v == o["out"][k])
+            if not same:
+                raise AssertionError(f"dp {label}: the ranks disagree on {k}")
+    return outs[0]
+
+
+def dp_phase(cfg, card, tok_paged, feats_one):
+    """The data axis on the one card: two gloo ranks as a data axis of 2
+    (pure DP) and four as 2 x 2 (DP x TP) run ``_dp_rank``'s engine runs
+    (every rank the same tokens and seats; rank 0 holds them against the
+    one-card kernel engine's ``tok_paged`` / ``feats_one``). The ranks share
+    the card, so the collectives stage through host memory: these runs show
+    that the results are right, not the speed of DP (tok/s printed as
+    such). The CLIs' ``--data_parallel 2``: ``cli_tp_phase(data=2)``."""
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    refs_file = str(work / "refs.pt")
+    torch.save({"serve": tok_paged, **feats_one}, refs_file)
+    try:
+        for label, data, model in (("d=2", 2, 1), ("d=2 x m=2", 2, 2)):
+            t0 = time.perf_counter()
+            got = _dp_spawn(label.replace(" ", ""), data, model, work, refs_file, card)
+            for line in got["lines"]:
+                print(f"dp {label}: {line}  [{card}]", flush=True)
+            print(f"dp {label}: {data * model} ranks on one card over gloo in "
+                  f"{time.perf_counter() - t0:.1f} s (process start and weights included): "
+                  f"every rank the same tokens and seats; tok/s above show correctness, not "
+                  f"the speed of DP (the ranks share one card; collectives through host "
+                  f"memory)  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def train_batch(cfg):
@@ -6379,7 +6689,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"multilora: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    tp_counts = tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_paged)
+    tp_counts, feats_one = tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense,
+                                             tok_paged)
     del decode
     torch.cuda.empty_cache()
     tp_two_rank_phase(cfg, card, tok_dense)
@@ -6392,9 +6703,17 @@ def main() -> int:
     # larger profiles lost 1-3 of ~576 GEMV events on every try
     t0 = time.perf_counter()
     cli_tp_phase(cfg, card, ckpt, cli_ids)
-    shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"cli_tp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the data axis: spawned ranks too, so after every profile of this process
+    t0 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    dp_phase(cfg, card, tok_paged, feats_one)
+    cli_tp_phase(cfg, card, ckpt, cli_ids, label="cli_dp", data=2)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"dp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
                                            spec_counts, finetune_counts, w8a8_counts))

@@ -36,8 +36,14 @@ images, keeps its slices (core/mesh.shard_params) and runs the same
 ``PaliGemmaEngine(mesh=...)``; rank 0 prints the rows and the timings.
 Each rank takes ``cuda:(rank % device_count)``; ranks that share a card
 run over gloo (a correctness run: every collective stages through host
-memory). ``--data_parallel`` above 1 is not ported yet and exits with an
-error that names it.
+memory).
+
+``--data_parallel D`` (D > 1, with or without ``--model_parallel M``)
+splits the batch over D data shards, D x M ranks in all (cli/ranks): each
+shard prefills and decodes its own ``B/D`` rows (runtime/engine under a
+data axis) and every rank returns the whole batch; rank 0 prints the rows
+in prompt order. The prompts must divide over D, and ``--speculative``
+(one prompt) takes no data axis: both exit with an error.
 
 Besides the printed rows, the run's phases (load, quantize, preprocess,
 prefill, decode) are written as one ``timings:`` JSON line to stderr.
@@ -94,7 +100,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_seq_len", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
+                   help="split the batch over D data shards (D x --model_parallel ranks, one "
+                        "process each); the prompts must divide over D")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor parallel over N ranks, one process each (spawned, or under "
                         "torchrun --nproc_per_node N); ranks sharing a card run over gloo")
@@ -126,18 +133,22 @@ def card_or_cpu(only_cpu: bool, dtype: str) -> torch.device:
 
 
 def check_parallel(args) -> None:
-    """The mesh flags both CLIs take: a model axis of at least 1; no data
-    axis yet."""
-    require(args.data_parallel == 1,
-            "--data_parallel above 1 is not ported yet (ROADMAP item 14, the data axis: "
-            "the paged engine's shards, DP training and FSDP); --model_parallel N serves "
-            "a tensor-parallel model axis")
+    """The mesh flags both CLIs take: each axis at least 1."""
+    require(args.data_parallel >= 1, "--data_parallel must be at least 1")
     require(args.model_parallel >= 1, "--model_parallel must be at least 1")
 
 
 def _device(args) -> torch.device:
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     check_parallel(args)
+    d = args.data_parallel
+    if d > 1:
+        require(not args.speculative,
+                f"--speculative decodes one image and prompt (B == 1), which cannot split over "
+                f"--data_parallel {d}; drop one of them")
+        require(len(args.prompt) % d == 0,
+                f"--data_parallel {d} splits the batch over {d} shards: pass a multiple of {d} "
+                f"prompts (got {len(args.prompt)})")
     return card_or_cpu(args.only_cpu, args.dtype)
 
 
@@ -150,8 +161,8 @@ def run(args: argparse.Namespace, tokenizer=None, *, rank: "ranks.Rank" = None) 
     """The CLI's body: prints as the CLI does and returns the tokens, the
     printed rows and the timings. ``tokenizer``: used in place of
     ``AutoTokenizer.from_pretrained(args.model_path)`` when given.
-    ``rank``: this process's place among ``--model_parallel``'s ranks
-    (cli/ranks); only rank 0 prints."""
+    ``rank``: this process's place among the ranks of ``--data_parallel``
+    x ``--model_parallel`` (cli/ranks); only rank 0 prints."""
     device = _device(args)
     say = print
     if rank is not None:
@@ -296,15 +307,16 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     with user_errors():
         args = parse_args(argv)
-        if args.model_parallel > 1:
+        if args.data_parallel * args.model_parallel > 1:
             _device(args)  # the flags' errors before any rank starts
-            ranks.launch(_rank_main, argv, args.model_parallel, args.only_cpu)
+            ranks.launch(_rank_main, argv, args.model_parallel, args.only_cpu,
+                         data_parallel=args.data_parallel)
         else:
             run(args)
 
 
 def _rank_main(argv, rank: "ranks.Rank") -> None:
-    """One rank of ``--model_parallel`` (cli/ranks)."""
+    """One rank of the CLI's mesh (cli/ranks)."""
     with user_errors():
         run(parse_args(argv), rank=rank)
 

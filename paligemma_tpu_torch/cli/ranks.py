@@ -1,12 +1,15 @@
-"""The ranks of the CLIs' tensor-parallel mode (``--model_parallel N``).
+"""The ranks of the CLIs' mesh (``--data_parallel D --model_parallel M``).
 
 The JAX package is single-controller: one process holds the whole mesh and
 XLA places the collectives, so its CLIs build a mesh and go on. The port is
 SPMD over torch.distributed (core/mesh): one process per rank, each holding
-its slices and calling the collectives itself, so a CLI that serves a model
-axis of N needs N processes that each load the checkpoint and run the same
-engine calls in the same order. This module starts them, joins them into a
-group and gives each its place (:class:`Rank`).
+its slices (of the weights over the model axis, of the batch or the slots
+over the data axis) and calling the collectives itself, so a CLI that
+serves a D x M mesh needs D x M processes that each load the checkpoint and
+run the same engine calls in the same order. This module starts them,
+joins them into a group, builds the mesh (``core/mesh.make_mesh(D, M)``:
+rank r is data index ``r // M`` and model rank ``r % M``) and gives each
+its place (:class:`Rank`).
 
 * Joining the group: under ``torchrun`` (``WORLD_SIZE`` in the
   environment) the process is one rank already and joins from the
@@ -63,6 +66,11 @@ class Rank:
     ops: Any  # the gloo group of the CLI's objects
 
     @property
+    def data_index(self) -> int:
+        """This rank's shard of the data axis."""
+        return self.mesh.data_index
+
+    @property
     def lead(self) -> bool:
         """Rank 0: it reads the requests, runs the front end and prints."""
         return self.rank == 0
@@ -78,11 +86,17 @@ class Rank:
         dist.broadcast_object_list(box, src=0, group=self.ops)
         return box[0]
 
-    def agree(self, obj: Any, what: str) -> None:
+    def agree(self, obj: Any, what: str, *, within_model: bool = False) -> None:
         """Raise unless every rank holds the same ``obj`` (e.g. the tokens
-        each request read back)."""
+        each request read back, which every rank returns); with
+        ``within_model``, every rank of this rank's model group (the same
+        data index: e.g. the state of its shard's slots). Every rank calls
+        it."""
         every: List[Any] = [None] * self.world
         dist.all_gather_object(every, obj, group=self.ops)
+        if within_model:
+            m = self.mesh.model
+            every = every[self.data_index * m:(self.data_index + 1) * m]
         if any(o != every[0] for o in every[1:]):
             raise RuntimeError(f"the ranks disagree on {what}")
 
@@ -107,27 +121,31 @@ Entry = Callable[[List[str], Rank], None]
 
 
 def launch(entry: Entry, argv: Sequence[str], model_parallel: int, only_cpu: bool,
-           timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
-    """Run ``entry(argv, rank)`` on each of ``model_parallel`` ranks
-    (module docstring) and return when all have returned; a failed rank
-    makes this process exit nonzero. ``entry`` must be a module-level
-    function (the spawned processes import it by name)."""
+           timeout_s: float = DEFAULT_TIMEOUT_S, data_parallel: int = 1) -> None:
+    """Run ``entry(argv, rank)`` on each of ``data_parallel x
+    model_parallel`` ranks (module docstring) and return when all have
+    returned; a failed rank makes this process exit nonzero. ``entry``
+    must be a module-level function (the spawned processes import it by
+    name)."""
     argv = list(argv)
-    devs = devices(model_parallel, only_cpu)  # no card: an error before any process starts
+    n = data_parallel * model_parallel
+    devs = devices(n, only_cpu)  # no card: an error before any process starts
     if "WORLD_SIZE" in os.environ:
         world = int(os.environ["WORLD_SIZE"])
-        if world != model_parallel:
-            raise CliError(f"--model_parallel {model_parallel} under torchrun with {world} "
-                           "processes; pass --nproc_per_node equal to it")
-        _run_rank(int(os.environ["RANK"]), world, "env://", entry, argv, only_cpu, timeout_s)
+        if world != n:
+            raise CliError(f"--data_parallel {data_parallel} x --model_parallel "
+                           f"{model_parallel} under torchrun with {world} processes; pass "
+                           f"--nproc_per_node {n}")
+        _run_rank(int(os.environ["RANK"]), world, "env://", entry, argv, only_cpu, timeout_s,
+                  data_parallel)
         return
     import torch.multiprocessing as mp
 
     store = tempfile.mkdtemp(prefix="paligemma_ranks_")
     try:
         ctx = mp.start_processes(
-            _spawned, args=(model_parallel, f"file://{os.path.join(store, 'store')}", entry,
-                            argv, only_cpu, timeout_s),
+            _spawned, args=(n, f"file://{os.path.join(store, 'store')}", entry, argv, only_cpu,
+                            timeout_s, data_parallel),
             nprocs=len(devs), start_method="spawn", join=False)
         try:
             while not ctx.join():
@@ -144,14 +162,14 @@ def launch(entry: Entry, argv: Sequence[str], model_parallel: int, only_cpu: boo
 
 
 def _spawned(rank: int, world: int, init: str, entry: Entry, argv: List[str], only_cpu: bool,
-             timeout_s: float) -> None:
+             timeout_s: float, data: int) -> None:
     # the ranks of one host: NCCL's bootstrap over the loopback device
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    _run_rank(rank, world, init, entry, argv, only_cpu, timeout_s)
+    _run_rank(rank, world, init, entry, argv, only_cpu, timeout_s, data)
 
 
 def _run_rank(rank: int, world: int, init: str, entry: Entry, argv: List[str], only_cpu: bool,
-              timeout_s: float) -> None:
+              timeout_s: float, data: int = 1) -> None:
     """Join the group as ``rank``, run the entry, leave the group."""
     devs = devices(world, only_cpu)
     device = devs[rank]
@@ -163,8 +181,9 @@ def _run_rank(rank: int, world: int, init: str, entry: Entry, argv: List[str], o
     try:
         ops = dist.new_group(backend="gloo", timeout=IDLE_TIMEOUT)
         me = Rank(rank=rank, world=world, device=device, backend=backend,
-                  mesh=make_mesh(1, world), ops=ops)
-        me.say(f"ranks: {world} over {backend}, devices {', '.join(map(str, devs))}",
+                  mesh=make_mesh(data, world // data), ops=ops)
+        mesh = f"; mesh data {data} x model {world // data}" if data > 1 else ""
+        me.say(f"ranks: {world} over {backend}, devices {', '.join(map(str, devs))}{mesh}",
                file=sys.stderr, flush=True)
         entry(argv, me)
     finally:

@@ -56,8 +56,12 @@ rank reads back the same tokens (held against each other at the end);
 only rank 0 answers. An idle server waits on the control group, whose
 timeout an idle server does not reach (cli/ranks).
 
-Flags of parts not yet ported exit 2 with the ROADMAP item that ports
-them: ``--data_parallel`` above 1 (item 14, the data axis). ``--lora``
+``--data_parallel D`` (D > 1, with or without ``--model_parallel M``;
+D x M ranks) serves the paged engine with its slots and page pool split
+over D data shards (runtime/serving_paged), batch or HTTP as above: every
+rank schedules all shards alike and computes its own. As in the JAX CLI,
+``--engine dense`` (pure TP: slots are the batch) and a ``--max_slots``
+(or ``--n_pages``) that does not divide over D exit 2. ``--lora``
 reads the port's own adapter checkpoints (checkpoints/local.save_pytree of
 ``{"lora": ...}``, as ``cli.finetune`` writes under ``final/``), not the
 JAX package's orbax ones (reading those needs jax).
@@ -138,7 +142,8 @@ def _build_parser():
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--only_cpu", action="store_true")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
+                   help="split the paged engine's slots and page pool over D data shards "
+                        "(D x --model_parallel ranks, one process each)")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="tensor parallel over N ranks, one process each (spawned, or under "
                         "torchrun --nproc_per_node N); ranks sharing a card run over gloo")
@@ -149,10 +154,11 @@ def _main(argv):
     args = _build_parser().parse_args(argv)
     require(args.requests_jsonl is not None or args.http is not None,
             "pass --requests_jsonl FILE (or -) for batch mode, or --http PORT for server mode")
-    if args.model_parallel > 1:
+    if args.data_parallel * args.model_parallel > 1:
         _device(args)  # the flags' errors before any rank starts
         with _stdin_as_file(args, argv) as rank_argv:
-            ranks.launch(_rank_main, rank_argv, args.model_parallel, args.only_cpu)
+            ranks.launch(_rank_main, rank_argv, args.model_parallel, args.only_cpu,
+                         data_parallel=args.data_parallel)
         return
     _serve(args)
 
@@ -191,7 +197,7 @@ def _serve(args, rank: "ranks.Rank" = None) -> None:
 
 
 def _rank_main(argv, rank: "ranks.Rank") -> None:
-    """One rank of ``--model_parallel`` (cli/ranks)."""
+    """One rank of the CLI's mesh (cli/ranks)."""
     with user_errors():
         _serve(_build_parser().parse_args(argv), rank)
 
@@ -201,6 +207,14 @@ def _device(args) -> torch.device:
 
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     check_parallel(args)
+    if args.data_parallel > 1:  # the JAX CLI's refusals
+        require(args.engine == "paged",
+                "--engine dense shards weights only (pure TP): use --model_parallel N with "
+                "--data_parallel 1, or --engine paged for a data axis")
+        require(args.max_slots % args.data_parallel == 0,
+                "--max_slots must divide evenly over --data_parallel shards")
+        require(args.n_pages is None or args.n_pages % args.data_parallel == 0,
+                "--n_pages must divide evenly over --data_parallel shards")
     return card_or_cpu(args.only_cpu, args.dtype)
 
 
@@ -391,10 +405,14 @@ class _Server:
         return [self._to_request(row) for row in rows]
 
     def _agree(self) -> None:
-        """Under ``--model_parallel``: every rank read back the same tokens."""
+        """Under a mesh: every rank read back the same tokens and seated
+        each request in the same slot (so on the same data shard); the
+        ranks of a model group hold the same state rows of their shard."""
         if self.rank is not None:
-            self.rank.agree([(r.request_id, list(r.tokens)) for r in self._submitted],
-                            "the tokens of the requests served")
+            self.rank.agree([(r.request_id, list(r.tokens), r.slot) for r in self._submitted],
+                            "the tokens and seats of the requests served")
+            self.rank.agree(self.engine.state["write_pos"].tolist(),
+                            "the state of the shard's slots", within_model=True)
 
     def run_batch(self, path):
         reqs, error = None, None

@@ -6,20 +6,27 @@ NamedShardings and XLA inserts the collectives. PyTorch runs one process
 per card (SPMD), so here each rank holds its own slices and the model code
 calls the collectives itself:
 
-* ``Mesh`` names this rank's place: ``data`` x ``model`` ranks, its
-  ``rank`` on the model axis, the process group and its backend.
-  Only the model axis is ported: ``make_mesh(data > 1)`` raises, and the
-  engines refuse a hand-built ``Mesh(data > 1)`` (``model_axis_only``).
+* ``Mesh`` names this rank's place in a ``data`` x ``model`` mesh, laid
+  out as JAX's ``reshape(data, model)``: global rank ``i * model + j`` is
+  data index ``i`` and model rank ``j``. ``group`` is the model group of
+  its data index (the tensor-parallel collectives) and ``data_group`` the
+  data group of its model rank (always gloo: only values the host reads
+  back cross it, ``gather_data``). A rank of a data axis holds the rows of
+  its own data shard: its share of a batch, of a serving engine's slots
+  and of its page pool (runtime/engine, runtime/serving_paged).
 * ``shard_params`` returns this rank's contiguous slices, by the JAX rules
   of ``_spec_for_leaf`` (here as tuples, one entry per dimension,
-  ``"model"`` or None). The JAX ``param_specs`` tree has no counterpart: a
-  rank holds its slices, not a global array with a sharding. Two
-  differences from the JAX rules: k and v
+  ``"data"``, ``"model"`` or None; ``param_specs`` gives the tree of them,
+  ``lora_specs``, ``batch_spec`` and ``kv_cache_specs`` the JAX helpers'
+  other specs). A rank holds its slices, not a global array with a
+  sharding, so the specs name which slice it holds. Two differences from
+  the JAX rules: k and v
   narrower than q (Gemma's one KV head) are replicated, as the JAX decode
   kernels' ``repack_for_tp`` replicates them, and SigLIP's patch embedding
   stays replicated (JAX shards its D; here the encoder blocks take the
   whole embedding as their input, which a D-sharded embedding would need
-  gathered again).
+  gathered again). Weights are replicated over ``data``; FSDP's
+  ``fsdp_param_specs`` is not ported (the data axis of training).
 * ``shard_lora`` slices a LoRA tree or a multi-LoRA bank the same way
   (the counterpart of JAX's ``lora_specs``): column-parallel targets (q,
   gate, up) take B's output columns with A whole, row-parallel ones (o,
@@ -49,6 +56,7 @@ import torch.distributed as dist
 from .config import GemmaConfig
 
 MODEL = "model"
+DATA = "data"
 _COL_PROJ = {"q", "k", "v", "gate", "up", "fc1", "qkv", "gateup"}
 _ROW_PROJ = {"o", "down", "fc2"}
 _WEIGHT_NAMES = ("w8", "kernel")  # the (..., K, N) leaf of an int8 / dense dict
@@ -56,40 +64,78 @@ _WEIGHT_NAMES = ("w8", "kernel")  # the (..., K, N) leaf of an int8 / dense dict
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
 class Mesh:
-    """This rank's place in a ``data`` x ``model`` mesh. ``group`` None is
-    the default process group. A Mesh built by hand (no process group) is
+    """This rank's place in a ``data`` x ``model`` mesh: ``rank`` on the
+    model axis, ``data_index`` on the data axis. ``group`` None is the
+    default process group. A Mesh built by hand (no process group) is
     enough for ``shard_params`` and the per-rank kernels; the collectives
     need ``make_mesh``'s."""
 
     model: int = 1
     rank: int = 0
     data: int = 1
-    group: Any = None
-    backend: str = "gloo"
+    group: Any = None  # the model group of this data index
+    backend: str = "gloo"  # the model group's
+    data_index: int = 0
+    data_group: Any = None  # gloo, the data group of this model rank
 
 
 def make_mesh(data: int = 1, model: Optional[int] = None, *, group=None) -> Mesh:
     """The mesh of an initialized process group (``init_process_group`` with
     its address, world size and rank first). ``model`` defaults to the world
-    size."""
-    if data != 1:
-        raise NotImplementedError("make_mesh: only the model axis is ported (data == 1)")
+    size over ``data``. With ``data > 1`` every rank of ``group`` (default:
+    all) must call it, in the same order as any other ``new_group``: it
+    makes the ``data`` model groups (the backend of ``group``) and the
+    ``model`` data groups (gloo)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call torch.distributed.init_process_group first")
     world = dist.get_world_size(group)
-    model = world if model is None else model
-    if data * model != world:
+    model = world // data if model is None else model
+    if data < 1 or data * model != world:
         raise ValueError(f"make_mesh: data {data} x model {model} != world size {world}")
-    return Mesh(model=model, rank=dist.get_rank(group), data=data, group=group,
-                backend=dist.get_backend(group))
+    me, backend = dist.get_rank(group), dist.get_backend(group)
+    if data == 1:
+        return Mesh(model=model, rank=me, group=group, backend=backend)
+    ranks = dist.get_process_group_ranks(group) if group is not None else list(range(world))
+    model_group = data_group = None
+    for i in range(data):
+        g = dist.new_group([ranks[i * model + j] for j in range(model)], backend=backend)
+        if me // model == i:
+            model_group = g
+    for j in range(model):
+        g = dist.new_group([ranks[i * model + j] for i in range(data)], backend="gloo")
+        if me % model == j:
+            data_group = g
+    return Mesh(model=model, rank=me % model, data=data, group=model_group, backend=backend,
+                data_index=me // model, data_group=data_group)
 
 
-def model_axis_only(mesh: Optional[Mesh], what: str) -> None:
-    """Raise for a mesh with a data axis (a hand-built ``Mesh(data > 1)``):
-    only the model axis is ported."""
-    if mesh is not None and mesh.data != 1:
-        raise NotImplementedError(f"{what}: a mesh with a data axis (data {mesh.data}) is not "
-                                  "ported (ROADMAP item 14, the data axis)")
+def single_device_mesh() -> Mesh:
+    """The 1 x 1 mesh (no process group: one card's engines take
+    ``mesh=None``)."""
+    return Mesh()
+
+
+def split_axes(mesh: Optional[Mesh]) -> Tuple[Optional[Mesh], Optional[Mesh]]:
+    """(the mesh an engine shards its weights over, the mesh it splits its
+    rows over): the first None on one card and under pure DP (``model ==
+    1``, whose ranks run one card's paths on their rows), the second None
+    without a data axis."""
+    if mesh is None:
+        return None, None
+    data = mesh if mesh.data > 1 else None
+    return (None if data is not None and mesh.model == 1 else mesh), data
+
+
+def data_rows(n: int, mesh: Optional[Mesh], what: str) -> slice:
+    """This rank's rows of ``n`` split over the data axis (all of them
+    without one); ``n % data`` raises ``ValueError``, as JAX's
+    ``device_put`` of a batch on ``P("data")`` does."""
+    d = 1 if mesh is None else mesh.data
+    if n % d:
+        raise ValueError(f"{what}: {n} rows do not split over a data axis of {d}")
+    per = n // d
+    i = 0 if mesh is None else mesh.data_index
+    return slice(i * per, (i + 1) * per)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +163,88 @@ def _spec_for_leaf(names, ndim: int) -> Tuple:
     if proj in _COL_PROJ:
         return axis(0)  # weights, scales and biases: the output columns
     return axis(1) if names[-1] in _WEIGHT_NAMES or names[-1] == proj else rep
+
+
+def _replicated(tree):
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    return (None,) * tree.dim()
+
+
+def _kv_narrow(attn: Dict[str, Any]) -> bool:
+    """k and v narrower than q (one KV head): replicated, not sharded."""
+    if "k" not in attn or "o" not in attn:
+        return False
+    o = attn["o"]
+    nq = (o[next(n for n in _WEIGHT_NAMES if n in o)] if isinstance(o, dict) else o).shape[-2]
+    return _width(attn["k"]) < nq
+
+
+def param_specs(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The spec tuple of every leaf of a (dense or int8) params tree: the
+    dimension ``shard_params`` slices over ``"model"`` (JAX's
+    ``param_specs``, with the module docstring's two differences). A fused
+    ``qkv`` / ``gateup`` names its columns, which ``shard_params`` splits
+    at their boundaries first."""
+
+    def walk(t, names):
+        if not isinstance(t, dict):
+            return _spec_for_leaf(names, t.dim())
+        out = {k: walk(v, names + (k,)) for k, v in t.items()}
+        if names and names[-1] == "attn" and _kv_narrow(t):
+            out.update({n: _replicated(t[n]) for n in ("k", "v")})
+        return out
+
+    return walk(params, ())
+
+
+def lora_specs(lora: Dict[str, Any]) -> Dict[str, Any]:
+    """The spec tuples of a LoRA tree or a stacked bank (JAX's
+    ``lora_specs``, and ``shard_lora``'s slices): q, gate and up shard B's
+    (and b_cat's) output columns, o and down A's (and a_cat's) input rows;
+    k and v are whole when narrower than q (JAX shards their B); every
+    other entry is replicated. An entry that is no dict (a bank's per-row
+    ids) is left out."""
+    layers = lora["layers"]
+    if "q" in layers:
+        nq = layers["q"]["b"].shape[-1]
+    elif "o" in layers:
+        nq = layers["o"]["a"].shape[-2]
+    else:
+        nq = None
+    out: Dict[str, Any] = {}
+    for name, p in layers.items():
+        if not isinstance(p, dict):
+            continue
+        if name in ("o", "down"):
+            keys, dim = ("a", "a_cat"), -2
+        elif name in ("k", "v"):
+            if nq is None:
+                raise ValueError("lora_specs: k / v adapters need q or o beside them to tell "
+                                 "one KV head from one per query head")
+            keys, dim = (("b", "b_cat") if p["b"].shape[-1] == nq else ()), -1
+        else:
+            keys, dim = ("b", "b_cat"), -1
+        specs = {}
+        for k, v in p.items():
+            spec = [None] * v.dim()
+            if k in keys:
+                spec[v.dim() + dim] = MODEL
+            specs[k] = tuple(spec)
+        out[name] = specs
+    return {"layers": out}
+
+
+def batch_spec() -> Tuple:
+    """A batch's rows over the data axis (JAX's ``batch_spec``)."""
+    return (DATA,)
+
+
+def kv_cache_specs() -> Dict[str, Tuple]:
+    """A dense (L, B, S, n_kv, d) cache: its rows over the data axis; one KV
+    head is replicated over the model axis (JAX's ``kv_cache_specs``)."""
+    spec = (None, DATA, None, None, None)
+    return {"k": spec, "v": spec}
 
 
 def _slice(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
@@ -234,44 +362,26 @@ def shard_lora(lora: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's slices of a LoRA tree (train/lora.init_lora: ``a`` (L,
     in, r), ``b`` (L, r, out)) or of a stacked bank (train/lora.
     stack_lora_bank: the adapter axis second, and ``a_cat`` (L, in, G),
-    ``b_cat`` (L, G, out)); other entries (``alpha``, ``__ids__``) stay
-    whole. q, gate and up: B's (and b_cat's) output columns; o and down:
-    A's (and a_cat's) input rows; k and v: whole when narrower than q (one
-    KV head; JAX's ``lora_specs`` shards their B), else as q. Every rank
-    then adds its own q / gate / up columns' delta, the same k / v delta,
-    and for o and down a partial delta, summed across ranks beside the
-    projection's partial (models/gemma ``_row_parallel``,
-    kernels/decode_layer_tp)."""
+    ``b_cat`` (L, G, out)), by ``lora_specs``; other entries (``alpha``,
+    ``__ids__``) stay whole. Every rank then adds its own q / gate / up
+    columns' delta, the same k / v delta, and for o and down a partial
+    delta, summed across ranks beside the projection's partial
+    (models/gemma ``_row_parallel``, kernels/decode_layer_tp)."""
     m, r = mesh.model, mesh.rank
-    layers = lora["layers"]
-    if "q" in layers:
-        nq = layers["q"]["b"].shape[-1]
-    elif "o" in layers:
-        nq = layers["o"]["a"].shape[-2]
-    else:
-        nq = None
+    specs = lora_specs(lora)["layers"]
 
-    def cut(t, dim):
-        n = t.shape[dim]
+    def cut(t, spec):
+        if MODEL not in spec:
+            return t
+        d = spec.index(MODEL)
+        n = t.shape[d]
         if n % m:
             raise ValueError(f"shard_lora: {n} does not split over {m} ranks")
-        return _slice(t, t.dim() + dim, r * n // m, (r + 1) * n // m)
+        return _slice(t, d, r * n // m, (r + 1) * n // m)
 
-    out = {}
-    for name, p in layers.items():
-        if not isinstance(p, dict):
-            out[name] = p  # the per-row ids of a bank (models/paligemma.lora_with_ids)
-            continue
-        if name in ("o", "down"):
-            keys, dim = ("a", "a_cat"), -2
-        elif name in ("k", "v"):
-            if nq is None:
-                raise ValueError("shard_lora: k / v adapters need q or o beside them to tell "
-                                 "one KV head from one per query head")
-            keys, dim = (("b", "b_cat") if p["b"].shape[-1] == nq else ()), -1
-        else:
-            keys, dim = ("b", "b_cat"), -1
-        out[name] = {k: cut(v, dim) if k in keys else v for k, v in p.items()}
+    out = {name: ({k: cut(v, specs[name][k]) for k, v in p.items()} if isinstance(p, dict)
+                  else p)  # the per-row ids of a bank (models/paligemma.lora_with_ids)
+           for name, p in lora["layers"].items()}
     return {**lora, "layers": out}
 
 
@@ -328,6 +438,19 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     out = torch.empty((mesh.model,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=mesh.group)
     return out
+
+
+def gather_data(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
+    """Every data shard's ``x`` concatenated along ``dim`` in data order
+    (the shards' rows in batch or slot order), on ``x``'s device: the one
+    collective of the data axis, for values the host reads back (over the
+    gloo data group, through host memory). Without a data axis, ``x``."""
+    if mesh is None or mesh.data == 1:
+        return x
+    host = x.detach().cpu().contiguous()
+    parts = [torch.empty_like(host) for _ in range(mesh.data)]
+    dist.all_gather(parts, host, group=mesh.data_group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
 def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -37,6 +37,18 @@ gives each rank's sampling generator the same draws over the same gathered
 logits. ``generate_spec`` under a mesh verifies through the same chain at
 ``draft_k + 1`` rows (or the plain sharded forward), and every rank accepts
 the same drafts.
+
+A ``mesh`` with a data axis (``data`` > 1, with or without a model axis):
+each rank prefills and decodes its own ``B/data`` rows of ``generate``'s
+batch (``B % data`` raises ``ValueError``, as JAX's ``device_put`` on
+``P("data")`` does), under pure DP on one card's kernels. The values the
+loop reads back (each chunk's tokens, the EOS flags) are gathered over the
+data group where it reads them (core/mesh.gather_data), so every rank
+stops at the same step and returns the whole batch. Sampled rows: every
+rank draws the whole batch's noise from the generator and keeps its own
+rows, so a seed samples the one-card tokens. ``prefill``, ``decode_step``
+and ``decode_chunk`` take the rank's rows as they are given.
+``generate_spec`` is B == 1 and raises under a data axis.
 """
 
 from __future__ import annotations
@@ -97,7 +109,6 @@ class PaliGemmaEngine:
         projections of at least 256 rows as W8A8, each row of activations
         quantized to int8 (kernels/w8a8 on the card); the head and smaller
         calls stay weight-only (kernels/quant.matmul_any)."""
-        mesh_lib.model_axis_only(mesh, "PaliGemmaEngine")
         self.int8_act_prefill = bool(int8_act_prefill)
         self.config = config
         self.max_seq_len = max_seq_len
@@ -108,7 +119,10 @@ class PaliGemmaEngine:
         self.use_flash = on_cuda if use_flash is None else use_flash
         self.fused_layer = on_cuda if fused_layer is None else fused_layer
         self.fused_mlp = bool(fused_mlp)
-        self.mesh = mesh
+        # the model axis the weights shard over; the data axis the batch
+        # splits over
+        self.mesh, self.dp_mesh = mesh_lib.split_axes(mesh)
+        mesh = self.mesh
         full_decode = decode_params if decode_params is not None else params
         self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
         if mesh is not None:
@@ -157,6 +171,16 @@ class PaliGemmaEngine:
             self.config.text_config, batch, self.max_seq_len, self.cache_dtype,
             device=self.device,
         )
+
+    def _noise(self, generator, logits: torch.Tensor) -> Optional[torch.Tensor]:
+        """Under a data axis: the whole batch's Gumbel draws (one card's),
+        this rank's rows of them; None otherwise (the sampler draws)."""
+        if self.dp_mesh is None:
+            return None
+        b, v = logits.shape
+        d = self.dp_mesh.data
+        rows = mesh_lib.data_rows(b * d, self.dp_mesh, "sampling")
+        return sampling.gumbel_noise((b * d, v), generator, logits.device)[rows]
 
     def _as_tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -244,7 +268,9 @@ class PaliGemmaEngine:
         if logits.dim() == 1:
             raise ValueError("decode_chunk: the sampled path needs (B, vocab) logits")
         for _ in range(n_steps):
-            token = sampling.sample(generator, logits, temperature, top_p, do_sample)
+            noise = self._noise(generator, logits) if do_sample else None
+            token = sampling.sample(generator, logits, temperature, top_p, do_sample,
+                                    noise=noise)
             token = torch.where(done, torch.full_like(token, eos), token)
             done = done | (token == eos)
             tokens.append(token)
@@ -277,9 +303,11 @@ class PaliGemmaEngine:
         int32; rows stop after EOS (post-EOS slots hold EOS). ``on_token(step,
         tokens)`` is called per step. ``sync_every > 1`` runs that many steps
         per :meth:`decode_chunk` and checks EOS once per chunk, with the same
-        tokens."""
+        tokens. Under a data axis each rank runs its rows and returns the
+        whole batch (module docstring)."""
         eos = self.eos_token_id if eos_token_id is None else eos_token_id
         n_prompt = input_ids.shape[1]
+        rows = mesh_lib.data_rows(input_ids.shape[0], self.dp_mesh, "generate")
         if n_prompt + max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt ({n_prompt}) + max_new_tokens ({max_new_tokens}) exceeds "
@@ -288,8 +316,8 @@ class PaliGemmaEngine:
             )
         if do_sample and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        logits, state = self.prefill(pixel_values, input_ids, attention_mask)
-        b = input_ids.shape[0]
+        logits, state = self.prefill(pixel_values[rows], input_ids[rows], attention_mask[rows])
+        b = logits.shape[0]
 
         if sync_every > 1:
             done = torch.zeros((b,), dtype=torch.bool, device=self.device)
@@ -302,20 +330,23 @@ class PaliGemmaEngine:
                     generator=generator, eos_token_id=eos, done=done,
                     kv_bucket=self.kv_bucket_for(n_prompt + emitted + n),
                 )
+                tokens = mesh_lib.gather_data(tokens, self.dp_mesh)
                 tokens_np = tokens.cpu().numpy().astype(np.int32)
                 chunks.append(tokens_np)
                 if on_token is not None:
                     for j in range(tokens_np.shape[1]):
                         on_token(emitted + j, tokens_np[:, j])
                 emitted += n
-                if bool(done.all()):
+                if bool(mesh_lib.gather_data(done, self.dp_mesh).all()):
                     break
             return np.concatenate(chunks, axis=1)
 
-        done = np.zeros((b,), bool)
+        done = np.zeros((input_ids.shape[0],), bool)
         out = []
         for step in range(max_new_tokens):
-            token = sampling.sample(generator, logits, temperature, top_p, do_sample)
+            noise = self._noise(generator, logits) if do_sample else None
+            token = sampling.sample(generator, logits, temperature, top_p, do_sample, noise=noise)
+            token = mesh_lib.gather_data(token, self.dp_mesh)
             token_np = np.where(done, eos, token.cpu().numpy()).astype(np.int32)
             out.append(token_np)
             if on_token is not None:
@@ -323,7 +354,7 @@ class PaliGemmaEngine:
             done |= token_np == eos
             if done.all():
                 break
-            logits, state = self.decode_step(torch.from_numpy(token_np), state)
+            logits, state = self.decode_step(torch.from_numpy(token_np[rows]), state)
         return np.stack(out, axis=1)
 
     # ------------------------------------------------------------------
@@ -369,7 +400,9 @@ class PaliGemmaEngine:
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) + draft_k "
                 f"({draft_k}) exceeds max_seq_len ({self.max_seq_len}); speculative decode "
                 "writes up to draft_k positions past the last accepted token")
-        mesh_lib.model_axis_only(self.mesh, "generate_spec")
+        if self.dp_mesh is not None:
+            raise ValueError(f"generate_spec is single-request (B == 1), which cannot split over "
+                             f"a data axis of {self.dp_mesh.data}")
         if self.fused_mlp:
             raise ValueError("generate_spec runs the decode kernels (fused_layer) or the plain "
                              "path, not fused_mlp")

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (port of
-paligemma_tpu/runtime/serving.py, one device).
+paligemma_tpu/runtime/serving.py).
 
 A fixed pool of ``max_slots`` sequence slots over one preallocated KV cache;
 every tick decodes one token for every active slot in lockstep (per-row
@@ -22,8 +22,10 @@ ticks then run the decode kernel chain with the argmax head kernel, sampled
 ticks the chain with the int8 GEMV head, and prefill the flash kernel. A
 decode tree or config the kernels cannot take raises.
 
-``mesh`` (core/mesh.make_mesh, one process per rank, ``data == 1``):
-tensor parallel over the model axis, as the JAX engine's pure-TP serving,
+``mesh`` (core/mesh.make_mesh, one process per rank): tensor parallel over
+the model axis, as the JAX engine's pure-TP serving (this engine refuses a
+data axis, as the JAX one does: slots are the batch; the paged engine
+takes one, runtime/serving_paged),
 with every feature below. Every rank builds the engine from the whole
 params (it keeps its slices, core/mesh.shard_params), holds the whole
 replicated KV cache (one KV head) and must be given the same requests in
@@ -98,9 +100,9 @@ greedy engine's. ``spec_corrupt_frac``: a benchmark's acceptance dial
 prefill wave runs its LM projections W8A8 (kernels/quant.matmul_any), with
 a LoRA bank, grammars, the prefix cache and ``spec_decode`` alike.
 
-Not ported: the data axis (ROADMAP item 14, its data half) and ``warmup``
-(XLA compiles). Speculation with a ``lora_bank`` raises ``ValueError``, as
-in the JAX engine (its verify forward takes no adapters).
+Not ported: ``warmup`` (XLA compiles). Speculation with a ``lora_bank``
+raises ``ValueError``, as in the JAX engine (its verify forward takes no
+adapters).
 """
 
 from __future__ import annotations
@@ -158,6 +160,9 @@ class Request:
     # engine-managed: the prefix-cache key of the prompt as submitted
     # (computed once, on first use)
     cache_key: Optional[bytes] = None
+    # engine-managed: the slot the request was last seated in (its data
+    # shard's, under a data axis)
+    slot: Optional[int] = None
 
     def metrics(self) -> Dict[str, Any]:
         """Latency/throughput summary ({} until finished)."""
@@ -250,11 +255,18 @@ class ServingEngine:
         if spec_decode and lora_bank:
             raise ValueError("spec_decode + lora_bank is unimplemented (the verify forward "
                              "takes no adapters)")
-        mesh_lib.model_axis_only(mesh, type(self).__name__)
+        if mesh is not None:
+            self._check_mesh(mesh)
         self.config = config
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
-        self.mesh = mesh
+        # the model axis the weights shard over; the data axis the slots
+        # split over (runtime/serving_paged): this rank's device state holds
+        # slot rows [_row0, _row0 + _n_rows)
+        self.mesh, self.dp_mesh = mesh_lib.split_axes(mesh)
+        d = 1 if self.dp_mesh is None else self.dp_mesh.data
+        self._n_rows = max_slots // d
+        self._row0 = 0 if self.dp_mesh is None else self.dp_mesh.data_index * self._n_rows
         self.int8_act_prefill = bool(int8_act_prefill)
         self.spec_decode = bool(spec_decode)
         self.spec_draft_k = spec_draft_k
@@ -262,7 +274,7 @@ class ServingEngine:
         self.spec_corrupt_frac = float(spec_corrupt_frac)
         # whole trees: _setup_fused shards (or repacks) the decode tree
         self.decode_params = decode_params if decode_params is not None else params
-        self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
+        self.params = params if self.mesh is None else mesh_lib.shard_params(params, self.mesh)
         self.device = params["lm"]["embed"].device
         self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
         on_cuda = self.device.type == "cuda"
@@ -279,7 +291,7 @@ class ServingEngine:
             bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
                                for t, p in bank["layers"].items()}}
             # under a mesh: this rank's slices (prefill, the plain tick and the pack)
-            self.lora_bank = bank if mesh is None else mesh_lib.shard_lora(bank, mesh)
+            self.lora_bank = bank if self.mesh is None else mesh_lib.shard_lora(bank, self.mesh)
             self._lora_index.update({n: i + 1 for i, n in enumerate(names)})
         # constrained decoding: grammar name -> table row (0: unconstrained)
         self.grammar_table: Optional[torch.Tensor] = None
@@ -298,14 +310,14 @@ class ServingEngine:
             # the kernel ticks' operands: each row's adapter inside the chain
             # (under a mesh at the rank's widths)
             tc = config.text_config
-            if mesh is not None:
-                tc = mesh_lib.local_text_config(tc, mesh.model)
+            if self.mesh is not None:
+                tc = mesh_lib.local_text_config(tc, self.mesh.model)
             self._lora_fused_pack = _dl.repack_lora_bank_fused(
                 self.lora_bank["layers"], n_heads=tc.num_attention_heads,
                 head_dim=tc.head_dim, hidden=tc.hidden_size,
                 intermediate=tc.intermediate_size)
 
-        self._rows = torch.arange(max_slots, device=self.device)
+        self._rows = torch.arange(self._n_rows, device=self.device)
         self.cache = self._init_cache()
         self.state = self._zero_state()
         self.slots: List[Optional[Request]] = [None] * max_slots
@@ -341,10 +353,10 @@ class ServingEngine:
         cannot take) or the plain sharded one."""
         if fused:
             if not _tp.supported(self.config.text_config, self.mesh,
-                                 self.decode_params["lm"]["layers"], self.max_slots):
+                                 self.decode_params["lm"]["layers"], self._n_rows):
                 raise ValueError(
                     "fused_decode under a mesh needs what kernels/decode_layer_tp.supported "
-                    "accepts at max_slots rows (the int8 decode tree, one KV head, heads / "
+                    "accepts at the rank's slot rows (the int8 decode tree, one KV head, heads / "
                     "vocab / MLP width divisible by the model axis); pass fused_decode=False "
                     "for the plain sharded path")
             self.decode_params = {"lm": _tp.repack_for_tp(self.decode_params["lm"],
@@ -376,9 +388,9 @@ class ServingEngine:
         return True
 
     def _chain_rows(self) -> int:
-        """Rows the decode chain takes at once: the slots, times the
-        verify block under speculation."""
-        return self.max_slots * ((self.spec_draft_k + 1) if self.spec_decode else 1)
+        """Rows the decode chain takes at once: this rank's slots, times
+        the verify block under speculation."""
+        return self._n_rows * ((self.spec_draft_k + 1) if self.spec_decode else 1)
 
     def _chain_tick(self) -> bool:
         """Whether the ticks run the decode kernel chain (which takes a
@@ -399,7 +411,7 @@ class ServingEngine:
         return b if b < self.max_seq_len else None
 
     def _zero_state(self) -> Dict[str, torch.Tensor]:
-        n, dev = self.max_slots, self.device
+        n, dev = self._n_rows, self.device
         state = {
             "next_tok": torch.zeros((n,), dtype=torch.int32, device=dev),
             "valid": torch.zeros((n, self.max_seq_len), dtype=torch.bool, device=dev),
@@ -507,14 +519,33 @@ class ServingEngine:
         return take
 
     def _take_slot(self, free: list, req: Request) -> int:
-        """Pop the slot ``req`` will occupy from ``free``."""
+        """Pop the slot ``req`` will occupy from ``free`` (hook: the
+        data-parallel paged engine pins each admitted request to the shard
+        whose page budget covered it in ``_admit``)."""
         return free.pop(0)
 
-    def _insert_chunk(self, seated, cache1, mask, last_logits) -> None:
+    def _check_mesh(self, mesh) -> None:
+        """Mesh-contract hook: this engine is pure TP, as the JAX one is
+        (the paged engine takes a data axis: it splits slots and pool)."""
+        if mesh.data != 1:
+            raise ValueError("serving mesh must be pure TP (data=1); slots are the batch "
+                             "(the paged engine, runtime/serving_paged, takes a data axis)")
+
+    def _row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's device state; None for a slot of
+        another data shard."""
+        r = slot - self._row0
+        return r if 0 <= r < self._n_rows else None
+
+    def _my_rows(self, t):
+        """This rank's slot rows of a (max_slots, ...) array."""
+        return t[self._row0:self._row0 + self._n_rows]
+
+    def _insert_chunk(self, seated, bucket: int, cache1, mask, last_logits) -> None:
         """Seat one prefill chunk: row r goes to slot ``seated[r][0]`` (hook:
-        the paged engine writes pages instead)."""
+        the paged engine writes pages instead; the prefill rows are those of
+        this rank's slots, ``None`` when it has none)."""
         slots = self._upload(np.asarray([slot for slot, _ in seated], np.int64))
-        bucket = mask.shape[1]
         for n in ("k", "v"):
             self.cache[n][:, slots, :bucket] = cache1[n].to(self.cache_dtype)
         st = self.state
@@ -638,17 +669,20 @@ class ServingEngine:
     def _seat_state(self, slot: int, req: Request, prompt_len: int, logits) -> None:
         """One seated row's state from its prompt's last-logits row
         ((vocab,), a prefill's or a cache entry's): the prompt is dense in
-        [0, prompt_len)."""
+        [0, prompt_len). Nothing for a slot of another data shard."""
+        row = self._row(slot)
+        if row is None:
+            return
         st = self.state
-        st["write_pos"][slot] = prompt_len
-        st["pos_ids"][slot] = prompt_len + 1
-        st["logits"][slot] = logits
-        st["next_tok"][slot:slot + 1] = self._first_tokens(slice(slot, slot + 1), [req],
-                                                           logits[None])
+        st["write_pos"][row] = prompt_len
+        st["pos_ids"][row] = prompt_len + 1
+        st["logits"][row] = logits
+        st["next_tok"][row:row + 1] = self._first_tokens(slice(row, row + 1), [req],
+                                                         logits[None])
         if self.spec_decode:
-            self._seat_spec(self._upload(np.asarray([slot], np.int64)), [req])
+            self._seat_spec(self._upload(np.asarray([row], np.int64)), [req])
         if self.lora_bank is not None:
-            st["adapter"][slot:slot + 1] = self._adapter_ids([req])
+            st["adapter"][row:row + 1] = self._adapter_ids([req])
 
     def _release_slot(self, slot: int) -> None:
         """Called when a request retires (hook: the paged engine frees pages)."""
@@ -692,13 +726,16 @@ class ServingEngine:
 
     def _seated(self, slot: int, req: Request) -> None:
         self.slots[slot] = req
+        req.slot = slot
         req.t_seated = time.perf_counter()
         self._generated[req.request_id] = 0
         self._dispatched[req.request_id] = 0
 
     def _prefill_wave(self, need_prefill: list) -> None:
         """Group by prompt-length bucket, then split each group into exact
-        power-of-two chunks (16 + 4 + 1 for 21): one prefill per chunk."""
+        power-of-two chunks (16 + 4 + 1 for 21): one prefill per chunk, of
+        the chunk's rows in this rank's slots (a data shard prefills its
+        own rows; ``prefill_calls`` counts the chunks)."""
         groups: Dict[int, list] = {}
         for slot, req in need_prefill:
             groups.setdefault(self._bucket_of(req), []).append((slot, req))
@@ -709,35 +746,44 @@ class ServingEngine:
                 chunks.append((bucket, seated[:take]))
                 seated = seated[take:]
         for bucket, seated in chunks:
-            n = len(seated)
-            ids_np = np.zeros((n, bucket), np.int32)
-            mask_np = np.zeros((n, bucket), np.int32)
-            pfx_np = np.zeros((n,), np.int32)
-            pix_np = np.zeros((n,) + tuple(seated[0][1].pixel_values.shape), np.float32)
-            for r, (_, req) in enumerate(seated):
-                s = len(req.input_ids)
-                ids_np[r, :s] = req.input_ids
-                mask_np[r, :s] = 1
-                pfx_np[r] = s if req.prefix_len is None else req.prefix_len
-                pix_np[r] = req.pixel_values
-            mask = self._upload(mask_np)
-            # the prefill writes exactly [0, bucket): a bucket-long cache
-            cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
-                                         device=self.device)
-            lora_kw = {}
-            if self.lora_bank is not None:
-                lora_kw = dict(lora=self.lora_bank,
-                               adapter_ids=self._adapter_ids([req for _, req in seated]))
-            logits, cache1 = paligemma.prefill(
-                self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
-                mask, cache1, use_flash=self.use_flash, last_only=True,
-                prefix_lens=self._upload(pfx_np), mesh=self.mesh, **lora_kw,
-                int8_act=self.int8_act_prefill,
-            )
+            mine = [(slot, req) for slot, req in seated if self._row(slot) is not None]
+            cache1 = mask = logits = None
+            if mine:
+                cache1, mask, logits = self._prefill_rows(bucket, mine)
             self.prefill_calls += 1
-            self._insert_chunk(seated, cache1, mask, logits[:, 0])
+            self._insert_chunk(seated, bucket, cache1, mask, logits)
             for slot, req in seated:
                 self._seated(slot, req)
+
+    def _prefill_rows(self, bucket: int, seated: list):
+        """One prefill of ``seated``'s prompts at ``bucket``: (the
+        bucket-long KV cache, the mask, the (n, vocab) last logits)."""
+        n = len(seated)
+        ids_np = np.zeros((n, bucket), np.int32)
+        mask_np = np.zeros((n, bucket), np.int32)
+        pfx_np = np.zeros((n,), np.int32)
+        pix_np = np.zeros((n,) + tuple(seated[0][1].pixel_values.shape), np.float32)
+        for r, (_, req) in enumerate(seated):
+            s = len(req.input_ids)
+            ids_np[r, :s] = req.input_ids
+            mask_np[r, :s] = 1
+            pfx_np[r] = s if req.prefix_len is None else req.prefix_len
+            pix_np[r] = req.pixel_values
+        mask = self._upload(mask_np)
+        # the prefill writes exactly [0, bucket): a bucket-long cache
+        cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
+                                     device=self.device)
+        lora_kw = {}
+        if self.lora_bank is not None:
+            lora_kw = dict(lora=self.lora_bank,
+                           adapter_ids=self._adapter_ids([req for _, req in seated]))
+        logits, cache1 = paligemma.prefill(
+            self.params, self.config, self._upload(pix_np), self._upload(ids_np).long(),
+            mask, cache1, use_flash=self.use_flash, last_only=True,
+            prefix_lens=self._upload(pfx_np), mesh=self.mesh, **lora_kw,
+            int8_act=self.int8_act_prefill,
+        )
+        return cache1, mask, logits[:, 0]
 
     @property
     def has_work(self) -> bool:
@@ -759,7 +805,13 @@ class ServingEngine:
             # sampled rows draw under their live DFA state's mask
             allowed = self.grammar_table[st["gid"], st["dstate"]] >= 0
             logits = torch.where(allowed, logits, -torch.inf)
-        sampled = sampling.sample_top_p(self.generator, logits, temps, top_ps)
+        noise = None
+        if self.dp_mesh is not None:
+            # the whole slot batch's draws, as one card draws them; this
+            # rank keeps its rows
+            noise = self._my_rows(sampling.gumbel_noise((self.max_slots, logits.shape[-1]),
+                                                        self.generator, logits.device))
+        sampled = sampling.sample_top_p(self.generator, logits, temps, top_ps, noise=noise)
         return torch.where(do_samples, sampled, greedy_tok)
 
     def _advance_dfa(self, active, token) -> None:
@@ -871,7 +923,9 @@ class ServingEngine:
         active = left > 0
         draft = propose_ngram(st["hist"], wp + 1, self.spec_match_n, kd)  # (B, k)
         if self.spec_corrupt_frac > 0.0:
-            u = torch.rand(draft.shape, generator=self.generator, device=draft.device)
+            # the whole slot batch's draws; this rank keeps its rows
+            u = self._my_rows(torch.rand((self.max_slots, kd), generator=self.generator,
+                                         device=draft.device))
             draft = torch.where(u < self.spec_corrupt_frac,
                                 (draft + 1) % self.config.text_config.vocab_size, draft)
         tokens_in = torch.cat([st["next_tok"].long()[:, None], draft], dim=1)  # (B, k + 1)
@@ -999,13 +1053,13 @@ class ServingEngine:
             temps = np.asarray([r.temperature if r else 1.0 for r in self.slots], np.float32)
             top_ps = np.asarray([r.top_p if r else 1.0 for r in self.slots], np.float32)
             do_s = np.asarray([bool(r.do_sample) if r else False for r in self.slots])
-            self._sched_cache = (fingerprint, (self._upload(temps), self._upload(top_ps),
-                                               self._upload(do_s)))
+            self._sched_cache = (fingerprint, tuple(self._upload(self._my_rows(a))
+                                                    for a in (temps, top_ps, do_s)))
         temps_t, top_t, do_t = self._sched_cache[1]
         with_sampling = any(r is not None and r.do_sample for r in self.slots)
         charges = [min(ticks, max(l, 0)) for l in lefts]
-        tokens = self._run_window(ticks, self._upload(np.asarray(charges, np.int32)), temps_t,
-                                  top_t, do_t, with_sampling)
+        tokens = self._run_window(ticks, self._upload(self._my_rows(np.asarray(charges, np.int32))),
+                                  temps_t, top_t, do_t, with_sampling)
         (tokens,), ready = _read_back(tokens)
         snapshot: List[Optional[tuple]] = []
         for slot, req in enumerate(self.slots):
@@ -1019,11 +1073,17 @@ class ServingEngine:
     def _absorb(self, window: _Window) -> List[Request]:
         """Read one window's tokens back (the only host synchronization) and
         retire finished requests. Tokens of requests that retired, were
-        cancelled or were preempted after dispatch are discarded."""
+        cancelled or were preempted after dispatch are discarded. Under a
+        data axis the shards' tokens (and counts) are gathered here, in one
+        collective each: every rank then decides on all slots alike."""
         if window.ready is not None:
             window.ready.synchronize()
-        token_np = window.tokens.numpy()
-        counts_np = None if window.counts is None else window.counts.numpy()
+        tokens, counts = window.tokens, window.counts
+        if self.dp_mesh is not None:  # (ticks, slots, ...): the shards' slots in order
+            tokens, counts = (None if t is None else mesh_lib.gather_data(t, self.dp_mesh, dim=1)
+                              for t in (tokens, counts))
+        token_np = tokens.numpy()
+        counts_np = None if counts is None else counts.numpy()
         finished: List[Request] = []
         for slot, snap in enumerate(window.snapshot):
             if snap is None:

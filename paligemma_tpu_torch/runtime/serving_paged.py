@@ -1,5 +1,5 @@
 """Paged continuous-batching engine (port of
-paligemma_tpu/runtime/serving_paged.py, one device): the slot-pool scheduler
+paligemma_tpu/runtime/serving_paged.py): the slot-pool scheduler
 of runtime/serving over a shared KV page pool instead of a
 ``max_slots x max_seq_len`` reservation.
 
@@ -21,8 +21,8 @@ plain torch ops. ``fused_decode=False`` runs every tick on the plain page
 walk ("xla"). A tree, config or page size the chosen kernels cannot take
 raises.
 
-Under a tensor-parallel ``mesh`` (the dense engine's contract, data == 1)
-the pool is replicated on every rank (one KV head) and the kernel path's
+Under a tensor-parallel ``mesh`` the pool is replicated over the model axis
+(one KV head) and the kernel path's
 tick is ``paged_kernel="fused_tp"``: kernels/decode_layer_paged_tp, then
 the gathered logits of the vocab-sharded int8 head, for greedy and sampled
 windows alike (a greedy spec verify takes the vocab-shard argmax head);
@@ -65,8 +65,25 @@ past what was dispatched. A preempted row is recomputed from its prompt and
 emitted tokens. The verify writes start past the prompt, so they land in
 the row's own pages, never in a prefix-cache entry's borrowed ones.
 
-Not ported: the data axis (the JAX engine's DP pool, whose prefix-cache
-entries are shard-local: ROADMAP item 14, its data half).
+A ``mesh`` with a data axis (``data`` > 1; pure DP or DP x TP) splits the
+slots and the pool into shards, as the JAX engine does: each data shard
+owns ``max_slots/data`` slots and ``n_pages/data`` pages with its own
+allocator and garbage page, page-table entries are shard-local ids,
+admission pins each request to the shard whose budget covers it (the most
+free pages wins; a prefix hit goes to its entry's shard), preemption stays
+on the shard and prefix entries are shard-local. The port is SPMD, one
+process per rank: every rank runs this same host scheduler over all slots
+(all shards' allocators, the whole page table, admission, preemption, the
+prefix entries), while its device holds only its own shard: its pool
+chunk, the state rows of its own slots (``_row``) and, under DP x TP, its
+slices of the weights. A rank prefills the rows of its own slots (on the
+card through the flash kernel) and its ticks run the one-card kernels on
+them (pure DP) or the TP chain (DP x TP, ``kernels/decode_layer_paged_tp``
+at the rank's slots). Only what the host reads back crosses the data
+group: a window's tokens (and a spec window's counts), gathered in
+``_absorb``. So every host decision reads the same values on every rank.
+Sampled rows draw the whole slot batch's noise and keep their own rows,
+so a seed samples what one card samples.
 """
 
 from __future__ import annotations
@@ -124,19 +141,26 @@ class PagedServingEngine(ServingEngine):
         engine's reservation). ``max_seq_len`` bounds one request's length
         (the page table's width) and reserves nothing. ``mesh``: tensor
         parallel; ``lora_bank``, ``grammars``, ``prefix_cache``,
-        ``spec_decode``: module docstring; ``int8_act_prefill``: W8A8
-        prefill waves (runtime/serving ``ServingEngine``)."""
+        ``spec_decode``, a data axis: module docstring;
+        ``int8_act_prefill``: W8A8 prefill waves (runtime/serving
+        ``ServingEngine``)."""
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size "
                              f"{page_size}")
         if paged_kernel not in PAGED_KERNELS:
             raise ValueError(f"paged_kernel {paged_kernel!r} not in {PAGED_KERNELS}")
+        self.dp = 1 if mesh is None else mesh.data
         if n_pages is None:
             n_pages = max(max_slots * max_seq_len // page_size // 2, 8)
+            n_pages = -(-n_pages // self.dp) * self.dp
+        if max_slots % self.dp or n_pages % self.dp:
+            raise ValueError(f"max_slots {max_slots} and n_pages {n_pages} must split over the "
+                             f"data axis ({self.dp} shards)")
         self.page_size = page_size
         self.n_pages = n_pages
         self.paged_kernel = paged_kernel
         self._admission_order: List[int] = []  # slot ids, oldest first
+        self._planned: Dict[int, int] = {}  # request_id -> the slot _admit pinned it to
         self.preemptions = 0  # recompute evictions so far
         # prefix cache: key -> entry (owner id, full pages, tail page,
         # prompt length, logits row, refs); slot -> the key it borrows
@@ -167,11 +191,11 @@ class PagedServingEngine(ServingEngine):
         tc = self.config.text_config
         layers = self.decode_params["lm"]["layers"]
         if self.mesh is not None:
-            if not _ptp.supported(tc, self.mesh, layers, self.max_slots, page_size=self.page_size):
+            if not _ptp.supported(tc, self.mesh, layers, self._n_rows, page_size=self.page_size):
                 raise ValueError(
                     "the paged engine under a mesh needs what "
-                    "kernels/decode_layer_paged_tp.supported accepts at max_slots rows; pass "
-                    "fused_decode=False for the plain sharded page walk")
+                    "kernels/decode_layer_paged_tp.supported accepts at the rank's slot rows; "
+                    "pass fused_decode=False for the plain sharded page walk")
             self._shard_decode(True)
             self.paged_kernel = "fused_tp"
             return True
@@ -203,13 +227,19 @@ class PagedServingEngine(ServingEngine):
     def _chain_tick(self) -> bool:
         return self.paged_kernel in ("fused", "fused_tp")
 
+    def _check_mesh(self, mesh) -> None:
+        """A data axis splits slots and pool (``__init__`` checks that they
+        divide)."""
+
     # -- backend hooks --------------------------------------------------
     def _init_cache(self):
-        """Page pool instead of the dense max_slots x max_seq_len block."""
+        """Page pool instead of the dense max_slots x max_seq_len block
+        (this rank's shard of it under a data axis)."""
         self.paged = PagedKVCache(
             self.config.text_config, n_pages=self.n_pages, page_size=self.page_size,
             max_slots=self.max_slots, max_pages_per_slot=self.max_seq_len // self.page_size,
-            dtype=self.cache_dtype, device=self.device,
+            dtype=self.cache_dtype, n_shards=self.dp, device=self.device,
+            shard=0 if self.dp_mesh is None else self.dp_mesh.data_index,
         )
         return self.paged.pool
 
@@ -220,48 +250,79 @@ class PagedServingEngine(ServingEngine):
         return state
 
     def _admit(self, free_slots: list) -> List[Request]:
-        """FIFO admission bounded by free slots and free pages, each request
-        with one decode page of headroom; stops at the first request that
-        does not fit (no skip-ahead, so long prompts are not starved)."""
+        """FIFO admission bounded by free slots and free pages, per data
+        shard, each request with one decode page of headroom: a request is
+        pinned to the shard whose slots and pages cover it (the most free
+        pages wins; a prefix hit goes to its entry's shard when that one
+        can take it; ``_take_slot`` seats the pin). Stops at the first
+        request no shard can take (no skip-ahead, so long prompts are not
+        starved)."""
         take: List[Request] = []
-        budget = self.paged.free_pages()
+        shards = range(self.paged.n_shards)
+        free_by_shard: Dict[int, List[int]] = {sh: [] for sh in shards}
+        for slot in free_slots:
+            free_by_shard[self.paged.shard_of(slot)].append(slot)
+        budget = {sh: self.paged.free_pages(sh) for sh in shards}
         for req in self.pending:
             if len(take) == len(free_slots):
                 break
             need = self.paged.pages_for(self._bucket_of(req)) + 1
-            if budget < need and self._pcache and self._evict_pcache():
-                budget = self.paged.free_pages() - sum(
-                    self.paged.pages_for(self._bucket_of(r)) + 1 for r in take)
-            if budget < need:
+            cands = [sh for sh in shards if free_by_shard[sh] and budget[sh] >= need]
+            if not cands and self._pcache and self._evict_pcache():
+                budget = {sh: self.paged.free_pages(sh) for sh in shards}
+                for r in take:  # what this round already took
+                    budget[self.paged.shard_of(self._planned[r.request_id])] -= (
+                        self.paged.pages_for(self._bucket_of(r)) + 1)
+                cands = [sh for sh in shards if free_by_shard[sh] and budget[sh] >= need]
+            if not cands:
                 break
-            budget -= need
+            sh = max(cands, key=lambda x: budget[x])
+            key = self._pcache_key(req)
+            entry = self._pcache.get(key) if key is not None else None
+            if entry is not None and entry["shard"] in cands:
+                sh = entry["shard"]
+            budget[sh] -= need
+            self._planned[req.request_id] = free_by_shard[sh].pop(0)
             take.append(req)
         del self.pending[: len(take)]
         return take
 
-    def _insert_chunk(self, seated, cache1, mask, last_logits) -> None:
-        """Each row's KV lands in its slot's pages (the tables differ per
-        row, so the seat is per row)."""
-        for r, (slot, req) in enumerate(seated):
-            self._insert_row(slot, req, r, cache1, mask, last_logits)
+    def _take_slot(self, free: list, req: Request) -> int:
+        slot = self._planned.pop(req.request_id)
+        free.remove(slot)
+        return slot
 
-    def _insert_row(self, slot: int, req: Request, row: int, cache1, mask, last_logits) -> None:
-        """Copy prefill row ``row`` into the slot's pages (one copy per K/V
-        slab, all layers) and seat its state."""
-        bucket = mask.shape[1]
+    def _insert_chunk(self, seated, bucket, cache1, mask, last_logits) -> None:
+        """Each row's KV lands in its slot's pages (the tables differ per
+        row, so the seat is per row); prefill row r is the r-th row of
+        ``seated`` in this rank's slots."""
+        r = 0
+        for slot, req in seated:
+            mine = self._row(slot) is not None
+            self._insert_row(slot, req, r if mine else None, bucket, cache1, last_logits)
+            r += mine
+
+    def _insert_row(self, slot: int, req: Request, row: Optional[int], bucket: int, cache1,
+                    last_logits) -> None:
+        """Grow the slot's pages to the bucket, copy prefill row ``row``
+        into them (one copy per K/V slab, all layers) and seat its state;
+        ``row`` None (a slot of another data shard): the bookkeeping only."""
         if not self.paged.grow_to(slot, bucket):
             raise RuntimeError("admission reserved the pages; grow_to must succeed")
-        n_chunks = bucket // self.page_size
-        pages = self._upload(np.asarray(self.paged.slot_pages(slot)[:n_chunks], np.int64))
-        for n in ("k", "v"):
-            rows = cache1[n][:, row].reshape(cache1[n].shape[0], n_chunks, self.page_size,
-                                             *cache1[n].shape[3:])
-            self.cache[n][:, pages] = rows.to(self.cache_dtype)
-        self._seat_state(slot, req, len(req.input_ids), last_logits[row])
+        logits = None
+        if row is not None:
+            n_chunks = bucket // self.page_size
+            pages = self._upload(np.asarray(self.paged.slot_pages(slot)[:n_chunks], np.int64))
+            for n in ("k", "v"):
+                rows = cache1[n][:, row].reshape(cache1[n].shape[0], n_chunks, self.page_size,
+                                                 *cache1[n].shape[3:])
+                self.cache[n][:, pages] = rows.to(self.cache_dtype)
+            logits = last_logits[row]
+            self._seat_state(slot, req, len(req.input_ids), logits)
         self._admission_order.append(slot)
         key = self._pcache_key(req)
         if key is not None and key not in self._pcache:
-            self._register_prefix(slot, req, key, last_logits[row])
+            self._register_prefix(slot, req, key, logits)
 
     # -- prefix cache (exact match; module docstring) --------------------
     def _copy_page(self, src: int, dst: int) -> None:
@@ -272,18 +333,20 @@ class PagedServingEngine(ServingEngine):
     def _insert_cached(self, slot: int, req: Request) -> bool:
         """Seat a hit with no prefill: borrow the entry's full pages, copy
         its tail page into a page of the slot's own (decode writes there),
-        resume from the stored logits. False on a miss, or when the pool
-        has no page for the tail (the request then prefills)."""
+        resume from the stored logits. False on a miss, for a slot of
+        another shard than the entry's (page ids are shard-local), or when
+        the pool has no page for the tail (the request then prefills)."""
         key = self._pcache_key(req)
         entry = self._pcache.get(key) if key is not None else None
-        if entry is None:
+        if entry is None or entry["shard"] != self.paged.shard_of(slot):
             return False
         self.paged.set_borrowed(slot, entry["full_pages"])
         if entry["tail_page"] is not None:
             if not self.paged.grow_to(slot, entry["prompt_len"]):
                 self.paged.release(slot)  # clears the borrowed row
                 return False
-            self._copy_page(entry["tail_page"], self.paged.slot_pages(slot)[0])
+            if self._row(slot) is not None:
+                self._copy_page(entry["tail_page"], self.paged.slot_pages(slot)[0])
         self._seat_state(slot, req, entry["prompt_len"], entry["logits"])
         entry["refs"] += 1
         self._pcache.move_to_end(key)
@@ -296,11 +359,14 @@ class PagedServingEngine(ServingEngine):
         """Adopt a freshly prefilled slot's prefix: its full pages move to a
         new entry (no copy) and the slot borrows them back; its partial tail
         page is copied into a page of the entry's (the slot keeps writing
-        its own). Best effort: skipped when no page is free for the tail."""
+        its own). Best effort: skipped when no page is free for the tail.
+        The entry lives in the slot's shard; the device copy and the logits
+        (None here) are the owning rank's."""
         ps = self.page_size
         prompt_len = len(req.input_ids)
         n_full = prompt_len // ps
-        alloc = self.paged.alloc
+        shard = self.paged.shard_of(slot)
+        alloc = self.paged.allocator(slot)
         owner = self._next_entry_owner
         tail_page = None
         if prompt_len % ps:
@@ -308,11 +374,13 @@ class PagedServingEngine(ServingEngine):
             if got is None:
                 return
             tail_page = got[0]
-            self._copy_page(alloc.pages_of(slot)[n_full], tail_page)
+            if self._row(slot) is not None:
+                self._copy_page(alloc.pages_of(slot)[n_full], tail_page)
         self._next_entry_owner -= 1
         full_pages = self.paged.lend_prefix(slot, owner, n_full)
         self._pcache[key] = dict(owner=owner, full_pages=full_pages, tail_page=tail_page,
-                                 prompt_len=prompt_len, logits=logits.clone(), refs=1)
+                                 prompt_len=prompt_len, shard=shard, refs=1,
+                                 logits=None if logits is None else logits.clone())
         self._slot_borrow[slot] = key
         # capacity: drop the least recently used entries no row holds
         while len(self._pcache) > self.prefix_cache_entries:
@@ -322,7 +390,8 @@ class PagedServingEngine(ServingEngine):
             self._free_entry(victim)
 
     def _free_entry(self, key: bytes) -> None:
-        self.paged.alloc.free(self._pcache.pop(key)["owner"])
+        entry = self._pcache.pop(key)
+        self.paged._allocs[entry["shard"]].free(entry["owner"])
 
     def _evict_pcache(self) -> int:
         """Free every entry no row holds (LRU first); returns the pages
@@ -358,17 +427,22 @@ class PagedServingEngine(ServingEngine):
                 # cheapest relief first: entries no row holds
                 if self._pcache and self._evict_pcache():
                     continue
-                if self._preempt_youngest(exclude=slot) is None:
+                # pages come from the slot's own shard: only a neighbour
+                # there frees any
+                if self._preempt_youngest(slot, self.paged.shard_of(slot)) is None:
                     raise RuntimeError(
                         f"page pool too small for a single request of {need} tokens "
-                        f"(pool={self.n_pages} pages x {self.page_size})")
+                        f"(pool={self.n_pages} pages x {self.page_size}"
+                        + (f" over {self.dp} data shards)" if self.dp > 1 else ")"))
 
-    def _preempt_youngest(self, exclude: int) -> Optional[int]:
-        """Evict the most recently admitted request (except ``exclude``):
-        free its pages and put it back at the queue front as a recompute
-        request (prompt + tokens so far; the remaining budget)."""
+    def _preempt_youngest(self, exclude: int, shard: int) -> Optional[int]:
+        """Evict the most recently admitted request of ``shard`` (except
+        ``exclude``): free its pages and put it back at the queue front as
+        a recompute request (prompt + tokens so far; the remaining
+        budget)."""
         for slot in reversed(self._admission_order):
-            if slot == exclude or self.slots[slot] is None:
+            if (slot == exclude or self.slots[slot] is None
+                    or self.paged.shard_of(slot) != shard):
                 continue
             req = self.slots[slot]
             gen = self._generated.pop(req.request_id, 0)

@@ -247,15 +247,18 @@ def test_cli_speculative_rules_exit_2(checkpoint_dir, image_path, capsys, flags,
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
-    (["--data_parallel", "2"], "ROADMAP item 14"),
-    (["--model_parallel", "2", "--data_parallel", "2"], "ROADMAP item 14"),
+    pytest.param(["--int8_prefill"], "--int8_prefill requires --quantize_int8",
+                 id="flag0---int8_prefill requires --quantize_int8"),
+    pytest.param(["--data_parallel", "2"], "pass a multiple of 2 prompts",
+                 id="flag1-ROADMAP item 14"),
+    pytest.param(["--data_parallel", "2", "--model_parallel", "2"],
+                 "pass a multiple of 2 prompts", id="flag2-ROADMAP item 14"),
 ])
 def test_cli_unported_flags_exit_2(checkpoint_dir, image_path, capsys, flag, match):
-    """Flags of parts not ported exit 2 with the ROADMAP item that ports
-    them (a data axis, also beside a model axis, which is ported and named
-    in the message); --int8_prefill without --quantize_int8 exits 2 with
-    the JAX CLI's message. Nothing is loaded first."""
+    """Flag combinations the CLI refuses exit 2 before anything loads: a
+    data axis the one prompt does not divide over (also beside a model
+    axis); --int8_prefill without --quantize_int8, with the JAX CLI's
+    message."""
     with pytest.raises(SystemExit) as ei:
         t_infer.main(_argv(checkpoint_dir, image_path, ["a"], "--only_cpu", *flag))
     assert ei.value.code == 2
@@ -363,3 +366,34 @@ def test_cli_model_parallel_rank_failure_exits_nonzero(mqa_checkpoint_dir, image
     assert ei.value.code not in (0, None)
     cap = capfd.readouterr()
     assert "do not split over 3 ranks" in cap.err and "Running inference" not in cap.out
+
+
+# ---- data parallel: --data_parallel 2 (x --model_parallel 2) on spawned gloo ranks ----
+@pytest.mark.parametrize("mesh", [["--data_parallel", "2"],
+                                  ["--data_parallel", "2", "--model_parallel", "2"]],
+                         ids=["data_parallel", "data_parallel_x_model_parallel"])
+def test_cli_data_parallel_prints_the_jax_cli_rows(mqa_checkpoint_dir, image_path, capfd, mesh):
+    """Two prompts over a data axis of 2 (alone and beside a model axis of
+    2): rank 0 alone prints both rows in prompt order and the timings; the
+    rows are the JAX CLI's (its make_mesh on the virtual devices) and the
+    port's one-rank rows; --speculative with a data axis exits 2."""
+    from paligemma_tpu.cli.infer import main as jax_main
+
+    argv = _argv(mqa_checkpoint_dir, image_path, ["describe the image", "hello world"],
+                 "--max_tokens_to_generate", "6", "--dtype", "float32")
+    jax_main(argv + mesh)
+    want = _rows(capfd.readouterr().out)
+    t_infer.main(argv + ["--only_cpu", *mesh])
+    cap = capfd.readouterr()
+    got = _rows(cap.out)
+    t_infer.main(argv + ["--only_cpu"])
+    one = _rows(capfd.readouterr().out)
+    assert got == want == one and len(got) == 2
+    assert got[0].startswith("describe the image") and got[1].startswith("hello world")
+    assert cap.out.count("Running inference") == 1 and cap.err.count("timings: ") == 1
+    world = 2 * (2 if "--model_parallel" in mesh else 1)
+    assert f"ranks: {world} over gloo" in cap.err and "mesh data 2 x model" in cap.err
+    with pytest.raises(SystemExit) as ei:
+        t_infer.main(_argv(mqa_checkpoint_dir, image_path, ["a", "b"], "--only_cpu",
+                           "--speculative", *mesh))
+    assert ei.value.code == 2 and "cannot split over --data_parallel 2" in capfd.readouterr().err

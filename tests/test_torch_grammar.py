@@ -366,15 +366,17 @@ def test_grammar_rejections():
     other = t_grammar.compile_token_dfa(t_grammar.compile_regex("a+"), TOKEN_STRS[:100], EOS)
     with pytest.raises(ValueError, match="compiled for vocab 100"):
         t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, grammars={"g": other})
-    # a mesh with a data axis: grammars run under a model axis only
+    # a mesh with a data axis: the dense engine refuses it (JAX's reason:
+    # slots are the batch); the paged engine takes grammars on each shard
     from paligemma_tpu_torch.core.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(ValueError, match="pure TP"):
         t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64, mesh=Mesh(data=2),
                                 grammars=_grammars(t_grammar, ("g",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=64, page_size=16,
-                                   mesh=Mesh(data=2), grammars=_grammars(t_grammar, ("g",)))
+    dp = t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=64, page_size=16,
+                                    mesh=Mesh(data=2), grammars=_grammars(t_grammar, ("g",)),
+                                    fused_decode=False)
+    assert dp.grammar_table is not None and dp.state["dstate"].shape == (1,)
 
 
 def test_grammar_table_layout():

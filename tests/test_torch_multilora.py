@@ -584,18 +584,26 @@ def test_kernel_tick_without_pack_raises():
 
 
 def test_tensor_parallel_with_bank_raises():
-    """A bank under a mesh with a data axis raises (ROADMAP item 14, the
-    data axis). Under a model axis (a hand-built Mesh names the rank; no
-    collective runs at construction) both engines keep this rank's shard of
-    the stacked bank (core/mesh.shard_lora)."""
+    """A mesh with a data axis: the dense engine raises with the JAX
+    engine's reason (slots are the batch), the paged engine takes the bank
+    whole on each data shard (pure DP). Under a model axis (a hand-built
+    Mesh names the rank; no collective runs at construction) both engines
+    keep this rank's shard of the stacked bank (core/mesh.shard_lora)."""
     from paligemma_tpu_torch.core.mesh import Mesh, shard_lora
 
     _, _, tp, _ = _weights()
     bank = _port_bank()
+    with pytest.raises(ValueError, match="pure TP"):
+        t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=64,
+                                mesh=Mesh(model=1, data=2), lora_bank=bank)
+    dp = t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=64, page_size=16,
+                                    mesh=Mesh(model=1, data=2), lora_bank=bank,
+                                    fused_decode=False)
+    whole = t_lora.stack_lora_bank([bank[n] for n in bank])
+    for name, p in whole["layers"].items():
+        for key, t in p.items():
+            assert torch.equal(dp.lora_bank["layers"][name][key], t), (name, key)
     for cls in (t_serving.ServingEngine, t_paged.PagedServingEngine):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            cls(tp, CFG, max_slots=2, max_seq_len=64, mesh=Mesh(model=1, data=2),
-                lora_bank=bank)
         mesh = Mesh(model=2, rank=1)
         eng = cls(tp, CFG, max_slots=2, max_seq_len=64, mesh=mesh, lora_bank=bank,
                   fused_decode=False)
@@ -668,6 +676,8 @@ C5_FUNCTIONS = (
     "processing.mask_vae.init_params", "processing.mask_vae.load_vae_oid_npz",
     "ops.activations.geglu", "runtime.quantize.quantized_bytes", "models.siglip.init_params",
     "models.gemma.init_params", "models.paligemma.init_params", "kernels.quant.matmul_any",
+    "core.mesh.single_device_mesh", "core.mesh.param_specs", "core.mesh.lora_specs",
+    "core.mesh.batch_spec", "core.mesh.kv_cache_specs",
     *OPERANDS_DIFFER,
 )
 

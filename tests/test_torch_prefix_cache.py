@@ -182,17 +182,19 @@ def test_sampled_hits_reuse_the_stored_logits(paged, monkeypatch):
 
 
 def test_prefix_cache_under_a_mesh_raises():
-    """Under a mesh with a data axis (the JAX engine's shard-local entries:
-    ROADMAP item 14, the data axis); a model axis takes the prefix cache
+    """Under a mesh with a data axis the dense engine raises (JAX's reason:
+    slots are the batch); the paged engine keeps shard-local entries
+    (tests/test_torch_dp.py runs them). A model axis takes the prefix cache
     (tests/test_torch_tp_features.py)."""
     from paligemma_tpu_torch.core.mesh import Mesh
 
     _, _, tp, tq = _weights()
-    for cls, kw in ((t_serving.ServingEngine, {}), (t_paged.PagedServingEngine,
-                                                    dict(page_size=16))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            cls(tp, CFG, max_slots=2, max_seq_len=32, mesh=Mesh(data=2), prefix_cache=True,
-                **kw)
+    with pytest.raises(ValueError, match="pure TP"):
+        t_serving.ServingEngine(tp, CFG, max_slots=2, max_seq_len=32, mesh=Mesh(data=2),
+                                prefix_cache=True)
+    eng = t_paged.PagedServingEngine(tp, CFG, max_slots=2, max_seq_len=32, page_size=16,
+                                     mesh=Mesh(data=2), prefix_cache=True, fused_decode=False)
+    assert eng.prefix_cache and eng.paged.n_shards == 2
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])

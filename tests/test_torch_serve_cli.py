@@ -303,8 +303,8 @@ def _exit2(argv, capsys, match):
 @pytest.mark.parametrize("flags,match", [
     ([], "--requests_jsonl"),
     (["--int8_prefill"], "--int8_prefill requires --quantize_int8"),
-    (["--data_parallel", "2"], "ROADMAP item 14"),
-    (["--model_parallel", "2", "--data_parallel", "2"], "ROADMAP item 14"),
+    (["--data_parallel", "2"], "--engine dense shards weights only"),
+    (["--model_parallel", "2", "--data_parallel", "2"], "--engine dense shards weights only"),
     (["--grammar", "nameless"], "NAME=REGEX"),
     (["--grammar", "g=(ab"], "--grammar g"),
     (["--lora", "x"], "NAME=DIR"),
@@ -445,16 +445,16 @@ def _http_rank(argv, rank):
         srv.follow()
 
 
-def _launch_in_thread(entry, argv, timeout_s):
-    """cli/ranks.launch of two CPU ranks in a thread: (thread, {"code":
-    exit code})."""
+def _launch_in_thread(entry, argv, timeout_s, data=1):
+    """cli/ranks.launch of ``data`` x 2 CPU ranks in a thread: (thread,
+    {"code": exit code})."""
     from paligemma_tpu_torch.cli import ranks
 
     out = {}
 
     def run():
         try:
-            ranks.launch(entry, argv, 2, True, timeout_s)
+            ranks.launch(entry, argv, 2, True, timeout_s, data_parallel=data)
             out["code"] = 0
         except SystemExit as e:
             out["code"] = e.code
@@ -511,5 +511,83 @@ def test_http_model_parallel_round_trips_and_idles(mqa_checkpoint_dir, image_pat
     time.sleep(rank_timeout + 2)  # idle past the ranks' collective timeout
     code, r3 = _post(base, "/generate", row)
     assert code == 200 and r3["text"] == r1["text"]
+    t.join(WAIT)
+    assert not t.is_alive() and out["code"] == 0
+
+
+# ---- data parallel: --data_parallel 2 (x --model_parallel 2), paged ----
+@pytest.mark.parametrize("mesh", [["--data_parallel", "2"],
+                                  ["--data_parallel", "2", "--model_parallel", "2"]],
+                         ids=["data_parallel", "data_parallel_x_model_parallel"])
+def test_batch_data_parallel_prints_the_one_rank_lines(mqa_checkpoint_dir, mqa_lora_dir,  # noqa: F811
+                                                       image_path, tmp_path, capfd, mesh):
+    """The paged engine over a data axis of 2 (alone, and beside a model
+    axis of 2) with --lora --grammar --prefix_cache, 4 slots (2 a shard):
+    the lines are the one-rank lines; rank 0 alone prints; a --max_slots
+    that does not divide over the shards exits 2, as in the JAX CLI."""
+    path = _jsonl(tmp_path, TP_ROWS, image_path)
+    base = ["--model_path", mqa_checkpoint_dir, "--engine", "paged", "--max_slots", "4",
+            "--max_seq_len", "64", "--page_size", "16", "--sync_every", "2", "--dtype",
+            "float32", "--only_cpu", *TP_GRAMMAR, "--lora", f"x={mqa_lora_dir}",
+            "--requests_jsonl", path]
+    t_serve.main(base + mesh)
+    cap = capfd.readouterr()
+    got = _lines(cap.out)
+    t_serve.main(base)
+    want = _lines(capfd.readouterr().out)
+    keys = ("request_id", "text", "num_tokens")
+    assert [{k: r[k] for k in keys} for r in got] == [{k: r[k] for k in keys} for r in want]
+    assert len(got) == len(TP_ROWS)
+    assert cap.err.count(f"served {len(TP_ROWS)} requests") == 1
+    assert "mesh data 2 x model" in cap.err
+    with pytest.raises(SystemExit) as ei:
+        t_serve.main(base[:base.index("--max_slots") + 1] + ["3"]
+                     + base[base.index("--max_slots") + 2:] + mesh)
+    assert ei.value.code == 2
+    assert "--max_slots must divide evenly over --data_parallel shards" in capfd.readouterr().err
+
+
+def test_http_data_parallel_x_model_parallel_round_trips(mqa_checkpoint_dir, image_path):  # noqa: F811
+    """HTTP over 2 x 2 ranks (the paged engine, 4 slots): rank 0 answers a
+    request and its stream with the same tokens, and a greedy request
+    beside it on the other shard; the shutdown after HTTP_TP_REQUESTS
+    answers ends every rank with exit code 0."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t, out = _launch_in_thread(_http_rank, [
+        "--model_path", mqa_checkpoint_dir, "--http", str(port), "--engine", "paged",
+        "--max_slots", "4", "--max_seq_len", "64", "--page_size", "16", "--sync_every", "2",
+        "--dtype", "float32", "--only_cpu", "--data_parallel", "2", "--model_parallel", "2"],
+        120, data=2)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 3 * WAIT
+    while True:  # the ranks load the checkpoint first
+        try:
+            assert _get(base, "/healthz")["ok"]
+            break
+        except (urllib.error.URLError, ConnectionError):
+            assert t.is_alive() and time.monotonic() < deadline, out
+            time.sleep(0.2)
+    row = {"prompt": "describe the image", "image": image_path, "max_new_tokens": 4}
+    code, r1 = _post(base, "/generate", row)
+    assert code == 200 and r1["num_tokens"] == 4
+    answers = {}
+
+    def other():
+        answers["other"] = _post(base, "/generate", {**row, "prompt": "hello world"})
+
+    side = threading.Thread(target=other, daemon=True)
+    side.start()
+    req = urllib.request.Request(base + "/generate", data=json.dumps({**row, "stream": True})
+                                 .encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=WAIT) as resp:
+        events = [json.loads(ln.decode()[len("data: "):]) for ln in resp
+                  if ln.startswith(b"data: ")]
+    side.join(WAIT)
+    assert events[-1]["done"] and events[-1]["text"] == r1["text"] and len(events) == 5
+    assert answers["other"][0] == 200 and answers["other"][1]["num_tokens"] == 4
     t.join(WAIT)
     assert not t.is_alive() and out["code"] == 0

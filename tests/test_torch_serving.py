@@ -264,7 +264,7 @@ def test_kernel_path_raises_on_unsupported_tree():
                                    fused_decode=True)
     from paligemma_tpu_torch.core.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="data axis"):  # ROADMAP item 14
+    with pytest.raises(ValueError, match="pure TP"):  # the paged engine takes a data axis
         t_serving.ServingEngine(tp, cfg, max_slots=2, max_seq_len=32, spec_decode=True,
                                 mesh=Mesh(data=2))
     eng = t_serving.ServingEngine(tp, cfg, max_slots=1, max_seq_len=16)

@@ -381,8 +381,8 @@ def test_generate_spec_guards():
         eng.generate_spec(px, ids, mask, max_new_tokens=30, draft_k=8)
     from paligemma_tpu_torch.core.mesh import Mesh
 
-    eng.mesh = Mesh(data=2)  # a model axis speculates (tests/test_torch_tp_features.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    eng.dp_mesh = Mesh(data=2)  # a model axis speculates (tests/test_torch_tp_features.py)
+    with pytest.raises(ValueError, match="cannot split over a data axis"):
         eng.generate_spec(px, ids, mask, max_new_tokens=4)
 
 

@@ -139,8 +139,8 @@ def test_supported_gating():
     assert not t_tp.supported(bad, Mesh(model=4), layers, batch=1)
     with pytest.raises(ValueError, match="repack_for_tp"):
         t_tp.repack_for_tp(tq["lm"], bad, Mesh(model=4))
-    with pytest.raises(NotImplementedError):
-        make_mesh(data=2)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh(data=2)  # a data axis too needs the process group (tests/test_torch_dp.py)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, None])
