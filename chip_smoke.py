@@ -64,7 +64,13 @@ seed, int8 decode tree) through its main paths:
   (B=2, S=512, remat): the flash kernels' forward and backward against the
   plain attention path on the first step, the loss falling over 8 steps,
   gradient accumulation, one step each over an int8 and an NF4 base, and
-  the merged adapters served by PaliGemmaEngine.generate.
+  the merged adapters served by PaliGemmaEngine.generate;
+* the training half of the mesh (the ``train_mesh`` phase, last): the
+  Trainer under make_mesh(2, 1), (1, 2) and (2, 2) on gloo ranks that
+  share the card (LoRA, an FSDP full fine-tune, QLoRA over NF4) against
+  one card's Trainer, and cli.finetune with --data_parallel 2,
+  --model_parallel 2 (resuming the data axis's state), --fsdp
+  --full_finetune and two --multihost processes through a coordinator.
 
     python3 chip_smoke.py          # needs one CUDA card, nvcc and triton
 
@@ -72,7 +78,8 @@ Prints per-phase lines, then a JSON line with one entry per kernel: its
 ``launches`` summed over the counted runs of the paths (the w8a8 phase's
 generate, the five CLI runs, the serve_cli runs, the four finetune CLI runs and the answer from their
 export, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs,
-the TP runs, the ablation phase's runs and the 8 training steps; each run's
+the TP runs, the ablation phase's runs, the 8 training steps and the
+train_mesh ranks' Trainer runs; each run's
 counts are zeroed just before it and read just after), its error against its
 plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
@@ -263,6 +270,12 @@ FLASH_FWD_CASES = (
      None),
     ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 512, 8, 1, 256), [268, 268], [512, 400], 0,
      "device"),
+    # a tensor-parallel rank's heads in training (train_mesh): m = 2 at B2,
+    # 2 x 2 at one row a data shard
+    ("train TP-local m=2 B2 S512 Hq4 Hkv1 D256", (2, 512, 512, 4, 1, 256), [268, 268],
+     [512, 400], 0, "device"),
+    ("train TP-local 2x2 B1 S512 Hq4 Hkv1 D256", (1, 512, 512, 4, 1, 256), [268], [512], 0,
+     None),
     ("vision B2 S256 H16 D72", (2, 256, 256, 16, 16, 72), [256, 249], [256, 249], 0, None),
     ("tower B1 S4096 H16 D72", (1, 4096, 4096, 16, 16, 72), [4096], [4096], 0, "device"),
     ("GQA B2 S199 Hq4 Hkv2 D64", (2, 199, 199, 4, 2, 64), [60, 100], [199, 150], 0, None),
@@ -996,8 +1009,12 @@ def kernel_phase(report: KernelReport, dev):
     # shape (prefix 268 = 256 image + 12 prompt tokens, kv_len 512 and 400),
     # GQA with a padded row tile, SigLIP's head_dim 72, a row with kv_len 0
     print("kernels: flash_attention_bwd_dq, flash_attention_bwd_dkv, forward lse", flush=True)
+    # timed: True, in the JSON line and device times; "device": device times
     for label, (b, s, hq, hkv, d), pfx, kvl, timed in [
         ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 8, 1, 256), [268, 268], [512, 400], True),
+        ("train TP-local m=2 B2 S512 Hq4 Hkv1 D256", (2, 512, 4, 1, 256), [268, 268],
+         [512, 400], "device"),
+        ("train TP-local 2x2 B1 S512 Hq4 Hkv1 D256", (1, 512, 4, 1, 256), [268], [512], False),
         ("GQA B2 S199 Hq4 Hkv2 D256", (2, 199, 4, 2, 256), [60, 100], [199, 150], False),
         ("vision B2 S256 H16 D72", (2, 256, 16, 16, 72), [256, 100], [256, 230], False),
         ("kv_len 0 row B2 S128 Hq8 Hkv1 D256", (2, 128, 8, 1, 256), [40, 0], [128, 0], False),
@@ -1017,7 +1034,7 @@ def kernel_phase(report: KernelReport, dev):
         report.case("flash_attention_bwd_dq", label, dq, want[0], 1e-2)
         report.case("flash_attention_bwd_dkv", f"{label} dk", dk, want[1], 1e-2)
         report.case("flash_attention_bwd_dkv", f"{label} dv", dv, want[2], 1e-2)
-        if kvl[1] == 0 and any(bool(t[1].any()) for t in (out, lse, dq, dk, dv)):
+        if len(kvl) > 1 and kvl[1] == 0 and any(bool(t[1].any()) for t in (out, lse, dq, dk, dv)):
             raise AssertionError("flash attention: the kv_len 0 row is not exact zeros")
         if timed:
             allowed = fa._allowed(s, s, pl, kl, 0, dev)
@@ -1043,16 +1060,29 @@ def kernel_phase(report: KernelReport, dev):
             def run_dkv():
                 return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, scale)
 
+            flops_dq, flops_dkv = 6 * d * pairs, 8 * d * pairs
+            bytes_dq = nbytes(q, k, v, dout, dq) + stats
+            bytes_dkv = nbytes(q, k, v, dout, dk, dv) + stats
+            if timed == "device":  # printed only
+                dt = device_times(label, [("flash_attention_bwd_dq", run_dq),
+                                          ("flash_attention_bwd_dkv", run_dkv)]
+                                  + ([("SDPA backward", lib_bwd)] if lib_bwd else []))
+                txt = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dt.items()}
+                print(f"  device B6 {label}: dq {txt['flash_attention_bwd_dq']} (bound "
+                      f"{bound_ms(flops_dq, bytes_dq):.4f} ms), dk/dv "
+                      f"{txt['flash_attention_bwd_dkv']} (bound "
+                      f"{bound_ms(flops_dkv, bytes_dkv):.4f} ms), one SDPA backward "
+                      f"{txt.get('SDPA backward', 'not measured')} (not in the JSON sum)",
+                      flush=True)
+                continue
             bound_dq = report.time(
                 "flash_attention_bwd_dq", label, run_dq,
                 lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale, 0)[0],
-                flops=6 * d * pairs, n_bytes=nbytes(q, k, v, dout, dq) + stats,
-                library_fn=lib_bwd)[3]
+                flops=flops_dq, n_bytes=bytes_dq, library_fn=lib_bwd)[3]
             bound_dkv = report.time(
                 "flash_attention_bwd_dkv", label, run_dkv,
                 lambda: fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale, 0)[1:],
-                flops=8 * d * pairs, n_bytes=nbytes(q, k, v, dout, dk, dv) + stats,
-                library_fn=lib_bwd)[3]
+                flops=flops_dkv, n_bytes=bytes_dkv, library_fn=lib_bwd)[3]
             dt = device_times(label, [("flash_attention_bwd_dq", run_dq),
                                       ("flash_attention_bwd_dkv", run_dkv)]
                               + ([("SDPA backward", lib_bwd)] if lib_bwd else []))
@@ -5578,6 +5608,447 @@ def dp_phase(cfg, card, tok_paged, feats_one):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------- train_mesh ----
+# the training half of the mesh on the one card: gloo ranks that share it
+TM_TIMEOUT = 900  # seconds: the model group's collectives in a spawn
+TM_STEPS = 2  # steps of each Trainer run
+TM_LR = 1e-3
+TM_LOSS_REL_TOL = 1e-3
+# adapters after TM_STEPS steps against one card's: the ranks sum bf16
+# partials and gradients in another order, and Adam moves an element whose
+# gradient is near its eps by up to 2 lr a step on such a difference, so
+# each leaf is held on the mean |difference| against the mean |movement| of
+# one card's adapters from their start (the largest difference printed)
+TM_ADAPTER_REL_TOL = 0.1
+# the full fine-tunes (FSDP) run at this depth (LM and tower layers, full
+# widths): at 18 layers a step of layer gathers through host memory takes
+# ~33 s, and the CLI's two saves write 2 x 15 GB, past the card machine's
+# budget of disk writes for the whole script
+TM_CUT_LAYERS = 2
+TM_MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
+_TM_LORA = dict(lora_rank=8, lora_alpha=8.0, learning_rate=TM_LR, warmup_steps=0)
+TM_RUNS = {  # name -> (TrainConfig kwargs, at TM_CUT_LAYERS); "nf4": a 4-bit base
+    "lora": (_TM_LORA, False),
+    "lora_acc2": (dict(_TM_LORA, grad_accum_steps=2), False),
+    "fsdp": (dict(lora_rank=None, learning_rate=TM_LR, fsdp=True), True),
+    "nf4": (_TM_LORA, False),
+}
+TM_PLAN = {"2x1": ("lora", "lora_acc2", "fsdp"), "1x2": ("lora", "lora_acc2", "nf4"),
+           "2x2": ("lora", "lora_acc2")}
+# the CLI runs: one epoch of the quick manifest's 4 rows (2 steps); label ->
+# (flags, on the cut checkpoint); "resume" resumes the 2 x 1 "lora" run
+TM_CLI_FLAGS = ("--epochs", "1", "--batch_size", "2", "--grad_accum", "1", "--lora_rank", "8",
+                "--max_length", "512", "--learning_rate", "1e-3", "--warmup_steps", "0")
+TM_CLI = {"2x1": (("lora", ("--data_parallel", "2"), False),
+                  ("export", ("--data_parallel", "2", "--export_hf"), True),
+                  ("fsdp", ("--fsdp", "--full_finetune", "--data_parallel", "2"), True)),
+          "1x2": (("resume", ("--model_parallel", "2"), False),),
+          "2x2": ()}
+
+
+def _tm_cut(cfg):
+    """``cfg`` at TM_CUT_LAYERS decoder and tower layers, full widths."""
+    return dataclasses.replace(
+        cfg, text_config=dataclasses.replace(cfg.text_config, num_hidden_layers=TM_CUT_LAYERS),
+        vision_config=dataclasses.replace(cfg.vision_config, num_hidden_layers=TM_CUT_LAYERS))
+
+
+def _lm_numel(tc) -> int:
+    """The Gemma decoder's parameter count at config ``tc``."""
+    h, i, n = tc.hidden_size, tc.intermediate_size, tc.num_hidden_layers
+    hq, hkv = tc.num_attention_heads * tc.head_dim, tc.num_key_value_heads * tc.head_dim
+    return tc.vocab_size * h + h + n * (2 * h + h * (2 * hq + 2 * hkv) + 3 * h * i)
+
+
+def _tm_bytes(tr) -> int:
+    """This rank's persistent training state: the trained tensors and their
+    optimizer moments (and accumulators)."""
+    from paligemma_tpu_torch.train.trainer import _leaves as t_leaves
+
+    held = t_leaves(tr._trainable(tr.params, tr.lora))
+    held += [t for k in ("mu", "nu", "acc") for t in tr.opt_state.get(k, [])]
+    return sum(t.numel() * t.element_size() for t in held)
+
+
+def _tm_adapters(state):
+    return {name: {k: v.detach().float().cpu().clone() for k, v in leaf.items()}
+            for name, leaf in state["lora"]["layers"].items()}
+
+
+def _tm_trainer_runs(names, cfg, dev, mesh):
+    """The Trainer runs ``names`` (TM_RUNS) on train_batch, TM_STEPS steps
+    each, under ``mesh`` (None: one card), each counted on its own: {name:
+    losses, launch counts, adapters in one card's layout (LoRA), this
+    rank's state bytes, wall s}."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.convert import init_params
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_training
+    from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batch = train_batch(cfg)
+    out = {}
+    for cut in (False, True):
+        run_cfg = _tm_cut(cfg) if cut else cfg
+        todo = [n for n in names if TM_RUNS[n][1] == cut]
+        if not todo:
+            continue
+        params = init_params(run_cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                             torch.bfloat16)
+        for name in todo:
+            base = (quantize_lm_for_training(params, "nf4", 64, fuse=False) if name == "nf4"
+                    else params)
+            tr = Trainer(base, run_cfg, TrainConfig(**TM_RUNS[name][0]), mesh=mesh,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+            start = _tm_adapters(tr._state()) if tr.lora is not None else None
+            sync()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [tr.train_step(batch) for _ in range(TM_STEPS)]
+            sync()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            rec = {"losses": losses, "counts": counts, "bytes": _tm_bytes(tr), "wall": wall,
+                   "layers": run_cfg.text_config.num_hidden_layers}
+            if tr.lora is not None:
+                rec["lora"], rec["start"] = _tm_adapters(tr._state()), start
+            out[name] = rec
+            del tr, base
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tm_entry(argv, rank):
+    """One rank of a train_mesh spawn (cli/ranks.launch: the ranks share
+    the card over gloo): ``argv`` = [work dir, mesh tag, the cli phase's
+    checkpoint, its copy cut to TM_CUT_LAYERS, the quick manifest, a state
+    to resume from]. The Trainer runs of TM_PLAN[tag], then cli.finetune's
+    rank body on TM_CLI[tag]'s flags (stand-ins installed here: a spawned
+    process starts without them); rank 0 reads each run's metrics.jsonl
+    and removes a full fine-tune's output at once (its saves are the
+    largest writes). The rank writes its record to the work dir."""
+    import contextlib
+    import io
+
+    from paligemma_tpu_torch.cli import finetune
+    from paligemma_tpu_torch.core.config import PaliGemmaConfig
+
+    work, tag, ckpt, cut_ckpt, manifest, resume = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PaliGemmaConfig.from_hf_json(ckpt)  # the 3B config the cli phase wrote
+    rec = {"device": str(rank.device), "backend": rank.backend,
+           "mesh": (rank.mesh.data, rank.mesh.model),
+           "runs": _tm_trainer_runs(TM_PLAN[tag], cfg, rank.device, rank.mesh), "cli": {}}
+    for label, flags, cut in TM_CLI[tag]:
+        out_dir = os.path.join(work, f"{tag}_{label}")
+        cli_argv = ["--model_path", cut_ckpt if cut else ckpt, "--train_jsonl", manifest,
+                    "--output_dir", out_dir, *TM_CLI_FLAGS, *flags]
+        if label == "resume":
+            cli_argv += ["--resume_from", resume]
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with _StandIns(cfg.image_token_index), contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                finetune._rank_main(cli_argv, rank)
+        finally:
+            rec["cli"][label] = {"stdout": out.getvalue(), "stderr": err.getvalue(),
+                                 "wall": time.perf_counter() - t0}
+        if rank.lead:
+            rec["cli"][label]["metrics"] = _tm_metrics(out_dir)
+            rec["cli"][label]["saved"] = sorted(os.listdir(out_dir))
+            if "--full_finetune" in flags:
+                shutil.rmtree(out_dir)
+    torch.save(rec, os.path.join(work, f"{tag}_rank{rank.rank}.pt"))
+
+
+def _tm_multihost_main():
+    """One process of train_mesh (e): ``python3 -c "import chip_smoke;
+    chip_smoke._tm_multihost_main()" <image token id> <cli.finetune flags>``,
+    the CLI with the stand-ins installed."""
+    from paligemma_tpu_torch.cli import finetune
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with _StandIns(int(sys.argv[1])):
+        finetune.main(sys.argv[2:])
+
+
+def _tm_metrics(out_dir):
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _tm_losses(metrics):
+    return [m["train_loss"] for m in metrics if "train_loss" in m]
+
+
+def _tm_rel(got, want) -> float:
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def _tm_hold_losses(label, got, want, card):
+    rel = _tm_rel(got, want)
+    print(f"train_mesh {label}: losses {' '.join(f'{x:.5f}' for x in got)} against one card's "
+          f"{' '.join(f'{x:.5f}' for x in want)}: max rel {rel:.3e} (tol {TM_LOSS_REL_TOL})  "
+          f"[{card}]", flush=True)
+    if len(got) != len(want) or not rel <= TM_LOSS_REL_TOL:
+        raise AssertionError(f"train_mesh {label}: losses {got} against one card's {want}")
+
+
+def _tm_hold_adapters(label, got, want, start):
+    """Each adapter leaf: mean |got - want| within TM_ADAPTER_REL_TOL of the
+    mean |want - start| (one card's movement); prints the worst ratio and
+    the largest difference."""
+    worst, biggest = 0.0, 0.0
+    for name, leaf in want.items():
+        for k, w in leaf.items():
+            g, s0 = got[name][k], start[name][k]
+            moved = float((w - s0).abs().mean())
+            diff = float((g - w).abs().mean())
+            biggest = max(biggest, float((g - w).abs().max()))
+            if moved > 0:
+                worst = max(worst, diff / moved)
+            elif diff > 0:
+                raise AssertionError(f"train_mesh {label}: {name}.{k} moved where one card's "
+                                     "did not")
+    print(f"train_mesh {label}: adapters' mean |difference| from one card's at most "
+          f"{worst:.3e} of one card's mean movement (tol {TM_ADAPTER_REL_TOL}); the largest "
+          f"difference {biggest:.3e} (lr {TM_LR})", flush=True)
+    if not worst <= TM_ADAPTER_REL_TOL:
+        raise AssertionError(f"train_mesh {label}: adapters {worst} > {TM_ADAPTER_REL_TOL}")
+
+
+def _tm_check_spawn(tag, recs, refs, card):
+    """Every rank of a spawn the same losses; each Trainer run held against
+    one card's (losses, adapters, launches per step: TRAIN_PER_STEP at 18
+    layers, scaled at the cut depth); each CLI run printed on rank 0 only.
+    Returns the summed launch counts of the spawn's Trainer runs."""
+    total: dict = {}
+    world = len(recs)
+    for r, rec in enumerate(recs):
+        if rec["device"] != "cuda:0" or rec["backend"] != "gloo" or \
+                tuple(rec["mesh"]) != TM_MESHES[tag]:
+            raise AssertionError(f"train_mesh {tag}: rank {r} on {rec['device']} over "
+                                 f"{rec['backend']}, mesh {rec['mesh']}")
+    for name in TM_PLAN[tag]:
+        runs = [rec["runs"][name] for rec in recs]
+        if any(x["losses"] != runs[0]["losses"] for x in runs[1:]):
+            raise AssertionError(f"train_mesh {tag} {name}: the ranks disagree on the losses")
+        layers = runs[0]["layers"]
+        per_step = {k: v * layers // 18 for k, v in TRAIN_PER_STEP.items()}
+        want_counts = {k: per_step.get(k, 0) * TM_STEPS for k in runs[0]["counts"]}
+        for r, x in enumerate(runs):
+            if x["counts"] != want_counts:
+                raise AssertionError(f"train_mesh {tag} {name}: rank {r} launched "
+                                     f"{x['counts']}, want {want_counts}")
+            for k, v in x["counts"].items():
+                total[k] = total.get(k, 0) + v
+        ref = refs["runs"][name]
+        label = f"{tag} {name} ({layers} layers)"
+        _tm_hold_losses(f"{label}, {world} ranks, {TM_STEPS} steps", runs[0]["losses"],
+                        ref["losses"], card)
+        if "lora" in ref:
+            _tm_hold_adapters(label, runs[0]["lora"], ref["lora"], ref["start"])
+        if name == "fsdp":
+            print(f"train_mesh {label}: each rank holds {', '.join(str(x['bytes']) for x in runs)}"
+                  f" bytes of trained weights and moments against one card's {ref['bytes']} "
+                  f"({max(x['bytes'] for x in runs) / ref['bytes']:.3f} of it)", flush=True)
+        print(f"train_mesh {label}: every rank launched "
+              f"{json.dumps({k: v for k, v in want_counts.items() if v})} (its own heads and "
+              f"rows); the run's wall {runs[0]['wall']:.2f} s, correctness only (gloo ranks "
+              f"share the card)  [{card}]", flush=True)
+    for label, _, _ in TM_CLI[tag]:
+        said = [rec["cli"][label]["stdout"] for rec in recs]
+        if not said[0].endswith("done\n") or any(said[1:]):
+            raise AssertionError(f"train_mesh {tag} cli {label}: rank 0 printed "
+                                 f"{said[0][-300:]!r}, the others {said[1:]}")
+        print(f"train_mesh (d) {tag} cli.finetune {label}: {recs[0]['cli'][label]['wall']:.1f} "
+              f"s, only rank 0 printed; it wrote {recs[0]['cli'][label]['saved']}", flush=True)
+    return total
+
+
+def train_mesh_phase(cfg, dev, card, ckpt):
+    """The training half of the mesh at full width (PaliGemma-3B 224,
+    seeded bf16 weights, train_batch: B 2, S 512, prefix 268; LoRA r8 on all
+    seven targets, remat), on gloo ranks that share the card (cli/
+    ranks.launch with ``_tm_entry``; the collectives stage through host
+    memory, so these runs show that the results are right, not the speed
+    of a mesh):
+
+    (a) Trainer under make_mesh(2, 1), (1, 2) and (2, 2), at full depth:
+        TM_STEPS LoRA steps with grad_accum_steps 1, and a run with 2,
+        against one card's Trainer on the same batch: losses within
+        TM_LOSS_REL_TOL, adapters by TM_ADAPTER_REL_TOL; every rank
+        launches B1 and B6 exactly TRAIN_PER_STEP a step at its own heads
+        and rows;
+    (b) a full fine-tune at data 2 with fsdp=True (TM_CUT_LAYERS layers)
+        against one card's losses; each rank's trained weights and moments
+        in bytes against one card's;
+    (c) QLoRA over an NF4 base at model 2 (4-bit trees sharded), full depth;
+    (d) cli.finetune: --data_parallel 2 on the cli phase's checkpoint, its
+        final/ resumed on one card (cli.finetune --resume_from) and under
+        --model_parallel 2, all against one-card Trainers (restored from
+        that final/ for the resumed runs); on the checkpoint's copy cut to
+        TM_CUT_LAYERS, --data_parallel 2 with --export_hf (read back by
+        cli.infer) and --fsdp --full_finetune --data_parallel 2;
+    (e) two --multihost --coordinator 127.0.0.1:<port> processes (a model
+        axis of 2 on one host) on the cut checkpoint, against one card's
+        Trainer on the CLI's batches.
+
+    Returns the launch counts summed over the ranks' Trainer runs (each
+    counted on its own)."""
+    import tempfile
+
+    from paligemma_tpu_torch.checkpoints.hf_export import export_hf_checkpoint
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.cli import finetune, infer, ranks
+    from paligemma_tpu_torch.convert import init_params
+    from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+    from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    vc = cfg.vision_config
+    cut_cfg = _tm_cut(cfg)
+    work = tempfile.mkdtemp(prefix="train_mesh_", dir=os.path.dirname(ckpt))
+    # the cut checkpoint (bf16), its fp32 export and the full fine-tune's two
+    # states (the LM and two moments, bf16), with the whole model's share
+    n_cut = _lm_numel(cut_cfg.text_config)
+    need = 2 * 2 * n_cut + 4 * 2 * n_cut + 2 * 3 * 2 * n_cut
+    free = shutil.disk_usage(work).free
+    print(f"train_mesh: {free} bytes free under {work}, {need} needed", flush=True)
+    if free < need + CLI_DISK_SLACK:
+        shutil.rmtree(work, ignore_errors=True)
+        raise AssertionError("train_mesh: no room for the phase's outputs")
+    total: dict = {}
+
+    def proc():
+        return PaliGemmaProcessor(_WordTokenizer(cfg.image_token_index), vc.num_image_tokens,
+                                  vc.image_size)
+
+    def cli_tc(**kw):  # the CLI's TrainConfig under TM_CLI_FLAGS
+        return TrainConfig(**{"learning_rate": TM_LR, "grad_accum_steps": 1,
+                              "warmup_steps": 0, "lora_rank": 8, **kw})
+
+    def cli_losses(path, batches, restore=None, **kw):
+        """One card's Trainer on the checkpoint at ``path``."""
+        params, pcfg = load_hf_model(path, torch.bfloat16, device=dev)
+        tr = Trainer(params, pcfg, cli_tc(**kw))
+        if restore is not None:
+            tr.restore(restore)
+        losses = [tr.train_step(b) for b in batches]
+        del tr, params
+        torch.cuda.empty_cache()
+        return losses
+
+    try:
+        rng = np.random.default_rng(SEED + 23)
+        rows = _ft_rows(work, rng, 4, "tm")
+        manifest = _ft_manifest(os.path.join(work, "quick.jsonl"), rows)
+        cli_batches = list(_ft_batches(rows, 2, 0, proc()))
+        cut_ckpt = os.path.join(work, "cut_ckpt")
+        params = init_params(cut_cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                             torch.bfloat16)
+        export_hf_checkpoint(cut_cfg, params, cut_ckpt, dtype=torch.bfloat16)
+        del params
+
+        # one card's references
+        t0 = time.perf_counter()
+        refs = {"runs": _tm_trainer_runs(tuple(TM_RUNS), cfg, dev, None),
+                "cli_lora": cli_losses(ckpt, cli_batches),
+                "cli_lora_cut": cli_losses(cut_ckpt, cli_batches),
+                "cli_full_cut": cli_losses(cut_ckpt, cli_batches, lora_rank=None)}
+        print(f"train_mesh: one card's references in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        def spawn(tag, resume=""):
+            d, m = TM_MESHES[tag]
+            t0 = time.perf_counter()
+            ranks.launch(_tm_entry, [work, tag, ckpt, cut_ckpt, manifest, resume], m, False,
+                         timeout_s=TM_TIMEOUT, data_parallel=d)
+            recs = [torch.load(os.path.join(work, f"{tag}_rank{r}.pt"), weights_only=False)
+                    for r in range(d * m)]
+            print(f"train_mesh {tag}: {d * m} ranks on one card over gloo in "
+                  f"{time.perf_counter() - t0:.1f} s (process start, weights and the CLI runs "
+                  "included)", flush=True)
+            for k, v in _tm_check_spawn(tag, recs, refs, card).items():
+                total[k] = total.get(k, 0) + v
+            return {label: rec["metrics"] for label, rec in recs[0]["cli"].items()}
+
+        # (a), (b), (d): the data axis
+        cli = spawn("2x1")
+        _tm_hold_losses("(d) cli --data_parallel 2", _tm_losses(cli["lora"]), refs["cli_lora"],
+                        card)
+        _tm_hold_losses(f"(d) cli --data_parallel 2 --export_hf ({TM_CUT_LAYERS} layers)",
+                        _tm_losses(cli["export"]), refs["cli_lora_cut"], card)
+        _tm_hold_losses(f"(d) cli --fsdp --full_finetune --data_parallel 2 ({TM_CUT_LAYERS} "
+                        "layers)", _tm_losses(cli["fsdp"]), refs["cli_full_cut"], card)
+        export = os.path.join(work, "2x1_export", "hf_export")
+        stand = _StandIns(cfg.image_token_index)
+        with stand:
+            text, _, _, wall_i, got_rows, want_text = _cli_call(infer, [
+                "--model_path", export, "--prompt", "caption en", "--image_file_path",
+                rows[0]["image"], "--max_tokens_to_generate", "8", "--quantize_int8"], stand)
+        shutil.rmtree(export)
+        if not text.endswith(want_text) or len(got_rows) != 1 or not got_rows[0]:
+            raise AssertionError(f"train_mesh (d): cli.infer on the export printed "
+                                 f"{text[-300:]!r}")
+        print(f"train_mesh (d): rank 0's --export_hf answered through cli.infer --quantize_int8 "
+              f"in {wall_i:.1f} s: {len(got_rows[0])} ids", flush=True)
+
+        # (d): the data axis's state resumed on one card, then under a model axis
+        final = os.path.join(work, "2x1_lora", "final")
+        refs["resume"] = cli_losses(ckpt, cli_batches, restore=final)
+        with stand:
+            one_out = os.path.join(work, "one_card_resume")
+            _ft_call(finetune, ["--model_path", ckpt, "--train_jsonl", manifest, "--output_dir",
+                                one_out, *TM_CLI_FLAGS, "--resume_from", final], stand)
+        _tm_hold_losses("(d) saved under 2 x 1, resumed on one card (cli --resume_from)",
+                        _tm_losses(_tm_metrics(one_out)), refs["resume"], card)
+        # (a), (c), (d): the model axis
+        cli = spawn("1x2", resume=final)
+        _tm_hold_losses("(d) saved under 2 x 1, resumed under --model_parallel 2",
+                        _tm_losses(cli["resume"]), refs["resume"], card)
+        # (a): DP x TP
+        spawn("2x2")
+
+        # (e) two --multihost processes through a coordinator
+        port = _free_port()
+        root = str(pathlib.Path(__file__).resolve().parent)
+        mh_out = os.path.join(work, "multihost")
+        env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke._tm_multihost_main()",
+             str(cfg.image_token_index), "--model_path", cut_ckpt, "--train_jsonl", manifest,
+             "--output_dir", mh_out, *TM_CLI_FLAGS, "--multihost", "--coordinator",
+             f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(pid)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(2)]
+        try:
+            said = [p.communicate(timeout=TM_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, text) in enumerate(zip(procs, said)):
+            if p.returncode != 0:
+                raise AssertionError(f"train_mesh (e): process {pid} exited {p.returncode}:\n"
+                                     f"{text[-3000:]}")
+        if "mesh data 1 x model 2" not in said[0] or "done" in said[1]:
+            raise AssertionError(f"train_mesh (e): {said[0][-600:]!r} / {said[1][-300:]!r}")
+        _tm_hold_losses(f"(e) 2 --multihost processes ({time.perf_counter() - t0:.1f} s)",
+                        _tm_losses(_tm_metrics(mh_out)), refs["cli_lora_cut"], card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"train_mesh: phase done in {time.perf_counter() - t_phase:.1f} s; launches summed over "
+          f"the ranks' counted Trainer runs: {json.dumps({k: v for k, v in total.items() if v})}",
+          flush=True)
+    return total
+
 def train_batch(cfg):
     """The training phase's batch (numpy, seeded): 256 image tokens and a
     12-token prompt as the prefix, suffix tokens as labels, row 1 padded to
@@ -6711,12 +7182,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_phase(cfg, card, tok_paged, feats_one)
     cli_tp_phase(cfg, card, ckpt, cli_ids, label="cli_dp", data=2)
-    shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"dp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the training half of the mesh: spawned ranks too, after dp
+    train_mesh_counts = train_mesh_phase(cfg, dev, card, ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
-                                           spec_counts, finetune_counts, w8a8_counts))
+                                           spec_counts, finetune_counts, w8a8_counts,
+                                           train_mesh_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

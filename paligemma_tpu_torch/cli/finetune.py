@@ -19,10 +19,37 @@ in the JAX CLI, and train on train/trainer.Trainer (on the card the flash
 forward and backward kernels). ``--base_quant int8 | nf4 | int4`` (or
 ``--quantize_int8``) quantizes the frozen LM base first.
 
+The mesh, as in the JAX CLI (train/trainer under core/mesh):
+
+* ``--data_parallel D --model_parallel M`` trains over D x M ranks, one
+  process each (cli/ranks: spawned here, or one per process under
+  ``torchrun --nproc_per_node D*M``): every rank loads the checkpoint,
+  reads the same rows in the same order and builds the same batches; the
+  trainer keeps its slices and its rows (``--batch_size`` must divide over
+  D) and issues the same collectives. Ranks that share a card run over
+  gloo (a correctness run).
+* ``--fsdp``: ZeRO-3 over the data axis (a no-op at D = 1).
+* ``--multihost``: this process is one rank of a run across hosts
+  (core/multihost: one process per card, numbered host by host); with
+  ``--coordinator host:port --num_processes N --process_id i`` it joins
+  through that address, without them from torchrun's environment. Every
+  process runs the same command but for ``--process_id``. The mesh keeps
+  the model axis inside a host (``--model_parallel`` defaults to the
+  host's ranks, ``--data_parallel`` to the rest).
+
+Rank 0 alone prints, writes ``metrics.jsonl``, the checkpoints and the
+export; the others take part in the collectives of a save (the state
+gathered to one card's layout) and of the export. The evaluation runs on
+rank 0, over the merged weights gathered from every rank, in one card's
+engine (as the JAX CLI evaluates on its merged params without a mesh);
+rank 0 hands the score to the others, so every rank stops early at the
+same step.
+
 Outputs under ``--output_dir``: ``metrics.jsonl`` (a line per step and per
 evaluation), ``epoch_{k}/`` and ``final/`` (checkpoints/local: the adapters,
-or the trained LM, with the optimizer state), and with ``--export_hf`` the
-merged model as ``hf_export/`` (fp32 safetensors, config.json and the
+or the trained LM, with the optimizer state, in one card's layout whatever
+the mesh, so a run resumes under another mesh), and with ``--export_hf``
+the merged model as ``hf_export/`` (fp32 safetensors, config.json and the
 tokenizer files), which ``cli.infer`` and ``cli.serve`` load as they load
 any checkpoint; ``cli.serve --lora NAME=<output_dir>/final`` serves the
 adapters over the base checkpoint.
@@ -30,8 +57,7 @@ adapters over the base checkpoint.
 ``--resume_from`` reads this package's checkpoints only (a directory with
 checkpoints/local's ``state.pt``): the JAX package's orbax training states
 cannot be read without jax, and a directory without ``state.pt`` exits with
-an error. The data-parallel, model-parallel, FSDP and multi-host flags are
-not ported (ROADMAP item 14) and exit with an error that says so.
+an error.
 """
 
 from __future__ import annotations
@@ -39,37 +65,94 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import torch
 
-from .errors import require, user_errors
-
-# flag -> why it is refused (the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "fsdp": "--fsdp is not ported yet (ROADMAP item 14: FSDP training)",
-    "multihost": "--multihost is not ported yet (ROADMAP item 14: core/multihost)",
-    "coordinator": "--coordinator is not ported yet (ROADMAP item 14: core/multihost)",
-}
+from . import ranks
+from .errors import CliError, require, user_errors
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     with user_errors():
-        _main(argv)
+        p = _parser()
+        args = p.parse_args(argv)
+        _check(p, args)
+        if args.multihost:
+            import torch.distributed as dist
+
+            try:
+                _run(args, _join_multihost(args))
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        elif args.data_parallel * args.model_parallel > 1:
+            ranks.launch(_rank_main, argv, args.model_parallel, args.only_cpu,
+                         data_parallel=args.data_parallel)
+        else:
+            _run(args, None)
 
 
-def _device(args) -> torch.device:
-    from .infer import card_or_cpu
-
-    for flag, why in _NOT_PORTED.items():
-        require(not getattr(args, flag), why)
-    require(args.data_parallel * args.model_parallel == 1,
-            "--data_parallel / --model_parallel above 1 are not ported yet (ROADMAP item 14: "
-            "the port's mesh runs one process per rank under torchrun)")
-    return card_or_cpu(args.only_cpu, "bfloat16")
+def _rank_main(argv, rank: "ranks.Rank") -> None:
+    """One rank of the CLI's mesh (cli/ranks)."""
+    with user_errors():
+        _run(_parser().parse_args(argv), rank)
 
 
-def _main(argv=None):
+def _join_multihost(args) -> "ranks.Rank":
+    """This process as a rank of a run across hosts (core/multihost)."""
+    import torch.distributed as dist
+
+    from ..core import multihost
+
+    require(args.only_cpu or torch.cuda.is_available(),
+            "no CUDA device found; pass --only_cpu to run on the CPU")
+    multihost.initialize(args.coordinator, args.num_processes, args.process_id)
+    mesh = multihost.make_multihost_mesh(
+        args.data_parallel if args.data_parallel > 1 else None,
+        args.model_parallel if args.model_parallel > 1 else None, only_cpu=args.only_cpu)
+    device = (torch.device("cpu") if args.only_cpu
+              else torch.device("cuda", torch.cuda.current_device()))
+    me = ranks.Rank(rank=dist.get_rank(), world=dist.get_world_size(), device=device,
+                    backend=mesh.backend, mesh=mesh,
+                    ops=dist.new_group(backend="gloo", timeout=ranks.IDLE_TIMEOUT))
+    me.say(f"ranks: {me.world} over {mesh.backend} (multihost); mesh data {mesh.data} x "
+           f"model {mesh.model}", file=sys.stderr, flush=True)
+    return me
+
+
+def _check(p: argparse.ArgumentParser, args) -> None:
+    """The flags' errors, before any rank starts."""
+    from ..checkpoints.local import has_pytree
+    from ..core.config import PaliGemmaConfig
+    from ..core.mesh import local_text_config
+    from .infer import card_or_cpu, check_parallel
+
+    check_parallel(args)
+    if not args.multihost and args.data_parallel * args.model_parallel == 1:
+        card_or_cpu(args.only_cpu, "bfloat16")
+    if not args.train_jsonl and not args.hf_dataset:
+        p.error("provide --train_jsonl or --hf_dataset")
+    require(args.batch_size % args.data_parallel == 0,
+            f"--batch_size {args.batch_size} does not split over --data_parallel "
+            f"{args.data_parallel}: each data shard trains on batch_size / data_parallel rows")
+    if args.model_parallel > 1:
+        cfg = PaliGemmaConfig.from_hf_json(args.model_path)
+        try:
+            local_text_config(cfg.text_config, args.model_parallel)
+        except NotImplementedError as e:
+            raise CliError(f"--model_parallel {args.model_parallel}: {e}") from None
+    if args.resume_from:
+        require(has_pytree(args.resume_from),
+                f"--resume_from {args.resume_from}: no checkpoint of this package there "
+                "(expected a directory holding state.pt, as epoch_<k>/ and final/ under a "
+                "run's --output_dir); the JAX package's orbax training states are not read "
+                "(that needs jax)")
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PaliGemma fine-tuning (PyTorch + CUDA)")
     p.add_argument("--model_path", required=True, help="HF checkpoint directory")
     p.add_argument("--train_jsonl", default=None)
@@ -91,7 +174,8 @@ def _main(argv=None):
     p.add_argument("--prompt", default="extract JSON.")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--resume_from", default=None,
-                   help="a checkpoint directory of this package (state.pt)")
+                   help="a checkpoint directory of this package (state.pt), saved under "
+                        "any mesh")
     p.add_argument("--learning_rate", type=float, default=1e-4)
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--grad_accum", type=int, default=8)
@@ -111,10 +195,15 @@ def _main(argv=None):
                         "Paligemma_FT.ipynb cell 41; int4 = symmetric grid)")
     p.add_argument("--max_length", type=int, default=512)
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
+                   help="split each batch over D data shards (D x --model_parallel ranks, "
+                        "one process each: spawned, or under torchrun)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported above 1: exits with an error")
-    p.add_argument("--fsdp", action="store_true", help="not ported: exits with an error")
+                   help="tensor parallel over M ranks, one process each; ranks sharing a "
+                        "card run over gloo")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard params/grads/optimizer state over the data "
+                        "axis too (ZeRO-3; for full fine-tunes whose AdamW "
+                        "moments exceed one card)")
     p.add_argument("--eval_every", type=int, default=200)
     p.add_argument("--max_new_tokens_eval", type=int, default=512)
     p.add_argument("--early_stopping_patience", type=int, default=0,
@@ -125,23 +214,32 @@ def _main(argv=None):
                         "HF-format checkpoint directory (the offline analog "
                         "of the reference's hub push)")
     p.add_argument("--only_cpu", action="store_true")
-    p.add_argument("--multihost", action="store_true", help="not ported: exits with an error")
-    p.add_argument("--coordinator", default=None, help="not ported: exits with an error")
-    p.add_argument("--num_processes", type=int, default=None, help="with --multihost")
-    p.add_argument("--process_id", type=int, default=None, help="with --multihost")
-    args = p.parse_args(argv)
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-host run as one rank (core/multihost; every "
+                        "process launches this same command) and train over a "
+                        "data-across-hosts x model-inside-a-host mesh")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port for --multihost; requires --num_processes and "
+                        "--process_id (without it: torchrun's environment)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="with --multihost: the ranks in all (one process a card)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="with --multihost: this process's rank, numbered host by host")
+    return p
 
-    device = _device(args)
-    if not args.train_jsonl and not args.hf_dataset:
-        p.error("provide --train_jsonl or --hf_dataset")
-    if args.resume_from:
-        from ..checkpoints.local import has_pytree
 
-        require(has_pytree(args.resume_from),
-                f"--resume_from {args.resume_from}: no checkpoint of this package there "
-                "(expected a directory holding state.pt, as epoch_<k>/ and final/ under a "
-                "run's --output_dir); the JAX package's orbax training states are not read "
-                "(that needs jax)")
+def _run(args, rank: "ranks.Rank" = None) -> None:
+    """The CLI's body, on one card (``rank`` None) or as one rank of the
+    mesh; every rank runs it in the same order."""
+    from .infer import card_or_cpu
+
+    if rank is None:
+        device, say, lead = card_or_cpu(args.only_cpu, "bfloat16"), print, True
+    else:
+        device, say, lead = rank.device, rank.say, rank.lead
+        require(args.batch_size % rank.mesh.data == 0,
+                f"--batch_size {args.batch_size} does not split over the mesh's data axis of "
+                f"{rank.mesh.data}")
 
     import numpy as np
     from PIL import Image
@@ -193,8 +291,10 @@ def _main(argv=None):
         grad_accum_steps=args.grad_accum,
         warmup_steps=args.warmup_steps,
         lora_rank=None if args.full_finetune else args.lora_rank,
+        fsdp=args.fsdp,
     )
-    trainer = Trainer(params, config, tc, mesh=None)
+    trainer = Trainer(params, config, tc, mesh=None if rank is None else rank.mesh)
+    del params  # under a mesh the trainer keeps this rank's slices only
     if args.resume_from:
         trainer.restore(args.resume_from)
 
@@ -244,8 +344,9 @@ def _main(argv=None):
     from ..runtime.logging import MetricsLogger
 
     step = 0
-    os.makedirs(args.output_dir, exist_ok=True)
-    metrics = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"))
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
+        metrics = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"))
     best_dist, evals_since_best, stop = float("inf"), 0, False
     for epoch in range(args.epochs):
         if stop:
@@ -256,66 +357,80 @@ def _main(argv=None):
             dt = time.perf_counter() - t0
             step += 1
             tokens = int(batch["attention_mask"].sum())
-            print(f"epoch {epoch} step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
-            metrics.log(step, epoch=epoch, train_loss=loss, step_ms=dt * 1e3,
-                        tokens_per_sec=tokens / dt)
+            say(f"epoch {epoch} step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            if lead:
+                metrics.log(step, epoch=epoch, train_loss=loss, step_ms=dt * 1e3,
+                            tokens_per_sec=tokens / dt)
             if eval_rows and step % args.eval_every == 0:
-                dist = _evaluate(trainer, processor, eval_rows, config, args)
-                metrics.log(step, val_edit_distance=dist)
+                dist = _evaluate(trainer, processor, eval_rows, config, args, rank)
+                if lead:
+                    metrics.log(step, val_edit_distance=dist)
                 if dist < best_dist - 1e-6:
                     best_dist, evals_since_best = dist, 0
                 else:
                     evals_since_best += 1
                 if (args.early_stopping_patience
                         and evals_since_best >= args.early_stopping_patience):
-                    print(f"early stopping: no val improvement for "
-                          f"{evals_since_best} evals")
+                    say(f"early stopping: no val improvement for "
+                        f"{evals_since_best} evals")
                     stop = True
                     break
         trainer.save(os.path.join(args.output_dir, f"epoch_{epoch}"))
     trainer.save(os.path.join(args.output_dir, "final"))
-    metrics.close()
+    if lead:
+        metrics.close()
     if args.export_hf:
         from ..checkpoints.hf_export import export_hf_checkpoint
 
-        export_dir = os.path.join(args.output_dir, "hf_export")
-        export_hf_checkpoint(config, trainer.merged_params(), export_dir)
-        # ship the tokenizer along so the export is directly servable
-        tokenizer.save_pretrained(export_dir)
-        print(f"exported HF checkpoint to {export_dir}")
-    print("done")
+        merged = trainer.merged_params()  # every rank: the gather is collective
+        if lead:
+            export_dir = os.path.join(args.output_dir, "hf_export")
+            export_hf_checkpoint(config, merged, export_dir)
+            # ship the tokenizer along so the export is directly servable
+            tokenizer.save_pretrained(export_dir)
+            print(f"exported HF checkpoint to {export_dir}")
+        del merged
+    say("done")
 
 
-def _evaluate(trainer, processor, eval_rows, config, args):
+def _evaluate(trainer, processor, eval_rows, config, args, rank=None):
+    """The mean normalized edit distance of greedy answers on the eval
+    subset: on rank 0, in one card's engine over the merged weights every
+    rank gathers; the score is handed to the other ranks."""
     import numpy as np
     from PIL import Image
 
     from ..runtime.engine import PaliGemmaEngine
     from ..train.data import normalized_edit_distance
 
-    engine = PaliGemmaEngine(
-        trainer.merged_params(), config,
-        max_seq_len=args.max_length + args.max_new_tokens_eval,
-        eos_token_id=processor.tokenizer.eos_token_id,
-        # the plain bf16 decode: the merged tree is not the int8 decode
-        # tree the decode kernels take (the JAX engine turns its fused
-        # layer off for such a tree itself)
-        fused_layer=False,
-    )
-    scores = []
-    subset = eval_rows[: args.eval_subset] if args.eval_subset else eval_rows
-    for row in subset:
-        img = Image.open(row["image"]) if isinstance(row["image"], str) else row["image"]
-        inputs = processor(images=[img], text=[row["prompt"]])
-        toks = engine.generate(
-            inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"],
-            max_new_tokens=args.max_new_tokens_eval, do_sample=False,
+    merged = trainer.merged_params()  # every rank: the gather is collective
+    dist = None
+    if rank is None or rank.lead:
+        engine = PaliGemmaEngine(
+            merged, config,
+            max_seq_len=args.max_length + args.max_new_tokens_eval,
+            eos_token_id=processor.tokenizer.eos_token_id,
+            # the plain bf16 decode: the merged tree is not the int8 decode
+            # tree the decode kernels take (the JAX engine turns its fused
+            # layer off for such a tree itself)
+            fused_layer=False,
         )
-        pred = processor.tokenizer.decode(toks[0], skip_special_tokens=True)
-        scores.append(normalized_edit_distance(pred, row["target"]))
-    dist = float(np.mean(scores))
-    print(f"val_edit_distance {dist:.4f}")
-    return dist
+        scores = []
+        subset = eval_rows[: args.eval_subset] if args.eval_subset else eval_rows
+        for row in subset:
+            img = Image.open(row["image"]) if isinstance(row["image"], str) else row["image"]
+            inputs = processor(images=[img], text=[row["prompt"]])
+            toks = engine.generate(
+                inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"],
+                max_new_tokens=args.max_new_tokens_eval, do_sample=False,
+            )
+            pred = processor.tokenizer.decode(toks[0], skip_special_tokens=True)
+            scores.append(normalized_edit_distance(pred, row["target"]))
+        dist = float(np.mean(scores))
+        print(f"val_edit_distance {dist:.4f}")
+        del engine
+    del merged
+    return dist if rank is None else rank.share(dist)
 
 
 if __name__ == "__main__":

@@ -25,8 +25,13 @@ calls the collectives itself:
   kernels' ``repack_for_tp`` replicates them, and SigLIP's patch embedding
   stays replicated (JAX shards its D; here the encoder blocks take the
   whole embedding as their input, which a D-sharded embedding would need
-  gathered again). Weights are replicated over ``data``; FSDP's
-  ``fsdp_param_specs`` is not ported (the data axis of training).
+  gathered again). Weights are replicated over ``data``, except under
+  FSDP: ``fsdp_param_specs`` (JAX's rule) adds one ``"data"`` dimension
+  to every leaf of 64 KiB or more, and :class:`Fsdp` gathers such leaves
+  at use (train/trainer ``fsdp=True``). 4-bit leaves (``w4``, ``s4``)
+  shard as int8 ones do, the codebook replicated; a row-parallel split
+  must fall on a quantization block. ``unshard_params`` / ``unshard_lora``
+  are the inverses (every rank gets the whole tree: one card's layout).
 * ``shard_lora`` slices a LoRA tree or a multi-LoRA bank the same way
   (the counterpart of JAX's ``lora_specs``): column-parallel targets (q,
   gate, up) take B's output columns with A whole, row-parallel ones (o,
@@ -43,6 +48,16 @@ calls the collectives itself:
   gloo (the CPU tests, or processes that share one card) a CUDA tensor is
   staged through host memory inside the helper. That is a transport choice:
   every product stays on the card.
+* Training (train/trainer under a mesh) differentiates through them as
+  Megatron does: ``psum`` of a tensor that requires grad is a new tensor
+  whose gradient passes through unchanged (the row-parallel output's
+  operator), ``copy_to_model`` is the identity whose gradient is summed
+  over the model axis (at a column-parallel input: each rank's heads or
+  columns give part of it), ``all_gather`` / ``gather_vocab`` hand each
+  rank the gradient of its own slice, and ``vocab_parallel_embed`` each
+  rank the gradient of its own rows. Without autograd they are the
+  inference paths, with the same bits. The data axis's collectives
+  (``data_sum``, :class:`Fsdp`'s gathers) run over the gloo data group.
 """
 
 from __future__ import annotations
@@ -59,7 +74,10 @@ MODEL = "model"
 DATA = "data"
 _COL_PROJ = {"q", "k", "v", "gate", "up", "fc1", "qkv", "gateup"}
 _ROW_PROJ = {"o", "down", "fc2"}
-_WEIGHT_NAMES = ("w8", "kernel")  # the (..., K, N) leaf of an int8 / dense dict
+_WEIGHT_NAMES = ("w8", "kernel", "w4")  # the weight of an int8 / dense / 4-bit dict
+# the leaves of a row-parallel dict cut by input rows: the weight, and a
+# 4-bit weight's block scales (..., K/group, N); int8 scales and biases stay
+_ROW_KEYS = ("w8", "kernel", "w4", "s4")
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -162,7 +180,7 @@ def _spec_for_leaf(names, ndim: int) -> Tuple:
         return rep  # norms, the projector
     if proj in _COL_PROJ:
         return axis(0)  # weights, scales and biases: the output columns
-    return axis(1) if names[-1] in _WEIGHT_NAMES or names[-1] == proj else rep
+    return axis(1) if names[-1] in _ROW_KEYS or names[-1] == proj else rep
 
 
 def _replicated(tree):
@@ -171,13 +189,20 @@ def _replicated(tree):
     return (None,) * tree.dim()
 
 
+def _in_dim(leaf) -> int:
+    """K of a (..., K, N) weight leaf (a 4-bit one packs two rows a byte)."""
+    if isinstance(leaf, dict):
+        if "w4" in leaf:
+            return 2 * leaf["w4"].shape[-2]
+        leaf = leaf[next(n for n in _WEIGHT_NAMES if n in leaf)]
+    return leaf.shape[-2]
+
+
 def _kv_narrow(attn: Dict[str, Any]) -> bool:
     """k and v narrower than q (one KV head): replicated, not sharded."""
     if "k" not in attn or "o" not in attn:
         return False
-    o = attn["o"]
-    nq = (o[next(n for n in _WEIGHT_NAMES if n in o)] if isinstance(o, dict) else o).shape[-2]
-    return _width(attn["k"]) < nq
+    return _width(attn["k"]) < _in_dim(attn["o"])
 
 
 def param_specs(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -235,6 +260,35 @@ def lora_specs(lora: Dict[str, Any]) -> Dict[str, Any]:
     return {"layers": out}
 
 
+FSDP_MIN_BYTES = 1 << 16  # leaves below 64 KiB stay replicated under FSDP
+
+
+def fsdp_param_specs(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """ZeRO-3 specs (JAX's ``fsdp_param_specs``): ``param_specs`` with one
+    more dimension of every leaf of at least 64 KiB on ``"data"``: the
+    largest one that is not on ``"model"`` and whose size the data axis
+    divides (ties: the earliest). Smaller leaves, and leaves with no such
+    dimension, keep their spec. At ``data == 1``, ``param_specs``."""
+    d = mesh.data
+    base = param_specs(params)
+    if d == 1:
+        return base
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k]) for k in t}
+        if t.dim() == 0 or t.numel() * t.element_size() < FSDP_MIN_BYTES:
+            return spec
+        cands = [i for i in range(t.dim())
+                 if spec[i] is None and t.shape[i] % d == 0 and t.shape[i] > 1]
+        if not cands:
+            return spec
+        ax = max(cands, key=lambda i: t.shape[i])
+        return tuple(DATA if i == ax else a for i, a in enumerate(spec))
+
+    return walk(params, base)
+
+
 def batch_spec() -> Tuple:
     """A batch's rows over the data axis (JAX's ``batch_spec``)."""
     return (DATA,)
@@ -257,15 +311,17 @@ def _slice(t: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
 
 def _cols(leaf, lo: int, hi: int):
     """Output columns [lo, hi) of a column-parallel leaf: every tensor in it
-    (weight, int8 scales, bias) has them last."""
+    (weight, int8 or 4-bit scales, bias) has them last; a 4-bit codebook
+    stays whole."""
     if isinstance(leaf, dict):
-        return {k: _cols(v, lo, hi) for k, v in leaf.items()}
+        return {k: v if k == "grid" else _cols(v, lo, hi) for k, v in leaf.items()}
     return _slice(leaf, leaf.dim() - 1, lo, hi)
 
 
 def _cat_cols(*leaves):
     if isinstance(leaves[0], dict):
-        return {k: _cat_cols(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return {k: leaves[0][k] if k == "grid" else _cat_cols(*(leaf[k] for leaf in leaves))
+                for k in leaves[0]}
     return torch.cat(leaves, dim=-1)
 
 
@@ -276,12 +332,19 @@ def _width(leaf) -> int:
 
 def _rows(leaf, m: int, r: int):
     """This rank's input rows of a row-parallel leaf: the weight's K rows;
-    the int8 scales and the bias are replicated (added once, after the sum)."""
+    the int8 scales and the bias are replicated (added once, after the sum).
+    A 4-bit weight keeps its packed rows and their block scales: the split
+    must fall on a quantization block (``ValueError`` otherwise)."""
     if isinstance(leaf, dict):
-        if "w4" in leaf:
-            raise NotImplementedError("shard_params: 4-bit trees are not sharded")
-        return {k: _rows(v, m, r) if k in _WEIGHT_NAMES else v for k, v in leaf.items()}
+        if "s4" in leaf and leaf["s4"].shape[-2] % m:
+            raise ValueError(
+                f"shard_params: a 4-bit weight of {_in_dim(leaf)} rows in "
+                f"{leaf['s4'].shape[-2]} quantization blocks does not split over {m} ranks "
+                "on a block boundary")
+        return {k: _rows(v, m, r) if k in _ROW_KEYS else v for k, v in leaf.items()}
     k = leaf.shape[-2]
+    if k % m:
+        raise ValueError(f"shard_params: {k} rows do not split over {m} ranks")
     return _slice(leaf, leaf.dim() - 2, r * k // m, (r + 1) * k // m)
 
 
@@ -296,7 +359,7 @@ def _shard_attn(attn: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
     """q sharded by heads, o by rows; k and v sharded too when they are as
     wide as q, replicated when narrower (one KV head)."""
     o = attn["o"]  # (nq, K): its rows are q's width
-    nq = (o[next(n for n in _WEIGHT_NAMES if n in o)] if isinstance(o, dict) else o).shape[-2]
+    nq = _in_dim(o)
     out = {"o": _rows(o, m, r)}
     if "qkv" in attn:
         qkv = attn["qkv"]
@@ -312,7 +375,7 @@ def _shard_attn(attn: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
     for name, leaf in attn.items():
         if name not in ("q", "k", "v", "qkv", "o"):
             raise NotImplementedError(f"shard_params: attention leaf {name!r}")
-    return out
+    return {k: out[k] for k in attn}  # the input's key order: a trainer pairs leaves by it
 
 
 def _shard_mlp(mlp: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
@@ -406,14 +469,70 @@ def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
     return mesh.backend != "nccl" and x.is_cuda
 
 
-def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum of ``x`` over the model axis, in place; returns ``x``."""
-    if _staged(mesh, x):
+def _reduce(x: torch.Tensor, group, staged: bool, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce ``x`` over ``group`` in place (through host memory when
+    ``staged``); returns ``x``."""
+    if staged:
         host = x.cpu()
-        dist.all_reduce(host, group=mesh.group)
+        dist.all_reduce(host, op=op, group=group)
         return x.copy_(host)
-    dist.all_reduce(x, group=mesh.group)
+    dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def _fresh(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that a collective may write in place."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _autograd(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumModel(torch.autograd.Function):
+    """The sum over the model axis forward, the identity backward (the
+    operator at a row-parallel output: every rank's output gradient is the
+    whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _reduce(_fresh(x), mesh.group, _staged(mesh, x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward, the sum over the model axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(_fresh(g), ctx.mesh.group, _staged(ctx.mesh, g)), None
+
+
+def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum of ``x`` over the model axis, in place; returns ``x``. Under
+    autograd (``x`` requires grad) a new tensor, whose gradient reaches
+    ``x`` unchanged."""
+    if _autograd(x):
+        return _SumModel.apply(x, mesh)
+    return _reduce(x, mesh.group, _staged(mesh, x))
+
+
+def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``x`` at the input of column-parallel projections (q, k, v, gate, up,
+    the head, a tower's q, k, v and fc1). Under autograd its gradient is
+    summed over the model axis, as each rank's heads or columns give a part
+    of it; otherwise (and without a mesh) ``x`` itself."""
+    if mesh is None or not _autograd(x):
+        return x
+    return _CopyToModel.apply(x, mesh)
 
 
 def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -427,17 +546,40 @@ def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+class _GatherModel(torch.autograd.Function):
+    """``all_gather`` forward; backward, this rank's slice of the gradient
+    (every rank computes the same function of the gathered whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rank = mesh.rank
+        return _gather_model(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None
+
+
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's ``x`` stacked in rank order: (model, *x.shape)."""
+    """Every rank's ``x`` stacked in rank order: (model, *x.shape). Under
+    autograd each rank's ``x`` gets the gradient of its own slice."""
+    if _autograd(x):
+        return _GatherModel.apply(x, mesh)
+    return _gather_model(x, mesh)
+
+
+def _gather_model(x: torch.Tensor, mesh: Mesh, host: bool = False) -> torch.Tensor:
+    """``all_gather`` without autograd; ``host``: the result in host memory."""
     x = x.contiguous()
     if mesh.backend != "nccl":
-        host = x.cpu()
-        parts = [torch.empty_like(host) for _ in range(mesh.model)]
-        dist.all_gather(parts, host, group=mesh.group)
-        return torch.stack(parts).to(x.device)
+        staged = x.cpu()
+        parts = [torch.empty_like(staged) for _ in range(mesh.model)]
+        dist.all_gather(parts, staged, group=mesh.group)
+        out = torch.stack(parts)
+        return out if host else out.to(x.device)
     out = torch.empty((mesh.model,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=mesh.group)
-    return out
+    return out.cpu() if host else out
 
 
 def gather_data(x: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
@@ -462,9 +604,238 @@ def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Rows of a vocab-sharded (V/m, H) embedding for global ``ids``: each
     rank gathers the ids in its shard (zeros elsewhere) and the ranks' rows
-    are summed, which is exact (one nonzero term per id)."""
+    are summed, which is exact (one nonzero term per id). Under autograd
+    each rank's table gets the gradient of the rows it holds."""
     vl = table.shape[0]
     local = ids.long() - mesh.rank * vl
     mine = (local >= 0) & (local < vl)
     rows = table[local.clamp(0, vl - 1)].float() * mine[..., None]
     return psum(rows, mesh).to(table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The data axis of training: sums and FSDP gathers over the gloo data group
+# ---------------------------------------------------------------------------
+def data_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Sum of ``x`` over the data axis, in place (``x`` without one);
+    returns ``x``. No autograd."""
+    if mesh is None or mesh.data == 1:
+        return x
+    return _reduce(x, mesh.data_group, x.is_cuda)
+
+
+def model_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Sum of ``x`` over the model axis, in place (``x`` without one);
+    returns ``x``. No autograd."""
+    if mesh is None or mesh.model == 1:
+        return x
+    return _reduce(x, mesh.group, _staged(mesh, x))
+
+
+def _gather_data(x: torch.Tensor, mesh: Mesh, dim: int, host: bool = False) -> torch.Tensor:
+    staged = x.detach().cpu().contiguous()
+    parts = [torch.empty_like(staged) for _ in range(mesh.data)]
+    dist.all_gather(parts, staged, group=mesh.data_group)
+    out = torch.cat(parts, dim=dim)
+    return out if host else out.to(x.device)
+
+
+class _GatherData(torch.autograd.Function):
+    """An FSDP leaf's data shards joined along ``dim`` forward; backward,
+    the gradient summed over the data axis and this rank's shard kept (the
+    reduce-scatter, as a sum and a slice: gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return _gather_data(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = data_sum(_fresh(g), ctx.mesh)
+        mine = total.narrow(ctx.dim, ctx.mesh.data_index * ctx.n, ctx.n)
+        return mine.contiguous(), None, None
+
+
+def shard_data(tree: Dict[str, Any], specs: Dict[str, Any], mesh: Mesh):
+    """(this rank's data shard of every leaf whose spec names ``"data"``,
+    the tree of those dimensions, None for a whole leaf). ``tree`` holds
+    the rank's model slices (``shard_params``) and ``specs`` the whole
+    tree's ``fsdp_param_specs``."""
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            pairs = {k: walk(t[k], spec[k]) for k in t}
+            return {k: v[0] for k, v in pairs.items()}, {k: v[1] for k, v in pairs.items()}
+        if DATA not in spec:
+            return t, None
+        dim = spec.index(DATA)
+        n = t.shape[dim] // mesh.data
+        return _slice(t, dim, mesh.data_index * n, (mesh.data_index + 1) * n), dim
+
+    return walk(tree, specs)
+
+
+def unshard_data(tree, dims, mesh: Mesh, *, host: bool = False):
+    """``shard_data``'s inverse on a tree laid out as ``dims``: every shard
+    joined over the data axis (collective over the data group; no
+    autograd). ``host``: the joined leaves in host memory."""
+    if isinstance(tree, dict):
+        return {k: unshard_data(tree[k], dims[k], mesh, host=host) for k in tree}
+    return tree if dims is None else _gather_data(tree, mesh, dims, host)
+
+
+class LocalRows(dict):
+    """A batch whose rows are already this rank's shard of the data axis
+    (core/multihost.global_batch_from_local): the trainer takes it whole
+    instead of cutting its rows by ``data_rows``."""
+
+
+class Fsdp:
+    """The gathers of a tree whose leaves are data shards (``shard_data``):
+    a leaf is joined over the data axis where it is used, under autograd
+    with its gradient summed over the data axis and cut back to the shard.
+    Leaves are known by identity, so the same shard tensors must be passed
+    in (the trainer updates them in place)."""
+
+    def __init__(self, mesh: Mesh, tree: Dict[str, Any], dims: Dict[str, Any]):
+        self.mesh = mesh
+        self._dims: Dict[int, Tuple[torch.Tensor, int]] = {}
+
+        def walk(t, d):
+            if isinstance(t, dict):
+                for k in t:
+                    walk(t[k], d[k])
+            elif d is not None:
+                self._dims[id(t)] = (t, d)
+
+        walk(tree, dims)
+
+    def _dim(self, t) -> Optional[int]:
+        hit = self._dims.get(id(t))
+        return hit[1] if hit is not None and hit[0] is t else None
+
+    def _join(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _GatherData.apply(t, self.mesh, dim)
+        return _gather_data(t, self.mesh, dim)
+
+    def full(self, tree):
+        """``tree`` with every shard joined (a leaf, or a dict of them)."""
+        if isinstance(tree, dict):
+            return {k: self.full(v) for k, v in tree.items()}
+        dim = self._dim(tree)
+        return tree if dim is None else self._join(tree, dim)
+
+    def layer(self, tree, i: int):
+        """Layer ``i`` of a stacked (L, ...) tree, every shard joined: a
+        shard over another dimension gathers only layer i's slice."""
+        if isinstance(tree, dict):
+            return {k: self.layer(v, i) for k, v in tree.items()}
+        dim = self._dim(tree)
+        if dim is None:
+            return tree[i]
+        if dim == 0:  # the layers themselves are sharded
+            return self._join(tree, 0)[i]
+        return self._join(tree[i], dim - 1)
+
+
+# ---------------------------------------------------------------------------
+# The inverses: one card's layout from the ranks' slices
+# ---------------------------------------------------------------------------
+def _joined(t: torch.Tensor, mesh: Mesh, dim: int, host: bool) -> torch.Tensor:
+    return torch.cat(_gather_model(t.detach(), mesh, host).unbind(0), dim=dim)
+
+
+def _join_cols(leaf, mesh: Mesh, host: bool):
+    if isinstance(leaf, dict):
+        return {k: v if k == "grid" else _join_cols(v, mesh, host) for k, v in leaf.items()}
+    return _joined(leaf, mesh, leaf.dim() - 1, host)
+
+
+def _join_rows(leaf, mesh: Mesh, host: bool):
+    if isinstance(leaf, dict):
+        return {k: _join_rows(v, mesh, host) if k in _ROW_KEYS else v for k, v in leaf.items()}
+    return _joined(leaf, mesh, leaf.dim() - 2, host)
+
+
+def _parts(leaf, mesh: Mesh, host: bool):
+    """Every rank's copy of a leaf (or dict), in rank order."""
+    if isinstance(leaf, dict):
+        per = {k: _parts(v, mesh, host) for k, v in leaf.items()}
+        return [{k: per[k][r] for k in leaf} for r in range(mesh.model)]
+    return list(_gather_model(leaf.detach(), mesh, host).unbind(0))
+
+
+def unshard_params(local: Dict[str, Any], mesh: Mesh, *, kv_whole: bool = False,
+                   host: bool = False) -> Dict[str, Any]:
+    """The whole tree of which ``local`` holds this rank's ``shard_params``
+    slices, on every rank (collective over the model group). ``kv_whole``:
+    k and v are replicated (one KV head narrower than q: shard_params keeps
+    them whole), which the slices alone cannot tell when a rank's q is one
+    KV head wide. ``host``: the joined leaves in host memory (the whole
+    leaves never held on the device together). The leaves may be data
+    shards too (``shard_data``): the data dimension is never a model one,
+    so this gives the data shards of the whole tree."""
+    if mesh.model == 1:
+        return local
+
+    def attn(t):
+        nq_r = _in_dim(t["o"]) // mesh.model
+        out = {"o": _join_rows(t["o"], mesh, host)}
+        if "qkv" in t:
+            parts = _parts(t["qkv"], mesh, host)
+            w = _width(t["qkv"])
+            nkv = (w - nq_r) // 2
+            q = _cat_cols(*(_cols(p, 0, nq_r) for p in parts))
+            if kv_whole:
+                kv = _cols(t["qkv"], nq_r, w)
+            else:
+                kv = _cat_cols(*(_cols(p, nq_r, nq_r + nkv) for p in parts),
+                               *(_cols(p, nq_r + nkv, w) for p in parts))
+            out["qkv"] = _cat_cols(q, kv)
+        else:
+            out["q"] = _join_cols(t["q"], mesh, host)
+            for n in ("k", "v"):
+                out[n] = t[n] if kv_whole else _join_cols(t[n], mesh, host)
+        return {k: out[k] for k in t}
+
+    def mlp(t):
+        out = {}
+        for name, leaf in t.items():
+            if name == "gateup":
+                parts, half = _parts(leaf, mesh, host), _width(leaf) // 2
+                out[name] = _cat_cols(*(_cols(p, 0, half) for p in parts),
+                                      *(_cols(p, half, 2 * half) for p in parts))
+            elif name in ("down", "fc2"):
+                out[name] = _join_rows(leaf, mesh, host)
+            else:
+                out[name] = _join_cols(leaf, mesh, host)
+        return out
+
+    def walk(t, names):
+        if not isinstance(t, dict):
+            spec = _spec_for_leaf(names, t.dim())
+            return t if MODEL not in spec else _joined(t, mesh, spec.index(MODEL), host)
+        if names and names[-1] == "attn":
+            return attn(t)
+        if names and names[-1] == "mlp":
+            return mlp(t)
+        return {k: walk(v, names + (k,)) for k, v in t.items()}
+
+    return walk(local, ())
+
+
+def unshard_lora(local: Dict[str, Any], specs: Dict[str, Any], mesh: Mesh, *,
+                 host: bool = False) -> Dict[str, Any]:
+    """The whole LoRA tree of ``shard_lora``'s slices, on every rank;
+    ``specs``: ``lora_specs`` of the whole tree (collective over the model
+    group). ``host``: the joined leaves in host memory."""
+    if mesh.model == 1:
+        return local
+    layers = {}
+    for name, p in local["layers"].items():
+        spec = specs["layers"][name]
+        layers[name] = {k: (_joined(v, mesh, spec[k].index(MODEL), host) if MODEL in spec[k]
+                            else v) for k, v in p.items()}
+    return {**local, "layers": layers}

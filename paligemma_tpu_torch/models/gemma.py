@@ -24,7 +24,8 @@ kernel decode paths, the bank's kernel operands (kernels/decode_layer
 ``lora_pack``). Training (``forward_train``) runs the blocks without a
 cache, with un-merged LoRA adapters, the flash kernel's forward and
 backward when ``flash_lens`` is given, and ``torch.utils.checkpoint`` per
-layer with ``remat``.
+layer with ``remat``; under a mesh with the collectives' gradients of
+core/mesh, and under FSDP each layer's weights gathered where it runs.
 
 Over a paged KV pool (runtime/paged_cache, (L, n_pages, page_size, n_kv, d)):
 * ``forward_paged_decode``: the page walk, torch projections and one paged
@@ -259,7 +260,7 @@ def _decoder_block(
     nh, hd = cfg.num_attention_heads, cfg.head_dim
 
     residual = x
-    y = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    y = mesh_lib.copy_to_model(rms_norm(x, lp["input_norm"], cfg.rms_norm_eps), mesh)
     q, k, v = _attn_proj(cfg, y, lp, lora_lp, int8_act)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -299,7 +300,7 @@ def _decoder_block(
     if mlp_full is not None:  # the post-attention norm in the gate/up GEMV's prologue
         return residual + mlp_decode_fused(x, mlp_full, layer_idx,
                                            norm=(lp["post_norm"], cfg.rms_norm_eps))
-    y = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
+    y = mesh_lib.copy_to_model(rms_norm(x, lp["post_norm"], cfg.rms_norm_eps), mesh)
     return residual + _mlp(y, lp, lora_lp, mesh, int8_act)
 
 
@@ -309,7 +310,10 @@ def lm_head(params: Params, x: torch.Tensor, *, mesh=None, int8_act: bool = Fals
     a mesh the rank's vocab shard, gathered (fp32 logits). ``int8_act`` (the
     head of a W8A8 prefill): the int8 head stays weight-only, as the
     reference's, and on the card takes the int8 GEMV tile
-    (quant.int8_matmul_card), never a dequantized copy of the head."""
+    (quant.int8_matmul_card), never a dequantized copy of the head. In
+    training under a mesh the gathered logits hand each rank the gradient
+    of its vocab shard, and ``x`` the sum of the shards' (core/mesh)."""
+    x = mesh_lib.copy_to_model(x, mesh)
     if "head_q" in params:
         hq = params["head_q"]
         logits = int8_matmul_card(x, hq["w8"], hq["s"]) if int8_act else matmul_any(x, hq)
@@ -667,28 +671,43 @@ def forward_train(
     lora: Optional[Params] = None,
     remat: bool = True,
     flash_lens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
+    *,
+    fsdp: Optional[mesh_lib.Fsdp] = None,
 ) -> torch.Tensor:
     """No-cache forward for training (prefix-LM: bidirectional prefix,
     causal suffix, from ``pairwise_valid`` or, on the flash path, from
     ``flash_lens`` = (prefix_lens, kv_lens)). Returns fp32 logits
     (B, S, vocab). ``remat`` recomputes each block in the backward pass
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
-    activations."""
+    activations.
+
+    ``mesh``: tensor parallel (params and adapters this rank's slices): the
+    rank computes with its heads and MLP columns (``local_text_config``),
+    attention through ``flash_attention_sharded`` on the flash path, and
+    the logits are gathered by vocab; the recompute of a block issues the
+    block's collectives again, in the same order on every rank. ``fsdp``:
+    the layers' leaves are data shards (core/mesh.Fsdp), each layer
+    gathered where it runs, and again in its recompute."""
     dtype = input_embeds.dtype
+    lcfg = cfg if mesh is None else mesh_lib.local_text_config(cfg, mesh.model)
     x = input_embeds * _embed_scale(cfg, dtype)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, dtype)
     mask = None if flash_lens is not None else attention.make_additive_mask(pairwise_valid)
 
-    def block(h, lp, lora_lp):
-        return _decoder_block(cfg, h, lp, cos, sin, None, 0, 0, mask,
-                              flash_lens=flash_lens, lora_lp=lora_lp)
+    def block(h, i, lora_lp):
+        lp = (layer_params(params["layers"], i) if fsdp is None
+              else fsdp.layer(params["layers"], i))
+        return _decoder_block(lcfg, h, lp, cos, sin, None, 0, 0, mask,
+                              flash_lens=flash_lens, lora_lp=lora_lp, mesh=mesh)
 
-    for i in range(params["layers"]["input_norm"].shape[0]):
-        lp = layer_params(params["layers"], i)
+    for i in range(cfg.num_hidden_layers):
         lora_lp = None if lora is None else layer_params(lora["layers"], i)
         if remat:
-            x = checkpoint(block, x, lp, lora_lp, use_reentrant=False)
+            x = checkpoint(block, x, i, lora_lp, use_reentrant=False)
         else:
-            x = block(x, lp, lora_lp)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return lm_head(params, x).float()
+            x = block(x, i, lora_lp)
+    top = params if fsdp is None else fsdp.full({k: v for k, v in params.items()
+                                                 if k != "layers"})
+    x = rms_norm(x, top["final_norm"], cfg.rms_norm_eps)
+    return lm_head(top, x, mesh=mesh).float()

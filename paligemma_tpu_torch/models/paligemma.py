@@ -451,6 +451,9 @@ def forward_train(
     lora: Optional[Dict[str, Any]] = None,
     remat: bool = True,
     use_flash: bool = False,
+    *,
+    mesh=None,
+    fsdp=None,
 ) -> torch.Tensor:
     """Supervised forward (no KV cache): fp32 logits (B, S, vocab).
 
@@ -459,15 +462,26 @@ def forward_train(
     runs without building an autograd graph. The flash path assumes the
     prefix (image + prompt) is contiguous at the start of each row, as
     processor-built batches are: prefix_lens = real prefix tokens, kv_lens =
-    real tokens."""
+    real tokens.
+
+    ``mesh``: tensor parallel, the params and adapters this rank's slices
+    (core/mesh.shard_params, shard_lora): the tower and the decoder run
+    sharded (models/gemma ``forward_train``), the embedding looked up in
+    its vocab shard; every rank of the model axis gets the whole logits.
+    ``fsdp`` (core/mesh.Fsdp): the leaves are data shards, gathered where
+    they are used (the decoder's layer by layer)."""
+    if fsdp is not None:
+        params = {**fsdp.full({k: v for k, v in params.items() if k != "lm"}),
+                  "lm": {**fsdp.full({k: v for k, v in params["lm"].items() if k != "layers"}),
+                         "layers": params["lm"]["layers"]}}
     dtype = params["lm"]["embed"].dtype
     vision_attn = "flash" if use_flash and cfg.vision_config.head_dim % 128 == 0 else "xla"
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and _needs_grad(params["vision"], params["projector"])):
         image_features = siglip.encode(params["vision"], cfg.vision_config,
-                                       pixel_values.to(dtype), attn=vision_attn)
+                                       pixel_values.to(dtype), attn=vision_attn, mesh=mesh)
         image_embeds = project_image_features(params, image_features)
-    text_embeds = params["lm"]["embed"][input_ids.long()]
+    text_embeds = gemma.embed_tokens(params["lm"], input_ids, mesh)
     merged = merge_embeddings(cfg, input_ids, text_embeds, image_embeds)
     position_ids = prefill_position_ids(attention_mask)
     if use_flash:
@@ -475,7 +489,8 @@ def forward_train(
         prefix_lens = ((token_type_ids == 0) & real).sum(dim=-1).to(torch.int32)
         kv_lens = attention_mask.sum(dim=-1).to(torch.int32)
         return gemma.forward_train(params["lm"], cfg.text_config, merged, position_ids, None,
-                                   lora=lora, remat=remat, flash_lens=(prefix_lens, kv_lens))
+                                   lora=lora, remat=remat, flash_lens=(prefix_lens, kv_lens),
+                                   mesh=mesh, fsdp=fsdp)
     pairwise = train_attention_mask(attention_mask, token_type_ids)
     return gemma.forward_train(params["lm"], cfg.text_config, merged, position_ids, pairwise,
-                               lora=lora, remat=remat)
+                               lora=lora, remat=remat, mesh=mesh, fsdp=fsdp)

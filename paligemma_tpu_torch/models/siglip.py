@@ -10,7 +10,9 @@ each rank holds its share of the heads (q/k/v columns) and of fc1's
 columns, and the o and fc2 partials are summed across ranks in fp32 before
 the cast and the (replicated) bias. The patch embedding stays replicated
 (the JAX package shards its D over the model axis): every rank embeds all
-patches, as the blocks need the whole embedding as their input.
+patches, as the blocks need the whole embedding as their input. Trained
+under a mesh (``freeze_vision=False``), the gradient of each block's
+normed input is summed over the ranks (core/mesh.copy_to_model).
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ def _encoder_block(
     eps = cfg.layer_norm_eps
 
     residual = x
-    y = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
+    y = mesh_lib.copy_to_model(layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps), mesh)
     q = _dense(y, lp["attn"]["q"]).reshape(b, s, h, hd)
     k = _dense(y, lp["attn"]["k"]).reshape(b, s, h, hd)
     v = _dense(y, lp["attn"]["v"]).reshape(b, s, h, hd)
@@ -96,7 +98,7 @@ def _encoder_block(
     x = residual + _dense_row(a.reshape(b, s, h * hd), lp["attn"]["o"], mesh)
 
     residual = x
-    y = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    y = mesh_lib.copy_to_model(layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps), mesh)
     y = gelu_tanh(_dense(y, lp["mlp"]["fc1"]))
     return residual + _dense_row(y, lp["mlp"]["fc2"], mesh)
 

@@ -15,8 +15,12 @@ against the JAX package's, on a fabricated tiny HF checkpoint directory
   array for array;
 * ``--resume_from`` continues the optimizer state; QLoRA (``--base_quant
   nf4``) and ``--full_finetune`` runs;
-* flags of parts not ported, an orbax ``--resume_from``, no card without
-  ``--only_cpu``, and user mistakes exit 2 with a one-line reason.
+* the mesh flags (``--data_parallel``, ``--model_parallel``, ``--fsdp``,
+  ``--multihost`` with torchrun's environment or ``--coordinator``) on
+  gloo ranks against the one-card run;
+* an orbax ``--resume_from``, no card without ``--only_cpu``, a
+  ``--model_parallel`` the heads do not divide, and user mistakes exit 2
+  with a one-line reason.
 """
 
 import dataclasses
@@ -32,6 +36,7 @@ transformers = pytest.importorskip("transformers")
 
 from paligemma_tpu_torch.cli import finetune as t_ft
 from paligemma_tpu_torch.convert import params_from_numpy
+from test_torch_cli import mqa_checkpoint_dir  # noqa: F401 (one KV head: TP can shard it)
 
 torch.set_num_threads(2)
 
@@ -447,19 +452,142 @@ def test_qlora_and_full_finetune_follow_jax(checkpoint_dir, data, tmp_path, monk
     assert ("params" in saved) == ("--full_finetune" in extra) != ("lora" in saved)
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--data_parallel", "2"], "ROADMAP item 14"),
-    (["--model_parallel", "2"], "ROADMAP item 14"),
-    (["--fsdp"], "--fsdp is not ported"),
-    (["--multihost"], "--multihost is not ported"),
-    (["--coordinator", "localhost:1234"], "--coordinator is not ported"),
-], ids=["data_parallel", "model_parallel", "fsdp", "multihost", "coordinator"])
-def test_unported_flags_exit_2(checkpoint_dir, data, tmp_path, capsys, extra, message):
-    with pytest.raises(SystemExit) as ei:
-        t_ft.main(_argv(checkpoint_dir, tmp_path / "out", data[0], "--only_cpu", *extra))
-    assert ei.value.code == 2
-    assert message in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
+# ---- the mesh flags: --data_parallel, --model_parallel, --fsdp, --multihost ----
+# losses of a mesh run against one card's run of the same flags on the same
+# bf16 checkpoint: the ranks sum in another order (bf16 partials of the
+# row-parallel projections, gradients over the data group); measured apart
+# by up to 3.9e-4 over 3 steps at lr 1e-3 (FSDP's full fine-tune; 9e-5 TP,
+# 5e-7 DP). final/'s trees: where bf16 rounding flips the sign of an Adam
+# update an element parts by up to 2 lr a step (measured 2.04e-3 after 3
+# steps), so each leaf is held at 3 lr elementwise and at 0.2 lr on the
+# mean of its differences (measured up to 6.1e-5)
+MESH_LOSS_TOL = 5e-3
+MESH_TREE_TOL = 3e-3
+MESH_TREE_MEAN_TOL = 2e-4
+# 5 rows at batch 2: three steps, the last with a padding row whose labels
+# are all -100, which under --data_parallel 2 is one shard's only row
+MESH_FLAGS = ("--epochs", "1", "--learning_rate", "1e-3", "--eval_every", "3",
+              "--eval_subset", "1", "--max_new_tokens_eval", "3")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mesh_flags(case, data):
+    """(mesh flags, flags the one-card run shares, whether it resumes)."""
+    lora = ("--eval_jsonl", data[1], "--export_hf", *MESH_FLAGS)
+    return {
+        "data_parallel": (("--data_parallel", "2"), lora, False),
+        "model_parallel": (("--model_parallel", "2"), MESH_FLAGS, True),
+        "fsdp": (("--fsdp", "--data_parallel", "2"), ("--full_finetune", *MESH_FLAGS), False),
+        "multihost": (("--multihost",), MESH_FLAGS, False),
+        "coordinator": (("--multihost", "--coordinator", "127.0.0.1:{port}",
+                         "--num_processes", "2", "--process_id", "{pid}"), MESH_FLAGS, True),
+    }[case]
+
+
+@pytest.fixture(scope="module")
+def one_card_runs(mqa_checkpoint_dir, data, tmp_path_factory):
+    """The one-card CLI on the MQA checkpoint for every case's shared flags:
+    LoRA with an evaluation and the export, LoRA alone, the full fine-tune,
+    and LoRA resumed from the first run's final/."""
+    base = tmp_path_factory.mktemp("one_card")
+    out = {}
+    for name, flags in (("eval", ("--eval_jsonl", data[1], "--export_hf", *MESH_FLAGS)),
+                        ("lora", MESH_FLAGS), ("full", ("--full_finetune", *MESH_FLAGS))):
+        t_ft.main(_argv(mqa_checkpoint_dir, base / name, data[0], *flags, "--only_cpu"))
+        out[name] = str(base / name)
+    t_ft.main(_argv(mqa_checkpoint_dir, base / "resumed", data[0], *MESH_FLAGS, "--only_cpu",
+                    "--resume_from", os.path.join(out["eval"], "final")))
+    out["resumed"] = str(base / "resumed")
+    return out
+
+
+def _two_processes(argv, env_of):
+    """``python -m paligemma_tpu_torch.cli.finetune`` as 2 processes of a
+    --multihost run; ``env_of(pid)``: the environment's additions."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for pid in range(2):
+        env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **env_of(pid)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "paligemma_tpu_torch.cli.finetune",
+             *[a.format(pid=pid) for a in argv]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=repo))
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o
+    return outs
+
+
+@pytest.mark.parametrize("case", ["data_parallel", "model_parallel", "fsdp", "multihost",
+                                  "coordinator", "model_parallel_3"])
+def test_unported_flags_exit_2(mqa_checkpoint_dir, data, one_card_runs, tmp_path, capsys,
+                               case):
+    """The name is older than the mesh (these flags once exited 2). Each
+    mesh flag as the JAX CLI takes it, on gloo ranks on the CPU: 2 spawned
+    data shards (LoRA, with an evaluation and --export_hf; the last batch's
+    padding row is one shard's only row), 2 tensor-parallel ranks resuming
+    the one-card run's final/, --fsdp --full_finetune over 2 data shards,
+    and --multihost as two processes joined through torchrun's environment
+    or --coordinator (a 1 x 2 mesh: both on one host). metrics.jsonl's
+    losses (and evaluations) and final/ follow the one-card run of the same
+    flags; the evaluation and export come from rank 0 alone.
+    ``model_parallel_3`` (3 ranks over 4 heads) exits 2 before any rank
+    starts, as JAX's sharding refuses it."""
+    from paligemma_tpu_torch.checkpoints.local import restore_pytree
+
+    out = tmp_path / "out"
+    if case == "model_parallel_3":
+        with pytest.raises(SystemExit) as ei:
+            t_ft.main(_argv(mqa_checkpoint_dir, out, data[0], "--only_cpu", "--model_parallel",
+                            "3", *MESH_FLAGS))
+        assert ei.value.code == 2
+        assert "--model_parallel 3" in capsys.readouterr().err and not out.exists()
+        return
+    mesh, shared, resume = _mesh_flags(case, data)
+    argv = _argv(mqa_checkpoint_dir, out, data[0], *shared, *mesh, "--only_cpu")
+    if resume:
+        argv += ["--resume_from", os.path.join(one_card_runs["eval"], "final")]
+    want_dir = one_card_runs[{"data_parallel": "eval", "fsdp": "full"}.get(
+        case, "resumed" if resume else "lora")]
+    if case == "coordinator":
+        port = _free_port()
+        _two_processes([a.replace("{port}", str(port)) for a in argv], lambda pid: {})
+    elif case == "multihost":
+        port = _free_port()
+        _two_processes(argv, lambda pid: {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                                          "RANK": str(pid), "WORLD_SIZE": "2"})
+    else:
+        t_ft.main(argv)
+    got, want = _metrics(str(out)), _metrics(want_dir)
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    losses = [(g["train_loss"], w["train_loss"]) for g, w in zip(got, want) if "train_loss" in w]
+    assert len(losses) == 3
+    np.testing.assert_allclose(*zip(*losses), atol=MESH_LOSS_TOL, rtol=0)
+    evals = [(g["val_edit_distance"], w["val_edit_distance"])
+             for g, w in zip(got, want) if "val_edit_distance" in w]
+    assert [g for g, _ in evals] == [w for _, w in evals]
+    assert sorted(os.listdir(out)) == sorted(os.listdir(want_dir))
+    a, b = restore_pytree(str(out / "final")), restore_pytree(os.path.join(want_dir, "final"))
+    assert a["opt_state"]["count"] == b["opt_state"]["count"]
+    key = "params" if case == "fsdp" else "lora"
+    for (path, x), y in zip(jax.tree_util.tree_leaves_with_path(a[key]),
+                            jax.tree.leaves(b[key])):
+        torch.testing.assert_close(x.float(), y.float(), atol=MESH_TREE_TOL, rtol=0,
+                                   msg=jax.tree_util.keystr(path))
+        assert float((x.float() - y.float()).abs().mean()) <= MESH_TREE_MEAN_TOL, path
 
 
 def test_orbax_resume_exits_2(checkpoint_dir, data, tmp_path, capsys):

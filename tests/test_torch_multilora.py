@@ -678,6 +678,13 @@ C5_FUNCTIONS = (
     "models.gemma.init_params", "models.paligemma.init_params", "kernels.quant.matmul_any",
     "core.mesh.single_device_mesh", "core.mesh.param_specs", "core.mesh.lora_specs",
     "core.mesh.batch_spec", "core.mesh.kv_cache_specs",
+    # the training half of the mesh: the mesh= parameters of forward_train
+    # (gemma's in JAX's slot, paligemma's the port's own), FSDP's specs, the
+    # loss's data axis and core/multihost
+    "models.gemma.forward_train", "models.paligemma.forward_train",
+    "core.mesh.fsdp_param_specs", "train.losses.causal_lm_loss",
+    "core.multihost.initialize", "core.multihost.make_multihost_mesh",
+    "core.multihost.global_batch_from_local", "core.multihost.process_local_rows",
     *OPERANDS_DIFFER,
 )
 

@@ -377,11 +377,25 @@ def test_trainer_save_restore_round_trip(weights, tmp_path):
 
 
 def test_trainer_raises_on_mesh_and_fsdp(weights):
+    """The name is older than the mesh trainer (tests/test_torch_train_mesh.py):
+    ``fsdp=True`` without a mesh, and a 1 x 1 mesh, change nothing, as in
+    JAX (``fsdp`` is a no-op without a mesh or at data == 1): two full
+    fine-tune steps give the plain Trainer's losses and weights bit for
+    bit."""
+    from paligemma_tpu_torch.core.mesh import single_device_mesh
+
     _, tp = weights
-    with pytest.raises(NotImplementedError):
-        Trainer(tp, T_CFG, TrainConfig(fsdp=True))
-    with pytest.raises(NotImplementedError):
-        Trainer(tp, T_CFG, mesh=object())
+    runs = []
+    for tc, mesh in ((TrainConfig(lora_rank=None, learning_rate=1e-3), None),
+                     (TrainConfig(lora_rank=None, learning_rate=1e-3, fsdp=True), None),
+                     (TrainConfig(lora_rank=None, learning_rate=1e-3, fsdp=True),
+                      single_device_mesh())):
+        tt = Trainer(tp, T_CFG, tc, mesh=mesh)
+        runs.append(([tt.train_step(_batch(seed=s)) for s in (0, 1)], tt.params["lm"]))
+    for losses, lm in runs[1:]:
+        assert losses == runs[0][0]
+        for got, want in zip(jax.tree.leaves(lm), jax.tree.leaves(runs[0][1])):
+            assert torch.equal(got, want)
 
 
 # ------------------------------------------------- quantized bases, LoRA ----
