@@ -24,6 +24,15 @@ seed, int8 decode tree) through its main paths:
   grammars (constrained texts accepted, free rows unchanged, the logits
   head), over HTTP (a cancel, 8 concurrent requests, a stream) and with
   LoRA adapters saved by save_pytree;
+* ``--dtype float32`` on the card (the ``fp32`` phase, after serve_cli): the
+  fp32 forms of B1, the int8 GEMV tile and head, the split decode
+  attention and the final norm, each within FP32_REL of its plain fp32
+  version at the 3B shapes (the kernel cases); that checkpoint loaded at
+  fp32, its kernel engine against the torch-ops engine, generate_spec
+  against generate bit for bit, cli.infer --dtype float32 with and without
+  --quantize_int8 and with --speculative, cli.serve --dtype float32 dense
+  and paged with sampled, grammar and repeated rows and the prefix cache
+  (dense == paged), and the 896 px tower through the fp32 B1;
 * the fine-tuning entry point (cli.finetune.main) on that checkpoint: LoRA
   r8 over a seeded manifest with evaluations and --export_hf, its losses
   bit for bit a Trainer's on the batches derived here in the CLI's order,
@@ -76,8 +85,8 @@ seed, int8 decode tree) through its main paths:
 
 Prints per-phase lines, then a JSON line with one entry per kernel: its
 ``launches`` summed over the counted runs of the paths (the w8a8 phase's
-generate, the five CLI runs, the serve_cli runs, the four finetune CLI runs and the answer from their
-export, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs,
+generate, the five CLI runs, the serve_cli runs, the fp32 phase's runs, the four finetune CLI runs and
+the answer from their export, the served runs (a)-(e), the spec phase's runs, the multi-LoRA runs,
 the TP runs, the ablation phase's runs, the 8 training steps and the
 train_mesh ranks' Trainer runs; each run's
 counts are zeroed just before it and read just after), its error against its
@@ -85,7 +94,8 @@ plain version, its time,
 the plain version's and one PyTorch library call's where one computes the
 same function, and its bound (the larger of bytes / 3.35 TB/s and
 operations / 989 TFLOP/s at the timed shapes; the W8A8 GEMM's int8
-operations / 1,979 TOPS). Then the card's name and
+operations / 1,979 TOPS; the fp32 forms' operations / 67 TFLOP/s fp32). Then
+the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the exit code is not 0 and the last line is never
 printed.
@@ -302,6 +312,23 @@ TRAIN_ONLY = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # (measured in PERF.md); a dropped or garbled term is off by O(1)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+# --dtype float32 (the fp32 phase and the fp32 kernel cases). Each fp32 form
+# against its plain fp32 version (TF32 off), relative to the largest
+# element: the GEMV tile's three-term split is within ~1.5e-6 of fp32 x @ W
+# at K = 16384, one bf16 or TF32 pass ~1.6e-3 off (tests/test_torch_fp32.py
+# models both); FP32_REL is ten times the first and fifty times below the
+# second. The fp32 kernel engine's logits against the torch-ops engine's
+# (plain fp32 attention and int8 products), relative to max |logit|, and
+# the 896 px tower's features, flash against 'xla': FP32_LOGIT_TOL, 30
+# times below the bf16 gate (LOGIT_REL_TOL).
+FP32_REL = 2e-5
+FP32_LOGIT_TOL = 1e-3
+FP32_NEW = 32  # greedy tokens of the fp32 engines and CLIs
+# the bf16 kernels of the one-card main path -> their fp32 forms' counters
+FP32_OF = {"flash_attention_fwd": "flash_attention_fwd_fp32", "int8_gemv": "int8_gemv_fp32",
+           "int8_gemv_rope_kv": "int8_gemv_rope_kv_fp32", "head_argmax": "head_argmax_fp32",
+           "decode_attention": "decode_attention_fp32",
+           "paged_decode_attention": "paged_decode_attention_fp32", "rms_norm": "rms_norm_fp32"}
 
 
 def ptxas_lines(log_path, kernels_of_interest):
@@ -4115,7 +4142,7 @@ def serving_phase(params, decode, cfg, dev, card):
           flush=True)
     missing = [k for k, v in total.items()
                if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS + LORA_KERNELS
-               + W8A8_KERNELS]
+               + W8A8_KERNELS + tuple(FP32_OF.values())]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -4566,8 +4593,9 @@ def _gemv_events(rows, grew):
     cannot be right: one per wrapper call (``grew``: the wrappers' counts
     over the run; a tree without int8_gemv_rope_kv has none of its calls)."""
     want = {"int8_gemv_kernel": (grew["int8_gemv"] + grew["int8_gemv_f32"]
-                                 + grew.get("int8_gemv_rope_kv", 0)),
-            "head_argmax_kernel": grew["head_argmax"],
+                                 + grew.get("int8_gemv_rope_kv", 0) + grew["int8_gemv_fp32"]
+                                 + grew["int8_gemv_rope_kv_fp32"]),
+            "head_argmax_kernel": grew["head_argmax"] + grew["head_argmax_fp32"],
             "lora_shrink_kernel": grew["lora_shrink"]}
     for name, n in want.items():
         got = sum(k.count for k in rows if name in k.key)
@@ -7098,6 +7126,554 @@ def spec_phase(report: KernelReport, params, decode, cfg, dev, card):
     return total
 
 
+# ---------------------------------------------------------------- fp32 ----
+def _as_bf16_names(label, counts):
+    """The launch counts of an fp32 run under the bf16 kernels' names (for
+    the bf16 phases' gates): each fp32 form's count in its bf16 kernel's
+    place. A bf16 kernel of the main path that launched raises: at fp32
+    every launch is an fp32 form's."""
+    ran = {k: counts[k] for k in FP32_OF if counts[k]}
+    if ran:
+        raise AssertionError(f"{label}: bf16 kernels launched in an fp32 run: {ran}")
+    out = {k: v for k, v in counts.items() if k not in FP32_OF.values()}
+    out.update({k: counts[f] for k, f in FP32_OF.items()})
+    return out
+
+
+def _only_launches(label, counts, want):
+    """The launches of a run are exactly ``want`` (every other count 0)."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def fp32_kernel_phase(report: KernelReport, dev):
+    """The fp32 forms (``--dtype float32``) against their plain fp32 versions
+    at the main path's shapes, within FP32_REL of the largest element (TF32
+    off): B1 at the LM prefill and the 896 px tower; the GEMV tile at layer
+    5's four projections at B1, B8 and the verify's M9 and M72 (qkv with the
+    norm and RoPE + KV write, gate/up with the norm); the head at B1 and B8
+    (ids the argmax of the fp32 logits path's GEMV, bit for bit); 3b at B1
+    and B8, W2048; B5 at B8, W1024, page size 64 (and dense == paged on
+    shared keys); the final norm. Times beside the bound at fp32 (67 TFLOP/s
+    outside the tensor cores, or the bytes at 3.35 TB/s) and the library
+    call: fp32 SDPA with the same mask for B1, 3b and B5, cuBLAS fp32 on
+    the dequantized weight for the GEMVs (another function: no epilogue,
+    fp32 weights), F.rms_norm for the norm."""
+    from paligemma_tpu_torch.kernels import decode_attention as da
+    from paligemma_tpu_torch.kernels import decode_elementwise as el
+    from paligemma_tpu_torch.kernels import decode_head as dh
+    from paligemma_tpu_torch.kernels import flash_attention as fa
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(SEED + 22)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    def int8_weight(k, n):
+        w8 = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(dev)
+        s = torch.from_numpy((rng.random(n, dtype=np.float32) + 0.5) / (127.0 * k**0.5)).to(dev)
+        return w8, s
+
+    def same_bits(name, label, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name} {label}: a second call gave other bits")
+
+    print(f"kernels: fp32 forms (--dtype float32), within {FP32_REL} of the largest element of "
+          "the plain fp32 version, TF32 off", flush=True)
+    # -- B1 at fp32: the LM prefill (in the JSON line) and the 896 px tower
+    for label, (b, sq, hq, hkv, d), n_ok in (("LM prefill B1 S266 Hq8 Hkv1 D256",
+                                              (1, 266, 8, 1, 256), 266),
+                                             ("tower B1 S4096 H16 D72", (1, 4096, 16, 16, 72),
+                                              4096)):
+        q, k, v = f32(b, sq, hq, d), f32(b, sq, hkv, d), f32(b, sq, hkv, d)
+        pl = kl = torch.tensor([n_ok], dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_with_lse(q, k, v, pl, kl)
+        again = fa.flash_attention_with_lse(q, k, v, pl, kl)
+        want_out, want_lse = fa._reference_forward(q, k, v, pl, kl, d**-0.5, 0)
+        sync()
+        report.case("flash_attention_fwd_fp32", f"{label} out", out, want_out, FP32_REL, floor=0)
+        report.case("flash_attention_fwd_fp32", f"{label} lse", lse, want_lse, 1e-5)
+        same_bits("flash_attention_fwd_fp32", label, again, (out, lse))
+        del want_out, want_lse, again
+        allowed = fa._allowed(sq, sq, pl, kl, 0, dev)
+        a = _sdpa_args(q, k, v, allowed)
+        mask = None if bool(allowed.all()) else a[3]
+
+        def sdpa(a=a, mask=mask):
+            return F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def run(q=q, k=k, v=v, pl=pl, kl=kl):
+            return fa.flash_attention(q, k, v, pl, kl)
+
+        flops, n_bytes = 4 * d * hq * int(allowed.sum()), 2 * nbytes(q) + nbytes(k, v)
+        lm = label.startswith("LM")
+        report.time("flash_attention_fwd_fp32", label, run,
+                    lambda: fa.reference_attention(q, k, v, pl, kl), flops=flops,
+                    n_bytes=n_bytes, library_fn=sdpa, iters=20 if lm else 3, in_json=lm,
+                    peak=PEAK_FP32_FLOPS)
+        dt = device_times(label, [("flash_attention_fwd_fp32", run), ("SDPA fp32", sdpa)],
+                          iters=10 if lm else 2)
+        print(f"  device B1 fp32 {label}: " + ", ".join(
+            f"{n} {'not measured' if ms is None else f'{ms:.4f} ms'}" for n, ms in dt.items())
+            + f"; bound {bound_ms(flops, n_bytes, PEAK_FP32_FLOPS):.4f} ms (fp32 at "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+        del q, k, v, out, lse, a
+
+    # -- the GEMV tile at fp32: layer 5's projections at decode and verify rows
+    fns = []
+    for name, k, n, epi in (("qkv+norm+RoPE", 2048, 2560, "rope"), ("o+res", 2048, 2048, "res"),
+                            ("gateup+norm+GeGLU", 2048, 32768, "geglu"),
+                            ("down+res", 16384, 2048, "res")):
+        w8, s = int8_weight(k, n)
+        wdq = w8.float() * s  # the library's operand: the dequantized weight
+        wn = f32(k, scale=0.1)
+        counter = "int8_gemv_rope_kv_fp32" if epi == "rope" else "int8_gemv_fp32"
+        for b in (1, 8, 9, 72):
+            x = f32(b, k)
+            label = f"{name} {'B' if b <= 8 else 'M'}{b} {k}->{n}"
+            if epi == "rope":
+                ang = f32(b, 256)
+                cos, sin = ang.cos(), ang.sin()
+                pos = torch.tensor([(37 * i) % 1000 for i in range(b)], dtype=torch.int32,
+                                   device=dev)
+                bufs = [torch.zeros(b, 1024, 256, device=dev) for _ in range(4)]
+                news = [torch.empty(b, 256, device=dev) for _ in range(4)]
+
+                def run(x=x, w8=w8, s=s, cos=cos, sin=sin, pos=pos, bufs=bufs, news=news, wn=wn):
+                    return gv.int8_gemv_rope_kv(x, w8, s, cos, sin, pos, 8, bufs[0], bufs[1],
+                                                news[0], news[1], norm=(wn, 1e-6))
+
+                def plain(x=x, w8=w8, s=s, cos=cos, sin=sin, pos=pos, bufs=bufs, news=news,
+                          wn=wn):
+                    return gv.int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, 8, bufs[2],
+                                                          bufs[3], news[2], news[3],
+                                                          norm=(wn, 1e-6))
+
+                got, want = run()[0], plain()[0]
+                sync()
+                report.case(counter, f"{label} q", got, want, FP32_REL, floor=0)
+                for what, g, w in (("K row", bufs[0], bufs[2]), ("V row", bufs[1], bufs[3]),
+                                   ("k_new", news[0], news[2]), ("v_new", news[1], news[3])):
+                    report.case(counter, f"{label} {what}", g, w, FP32_REL, floor=0)
+                same_bits(counter, label, (run()[0],), (got,))
+                out_bytes = nbytes(got) + 4 * b * 256 * 4
+            else:
+                kw = ({"residual": f32(b, n)} if epi == "res"
+                      else {"geglu": True, "norm": (wn, 1e-6)})
+
+                def run(x=x, w8=w8, s=s, kw=kw):
+                    return gv.int8_gemv(x, w8, s, **kw)
+
+                def plain(x=x, w8=w8, s=s, kw=kw):
+                    return gv.int8_gemv_reference(x, w8, s, **kw)
+
+                got, want = run(), plain()
+                sync()
+                report.case(counter, label, got, want, FP32_REL, floor=0)
+                same_bits(counter, label, (run(),), (got,))
+                out_bytes = nbytes(got) + (nbytes(kw["residual"]) if epi == "res" else 0)
+            if b == 1:
+                n_bytes = nbytes(x, w8, s) + out_bytes + (4 * k if epi != "res" else 0)
+
+                def lib(x=x, wdq=wdq):
+                    return x @ wdq
+
+                report.time(counter, label + " (library: cuBLAS fp32 x @ dequantized W, "
+                            "another function)", run, plain, flops=2 * b * k * n,
+                            n_bytes=n_bytes, library_fn=lib, peak=PEAK_FP32_FLOPS)
+                fns += [(f"{counter} {name}", run), (f"cuBLAS fp32 {name}", lib)]
+        del w8, s, wdq
+    device_times("fp32 B1 layer 5", fns)
+    del fns
+
+    # -- the head at fp32: ids the argmax of the fp32 logits path's GEMV
+    w8, s = int8_weight(2048, 257152)
+    head = dh.repack_head({"w8": w8, "s": s})
+    for b in (1, 8):
+        y = f32(b, 2048)
+        ids, mx = dh.head_argmax_fused(y, head, return_max=True)
+        logits = gv.int8_gemv(y, w8, s)  # the fp32 logits path's own head
+        plain = (y @ w8.float()) * s
+        sync()
+        if not (logits.dtype == torch.float32 and torch.equal(ids.long(), logits.argmax(-1))
+                and torch.equal(mx, logits.max(-1).values)):
+            raise AssertionError("head_argmax_fp32: differs from argmax of the fp32 logits path")
+        print(f"  {'head_argmax_fp32':20s} {f'B{b} ids == argmax of int8_gemv_fp32 logits':44s} "
+              "bit for bit  ok", flush=True)
+        report.case("head_argmax_fp32", f"B{b} winning logit vs plain max",
+                    plain.gather(1, ids.long()[:, None])[:, 0], plain.max(-1).values, FP32_REL,
+                    floor=0)
+        report.case("head_argmax_fp32", f"B{b} fp32 logits path vs plain", logits, plain,
+                    FP32_REL, floor=0)
+        del plain, logits
+        if b == 1:
+            report.time("head_argmax_fp32", "B1 2048->257152",
+                        lambda: dh.head_argmax_fused(y, head),
+                        lambda: dh.reference_head_argmax(y, {"w8": w8, "s": s}),
+                        flops=2 * w8.numel(), n_bytes=nbytes(y, w8, s, ids, mx), iters=5,
+                        peak=PEAK_FP32_FLOPS)
+            device_times("fp32 B1 2048->257152", [
+                ("head_argmax_fp32", lambda: dh.head_argmax_fused(y, head))])
+    del w8, s, head
+
+    # -- 3b at fp32, W2048
+    for b in (1, 8):
+        q = f32(b, 8, 256)
+        kc, vc = f32(b, MAX_SEQ, 256), f32(b, MAX_SEQ, 256)
+        lens = torch.tensor([2048 - 61 * i for i in range(b)], device=dev)
+        valid = (torch.arange(2048, device=dev)[None] < lens[:, None]).contiguous()
+        if b > 1:
+            valid[1, 5:40] = False  # a hole
+        got = da.decode_attention(q, kc, vc, valid, 256**-0.5)
+        want = da.decode_attention_reference(q, kc, vc, valid, 256**-0.5)
+        sync()
+        label = f"B{b} W2048 D256 Hq8"
+        report.case("decode_attention_fp32", label, got, want, FP32_REL, floor=0)
+        if b == 1:
+            n_keys = int(valid.sum())
+            a = (q[:, :, None], kc[:, None, :2048], vc[:, None, :2048], valid[:, None, None])
+
+            def sdpa(a=a):
+                return F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3],
+                                                      scale=256**-0.5, enable_gqa=True)
+
+            def run(q=q, kc=kc, vc=vc, valid=valid):
+                return da.decode_attention(q, kc, vc, valid, 256**-0.5)
+
+            report.time("decode_attention_fp32", label, run,
+                        lambda: da.decode_attention_reference(q, kc, vc, valid, 256**-0.5),
+                        flops=4 * 256 * 8 * n_keys,
+                        n_bytes=nbytes(q, valid, got) + 2 * n_keys * 256 * 4, library_fn=sdpa,
+                        peak=PEAK_FP32_FLOPS)
+            device_times(f"fp32 {label}", [("decode_attention_fp32", run), ("SDPA fp32", sdpa)])
+        del kc, vc
+
+    # -- B5 at fp32: B8, W1024, page size 64, at layer 17 of the stacked pool
+    ps, n_layers, b, w = 64, 18, 8, 1024
+    n_p = w // ps
+    n_pages = b * n_p + 1
+    kp, vp = f32(n_layers, n_pages, ps, 1, 256), f32(n_layers, n_pages, ps, 1, 256)
+    pids = np.arange(1, n_pages)
+    rng.shuffle(pids)
+    table = torch.from_numpy(pids.reshape(b, n_p).astype(np.int32)).to(dev)
+    lens = [w - 61 * i for i in range(b)]
+    lens[3] = 0  # an empty row: exact zeros
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = f32(b, 8, 256)
+    got = pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+    want = pa.reference_paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+    sync()
+    label = "B8 W1024 Hq8 Hkv1 layer17 fragmented"
+    report.case("paged_decode_attention_fp32", label, got, want, FP32_REL, floor=0)
+    if torch.count_nonzero(got[3]):
+        raise AssertionError("paged_decode_attention_fp32: a kv_len 0 row is not exact zeros")
+    kd = kp[17][table.long()].reshape(b, w, 256)
+    vd = vp[17][table.long()].reshape(b, w, 256)
+    pmask = (torch.arange(w, device=dev)[None] < kv_len[:, None].long())[:, None, None]
+
+    def run_paged():
+        return pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+
+    def sdpa_paged():
+        return F.scaled_dot_product_attention(q[:, :, None], kd[:, None], vd[:, None],
+                                              attn_mask=pmask, enable_gqa=True)
+
+    n_keys = sum(lens)
+    report.time("paged_decode_attention_fp32", label + " (library: SDPA fp32 on the keys "
+                "gathered)", run_paged,
+                lambda: pa.reference_paged_decode_attention(q, kp, vp, table, kv_len,
+                                                            layer_idx=17),
+                flops=4 * 256 * 8 * n_keys,
+                n_bytes=nbytes(q, table, kv_len, got) + 2 * n_keys * 256 * 4,
+                library_fn=sdpa_paged, peak=PEAK_FP32_FLOPS)
+    device_times(f"fp32 {label}", [("paged_decode_attention_fp32", run_paged),
+                                   ("SDPA fp32 (keys gathered)", sdpa_paged)])
+    # dense == paged at fp32: each row's pages are consecutive slices of its
+    # dense cache row
+    dense = da.decode_attention(q, kd, vd, pmask[:, 0, 0].contiguous(), 256**-0.5)
+    paged = pa.paged_decode_attention(q, kp, vp, table, kv_len, 256**-0.5, layer_idx=17)
+    sync()
+    same = torch.equal(paged, dense.reshape(b, 8, 256))
+    print(f"  {'paged_decode_attention_fp32':20s} {'shared keys vs decode_attention_fp32':44s} "
+          f"torch.equal {same}  {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("paged_decode_attention_fp32 differs from decode_attention_fp32 "
+                             "on shared keys")
+    del kp, vp, kd, vd
+
+    # -- the final norm at fp32
+    for b in (1, 8):
+        x, wn = f32(b, 2048), f32(2048, scale=0.1)
+        got, want = el.rms_norm(x, wn, 1e-6), el.rms_norm_reference(x, wn, 1e-6)
+        sync()
+        report.case("rms_norm_fp32", f"B{b} K2048", got, want, 1e-6, floor=0)
+        if b == 1:
+            w1 = 1.0 + wn
+            report.time("rms_norm_fp32", f"B{b} K2048", lambda: el.rms_norm(x, wn, 1e-6),
+                        lambda: el.rms_norm_reference(x, wn, 1e-6), flops=4 * x.numel(),
+                        n_bytes=nbytes(x, wn, got),
+                        library_fn=lambda: F.rms_norm(x, (2048,), w1, 1e-6),
+                        peak=PEAK_FP32_FLOPS)
+            device_times("fp32 B1 K2048", [("rms_norm_fp32", lambda: el.rms_norm(x, wn, 1e-6)),
+                                           ("F.rms_norm fp32",
+                                            lambda: F.rms_norm(x, (2048,), w1, 1e-6))])
+
+
+def fp32_phase(cfg, dev, card, d):
+    """``--dtype float32`` on the card at full width and depth, from the cli
+    phase's checkpoint ``d`` loaded at fp32:
+
+    (a) PaliGemmaEngine on its fp32 int8 tree with the kernel defaults
+        against one with ``fused_layer=False, use_flash=False`` (torch ops):
+        prefill logits within FP32_LOGIT_TOL of max |logit|, and along the
+        kernel engine's FP32_NEW greedy tokens, teacher-forced, each step's
+        logits too, the torch-ops engine's greedy token the emitted one but
+        at a near tie; generate_spec gives greedy's tokens bit for bit; the
+        b1 decode step's device time (profiled), its rate and the TTFT;
+    (b) cli.infer --dtype float32 with --quantize_int8 (the engine's
+        tokens), with --speculative (the same) and without --quantize_int8
+        (the plain decode's, flash prefill);
+    (c) cli.serve --dtype float32 --quantize_int8 in batch mode, dense and
+        paged, on the serve_cli phase's requests, a third sampled, one under
+        a grammar, one repeated, with --prefix_cache: the free greedy rows'
+        tokens equal an fp32 ServingEngine's, and dense equals paged;
+    (d) the 896 px tower at fp32 from seeded weights, attn="flash" (27 B1
+        fp32 launches) against attn="xla".
+
+    Every launch of a run is an fp32 form's (``_as_bf16_names``), counted
+    as the bf16 phases count theirs. Returns the counts summed over the
+    counted runs."""
+    import gc
+
+    from paligemma_tpu_torch import kernels, paligemma_3b_896
+    from paligemma_tpu_torch.checkpoints.hf_loader import load_hf_model
+    from paligemma_tpu_torch.cli import infer, serve
+    from paligemma_tpu_torch.convert import init_vision_params
+    from paligemma_tpu_torch.models import siglip
+    from paligemma_tpu_torch.processing.processor import PaliGemmaProcessor
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    import contextlib
+
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the engines
+    sync()
+    t0 = time.perf_counter()
+    p32, c32 = load_hf_model(d, torch.float32, device=dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    if c32 != cfg or p32["lm"]["embed"].dtype != torch.float32:
+        raise AssertionError("fp32: the checkpoint did not load as the fp32 3B-224 tree")
+    dq32 = quantize_lm_for_serving(p32)
+    eng = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32)
+    if not (eng.use_flash and eng.fused_layer and eng._greedy_head_fused
+            and eng.cache_dtype == torch.float32):
+        raise AssertionError("fp32: the kernel engine did not select the kernel paths")
+    ops = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32, fused_layer=False,
+                          use_flash=False)
+    print(f"fp32: the cli checkpoint loaded at fp32 in {load_s:.2f} s, its int8 tree made; "
+          f"kernel engine (fp32 cache) and torch-ops engine  [{card}]", flush=True)
+    pixels, ids, mask = make_inputs(cfg, dev)
+    kernels.reset_launch_counts()
+    tok = eng.generate(pixels, ids, mask, max_new_tokens=FP32_NEW, eos_token_id=-1, sync_every=8)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    _cli_launches("fp32 generate", _as_bf16_names("fp32 generate", counts), n_layers, True)
+    tok_ops = ops.generate(pixels, ids, mask, max_new_tokens=FP32_NEW, eos_token_id=-1,
+                           sync_every=8)
+    lk, sk = eng.prefill(pixels, ids, mask)
+    lp, sp = ops.prefill(pixels, ids, mask)
+    worst, ties = _compare(lk, lp, "fp32 prefill", tok[0, 0], tol=FP32_LOGIT_TOL)
+    ties = [0] if ties else []
+    for t in range(FP32_NEW - 1):
+        step = torch.from_numpy(tok[:, t])
+        lk, sk = eng.decode_step(step, sk)
+        lp, sp = ops.decode_step(step, sp)
+        w, f = _compare(lk, lp, f"fp32 decode {t}", tok[0, t + 1], tol=FP32_LOGIT_TOL)
+        worst = max(worst, w)
+        if f:
+            ties.append(t + 1)
+    sync()
+    differ = [t for t in range(FP32_NEW) if tok_ops[0, t] != tok[0, t]]
+    print(f"fp32: kernel vs torch-ops engine: teacher-forced logits max rel err {worst:.3e} of "
+          f"max |logit| (tol {FP32_LOGIT_TOL}) over the prefill + {FP32_NEW - 1} steps; "
+          f"{FP32_NEW - len(differ)}/{FP32_NEW} greedy tokens identical"
+          f"{f', first divergence at {differ[0]}' if differ else ''}; near-tie steps {ties}; "
+          f"tokens {tok[0, :12].tolist()} ...", flush=True)
+    if differ and differ[0] not in ties:
+        raise AssertionError(f"fp32: the torch-ops engine's tokens diverge at {differ[0]}, "
+                             "which is no near tie")
+    del lk, sk, lp, sp
+    kernels.reset_launch_counts()
+    with _NoPlainInt8():
+        spec = eng.generate_spec(pixels, ids, mask, max_new_tokens=FP32_NEW, eos_token_id=-1,
+                                 draft_k=SPEC_DRAFT_K, sync_every=SPEC_SYNC)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    verifies = _spec_verifies(eng.spec_cycles, SPEC_SYNC)
+    _spec_counts("fp32 generate_spec", _as_bf16_names("fp32 generate_spec", counts), verifies,
+                 n_layers, prefills=1)
+    if not np.array_equal(spec, tok):
+        raise AssertionError(f"fp32: generate_spec {spec.tolist()} != generate {tok.tolist()}")
+    print(f"fp32: generate_spec gives generate's {FP32_NEW} tokens bit for bit in "
+          f"{eng.spec_cycles} cycles ({verifies} verify calls on the fp32 decode chain)",
+          flush=True)
+    decode_rate("fp32: kernels  ", eng, pixels, ids, mask, card)
+    decode_rate("fp32: torch ops", ops, pixels, ids, mask, card)
+    profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="fp32 ", host_top=0,
+                  layers=n_layers)
+
+    # the references of (b) and (c), before the engines are freed
+    stand = _StandIns(cfg.image_token_index, cfg.vocab_size,
+                      sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()}))
+    img = os.path.join(d, "img0.npy")
+    rows = _serve_cli_rows(d)
+    with stand:
+        tk = _WordTokenizer(cfg.image_token_index, cfg.vocab_size,
+                            sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()}))
+        proc = PaliGemmaProcessor(tk, cfg.vision_config.num_image_tokens,
+                                  cfg.vision_config.image_size)
+        inputs = proc(images=[_StubImage(np.load(img))], text=[CLI_PROMPTS[0]])
+        eos = _WordTokenizer.eos_token_id
+        want_q = PaliGemmaEngine(p32, cfg, max_seq_len=1024, eos_token_id=eos,
+                                 decode_params=dq32).generate(
+            inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"],
+            max_new_tokens=CLI_NEW, sync_every=infer.SYNC_EVERY)
+        want_p = PaliGemmaEngine(p32, cfg, max_seq_len=1024, eos_token_id=eos,
+                                 fused_layer=False).generate(
+            inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"],
+            max_new_tokens=CLI_NEW, sync_every=infer.SYNC_EVERY)
+        to_req = serve._Server(None, proc, tk, 100)._to_request
+        ref_eng = ServingEngine(p32, cfg, decode_params=dq32, **SERVE)
+        reqs = [to_req(r) for r in rows]
+        for r in reqs:
+            ref_eng.submit(r)
+        ref_eng.run_to_completion()
+        ref = {r.request_id: list(r.tokens) for r in reqs}
+    del eng, ops, ref_eng, p32, dq32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) cli.infer --dtype float32
+    argv = ["--model_path", d, "--image_file_path", img, "--prompt", CLI_PROMPTS[0],
+            "--max_tokens_to_generate", str(CLI_NEW), "--dtype", "float32"]
+    with stand:
+        for label, extra, want in (("--quantize_int8", ["--quantize_int8"], want_q),
+                                   ("--quantize_int8 --speculative",
+                                    ["--quantize_int8", "--speculative", "--draft_k",
+                                     str(SPEC_DRAFT_K)], want_q),
+                                   ("plain decode", [], want_p)):
+            with _NoPlainInt8() if extra else contextlib.nullcontext():
+                text, t, counts, wall, got, _ = _cli_call(infer, argv + extra, stand)
+            add(counts)
+            named = _as_bf16_names(f"fp32 cli {label}", counts)
+            if "--speculative" in extra:
+                _spec_counts("fp32 cli --speculative", named,
+                             _spec_verifies(t["spec_cycles"], infer.SYNC_EVERY), n_layers,
+                             prefills=1)
+            elif extra:
+                _cli_launches(f"fp32 {label}", named, n_layers, True)
+            else:  # the prefill's flash forwards; the plain decode launches nothing
+                _only_launches(f"fp32 cli {label}", counts,
+                               {"flash_attention_fwd_fp32": n_layers})
+            if not np.array_equal(np.asarray(got), want):
+                raise AssertionError(f"fp32 cli {label}: ids {got} != the fp32 engine's "
+                                     f"{want.tolist()}")
+            print(f"fp32 cli {label}: {np.asarray(got).shape[1]} ids equal the fp32 engine's "
+                  f"({'int8 tree, kernel decode' if extra else 'fp32 tree, plain decode'})",
+                  flush=True)
+            _timing_line(f"fp32 {label}", t, wall, card)
+
+    # (c) cli.serve --dtype float32, dense and paged
+    crows = []
+    for i, r in enumerate(rows):
+        crows.append(dict(r, **({"do_sample": True} if i % 3 == 1 else {}),
+                          **({"grammar": "digits"} if i == 0 else {})))
+    repeat = dict(rows[N_REQ - 1], request_id=N_REQ)  # a prefix-cache candidate
+    crows.append(repeat)
+    path = os.path.join(d, "fp32_reqs.jsonl")
+    with open(path, "w") as fh:
+        fh.write("".join(json.dumps(r) + "\n" for r in crows))
+    digits = SERVE_CLI_GRAMMARS["digits"]
+    from paligemma_tpu_torch.processing import grammar as gr
+    dfa = gr.compile_regex(digits)
+    served = {}
+    with stand:
+        for engine in ("dense", "paged"):
+            argv = ["--model_path", d, "--requests_jsonl", path, *SERVE_CLI_FLAGS, "--dtype",
+                    "float32", "--engine", engine, "--prefix_cache", "--grammar",
+                    f"digits={digits}"]
+            run = _serve_cli_call(serve, argv, stand, f"fp32 {engine}")
+            add(run["counts"])
+            e = run["srv"].engine
+            if not (e.fused_decode and e.use_flash and e.cache_dtype == torch.float32):
+                raise AssertionError(f"fp32 serve {engine}: the engine is not on the fp32 "
+                                     "kernel path")
+            _serve_cli_launches(f"fp32 {engine}", _as_bf16_names(f"fp32 serve {engine}",
+                                                                 run["counts"]),
+                                run["ticks"], e, n_layers, head_ticks=run["head_ticks"])
+            toks = run["tokens"]
+            free = [r["request_id"] for r in crows[:N_REQ]
+                    if not r.get("do_sample") and "grammar" not in r]
+            bad = [i for i in free if toks[i] != ref[i]]
+            if bad or toks[N_REQ] != toks[N_REQ - 1]:
+                raise AssertionError(f"fp32 serve {engine}: greedy requests {bad} differ from "
+                                     "the fp32 ServingEngine's, or the repeat from its original")
+            text0 = {ln["request_id"]: ln["text"] for ln in run["lines"]}[0]
+            if not dfa.matches(text0):
+                raise AssertionError(f"fp32 serve {engine}: the grammar row's text {text0!r}")
+            _serve_cli_line(f"fp32 batch {engine}", run["lines"], run["wall"], run["counts"], e,
+                            run["ticks"], card)
+            served[engine] = toks
+            run.pop("srv", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+    if served["dense"] != served["paged"]:
+        differ = [i for i in served["dense"] if served["dense"][i] != served["paged"][i]]
+        raise AssertionError(f"fp32 serve: dense and paged differ on requests {differ}")
+    print(f"fp32 serve: dense == paged on all {len(crows)} requests ({len(free)} free greedy "
+          f"rows equal the fp32 ServingEngine's, {sum('do_sample' in r for r in crows)} sampled, "
+          "1 under a grammar, the repeat equal to its original)", flush=True)
+
+    # (d) the 896 px tower at fp32: flash (B1 fp32) against 'xla'
+    vcfg = paligemma_3b_896().vision_config
+    vp = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                            torch.float32)
+    px = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, 3, vcfg.image_size, vcfg.image_size), dtype=np.float32)).to(dev)
+    kernels.reset_launch_counts()
+    flash = siglip.encode(vp, vcfg, px, attn="flash")
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    _only_launches("fp32 tower", counts, {"flash_attention_fwd_fp32": vcfg.num_hidden_layers})
+    plain = siglip.encode(vp, vcfg, px, attn="xla")
+    sync()
+    rel = float((flash - plain).abs().max() / plain.abs().max())
+    ms = {a: cuda_ms(lambda a=a: siglip.encode(vp, vcfg, px, attn=a), 2) for a in ("flash", "xla")}
+    print(f"fp32 tower 896px: attn='flash' ({vcfg.num_hidden_layers} fp32 B1 launches) vs "
+          f"'xla' features max rel err {rel:.3e} of max |feature| (tol {FP32_LOGIT_TOL}); "
+          f"encode {ms['flash']:.2f} ms (flash) vs {ms['xla']:.2f} ms (xla)  [{card}]",
+          flush=True)
+    if not (torch.isfinite(flash).all() and rel <= FP32_LOGIT_TOL):
+        raise AssertionError(f"fp32 tower: flash vs xla features off by {rel}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -7124,6 +7700,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_phase(report, dev)
     tp_kernel_phase(report, dev)
+    t1 = time.perf_counter()
+    fp32_kernel_phase(report, dev)
+    print(f"kernels: fp32 forms done in {time.perf_counter() - t1:.1f} s", flush=True)
     sync()
     torch.cuda.empty_cache()
     print(f"kernels: all cases within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -7146,6 +7725,10 @@ def main() -> int:
     serve_cli_counts = serve_cli_phase(params, decode, cfg, dev, card, ckpt)
     torch.cuda.empty_cache()
     print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fp32_counts = fp32_phase(cfg, dev, card, ckpt)
+    torch.cuda.empty_cache()
+    print(f"fp32: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     finetune_counts = finetune_phase(params, cfg, dev, card, ckpt)
     torch.cuda.empty_cache()
@@ -7191,7 +7774,7 @@ def main() -> int:
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
                                            spec_counts, finetune_counts, w8a8_counts,
-                                           train_mesh_counts))
+                                           train_mesh_counts, fp32_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -7253,6 +7836,22 @@ def main() -> int:
                             "paligemma_tpu/kernels/quant.py:92"),
         "w8a8_gemm": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
                       "paligemma_tpu/kernels/quant.py:92"),
+        # the fp32 forms (--dtype float32) of the one-card main path
+        "flash_attention_fwd_fp32": ("cuda", "paligemma_tpu_torch/csrc/flash_attention.cu",
+                                     "paligemma_tpu/kernels/flash_attention.py:43"),
+        "int8_gemv_fp32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv_fp32.cu",
+                           "paligemma_tpu/kernels/decode_layer.py:95"),
+        "int8_gemv_rope_kv_fp32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv_fp32.cu",
+                                   "paligemma_tpu/kernels/decode_layer.py:95 / "
+                                   "paligemma_tpu/kernels/decode_layer_paged.py:56"),
+        "head_argmax_fp32": ("cuda", "paligemma_tpu_torch/csrc/decode_head.cu",
+                             "paligemma_tpu/kernels/decode_head.py:35"),
+        "decode_attention_fp32": ("cuda", "paligemma_tpu_torch/csrc/decode_attention.cu",
+                                  "paligemma_tpu/kernels/decode_layer.py:95"),
+        "paged_decode_attention_fp32": ("cuda", "paligemma_tpu_torch/csrc/paged_attention.cu",
+                                        "paligemma_tpu/kernels/paged_attention.py:42"),
+        "rms_norm_fp32": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
+                          "paligemma_tpu/kernels/decode_layer.py:95"),
     }
     rows = []
     for name in kernels.WRAPPERS:

@@ -10,13 +10,18 @@ sampling, print prompt + decoded continuation.
 
 Device: the card (``cuda:0``), or the CPU with ``--only_cpu``; with no card
 and no ``--only_cpu`` it exits with an error and never runs on the CPU by
-itself. On the card prefill attention runs the flash kernel, which takes
-bf16 only, so ``--dtype float32`` needs ``--only_cpu``.
+itself. ``--dtype float32`` runs on the card through the fp32 forms of the
+kernels (the flash forward, the int8 GEMV tile and head, the split decode
+attention, the final norm). Together with ``--int8_prefill``,
+``--model_parallel N`` (N > 1) or ``--data_parallel D`` (D > 1) it exits
+with an error before anything loads: the W8A8 GEMM and the mesh's kernels
+have no fp32 form yet (:func:`fp32_refusals`).
 
 Decode: with ``--quantize_int8`` the engine decodes from the int8 tree
 (runtime.quantize) with its kernel defaults (on the card: the
-hand-written decode layer and head kernels); without it, the plain bf16
-decode (``fused_layer=False``), as the JAX package's bf16 decode is XLA.
+hand-written decode layer and head kernels, in the ``--dtype``); without
+it, the plain decode (``fused_layer=False``), as the JAX package's decode
+is XLA.
 
 ``--int8_prefill`` (with ``--quantize_int8``) serves from one int8 tree:
 the bf16 copy of the LM is dropped once quantized, and the prefill runs
@@ -119,16 +124,41 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def card_or_cpu(only_cpu: bool, dtype: str) -> torch.device:
+# flag -> the kernel it needs that has no fp32 form yet (--dtype float32 on
+# the card)
+_NO_FP32_FORM = {
+    "--lora": "the LoRA shrink and expand (csrc/lora.cu and the int8 GEMV's LoRA epilogue)",
+    "--int8_prefill": "the W8A8 prefill GEMM (csrc/w8a8_gemm.cu, K1 / K2)",
+    "--model_parallel": "the tensor-parallel partial int8_gemv_f32 (mode 3 of "
+                        "csrc/int8_gemv.cuh) and K1 int8_gemv_f32_lora",
+    "--data_parallel": "the mesh's partial int8_gemv_f32 (mode 3 of csrc/int8_gemv.cuh) and K1 "
+                       "int8_gemv_f32_lora",
+}
+
+
+def fp32_refusals(args, lora: bool = False):
+    """The flags of ``args`` (and ``--lora`` when ``lora``) that ``--dtype
+    float32`` cannot take on the card yet, each with the kernel it lacks."""
+    flags = [("--lora", lora), ("--int8_prefill", args.int8_prefill),
+             ("--model_parallel", args.model_parallel > 1),
+             ("--data_parallel", args.data_parallel > 1)]
+    return [(flag, _NO_FP32_FORM[flag]) for flag, given in flags if given]
+
+
+def card_or_cpu(only_cpu: bool, dtype: str, refused=()) -> torch.device:
     """The card (``cuda:0``), or the CPU when asked; no card and no
-    ``--only_cpu`` is an error, never a silent run on the CPU."""
+    ``--only_cpu`` is an error, never a silent run on the CPU. On the card
+    ``--dtype float32`` runs the kernels' fp32 forms; ``refused``
+    (:func:`fp32_refusals`) are the (flag, kernel) pairs given that have
+    none yet, and any of them is an error before anything loads."""
     if only_cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise CliError("no CUDA device found; pass --only_cpu to run on the CPU")
-    require(dtype == "bfloat16",
-            "--dtype float32 runs only with --only_cpu: on the card prefill attention "
-            "runs the flash kernel, which takes bf16")
+    if dtype == "float32" and refused:
+        flag, kernel = refused[0]
+        raise CliError(f"--dtype float32 with {flag} on the card: {kernel} has no fp32 form "
+                       "yet; drop one of them, or pass --only_cpu")
     return torch.device("cuda", 0)
 
 
@@ -149,7 +179,7 @@ def _device(args) -> torch.device:
         require(len(args.prompt) % d == 0,
                 f"--data_parallel {d} splits the batch over {d} shards: pass a multiple of {d} "
                 f"prompts (got {len(args.prompt)})")
-    return card_or_cpu(args.only_cpu, args.dtype)
+    return card_or_cpu(args.only_cpu, args.dtype, fp32_refusals(args))
 
 
 def _sync(device: torch.device) -> None:
@@ -197,8 +227,8 @@ def run(args: argparse.Namespace, tokenizer=None, *, rank: "ranks.Rank" = None) 
     params, config = load_hf_model(args.model_path, dtype, device=device)
     _sync(device)
     timings["load_s"] = time.perf_counter() - t0
-    # split precision: bf16 weights for the compute-bound prefill, int8 for
-    # the bandwidth-bound decode
+    # split precision: --dtype weights for the compute-bound prefill, int8
+    # for the bandwidth-bound decode
     decode_params = None
     if args.quantize_int8:
         t0 = time.perf_counter()
@@ -233,7 +263,7 @@ def run(args: argparse.Namespace, tokenizer=None, *, rank: "ranks.Rank" = None) 
         max_seq_len=max_seq_len,
         eos_token_id=tokenizer.eos_token_id,
         decode_params=decode_params,
-        # the plain bf16 decode unless the int8 tree was asked for
+        # the plain decode unless the int8 tree was asked for
         fused_layer=None if args.quantize_int8 else False,
         int8_act_prefill=args.int8_prefill,
         mesh=None if rank is None else rank.mesh,

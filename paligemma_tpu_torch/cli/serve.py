@@ -29,10 +29,14 @@ request's latencies (``Request.metrics()``).
         --requests_jsonl reqs.jsonl --quantize_int8 [--engine paged]
 
 Device: the card, or the CPU with ``--only_cpu``, as cli/infer: no card and
-no ``--only_cpu`` exits 2, and so does ``--dtype float32`` on the card.
+no ``--only_cpu`` exits 2. ``--dtype float32`` runs on the card through the
+kernels' fp32 forms (dense and paged, sampled rows, ``--grammar``,
+``--prefix_cache``, ``--spec_decode``); with ``--lora``, ``--int8_prefill``,
+``--model_parallel N`` (N > 1) or ``--data_parallel D`` (D > 1) it exits 2
+before anything loads, naming the kernel with no fp32 form yet.
 With ``--quantize_int8`` the engines decode from the int8 tree with their
 kernel defaults (on the card: the decode kernel chain); without it, the
-plain bf16 decode, as in cli/infer.
+plain decode, as in cli/infer.
 
 ``--spec_decode`` serves with n-gram speculative decoding (greedy only: a
 sampled request is refused with an error line; ``--spec_draft_k`` drafts a
@@ -203,7 +207,7 @@ def _rank_main(argv, rank: "ranks.Rank") -> None:
 
 
 def _device(args) -> torch.device:
-    from .infer import card_or_cpu, check_parallel
+    from .infer import card_or_cpu, check_parallel, fp32_refusals
 
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     check_parallel(args)
@@ -215,7 +219,7 @@ def _device(args) -> torch.device:
                 "--max_slots must divide evenly over --data_parallel shards")
         require(args.n_pages is None or args.n_pages % args.data_parallel == 0,
                 "--n_pages must divide evenly over --data_parallel shards")
-    return card_or_cpu(args.only_cpu, args.dtype)
+    return card_or_cpu(args.only_cpu, args.dtype, fp32_refusals(args, bool(args.lora)))
 
 
 def _named(specs, what, form):

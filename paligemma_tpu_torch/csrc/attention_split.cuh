@@ -29,6 +29,20 @@
 // on W, B or the policy), and an empty split adds exp(-1e30 - m) * 0 = +0,
 // an exact identity, so a window padded with empty splits gives the same
 // bits as the unpadded one.
+//
+// The fp32 form (attn_split_f32 and attn_launch_f32, --dtype float32):
+// fp32 q, K / V tiles and output. Its split pass keeps the 32-key tiles,
+// the policies, the skipped tiles and the partials' layout, and computes
+// in fp32 on the CUDA cores: thread (head h = warp, key = lane) takes the
+// score q_h . k_key in order over D, the softmax as above, and thread d
+// takes output column d of every head, p.v over the tile's keys in order,
+// with p not rounded. The combine is the same kernel, writing fp32. So
+// dense == paged and a verify row == its decode step hold bit for bit at
+// fp32 as at bf16. The fp32 tiles are twice the bf16 ones (DA_KT x DA32_LD
+// x 4 bytes each): with q and p they take 74 KB of dynamic shared memory,
+// two blocks an SM. Decode attention is bound by the window's bytes (at B1
+// W2048 D256, 4.19 MB: 1.25 us at 3.35 TB/s), so FFMA on the CUDA cores
+// costs nothing that matters against the tensor cores here.
 #pragma once
 
 #include "common.cuh"
@@ -40,16 +54,18 @@
 #define DA_LD (DA_DMAX + 8)  // bf16 row stride of the K / V tiles: conflict-free fragment loads
 #define DA_PLD (DA_KT + 8)   // bf16 row stride of p
 #define DA_MERGE 8           // combine: split s is added by warp s % DA_MERGE
+#define DA32_LD (DA_DMAX + 4)  // fp32 row stride of the fp32 K / V tiles: 16-byte rows,
+                               // conflict-free float4 reads of eight rows
 
 // Contiguous per-row cache: key j of query row b at c * stride_b + j * D,
 // where c = b, or with kShared c = b / rpc (rpc query rows share a cache
 // row: the s positions of a speculative verify block; a decode step keeps
 // the division out of its address arithmetic); visible where valid[b, j]
 // (a (B, W) mask of query rows).
-template <bool kShared>
+template <bool kShared, class E = bf16>
 struct DenseKV {
-  const bf16* k;
-  const bf16* v;
+  const E* k;
+  const E* v;
   const uint8_t* valid;
   long long stride_b;
   int D, W, rpc;
@@ -66,9 +82,10 @@ struct DenseKV {
 // layer-stacked pool): key j of row b lives in page table[b, j / ps] at slot
 // j % ps; keys [0, kv_len[b]) are visible and table entries past the last
 // visible key are never read.
+template <class E = bf16>
 struct PagedKV {
-  const bf16* k;
-  const bf16* v;
+  const E* k;
+  const E* v;
   const int* table;
   const int* kv_len;
   long long layer_off;
@@ -240,10 +257,10 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
 // one query head into 32 columns of out (B, Hkv * G, D). (Templated on the
 // address policy only so that each source instantiates a kernel of its
 // own.)
-template <class KV>
+template <class KV, class T = bf16>
 __global__ void __launch_bounds__(DA_MERGE * 32)
     attn_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                 const float* __restrict__ part_o, bf16* __restrict__ out, int G, int D,
+                 const float* __restrict__ part_o, T* __restrict__ out, int G, int D,
                  int nsplit) {
   __shared__ float wmax[DA_MERGE];
   __shared__ float wden[DA_MERGE];
@@ -300,7 +317,7 @@ __global__ void __launch_bounds__(DA_MERGE * 32)
       dt += wden[w];
       nt += wnum[w][lane];
     }
-    out[((size_t)bh * G + h) * D + d] = f2bf(nt * (dt > 0.f ? 1.f / dt : 0.f));
+    out[((size_t)bh * G + h) * D + d] = from_f32<T>(nt * (dt > 0.f ? 1.f / dt : 0.f));
   }
 }
 
@@ -314,6 +331,135 @@ inline int attn_launch(const bf16* q, const KV& kv, float* part_m, float* part_l
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_combine<KV><<<dim3((D + 31) / 32, G, B * Hkv), DA_MERGE * 32, 0, st>>>(
+      part_m, part_l, part_o, out, G, D, nsplit);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 split pass (header): grid (nsplit, B * Hkv), DA_THREADS
+// threads, f32_smem_bytes() of dynamic shared memory. KV's policy
+// addresses fp32 rows.
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (2 * DA_KT * DA32_LD + DA_HMAX * DA_DMAX + DA_HMAX * DA_KT) * (int)sizeof(float);
+}
+
+template <class KV>
+__global__ void __launch_bounds__(DA_THREADS, 2)
+    attn_split_f32(const float* __restrict__ q, KV kv, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ part_o, int G, int Hkv, int D,
+                   int W, int nsplit, float scale) {
+  extern __shared__ __align__(16) unsigned char da_smem[];
+  float* ks = reinterpret_cast<float*>(da_smem);  // [DA_KT][DA32_LD]
+  float* vs = ks + DA_KT * DA32_LD;               // [DA_KT][DA32_LD]
+  float* qs = vs + DA_KT * DA32_LD;               // [DA_HMAX][DA_DMAX]
+  float* ps = qs + DA_HMAX * DA_DMAX;             // [DA_HMAX][DA_KT]: p, heads >= G zero
+  __shared__ uint8_t ok[DA_KT];
+  const int bh = blockIdx.y, split = blockIdx.x;
+  const int b = bh / Hkv, hk = bh - b * Hkv;
+  const int k0 = split * DA_KT;
+  const int nk = min(DA_KT, W - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t part = (size_t)bh * nsplit + split;
+  if (kv.skip(b, k0, nk)) {  // no visible key in this tile: the combine's identity
+    if (tid < G) {
+      part_m[part * G + tid] = PG_NEG_INF;
+      part_l[part * G + tid] = 0.f;
+    }
+    for (int i = tid; i < G * D; i += DA_THREADS) part_o[part * G * D + i] = 0.f;
+    return;
+  }
+  const int nchunk = D / 4;  // 16-byte chunks of a row (D % 8 == 0)
+
+  // K, then V: one 16-byte cp.async per chunk of a visible key, zeros for
+  // the other keys
+  for (int half = 0; half < 2; ++half) {
+    const float* src = half ? kv.v : kv.k;
+    float* dst = half ? vs : ks;
+    for (int i = tid; i < DA_KT * nchunk; i += DA_THREADS) {
+      const int j = i / nchunk, c = i - j * nchunk;
+      const bool on = j < nk && kv.visible(b, k0 + j);
+      const float* from = on ? src + kv.row(b, hk, k0 + j) + c * 4 : src;
+      cp_async_16(dst + j * DA32_LD + c * 4, from, on);
+    }
+    cp_async_commit();
+  }
+  if (tid < DA_KT) ok[tid] = tid < nk && kv.visible(b, k0 + tid);
+  const float* qh = q + (size_t)bh * G * D;
+  for (int i = tid; i < G * D; i += DA_THREADS) {
+    const int h = i / D;
+    qs[h * DA_DMAX + (i - h * D)] = qh[i];
+  }
+  cp_async_wait<1>();  // K has landed (V may not have)
+  __syncthreads();
+
+  // score of head h = warp and key = lane, summed over D in order; the
+  // per-head max and sum over this tile's visible keys
+  {
+    const int h = warp;
+    const bool on = h < G && ok[lane];
+    float s = 0.f;
+    if (h < G) {
+      const float* qr = qs + h * DA_DMAX;
+      const float* kr = ks + lane * DA32_LD;
+      for (int c = 0; c < nchunk; ++c) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * c);
+        const float4 kk = *reinterpret_cast<const float4*>(kr + 4 * c);
+        s = fmaf(qv.x, kk.x, s);
+        s = fmaf(qv.y, kk.y, s);
+        s = fmaf(qv.z, kk.z, s);
+        s = fmaf(qv.w, kk.w, s);
+      }
+    }
+    s *= scale;
+    float m = on ? s : PG_NEG_INF;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float p = on ? __expf(s - m) : 0.f;
+    ps[h * DA_KT + lane] = p;
+    float l = p;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0 && h < G) {
+      part_m[part * G + h] = m;
+      part_l[part * G + h] = l;
+    }
+  }
+  cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  // unnormalized p . V: thread d owns output column d of every head, the
+  // tile's keys added in order
+  if (tid < D) {
+    float acc[DA_HMAX];
+#pragma unroll
+    for (int h = 0; h < DA_HMAX; ++h) acc[h] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < DA_KT; ++j) {
+      const float vv = vs[j * DA32_LD + tid];
+#pragma unroll
+      for (int h = 0; h < DA_HMAX; ++h) acc[h] = fmaf(ps[h * DA_KT + j], vv, acc[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < DA_HMAX; ++h)
+      if (h < G) part_o[(part * G + h) * D + tid] = acc[h];
+  }
+}
+
+// Launches the fp32 split pass and the combine (fp32 out) on ``st``;
+// returns cudaGetLastError().
+template <class KV>
+inline int attn_launch_f32(const float* q, const KV& kv, float* part_m, float* part_l,
+                           float* part_o, float* out, int B, int G, int Hkv, int D, int W,
+                           int nsplit, float scale, cudaStream_t st) {
+  constexpr int bytes = f32_smem_bytes();
+  // dynamic shared memory above 48 KB, allowed once per process and policy
+  static const int attr = (int)cudaFuncSetAttribute(
+      attn_split_f32<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) return attr;
+  attn_split_f32<KV><<<dim3(nsplit, B * Hkv), DA_THREADS, bytes, st>>>(
+      q, kv, part_m, part_l, part_o, G, Hkv, D, W, nsplit, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_combine<KV, float><<<dim3((D + 31) / 32, G, B * Hkv), DA_MERGE * 32, 0, st>>>(
       part_m, part_l, part_o, out, G, D, nsplit);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,19 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 
+// An fp32 value in the activation type T (bf16: rounded to nearest even;
+// fp32: itself), and back: the kernels with an fp32 form (--dtype float32)
+// take T as a template parameter, and at T = float every cast is the
+// identity, as the TPU kernels' casts to the activation dtype are at fp32.
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return f2bf(v); }
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
 // 8 bf16 values held in one 16-byte vector, converted to fp32.
 __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);

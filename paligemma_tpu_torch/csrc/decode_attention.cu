@@ -28,6 +28,10 @@
 // key took 68 us per call at W=512; the template's first version, scalar
 // FMAs and a combine of one block per head, 17.3 us at W=2048: both on an
 // H100 80GB HBM3 at 700 W.)
+//
+// pg_decode_attention_fp32 is the fp32 form (--dtype float32): fp32 q,
+// cache and out, the template's fp32 split pass (attention_split.cuh) on
+// the same tiles and combine.
 #include "attention_split.cuh"
 
 template <bool kShared>
@@ -47,6 +51,29 @@ PG_EXPORT int pg_decode_attention(const void* q, const void* k_cache, const void
                                   void* out, int B, int H, int D, int W, int stride_b,
                                   int rows_per_cache, int nsplit, float scale, void* stream) {
   return (rows_per_cache == 1 ? launch<false> : launch<true>)(
+      q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
+      rows_per_cache, nsplit, scale, stream);
+}
+
+template <bool kShared>
+static int launch_f32(const void* q, const void* k_cache, const void* v_cache, const void* valid,
+                      void* part_m, void* part_l, void* part_o, void* out, int B, int H, int D,
+                      int W, int stride_b, int rows_per_cache, int nsplit, float scale,
+                      void* stream) {
+  DenseKV<kShared, float> kv{(const float*)k_cache, (const float*)v_cache,
+                             (const uint8_t*)valid, (long long)stride_b, D, W, rows_per_cache};
+  return attn_launch_f32((const float*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                         (float*)out, B, H, /*Hkv=*/1, D, W, nsplit, scale,
+                         (cudaStream_t)stream);
+}
+
+// As pg_decode_attention with fp32 q (B, H, D), caches and out (B, H * D).
+PG_EXPORT int pg_decode_attention_fp32(const void* q, const void* k_cache, const void* v_cache,
+                                       const void* valid, void* part_m, void* part_l,
+                                       void* part_o, void* out, int B, int H, int D, int W,
+                                       int stride_b, int rows_per_cache, int nsplit, float scale,
+                                       void* stream) {
+  return (rows_per_cache == 1 ? launch_f32<false> : launch_f32<true>)(
       q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
       rows_per_cache, nsplit, scale, stream);
 }

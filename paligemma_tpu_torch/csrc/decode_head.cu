@@ -18,6 +18,13 @@
 // order of the CTAs. The last CTA to finish (a counter) turns the keys
 // into ids and logits and zeroes the keys and the counter for the next
 // call.
+//
+// The fp32 form (pg_head_argmax_fp32, --dtype float32) takes fp32 y through
+// the tile's three-term split (gemv_tile_sums_f32) over the same plan, and
+// the rounding of the logits to the activation dtype is the identity, as
+// in the TPU kernel at fp32: its ids are the argmax of the fp32 logits
+// path's GEMV (pg_int8_gemv_fp32, mode 0) bit for bit. The 64-bit key holds
+// all 32 bits of an fp32 logit.
 #include <math_constants.h>
 
 #include "gemv_tile.cuh"
@@ -30,9 +37,9 @@ __device__ __forceinline__ unsigned long long head_key(float v, int col) {
   return ((unsigned long long)ord << 32) | (uint32_t)(0xffffffffu - (uint32_t)col);
 }
 
-template <bool FAST>
+template <class T, bool FAST>
 __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
-    head_argmax_kernel(const bf16* __restrict__ y, const int8_t* __restrict__ w,
+    head_argmax_kernel(const T* __restrict__ y, const int8_t* __restrict__ w,
                        const float* __restrict__ s, unsigned long long* __restrict__ keys,
                        unsigned int* __restrict__ done, int* __restrict__ ids,
                        float* __restrict__ maxv, int B, int K, int N, int n_valid,
@@ -47,7 +54,10 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
   const int kbeg = rank * k_per_cta;
   const int kend = min(K, kbeg + k_per_cta);
   const int g = (threadIdx.x & 31) >> 2;
-  gemv_tile_sums<FAST>(sm, y, w, K, N, b0, nb, col0 + 16 * g, kbeg, kend, x8 != 0);
+  if constexpr (sizeof(T) == 4)  // x8: 16-byte loads of fp32 y
+    gemv_tile_sums_f32<FAST>(sm, y, w, K, N, b0, nb, col0 + 16 * g, kbeg, kend, x8 != 0);
+  else
+    gemv_tile_sums<FAST>(sm, y, w, K, N, b0, nb, col0 + 16 * g, kbeg, kend, x8 != 0);
   cluster_sync_all();
   // this rank's columns [c_lo, c_hi) of the tile, as activation-dtype
   // logits (padded columns -inf) in sm.red, free after the barrier
@@ -58,7 +68,7 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
   for (int idx = threadIdx.x; idx < nb * (c_hi - c_lo); idx += blockDim.x) {
     const int r = idx / (c_hi - c_lo), c = c_lo + idx % (c_hi - c_lo);
     const float acc = gt_cluster_sum(sm, r, c, cs);
-    lg[r][c] = col0 + c < n_valid ? bf2f(f2bf(acc * s[col0 + c])) : -CUDART_INF_F;
+    lg[r][c] = col0 + c < n_valid ? to_f32(from_f32<T>(acc * s[col0 + c])) : -CUDART_INF_F;
   }
   __syncthreads();
   // warp w reduces rows w, w + warps, ...
@@ -106,16 +116,32 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
 // vocab), s (N,) fp32, columns >= n_valid never win; cluster, warps and
 // k_per_cta from the plan of the unpadded vocab; ws: B 64-bit keys and a
 // counter, all zero (each call leaves them so).
+template <class T>
+static int launch_head(const void* y, const void* w8, const void* s, void* ws, void* ids,
+                       void* maxv, int B, int K, int N, int n_valid, int cluster, int warps,
+                       int k_per_cta, void* stream) {
+  const dim3 grid((N / GT_COLS) * cluster, 1, (B + GT_BT - 1) / GT_BT);
+  const bool fast = N % 16 == 0 && (uintptr_t)w8 % 16 == 0;
+  const int x8 = K % 4 == 0 && (uintptr_t)y % (4 * sizeof(T)) == 0;
+  auto kernel = &head_argmax_kernel<T, false>;
+  if (fast) kernel = &head_argmax_kernel<T, true>;
+  unsigned long long* keys = (unsigned long long*)ws;
+  return gt_launch(kernel, grid, cluster, warps, (cudaStream_t)stream, (const T*)y,
+                   (const int8_t*)w8, (const float*)s, keys, (unsigned int*)(keys + B), (int*)ids,
+                   (float*)maxv, B, K, N, n_valid, k_per_cta, x8);
+}
+
 PG_EXPORT int pg_head_argmax(const void* y, const void* w8, const void* s, void* ws, void* ids,
                              void* maxv, int B, int K, int N, int n_valid, int cluster, int warps,
                              int k_per_cta, void* stream) {
-  const dim3 grid((N / GT_COLS) * cluster, 1, (B + GT_BT - 1) / GT_BT);
-  const bool fast = N % 16 == 0 && (uintptr_t)w8 % 16 == 0;
-  const int x8 = K % 4 == 0 && (uintptr_t)y % 8 == 0;
-  auto kernel = &head_argmax_kernel<false>;
-  if (fast) kernel = &head_argmax_kernel<true>;
-  unsigned long long* keys = (unsigned long long*)ws;
-  return gt_launch(kernel, grid, cluster, warps, (cudaStream_t)stream, (const bf16*)y,
-                   (const int8_t*)w8, (const float*)s, keys, (unsigned int*)(keys + B), (int*)ids,
-                   (float*)maxv, B, K, N, n_valid, k_per_cta, x8);
+  return launch_head<bf16>(y, w8, s, ws, ids, maxv, B, K, N, n_valid, cluster, warps, k_per_cta,
+                           stream);
+}
+
+// The fp32 form: y (B, K) fp32, the rest as pg_head_argmax.
+PG_EXPORT int pg_head_argmax_fp32(const void* y, const void* w8, const void* s, void* ws,
+                                  void* ids, void* maxv, int B, int K, int N, int n_valid,
+                                  int cluster, int warps, int k_per_cta, void* stream) {
+  return launch_head<float>(y, w8, s, ws, ids, maxv, B, K, N, n_valid, cluster, warps,
+                            k_per_cta, stream);
 }

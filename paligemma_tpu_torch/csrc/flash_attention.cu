@@ -68,6 +68,25 @@
 // every K / V fragment feeds two mma.sync, and the softmax, the fragment
 // loads and the copies cost several instructions per mma; wgmma and TMA
 // are later work.
+//
+// The fp32 form (flash_fwd_f32_kernel, pg_flash_attention_fwd_fp32;
+// --dtype float32): the same function, mask, sweep bound and lse with fp32
+// q, k, v and out, p not rounded (the TPU kernel's rounding of p to v's
+// dtype is the identity at fp32). A simple FFMA kernel: a block owns 64
+// folded rows of one (batch, KV head) and 256 threads, four a row; Q's 64
+// rows and one 32-key K tile and one V tile sit in shared memory as fp32
+// (rows of D rounded up to DP in {64, 80, 128, 256}, zeros past D and past
+// kv_len), and K_{j+1} loads during P_j V_j, V_{j+1} during S_{j+1}.
+// Thread (row, c) scores keys c, c + 4, ... of each tile over the depth in
+// order (float4 reads: four distinct K rows a quarter warp, at the row
+// stride DP + 4 free of bank conflicts), runs the online softmax in log2
+// units with the row's three other threads (shuffles), and accumulates
+// output columns 4c + 16f .. + 3 of its row, p_key taken from the thread
+// that scored it by a shuffle. At the 896 px tower (B1 S4096 H16 D72) it is
+// bound by the operations: 77 GFLOP, 1.15 ms at 67 TFLOP/s fp32; each
+// float4 of K or V read feeds four FMAs, so the shared-memory reads (not
+// the FMAs) hold it to about a quarter of that peak. 3xTF32 on mma.sync
+// would be the faster design.
 #include "common.cuh"
 
 #define FA_BK 64  // keys per K / V tile
@@ -405,6 +424,195 @@ __global__ void __launch_bounds__(FwdCfg<DP>::NW * 32, FwdCfg<DP>::MIN_BLOCKS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 forward (header).
+// ---------------------------------------------------------------------------
+#define FA32_BQ 64   // folded rows per block
+#define FA32_BK 32   // keys per K / V tile
+#define FA32_NT 256  // threads: four a row
+
+template <int DP>
+struct F32Cfg {
+  static constexpr int LD = DP + 4;  // fp32 row stride: 16-byte rows, conflict-free float4
+  static constexpr int NF = DP / 16;  // float4 output chunks of a thread
+  static constexpr int BYTES = (FA32_BQ + 2 * FA32_BK) * LD * (int)sizeof(float);
+  static constexpr int MIN_BLOCKS = DP <= 128 ? 2 : 1;
+};
+
+// n rows of a (B, S, H, D) fp32 tensor into a tile of stride LD, 16-byte
+// cp.async chunks, zeros where ok(r) is false and past D. addr(r) is the
+// element offset of row r.
+template <int DP, class Ok, class Addr>
+__device__ __forceinline__ void fa32_load(float* dst, const float* __restrict__ src, int n, int D,
+                                          Ok ok, Addr addr) {
+  constexpr int CH = DP / 4;
+  for (int idx = threadIdx.x; idx < n * CH; idx += FA32_NT) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bool on = c * 4 < D && ok(r);
+    cp_async_16(dst + r * F32Cfg<DP>::LD + c * 4, on ? src + addr(r) + c * 4 : src, on);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FA32_NT, F32Cfg<DP>::MIN_BLOCKS)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ prefix_len,
+                         const int* __restrict__ kv_len, float* __restrict__ out,
+                         float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int D,
+                         float scale, int q_offset) {
+  constexpr int LD = F32Cfg<DP>::LD, NF = F32Cfg<DP>::NF, CH = DP / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [FA32_BQ][LD]
+  float* ks = qs + FA32_BQ * LD;               // [FA32_BK][LD]
+  float* vs = ks + FA32_BK * LD;               // [FA32_BK][LD]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * FA32_BQ;
+  const int group = Hq / Hkv, rows = group * Sq;
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 2, c = threadIdx.x & 3;
+  const int row = row0 + r;
+  const bool live = row < rows;
+  const int pos = (live ? row % Sq : 0) + q_offset;
+  const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  const int n_tiles =
+      (fa_key_end(fa_positions(row0, FA32_BQ, rows, Sq, q_offset), plen, klen) + FA32_BK - 1) /
+      FA32_BK;
+  const float c2 = scale * 1.4426950408889634f;  // scores to log2 units
+
+  auto q_ok = [&](int rr) { return row0 + rr < rows; };
+  auto q_addr = [&](int rr) {
+    const int fr = row0 + rr, gi = fr / Sq, i = fr - gi * Sq;
+    return (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D;
+  };
+  // the tile of keys k0 .. k0 + FA32_BK - 1 of k or v: zeros at and past klen
+  auto load_keys = [&](float* dst, const float* src, int k0) {
+    fa32_load<DP>(dst, src, FA32_BK, D, [&](int j) { return k0 + j < klen; },
+                  [&](int j) { return (((size_t)b * Skv + k0 + j) * Hkv + kvh) * D; });
+  };
+
+  fa32_load<DP>(qs, q, FA32_BQ, D, q_ok, q_addr);
+  if (n_tiles > 0) load_keys(ks, k, 0);
+  cp_async_commit();
+  if (n_tiles > 0) load_keys(vs, v, 0);
+  cp_async_commit();
+
+  float m = PG_NEG_INF, l = 0.f;  // the row's running max (log2 units) and sum
+  float o[NF][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) o[f][0] = o[f][1] = o[f][2] = o[f][3] = 0.f;
+  const float* qr = qs + r * LD;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * FA32_BK;
+    cp_async_wait<1>();  // K_j (and Q) have landed
+    __syncthreads();
+    // S: keys k0 + c + 4 i of this thread's row
+    float sc[FA32_BK / 4];
+#pragma unroll
+    for (int i = 0; i < FA32_BK / 4; ++i) sc[i] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < CH; ++ch) {
+      const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * ch);
+#pragma unroll
+      for (int i = 0; i < FA32_BK / 4; ++i) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * i) * LD + 4 * ch);
+        sc[i] = fmaf(qv.x, kv.x, sc[i]);
+        sc[i] = fmaf(qv.y, kv.y, sc[i]);
+        sc[i] = fmaf(qv.z, kv.z, sc[i]);
+        sc[i] = fmaf(qv.w, kv.w, sc[i]);
+      }
+    }
+    // mask, the new row max over the row's four threads, p = 2^(s c2 - m)
+    float mx = PG_NEG_INF;
+    uint32_t seen = 0u;
+#pragma unroll
+    for (int i = 0; i < FA32_BK / 4; ++i) {
+      const int key = k0 + c + 4 * i;
+      if (live && key < klen && (key < plen || key <= pos)) {
+        seen |= 1u << i;
+        mx = fmaxf(mx, sc[i] * c2);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = fa_exp2(m - m_new);
+    m = m_new;
+    float p[FA32_BK / 4], ls = 0.f;
+#pragma unroll
+    for (int i = 0; i < FA32_BK / 4; ++i) {
+      p[i] = (seen >> i) & 1u ? fa_exp2(fmaf(sc[i], c2, -m)) : 0.f;
+      ls += p[i];
+    }
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    l = l * alpha + ls;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      o[f][0] *= alpha;
+      o[f][1] *= alpha;
+      o[f][2] *= alpha;
+      o[f][3] *= alpha;
+    }
+    __syncthreads();  // every thread is done with K_j
+    if (j + 1 < n_tiles) load_keys(ks, k, k0 + FA32_BK);
+    cp_async_commit();
+    cp_async_wait<1>();  // V_j has landed
+    __syncthreads();
+    // O += P V: key 4 i + cc's p from the row's thread cc, in key order
+#pragma unroll
+    for (int i = 0; i < FA32_BK / 4; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], (lane & ~3) | cc);
+        const float* vr = vs + (cc + 4 * i) * LD + 4 * c;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * f);
+          o[f][0] = fmaf(pj, vv.x, o[f][0]);
+          o[f][1] = fmaf(pj, vv.y, o[f][1]);
+          o[f][2] = fmaf(pj, vv.z, o[f][2]);
+          o[f][3] = fmaf(pj, vv.w, o[f][3]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with V_j
+    if (j + 1 < n_tiles) load_keys(vs, v, k0 + FA32_BK);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // out = O / l and lse = m ln 2 + log l (0 for a row with no visible key)
+  if (!live) return;
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  const int gi = row / Sq, i = row - gi * Sq;
+  float* dst = out + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D + 4 * c;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (4 * c + 16 * f < D)
+      *reinterpret_cast<float4*>(dst + 16 * f) =
+          make_float4(o[f][0] * inv, o[f][1] * inv, o[f][2] * inv, o[f][3] * inv);
+  }
+  if (lse != nullptr && c == 0)
+    lse[((size_t)b * Hkv + kvh) * rows + row] = l > 0.f ? m * 0.6931471805599453f + logf(l) : 0.f;
+}
+
+template <int DP>
+static int launch_fwd_f32(const void* q, const void* k, const void* v, const void* prefix_len,
+                          const void* kv_len, void* out, void* lse, int B, int Sq, int Skv,
+                          int Hq, int Hkv, int D, float scale, int q_offset, cudaStream_t st) {
+  constexpr int bytes = F32Cfg<DP>::BYTES;
+  // dynamic shared memory above 48 KB, allowed once per process
+  static const int attr = (int)cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  dim3 grid((rows + FA32_BQ - 1) / FA32_BQ, Hkv, B);
+  flash_fwd_f32_kernel<DP><<<grid, FA32_NT, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)prefix_len,
+      (const int*)kv_len, (float*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale, q_offset);
+  return (int)cudaGetLastError();
+}
+
 template <int DP>
 static int launch_fwd(const void* q, const void* k, const void* v, const void* prefix_len,
                       const void* kv_len, void* out, void* lse, int B, int Sq, int Skv, int Hq,
@@ -437,4 +645,24 @@ PG_EXPORT int pg_flash_attention_fwd(const void* q, const void* k, const void* v
                           q_offset, st);
   return launch_fwd<256>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D, scale,
                          q_offset, st);
+}
+
+// The fp32 form: q, k, v and out fp32 (16-byte aligned, D % 8 == 0, D <=
+// 256), the rest as pg_flash_attention_fwd.
+PG_EXPORT int pg_flash_attention_fwd_fp32(const void* q, const void* k, const void* v,
+                                          const void* prefix_len, const void* kv_len, void* out,
+                                          void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                                          int D, float scale, int q_offset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_fwd_f32<64>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                              scale, q_offset, st);
+  if (D <= 80)
+    return launch_fwd_f32<80>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                              scale, q_offset, st);
+  if (D <= 128)
+    return launch_fwd_f32<128>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                               scale, q_offset, st);
+  return launch_fwd_f32<256>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                             scale, q_offset, st);
 }

@@ -1,5 +1,5 @@
 // The int8 weight-only GEMV tile on the tensor cores, shared by
-// int8_gemv.cu and decode_head.cu so that the LM head's logits come out
+// int8_gemv.cuh and decode_head.cu so that the LM head's logits come out
 // bit-identical from both kernels (the greedy token of the logits path and
 // of the fused argmax path must agree). kernels/gemv_plan.py is the host
 // side: it fixes the cluster size and each CTA's K range.
@@ -62,6 +62,21 @@
 // weight loads, so that HBM streams while r is computed; then its warps
 // write y for the CTA's K range into shared memory (the warps' sum buffer,
 // free until the K loop ends), and the loop reads x's fragments from there.
+//
+// fp32 x (--dtype float32; gemv_tile_sums_f32). The weights stay the bf16
+// A operand (exact). Each fp32 element of x is split into three bf16 terms,
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (each
+// difference exact in fp32, so x == hi + mid + lo barring underflow), and
+// every step runs the three terms as B operands against the same converted
+// weight fragments, into the same fp32 accumulators: a product of two 8-bit
+// significands is exact in fp32, so the sum differs from fp32 x . W only in
+// the order of its additions. The weight bytes, the plan, the warps' steps
+// and the order in which warps and ranks are added are the bf16 tile's, so
+// at fp32 too an element's sum depends on (K, N) alone. The cost is three
+// mma.sync per A fragment instead of one. The norm prologue at fp32 makes
+// y = (x * r) * (1 + w) in fp32, unrounded, as each step's x is loaded
+// (x and w from L1 / L2; r of every row once per CTA, before the loop),
+// and splits y.
 #pragma once
 
 #include "common.cuh"
@@ -163,9 +178,12 @@ __device__ __forceinline__ uint32_t pack_int_bf16x2(float lo, float hi) {
 }
 
 // One 16-row step: rows 4t .. 4t+3 of the lane's 16 columns (wv[r], r the
-// row) and x row g at k 4t .. 4t+3 (xv), into the 8 m-tiles' accumulators.
-__device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv)[4], uint2 xv,
-                                            uint32_t magic) {
+// row) against NT B fragments of x row g at k 4t .. 4t+3 (b[i]: bf16 x, or
+// fp32 x's three bf16 terms), each A fragment against b[0], b[1], ... in
+// order, into the 8 m-tiles' accumulators.
+template <int NT>
+__device__ __forceinline__ void gt_mma_terms(float (&acc)[8][4], const uint4 (&wv)[4],
+                                             const uint32_t (&b)[NT][2], uint32_t magic) {
   uint32_t wx[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -174,7 +192,6 @@ __device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv
     wx[r][2] = wv[r].z ^ 0x80808080u;
     wx[r][3] = wv[r].w ^ 0x80808080u;
   }
-  const uint32_t b[2] = {xv.x, xv.y};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {  // the m-tiles 2j (bytes 0, 1) and 2j + 1 (bytes 2, 3)
     uint32_t a[4];
@@ -182,13 +199,22 @@ __device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv
     a[1] = pack_int_bf16x2(s8_at<1>(wx[0][j], magic), s8_at<1>(wx[1][j], magic));
     a[2] = pack_int_bf16x2(s8_at<0>(wx[2][j], magic), s8_at<0>(wx[3][j], magic));
     a[3] = pack_int_bf16x2(s8_at<1>(wx[2][j], magic), s8_at<1>(wx[3][j], magic));
-    mma_bf16_16816(acc[2 * j], a, b);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) mma_bf16_16816(acc[2 * j], a, b[i]);
     a[0] = pack_int_bf16x2(s8_at<2>(wx[0][j], magic), s8_at<2>(wx[1][j], magic));
     a[1] = pack_int_bf16x2(s8_at<3>(wx[0][j], magic), s8_at<3>(wx[1][j], magic));
     a[2] = pack_int_bf16x2(s8_at<2>(wx[2][j], magic), s8_at<2>(wx[3][j], magic));
     a[3] = pack_int_bf16x2(s8_at<3>(wx[2][j], magic), s8_at<3>(wx[3][j], magic));
-    mma_bf16_16816(acc[2 * j + 1], a, b);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) mma_bf16_16816(acc[2 * j + 1], a, b[i]);
   }
+}
+
+// The step with bf16 x (xv: 4 elements, as gt_load_x packs them).
+__device__ __forceinline__ void gt_mma_step(float (&acc)[8][4], const uint4 (&wv)[4], uint2 xv,
+                                            uint32_t magic) {
+  const uint32_t b[1][2] = {{xv.x, xv.y}};
+  gt_mma_terms<1>(acc, wv, b, magic);
 }
 
 // x's 4 elements of a step from xp, of which the first nrow exist (the
@@ -463,6 +489,196 @@ __device__ __forceinline__ void gemv_tile_sums(GemvSmem& sm, const bf16* __restr
     float v = 0.f;
     for (int i = 0; i < warps; ++i) v += sm.red[i][r][c];
     sm.sum[r][c] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 x: the three-term split (header).
+// ---------------------------------------------------------------------------
+// The norm's operands at fp32: y = (x * r) * (1 + w), r = rsqrt(mean(x^2) + eps).
+struct NormInF {
+  const float* w;  // (K,) fp32, 16-byte aligned
+  float eps;
+};
+
+__device__ __forceinline__ float4 ldg_f4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// x's 4 fp32 elements of a step from xp, of which the first nrow exist
+// (the rest read as zeros; x16: one 16-byte load).
+__device__ __forceinline__ float4 gt_load_xf(const float* __restrict__ xp, bool xrow, int nrow,
+                                             bool x16) {
+  float e[4] = {0.f, 0.f, 0.f, 0.f};
+  if (xrow) {
+    if (x16 && nrow == 4) return ldg_f4(xp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nrow) e[j] = __ldg(xp + j);
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// The three bf16 terms of 4 fp32 values as B fragments: b[i] holds term i
+// (hi, mid, lo) of elements (0, 1) in b[i][0] and (2, 3) in b[i][1], the
+// lower index in the low half, as gt_load_x packs bf16 x.
+__device__ __forceinline__ void gt_split3(float4 v, uint32_t (&b)[3][2]) {
+  float e[4] = {v.x, v.y, v.z, v.w};
+  uint32_t h[3][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const bf16 t = __float2bfloat16_rn(e[j]);
+      h[i][j] = (uint32_t)__bfloat16_as_ushort(t);
+      e[j] = __fsub_rn(e[j], __bfloat162float(t));  // exact
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    b[i][0] = h[i][0] | (h[i][1] << 16);
+    b[i][1] = h[i][2] | (h[i][3] << 16);
+  }
+}
+
+// The step with fp32 x: the same A fragments, each against the three
+// terms of x in order hi, mid, lo.
+__device__ __forceinline__ void gt_mma_step3(float (&acc)[8][4], const uint4 (&wv)[4], float4 xv,
+                                             uint32_t magic) {
+  uint32_t b[3][2];
+  gt_split3(xv, b);
+  gt_mma_terms<3>(acc, wv, b, magic);
+}
+
+// rsqrt(mean(x^2) + eps) of the fp32 row xr of K elements (K % 4 == 0,
+// 16-byte aligned), by one warp: lane l sums the squares of the 4-element
+// chunks l, l + 32, ... in order, then the butterfly adds the lanes. The
+// order depends on K alone.
+__device__ __forceinline__ float gt_row_rsqrt_f32(const float* __restrict__ xr, int K,
+                                                  float eps) {
+  const int lane = threadIdx.x & 31, chunks = K >> 2;
+  float acc = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    const float4 v = ldg_f4(xr + 4 * c);
+    acc = fmaf(v.x, v.x, acc);
+    acc = fmaf(v.y, v.y, acc);
+    acc = fmaf(v.z, v.z, acc);
+    acc = fmaf(v.w, v.w, acc);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
+  return rsqrtf(__fadd_rn(__fdiv_rn(acc, (float)K), eps));
+}
+
+// y of 4 fp32 elements: (x * r) * (1 + w), each product rounded (no FMA),
+// in the order of the plain version (ops/norms.rms_norm), not rounded to
+// bf16.
+__device__ __forceinline__ float4 gt_norm4(float4 x, float4 w, float r) {
+  return make_float4(__fmul_rn(__fmul_rn(x.x, r), __fadd_rn(1.f, w.x)),
+                     __fmul_rn(__fmul_rn(x.y, r), __fadd_rn(1.f, w.y)),
+                     __fmul_rn(__fmul_rn(x.z, r), __fadd_rn(1.f, w.z)),
+                     __fmul_rn(__fmul_rn(x.w, r), __fadd_rn(1.f, w.w)));
+}
+
+// gemv_tile_sums with fp32 x (B, K) (int8 weights): the same steps, loads
+// and sum order, each step's x split into three bf16 terms (header). With
+// NORM the tile multiplies y = (x * r) * (1 + w): r of rows b0 .. b0+nb-1
+// first (warp w takes rows w, w + warps, ...; the weights stream
+// meanwhile), then each step loads x and w at its rows and makes y. x16:
+// K % 4 == 0 and x 16-byte aligned (NORM needs it, and w 16-byte aligned).
+template <bool FAST, bool NORM = false>
+__device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __restrict__ x,
+                                                   const int8_t* __restrict__ w, int K, int N,
+                                                   int b0, int nb, int qcol, int kbeg, int kend,
+                                                   bool x16, NormInF norm = NormInF{}) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = kend > kbeg ? (kend - kbeg + 15) >> 4 : 0;
+  const int mine = steps > warp ? (steps - warp + warps - 1) / warps : 0;
+  const int ncol = N - qcol;
+  const bool xrow = g < nb;
+  const int row0 = kbeg + 16 * warp + 4 * t;  // the lane's first row of step 0
+  const int stride = 16 * warps;              // rows between a warp's steps
+  const size_t n1 = (size_t)N;
+  const int8_t* wp = w + (size_t)row0 * n1 + qcol;
+  const float* xp = x + (size_t)(b0 + (xrow ? g : 0)) * K + row0;
+  const float* nwp = NORM ? norm.w + row0 : nullptr;  // the norm weight at the lane's rows
+  const size_t wstep = (size_t)stride * n1;
+  const uint32_t magic = gt_magic();
+
+  float acc[8][4];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+  uint4 wb[GT_STAGES][4];
+  float4 xb[GT_STAGES];
+  float4 nb4[NORM ? GT_STAGES : 1];  // NORM: w at the step's rows
+  float r = 0.f;
+  if constexpr (NORM) {
+    __shared__ float rs[GT_BT];
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s)  // the weights stream while r is computed
+      if (s < mine)
+        gt_load_w<FAST>(wb[s], wp + s * wstep, n1, ncol, min(4, kend - row0 - s * stride));
+    for (int rr = warp; rr < nb; rr += warps) {
+      const float v = gt_row_rsqrt_f32(x + (size_t)(b0 + rr) * K, K, norm.eps);
+      if (lane == 0) rs[rr] = v;
+    }
+    __syncthreads();
+    r = rs[xrow ? g : 0];
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s)
+      if (s < mine) {
+        const int nrow = min(4, kend - row0 - s * stride);
+        xb[s] = gt_load_xf(xp + s * stride, xrow, nrow, x16);
+        nb4[s] = gt_load_xf(nwp + s * stride, xrow, nrow, x16);
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s)
+      if (s < mine) {
+        const int nrow = min(4, kend - row0 - s * stride);
+        gt_load_w<FAST>(wb[s], wp + s * wstep, n1, ncol, nrow);
+        xb[s] = gt_load_xf(xp + s * stride, xrow, nrow, x16);
+      }
+  }
+  for (int i0 = 0; i0 < mine; i0 += GT_STAGES) {
+#pragma unroll
+    for (int s = 0; s < GT_STAGES; ++s) {
+      const int i = i0 + s;
+      if (i < mine) {
+        if constexpr (NORM)
+          gt_mma_step3(acc, wb[s], gt_norm4(xb[s], nb4[s], r), magic);
+        else
+          gt_mma_step3(acc, wb[s], xb[s], magic);
+        const int next = i + GT_STAGES;
+        if (next < mine) {
+          const int nrow = min(4, kend - row0 - next * stride);
+          gt_load_w<FAST>(wb[s], wp + next * wstep, n1, ncol, nrow);
+          xb[s] = gt_load_xf(xp + next * stride, xrow, nrow, x16);
+          if constexpr (NORM) nb4[s] = gt_load_xf(nwp + next * stride, xrow, nrow, x16);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    *reinterpret_cast<float2*>(&sm.red[warp][2 * t][16 * g + 2 * m]) =
+        make_float2(acc[m][0], acc[m][2]);
+    *reinterpret_cast<float2*>(&sm.red[warp][2 * t + 1][16 * g + 2 * m]) =
+        make_float2(acc[m][1], acc[m][3]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nb * GT_COLS; e += blockDim.x) {
+    const int rr = e / GT_COLS, c = e % GT_COLS;
+    float v = 0.f;
+    for (int i = 0; i < warps; ++i) v += sm.red[i][rr][c];
+    sm.sum[rr][c] = v;
   }
 }
 

@@ -14,7 +14,7 @@
 //   wgmma's A operand (out^T = W^T x^T), K split over a cluster where the
 //   tiles leave SMs idle, else persistent CTAs.
 // * M <= 16 (decode rows, bound by the weight bytes): (K, N) weights run on
-//   the int8 GEMV's tile (int8_gemv.cu, mode 0: pg_int8_gemv); (N, K)
+//   the int8 GEMV's tile (int8_gemv.cuh, mode 0: pg_int8_gemv); (N, K)
 //   weights on wq_wgmma.cuh's tile with 16 rows of x (wgmma's n16).
 #include "wq_wgmma.cuh"
 

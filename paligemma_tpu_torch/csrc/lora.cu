@@ -16,7 +16,7 @@
 // casts its operands to the activation dtype. The mask keeps the row's own
 // adapter block; bank row 0 is the zero adapter, so a base-model row gets
 // z = 0 and a delta of exactly 0. The expand (z . B) runs in the epilogue
-// of the int8 GEMV of the same projection (csrc/int8_gemv.cu).
+// of the int8 GEMV of the same projection (csrc/int8_gemv.cuh).
 //
 // What bounds it: the bytes of A (0.26-2.1 MB per target group at
 // Gemma-2B with 3 fp32 adapters of rank 8: 0.08-0.63 us at 3.35 TB/s); x

@@ -21,6 +21,10 @@
 // without a load, so reads follow the live tokens and not the table's
 // width. Both kernels are the same template (attention_split.cuh): on the
 // same keys they return the same bits.
+//
+// pg_paged_attention_fp32 is the fp32 form (--dtype float32): an fp32 pool,
+// q and out through the template's fp32 split pass, so dense == paged at
+// fp32 too.
 #include "attention_split.cuh"
 
 PG_EXPORT int pg_paged_attention(const void* q, const void* k_pool, const void* v_pool,
@@ -28,8 +32,22 @@ PG_EXPORT int pg_paged_attention(const void* q, const void* k_pool, const void* 
                                  void* part_l, void* part_o, void* out, int B, int Hq, int Hkv,
                                  int D, int W, int page_size, int table_stride,
                                  long long layer_off, int nsplit, float scale, void* stream) {
-  PagedKV kv{(const bf16*)k_pool, (const bf16*)v_pool, (const int*)table, (const int*)kv_len,
+  PagedKV<bf16> kv{(const bf16*)k_pool, (const bf16*)v_pool, (const int*)table, (const int*)kv_len,
              layer_off, page_size, table_stride, Hkv, D};
   return attn_launch((const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
                      (bf16*)out, B, Hq / Hkv, Hkv, D, W, nsplit, scale, (cudaStream_t)stream);
+}
+
+// As pg_paged_attention with fp32 q (B, Hq, D), pool and out (B, Hq, D).
+PG_EXPORT int pg_paged_attention_fp32(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* table, const void* kv_len, void* part_m,
+                                      void* part_l, void* part_o, void* out, int B, int Hq,
+                                      int Hkv, int D, int W, int page_size, int table_stride,
+                                      long long layer_off, int nsplit, float scale,
+                                      void* stream) {
+  PagedKV<float> kv{(const float*)k_pool, (const float*)v_pool, (const int*)table,
+                    (const int*)kv_len, layer_off, page_size, table_stride, Hkv, D};
+  return attn_launch_f32((const float*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                         (float*)out, B, Hq / Hkv, Hkv, D, W, nsplit, scale,
+                         (cudaStream_t)stream);
 }

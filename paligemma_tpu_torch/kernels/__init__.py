@@ -55,6 +55,16 @@ WRAPPERS = {
     # each row of x quantized to int8, then the int8 x int8 product
     "w8a8_quant_rows": _w8a8.w8a8_quant_rows,
     "w8a8_gemm": _w8a8.w8a8_gemm,
+    # the fp32 forms of the one-card main path (--dtype float32), each
+    # counted apart from its bf16 kernel; the wrapper of the bf16 kernel
+    # sends fp32 inputs to them
+    "flash_attention_fwd_fp32": _flash_attention.flash_attention_fwd_fp32,
+    "int8_gemv_fp32": _int8_gemv.int8_gemv_fp32,
+    "int8_gemv_rope_kv_fp32": _int8_gemv.int8_gemv_rope_kv_fp32,
+    "head_argmax_fp32": _decode_head.head_argmax_fp32,
+    "decode_attention_fp32": _decode_attention.decode_attention_fp32,
+    "paged_decode_attention_fp32": _paged_attention.paged_decode_attention_fp32,
+    "rms_norm_fp32": _decode_elementwise.rms_norm_fp32,
     # the ablation shelf (kernels/ablation), reached through its own entry
     # points and siglip.encode(attn="fused")
     "vision_attention": _vision_attention.vision_attention,

@@ -40,6 +40,8 @@ SIGNATURES = {
     # q, k, v, prefix_len, kv_len, out, lse (or NULL), B, Sq, Skv, Hq, Hkv,
     # D, scale, q_offset, stream
     "pg_flash_attention_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    # the same with fp32 q, k, v and out
+    "pg_flash_attention_fwd_fp32": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq, Hkv,
     # D, scale, q_offset, stream
     "pg_flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
@@ -56,18 +58,25 @@ SIGNATURES = {
     # sin, pos, k_dst, v_dst, k_new, v_new, table, H, D, rows, tstride)
     "pg_int8_gemv_fused": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F] + [_P] * 8
                            + [_I] * 4 + [_P]),
+    # fp32 x (modes 0-2 and 4, no LoRA): x, w8, s, residual, out, B, K, N,
+    # mode, cluster, warps, k_per_cta, nw, eps, cos, sin, pos, k_dst, v_dst,
+    # k_new, v_new, table, H, D, rows, tstride, stream
+    "pg_int8_gemv_fp32": [_P] * 5 + [_I] * 7 + [_P, _F] + [_P] * 8 + [_I] * 4 + [_P],
     # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
     # eps, stream
     "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, rows_per_cache, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "pg_decode_attention_fp32": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q, k_pool, v_pool, table, kv_len, part_m, part_l, part_o, out, B, Hq,
     # Hkv, D, W, page_size, table_stride, layer_off, nsplit, scale, stream
     "pg_paged_attention": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
+    "pg_paged_attention_fp32": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
     # y, w8, s, ws, ids, maxv, B, K, N, n_valid, cluster, warps, k_per_cta,
     # stream
     "pg_head_argmax": [_P] * 6 + [_I] * 7 + [_P],
+    "pg_head_argmax_fp32": [_P] * 6 + [_I] * 7 + [_P],
     # q, k, v, out, B, S, H, D, rows, scale, stream
     "pg_vision_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k, v, B, S, H, D, rows, iters (the tensor maps only, no launch)

@@ -12,6 +12,10 @@ each with its own mask row: the s positions of a speculative verify block
 (kernels/decode_layer ``layers_decode_fused`` at B s rows), each seeing the cache's
 valid slots and the block's keys up to its own. On the same visible keys
 the result has the bits of a one-row-per-cache-row call.
+
+fp32 q and an fp32 cache (``--dtype float32``) take the template's fp32
+split pass (fp32 tiles, scores and p.v on the CUDA cores, p not rounded; the
+same tiles and combine), counted apart on :func:`decode_attention_fp32`.
 """
 
 from __future__ import annotations
@@ -119,16 +123,17 @@ def decode_attention(
     s_len = k_cache.shape[1]
     w = valid.shape[1]
     dev = q.device
-    if q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError("decode_attention: q must be contiguous bf16 (B, H, D)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous bf16 or fp32 (B, H, D)")
+    fp32 = q.dtype == torch.float32
     if rows_per_cache < 1 or b % rows_per_cache:
         raise ValueError(f"decode_attention: B {b} must be a multiple of rows_per_cache "
                          f"{rows_per_cache}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if (c.dtype != torch.bfloat16 or c.shape != (b // rows_per_cache, s_len, d)
+        if (c.dtype != q.dtype or c.shape != (b // rows_per_cache, s_len, d)
                 or not c.is_contiguous() or c.device != dev or c.data_ptr() % 16):
-            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned bf16 "
-                             "(B / rows_per_cache, S, D)")
+            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned "
+                             f"{q.dtype} (B / rows_per_cache, S, D): q's dtype")
     if (valid.dtype != torch.bool or valid.shape != (b, w) or not valid.is_contiguous()
             or valid.device != dev or w > s_len):
         raise ValueError("decode_attention: valid must be contiguous bool (B, W) with W <= S")
@@ -137,17 +142,29 @@ def decode_attention(
                          f"B {b} <= {MAX_BATCH}")
     plan = split_plan(q, valid)
     part_m, part_l, part_o = plan.scratch(dev)
-    out = torch.empty((b, h * d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, h * d), dtype=q.dtype, device=dev)
     lib = _build.library()
-    err = lib.pg_decode_attention(
+    err = (lib.pg_decode_attention_fp32 if fp32 else lib.pg_decode_attention)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(),
         b, h, d, w, s_len * d, rows_per_cache, plan.nsplit, float(scale),
         _build.stream_ptr(dev),
     )
-    _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _build.check(err, "decode_attention_fp32" if fp32 else "decode_attention")
+    (decode_attention_fp32 if fp32 else decode_attention).launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_fp32(q, k_cache, v_cache, valid, scale, *, rows_per_cache: int = 1):
+    """:func:`decode_attention` of fp32 q and cache on the fp32 split pass;
+    the count of its launches (which :func:`decode_attention` makes for
+    fp32 q)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"decode_attention_fp32: fp32 q, got {q.dtype}")
+    return decode_attention(q, k_cache, v_cache, valid, scale, rows_per_cache=rows_per_cache)
+
+
+decode_attention_fp32.launches = 0

@@ -10,7 +10,9 @@ merged head (``yh = rmsnorm(x, fnorm_ref)``). It is bound by moving a few KB per
 each element, no reuse, so Triton's block model is enough. The kernel lives
 in ``_triton_decode``, which imports ``triton``; the launching function
 imports it on a CUDA tensor's first launch (``triton`` is absent where the
-CPU tests run), and the kernel is compiled on its first launch.
+CPU tests run), and the kernel is compiled on its first launch. The kernel
+loads in any dtype and stores in the output's: fp32 rows (``--dtype
+float32``) launch it as they are, counted apart on :func:`rms_norm_fp32`.
 
 ``rope_kv_write_reference`` and ``rope_kv_write_paged_reference`` are the
 plain RoPE + cache write of the TPU kernels' decode layer (the half-split
@@ -31,22 +33,34 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     """Gemma RMSNorm of (B, K) rows: fp32, ``x * rsqrt(mean(x^2)+eps) * (1+w)``."""
     if not x.is_cuda:
         return rms_norm_reference(x, weight, eps)
-    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("rms_norm: x must be contiguous bf16 (B, K)")
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
+        raise ValueError("rms_norm: x must be contiguous bf16 or fp32 (B, K)")
     b, k = x.shape
     if weight.shape != (k,) or not weight.is_contiguous() or weight.device != x.device:
         raise ValueError(f"rms_norm: weight must be contiguous ({k},) on {x.device}")
+    fp32 = x.dtype == torch.float32
     from . import _triton_decode
 
     out = torch.empty_like(x)
     _triton_decode.rms_norm_kernel[(b,)](
         x, weight, out, k, float(eps), BLOCK=1 << (k - 1).bit_length(), num_warps=8,
     )
-    rms_norm.launches += 1
+    (rms_norm_fp32 if fp32 else rms_norm).launches += 1
     return out
 
 
 rms_norm.launches = 0
+
+
+def rms_norm_fp32(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` of fp32 rows (fp32 out); the count of its launches
+    (which :func:`rms_norm` makes for fp32 x)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"rms_norm_fp32: fp32 x, got {x.dtype}")
+    return rms_norm(x, weight, eps)
+
+
+rms_norm_fp32.launches = 0
 
 
 def _rope(qkv, cos, sin, n_heads):

@@ -8,6 +8,11 @@ computes each logit with the same GEMV tile as kernels/int8_gemv.py
 (``csrc/gemv_tile.cuh``) over the :class:`~.gemv_plan.GemvPlan` of the
 unpadded vocab, so its token equals ``argmax`` of the logits path's int8
 head bit for bit.
+
+fp32 y (``--dtype float32``) takes the kernel's fp32 form (the tile's
+three-term split, logits not rounded), counted apart on
+:func:`head_argmax_fp32`: its ids equal the argmax of the fp32 logits path's
+GEMV (kernels/int8_gemv ``int8_gemv_fp32``) bit for bit.
 """
 
 from __future__ import annotations
@@ -79,8 +84,9 @@ def head_argmax_fused(
     n = w8.shape[1]
     n_valid = head_blk["s"].shape[0]
     dev = y2.device
-    if y2.dtype != torch.bfloat16 or not y2.is_contiguous():
-        raise ValueError("head_argmax_fused: y must be contiguous bf16")
+    if y2.dtype not in (torch.bfloat16, torch.float32) or not y2.is_contiguous():
+        raise ValueError("head_argmax_fused: y must be contiguous bf16 or fp32")
+    fp32 = y2.dtype == torch.float32
     if (w8.dtype != torch.int8 or w8.shape[0] != k or not w8.is_contiguous()
             or n % TILE_N or w8.device != dev or w8.data_ptr() % 4):
         raise ValueError("head_argmax_fused: w8_blk must be contiguous int8 (K, V_pad) from repack_head")
@@ -93,15 +99,28 @@ def head_argmax_fused(
     ids = torch.empty((b,), dtype=torch.int32, device=dev)
     mx = torch.empty((b,), dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.pg_head_argmax(
+    err = (lib.pg_head_argmax_fp32 if fp32 else lib.pg_head_argmax)(
         y2.data_ptr(), w8.data_ptr(), s.data_ptr(), ws.data_ptr(), ids.data_ptr(), mx.data_ptr(),
         b, k, n, n_valid, plan.cluster, plan.warps, plan.k_per_cta, stream,
     )
     if err != 0:
         _workspaces.pop((dev, stream), None)  # a failed launch may leave it dirty
-    _build.check(err, "head_argmax")
-    head_argmax_fused.launches += 1
+    _build.check(err, "head_argmax_fp32" if fp32 else "head_argmax")
+    (head_argmax_fp32 if fp32 else head_argmax_fused).launches += 1
     return (ids, mx) if return_max else ids
 
 
 head_argmax_fused.launches = 0
+
+
+def head_argmax_fp32(y: torch.Tensor, head_blk: Dict[str, torch.Tensor], *,
+                     return_max: bool = False):
+    """:func:`head_argmax_fused` of fp32 y, on the kernel's fp32 form; the
+    count of its launches (which :func:`head_argmax_fused` makes for fp32
+    y)."""
+    if y.dtype != torch.float32:
+        raise ValueError(f"head_argmax_fp32: fp32 y, got {y.dtype}")
+    return head_argmax_fused(y, head_blk, return_max=return_max)
+
+
+head_argmax_fp32.launches = 0

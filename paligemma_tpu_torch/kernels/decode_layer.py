@@ -60,14 +60,16 @@ from .int8_gemv import int8_gemv, int8_gemv_rope_kv
 from .lora import block_mask, lora_shrink
 
 
-def fused_gemvs_fit(k: int, n_qkv: int, n_gateup: int, n_heads: int, head_dim: int) -> bool:
+def fused_gemvs_fit(k: int, n_qkv: int, n_gateup: int, n_heads: int, head_dim: int,
+                    fp32: bool = False) -> bool:
     """The qkv (K, N_qkv) and gateup (K, N_gateup) GEMVs as the norm
     prologue and the RoPE epilogue take them: N_qkv = (H + 2) D with D / 2
     a multiple of 16 (a quad's 16 columns in one head's half), and each
     plan's K range per CTA within the prologue's buffer
-    (kernels/gemv_plan.norm_fits)."""
+    (kernels/gemv_plan.norm_fits; ``fp32``: the fp32 form's prologue)."""
     return ((head_dim // 2) % 16 == 0 and n_qkv == (n_heads + 2) * head_dim
-            and norm_fits(GemvPlan.make(k, n_qkv)) and norm_fits(GemvPlan.make(k, n_gateup)))
+            and norm_fits(GemvPlan.make(k, n_qkv), fp32)
+            and norm_fits(GemvPlan.make(k, n_gateup), fp32))
 
 
 def int8_leaves(layers: Dict):
@@ -88,8 +90,11 @@ def supported(cfg, layers: Dict, batch: int) -> bool:
     pairs 16 columns of a head's half in a quad; the attention kernel's
     depth), the int8 serving tree with qkv and gateup as
     :func:`fused_gemvs_fit` takes them, and a batch that fits the grid's y
-    dimension (decode_attention runs one block row per batch row)."""
+    dimension (decode_attention runs one block row per batch row). The
+    activation dtype is the norm weights' (bf16, or fp32: the kernels' fp32
+    forms), which the chain's inputs and cache must share."""
     leaves = int8_leaves(layers)
+    act = layers["input_norm"].dtype if "input_norm" in layers else None
     return (
         1 <= batch <= MAX_BATCH
         and cfg.num_key_value_heads == 1
@@ -97,15 +102,17 @@ def supported(cfg, layers: Dict, batch: int) -> bool:
         and cfg.head_dim % 32 == 0
         and cfg.head_dim <= 256
         and leaves is not None
+        and act in (torch.bfloat16, torch.float32)
         and fused_gemvs_fit(leaves[0].shape[-2], leaves[0].shape[-1], leaves[1].shape[-1],
-                            cfg.num_attention_heads, cfg.head_dim)
+                            cfg.num_attention_heads, cfg.head_dim, act == torch.float32)
     )
 
 
 def repack_layers(layers: Dict) -> Dict:
     """Stacked int8 serving tree -> the tree :func:`layers_decode_fused`
     reads, which is the same tree: the GEMV reads the (in, out) int8 weights
-    and the (N,) fp32 scales of runtime.quantize as they are. A leaf the
+    and the (N,) fp32 scales of runtime.quantize as they are, in a bf16 or
+    an fp32 tree alike (the norms take the tree's dtype). A leaf the
     kernels cannot read raises here, not at the first decode step."""
     for group, names in (("attn", ("qkv", "o")), ("mlp", ("gateup", "down"))):
         for name in names:

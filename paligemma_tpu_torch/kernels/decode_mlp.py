@@ -6,7 +6,7 @@ paligemma_tpu/kernels/decode_mlp.py ``mlp_decode_fused``, B7b).
 The TPU kernel streams the layer's gate, up and down weights through VMEM
 in double-buffered chunks so that the MLP is one launch instead of three
 XLA ops. On Hopper it is the chain of the hand-written GEMV
-(``csrc/int8_gemv.cu``) that the decode layer already runs: the gate/up GEMV
+(``csrc/int8_gemv.cuh``) that the decode layer already runs: the gate/up GEMV
 with the GeGLU epilogue over ``[gate | up]``, then the down GEMV with
 
 * ``out_dtype=None``: the bf16 epilogue (the one-card ``fused_mlp`` route

@@ -20,6 +20,11 @@ raise; for CPU tensors they run the plain versions here: fp32 scores and
 softmax, and the same FA2 arithmetic in fp32 torch, with p (forward and
 backward) and ds rounded to the inputs' dtype before their products where
 the TPU kernels (and the CUDA kernels' bf16 tensor-core operands) round them.
+
+fp32 q, k and v (``--dtype float32``) take the fp32 form of the forward
+(``flash_fwd_f32_kernel``, counted apart as :func:`flash_attention_fwd_fp32`):
+the same function with p unrounded, as the TPU kernel computes at fp32. It
+has no backward yet: an fp32 CUDA input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -126,12 +131,16 @@ def reference_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len,
 
 
 def _check(q, k, v, prefix_len, kv_len):
-    """Raise on anything the kernels do not take; returns the int32 lengths."""
+    """Raise on anything the kernels do not take; returns the int32 lengths.
+    q, k and v are all bf16 or all fp32 (the forward's fp32 form)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (k.dtype == v.dtype == q.dtype):
+        raise ValueError(f"flash_attention: q, k and v must be all bf16 or all fp32, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be contiguous bf16 on {q.device}")
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be contiguous on {q.device}")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
     if k.shape != (b, skv, hkv, d) or v.shape != k.shape:
@@ -150,6 +159,8 @@ def _check_bwd(q, dout, lse, delta):
     """The backward kernels' extra inputs: dO like q, lse and delta fp32
     (B, Hq, Sq), all contiguous on q's device."""
     b, sq, hq, _ = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(_NO_FP32_BACKWARD)
     if (dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous()
             or dout.device != q.device or dout.data_ptr() % 16):
         raise ValueError(f"flash_attention backward: dout must be contiguous, 16-byte aligned "
@@ -161,20 +172,46 @@ def _check_bwd(q, dout, lse, delta):
                              f"{(b, hq, sq)} on {q.device}")
 
 
+_NO_FP32_BACKWARD = ("flash_attention: fp32 inputs that require grad on the card need an fp32 "
+                     "form of the backward kernels (B6, csrc/flash_attention_bwd.cu), which "
+                     "take bf16 only; there is none yet")
+
+
 def _forward_kernel(q, k, v, prefix_len, kv_len, scale, q_offset, with_lse):
+    """One launch of the forward: the bf16 kernel, or its fp32 form (counted
+    on :func:`flash_attention_fwd_fp32`) for fp32 inputs."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     lens = _check(q, k, v, prefix_len, kv_len)
+    fp32 = q.dtype == torch.float32
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    err = _build.library().pg_flash_attention_fwd(
+    lib = _build.library()
+    launch = lib.pg_flash_attention_fwd_fp32 if fp32 else lib.pg_flash_attention_fwd
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d,
         float(scale), int(q_offset), _build.stream_ptr(q.device),
     )
-    _build.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
+    _build.check(err, "flash_attention_fwd_fp32" if fp32 else "flash_attention_fwd")
+    (flash_attention_fwd_fp32 if fp32 else flash_attention).launches += 1
     return out, lse
+
+
+def flash_attention_fwd_fp32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: torch.Tensor,
+    kv_len: torch.Tensor, scale: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's fp32 form: (out (B, Sq, Hq, D), lse (B, Hq, Sq)) of fp32
+    q, k and v. Its ``launches`` count every fp32 forward launch, whichever
+    wrapper made it (:func:`flash_attention`, :func:`flash_attention_with_lse`
+    or this one)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_fwd_fp32: fp32 q, k and v, got {q.dtype}")
+    return flash_attention_with_lse(q, k, v, prefix_len, kv_len, scale, q_offset)
+
+
+flash_attention_fwd_fp32.launches = 0
 
 
 def flash_attention_with_lse(
@@ -222,6 +259,8 @@ def flash_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.is_cuda and torch.float32 in (q.dtype, k.dtype, v.dtype):
+            raise ValueError(_NO_FP32_BACKWARD)
         return _Flash.apply(q, k, v, prefix_len, kv_len, float(scale), int(q_offset))
     if not q.is_cuda:
         return reference_attention(q, k, v, prefix_len, kv_len, scale, q_offset)

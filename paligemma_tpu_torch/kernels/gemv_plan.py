@@ -31,7 +31,8 @@ Two pieces of the kernel's layout live here as well, so that the CPU tests
 can check them:
 
 * the norm prologue stages the CTA's K range of the normalized rows in the
-  warps' sum buffer (``NORM_STAGE_BYTES``): :func:`norm_fits`;
+  warps' sum buffer (``NORM_STAGE_BYTES``; the fp32 form stages nothing,
+  it makes y as it loads x): :func:`norm_fits`;
 * the qkv GEMV's RoPE epilogue (``int8_gemv_rope_kv``) pairs column j of
   a head with column j + D/2 inside one tile: :func:`rope_quad_col` is the
   weight column each quad of a tile reads, :func:`epilogue_share` the
@@ -75,10 +76,14 @@ class GemvPlan:
         return cls(k, n, -(-steps // per), warps, per * STEP_K)
 
 
-def norm_fits(plan: GemvPlan) -> bool:
+def norm_fits(plan: GemvPlan, fp32: bool = False) -> bool:
     """True where the norm prologue's staged rows (a batch tile of the
     CTA's K range, bf16) fit the kernel's buffer, and K is a whole number
-    of 8-element chunks (the rows are read 16 bytes at a time)."""
+    of 8-element chunks (the rows are read 16 bytes at a time). ``fp32``:
+    the fp32 form's prologue, which stages nothing and reads x and the
+    norm weight 4 elements (16 bytes) at a time."""
+    if fp32:
+        return plan.k % 4 == 0
     return plan.k % 8 == 0 and BATCH_TILE * (plan.k_per_cta + NORM_PAD) * 2 <= NORM_STAGE_BYTES
 
 
@@ -87,7 +92,7 @@ def rope_quad_col(tile: int, quad: int, n_heads: int, head_dim: int):
     ``tile`` reads in the RoPE epilogue's GEMV over N = (H + 2) D, or None
     past the last pair. A tile covers ``TILE_N // 2`` pairs (j, j + D/2) of
     one head: quads 0-3 read 16 pairs' first columns, quads 4-7 the same
-    pairs' partners (csrc/int8_gemv.cu, mode 4)."""
+    pairs' partners (csrc/int8_gemv.cuh, mode 4)."""
     half = head_dim // 2
     p = tile * (TILE_N // 2) + 16 * (quad % 4)
     if p >= (n_heads + 2) * half:

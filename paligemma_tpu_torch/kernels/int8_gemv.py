@@ -3,7 +3,8 @@
 The weight streams of the TPU kernel paligemma_tpu/kernels/decode_layer.py
 ``_kernel_all`` (qkv, o-proj + residual, gate/up + GeGLU, down + residual)
 and the int8 LM head of the logits path (models/gemma.lm_head) run through
-``int8_gemv``; ``csrc/int8_gemv.cu`` is the kernel: one launch per GEMV,
+``int8_gemv``; ``csrc/int8_gemv.cuh`` is the kernel (its entry points in
+``int8_gemv.cu`` and ``int8_gemv_fp32.cu``): one launch per GEMV,
 the product on the tensor cores, K split over a thread-block cluster as
 :class:`~.gemv_plan.GemvPlan` says, the epilogue in the same launch.
 
@@ -58,6 +59,16 @@ through ``page_table``) and ``k_new`` / ``v_new``. It is a wrapper of its
 own, counted apart. Its plain version is the chain it replaces:
 :func:`int8_gemv_reference` then decode_elementwise's
 ``rope_kv_write_reference`` / ``rope_kv_write_paged_reference``.
+
+fp32 x (``--dtype float32``) takes the tile's fp32 form (``pg_int8_gemv_fp32``:
+each fp32 element of x split into three bf16 terms against the same bf16
+weight fragments, csrc/gemv_tile.cuh) in the plain, residual and GeGLU modes
+and in ``int8_gemv_rope_kv``, with the norm prologue; every operand in the
+activation dtype is then fp32 (residual, norm weight, cos / sin, the cache
+rows and the outputs), every cast the identity. Its launches are counted
+apart, on :func:`int8_gemv_fp32` and :func:`int8_gemv_rope_kv_fp32`. The
+LoRA expand and the fp32-partial mode have no fp32 form yet: fp32 x there
+raises.
 """
 
 from __future__ import annotations
@@ -149,12 +160,13 @@ def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
 
 def _check_norm(norm: Norm, x: torch.Tensor, plan: GemvPlan) -> None:
     w, _ = norm
-    _check(w.dtype == torch.bfloat16 and w.shape == (plan.k,) and w.is_contiguous()
+    _check(w.dtype == x.dtype and w.shape == (plan.k,) and w.is_contiguous()
            and w.device == x.device and w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0,
-           f"norm weight must be contiguous 16-byte aligned bf16 ({plan.k},) on x's device, "
-           "and x 16-byte aligned")
-    _check(norm_fits(plan), f"the norm prologue takes K % 8 == 0 and a K range per CTA that "
-           f"fits its buffer (K {plan.k}, N {plan.n}: {plan.k_per_cta} rows a CTA)")
+           f"norm weight must be contiguous 16-byte aligned {x.dtype} ({plan.k},) on x's "
+           "device, and x 16-byte aligned")
+    _check(norm_fits(plan, x.dtype == torch.float32),
+           f"the norm prologue takes K % 8 == 0 (fp32: K % 4 == 0) and a K range per CTA "
+           f"that fits its buffer (K {plan.k}, N {plan.n}: {plan.k_per_cta} rows a CTA)")
 
 
 def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
@@ -167,8 +179,14 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
     b, k = x.shape
     n = w8.shape[-1]
     dev = x.device
+    fp32 = x.dtype == torch.float32
     _check(b > 0, "x has no rows")
-    _check(x.dtype == torch.bfloat16 and x.is_contiguous(), "x must be contiguous bf16")
+    _check(x.dtype in (torch.bfloat16, torch.float32) and x.is_contiguous(),
+           "x must be contiguous bf16 or fp32")
+    if fp32:
+        _check(mode != 3 and lora is None,
+               "fp32 x has no fp32 form of the fp32-partial mode or the LoRA expand yet "
+               "(pg_int8_gemv_fp32 takes the plain, residual, GeGLU and RoPE modes)")
     _check(w8.dtype == torch.int8 and w8.shape == (k, n) and w8.is_contiguous(),
            f"w8 must be contiguous int8 ({k}, N), got {tuple(w8.shape)} {w8.dtype}")
     _check(w8.device == dev and s.device == dev, "all operands on one device")
@@ -178,9 +196,9 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
     if mode == 2:
         _check(n % 2 == 0, "geglu takes an even N")
     if mode == 1:
-        _check(residual.dtype == torch.bfloat16 and residual.shape == (b, n)
+        _check(residual.dtype == x.dtype and residual.shape == (b, n)
                and residual.is_contiguous() and residual.device == dev,
-               "residual must be contiguous bf16 (B, N)")
+               f"residual must be contiguous {x.dtype} (B, N), x's dtype")
     g = seg1 = seg2 = 0
     if lora is not None:
         g, seg1, seg2 = _check_lora(lora, b, n, dev)
@@ -191,8 +209,7 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
         out = rope[0]
     else:  # mode 3 with the expand: [base | delta]
         width = n // 2 if mode == 2 else (2 * n if mode == 3 and lora is not None else n)
-        out = torch.empty((b, width), dtype=torch.float32 if mode == 3 else torch.bfloat16,
-                          device=dev)
+        out = torch.empty((b, width), dtype=torch.float32 if mode == 3 else x.dtype, device=dev)
     lib = _build.library()
     stream = _build.stream_ptr(dev)
     args = (x.data_ptr(), w8.data_ptr(), s.data_ptr(),
@@ -203,12 +220,6 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
         z, lb, _ = lora
         lora_args = (z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1],
                      seg1, seg2)
-    if norm is None and rope is None:
-        if lora is None:
-            _build.check(lib.pg_int8_gemv(*args, stream), "int8_gemv")
-        else:
-            _build.check(lib.pg_int8_gemv_lora(*args, *lora_args, stream), "int8_gemv LoRA")
-        return out
     rope_args = (None,) * 8 + (0, 0, 0, 0)
     if rope is not None:
         _, cos, sin, pos, k_dst, v_dst, k_new, v_new, table, h, d = rope
@@ -216,9 +227,20 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
                      v_dst.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                      None if table is None else table.data_ptr(), h, d, k_dst.shape[1],
                      0 if table is None else table.stride(0))
-    _build.check(lib.pg_int8_gemv_fused(
-        *args, *lora_args, None if norm is None else norm[0].data_ptr(),
-        0.0 if norm is None else float(norm[1]), *rope_args, stream), "int8_gemv fused")
+    norm_args = (None if norm is None else norm[0].data_ptr(),
+                 0.0 if norm is None else float(norm[1]))
+    if fp32:
+        _build.check(lib.pg_int8_gemv_fp32(*args, *norm_args, *rope_args, stream),
+                     "int8_gemv fp32")
+        return out
+    if norm is None and rope is None:
+        if lora is None:
+            _build.check(lib.pg_int8_gemv(*args, stream), "int8_gemv")
+        else:
+            _build.check(lib.pg_int8_gemv_lora(*args, *lora_args, stream), "int8_gemv LoRA")
+        return out
+    _build.check(lib.pg_int8_gemv_fused(*args, *lora_args, *norm_args, *rope_args, stream),
+                 "int8_gemv fused")
     return out
 
 
@@ -237,6 +259,8 @@ def int8_gemv(
     module docstring)."""
     if not x.is_cuda:
         return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora, norm=norm)
+    if x.dtype == torch.float32 and lora is None:
+        return int8_gemv_fp32(x, w8, s, residual, geglu, norm=norm)
     _check(not (geglu and residual is not None), "geglu takes no residual")
     out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora,
                   norm)
@@ -245,6 +269,31 @@ def int8_gemv(
 
 
 int8_gemv.launches = 0
+
+
+def int8_gemv_fp32(
+    x: torch.Tensor,
+    w8: torch.Tensor,
+    s: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    geglu: bool = False,
+    *,
+    norm: Optional[Norm] = None,
+) -> torch.Tensor:
+    """:func:`int8_gemv` of fp32 ``x`` on the tile's fp32 form (module
+    docstring): fp32 out, residual and norm weight. :func:`int8_gemv` sends
+    fp32 x here; its launches are counted here."""
+    _check(x.dtype == torch.float32, f"int8_gemv_fp32 takes fp32 x, got {x.dtype}")
+    if not x.is_cuda:
+        return int8_gemv_reference(x, w8, s, residual, geglu, norm=norm)
+    _check(not (geglu and residual is not None), "geglu takes no residual")
+    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0),
+                  norm=norm)
+    int8_gemv_fp32.launches += 1
+    return out
+
+
+int8_gemv_fp32.launches = 0
 
 
 def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor, *,
@@ -294,21 +343,23 @@ def int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, 
                                          k_new, v_new)
 
 
-def _check_rope(b, n, n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, dev):
+def _check_rope(b, n, n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, dev,
+                dtype):
     d = cos.shape[-1]
     _check(d > 0 and (d // 2) % 16 == 0 and d % 2 == 0 and n == (n_heads + 2) * d,
            f"RoPE takes N = (H + 2) * D with D / 2 a multiple of 16, got N {n}, H {n_heads}, "
            f"D {d}")
     for arg, t, shape in (("cos", cos, (b, d)), ("sin", sin, (b, d)), ("k_new", k_new, (b, d)),
                           ("v_new", v_new, (b, d))):
-        _check(t.dtype == torch.bfloat16 and t.shape == shape and t.is_contiguous()
-               and t.device == dev, f"{arg} must be contiguous bf16 {shape} on x's device")
+        _check(t.dtype == dtype and t.shape == shape and t.is_contiguous()
+               and t.device == dev, f"{arg} must be contiguous {dtype} {shape} on x's device")
     _check(pos.dtype == torch.int32 and pos.shape == (b,) and pos.is_contiguous()
            and pos.device == dev, "pos must be contiguous int32 (B,) on x's device")
     for arg, t in (("k_dst", k_dst), ("v_dst", v_dst)):
-        _check(t.dtype == torch.bfloat16 and t.dim() == 3 and t.shape[2] == d
+        _check(t.dtype == dtype and t.dim() == 3 and t.shape[2] == d
                and t.is_contiguous() and t.device == dev and t.shape == k_dst.shape,
-               f"{arg} must be contiguous bf16 (rows, S or page size, D) on x's device")
+               f"{arg} must be contiguous {dtype} (rows, S or page size, D) on x's device: "
+               "the cache takes x's dtype")
     if page_table is None:
         _check(k_dst.shape[0] == b, "a dense cache takes one row of slots per batch row")
     else:
@@ -346,12 +397,24 @@ def int8_gemv_rope_kv(
                                            v_new, norm=norm, page_table=page_table, lora=lora)
     b, d = x.shape[0], cos.shape[-1]
     _check_rope(b, w8.shape[-1], n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table,
-                x.device)
-    q = torch.empty((b, n_heads, d), dtype=torch.bfloat16, device=x.device)
+                x.device, x.dtype)
+    q = torch.empty((b, n_heads, d), dtype=x.dtype, device=x.device)
     _launch(x, w8, s, None, 4, lora, norm,
             (q, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, n_heads, d))
-    int8_gemv_rope_kv.launches += 1
+    # the fp32 form's launches are counted apart
+    (int8_gemv_rope_kv_fp32 if x.dtype == torch.float32 else int8_gemv_rope_kv).launches += 1
     return q, k_new, v_new
 
 
 int8_gemv_rope_kv.launches = 0
+
+
+def int8_gemv_rope_kv_fp32(x: torch.Tensor, *args, **kw):
+    """:func:`int8_gemv_rope_kv` of fp32 x, an fp32 cache and fp32 cos /
+    sin, on the tile's fp32 form; the count of its launches (which
+    :func:`int8_gemv_rope_kv` makes for fp32 x)."""
+    _check(x.dtype == torch.float32, f"int8_gemv_rope_kv_fp32 takes fp32 x, got {x.dtype}")
+    return int8_gemv_rope_kv(x, *args, **kw)
+
+
+int8_gemv_rope_kv_fp32.launches = 0

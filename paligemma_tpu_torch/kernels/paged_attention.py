@@ -15,6 +15,10 @@ consecutive run); they differ only in how the TPU orders its DMAs. The four
 names stay, and all launch the one CUDA kernel, which shares its tile and
 combine code with kernels/decode_attention: on the same keys the two return
 the same bits.
+
+An fp32 pool and q (``--dtype float32``) take the template's fp32 split pass,
+as kernels/decode_attention does (dense == paged at fp32 too), counted apart
+on :func:`paged_decode_attention_fp32`.
 """
 
 from __future__ import annotations
@@ -98,18 +102,19 @@ def paged_decode_attention(
     dev = q.device
     if scale is None:
         scale = d**-0.5
-    if q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError("paged_decode_attention: q must be contiguous bf16 (B, Hq, D)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
+        raise ValueError("paged_decode_attention: q must be contiguous bf16 or fp32 (B, Hq, D)")
+    fp32 = q.dtype == torch.float32
     stacked = layer_idx is not None
     if k_pool.dim() != (5 if stacked else 4):
         raise ValueError(f"paged_decode_attention: pool of shape {tuple(k_pool.shape)} "
                          f"with layer_idx={layer_idx}")
     n_pages, ps, hkv = k_pool.shape[-4:-1]
     for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if (p.dtype != torch.bfloat16 or p.shape != k_pool.shape or not p.is_contiguous()
+        if (p.dtype != q.dtype or p.shape != k_pool.shape or not p.is_contiguous()
                 or p.device != dev or p.data_ptr() % 16 or p.shape[-1] != d):
             raise ValueError(f"paged_decode_attention: {name} must be contiguous 16-byte "
-                             "aligned bf16 with q's head_dim")
+                             "aligned with q's dtype and head_dim")
     n_p = page_table.shape[1]
     if (page_table.dtype != torch.int32 or page_table.dim() != 2 or page_table.shape[0] != b
             or page_table.stride(1) != 1 or page_table.device != dev):
@@ -124,21 +129,36 @@ def paged_decode_attention(
     w = n_p * ps
     plan = split_plan(q, k_pool, page_table)
     part_m, part_l, part_o = plan.scratch(dev)
-    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     layer_off = int(layer_idx) * n_pages * ps * hkv * d if stacked else 0
     kv_len = kv_len.contiguous()
-    err = _build.library().pg_paged_attention(
+    lib = _build.library()
+    err = (lib.pg_paged_attention_fp32 if fp32 else lib.pg_paged_attention)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         kv_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
         out.data_ptr(), b, hq, hkv, d, w, ps, page_table.stride(0), layer_off, plan.nsplit,
         float(scale), _build.stream_ptr(dev),
     )
-    _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _build.check(err, "paged_decode_attention_fp32" if fp32 else "paged_decode_attention")
+    (paged_decode_attention_fp32 if fp32 else paged_decode_attention).launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_fp32(q, k_pool, v_pool, page_table, kv_len, scale=None, *,
+                                layer_idx=None):
+    """:func:`paged_decode_attention` of fp32 q and pool on the fp32 split
+    pass; the count of its launches (which :func:`paged_decode_attention`
+    makes for fp32 q)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"paged_decode_attention_fp32: fp32 q, got {q.dtype}")
+    return paged_decode_attention(q, k_pool, v_pool, page_table, kv_len, scale,
+                                  layer_idx=layer_idx)
+
+
+paged_decode_attention_fp32.launches = 0
 
 
 # The TPU package's other three DMA strategies for the same function are,

@@ -69,6 +69,19 @@ from ..ops import sampling
 from ..ops.ngram import propose_ngram
 
 
+def check_cache_dtype(device: torch.device, params: Dict[str, Any],
+                      cache_dtype: torch.dtype, what: str) -> None:
+    """On the card the flash and decode kernels read and write the KV cache
+    in the activation dtype (the embedding table's: bf16, or fp32 with
+    ``--dtype float32``), and none has a mixed form yet: a cache of the
+    other dtype raises here, at construction, not at the first kernel."""
+    act = params["lm"]["embed"].dtype
+    if device.type == "cuda" and cache_dtype != act:
+        raise ValueError(f"{what}: a {cache_dtype} KV cache beside {act} activations on the "
+                         f"card: the kernels take the cache in the activation dtype (no mixed "
+                         f"form yet); pass cache_dtype={act} or leave it unset")
+
+
 class KVState(NamedTuple):
     """Decode state; ``cache`` and ``valid`` are updated in place."""
 
@@ -101,7 +114,8 @@ class PaliGemmaEngine:
         ``decode_params``: optional second weight set used only for
         decode (e.g. the int8 tree of runtime.quantize) while ``params``
         serves the prefill. The device is the one the params live on; the
-        KV cache takes ``cache_dtype``, by default the embedding table's.
+        KV cache takes ``cache_dtype``, by default the embedding table's
+        (on the card it must be that dtype: :func:`check_cache_dtype`).
 
         ``int8_act_prefill``: when ``params`` itself is the int8 tree
         (single-copy serving: ``params`` and ``decode_params`` the same
@@ -115,6 +129,7 @@ class PaliGemmaEngine:
         self.eos_token_id = eos_token_id
         self.device = params["lm"]["embed"].device
         self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
+        check_cache_dtype(self.device, params, self.cache_dtype, "PaliGemmaEngine")
         on_cuda = self.device.type == "cuda"
         self.use_flash = on_cuda if use_flash is None else use_flash
         self.fused_layer = on_cuda if fused_layer is None else fused_layer

@@ -124,6 +124,7 @@ from ..kernels import decode_layer_tp as _tp
 from ..models import gemma, paligemma
 from ..ops import sampling
 from ..ops.ngram import propose_ngram
+from .engine import check_cache_dtype
 from ..train.lora import stack_lora_bank
 
 
@@ -277,6 +278,7 @@ class ServingEngine:
         self.params = params if self.mesh is None else mesh_lib.shard_params(params, self.mesh)
         self.device = params["lm"]["embed"].device
         self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
+        check_cache_dtype(self.device, params, self.cache_dtype, type(self).__name__)
         on_cuda = self.device.type == "cuda"
         self.use_flash = on_cuda if use_flash is None else use_flash
         self.pipeline = on_cuda if pipeline is None else pipeline

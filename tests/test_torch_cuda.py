@@ -1287,16 +1287,21 @@ def test_w8a8_kernels_equal_their_plain_versions_on_card(m, k, n):
 @pytest.mark.cuda
 def test_w8a8_routes_raise_on_bad_inputs_on_card():
     """On the card the W8A8 route and the weight-only route below its gate
-    launch their kernels or raise: no fallback to a plain version."""
+    launch their kernels or raise: no fallback to a plain version. fp32 x
+    raises on W8A8 (K1 takes bf16) and, below the gate, launches the GEMV
+    tile's fp32 form."""
     from paligemma_tpu_torch.kernels import quant, w8a8
 
-    dev = _card()
+    dev = _fp32_card()
     w = {"w8": torch.randint(-127, 128, (256, 384), device=dev, dtype=torch.int8),
          "s": torch.rand(384, device=dev) * 1e-2}
     x = torch.randn(300, 256, device=dev)
-    for rows in (300, 100):  # W8A8 (K1 takes bf16), and the GEMV tile below the gate
-        with pytest.raises(ValueError):
-            quant.matmul_any(x[:rows], w, int8_act=True)  # fp32 x
+    with pytest.raises(ValueError):
+        quant.matmul_any(x, w, int8_act=True)  # fp32 x, 300 rows: W8A8
+    n0 = t_gemv.int8_gemv_fp32.launches
+    got = quant.matmul_any(x[:100], w, int8_act=True)  # below the gate: the GEMV tile
+    assert t_gemv.int8_gemv_fp32.launches == n0 + 1 and got.dtype == torch.float32
+    assert _rel_err(got, quant._int8_matmul(x[:100], w["w8"], w["s"])) <= FP32_REL
     before = (w8a8.w8a8_quant_rows.launches, w8a8.w8a8_gemm.launches)
     got = quant.matmul_any(x.bfloat16(), w, int8_act=True)
     assert (w8a8.w8a8_quant_rows.launches, w8a8.w8a8_gemm.launches) == (before[0] + 1,
@@ -1352,3 +1357,292 @@ def test_single_copy_engine_on_card_takes_the_w8a8_kernels():
     finally:
         quant.w8a8.w8a8_matmul = kernels
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 forms (--dtype float32): each held to its plain fp32 version with
+# TF32 off. The GEMV tile's three-term split is within ~1.5e-6 of the
+# largest element of fp32 x @ W at K = 16384 (tests/test_torch_fp32.py
+# models it); a single bf16 or TF32 pass is ~1e-3 off. FP32_REL is ten
+# times the former and fifty times below the latter.
+FP32_REL = 2e-5
+
+
+def _fp32_card():
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def _rel_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_FWD_CASES))
+def test_flash_forward_fp32_form_on_card(case):
+    """B1's fp32 form against the plain fp32 forward: out within FP32_REL
+    and lse within 1e-5 of max(1, |plain|); one launch counted on the fp32
+    form per call, none on the bf16 kernel; a second call the same bits; a
+    kv_len 0 row exact zeros; an fp32 input that requires grad raises."""
+    dev = _fp32_card()
+    (b, sq, skv, hq, hkv, d), pfx, kvl, q_offset = FLASH_FWD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    n0, n16 = t_flash.flash_attention_fwd_fp32.launches, t_flash.flash_attention.launches
+    out, lse = t_flash.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_offset)
+    assert t_flash.flash_attention_fwd_fp32.launches == n0 + 1
+    assert t_flash.flash_attention.launches == n16 and out.dtype == torch.float32
+    want_out, want_lse = t_flash._reference_forward(q, k, v, pl, kl, d**-0.5, q_offset)
+    assert _rel_err(out, want_out) <= FP32_REL
+    assert _rel_err(lse, want_lse) <= 1e-5
+    again = t_flash.flash_attention_with_lse(q, k, v, pl, kl, q_offset=q_offset)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert torch.equal(t_flash.flash_attention(q, k, v, pl, kl, q_offset=q_offset), out)
+    if kvl[-1] == 0:
+        assert not out[-1].any() and not lse[-1].any()
+    with pytest.raises(ValueError, match="fp32 form of the backward"):
+        t_flash.flash_attention(q.requires_grad_(True), k, v, pl, kl)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        t_flash.flash_attention(q.detach().to(torch.bfloat16), k, v, pl, kl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 2560), (2048, 2048), (2048, 32768), (16384, 2048),
+                                 (256, 208), (72, 100)])
+@pytest.mark.parametrize("epi", ["plain", "residual", "geglu", "norm"])
+def test_int8_gemv_fp32_form_on_card(k, n, epi):
+    """The GEMV tile's fp32 form (three bf16 terms of x) at Gemma-2B's four
+    projections and ragged shapes, B 1, 8, 9 and 72, against the plain fp32
+    version within FP32_REL; fp32 out; a second call the same bits; counted
+    on int8_gemv_fp32; the LoRA expand and the fp32 partial raise."""
+    dev = _fp32_card()
+    if epi == "norm" and k % 4:
+        pytest.skip("the fp32 prologue takes K % 4 == 0")
+    g = torch.Generator(device=dev).manual_seed(k * 7 + n)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    for b in (1, 8, 9, 72):
+        x = torch.randn(b, k, generator=g, device=dev) * 2.0
+        kw = {}
+        if epi == "residual":
+            kw["residual"] = torch.randn(b, n, generator=g, device=dev)
+        elif epi == "geglu":
+            kw["geglu"] = True
+        elif epi == "norm":
+            kw["norm"] = (torch.randn(k, generator=g, device=dev) * 0.1, 1e-6)
+        n0 = t_gemv.int8_gemv_fp32.launches
+        got = t_gemv.int8_gemv(x, w8, s, **kw)
+        assert t_gemv.int8_gemv_fp32.launches == n0 + 1 and got.dtype == torch.float32
+        want = t_gemv.int8_gemv_reference(x, w8, s, **kw)
+        assert _rel_err(got, want) <= FP32_REL, (b, _rel_err(got, want))
+        assert torch.equal(t_gemv.int8_gemv(x, w8, s, **kw), got)
+    with pytest.raises(ValueError, match="fp32-partial mode or the LoRA expand"):
+        t_gemv.int8_gemv_f32(x, w8, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_gemv_rope_kv_fp32_form_on_card(b, paged):
+    """The qkv GEMV's fp32 form with the norm prologue and the RoPE + KV
+    write epilogue (Gemma-2B's K 2048, 8 heads of 256) against the plain
+    chain it replaces, dense rows and page slots; counted on
+    int8_gemv_rope_kv_fp32."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(31 + b)
+    k, h, d, ps = 2048, 8, 256, 64
+    n = (h + 2) * d
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    x = torch.randn(b, k, generator=g, device=dev) * 3.0
+    norm = (torch.randn(k, generator=g, device=dev) * 0.1, 1e-6)
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos(), ang.sin()
+    pos = torch.randint(0, 300, (b,), generator=g, device=dev, dtype=torch.int32)
+    table = None
+    if paged:
+        table = (torch.randperm(b * 8, generator=g, device=dev).reshape(b, 8) + 1).to(torch.int32)
+        shape = (b * 8 + 1, ps, d)
+    else:
+        shape = (b, 512, d)
+    outs = []
+    for fn in (t_gemv.int8_gemv_rope_kv, t_gemv.int8_gemv_rope_kv_reference):
+        kc, vc = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+        kn, vn = torch.empty(b, d, device=dev), torch.empty(b, d, device=dev)
+        n0 = t_gemv.int8_gemv_rope_kv_fp32.launches
+        q, _, _ = fn(x, w8, s, cos, sin, pos, h, kc, vc, kn, vn, norm=norm, page_table=table)
+        if fn is t_gemv.int8_gemv_rope_kv:
+            assert t_gemv.int8_gemv_rope_kv_fp32.launches == n0 + 1
+        outs.append((q, kc, vc, kn, vn))
+    for got, want in zip(*outs):
+        assert got.dtype == torch.float32 and _rel_err(got, want) <= FP32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [257152, 4096, 300])
+def test_head_argmax_fp32_form_equals_argmax_of_the_fp32_logits_on_card(vocab):
+    """The head's fp32 form == argmax of the fp32 logits path's GEMV
+    (int8_gemv_fp32 over the unpadded vocab), id and logit bit for bit, at
+    B 1, 8 and 33, counted on head_argmax_fp32; the logits within FP32_REL
+    of the plain fp32 head."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(vocab + 1)
+    w8 = torch.randint(-127, 128, (2048, vocab), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(vocab, generator=g, device=dev) + 0.5) / (127 * 2048**0.5)
+    head = t_head.repack_head({"w8": w8, "s": s})
+    for b in (1, 8, 33):
+        y = torch.randn(b, 2048, generator=g, device=dev)
+        n0 = t_head.head_argmax_fp32.launches
+        ids, mx = t_head.head_argmax_fused(y, head, return_max=True)
+        assert t_head.head_argmax_fp32.launches == n0 + 1
+        logits = t_gemv.int8_gemv(y, w8, s)
+        assert logits.dtype == torch.float32
+        assert torch.equal(ids.long(), logits.argmax(-1))
+        assert torch.equal(mx, logits.max(-1).values)
+        assert _rel_err(logits, (y @ w8.float()) * s) <= FP32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grp", [1, 8])
+def test_split_attention_fp32_form_dense_equals_paged_on_card(grp):
+    """3b's and B5's fp32 forms against the plain fp32 versions within
+    FP32_REL, and on the same keys the same bits (a 5-page window of 16
+    against a padded dense window); a row with no visible key gives zeros;
+    W 2048 at B 8; counted on the fp32 forms."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(40 + grp)
+    for b, d, ps, s_len, lens in ((3, 128, 16, 256, [37, 0, 80]),
+                                  (8, 256, 64, 2048, [2048, 1, 700, 1500, 64, 65, 2000, 333])):
+        q = torch.randn(b, grp, d, generator=g, device=dev)
+        kc, vc = (torch.randn(b, s_len, d, generator=g, device=dev) for _ in range(2))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = (torch.arange(s_len, device=dev)[None] < ln[:, None].long()).contiguous()
+        n0 = t_dattn.decode_attention_fp32.launches
+        dense = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5)
+        assert t_dattn.decode_attention_fp32.launches == n0 + 1 and dense.dtype == torch.float32
+        assert _rel_err(dense, t_dattn.decode_attention_reference(q, kc, vc, valid,
+                                                                  d**-0.5)) <= FP32_REL
+        assert torch.equal(t_dattn.decode_attention(q, kc, vc, valid, d**-0.5), dense)
+        if 0 in lens:
+            assert torch.count_nonzero(dense[lens.index(0)]) == 0
+        pool_k = kc.reshape(b * s_len // ps, ps, 1, d)
+        pool_v = vc.reshape(b * s_len // ps, ps, 1, d)
+        n_p = max(lens) // ps + 1
+        tab = (torch.arange(n_p, device=dev)[None]
+               + (s_len // ps) * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+        tab = torch.minimum(tab, torch.tensor(b * s_len // ps - 1, device=dev)).to(torch.int32)
+        n0 = t_paged.paged_decode_attention_fp32.launches
+        paged = t_paged.paged_decode_attention(q, pool_k, pool_v, tab, ln, d**-0.5)
+        assert t_paged.paged_decode_attention_fp32.launches == n0 + 1
+        assert torch.equal(paged, dense.reshape(b, grp, d))
+        assert _rel_err(paged, t_paged.reference_paged_decode_attention(
+            q, pool_k, pool_v, tab, ln, d**-0.5)) <= FP32_REL
+
+
+@pytest.mark.cuda
+def test_decode_attention_fp32_rows_per_cache_bits_on_card():
+    """The verify's dense attention at fp32: s query rows per cache row give
+    the bits of the call on the cache rows repeated s times."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, s, w, d = 3, 5, 200, 256
+    kc, vc = (torch.randn(b, w, d, generator=g, device=dev) for _ in range(2))
+    q = torch.randn(b * s, 8, d, generator=g, device=dev)
+    valid = torch.rand(b * s, w, generator=g, device=dev) < 0.6
+    got = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5, rows_per_cache=s)
+    assert _rel_err(got, t_dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5,
+                                                            s)) <= FP32_REL
+    rep = t_dattn.decode_attention(q, kc.repeat_interleave(s, 0).contiguous(),
+                                   vc.repeat_interleave(s, 0).contiguous(), valid, d**-0.5)
+    assert torch.equal(got, rep)
+
+
+@pytest.mark.cuda
+def test_rms_norm_fp32_form_on_card():
+    """The final norm on fp32 rows: fp32 out within 1e-6 of the plain
+    version, counted on rms_norm_fp32."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(8, 2048, generator=g, device=dev) * 4.0
+    w = torch.randn(2048, generator=g, device=dev) * 0.1
+    n0 = t_elem.rms_norm_fp32.launches
+    got = t_elem.rms_norm(x, w, 1e-6)
+    assert t_elem.rms_norm_fp32.launches == n0 + 1 and got.dtype == torch.float32
+    assert _rel_err(got, t_elem.rms_norm_reference(x, w, 1e-6)) <= 1e-6
+
+
+def _serving_model_fp32(dev):
+    """:func:`_serving_model`'s tiny MQA model in fp32, and its int8 tree."""
+    from paligemma_tpu_torch.runtime.quantize import quantize_lm_for_serving
+
+    cfg, params, _ = _serving_model(dev)
+    params = _to_fp32(params)
+    return cfg, params, quantize_lm_for_serving(params)
+
+
+def _to_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_fp32(v) for k, v in tree.items()}
+    return tree.float() if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+
+@pytest.mark.cuda
+def test_fp32_engines_on_card_spec_equals_greedy_dense_equals_paged():
+    """The fp32 kernel path end to end at a tiny MQA config: every fp32 form
+    launches; generate_spec gives generate's tokens exactly (the verify
+    rows have the decode step's bits); the dense and the paged serving
+    engines give the same tokens, with and without spec_decode; the prefill
+    logits within 1e-3 of the torch-ops engine's max |logit|; a bf16 cache
+    beside fp32 weights raises."""
+    import numpy as np
+
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    dev = _fp32_card()
+    cfg, params, dq = _serving_model_fp32(dev)
+    with pytest.raises(ValueError, match="KV cache"):
+        PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq,
+                        cache_dtype=torch.bfloat16)
+    eng = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq)
+    ref = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq, use_flash=False,
+                          fused_layer=False)
+    r = _serving_requests(cfg, 1)[0]
+    ids = r.input_ids[None]
+    px = torch.from_numpy(r.pixel_values[None]).to(dev)
+    lk, _ = eng.prefill(px, ids, np.ones_like(ids))
+    lp, _ = ref.prefill(px, ids, np.ones_like(ids))
+    assert float((lk - lp).abs().max()) <= 1e-3 * float(lp.abs().max())
+    kernels.reset_launch_counts()
+    want = eng.generate(px, ids, np.ones_like(ids), max_new_tokens=40, eos_token_id=-1,
+                        sync_every=8)
+    counts = kernels.launch_counts()
+    for name in ("flash_attention_fwd_fp32", "int8_gemv_fp32", "int8_gemv_rope_kv_fp32",
+                 "head_argmax_fp32", "decode_attention_fp32", "rms_norm_fp32"):
+        assert counts[name] > 0, name
+    for name in ("flash_attention_fwd", "int8_gemv", "int8_gemv_rope_kv", "head_argmax",
+                 "decode_attention", "rms_norm"):
+        assert counts[name] == 0, name
+    got = eng.generate_spec(px, ids, np.ones_like(ids), max_new_tokens=40, eos_token_id=-1,
+                            draft_k=6)
+    assert np.array_equal(got, want)
+    kw = dict(max_slots=3, max_seq_len=128, decode_params=dq, sync_every=4)
+    dense = _served(ServingEngine(params, cfg, **kw), _serving_requests(cfg, 5))
+    kernels.reset_launch_counts()
+    paged = _served(PagedServingEngine(params, cfg, page_size=16, **kw),
+                    _serving_requests(cfg, 5))
+    assert kernels.launch_counts()["paged_decode_attention_fp32"] > 0
+    assert paged == dense
+    for cls, extra in ((ServingEngine, {}), (PagedServingEngine, {"page_size": 16})):
+        spec = _served(cls(params, cfg, spec_decode=True, spec_draft_k=5, **kw, **extra),
+                       _serving_requests(cfg, 5))
+        assert spec == dense

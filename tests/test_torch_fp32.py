@@ -1,0 +1,151 @@
+"""The fp32 forms of the port's kernels (``--dtype float32`` on the card), on
+the CPU: the arithmetic of the GEMV tile's three-term split that grounds the
+card's tolerance, the wrappers' dispatch and counters, the decode chain's
+support check at fp32, and the rule against a mixed cache dtype. The kernel
+paths at fp32 against the JAX package run in tests/test_torch_kernels.py,
+tests/test_torch_paged.py and tests/test_torch_engine.py (all fp32 on the
+CPU); the kernels themselves in tests/test_torch_cuda.py on a card."""
+
+import argparse
+
+import numpy as np
+import pytest
+import torch
+
+from paligemma_tpu_torch import kernels
+from paligemma_tpu_torch.cli import infer as t_infer
+from paligemma_tpu_torch.kernels import decode_attention as t_dattn
+from paligemma_tpu_torch.kernels import decode_elementwise as t_elem
+from paligemma_tpu_torch.kernels import decode_head as t_head
+from paligemma_tpu_torch.kernels import flash_attention as t_flash
+from paligemma_tpu_torch.kernels import gemv_plan as t_plan
+from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
+from paligemma_tpu_torch.kernels import paged_attention as t_paged
+from paligemma_tpu_torch.runtime.engine import check_cache_dtype
+
+torch.set_num_threads(2)
+
+# the tolerance of the fp32 forms against their plain versions on the card,
+# relative to the largest element (tests/test_torch_cuda.py FP32_REL,
+# chip_smoke.py FP32_REL)
+FP32_REL = 2e-5
+
+FP32_FORMS = ("flash_attention_fwd_fp32", "int8_gemv_fp32", "int8_gemv_rope_kv_fp32",
+              "head_argmax_fp32", "decode_attention_fp32", "paged_decode_attention_fp32",
+              "rms_norm_fp32")
+
+
+def _split3(x):
+    """hi, mid, lo: the bf16 terms of fp32 x (csrc/gemv_tile.cuh gt_split3)."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("k", [2048, 16384])
+def test_three_term_split_holds_fp32(k):
+    """The GEMV tile's fp32 form on seeded x and int8 W at Gemma-2B's K: the
+    three bf16 terms add up to x exactly; the products of 16-row steps of
+    each term against the exact bf16 weights, summed in fp32 step by step
+    (the tile's order within a warp), stay within 2e-6 of the largest
+    element of the exact product (fp32 x @ W itself: ~4e-7), while one bf16
+    pass is ~1.6e-3 off. FP32_REL sits ten times above the first and fifty
+    times below the last."""
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((8, k), dtype=np.float32)) * 3.0
+    w = torch.from_numpy(rng.integers(-127, 128, (k, 256), dtype=np.int8)).float()
+    s = torch.from_numpy((rng.random(256, dtype=np.float32) + 0.5) / (127 * k**0.5))
+    hi, mid, lo = _split3(x)
+    assert torch.equal(hi + mid + lo, x) and torch.equal((hi + mid) + lo, x)
+    for t in (hi, mid, lo):
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+    exact = (x.double() @ w.double()) * s.double()
+    acc = torch.zeros(8, 256)
+    for k0 in range(0, k, 16):
+        for t in (hi, mid, lo):
+            acc = acc + t[:, k0:k0 + 16] @ w[k0:k0 + 16]
+    top = float(exact.abs().max())
+    split = float(((acc * s).double() - exact).abs().max()) / top
+    one_pass = float(((hi @ w * s).double() - exact).abs().max()) / top
+    assert split <= 2e-6 and split * 10 <= FP32_REL <= one_pass / 50, (split, one_pass)
+
+
+def test_fp32_forms_are_counted_apart():
+    """Each fp32 form has its own counter in WRAPPERS (no name ends in
+    ``_f32``: ``int8_gemv_f32`` is mode 3's fp32 partial); on CPU tensors
+    the wrappers run the plain versions and count nothing."""
+    for name in FP32_FORMS:
+        assert name in kernels.WRAPPERS and not name.endswith("_f32")
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 64)
+    w8 = torch.randint(-127, 128, (64, 128), dtype=torch.int8)
+    s = torch.rand(128) / 100
+    torch.testing.assert_close(t_gemv.int8_gemv_fp32(x, w8, s),
+                               t_gemv.int8_gemv_reference(x, w8, s))
+    q = torch.randn(1, 8, 2, 16)
+    pl = torch.tensor([8], dtype=torch.int32)
+    out, lse = t_flash.flash_attention_fwd_fp32(q, q, q, pl, pl)
+    torch.testing.assert_close(out, t_flash.reference_attention(q, q, q, pl, pl))
+    torch.testing.assert_close(t_elem.rms_norm_fp32(x, torch.zeros(64)),
+                               t_elem.rms_norm_reference(x, torch.zeros(64)))
+    assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("name", ["flash", "gemv", "rope", "head", "dense", "paged", "norm"])
+def test_fp32_form_wrappers_take_fp32_only(name):
+    """A wrapper of an fp32 form refuses other dtypes (it never casts)."""
+    b16 = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
+    calls = {
+        "flash": lambda: t_flash.flash_attention_fwd_fp32(b16[None], b16[None], b16[None],
+                                                          None, None),
+        "gemv": lambda: t_gemv.int8_gemv_fp32(b16[0], None, None),
+        "rope": lambda: t_gemv.int8_gemv_rope_kv_fp32(b16[0]),
+        "head": lambda: t_head.head_argmax_fp32(b16, {}),
+        "dense": lambda: t_dattn.decode_attention_fp32(b16, b16, b16, None, 1.0),
+        "paged": lambda: t_paged.paged_decode_attention_fp32(b16, b16, b16, None, None),
+        "norm": lambda: t_elem.rms_norm_fp32(b16[0], None),
+    }
+    with pytest.raises(ValueError, match="fp32"):
+        calls[name]()
+
+
+def test_norm_prologue_fits_at_fp32():
+    """The fp32 prologue stages nothing: any plan with K % 4 == 0 fits,
+    where the bf16 staging buffer can refuse a plan's K range."""
+    wide = t_plan.GemvPlan.make(16384, 65536)
+    assert not t_plan.norm_fits(wide) and t_plan.norm_fits(wide, fp32=True)
+    for k, n in ((2048, 2560), (2048, 32768)):
+        plan = t_plan.GemvPlan.make(k, n)
+        assert t_plan.norm_fits(plan) and t_plan.norm_fits(plan, fp32=True)
+    assert not t_plan.norm_fits(t_plan.GemvPlan.make(18, 64), fp32=True)
+
+
+def test_mixed_cache_dtype_raises_on_the_card_only():
+    """fp32 weights with a bf16 cache (or the reverse) raise for a CUDA
+    device; the CPU's plain path takes any cache dtype."""
+    for act, cache in ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+        params = {"lm": {"embed": torch.zeros(2, 2, dtype=act)}}
+        with pytest.raises(ValueError, match="no mixed form yet"):
+            check_cache_dtype(torch.device("cuda"), params, cache, "engine")
+        check_cache_dtype(torch.device("cpu"), params, cache, "engine")
+        check_cache_dtype(torch.device("cuda"), params, act, "engine")
+
+
+@pytest.mark.parametrize("flag,kernel", [
+    ("lora", "LoRA shrink and expand"), ("int8_prefill", "W8A8"),
+    ("model_parallel", "int8_gemv_f32"), ("data_parallel", "int8_gemv_f32")])
+def test_fp32_refusals_name_the_kernel(flag, kernel, monkeypatch):
+    """Each flag whose kernel has no fp32 form is refused on the card at
+    fp32, by name, and passes at bf16 and on the CPU."""
+    args = argparse.Namespace(int8_prefill=flag == "int8_prefill",
+                              model_parallel=2 if flag == "model_parallel" else 1,
+                              data_parallel=2 if flag == "data_parallel" else 1)
+    refused = t_infer.fp32_refusals(args, lora=flag == "lora")
+    assert [f for f, _ in refused] == [f"--{flag}"] and kernel in refused[0][1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(t_infer.CliError, match=f"--dtype float32 with --{flag} on the card"):
+        t_infer.card_or_cpu(False, "float32", refused)
+    assert t_infer.card_or_cpu(False, "bfloat16", refused).type == "cuda"
+    assert t_infer.card_or_cpu(True, "float32", refused).type == "cpu"
+    assert t_infer.card_or_cpu(False, "float32", []).type == "cuda"

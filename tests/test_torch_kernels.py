@@ -233,32 +233,38 @@ def test_rope_kv_write_plain_writes_rows():
 
 
 # ------------------------------------------------------------ head argmax ----
-def _head(k=128, v=1024, seed=0):
+def _head(k=128, v=1024, seed=0, dtype=jnp.bfloat16):
     kw, ky = jax.random.split(jax.random.PRNGKey(seed))
     w = jax.random.normal(kw, (k, v), jnp.float32) * 0.05
     q = j_quant.quantize_int8(w)
-    y = (jax.random.normal(ky, (2, 1, k), jnp.float32) * 0.3).astype(jnp.bfloat16)
+    y = (jax.random.normal(ky, (2, 1, k), jnp.float32) * 0.3).astype(dtype)
     return {"w8": np.array(q["w8"]), "s": np.array(q["s"])}, y
 
 
 def _port(head, y):
     th = {"w8": _t(head["w8"]), "s": _t(head["s"])}
-    ty = _t(y.astype(jnp.float32)).to(torch.bfloat16)
-    return th, ty
+    ty = _t(y.astype(jnp.float32))
+    return th, ty.to(torch.bfloat16) if y.dtype == jnp.bfloat16 else ty
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("seed,v", [(0, 1024), (1, 1024), (2, 1000)])
-def test_head_argmax_matches_pallas(seed, v):
-    head, y = _head(v=v, seed=seed)
+def test_head_argmax_matches_pallas(seed, v, dtype):
+    """The head on bf16 y and (the fp32 form's plain version) on fp32 y,
+    where the TPU kernel's rounding of the logits to y's dtype is the
+    identity: ids equal the Pallas kernel's in interpret mode, the winning
+    logit the max of the logits rounded to y's dtype."""
+    head, y = _head(v=v, seed=seed, dtype=getattr(jnp, dtype))
     jhead = {"w8": jnp.asarray(head["w8"]), "s": jnp.asarray(head["s"])}
     want = np.asarray(j_head.head_argmax_fused(y, j_head.repack_head(jhead), interpret=True))
     th, ty = _port(head, y)
+    assert ty.dtype == getattr(torch, dtype)
     packed = t_head.repack_head(th)
     assert packed["w8_blk"].shape[1] % t_gemv.TILE_N == 0
     got, mx = t_head.head_argmax_fused(ty, packed, return_max=True)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(t_head.reference_head_argmax(ty, th).numpy(), want)
-    logits = (ty.float().reshape(2, -1) @ th["w8"].float() * th["s"]).to(torch.bfloat16).float()
+    logits = (ty.float().reshape(2, -1) @ th["w8"].float() * th["s"]).to(ty.dtype).float()
     np.testing.assert_array_equal(mx.numpy(), logits.max(-1).values.numpy())
 
 

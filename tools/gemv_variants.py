@@ -23,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "paligemma_tpu_torch"
 TILE = "csrc/gemv_tile.cuh"
 _INT4 = "csrc/int4_matmul.cu"
-_GEMV = "csrc/int8_gemv.cu"
+_GEMV = "csrc/int8_gemv.cuh"
 
 # the loads alone: every loaded word kept alive by a cheap sum, no mma
 _LOADS_ONLY = """        acc[0][0] += __uint_as_float((wb[s][0].x ^ wb[s][1].y ^ wb[s][2].z ^ wb[s][3].w ^
