@@ -32,7 +32,12 @@ seed, int8 decode tree) through its main paths:
   against generate bit for bit, cli.infer --dtype float32 with and without
   --quantize_int8 and with --speculative, cli.serve --dtype float32 dense
   and paged with sampled, grammar and repeated rows and the prefix cache
-  (dense == paged), and the 896 px tower through the fp32 B1;
+  (dense == paged), and the 896 px tower through the fp32 B1; the fp32
+  forms of the LoRA shrink and expand, the fp32 partial, K1 and W8A8 K1 /
+  K2 against their plain versions, cli.serve --dtype float32 with --lora
+  (dense and paged) and --int8_prefill, cli.infer --int8_prefill, and the
+  TP engines at world size 1 over NCCL on the fp32 trees (one card's
+  tokens bit for bit, with the bank too);
 * the fine-tuning entry point (cli.finetune.main) on that checkpoint: LoRA
   r8 over a seeded manifest with evaluations and --export_hf, its losses
   bit for bit a Trainer's on the batches derived here in the CLI's order,
@@ -68,7 +73,9 @@ seed, int8 decode tree) through its main paths:
   engines' tokens, the bank applied inside the TP chain (4 shrinks and 2 K1
   a layer and tick, no plain LoRA product in a tick); two gloo ranks on the
   card run the same features alike; ``cli.infer`` and ``cli.serve`` (batch
-  and HTTP) with ``--model_parallel 2`` on the cli phase's checkpoint;
+  and HTTP) with ``--model_parallel 2`` on the cli phase's checkpoint, then
+  both again with ``--dtype float32`` in the same ranks (``--data_parallel
+  2`` likewise);
 * single-GPU LoRA training, Trainer.train_step at full width and depth
   (B=2, S=512, remat): the flash kernels' forward and backward against the
   plain attention path on the first step, the loss falling over 8 steps,
@@ -76,7 +83,8 @@ seed, int8 decode tree) through its main paths:
   the merged adapters served by PaliGemmaEngine.generate;
 * the training half of the mesh (the ``train_mesh`` phase, last): the
   Trainer under make_mesh(2, 1), (1, 2) and (2, 2) on gloo ranks that
-  share the card (LoRA, an FSDP full fine-tune, QLoRA over NF4) against
+  share the card, at 2 layers of full width (LoRA, an FSDP full fine-tune,
+  QLoRA over NF4) against
   one card's Trainer, and cli.finetune with --data_parallel 2,
   --model_parallel 2 (resuming the data axis's state), --fsdp
   --full_finetune and two --multihost processes through a coordinator.
@@ -324,11 +332,15 @@ TRAIN_GRAD_REL_TOL = 5e-2
 FP32_REL = 2e-5
 FP32_LOGIT_TOL = 1e-3
 FP32_NEW = 32  # greedy tokens of the fp32 engines and CLIs
-# the bf16 kernels of the one-card main path -> their fp32 forms' counters
+# the bf16 kernels of the main paths -> their fp32 forms' counters (one
+# card's, the LoRA shrink's, the fp32 partial's, K1's and W8A8's)
 FP32_OF = {"flash_attention_fwd": "flash_attention_fwd_fp32", "int8_gemv": "int8_gemv_fp32",
            "int8_gemv_rope_kv": "int8_gemv_rope_kv_fp32", "head_argmax": "head_argmax_fp32",
            "decode_attention": "decode_attention_fp32",
-           "paged_decode_attention": "paged_decode_attention_fp32", "rms_norm": "rms_norm_fp32"}
+           "paged_decode_attention": "paged_decode_attention_fp32", "rms_norm": "rms_norm_fp32",
+           "lora_shrink": "lora_shrink_fp32", "int8_gemv_f32": "int8_gemv_f32_fp32",
+           "int8_gemv_f32_lora": "int8_gemv_f32_lora_fp32",
+           "w8a8_quant_rows": "w8a8_quant_rows_fp32", "w8a8_gemm": "w8a8_gemm_fp32"}
 
 
 def ptxas_lines(log_path, kernels_of_interest):
@@ -2943,7 +2955,9 @@ def _cli_tp_entry(argv, rank):
     """One rank of the CLIs' ``--model_parallel 2`` (or ``--data_parallel
     2``) runs, both in one spawn of two ranks (cli/ranks): ``argv`` =
     [out_dir, image token id, vocab,
-    cli.infer's flags (JSON), cli.serve's flags (JSON)]. First cli.infer's
+    cli.infer's flags (JSON), cli.serve's flags (JSON), and optionally the
+    same at ``--dtype float32`` (JSON, JSON; serve: a batch, no HTTP), run
+    after the first two in the same ranks]. First cli.infer's
     rank entry on the cli phase's stand-ins (its tokenizer, so that the
     caption's ids compare with the one-card caption's), then cli.serve's
     rank body on one server in both modes: the batch of ``--requests_jsonl``,
@@ -2980,21 +2994,34 @@ def _cli_tp_entry(argv, rank):
         else:
             srv.follow()
 
-    try:
+    def infer_rows(key, argv_i):
         stand = _StandIns(image_token)
-        captured("infer", stand, lambda: infer._rank_main(infer_argv, rank))
+        captured(key, stand, lambda: infer._rank_main(argv_i, rank))
         tok = stand.tokenizers[-1]
-        rec["rows"] = list(tok.decoded)
-        prompts = [infer_argv[i + 1] for i, a in enumerate(infer_argv) if a == "--prompt"]
-        rec["want"] = "".join(f"{p}{tok.decode(r)}\n" for p, r in zip(prompts, rec["rows"]))
-        words = sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()})
+        rec[key + "_rows"] = list(tok.decoded)
+        prompts = [argv_i[i + 1] for i, a in enumerate(argv_i) if a == "--prompt"]
+        rec[key + "_want"] = "".join(f"{p}{tok.decode(r)}\n"
+                                     for p, r in zip(prompts, rec[key + "_rows"]))
+
+    words = sorted({w for p in SERVE_CLI_PROMPTS for w in p.split()})
+    try:
+        infer_rows("infer", infer_argv)
         captured("serve", _StandIns(image_token, vocab, words), serve_both)
+        if len(argv) > 5:  # the same CLIs at --dtype float32, in the same ranks
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            infer_rows("infer32", json.loads(argv[5]))
+            serve32 = json.loads(argv[6])
+            captured("serve32", _StandIns(image_token, vocab, words),
+                     lambda: serve._rank_main(serve32, rank))
     finally:
         with open(os.path.join(out_dir, f"rank{rank.rank}.json"), "w") as f:
             json.dump(rec, f)
 
 
-def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
+def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1, fp32_ids=None):
     """The CLIs' tensor-parallel mode (``data`` 1: ``--model_parallel 2``)
     or their data axis (``data`` 2: ``--data_parallel 2``, the paged
     engine, two prompts) on the cli phase's checkpoint, in one spawn of two
@@ -3012,7 +3039,10 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
     exactly its rows, in prompt order; the batch's lines well formed, a
     constrained row in its grammar, the repeat a cache hit; the HTTP answer
     the batch's text for the same request (every rank holds the same
-    tokens and seats: the CLIs check it themselves)."""
+    tokens and seats: the CLIs check it themselves). ``fp32_ids``: the
+    fp32 engine's caption ids (fp32_phase); then the same ranks run both
+    CLIs again with ``--dtype float32`` (serve: the batch), held to the
+    same gates against those ids."""
     import urllib.request
 
     from paligemma_tpu_torch.checkpoints.local import save_pytree
@@ -3051,14 +3081,18 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
                   "--requests_jsonl", str(jsonl), "--http", str(port), "--prefix_cache", "--lora",
                   f"a={work / 'lora_a'}", "--grammar", f"digits={SERVE_CLI_GRAMMARS['digits']}",
                   *mesh, *(["--engine", "paged"] if data > 1 else [])]
+    entry_argv = [str(work), str(cfg.image_token_index), str(cfg.vocab_size),
+                  json.dumps(infer_argv), json.dumps(serve_argv)]
+    if fp32_ids is not None:
+        at = serve_argv.index("--http")
+        entry_argv += [json.dumps(infer_argv + ["--dtype", "float32"]),
+                       json.dumps(serve_argv[:at] + serve_argv[at + 2:] + ["--dtype", "float32"])]
     result = {}
 
     def launch():
         try:
-            ranks.launch(_cli_tp_entry, [str(work), str(cfg.image_token_index),
-                                         str(cfg.vocab_size), json.dumps(infer_argv),
-                                         json.dumps(serve_argv)], 2 // data, False,
-                          CLI_TP_TIMEOUT, data_parallel=data)
+            ranks.launch(_cli_tp_entry, entry_argv, 2 // data, False, CLI_TP_TIMEOUT,
+                         data_parallel=data)
         except BaseException as e:  # SystemExit included: reported by this thread's caller
             result["error"] = e
 
@@ -3083,7 +3117,7 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
             for p in (work / f"rank{r}.json" for r in range(2))]
     if "error" in result or th.is_alive() or answer is None:
         for r, rec in enumerate(recs):
-            for what in ("infer", "serve"):
+            for what in ("infer", "serve", "infer32", "serve32"):
                 if what in rec:
                     print(f"{label} {what}: rank {r}'s stdout:\n{rec[what]['stdout']}stderr:\n"
                           f"{rec[what]['stderr']}", flush=True)
@@ -3091,44 +3125,51 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
     if any(rec["device"] != "cuda:0" or rec["backend"] != "gloo" for rec in recs):
         raise AssertionError(f"{label}: ranks on {[(r['device'], r['backend']) for r in recs]}"
                              ", want cuda:0 over gloo (two ranks share the card)")
-    if recs[1]["infer"]["stdout"] or recs[1]["serve"]["stdout"]:
-        raise AssertionError(f"{label}: rank 1 printed {recs[1]['infer']['stdout']!r}, "
-                             f"{recs[1]['serve']['stdout']!r}")
+    printed = [recs[1][k]["stdout"] for k in ("infer", "serve", "infer32", "serve32")
+               if k in recs[1]]
+    if any(printed) or (fp32_ids is not None and len(printed) != 4):
+        raise AssertionError(f"{label}: rank 1 printed {printed!r}")
 
-    inf = recs[0]["infer"]
-    timings = json.loads(inf["stderr"].split("timings: ", 1)[1].splitlines()[0])
-    ref = [int(t) for t in one_card_ids[:CLI_TP_NEW]]
-    eos = _WordTokenizer.eos_token_id
-    ref = ref[:ref.index(eos) + 1] if eos in ref else ref
-    got = recs[0]["rows"]
-    first, rest = inf["stdout"].split("\n", 1)
-    # a batch of two runs to its longer row (a row past its EOS holds EOS)
-    n_tok = timings["tokens"]
-    if (len(got) != n_prompts or any(len(r) != n_tok for r in got)
-            or not (n_tok == len(ref) if data == 1 else 1 <= n_tok <= CLI_TP_NEW)
-            or not first.startswith("Device in use: cuda:0")
-            or rest != f"Loading model\nRunning inference\n{recs[0]['want']}"):
-        raise AssertionError(f"{label} infer: rank 0 printed {inf['stdout']!r} for the ids {got}"
-                             f", want {n_prompts} row(s) of {n_tok} ids (the one-card caption's "
-                             f"{ref})")
-    same = sum(a == b for a, b in zip(got[0], ref))
-    print(f"{label}: cli.infer --quantize_int8 {' '.join(mesh)} (two ranks on cuda:0 over "
-          f"gloo): rank 0 printed {n_prompts} row(s) in prompt order, the first of "
-          f"{len(got[0])} ids; {same}/{len(ref)} ids equal the one-card caption's (printed, "
-          f"not gated: " + ("m = 2 rounds its partial sums apart)" if data == 1 else
-                            "the batch of two pads the prompt)"), flush=True)
+    def check_infer(key, one_ids, tag):
+        inf = recs[0][key]
+        timings = json.loads(inf["stderr"].split("timings: ", 1)[1].splitlines()[0])
+        ref = [int(t) for t in one_ids[:CLI_TP_NEW]]
+        eos = _WordTokenizer.eos_token_id
+        ref = ref[:ref.index(eos) + 1] if eos in ref else ref
+        got = recs[0][key + "_rows"]
+        first, rest = inf["stdout"].split("\n", 1)
+        # a batch of two runs to its longer row (a row past its EOS holds EOS)
+        n_tok = timings["tokens"]
+        if (len(got) != n_prompts or any(len(r) != n_tok for r in got)
+                or not (n_tok == len(ref) if data == 1 else 1 <= n_tok <= CLI_TP_NEW)
+                or not first.startswith("Device in use: cuda:0")
+                or rest != f"Loading model\nRunning inference\n{recs[0][key + '_want']}"):
+            raise AssertionError(f"{label} {tag}: rank 0 printed {inf['stdout']!r} for the ids "
+                                 f"{got}, want {n_prompts} row(s) of {n_tok} ids (the one-card "
+                                 f"caption's {ref})")
+        same = sum(a == b for a, b in zip(got[0], ref))
+        print(f"{label}: {tag} {' '.join(mesh)} (two ranks on cuda:0 over gloo): rank 0 printed "
+              f"{n_prompts} row(s) in prompt order, the first of {len(got[0])} ids; "
+              f"{same}/{len(ref)} ids equal the one-card caption's (printed, not gated: " + (
+                  "m = 2 sums its partials in another order)" if data == 1 else
+                  "the batch of two pads the prompt)"), flush=True)
 
-    lines = [json.loads(ln) for ln in recs[0]["serve"]["stdout"].splitlines()]
-    if (sorted(g["request_id"] for g in lines) != list(range(len(rows)))
-            or not all({"text", "num_tokens", "ttft_ms"} <= set(g) for g in lines)
-            or f"served {len(rows)} requests" not in recs[0]["serve"]["stderr"]):
-        raise AssertionError(f"{label} serve: rank 0 printed {recs[0]['serve']['stdout']!r}")
-    by_id = {g["request_id"]: g for g in lines}
-    digits = gr.compile_regex(SERVE_CLI_GRAMMARS["digits"])
-    g_row, r_row = (3, 2) if data > 1 else (2, 3)
-    if not digits.matches(by_id[g_row]["text"]) or by_id[r_row]["text"] != by_id[0]["text"]:
-        raise AssertionError(f"{label} serve: the constrained row {by_id[g_row]['text']!r} or "
-                             "the repeat's text")
+    def check_serve(key, tag):
+        lines = [json.loads(ln) for ln in recs[0][key]["stdout"].splitlines()]
+        if (sorted(g["request_id"] for g in lines) != list(range(len(rows)))
+                or not all({"text", "num_tokens", "ttft_ms"} <= set(g) for g in lines)
+                or f"served {len(rows)} requests" not in recs[0][key]["stderr"]):
+            raise AssertionError(f"{label} {tag}: rank 0 printed {recs[0][key]['stdout']!r}")
+        by_id = {g["request_id"]: g for g in lines}
+        digits = gr.compile_regex(SERVE_CLI_GRAMMARS["digits"])
+        g_row, r_row = (3, 2) if data > 1 else (2, 3)
+        if not digits.matches(by_id[g_row]["text"]) or by_id[r_row]["text"] != by_id[0]["text"]:
+            raise AssertionError(f"{label} {tag}: the constrained row {by_id[g_row]['text']!r} "
+                                 "or the repeat's text")
+        return lines, by_id
+
+    check_infer("infer", one_card_ids, "cli.infer --quantize_int8")
+    lines, by_id = check_serve("serve", "serve")
     if answer[0] != 200 or answer[1]["text"] != by_id[0]["text"]:
         raise AssertionError(f"{label} serve --http: answered {answer}, want the batch's "
                              f"{by_id[0]['text']!r}")
@@ -3138,8 +3179,16 @@ def cli_tp_phase(cfg, card, ckpt, one_card_ids, label="cli_tp", data=1):
           f"the batch's {len(lines)} result lines from rank 0, the constrained row in its "
           f"grammar, the repeat's text the first's; then one /generate over HTTP answered by "
           f"rank 0 with the batch's text, and both ranks shut down with exit code 0; one spawn "
-          f"of two ranks for both CLIs, wall {wall:.1f} s (process start and four checkpoint "
-          f"loads included)  [{card}]", flush=True)
+          f"of two ranks for both CLIs, wall {wall:.1f} s (process start and "
+          f"{8 if fp32_ids is not None else 4} checkpoint loads included)  [{card}]", flush=True)
+    if fp32_ids is not None:
+        check_infer("infer32", fp32_ids, "cli.infer --dtype float32 --quantize_int8")
+        lines32, _ = check_serve("serve32", "serve --dtype float32")
+        print(f"{label}: cli.serve --dtype float32 {' '.join(mesh)}{engine} (--lora --grammar "
+              f"--prefix_cache, a batch): the {len(lines32)} result lines from rank 0, the "
+              "constrained row in its grammar, the repeat's text the first's (the fp32 forms of "
+              f"{'the fp32 partial and K1' if data == 1 else 'the one-card chain, a shard each'}"
+              ")", flush=True)
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -4321,7 +4370,7 @@ def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, pali
     mask = np.zeros((1, bucket), np.int32)
     mask[0, :n] = 1
     aid = torch.tensor([eng_k._lora_index[req.lora]], dtype=torch.int32, device=dev)
-    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, device=dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, eng_k.cache_dtype, device=dev)
     _, cache1 = paligemma.prefill(params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
                                   torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
                                   cache1, use_flash=True, last_only=True, lora=eng_k.lora_bank,
@@ -4329,7 +4378,7 @@ def _teacher_force_lora(params, eng_k, eng_p, cfg, dev, req, tokens, gemma, pali
     max_seq = SERVE["max_seq_len"]
     caches = []
     for _ in range(2):
-        c = gemma.init_kv_cache(cfg.text_config, 1, max_seq, torch.bfloat16, device=dev)
+        c = gemma.init_kv_cache(cfg.text_config, 1, max_seq, eng_k.cache_dtype, device=dev)
         for name in ("k", "v"):
             c[name][:, :, :bucket] = cache1[name]
         caches.append(c)
@@ -5158,12 +5207,12 @@ def _teacher_bank_logits(eng, cfg, req, tokens):
     mask = np.zeros((1, bucket), np.int32)
     mask[0, :n] = 1
     aid = torch.tensor([eng._lora_index[req.lora]], dtype=torch.int32, device=dev)
-    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, torch.bfloat16, device=dev)
+    cache1 = gemma.init_kv_cache(cfg.text_config, 1, bucket, eng.cache_dtype, device=dev)
     logits, cache1 = paligemma.prefill(
         eng.params, cfg, torch.from_numpy(req.pixel_values[None]).to(dev),
         torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), cache1, use_flash=True,
         last_only=True, lora=eng.lora_bank, adapter_ids=aid, mesh=eng.mesh)
-    cache = gemma.init_kv_cache(cfg.text_config, 1, SERVE["max_seq_len"], torch.bfloat16,
+    cache = gemma.init_kv_cache(cfg.text_config, 1, SERVE["max_seq_len"], eng.cache_dtype,
                                 device=dev)
     for name in ("k", "v"):
         cache[name][:, :, :bucket] = cache1[name]
@@ -5359,13 +5408,14 @@ DPTP_NEW = 16  # the DP x TP run: the serving phase's first TP_FEATURE_REQ reque
 DPTP_TICK = TP_PAGED_TICK
 
 
-def _near_ties(label, one, cfg, reqs, toks, want, bank=None):
+def _near_ties(label, one, cfg, reqs, toks, want, bank=None, tol=LOGIT_REL_TOL):
     """Rows of ``toks`` ({id: tokens}) that differ from ``want`` (the
     one-card kernel engine's): each is teacher-forced along its own tokens
     through the one-card kernel engine ``one`` (a PaliGemmaEngine, or with
     ``bank`` a dense ServingEngine with the bank), and every token it
-    emitted must lie within LOGIT_REL_TOL of the top logit (of max |logit|):
-    a bf16 near tie that another prefill batch size's bits may flip.
+    emitted must lie within ``tol`` of the top logit (of max |logit|): a
+    near tie (bf16: LOGIT_REL_TOL) that another prefill batch size's bits
+    may flip.
     Constrained rows are held by their grammar instead. Returns a phrase:
     the identical rows, and the largest gap seen over max |logit|."""
     worst = 0.0
@@ -5383,14 +5433,14 @@ def _near_ties(label, one, cfg, reqs, toks, want, bank=None):
         picked = lg.gather(1, torch.tensor(tokens)[:, None])[:, 0]
         gap = float(((lg.max(dim=1).values - picked) / lg.abs().amax(dim=1)).max())
         worst = max(worst, gap)
-        if gap > LOGIT_REL_TOL:
+        if gap > tol:
             raise AssertionError(f"dp {label}: request {i}'s tokens leave the one-card logits' "
-                                 f"top by {gap:.3e} of max |logit| (tol {LOGIT_REL_TOL})")
+                                 f"top by {gap:.3e} of max |logit| (tol {tol})")
     said = f"{len(toks) - len(differ)}/{len(toks)} requests with the one-card kernel engine's " \
         "tokens"
     if differ:
         said += (f"; the others' tokens within {worst:.3e} of max |logit| of the one-card top "
-                 f"logit, teacher-forced (tol {LOGIT_REL_TOL})")
+                 f"logit, teacher-forced (tol {tol})")
     return said
 
 
@@ -5648,29 +5698,30 @@ TM_LOSS_REL_TOL = 1e-3
 # each leaf is held on the mean |difference| against the mean |movement| of
 # one card's adapters from their start (the largest difference printed)
 TM_ADAPTER_REL_TOL = 0.1
-# the full fine-tunes (FSDP) run at this depth (LM and tower layers, full
-# widths): at 18 layers a step of layer gathers through host memory takes
-# ~33 s, and the CLI's two saves write 2 x 15 GB, past the card machine's
-# budget of disk writes for the whole script
+# every run of the phase is at this depth (LM and tower layers, full widths):
+# at 18 layers a full fine-tune's step of layer gathers through host memory
+# takes ~33 s and the CLI's two saves write 2 x 15 GB, past the card
+# machine's budget of disk writes for the whole script; the LoRA runs took
+# ~100 s more at 18 layers, which the script's time limit no longer holds
 TM_CUT_LAYERS = 2
 TM_MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
 _TM_LORA = dict(lora_rank=8, lora_alpha=8.0, learning_rate=TM_LR, warmup_steps=0)
-TM_RUNS = {  # name -> (TrainConfig kwargs, at TM_CUT_LAYERS); "nf4": a 4-bit base
-    "lora": (_TM_LORA, False),
-    "lora_acc2": (dict(_TM_LORA, grad_accum_steps=2), False),
-    "fsdp": (dict(lora_rank=None, learning_rate=TM_LR, fsdp=True), True),
-    "nf4": (_TM_LORA, False),
+TM_RUNS = {  # name -> TrainConfig kwargs; "nf4": a 4-bit base
+    "lora": _TM_LORA,
+    "lora_acc2": dict(_TM_LORA, grad_accum_steps=2),
+    "fsdp": dict(lora_rank=None, learning_rate=TM_LR, fsdp=True),
+    "nf4": _TM_LORA,
 }
 TM_PLAN = {"2x1": ("lora", "lora_acc2", "fsdp"), "1x2": ("lora", "lora_acc2", "nf4"),
            "2x2": ("lora", "lora_acc2")}
-# the CLI runs: one epoch of the quick manifest's 4 rows (2 steps); label ->
-# (flags, on the cut checkpoint); "resume" resumes the 2 x 1 "lora" run
+# the CLI runs on the cut checkpoint: one epoch of the quick manifest's 4
+# rows (2 steps); label -> flags; "resume" resumes the 2 x 1 "lora" run
 TM_CLI_FLAGS = ("--epochs", "1", "--batch_size", "2", "--grad_accum", "1", "--lora_rank", "8",
                 "--max_length", "512", "--learning_rate", "1e-3", "--warmup_steps", "0")
-TM_CLI = {"2x1": (("lora", ("--data_parallel", "2"), False),
-                  ("export", ("--data_parallel", "2", "--export_hf"), True),
-                  ("fsdp", ("--fsdp", "--full_finetune", "--data_parallel", "2"), True)),
-          "1x2": (("resume", ("--model_parallel", "2"), False),),
+TM_CLI = {"2x1": (("lora", ("--data_parallel", "2")),
+                  ("export", ("--data_parallel", "2", "--export_hf")),
+                  ("fsdp", ("--fsdp", "--full_finetune", "--data_parallel", "2"))),
+          "1x2": (("resume", ("--model_parallel", "2")),),
           "2x2": ()}
 
 
@@ -5714,36 +5765,32 @@ def _tm_trainer_runs(names, cfg, dev, mesh):
     from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
 
     batch = train_batch(cfg)
+    run_cfg = _tm_cut(cfg)
     out = {}
-    for cut in (False, True):
-        run_cfg = _tm_cut(cfg) if cut else cfg
-        todo = [n for n in names if TM_RUNS[n][1] == cut]
-        if not todo:
-            continue
-        params = init_params(run_cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
-                             torch.bfloat16)
-        for name in todo:
-            base = (quantize_lm_for_training(params, "nf4", 64, fuse=False) if name == "nf4"
-                    else params)
-            tr = Trainer(base, run_cfg, TrainConfig(**TM_RUNS[name][0]), mesh=mesh,
-                         generator=torch.Generator(device=dev).manual_seed(SEED))
-            start = _tm_adapters(tr._state()) if tr.lora is not None else None
-            sync()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            losses = [tr.train_step(batch) for _ in range(TM_STEPS)]
-            sync()
-            wall = time.perf_counter() - t0
-            counts = kernels.launch_counts()
-            rec = {"losses": losses, "counts": counts, "bytes": _tm_bytes(tr), "wall": wall,
-                   "layers": run_cfg.text_config.num_hidden_layers}
-            if tr.lora is not None:
-                rec["lora"], rec["start"] = _tm_adapters(tr._state()), start
-            out[name] = rec
-            del tr, base
-            torch.cuda.empty_cache()
-        del params
+    params = init_params(run_cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                         torch.bfloat16)
+    for name in names:
+        base = (quantize_lm_for_training(params, "nf4", 64, fuse=False) if name == "nf4"
+                else params)
+        tr = Trainer(base, run_cfg, TrainConfig(**TM_RUNS[name]), mesh=mesh,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+        start = _tm_adapters(tr._state()) if tr.lora is not None else None
+        sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [tr.train_step(batch) for _ in range(TM_STEPS)]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        rec = {"losses": losses, "counts": counts, "bytes": _tm_bytes(tr), "wall": wall,
+               "layers": run_cfg.text_config.num_hidden_layers}
+        if tr.lora is not None:
+            rec["lora"], rec["start"] = _tm_adapters(tr._state()), start
+        out[name] = rec
+        del tr, base
         torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5769,9 +5816,9 @@ def _tm_entry(argv, rank):
     rec = {"device": str(rank.device), "backend": rank.backend,
            "mesh": (rank.mesh.data, rank.mesh.model),
            "runs": _tm_trainer_runs(TM_PLAN[tag], cfg, rank.device, rank.mesh), "cli": {}}
-    for label, flags, cut in TM_CLI[tag]:
+    for label, flags in TM_CLI[tag]:
         out_dir = os.path.join(work, f"{tag}_{label}")
-        cli_argv = ["--model_path", cut_ckpt if cut else ckpt, "--train_jsonl", manifest,
+        cli_argv = ["--model_path", cut_ckpt, "--train_jsonl", manifest,
                     "--output_dir", out_dir, *TM_CLI_FLAGS, *flags]
         if label == "resume":
             cli_argv += ["--resume_from", resume]
@@ -5888,7 +5935,7 @@ def _tm_check_spawn(tag, recs, refs, card):
               f"{json.dumps({k: v for k, v in want_counts.items() if v})} (its own heads and "
               f"rows); the run's wall {runs[0]['wall']:.2f} s, correctness only (gloo ranks "
               f"share the card)  [{card}]", flush=True)
-    for label, _, _ in TM_CLI[tag]:
+    for label, _ in TM_CLI[tag]:
         said = [rec["cli"][label]["stdout"] for rec in recs]
         if not said[0].endswith("done\n") or any(said[1:]):
             raise AssertionError(f"train_mesh {tag} cli {label}: rank 0 printed "
@@ -5906,25 +5953,27 @@ def train_mesh_phase(cfg, dev, card, ckpt):
     memory, so these runs show that the results are right, not the speed
     of a mesh):
 
-    (a) Trainer under make_mesh(2, 1), (1, 2) and (2, 2), at full depth:
+    Every run is at TM_CUT_LAYERS layers (a copy of the cli phase's
+    checkpoint cut to them, or seeded weights of that depth):
+
+    (a) Trainer under make_mesh(2, 1), (1, 2) and (2, 2):
         TM_STEPS LoRA steps with grad_accum_steps 1, and a run with 2,
         against one card's Trainer on the same batch: losses within
         TM_LOSS_REL_TOL, adapters by TM_ADAPTER_REL_TOL; every rank
         launches B1 and B6 exactly TRAIN_PER_STEP a step at its own heads
         and rows;
-    (b) a full fine-tune at data 2 with fsdp=True (TM_CUT_LAYERS layers)
-        against one card's losses; each rank's trained weights and moments
-        in bytes against one card's;
-    (c) QLoRA over an NF4 base at model 2 (4-bit trees sharded), full depth;
-    (d) cli.finetune: --data_parallel 2 on the cli phase's checkpoint, its
-        final/ resumed on one card (cli.finetune --resume_from) and under
-        --model_parallel 2, all against one-card Trainers (restored from
-        that final/ for the resumed runs); on the checkpoint's copy cut to
-        TM_CUT_LAYERS, --data_parallel 2 with --export_hf (read back by
+    (b) a full fine-tune at data 2 with fsdp=True against one card's
+        losses; each rank's trained weights and moments in bytes against
+        one card's;
+    (c) QLoRA over an NF4 base at model 2 (4-bit trees sharded);
+    (d) cli.finetune: --data_parallel 2, its final/ resumed on one card
+        (cli.finetune --resume_from) and under --model_parallel 2, all
+        against one-card Trainers (restored from that final/ for the
+        resumed runs); --data_parallel 2 with --export_hf (read back by
         cli.infer) and --fsdp --full_finetune --data_parallel 2;
     (e) two --multihost --coordinator 127.0.0.1:<port> processes (a model
-        axis of 2 on one host) on the cut checkpoint, against one card's
-        Trainer on the CLI's batches.
+        axis of 2 on one host), against one card's Trainer on the CLI's
+        batches.
 
     Returns the launch counts summed over the ranks' Trainer runs (each
     counted on its own)."""
@@ -5985,9 +6034,8 @@ def train_mesh_phase(cfg, dev, card, ckpt):
         # one card's references
         t0 = time.perf_counter()
         refs = {"runs": _tm_trainer_runs(tuple(TM_RUNS), cfg, dev, None),
-                "cli_lora": cli_losses(ckpt, cli_batches),
-                "cli_lora_cut": cli_losses(cut_ckpt, cli_batches),
-                "cli_full_cut": cli_losses(cut_ckpt, cli_batches, lora_rank=None)}
+                "cli_lora": cli_losses(cut_ckpt, cli_batches),
+                "cli_full": cli_losses(cut_ckpt, cli_batches, lora_rank=None)}
         print(f"train_mesh: one card's references in {time.perf_counter() - t0:.1f} s",
               flush=True)
 
@@ -6007,12 +6055,12 @@ def train_mesh_phase(cfg, dev, card, ckpt):
 
         # (a), (b), (d): the data axis
         cli = spawn("2x1")
-        _tm_hold_losses("(d) cli --data_parallel 2", _tm_losses(cli["lora"]), refs["cli_lora"],
-                        card)
+        _tm_hold_losses(f"(d) cli --data_parallel 2 ({TM_CUT_LAYERS} layers)",
+                        _tm_losses(cli["lora"]), refs["cli_lora"], card)
         _tm_hold_losses(f"(d) cli --data_parallel 2 --export_hf ({TM_CUT_LAYERS} layers)",
-                        _tm_losses(cli["export"]), refs["cli_lora_cut"], card)
+                        _tm_losses(cli["export"]), refs["cli_lora"], card)
         _tm_hold_losses(f"(d) cli --fsdp --full_finetune --data_parallel 2 ({TM_CUT_LAYERS} "
-                        "layers)", _tm_losses(cli["fsdp"]), refs["cli_full_cut"], card)
+                        "layers)", _tm_losses(cli["fsdp"]), refs["cli_full"], card)
         export = os.path.join(work, "2x1_export", "hf_export")
         stand = _StandIns(cfg.image_token_index)
         with stand:
@@ -6028,10 +6076,10 @@ def train_mesh_phase(cfg, dev, card, ckpt):
 
         # (d): the data axis's state resumed on one card, then under a model axis
         final = os.path.join(work, "2x1_lora", "final")
-        refs["resume"] = cli_losses(ckpt, cli_batches, restore=final)
+        refs["resume"] = cli_losses(cut_ckpt, cli_batches, restore=final)
         with stand:
             one_out = os.path.join(work, "one_card_resume")
-            _ft_call(finetune, ["--model_path", ckpt, "--train_jsonl", manifest, "--output_dir",
+            _ft_call(finetune, ["--model_path", cut_ckpt, "--train_jsonl", manifest, "--output_dir",
                                 one_out, *TM_CLI_FLAGS, "--resume_from", final], stand)
         _tm_hold_losses("(d) saved under 2 x 1, resumed on one card (cli --resume_from)",
                         _tm_losses(_tm_metrics(one_out)), refs["resume"], card)
@@ -6069,7 +6117,7 @@ def train_mesh_phase(cfg, dev, card, ckpt):
         if "mesh data 1 x model 2" not in said[0] or "done" in said[1]:
             raise AssertionError(f"train_mesh (e): {said[0][-600:]!r} / {said[1][-300:]!r}")
         _tm_hold_losses(f"(e) 2 --multihost processes ({time.perf_counter() - t0:.1f} s)",
-                        _tm_losses(_tm_metrics(mh_out)), refs["cli_lora_cut"], card)
+                        _tm_losses(_tm_metrics(mh_out)), refs["cli_lora"], card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"train_mesh: phase done in {time.perf_counter() - t_phase:.1f} s; launches summed over "
@@ -7421,6 +7469,283 @@ def fp32_kernel_phase(report: KernelReport, dev):
             device_times("fp32 B1 K2048", [("rms_norm_fp32", lambda: el.rms_norm(x, wn, 1e-6)),
                                            ("F.rms_norm fp32",
                                             lambda: F.rms_norm(x, (2048,), w1, 1e-6))])
+    del x, wn
+    fp32_bank_cases(report, dev, f32, int8_weight)
+    fp32_partial_cases(report, dev, f32, int8_weight)
+    fp32_w8a8_cases(report, dev, f32, int8_weight)
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def fp32_bank_cases(report: KernelReport, dev, f32, int8_weight):
+    """F1 and F2: the LoRA shrink's fp32 form and the expand in the fp32
+    GEMV's epilogue at layer 5's four targets (qkv through the RoPE + KV
+    write with the input norm, gate | up with the post-attention norm, o
+    and down with the residual), B1 and B8, a [base, a, b, c] bank of rank
+    LORA_RANK (fp32 A and B, the zero adapter in row 0): each within FP32_REL
+    of its plain version (z, and the projection with its delta), base rows
+    the fp32 GEMV's bits without the bank, a second call's bits. At B8 each
+    shrink and GEMV with the expand timed (the shrinks in the JSON row of
+    lora_shrink_fp32; the expand printed, int8_gemv_fp32's row keeps the
+    GEMV alone) beside cuBLAS fp32 ``x @ A`` and ``z @ B``, then device
+    times of the four."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    gcols = (len(LORA_NAMES) + 1) * LORA_RANK
+    print(f"kernels: F1 lora_shrink_fp32 + F2 the LoRA expand in the fp32 GEMV ({len(LORA_NAMES)} "
+          f"adapters and the base row, rank {LORA_RANK}, G {gcols}; layer 5's shapes)", flush=True)
+    groups = (("qkv", 2048, 2560, (2048, 2304)), ("o", 2048, 2048, ()),
+              ("gu", 2048, 32768, (16384,)), ("down", 16384, 2048, ()))
+    device, tot = [], {}
+    for name, k, n, bounds in groups:
+        w8, s = int8_weight(k, n)
+        nt = len(bounds) + 1
+        a = f32(k, nt * gcols, scale=k**-0.5)
+        a[:, torch.arange(nt * gcols, device=dev) % gcols < LORA_RANK] = 0  # the zero adapter
+        lb = f32(gcols, n, scale=LORA_B_STD)
+        wn = f32(k, scale=0.1) if name in ("qkv", "gu") else None
+        norm = None if wn is None else (wn, 1e-6)
+        for b in (1, 8):
+            ids = (torch.arange(b, device=dev) % (len(LORA_NAMES) + 1)).to(torch.int32)
+            x = f32(b, k)
+            tag = f"{name} B{b} K{k} nG{a.shape[1]}"
+            z = kl.lora_shrink(x, a, ids, LORA_RANK, gcols, norm=norm)
+            zp = kl.lora_shrink_reference(x, a, ids, LORA_RANK, gcols, norm=norm)
+            sync()
+            report.case("lora_shrink_fp32", tag, z, zp, FP32_REL, floor=0)
+            if name == "qkv":
+                ang = f32(b, 256)
+                cos, sin = ang.cos(), ang.sin()
+                pos = torch.tensor([(37 * i) % 1000 for i in range(b)], dtype=torch.int32,
+                                   device=dev)
+                bufs = [torch.zeros(b, 1024, 256, device=dev) for _ in range(4)]
+                news = [torch.empty(b, 256, device=dev) for _ in range(4)]
+
+                def run(lora, x=x, w8=w8, s=s, cos=cos, sin=sin, pos=pos, bufs=bufs, news=news,
+                        norm=norm):
+                    return gv.int8_gemv_rope_kv(x, w8, s, cos, sin, pos, 8, bufs[0], bufs[1],
+                                                news[0], news[1], norm=norm, lora=lora)[0]
+
+                def plain(lora, x=x, w8=w8, s=s, cos=cos, sin=sin, pos=pos, bufs=bufs,
+                          news=news, norm=norm):
+                    return gv.int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, 8, bufs[2],
+                                                          bufs[3], news[2], news[3], norm=norm,
+                                                          lora=lora)[0]
+                counter = "int8_gemv_rope_kv_fp32"
+            else:
+                gkw = {"geglu": True} if name == "gu" else {"residual": f32(b, n)}
+
+                def run(lora, x=x, w8=w8, s=s, gkw=gkw, norm=norm):
+                    return gv.int8_gemv(x, w8, s, lora=lora, norm=norm, **gkw)
+
+                def plain(lora, x=x, w8=w8, s=s, gkw=gkw, norm=norm):
+                    return gv.int8_gemv_reference(x, w8, s, lora=lora, norm=norm, **gkw)
+                counter = "int8_gemv_fp32"
+            got = run((z, lb, bounds)).clone()
+            want = plain((zp, lb, bounds))
+            sync()
+            report.case(counter, f"{name} B{b} + LoRA expand (F2)", got, want, FP32_REL, floor=0)
+            again = (kl.lora_shrink(x, a, ids, LORA_RANK, gcols, norm=norm),
+                     run((z, lb, bounds)).clone())
+            no_bank = run(None).clone()
+            base = ids == 0
+            sync()
+            same = (torch.equal(again[0], z) and torch.equal(again[1], got)
+                    and not z[base].any() and torch.equal(got[base], no_bank[base]))
+            print(f"  {counter:20s} {f'{name} B{b}: base rows == no bank; 2nd call':44s} "
+                  f"bit for bit {same}  {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise AssertionError(f"fp32 LoRA {tag}: a base row moved, or a second call "
+                                     "gave other bits")
+            if b != 8:
+                continue
+            zb = z[:, :gcols].contiguous()
+            t_s = report.time("lora_shrink_fp32", tag,
+                              lambda x=x, a=a, ids=ids, norm=norm: kl.lora_shrink(
+                                  x, a, ids, LORA_RANK, gcols, norm=norm),
+                              lambda x=x, a=a, ids=ids, norm=norm: kl.lora_shrink_reference(
+                                  x, a, ids, LORA_RANK, gcols, norm=norm),
+                              flops=2 * b * k * a.shape[1],
+                              n_bytes=nbytes(x, a, ids, z) + (4 * k if norm else 0),
+                              library_fn=lambda x=x, a=a: x @ a, peak=PEAK_FP32_FLOPS)
+            t_e = report.time(counter, f"{name} B8 + LoRA expand (F2; library z @ B)",
+                              lambda z=z: run((z, lb, bounds)), lambda z=z: plain((z, lb, bounds)),
+                              flops=2 * b * (k * n + gcols * n),
+                              n_bytes=nbytes(x, w8, s, z, lb, got), library_fn=lambda: zb @ lb,
+                              in_json=False, peak=PEAK_FP32_FLOPS)
+            t_0 = report.time(counter, f"{name} B8 without the bank", lambda: run(None),
+                              lambda: plain(None), flops=2 * b * k * n,
+                              n_bytes=nbytes(x, w8, s, got), in_json=False, peak=PEAK_FP32_FLOPS)
+            for key, t in (("shrink", t_s), ("gemv+expand", t_e), ("gemv", t_0)):
+                acc = tot.setdefault(key, [0.0, 0.0, 0.0, 0.0])
+                acc[0], acc[1], acc[3] = acc[0] + t[0], acc[1] + t[1], acc[3] + t[3]
+                acc[2] = None if acc[2] is None or t[2] is None else acc[2] + t[2]
+            device += [(f"{name} shrink", lambda x=x, a=a, ids=ids, norm=norm: kl.lora_shrink(
+                x, a, ids, LORA_RANK, gcols, norm=norm)),
+                (f"{name} x @ A (cuBLAS fp32)", lambda x=x, a=a: x @ a),
+                (f"{name} GEMV + expand", lambda z=z, run=run, lb=lb, bounds=bounds: run(
+                    (z, lb, bounds))),
+                (f"{name} GEMV", lambda run=run: run(None)),
+                (f"{name} z @ B (cuBLAS fp32)", lambda zb=zb, lb=lb: zb @ lb)]
+        del w8, s, a, lb
+    sk, sp, sl, sb = tot["shrink"]
+    ek, ep, el, eb = tot["gemv+expand"]
+    bk, _, _, bb = tot["gemv"]
+    print(f"  fp32 lora: one layer B8, 4 groups, back to back: shrinks {sk:.4f} ms (plain "
+          f"{sp:.4f}, cuBLAS fp32 x @ A {_ms(sl)}, bound {sb:.4f}); GEMVs with the expand "
+          f"{ek:.4f} ms (plain {ep:.4f}, bound {eb:.4f}) against {bk:.4f} without (bound "
+          f"{bb:.4f}); z @ B {_ms(el)}", flush=True)
+    dt = device_times("fp32 B8 layer 5 bank", device)
+    per = {}
+    for label, ms in dt.items():
+        what = label.split(" ", 1)[1]
+        per[what] = None if ms is None or per.get(what, 0.0) is None else per.get(what, 0.0) + ms
+    print("  fp32 lora: one layer B8, 4 groups, device: " + ", ".join(
+        f"{w} {'not measured' if v is None else f'{v:.4f} ms'}" for w, v in per.items()),
+        flush=True)
+
+
+def fp32_partial_cases(report: KernelReport, dev, f32, int8_weight):
+    """F3: the fp32 partial (mode 3) and K1 of fp32 x at o (K 2048) and down
+    (K 16384) at B8, with and without the bank: rank 0 of m = 2 (the rank's
+    K rows and A's rows) within FP32_REL of the plain versions, mode 3 ==
+    the fp32 GEMV's mode 0 bit for bit, K1's base half == mode 3; at m = 1
+    K1's [base | delta] added as decode_layer_tp.add_partial adds them ==
+    the one-card fp32 residual GEMV with the expand, bit for bit. Timed at
+    rank 0 of m = 2 (both rows in the JSON line) beside cuBLAS fp32 on the
+    dequantized shard (mode 3; another function) and cuBLAS's two fp32
+    products (K1: no single call computes it)."""
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import lora as kl
+
+    gcols = (len(LORA_NAMES) + 1) * LORA_RANK
+    b = 8
+    ids = (torch.arange(b, device=dev) % (len(LORA_NAMES) + 1)).to(torch.int32)
+    print(f"kernels: F3 int8_gemv_f32_fp32 (mode 3 at fp32) and int8_gemv_f32_lora_fp32 (K1 at "
+          f"fp32), B{b}, bank G {gcols}", flush=True)
+    for name, k_full in (("o", 2048), ("down", 16384)):
+        w8, s = int8_weight(k_full, 2048)
+        a = f32(k_full, gcols, scale=k_full**-0.5)
+        lb = f32(gcols, 2048, scale=LORA_B_STD)
+        x, h = f32(b, k_full, scale=0.5), f32(b, 2048)
+        z1 = kl.lora_shrink(x, a, ids, LORA_RANK, gcols)
+        one = gv.int8_gemv(x, w8, s, residual=h, lora=(z1, lb, ()))
+        k1_one = gv.int8_gemv_f32(x, w8, s, lora=(z1, lb, ()))
+        sync()
+        same = torch.equal((h + k1_one[:, :2048]) + k1_one[:, 2048:], one)
+        print(f"  {'int8_gemv_f32_lora_fp32':20s} {f'{name} m1 B{b} added == one card':44s} "
+              f"bit for bit {same}  {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError(f"fp32 K1 {name}: m = 1 is not the one-card fp32 epilogue")
+        rows = slice(0, k_full // 2)
+        xr, wr, ar = x[:, rows].contiguous(), w8[rows].contiguous(), a[rows].contiguous()
+        zr = kl.lora_shrink(xr, ar, ids, LORA_RANK, gcols)
+        label = f"{name} m2 r0 B{b} K{k_full // 2}->2048"
+        part = gv.int8_gemv_f32(xr, wr, s)
+        k1 = gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ()))
+        mode0 = gv.int8_gemv(xr, wr, s)
+        sync()
+        report.case("int8_gemv_f32_fp32", label, part,
+                    gv.int8_gemv_reference(xr, wr, s, out_fp32=True), FP32_REL, floor=0)
+        report.case("int8_gemv_f32_lora_fp32", label, k1,
+                    gv.int8_gemv_reference(xr, wr, s, out_fp32=True, lora=(zr, lb, ())),
+                    FP32_REL, floor=0)
+        same = (torch.equal(part, mode0) and torch.equal(k1[:, :2048], part)
+                and torch.equal(gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ())), k1))
+        print(f"  {'int8_gemv_f32_fp32':20s} {f'{label}: == mode 0; K1 base == it':44s} "
+              f"bit for bit {same}  {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError(f"fp32 partial {label}: not mode 0's bits, or K1's base half "
+                                 "differs from it")
+        wdq = wr.float() * s
+        report.time("int8_gemv_f32_fp32", f"{label} (library: cuBLAS fp32 x_r @ dequantized "
+                    "W_r, another function)", lambda: gv.int8_gemv_f32(xr, wr, s),
+                    lambda: gv.int8_gemv_reference(xr, wr, s, out_fp32=True),
+                    flops=2 * b * wr.numel(), n_bytes=nbytes(xr, wr, s, part),
+                    library_fn=lambda: xr @ wdq, peak=PEAK_FP32_FLOPS)
+        report.time("int8_gemv_f32_lora_fp32", f"{label} G{gcols}",
+                    lambda: gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ())),
+                    lambda: gv.int8_gemv_reference(xr, wr, s, out_fp32=True, lora=(zr, lb, ())),
+                    flops=2 * b * (wr.numel() + lb.numel()),
+                    n_bytes=nbytes(xr, wr, s, zr, lb, k1), peak=PEAK_FP32_FLOPS)
+        xa, zb = cuda_ms(lambda: xr @ ar, 20), cuda_ms(lambda: zr @ lb, 20)
+        print(f"  {'int8_gemv_f32_lora_fp32':20s} {label:44s} cuBLAS fp32 x_r @ A_r {xa:.4f} ms "
+              f"+ z @ B {zb:.4f} ms = {xa + zb:.4f} ms (the delta alone, never called by the "
+              "port)", flush=True)
+        device_times(f"fp32 {label}", [
+            ("int8_gemv_f32_lora_fp32", lambda: gv.int8_gemv_f32(xr, wr, s, lora=(zr, lb, ()))),
+            ("int8_gemv_f32_fp32", lambda: gv.int8_gemv_f32(xr, wr, s)),
+            ("x_r @ A_r (cuBLAS fp32)", lambda: xr @ ar), ("z @ B (cuBLAS fp32)", lambda: zr @ lb)])
+        del w8, s, a, lb, wdq
+
+
+def fp32_w8a8_cases(report: KernelReport, dev, f32, int8_weight):
+    """F4: K1 reading fp32 rows (own amax, and a given one as a TP shard
+    takes it) and K2 writing fp32, bit for bit with their plain versions, at
+    layer 5's four projections and W8A8_ROWS rows (rows over four decades of
+    scale, row 0 all zero); a second call's bits. Timed at both row counts
+    (the M266 rows in the JSON line) beside ``torch._int_mm`` with the fp32
+    epilogue of ``scale_sums`` for K2; device times of a layer's four."""
+    from paligemma_tpu_torch.kernels import w8a8
+
+    print("kernels: F4 w8a8_quant_rows_fp32 and w8a8_gemm_fp32 (bit for bit)", flush=True)
+    sums = {}
+    for m in W8A8_ROWS:
+        for name, k, n in PROJECTIONS:
+            w8, s = int8_weight(k, n)
+            x = f32(m, k) * 10.0 ** (torch.rand(m, 1, device=dev) * 4 - 2)
+            x[0] = 0
+            label = f"{name} M{m} K{k} N{n}"
+            x8, a_s = w8a8.w8a8_quant_rows(x)
+            r8, rs = w8a8.quant_rows_reference(x)
+            amax = x.abs().amax(-1) * 1.5
+            g8, gs = w8a8.w8a8_quant_rows(x, amax)
+            q8, qs = w8a8.quant_rows_reference(x, amax)
+            got = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.float32)
+            want = w8a8.gemm_reference(x8, w8, a_s, s, out_dtype=torch.float32)
+            sync()
+            report.case("w8a8_quant_rows_fp32", f"{label} codes", x8.float(), r8.float(), 0.0)
+            report.case("w8a8_quant_rows_fp32", f"{label} scales", a_s, rs, 0.0)
+            if not (torch.equal(g8, q8) and torch.equal(gs, qs)):
+                raise AssertionError(f"w8a8_quant_rows_fp32 {label}: a given amax's codes differ")
+            report.case("w8a8_gemm_fp32", f"{label} fp32 out", got, want, 0.0)
+            again = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.float32)
+            if not (torch.equal(again, got) and (got[0] == 0).all()
+                    and torch.equal(w8a8.w8a8_quant_rows(x)[0], x8)):
+                raise AssertionError(f"w8a8 fp32 {label}: a second call's bits differ, or the "
+                                     "zero row is not 0")
+            w_nk = w8.t().contiguous()  # torch._int_mm's layout, outside the timed window
+            in_json = m == W8A8_ROWS[0]
+
+            def lib(x8=x8, w_nk=w_nk, a_s=a_s, s=s):
+                return w8a8.scale_sums(torch._int_mm(x8, w_nk.t()), a_s, s, torch.float32)
+
+            t2 = report.time("w8a8_gemm_fp32", label + " (library: _int_mm + fp32 epilogue)",
+                             lambda: w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.float32),
+                             lambda: w8a8.gemm_reference(x8, w8, a_s, s, torch.float32),
+                             2.0 * m * k * n, nbytes(x8, w8, a_s, s, got), library_fn=lib,
+                             iters=10, in_json=in_json, peak=PEAK_INT8_OPS)
+            t1 = report.time("w8a8_quant_rows_fp32", label, lambda: w8a8.w8a8_quant_rows(x),
+                             lambda: w8a8.quant_rows_reference(x), 3.0 * m * k,
+                             nbytes(x, x8, a_s), iters=10, in_json=in_json,
+                             peak=PEAK_FP32_FLOPS)
+            dt = device_times(f"fp32 {label} (weights warm)", (
+                ("w8a8_gemm_fp32", lambda: w8a8.w8a8_gemm(x8, w8, a_s, s,
+                                                          out_dtype=torch.float32)),
+                ("_int_mm + fp32 epilogue", lib),
+                ("w8a8_quant_rows_fp32", lambda: w8a8.w8a8_quant_rows(x))))
+            acc_row = sums.setdefault(m, {})
+            for key, v in list(dt.items()) + [("K2 bound", t2[3]), ("K1 bound", t1[3])]:
+                acc_row[key] = None if v is None or acc_row.get(key, 0.0) is None else (
+                    acc_row.get(key, 0.0) + v)
+            del w8, s, w_nk
+    for m, row in sums.items():
+        print(f"w8a8 fp32: one layer's four projections at M{m}, device ms: " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in row.items()),
+            flush=True)
 
 
 def fp32_phase(cfg, dev, card, d):
@@ -7442,11 +7767,26 @@ def fp32_phase(cfg, dev, card, d):
         a grammar, one repeated, with --prefix_cache: the free greedy rows'
         tokens equal an fp32 ServingEngine's, and dense equals paged;
     (d) the 896 px tower at fp32 from seeded weights, attn="flash" (27 B1
-        fp32 launches) against attn="xla".
+        fp32 launches) against attn="xla";
+    (e) cli.serve --dtype float32 --quantize_int8 --lora (the multilora
+        phase's [base, a, b, c] bank, fp32) dense and paged on (c)'s 12
+        requests: tokens equal an fp32 ServingEngine's with the bank (its
+        kernel tick), dense equals paged; that engine against the torch-ops
+        tick with the bank: a differing row a near tie (FP32_LOGIT_TOL),
+        an adapter row's teacher-forced logits within FP32_LOGIT_TOL;
+    (f) cli.infer and cli.serve --dtype float32 --quantize_int8
+        --int8_prefill (K1 / K2's fp32 forms): the single-copy fp32
+        engines' tokens; the single-copy engine's prefill logits within
+        W8A8_LOGIT_TOL of the two-copy fp32 engine's (W8A8 quantizes the
+        activations: an int8 code a row, not an fp32 rounding);
+    (g) the TP engines at world size 1 over NCCL on the fp32 trees: generate
+        and the bank's 12 requests give one card's fp32 tokens bit for bit
+        (the fp32 partial and K1 summed by the all-reduce).
 
     Every launch of a run is an fp32 form's (``_as_bf16_names``), counted
     as the bf16 phases count theirs. Returns the counts summed over the
-    counted runs."""
+    counted runs and the fp32 engine's caption ids of the CLI's image and
+    prompt (cli_tp_phase's one-card reference at fp32)."""
     import gc
 
     from paligemma_tpu_torch import kernels, paligemma_3b_896
@@ -7564,7 +7904,68 @@ def fp32_phase(cfg, dev, card, d):
             ref_eng.submit(r)
         ref_eng.run_to_completion()
         ref = {r.request_id: list(r.tokens) for r in reqs}
-    del eng, ops, ref_eng, p32, dq32
+        del ref_eng
+
+        # (e)'s references: the bank through the fp32 kernel tick and the
+        # torch-ops tick
+        adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
+        names = [None, *LORA_NAMES]
+        lrows = [dict(r, **({"lora": names[i % 4]} if names[i % 4] else {}))
+                 for i, r in enumerate(rows)]
+        bank_k = ServingEngine(p32, cfg, decode_params=dq32, lora_bank=adapters, **SERVE)
+        bank_p = ServingEngine(p32, cfg, decode_params=dq32, lora_bank=adapters,
+                               fused_decode=False, **SERVE)
+        lreqs = {}
+        for label, e in (("kernel", bank_k), ("ops", bank_p)):
+            lreqs[label] = [to_req(r) for r in lrows]
+            for r in lreqs[label]:
+                e.submit(r)
+            e.run_to_completion()
+        ref_bank = {r.request_id: list(r.tokens) for r in lreqs["kernel"]}
+        ops_bank = {r.request_id: list(r.tokens) for r in lreqs["ops"]}
+        from paligemma_tpu_torch.models import gemma, paligemma
+        adapter_req = lreqs["kernel"][1]  # adapter "a"
+        worst = _teacher_force_lora(p32, bank_k, bank_p, cfg, dev, adapter_req,
+                                    ref_bank[1], gemma, paligemma)
+        ties = _near_ties("fp32 bank", bank_k, cfg, lreqs["kernel"], ops_bank, ref_bank,
+                          bank=True, tol=FP32_LOGIT_TOL)
+        print(f"fp32 bank: the kernel tick (lora_shrink_fp32, the fp32 expand) against the "
+              f"torch-ops tick, 12 requests [base, a, b, c]: {ties} (torch-ops tokens on the "
+              f"kernel engine); request 1 (adapter a) teacher-forced logits max rel err "
+              f"{worst:.3e} of max |logit| (tol {FP32_LOGIT_TOL})", flush=True)
+        if worst > FP32_LOGIT_TOL:
+            raise AssertionError(f"fp32 bank: kernel vs torch-ops logits {worst} > "
+                                 f"{FP32_LOGIT_TOL}")
+        del bank_p
+
+        # (f)'s references: the single-copy fp32 engines (W8A8 prefill)
+        single = PaliGemmaEngine(dq32, cfg, max_seq_len=1024, eos_token_id=eos,
+                                 decode_params=dq32, int8_act_prefill=True)
+        want_8 = single.generate(inputs["pixel_values"], inputs["input_ids"],
+                                 inputs["attention_mask"], max_new_tokens=CLI_NEW,
+                                 sync_every=infer.SYNC_EVERY)
+        two = PaliGemmaEngine(p32, cfg, max_seq_len=1024, eos_token_id=eos, decode_params=dq32)
+        args8 = (inputs["pixel_values"], inputs["input_ids"], inputs["attention_mask"])
+        l8, _ = single.prefill(*args8)
+        l2, _ = two.prefill(*args8)
+        w8, _ = _compare(l8, l2, "fp32 W8A8 prefill", want_8[0, 0], W8A8_LOGIT_TOL)
+        print(f"fp32 w8a8: the single-copy fp32 engine's prefill logits (K1 / K2 fp32 forms) "
+              f"against the two-copy fp32 engine's: max rel err {w8:.3e} of max |logit| (tol "
+              f"{W8A8_LOGIT_TOL}: W8A8 quantizes each activation row to int8); "
+              f"{int((want_8 == want_q).sum())}/{want_q.size} caption ids equal", flush=True)
+        del single, two, l8, l2
+        ref8_eng = ServingEngine(dq32, cfg, decode_params=dq32, int8_act_prefill=True, **SERVE)
+        r8 = [to_req(r) for r in rows]
+        for r in r8:
+            ref8_eng.submit(r)
+        ref8_eng.run_to_completion()
+        ref8 = {r.request_id: list(r.tokens) for r in r8}
+        del ref8_eng
+
+        # (g) the TP engines at world size 1 over NCCL
+        add(fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank,
+                             (pixels, ids, mask)))
+    del eng, ops, bank_k, p32, dq32
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7649,6 +8050,91 @@ def fp32_phase(cfg, dev, card, d):
           f"rows equal the fp32 ServingEngine's, {sum('do_sample' in r for r in crows)} sampled, "
           "1 under a grammar, the repeat equal to its original)", flush=True)
 
+    # (e) cli.serve --dtype float32 --lora, dense and paged
+    from paligemma_tpu_torch.checkpoints.local import save_pytree
+    lflags = []
+    for name, ad in adapters.items():
+        ldir = os.path.join(d, f"lora32_{name}")
+        save_pytree(ldir, {"lora": ad})
+        lflags += ["--lora", f"{name}={ldir}"]
+    del adapters
+    lpath = os.path.join(d, "fp32_lora_reqs.jsonl")
+    with open(lpath, "w") as fh:
+        fh.write("".join(json.dumps(r) + "\n" for r in lrows))
+    served = {}
+    with stand:
+        for engine in ("dense", "paged"):
+            argv = ["--model_path", d, "--requests_jsonl", lpath, *SERVE_CLI_FLAGS, "--dtype",
+                    "float32", "--engine", engine, *lflags]
+            run = _serve_cli_call(serve, argv, stand, f"fp32 {engine} --lora")
+            add(run["counts"])
+            e = run["srv"].engine
+            if not (e.fused_decode and e._lora_fused_pack is not None
+                    and e.cache_dtype == torch.float32):
+                raise AssertionError(f"fp32 serve {engine} --lora: the bank is not on the fp32 "
+                                     "kernel tick")
+            _serve_cli_launches(f"fp32 {engine} --lora", _as_bf16_names(
+                f"fp32 serve {engine} --lora", run["counts"]), run["ticks"], e, n_layers,
+                lora=True)
+            differ = [i for i in ref_bank if run["tokens"].get(i) != ref_bank[i]]
+            if differ:
+                raise AssertionError(f"fp32 serve {engine} --lora: requests {differ} differ from "
+                                     "the fp32 ServingEngine's with the bank")
+            _serve_cli_line(f"fp32 batch {engine} --lora", run["lines"], run["wall"],
+                            run["counts"], e, run["ticks"], card)
+            served[engine] = run["tokens"]
+            run.pop("srv", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+    moved = sum(ref_bank[i] != ref[i] for i in ref if names[i % 4])
+    print(f"fp32 serve --lora: dense == paged == the fp32 ServingEngine with the bank on all 12 "
+          f"requests; {moved}/9 adapter rows differ from the base model's tokens", flush=True)
+
+    # (f) --int8_prefill at fp32: cli.infer, then cli.serve dense
+    argv = ["--model_path", d, "--image_file_path", img, "--prompt", CLI_PROMPTS[0],
+            "--max_tokens_to_generate", str(CLI_NEW), "--dtype", "float32", "--quantize_int8",
+            "--int8_prefill"]
+    with stand, _NoPlainInt8():
+        text, t, counts, wall, got, _ = _cli_call(infer, argv, stand)
+    add(counts)
+    named = _as_bf16_names("fp32 cli --int8_prefill", counts)
+    _cli_launches("fp32 --int8_prefill", named, n_layers, True)
+    if {named["w8a8_quant_rows"], named["w8a8_gemm"]} != {4 * n_layers}:
+        raise AssertionError(f"fp32 cli --int8_prefill: {named['w8a8_quant_rows']} K1 and "
+                             f"{named['w8a8_gemm']} K2 fp32 launches, want {4 * n_layers}")
+    if not np.array_equal(np.asarray(got), want_8):
+        raise AssertionError(f"fp32 cli --int8_prefill: ids {got} != the single-copy fp32 "
+                             f"engine's {want_8.tolist()}")
+    print(f"fp32 cli --int8_prefill: {want_8.shape[1]} ids equal the single-copy fp32 engine's",
+          flush=True)
+    _timing_line("fp32 --int8_prefill", t, wall, card)
+    path8 = os.path.join(d, "fp32_8_reqs.jsonl")
+    with open(path8, "w") as fh:
+        fh.write("".join(json.dumps(r) + "\n" for r in rows))
+    with stand:
+        argv = ["--model_path", d, "--requests_jsonl", path8, *SERVE_CLI_FLAGS, "--dtype",
+                "float32", "--int8_prefill"]
+        with _NoPlainInt8():
+            run = _serve_cli_call(serve, argv, stand, "fp32 dense --int8_prefill")
+        add(run["counts"])
+        e = run["srv"].engine
+        if not (e.int8_act_prefill and e.cache_dtype == torch.float32):
+            raise AssertionError("fp32 serve --int8_prefill: not the fp32 single-copy engine")
+        _serve_cli_launches("fp32 dense --int8_prefill", _as_bf16_names(
+            "fp32 serve --int8_prefill", run["counts"]), run["ticks"], e, n_layers)
+        differ = [i for i in ref8 if run["tokens"].get(i) != ref8[i]]
+        if differ:
+            raise AssertionError(f"fp32 serve --int8_prefill: requests {differ} differ from the "
+                                 "single-copy fp32 ServingEngine's")
+        _serve_cli_line("fp32 batch dense --int8_prefill", run["lines"], run["wall"],
+                        run["counts"], e, run["ticks"], card)
+        print(f"fp32 serve --int8_prefill: 12/12 requests with the single-copy fp32 "
+              f"ServingEngine's tokens; {sum(ref8[i] == ref[i] for i in ref)}/12 with the "
+              "two-copy fp32 engine's", flush=True)
+        run.pop("srv", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (d) the 896 px tower at fp32: flash (B1 fp32) against 'xla'
     vcfg = paligemma_3b_896().vision_config
     vp = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(SEED), dev,
@@ -7671,6 +8157,75 @@ def fp32_phase(cfg, dev, card, d):
           flush=True)
     if not (torch.isfinite(flash).all() and rel <= FP32_LOGIT_TOL):
         raise AssertionError(f"fp32 tower: flash vs xla features off by {rel}")
+    return total, [int(t) for t in want_q[0]]
+
+
+def fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank, inputs):
+    """fp32_phase's (g): an NCCL group of world size 1, then the TP engines
+    on the fp32 trees: generate (FP32_NEW greedy tokens: the TP chain with
+    the fp32 partial, int8_gemv_f32_fp32) against the one-card fp32 engine's
+    ``tok``, and a dense ServingEngine with the bank on ``lrows`` (K1's fp32
+    form, lora_shrink_fp32) against ``ref_bank``: bit for bit. Returns the
+    summed launch counts."""
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.core.mesh import make_mesh
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        eng = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32, mesh=mesh)
+        kernels.reset_launch_counts()
+        got = eng.generate(*inputs, max_new_tokens=FP32_NEW, eos_token_id=-1, sync_every=8)
+        sync()
+        counts = _as_bf16_names("fp32 tp generate", kernels.launch_counts())
+        for k, v in kernels.launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        steps = counts["head_argmax"]
+        want = {"attn_decode_tp": n_layers * steps, "mlp_decode_fused": n_layers * steps,
+                "int8_gemv_f32": 2 * n_layers * steps}
+        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        same = np.array_equal(got, tok)
+        print(f"fp32 tp: TP generate m=1 over NCCL vs the one-card fp32 engine: {FP32_NEW} tokens "
+              f"bit for bit {same}; {counts['int8_gemv_f32']} int8_gemv_f32_fp32 over {steps} "
+              "steps", flush=True)
+        if not same or bad or not steps:
+            raise AssertionError(f"fp32 tp generate: tokens differ from one card ({same}) or "
+                                 f"launches off {bad}")
+        del eng
+        served = ServingEngine(p32, cfg, decode_params=dq32, mesh=mesh, lora_bank=adapters,
+                               **SERVE)
+        if not served.fused_decode or served._lora_fused_pack is None:
+            raise AssertionError("fp32 tp bank: the TP engine did not take the bank's chain")
+        reqs = [to_req(r) for r in lrows]
+        kernels.reset_launch_counts()
+        for r in reqs:
+            served.submit(r)
+        served.run_to_completion()
+        sync()
+        raw = kernels.launch_counts()
+        counts = _as_bf16_names("fp32 tp bank", raw)
+        for k, v in raw.items():
+            total[k] = total.get(k, 0) + v
+        toks = {r.request_id: list(r.tokens) for r in reqs}
+        differ = [i for i in ref_bank if toks[i] != ref_bank[i]]
+        print(f"fp32 tp: dense TP m=1 with the bank: {len(reqs) - len(differ)}/{len(reqs)} "
+              f"requests with the one-card fp32 engine's tokens, bit for bit; "
+              f"{counts['int8_gemv_f32_lora']} K1 fp32, {counts['lora_shrink']} shrinks fp32",
+              flush=True)
+        if differ or not (counts["int8_gemv_f32_lora"] and counts["lora_shrink"]):
+            raise AssertionError(f"fp32 tp bank: requests {differ} differ from one card, or "
+                                 "K1 / the shrink never launched")
+        del served
+    finally:
+        dist.destroy_process_group()
     return total
 
 
@@ -7726,7 +8281,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"serve_cli: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    fp32_counts = fp32_phase(cfg, dev, card, ckpt)
+    fp32_counts, fp32_ids = fp32_phase(cfg, dev, card, ckpt)
     torch.cuda.empty_cache()
     print(f"fp32: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -7756,7 +8311,7 @@ def main() -> int:
     # spawned ranks ran before the spec and multilora phases, those phases'
     # larger profiles lost 1-3 of ~576 GEMV events on every try
     t0 = time.perf_counter()
-    cli_tp_phase(cfg, card, ckpt, cli_ids)
+    cli_tp_phase(cfg, card, ckpt, cli_ids, fp32_ids=fp32_ids)
     torch.cuda.empty_cache()
     print(f"cli_tp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     # the data axis: spawned ranks too, so after every profile of this process
@@ -7764,7 +8319,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     dp_phase(cfg, card, tok_paged, feats_one)
-    cli_tp_phase(cfg, card, ckpt, cli_ids, label="cli_dp", data=2)
+    cli_tp_phase(cfg, card, ckpt, cli_ids, label="cli_dp", data=2, fp32_ids=fp32_ids)
     torch.cuda.empty_cache()
     print(f"dp: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     # the training half of the mesh: spawned ranks too, after dp
@@ -7852,6 +8407,17 @@ def main() -> int:
                                         "paligemma_tpu/kernels/paged_attention.py:42"),
         "rms_norm_fp32": ("triton", "paligemma_tpu_torch/kernels/_triton_decode.py",
                           "paligemma_tpu/kernels/decode_layer.py:95"),
+        # the fp32 forms of the LoRA bank, the mesh and W8A8
+        "lora_shrink_fp32": ("cuda", "paligemma_tpu_torch/csrc/lora.cu",
+                             "paligemma_tpu/kernels/decode_layer.py:95"),
+        "int8_gemv_f32_fp32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv_fp32.cu",
+                               "paligemma_tpu/kernels/decode_layer_tp.py:79"),
+        "int8_gemv_f32_lora_fp32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv_fp32.cu",
+                                    "paligemma_tpu/runtime/serving.py:223"),
+        "w8a8_quant_rows_fp32": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
+                                 "paligemma_tpu/kernels/quant.py:92"),
+        "w8a8_gemm_fp32": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
+                           "paligemma_tpu/kernels/quant.py:92"),
     }
     rows = []
     for name in kernels.WRAPPERS:

@@ -132,7 +132,7 @@ def _check(p: argparse.ArgumentParser, args) -> None:
 
     check_parallel(args)
     if not args.multihost and args.data_parallel * args.model_parallel == 1:
-        card_or_cpu(args.only_cpu, "bfloat16")
+        card_or_cpu(args.only_cpu)
     if not args.train_jsonl and not args.hf_dataset:
         p.error("provide --train_jsonl or --hf_dataset")
     require(args.batch_size % args.data_parallel == 0,
@@ -234,7 +234,7 @@ def _run(args, rank: "ranks.Rank" = None) -> None:
     from .infer import card_or_cpu
 
     if rank is None:
-        device, say, lead = card_or_cpu(args.only_cpu, "bfloat16"), print, True
+        device, say, lead = card_or_cpu(args.only_cpu), print, True
     else:
         device, say, lead = rank.device, rank.say, rank.lead
         require(args.batch_size % rank.mesh.data == 0,

@@ -12,10 +12,9 @@ Device: the card (``cuda:0``), or the CPU with ``--only_cpu``; with no card
 and no ``--only_cpu`` it exits with an error and never runs on the CPU by
 itself. ``--dtype float32`` runs on the card through the fp32 forms of the
 kernels (the flash forward, the int8 GEMV tile and head, the split decode
-attention, the final norm). Together with ``--int8_prefill``,
-``--model_parallel N`` (N > 1) or ``--data_parallel D`` (D > 1) it exits
-with an error before anything loads: the W8A8 GEMM and the mesh's kernels
-have no fp32 form yet (:func:`fp32_refusals`).
+attention, the final norm), with every other flag: ``--int8_prefill`` (the
+W8A8 kernels' fp32 forms), ``--model_parallel N`` and ``--data_parallel D``
+(the fp32 partial of the tensor-parallel chains).
 
 Decode: with ``--quantize_int8`` the engine decodes from the int8 tree
 (runtime.quantize) with its kernel defaults (on the card: the
@@ -124,41 +123,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-# flag -> the kernel it needs that has no fp32 form yet (--dtype float32 on
-# the card)
-_NO_FP32_FORM = {
-    "--lora": "the LoRA shrink and expand (csrc/lora.cu and the int8 GEMV's LoRA epilogue)",
-    "--int8_prefill": "the W8A8 prefill GEMM (csrc/w8a8_gemm.cu, K1 / K2)",
-    "--model_parallel": "the tensor-parallel partial int8_gemv_f32 (mode 3 of "
-                        "csrc/int8_gemv.cuh) and K1 int8_gemv_f32_lora",
-    "--data_parallel": "the mesh's partial int8_gemv_f32 (mode 3 of csrc/int8_gemv.cuh) and K1 "
-                       "int8_gemv_f32_lora",
-}
-
-
-def fp32_refusals(args, lora: bool = False):
-    """The flags of ``args`` (and ``--lora`` when ``lora``) that ``--dtype
-    float32`` cannot take on the card yet, each with the kernel it lacks."""
-    flags = [("--lora", lora), ("--int8_prefill", args.int8_prefill),
-             ("--model_parallel", args.model_parallel > 1),
-             ("--data_parallel", args.data_parallel > 1)]
-    return [(flag, _NO_FP32_FORM[flag]) for flag, given in flags if given]
-
-
-def card_or_cpu(only_cpu: bool, dtype: str, refused=()) -> torch.device:
+def card_or_cpu(only_cpu: bool) -> torch.device:
     """The card (``cuda:0``), or the CPU when asked; no card and no
     ``--only_cpu`` is an error, never a silent run on the CPU. On the card
-    ``--dtype float32`` runs the kernels' fp32 forms; ``refused``
-    (:func:`fp32_refusals`) are the (flag, kernel) pairs given that have
-    none yet, and any of them is an error before anything loads."""
+    either ``--dtype`` runs the kernels (fp32: their fp32 forms)."""
     if only_cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise CliError("no CUDA device found; pass --only_cpu to run on the CPU")
-    if dtype == "float32" and refused:
-        flag, kernel = refused[0]
-        raise CliError(f"--dtype float32 with {flag} on the card: {kernel} has no fp32 form "
-                       "yet; drop one of them, or pass --only_cpu")
     return torch.device("cuda", 0)
 
 
@@ -179,7 +151,7 @@ def _device(args) -> torch.device:
         require(len(args.prompt) % d == 0,
                 f"--data_parallel {d} splits the batch over {d} shards: pass a multiple of {d} "
                 f"prompts (got {len(args.prompt)})")
-    return card_or_cpu(args.only_cpu, args.dtype, fp32_refusals(args))
+    return card_or_cpu(args.only_cpu)
 
 
 def _sync(device: torch.device) -> None:

@@ -30,10 +30,9 @@ request's latencies (``Request.metrics()``).
 
 Device: the card, or the CPU with ``--only_cpu``, as cli/infer: no card and
 no ``--only_cpu`` exits 2. ``--dtype float32`` runs on the card through the
-kernels' fp32 forms (dense and paged, sampled rows, ``--grammar``,
-``--prefix_cache``, ``--spec_decode``); with ``--lora``, ``--int8_prefill``,
-``--model_parallel N`` (N > 1) or ``--data_parallel D`` (D > 1) it exits 2
-before anything loads, naming the kernel with no fp32 form yet.
+kernels' fp32 forms with every flag (dense and paged, sampled rows,
+``--grammar``, ``--prefix_cache``, ``--spec_decode``, ``--lora``,
+``--int8_prefill``, ``--model_parallel N``, ``--data_parallel D``).
 With ``--quantize_int8`` the engines decode from the int8 tree with their
 kernel defaults (on the card: the decode kernel chain); without it, the
 plain decode, as in cli/infer.
@@ -207,7 +206,7 @@ def _rank_main(argv, rank: "ranks.Rank") -> None:
 
 
 def _device(args) -> torch.device:
-    from .infer import card_or_cpu, check_parallel, fp32_refusals
+    from .infer import card_or_cpu, check_parallel
 
     require(not args.int8_prefill or args.quantize_int8, "--int8_prefill requires --quantize_int8")
     check_parallel(args)
@@ -219,7 +218,7 @@ def _device(args) -> torch.device:
                 "--max_slots must divide evenly over --data_parallel shards")
         require(args.n_pages is None or args.n_pages % args.data_parallel == 0,
                 "--n_pages must divide evenly over --data_parallel shards")
-    return card_or_cpu(args.only_cpu, args.dtype, fp32_refusals(args, bool(args.lora)))
+    return card_or_cpu(args.only_cpu)
 
 
 def _named(specs, what, form):

@@ -584,6 +584,26 @@ __device__ __forceinline__ float4 gt_norm4(float4 x, float4 w, float r) {
                      __fmul_rn(__fmul_rn(x.w, r), __fadd_rn(1.f, w.w)));
 }
 
+// The norm operands of activation type T, and the row's rsqrt(mean(x^2) +
+// eps) by one warp in each type's order (the GEMV and the LoRA shrink of a
+// row read the same r).
+template <class T>
+struct GtNorm;
+template <>
+struct GtNorm<bf16> {
+  using type = NormIn;
+};
+template <>
+struct GtNorm<float> {
+  using type = NormInF;
+};
+__device__ __forceinline__ float gt_row_rsqrt_t(const bf16* xr, int K, float eps) {
+  return gt_row_rsqrt(xr, K, eps);
+}
+__device__ __forceinline__ float gt_row_rsqrt_t(const float* xr, int K, float eps) {
+  return gt_row_rsqrt_f32(xr, K, eps);
+}
+
 // gemv_tile_sums with fp32 x (B, K) (int8 weights): the same steps, loads
 // and sum order, each step's x split into three bf16 terms (header). With
 // NORM the tile multiplies y = (x * r) * (1 + w): r of rows b0 .. b0+nb-1

@@ -25,8 +25,7 @@ PG_EXPORT int pg_int8_gemv_lora(const void* x, const void* w8, const void* s,
   if (mode < 0 || mode > 3 || G <= 0 || G % 8 || nz % G || nz / G > 3)
     return (int)cudaErrorInvalidValue;
   return launch_gemv<true, false>(x, w8, s, residual, out, B, K, N, mode, cluster, warps,
-                                  k_per_cta, LoraExpand{(const bf16*)z, lb, lb_f32, G, nz, seg1,
-                                                        seg2},
+                                  k_per_cta, LoraExpand{z, lb, lb_f32, G, nz, seg1, seg2},
                                   NormIn{}, RopeKV{}, stream);
 }
 
@@ -48,7 +47,7 @@ PG_EXPORT int pg_int8_gemv_fused(const void* x, const void* w8, const void* s,
   if (mode < 0 || mode == 3 || mode > 4) return (int)cudaErrorInvalidValue;
   if (z != nullptr && (G <= 0 || G % 8 || nz % G || nz / G > 3)) return (int)cudaErrorInvalidValue;
   if (mode == 4 && (D <= 0 || (D / 2) % 16 || N != (H + 2) * D)) return (int)cudaErrorInvalidValue;
-  const LoraExpand lora{(const bf16*)z, lb, lb_f32, G, nz, seg1, seg2};
+  const LoraExpand lora{z, lb, lb_f32, G, nz, seg1, seg2};
   const NormIn norm{(const bf16*)nw, eps};
   const RopeKV rope{(const bf16*)cos, (const bf16*)sin, (const int*)pos, (bf16*)k_dst,
                     (bf16*)v_dst, (bf16*)k_new, (bf16*)v_new, (const int*)table,

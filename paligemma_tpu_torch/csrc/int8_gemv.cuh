@@ -79,6 +79,16 @@
 // h = cast(cast(h + cast(sum base)) + cast(sum d)), so on one rank the
 // result has the bits of mode 1 with the expand.
 //
+// The fp32 form (T = float, pg_int8_gemv_fp32; --dtype float32) takes every
+// mode, the expand included: the tile's sums are gemv_tile_sums_f32's, z is
+// fp32 (csrc/lora.cu's fp32 form), an fp32 B is read as it is, the delta is
+// the same in-order fp32 sum over g, and every cast above is the identity
+// (mode 0: acc * s + d; mode 1: (residual + acc * s) + d). Mode 3 keeps the
+// plan and the rank-order cluster sum, so it has mode 0's bits at fp32 too,
+// and one rank's [base | delta] added as (h + base) + delta has mode 1's.
+// The expand's staging grows by z's fp32 rows (3 KB) beside the tile's
+// static 36 KB; the fp32 prologue stages nothing, so the two never meet.
+//
 // What bounds it: at decode batches each weight byte is used B times, far
 // below the ~295 flop/byte where the card turns compute-bound, so it is
 // bound by reading w8 from device memory (110 MB per layer of Gemma-2B:
@@ -96,7 +106,7 @@
 #define LE_GC 32  // adapter rows of B staged at a time
 
 struct LoraExpand {
-  const bf16* z;   // (B, nz) masked adapter basis
+  const void* z;   // (B, nz) masked adapter basis, in the activation type
   const void* lb;  // (G, N) adapter rows, fp32 (lb_f32) or bf16
   int lb_f32, G, nz, seg1, seg2;
 
@@ -106,12 +116,13 @@ struct LoraExpand {
 
 // The expand's operands of LE_GC adapter rows, in dynamic shared memory:
 // B's rows for the rank's columns in B's dtype (ldb bytes a row, 16-byte
-// aligned), then the tile's rows of z (bf16, LE_GC per target).
+// aligned), then the tile's rows of z (z_bytes each: the activation type,
+// LE_GC per target).
 __host__ __device__ __forceinline__ int lora_ldb(int ncols, int b_f32) {
   return (ncols * (b_f32 ? 4 : 2) + 15) / 16 * 16;
 }
-__host__ __device__ __forceinline__ int lora_stage_bytes(int ldb) {
-  return LE_GC * ldb + GT_BT * 3 * LE_GC * 2;
+__host__ __device__ __forceinline__ int lora_stage_bytes(int ldb, int z_bytes) {
+  return LE_GC * ldb + GT_BT * 3 * LE_GC * z_bytes;
 }
 
 // The weight columns of a rank's share of a tile's epilogue: cc < width
@@ -136,7 +147,8 @@ struct EpiCols {
 // column ranges are 16-byte aligned (every plan at Gemma-2B's shapes; with
 // RoPE each 16-byte piece's pairs lie in one head's half), else 4-byte ones
 // (fp32) or plain loads (bf16). One commit group; columns past N read as
-// zeros.
+// zeros. T: z's type (the activation type).
+template <class T>
 __device__ __forceinline__ void lora_prefetch(uint8_t* st, int ldb, const LoraExpand& lora,
                                               int g0, int b0, int nb, const EpiCols& cols,
                                               int nt, int N) {
@@ -168,22 +180,23 @@ __device__ __forceinline__ void lora_prefetch(uint8_t* st, int ldb, const LoraEx
             col < N ? ((const bf16*)lora.lb)[at] : __float2bfloat16(0.f);
     }
   }
-  bf16* zs = reinterpret_cast<bf16*>(st + LE_GC * ldb);
-  const int zchunks = gn / 8;  // G % 8 == 0: 16-byte pieces of each target's block
+  T* zs = reinterpret_cast<T*>(st + LE_GC * ldb);
+  constexpr int ZV = 16 / sizeof(T);  // z elements in 16 bytes
+  const int zchunks = gn / ZV;        // G % 8 == 0: 16-byte pieces of each target's block
   for (int i = threadIdx.x; i < nb * nz_t * zchunks; i += blockDim.x) {
-    const int r = i / (nz_t * zchunks), t = (i / zchunks) % nz_t, c = (i % zchunks) * 8;
+    const int r = i / (nz_t * zchunks), t = (i / zchunks) % nz_t, c = (i % zchunks) * ZV;
     cp_async_16(&zs[(r * 3 + t) * LE_GC + c],
-                lora.z + (size_t)(b0 + r) * lora.nz + t * lora.G + g0 + c, true);
+                (const T*)lora.z + (size_t)(b0 + r) * lora.nz + t * lora.G + g0 + c, true);
   }
   cp_async_commit();
 }
 
 // Column cc's deltas of rows r0, r0 + rstep, ... (ROWS of them at most)
 // over the staged adapter rows g < gn, added in g order to ds (first: from
-// 0): B is read, and rounded to bf16 as the TPU kernel casts its operands,
-// once for those rows.
-template <int ROWS>
-__device__ __forceinline__ void lora_column(float* ds, const uint8_t* st, const bf16* zt,
+// 0): B is read, and cast to the activation type T as the TPU kernel casts
+// its operands (bf16: fp32 B rounded; fp32: as it is), once for those rows.
+template <int ROWS, class T>
+__device__ __forceinline__ void lora_column(float* ds, const uint8_t* st, const T* zt,
                                             int ldb, int cc, int r0, int rstep, int nb, int gn,
                                             bool first, bool b_f32) {
   float d[ROWS];
@@ -195,12 +208,12 @@ __device__ __forceinline__ void lora_column(float* ds, const uint8_t* st, const 
 #pragma unroll 4
   for (int g = 0; g < gn; ++g) {
     const uint8_t* row = st + g * ldb;
-    const float bv = b_f32 ? bf2f(f2bf(reinterpret_cast<const float*>(row)[cc]))
+    const float bv = b_f32 ? to_f32(from_f32<T>(reinterpret_cast<const float*>(row)[cc]))
                            : bf2f(reinterpret_cast<const bf16*>(row)[cc]);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const int r = r0 + i * rstep;
-      if (r < nb) d[i] = fmaf(bf2f(zt[r * 3 * LE_GC + g]), bv, d[i]);
+      if (r < nb) d[i] = fmaf(to_f32(zt[r * 3 * LE_GC + g]), bv, d[i]);
     }
   }
 #pragma unroll
@@ -216,11 +229,12 @@ __device__ __forceinline__ void lora_column(float* ds, const uint8_t* st, const 
 // column). The first LE_GC rows were prefetched at the kernel's start;
 // later ones are copied here. Uses sm.red (free after the cluster barrier
 // that follows the tile's sums); ends with a CTA barrier.
+template <class T>
 __device__ __forceinline__ const float* lora_deltas(GemvSmem& sm, uint8_t* st, int ldb,
                                                     const LoraExpand& lora, int b0, int nb,
                                                     const EpiCols& cols, int nt, int N) {
   float* ds = &sm.red[0][0][0];  // [GT_BT][GT_COLS]
-  const bf16* zs = reinterpret_cast<const bf16*>(st + LE_GC * ldb);
+  const T* zs = reinterpret_cast<const T*>(st + LE_GC * ldb);
   const int ncols = nt * cols.width;
   const int rstep = ncols > 0 ? max(1, (int)blockDim.x / ncols) : 0;
   const int rows = rstep > 0 ? (GT_BT + rstep - 1) / rstep : 0;  // per thread
@@ -228,14 +242,14 @@ __device__ __forceinline__ const float* lora_deltas(GemvSmem& sm, uint8_t* st, i
     const int gn = min(LE_GC, lora.G - g0);
     if (g0 > 0) {
       __syncthreads();  // the previous rows are no longer read
-      lora_prefetch(st, ldb, lora, g0, b0, nb, cols, nt, N);
+      lora_prefetch<T>(st, ldb, lora, g0, b0, nb, cols, nt, N);
     }
     cp_async_wait<0>();
     __syncthreads();
     for (int item = threadIdx.x; item < ncols * rstep; item += blockDim.x) {
       const int cc = item % ncols, r0 = item / ncols;
       const int col = cols.col(cc);
-      const bf16* zt = zs + (col < N ? lora.target(col) : 0) * LE_GC;
+      const T* zt = zs + (col < N ? lora.target(col) : 0) * LE_GC;
       const bool f32 = lora.lb_f32;
       if (rows == 1)
         lora_column<1>(ds, st, zt, ldb, cc, r0, rstep, nb, gn, g0 == 0, f32);
@@ -317,21 +331,16 @@ __device__ __forceinline__ void rope_write(const RopeKVT<T>& rp, T* q, int b, in
   dst[half] = fresh[half] = from_f32<T>(o2);
 }
 
-// The norm operands of activation type T.
+// v + cast(d): a cast value plus its column's cast LoRA delta, cast (at
+// T = float every cast is the identity: v + d)
 template <class T>
-struct GtNorm;
-template <>
-struct GtNorm<bf16> {
-  using type = NormIn;
-};
-template <>
-struct GtNorm<float> {
-  using type = NormInF;
-};
+__device__ __forceinline__ T add_delta(T v, float d) {
+  return from_f32<T>(to_f32(v) + to_f32(from_f32<T>(d)));
+}
 
 // T: the activation type of x, residual, out (not mode 3), the norm
-// weight, cos / sin and the cache rows: bf16, or fp32 (modes 0-2 and 4
-// without LORA; gemv_tile_sums_f32, every cast the identity).
+// weight, cos / sin, the cache rows and the LoRA basis z: bf16, or fp32
+// (gemv_tile_sums_f32, every cast the identity).
 template <class T, bool FAST, bool LORA, bool NORM>
 __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
     int8_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
@@ -339,9 +348,8 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
                      void* __restrict__ out, int B, int K, int N, int mode, int k_per_cta,
                      int x8, LoraExpand lora, typename GtNorm<T>::type norm,
                      RopeKVT<T> rope) {
-  static_assert(sizeof(T) == 2 || !LORA, "the LoRA expand takes bf16 activations");
   __shared__ GemvSmem sm;
-  extern __shared__ __align__(16) uint8_t lora_smem[];  // LORA: lora_stage_bytes(ldb)
+  extern __shared__ __align__(16) uint8_t lora_smem[];  // LORA: lora_stage_bytes(ldb, sizeof(T))
   const int rank = cluster_rank(), cs = cluster_size();
   const int tile = blockIdx.x / cs;
   const int b0 = blockIdx.z * GT_BT;
@@ -370,7 +378,7 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
                      mode == 4 ? half : 0, rope.D};
   const int nt = pairs ? 2 : 1, ldb = lora_ldb(per * nt, lora.lb_f32);
   if constexpr (LORA)  // in flight during the weight stream
-    lora_prefetch(lora_smem, ldb, lora, 0, b0, nb, cols, nt, N);
+    lora_prefetch<T>(lora_smem, ldb, lora, 0, b0, nb, cols, nt, N);
   if constexpr (sizeof(T) == 4)  // x8: x16 for fp32 (gemv_tile_sums_f32)
     gemv_tile_sums_f32<FAST, NORM>(sm, x, w, K, N, b0, nb, qcol, kbeg, kend, x8 != 0, norm);
   else
@@ -378,7 +386,7 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
                                         k_per_cta + GT_NORM_PAD);
   cluster_sync_all();
   const float* ds = nullptr;
-  if constexpr (LORA) ds = lora_deltas(sm, lora_smem, ldb, lora, b0, nb, cols, nt, N);
+  if constexpr (LORA) ds = lora_deltas<T>(sm, lora_smem, ldb, lora, b0, nb, cols, nt, N);
   // each item's global operands (scales, residual, cos / sin, pos) are
   // loaded before its cluster sums, so that the two latencies overlap
   for (int idx = threadIdx.x; idx < nb * width; idx += blockDim.x) {
@@ -394,8 +402,8 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
       const float2 acc = gt_cluster_sum2(sm, r, c, c + GT_COLS / 2, cs);
       T v1 = from_f32<T>(acc.x * s1), v2 = from_f32<T>(acc.y * s2);
       if constexpr (LORA) {  // as mode 0 adds it, after the cast
-        v1 = f2bf(bf2f(v1) + bf2f(f2bf(ds[r * GT_COLS + idx % width])));
-        v2 = f2bf(bf2f(v2) + bf2f(f2bf(ds[r * GT_COLS + width + idx % width])));
+        v1 = add_delta<T>(v1, ds[r * GT_COLS + idx % width]);
+        v2 = add_delta<T>(v2, ds[r * GT_COLS + width + idx % width]);
       }
       rope_write<T>(rope, (T*)out, b0 + r, col, v1, v2, cs_in, pos);
     } else if (mode == 2) {
@@ -424,7 +432,7 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
       const float res = mode == 1 ? to_f32(residual[o]) : 0.f;
       T v = from_f32<T>(gt_cluster_sum(sm, r, c, cs) * sj);
       if (mode == 1) v = from_f32<T>(res + to_f32(v));
-      if constexpr (LORA) v = f2bf(bf2f(v) + bf2f(f2bf(ds[r * GT_COLS + idx % width])));
+      if constexpr (LORA) v = add_delta<T>(v, ds[r * GT_COLS + idx % width]);
       ((T*)out)[o] = v;
     }
   }
@@ -458,7 +466,8 @@ static int launch_gemv(const void* x, const void* w8, const void* s, const void*
     // the rank's columns of B, as the kernel sizes them; with the static
     // GemvSmem it may pass the 48 KB default
     const int nt = pairs ? 2 : 1, tile_out = GT_COLS / nt;
-    smem = lora_stage_bytes(lora_ldb((tile_out + cluster - 1) / cluster * nt, lora.lb_f32));
+    smem = lora_stage_bytes(lora_ldb((tile_out + cluster - 1) / cluster * nt, lora.lb_f32),
+                            sizeof(T));
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

@@ -39,27 +39,55 @@
 // its qkv and gate/up dots do) the staged rows are y = bf16((x * r) * (1 +
 // w)) instead of x, with r and y computed by gemv_tile.cuh's gt_row_rsqrt
 // and gt_norm8: the bits the GEMV of the same row multiplies.
+//
+// The fp32 form (pg_lora_shrink_fp32, --dtype float32): x, the norm weight
+// and z are fp32, and every cast to the activation dtype is the identity, as
+// the TPU kernel's casts are at fp32. A is read as it is (an fp32 element
+// is not rounded; bf16 widens exactly), the staged rows are fp32 (half as
+// many K rows a chunk: LS_XBYTES of shared memory either way), the norm is
+// gemv_tile.cuh's fp32 prologue (gt_row_rsqrt_f32, gt_norm4: the y of the
+// fp32 GEMV of the same row, unrounded), and z leaves the cluster's fp32 sum
+// times the mask, unrounded. The products are FFMA on the CUDA cores, as at
+// bf16: 2 B K nG flops (0.3 MFLOP at B8 for the qkv group) are nothing
+// beside the launch, which bounds the shrink at both types.
 #include "gemv_tile.cuh"
 
 #define LS_MAX_THREADS 512  // threads per CTA: 256 or 512 (kernels/lora.ShrinkPlan)
 #define LS_COLS 8           // columns of A per CTA
-#define LS_XROWS 2048       // K rows of x staged at a time
+#define LS_XBYTES 4096      // bytes of each staged row of x: 2048 bf16 or 1024 fp32 K rows
 
+template <typename TX>
 struct __align__(16) ShrinkSmem {
-  bf16 xs[GT_BT][LS_XROWS];                        // x (or y) rows b0 .. b0+7 at the chunk's K rows
+  static constexpr int XROWS = LS_XBYTES / sizeof(TX);  // K rows of x staged at a time
+  TX xs[GT_BT][XROWS];                             // x (or y) rows b0 .. b0+7 at the chunk's K rows
   float rnorm[GT_BT];                              // NORM: each row's rsqrt(mean(x^2) + eps)
   float red[LS_MAX_THREADS / 32][GT_BT][LS_COLS];  // each warp's sums
   float sum[GT_BT][LS_COLS];                       // the CTA's sums, read by the cluster
 };
 
-// 16 bytes of A as CPT values rounded to bf16
+// 16 bytes of A as CPT values in the activation type TX: fp32 A rounded to
+// bf16 for bf16 x, as it is for fp32 x; bf16 A widened (exact)
+template <typename TX>
 __device__ __forceinline__ void a_values(const uint4& v, float (&w)[4]) {
   const float f[4] = {__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
                       __uint_as_float(v.w)};
 #pragma unroll
-  for (int c = 0; c < 4; ++c) w[c] = bf2f(f2bf(f[c]));
+  for (int c = 0; c < 4; ++c) w[c] = to_f32(from_f32<TX>(f[c]));
 }
-__device__ __forceinline__ void a_values(const uint4& v, float (&w)[8]) { bf16x8_to_float(v, w); }
+template <typename TX>
+__device__ __forceinline__ void a_values(const uint4& v, float (&w)[8]) {
+  bf16x8_to_float(v, w);
+}
+
+// 16 bytes of y = norm(x) at x's 16 bytes xp and the norm weight's wp
+__device__ __forceinline__ uint4 norm16(const bf16* xp, const bf16* wp, float r) {
+  return gt_norm8(ldg_16(xp), ldg_16(wp), r);
+}
+__device__ __forceinline__ uint4 norm16(const float* xp, const float* wp, float r) {
+  const float4 y = gt_norm4(ldg_f4(xp), ldg_f4(wp), r);
+  return make_uint4(__float_as_uint(y.x), __float_as_uint(y.y), __float_as_uint(y.z),
+                    __float_as_uint(y.w));
+}
 
 // Reduce-scatter over the lanes that differ in bits M, M/2, .., MIN: at
 // each step a lane keeps half of its N values and adds its partner's; after
@@ -80,17 +108,19 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
-// CPT: A's columns per 16-byte load (4 fp32, 8 bf16); TPR = LS_COLS / CPT
-// threads share a K row, so the CTA has THREADS / TPR row lanes.
-template <typename TA, int THREADS, bool NORM>
+// TX: the activation type of x, the norm weight and z (bf16, or fp32: the
+// fp32 form). CPT: A's columns per 16-byte load (4 fp32, 8 bf16); TPR =
+// LS_COLS / CPT threads share a K row, so the CTA has THREADS / TPR row lanes.
+template <typename TX, typename TA, int THREADS, bool NORM>
 __global__ void __launch_bounds__(THREADS, 1)
-    lora_shrink_kernel(const bf16* __restrict__ x, const TA* __restrict__ a,
-                       const int* __restrict__ ids, bf16* __restrict__ z, int B, int K, int NG,
-                       int G, int rank_size, int k_per_cta, NormIn norm) {
+    lora_shrink_kernel(const TX* __restrict__ x, const TA* __restrict__ a,
+                       const int* __restrict__ ids, TX* __restrict__ z, int B, int K, int NG,
+                       int G, int rank_size, int k_per_cta, typename GtNorm<TX>::type norm) {
   constexpr int CPT = 16 / sizeof(TA), TPR = LS_COLS / CPT, LANES = THREADS / TPR;
   constexpr int LOADS = 32 / CPT;  // rows of A in flight per thread: 128 bytes
   constexpr int V = GT_BT * CPT;  // a thread's sums: batch row x column
-  __shared__ ShrinkSmem sm;
+  constexpr int XROWS = ShrinkSmem<TX>::XROWS, EPV = 16 / sizeof(TX);  // x elements a 16 bytes
+  __shared__ ShrinkSmem<TX> sm;
   const int rank = cluster_rank(), cs = cluster_size();
   const int col0 = (blockIdx.x / cs) * LS_COLS;
   const int b0 = blockIdx.z * GT_BT;
@@ -105,12 +135,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
   if constexpr (NORM) {  // each row's r, one warp a row
     for (int r = warp; r < nb; r += THREADS / 32) {
-      const float rs = gt_row_rsqrt(x + (size_t)(b0 + r) * K, K, norm.eps);
+      const float rs = gt_row_rsqrt_t(x + (size_t)(b0 + r) * K, K, norm.eps);
       if (lane == 0) sm.rnorm[r] = rs;
     }
   }
-  for (int c0 = kbeg; c0 < kend; c0 += LS_XROWS) {
-    const int c1 = min(kend, c0 + LS_XROWS);
+  for (int c0 = kbeg; c0 < kend; c0 += XROWS) {
+    const int c1 = min(kend, c0 + XROWS);
     const int mine = c1 - c0 > rl ? (c1 - c0 - rl + LANES - 1) / LANES : 0;  // rows of this lane
     uint4 wv[LOADS];
 #pragma unroll
@@ -118,16 +148,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (i < mine)
         wv[i] = *reinterpret_cast<const uint4*>(ap + (size_t)(c0 + rl + i * LANES) * NG);
     __syncthreads();  // the previous chunk of x is no longer read (NORM: r is written)
-    const int n8 = (c1 - c0) / 8;
-    for (int i = tid; i < GT_BT * n8; i += THREADS) {  // rows past B read as zeros
-      const int r = i / n8, k8 = (i % n8) * 8;
-      const bf16* src = x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + k8;
+    const int nv = (c1 - c0) / EPV;  // 16-byte pieces of a row
+    for (int i = tid; i < GT_BT * nv; i += THREADS) {  // rows past B read as zeros
+      const int r = i / nv, kv = (i % nv) * EPV;
+      const TX* src = x + (size_t)(b0 + min(r, nb - 1)) * K + c0 + kv;
       if constexpr (NORM)
-        *reinterpret_cast<uint4*>(&sm.xs[r][k8]) =
-            r < nb ? gt_norm8(ldg_16(src), ldg_16(norm.w + c0 + k8), sm.rnorm[r])
-                   : make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(&sm.xs[r][kv]) =
+            r < nb ? norm16(src, norm.w + c0 + kv, sm.rnorm[r]) : make_uint4(0u, 0u, 0u, 0u);
       else
-        cp_async_16(&sm.xs[r][k8], src, r < nb);
+        cp_async_16(&sm.xs[r][kv], src, r < nb);
     }
     if constexpr (!NORM) {
       cp_async_commit();
@@ -147,10 +176,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (i0 + i >= mine) break;
         const int k = rl + (i0 + i) * LANES;
         float w[CPT];
-        a_values(wv[i], w);
+        a_values<TX>(wv[i], w);
 #pragma unroll
         for (int r = 0; r < GT_BT; ++r) {
-          const float xr = bf2f(sm.xs[r][k]);
+          const float xr = to_f32(sm.xs[r][k]);
 #pragma unroll
           for (int c = 0; c < CPT; ++c) acc[r * CPT + c] = fmaf(xr, w[c], acc[r * CPT + c]);
         }
@@ -178,21 +207,38 @@ __global__ void __launch_bounds__(THREADS, 1)
     float v = 0.f;
     for (int q = 0; q < cs; ++q) v += ld_cluster_f32(&sm.sum[r][c], q);
     const float m = (col % G) / rank_size == ids[b0 + r] ? 1.f : 0.f;
-    z[(size_t)(b0 + r) * NG + col] = f2bf(bf2f(f2bf(v)) * m);
+    z[(size_t)(b0 + r) * NG + col] = from_f32<TX>(to_f32(from_f32<TX>(v)) * m);
   }
   cluster_sync_all();  // the last rank has read every rank's sums
 }
 
-template <typename TA, int THREADS>
+template <typename TX, typename TA, int THREADS>
 static int launch_shrink(const void* x, const void* a, const void* ids, void* z, int B, int K,
-                         int NG, int G, int rank, int cluster, int k_per_cta, NormIn norm,
-                         void* stream) {
+                         int NG, int G, int rank, int cluster, int k_per_cta, const void* nw,
+                         float eps, void* stream) {
   const dim3 grid(NG / LS_COLS * cluster, 1, (B + GT_BT - 1) / GT_BT);
-  auto kernel = norm.w != nullptr ? &lora_shrink_kernel<TA, THREADS, true>
-                                  : &lora_shrink_kernel<TA, THREADS, false>;
-  return cluster_launch(kernel, grid, THREADS, cluster, 0, (cudaStream_t)stream, (const bf16*)x,
-                        (const TA*)a, (const int*)ids, (bf16*)z, B, K, NG, G, rank, k_per_cta,
+  auto kernel = nw != nullptr ? &lora_shrink_kernel<TX, TA, THREADS, true>
+                              : &lora_shrink_kernel<TX, TA, THREADS, false>;
+  const typename GtNorm<TX>::type norm{(const TX*)nw, eps};
+  return cluster_launch(kernel, grid, THREADS, cluster, 0, (cudaStream_t)stream, (const TX*)x,
+                        (const TA*)a, (const int*)ids, (TX*)z, B, K, NG, G, rank, k_per_cta,
                         norm);
+}
+
+template <typename TX>
+static int shrink(const void* x, const void* a, int a_f32, const void* ids, void* z, int B, int K,
+                  int NG, int G, int rank, int cluster, int k_per_cta, int threads,
+                  const void* nw, float eps, void* stream) {
+  if (threads == 256)
+    return a_f32 ? launch_shrink<TX, float, 256>(x, a, ids, z, B, K, NG, G, rank, cluster,
+                                                 k_per_cta, nw, eps, stream)
+                 : launch_shrink<TX, bf16, 256>(x, a, ids, z, B, K, NG, G, rank, cluster,
+                                                k_per_cta, nw, eps, stream);
+  if (threads != LS_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  return a_f32 ? launch_shrink<TX, float, 512>(x, a, ids, z, B, K, NG, G, rank, cluster,
+                                               k_per_cta, nw, eps, stream)
+               : launch_shrink<TX, bf16, 512>(x, a, ids, z, B, K, NG, G, rank, cluster,
+                                              k_per_cta, nw, eps, stream);
 }
 
 // x (B, K) bf16, a (K, NG) fp32 (a_f32) or bf16, ids (B,) int32, z (B, NG)
@@ -203,15 +249,16 @@ static int launch_shrink(const void* x, const void* a, const void* ids, void* z,
 PG_EXPORT int pg_lora_shrink(const void* x, const void* a, int a_f32, const void* ids, void* z,
                              int B, int K, int NG, int G, int rank, int cluster, int k_per_cta,
                              int threads, const void* nw, float eps, void* stream) {
-  const NormIn norm{(const bf16*)nw, eps};
-  if (threads == 256)
-    return a_f32 ? launch_shrink<float, 256>(x, a, ids, z, B, K, NG, G, rank, cluster,
-                                             k_per_cta, norm, stream)
-                 : launch_shrink<bf16, 256>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                            norm, stream);
-  if (threads != LS_MAX_THREADS) return (int)cudaErrorInvalidValue;
-  return a_f32 ? launch_shrink<float, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                           norm, stream)
-               : launch_shrink<bf16, 512>(x, a, ids, z, B, K, NG, G, rank, cluster, k_per_cta,
-                                          norm, stream);
+  return shrink<bf16>(x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
+                      eps, stream);
+}
+
+// The fp32 form: x (B, K), z (B, NG) and nw (K,) fp32, the rest as
+// pg_lora_shrink.
+PG_EXPORT int pg_lora_shrink_fp32(const void* x, const void* a, int a_f32, const void* ids,
+                                  void* z, int B, int K, int NG, int G, int rank, int cluster,
+                                  int k_per_cta, int threads, const void* nw, float eps,
+                                  void* stream) {
+  return shrink<float>(x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
+                       eps, stream);
 }

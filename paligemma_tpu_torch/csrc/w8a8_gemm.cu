@@ -2,12 +2,18 @@
 // each row quantized on the fly, times the int8 weights of the serving
 // tree, with exact int32 sums. Two kernels, one launch each:
 //
-//   K1 w8a8_quant_rows: per row of x (M, K) bf16, a_s = max(amax |x|,
-//      1e-8) / 127 and x8 = clip(rint(x / a_s), -127, 127) (IEEE division,
-//      round half to even: the plain version's bits and JAX's);
+//   K1 w8a8_quant_rows: per row of x (M, K) bf16 or fp32, a_s = max(amax
+//      |x|, 1e-8) / 127 and x8 = clip(rint(x / a_s), -127, 127) (IEEE
+//      division, round half to even: the plain version's bits and JAX's);
 //   K2 w8a8_gemm: out = cast(((float) int32(x8 . w8)) * a_s[row] * s[col])
-//      (the multiplications in that order), or the int32 sums themselves
-//      for a tensor-parallel rank, which sums them across ranks first.
+//      (the multiplications in that order) in bf16 or fp32, or the int32
+//      sums themselves for a tensor-parallel rank, which sums them across
+//      ranks first.
+//
+// The fp32 forms (--dtype float32) change only the load and store types:
+// K1 reads fp32 rows (16 bytes = 4 elements a load, 5 bytes an element
+// moved against bf16's 3), K2 writes fp32 (the cast is the identity). The
+// codes, a_s and the int32 sums are the same function of the values.
 //
 // They replace no Pallas kernel: the JAX package computes W8A8 in XLA
 // (paligemma_tpu/kernels/quant.py _xla_w8a8_matmul). Because every int32
@@ -93,12 +99,13 @@ __device__ __forceinline__ void w8_load(uint32_t (*a)[4], const uint8_t* raw, in
 }
 
 // x8 map: (K, M) bytes, box 128 x 128; w map: (N, K) bytes, box 128 x 128;
-// both in the 128-byte swizzle. out: (M, N) bf16, or int32 with out_int32.
+// both in the 128-byte swizzle. out: (M, N) of out_kind (W8_OUT_*).
+enum { W8_OUT_BF16 = 0, W8_OUT_INT32 = 1, W8_OUT_FP32 = 2 };
 __global__ void __launch_bounds__(W8_THREADS, 1)
     w8a8_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap, const float* __restrict__ a_s,
                      const float* __restrict__ s, void* __restrict__ out, int M, int K, int N,
-                     int out_int32) {
+                     int out_kind) {
   extern __shared__ uint8_t w8_smem[];
   uint8_t* base = w8_smem + ((1024u - (smem_addr(w8_smem) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + W8_BODY);
@@ -198,38 +205,55 @@ __global__ void __launch_bounds__(W8_THREADS, 1)
         const int m = m0 + 8 * j + 2 * t + e;
         if (m >= M) continue;
         const int va = (int)acc[4 * j + e], vb = (int)acc[4 * j + 2 + e];
-        if (out_int32) {
+        if (out_kind == W8_OUT_INT32) {
           *reinterpret_cast<int2*>(reinterpret_cast<int*>(out) + (size_t)m * N + na) =
               make_int2(va, vb);
-        } else {
-          const float am = a_s[m];
-          *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + (size_t)m * N + na) =
-              pack_f32_bf16x2(__fmul_rn(__fmul_rn(__int2float_rn(va), am), sa),
-                              __fmul_rn(__fmul_rn(__int2float_rn(vb), am), sb));
+          continue;
         }
+        const float am = a_s[m];
+        const float oa = __fmul_rn(__fmul_rn(__int2float_rn(va), am), sa);
+        const float ob = __fmul_rn(__fmul_rn(__int2float_rn(vb), am), sb);
+        if (out_kind == W8_OUT_FP32)
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + (size_t)m * N + na) =
+              make_float2(oa, ob);
+        else
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + (size_t)m * N + na) =
+              pack_f32_bf16x2(oa, ob);
       }
     }
   }
 }
 
+// EPV elements of a row of type T from 16 bytes at p, as fp32
+__device__ __forceinline__ void w8_row_values(const bf16* p, float (&v)[8]) {
+  bf16x8_to_float(*reinterpret_cast<const uint4*>(p), v);
+}
+__device__ __forceinline__ void w8_row_values(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+
 // One block per row: the row's amax (or amax_in[row] where given: a
 // tensor-parallel rank's input shard takes the whole row's), a_s, codes.
+// T: x's type; each thread reads 16 bytes (EPV elements) at a time.
+template <class T>
 __global__ void __launch_bounds__(W8_QUANT_THREADS)
-    w8a8_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ amax_in,
+    w8a8_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ amax_in,
                            int8_t* __restrict__ x8, float* __restrict__ a_s, int K) {
+  constexpr int EPV = 16 / sizeof(T);
   __shared__ float red[W8_QUANT_THREADS / 32];
   const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* xr = x + (size_t)row * K;
+  const T* xr = x + (size_t)row * K;
   float as;
   if (amax_in != nullptr) {
     as = amax_in[row];
   } else {
     float mx = 0.f;
-    for (int k = 8 * threadIdx.x; k < K; k += 8 * W8_QUANT_THREADS) {
-      float v[8];
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), v);
+    for (int k = EPV * threadIdx.x; k < K; k += EPV * W8_QUANT_THREADS) {
+      float v[EPV];
+      w8_row_values(xr + k, v);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(v[i]));
+      for (int i = 0; i < EPV; ++i) mx = fmaxf(mx, fabsf(v[i]));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -242,37 +266,54 @@ __global__ void __launch_bounds__(W8_QUANT_THREADS)
   }
   as = __fdiv_rn(fmaxf(as, 1e-8f), 127.f);
   if (threadIdx.x == 0) a_s[row] = as;
-  for (int k = 8 * threadIdx.x; k < K; k += 8 * W8_QUANT_THREADS) {
-    float v[8];
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), v);
-    uint32_t q[2] = {0u, 0u};
+  for (int k = EPV * threadIdx.x; k < K; k += EPV * W8_QUANT_THREADS) {
+    float v[EPV];
+    w8_row_values(xr + k, v);
+    uint32_t q[EPV / 4] = {};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < EPV; ++i) {
       const int c = min(127, max(-127, __float2int_rn(__fdiv_rn(v[i], as))));
       q[i >> 2] |= ((uint32_t)c & 0xFFu) << (8 * (i & 3));
     }
-    *reinterpret_cast<uint2*>(x8 + (size_t)row * K + k) = make_uint2(q[0], q[1]);
+    if constexpr (EPV == 8)
+      *reinterpret_cast<uint2*>(x8 + (size_t)row * K + k) = make_uint2(q[0], q[1]);
+    else
+      *reinterpret_cast<uint32_t*>(x8 + (size_t)row * K + k) = q[0];
   }
+}
+
+template <class T>
+static int quant_rows(const void* x, const void* amax, void* x8, void* a_s, int M, int K,
+                      void* stream) {
+  if (M < 1 || K < 8 || K % 8 || ((uintptr_t)x | (uintptr_t)x8) % 16)
+    return (int)cudaErrorInvalidValue;
+  w8a8_quant_rows_kernel<T><<<M, W8_QUANT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)amax, (int8_t*)x8, (float*)a_s, K);
+  return (int)cudaGetLastError();
 }
 
 // x (M, K) bf16 (16-byte aligned, K % 8 == 0), amax (M,) fp32 or NULL, x8
 // (M, K) int8 and a_s (M,) fp32 out.
 PG_EXPORT int pg_w8a8_quant_rows(const void* x, const void* amax, void* x8, void* a_s, int M,
                                  int K, void* stream) {
-  if (M < 1 || K < 8 || K % 8 || ((uintptr_t)x | (uintptr_t)x8) % 16)
-    return (int)cudaErrorInvalidValue;
-  w8a8_quant_rows_kernel<<<M, W8_QUANT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)amax, (int8_t*)x8, (float*)a_s, K);
-  return (int)cudaGetLastError();
+  return quant_rows<bf16>(x, amax, x8, a_s, M, K, stream);
+}
+
+// The fp32 form: x (M, K) fp32, the rest as pg_w8a8_quant_rows.
+PG_EXPORT int pg_w8a8_quant_rows_fp32(const void* x, const void* amax, void* x8, void* a_s,
+                                      int M, int K, void* stream) {
+  return quant_rows<float>(x, amax, x8, a_s, M, K, stream);
 }
 
 // x8 (M, K) int8, w8 (K, N) int8, a_s (M,) fp32, s (N,) fp32, out (M, N)
-// bf16 (or int32 sums with out_int32); x8, w8 and out 16-byte aligned, K
-// and N multiples of 16; ctas: the persistent grid (at most one CTA an SM).
+// bf16, int32 sums or fp32 (out_kind 0, 1, 2: W8_OUT_*); x8, w8 and out
+// 16-byte aligned, K and N multiples of 16; ctas: the persistent grid (at
+// most one CTA an SM).
 PG_EXPORT int pg_w8a8_gemm(const void* x8, const void* w8, const void* a_s, const void* s,
-                           void* out, int M, int K, int N, int out_int32, int ctas,
+                           void* out, int M, int K, int N, int out_kind, int ctas,
                            void* stream) {
-  if (M < 1 || K < 16 || N < 16 || K % 16 || N % 16 || ctas < 1 ||
+  if (M < 1 || K < 16 || N < 16 || K % 16 || N % 16 || ctas < 1 || out_kind < W8_OUT_BF16 ||
+      out_kind > W8_OUT_FP32 ||
       ((uintptr_t)x8 | (uintptr_t)w8 | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap xmap, wmap;
@@ -286,6 +327,6 @@ PG_EXPORT int pg_w8a8_gemm(const void* x8, const void* w8, const void* a_s, cons
       w8a8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W8_SMEM);
   if (e != cudaSuccess) return (int)e;
   w8a8_gemm_kernel<<<ctas, W8_THREADS, W8_SMEM, (cudaStream_t)stream>>>(
-      xmap, wmap, (const float*)a_s, (const float*)s, out, M, K, N, out_int32);
+      xmap, wmap, (const float*)a_s, (const float*)s, out, M, K, N, out_kind);
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,14 @@ WRAPPERS = {
     "decode_attention_fp32": _decode_attention.decode_attention_fp32,
     "paged_decode_attention_fp32": _paged_attention.paged_decode_attention_fp32,
     "rms_norm_fp32": _decode_elementwise.rms_norm_fp32,
+    # the fp32 forms of the LoRA bank, the mesh and W8A8 (the LoRA expand's
+    # fp32 form is int8_gemv_fp32's and int8_gemv_rope_kv_fp32's epilogue, as
+    # the bf16 expand is int8_gemv's)
+    "lora_shrink_fp32": _lora.lora_shrink_fp32,
+    "int8_gemv_f32_fp32": _int8_gemv.int8_gemv_f32_fp32,
+    "int8_gemv_f32_lora_fp32": _int8_gemv.int8_gemv_f32_lora_fp32,
+    "w8a8_quant_rows_fp32": _w8a8.w8a8_quant_rows_fp32,
+    "w8a8_gemm_fp32": _w8a8.w8a8_gemm_fp32,
     # the ablation shelf (kernels/ablation), reached through its own entry
     # points and siglip.encode(attn="fused")
     "vision_attention": _vision_attention.vision_attention,

@@ -58,13 +58,14 @@ SIGNATURES = {
     # sin, pos, k_dst, v_dst, k_new, v_new, table, H, D, rows, tstride)
     "pg_int8_gemv_fused": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F] + [_P] * 8
                            + [_I] * 4 + [_P]),
-    # fp32 x (modes 0-2 and 4, no LoRA): x, w8, s, residual, out, B, K, N,
-    # mode, cluster, warps, k_per_cta, nw, eps, cos, sin, pos, k_dst, v_dst,
-    # k_new, v_new, table, H, D, rows, tstride, stream
-    "pg_int8_gemv_fp32": [_P] * 5 + [_I] * 7 + [_P, _F] + [_P] * 8 + [_I] * 4 + [_P],
+    # fp32 x (every mode, the LoRA expand too): pg_int8_gemv_fused's arguments
+    "pg_int8_gemv_fp32": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F] + [_P] * 8
+                          + [_I] * 4 + [_P]),
     # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
     # eps, stream
     "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
+    # the same with fp32 x, z and nw
+    "pg_lora_shrink_fp32": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
     # q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W,
     # stride_b, rows_per_cache, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
@@ -94,7 +95,10 @@ SIGNATURES = {
     "pg_wq_max_clusters": [_I] * 3 + [_P],
     # x, amax (or NULL), x8, a_s, M, K, stream
     "pg_w8a8_quant_rows": [_P] * 4 + [_I] * 2 + [_P],
-    # x8, w8, a_s, s, out, M, K, N, out_int32, ctas, stream
+    # the same with fp32 x
+    "pg_w8a8_quant_rows_fp32": [_P] * 4 + [_I] * 2 + [_P],
+    # x8, w8, a_s, s, out, M, K, N, out_kind (0 bf16, 1 int32, 2 fp32), ctas,
+    # stream
     "pg_w8a8_gemm": [_P] * 5 + [_I] * 5 + [_P],
 }
 

@@ -62,13 +62,15 @@ own, counted apart. Its plain version is the chain it replaces:
 
 fp32 x (``--dtype float32``) takes the tile's fp32 form (``pg_int8_gemv_fp32``:
 each fp32 element of x split into three bf16 terms against the same bf16
-weight fragments, csrc/gemv_tile.cuh) in the plain, residual and GeGLU modes
-and in ``int8_gemv_rope_kv``, with the norm prologue; every operand in the
-activation dtype is then fp32 (residual, norm weight, cos / sin, the cache
-rows and the outputs), every cast the identity. Its launches are counted
-apart, on :func:`int8_gemv_fp32` and :func:`int8_gemv_rope_kv_fp32`. The
-LoRA expand and the fp32-partial mode have no fp32 form yet: fp32 x there
-raises.
+weight fragments, csrc/gemv_tile.cuh) in every mode, ``int8_gemv_rope_kv``,
+the fp32 partial and the LoRA expand included, with the norm prologue;
+every operand in the activation dtype is then fp32 (residual, norm weight,
+cos / sin, the cache rows, the LoRA basis z and the outputs), every cast
+the identity, and an fp32 adapter B is read unrounded. Its launches are
+counted apart: :func:`int8_gemv_fp32` (with or without the expand),
+:func:`int8_gemv_rope_kv_fp32`, :func:`int8_gemv_f32_fp32` and
+:func:`int8_gemv_f32_lora_fp32`. The fp32 partial keeps the tile's plan and
+rank-order sums, so it has mode 0's bits at fp32 as at bf16.
 """
 
 from __future__ import annotations
@@ -140,7 +142,7 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"int8_gemv: {msg}")
 
 
-def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
+def _check_lora(lora: LoraExpand, b: int, n: int, dev, dtype) -> Tuple[int, int, int]:
     """Validates the expand operands; returns (G, seg1, seg2)."""
     z, lb, bounds = lora
     g = lb.shape[0] if lb.dim() == 2 else 0
@@ -151,9 +153,10 @@ def _check_lora(lora: LoraExpand, b: int, n: int, dev) -> Tuple[int, int, int]:
            f"of 8, got {tuple(lb.shape)} {lb.dtype}")
     _check(len(bounds) <= 2 and list(bounds) == sorted(bounds) and all(0 < c < n for c in bounds),
            f"lora bounds {tuple(bounds)} must be at most two sorted columns inside (0, {n})")
-    _check(z.dtype == torch.bfloat16 and z.shape == (b, g * (len(bounds) + 1))
+    _check(z.dtype == dtype and z.shape == (b, g * (len(bounds) + 1))
            and z.is_contiguous() and z.device == dev and z.data_ptr() % 16 == 0,
-           f"lora z must be contiguous 16-byte aligned bf16 ({b}, {g * (len(bounds) + 1)})")
+           f"lora z must be contiguous 16-byte aligned {dtype} ({b}, "
+           f"{g * (len(bounds) + 1)}), x's dtype")
     segs = list(bounds) + [n] * (2 - len(bounds))
     return g, segs[0], segs[1]
 
@@ -183,10 +186,6 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
     _check(b > 0, "x has no rows")
     _check(x.dtype in (torch.bfloat16, torch.float32) and x.is_contiguous(),
            "x must be contiguous bf16 or fp32")
-    if fp32:
-        _check(mode != 3 and lora is None,
-               "fp32 x has no fp32 form of the fp32-partial mode or the LoRA expand yet "
-               "(pg_int8_gemv_fp32 takes the plain, residual, GeGLU and RoPE modes)")
     _check(w8.dtype == torch.int8 and w8.shape == (k, n) and w8.is_contiguous(),
            f"w8 must be contiguous int8 ({k}, N), got {tuple(w8.shape)} {w8.dtype}")
     _check(w8.device == dev and s.device == dev, "all operands on one device")
@@ -201,7 +200,7 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
                f"residual must be contiguous {x.dtype} (B, N), x's dtype")
     g = seg1 = seg2 = 0
     if lora is not None:
-        g, seg1, seg2 = _check_lora(lora, b, n, dev)
+        g, seg1, seg2 = _check_lora(lora, b, n, dev, x.dtype)
     plan = GemvPlan.make(k, n)
     if norm is not None:
         _check_norm(norm, x, plan)
@@ -230,7 +229,7 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
     norm_args = (None if norm is None else norm[0].data_ptr(),
                  0.0 if norm is None else float(norm[1]))
     if fp32:
-        _build.check(lib.pg_int8_gemv_fp32(*args, *norm_args, *rope_args, stream),
+        _build.check(lib.pg_int8_gemv_fp32(*args, *lora_args, *norm_args, *rope_args, stream),
                      "int8_gemv fp32")
         return out
     if norm is None and rope is None:
@@ -259,8 +258,8 @@ def int8_gemv(
     module docstring)."""
     if not x.is_cuda:
         return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora, norm=norm)
-    if x.dtype == torch.float32 and lora is None:
-        return int8_gemv_fp32(x, w8, s, residual, geglu, norm=norm)
+    if x.dtype == torch.float32:
+        return int8_gemv_fp32(x, w8, s, residual, geglu, lora, norm=norm)
     _check(not (geglu and residual is not None), "geglu takes no residual")
     out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora,
                   norm)
@@ -277,18 +276,19 @@ def int8_gemv_fp32(
     s: torch.Tensor,
     residual: Optional[torch.Tensor] = None,
     geglu: bool = False,
+    lora: Optional[LoraExpand] = None,
     *,
     norm: Optional[Norm] = None,
 ) -> torch.Tensor:
     """:func:`int8_gemv` of fp32 ``x`` on the tile's fp32 form (module
-    docstring): fp32 out, residual and norm weight. :func:`int8_gemv` sends
-    fp32 x here; its launches are counted here."""
+    docstring): fp32 out, residual, norm weight and LoRA basis z.
+    :func:`int8_gemv` sends fp32 x here; its launches are counted here."""
     _check(x.dtype == torch.float32, f"int8_gemv_fp32 takes fp32 x, got {x.dtype}")
     if not x.is_cuda:
-        return int8_gemv_reference(x, w8, s, residual, geglu, norm=norm)
+        return int8_gemv_reference(x, w8, s, residual, geglu, lora=lora, norm=norm)
     _check(not (geglu and residual is not None), "geglu takes no residual")
-    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0),
-                  norm=norm)
+    out = _launch(x, w8, s, residual, 2 if geglu else (1 if residual is not None else 0), lora,
+                  norm)
     int8_gemv_fp32.launches += 1
     return out
 
@@ -300,17 +300,29 @@ def int8_gemv_f32(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor, *,
                   lora: Optional[LoraExpand] = None) -> torch.Tensor:
     """The fp32 partial ``x (B, K) @ w8 * s`` of one tensor-parallel rank:
     (B, N) fp32, no cast and no residual. With ``lora``: (B, 2N), the
-    rank's partial adapter delta beside it (:func:`int8_gemv_f32_lora`)."""
+    rank's partial adapter delta beside it (:func:`int8_gemv_f32_lora`).
+    fp32 x takes the tile's fp32 form, counted on :func:`int8_gemv_f32_fp32`."""
     if lora is not None:
         return int8_gemv_f32_lora(x, w8, s, lora)
     if not x.is_cuda:
         return int8_gemv_reference(x, w8, s, out_fp32=True)
     out = _launch(x, w8, s, None, 3)
-    int8_gemv_f32.launches += 1
+    (int8_gemv_f32_fp32 if x.dtype == torch.float32 else int8_gemv_f32).launches += 1
     return out
 
 
 int8_gemv_f32.launches = 0
+
+
+def int8_gemv_f32_fp32(x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """:func:`int8_gemv_f32` of fp32 x on the tile's fp32 form (mode 3 of
+    ``pg_int8_gemv_fp32``); the count of its launches (which
+    :func:`int8_gemv_f32` makes for fp32 x)."""
+    _check(x.dtype == torch.float32, f"int8_gemv_f32_fp32 takes fp32 x, got {x.dtype}")
+    return int8_gemv_f32(x, *args, **kw)
+
+
+int8_gemv_f32_fp32.launches = 0
 
 
 def int8_gemv_f32_lora(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor,
@@ -325,11 +337,22 @@ def int8_gemv_f32_lora(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor,
         return int8_gemv_reference(x, w8, s, out_fp32=True, lora=lora)
     _check(len(lora[2]) == 0, "the fp32 partial takes one LoRA target (no bounds)")
     out = _launch(x, w8, s, None, 3, lora)
-    int8_gemv_f32_lora.launches += 1
+    (int8_gemv_f32_lora_fp32 if x.dtype == torch.float32 else int8_gemv_f32_lora).launches += 1
     return out
 
 
 int8_gemv_f32_lora.launches = 0
+
+
+def int8_gemv_f32_lora_fp32(x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """:func:`int8_gemv_f32_lora` (K1) of fp32 x on the tile's fp32 form:
+    ``[x @ w8 * s | z @ b]`` with fp32 z and an unrounded fp32 b; the count
+    of its launches (which :func:`int8_gemv_f32_lora` makes for fp32 x)."""
+    _check(x.dtype == torch.float32, f"int8_gemv_f32_lora_fp32 takes fp32 x, got {x.dtype}")
+    return int8_gemv_f32_lora(x, *args, **kw)
+
+
+int8_gemv_f32_lora_fp32.launches = 0
 
 
 def int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, k_new, v_new, *,

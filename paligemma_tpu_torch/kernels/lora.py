@@ -22,6 +22,12 @@ last rank applies the mask and the cast.
 ``norm=(w, eps)``: the shrink of x's Gemma RMSNorm, computed in the kernel
 with the bits the int8 GEMV's norm prologue gives the same row
 (kernels/int8_gemv ``norm=``), so the basis and the projection read one y.
+
+fp32 x (``--dtype float32``) takes the kernel's fp32 form
+(``pg_lora_shrink_fp32``): x, the norm weight and z are fp32 and every
+cast is the identity, so z is the unrounded fp32 sum times the mask, as
+the TPU kernel keeps it at fp32 (its ``.astype(inp.dtype)``). Its launches
+are counted apart, on :func:`lora_shrink_fp32`.
 """
 
 from __future__ import annotations
@@ -93,14 +99,16 @@ def lora_shrink(
     *,
     norm: Optional[Norm] = None,  # (w (K,), eps): the basis of x's RMSNorm
 ) -> torch.Tensor:
-    """Each row's masked adapter basis ``z (B, nG)`` in x's dtype."""
+    """Each row's masked adapter basis ``z (B, nG)`` in x's dtype (bf16, or
+    fp32: the fp32 form, counted on :func:`lora_shrink_fp32`)."""
     if not x.is_cuda:
         return lora_shrink_reference(x, a, adapter_ids, rank, group, norm=norm)
     b, k = x.shape
     ng = a.shape[-1]
     dev = x.device
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("lora_shrink: x must be contiguous bf16 (B, K)")
+    fp32 = x.dtype == torch.float32
+    if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
+        raise ValueError("lora_shrink: x must be contiguous bf16 or fp32 (B, K)")
     if (a.dtype not in (torch.float32, torch.bfloat16) or a.shape != (k, ng)
             or not a.is_contiguous() or a.device != dev):
         raise ValueError(f"lora_shrink: a must be contiguous fp32 or bf16 ({k}, nG) on x's "
@@ -112,20 +120,33 @@ def lora_shrink(
         raise ValueError(f"lora_shrink: nG {ng} must be a multiple of G {group} (rank {rank})")
     if x.data_ptr() % 16 or a.data_ptr() % 16:
         raise ValueError("lora_shrink: x and a must be 16-byte aligned")
-    if norm is not None and not (norm[0].dtype == torch.bfloat16 and norm[0].shape == (k,)
+    if norm is not None and not (norm[0].dtype == x.dtype and norm[0].shape == (k,)
                                  and norm[0].is_contiguous() and norm[0].device == dev
                                  and norm[0].data_ptr() % 16 == 0):
-        raise ValueError(f"lora_shrink: the norm weight must be contiguous 16-byte aligned bf16 "
-                         f"({k},) on x's device")
+        raise ValueError(f"lora_shrink: the norm weight must be contiguous 16-byte aligned "
+                         f"{x.dtype} ({k},) on x's device, x's dtype")
     plan = ShrinkPlan.make(k, ng)  # raises unless K % 8 == 0 and nG % 8 == 0
-    z = torch.empty((b, ng), dtype=torch.bfloat16, device=dev)
-    _build.check(_build.library().pg_lora_shrink(
+    z = torch.empty((b, ng), dtype=x.dtype, device=dev)
+    lib = _build.library()
+    _build.check((lib.pg_lora_shrink_fp32 if fp32 else lib.pg_lora_shrink)(
         x.data_ptr(), a.data_ptr(), int(a.dtype == torch.float32), adapter_ids.data_ptr(),
         z.data_ptr(), b, k, ng, group, rank, plan.cluster, plan.k_per_cta, plan.threads,
         None if norm is None else norm[0].data_ptr(), 0.0 if norm is None else float(norm[1]),
-        _build.stream_ptr(dev)), "lora_shrink")
-    lora_shrink.launches += 1
+        _build.stream_ptr(dev)), "lora_shrink fp32" if fp32 else "lora_shrink")
+    (lora_shrink_fp32 if fp32 else lora_shrink).launches += 1
     return z
 
 
 lora_shrink.launches = 0
+
+
+def lora_shrink_fp32(x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """:func:`lora_shrink` of fp32 x on the kernel's fp32 form (fp32 z and
+    norm weight); the count of its launches (which :func:`lora_shrink`
+    makes for fp32 x)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"lora_shrink_fp32 takes fp32 x, got {x.dtype}")
+    return lora_shrink(x, *args, **kw)
+
+
+lora_shrink_fp32.launches = 0

@@ -20,6 +20,11 @@ raises; on a CPU tensor it runs the plain version. K1 is bound by bytes (a
 read of x, a write of x8), K2 by the int8 products at prefill rows (2 M K N
 operations at 1,979 TOPS). The gate that sends a product here is
 kernels/quant.matmul_any's.
+
+fp32 (``--dtype float32``): K1 reads fp32 rows and K2 writes fp32 out, the
+kernels' fp32 forms (``pg_w8a8_quant_rows_fp32``, ``out_dtype=torch.float32``
+of ``pg_w8a8_gemm``), counted apart on :func:`w8a8_quant_rows_fp32` and
+:func:`w8a8_gemm_fp32`; the int32 sums are one kernel whatever x's dtype.
 """
 
 from __future__ import annotations
@@ -79,8 +84,10 @@ def w8a8_quant_rows(x: torch.Tensor, amax: Optional[torch.Tensor] = None
     if not x.is_cuda:
         return quant_rows_reference(x, amax)
     name = "w8a8_quant_rows"
-    _check(x.dim() == 2 and x.dtype == torch.bfloat16 and x.is_contiguous()
-           and x.data_ptr() % 16 == 0, name, "x must be contiguous 16-byte aligned bf16 (M, K)")
+    fp32 = x.dtype == torch.float32
+    _check(x.dim() == 2 and x.dtype in (torch.bfloat16, torch.float32) and x.is_contiguous()
+           and x.data_ptr() % 16 == 0, name,
+           "x must be contiguous 16-byte aligned bf16 or fp32 (M, K)")
     m, k = x.shape
     _check(m > 0 and k >= 8 and k % 8 == 0, name, f"x takes M >= 1 and K a multiple of 8, "
            f"got {tuple(x.shape)}")
@@ -91,14 +98,27 @@ def w8a8_quant_rows(x: torch.Tensor, amax: Optional[torch.Tensor] = None
     x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
     a_s = torch.empty((m,), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    _build.check(lib.pg_w8a8_quant_rows(
+    _build.check((lib.pg_w8a8_quant_rows_fp32 if fp32 else lib.pg_w8a8_quant_rows)(
         x.data_ptr(), None if amax is None else amax.data_ptr(), x8.data_ptr(), a_s.data_ptr(),
         m, k, _build.stream_ptr(x.device)), name)
-    w8a8_quant_rows.launches += 1
+    (w8a8_quant_rows_fp32 if fp32 else w8a8_quant_rows).launches += 1
     return x8, a_s
 
 
 w8a8_quant_rows.launches = 0
+
+
+def w8a8_quant_rows_fp32(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`w8a8_quant_rows` of fp32 x (K1's fp32 form); the count of its
+    launches (which :func:`w8a8_quant_rows` makes for fp32 x)."""
+    _check(x.dtype == torch.float32, "w8a8_quant_rows_fp32", f"fp32 x, got {x.dtype}")
+    return w8a8_quant_rows(x, amax)
+
+
+w8a8_quant_rows_fp32.launches = 0
+
+_OUT_KIND = {torch.bfloat16: 0, torch.int32: 1, torch.float32: 2}  # csrc/w8a8_gemm.cu W8_OUT_*
 
 _SMS = {}  # device index -> its SM count (the persistent grid's cap)
 
@@ -112,8 +132,9 @@ def _sm_count(dev: torch.device) -> int:
 def w8a8_gemm(x8: torch.Tensor, w8: torch.Tensor, a_s: torch.Tensor, s: torch.Tensor,
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x8 (M, K) int8 . w8 (K, N) int8 with row scales a_s (M,) and column
-    scales s (N,): (M, N) ``out_dtype`` (bf16 on the card), or with
-    ``torch.int32`` the int32 sums. One launch on the card."""
+    scales s (N,): (M, N) ``out_dtype`` (bf16, or fp32: the fp32 form,
+    counted on :func:`w8a8_gemm_fp32`), or with ``torch.int32`` the int32
+    sums. One launch on the card."""
     if not x8.is_cuda:
         return gemm_reference(x8, w8, a_s, s, out_dtype)
     name = "w8a8_gemm"
@@ -131,19 +152,31 @@ def w8a8_gemm(x8: torch.Tensor, w8: torch.Tensor, a_s: torch.Tensor, s: torch.Te
     for arg, t, size in (("a_s", a_s, m), ("s", s, n)):
         _check(t.shape == (size,) and t.dtype == torch.float32 and t.is_contiguous()
                and t.device == dev, name, f"{arg} must be contiguous fp32 ({size},) on x8's device")
-    _check(out_dtype in (torch.bfloat16, torch.int32), name,
-           f"out_dtype must be bfloat16 or int32 on the card, got {out_dtype}")
+    _check(out_dtype in _OUT_KIND, name,
+           f"out_dtype must be bfloat16, float32 or int32 on the card, got {out_dtype}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     tiles = -(-m // TILE_ROWS) * -(-n // TILE_COLS)
     lib = _build.library()
     _build.check(lib.pg_w8a8_gemm(
         x8.data_ptr(), w8.data_ptr(), a_s.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
-        int(out_dtype == torch.int32), min(tiles, _sm_count(dev)), _build.stream_ptr(dev)), name)
-    w8a8_gemm.launches += 1
+        _OUT_KIND[out_dtype], min(tiles, _sm_count(dev)), _build.stream_ptr(dev)), name)
+    (w8a8_gemm_fp32 if out_dtype == torch.float32 else w8a8_gemm).launches += 1
     return out
 
 
 w8a8_gemm.launches = 0
+
+
+def w8a8_gemm_fp32(x8: torch.Tensor, w8: torch.Tensor, a_s: torch.Tensor, s: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`w8a8_gemm` with fp32 out (K2's fp32 form); the count of its
+    launches (which :func:`w8a8_gemm` makes for ``out_dtype=torch.float32``)."""
+    _check(x8.dtype == torch.int8, "w8a8_gemm_fp32",
+           f"x8 must be K1's int8 codes (fp32 x goes to w8a8_quant_rows_fp32), got {x8.dtype}")
+    return w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.float32)
+
+
+w8a8_gemm_fp32.launches = 0
 
 
 def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

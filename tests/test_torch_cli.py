@@ -282,25 +282,18 @@ def test_cli_without_a_card_does_not_run_on_the_cpu(checkpoint_dir, image_path, 
 
 def test_cli_float32_on_the_card_exits_2(checkpoint_dir, image_path, capsys, monkeypatch):
     """--dtype float32 runs on the card through the kernels' fp32 forms: alone
-    (and with --quantize_int8 or --speculative) it passes the device check;
-    with a flag whose kernel has no fp32 form yet it exits 2 before anything
-    loads, naming that kernel, and is not run with the kernel turned off."""
+    and with every flag (--quantize_int8, --speculative, --int8_prefill,
+    --model_parallel 2, --data_parallel 2) it passes the device check, and
+    nothing loads there. (The name is from when the last three exited 2.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for extra in ([], ["--quantize_int8"], ["--speculative"]):
-        args = t_infer.parse_args(_argv(checkpoint_dir, image_path, ["a"], "--dtype", "float32",
+    for prompts, extra in ((["a"], []), (["a"], ["--quantize_int8"]), (["a"], ["--speculative"]),
+                           (["a"], ["--quantize_int8", "--int8_prefill"]),
+                           (["a"], ["--model_parallel", "2"]),
+                           (["a", "b"], ["--data_parallel", "2"])):
+        args = t_infer.parse_args(_argv(checkpoint_dir, image_path, prompts, "--dtype", "float32",
                                         *extra))
-        assert t_infer._device(args) == torch.device("cuda", 0)
-    for prompts, extra, kernel in (
-            (["a"], ["--quantize_int8", "--int8_prefill"], "W8A8 prefill GEMM"),
-            (["a"], ["--model_parallel", "2"], "int8_gemv_f32 (mode 3"),
-            (["a", "b"], ["--data_parallel", "2"], "int8_gemv_f32 (mode 3")):
-        with pytest.raises(SystemExit) as ei:
-            t_infer.main(_argv(checkpoint_dir, image_path, prompts, "--dtype", "float32", *extra))
-        assert ei.value.code == 2
-        cap = capsys.readouterr()
-        assert f"--dtype float32 with {extra[-2] if extra[-1] == '2' else extra[-1]}" in cap.err
-        assert kernel in cap.err and "no fp32 form yet" in cap.err
-        assert "Loading model" not in cap.out
+        assert t_infer._device(args) == torch.device("cuda", 0), extra
+    assert "Loading model" not in capsys.readouterr().out
 
 
 # ---- tensor parallel: --model_parallel 2 on two spawned gloo ranks ----

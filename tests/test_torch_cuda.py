@@ -413,8 +413,8 @@ def test_lora_shrink_and_gemv_lora_epilogue_on_card(a_dtype):
         plain = t_gemv.int8_gemv(x, w8, s, **kw)
         assert torch.equal(got[ids == 0], plain[ids == 0])
         assert not torch.equal(got[ids != 0], plain[ids != 0])
-    with pytest.raises(ValueError):
-        t_lora.lora_shrink(x.float(), a, ids, rank, gcols)
+    with pytest.raises(ValueError, match="x's dtype"):  # no mixed form: fp32 z, bf16 x
+        t_gemv.int8_gemv(x, w8, s, lora=(z.float(), lb, bounds), **kw)
 
 
 @pytest.mark.cuda
@@ -651,12 +651,10 @@ def test_k1_fp32_partial_with_the_expand_on_card(b, k):
     assert torch.equal(added, t_gemv.int8_gemv(x, w8, s, residual=h, lora=(z, lb, ())))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows_per_cache", [1, 3])
-def test_tp_chain_with_a_bank_is_the_one_card_chain_on_card(tmp_path, rows_per_cache):
-    """The TP chain (kernels/decode_layer_tp) at world size 1 with a bank's
-    pack (K1 on o and down) has the one-card chain's bits, also at verify
-    rows (``rows_per_cache``); 4 shrinks and 2 K1 a layer."""
+def _tp_chain_with_a_bank(tmp_path, rows_per_cache, dtype):
+    """The TP chain at world size 1 with a bank's pack against the one-card
+    chain, activations, cache and cos / sin in ``dtype``: the same bits; 4
+    shrinks and 2 K1 a layer, counted on the forms of ``dtype``."""
     import torch.distributed as dist
 
     from paligemma_tpu_torch.core.mesh import make_mesh
@@ -664,10 +662,12 @@ def test_tp_chain_with_a_bank_is_the_one_card_chain_on_card(tmp_path, rows_per_c
     from paligemma_tpu_torch.kernels import decode_layer_tp as t_tp
     from paligemma_tpu_torch.kernels import lora as t_lora
 
-    dev = _card()
+    dev = _fp32_card()
     g = torch.Generator(device=dev).manual_seed(12)
     n_layers, k, h, d, inter, n_cache, s_len = 2, 256, 4, 128, 512, 2, 128
     layers = _tiny_int8_layers(dev, g, n_layers, k, h, d, inter)
+    for name in ("input_norm", "post_norm"):
+        layers[name] = layers[name].to(dtype)
     gcols, rank = 16, 4
     pack = {"g_true": gcols, "rank": rank}
     for name, in_dim, n_t, out_dim in (("qkv", k, 3, (h + 2) * d), ("o", h * d, 1, k),
@@ -677,33 +677,54 @@ def test_tp_chain_with_a_bank_is_the_one_card_chain_on_card(tmp_path, rows_per_c
         pack[name + "_b"] = torch.randn(n_layers, gcols, out_dim, generator=g, device=dev) * 0.5
     b = n_cache * rows_per_cache
     ids = (torch.arange(b, device=dev) % 4).to(torch.int32)
-    x = torch.randn(b, 1, k, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(b, 1, k, generator=g, device=dev).to(dtype)
     ang = torch.rand(b, d, generator=g, device=dev) * 6.28
-    cos, sin = ang.cos().to(torch.bfloat16), ang.sin().to(torch.bfloat16)
+    cos, sin = ang.cos().to(dtype), ang.sin().to(dtype)
     start = torch.tensor([40, 70], device=dev)
     pos = (start[:, None] + torch.arange(rows_per_cache, device=dev)[None]).reshape(-1)
     pos = pos.to(torch.int32)
     w = 96
     valid = (torch.arange(w, device=dev)[None] <= pos[:, None].long()).contiguous()
-    kc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(torch.bfloat16)
-    vc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(dtype)
+    vc = torch.randn(n_layers, n_cache, s_len, d, generator=g, device=dev).to(dtype)
     caches = [(kc.clone(), vc.clone()) for _ in range(2)]
     one = t_dl.layers_decode_fused(x, layers, *caches[0], pos, valid, cos, sin, w, h, d, 1e-6,
                                    lora_pack=pack, adapter_ids=ids,
                                    rows_per_cache=rows_per_cache)[0]
+    fp32 = dtype == torch.float32
+    shrink = t_lora.lora_shrink_fp32 if fp32 else t_lora.lora_shrink
+    k1 = t_gemv.int8_gemv_f32_lora_fp32 if fp32 else t_gemv.int8_gemv_f32_lora
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
                             rank=0)
     try:
-        s0, k0 = t_lora.lora_shrink.launches, t_gemv.int8_gemv_f32_lora.launches
+        s0, k0 = shrink.launches, k1.launches
         got = t_tp.layers_decode_tp(x, layers, *caches[1], pos, valid, cos, sin, d, 1e-6,
                                     make_mesh(1, 1), lora_pack=pack, adapter_ids=ids,
                                     rows_per_cache=rows_per_cache)
-        assert t_lora.lora_shrink.launches - s0 == 4 * n_layers
-        assert t_gemv.int8_gemv_f32_lora.launches - k0 == 2 * n_layers
+        assert shrink.launches - s0 == 4 * n_layers
+        assert k1.launches - k0 == 2 * n_layers
     finally:
         dist.destroy_process_group()
-    assert torch.equal(got, one)
+    assert got.dtype == dtype and torch.equal(got, one)
     assert all(torch.equal(a, c) for a, c in zip(caches[0], caches[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cache", [1, 3])
+def test_tp_chain_with_a_bank_is_the_one_card_chain_on_card(tmp_path, rows_per_cache):
+    """The TP chain (kernels/decode_layer_tp) at world size 1 with a bank's
+    pack (K1 on o and down) has the one-card chain's bits, also at verify
+    rows (``rows_per_cache``); 4 shrinks and 2 K1 a layer."""
+    _tp_chain_with_a_bank(tmp_path, rows_per_cache, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cache", [1, 3])
+def test_tp_chain_with_a_bank_at_fp32_is_the_one_card_chain_on_card(tmp_path, rows_per_cache):
+    """The same at fp32: the fp32 shrink, K1's fp32 form and the fp32
+    partial's sum added as (h + base) + delta give the one-card fp32
+    chain's bits."""
+    _tp_chain_with_a_bank(tmp_path, rows_per_cache, torch.float32)
 
 
 @pytest.mark.cuda
@@ -1287,9 +1308,9 @@ def test_w8a8_kernels_equal_their_plain_versions_on_card(m, k, n):
 @pytest.mark.cuda
 def test_w8a8_routes_raise_on_bad_inputs_on_card():
     """On the card the W8A8 route and the weight-only route below its gate
-    launch their kernels or raise: no fallback to a plain version. fp32 x
-    raises on W8A8 (K1 takes bf16) and, below the gate, launches the GEMV
-    tile's fp32 form."""
+    launch their kernels or raise: no fallback to a plain version. fp16 x
+    raises on W8A8 (K1 takes bf16 or fp32); fp32 x takes K1 / K2's fp32
+    forms and, below the gate, the GEMV tile's fp32 form."""
     from paligemma_tpu_torch.kernels import quant, w8a8
 
     dev = _fp32_card()
@@ -1297,7 +1318,12 @@ def test_w8a8_routes_raise_on_bad_inputs_on_card():
          "s": torch.rand(384, device=dev) * 1e-2}
     x = torch.randn(300, 256, device=dev)
     with pytest.raises(ValueError):
-        quant.matmul_any(x, w, int8_act=True)  # fp32 x, 300 rows: W8A8
+        quant.matmul_any(x.half(), w, int8_act=True)  # fp16 x, 300 rows: W8A8
+    before = (w8a8.w8a8_quant_rows_fp32.launches, w8a8.w8a8_gemm_fp32.launches)
+    got = quant.matmul_any(x, w, int8_act=True)  # fp32 x, 300 rows: W8A8's fp32 forms
+    assert (w8a8.w8a8_quant_rows_fp32.launches, w8a8.w8a8_gemm_fp32.launches) == (
+        before[0] + 1, before[1] + 1) and got.dtype == torch.float32
+    assert torch.equal(got, quant._w8a8_matmul(x, w["w8"], w["s"]))
     n0 = t_gemv.int8_gemv_fp32.launches
     got = quant.matmul_any(x[:100], w, int8_act=True)  # below the gate: the GEMV tile
     assert t_gemv.int8_gemv_fp32.launches == n0 + 1 and got.dtype == torch.float32
@@ -1421,7 +1447,7 @@ def test_int8_gemv_fp32_form_on_card(k, n, epi):
     """The GEMV tile's fp32 form (three bf16 terms of x) at Gemma-2B's four
     projections and ragged shapes, B 1, 8, 9 and 72, against the plain fp32
     version within FP32_REL; fp32 out; a second call the same bits; counted
-    on int8_gemv_fp32; the LoRA expand and the fp32 partial raise."""
+    on int8_gemv_fp32; the fp32 partial (mode 3) has mode 0's bits."""
     dev = _fp32_card()
     if epi == "norm" and k % 4:
         pytest.skip("the fp32 prologue takes K % 4 == 0")
@@ -1443,8 +1469,129 @@ def test_int8_gemv_fp32_form_on_card(k, n, epi):
         want = t_gemv.int8_gemv_reference(x, w8, s, **kw)
         assert _rel_err(got, want) <= FP32_REL, (b, _rel_err(got, want))
         assert torch.equal(t_gemv.int8_gemv(x, w8, s, **kw), got)
-    with pytest.raises(ValueError, match="fp32-partial mode or the LoRA expand"):
-        t_gemv.int8_gemv_f32(x, w8, s)
+    if epi == "plain":
+        n0 = t_gemv.int8_gemv_f32_fp32.launches
+        assert torch.equal(t_gemv.int8_gemv_f32(x, w8, s), got)
+        assert t_gemv.int8_gemv_f32_fp32.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,bounds,kw", [
+    (2048, 2560, (2048, 2304), {"norm": True}), (2048, 2048, (), {"residual": True}),
+    (2048, 32768, (16384,), {"geglu": True, "norm": True}), (16384, 2048, (), {"residual": True})])
+def test_lora_shrink_and_expand_fp32_forms_on_card(a_dtype, k, n, bounds, kw):
+    """F1 and F2 at Gemma-2B's four targets with a [base, a, b, c] rank-8 bank
+    (G 32), B 1 and 8 (qkv and gate | up with the norm): the fp32 shrink
+    (z fp32, A in fp32 or bf16) and the fp32 GEMV with the expand against
+    their plain versions within FP32_REL; counted on lora_shrink_fp32 and
+    int8_gemv_fp32; base rows the fp32 GEMV's bits without the bank; a
+    second call the same bits; a bf16 basis beside fp32 x raises."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(k + n + 3)
+    gcols, rank = 32, 8
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    ntarget = len(bounds) + 1
+    a = torch.randn(k, ntarget * gcols, generator=g, device=dev) * k**-0.5
+    a[:, torch.arange(ntarget * gcols, device=dev) % gcols < rank] = 0  # the zero adapter
+    a = a.to(a_dtype)
+    lb = (torch.randn(gcols, n, generator=g, device=dev) * 0.5).to(a_dtype)
+    for b in (1, 8):
+        x = torch.randn(b, k, generator=g, device=dev)
+        ids = (torch.arange(b, device=dev) % 4).to(torch.int32)
+        gkw = {"geglu": True} if kw.get("geglu") else {}
+        if kw.get("residual"):
+            gkw["residual"] = torch.randn(b, n, generator=g, device=dev)
+        norm = (torch.randn(k, generator=g, device=dev) * 0.1, 1e-6) if kw.get("norm") else None
+        s0, g0 = t_lora.lora_shrink_fp32.launches, t_gemv.int8_gemv_fp32.launches
+        z = t_lora.lora_shrink(x, a, ids, rank, gcols, norm=norm)
+        zp = t_lora.lora_shrink_reference(x, a, ids, rank, gcols, norm=norm)
+        assert z.dtype == torch.float32 and _rel_err(z, zp) <= FP32_REL
+        assert torch.equal(t_lora.lora_shrink(x, a, ids, rank, gcols, norm=norm), z)
+        got = t_gemv.int8_gemv(x, w8, s, lora=(z, lb, bounds), norm=norm, **gkw)
+        want = t_gemv.int8_gemv_reference(x, w8, s, lora=(zp, lb, bounds), norm=norm, **gkw)
+        assert got.dtype == torch.float32 and _rel_err(got, want) <= FP32_REL
+        assert torch.equal(t_gemv.int8_gemv(x, w8, s, lora=(z, lb, bounds), norm=norm, **gkw),
+                           got)
+        assert (t_lora.lora_shrink_fp32.launches - s0, t_gemv.int8_gemv_fp32.launches - g0) == (
+            2, 2)
+        plain = t_gemv.int8_gemv(x, w8, s, norm=norm, **gkw)
+        assert torch.equal(got[ids == 0], plain[ids == 0])
+        if b > 1:
+            assert not torch.equal(got[ids != 0], plain[ids != 0])
+        with pytest.raises(ValueError, match="x's dtype"):
+            t_gemv.int8_gemv(x, w8, s, lora=(z.bfloat16(), lb, bounds), norm=norm, **gkw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("k", [2048, 8192])
+def test_fp32_partial_and_k1_fp32_forms_on_card(b, k):
+    """F3: the fp32 partial (mode 3) of fp32 x has mode 0's bits; K1's fp32
+    form against its plain version within FP32_REL, and its [base | delta]
+    added as decode_layer_tp.add_partial adds them has the bits of the fp32
+    residual GEMV with the expand (one rank is one card); each counted on
+    its own fp32 counter."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(23 + b)
+    n, gcols = 2048, 32
+    x = torch.randn(b, k, generator=g, device=dev) * 0.5
+    h = torch.randn(b, n, generator=g, device=dev)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    lb = torch.randn(gcols, n, generator=g, device=dev) * 0.5
+    z = torch.randn(b, gcols, generator=g, device=dev) * 0.3
+    f0, l0 = t_gemv.int8_gemv_f32_fp32.launches, t_gemv.int8_gemv_f32_lora_fp32.launches
+    part = t_gemv.int8_gemv_f32(x, w8, s)
+    assert torch.equal(part, t_gemv.int8_gemv(x, w8, s))
+    got = t_gemv.int8_gemv_f32(x, w8, s, lora=(z, lb, ()))
+    assert (t_gemv.int8_gemv_f32_fp32.launches - f0,
+            t_gemv.int8_gemv_f32_lora_fp32.launches - l0) == (1, 1)
+    assert got.shape == (b, 2 * n) and got.dtype == torch.float32
+    want = t_gemv.int8_gemv_reference(x, w8, s, out_fp32=True, lora=(z, lb, ()))
+    assert _rel_err(got, want) <= FP32_REL
+    assert torch.equal(got[:, :n], part)
+    assert torch.equal(got, t_gemv.int8_gemv_f32(x, w8, s, lora=(z, lb, ())))
+    assert torch.equal((h + got[:, :n]) + got[:, n:],
+                       t_gemv.int8_gemv(x, w8, s, residual=h, lora=(z, lb, ())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 16), (129, 48, 48), (266, 2048, 2560),
+                                   (266, 16384, 256), (640, 256, 384)])
+def test_w8a8_fp32_forms_on_card(m, k, n):
+    """F4: K1 reading fp32 rows (own amax or a given one) and K2 writing
+    fp32 against their plain versions bit for bit; w8a8_matmul of fp32 x
+    equals the plain W8A8; counted on the fp32 counters only."""
+    from paligemma_tpu_torch.kernels import w8a8
+
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(m + k + n + 1)
+    x = (torch.randn(m, k, generator=g, device=dev)
+         * 10.0 ** (torch.rand(m, 1, generator=g, device=dev) * 4 - 2))
+    x[-1, k // 2] = 80.0
+    x[0] = 0
+    before = {f: f.launches for f in (w8a8.w8a8_quant_rows, w8a8.w8a8_gemm,
+                                      w8a8.w8a8_quant_rows_fp32, w8a8.w8a8_gemm_fp32)}
+    x8, a_s = w8a8.w8a8_quant_rows(x)
+    r8, rs = w8a8.quant_rows_reference(x)
+    assert torch.equal(x8, r8) and torch.equal(a_s, rs)
+    amax = torch.rand(m, generator=g, device=dev) * 100 + x.abs().amax(-1)
+    assert all(torch.equal(a, b) for a, b in zip(w8a8.w8a8_quant_rows(x, amax),
+                                                 w8a8.quant_rows_reference(x, amax)))
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 1e-2
+    got = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, w8a8.gemm_reference(x8, w8, a_s, s, out_dtype=torch.float32))
+    assert torch.equal(w8a8.w8a8_matmul(x, w8, s), got)
+    grew = {f.__name__: f.launches - n0 for f, n0 in before.items()}
+    assert grew == {"w8a8_quant_rows": 0, "w8a8_gemm": 0, "w8a8_quant_rows_fp32": 3,
+                    "w8a8_gemm_fp32": 2}, grew
+    assert (got[0] == 0).all()
 
 
 @pytest.mark.cuda

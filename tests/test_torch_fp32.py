@@ -6,8 +6,6 @@ paths at fp32 against the JAX package run in tests/test_torch_kernels.py,
 tests/test_torch_paged.py and tests/test_torch_engine.py (all fp32 on the
 CPU); the kernels themselves in tests/test_torch_cuda.py on a card."""
 
-import argparse
-
 import numpy as np
 import pytest
 import torch
@@ -20,7 +18,9 @@ from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import flash_attention as t_flash
 from paligemma_tpu_torch.kernels import gemv_plan as t_plan
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
+from paligemma_tpu_torch.kernels import lora as t_lora
 from paligemma_tpu_torch.kernels import paged_attention as t_paged
+from paligemma_tpu_torch.kernels import w8a8 as t_w8a8
 from paligemma_tpu_torch.runtime.engine import check_cache_dtype
 
 torch.set_num_threads(2)
@@ -32,7 +32,8 @@ FP32_REL = 2e-5
 
 FP32_FORMS = ("flash_attention_fwd_fp32", "int8_gemv_fp32", "int8_gemv_rope_kv_fp32",
               "head_argmax_fp32", "decode_attention_fp32", "paged_decode_attention_fp32",
-              "rms_norm_fp32")
+              "rms_norm_fp32", "lora_shrink_fp32", "int8_gemv_f32_fp32",
+              "int8_gemv_f32_lora_fp32", "w8a8_quant_rows_fp32", "w8a8_gemm_fp32")
 
 
 def _split3(x):
@@ -92,11 +93,18 @@ def test_fp32_forms_are_counted_apart():
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
-@pytest.mark.parametrize("name", ["flash", "gemv", "rope", "head", "dense", "paged", "norm"])
+@pytest.mark.parametrize("name", ["flash", "gemv", "rope", "head", "dense", "paged", "norm",
+                                  "shrink", "f32", "k1", "quant", "gemm"])
 def test_fp32_form_wrappers_take_fp32_only(name):
-    """A wrapper of an fp32 form refuses other dtypes (it never casts)."""
+    """A wrapper of an fp32 form refuses other dtypes (it never casts);
+    K2's fp32 form takes int8 codes, not activations."""
     b16 = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
     calls = {
+        "shrink": lambda: t_lora.lora_shrink_fp32(b16[0], None, None, 4, 8),
+        "f32": lambda: t_gemv.int8_gemv_f32_fp32(b16[0], None, None),
+        "k1": lambda: t_gemv.int8_gemv_f32_lora_fp32(b16[0], None, None, None),
+        "quant": lambda: t_w8a8.w8a8_quant_rows_fp32(b16[0]),
+        "gemm": lambda: t_w8a8.w8a8_gemm_fp32(b16[0].float(), None, None, None),
         "flash": lambda: t_flash.flash_attention_fwd_fp32(b16[None], b16[None], b16[None],
                                                           None, None),
         "gemv": lambda: t_gemv.int8_gemv_fp32(b16[0], None, None),
@@ -132,20 +140,27 @@ def test_mixed_cache_dtype_raises_on_the_card_only():
         check_cache_dtype(torch.device("cuda"), params, act, "engine")
 
 
-@pytest.mark.parametrize("flag,kernel", [
-    ("lora", "LoRA shrink and expand"), ("int8_prefill", "W8A8"),
-    ("model_parallel", "int8_gemv_f32"), ("data_parallel", "int8_gemv_f32")])
-def test_fp32_refusals_name_the_kernel(flag, kernel, monkeypatch):
-    """Each flag whose kernel has no fp32 form is refused on the card at
-    fp32, by name, and passes at bf16 and on the CPU."""
-    args = argparse.Namespace(int8_prefill=flag == "int8_prefill",
-                              model_parallel=2 if flag == "model_parallel" else 1,
-                              data_parallel=2 if flag == "data_parallel" else 1)
-    refused = t_infer.fp32_refusals(args, lora=flag == "lora")
-    assert [f for f, _ in refused] == [f"--{flag}"] and kernel in refused[0][1]
+@pytest.mark.parametrize("flag", ["lora", "int8_prefill", "model_parallel", "data_parallel"])
+def test_fp32_flags_pass_the_device_check(flag, monkeypatch):
+    """Each flag that once had no fp32 form passes both CLIs' device checks at
+    fp32 on a card (monkeypatched), and ``--only_cpu`` still takes the CPU."""
+    from paligemma_tpu_torch.cli import serve as t_serve
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(t_infer.CliError, match=f"--dtype float32 with --{flag} on the card"):
-        t_infer.card_or_cpu(False, "float32", refused)
-    assert t_infer.card_or_cpu(False, "bfloat16", refused).type == "cuda"
-    assert t_infer.card_or_cpu(True, "float32", refused).type == "cpu"
-    assert t_infer.card_or_cpu(False, "float32", []).type == "cuda"
+    extra = {"lora": ["--quantize_int8", "--lora", "x=/nowhere"],
+             "int8_prefill": ["--quantize_int8", "--int8_prefill"],
+             "model_parallel": ["--model_parallel", "2"],
+             "data_parallel": ["--engine", "paged", "--data_parallel", "2"]}[flag]
+    serve_args = t_serve._build_parser().parse_args(
+        ["--model_path", "m", "--requests_jsonl", "-", "--dtype", "float32", *extra])
+    assert t_serve._device(serve_args) == torch.device("cuda", 0)
+    if flag != "lora":  # cli.infer has no --lora
+        infer_extra = [a for a in extra if a not in ("--engine", "paged")]
+        args = t_infer.parse_args(["--model_path", "m", "--prompt", "a", "--prompt", "b",
+                                   "--image_file_path", "i.png", "--image_file_path", "j.png",
+                                   "--dtype", "float32", *infer_extra])
+        assert t_infer._device(args) == torch.device("cuda", 0)
+        args.only_cpu = True
+        assert t_infer._device(args).type == "cpu"
+    serve_args.only_cpu = True
+    assert t_serve._device(serve_args).type == "cpu"

@@ -18,6 +18,7 @@ from paligemma_tpu_torch.kernels import decode_head as t_head
 from paligemma_tpu_torch.kernels import gemv_plan as t_plan
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
 from paligemma_tpu_torch.kernels import lora as t_lora
+from paligemma_tpu_torch.kernels import w8a8 as t_w8a8
 from paligemma_tpu_torch.kernels.ablation import _wq_gemm
 from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
 
@@ -121,7 +122,10 @@ class _Library:
 def library(monkeypatch):
     lib = _Library()
     for fn in (t_gemv.int8_gemv, t_gemv.int8_gemv_f32, t_gemv.int8_gemv_rope_kv,
-               t_head.head_argmax_fused, t_lora.lora_shrink, t_q4.int4_matmul):
+               t_head.head_argmax_fused, t_lora.lora_shrink, t_q4.int4_matmul,
+               t_lora.lora_shrink_fp32, t_gemv.int8_gemv_fp32, t_gemv.int8_gemv_f32_fp32,
+               t_gemv.int8_gemv_f32_lora_fp32, t_gemv.int8_gemv_f32_lora,
+               t_w8a8.w8a8_quant_rows_fp32, t_w8a8.w8a8_gemm_fp32):
         monkeypatch.setattr(fn, "launches", 0)  # the counts come back after the test
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
@@ -224,6 +228,77 @@ def test_int8_gemv_lora_hands_the_kernel_each_targets_block(library, bounds, kw)
     segs = list(bounds) + [n] * (2 - len(bounds))
     assert name == "pg_int8_gemv_lora" and args[8] == (1 if kw else 0)
     assert args[14:19] == (0, g, z.shape[1], *segs)
+
+
+# the fp32 forms of the bank, the mesh and W8A8 (--dtype float32) at
+# Gemma-2B's shapes: entry point, counter, and the arguments that differ
+FP32_CALLS = ["shrink", "shrink+norm", "qkv expand", "gateup expand", "o expand", "f32", "k1",
+              "quant", "quant amax", "gemm"]
+
+
+@pytest.mark.parametrize("what", FP32_CALLS)
+def test_fp32_forms_reach_their_entry_points(library, monkeypatch, what):
+    """fp32 x reaches each fp32 entry point in one launch with the bf16
+    form's plan (the shrink's of (K, nG), the GEMV's of (K, N)), fp32
+    operands where the bf16 form has bf16 ones, and is counted on the fp32
+    form's counter only."""
+    b, g = 8, 32
+    f32 = lambda *shape: _card(torch.zeros(shape))  # noqa: E731
+    if what.startswith("shrink"):
+        k, ng = HIDDEN, 3 * g
+        norm = (f32(k), 1e-6) if what.endswith("norm") else None
+        z = t_lora.lora_shrink(f32(b, k), _card(torch.zeros((k, ng), dtype=torch.bfloat16)),
+                               _card(torch.zeros(b, dtype=torch.int32)), 8, g, norm=norm)
+        [(name, args)] = library.calls
+        plan = t_lora.ShrinkPlan.make(k, ng)
+        assert name == "pg_lora_shrink_fp32" and z.dtype == torch.float32 and args[2] == 0
+        assert args[5:13] == (b, k, ng, g, 8, plan.cluster, plan.k_per_cta, plan.threads)
+        assert (args[13] is None) == (norm is None)
+        assert (t_lora.lora_shrink_fp32.launches, t_lora.lora_shrink.launches) == (1, 0)
+        return
+    if what in ("quant", "quant amax", "gemm"):
+        m, k, n = 266, HIDDEN, 2560
+        if what == "gemm":
+            monkeypatch.setattr(t_w8a8, "_sm_count", lambda dev: 132)  # an H100's SMs
+            out = t_w8a8.w8a8_gemm(_card(torch.zeros((m, k), dtype=torch.int8)),
+                                   _card(torch.zeros((k, n), dtype=torch.int8)), f32(m), f32(n),
+                                   out_dtype=torch.float32)
+            [(name, args)] = library.calls
+            assert name == "pg_w8a8_gemm" and args[5:9] == (m, k, n, 2)
+            assert out.dtype == torch.float32 and t_w8a8.w8a8_gemm_fp32.launches == 1
+            return
+        x8, a_s = t_w8a8.w8a8_quant_rows(f32(m, k), f32(m) if what.endswith("amax") else None)
+        [(name, args)] = library.calls
+        assert name == "pg_w8a8_quant_rows_fp32" and args[4:6] == (m, k)
+        assert (args[1] is None) == (what == "quant")
+        assert x8.dtype == torch.int8 and t_w8a8.w8a8_quant_rows_fp32.launches == 1
+        return
+    k, n, bounds, kw = {"qkv expand": (HIDDEN, 2560, (2048, 2304), {}),
+                        "gateup expand": (HIDDEN, 2 * INTER, (INTER,), {"geglu": True}),
+                        "o expand": (HIDDEN, HIDDEN, (), {"residual": f32(b, HIDDEN)}),
+                        "f32": (INTER, HIDDEN, None, {}), "k1": (INTER, HIDDEN, (), {})}[what]
+    w8, s = _card(torch.zeros((k, n), dtype=torch.int8)), f32(n)
+    lora = None if bounds is None else (f32(b, g * (len(bounds) + 1)), f32(g, n), bounds)
+    if what in ("f32", "k1"):
+        out = t_gemv.int8_gemv_f32(f32(b, k), w8, s, lora=lora)
+        mode, width = 3, (n if lora is None else 2 * n)
+        counter = t_gemv.int8_gemv_f32_fp32 if lora is None else t_gemv.int8_gemv_f32_lora_fp32
+    else:
+        out = t_gemv.int8_gemv(f32(b, k), w8, s, lora=lora, **kw)
+        mode = 2 if kw.get("geglu") else (1 if kw else 0)
+        width, counter = (n // 2 if mode == 2 else n), t_gemv.int8_gemv_fp32
+    [(name, args)] = library.calls
+    plan = t_plan.GemvPlan.make(k, n)
+    assert name == "pg_int8_gemv_fp32" and out.shape == (b, width)
+    assert out.dtype == torch.float32 and counter.launches == 1
+    assert args[5:12] == (b, k, n, mode, plan.cluster, plan.warps, plan.k_per_cta)
+    if lora is not None:  # lb_f32, G, nz, seg1, seg2
+        segs = list(bounds) + [n] * (2 - len(bounds))
+        assert args[12] is not None and args[14:19] == (1, g, lora[0].shape[1], *segs)
+    else:
+        assert args[12] is None
+    assert t_gemv.int8_gemv.launches == t_gemv.int8_gemv_f32.launches == 0
+    assert t_gemv.int8_gemv_f32_lora.launches == 0
 
 
 # (label, K, N) of Gemma-2B's four projections for the int4 tile, and

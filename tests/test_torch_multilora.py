@@ -435,40 +435,58 @@ def _serve(eng, cls, specs=MIXED):
     return {r.request_id: list(r.tokens) for r in reqs}
 
 
+def _bf16_leaves(tree):
+    """The adapter tree with every float leaf rounded to bf16 (a bank saved
+    in bf16), as JAX arrays."""
+    return jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), tree)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_mixed():
+def _jax_mixed(bank_bf16=False):
     jp, jq, _, _ = _weights()
+    tree = _bf16_leaves if bank_bf16 else _jax_tree
     eng = j_serving.ServingEngine(jp, CFG, max_slots=4, max_seq_len=64, use_flash=False,
                                   decode_params=jq, fused_decode=False, sync_every=2,
-                                  lora_bank={n: _jax_tree(a) for n, a in ADAPTERS.items()})
+                                  lora_bank={n: tree(a) for n, a in ADAPTERS.items()})
     return _serve(eng, j_serving.Request)
 
 
-def _port_bank():
+def _port_bank(bank_bf16=False):
+    if bank_bf16:  # the same bf16 values as JAX's bank
+        return {n: params_from_numpy(jax.tree.map(
+            lambda a: np.asarray(a.astype(jnp.float32)), _bf16_leaves(a)), "cpu",
+            torch.bfloat16) for n, a in ADAPTERS.items()}
     return {n: _port_tree(a) for n, a in ADAPTERS.items()}
 
 
 @pytest.mark.parametrize("engine,path", [("dense", "plain"), ("dense", "kernel"),
                                          ("paged", "plain"), ("paged", "kernel"),
-                                         ("paged", "multi")])
+                                         ("paged", "multi"), ("dense", "kernel-bf16-bank"),
+                                         ("paged", "kernel-bf16-bank")])
 def test_serving_with_bank_matches_jax(engine, path):
     """Rows (base, x, y, x) in one batch: every request's tokens equal JAX's
-    multi-LoRA engine's (plain tick, int8 decode). "kernel": the decode
-    chain with the bank's kernel operands (plain versions on the CPU)."""
+    multi-LoRA engine's (plain tick, int8 decode), all at fp32 (the
+    ``--dtype float32`` arithmetic). "kernel": the decode chain with the
+    bank's kernel operands (plain versions on the CPU); "kernel-bf16-bank":
+    the same with the adapters held in bf16 in both frameworks (the fp32
+    shrink and expand over a bf16 A and B, widened exactly)."""
     _, _, tp, tq = _weights()
     kernel = path != "plain"
+    bank_bf16 = path.endswith("bf16-bank")
     kw = dict(max_slots=4, max_seq_len=64, use_flash=False, decode_params=tq,
-              fused_decode=kernel, sync_every=2, lora_bank=_port_bank())
+              fused_decode=kernel, sync_every=2, lora_bank=_port_bank(bank_bf16))
     if engine == "dense":
         eng = t_serving.ServingEngine(tp, CFG, **kw)
     else:
         eng = t_paged.PagedServingEngine(tp, CFG, page_size=16, n_pages=24,
-                                         paged_kernel="fused" if path == "kernel" else "multi",
+                                         paged_kernel="multi" if path == "multi" else "fused",
                                          **kw)
-    chain = path == "kernel"
+    chain = path.startswith("kernel")
     assert (eng._lora_fused_pack is not None) == chain
+    if bank_bf16:
+        assert eng._lora_fused_pack["qkv_a"].dtype == torch.bfloat16
     got = _serve(eng, t_serving.Request)
-    want = _jax_mixed()
+    want = _jax_mixed(bank_bf16)
     for rid in want:
         assert got[rid] == want[rid], rid
 

@@ -64,9 +64,11 @@ SERVE_REQS = ((0, 1, 6, 6, None, None, False), (1, 2, 5, 6, "x", None, False),
 SPEC_REQS = ((0, 1, 6, 8, None, None, False), (1, 5, 5, 8, None, "g", False),
              (2, 1, 6, 8, None, None, False), (3, 3, 4, 8, None, None, False))
 SPEC_K = 3
-# engine run -> (engine, requests, with the bank, spec_decode, kernel path)
+# engine run -> (engine, requests, with the bank ("bf16": its adapters held
+# in bf16 in both frameworks), spec_decode, kernel path)
 RUNS = {
     "dense": ("dense", SERVE_REQS, True, False, True),
+    "dense_bf16_bank": ("dense", SERVE_REQS, "bf16", False, True),
     "dense_plain": ("dense", SERVE_REQS, True, False, False),
     "paged": ("paged", SERVE_REQS, True, False, True),
     "paged_plain": ("paged", SERVE_REQS, True, False, False),
@@ -161,9 +163,11 @@ def _port_runs(params, qparams, adapters, mesh):
     from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
 
     cfg = _cfg()
-    bank = {n: params_from_numpy(a, "cpu") for n, a in adapters.items()}
+    banks = {dtype: {n: params_from_numpy(a, "cpu", dtype) for n, a in adapters.items()}
+             for dtype in (None, torch.bfloat16)}
     out = {}
     for run, (kind, specs, with_bank, spec, kernel) in RUNS.items():
+        bank = banks[torch.bfloat16 if with_bank == "bf16" else None]
         kw = _engine_kw(bank if with_bank else None, spec, kernel)
         if kind == "paged":
             eng = PagedServingEngine(params, cfg, page_size=16, n_pages=24, decode_params=qparams,
@@ -182,7 +186,7 @@ def _port_runs(params, qparams, adapters, mesh):
         eng.run_to_completion()
         out[run] = {r.request_id: list(r.tokens) for r in reqs}
         out[run + "_hits"] = eng.cache_hits
-        if with_bank and kind == "dense":  # request 1: adapter "x"
+        if with_bank is True and kind == "dense":  # request 1: adapter "x", fp32 bank
             out[run + "_logits"] = _bank_logits(eng, specs[1])
     eng = PaliGemmaEngine(params, cfg, max_seq_len=64, eos_token_id=EOS, use_flash=False,
                           decode_params=qparams, fused_layer=True, mesh=mesh)
@@ -263,8 +267,9 @@ def _jax_tokens(kind, specs, with_bank, spec):
 
     jp, jq, _, _ = _weights()
     cfg, mesh = _jcfg(), j_make_mesh(1, M)
-    bank = ({n: jax.tree.map(jnp.asarray, a) for n, a in _adapters().items()}
-            if with_bank else None)
+    dtype = jnp.bfloat16 if with_bank == "bf16" else jnp.float32
+    bank = ({n: jax.tree.map(lambda x: jnp.asarray(x).astype(dtype), a)
+             for n, a in _adapters().items()} if with_bank else None)
     kw = dict(max_slots=2, max_seq_len=64, sync_every=2, use_flash=False, decode_params=jq,
               mesh=mesh, prefix_cache=True, lora_bank=bank, spec_decode=spec,
               spec_draft_k=SPEC_K, grammars=_grammars(j_grammar))

@@ -262,13 +262,17 @@ def _jax_generate(spec):
 def test_engine_single_copy_matches_jax(path, spec, jax_checked_products):
     """PaliGemmaEngine from the int8 tree alone with int8_act_prefill: JAX's
     greedy tokens (B 2 x 130 rows; generate_spec B 1 x 256 rows), the
-    prefill's products W8A8 and JAX's bits."""
+    prefill's products W8A8 and JAX's bits. Both engines run at fp32 (the
+    tree JAX quantized from fp32 weights): the arithmetic of ``--dtype
+    float32 --int8_prefill``, whose K1 / K2 fp32 forms the card holds to
+    these plain versions bit for bit (tests/test_torch_cuda.py)."""
     _, _, _, tq = _weights()
     kernel = path == "kernel"
     pix, ids, mask = _prompt(1 if spec else 2, N_TXT + 126 if spec else N_TXT)
     assert ids.size >= 256
     eng = PaliGemmaEngine(tq, CFG, max_seq_len=MAX_SEQ + 128, decode_params=tq,
                           use_flash=kernel, fused_layer=kernel, int8_act_prefill=True)
+    assert eng.cache_dtype == torch.float32 == tq["lm"]["embed"].dtype
     if spec:
         got = eng.generate_spec(pix, ids, mask, max_new_tokens=10, eos_token_id=-1, draft_k=KD)
     else:
@@ -327,9 +331,11 @@ def _jax_serve(engine, variant):
     kw = _serving_kw(variant)
     if variant == "lora":
         kw["lora_bank"] = {n: _adapter_np(i + 5) for i, n in enumerate(LORAS[1:])}
-    if engine == "paged":
+    if engine == "paged":  # the XLA page walk: the reference's tick in fp32, without
+        # lowering the fused Pallas tick in interpret mode (~40 s a variant on the CPU)
         eng = j_paged.PagedServingEngine(jq, CFG, page_size=16, n_pages=N_PAGES,
-                                         decode_params=jq, use_flash=False, **kw)
+                                         decode_params=jq, use_flash=False,
+                                         paged_kernel="xla", **kw)
     else:
         eng = j_serving.ServingEngine(jq, CFG, decode_params=jq, use_flash=False, **kw)
     return _serve(eng, j_serving.Request, variant)
