@@ -37,7 +37,11 @@ seed, int8 decode tree) through its main paths:
   K2 against their plain versions, cli.serve --dtype float32 with --lora
   (dense and paged) and --int8_prefill, cli.infer --int8_prefill, and the
   TP engines at world size 1 over NCCL on the fp32 trees (one card's
-  tokens bit for bit, with the bank too);
+  tokens bit for bit, with the bank too); the Trainer on the fp32 tree
+  (B1 and B6's fp32 forms against plain attention on the first step, the
+  loss falling, 36 / 18 / 18 fp32 flash launches a step) and the 896 px
+  tower through B12's fp32 form; B6, B12 and B10's fp32 forms against their
+  plain versions;
 * the fine-tuning entry point (cli.finetune.main) on that checkpoint: LoRA
   r8 over a seeded manifest with evaluations and --export_hf, its losses
   bit for bit a Trainer's on the batches derived here in the CLI's order,
@@ -340,7 +344,20 @@ FP32_OF = {"flash_attention_fwd": "flash_attention_fwd_fp32", "int8_gemv": "int8
            "paged_decode_attention": "paged_decode_attention_fp32", "rms_norm": "rms_norm_fp32",
            "lora_shrink": "lora_shrink_fp32", "int8_gemv_f32": "int8_gemv_f32_fp32",
            "int8_gemv_f32_lora": "int8_gemv_f32_lora_fp32",
-           "w8a8_quant_rows": "w8a8_quant_rows_fp32", "w8a8_gemm": "w8a8_gemm_fp32"}
+           "w8a8_quant_rows": "w8a8_quant_rows_fp32", "w8a8_gemm": "w8a8_gemm_fp32",
+           "flash_attention_bwd_dq": "flash_attention_bwd_dq_fp32",
+           "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_fp32",
+           "vision_attention": "vision_attention_fp32",
+           "seg_decode_attention": "seg_decode_attention_fp32"}
+# the Trainer at fp32 (the fp32 phase's (h)): first step, kernels (B1 and
+# B6's fp32 forms) against plain attention from the same adapters. Both run
+# fp32 through 18 layers and differ only in the order of the attention's
+# sums (~1e-6 relative per op), so the loss agrees to 1e-5 and each LoRA-b
+# gradient to 1e-4 of its largest element; a dropped or garbled term is off
+# by O(1). Then FP32_TRAIN_STEPS counted steps at lr 1e-3.
+FP32_TRAIN_LOSS_REL_TOL = 1e-5
+FP32_TRAIN_GRAD_REL_TOL = 1e-4
+FP32_TRAIN_STEPS = 3
 
 
 def ptxas_lines(log_path, kernels_of_interest):
@@ -7473,6 +7490,192 @@ def fp32_kernel_phase(report: KernelReport, dev):
     fp32_bank_cases(report, dev, f32, int8_weight)
     fp32_partial_cases(report, dev, f32, int8_weight)
     fp32_w8a8_cases(report, dev, f32, int8_weight)
+    return fp32_attention_cases(report, dev, f32)
+
+
+def fp32_attention_cases(report: KernelReport, dev, f32):
+    """fp32_kernel_phase's attention forms of the training and ablation
+    paths, each against its plain fp32 version within FP32_REL of the
+    largest element, a second call the same bits:
+
+    * B6's fp32 dq and dk/dv (with the fp32-out split sum) at the training
+      shape (B2 S512 Hq8, and a TP rank's Hq4, Hkv1 D256, prefix 268, kv_len
+      512 / 400), GQA at D64, a kv_len 0 row at D72 (exact zeros), D128;
+      timed at Hq8 beside one fp32 SDPA backward with a bool mask;
+    * B12's fp32 form at the 224, 448 and 896 px towers (B1 H16 D72), timed
+      beside fp32 SDPA;
+    * B10's fp32 form at the Gemma-2B cache (S 2048, D 256) with pad holes
+      (NaN in skipped tiles is never read), timed at B1 beside fp32 SDPA,
+      then one counted call per case through its entry point.
+
+    Returns the counted calls' launches."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.kernels import flash_attention as fa
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as sda
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as va
+
+    # -- B6 at fp32
+    print("kernels: flash_attention_bwd_dq_fp32, flash_attention_bwd_dkv_fp32 (B6 fp32)",
+          flush=True)
+    for label, (b, s, hq, hkv, d), pfx, kvl, timed in [
+        ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 8, 1, 256), [268, 268], [512, 400], True),
+        ("train TP-local m=2 B2 S512 Hq4 Hkv1 D256", (2, 512, 4, 1, 256), [268, 268],
+         [512, 400], "device"),
+        ("GQA B2 S199 Hq4 Hkv2 D64", (2, 199, 4, 2, 64), [60, 100], [199, 150], False),
+        ("kv_len 0 row B2 S40 Hq4 Hkv2 D72", (2, 40, 4, 2, 72), [17, 0], [40, 0], False),
+        ("prefix-LM B1 S130 Hq2 Hkv1 D128", (1, 130, 2, 1, 128), [50], [130], False),
+    ]:
+        q, k, v, dout = f32(b, s, hq, d), f32(b, s, hkv, d), f32(b, s, hkv, d), f32(b, s, hq, d)
+        pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+        kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_with_lse(q, k, v, pl, kl)
+        delta = fa._delta(out, dout)
+        scale = d**-0.5
+
+        def run_dq(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, pl=pl, kl=kl, scale=scale):
+            return fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, pl, kl, scale)
+
+        def run_dkv(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, pl=pl, kl=kl, scale=scale):
+            return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, pl, kl, scale)
+
+        def plain(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, pl=pl, kl=kl, scale=scale):
+            return fa._reference_backward(q, k, v, dout, lse, delta, pl, kl, scale, 0)
+
+        dq, (dk, dv), want = run_dq(), run_dkv(), plain()
+        again = (run_dq(), *run_dkv())
+        sync()
+        report.case("flash_attention_bwd_dq_fp32", label, dq, want[0], FP32_REL, floor=0)
+        report.case("flash_attention_bwd_dkv_fp32", f"{label} dk", dk, want[1], FP32_REL,
+                    floor=0)
+        report.case("flash_attention_bwd_dkv_fp32", f"{label} dv", dv, want[2], FP32_REL,
+                    floor=0)
+        if not all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"flash backward fp32 {label}: a second call gave other bits")
+        if kvl[-1] == 0 and any(bool(t[-1].any()) for t in (dq, dk, dv)):
+            raise AssertionError("flash backward fp32: the kv_len 0 row is not exact zeros")
+        del want, again
+        if not timed:
+            continue
+        allowed = fa._allowed(s, s, pl, kl, 0, dev)
+        pairs = hq * int(allowed.sum())  # visible (query head, row, key) triples
+        stats = nbytes(lse, delta)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        a = _sdpa_args(*leaves, allowed)
+        lib_out = F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3],
+                                                 enable_gqa=True)
+
+        def lib_bwd(lib_out=lib_out, leaves=leaves, g=dout.transpose(1, 2)):
+            return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+
+        flops_dq, flops_dkv = 6 * d * pairs, 8 * d * pairs
+        bytes_dq = nbytes(q, k, v, dout, dq) + stats
+        bytes_dkv = nbytes(q, k, v, dout, dk, dv) + stats
+        dt = device_times(f"fp32 {label}", [("flash_attention_bwd_dq_fp32", run_dq),
+                                            ("flash_attention_bwd_dkv_fp32", run_dkv),
+                                            ("SDPA fp32 backward", lib_bwd)], iters=5)
+        print(f"  device B6 fp32 {label}: dq {_ms(dt['flash_attention_bwd_dq_fp32'])} (bound "
+              f"{bound_ms(flops_dq, bytes_dq, PEAK_FP32_FLOPS):.4f} ms), dk/dv "
+              f"{_ms(dt['flash_attention_bwd_dkv_fp32'])} (bound "
+              f"{bound_ms(flops_dkv, bytes_dkv, PEAK_FP32_FLOPS):.4f} ms), one fp32 SDPA "
+              f"backward {_ms(dt['SDPA fp32 backward'])}", flush=True)
+        if timed == "device":  # printed only
+            continue
+        report.time("flash_attention_bwd_dq_fp32", label, run_dq, lambda plain=plain: plain()[0],
+                    flops=flops_dq, n_bytes=bytes_dq, library_fn=lib_bwd, iters=10,
+                    peak=PEAK_FP32_FLOPS)
+        report.time("flash_attention_bwd_dkv_fp32", label, run_dkv,
+                    lambda plain=plain: plain()[1:], flops=flops_dkv, n_bytes=bytes_dkv,
+                    library_fn=lib_bwd, iters=10, peak=PEAK_FP32_FLOPS)
+    del q, k, v, dout, out, lse, delta, dq, dk, dv, lib_bwd
+
+    # -- B12 at fp32: the towers' S, B1 H16 D72
+    print("kernels: vision_attention_fp32 (B12 fp32; SigLIP-So400m H16 D72)", flush=True)
+    for label, s in (("224px B1 S256 H16 D72", 256), ("448px B1 S1024 H16 D72", 1024),
+                     ("896px B1 S4096 H16 D72", 4096)):
+        q, k, v = f32(1, s, 16, 72), f32(1, s, 16, 72), f32(1, s, 16, 72)
+        got, again = va.vision_attention(q, k, v), va.vision_attention(q, k, v)
+        want = va.vision_attention_reference(q, k, v, 72**-0.5)
+        sync()
+        report.case("vision_attention_fp32", label, got, want, FP32_REL, floor=0)
+        if not torch.equal(again, got):
+            raise AssertionError(f"vision_attention_fp32 {label}: a second call gave other bits")
+        del want, again
+        sdpa = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        flops = 4 * s * s * 72 * 16
+
+        def run(q=q, k=k, v=v):
+            return va.vision_attention(q, k, v)
+
+        def lib(sdpa=sdpa):
+            return F.scaled_dot_product_attention(*sdpa)
+
+        report.time("vision_attention_fp32", label, run,
+                    lambda q=q, k=k, v=v: va.vision_attention_reference(q, k, v, 72**-0.5),
+                    flops=flops, n_bytes=nbytes(q, k, v, got), library_fn=lib,
+                    iters=20 if s < 4096 else 3, peak=PEAK_FP32_FLOPS)
+        if s == 4096:
+            dt = device_times(f"fp32 {label}", [("vision_attention_fp32", run),
+                                                ("SDPA fp32", lib)], iters=2)
+            print(f"  device B12 fp32 {label}: " + ", ".join(
+                f"{n} {_ms(ms)}" for n, ms in dt.items()) + f"; bound "
+                f"{bound_ms(flops, nbytes(q, k, v, got), PEAK_FP32_FLOPS):.4f} ms", flush=True)
+        del q, k, v, got, sdpa
+
+    # -- B10 at fp32: Gemma-2B's cache, pad holes and kv_len at tile edges
+    print("kernels: seg_decode_attention_fp32 (B10 fp32; S_max 2048 D256)", flush=True)
+    seg_rows = ([2048, 64, 250, 256, 300, 33, 97, 700], [2048, 64, 266, 640, 300, 33, 1200, 700],
+                [2048, 64, 1000, 1024, 300, 33, 1500, 700])
+    cases = []
+    for b, hq, hkv in ((1, 8, 1), (8, 8, 1), (8, 4, 2)):
+        q, kc, vc = f32(b, hq, 256), f32(b, MAX_SEQ, hkv, 256), f32(b, MAX_SEQ, hkv, 256)
+        segs = [torch.tensor(r[:b], dtype=torch.int32, device=dev) for r in seg_rows]
+        label = f"B{b} Hq{hq} Hkv{hkv} W{MAX_SEQ} D256" + (" holes" if b > 1 else "")
+        got, again = sda.decode_attention(q, kc, vc, *segs), sda.decode_attention(q, kc, vc, *segs)
+        want = sda.reference_decode_attention(q, kc, vc, *segs)
+        sync()
+        report.case("seg_decode_attention_fp32", label, got, want, FP32_REL, floor=0)
+        if not torch.equal(again, got):
+            raise AssertionError(f"seg_decode_attention_fp32 {label}: a second call gave other "
+                                 "bits")
+        cases.append((q, kc, vc, segs))
+        if b > 1:  # NaN in the skipped tiles: they are never read
+            kp, vp = kc.clone(), vc.clone()
+            for t in (kp, vp):
+                t[3, 256:640] = float("nan")
+                t[1, 64:] = float("nan")
+            if not torch.equal(sda.decode_attention(q, kp, vp, *segs), got):
+                raise AssertionError(f"seg_decode_attention_fp32 {label}: read a tile it must "
+                                     "skip")
+            del kp, vp
+            continue
+        col = torch.arange(MAX_SEQ, device=dev)[None]
+        ok = (col < segs[0][:, None]) | ((col >= segs[1][:, None]) & (col < segs[2][:, None]))
+        n_keys = int(ok.sum())
+        a = (q[:, :, None], kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), ok[:, None, None])
+
+        def run(q=q, kc=kc, vc=vc, segs=segs):
+            return sda.decode_attention(q, kc, vc, *segs)
+
+        def lib(a=a):
+            return F.scaled_dot_product_attention(a[0], a[1], a[2], attn_mask=a[3],
+                                                  enable_gqa=True)
+
+        report.time("seg_decode_attention_fp32", label, run,
+                    lambda: sda.reference_decode_attention(q, kc, vc, *segs),
+                    flops=4 * 256 * hq * n_keys,
+                    n_bytes=nbytes(q, got, *segs) + 2 * n_keys * hkv * 256 * 4, library_fn=lib,
+                    peak=PEAK_FP32_FLOPS)
+        device_times(f"fp32 {label}", [("seg_decode_attention_fp32", run), ("SDPA fp32", lib)])
+    kernels.reset_launch_counts()
+    for q, kc, vc, segs in cases:
+        sda.decode_attention(q, kc, vc, *segs)
+    sync()
+    counts = kernels.launch_counts()
+    _only_launches("seg_decode_attention_fp32 entry point", counts,
+                   {"seg_decode_attention_fp32": len(cases)})
+    print(f"kernels: seg_decode_attention_fp32 entry-point runs: {len(cases)} launches, no "
+          "other kernel", flush=True)
+    return counts
 
 
 def _ms(v):
@@ -7781,7 +7984,13 @@ def fp32_phase(cfg, dev, card, d):
         activations: an int8 code a row, not an fp32 rounding);
     (g) the TP engines at world size 1 over NCCL on the fp32 trees: generate
         and the bank's 12 requests give one card's fp32 tokens bit for bit
-        (the fp32 partial and K1 summed by the all-reduce).
+        (the fp32 partial and K1 summed by the all-reduce);
+    (h) the Trainer on the fp32 tree (:func:`fp32_train`): B1 and B6's fp32
+        forms against plain attention on the first step, the loss falling,
+        exactly 36 / 18 / 18 fp32 flash launches a step.
+
+    (d) also encodes the tower with attn="fused" (27 B12 fp32 launches)
+    against attn="xla".
 
     Every launch of a run is an fp32 form's (``_as_bf16_names``), counted
     as the bf16 phases count theirs. Returns the counts summed over the
@@ -7965,7 +8174,12 @@ def fp32_phase(cfg, dev, card, d):
         # (g) the TP engines at world size 1 over NCCL
         add(fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank,
                              (pixels, ids, mask)))
-    del eng, ops, bank_k, p32, dq32
+    del eng, ops, bank_k, dq32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (h) the Trainer at fp32 on the same tree
+    add(fp32_train(p32, cfg, dev, card))
+    del p32
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8141,23 +8355,104 @@ def fp32_phase(cfg, dev, card, d):
                             torch.float32)
     px = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (1, 3, vcfg.image_size, vcfg.image_size), dtype=np.float32)).to(dev)
-    kernels.reset_launch_counts()
-    flash = siglip.encode(vp, vcfg, px, attn="flash")
-    sync()
-    counts = kernels.launch_counts()
-    add(counts)
-    _only_launches("fp32 tower", counts, {"flash_attention_fwd_fp32": vcfg.num_hidden_layers})
+    feats = {}
+    for attn, form in (("flash", "flash_attention_fwd_fp32"), ("fused", "vision_attention_fp32")):
+        kernels.reset_launch_counts()
+        feats[attn] = siglip.encode(vp, vcfg, px, attn=attn)
+        sync()
+        counts = kernels.launch_counts()
+        add(counts)
+        _only_launches(f"fp32 tower {attn}", counts, {form: vcfg.num_hidden_layers})
     plain = siglip.encode(vp, vcfg, px, attn="xla")
     sync()
-    rel = float((flash - plain).abs().max() / plain.abs().max())
-    ms = {a: cuda_ms(lambda a=a: siglip.encode(vp, vcfg, px, attn=a), 2) for a in ("flash", "xla")}
-    print(f"fp32 tower 896px: attn='flash' ({vcfg.num_hidden_layers} fp32 B1 launches) vs "
-          f"'xla' features max rel err {rel:.3e} of max |feature| (tol {FP32_LOGIT_TOL}); "
-          f"encode {ms['flash']:.2f} ms (flash) vs {ms['xla']:.2f} ms (xla)  [{card}]",
-          flush=True)
-    if not (torch.isfinite(flash).all() and rel <= FP32_LOGIT_TOL):
-        raise AssertionError(f"fp32 tower: flash vs xla features off by {rel}")
+    rel = {a: float((f - plain).abs().max() / plain.abs().max()) for a, f in feats.items()}
+    ms = {a: cuda_ms(lambda a=a: siglip.encode(vp, vcfg, px, attn=a), 2)
+          for a in ("flash", "fused", "xla")}
+    print(f"fp32 tower 896px: features max rel err of max |feature| against attn='xla': "
+          f"'flash' ({vcfg.num_hidden_layers} fp32 B1 launches) {rel['flash']:.3e}, 'fused' "
+          f"({vcfg.num_hidden_layers} fp32 B12 launches) {rel['fused']:.3e} (tol "
+          f"{FP32_LOGIT_TOL}); encode {ms['flash']:.2f} ms (flash), {ms['fused']:.2f} ms "
+          f"(fused), {ms['xla']:.2f} ms (xla)  [{card}]", flush=True)
+    for attn, f in feats.items():
+        if not (torch.isfinite(f).all() and rel[attn] <= FP32_LOGIT_TOL):
+            raise AssertionError(f"fp32 tower: {attn} vs xla features off by {rel[attn]}")
     return total, [int(t) for t in want_q[0]]
+
+
+def fp32_train(p32, cfg, dev, card):
+    """fp32_phase's (h): the Trainer on the phase's fp32 tree at full width
+    and depth (LoRA r8, alpha 8, remat; train_batch: B2 S512, prefix 268,
+    row 1 padded to 400 tokens): (a) the first step's loss and LoRA-b
+    gradients, the kernels (B1 and B6's fp32 forms) against plain attention
+    from the same adapters, within FP32_TRAIN_LOSS_REL_TOL and
+    FP32_TRAIN_GRAD_REL_TOL of its largest element; (b) the loss falls over
+    FP32_TRAIN_STEPS steps at lr 1e-3; (e) every step launches exactly
+    TRAIN_PER_STEP under the fp32 forms' names (36 forwards, 18 dq, 18 dk/dv)
+    and no bf16 kernel; the step ms and the peak allocated memory. Returns
+    the counted steps' launches."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    batch = train_batch(cfg)
+    tc = TrainConfig(lora_rank=8, lora_alpha=8.0, learning_rate=1e-3, remat=True)
+    kern = Trainer(p32, cfg, tc, generator=torch.Generator(dev).manual_seed(SEED))
+    plain = Trainer(p32, cfg, dataclasses.replace(tc, use_flash=False),
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    if not kern.use_flash or plain.use_flash:
+        raise AssertionError("fp32 train: the trainer did not select the flash kernels on CUDA")
+    loss_k, grads_k = kern.loss_and_grads(batch)
+    loss_p, grads_p = plain.loss_and_grads(batch)
+    sync()
+    del plain
+    names = [(t, key) for t, leaf in kern.lora["layers"].items() for key in leaf]
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, worst_at = 0.0, None
+    for (target, key), gk, gp in zip(names, grads_k, grads_p):
+        if key != "b":
+            continue
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"fp32 train (a): non-finite gradient of {target}.b")
+        rel = float((gk - gp).abs().max()) / float(gp.abs().max())
+        if rel > worst:
+            worst, worst_at = rel, target
+    print(f"fp32 train (a): first step, fp32 flash kernels vs plain attention: loss "
+          f"{float(loss_k):.7f} vs {float(loss_p):.7f} (rel {loss_rel:.3e}, tol "
+          f"{FP32_TRAIN_LOSS_REL_TOL}); LoRA-b gradients max rel err {worst:.3e} ({worst_at}.b; "
+          f"tol {FP32_TRAIN_GRAD_REL_TOL})  [{card}]", flush=True)
+    if loss_rel > FP32_TRAIN_LOSS_REL_TOL or worst > FP32_TRAIN_GRAD_REL_TOL:
+        raise AssertionError("fp32 train (a): kernel and plain first steps disagree")
+    del grads_k, grads_p
+
+    losses, times, total = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(FP32_TRAIN_STEPS):
+        kernels.reset_launch_counts()
+        loss, ms = _timed_step(kern, batch)
+        counts = kernels.launch_counts()
+        named = _as_bf16_names(f"fp32 train step {step}", counts)
+        want = {k: TRAIN_PER_STEP.get(k, 0) for k in named}
+        if named != want or not np.isfinite(loss):
+            raise AssertionError(f"fp32 train step {step}: launches {counts} (loss {loss}), want "
+                                 f"{want} under the fp32 forms' names")
+        losses.append(loss)
+        times.append(ms)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {FP32_OF[k]: v for k, v in TRAIN_PER_STEP.items()}
+    print(f"fp32 train (b): LoRA r8 lr 1e-3, {FP32_TRAIN_STEPS} steps on one batch: loss "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; (e) every step launched exactly "
+          f"{json.dumps(per_step)} and no other kernel  [{card}]", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fp32 train (b): the loss did not fall ({losses[0]} -> "
+                             f"{losses[-1]})")
+    ms = float(np.median(times[1:]))
+    n_tok = TRAIN_B * TRAIN_S
+    print(f"fp32 train: step B{TRAIN_B} S{TRAIN_S} LoRA r8 remat fp32: {ms:.1f} ms (median of "
+          f"{len(times) - 1}; steps {', '.join(f'{t:.1f}' for t in times)} ms), "
+          f"{n_tok / ms * 1e3:.0f} tok/s over all positions, peak allocated {peak:.2f} GiB (the "
+          f"fp32 tree included)  [{card}]", flush=True)
+    return total
 
 
 def fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank, inputs):
@@ -8256,7 +8551,7 @@ def main() -> int:
     kernel_phase(report, dev)
     tp_kernel_phase(report, dev)
     t1 = time.perf_counter()
-    fp32_kernel_phase(report, dev)
+    fp32_kernel_counts = fp32_kernel_phase(report, dev)
     print(f"kernels: fp32 forms done in {time.perf_counter() - t1:.1f} s", flush=True)
     sync()
     torch.cuda.empty_cache()
@@ -8329,7 +8624,7 @@ def main() -> int:
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
                                            spec_counts, finetune_counts, w8a8_counts,
-                                           train_mesh_counts, fp32_counts))
+                                           train_mesh_counts, fp32_counts, fp32_kernel_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -8418,6 +8713,16 @@ def main() -> int:
                                  "paligemma_tpu/kernels/quant.py:92"),
         "w8a8_gemm_fp32": ("cuda", "paligemma_tpu_torch/csrc/w8a8_gemm.cu",
                            "paligemma_tpu/kernels/quant.py:92"),
+        # the fp32 forms of the flash backward (the Trainer at fp32), B12, B10
+        "flash_attention_bwd_dq_fp32": ("cuda", "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
+                                        "paligemma_tpu/kernels/flash_attention.py:262"),
+        "flash_attention_bwd_dkv_fp32": ("cuda",
+                                         "paligemma_tpu_torch/csrc/flash_attention_bwd.cu",
+                                         "paligemma_tpu/kernels/flash_attention.py:321"),
+        "vision_attention_fp32": ("cuda", "paligemma_tpu_torch/csrc/flash_attention.cu",
+                                  "paligemma_tpu/kernels/ablation/vision_attention.py:47"),
+        "seg_decode_attention_fp32": ("cuda", "paligemma_tpu_torch/csrc/seg_attention.cu",
+                                      "paligemma_tpu/kernels/ablation/decode_attention.py:46"),
     }
     rows = []
     for name in kernels.WRAPPERS:

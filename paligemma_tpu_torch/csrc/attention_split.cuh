@@ -38,7 +38,9 @@
 // takes output column d of every head, p.v over the tile's keys in order,
 // with p not rounded. The combine is the same kernel, writing fp32. So
 // dense == paged and a verify row == its decode step hold bit for bit at
-// fp32 as at bf16. The fp32 tiles are twice the bf16 ones (DA_KT x DA32_LD
+// fp32 as at bf16. The three policies have fp32 forms (DenseKV<.., float>,
+// PagedKV<float>, SegKV<float>: 3b, B5 and B10 at fp32). The fp32 tiles
+// are twice the bf16 ones (DA_KT x DA32_LD
 // x 4 bytes each): with q and p they take 74 KB of dynamic shared memory,
 // two blocks an SM. Decode attention is bound by the window's bytes (at B1
 // W2048 D256, 4.19 MB: 1.25 us at 3.35 TB/s), so FFMA on the CUDA cores
@@ -103,9 +105,10 @@ struct PagedKV {
 // [0, seg0), a pad hole [seg0, seg1), the decode window [seg1, kv_len)).
 // A tile [k0, k0 + nk) is skipped iff it holds no visible key: wholly past
 // kv_len (and seg0), or wholly inside the hole, so the hole is never read.
+template <class E = bf16>
 struct SegKV {
-  const bf16* k;
-  const bf16* v;
+  const E* k;
+  const E* v;
   const int* seg0;
   const int* seg1;
   const int* kv_len;

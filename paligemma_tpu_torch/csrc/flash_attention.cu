@@ -86,7 +86,8 @@
 // bound by the operations: 77 GFLOP, 1.15 ms at 67 TFLOP/s fp32; each
 // float4 of K or V read feeds four FMAs, so the shared-memory reads (not
 // the FMAs) hold it to about a quarter of that peak. 3xTF32 on mma.sync
-// would be the faster design.
+// would be the faster design. B12's fp32 form (pg_vision_attention_fp32) is
+// this kernel with no lengths: every key visible, as in the vision tower.
 #include "common.cuh"
 
 #define FA_BK 64  // keys per K / V tile
@@ -472,7 +473,9 @@ __global__ void __launch_bounds__(FA32_NT, F32Cfg<DP>::MIN_BLOCKS)
   const int row = row0 + r;
   const bool live = row < rows;
   const int pos = (live ? row % Sq : 0) + q_offset;
-  const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  // no lengths (pg_vision_attention_fp32): every key is visible
+  const int plen = prefix_len ? prefix_len[b] : Skv;
+  const int klen = kv_len ? min(kv_len[b], Skv) : Skv;
   const int n_tiles =
       (fa_key_end(fa_positions(row0, FA32_BQ, rows, Sq, q_offset), plen, klen) + FA32_BK - 1) /
       FA32_BK;
@@ -665,4 +668,25 @@ PG_EXPORT int pg_flash_attention_fwd_fp32(const void* q, const void* k, const vo
                                scale, q_offset, st);
   return launch_fwd_f32<256>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
                              scale, q_offset, st);
+}
+
+// B12's fp32 form (kernels/ablation/vision_attention.py on fp32 tensors):
+// o = softmax(scale q k^T) v over all S keys of each head, i.e. this fp32
+// forward with every key visible (no lengths: prefix = kv_len = S), q_offset
+// 0, Hq = Hkv = H and no lse. q, k, v, out (B, S, H, D) fp32, contiguous,
+// 16-byte aligned, D % 8 == 0 and D <= 256.
+PG_EXPORT int pg_vision_attention_fp32(const void* q, const void* k, const void* v, void* out,
+                                       int B, int S, int H, int D, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_fwd_f32<64>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
+                              0, st);
+  if (D <= 80)
+    return launch_fwd_f32<80>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
+                              0, st);
+  if (D <= 128)
+    return launch_fwd_f32<128>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
+                               0, st);
+  return launch_fwd_f32<256>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
+                             0, st);
 }

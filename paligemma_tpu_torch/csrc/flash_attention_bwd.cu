@@ -60,6 +60,34 @@
 // ldmatrix is free of bank conflicts. Shared memory is dynamic: 198 KB (dq)
 // and 217 KB (dk/dv) at D <= 256, one block per SM. wgmma and TMA (FA3's
 // warp-specialised backward) are later work.
+//
+// The fp32 forms (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel; the
+// Trainer on fp32 parameters): the same function, mask, sweep bounds and
+// fixed-order split sum with fp32 q, k, v, dO, dq, dk and dv, and p and ds
+// not rounded (the TPU kernels' casts to the input dtype are the identity at
+// fp32). Simple FFMA kernels on the CUDA cores, in the layout of the
+// forward's fp32 form (csrc/flash_attention.cu flash_fwd_f32_kernel): fp32
+// tiles in shared memory at a row stride of DP + 4 floats (D rounded up to
+// DP in {64, 80, 128, 256}; zeros past D, past kv_len and past the rows),
+// each thread's sums over the depth in order, p from exp2 in log2 units.
+// * dq: a block of 256 threads owns 64 folded rows, four threads a row, as
+//   the forward does: Q and dO stay in shared memory, one 32-key K tile and
+//   one V tile stream (V_{j+1} loads during dQ += dS K_j); thread (row, c)
+//   takes S and dP of keys c, c + 4, ... of each tile, and dq columns
+//   4c + 16f .. + 3 of its row, each key's ds from the thread that made it
+//   (a shuffle), keys in order. 195 KB of shared memory at DP 256.
+// * dk/dv: a block owns 32 keys (8 threads a key) and one row split; K and
+//   V stay resident, 32-row tiles of Q, dO, lse and delta stream through a
+//   two-stage ring, tiles that see none of the block's keys skipped. Thread
+//   (key, c) takes S^T and dP^T of rows c, c + 8, ... and dk, dv columns
+//   4c + 32f .. + 3 of its key: 64 fp32 accumulators at DP 256 (at 64 keys
+//   of four threads each they would be 128 and spill). The split partials
+//   are summed by flash_bwd_dkv_sum<float>.
+// What bounds them: at the training shape, the operations at 67 TFLOP/s
+// fp32 (dq 4.0 GFLOP, 60 us; dk/dv 5.4 GFLOP, 81 us); every float4 read of
+// a K, V, Q or dO row from shared memory feeds four FMAs, so the shared
+// memory reads hold them well below that peak, as in the fp32 forward.
+// 3xTF32 on the tensor cores would be the faster design.
 #include "common.cuh"
 
 #define BW_M 64            // folded rows of a dq block; rows of a streamed dk/dv tile
@@ -116,10 +144,10 @@ __device__ __forceinline__ void cp_keys(bf16* dst, const bf16* __restrict__ src,
   }
 }
 
-// One past the last key any folded row of the 64-row tile at row0 sees.
-__device__ __forceinline__ int tile_key_end(int row0, int rows, int Sq, int q_offset, int plen,
-                                            int klen) {
-  const int last = min(row0 + BW_M, rows) - 1;
+// One past the last key any folded row of the n-row tile at row0 sees.
+__device__ __forceinline__ int tile_key_end(int row0, int n, int rows, int Sq, int q_offset,
+                                            int plen, int klen) {
+  const int last = min(row0 + n, rows) - 1;
   if (last < row0) return 0;
   const int max_i = (row0 / Sq == last / Sq) ? last - (last / Sq) * Sq : Sq - 1;
   return min(klen, max(plen, max_i + q_offset + 1));
@@ -146,7 +174,7 @@ __global__ void __launch_bounds__(256, 1)
   const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
   const int DP = (D + 15) & ~15;
   const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
-  const int kend = tile_key_end(row0, rows, Sq, q_offset, plen, klen);
+  const int kend = tile_key_end(row0, BW_M, rows, Sq, q_offset, plen, klen);
   const int n_kt = (kend + BW_N - 1) / BW_N;
 
   if (n_kt > 0) {
@@ -313,7 +341,8 @@ __global__ void __launch_bounds__(256, 1)
 
   // the first row tile at or after tt that sees a key of this block (t_end: none)
   auto next_tile = [&](int tt) {
-    while (tt < t_end && tile_key_end(tt * BW_M, rows, Sq, q_offset, plen, klen) <= k0) ++tt;
+    while (tt < t_end && tile_key_end(tt * BW_M, BW_M, rows, Sq, q_offset, plen, klen) <= k0)
+      ++tt;
     return tt;
   };
   auto load_tile = [&](int tt, int st) {
@@ -456,13 +485,349 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 forms (header): FFMA on the CUDA cores, fp32 tiles in shared memory.
+// ---------------------------------------------------------------------------
+#define BW32_M 64    // folded rows of a dq block
+#define BW32_N 32    // keys of a dq block's K / V tile; keys of a dk/dv block
+#define BW32_R 32    // rows of a dk/dv block's streamed Q / dO tile
+#define BW32_NT 256  // threads of a block
+
+// Tiles of fp32 rows of DP (D rounded up to 64, 80, 128 or 256) columns at a
+// row stride of DP + 4 floats: 16-byte rows, so that eight float4 reads of
+// eight rows (or four of four) fall in distinct banks.
+template <int DP>
+struct Bwd32 {
+  static constexpr int LD = DP + 4;
+  // dq: Q, dO (64 rows each), one K and one V tile (32 keys each)
+  static constexpr int DQ_BYTES = (2 * BW32_M + 2 * BW32_N) * LD * (int)sizeof(float);
+  // dk/dv: K, V (32 keys each), two stages of (Q, dO) of 32 rows, two
+  // stages of (lse, delta)
+  static constexpr int DKV_BYTES =
+      (2 * BW32_N + 4 * BW32_R) * LD * (int)sizeof(float) + 4 * BW32_R * (int)sizeof(float);
+};
+
+// 2^x (ex2.approx): p = exp(s scale - lse) is 2^(s c2 - lse log2 e), the
+// forward's (csrc/flash_attention.cu fa_exp2) arithmetic.
+__device__ __forceinline__ float bw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// n rows of an fp32 tensor into a tile of stride DP + 4, 16-byte cp.async
+// chunks, zeros where ok(r) is false and past D; addr(r) is the element
+// offset of row r.
+template <int DP, class Ok, class Addr>
+__device__ __forceinline__ void bw32_load(float* dst, const float* __restrict__ src, int n, int D,
+                                          Ok ok, Addr addr) {
+  constexpr int CH = DP / 4;
+  for (int idx = threadIdx.x; idx < n * CH; idx += BW32_NT) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bool on = c * 4 < D && ok(r);
+    cp_async_16(dst + r * Bwd32<DP>::LD + c * 4, on ? src + addr(r) + c * 4 : src, on);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BW32_NT, 1)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const int* __restrict__ prefix_len, const int* __restrict__ kv_len,
+                            float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
+                            float scale, int q_offset) {
+  constexpr int LD = Bwd32<DP>::LD, NF = DP / 16, CH = DP / 4, KI = BW32_N / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [BW32_M][LD]
+  float* dos = qs + BW32_M * LD;               // [BW32_M][LD]
+  float* ks = dos + BW32_M * LD;               // [BW32_N][LD]
+  float* vs = ks + BW32_N * LD;                // [BW32_N][LD]
+
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * BW32_M;
+  const int group = Hq / Hkv, rows = group * Sq;
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 2, c = threadIdx.x & 3;
+  const int row = row0 + r;
+  const bool live = row < rows;
+  const int pos = (live ? row % Sq : 0) + q_offset;
+  const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  const int n_tiles =
+      (tile_key_end(row0, BW32_M, rows, Sq, q_offset, plen, klen) + BW32_N - 1) / BW32_N;
+  const float c2 = scale * 1.4426950408889634f;  // scores to log2 units
+  const size_t stat = ((size_t)b * Hkv + kvh) * rows + row;
+  const float lse2 = live ? lse[stat] * 1.4426950408889634f : 0.f;
+  const float dl = live ? delta[stat] : 0.f;
+
+  auto row_ok = [&](int rr) { return row0 + rr < rows; };
+  auto row_addr = [&](int rr) {
+    const int fr = row0 + rr, gi = fr / Sq, i = fr - gi * Sq;
+    return (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D;
+  };
+  // the tile of keys k0 .. k0 + BW32_N - 1 of k or v: zeros at and past klen
+  auto load_keys = [&](float* dst, const float* src, int k0) {
+    bw32_load<DP>(dst, src, BW32_N, D, [&](int j) { return k0 + j < klen; },
+                  [&](int j) { return (((size_t)b * Skv + k0 + j) * Hkv + kvh) * D; });
+  };
+
+  if (n_tiles > 0) {
+    bw32_load<DP>(qs, q, BW32_M, D, row_ok, row_addr);
+    bw32_load<DP>(dos, dout, BW32_M, D, row_ok, row_addr);
+    load_keys(ks, k, 0);
+    load_keys(vs, v, 0);
+  }
+  cp_async_commit();
+
+  float acc[NF][4];  // dq of columns 4c + 16f .. + 3 of this thread's row
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.f;
+  const float* qr = qs + r * LD;
+  const float* dor = dos + r * LD;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BW32_N;
+    cp_async_wait<0>();  // K_j and V_j (and Q, dO) have landed
+    __syncthreads();
+    // S and dP: keys k0 + c + 4 i of this thread's row, over the depth in order
+    float s[KI], dp[KI];
+#pragma unroll
+    for (int i = 0; i < KI; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < CH; ++ch) {
+      const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * ch);
+      const float4 ov = *reinterpret_cast<const float4*>(dor + 4 * ch);
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * i) * LD + 4 * ch);
+        const float4 vv = *reinterpret_cast<const float4*>(vs + (c + 4 * i) * LD + 4 * ch);
+        s[i] = fmaf(qv.x, kv.x, s[i]);
+        s[i] = fmaf(qv.y, kv.y, s[i]);
+        s[i] = fmaf(qv.z, kv.z, s[i]);
+        s[i] = fmaf(qv.w, kv.w, s[i]);
+        dp[i] = fmaf(ov.x, vv.x, dp[i]);
+        dp[i] = fmaf(ov.y, vv.y, dp[i]);
+        dp[i] = fmaf(ov.z, vv.z, dp[i]);
+        dp[i] = fmaf(ov.w, vv.w, dp[i]);
+      }
+    }
+    // ds = p (dP - delta), 0 by a select for a masked pair or a padded row
+    float ds[KI];
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const int key = k0 + c + 4 * i;
+      const bool ok = live && key < klen && (key < plen || key <= pos);
+      ds[i] = ok ? bw_exp2(fmaf(s[i], c2, -lse2)) * (dp[i] - dl) : 0.f;
+    }
+    __syncthreads();  // every thread is done with V_j
+    if (j + 1 < n_tiles) load_keys(vs, v, k0 + BW32_N);
+    cp_async_commit();
+    // dQ += dS K: key 4 i + cc's ds from the row's thread cc, in key order
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float dsj = __shfl_sync(0xffffffffu, ds[i], (lane & ~3) | cc);
+        const float* kr = ks + (cc + 4 * i) * LD + 4 * c;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + 16 * f);
+          acc[f][0] = fmaf(dsj, kv.x, acc[f][0]);
+          acc[f][1] = fmaf(dsj, kv.y, acc[f][1]);
+          acc[f][2] = fmaf(dsj, kv.z, acc[f][2]);
+          acc[f][3] = fmaf(dsj, kv.w, acc[f][3]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with K_j
+    if (j + 1 < n_tiles) load_keys(ks, k, k0 + BW32_N);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  if (!live) return;
+  float* dst = dq + row_addr(r) + 4 * c;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (4 * c + 16 * f < D)
+      *reinterpret_cast<float4*>(dst + 16 * f) = make_float4(
+          acc[f][0] * scale, acc[f][1] * scale, acc[f][2] * scale, acc[f][3] * scale);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BW32_NT, 1)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const int* __restrict__ prefix_len, const int* __restrict__ kv_len,
+                             float* __restrict__ part_dk, float* __restrict__ part_dv, int Sq,
+                             int Skv, int Hq, int Hkv, int D, float scale, int q_offset,
+                             int tiles_per_split) {
+  constexpr int LD = Bwd32<DP>::LD, CH = DP / 4, NF = (DP + 31) / 32, RI = BW32_R / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [BW32_N][LD]
+  float* vs = ks + BW32_N * LD;                // [BW32_N][LD]
+  float* qd = vs + BW32_N * LD;                // stage s: Q at qd + 2 s BW32_R LD, dO after it
+  float* stats = qd + 4 * BW32_R * LD;         // stage s: lse log2 e, then delta
+
+  const int nkt = (Skv + BW32_N - 1) / BW32_N;
+  const int kt = blockIdx.x % nkt, split = blockIdx.x / nkt;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = kt * BW32_N;
+  const int group = Hq / Hkv, rows = group * Sq;
+  const int lane = threadIdx.x & 31, kl = threadIdx.x >> 3, c = threadIdx.x & 7;
+  const int key = k0 + kl;
+  const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
+  const int t_end = min((rows + BW32_R - 1) / BW32_R, (split + 1) * tiles_per_split);
+  const size_t stat0 = ((size_t)b * Hkv + kvh) * rows;
+  const float c2 = scale * 1.4426950408889634f;
+
+  // the first row tile at or after tt that sees a key of this block (t_end: none)
+  auto next_tile = [&](int tt) {
+    while (tt < t_end && tile_key_end(tt * BW32_R, BW32_R, rows, Sq, q_offset, plen, klen) <= k0)
+      ++tt;
+    return tt;
+  };
+  auto load_tile = [&](int tt, int st) {
+    float* qst = qd + st * 2 * BW32_R * LD;
+    const int row0 = tt * BW32_R;
+    auto ok = [&](int rr) { return row0 + rr < rows; };
+    auto addr = [&](int rr) {
+      const int fr = row0 + rr, gi = fr / Sq, i = fr - gi * Sq;
+      return (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D;
+    };
+    bw32_load<DP>(qst, q, BW32_R, D, ok, addr);
+    bw32_load<DP>(qst + BW32_R * LD, dout, BW32_R, D, ok, addr);
+    if (threadIdx.x < 2 * BW32_R) {  // lse by threads 0-31, delta by 32-63
+      const int row = row0 + (threadIdx.x & (BW32_R - 1));
+      const float* src = threadIdx.x < BW32_R ? lse : delta;
+      cp_async_4(stats + st * 2 * BW32_R + threadIdx.x, row < rows ? src + stat0 + row : src,
+                 row < rows);
+    }
+  };
+
+  float acc_dk[NF][4], acc_dv[NF][4];  // columns 4c + 32f .. + 3 of this thread's key
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[f][e] = acc_dv[f][e] = 0.f;
+
+  int tt = k0 < klen ? next_tile(split * tiles_per_split) : t_end;
+  if (tt < t_end) {
+    auto key_ok = [&](int j) { return k0 + j < klen; };
+    auto key_addr = [&](int j) { return (((size_t)b * Skv + k0 + j) * Hkv + kvh) * D; };
+    bw32_load<DP>(ks, k, BW32_N, D, key_ok, key_addr);
+    bw32_load<DP>(vs, v, BW32_N, D, key_ok, key_addr);
+    load_tile(tt, 0);
+    cp_async_commit();
+  }
+  const float* kr = ks + kl * LD;
+  const float* vr = vs + kl * LD;
+  for (int it = 0; tt < t_end; ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile tt is visible to all; the previous tile's stage is free
+    const int tn = next_tile(tt + 1);
+    if (tn < t_end) {
+      load_tile(tn, st ^ 1);
+      cp_async_commit();
+    }
+    const float* qst = qd + st * 2 * BW32_R * LD;
+    const float* dost = qst + BW32_R * LD;
+    const float* lse_s = stats + st * 2 * BW32_R;
+    const int row0 = tt * BW32_R;
+
+    // S^T and dP^T of this thread's key against rows c + 8 i of the tile
+    float s[RI], dp[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < CH; ++ch) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * ch);
+      const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * ch);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qst + (c + 8 * i) * LD + 4 * ch);
+        const float4 ov = *reinterpret_cast<const float4*>(dost + (c + 8 * i) * LD + 4 * ch);
+        s[i] = fmaf(kv.x, qv.x, s[i]);
+        s[i] = fmaf(kv.y, qv.y, s[i]);
+        s[i] = fmaf(kv.z, qv.z, s[i]);
+        s[i] = fmaf(kv.w, qv.w, s[i]);
+        dp[i] = fmaf(vv.x, ov.x, dp[i]);
+        dp[i] = fmaf(vv.y, ov.y, dp[i]);
+        dp[i] = fmaf(vv.z, ov.z, dp[i]);
+        dp[i] = fmaf(vv.w, ov.w, dp[i]);
+      }
+    }
+    float p[RI], ds[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int rr = c + 8 * i, row = row0 + rr;
+      const bool ok = row < rows && key < klen && (key < plen || key <= row % Sq + q_offset);
+      p[i] = ok ? bw_exp2(fmaf(s[i], c2, -lse_s[rr] * 1.4426950408889634f)) : 0.f;
+      ds[i] = ok ? p[i] * (dp[i] - lse_s[BW32_R + rr]) : 0.f;
+    }
+    // dV += P^T dO and dK += dS^T Q over the tile's rows in order: row
+    // cc + 8 i's p and ds from the key's thread cc
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], (lane & ~7) | cc);
+        const float dsj = __shfl_sync(0xffffffffu, ds[i], (lane & ~7) | cc);
+        const float* orow = dost + (cc + 8 * i) * LD + 4 * c;
+        const float* qrow = qst + (cc + 8 * i) * LD + 4 * c;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          if (4 * c + 32 * f < DP) {
+            const float4 ov = *reinterpret_cast<const float4*>(orow + 32 * f);
+            const float4 qv = *reinterpret_cast<const float4*>(qrow + 32 * f);
+            acc_dv[f][0] = fmaf(pj, ov.x, acc_dv[f][0]);
+            acc_dv[f][1] = fmaf(pj, ov.y, acc_dv[f][1]);
+            acc_dv[f][2] = fmaf(pj, ov.z, acc_dv[f][2]);
+            acc_dv[f][3] = fmaf(pj, ov.w, acc_dv[f][3]);
+            acc_dk[f][0] = fmaf(dsj, qv.x, acc_dk[f][0]);
+            acc_dk[f][1] = fmaf(dsj, qv.y, acc_dk[f][1]);
+            acc_dk[f][2] = fmaf(dsj, qv.z, acc_dk[f][2]);
+            acc_dk[f][3] = fmaf(dsj, qv.w, acc_dk[f][3]);
+          }
+        }
+      }
+    }
+    tt = tn;
+  }
+
+  // fp32 partials of this thread's key, columns 4c + 32f .. + 3 (dk unscaled)
+  if (key >= Skv) return;
+  const size_t total = (size_t)gridDim.z * Hkv * Skv * D;
+  const size_t off = split * total + (((size_t)b * Hkv + kvh) * Skv + key) * D + 4 * c;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (4 * c + 32 * f < D) {
+      *reinterpret_cast<float4*>(part_dk + off + 32 * f) =
+          make_float4(acc_dk[f][0], acc_dk[f][1], acc_dk[f][2], acc_dk[f][3]);
+      *reinterpret_cast<float4*>(part_dv + off + 32 * f) =
+          make_float4(acc_dv[f][0], acc_dv[f][1], acc_dv[f][2], acc_dv[f][3]);
+    }
+  }
+}
+
+// Four consecutive outputs (4-element aligned): bf16 rounded to nearest
+// even, or fp32 as they are.
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_f32_bf16x2(a, b), pack_f32_bf16x2(c, d));
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
 // dk = scale * sum of the dk partials, dv = sum of the dv partials, in split
-// order; partials are (nsplit, B, Hkv, Skv, D), outputs (B, Skv, Hkv, D).
-// Each thread adds 4 consecutive columns (D % 8 == 0).
+// order; partials are (nsplit, B, Hkv, Skv, D), outputs (B, Skv, Hkv, D) in
+// T (bf16 for the bf16 kernel, fp32 for its fp32 form). Each thread adds 4
+// consecutive columns (D % 8 == 0).
+template <class T>
 __global__ void flash_bwd_dkv_sum(const float* __restrict__ part_dk,
-                                  const float* __restrict__ part_dv, bf16* __restrict__ dk,
-                                  bf16* __restrict__ dv, int nsplit, int B, int Skv, int Hkv,
-                                  int D, float scale) {
+                                  const float* __restrict__ part_dv, T* __restrict__ dk,
+                                  T* __restrict__ dv, int nsplit, int B, int Skv, int Hkv, int D,
+                                  float scale) {
   const size_t total = (size_t)B * Hkv * Skv * D;
   const size_t idx = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (idx >= total) return;
@@ -479,11 +844,21 @@ __global__ void flash_bwd_dkv_sum(const float* __restrict__ part_dk,
     sv.x += c.x, sv.y += c.y, sv.z += c.z, sv.w += c.w;
   }
   const size_t out = (((size_t)b * Skv + key) * Hkv + kvh) * D + d;
-  *reinterpret_cast<uint2*>(dk + out) =
-      make_uint2(pack_f32_bf16x2(sk.x * scale, sk.y * scale),
-                 pack_f32_bf16x2(sk.z * scale, sk.w * scale));
-  *reinterpret_cast<uint2*>(dv + out) =
-      make_uint2(pack_f32_bf16x2(sv.x, sv.y), pack_f32_bf16x2(sv.z, sv.w));
+  store4(dk + out, sk.x * scale, sk.y * scale, sk.z * scale, sk.w * scale);
+  store4(dv + out, sv.x, sv.y, sv.z, sv.w);
+}
+
+// The sum pass on ``st``; returns cudaGetLastError().
+template <class T>
+static int launch_dkv_sum(const void* part_dk, const void* part_dv, void* dk, void* dv,
+                          int nsplit, int B, int Skv, int Hkv, int D, float scale,
+                          cudaStream_t st) {
+  const size_t quads = (size_t)B * Hkv * Skv * D / 4;
+  const int threads = 256;
+  flash_bwd_dkv_sum<T><<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
+      (const float*)part_dk, (const float*)part_dv, (T*)dk, (T*)dv, nsplit, B, Skv, Hkv, D,
+      scale);
+  return (int)cudaGetLastError();
 }
 
 // The kernel's dynamic shared memory above 48 KB, allowed once per process.
@@ -556,10 +931,88 @@ PG_EXPORT int pg_flash_attention_bwd_dkv(const void* q, const void* k, const voi
                : launch_dkv<256>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk,
                                  part_dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
   if (err != 0) return err;
-  const size_t quads = (size_t)B * Hkv * Skv * D / 4;
-  const int threads = 256;
-  flash_bwd_dkv_sum<<<(unsigned)((quads + threads - 1) / threads), threads, 0, st>>>(
-      (const float*)part_dk, (const float*)part_dv, (bf16*)dk, (bf16*)dv, nsplit, B, Skv, Hkv,
-      D, scale);
+  return launch_dkv_sum<bf16>(part_dk, part_dv, dk, dv, nsplit, B, Skv, Hkv, D, scale, st);
+}
+
+template <int DP>
+static int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, const void* prefix_len,
+                         const void* kv_len, void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
+                         int D, float scale, int q_offset, cudaStream_t st) {
+  constexpr int bytes = Bwd32<DP>::DQ_BYTES;
+  static const int attr = allow_smem(flash_bwd_dq_f32_kernel<DP>, bytes);
+  if (attr != 0) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  dim3 grid((rows + BW32_M - 1) / BW32_M, Hkv, B);
+  flash_bwd_dq_f32_kernel<DP><<<grid, BW32_NT, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (float*)dq, Sq, Skv, Hq,
+      Hkv, D, scale, q_offset);
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+static int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const void* prefix_len,
+                          const void* kv_len, void* part_dk, void* part_dv, int B, int Sq,
+                          int Skv, int Hq, int Hkv, int D, int nsplit, float scale, int q_offset,
+                          cudaStream_t st) {
+  constexpr int bytes = Bwd32<DP>::DKV_BYTES;
+  static const int attr = allow_smem(flash_bwd_dkv_f32_kernel<DP>, bytes);
+  if (attr != 0) return attr;
+  const int n_tiles = ((Hq / Hkv) * Sq + BW32_R - 1) / BW32_R;
+  const int tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
+  dim3 grid(((Skv + BW32_N - 1) / BW32_N) * nsplit, Hkv, B);
+  flash_bwd_dkv_f32_kernel<DP><<<grid, BW32_NT, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (float*)part_dk,
+      (float*)part_dv, Sq, Skv, Hq, Hkv, D, scale, q_offset, tiles_per_split);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 forms: q, k, v, dout and dq (dk, dv) fp32, the rest as
+// pg_flash_attention_bwd_dq (_dkv); nsplit row splits of 32-row tiles.
+PG_EXPORT int pg_flash_attention_bwd_dq_fp32(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, const void* prefix_len,
+                                             const void* kv_len, void* dq, int B, int Sq,
+                                             int Skv, int Hq, int Hkv, int D, float scale,
+                                             int q_offset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 64)
+    return launch_dq_f32<64>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq,
+                             Hkv, D, scale, q_offset, st);
+  if (D <= 80)
+    return launch_dq_f32<80>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq,
+                             Hkv, D, scale, q_offset, st);
+  if (D <= 128)
+    return launch_dq_f32<128>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv,
+                              Hq, Hkv, D, scale, q_offset, st);
+  return launch_dq_f32<256>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq, Skv, Hq,
+                            Hkv, D, scale, q_offset, st);
+}
+
+PG_EXPORT int pg_flash_attention_bwd_dkv_fp32(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse,
+                                              const void* delta, const void* prefix_len,
+                                              const void* kv_len, void* part_dk, void* part_dv,
+                                              void* dk, void* dv, int B, int Sq, int Skv, int Hq,
+                                              int Hkv, int D, int nsplit, float scale,
+                                              int q_offset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err;
+  if (D <= 64)
+    err = launch_dkv_f32<64>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv, B,
+                             Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
+  else if (D <= 80)
+    err = launch_dkv_f32<80>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv, B,
+                             Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
+  else if (D <= 128)
+    err = launch_dkv_f32<128>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv,
+                              B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
+  else
+    err = launch_dkv_f32<256>(q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv,
+                              B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, st);
+  if (err != 0) return err;
+  return launch_dkv_sum<float>(part_dk, part_dv, dk, dv, nsplit, B, Skv, Hkv, D, scale, st);
 }

@@ -18,7 +18,9 @@
 // past kv_len, or wholly inside the pad hole [seg0, seg1)) skipped without
 // a load, and a fixed-order combine. A page table cannot express the hole,
 // so this is a policy of its own rather than the paged kernel over an
-// identity table.
+// identity table. fp32 q and cache (pg_seg_attention_fp32) take the fp32
+// split pass over the same policy (SegKV<float>): fp32 tiles, scores and
+// p.v in order on the CUDA cores, p not rounded, the same skipped tiles.
 #include "attention_split.cuh"
 
 PG_EXPORT int pg_seg_attention(const void* q, const void* k_cache, const void* v_cache,
@@ -26,8 +28,23 @@ PG_EXPORT int pg_seg_attention(const void* q, const void* k_cache, const void* v
                                void* part_m, void* part_l, void* part_o, void* out, int B,
                                int Hq, int Hkv, int D, int S, int nsplit, float scale,
                                void* stream) {
-  SegKV kv{(const bf16*)k_cache, (const bf16*)v_cache, (const int*)seg0, (const int*)seg1,
-           (const int*)kv_len, S, Hkv, D};
+  SegKV<bf16> kv{(const bf16*)k_cache, (const bf16*)v_cache, (const int*)seg0,
+                 (const int*)seg1, (const int*)kv_len, S, Hkv, D};
   return attn_launch((const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
                      (bf16*)out, B, Hq / Hkv, Hkv, D, S, nsplit, scale, (cudaStream_t)stream);
+}
+
+// The fp32 form: q (B, Hq, D), the caches and out fp32, the rest as
+// pg_seg_attention; attention_split.cuh's fp32 split pass over SegKV<float>
+// and the combine writing fp32.
+PG_EXPORT int pg_seg_attention_fp32(const void* q, const void* k_cache, const void* v_cache,
+                                    const void* seg0, const void* seg1, const void* kv_len,
+                                    void* part_m, void* part_l, void* part_o, void* out, int B,
+                                    int Hq, int Hkv, int D, int S, int nsplit, float scale,
+                                    void* stream) {
+  SegKV<float> kv{(const float*)k_cache, (const float*)v_cache, (const int*)seg0,
+                  (const int*)seg1, (const int*)kv_len, S, Hkv, D};
+  return attn_launch_f32((const float*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                         (float*)out, B, Hq / Hkv, Hkv, D, S, nsplit, scale,
+                         (cudaStream_t)stream);
 }

@@ -73,6 +73,9 @@ WRAPPERS = {
     "int8_gemv_f32_lora_fp32": _int8_gemv.int8_gemv_f32_lora_fp32,
     "w8a8_quant_rows_fp32": _w8a8.w8a8_quant_rows_fp32,
     "w8a8_gemm_fp32": _w8a8.w8a8_gemm_fp32,
+    # the fp32 forms of the flash backward (the Trainer on fp32 parameters)
+    "flash_attention_bwd_dq_fp32": _flash_attention.flash_attention_bwd_dq_fp32,
+    "flash_attention_bwd_dkv_fp32": _flash_attention.flash_attention_bwd_dkv_fp32,
     # the ablation shelf (kernels/ablation), reached through its own entry
     # points and siglip.encode(attn="fused")
     "vision_attention": _vision_attention.vision_attention,
@@ -80,6 +83,9 @@ WRAPPERS = {
     "int4_matmul": _quant4.int4_matmul,
     "int8_matmul": _quant_pallas.int8_matmul,
     "int8_matmul_nmajor": _quant_pallas.int8_matmul_nmajor,
+    # the fp32 forms of B12 and B10
+    "vision_attention_fp32": _vision_attention.vision_attention_fp32,
+    "seg_decode_attention_fp32": _seg_attention.decode_attention_fp32,
 }
 
 

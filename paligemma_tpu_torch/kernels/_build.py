@@ -48,6 +48,9 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, prefix_len, kv_len, part_dk, part_dv, dk,
     # dv, B, Sq, Skv, Hq, Hkv, D, nsplit, scale, q_offset, stream
     "pg_flash_attention_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    # the same two with fp32 q, k, v, dout, dq, dk and dv
+    "pg_flash_attention_bwd_dq_fp32": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    "pg_flash_attention_bwd_dkv_fp32": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     # x, w8, s, residual, out, B, K, N, mode, cluster, warps, k_per_cta,
     # stream
     "pg_int8_gemv": [_P] * 5 + [_I] * 7 + [_P],
@@ -82,9 +85,12 @@ SIGNATURES = {
     "pg_vision_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k, v, B, S, H, D, rows, iters (the tensor maps only, no launch)
     "pg_vision_attention_maps": [_P] * 3 + [_I] * 6,
+    # fp32 q, k, v, out, B, S, H, D, scale, stream (the fp32 flash forward)
+    "pg_vision_attention_fp32": [_P] * 4 + [_I] * 4 + [_F, _P],
     # q, k_cache, v_cache, seg0, seg1, kv_len, part_m, part_l, part_o, out, B,
     # Hq, Hkv, D, S, nsplit, scale, stream
     "pg_seg_attention": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "pg_seg_attention_fp32": [_P] * 10 + [_I] * 6 + [_F, _P],
     # x, w8, s, out, M, K, N, nmajor, rows, cluster, kst, ctas, stream
     "pg_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],
     # x, w4p, s, out, M, K, N, rows, cluster, kst, ctas, stream

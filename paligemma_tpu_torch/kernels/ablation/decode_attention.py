@@ -13,6 +13,11 @@ window ``[prompt_len, kv_len)``. The kernel skips every 32-key tile that
 holds no visible key (past ``kv_len`` or inside the hole) without reading
 it. A row with no visible key gives zeros (the TPU kernel gives the mean of
 the values it read there; callers never ask for such a row).
+
+fp32 q and an fp32 cache take the fp32 form (counted apart on
+:func:`decode_attention_fp32`): ``csrc/attention_split.cuh``'s fp32 split
+pass over the same visible-key policy (fp32 tiles, scores and p.v on the
+CUDA cores, p not rounded) and the combine writing fp32.
 """
 
 from __future__ import annotations
@@ -83,13 +88,14 @@ def decode_attention(
     dev = q.device
     if scale is None:
         scale = d**-0.5
-    if q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError("decode_attention: q must be contiguous bf16 (B, Hq, D)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous bf16 or fp32 (B, Hq, D)")
+    fp32 = q.dtype == torch.float32
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if (c.dtype != torch.bfloat16 or c.shape != (b, s_max, hkv, d) or not c.is_contiguous()
+        if (c.dtype != q.dtype or c.shape != (b, s_max, hkv, d) or not c.is_contiguous()
                 or c.device != dev or c.data_ptr() % 16):
-            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned bf16 "
-                             "(B, S_max, Hkv, D) with q's B and D")
+            raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned "
+                             f"{q.dtype} (B, S_max, Hkv, D) with q's B and D: q's dtype")
     segs = []
     for name, t in (("seg0_end", seg0_end), ("seg1_start", seg1_start), ("kv_len", kv_len)):
         if t.shape != (b,) or t.device != dev:
@@ -101,14 +107,28 @@ def decode_attention(
                          f"B*Hkv <= {MAX_BATCH}")
     plan = split_plan(q, k_cache)
     part_m, part_l, part_o = plan.scratch(dev)
-    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
-    err = _build.library().pg_seg_attention(
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    lib = _build.library()
+    err = (lib.pg_seg_attention_fp32 if fp32 else lib.pg_seg_attention)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *(t.data_ptr() for t in segs),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(), b, hq, hkv, d,
         s_max, plan.nsplit, float(scale), _build.stream_ptr(dev))
-    _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _build.check(err, "decode_attention_fp32" if fp32 else "decode_attention")
+    (decode_attention_fp32 if fp32 else decode_attention).launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_fp32(q, k_cache, v_cache, seg0_end, seg1_start, kv_len, scale=None,
+                          block_k=None):
+    """:func:`decode_attention` of fp32 q and cache on the fp32 split pass;
+    the count of its launches (which :func:`decode_attention` makes for fp32
+    q)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"decode_attention_fp32: fp32 q and cache, got {q.dtype}")
+    return decode_attention(q, k_cache, v_cache, seg0_end, seg1_start, kv_len, scale, block_k)
+
+
+decode_attention_fp32.launches = 0

@@ -12,6 +12,13 @@ The plain version is that one-shot softmax. The kernel streams K and V in
 128-key tiles with an online softmax (a running max and sum per row) on
 wgmma tensor-core products fed by TMA, so it holds no row of scores whole
 and takes any S the TPU kernel takes (a multiple of 128).
+
+fp32 q, k and v take the fp32 form (counted apart on
+:func:`vision_attention_fp32`): the fp32 flash forward
+(``csrc/flash_attention.cu`` ``flash_fwd_f32_kernel``, entry point
+``pg_vision_attention_fp32``) with every key visible and no lse, which is
+this function at fp32 with p unrounded (the TPU kernel's cast of p to v's
+dtype is the identity there). The wrapper's rules are the bf16 kernel's.
 """
 
 from __future__ import annotations
@@ -82,14 +89,24 @@ def vision_attention(
     if not q.is_cuda:
         return vision_attention_reference(q, k, v, scale)
     dev = q.device
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"vision_attention: bf16 or fp32 q, k and v, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.dtype != torch.bfloat16 or t.shape != q.shape or not t.is_contiguous()
+        if (t.dtype != q.dtype or t.shape != q.shape or not t.is_contiguous()
                 or t.device != dev or t.data_ptr() % 16):
             raise ValueError(f"vision_attention: {name} must be contiguous 16-byte aligned "
-                             "bf16 (B, S, H, D) on q's device")
+                             f"{q.dtype} (B, S, H, D) on q's device: q's dtype")
     rows = launch_plan(b, s, h, d)
     out = torch.empty_like(q)
-    err = _build.library().pg_vision_attention(
+    lib = _build.library()
+    if q.dtype == torch.float32:
+        err = lib.pg_vision_attention_fp32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), b, s, h, d, float(scale),
+                                           _build.stream_ptr(dev))
+        _build.check(err, "vision_attention_fp32")
+        vision_attention_fp32.launches += 1
+        return out
+    err = lib.pg_vision_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, rows,
         float(scale), _build.stream_ptr(dev))
     _build.check(err, "vision_attention")
@@ -98,3 +115,15 @@ def vision_attention(
 
 
 vision_attention.launches = 0
+
+
+def vision_attention_fp32(q, k, v, scale: Optional[float] = None,
+                          head_block: Optional[int] = None) -> torch.Tensor:
+    """:func:`vision_attention` of fp32 q, k and v; the count of its fp32
+    form's launches (which :func:`vision_attention` makes for fp32 q)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"vision_attention_fp32: fp32 q, k and v, got {q.dtype}")
+    return vision_attention(q, k, v, scale, head_block)
+
+
+vision_attention_fp32.launches = 0

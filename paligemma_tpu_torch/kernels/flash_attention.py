@@ -21,10 +21,13 @@ softmax, and the same FA2 arithmetic in fp32 torch, with p (forward and
 backward) and ds rounded to the inputs' dtype before their products where
 the TPU kernels (and the CUDA kernels' bf16 tensor-core operands) round them.
 
-fp32 q, k and v (``--dtype float32``) take the fp32 form of the forward
-(``flash_fwd_f32_kernel``, counted apart as :func:`flash_attention_fwd_fp32`):
-the same function with p unrounded, as the TPU kernel computes at fp32. It
-has no backward yet: an fp32 CUDA input that requires grad raises.
+fp32 q, k and v (``--dtype float32``, the Trainer on fp32 parameters) take
+the fp32 forms: of the forward (``flash_fwd_f32_kernel``, counted apart as
+:func:`flash_attention_fwd_fp32`) and of both backward kernels
+(``flash_bwd_dq_f32_kernel`` and ``flash_bwd_dkv_f32_kernel``, counted as
+:func:`flash_attention_bwd_dq_fp32` and :func:`flash_attention_bwd_dkv_fp32`):
+the same functions with p and ds unrounded, as the TPU kernels compute at
+fp32.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from . import _build
 NEG_INF = -1e30
 BWD_ROWS = 64  # folded rows per streamed tile of the dk/dv kernel (and per dq block)
 BWD_KEYS = 64  # keys per dk/dv block
+BWD32_ROWS = 32  # the fp32 form's: folded rows per streamed tile of the dk/dv kernel
+BWD32_KEYS = 32  # keys per fp32 dk/dv block
 # an H100's SMs: a dk/dv block (8 warps, 217 KB of shared memory) fills one
 _SMS = 132
 
@@ -132,7 +137,7 @@ def reference_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len,
 
 def _check(q, k, v, prefix_len, kv_len):
     """Raise on anything the kernels do not take; returns the int32 lengths.
-    q, k and v are all bf16 or all fp32 (the forward's fp32 form)."""
+    q, k and v are all bf16 or all fp32 (the fp32 forms)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32) or not (k.dtype == v.dtype == q.dtype):
@@ -156,25 +161,18 @@ def _check(q, k, v, prefix_len, kv_len):
 
 
 def _check_bwd(q, dout, lse, delta):
-    """The backward kernels' extra inputs: dO like q, lse and delta fp32
-    (B, Hq, Sq), all contiguous on q's device."""
+    """The backward kernels' extra inputs: dO like q (its dtype too), lse
+    and delta fp32 (B, Hq, Sq), all contiguous on q's device."""
     b, sq, hq, _ = q.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(_NO_FP32_BACKWARD)
-    if (dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous()
+    if (dout.shape != q.shape or dout.dtype != q.dtype or not dout.is_contiguous()
             or dout.device != q.device or dout.data_ptr() % 16):
         raise ValueError(f"flash_attention backward: dout must be contiguous, 16-byte aligned "
-                         f"bf16 {tuple(q.shape)} on {q.device}")
+                         f"{q.dtype} {tuple(q.shape)} on {q.device}: q's dtype")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, hq, sq) or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != q.device):
             raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 "
                              f"{(b, hq, sq)} on {q.device}")
-
-
-_NO_FP32_BACKWARD = ("flash_attention: fp32 inputs that require grad on the card need an fp32 "
-                     "form of the backward kernels (B6, csrc/flash_attention_bwd.cu), which "
-                     "take bf16 only; there is none yet")
 
 
 def _forward_kernel(q, k, v, prefix_len, kv_len, scale, q_offset, with_lse):
@@ -259,8 +257,6 @@ def flash_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.is_cuda and torch.float32 in (q.dtype, k.dtype, v.dtype):
-            raise ValueError(_NO_FP32_BACKWARD)
         return _Flash.apply(q, k, v, prefix_len, kv_len, float(scale), int(q_offset))
     if not q.is_cuda:
         return reference_attention(q, k, v, prefix_len, kv_len, scale, q_offset)
@@ -302,7 +298,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len, scale=
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
     """dq (B, Sq, Hq, D): one kernel block per 64 folded rows, KV head and
-    batch row, streaming the key tiles its rows see."""
+    batch row, streaming the key tiles its rows see. fp32 inputs take the
+    fp32 form (counted on :func:`flash_attention_bwd_dq_fp32`)."""
     if not q.is_cuda:
         return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
                                    q_offset)[0]
@@ -310,35 +307,55 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
     skv, hkv = k.shape[1], k.shape[2]
     lens = _check(q, k, v, prefix_len, kv_len)
     _check_bwd(q, dout, lse, delta)
+    fp32 = q.dtype == torch.float32
     dq = torch.empty_like(q)
-    err = _build.library().pg_flash_attention_bwd_dq(
+    lib = _build.library()
+    err = (lib.pg_flash_attention_bwd_dq_fp32 if fp32 else lib.pg_flash_attention_bwd_dq)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), dq.data_ptr(),
         b, sq, skv, hq, hkv, d, float(scale), int(q_offset), _build.stream_ptr(q.device),
     )
-    _build.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.check(err, "flash_attention_bwd_dq_fp32" if fp32 else "flash_attention_bwd_dq")
+    (flash_attention_bwd_dq_fp32 if fp32 else flash_attention_bwd_dq).launches += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
 
 
-def dkv_splits(b: int, hkv: int, rows: int, skv: int) -> int:
+def flash_attention_bwd_dq_fp32(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                q_offset=0):
+    """The dq kernel's fp32 form: dq of fp32 q, k, v and dout. Its
+    ``launches`` count every fp32 dq launch (:func:`flash_attention_bwd_dq`
+    makes them for fp32 inputs)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_dq_fp32: fp32 q, k, v and dout, got {q.dtype}")
+    return flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                  q_offset)
+
+
+flash_attention_bwd_dq_fp32.launches = 0
+
+
+def dkv_splits(b: int, hkv: int, rows: int, skv: int, keys: int = BWD_KEYS,
+               tile_rows: int = BWD_ROWS) -> int:
     """Row ranges the dk/dv sweep is split into: the most that keep all
     blocks in one wave of one block per SM (Gemma's one KV head leaves only
-    Skv/64 * B key blocks), never more than there are row tiles. Each split
+    Skv/keys * B key blocks), never more than there are row tiles. Each split
     writes B * Hkv * Skv * D fp32 partials of dk and of dv, so no more
-    splits than the SMs need."""
-    key_blocks = -(-skv // BWD_KEYS) * hkv * b
-    row_tiles = -(-rows // BWD_ROWS)
+    splits than the SMs need. ``keys`` and ``tile_rows``: a block's keys and
+    a streamed tile's rows (the fp32 form's: BWD32_KEYS, BWD32_ROWS)."""
+    key_blocks = -(-skv // keys) * hkv * b
+    row_tiles = -(-rows // tile_rows)
     return max(1, min(row_tiles, _SMS // key_blocks))
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
-    """(dk, dv) (B, Skv, Hkv, D): one kernel block per 64 keys, KV head,
-    batch row and row split, summing over every query head of the KV head;
-    a second pass adds the splits' fp32 partials in a fixed order."""
+    """(dk, dv) (B, Skv, Hkv, D): one kernel block per 64 keys (32 in the
+    fp32 form), KV head, batch row and row split, summing over every query
+    head of the KV head; a second pass adds the splits' fp32 partials in a
+    fixed order. fp32 inputs take the fp32 form (counted on
+    :func:`flash_attention_bwd_dkv_fp32`)."""
     if not q.is_cuda:
         return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
                                    q_offset)[1:]
@@ -346,18 +363,35 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale
     skv, hkv = k.shape[1], k.shape[2]
     lens = _check(q, k, v, prefix_len, kv_len)
     _check_bwd(q, dout, lse, delta)
-    nsplit = dkv_splits(b, hkv, (hq // hkv) * sq, skv)
+    fp32 = q.dtype == torch.float32
+    nsplit = dkv_splits(b, hkv, (hq // hkv) * sq, skv,
+                        *((BWD32_KEYS, BWD32_ROWS) if fp32 else (BWD_KEYS, BWD_ROWS)))
     part = torch.empty((2, nsplit, b, hkv, skv, d), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().pg_flash_attention_bwd_dkv(
+    lib = _build.library()
+    err = (lib.pg_flash_attention_bwd_dkv_fp32 if fp32 else lib.pg_flash_attention_bwd_dkv)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), lens[0].data_ptr(), lens[1].data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d, nsplit,
         float(scale), int(q_offset), _build.stream_ptr(q.device),
     )
-    _build.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.check(err, "flash_attention_bwd_dkv_fp32" if fp32 else "flash_attention_bwd_dkv")
+    (flash_attention_bwd_dkv_fp32 if fp32 else flash_attention_bwd_dkv).launches += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dkv_fp32(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                 q_offset=0):
+    """The dk/dv kernel's fp32 form (with the fp32-out split sum): (dk, dv)
+    of fp32 q, k, v and dout. Its ``launches`` count every fp32 dk/dv
+    launch (:func:`flash_attention_bwd_dkv` makes them for fp32 inputs)."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_dkv_fp32: fp32 q, k, v and dout, got {q.dtype}")
+    return flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
+                                   q_offset)
+
+
+flash_attention_bwd_dkv_fp32.launches = 0

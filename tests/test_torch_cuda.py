@@ -333,8 +333,9 @@ def _close_rel(got, want, rel=2e-2):
 @pytest.mark.cuda
 def test_vision_attention_kernel_on_card():
     """B12 against its plain version (one launch per call) at B2 S128 H3
-    (64-row blocks, two batches in one tensor map); an fp32 input on the
-    card raises instead of running the plain version."""
+    (64-row blocks, two batches in one tensor map); fp32 q beside bf16 k and
+    v on the card raises instead of casting or running the plain version
+    (all-fp32 inputs take the fp32 form: test_vision_attention_fp32_form_on_card)."""
     from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
 
     dev = _card()
@@ -346,7 +347,7 @@ def test_vision_attention_kernel_on_card():
     assert t_va.vision_attention.launches == n0 + 1
     _close_rel(got, t_va.vision_attention_reference(q, k, v, 72**-0.5), rel=1e-2)
     with pytest.raises(ValueError):
-        t_va.vision_attention(q.float(), k.float(), v.float())
+        t_va.vision_attention(q.float(), k, v)
 
 
 @pytest.mark.cuda
@@ -458,7 +459,8 @@ def test_int8_gemv_lora_expand_at_3b_plans_on_card(a_dtype, k, n, bounds, kw):
 def test_seg_decode_attention_kernel_on_card():
     """B10 against its plain version with a pad hole, a kv_len at a tile
     edge and GQA; NaN in tiles wholly inside the hole or past kv_len is
-    never read; an fp32 q on the card raises."""
+    never read; an fp32 q beside a bf16 cache on the card raises (fp32 q and
+    cache take the fp32 form: test_seg_decode_attention_fp32_form_on_card)."""
     from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
 
     dev = _card()
@@ -1407,13 +1409,127 @@ def _rel_err(got, want):
         1.0, float(want.float().abs().max()))
 
 
+def _rel_max(got, want):
+    """max |got - want| over max |want| (gradients lie far below 1)."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _fp32_flash_counts():
+    """The launches of B1's and B6's fp32 forms, then of their bf16 kernels."""
+    return [t_flash.flash_attention_fwd_fp32.launches, t_flash.flash_attention_bwd_dq_fp32.launches,
+            t_flash.flash_attention_bwd_dkv_fp32.launches, t_flash.flash_attention.launches,
+            t_flash.flash_attention_bwd_dq.launches, t_flash.flash_attention_bwd_dkv.launches]
+
+
+# B6's fp32 form: (b, s, hq, hkv, d), prefix_len, kv_len; the training shape
+# at 8 and at a tensor-parallel rank's 4 query heads, each depth
+# instantiation (64, 80, 128, 256), a kv_len 0 row
+FLASH_BWD_FP32_CASES = {
+    "train B2 S512 Hq8 Hkv1 D256": ((2, 512, 8, 1, 256), [268, 268], [512, 400]),
+    "train TP-local B2 S512 Hq4 Hkv1 D256": ((2, 512, 4, 1, 256), [268, 268], [512, 400]),
+    "GQA B2 S199 Hq4 Hkv2 D64": ((2, 199, 4, 2, 64), [60, 100], [199, 150]),
+    "kv_len 0 row B2 S40 Hq4 Hkv2 D72": ((2, 40, 4, 2, 72), [17, 0], [40, 0]),
+    "prefix-LM B1 S130 Hq2 Hkv1 D128": ((1, 130, 2, 1, 128), [50], [130]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_BWD_FP32_CASES))
+def test_flash_backward_fp32_form_on_card(case):
+    """B6's fp32 forms (dq; dk/dv with the fp32-out split sum) against the
+    plain fp32 backward on the same inputs (the fp32 forward's lse): dq, dk
+    and dv within FP32_REL of the largest element; a second call the same
+    bits (fixed-order splits); counted on the fp32 forms only; a kv_len 0
+    row exact zeros; the bf16 kernels refuse an fp32 dout beside bf16 q."""
+    dev = _fp32_card()
+    (b, s, hq, hkv, d), pfx, kvl = FLASH_BWD_FP32_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, dout = (torch.randn(b, s, hq, d, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev) for _ in range(2))
+    pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    out, lse = t_flash.flash_attention_with_lse(q, k, v, pl, kl)
+    delta = t_flash._delta(out, dout)
+    args = (q, k, v, dout, lse, delta, pl, kl, d**-0.5)
+    n = _fp32_flash_counts()
+    dq = t_flash.flash_attention_bwd_dq(*args)
+    dk, dv = t_flash.flash_attention_bwd_dkv(*args)
+    assert [b1 - a for a, b1 in zip(n, _fp32_flash_counts())] == [0, 1, 1, 0, 0, 0]
+    want = t_flash._reference_backward(*args, 0)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and _rel_max(got, ref) <= FP32_REL
+    again = (t_flash.flash_attention_bwd_dq(*args), *t_flash.flash_attention_bwd_dkv(*args))
+    assert all(torch.equal(x, y) for x, y in zip(again, (dq, dk, dv)))
+    if kvl[-1] == 0:
+        assert not dq[-1].any() and not dk[-1].any() and not dv[-1].any()
+    with pytest.raises(ValueError, match="q's dtype"):
+        t_flash.flash_attention_bwd_dq(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                                       v.to(torch.bfloat16), dout, lse, delta, pl, kl, d**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(1, 256, 16, 72), (1, 1024, 16, 72), (1, 4096, 16, 72),
+                                     (2, 128, 3, 64), (1, 256, 4, 128), (1, 512, 2, 8)])
+def test_vision_attention_fp32_form_on_card(b, s, h, d):
+    """B12's fp32 form (the fp32 flash forward with every key visible) at
+    the 224, 448 and 896 px towers' S and at each depth instantiation,
+    against the one-shot fp32 softmax within FP32_REL; a second call the
+    same bits; counted on vision_attention_fp32 only; mixed dtypes raise."""
+    from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
+
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev) for _ in range(3))
+    n32, n16 = t_va.vision_attention_fp32.launches, t_va.vision_attention.launches
+    got = t_va.vision_attention(q, k, v)
+    assert (t_va.vision_attention_fp32.launches - n32, t_va.vision_attention.launches) == (1, n16)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, t_va.vision_attention_reference(q, k, v, d**-0.5)) <= FP32_REL
+    assert torch.equal(t_va.vision_attention(q, k, v), got)
+    with pytest.raises(ValueError, match="q's dtype"):
+        t_va.vision_attention(q, k.to(torch.bfloat16), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv", [(1, 8, 1), (8, 8, 1), (8, 4, 2)])
+def test_seg_decode_attention_fp32_form_on_card(b, hq, hkv):
+    """B10's fp32 form (the fp32 split pass over SegKV<float>) at the Gemma-2B
+    cache (S 2048, D 256) with pad holes and kv_len at tile edges, against
+    the plain fp32 version within FP32_REL; NaN in tiles wholly inside a
+    hole or past kv_len is never read; counted on the fp32 form only."""
+    from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
+
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(b * 10 + hkv)
+    q = torch.randn(b, hq, 256, generator=g, device=dev)
+    kc, vc = (torch.randn(b, 2048, hkv, 256, generator=g, device=dev) for _ in range(2))
+    rows = ([2048, 64, 250, 256, 300, 33, 97, 700], [2048, 64, 266, 640, 300, 33, 1200, 700],
+            [2048, 64, 1000, 1024, 300, 33, 1500, 700])
+    segs = [torch.tensor(r[:b], dtype=torch.int32, device=dev) for r in rows]
+    n32, n16 = t_sda.decode_attention_fp32.launches, t_sda.decode_attention.launches
+    got = t_sda.decode_attention(q, kc, vc, *segs)
+    assert (t_sda.decode_attention_fp32.launches - n32, t_sda.decode_attention.launches) == (1, n16)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, t_sda.reference_decode_attention(q, kc, vc, *segs)) <= FP32_REL
+    if b > 1:
+        kp, vp = kc.clone(), vc.clone()
+        for t in (kp, vp):
+            t[3, 256:640] = float("nan")
+            t[1, 64:] = float("nan")
+        assert torch.equal(t_sda.decode_attention(q, kp, vp, *segs), got)
+    with pytest.raises(ValueError, match="q's dtype"):
+        t_sda.decode_attention(q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), *segs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FLASH_FWD_CASES))
 def test_flash_forward_fp32_form_on_card(case):
     """B1's fp32 form against the plain fp32 forward: out within FP32_REL
     and lse within 1e-5 of max(1, |plain|); one launch counted on the fp32
     form per call, none on the bf16 kernel; a second call the same bits; a
-    kv_len 0 row exact zeros; an fp32 input that requires grad raises."""
+    kv_len 0 row exact zeros; fp32 inputs that require grad run the fp32
+    backward kernels (one launch each), dq, dk and dv within FP32_REL of
+    the largest element of the plain backward's."""
     dev = _fp32_card()
     (b, sq, skv, hq, hkv, d), pfx, kvl, q_offset = FLASH_FWD_CASES[case]
     g = torch.Generator(device=dev).manual_seed(17)
@@ -1433,8 +1549,15 @@ def test_flash_forward_fp32_form_on_card(case):
     assert torch.equal(t_flash.flash_attention(q, k, v, pl, kl, q_offset=q_offset), out)
     if kvl[-1] == 0:
         assert not out[-1].any() and not lse[-1].any()
-    with pytest.raises(ValueError, match="fp32 form of the backward"):
-        t_flash.flash_attention(q.requires_grad_(True), k, v, pl, kl)
+    dout = torch.randn(out.shape, generator=g, device=dev)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    n = _fp32_flash_counts()
+    t_flash.flash_attention(qg, kg, vg, pl, kl, q_offset=q_offset).backward(dout)
+    assert [b - a for a, b in zip(n, _fp32_flash_counts())] == [1, 1, 1, 0, 0, 0]
+    want = t_flash.reference_attention_backward(q, k, v, want_out, want_lse, dout, pl, kl,
+                                                d**-0.5, q_offset)
+    for got, ref in zip((qg.grad, kg.grad, vg.grad), want):
+        assert _rel_max(got, ref) <= FP32_REL
     with pytest.raises(ValueError, match="all bf16 or all fp32"):
         t_flash.flash_attention(q.detach().to(torch.bfloat16), k, v, pl, kl)
 

@@ -21,6 +21,8 @@ from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
 from paligemma_tpu_torch.kernels import lora as t_lora
 from paligemma_tpu_torch.kernels import paged_attention as t_paged
 from paligemma_tpu_torch.kernels import w8a8 as t_w8a8
+from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
+from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
 from paligemma_tpu_torch.runtime.engine import check_cache_dtype
 
 torch.set_num_threads(2)
@@ -33,7 +35,9 @@ FP32_REL = 2e-5
 FP32_FORMS = ("flash_attention_fwd_fp32", "int8_gemv_fp32", "int8_gemv_rope_kv_fp32",
               "head_argmax_fp32", "decode_attention_fp32", "paged_decode_attention_fp32",
               "rms_norm_fp32", "lora_shrink_fp32", "int8_gemv_f32_fp32",
-              "int8_gemv_f32_lora_fp32", "w8a8_quant_rows_fp32", "w8a8_gemm_fp32")
+              "int8_gemv_f32_lora_fp32", "w8a8_quant_rows_fp32", "w8a8_gemm_fp32",
+              "flash_attention_bwd_dq_fp32", "flash_attention_bwd_dkv_fp32",
+              "vision_attention_fp32", "seg_decode_attention_fp32")
 
 
 def _split3(x):
@@ -90,16 +94,28 @@ def test_fp32_forms_are_counted_apart():
     torch.testing.assert_close(out, t_flash.reference_attention(q, q, q, pl, pl))
     torch.testing.assert_close(t_elem.rms_norm_fp32(x, torch.zeros(64)),
                                t_elem.rms_norm_reference(x, torch.zeros(64)))
+    lse, delta = torch.zeros(1, 2, 8), torch.randn(1, 2, 8)
+    bwd = (q, q, q, q, lse, delta, pl, pl, 0.25)
+    torch.testing.assert_close(t_flash.flash_attention_bwd_dq_fp32(*bwd),
+                               t_flash._reference_backward(*bwd, 0)[0])
+    torch.testing.assert_close(t_flash.flash_attention_bwd_dkv_fp32(*bwd),
+                               t_flash._reference_backward(*bwd, 0)[1:])
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
 @pytest.mark.parametrize("name", ["flash", "gemv", "rope", "head", "dense", "paged", "norm",
-                                  "shrink", "f32", "k1", "quant", "gemm"])
+                                  "shrink", "f32", "k1", "quant", "gemm", "bwd_dq", "bwd_dkv",
+                                  "vision", "seg"])
 def test_fp32_form_wrappers_take_fp32_only(name):
     """A wrapper of an fp32 form refuses other dtypes (it never casts);
     K2's fp32 form takes int8 codes, not activations."""
     b16 = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
+    bwd = (b16[None],) * 6 + (None, None, 1.0)  # q, k, v, dout, lse, delta, lengths, scale
     calls = {
+        "bwd_dq": lambda: t_flash.flash_attention_bwd_dq_fp32(*bwd),
+        "bwd_dkv": lambda: t_flash.flash_attention_bwd_dkv_fp32(*bwd),
+        "vision": lambda: t_va.vision_attention_fp32(b16[None], b16[None], b16[None]),
+        "seg": lambda: t_sda.decode_attention_fp32(b16, b16[None], b16[None], None, None, None),
         "shrink": lambda: t_lora.lora_shrink_fp32(b16[0], None, None, 4, 8),
         "f32": lambda: t_gemv.int8_gemv_f32_fp32(b16[0], None, None),
         "k1": lambda: t_gemv.int8_gemv_f32_lora_fp32(b16[0], None, None, None),

@@ -7,20 +7,34 @@ wrappers over the tile (``int8_gemv`` with and without a LoRA expand,
 stored rows) and the LoRA shrink (``lora_shrink``, ``kernels/lora.
 ShrinkPlan``) make, read from a stand-in for the kernel library, so that
 the split they hand the card is checked here (the kernels themselves run
-on the card: tests/test_torch_cuda.py).
+on the card: tests/test_torch_cuda.py). The same stand-in shows the fp32
+forms reached from their entry points: a Trainer step on fp32 weights
+(the flash forward and backward) and the fp32 tower through B12.
 """
 
 import pytest
 import torch
 
+import ctypes
+import dataclasses
+
+import numpy as np
+
+from paligemma_tpu_torch.convert import init_params
+from paligemma_tpu_torch.core import config as t_config
 from paligemma_tpu_torch.kernels import _build
 from paligemma_tpu_torch.kernels import decode_head as t_head
+from paligemma_tpu_torch.kernels import flash_attention as t_flash
 from paligemma_tpu_torch.kernels import gemv_plan as t_plan
 from paligemma_tpu_torch.kernels import int8_gemv as t_gemv
 from paligemma_tpu_torch.kernels import lora as t_lora
 from paligemma_tpu_torch.kernels import w8a8 as t_w8a8
 from paligemma_tpu_torch.kernels.ablation import _wq_gemm
+from paligemma_tpu_torch.kernels.ablation import decode_attention as t_sda
 from paligemma_tpu_torch.kernels.ablation import quant4 as t_q4
+from paligemma_tpu_torch.kernels.ablation import vision_attention as t_va
+from paligemma_tpu_torch.models import siglip
+from paligemma_tpu_torch.train.trainer import TrainConfig, Trainer
 
 torch.set_num_threads(2)
 
@@ -105,8 +119,24 @@ def _card(t):
     return t.as_subclass(_OnCard)
 
 
+# the fp32 attention entry points whose outputs the stand-in zeroes, so that
+# a run through them (a Trainer step, an encode) computes on defined values:
+# name -> (output pointer's argument, its shape's arguments) for each output
+_ZEROED = {
+    # out (B, Sq, Hq, D), lse (B, Hq, Sq) or NULL; B, Sq, Skv, Hq, Hkv, D at 7
+    "pg_flash_attention_fwd_fp32": ((5, (7, 8, 10, 12)), (6, (7, 10, 8))),
+    # dq (B, Sq, Hq, D); B, Sq, Skv, Hq, Hkv, D at 9
+    "pg_flash_attention_bwd_dq_fp32": ((8, (9, 10, 12, 14)),),
+    # dk, dv (B, Skv, Hkv, D); B, Sq, Skv, Hq, Hkv, D at 12
+    "pg_flash_attention_bwd_dkv_fp32": ((10, (12, 14, 16, 17)), (11, (12, 14, 16, 17))),
+    # out (B, S, H, D) at 3; B, S, H, D at 4
+    "pg_vision_attention_fp32": ((3, (4, 5, 6, 7)),),
+}
+
+
 class _Library:
-    """Records every C call of the wrappers and returns 0 (no error)."""
+    """Records every C call of the wrappers and returns 0 (no error); the
+    fp32 attention entry points' outputs are zeroed (_ZEROED)."""
 
     def __init__(self):
         self.calls = []
@@ -114,6 +144,9 @@ class _Library:
     def __getattr__(self, name):
         def call(*args):
             self.calls.append((name, args))
+            for at, dims in _ZEROED.get(name, ()):
+                if args[at]:
+                    ctypes.memset(args[at], 0, 4 * int(np.prod([args[i] for i in dims])))
             return 0
         return call
 
@@ -125,7 +158,11 @@ def library(monkeypatch):
                t_head.head_argmax_fused, t_lora.lora_shrink, t_q4.int4_matmul,
                t_lora.lora_shrink_fp32, t_gemv.int8_gemv_fp32, t_gemv.int8_gemv_f32_fp32,
                t_gemv.int8_gemv_f32_lora_fp32, t_gemv.int8_gemv_f32_lora,
-               t_w8a8.w8a8_quant_rows_fp32, t_w8a8.w8a8_gemm_fp32):
+               t_w8a8.w8a8_quant_rows_fp32, t_w8a8.w8a8_gemm_fp32, t_flash.flash_attention,
+               t_flash.flash_attention_fwd_fp32, t_flash.flash_attention_bwd_dq,
+               t_flash.flash_attention_bwd_dkv, t_flash.flash_attention_bwd_dq_fp32,
+               t_flash.flash_attention_bwd_dkv_fp32, t_va.vision_attention,
+               t_va.vision_attention_fp32, t_sda.decode_attention, t_sda.decode_attention_fp32):
         monkeypatch.setattr(fn, "launches", 0)  # the counts come back after the test
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
@@ -233,7 +270,7 @@ def test_int8_gemv_lora_hands_the_kernel_each_targets_block(library, bounds, kw)
 # the fp32 forms of the bank, the mesh and W8A8 (--dtype float32) at
 # Gemma-2B's shapes: entry point, counter, and the arguments that differ
 FP32_CALLS = ["shrink", "shrink+norm", "qkv expand", "gateup expand", "o expand", "f32", "k1",
-              "quant", "quant amax", "gemm"]
+              "quant", "quant amax", "gemm", "bwd dq", "bwd dkv", "vision", "seg"]
 
 
 @pytest.mark.parametrize("what", FP32_CALLS)
@@ -244,6 +281,9 @@ def test_fp32_forms_reach_their_entry_points(library, monkeypatch, what):
     form's counter only."""
     b, g = 8, 32
     f32 = lambda *shape: _card(torch.zeros(shape))  # noqa: E731
+    if what in ("bwd dq", "bwd dkv", "vision", "seg"):
+        _attention_fp32_call(library, f32, what)
+        return
     if what.startswith("shrink"):
         k, ng = HIDDEN, 3 * g
         norm = (f32(k), 1e-6) if what.endswith("norm") else None
@@ -299,6 +339,113 @@ def test_fp32_forms_reach_their_entry_points(library, monkeypatch, what):
         assert args[12] is None
     assert t_gemv.int8_gemv.launches == t_gemv.int8_gemv_f32.launches == 0
     assert t_gemv.int8_gemv_f32_lora.launches == 0
+
+
+def _i32(*values):
+    return _card(torch.tensor(values, dtype=torch.int32))
+
+
+def _attention_fp32_call(library, f32, what):
+    """test_fp32_forms_reach_their_entry_points' attention forms: the flash
+    backward's two kernels at the training shape (B2 S512 Hq8 Hkv1 D256,
+    the dk/dv sweep in the fp32 form's splits of 32-row tiles), B12 at the
+    896 px tower (B1 S4096 H16 D72), B10 at the Gemma-2B cache (B8 Hq8
+    Hkv1 D256 S2048)."""
+    if what.startswith("bwd"):
+        b, s, hq, d = 2, 512, 8, 256
+        q, dout, kv = f32(b, s, hq, d), f32(b, s, hq, d), f32(b, s, 1, d)
+        args = (q, kv, kv, dout, f32(b, hq, s), f32(b, hq, s), _i32(268, 268), _i32(512, 400),
+                d**-0.5)
+        if what == "bwd dq":
+            out = (t_flash.flash_attention_bwd_dq(*args),)
+            counter, bf16 = t_flash.flash_attention_bwd_dq_fp32, t_flash.flash_attention_bwd_dq
+        else:
+            out = t_flash.flash_attention_bwd_dkv(*args)
+            counter, bf16 = t_flash.flash_attention_bwd_dkv_fp32, t_flash.flash_attention_bwd_dkv
+        [(name, got)] = library.calls
+        assert name == f"pg_flash_attention_{what.replace(' ', '_')}_fp32"
+        n = 9 if what == "bwd dq" else 12
+        assert got[n:n + 6] == (b, s, s, hq, 1, d)
+        if what == "bwd dkv":  # 16 key blocks x B: 4 splits fill 128 of 132 SMs
+            assert got[18] == t_flash.dkv_splits(b, 1, hq * s, s, 32, 32) == 4
+        assert all(t.dtype == torch.float32 for t in out)
+    elif what == "vision":
+        q = f32(1, 4096, 16, 72)
+        out = (t_va.vision_attention(q, q, q),)
+        [(name, got)] = library.calls
+        counter, bf16 = t_va.vision_attention_fp32, t_va.vision_attention
+        assert name == "pg_vision_attention_fp32" and got[4:8] == (1, 4096, 16, 72)
+        assert got[8] == 72**-0.5 and out[0].dtype == torch.float32
+    else:
+        b, s = 8, 2048
+        q, cache = f32(b, 8, 256), f32(b, s, 1, 256)
+        segs = [_i32(*([n] * b)) for n in (250, 256, 300)]
+        out = (t_sda.decode_attention(q, cache, cache, *segs),)
+        [(name, got)] = library.calls
+        counter, bf16 = t_sda.decode_attention_fp32, t_sda.decode_attention
+        plan = t_sda.split_plan(q, cache)
+        assert name == "pg_seg_attention_fp32" and got[10:16] == (b, 8, 1, 256, s, plan.nsplit)
+        assert out[0].dtype == torch.float32
+    assert (counter.launches, bf16.launches) == (1, 0)
+
+
+def _card_tree(tree):
+    return {k: _card_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else _card(tree)
+
+
+def test_fp32_trainer_step_reaches_the_fp32_backward(library, monkeypatch):
+    """One Trainer step (LoRA) on fp32 weights that the wrappers take for a
+    card's: each layer's attention reaches the fp32 forward and each fp32
+    backward kernel once, and no bf16 flash entry point. (Autograd hands the
+    backward its saved tensors as plain tensors; the stand-in marks them as
+    the card's again. It cannot mark remat's replay, whose inputs come back
+    the same way: chip_smoke.py counts that one on the card.)"""
+    cfg = t_config.tiny_test_config()
+    params = _card_tree(init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32))
+    backward = t_flash.flash_attention_backward
+    monkeypatch.setattr(t_flash, "flash_attention_backward", lambda q, k, v, out, lse, dout, *a:
+                        backward(*(_card(t) for t in (q, k, v, out, lse, dout)), *a))
+    tr = Trainer(params, cfg, TrainConfig(lora_rank=4, use_flash=True, remat=False))
+    rng = np.random.default_rng(0)
+    n_img, n_txt, b = cfg.vision_config.num_patches, 6, 2
+    ids = np.concatenate([np.full((b, n_img), cfg.image_token_index),
+                          rng.integers(3, 100, (b, n_txt))], 1).astype(np.int32)
+    ttype = np.broadcast_to(np.arange(n_img + n_txt) >= n_img + 2, ids.shape).astype(np.int32)
+    loss = tr.train_step({"pixel_values": rng.normal(size=(b, 3, 28, 28)).astype(np.float32),
+                          "input_ids": ids, "attention_mask": np.ones_like(ids),
+                          "token_type_ids": ttype,
+                          "labels": np.where(ttype == 1, ids, -100).astype(np.int32)})
+    n = cfg.text_config.num_hidden_layers
+    names = [name for name, _ in library.calls]
+    assert np.isfinite(loss) and len(names) == 3 * n
+    assert (names.count("pg_flash_attention_fwd_fp32"),
+            names.count("pg_flash_attention_bwd_dq_fp32"),
+            names.count("pg_flash_attention_bwd_dkv_fp32")) == (n, n, n)
+    assert (t_flash.flash_attention_fwd_fp32.launches, t_flash.flash_attention_bwd_dq_fp32.launches,
+            t_flash.flash_attention_bwd_dkv_fp32.launches) == (n, n, n)
+    assert (t_flash.flash_attention.launches, t_flash.flash_attention_bwd_dq.launches,
+            t_flash.flash_attention_bwd_dkv.launches) == (0, 0, 0)
+
+
+def test_fp32_fused_encode_reaches_b12_fp32(library):
+    """siglip.encode(attn="fused") on fp32 weights that the wrappers take for
+    a card's (a tiny tower of 256 patches: S a multiple of 128) reaches B12's
+    fp32 entry point once a layer, and the bf16 kernel never."""
+    vcfg = dataclasses.replace(t_config.tiny_test_config().vision_config, image_size=224)
+    vp = _card_tree(init_params(dataclasses.replace(t_config.tiny_test_config(),
+                                                    vision_config=vcfg),
+                                torch.Generator().manual_seed(0), "cpu",
+                                torch.float32)["vision"])
+    px = _card(torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 3, 224, 224), dtype=np.float32)))
+    feats = siglip.encode(vp, vcfg, px, attn="fused")
+    heads, width = vcfg.num_attention_heads, vcfg.hidden_size
+    assert feats.shape == (1, 256, width) and torch.isfinite(feats).all()
+    want = ["pg_vision_attention_fp32"] * vcfg.num_hidden_layers
+    assert [name for name, _ in library.calls] == want
+    assert all(args[4:8] == (1, 256, heads, width // heads) for _, args in library.calls)
+    assert (t_va.vision_attention_fp32.launches, t_va.vision_attention.launches) == (
+        vcfg.num_hidden_layers, 0)
 
 
 # (label, K, N) of Gemma-2B's four projections for the int4 tile, and

@@ -357,6 +357,31 @@ def test_trainer_full_ft_matches_jax(weights):
     assert not torch.equal(tt.params["lm"]["layers"]["attn"]["q"], before)
 
 
+@pytest.mark.parametrize("lora_rank", [4, None], ids=["lora", "full_ft"])
+def test_trainer_flash_path_matches_jax_pallas(weights, lora_rank):
+    """Training at fp32 on the flash path (the fp32 form's arithmetic: p and
+    ds unrounded; the plain FA2 backward here, the fp32 backward kernels on
+    a card) against JAX's Trainer with use_flash=True (the Pallas forward
+    and backward in interpret mode), two steps with one row padded: losses
+    within 1e-5, the trained weights within 1e-5 plus 5 % of a step per
+    update. Five, not the module's 1 %: in the full fine-tune one embedding
+    element (token 482) has a gradient of ~3.5e-9, 5e-9 of the largest and
+    below Adam's eps, whose fp32 noise moves it by 4 % of a step apart here
+    and by 2.6 % on the plain path (use_flash=False on both sides,
+    measured)."""
+    jp, tp = weights
+    tc = dict(lora_rank=lora_rank, learning_rate=1e-3, use_flash=True)
+    jt = j_trainer.Trainer(jp, CFG, j_trainer.TrainConfig(**tc), rng=jax.random.PRNGKey(2))
+    tt = Trainer(tp, T_CFG, TrainConfig(**tc), lora=None if lora_rank is None else _t(jt.lora))
+    for seed in (0, 1):
+        batch = _batch(seed=seed, pad=1)
+        np.testing.assert_allclose(tt.train_step(batch), jt.train_step(_jbatch(batch)),
+                                   rtol=1e-5)
+    atol = 2 * 0.05 * tc["learning_rate"]
+    _assert_trees_close(tt.lora if lora_rank else tt.params["lm"],
+                        jt.lora if lora_rank else jt.params["lm"], atol)
+
+
 def test_trainer_save_restore_round_trip(weights, tmp_path):
     """save, two more steps, restore: adapters and optimizer state are back,
     and the next step repeats the first run's step exactly."""
