@@ -42,6 +42,15 @@ seed, int8 decode tree) through its main paths:
   loss falling, 36 / 18 / 18 fp32 flash launches a step) and the 896 px
   tower through B12's fp32 form; B6, B12 and B10's fp32 forms against their
   plain versions;
+* a KV cache whose dtype is not the activations' (``cache_dtype``; the
+  ``mixed`` phase after ``serve``, and the fp32 phase's (i)): the mixed
+  forms of the qkv GEMV's cache write, 3b and B5 against their plain
+  versions; bf16 over an fp32 cache gives the bf16 cache's tokens and
+  logits bit for bit through generate, generate_spec and both serving
+  engines; fp32 over a bf16 cache gives the fp32 cache's prefill logits bit
+  for bit, decode logits within FP32_LOGIT_TOL of the torch-ops engine with
+  that cache, dense == paged with a bank, a grammar and the prefix cache,
+  spec == greedy, and at TP m = 1 one card's tokens;
 * the fine-tuning entry point (cli.finetune.main) on that checkpoint: LoRA
   r8 over a seeded manifest with evaluations and --export_hf, its losses
   bit for bit a Trainer's on the batches derived here in the CLI's order,
@@ -349,6 +358,22 @@ FP32_OF = {"flash_attention_fwd": "flash_attention_fwd_fp32", "int8_gemv": "int8
            "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_fp32",
            "vision_attention": "vision_attention_fp32",
            "seg_decode_attention": "seg_decode_attention_fp32"}
+# A KV cache of the other dtype (the engines' cache_dtype; the mixed phase
+# and the fp32 phase's (i)): the three kernel families that read or write
+# the cache -> their mixed forms, by the activation dtype (bf16 over an fp32
+# cache, fp32 over a bf16 one). Each mixed form against its plain version
+# within the tolerance of its activation dtype's forms (MIXED_REL: the
+# bf16 cache kernels' 1e-2; FP32_REL); a bf16 output of an fp32 form (the
+# cache rows) may round either side of its plain value's tie: 1e-2.
+MIXED_OF = {
+    torch.bfloat16: {"int8_gemv_rope_kv": "int8_gemv_rope_kv_cache_fp32",
+                     "decode_attention": "decode_attention_cache_fp32",
+                     "paged_decode_attention": "paged_decode_attention_cache_fp32"},
+    torch.float32: {"int8_gemv_rope_kv_fp32": "int8_gemv_rope_kv_fp32_cache_bf16",
+                    "decode_attention_fp32": "decode_attention_fp32_cache_bf16",
+                    "paged_decode_attention_fp32": "paged_decode_attention_fp32_cache_bf16"}}
+MIXED_FORMS = tuple(m for of in MIXED_OF.values() for m in of.values())
+MIXED_REL = {torch.bfloat16: 1e-2, torch.float32: FP32_REL}
 # the Trainer at fp32 (the fp32 phase's (h)): first step, kernels (B1 and
 # B6's fp32 forms) against plain attention from the same adapters. Both run
 # fp32 through 18 layers and differ only in the order of the attention's
@@ -4208,7 +4233,7 @@ def serving_phase(params, decode, cfg, dev, card):
           flush=True)
     missing = [k for k, v in total.items()
                if v == 0 and k not in TRAIN_ONLY + TP_KERNELS + ABLATION_KERNELS + LORA_KERNELS
-               + W8A8_KERNELS + tuple(FP32_OF.values())]
+               + W8A8_KERNELS + tuple(FP32_OF.values()) + MIXED_FORMS]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
 
@@ -4240,6 +4265,229 @@ def serving_phase(params, decode, cfg, dev, card):
               f"aggregate (all tokens / run wall {wall:.2f} s), TTFT p50 {ttft:.1f} ms  "
               f"[{card}]", flush=True)
     return total, tok_d, tok_a
+
+
+def _mixed_tick(tick, act=torch.bfloat16):
+    """A serving tick's (must launch, must not launch, once per layer and
+    tick) over a cache of the other dtype: the three cache families' mixed
+    forms in their uniform forms' places, the uniform forms must not
+    launch."""
+    of = MIXED_OF[act]
+    need, absent, per_tick = tick
+
+    def sub(names):
+        return tuple(of.get(k, k) for k in names)
+
+    return sub(need), sub(absent) + tuple(k for k in of if k in need), sub(per_tick)
+
+
+def mixed_cache_phase(params, decode, cfg, dev, card, tok_gen, tok_dense):
+    """bf16 activations over an fp32 KV cache (``cache_dtype=torch.float32``:
+    the mixed forms of the qkv GEMV's cache write, 3b and B5) at full width
+    on the int8 decode tree. The cache holds each bf16 row widened, exactly,
+    so every gate is bit for bit the bf16 cache's:
+
+    (a) generate, B1, N_NEW greedy tokens: main's ``tok_gen``; per step one
+        mixed qkv GEMV and one mixed attention a layer and no uniform one;
+        along the tokens, teacher-forced, the prefill's and every step's
+        logits equal the bf16-cache engine's;
+    (b) generate_spec: the same tokens, every verify on the mixed chain;
+    (c) the serving phase's 12 requests through the dense and the paged
+        fused engine: run (a)'s dense tokens ``tok_dense``, so dense ==
+        paged.
+
+    Returns the launch counts summed over the counted runs."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+
+    f32 = torch.float32
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    e32 = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode, cache_dtype=f32)
+    e16 = PaliGemmaEngine(params, cfg, max_seq_len=MAX_SEQ, decode_params=decode)
+    if not (e32.use_flash and e32.fused_layer and e32._greedy_head_fused
+            and e32.cache_dtype == f32):
+        raise AssertionError("mixed: the fp32-cache engine did not select the kernel paths")
+    pixels, ids, mask = make_inputs(cfg, dev)
+    kernels.reset_launch_counts()
+    tok = e32.generate(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1, sync_every=16)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    _cli_launches("mixed generate", _as_uniform_names("mixed generate", counts, torch.bfloat16),
+                  n_layers, True)
+    l32, s32 = e32.prefill(pixels, ids, mask)
+    l16, s16 = e16.prefill(pixels, ids, mask)
+    same = [torch.equal(l32, l16)]
+    for t in range(N_NEW - 1):
+        step = torch.from_numpy(tok[:, t])
+        l32, s32 = e32.decode_step(step, s32)
+        l16, s16 = e16.decode_step(step, s16)
+        same.append(torch.equal(l32, l16))
+    sync()
+    print(f"mixed (a): bf16 over an fp32 cache: generate's {N_NEW} tokens equal the bf16 cache's "
+          f"{np.array_equal(tok, tok_gen)}; teacher-forced logits bit for bit the bf16-cache "
+          f"engine's at {sum(same)}/{len(same)} of the prefill + {N_NEW - 1} steps; "
+          f"{counts['int8_gemv_rope_kv_cache_fp32']} int8_gemv_rope_kv_cache_fp32 and "
+          f"{counts['decode_attention_cache_fp32']} decode_attention_cache_fp32, no uniform "
+          "form", flush=True)
+    if not (np.array_equal(tok, tok_gen) and all(same)):
+        raise AssertionError("mixed (a): the fp32 cache's tokens or logits differ from the bf16 "
+                             "cache's")
+    del l32, s32, l16, s16, e16
+    kernels.reset_launch_counts()
+    with _NoPlainInt8():
+        spec = e32.generate_spec(pixels, ids, mask, max_new_tokens=N_NEW, eos_token_id=-1,
+                                 draft_k=SPEC_DRAFT_K, sync_every=SPEC_SYNC)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    verifies = _spec_verifies(e32.spec_cycles, SPEC_SYNC)
+    _spec_counts("mixed generate_spec", _as_uniform_names("mixed generate_spec", counts,
+                                                          torch.bfloat16),
+                 verifies, n_layers, prefills=1)
+    print(f"mixed (b): generate_spec over the fp32 cache gives generate's tokens "
+          f"{np.array_equal(spec, tok)} in {e32.spec_cycles} cycles ({verifies} verify calls)",
+          flush=True)
+    if not np.array_equal(spec, tok):
+        raise AssertionError("mixed (b): generate_spec differs from generate")
+    del e32
+    torch.cuda.empty_cache()
+
+    Paged = _recording_engine()
+    served = {}
+    for label, make, tick in (
+            ("dense", lambda: ServingEngine(params, cfg, decode_params=decode, cache_dtype=f32,
+                                            **SERVE), DENSE_TICK),
+            ("paged fused", lambda: Paged(params, cfg, decode_params=decode, page_size=PAGE,
+                                          n_pages=FULL_POOL, paged_kernel="fused",
+                                          cache_dtype=f32, **SERVE), PAGED_FUSED_TICK)):
+        eng = make()
+        if not (eng.fused_decode and eng.use_flash and eng.cache_dtype == f32):
+            raise AssertionError(f"mixed (c) {label}: the engine is not on the kernel tick")
+        (toks, wall, _), counts = _served(f"mixed (c) {label}", eng, serving_requests(cfg),
+                                          cfg.vocab_size, n_layers, _mixed_tick(tick))
+        add(counts)
+        served[label] = toks
+        print(f"mixed (c) {label}: {sum(toks[i] == tok_dense[i] for i in toks)}/{N_REQ} requests "
+              f"with the bf16-cache dense engine's tokens; "
+              f"{sum(map(len, toks.values())) / wall:.1f} tok/s  [{card}]", flush=True)
+        del eng
+    if not (served["dense"] == served["paged fused"] == tok_dense):
+        raise AssertionError("mixed (c): the fp32-cache engines' tokens differ from the bf16 "
+                             "cache's, or dense from paged")
+    return total
+
+
+def fp32_mixed_cache(p32, dq32, cfg, dev, card, eng, inputs):
+    """fp32_phase's (i): the fp32 int8 tree over a bf16 KV cache (the mixed
+    forms). Gates: the prefill logits bit for bit the fp32-cache kernel
+    engine ``eng``'s (prefill attends over the fresh k / v); FP32_NEW
+    greedy tokens, one mixed qkv GEMV and one mixed attention a layer and
+    step and no uniform one; along them, teacher-forced, each step's logits
+    within FP32_LOGIT_TOL of the torch-ops engine with the same bf16 cache
+    (both read the fresh row back rounded), its greedy token the emitted
+    one but at a near tie (the gap to the fp32-cache engine, the cache's
+    own rounding, printed); generate_spec == generate bit for bit; the
+    feature runs on one card over the bf16 cache: the [base, a, b, c] bank
+    with a grammar row and a prefix repeat, dense == paged bit for bit, and
+    spec_decode dense and paged == the same engine without it. Returns
+    (summed launch counts, the greedy tokens)."""
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+
+    bf = torch.bfloat16
+    n_layers = cfg.text_config.num_hidden_layers
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def names(label, counts):
+        return _as_uniform_names(label, counts, torch.float32)
+
+    e16 = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32, cache_dtype=bf)
+    ops16 = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32, cache_dtype=bf,
+                            fused_layer=False, use_flash=False)
+    if not (e16.use_flash and e16.fused_layer and e16._greedy_head_fused):
+        raise AssertionError("fp32 (i): the bf16-cache engine did not select the kernel paths")
+    kernels.reset_launch_counts()
+    tok = e16.generate(*inputs, max_new_tokens=FP32_NEW, eos_token_id=-1, sync_every=8)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    _cli_launches("fp32 (i) generate", names("fp32 (i) generate", counts), n_layers, True)
+    tok_ops = ops16.generate(*inputs, max_new_tokens=FP32_NEW, eos_token_id=-1, sync_every=8)
+    lk, sk = e16.prefill(*inputs)
+    lp, sp = ops16.prefill(*inputs)
+    l32, s32 = eng.prefill(*inputs)
+    prefill_same = torch.equal(lk, l32)
+    worst, ties = _compare(lk, lp, "fp32 (i) prefill", tok[0, 0], tol=FP32_LOGIT_TOL)
+    ties = [0] if ties else []
+    gap = 0.0
+    for t in range(FP32_NEW - 1):
+        step = torch.from_numpy(tok[:, t])
+        lk, sk = e16.decode_step(step, sk)
+        lp, sp = ops16.decode_step(step, sp)
+        l32, s32 = eng.decode_step(step, s32)
+        w, f = _compare(lk, lp, f"fp32 (i) decode {t}", tok[0, t + 1], tol=FP32_LOGIT_TOL)
+        worst = max(worst, w)
+        gap = max(gap, float((lk - l32).abs().max()) / float(l32.abs().max()))
+        if f:
+            ties.append(t + 1)
+    sync()
+    differ = [t for t in range(FP32_NEW) if tok_ops[0, t] != tok[0, t]]
+    print(f"fp32 (i): fp32 over a bf16 cache: prefill logits bit for bit the fp32 cache's "
+          f"{prefill_same}; teacher-forced logits against the torch-ops engine with the bf16 "
+          f"cache: max rel err {worst:.3e} of max |logit| (tol {FP32_LOGIT_TOL}); "
+          f"{FP32_NEW - len(differ)}/{FP32_NEW} greedy tokens identical"
+          f"{f', first divergence at {differ[0]}' if differ else ''}; near-tie steps {ties}; "
+          f"against the fp32-cache kernel engine (the cache's rounding) {gap:.3e}; "
+          f"{counts['int8_gemv_rope_kv_fp32_cache_bf16']} int8_gemv_rope_kv_fp32_cache_bf16 and "
+          f"{counts['decode_attention_fp32_cache_bf16']} decode_attention_fp32_cache_bf16, no "
+          f"uniform form  [{card}]", flush=True)
+    if not prefill_same or (differ and differ[0] not in ties):
+        raise AssertionError(f"fp32 (i): prefill logits differ from the fp32 cache's "
+                             f"({prefill_same}), or the torch-ops tokens diverge at {differ} "
+                             "off a near tie")
+    del lk, sk, lp, sp, l32, s32, ops16
+    kernels.reset_launch_counts()
+    with _NoPlainInt8():
+        spec = e16.generate_spec(*inputs, max_new_tokens=FP32_NEW, eos_token_id=-1,
+                                 draft_k=SPEC_DRAFT_K, sync_every=SPEC_SYNC)
+    sync()
+    counts = kernels.launch_counts()
+    add(counts)
+    verifies = _spec_verifies(e16.spec_cycles, SPEC_SYNC)
+    _spec_counts("fp32 (i) generate_spec", names("fp32 (i) generate_spec", counts), verifies,
+                 n_layers, prefills=1)
+    if not np.array_equal(spec, tok):
+        raise AssertionError(f"fp32 (i): generate_spec {spec.tolist()} != generate "
+                             f"{tok.tolist()}")
+    print(f"fp32 (i): generate_spec over the bf16 cache gives generate's {FP32_NEW} tokens bit "
+          f"for bit in {e16.spec_cycles} cycles ({verifies} verify calls)", flush=True)
+    del e16
+    torch.cuda.empty_cache()
+    feats, counts = tp_feature_runs(
+        "fp32 (i) one card, bf16 cache", p32, dq32, cfg, dev, card, None, None,
+        runs=("bank dense", "bank paged", "greedy dense", "spec dense", "spec paged"),
+        cache_dtype=bf, as_names=names)
+    add(counts)
+    ok_bank = feats["bank dense"] == feats["bank paged"]
+    ok_spec = feats["spec dense"] == feats["spec paged"] == feats["greedy dense"]
+    print(f"fp32 (i): feature runs over the bf16 cache: the bank with a grammar row and a "
+          f"prefix repeat, dense == paged {ok_bank}; spec_decode dense == paged == greedy "
+          f"{ok_spec}", flush=True)
+    if not (ok_bank and ok_spec):
+        raise AssertionError("fp32 (i): dense != paged with the bank, or spec != greedy")
+    return total, tok
 
 
 def lora_bank_adapters(cfg, dev, b_std):
@@ -4972,9 +5220,9 @@ def tp_one_rank_phase(params, decode, cfg, dev, card, tok_gen, tok_dense, tok_pa
                                  "verify calls did not run the TP chain")
         del one
         del eng
-        feats_one, c_one = tp_feature_runs("(b) one card", params, decode, cfg, dev, card,
+        feats_one, c_one = tp_feature_runs("tp (b) one card", params, decode, cfg, dev, card,
                                            None, None)
-        feats_tp, c_tp = tp_feature_runs("(b) TP m=1", params, decode, cfg, dev, card, mesh,
+        feats_tp, c_tp = tp_feature_runs("tp (b) TP m=1", params, decode, cfg, dev, card, mesh,
                                          feats_one)
         for c in (c_one, c_tp):
             for k, v in c.items():
@@ -5113,19 +5361,26 @@ def _check_grammar_rows(label, toks):
     row = toks[TP_GRAMMAR_ROW]
     body = row[:-1] if row and row[-1] == 1 else row
     if not body or not all(5000 <= t <= 5009 for t in body):
-        raise AssertionError(f"tp {label}: the constrained row left the grammar: {row}")
+        raise AssertionError(f"{label}: the constrained row left the grammar: {row}")
 
 
-def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=print):
+FEATURE_RUNS = ("bank dense", "bank paged", "spec dense", "spec paged")
+
+
+def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=print, *,
+                    runs=FEATURE_RUNS, cache_dtype=None, as_names=None):
     """The TP engines at the JAX package's feature set against the one-card
     kernel engines (``one_card``: {run: tokens}, None to run them here):
     dense and paged serving with a bank of LORA_NAMES adapters, a grammar
     row and a prefix repeat ("bank"), and spec_decode with the grammar row
-    and the repeat ("spec"). Gates: the tokens (``one_card`` given: within
-    the caller's own rule); the grammar row in its grammar; the repeat a
-    cache hit; per layer and tick of a bank run 4 shrinks, 2 K1, the qkv
-    and gate/up expands in their GEMVs, and no plain LoRA product inside
-    a tick. Returns ({run: tokens}, summed launch counts)."""
+    and the repeat ("spec"; "greedy dense": the same without spec_decode).
+    Gates: the tokens (``one_card`` given: within the caller's own rule);
+    the grammar row in its grammar; the repeat a cache hit; per layer and
+    tick of a bank run 4 shrinks, 2 K1, the qkv and gate/up expands in their
+    GEMVs, and no plain LoRA product inside a tick (``as_names(label,
+    counts)``: the counts under the bf16 kernels' names, for another
+    activation or cache dtype). ``cache_dtype``: the engines' KV cache.
+    Returns ({run: tokens}, summed launch counts)."""
     from paligemma_tpu_torch import kernels
     from paligemma_tpu_torch.runtime.serving import ServingEngine
 
@@ -5134,16 +5389,17 @@ def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=p
     adapters = lora_bank_adapters(cfg, dev, LORA_B_STD)
     grammars = tp_grammars(cfg)
     out, total = {}, {}
-    for run in ("bank dense", "bank paged", "spec dense", "spec paged"):
+    for run in runs:
         bank, paged = run.startswith("bank"), run.endswith("paged")
         kw = dict(decode_params=decode, grammars=grammars, prefix_cache=True, mesh=mesh,
-                  lora_bank=adapters if bank else None, spec_decode=not bank,
-                  spec_draft_k=SPEC_DRAFT_K, fused_decode=True, **SERVE)
+                  lora_bank=adapters if bank else None, spec_decode=run.startswith("spec"),
+                  spec_draft_k=SPEC_DRAFT_K, fused_decode=True, cache_dtype=cache_dtype,
+                  **SERVE)
         eng = (Paged(params, cfg, page_size=PAGE, n_pages=FULL_POOL, **kw) if paged
                else ServingEngine(params, cfg, **kw))
         want_kernel = ("fused" if mesh is None else "fused_tp") if paged else None
         if not eng.fused_decode or getattr(eng, "paged_kernel", None) != want_kernel:
-            raise AssertionError(f"tp {label} {run}: the engine did not take the kernel tick")
+            raise AssertionError(f"{label} {run}: the engine did not take the kernel tick")
         kernels.reset_launch_counts()
         with _PlainLoraInTicks(eng) as probe:
             toks, wall = _feature_serve(eng, tp_feature_requests(cfg, bank))
@@ -5151,11 +5407,13 @@ def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=p
         counts = kernels.launch_counts()
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+        if as_names is not None:
+            counts = as_names(f"{label} {run}", counts)
         _check_grammar_rows(f"{label} {run}", toks)
         if eng.cache_hits < 1:
-            raise AssertionError(f"tp {label} {run}: the repeat was not a prefix-cache hit")
+            raise AssertionError(f"{label} {run}: the repeat was not a prefix-cache hit")
         lt = n_layers * probe.ticks
-        say(f"tp {label} {run}: launches over {probe.ticks} ticks: {json.dumps(counts)}; "
+        say(f"{label} {run}: launches over {probe.ticks} ticks: {json.dumps(counts)}; "
             f"{eng.cache_hits} cache hits, {probe.calls} plain LoRA products in ticks; "
             f"{sum(map(len, toks.values())) / wall:.1f} tok/s  [{card}]", flush=True)
         if bank:
@@ -5167,31 +5425,31 @@ def tp_feature_runs(label, params, decode, cfg, dev, card, mesh, one_card, say=p
                 want.update({"int8_gemv_f32_lora": 2 * lt, "int8_gemv_f32": 0,
                              "mlp_decode_fused": lt})
             bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-            say(f"tp {label} {run}: per layer and tick {counts['lora_shrink'] / lt:.0f} "
+            say(f"{label} {run}: per layer and tick {counts['lora_shrink'] / lt:.0f} "
                 f"shrinks, the qkv and gate/up expands in their GEMVs, "
                 + (f"{counts['int8_gemv_f32_lora'] / lt:.0f} K1 (o, down)" if tp_chain
                    else "the o and down expands in their residual GEMVs"), flush=True)
             if bad or probe.calls or not probe.ticks:
-                raise AssertionError(f"tp {label} {run}: launch counts (got, want) {bad}, "
+                raise AssertionError(f"{label} {run}: launch counts (got, want) {bad}, "
                                      f"{probe.calls} plain LoRA products inside ticks")
         elif mesh is not None and (counts["int8_gemv_f32_lora"] or not counts[
                 "attn_decode_paged_tp" if paged else "attn_decode_tp"]):
-            raise AssertionError(f"tp {label} {run}: K1 launched without a bank, or the verify "
+            raise AssertionError(f"{label} {run}: K1 launched without a bank, or the verify "
                                  "did not run the TP chain")
         out[run] = toks
         if one_card is not None:
             differ = [i for i in toks if toks[i] != one_card[run][i]]
-            say(f"tp {label} {run}: {len(toks) - len(differ)}/{len(toks)} requests with the "
+            say(f"{label} {run}: {len(toks) - len(differ)}/{len(toks)} requests with the "
                 f"one-card kernel engine's tokens", flush=True)
             if differ:
-                raise AssertionError(f"tp {label} {run}: requests {differ} differ from one card")
+                raise AssertionError(f"{label} {run}: requests {differ} differ from one card")
         if bank and mesh is not None and mesh.backend == "nccl":  # gloo stages on the host
             for r in tp_feature_requests(cfg, bank)[:8]:
                 r.max_new_tokens = 64
                 eng.submit(r)
             eng.step()
             _window_without_sync(eng)
-            say(f"tp {label} {run}: no host synchronization inside a bank window", flush=True)
+            say(f"{label} {run}: no host synchronization inside a bank window", flush=True)
         del eng
         torch.cuda.empty_cache()
     return out, total
@@ -5313,7 +5571,7 @@ def _tp2_rank(rank, world, init, out_dir, teacher, card):
                "w8a8": [t.cpu() for t in _w8a8_lm_prefill(decode, cfg, mesh, dev)]}
         t0 = time.perf_counter()
         out["features"], _ = tp_feature_runs(
-            f"(c) m={world} rank {rank}", params, decode, cfg, dev, card, mesh, None,
+            f"tp (c) m={world} rank {rank}", params, decode, cfg, dev, card, mesh, None,
             say=print if rank == 0 else (lambda *a, **kw: None))
         out["features_s"] = time.perf_counter() - t0
         gate = lora_bank_adapters(cfg, dev, LORA_B_STD_GATE)
@@ -5547,7 +5805,7 @@ def _dp_rank(rank, world, data, init, out_dir, refs_file, card):
                     toks, wall = _feature_serve(eng, reqs)
                     sync()
                     counts = kernels.launch_counts()
-                    _check_grammar_rows(f"dp {run}", toks)
+                    _check_grammar_rows(f"tp dp {run}", toks)
                     need = ["flash_attention_fwd", "int8_gemv_rope_kv", "paged_decode_attention",
                             "rms_norm"] + (["lora_shrink"] if bank else [])
                     if eng.cache_hits < 1 or any(counts[k] == 0 for k in need):
@@ -7205,6 +7463,24 @@ def _as_bf16_names(label, counts):
     return out
 
 
+def _as_uniform_names(label, counts, act):
+    """The launch counts of a run over a cache of the other dtype under the
+    bf16 kernels' names (for the uniform phases' gates): each mixed form's
+    count in its uniform form's place, an fp32 run's then mapped as
+    ``_as_bf16_names`` maps it. A uniform form of the three cache families,
+    or a mixed form of the other activation dtype, that launched raises:
+    over such a cache every launch of them is this dtype's mixed form's."""
+    of = MIXED_OF[act]
+    other = [m for a, o in MIXED_OF.items() if a != act for m in o.values()]
+    ran = {k: counts[k] for k in (*of, *other) if counts[k]}
+    if ran:
+        raise AssertionError(f"{label}: uniform or other cache forms launched over a mixed "
+                             f"cache: {ran}")
+    out = {k: v for k, v in counts.items() if k not in of.values()}
+    out.update({k: counts[m] for k, m in of.items()})
+    return _as_bf16_names(label, out) if act == torch.float32 else out
+
+
 def _only_launches(label, counts, want):
     """The launches of a run are exactly ``want`` (every other count 0)."""
     got = {k: v for k, v in counts.items() if v}
@@ -7678,6 +7954,168 @@ def fp32_attention_cases(report: KernelReport, dev, f32):
     return counts
 
 
+def mixed_kernel_cases(report: KernelReport, dev):
+    """The mixed forms (a KV cache of the other dtype: bf16 q over fp32,
+    fp32 q over bf16) against their plain versions within MIXED_REL at the
+    main paths' shapes: the qkv GEMV with the norm prologue and the RoPE +
+    KV write (2048->2560, B1 into a dense cache, B8 into page slots; its q
+    and the cache rows bit for bit the uniform form's q and rows converted
+    to the cache dtype); 3b at B1 and B8, W2048 and B5 at B8, W1024, page
+    size 64, layer 17 (bit for bit the uniform form on the cache converted
+    first, dense == paged on shared keys, a kv_len 0 row zeros). Times
+    beside the plain version and the bound (the cache's bytes in its own
+    dtype); no library call takes a cache of another dtype than q (SDPA
+    takes one), so none is timed. Device times through ``profiled``."""
+    from paligemma_tpu_torch.kernels import decode_attention as da
+    from paligemma_tpu_torch.kernels import int8_gemv as gv
+    from paligemma_tpu_torch.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(SEED + 25)
+
+    def rnd(*shape, dtype, scale=1.0):
+        t = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+        return t.to(dtype)
+
+    def bits(name, label, checks):
+        print(f"  {name:20s} {label:44s} bits: " + ", ".join(f"{k} {v}" for k, v in checks.items())
+              + f"  {'ok' if all(checks.values()) else 'FAIL'}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"{name} {label}: bit rules {checks}")
+
+    print(f"kernels: the mixed forms (a KV cache of the other dtype), within "
+          f"{MIXED_REL[torch.bfloat16]} (bf16 q) / {FP32_REL} (fp32 q) of the plain versions",
+          flush=True)
+    fns = []
+    for act, cache in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        rope_name, dense_name, paged_name = MIXED_OF[act].values()
+        tol, floor = MIXED_REL[act], 1.0 if act == torch.bfloat16 else 0.0
+        peak = PEAK_FLOPS if act == torch.bfloat16 else PEAK_FP32_FLOPS
+        csize = torch.finfo(cache).bits // 8
+        pair = f"{str(act)[6:]} over {str(cache)[6:]}"
+
+        # -- K-a: the qkv GEMV's RoPE + KV write into the other dtype
+        k, h, d, n = 2048, 8, 256, 2560
+        w8 = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(dev)
+        s = torch.from_numpy((rng.random(n, dtype=np.float32) + 0.5) / (127.0 * k**0.5)).to(dev)
+        norm = (rnd(k, dtype=act, scale=0.1), 1e-6)
+        for b, paged in ((1, False), (8, True)):
+            x = rnd(b, k, dtype=act, scale=3.0)
+            ang = torch.from_numpy(rng.random((b, d), dtype=np.float32) * 6.28).to(dev)
+            cos, sin = ang.cos().to(act), ang.sin().to(act)
+            pos = torch.tensor([(300 + 229 * i) % 1000 for i in range(b)], dtype=torch.int32,
+                               device=dev)
+            table, shape = None, (b, 1024, d)
+            if paged:
+                table = torch.from_numpy(rng.permutation(b * 16).reshape(b, 16) + 1).to(
+                    device=dev, dtype=torch.int32)
+                shape = (b * 16 + 1, PAGE, d)
+
+            def bufs(dtype):
+                return ([torch.zeros(shape, dtype=dtype, device=dev) for _ in range(2)]
+                        + [torch.empty(b, d, dtype=dtype, device=dev) for _ in range(2)])
+
+            def run(fn, out, x=x, cos=cos, sin=sin, pos=pos, table=table, w8=w8, s=s,
+                    norm=norm):
+                q, _, _ = fn(x, w8, s, cos, sin, pos, h, *out, norm=norm, page_table=table)
+                return [q, *out]
+
+            mine, plain, one = bufs(cache), bufs(cache), bufs(act)
+            got = run(gv.int8_gemv_rope_kv, mine)
+            want = run(gv.int8_gemv_rope_kv_reference, plain)
+            same = run(gv.int8_gemv_rope_kv, one)
+            sync()
+            label = f"{pair} qkv+norm+RoPE B{b} {'paged' if paged else 'dense'}"
+            report.case(rope_name, f"{label} q", got[0], want[0], tol, floor)
+            report.case(rope_name, f"{label} K/V rows, k_new/v_new",
+                        torch.cat([t.flatten() for t in got[1:]]),
+                        torch.cat([t.flatten() for t in want[1:]]), MIXED_REL[torch.bfloat16])
+            bits(rope_name, label, {
+                "q == uniform form's": torch.equal(got[0], same[0]),
+                "rows == uniform rows .to(cache)": all(
+                    torch.equal(u, v.to(cache)) for u, v in zip(got[1:], same[1:]))})
+            if b == 1:
+                def kern(mine=mine, run=run):
+                    return run(gv.int8_gemv_rope_kv, mine)
+
+                report.time(rope_name, label, kern,
+                            lambda plain=plain, run=run: run(gv.int8_gemv_rope_kv_reference,
+                                                             plain),
+                            flops=2 * b * k * n + 6 * b * n,
+                            n_bytes=(nbytes(x, norm[0], w8, s, cos, sin, pos, got[0])
+                                     + 4 * b * d * csize), peak=peak)
+                fns.append((f"{rope_name} B1", kern))
+
+        # -- K-b: 3b over a cache of the other dtype, W2048
+        for b in (1, 8):
+            q = rnd(b, 8, 256, dtype=act)
+            kc, vc = rnd(b, MAX_SEQ, 256, dtype=cache), rnd(b, MAX_SEQ, 256, dtype=cache)
+            lens = torch.tensor([2048 - 61 * i for i in range(b)], device=dev)
+            valid = (torch.arange(2048, device=dev)[None] < lens[:, None]).contiguous()
+            if b > 1:
+                valid[1, 5:40] = False  # a hole
+            got = da.decode_attention(q, kc, vc, valid, 256**-0.5)
+            want = da.decode_attention_reference(q, kc, vc, valid, 256**-0.5)
+            same = da.decode_attention(q, kc.to(act), vc.to(act), valid, 256**-0.5)
+            sync()
+            label = f"{pair} B{b} W2048 D256 Hq8"
+            report.case(dense_name, label, got, want, tol, floor)
+            bits(dense_name, label, {"== uniform form on the converted cache":
+                                     torch.equal(got, same)})
+            if b == 1:
+                n_keys = int(valid.sum())
+
+                def kern(q=q, kc=kc, vc=vc, valid=valid):
+                    return da.decode_attention(q, kc, vc, valid, 256**-0.5)
+
+                report.time(dense_name, label, kern,
+                            lambda: da.decode_attention_reference(q, kc, vc, valid, 256**-0.5),
+                            flops=4 * 256 * 8 * n_keys,
+                            n_bytes=nbytes(q, valid, got) + 2 * n_keys * 256 * csize, peak=peak)
+                fns.append((f"{dense_name} B1 W2048", kern))
+            del kc, vc
+
+        # -- K-c: B5 over a pool of the other dtype, B8 W1024 ps64 layer 17
+        n_layers, b, w = 18, 8, 1024
+        n_p = w // PAGE
+        n_pages = b * n_p + 1
+        kp = rnd(n_layers, n_pages, PAGE, 1, 256, dtype=cache)
+        vp = rnd(n_layers, n_pages, PAGE, 1, 256, dtype=cache)
+        table = torch.from_numpy((rng.permutation(n_pages - 1) + 1).reshape(b, n_p).astype(
+            np.int32)).to(dev)
+        lens = [w - 61 * i for i in range(b)]
+        lens[3] = 0  # an empty row: exact zeros
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = rnd(b, 8, 256, dtype=act)
+        got = pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+        want = pa.reference_paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+        same = pa.paged_decode_attention(q, kp[17:18].to(act), vp[17:18].to(act), table, kv_len,
+                                         layer_idx=0)
+        kd = kp[17][table.long()].reshape(b, w, 256)
+        vd = vp[17][table.long()].reshape(b, w, 256)
+        pmask = (torch.arange(w, device=dev)[None] < kv_len[:, None].long()).contiguous()
+        dense = da.decode_attention(q, kd, vd, pmask, 256**-0.5)
+        sync()
+        label = f"{pair} B8 W1024 Hq8 Hkv1 layer17 fragmented"
+        report.case(paged_name, label, got, want, tol, floor)
+        bits(paged_name, label, {"== uniform form on the converted pool": torch.equal(got, same),
+                                 "== the dense mixed form on shared keys":
+                                 torch.equal(got, dense.reshape(b, 8, 256)),
+                                 "kv_len 0 row zeros": not torch.count_nonzero(got[3])})
+
+        def kern_p(q=q, kp=kp, vp=vp, table=table, kv_len=kv_len):
+            return pa.paged_decode_attention(q, kp, vp, table, kv_len, layer_idx=17)
+
+        n_keys = sum(lens)
+        report.time(paged_name, label, kern_p,
+                    lambda: pa.reference_paged_decode_attention(q, kp, vp, table, kv_len,
+                                                                layer_idx=17),
+                    flops=4 * 256 * 8 * n_keys,
+                    n_bytes=nbytes(q, table, kv_len, got) + 2 * n_keys * 256 * csize, peak=peak)
+        fns.append((f"{paged_name} B8 W1024", kern_p))
+        del kp, vp, kd, vd
+    device_times("mixed forms", fns)
+
+
 def _ms(v):
     return "not measured" if v is None else f"{v:.4f} ms"
 
@@ -7987,7 +8425,9 @@ def fp32_phase(cfg, dev, card, d):
         (the fp32 partial and K1 summed by the all-reduce);
     (h) the Trainer on the fp32 tree (:func:`fp32_train`): B1 and B6's fp32
         forms against plain attention on the first step, the loss falling,
-        exactly 36 / 18 / 18 fp32 flash launches a step.
+        exactly 36 / 18 / 18 fp32 flash launches a step;
+    (i) the fp32 tree over a bf16 KV cache (:func:`fp32_mixed_cache`; the
+        mixed forms), and in (g) its TP generate: one card's tokens.
 
     (d) also encodes the tower with attn="fused" (27 B12 fp32 launches)
     against attn="xla".
@@ -8085,6 +8525,9 @@ def fp32_phase(cfg, dev, card, d):
     decode_rate("fp32: torch ops", ops, pixels, ids, mask, card)
     profile_phase(eng, pixels, ids, mask, card, buckets=(512,), prefix="fp32 ", host_top=0,
                   layers=n_layers)
+    # (i) a bf16 KV cache beside the fp32 tree
+    counts, tok16 = fp32_mixed_cache(p32, dq32, cfg, dev, card, eng, (pixels, ids, mask))
+    add(counts)
 
     # the references of (b) and (c), before the engines are freed
     stand = _StandIns(cfg.image_token_index, cfg.vocab_size,
@@ -8173,7 +8616,7 @@ def fp32_phase(cfg, dev, card, d):
 
         # (g) the TP engines at world size 1 over NCCL
         add(fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank,
-                             (pixels, ids, mask)))
+                             (pixels, ids, mask), tok16))
     del eng, ops, bank_k, dq32
     gc.collect()
     torch.cuda.empty_cache()
@@ -8455,13 +8898,16 @@ def fp32_train(p32, cfg, dev, card):
     return total
 
 
-def fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank, inputs):
+def fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank, inputs,
+                     tok16):
     """fp32_phase's (g): an NCCL group of world size 1, then the TP engines
     on the fp32 trees: generate (FP32_NEW greedy tokens: the TP chain with
     the fp32 partial, int8_gemv_f32_fp32) against the one-card fp32 engine's
-    ``tok``, and a dense ServingEngine with the bank on ``lrows`` (K1's fp32
-    form, lora_shrink_fp32) against ``ref_bank``: bit for bit. Returns the
-    summed launch counts."""
+    ``tok``, the same over a bf16 cache (the mixed forms in the TP chain)
+    against the one-card bf16-cache engine's ``tok16``, and a dense
+    ServingEngine with the bank on ``lrows`` (K1's fp32 form,
+    lora_shrink_fp32) against ``ref_bank``: bit for bit. Returns the summed
+    launch counts."""
     import torch.distributed as dist
 
     from paligemma_tpu_torch import kernels
@@ -8494,6 +8940,29 @@ def fp32_tp_one_rank(p32, dq32, cfg, dev, tok, adapters, lrows, to_req, ref_bank
         if not same or bad or not steps:
             raise AssertionError(f"fp32 tp generate: tokens differ from one card ({same}) or "
                                  f"launches off {bad}")
+        del eng
+        eng = PaliGemmaEngine(p32, cfg, max_seq_len=MAX_SEQ, decode_params=dq32, mesh=mesh,
+                              cache_dtype=torch.bfloat16)
+        kernels.reset_launch_counts()
+        got = eng.generate(*inputs, max_new_tokens=FP32_NEW, eos_token_id=-1, sync_every=8)
+        sync()
+        raw = kernels.launch_counts()
+        for k, v in raw.items():
+            total[k] = total.get(k, 0) + v
+        counts = _as_uniform_names("fp32 tp bf16-cache generate", raw, torch.float32)
+        steps = counts["head_argmax"]
+        want = {"attn_decode_tp": n_layers * steps, "int8_gemv_rope_kv": n_layers * steps,
+                "decode_attention": n_layers * steps, "int8_gemv_f32": 2 * n_layers * steps}
+        bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+        same = np.array_equal(got, tok16)
+        print(f"fp32 tp: TP generate m=1 over NCCL with a bf16 cache vs the one-card bf16-cache "
+              f"engine: {FP32_NEW} tokens bit for bit {same}; "
+              f"{raw['int8_gemv_rope_kv_fp32_cache_bf16']} int8_gemv_rope_kv_fp32_cache_bf16, "
+              f"{raw['decode_attention_fp32_cache_bf16']} decode_attention_fp32_cache_bf16 over "
+              f"{steps} steps", flush=True)
+        if not same or bad or not steps:
+            raise AssertionError(f"fp32 tp bf16-cache generate: tokens differ from one card "
+                                 f"({same}) or launches off {bad}")
         del eng
         served = ServingEngine(p32, cfg, decode_params=dq32, mesh=mesh, lora_bank=adapters,
                                **SERVE)
@@ -8553,6 +9022,9 @@ def main() -> int:
     t1 = time.perf_counter()
     fp32_kernel_counts = fp32_kernel_phase(report, dev)
     print(f"kernels: fp32 forms done in {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    mixed_kernel_cases(report, dev)
+    print(f"kernels: mixed forms done in {time.perf_counter() - t1:.1f} s", flush=True)
     sync()
     torch.cuda.empty_cache()
     print(f"kernels: all cases within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -8586,6 +9058,10 @@ def main() -> int:
     t0 = time.perf_counter()
     counts, tok_dense, tok_paged = serving_phase(params, decode, cfg, dev, card)
     print(f"serve: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mixed_counts = mixed_cache_phase(params, decode, cfg, dev, card, tok_gen, tok_dense)
+    torch.cuda.empty_cache()
+    print(f"mixed: phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     spec_counts = spec_phase(report, params, decode, cfg, dev, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -8624,7 +9100,8 @@ def main() -> int:
     counts = {k: sum(c.get(k, 0) for c in (counts, lora_counts, tp_counts, train_counts,
                                            ablation_counts, cli_counts, serve_cli_counts,
                                            spec_counts, finetune_counts, w8a8_counts,
-                                           train_mesh_counts, fp32_counts, fp32_kernel_counts))
+                                           train_mesh_counts, fp32_counts, fp32_kernel_counts,
+                                           mixed_counts))
               for k in kernels.WRAPPERS}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -8723,6 +9200,24 @@ def main() -> int:
                                   "paligemma_tpu/kernels/ablation/vision_attention.py:47"),
         "seg_decode_attention_fp32": ("cuda", "paligemma_tpu_torch/csrc/seg_attention.cu",
                                       "paligemma_tpu/kernels/ablation/decode_attention.py:46"),
+        # the mixed forms: a KV cache of the other dtype (cache_dtype)
+        "int8_gemv_rope_kv_cache_fp32": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv.cu",
+                                         "paligemma_tpu/kernels/decode_layer.py:95 / "
+                                         "paligemma_tpu/kernels/decode_layer_paged.py:56"),
+        "int8_gemv_rope_kv_fp32_cache_bf16": ("cuda", "paligemma_tpu_torch/csrc/int8_gemv_fp32.cu",
+                                              "paligemma_tpu/kernels/decode_layer.py:95 / "
+                                              "paligemma_tpu/kernels/decode_layer_paged.py:56"),
+        "decode_attention_cache_fp32": ("cuda", "paligemma_tpu_torch/csrc/decode_attention.cu",
+                                        "paligemma_tpu/kernels/decode_layer.py:95"),
+        "decode_attention_fp32_cache_bf16": ("cuda",
+                                             "paligemma_tpu_torch/csrc/decode_attention.cu",
+                                             "paligemma_tpu/kernels/decode_layer.py:95"),
+        "paged_decode_attention_cache_fp32": ("cuda",
+                                              "paligemma_tpu_torch/csrc/paged_attention.cu",
+                                              "paligemma_tpu/kernels/paged_attention.py:42"),
+        "paged_decode_attention_fp32_cache_bf16": (
+            "cuda", "paligemma_tpu_torch/csrc/paged_attention.cu",
+            "paligemma_tpu/kernels/paged_attention.py:42"),
     }
     rows = []
     for name in kernels.WRAPPERS:

@@ -45,7 +45,19 @@
 // two blocks an SM. Decode attention is bound by the window's bytes (at B1
 // W2048 D256, 4.19 MB: 1.25 us at 3.35 TB/s), so FFMA on the CUDA cores
 // costs nothing that matters against the tensor cores here.
+//
+// The mixed forms (a KV cache whose dtype is not the activations'): a
+// policy's element type E is the cache's, the pass's the activations'. A
+// bf16 q over an fp32 cache runs the bf16 pass on the tile rounded to bf16
+// (nearest even) as it is staged, the TPU kernels' astype(q.dtype) of the
+// window (decode_layer.py:323,334); an fp32 q over a bf16 cache runs the
+// fp32 pass on the tile widened to fp32 (exact). cp.async copies bytes and
+// cannot convert, so these tiles are staged through registers
+// (stage_chunk): the same tiles, skips, arithmetic and combine, so dense
+// == paged holds bit for bit within each mixed pair too.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -66,6 +78,7 @@
 // (a (B, W) mask of query rows).
 template <bool kShared, class E = bf16>
 struct DenseKV {
+  using elem = E;
   const E* k;
   const E* v;
   const uint8_t* valid;
@@ -86,6 +99,7 @@ struct DenseKV {
 // visible key are never read.
 template <class E = bf16>
 struct PagedKV {
+  using elem = E;
   const E* k;
   const E* v;
   const int* table;
@@ -107,6 +121,7 @@ struct PagedKV {
 // kv_len (and seg0), or wholly inside the hole, so the hole is never read.
 template <class E = bf16>
 struct SegKV {
+  using elem = E;
   const E* k;
   const E* v;
   const int* seg0;
@@ -124,6 +139,38 @@ struct SegKV {
     return k0 >= seg0[b] && (s1 >= kv_len[b] || s1 >= k0 + nk);
   }
 };
+
+// One 16-byte chunk of a K / V tile row in shared memory, in the pass's
+// type T (8 bf16 or 4 fp32), from cache elements of type E at src; with on
+// false nothing is read and the chunk is zeros. Where E is T it is one
+// 16-byte cp.async (in flight until the caller's wait); a cache of the
+// other dtype is read into registers and converted as it is stored: fp32
+// rounded to bf16 to nearest even (torch's .to(torch.bfloat16), JAX's
+// astype), bf16 widened to fp32 (exact).
+template <class T, class E>
+__device__ __forceinline__ void stage_chunk(T* dst, const E* src, bool on) {
+  if constexpr (std::is_same<T, E>::value) {
+    cp_async_16(dst, src, on);
+  } else if constexpr (sizeof(T) == 2) {  // 8 fp32 -> 8 bf16
+    uint4 r = make_uint4(0u, 0u, 0u, 0u);
+    if (on) {
+      const float4 a = reinterpret_cast<const float4*>(src)[0];
+      const float4 b = reinterpret_cast<const float4*>(src)[1];
+      r = make_uint4(pack_f32_bf16x2(a.x, a.y), pack_f32_bf16x2(a.z, a.w),
+                     pack_f32_bf16x2(b.x, b.y), pack_f32_bf16x2(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(dst) = r;
+  } else {  // 4 bf16 -> 4 fp32
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (on) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      f = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    *reinterpret_cast<float4*>(dst) = f;
+  }
+}
 
 // grid (nsplit, B * Hkv); G query heads per KV head, q (B, Hkv * G, D).
 // A floor of 2 blocks per SM keeps ptxas from squeezing registers for more
@@ -157,16 +204,19 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
   const int dp = (D + 15) & ~15;  // q.k^T depth, zero padded to the k16 step
   const int pchunk = dp / 8;
 
-  // K, then V: one 16-byte cp.async per chunk of a visible key, zeros for
-  // the other keys and for the columns D .. dp - 1
+  // K, then V: one 16-byte chunk per 8 columns of a visible key (a
+  // cp.async, or from an fp32 cache rounded in registers), zeros for the
+  // other keys and for the columns D .. dp - 1
+  using E = typename KV::elem;
   for (int half = 0; half < 2; ++half) {
-    const bf16* src = half ? kv.v : kv.k;
+    const E* src = half ? kv.v : kv.k;
     bf16(*dst)[DA_LD] = half ? vs : ks;
+#pragma unroll 4
     for (int i = tid; i < DA_KT * pchunk; i += DA_THREADS) {
       const int j = i / pchunk, c = i - j * pchunk;
       const bool on = c < nchunk && j < nk && kv.visible(b, k0 + j);
-      const bf16* from = on ? src + kv.row(b, hk, k0 + j) + c * 8 : src;
-      cp_async_16(&dst[j][c * 8], from, on);
+      const E* from = on ? src + kv.row(b, hk, k0 + j) + c * 8 : src;
+      stage_chunk<bf16, E>(&dst[j][c * 8], from, on);
     }
     cp_async_commit();
   }
@@ -340,7 +390,7 @@ inline int attn_launch(const bf16* q, const KV& kv, float* part_m, float* part_l
 
 // The fp32 split pass (header): grid (nsplit, B * Hkv), DA_THREADS
 // threads, f32_smem_bytes() of dynamic shared memory. KV's policy
-// addresses fp32 rows.
+// addresses fp32 rows, or bf16 rows (a mixed form: widened as staged).
 __host__ __device__ constexpr int f32_smem_bytes() {
   return (2 * DA_KT * DA32_LD + DA_HMAX * DA_DMAX + DA_HMAX * DA_KT) * (int)sizeof(float);
 }
@@ -372,16 +422,19 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
   }
   const int nchunk = D / 4;  // 16-byte chunks of a row (D % 8 == 0)
 
-  // K, then V: one 16-byte cp.async per chunk of a visible key, zeros for
-  // the other keys
+  // K, then V: one 16-byte chunk per 4 columns of a visible key (a
+  // cp.async, or from a bf16 cache widened in registers), zeros for the
+  // other keys
+  using E = typename KV::elem;
   for (int half = 0; half < 2; ++half) {
-    const float* src = half ? kv.v : kv.k;
+    const E* src = half ? kv.v : kv.k;
     float* dst = half ? vs : ks;
+#pragma unroll 4
     for (int i = tid; i < DA_KT * nchunk; i += DA_THREADS) {
       const int j = i / nchunk, c = i - j * nchunk;
       const bool on = j < nk && kv.visible(b, k0 + j);
-      const float* from = on ? src + kv.row(b, hk, k0 + j) + c * 4 : src;
-      cp_async_16(dst + j * DA32_LD + c * 4, from, on);
+      const E* from = on ? src + kv.row(b, hk, k0 + j) + c * 4 : src;
+      stage_chunk<float, E>(dst + j * DA32_LD + c * 4, from, on);
     }
     cp_async_commit();
   }

@@ -31,40 +31,47 @@
 //
 // pg_decode_attention_fp32 is the fp32 form (--dtype float32): fp32 q,
 // cache and out, the template's fp32 split pass (attention_split.cuh) on
-// the same tiles and combine.
+// the same tiles and combine. The mixed forms take a cache of the other
+// dtype (the engines' cache_dtype): pg_decode_attention_cache_fp32 (bf16 q
+// and out, an fp32 cache rounded to bf16 as each tile is staged, then the
+// bf16 pass) and pg_decode_attention_fp32_cache_bf16 (fp32 q and out, a
+// bf16 cache widened to fp32, then the fp32 pass).
 #include "attention_split.cuh"
 
-template <bool kShared>
+// q and out in the activation type T, the caches in E: the bf16 pass at
+// T = bf16, the fp32 pass at T = float.
+template <bool kShared, class T, class E>
 static int launch(const void* q, const void* k_cache, const void* v_cache, const void* valid,
                   void* part_m, void* part_l, void* part_o, void* out, int B, int H, int D,
                   int W, int stride_b, int rows_per_cache, int nsplit, float scale,
                   void* stream) {
-  DenseKV<kShared> kv{(const bf16*)k_cache, (const bf16*)v_cache, (const uint8_t*)valid,
-                      (long long)stride_b, D, W, rows_per_cache};
-  return attn_launch(
-      (const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o, (bf16*)out, B, H,
-      /*Hkv=*/1, D, W, nsplit, scale, (cudaStream_t)stream);
+  DenseKV<kShared, E> kv{(const E*)k_cache, (const E*)v_cache, (const uint8_t*)valid,
+                         (long long)stride_b, D, W, rows_per_cache};
+  if constexpr (sizeof(T) == 4)
+    return attn_launch_f32((const float*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                           (float*)out, B, H, /*Hkv=*/1, D, W, nsplit, scale,
+                           (cudaStream_t)stream);
+  else
+    return attn_launch((const bf16*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
+                       (bf16*)out, B, H, /*Hkv=*/1, D, W, nsplit, scale, (cudaStream_t)stream);
+}
+
+template <class T, class E>
+static int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* valid,
+                    void* part_m, void* part_l, void* part_o, void* out, int B, int H, int D,
+                    int W, int stride_b, int rows_per_cache, int nsplit, float scale,
+                    void* stream) {
+  return (rows_per_cache == 1 ? launch<false, T, E> : launch<true, T, E>)(
+      q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
+      rows_per_cache, nsplit, scale, stream);
 }
 
 PG_EXPORT int pg_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                   const void* valid, void* part_m, void* part_l, void* part_o,
                                   void* out, int B, int H, int D, int W, int stride_b,
                                   int rows_per_cache, int nsplit, float scale, void* stream) {
-  return (rows_per_cache == 1 ? launch<false> : launch<true>)(
-      q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
-      rows_per_cache, nsplit, scale, stream);
-}
-
-template <bool kShared>
-static int launch_f32(const void* q, const void* k_cache, const void* v_cache, const void* valid,
-                      void* part_m, void* part_l, void* part_o, void* out, int B, int H, int D,
-                      int W, int stride_b, int rows_per_cache, int nsplit, float scale,
-                      void* stream) {
-  DenseKV<kShared, float> kv{(const float*)k_cache, (const float*)v_cache,
-                             (const uint8_t*)valid, (long long)stride_b, D, W, rows_per_cache};
-  return attn_launch_f32((const float*)q, kv, (float*)part_m, (float*)part_l, (float*)part_o,
-                         (float*)out, B, H, /*Hkv=*/1, D, W, nsplit, scale,
-                         (cudaStream_t)stream);
+  return dispatch<bf16, bf16>(q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D,
+                              W, stride_b, rows_per_cache, nsplit, scale, stream);
 }
 
 // As pg_decode_attention with fp32 q (B, H, D), caches and out (B, H * D).
@@ -73,7 +80,28 @@ PG_EXPORT int pg_decode_attention_fp32(const void* q, const void* k_cache, const
                                        void* part_o, void* out, int B, int H, int D, int W,
                                        int stride_b, int rows_per_cache, int nsplit, float scale,
                                        void* stream) {
-  return (rows_per_cache == 1 ? launch_f32<false> : launch_f32<true>)(
-      q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H, D, W, stride_b,
-      rows_per_cache, nsplit, scale, stream);
+  return dispatch<float, float>(q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H,
+                                D, W, stride_b, rows_per_cache, nsplit, scale, stream);
+}
+
+// As pg_decode_attention (bf16 q and out) over fp32 caches.
+PG_EXPORT int pg_decode_attention_cache_fp32(const void* q, const void* k_cache,
+                                             const void* v_cache, const void* valid,
+                                             void* part_m, void* part_l, void* part_o, void* out,
+                                             int B, int H, int D, int W, int stride_b,
+                                             int rows_per_cache, int nsplit, float scale,
+                                             void* stream) {
+  return dispatch<bf16, float>(q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H,
+                               D, W, stride_b, rows_per_cache, nsplit, scale, stream);
+}
+
+// As pg_decode_attention_fp32 (fp32 q and out) over bf16 caches.
+PG_EXPORT int pg_decode_attention_fp32_cache_bf16(const void* q, const void* k_cache,
+                                                  const void* v_cache, const void* valid,
+                                                  void* part_m, void* part_l, void* part_o,
+                                                  void* out, int B, int H, int D, int W,
+                                                  int stride_b, int rows_per_cache, int nsplit,
+                                                  float scale, void* stream) {
+  return dispatch<float, bf16>(q, k_cache, v_cache, valid, part_m, part_l, part_o, out, B, H,
+                               D, W, stride_b, rows_per_cache, nsplit, scale, stream);
 }

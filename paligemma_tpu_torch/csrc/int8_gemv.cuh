@@ -89,6 +89,15 @@
 // The expand's staging grows by z's fp32 rows (3 KB) beside the tile's
 // static 36 KB; the fp32 prologue stages nothing, so the two never meet.
 //
+// Mode 4 over a KV cache of the other dtype (the engines' cache_dtype; C,
+// the cache type, beside T: pg_int8_gemv_rope_kv_cache_fp32 with bf16 x,
+// pg_int8_gemv_fp32_rope_kv_cache_bf16 with fp32 x): q and the rotation
+// are T's as above; the K / V rows and k_new / v_new take C, each value
+// cast to T first and then converted, as the TPU kernel returns
+// k_new.astype(cache dtype) of the activation-dtype row
+// (decode_layer.py:307-308): a bf16 row widened to fp32 (exact), an fp32
+// row rounded to bf16 (nearest even, as torch's .to(torch.bfloat16)).
+//
 // What bounds it: at decode batches each weight byte is used B times, far
 // below the ~295 flop/byte where the card turns compute-bound, so it is
 // bound by reading w8 from device memory (110 MB per layer of Gemma-2B:
@@ -100,6 +109,8 @@
 // 8 mma.sync per 2 KB), reads each weight byte once per 8 rows of x, and
 // writes no partials to device memory.
 #pragma once
+
+#include <type_traits>
 
 #include "gemv_tile.cuh"
 
@@ -265,17 +276,17 @@ __device__ __forceinline__ const float* lora_deltas(GemvSmem& sm, uint8_t* st, i
   return ds;
 }
 
-// The operands of mode 4's epilogue: RoPE on q and k, the fresh K/V rows,
-// all in the activation type T.
-template <class T>
+// The operands of mode 4's epilogue: RoPE on q and k in the activation
+// type T, the fresh K/V rows in the cache type C (T, or the other dtype).
+template <class T, class C = T>
 struct RopeKVT {
   const T* cos;      // (B, D)
   const T* sin;      // (B, D)
   const int* pos;    // (B,) the token's position
-  T* kdst;           // dense: (B, rows, D) layer cache; paged: (n_pages, rows, D) pool
-  T* vdst;
-  T* knew;           // (B, D)
-  T* vnew;
+  C* kdst;           // dense: (B, rows, D) layer cache; paged: (n_pages, rows, D) pool
+  C* vdst;
+  C* knew;           // (B, D)
+  C* vnew;
   const int* table;  // (B, tstride) page table; null: dense rows
   int H, D, rows, tstride;  // rows: S (dense) or the page size
 };
@@ -288,22 +299,32 @@ struct RopeIn {
   float c1, c2, s1, s2;
 };
 
-template <class T>
-__device__ __forceinline__ RopeIn rope_load(const RopeKVT<T>& rp, int b, int col) {
+template <class T, class C>
+__device__ __forceinline__ RopeIn rope_load(const RopeKVT<T, C>& rp, int b, int col) {
   const int half = rp.D / 2;
   const size_t cb = (size_t)b * rp.D + col % rp.D;
   return RopeIn{to_f32(rp.cos[cb]), to_f32(rp.cos[cb + half]), to_f32(rp.sin[cb]),
                 to_f32(rp.sin[cb + half])};
 }
 
+// A value of the activation type T in the cache type C: itself, or
+// converted (bf16 -> fp32 exact, fp32 -> bf16 to nearest even).
+template <class C, class T>
+__device__ __forceinline__ C to_cache(T v) {
+  if constexpr (std::is_same<C, T>::value)
+    return v;
+  else
+    return from_f32<C>(to_f32(v));
+}
+
 // The pair, cast (v1, v2): rotate (q and k heads), then write q, or k / v
 // into the cache row of position pos (dense row b * rows + pos, or the
-// slot of the page table) and into k_new / v_new. The rotation is the
-// plain version's: o1 = x1 c1 - x2 s1, o2 = x2 c2 + x1 s2 in fp32, each
-// product rounded.
-template <class T>
-__device__ __forceinline__ void rope_write(const RopeKVT<T>& rp, T* q, int b, int col, T v1, T v2,
-                                           const RopeIn& cs, int pos) {
+// slot of the page table) and into k_new / v_new, in the cache type. The
+// rotation is the plain version's: o1 = x1 c1 - x2 s1, o2 = x2 c2 + x1 s2
+// in fp32, each product rounded, the result cast to T.
+template <class T, class C>
+__device__ __forceinline__ void rope_write(const RopeKVT<T, C>& rp, T* q, int b, int col, T v1,
+                                           T v2, const RopeIn& cs, int pos) {
   const int half = rp.D / 2, h = col / rp.D, j = col % rp.D;
   float o1 = to_f32(v1), o2 = to_f32(v2);
   if (h <= rp.H) {
@@ -325,10 +346,10 @@ __device__ __forceinline__ void rope_write(const RopeKVT<T>& rp, T* q, int b, in
     row = (size_t)b * rp.rows + pos;
   }
   const bool kh = h == rp.H;
-  T* dst = (kh ? rp.kdst : rp.vdst) + row * rp.D + j;
-  T* fresh = (kh ? rp.knew : rp.vnew) + (size_t)b * rp.D + j;
-  dst[0] = fresh[0] = from_f32<T>(o1);
-  dst[half] = fresh[half] = from_f32<T>(o2);
+  C* dst = (kh ? rp.kdst : rp.vdst) + row * rp.D + j;
+  C* fresh = (kh ? rp.knew : rp.vnew) + (size_t)b * rp.D + j;
+  dst[0] = fresh[0] = to_cache<C>(from_f32<T>(o1));
+  dst[half] = fresh[half] = to_cache<C>(from_f32<T>(o2));
 }
 
 // v + cast(d): a cast value plus its column's cast LoRA delta, cast (at
@@ -339,15 +360,16 @@ __device__ __forceinline__ T add_delta(T v, float d) {
 }
 
 // T: the activation type of x, residual, out (not mode 3), the norm
-// weight, cos / sin, the cache rows and the LoRA basis z: bf16, or fp32
-// (gemv_tile_sums_f32, every cast the identity).
-template <class T, bool FAST, bool LORA, bool NORM>
+// weight, cos / sin and the LoRA basis z: bf16, or fp32
+// (gemv_tile_sums_f32, every cast the identity). C: the type of mode 4's
+// cache rows (T, or the other dtype).
+template <class T, bool FAST, bool LORA, bool NORM, class C = T>
 __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
     int8_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ s, const T* __restrict__ residual,
                      void* __restrict__ out, int B, int K, int N, int mode, int k_per_cta,
                      int x8, LoraExpand lora, typename GtNorm<T>::type norm,
-                     RopeKVT<T> rope) {
+                     RopeKVT<T, C> rope) {
   __shared__ GemvSmem sm;
   extern __shared__ __align__(16) uint8_t lora_smem[];  // LORA: lora_stage_bytes(ldb, sizeof(T))
   const int rank = cluster_rank(), cs = cluster_size();
@@ -405,7 +427,7 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
         v1 = add_delta<T>(v1, ds[r * GT_COLS + idx % width]);
         v2 = add_delta<T>(v2, ds[r * GT_COLS + width + idx % width]);
       }
-      rope_write<T>(rope, (T*)out, b0 + r, col, v1, v2, cs_in, pos);
+      rope_write<T, C>(rope, (T*)out, b0 + r, col, v1, v2, cs_in, pos);
     } else if (mode == 2) {
       // the products rounded before the GeGLU (no FMA contraction), as
       // the TPU kernel rounds them before it adds the LoRA delta
@@ -439,19 +461,19 @@ __global__ void __launch_bounds__(32 * GT_MAX_WARPS, 2)
   cluster_sync_all();  // every rank has read this CTA's sums
 }
 
-template <bool LORA, bool NORM, class T = bf16>
+template <bool LORA, bool NORM, class T = bf16, class C = T>
 static int launch_gemv(const void* x, const void* w8, const void* s, const void* residual,
                        void* out, int B, int K, int N, int mode, int cluster, int warps,
                        int k_per_cta, LoraExpand lora, typename GtNorm<T>::type norm,
-                       RopeKVT<T> rope, void* stream) {
+                       RopeKVT<T, C> rope, void* stream) {
   const bool pairs = mode == 2 || mode == 4;
   const int tiles = pairs ? (N / 2 + GT_COLS / 2 - 1) / (GT_COLS / 2) : (N + GT_COLS - 1) / GT_COLS;
   const dim3 grid(tiles * cluster, 1, (B + GT_BT - 1) / GT_BT);
   const bool fast = N % (pairs ? 32 : 16) == 0 && (uintptr_t)w8 % 16 == 0;
   // 4 elements of x in one load: 8 bytes (bf16), 16 (fp32)
   const int x8 = K % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0;
-  auto kernel = &int8_gemv_kernel<T, false, LORA, NORM>;
-  if (fast) kernel = &int8_gemv_kernel<T, true, LORA, NORM>;
+  auto kernel = &int8_gemv_kernel<T, false, LORA, NORM, C>;
+  if (fast) kernel = &int8_gemv_kernel<T, true, LORA, NORM, C>;
   if (warps != 4 && warps != GT_MAX_WARPS) return (int)cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 4) {
     // the fp32 prologue reads x and w 16 bytes at a time
@@ -475,4 +497,32 @@ static int launch_gemv(const void* x, const void* w8, const void* s, const void*
   return cluster_launch(kernel, grid, 32 * warps, cluster, smem, (cudaStream_t)stream,
                         (const T*)x, (const int8_t*)w8, (const float*)s, (const T*)residual, out,
                         B, K, N, mode, k_per_cta, x8, lora, norm, rope);
+}
+
+// The mixed forms' entry (pg_int8_gemv_rope_kv_cache_fp32,
+// pg_int8_gemv_fp32_rope_kv_cache_bf16): mode 4 with the norm prologue (nw
+// not null), and the LoRA expand where z is not null, over a cache of type
+// C beside activations of type T. The arguments are pg_int8_gemv_fused's:
+// x, residual, out (q), cos, sin, nw and z in T; k_dst, v_dst, k_new and
+// v_new in C.
+template <class T, class C>
+static int launch_rope_kv(const void* x, const void* w8, const void* s, const void* residual,
+                          void* out, int B, int K, int N, int mode, int cluster, int warps,
+                          int k_per_cta, const void* z, const void* lb, int lb_f32, int G, int nz,
+                          int seg1, int seg2, const void* nw, float eps, const void* cos,
+                          const void* sin, const void* pos, void* k_dst, void* v_dst,
+                          void* k_new, void* v_new, const void* table, int H, int D, int rows,
+                          int tstride, void* stream) {
+  if (mode != 4 || nw == nullptr || D <= 0 || (D / 2) % 16 || N != (H + 2) * D)
+    return (int)cudaErrorInvalidValue;
+  if (z != nullptr && (G <= 0 || G % 8 || nz % G || nz / G > 3)) return (int)cudaErrorInvalidValue;
+  const LoraExpand lora{z, lb, lb_f32, G, nz, seg1, seg2};
+  const typename GtNorm<T>::type norm{(const T*)nw, eps};
+  const RopeKVT<T, C> rope{(const T*)cos, (const T*)sin, (const int*)pos, (C*)k_dst, (C*)v_dst,
+                           (C*)k_new, (C*)v_new, (const int*)table, H, D, rows, tstride};
+  return z != nullptr
+             ? launch_gemv<true, true, T, C>(x, w8, s, residual, out, B, K, N, mode, cluster,
+                                             warps, k_per_cta, lora, norm, rope, stream)
+             : launch_gemv<false, true, T, C>(x, w8, s, residual, out, B, K, N, mode, cluster,
+                                              warps, k_per_cta, lora, norm, rope, stream);
 }

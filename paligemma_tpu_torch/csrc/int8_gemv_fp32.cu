@@ -39,3 +39,19 @@ PG_EXPORT int pg_int8_gemv_fp32(const void* x, const void* w8, const void* s,
              : launch_gemv<false, false, float>(x, w8, s, residual, out, B, K, N, mode, cluster,
                                                 warps, k_per_cta, lora, norm, rope, stream);
 }
+
+// Mode 4 of fp32 x with the norm prologue (and the LoRA expand where z is
+// not null) over a bf16 cache (a mixed cache dtype): the arguments of
+// pg_int8_gemv_fp32, k_dst, v_dst, k_new and v_new bf16, each fp32 row
+// rounded to bf16 to nearest even (int8_gemv.cuh).
+PG_EXPORT int pg_int8_gemv_fp32_rope_kv_cache_bf16(
+    const void* x, const void* w8, const void* s, const void* residual, void* out, int B, int K,
+    int N, int mode, int cluster, int warps, int k_per_cta, const void* z, const void* lb,
+    int lb_f32, int G, int nz, int seg1, int seg2, const void* nw, float eps, const void* cos,
+    const void* sin, const void* pos, void* k_dst, void* v_dst, void* k_new, void* v_new,
+    const void* table, int H, int D, int rows, int tstride, void* stream) {
+  return launch_rope_kv<float, bf16>(x, w8, s, residual, out, B, K, N, mode, cluster, warps,
+                                     k_per_cta, z, lb, lb_f32, G, nz, seg1, seg2, nw, eps, cos,
+                                     sin, pos, k_dst, v_dst, k_new, v_new, table, H, D, rows,
+                                     tstride, stream);
+}

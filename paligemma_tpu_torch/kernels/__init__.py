@@ -86,6 +86,16 @@ WRAPPERS = {
     # the fp32 forms of B12 and B10
     "vision_attention_fp32": _vision_attention.vision_attention_fp32,
     "seg_decode_attention_fp32": _seg_attention.decode_attention_fp32,
+    # the mixed forms: a KV cache whose dtype is not the activations' (the
+    # engines' cache_dtype), bf16 activations over an fp32 cache and fp32
+    # over bf16; the wrapper of the uniform form sends them here
+    "int8_gemv_rope_kv_cache_fp32": _int8_gemv.int8_gemv_rope_kv_cache_fp32,
+    "int8_gemv_rope_kv_fp32_cache_bf16": _int8_gemv.int8_gemv_rope_kv_fp32_cache_bf16,
+    "decode_attention_cache_fp32": _decode_attention.decode_attention_cache_fp32,
+    "decode_attention_fp32_cache_bf16": _decode_attention.decode_attention_fp32_cache_bf16,
+    "paged_decode_attention_cache_fp32": _paged_attention.paged_decode_attention_cache_fp32,
+    "paged_decode_attention_fp32_cache_bf16":
+        _paged_attention.paged_decode_attention_fp32_cache_bf16,
 }
 
 

@@ -64,6 +64,12 @@ SIGNATURES = {
     # fp32 x (every mode, the LoRA expand too): pg_int8_gemv_fused's arguments
     "pg_int8_gemv_fp32": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F] + [_P] * 8
                           + [_I] * 4 + [_P]),
+    # mode 4 over a cache of the other dtype (bf16 x over fp32 rows, fp32 x
+    # over bf16 rows): pg_int8_gemv_fused's arguments
+    "pg_int8_gemv_rope_kv_cache_fp32": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5 + [_P, _F]
+                                        + [_P] * 8 + [_I] * 4 + [_P]),
+    "pg_int8_gemv_fp32_rope_kv_cache_bf16": ([_P] * 5 + [_I] * 7 + [_P] * 2 + [_I] * 5
+                                             + [_P, _F] + [_P] * 8 + [_I] * 4 + [_P]),
     # x, a, a_f32, ids, z, B, K, NG, G, rank, cluster, k_per_cta, threads, nw,
     # eps, stream
     "pg_lora_shrink": [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _F, _P],
@@ -73,10 +79,15 @@ SIGNATURES = {
     # stride_b, rows_per_cache, nsplit, scale, stream
     "pg_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     "pg_decode_attention_fp32": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # bf16 q over fp32 caches, fp32 q over bf16 caches
+    "pg_decode_attention_cache_fp32": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "pg_decode_attention_fp32_cache_bf16": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q, k_pool, v_pool, table, kv_len, part_m, part_l, part_o, out, B, Hq,
     # Hkv, D, W, page_size, table_stride, layer_off, nsplit, scale, stream
     "pg_paged_attention": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
     "pg_paged_attention_fp32": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
+    "pg_paged_attention_cache_fp32": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
+    "pg_paged_attention_fp32_cache_bf16": [_P] * 9 + [_I] * 7 + [_L, _I, _F, _P],
     # y, w8, s, ws, ids, maxv, B, K, N, n_valid, cluster, warps, k_per_cta,
     # stream
     "pg_head_argmax": [_P] * 6 + [_I] * 7 + [_P],

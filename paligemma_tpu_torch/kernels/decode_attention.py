@@ -16,6 +16,15 @@ the result has the bits of a one-row-per-cache-row call.
 fp32 q and an fp32 cache (``--dtype float32``) take the template's fp32
 split pass (fp32 tiles, scores and p.v on the CUDA cores, p not rounded; the
 same tiles and combine), counted apart on :func:`decode_attention_fp32`.
+
+A cache of the other dtype (the engines' ``cache_dtype``) takes a mixed
+form, as the TPU kernel casts the window to q's dtype before its products
+(decode_layer.py ``_kernel_all``, ``kwin[...].astype(q_b.dtype)``): bf16 q
+over an fp32 cache runs the bf16 pass on the tiles rounded to bf16 as they
+are staged (:func:`decode_attention_cache_fp32`), fp32 q over a bf16 cache
+the fp32 pass on the tiles widened (:func:`decode_attention_fp32_cache_bf16`),
+each counted apart. The plain version casts the window to q's dtype the
+same way. The whole cache is never cast.
 """
 
 from __future__ import annotations
@@ -89,20 +98,24 @@ def decode_attention_reference(
     scale: float,
     rows_per_cache: int = 1,
 ) -> torch.Tensor:
-    """Plain version: (B, H*D) in q's dtype; a row with no valid slot gives 0."""
+    """Plain version: (B, H*D) in q's dtype; a row with no valid slot gives 0.
+    The window is cast to q's dtype first (the TPU kernel's astype), so an
+    fp32 cache under bf16 q is rounded before the fp32 products."""
     b, h, d = q.shape
     w = valid.shape[1]
+    k_cache, v_cache = k_cache[:, :w], v_cache[:, :w]
     if rows_per_cache != 1:
         c = torch.arange(b, device=q.device) // rows_per_cache
-        k_cache, v_cache = k_cache[:, :w][c], v_cache[:, :w][c]
-    s = torch.einsum("bhd,bwd->bhw", q.float(), k_cache[:, :w].float()) * scale
+        k_cache, v_cache = k_cache[c], v_cache[c]
+    k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    s = torch.einsum("bhd,bwd->bhw", q.float(), k_cache.float()) * scale
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     den = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(den > 0, den, torch.ones_like(den))
-    out = torch.einsum("bhw,bwd->bhd", p, v_cache[:, :w].float())
+    out = torch.einsum("bhw,bwd->bhd", p, v_cache.float())
     return out.reshape(b, h * d).to(q.dtype)
 
 
@@ -125,15 +138,15 @@ def decode_attention(
     dev = q.device
     if q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous bf16 or fp32 (B, H, D)")
-    fp32 = q.dtype == torch.float32
+    entry, counter = _form(q, k_cache)
     if rows_per_cache < 1 or b % rows_per_cache:
         raise ValueError(f"decode_attention: B {b} must be a multiple of rows_per_cache "
                          f"{rows_per_cache}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if (c.dtype != q.dtype or c.shape != (b // rows_per_cache, s_len, d)
+        if (c.dtype != k_cache.dtype or c.shape != (b // rows_per_cache, s_len, d)
                 or not c.is_contiguous() or c.device != dev or c.data_ptr() % 16):
             raise ValueError(f"decode_attention: {name} must be contiguous 16-byte aligned "
-                             f"{q.dtype} (B / rows_per_cache, S, D): q's dtype")
+                             f"{k_cache.dtype} (B / rows_per_cache, S, D), k_cache's dtype")
     if (valid.dtype != torch.bool or valid.shape != (b, w) or not valid.is_contiguous()
             or valid.device != dev or w > s_len):
         raise ValueError("decode_attention: valid must be contiguous bool (B, W) with W <= S")
@@ -143,28 +156,73 @@ def decode_attention(
     plan = split_plan(q, valid)
     part_m, part_l, part_o = plan.scratch(dev)
     out = torch.empty((b, h * d), dtype=q.dtype, device=dev)
-    lib = _build.library()
-    err = (lib.pg_decode_attention_fp32 if fp32 else lib.pg_decode_attention)(
+    err = getattr(_build.library(), entry)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), out.data_ptr(),
         b, h, d, w, s_len * d, rows_per_cache, plan.nsplit, float(scale),
         _build.stream_ptr(dev),
     )
-    _build.check(err, "decode_attention_fp32" if fp32 else "decode_attention")
-    (decode_attention_fp32 if fp32 else decode_attention).launches += 1
+    _build.check(err, counter.__name__)
+    counter.launches += 1
     return out
 
 
 decode_attention.launches = 0
 
 
+def _form(q: torch.Tensor, cache: torch.Tensor):
+    """(C entry point, the wrapper that counts its launches) of a (q,
+    cache) dtype pair; any other pair raises."""
+    form = _FORMS.get((q.dtype, cache.dtype))
+    if form is None:
+        raise ValueError(f"decode_attention: a {cache.dtype} cache under {q.dtype} q: the "
+                         "kernels take bf16 or fp32 for each")
+    return form
+
+
+def check_pair(name: str, q: torch.Tensor, cache: torch.Tensor, want_q, want_cache) -> None:
+    if (q.dtype, cache.dtype) != (want_q, want_cache):
+        raise ValueError(f"{name}: {want_q} q over a {want_cache} cache, got {q.dtype} over "
+                         f"{cache.dtype}")
+
+
 def decode_attention_fp32(q, k_cache, v_cache, valid, scale, *, rows_per_cache: int = 1):
     """:func:`decode_attention` of fp32 q and cache on the fp32 split pass;
     the count of its launches (which :func:`decode_attention` makes for
-    fp32 q)."""
-    if q.dtype != torch.float32:
-        raise ValueError(f"decode_attention_fp32: fp32 q, got {q.dtype}")
+    fp32 q over an fp32 cache)."""
+    check_pair("decode_attention_fp32", q, k_cache, torch.float32, torch.float32)
     return decode_attention(q, k_cache, v_cache, valid, scale, rows_per_cache=rows_per_cache)
 
 
 decode_attention_fp32.launches = 0
+
+
+def decode_attention_cache_fp32(q, k_cache, v_cache, valid, scale, *, rows_per_cache: int = 1):
+    """:func:`decode_attention` of bf16 q over an fp32 cache (a mixed form:
+    the bf16 pass on the tiles rounded to bf16 as they are staged); the
+    count of its launches."""
+    check_pair("decode_attention_cache_fp32", q, k_cache, torch.bfloat16, torch.float32)
+    return decode_attention(q, k_cache, v_cache, valid, scale, rows_per_cache=rows_per_cache)
+
+
+decode_attention_cache_fp32.launches = 0
+
+
+def decode_attention_fp32_cache_bf16(q, k_cache, v_cache, valid, scale, *,
+                                     rows_per_cache: int = 1):
+    """:func:`decode_attention` of fp32 q over a bf16 cache (a mixed form:
+    the fp32 pass on the tiles widened as they are staged); the count of
+    its launches."""
+    check_pair("decode_attention_fp32_cache_bf16", q, k_cache, torch.float32, torch.bfloat16)
+    return decode_attention(q, k_cache, v_cache, valid, scale, rows_per_cache=rows_per_cache)
+
+
+decode_attention_fp32_cache_bf16.launches = 0
+
+# (q dtype, cache dtype) -> (C entry point, the wrapper that counts its launches)
+_FORMS = {(torch.bfloat16, torch.bfloat16): ("pg_decode_attention", decode_attention),
+          (torch.float32, torch.float32): ("pg_decode_attention_fp32", decode_attention_fp32),
+          (torch.bfloat16, torch.float32): ("pg_decode_attention_cache_fp32",
+                                            decode_attention_cache_fp32),
+          (torch.float32, torch.bfloat16): ("pg_decode_attention_fp32_cache_bf16",
+                                            decode_attention_fp32_cache_bf16)}

@@ -16,10 +16,20 @@ weights they feed, and RoPE on the qkv product in the same kernel
 (decode_layer.py:267-274, :303-307, :321-324, :364).
 
 The contract is the TPU function's: ``(h (B,1,K), k_new (L,B,D),
-v_new (L,B,D))``. In this port the qkv GEMV's epilogue also writes each
-layer's fresh K/V rows into the cache in place (the TPU kernel leaves that
-to the caller), because the attention kernel reads the fresh token from
-the cache.
+v_new (L,B,D))``, k_new and v_new in the cache's dtype. In this port the
+qkv GEMV's epilogue also writes each layer's fresh K/V rows into the cache
+in place (the TPU kernel leaves that to the caller), because the attention
+kernel reads the fresh token from the cache.
+
+The cache may be of the other dtype than the activations (bf16 over fp32,
+fp32 over bf16: the engines' ``cache_dtype``); the GEMV and the attention
+then take their mixed forms. The TPU kernel scores the fresh slot against
+the unrounded ``k_new`` and adds ``p * v_new`` unrounded
+(decode_layer.py:326-335); this chain reads the fresh row back from the
+cache, as the TPU package's XLA path does (models/gemma.py:253). The two
+agree bit for bit where the cache is the wider dtype (widening is exact);
+under an fp32 model with a bf16 cache they differ by one bf16 rounding of
+the newest key and value.
 
 With ``lora_pack`` (:func:`repack_lora_bank_fused`) and ``adapter_ids``
 each row decodes under its own adapter of a multi-LoRA bank, as in the TPU
@@ -92,7 +102,8 @@ def supported(cfg, layers: Dict, batch: int) -> bool:
     :func:`fused_gemvs_fit` takes them, and a batch that fits the grid's y
     dimension (decode_attention runs one block row per batch row). The
     activation dtype is the norm weights' (bf16, or fp32: the kernels' fp32
-    forms), which the chain's inputs and cache must share."""
+    forms), which the chain's inputs share; the cache is bf16 or fp32 (of
+    the other dtype: the kernels' mixed forms)."""
     leaves = int8_leaves(layers)
     act = layers["input_norm"].dtype if "input_norm" in layers else None
     return (

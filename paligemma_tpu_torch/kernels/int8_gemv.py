@@ -71,6 +71,16 @@ counted apart: :func:`int8_gemv_fp32` (with or without the expand),
 :func:`int8_gemv_rope_kv_fp32`, :func:`int8_gemv_f32_fp32` and
 :func:`int8_gemv_f32_lora_fp32`. The fp32 partial keeps the tile's plan and
 rank-order sums, so it has mode 0's bits at fp32 as at bf16.
+
+``int8_gemv_rope_kv`` over a KV cache of the other dtype (the engines'
+``cache_dtype``; the cache rows and ``k_new`` / ``v_new`` in the cache's
+dtype, everything else in x's) takes a mixed form of the epilogue: each row
+is cast to x's dtype as above and then converted to the cache's, as the TPU
+kernel returns ``k_new.astype(cache dtype)`` (decode_layer.py
+``_kernel_all``): :func:`int8_gemv_rope_kv_cache_fp32` (bf16 x, the rows
+widened exactly) and :func:`int8_gemv_rope_kv_fp32_cache_bf16` (fp32 x, the
+rows rounded to bf16 to nearest even, as ``.to(torch.bfloat16)``), each
+counted apart.
 """
 
 from __future__ import annotations
@@ -220,6 +230,7 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
         lora_args = (z.data_ptr(), lb.data_ptr(), int(lb.dtype == torch.float32), g, z.shape[1],
                      seg1, seg2)
     rope_args = (None,) * 8 + (0, 0, 0, 0)
+    mixed = rope is not None and rope[4].dtype != x.dtype  # a cache of the other dtype
     if rope is not None:
         _, cos, sin, pos, k_dst, v_dst, k_new, v_new, table, h, d = rope
         rope_args = (cos.data_ptr(), sin.data_ptr(), pos.data_ptr(), k_dst.data_ptr(),
@@ -228,6 +239,12 @@ def _launch(x, w8, s, residual, mode: int, lora: Optional[LoraExpand] = None,
                      0 if table is None else table.stride(0))
     norm_args = (None if norm is None else norm[0].data_ptr(),
                  0.0 if norm is None else float(norm[1]))
+    if mixed:
+        entry = ("pg_int8_gemv_fp32_rope_kv_cache_bf16" if fp32
+                 else "pg_int8_gemv_rope_kv_cache_fp32")
+        _build.check(getattr(lib, entry)(*args, *lora_args, *norm_args, *rope_args, stream),
+                     entry)
+        return out
     if fp32:
         _build.check(lib.pg_int8_gemv_fp32(*args, *lora_args, *norm_args, *rope_args, stream),
                      "int8_gemv fp32")
@@ -369,20 +386,23 @@ def int8_gemv_rope_kv_reference(x, w8, s, cos, sin, pos, n_heads, k_dst, v_dst, 
 def _check_rope(b, n, n_heads, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, dev,
                 dtype):
     d = cos.shape[-1]
+    cdtype = k_dst.dtype
     _check(d > 0 and (d // 2) % 16 == 0 and d % 2 == 0 and n == (n_heads + 2) * d,
            f"RoPE takes N = (H + 2) * D with D / 2 a multiple of 16, got N {n}, H {n_heads}, "
            f"D {d}")
-    for arg, t, shape in (("cos", cos, (b, d)), ("sin", sin, (b, d)), ("k_new", k_new, (b, d)),
-                          ("v_new", v_new, (b, d))):
-        _check(t.dtype == dtype and t.shape == shape and t.is_contiguous()
-               and t.device == dev, f"{arg} must be contiguous {dtype} {shape} on x's device")
+    _check(cdtype in (torch.bfloat16, torch.float32),
+           f"the cache must be bf16 or fp32, got {cdtype}")
+    for arg, t, want in (("cos", cos, dtype), ("sin", sin, dtype), ("k_new", k_new, cdtype),
+                         ("v_new", v_new, cdtype)):
+        _check(t.dtype == want and t.shape == (b, d) and t.is_contiguous()
+               and t.device == dev, f"{arg} must be contiguous {want} {(b, d)} on x's device")
     _check(pos.dtype == torch.int32 and pos.shape == (b,) and pos.is_contiguous()
            and pos.device == dev, "pos must be contiguous int32 (B,) on x's device")
     for arg, t in (("k_dst", k_dst), ("v_dst", v_dst)):
-        _check(t.dtype == dtype and t.dim() == 3 and t.shape[2] == d
+        _check(t.dtype == cdtype and t.dim() == 3 and t.shape[2] == d
                and t.is_contiguous() and t.device == dev and t.shape == k_dst.shape,
-               f"{arg} must be contiguous {dtype} (rows, S or page size, D) on x's device: "
-               "the cache takes x's dtype")
+               f"{arg} must be contiguous {cdtype} (rows, S or page size, D) on x's device: "
+               "k_dst and v_dst take one dtype")
     if page_table is None:
         _check(k_dst.shape[0] == b, "a dense cache takes one row of slots per batch row")
     else:
@@ -424,20 +444,43 @@ def int8_gemv_rope_kv(
     q = torch.empty((b, n_heads, d), dtype=x.dtype, device=x.device)
     _launch(x, w8, s, None, 4, lora, norm,
             (q, cos, sin, pos, k_dst, v_dst, k_new, v_new, page_table, n_heads, d))
-    # the fp32 form's launches are counted apart
-    (int8_gemv_rope_kv_fp32 if x.dtype == torch.float32 else int8_gemv_rope_kv).launches += 1
+    # the fp32 and the mixed forms' launches are counted apart
+    _ROPE_FORMS[x.dtype, k_dst.dtype].launches += 1
     return q, k_new, v_new
 
 
 int8_gemv_rope_kv.launches = 0
 
 
-def int8_gemv_rope_kv_fp32(x: torch.Tensor, *args, **kw):
-    """:func:`int8_gemv_rope_kv` of fp32 x, an fp32 cache and fp32 cos /
-    sin, on the tile's fp32 form; the count of its launches (which
-    :func:`int8_gemv_rope_kv` makes for fp32 x)."""
-    _check(x.dtype == torch.float32, f"int8_gemv_rope_kv_fp32 takes fp32 x, got {x.dtype}")
-    return int8_gemv_rope_kv(x, *args, **kw)
+def _rope_form(name: str, x_dtype: torch.dtype, cache_dtype: torch.dtype, doc: str):
+    """The wrapper that counts the launches of one (x, cache) dtype pair
+    of :func:`int8_gemv_rope_kv` (which makes them), refusing any other."""
+    def form(x, *args, **kw):
+        _check(x.dtype == x_dtype, f"{name} takes {x_dtype} x, got {x.dtype}")
+        k_dst = kw["k_dst"] if "k_dst" in kw else args[6]  # after w8, s, cos, sin, pos, H
+        _check(k_dst.dtype == cache_dtype,
+               f"{name} takes a {cache_dtype} cache, got {k_dst.dtype}")
+        return int8_gemv_rope_kv(x, *args, **kw)
+
+    form.__name__ = form.__qualname__ = name
+    form.__doc__ = doc
+    form.launches = 0
+    return form
 
 
-int8_gemv_rope_kv_fp32.launches = 0
+int8_gemv_rope_kv_fp32 = _rope_form(
+    "int8_gemv_rope_kv_fp32", torch.float32, torch.float32,
+    ":func:`int8_gemv_rope_kv` of fp32 x, an fp32 cache and fp32 cos / sin, on the tile's "
+    "fp32 form; the count of its launches.")
+int8_gemv_rope_kv_cache_fp32 = _rope_form(
+    "int8_gemv_rope_kv_cache_fp32", torch.bfloat16, torch.float32,
+    ":func:`int8_gemv_rope_kv` of bf16 x over an fp32 cache (a mixed form: each bf16 row "
+    "widened into the cache and k_new / v_new); the count of its launches.")
+int8_gemv_rope_kv_fp32_cache_bf16 = _rope_form(
+    "int8_gemv_rope_kv_fp32_cache_bf16", torch.float32, torch.bfloat16,
+    ":func:`int8_gemv_rope_kv` of fp32 x over a bf16 cache (a mixed form: each fp32 row "
+    "rounded to bf16 into the cache and k_new / v_new); the count of its launches.")
+_ROPE_FORMS = {(torch.bfloat16, torch.bfloat16): int8_gemv_rope_kv,
+               (torch.float32, torch.float32): int8_gemv_rope_kv_fp32,
+               (torch.bfloat16, torch.float32): int8_gemv_rope_kv_cache_fp32,
+               (torch.float32, torch.bfloat16): int8_gemv_rope_kv_fp32_cache_bf16}

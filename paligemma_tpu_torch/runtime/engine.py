@@ -69,17 +69,25 @@ from ..ops import sampling
 from ..ops.ngram import propose_ngram
 
 
+# (activations, KV cache) dtype pairs the card's decode kernels take: the
+# uniform pairs and the two mixed ones (the kernels' mixed forms)
+CARD_CACHE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+
+
 def check_cache_dtype(device: torch.device, params: Dict[str, Any],
                       cache_dtype: torch.dtype, what: str) -> None:
-    """On the card the flash and decode kernels read and write the KV cache
-    in the activation dtype (the embedding table's: bf16, or fp32 with
-    ``--dtype float32``), and none has a mixed form yet: a cache of the
-    other dtype raises here, at construction, not at the first kernel."""
+    """On the card the decode kernels read and write the KV cache in bf16 or
+    fp32 beside bf16 or fp32 activations (the embedding table's dtype): the
+    four pairs of ``CARD_CACHE_PAIRS``, a cache of the other dtype through
+    the kernels' mixed forms. Any other pair raises here, at construction,
+    not at the first kernel. (Prefill attends over the fresh k / v in the
+    activation dtype, so only the decode kernels read the cache.)"""
     act = params["lm"]["embed"].dtype
-    if device.type == "cuda" and cache_dtype != act:
+    if device.type == "cuda" and (act, cache_dtype) not in CARD_CACHE_PAIRS:
+        pairs = ", ".join(f"({a}, {c})" for a, c in CARD_CACHE_PAIRS)
         raise ValueError(f"{what}: a {cache_dtype} KV cache beside {act} activations on the "
-                         f"card: the kernels take the cache in the activation dtype (no mixed "
-                         f"form yet); pass cache_dtype={act} or leave it unset")
+                         f"card: the kernels take the (activations, cache) pairs {pairs}")
 
 
 class KVState(NamedTuple):
@@ -115,7 +123,8 @@ class PaliGemmaEngine:
         decode (e.g. the int8 tree of runtime.quantize) while ``params``
         serves the prefill. The device is the one the params live on; the
         KV cache takes ``cache_dtype``, by default the embedding table's
-        (on the card it must be that dtype: :func:`check_cache_dtype`).
+        (on the card bf16 or fp32 under bf16 or fp32 activations:
+        :func:`check_cache_dtype`).
 
         ``int8_act_prefill``: when ``params`` itself is the int8 tree
         (single-copy serving: ``params`` and ``decode_params`` the same

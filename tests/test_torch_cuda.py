@@ -1869,8 +1869,8 @@ def test_fp32_engines_on_card_spec_equals_greedy_dense_equals_paged():
     launches; generate_spec gives generate's tokens exactly (the verify
     rows have the decode step's bits); the dense and the paged serving
     engines give the same tokens, with and without spec_decode; the prefill
-    logits within 1e-3 of the torch-ops engine's max |logit|; a bf16 cache
-    beside fp32 weights raises."""
+    logits within 1e-3 of the torch-ops engine's max |logit|; an fp16 cache
+    (no kernel form takes it) raises."""
     import numpy as np
 
     from paligemma_tpu_torch import kernels
@@ -1882,7 +1882,7 @@ def test_fp32_engines_on_card_spec_equals_greedy_dense_equals_paged():
     cfg, params, dq = _serving_model_fp32(dev)
     with pytest.raises(ValueError, match="KV cache"):
         PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq,
-                        cache_dtype=torch.bfloat16)
+                        cache_dtype=torch.float16)
     eng = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq)
     ref = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq, use_flash=False,
                           fused_layer=False)
@@ -1911,6 +1911,199 @@ def test_fp32_engines_on_card_spec_equals_greedy_dense_equals_paged():
     paged = _served(PagedServingEngine(params, cfg, page_size=16, **kw),
                     _serving_requests(cfg, 5))
     assert kernels.launch_counts()["paged_decode_attention_fp32"] > 0
+    assert paged == dense
+    for cls, extra in ((ServingEngine, {}), (PagedServingEngine, {"page_size": 16})):
+        spec = _served(cls(params, cfg, spec_decode=True, spec_draft_k=5, **kw, **extra),
+                       _serving_requests(cfg, 5))
+        assert spec == dense
+
+
+# -- the mixed forms: a KV cache whose dtype is not the activations' -------
+# (activations, cache) pairs; the bf16 forms keep the bf16 tolerance, the
+# fp32 forms FP32_REL
+MIXED = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _mixed_tol(act):
+    return 1e-2 if act == torch.bfloat16 else FP32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,cache", MIXED)
+@pytest.mark.parametrize("b,paged,bank", [(1, False, False), (8, False, True),
+                                          (8, True, False), (8, True, True)])
+def test_int8_gemv_rope_kv_mixed_forms_on_card(act, cache, b, paged, bank):
+    """The qkv GEMV's mixed forms (Gemma-2B's K 2048, 8 heads of 256, dense
+    rows or page slots, with and without a LoRA bank): q is the uniform
+    form's bit for bit, and the cache rows and k_new / v_new are the uniform
+    form's converted to the cache dtype (.to(): widened exactly, or rounded
+    to nearest even); within the form's tolerance of the plain chain (a
+    bf16 output within the bf16 forms'); counted on the mixed form's
+    counter only."""
+    from paligemma_tpu_torch.kernels import lora as t_lora
+
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(51 + b + paged + bank)
+    k, h, d, ps, s_len = 2048, 8, 256, 64, 512
+    n = (h + 2) * d
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    x = (torch.randn(b, k, generator=g, device=dev) * 3.0).to(act)
+    norm = ((torch.randn(k, generator=g, device=dev) * 0.1).to(act), 1e-6)
+    ang = torch.rand(b, d, generator=g, device=dev) * 6.28
+    cos, sin = ang.cos().to(act), ang.sin().to(act)
+    pos = torch.randint(0, 300, (b,), generator=g, device=dev, dtype=torch.int32)
+    lora = None
+    if bank:
+        ids = torch.arange(b, device=dev).to(torch.int32) % 3
+        a = (torch.randn(k, 3 * 24, generator=g, device=dev) * k**-0.5).to(act)
+        lb = torch.randn(24, n, generator=g, device=dev) * 0.5
+        lora = (t_lora.lora_shrink(x, a, ids, 8, 24, norm=norm), lb, (h * d, (h + 1) * d))
+    table, shape = None, (b, s_len, d)
+    if paged:
+        table = (torch.randperm(b * 8, generator=g, device=dev).reshape(b, 8) + 1).to(torch.int32)
+        shape = (b * 8 + 1, ps, d)
+
+    def run(fn, cdtype):
+        kc, vc = (torch.zeros(shape, dtype=cdtype, device=dev) for _ in range(2))
+        kn, vn = (torch.empty(b, d, dtype=cdtype, device=dev) for _ in range(2))
+        q, _, _ = fn(x, w8, s, cos, sin, pos, h, kc, vc, kn, vn, norm=norm, page_table=table,
+                     lora=lora)
+        return q, kc, vc, kn, vn
+
+    form = getattr(t_gemv, "int8_gemv_rope_kv_cache_fp32" if act == torch.bfloat16
+                   else "int8_gemv_rope_kv_fp32_cache_bf16")
+    uniform = t_gemv.int8_gemv_rope_kv if act == torch.bfloat16 else t_gemv.int8_gemv_rope_kv_fp32
+    n0, u0 = form.launches, uniform.launches
+    got = run(t_gemv.int8_gemv_rope_kv, cache)
+    assert form.launches == n0 + 1 and uniform.launches == u0
+    same = run(t_gemv.int8_gemv_rope_kv, act)
+    assert torch.equal(got[0], same[0])
+    for mixed, one in zip(got[1:], same[1:]):
+        assert mixed.dtype == cache and torch.equal(mixed, one.to(cache))
+    for g_, w_ in zip(got, run(t_gemv.int8_gemv_rope_kv_reference, cache)):
+        # a bf16 output may round either side of its plain value's tie
+        assert _rel_err(g_, w_) <= _mixed_tol(act if g_.dtype == torch.float32 else torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,cache", MIXED)
+@pytest.mark.parametrize("grp", [1, 8])
+def test_split_attention_mixed_forms_dense_equals_paged_on_card(act, cache, grp):
+    """3b's and B5's mixed forms against their plain versions (the window
+    cast to q's dtype first) within the form's tolerance; bit for bit the
+    uniform form on the cache converted to q's dtype (the tile is converted
+    as it is staged: the same arithmetic); dense == paged bit for bit; a row
+    with no visible key gives zeros; counted on the mixed forms. The fp32
+    cache holds values bf16 cannot represent."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(60 + grp)
+    uniform = {torch.bfloat16: (t_dattn.decode_attention, t_paged.paged_decode_attention),
+               torch.float32: (t_dattn.decode_attention_fp32,
+                               t_paged.paged_decode_attention_fp32)}[act]
+    forms = ((t_dattn.decode_attention_cache_fp32, t_paged.paged_decode_attention_cache_fp32)
+             if act == torch.bfloat16 else
+             (t_dattn.decode_attention_fp32_cache_bf16,
+              t_paged.paged_decode_attention_fp32_cache_bf16))
+    for b, d, ps, s_len, lens in ((3, 128, 16, 256, [37, 0, 80]),
+                                  (8, 256, 64, 2048, [2048, 1, 700, 1500, 64, 65, 2000, 333])):
+        q = torch.randn(b, grp, d, generator=g, device=dev).to(act)
+        kc, vc = (torch.randn(b, s_len, d, generator=g, device=dev).to(cache) for _ in range(2))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        valid = (torch.arange(s_len, device=dev)[None] < ln[:, None].long()).contiguous()
+        n0, u0 = forms[0].launches, uniform[0].launches
+        dense = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5)
+        assert forms[0].launches == n0 + 1 and uniform[0].launches == u0
+        assert dense.dtype == act
+        assert _rel_err(dense, t_dattn.decode_attention_reference(q, kc, vc, valid,
+                                                                  d**-0.5)) <= _mixed_tol(act)
+        assert torch.equal(dense, t_dattn.decode_attention(q, kc.to(act), vc.to(act), valid,
+                                                           d**-0.5))
+        if 0 in lens:
+            assert torch.count_nonzero(dense[lens.index(0)]) == 0
+        pool_k = kc.reshape(b * s_len // ps, ps, 1, d)
+        pool_v = vc.reshape(b * s_len // ps, ps, 1, d)
+        n_p = max(lens) // ps + 1
+        tab = (torch.arange(n_p, device=dev)[None]
+               + (s_len // ps) * torch.arange(b, device=dev)[:, None]).to(torch.int32)
+        tab = torch.minimum(tab, torch.tensor(b * s_len // ps - 1, device=dev)).to(torch.int32)
+        n0 = forms[1].launches
+        paged = t_paged.paged_decode_attention(q, pool_k, pool_v, tab, ln, d**-0.5)
+        assert forms[1].launches == n0 + 1
+        assert torch.equal(paged, dense.reshape(b, grp, d))
+        assert _rel_err(paged, t_paged.reference_paged_decode_attention(
+            q, pool_k, pool_v, tab, ln, d**-0.5)) <= _mixed_tol(act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,cache", MIXED)
+def test_decode_attention_mixed_rows_per_cache_bits_on_card(act, cache):
+    """The verify's dense attention over a cache of the other dtype: s query
+    rows per cache row give the bits of the call on the cache rows repeated
+    s times."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, s, w, d = 3, 5, 200, 256
+    kc, vc = (torch.randn(b, w, d, generator=g, device=dev).to(cache) for _ in range(2))
+    q = torch.randn(b * s, 8, d, generator=g, device=dev).to(act)
+    valid = torch.rand(b * s, w, generator=g, device=dev) < 0.6
+    got = t_dattn.decode_attention(q, kc, vc, valid, d**-0.5, rows_per_cache=s)
+    assert _rel_err(got, t_dattn.decode_attention_reference(q, kc, vc, valid, d**-0.5,
+                                                            s)) <= _mixed_tol(act)
+    rep = t_dattn.decode_attention(q, kc.repeat_interleave(s, 0).contiguous(),
+                                   vc.repeat_interleave(s, 0).contiguous(), valid, d**-0.5)
+    assert torch.equal(got, rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,cache", MIXED)
+def test_mixed_cache_engines_on_card(act, cache):
+    """Both mixed pairs end to end at a tiny MQA config: generate launches
+    the mixed forms and no uniform form of the GEMV's cache write or the
+    attention; the prefill logits are the uniform engine's bit for bit
+    (prefill attends over the fresh k / v); bf16 over an fp32 cache gives
+    the bf16 cache's tokens exactly (widening is exact); generate_spec ==
+    generate; the dense and the paged serving engines give the same tokens,
+    with spec_decode too."""
+    import numpy as np
+
+    from paligemma_tpu_torch import kernels
+    from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
+    from paligemma_tpu_torch.runtime.serving import ServingEngine
+    from paligemma_tpu_torch.runtime.serving_paged import PagedServingEngine
+
+    dev = _fp32_card()
+    cfg, params, dq = _serving_model_fp32(dev) if act == torch.float32 else _serving_model(dev)
+    eng = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq, cache_dtype=cache)
+    one = PaliGemmaEngine(params, cfg, max_seq_len=128, decode_params=dq)
+    r = _serving_requests(cfg, 1)[0]
+    ids = r.input_ids[None]
+    px = torch.from_numpy(r.pixel_values[None]).to(dev)
+    lk, _ = eng.prefill(px, ids, np.ones_like(ids))
+    lu, _ = one.prefill(px, ids, np.ones_like(ids))
+    assert torch.equal(lk, lu)
+    kernels.reset_launch_counts()
+    want = eng.generate(px, ids, np.ones_like(ids), max_new_tokens=40, eos_token_id=-1,
+                        sync_every=8)
+    counts = kernels.launch_counts()
+    tag = "cache_fp32" if act == torch.bfloat16 else "fp32_cache_bf16"
+    for name in (f"int8_gemv_rope_kv_{tag}", f"decode_attention_{tag}"):
+        assert counts[name] > 0, name
+    for name in ("int8_gemv_rope_kv", "int8_gemv_rope_kv_fp32", "decode_attention",
+                 "decode_attention_fp32"):
+        assert counts[name] == 0, name
+    if act == torch.bfloat16:
+        assert np.array_equal(want, one.generate(px, ids, np.ones_like(ids), max_new_tokens=40,
+                                                 eos_token_id=-1, sync_every=8))
+    got = eng.generate_spec(px, ids, np.ones_like(ids), max_new_tokens=40, eos_token_id=-1,
+                            draft_k=6)
+    assert np.array_equal(got, want)
+    kw = dict(max_slots=3, max_seq_len=128, decode_params=dq, sync_every=4, cache_dtype=cache)
+    dense = _served(ServingEngine(params, cfg, **kw), _serving_requests(cfg, 5))
+    kernels.reset_launch_counts()
+    paged = _served(PagedServingEngine(params, cfg, page_size=16, **kw),
+                    _serving_requests(cfg, 5))
+    assert kernels.launch_counts()[f"paged_decode_attention_{tag}"] > 0
     assert paged == dense
     for cls, extra in ((ServingEngine, {}), (PagedServingEngine, {"page_size": 16})):
         spec = _served(cls(params, cfg, spec_decode=True, spec_draft_k=5, **kw, **extra),

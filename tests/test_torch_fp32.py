@@ -1,7 +1,8 @@
 """The fp32 forms of the port's kernels (``--dtype float32`` on the card), on
 the CPU: the arithmetic of the GEMV tile's three-term split that grounds the
-card's tolerance, the wrappers' dispatch and counters, the decode chain's
-support check at fp32, and the rule against a mixed cache dtype. The kernel
+card's tolerance, the wrappers' dispatch and counters (the mixed cache
+forms' too), the decode chain's support check at fp32, and the card's
+(activations, cache) dtype pairs. The kernel
 paths at fp32 against the JAX package run in tests/test_torch_kernels.py,
 tests/test_torch_paged.py and tests/test_torch_engine.py (all fp32 on the
 CPU); the kernels themselves in tests/test_torch_cuda.py on a card."""
@@ -38,6 +39,10 @@ FP32_FORMS = ("flash_attention_fwd_fp32", "int8_gemv_fp32", "int8_gemv_rope_kv_f
               "int8_gemv_f32_lora_fp32", "w8a8_quant_rows_fp32", "w8a8_gemm_fp32",
               "flash_attention_bwd_dq_fp32", "flash_attention_bwd_dkv_fp32",
               "vision_attention_fp32", "seg_decode_attention_fp32")
+# the mixed forms (a KV cache of the other dtype), counted apart as well
+MIXED_FORMS = ("int8_gemv_rope_kv_cache_fp32", "int8_gemv_rope_kv_fp32_cache_bf16",
+               "decode_attention_cache_fp32", "decode_attention_fp32_cache_bf16",
+               "paged_decode_attention_cache_fp32", "paged_decode_attention_fp32_cache_bf16")
 
 
 def _split3(x):
@@ -77,11 +82,12 @@ def test_three_term_split_holds_fp32(k):
 
 
 def test_fp32_forms_are_counted_apart():
-    """Each fp32 form has its own counter in WRAPPERS (no name ends in
-    ``_f32``: ``int8_gemv_f32`` is mode 3's fp32 partial); on CPU tensors
-    the wrappers run the plain versions and count nothing."""
-    for name in FP32_FORMS:
+    """Each fp32 form and each mixed form has its own counter in WRAPPERS
+    (no name ends in ``_f32``: ``int8_gemv_f32`` is mode 3's fp32 partial);
+    on CPU tensors the wrappers run the plain versions and count nothing."""
+    for name in FP32_FORMS + MIXED_FORMS:
         assert name in kernels.WRAPPERS and not name.endswith("_f32")
+    assert all(kernels.WRAPPERS[n].__name__ == n for n in MIXED_FORMS)
     kernels.reset_launch_counts()
     x = torch.randn(2, 64)
     w8 = torch.randint(-127, 128, (64, 128), dtype=torch.int8)
@@ -100,6 +106,17 @@ def test_fp32_forms_are_counted_apart():
                                t_flash._reference_backward(*bwd, 0)[0])
     torch.testing.assert_close(t_flash.flash_attention_bwd_dkv_fp32(*bwd),
                                t_flash._reference_backward(*bwd, 0)[1:])
+    qa, kc = torch.randn(2, 4, 16), torch.randn(2, 8, 16).to(torch.bfloat16)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    torch.testing.assert_close(t_dattn.decode_attention_fp32_cache_bf16(qa, kc, kc, valid, 0.25),
+                               t_dattn.decode_attention_reference(qa, kc, kc, valid, 0.25))
+    pool, table = kc.reshape(1, 16, 1, 16), torch.zeros(2, 1, dtype=torch.int32)
+    lens = torch.tensor([3, 16], dtype=torch.int32)
+    torch.testing.assert_close(
+        t_paged.paged_decode_attention_cache_fp32(qa.bfloat16(), pool.float(), pool.float(),
+                                                  table, lens),
+        t_paged.reference_paged_decode_attention(qa.bfloat16(), pool.float(), pool.float(),
+                                                 table, lens))
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
@@ -146,14 +163,17 @@ def test_norm_prologue_fits_at_fp32():
 
 
 def test_mixed_cache_dtype_raises_on_the_card_only():
-    """fp32 weights with a bf16 cache (or the reverse) raise for a CUDA
-    device; the CPU's plain path takes any cache dtype."""
-    for act, cache in ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+    """The card takes the four (activations, cache) pairs of bf16 and fp32,
+    the mixed ones through the kernels' mixed forms; a cache of any other
+    dtype (fp16) raises for a CUDA device, with a message naming the four
+    pairs, and the CPU's plain path takes it."""
+    for act in (torch.bfloat16, torch.float32):
         params = {"lm": {"embed": torch.zeros(2, 2, dtype=act)}}
-        with pytest.raises(ValueError, match="no mixed form yet"):
+        for cache in (torch.bfloat16, torch.float32):
             check_cache_dtype(torch.device("cuda"), params, cache, "engine")
-        check_cache_dtype(torch.device("cpu"), params, cache, "engine")
-        check_cache_dtype(torch.device("cuda"), params, act, "engine")
+        with pytest.raises(ValueError, match=r"\(torch.float32, torch.bfloat16\)"):
+            check_cache_dtype(torch.device("cuda"), params, torch.float16, "engine")
+        check_cache_dtype(torch.device("cpu"), params, torch.float16, "engine")
 
 
 @pytest.mark.parametrize("flag", ["lora", "int8_prefill", "model_parallel", "data_parallel"])

@@ -703,6 +703,10 @@ C5_FUNCTIONS = (
     "core.mesh.fsdp_param_specs", "train.losses.causal_lm_loss",
     "core.multihost.initialize", "core.multihost.make_multihost_mesh",
     "core.multihost.global_batch_from_local", "core.multihost.process_local_rows",
+    # the paged attention's plain version, which casts the pages to q's
+    # dtype for a pool of the other dtype (the mixed forms' own wrappers have
+    # no JAX namesake)
+    "kernels.paged_attention.reference_paged_decode_attention",
     *OPERANDS_DIFFER,
 )
 
