@@ -278,6 +278,7 @@ WQ_WRAPPERS = ("int4_matmul", "int8_matmul", "int8_matmul_nmajor")
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second (H100 SXM)
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+PEAK_TF32X3_FLOPS = 495e12 / 3  # fp32 products as three tf32 tensor-core products
 PEAK_BYTES = 3.35e12
 # the spin kernel that checks each profile's device clock (profiled): ~0.5
 # ms at the H100's clocks, so that the ~20 us the events add to a kernel
@@ -343,6 +344,22 @@ TRAIN_GRAD_REL_TOL = 5e-2
 # the 896 px tower's features, flash against 'xla': FP32_LOGIT_TOL, 30
 # times below the bf16 gate (LOGIT_REL_TOL).
 FP32_REL = 2e-5
+# B6's fp32 cases (label, (B, S, Hq, Hkv, D), prefix_len, kv_len, timed):
+# the training shape and a TP rank's Hq4 (timed; the second printed only),
+# GQA, a kv_len 0 row, prefix-LM at D128, and the 3xTF32 tiles' edges: a
+# key count off the 32-key tile with D80, and D72 (padded to 80) with eight
+# heads folded over 45 rows, so 64-row tiles straddle query heads
+B6_FP32_CASES = [
+    ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 8, 1, 256), [268, 268], [512, 400], True),
+    ("train TP-local m=2 B2 S512 Hq4 Hkv1 D256", (2, 512, 4, 1, 256), [268, 268],
+     [512, 400], "device"),
+    ("GQA B2 S199 Hq4 Hkv2 D64", (2, 199, 4, 2, 64), [60, 100], [199, 150], False),
+    ("kv_len 0 row B2 S40 Hq4 Hkv2 D72", (2, 40, 4, 2, 72), [17, 0], [40, 0], False),
+    ("prefix-LM B1 S130 Hq2 Hkv1 D128", (1, 130, 2, 1, 128), [50], [130], False),
+    ("key tile edge B1 S77 Hq6 Hkv2 D80", (1, 77, 6, 2, 80), [40], [70], False),
+    ("heads straddle tiles B2 S45 Hq8 Hkv1 D72", (2, 45, 8, 1, 72), [20, 45], [45, 33],
+     False),
+]
 FP32_LOGIT_TOL = 1e-3
 FP32_NEW = 32  # greedy tokens of the fp32 engines and CLIs
 # the bf16 kernels of the main paths -> their fp32 forms' counters (one
@@ -7497,7 +7514,8 @@ def fp32_kernel_phase(report: KernelReport, dev):
     (ids the argmax of the fp32 logits path's GEMV, bit for bit); 3b at B1
     and B8, W2048; B5 at B8, W1024, page size 64 (and dense == paged on
     shared keys); the final norm. Times beside the bound at fp32 (67 TFLOP/s
-    outside the tensor cores, or the bytes at 3.35 TB/s) and the library
+    outside the tensor cores; B1's at 3xTF32, 165 TFLOP/s on the tensor
+    cores; or the bytes at 3.35 TB/s) and the library
     call: fp32 SDPA with the same mask for B1, 3b and B5, cuBLAS fp32 on
     the dequantized weight for the GEMVs (another function: no epilogue,
     fp32 weights), F.rms_norm for the norm."""
@@ -7555,13 +7573,13 @@ def fp32_kernel_phase(report: KernelReport, dev):
         report.time("flash_attention_fwd_fp32", label, run,
                     lambda: fa.reference_attention(q, k, v, pl, kl), flops=flops,
                     n_bytes=n_bytes, library_fn=sdpa, iters=20 if lm else 3, in_json=lm,
-                    peak=PEAK_FP32_FLOPS)
+                    peak=PEAK_TF32X3_FLOPS)
         dt = device_times(label, [("flash_attention_fwd_fp32", run), ("SDPA fp32", sdpa)],
                           iters=10 if lm else 2)
         print(f"  device B1 fp32 {label}: " + ", ".join(
             f"{n} {'not measured' if ms is None else f'{ms:.4f} ms'}" for n, ms in dt.items())
-            + f"; bound {bound_ms(flops, n_bytes, PEAK_FP32_FLOPS):.4f} ms (fp32 at "
-            f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+            + f"; bound {bound_ms(flops, n_bytes, PEAK_TF32X3_FLOPS):.4f} ms (3xTF32 at "
+            f"{PEAK_TF32X3_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
         del q, k, v, out, lse, a
 
     # -- the GEMV tile at fp32: layer 5's projections at decode and verify rows
@@ -7776,8 +7794,9 @@ def fp32_attention_cases(report: KernelReport, dev, f32):
 
     * B6's fp32 dq and dk/dv (with the fp32-out split sum) at the training
       shape (B2 S512 Hq8, and a TP rank's Hq4, Hkv1 D256, prefix 268, kv_len
-      512 / 400), GQA at D64, a kv_len 0 row at D72 (exact zeros), D128;
-      timed at Hq8 beside one fp32 SDPA backward with a bool mask;
+      512 / 400), GQA at D64, a kv_len 0 row at D72 (exact zeros), D128,
+      and the edges of the 3xTF32 tiles (B6_FP32_CASES); timed at Hq8 and
+      Hq4 beside one fp32 SDPA backward with a bool mask, bound at 3xTF32;
     * B12's fp32 form at the 224, 448 and 896 px towers (B1 H16 D72), timed
       beside fp32 SDPA;
     * B10's fp32 form at the Gemma-2B cache (S 2048, D 256) with pad holes
@@ -7793,14 +7812,7 @@ def fp32_attention_cases(report: KernelReport, dev, f32):
     # -- B6 at fp32
     print("kernels: flash_attention_bwd_dq_fp32, flash_attention_bwd_dkv_fp32 (B6 fp32)",
           flush=True)
-    for label, (b, s, hq, hkv, d), pfx, kvl, timed in [
-        ("train B2 S512 Hq8 Hkv1 D256", (2, 512, 8, 1, 256), [268, 268], [512, 400], True),
-        ("train TP-local m=2 B2 S512 Hq4 Hkv1 D256", (2, 512, 4, 1, 256), [268, 268],
-         [512, 400], "device"),
-        ("GQA B2 S199 Hq4 Hkv2 D64", (2, 199, 4, 2, 64), [60, 100], [199, 150], False),
-        ("kv_len 0 row B2 S40 Hq4 Hkv2 D72", (2, 40, 4, 2, 72), [17, 0], [40, 0], False),
-        ("prefix-LM B1 S130 Hq2 Hkv1 D128", (1, 130, 2, 1, 128), [50], [130], False),
-    ]:
+    for label, (b, s, hq, hkv, d), pfx, kvl, timed in B6_FP32_CASES:
         q, k, v, dout = f32(b, s, hq, d), f32(b, s, hkv, d), f32(b, s, hkv, d), f32(b, s, hq, d)
         pl = torch.tensor(pfx, dtype=torch.int32, device=dev)
         kl = torch.tensor(kvl, dtype=torch.int32, device=dev)
@@ -7850,18 +7862,18 @@ def fp32_attention_cases(report: KernelReport, dev, f32):
                                             ("flash_attention_bwd_dkv_fp32", run_dkv),
                                             ("SDPA fp32 backward", lib_bwd)], iters=5)
         print(f"  device B6 fp32 {label}: dq {_ms(dt['flash_attention_bwd_dq_fp32'])} (bound "
-              f"{bound_ms(flops_dq, bytes_dq, PEAK_FP32_FLOPS):.4f} ms), dk/dv "
+              f"{bound_ms(flops_dq, bytes_dq, PEAK_TF32X3_FLOPS):.4f} ms), dk/dv "
               f"{_ms(dt['flash_attention_bwd_dkv_fp32'])} (bound "
-              f"{bound_ms(flops_dkv, bytes_dkv, PEAK_FP32_FLOPS):.4f} ms), one fp32 SDPA "
+              f"{bound_ms(flops_dkv, bytes_dkv, PEAK_TF32X3_FLOPS):.4f} ms), one fp32 SDPA "
               f"backward {_ms(dt['SDPA fp32 backward'])}", flush=True)
         if timed == "device":  # printed only
             continue
         report.time("flash_attention_bwd_dq_fp32", label, run_dq, lambda plain=plain: plain()[0],
                     flops=flops_dq, n_bytes=bytes_dq, library_fn=lib_bwd, iters=10,
-                    peak=PEAK_FP32_FLOPS)
+                    peak=PEAK_TF32X3_FLOPS)
         report.time("flash_attention_bwd_dkv_fp32", label, run_dkv,
                     lambda plain=plain: plain()[1:], flops=flops_dkv, n_bytes=bytes_dkv,
-                    library_fn=lib_bwd, iters=10, peak=PEAK_FP32_FLOPS)
+                    library_fn=lib_bwd, iters=10, peak=PEAK_TF32X3_FLOPS)
     del q, k, v, dout, out, lse, delta, dq, dk, dv, lib_bwd
 
     # -- B12 at fp32: the towers' S, B1 H16 D72
@@ -7888,13 +7900,13 @@ def fp32_attention_cases(report: KernelReport, dev, f32):
         report.time("vision_attention_fp32", label, run,
                     lambda q=q, k=k, v=v: va.vision_attention_reference(q, k, v, 72**-0.5),
                     flops=flops, n_bytes=nbytes(q, k, v, got), library_fn=lib,
-                    iters=20 if s < 4096 else 3, peak=PEAK_FP32_FLOPS)
+                    iters=20 if s < 4096 else 3, peak=PEAK_TF32X3_FLOPS)
         if s == 4096:
             dt = device_times(f"fp32 {label}", [("vision_attention_fp32", run),
                                                 ("SDPA fp32", lib)], iters=2)
             print(f"  device B12 fp32 {label}: " + ", ".join(
                 f"{n} {_ms(ms)}" for n, ms in dt.items()) + f"; bound "
-                f"{bound_ms(flops, nbytes(q, k, v, got), PEAK_FP32_FLOPS):.4f} ms", flush=True)
+                f"{bound_ms(flops, nbytes(q, k, v, got), PEAK_TF32X3_FLOPS):.4f} ms", flush=True)
         del q, k, v, got, sdpa
 
     # -- B10 at fp32: Gemma-2B's cache, pad holes and kv_len at tile edges

@@ -19,10 +19,15 @@ calls the collectives itself:
   ``"data"``, ``"model"`` or None; ``param_specs`` gives the tree of them,
   ``lora_specs``, ``batch_spec`` and ``kv_cache_specs`` the JAX helpers'
   other specs). A rank holds its slices, not a global array with a
-  sharding, so the specs name which slice it holds. Two differences from
-  the JAX rules: k and v
-  narrower than q (Gemma's one KV head) are replicated, as the JAX decode
-  kernels' ``repack_for_tp`` replicates them, and SigLIP's patch embedding
+  sharding, so the specs name which slice it holds. A rank holds whole
+  heads: k and v are cut by KV heads (``kv_heads``, the tree's count of
+  them, where k / v are narrower than q): ``kv_heads % model == 0`` gives
+  each rank ``kv_heads / model`` of them, ``model % kv_heads == 0`` gives
+  each rank the one KV head its query heads read (``model / kv_heads``
+  ranks share it), any other layout raises (``kv_layout``). Two
+  differences from the JAX rules: one KV head (Gemma's) is replicated, as
+  the JAX decode kernels' ``repack_for_tp`` replicates it (JAX shards its
+  columns under GSPMD), and SigLIP's patch embedding
   stays replicated (JAX shards its D; here the encoder blocks take the
   whole embedding as their input, which a D-sharded embedding would need
   gathered again). Weights are replicated over ``data``, except under
@@ -37,8 +42,9 @@ calls the collectives itself:
   gate, up) take B's output columns with A whole, row-parallel ones (o,
   down) take A's input rows with B whole, so a row-parallel target's
   delta leaves each rank as a partial that is summed with the projection's
-  own partial. k and v narrower than q keep A and B whole, as their
-  weights do (JAX shards their B): every rank computes the same k and v.
+  own partial. k and v take B's columns by KV heads, as their weights do
+  (JAX shards their B); one KV head keeps A and B whole: every rank
+  computes the same k and v.
 * Fused matrices are split at their boundaries before sharding:
   ``qkv`` becomes ``[q_r | k | v]`` and ``gateup`` ``[gate_r | up_r]``. A
   plain column slice of the fused matrix would give rank 0 all of q (or of
@@ -198,45 +204,77 @@ def _in_dim(leaf) -> int:
     return leaf.shape[-2]
 
 
-def _kv_narrow(attn: Dict[str, Any]) -> bool:
-    """k and v narrower than q (one KV head): replicated, not sharded."""
+KV_LAYOUTS = ("one KV head (replicated)", "KV heads divisible by the model axis (split)",
+              "a model axis divisible by the KV heads (one head a rank, shared)")
+
+
+def kv_layout(kv_heads: int, model: int) -> str:
+    """How k / v narrower than q lie over ``model`` ranks: "whole" (one KV
+    head, replicated), "split" (``kv_heads / model`` heads a rank) or
+    "shared" (rank r holds KV head ``r // (model / kv_heads)``, the one its
+    query heads read). Any other layout raises ``NotImplementedError``."""
+    if kv_heads == 1:
+        return "whole"
+    if kv_heads % model == 0:
+        return "split"
+    if model % kv_heads == 0:
+        return "shared"
+    raise NotImplementedError(
+        f"tensor parallel over {model} ranks with {kv_heads} KV heads: the port takes "
+        f"{', '.join(KV_LAYOUTS)}")
+
+
+def kv_share(kv_heads: int, model: int) -> int:
+    """Ranks that hold the same k / v slice: ``model / kv_heads`` in the
+    shared layout, else 1 (a whole KV head counts as replicated)."""
+    return model // kv_heads if kv_layout(kv_heads, model) == "shared" else 1
+
+
+def _kv_whole(attn: Dict[str, Any], kv_heads: int) -> bool:
+    """k and v narrower than q and one KV head: replicated, not sharded."""
     if "k" not in attn or "o" not in attn:
         return False
-    return _width(attn["k"]) < _in_dim(attn["o"])
+    return _width(attn["k"]) < _in_dim(attn["o"]) and kv_heads == 1
 
 
-def param_specs(params: Dict[str, Any]) -> Dict[str, Any]:
+def param_specs(params: Dict[str, Any], *, kv_heads: int = 1) -> Dict[str, Any]:
     """The spec tuple of every leaf of a (dense or int8) params tree: the
     dimension ``shard_params`` slices over ``"model"`` (JAX's
     ``param_specs``, with the module docstring's two differences). A fused
     ``qkv`` / ``gateup`` names its columns, which ``shard_params`` splits
-    at their boundaries first."""
+    at their boundaries first. ``kv_heads``: the LM's KV heads (k and v
+    narrower than q are whole at 1, cut by KV heads otherwise)."""
 
     def walk(t, names):
         if not isinstance(t, dict):
             return _spec_for_leaf(names, t.dim())
         out = {k: walk(v, names + (k,)) for k, v in t.items()}
-        if names and names[-1] == "attn" and _kv_narrow(t):
+        if names and names[-1] == "attn" and _kv_whole(t, kv_heads):
             out.update({n: _replicated(t[n]) for n in ("k", "v")})
         return out
 
     return walk(params, ())
 
 
-def lora_specs(lora: Dict[str, Any]) -> Dict[str, Any]:
+def _lora_q_width(layers: Dict[str, Any]) -> Optional[int]:
+    """q's width from a LoRA tree's q or o adapter (None with neither)."""
+    if "q" in layers:
+        return layers["q"]["b"].shape[-1]
+    if "o" in layers:
+        return layers["o"]["a"].shape[-2]
+    return None
+
+
+def lora_specs(lora: Dict[str, Any], *, kv_heads: int = 1) -> Dict[str, Any]:
     """The spec tuples of a LoRA tree or a stacked bank (JAX's
     ``lora_specs``, and ``shard_lora``'s slices): q, gate and up shard B's
     (and b_cat's) output columns, o and down A's (and a_cat's) input rows;
-    k and v are whole when narrower than q (JAX shards their B); every
-    other entry is replicated. An entry that is no dict (a bank's per-row
-    ids) is left out."""
+    k and v B's columns too, by KV heads, unless they are narrower than q
+    with one KV head (``kv_heads``), when they are whole (JAX shards their
+    B); every other entry is replicated. An entry that is no dict (a bank's
+    per-row ids) is left out."""
     layers = lora["layers"]
-    if "q" in layers:
-        nq = layers["q"]["b"].shape[-1]
-    elif "o" in layers:
-        nq = layers["o"]["a"].shape[-2]
-    else:
-        nq = None
+    nq = _lora_q_width(layers)
     out: Dict[str, Any] = {}
     for name, p in layers.items():
         if not isinstance(p, dict):
@@ -247,7 +285,7 @@ def lora_specs(lora: Dict[str, Any]) -> Dict[str, Any]:
             if nq is None:
                 raise ValueError("lora_specs: k / v adapters need q or o beside them to tell "
                                  "one KV head from one per query head")
-            keys, dim = (("b", "b_cat") if p["b"].shape[-1] == nq else ()), -1
+            keys, dim = (("b", "b_cat") if p["b"].shape[-1] == nq or kv_heads > 1 else ()), -1
         else:
             keys, dim = ("b", "b_cat"), -1
         specs = {}
@@ -263,14 +301,15 @@ def lora_specs(lora: Dict[str, Any]) -> Dict[str, Any]:
 FSDP_MIN_BYTES = 1 << 16  # leaves below 64 KiB stay replicated under FSDP
 
 
-def fsdp_param_specs(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+def fsdp_param_specs(params: Dict[str, Any], mesh: Mesh, *,
+                     kv_heads: int = 1) -> Dict[str, Any]:
     """ZeRO-3 specs (JAX's ``fsdp_param_specs``): ``param_specs`` with one
     more dimension of every leaf of at least 64 KiB on ``"data"``: the
     largest one that is not on ``"model"`` and whose size the data axis
     divides (ties: the earliest). Smaller leaves, and leaves with no such
     dimension, keep their spec. At ``data == 1``, ``param_specs``."""
     d = mesh.data
-    base = param_specs(params)
+    base = param_specs(params, kv_heads=kv_heads)
     if d == 1:
         return base
 
@@ -355,9 +394,23 @@ def _shard_cols(leaf, m: int, r: int):
     return _cols(leaf, r * n // m, (r + 1) * n // m)
 
 
-def _shard_attn(attn: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
-    """q sharded by heads, o by rows; k and v sharded too when they are as
-    wide as q, replicated when narrower (one KV head)."""
+def _kv_cols(leaf, m: int, r: int, kv_heads: int, nq: int):
+    """This rank's k or v columns (of a weight leaf or a LoRA B): cut m
+    ways when as wide as q or split by KV heads, KV head ``r // (m /
+    kv_heads)`` when shared, whole for one KV head."""
+    n = _width(leaf)
+    layout = "split" if n == nq else kv_layout(kv_heads, m)
+    if layout == "whole":
+        return leaf
+    if layout == "split":
+        return _shard_cols(leaf, m, r)
+    w = n // kv_heads
+    h = r // (m // kv_heads)
+    return _cols(leaf, h * w, (h + 1) * w)
+
+
+def _shard_attn(attn: Dict[str, Any], m: int, r: int, kv_heads: int) -> Dict[str, Any]:
+    """q sharded by heads, o by rows; k and v by KV heads (``_kv_cols``)."""
     o = attn["o"]  # (nq, K): its rows are q's width
     nq = _in_dim(o)
     out = {"o": _rows(o, m, r)}
@@ -367,10 +420,8 @@ def _shard_attn(attn: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
         q, k, v = (_cols(qkv, 0, nq), _cols(qkv, nq, nq + nkv), _cols(qkv, nq + nkv, nq + 2 * nkv))
     else:
         q, k, v = attn["q"], attn["k"], attn["v"]
-        nkv = _width(k)
     q = _shard_cols(q, m, r)
-    if nkv == nq:
-        k, v = _shard_cols(k, m, r), _shard_cols(v, m, r)
+    k, v = _kv_cols(k, m, r, kv_heads, nq), _kv_cols(v, m, r, kv_heads, nq)
     out.update({"qkv": _cat_cols(q, k, v)} if "qkv" in attn else {"q": q, "k": k, "v": v})
     for name, leaf in attn.items():
         if name not in ("q", "k", "v", "qkv", "o"):
@@ -392,13 +443,13 @@ def _shard_mlp(mlp: Dict[str, Any], m: int, r: int) -> Dict[str, Any]:
     return out
 
 
-def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+def shard_params(params: Dict[str, Any], mesh: Mesh, *, kv_heads: int = 1) -> Dict[str, Any]:
     """This rank's slices of a (dense or int8) params tree, or of one of its
     subtrees (e.g. ``params["lm"]``): column-parallel projections by output
-    columns, row-parallel ones (o, down, fc2) by input rows, the embedding
-    and the int8 head by vocab, everything else replicated (the same
-    tensors). Fused ``qkv`` / ``gateup`` are split at their boundaries
-    first (module docstring)."""
+    columns, row-parallel ones (o, down, fc2) by input rows, k and v by KV
+    heads (``kv_heads``: the LM's, module docstring), the embedding and the
+    int8 head by vocab, everything else replicated (the same tensors).
+    Fused ``qkv`` / ``gateup`` are split at their boundaries first."""
     m, r = mesh.model, mesh.rank
 
     def walk(t, names):
@@ -413,7 +464,7 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
                                  f"split over {m} ranks")
             return _slice(t, d, r * n // m, (r + 1) * n // m)
         if names and names[-1] == "attn":
-            return _shard_attn(t, m, r)
+            return _shard_attn(t, m, r, kv_heads)
         if names and names[-1] == "mlp":
             return _shard_mlp(t, m, r)
         return {k: walk(v, names + (k,)) for k, v in t.items()}
@@ -421,45 +472,67 @@ def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     return walk(params, ())
 
 
-def shard_lora(lora: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+def shard_lora(lora: Dict[str, Any], mesh: Mesh, *, kv_heads: int = 1) -> Dict[str, Any]:
     """This rank's slices of a LoRA tree (train/lora.init_lora: ``a`` (L,
     in, r), ``b`` (L, r, out)) or of a stacked bank (train/lora.
     stack_lora_bank: the adapter axis second, and ``a_cat`` (L, in, G),
     ``b_cat`` (L, G, out)), by ``lora_specs``; other entries (``alpha``,
     ``__ids__``) stay whole. Every rank then adds its own q / gate / up
-    columns' delta, the same k / v delta, and for o and down a partial
-    delta, summed across ranks beside the projection's partial
-    (models/gemma ``_row_parallel``, kernels/decode_layer_tp)."""
+    columns' delta, its k / v heads' delta (one KV head: the same on every
+    rank), and for o and down a partial delta, summed across ranks beside
+    the projection's partial (models/gemma ``_row_parallel``,
+    kernels/decode_layer_tp)."""
     m, r = mesh.model, mesh.rank
-    specs = lora_specs(lora)["layers"]
+    specs = lora_specs(lora, kv_heads=kv_heads)["layers"]
+    layers = lora["layers"]
+    nq = _lora_q_width(layers)
 
-    def cut(t, spec):
+    def cut(name, t, spec):
         if MODEL not in spec:
             return t
+        if name in ("k", "v"):
+            return _kv_cols(t, m, r, kv_heads, nq)
         d = spec.index(MODEL)
         n = t.shape[d]
         if n % m:
             raise ValueError(f"shard_lora: {n} does not split over {m} ranks")
         return _slice(t, d, r * n // m, (r + 1) * n // m)
 
-    out = {name: ({k: cut(v, specs[name][k]) for k, v in p.items()} if isinstance(p, dict)
+    out = {name: ({k: cut(name, v, specs[name][k]) for k, v in p.items()}
+                  if isinstance(p, dict)
                   else p)  # the per-row ids of a bank (models/paligemma.lora_with_ids)
-           for name, p in lora["layers"].items()}
+           for name, p in layers.items()}
     return {**lora, "layers": out}
 
 
 def local_text_config(cfg: GemmaConfig, model: int) -> GemmaConfig:
     """The decoder config one rank computes with: its share of the query
-    heads and of the MLP width (one KV head stays whole)."""
+    heads and of the MLP width, and its KV heads (``kv_layout``): one KV
+    head whole, ``Hkv / model`` of them when the model axis divides them,
+    the one its query heads read when it divides the model axis."""
     h, nkv, inter = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
-    if h % model or inter % model or cfg.vocab_size % model or nkv not in (1, h):
+    if h % model or inter % model or cfg.vocab_size % model:
         raise NotImplementedError(
             f"tensor parallel over {model} ranks needs heads ({h}), intermediate size "
-            f"({inter}) and vocab ({cfg.vocab_size}) divisible by it, and one KV head or "
-            f"one per query head (got {nkv})")
+            f"({inter}) and vocab ({cfg.vocab_size}) divisible by it")
+    layout = kv_layout(nkv, model)
     return dataclasses.replace(cfg, num_attention_heads=h // model,
-                               num_key_value_heads=1 if nkv == 1 else nkv // model,
+                               num_key_value_heads=nkv // model if layout == "split" else 1,
                                intermediate_size=inter // model)
+
+
+def sum_shared(g: torch.Tensor, mesh: Mesh, kv_heads: int) -> torch.Tensor:
+    """The gradient of a k / v slice that ``model / kv_heads`` ranks share
+    (``kv_layout`` "shared"; columns last), summed over those ranks, in
+    place: each rank's slice in a zero whole-width tensor at its KV head's
+    columns, summed over the model group, and its slice read back. Returns
+    ``g``."""
+    w = g.shape[-1]
+    h = mesh.rank // (mesh.model // kv_heads)
+    whole = g.new_zeros(g.shape[:-1] + (w * kv_heads,))
+    whole[..., h * w:(h + 1) * w] = g
+    model_sum(whole, mesh)
+    return g.copy_(whole[..., h * w:(h + 1) * w])
 
 
 # ---------------------------------------------------------------------------
@@ -767,37 +840,58 @@ def _parts(leaf, mesh: Mesh, host: bool):
     return list(_gather_model(leaf.detach(), mesh, host).unbind(0))
 
 
-def unshard_params(local: Dict[str, Any], mesh: Mesh, *, kv_whole: bool = False,
+def _kv_layout_local(nkv_r: int, nq_r: int, kv_heads: Optional[int], m: int) -> str:
+    """``kv_layout`` of a rank's k / v columns (nkv_r wide beside q's
+    nq_r): the LM's for ``kv_heads``; without, "split" when as wide as q
+    and "whole" when narrower (the slices alone cannot tell a shared KV
+    head from a head a rank when a rank holds one query head)."""
+    if kv_heads is not None:
+        return kv_layout(kv_heads, m)
+    return "split" if nkv_r == nq_r else "whole"
+
+
+def _join_kv(parts, layout: str, m: int, kv_heads: int):
+    """The whole k / v columns from every rank's (``parts``, rank order)."""
+    if layout == "whole":
+        return parts[0]
+    if layout == "shared":
+        parts = parts[::m // kv_heads]  # the first rank of each KV head
+    return _cat_cols(*parts)
+
+
+def unshard_params(local: Dict[str, Any], mesh: Mesh, *, kv_heads: Optional[int] = None,
                    host: bool = False) -> Dict[str, Any]:
     """The whole tree of which ``local`` holds this rank's ``shard_params``
-    slices, on every rank (collective over the model group). ``kv_whole``:
-    k and v are replicated (one KV head narrower than q: shard_params keeps
-    them whole), which the slices alone cannot tell when a rank's q is one
-    KV head wide. ``host``: the joined leaves in host memory (the whole
-    leaves never held on the device together). The leaves may be data
+    slices, on every rank (collective over the model group). ``kv_heads``:
+    the LM's KV heads when ``local`` is the LM tree (or its subtree);
+    without, k and v are cut like q when as wide as it and whole when
+    narrower (the vision tower; an LM of one KV head). ``host``: the
+    joined leaves in host memory (the whole leaves never held on the
+    device together). The leaves may be data
     shards too (``shard_data``): the data dimension is never a model one,
     so this gives the data shards of the whole tree."""
-    if mesh.model == 1:
+    m = mesh.model
+    if m == 1:
         return local
 
     def attn(t):
-        nq_r = _in_dim(t["o"]) // mesh.model
+        nq_r = _in_dim(t["o"])  # o's rows are this rank's q columns
         out = {"o": _join_rows(t["o"], mesh, host)}
         if "qkv" in t:
             parts = _parts(t["qkv"], mesh, host)
             w = _width(t["qkv"])
             nkv = (w - nq_r) // 2
+            layout = _kv_layout_local(nkv, nq_r, kv_heads, m)
             q = _cat_cols(*(_cols(p, 0, nq_r) for p in parts))
-            if kv_whole:
-                kv = _cols(t["qkv"], nq_r, w)
-            else:
-                kv = _cat_cols(*(_cols(p, nq_r, nq_r + nkv) for p in parts),
-                               *(_cols(p, nq_r + nkv, w) for p in parts))
-            out["qkv"] = _cat_cols(q, kv)
+            kv = [_join_kv([_cols(p, lo, hi) for p in parts], layout, m, kv_heads)
+                  for lo, hi in ((nq_r, nq_r + nkv), (nq_r + nkv, w))]
+            out["qkv"] = _cat_cols(q, *kv)
         else:
             out["q"] = _join_cols(t["q"], mesh, host)
+            layout = _kv_layout_local(_width(t["k"]), nq_r, kv_heads, m)
             for n in ("k", "v"):
-                out[n] = t[n] if kv_whole else _join_cols(t[n], mesh, host)
+                out[n] = t[n] if layout == "whole" else _join_kv(
+                    _parts(t[n], mesh, host), layout, m, kv_heads)
         return {k: out[k] for k in t}
 
     def mlp(t):
@@ -827,15 +921,24 @@ def unshard_params(local: Dict[str, Any], mesh: Mesh, *, kv_whole: bool = False,
 
 
 def unshard_lora(local: Dict[str, Any], specs: Dict[str, Any], mesh: Mesh, *,
-                 host: bool = False) -> Dict[str, Any]:
-    """The whole LoRA tree of ``shard_lora``'s slices, on every rank;
-    ``specs``: ``lora_specs`` of the whole tree (collective over the model
-    group). ``host``: the joined leaves in host memory."""
-    if mesh.model == 1:
+                 kv_heads: int = 1, host: bool = False) -> Dict[str, Any]:
+    """The whole LoRA tree of ``shard_lora``'s slices (taken with the same
+    ``kv_heads``), on every rank; ``specs``: ``lora_specs`` of the whole
+    tree (collective over the model group). ``host``: the joined leaves in
+    host memory."""
+    m = mesh.model
+    if m == 1:
         return local
     layers = {}
     for name, p in local["layers"].items():
         spec = specs["layers"][name]
-        layers[name] = {k: (_joined(v, mesh, spec[k].index(MODEL), host) if MODEL in spec[k]
-                            else v) for k, v in p.items()}
+        out = {}
+        for k, v in p.items():
+            if MODEL not in spec[k]:
+                out[k] = v
+            elif name in ("k", "v") and kv_layout(kv_heads, m) == "shared":
+                out[k] = _join_kv(_parts(v, mesh, host), "shared", m, kv_heads)
+            else:
+                out[k] = _joined(v, mesh, spec[k].index(MODEL), host)
+        layers[name] = out
     return {**local, "layers": layers}

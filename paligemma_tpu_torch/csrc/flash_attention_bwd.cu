@@ -65,29 +65,50 @@
 // Trainer on fp32 parameters): the same function, mask, sweep bounds and
 // fixed-order split sum with fp32 q, k, v, dO, dq, dk and dv, and p and ds
 // not rounded (the TPU kernels' casts to the input dtype are the identity at
-// fp32). Simple FFMA kernels on the CUDA cores, in the layout of the
-// forward's fp32 form (csrc/flash_attention.cu flash_fwd_f32_kernel): fp32
-// tiles in shared memory at a row stride of DP + 4 floats (D rounded up to
-// DP in {64, 80, 128, 256}; zeros past D, past kv_len and past the rows),
-// each thread's sums over the depth in order, p from exp2 in log2 units.
-// * dq: a block of 256 threads owns 64 folded rows, four threads a row, as
-//   the forward does: Q and dO stay in shared memory, one 32-key K tile and
-//   one V tile stream (V_{j+1} loads during dQ += dS K_j); thread (row, c)
-//   takes S and dP of keys c, c + 4, ... of each tile, and dq columns
-//   4c + 16f .. + 3 of its row, each key's ds from the thread that made it
-//   (a shuffle), keys in order. 195 KB of shared memory at DP 256.
-// * dk/dv: a block owns 32 keys (8 threads a key) and one row split; K and
-//   V stay resident, 32-row tiles of Q, dO, lse and delta stream through a
-//   two-stage ring, tiles that see none of the block's keys skipped. Thread
-//   (key, c) takes S^T and dP^T of rows c, c + 8, ... and dk, dv columns
-//   4c + 32f .. + 3 of its key: 64 fp32 accumulators at DP 256 (at 64 keys
-//   of four threads each they would be 128 and spill). The split partials
-//   are summed by flash_bwd_dkv_sum<float>.
-// What bounds them: at the training shape, the operations at 67 TFLOP/s
-// fp32 (dq 4.0 GFLOP, 60 us; dk/dv 5.4 GFLOP, 81 us); every float4 read of
-// a K, V, Q or dO row from shared memory feeds four FMAs, so the shared
-// memory reads hold them well below that peak, as in the fp32 forward.
-// 3xTF32 on the tensor cores would be the faster design.
+// fp32). Every product runs on the tensor cores in 3xTF32
+// (mma.sync.m16n8k8 tf32 with fp32 accumulators): each fp32 operand x is
+// split in registers as big = tf32(x) and small = tf32(x - big), both
+// rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away), and a k8 step
+// sums small.big, big.small and big.big in that order (CUTLASS's "fast
+// fp32" scheme; the dropped small.small term is below 2^-22 of each
+// product) on the tensor core from zero, then adds that to the running
+// fp32 sum (the tensor core's own sum truncates; carried over the depth its
+// error grows with the sum). Operands are fp32
+// tiles in shared memory (Bwd32: a row stride of 8 mod 32 floats with
+// 16-byte chunks swapped on rows with bit 2 set, so that the A-pattern
+// reads by ldmatrix and the B reads along keys or rows are both free of
+// bank conflicts; zeros past D, past kv_len and past the rows); p comes
+// from exp2 in log2 units.
+// * dq: a cluster of cs CTAs of 16 warps owns 64 folded rows (cs the most of 1,
+//   2 and 4 that keeps the CTAs in one wave: 1 at the training shape, 2 at a TP
+//   rank's Hq4; 8 warps and 32 rows where even so they would fill at most half
+//   the SMs), each CTA a cs-th of the key tiles its rows see; ranks 1 .. cs - 1
+//   hand their dQ to rank 0 through distributed shared memory, which adds them
+//   in rank order. Q and dO stay in shared memory, one 32-key K tile and one V
+//   tile stream (V_{j+1} loads during S_j and dQ += dS K_j, K_{j+1} during
+//   dP_{j+1}). Warp (wr, wk, dh) computes dP = dO V^T and S = Q K^T for rows 16
+//   wr .. + 15 and keys 16 wk .. + 15 of each tile over half dh of the depth;
+//   the two halves trade sums through shared memory, each forms dS of one n8
+//   tile of keys into shared memory; then warp (wr, cq) accumulates dQ += dS K
+//   for its rows and the n8 tiles cq, cq + 4, .. of D (32 fp32 accumulators a
+//   thread at DP 256, within 512 threads' 128 registers). 225 KB of shared
+//   memory at DP 256 (146 KB at 32 rows).
+// * dk/dv: a block owns 32 keys and one row split; K and V stay resident,
+//   32-row tiles of Q, dO, lse and delta stream through a two-stage ring,
+//   tiles that see none of the block's keys skipped. Warp (kg, rg, dh)
+//   computes S^T = K Q^T and dP^T = V dO^T for keys 16 kg .. and rows 16 rg
+//   .. over half dh of the depth; the two halves trade sums through shared
+//   memory, each adds them for one n8 tile of rows, forms p and ds and
+//   stores P^T and dS^T; then warp (kg, cq) accumulates dV += P^T dO and
+//   dK += dS^T Q for keys 16 kg .. and the n8 tiles cq, cq + 4, .. of D
+//   (8 fp32 accumulators a thread per n8 tile: 64 at DP 256). The
+//   split partials are summed by flash_bwd_dkv_sum<float>.
+// What bounds them: at the training shape the operations at 3xTF32
+// (three tf32 products per fp32 product: 495 / 3 = 165 TFLOP/s; dq 4.0
+// GFLOP, 24 us; dk/dv 5.4 GFLOP, 33 us). Splitting the operands in
+// registers costs four instructions per 32-bit element beside the mma
+// instructions, and mma.sync reaches only part of Hopper's tensor-core
+// rate (wgmma is later work).
 #include "common.cuh"
 
 #define BW_M 64            // folded rows of a dq block; rows of a streamed dk/dv tile
@@ -486,26 +507,39 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 forms (header): FFMA on the CUDA cores, fp32 tiles in shared memory.
+// The fp32 forms (header): 3xTF32 products on mma.sync.m16n8k8 tiles.
 // ---------------------------------------------------------------------------
-#define BW32_M 64    // folded rows of a dq block
+#define BW32_M 64    // folded rows of a dq block (32 where 64-row blocks leave half the SMs idle)
 #define BW32_N 32    // keys of a dq block's K / V tile; keys of a dk/dv block
 #define BW32_R 32    // rows of a dk/dv block's streamed Q / dO tile
-#define BW32_NT 256  // threads of a block
+#define BW32_NT 256  // threads of a dk/dv block
+#define BW32_PS 40   // row stride of the dk/dv block's S^T / dP^T hand-over (8 mod 32)
+#define BW32_PL 36   // row stride of P^T / dS^T, of dq's S / dP hand-over and dS (4 mod 32)
 
 // Tiles of fp32 rows of DP (D rounded up to 64, 80, 128 or 256) columns at a
-// row stride of DP + 4 floats: 16-byte rows, so that eight float4 reads of
-// eight rows (or four of four) fall in distinct banks.
+// row stride LD = 8 (mod 32) floats, column c of row r stored at c ^ (r & 4)
+// (16-byte chunks trade places on rows with bit 2 set). Both fragment reads
+// are then free of bank conflicts: rows g = 0..7 at columns t = 0..3 (A, and
+// B along the depth: ldmatrix), and rows t = 0..3 at columns g = 0..7 (B
+// along keys or rows: one 32-bit load a lane).
 template <int DP>
 struct Bwd32 {
-  static constexpr int LD = DP + 4;
-  // dq: Q, dO (64 rows each), one K and one V tile (32 keys each)
-  static constexpr int DQ_BYTES = (2 * BW32_M + 2 * BW32_N) * LD * (int)sizeof(float);
-  // dk/dv: K, V (32 keys each), two stages of (Q, dO) of 32 rows, two
-  // stages of (lse, delta)
+  static constexpr int LD = ((DP + 31) & ~31) + 8;
+  // dq: Q, dO (M rows each), one K and one V tile (32 keys each), the
+  // S / dP hand-over and dS (M rows x 32 keys each)
+  template <int M>
+  static constexpr int dq_bytes() {
+    return ((2 * M + 2 * BW32_N) * LD + 3 * M * BW32_PL) * (int)sizeof(float);
+  }
+  // dk/dv: K, V (32 keys each), two stages of (Q, dO) of 32 rows, the
+  // S^T / dP^T hand-over, P^T and dS^T, two stages of (lse, delta)
   static constexpr int DKV_BYTES =
-      (2 * BW32_N + 4 * BW32_R) * LD * (int)sizeof(float) + 4 * BW32_R * (int)sizeof(float);
+      ((2 * BW32_N + 4 * BW32_R) * LD + 2 * BW32_N * BW32_PS + 2 * BW32_N * BW32_PL +
+       4 * BW32_R) * (int)sizeof(float);
+  static_assert(DKV_BYTES <= 232448, "shared memory of one block");
 };
+
+__device__ __forceinline__ int bw32_at(int r, int c, int ld) { return r * ld + (c ^ (r & 4)); }
 
 // 2^x (ex2.approx): p = exp(s scale - lse) is 2^(s c2 - lse log2 e), the
 // forward's (csrc/flash_attention.cu fa_exp2) arithmetic.
@@ -515,48 +549,136 @@ __device__ __forceinline__ float bw_exp2(float x) {
   return y;
 }
 
-// n rows of an fp32 tensor into a tile of stride DP + 4, 16-byte cp.async
+// ldmatrix of fp32 tiles: an 8 x 4 block of 32-bit words per matrix, lane l
+// receiving word l % 4 of row l / 4 (the tf32 fragments' pattern).
+__device__ __forceinline__ void ldsm_x4_f32(uint32_t* r, const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// x = big + small in tf32: big = x rounded to tf32, small = the remainder
+// rounded the same way, both as cvt.rna.tf32.f32 rounds a finite value (to
+// nearest, ties away from zero) but in two integer operations: half a tf32
+// ulp (0x1000) added to the bits, then the low 13 bits cleared. big is
+// cleared, so that x - big is exact; small keeps its low 13 bits, which the
+// tensor core ignores, completing the rounding (CUTLASS's
+// round_half_ulp_truncate).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t* x, uint32_t* big, uint32_t* small) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+
+// c (16 x 8) += a (16 x 8, row-major) . b (8 x 8, column-major) in tf32 with
+// fp32 accumulators. With g = lane / 4, t = lane % 4: a[0] = A[g][t],
+// a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]; b[0] = B[t][g],
+// b[1] = B[t+4][g]; c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same with c = 0 on input.
+__device__ __forceinline__ void mma_tf32_1688_0(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+// c += a b in 3xTF32: small.big, big.small, big.big (small.small dropped),
+// in that order, summed on the tensor core from zero, then added to c in
+// fp32 (round to nearest). The tensor core's fp32 sum truncates: carried in
+// c over the depth, its error grows with c (about 1e-5 of the result over a
+// few hundred k8 steps); from zero, each step's error is relative to that
+// step's own sum.
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ab, const uint32_t* as,
+                                           const uint32_t* bb, const uint32_t* bs) {
+  float d[4];
+  mma_tf32_1688_0(d, as, bb);
+  mma_tf32_1688(d, ab, bs);
+  mma_tf32_1688(d, ab, bb);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
+// c[nt] (16 rows x 8, nt = 0, 1) += A . B^T over the depth's k8 steps
+// kk0 .. kk1 - 1: A's rows and B's rows from the tiles a and b, the lane's
+// ldmatrix row addresses a_row / b_row (its column within a k8 step a_col /
+// b_col: 0 or 4).
+template <int LD, int UNROLL>
+__device__ __forceinline__ void rows_by_rows_3xtf32(float (*c)[4], const float* a,
+                                                    const float* b, int a_row, int a_col,
+                                                    int b_row, int b_col, int kk0, int kk1) {
+#pragma unroll UNROLL
+  for (int kk = kk0; kk < kk1; ++kk) {
+    uint32_t ar[4], br[4], ab[4], as[4], bb[4], bs[4];
+    ldsm_x4_f32(ar, a + bw32_at(a_row, 8 * kk + a_col, LD));
+    ldsm_x4_f32(br, b + bw32_at(b_row, 8 * kk + b_col, LD));
+    split_tf32<4>(ar, ab, as);
+    split_tf32<4>(br, bb, bs);
+    mma_3xtf32(c[0], ab, as, bb, bs);
+    mma_3xtf32(c[1], ab, as, bb + 2, bs + 2);
+  }
+}
+
+// n rows of an fp32 tensor into a tile (Bwd32's layout), 16-byte cp.async
 // chunks, zeros where ok(r) is false and past D; addr(r) is the element
 // offset of row r.
 template <int DP, class Ok, class Addr>
 __device__ __forceinline__ void bw32_load(float* dst, const float* __restrict__ src, int n, int D,
                                           Ok ok, Addr addr) {
   constexpr int CH = DP / 4;
-  for (int idx = threadIdx.x; idx < n * CH; idx += BW32_NT) {
+  for (int idx = threadIdx.x; idx < n * CH; idx += blockDim.x) {
     const int r = idx / CH, c = idx - r * CH;
     const bool on = c * 4 < D && ok(r);
-    cp_async_16(dst + r * Bwd32<DP>::LD + c * 4, on ? src + addr(r) + c * 4 : src, on);
+    cp_async_16(dst + bw32_at(r, 4 * c, Bwd32<DP>::LD), on ? src + addr(r) + c * 4 : src, on);
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(BW32_NT, 1)
+// A block of M folded rows: 8 M / 16 warps (M / 16 row groups).
+template <int DP, int M>
+__global__ void __launch_bounds__(8 * M, 1)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             const int* __restrict__ prefix_len, const int* __restrict__ kv_len,
                             float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
                             float scale, int q_offset) {
-  constexpr int LD = Bwd32<DP>::LD, NF = DP / 16, CH = DP / 4, KI = BW32_N / 4;
+  // NT: n8 tiles over D (NQ of them a warp), KH: k8 steps of half the depth
+  constexpr int LD = Bwd32<DP>::LD, NT = DP / 8, NQ = (NT + 3) / 4, KH = DP / 16, RG = M / 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [BW32_M][LD]
-  float* dos = qs + BW32_M * LD;               // [BW32_M][LD]
-  float* ks = dos + BW32_M * LD;               // [BW32_N][LD]
+  float* qs = reinterpret_cast<float*>(smem);  // [M][LD]
+  float* dos = qs + M * LD;                    // [M][LD]
+  float* ks = dos + M * LD;                    // [BW32_N][LD]
   float* vs = ks + BW32_N * LD;                // [BW32_N][LD]
+  float* hand = vs + BW32_N * LD;              // S, then dP, of the other depth half [M][BW32_PL]
+  float* dss = hand + 2 * M * BW32_PL;         // dS [M][BW32_PL]
 
-  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * BW32_M;
+  // a cluster of cs CTAs shares a block of rows, rank kr taking the kr-th
+  // cs-th of its key tiles
+  const int cs = cluster_size(), kr = cluster_rank();
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = (blockIdx.x / cs) * M;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int lane = threadIdx.x & 31, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int row = row0 + r;
-  const bool live = row < rows;
-  const int pos = (live ? row % Sq : 0) + q_offset;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // S / dP: rows 16 wr .., keys 16 wk .. of each tile, depth half dh;
+  // dQ: rows 16 wr .., the n8 tiles cq, cq + 4, ... of D
+  const int wr = warp % RG, wk = (warp / RG) & 1, dh = warp / (2 * RG), cq = warp / RG;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
   const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
-  const int n_tiles =
-      (tile_key_end(row0, BW32_M, rows, Sq, q_offset, plen, klen) + BW32_N - 1) / BW32_N;
+  const int kend = tile_key_end(row0, M, rows, Sq, q_offset, plen, klen);
+  const int n_tiles = (kend + BW32_N - 1) / BW32_N, per = (n_tiles + cs - 1) / cs;
+  const int j0 = min(n_tiles, kr * per), j1 = min(n_tiles, j0 + per);
   const float c2 = scale * 1.4426950408889634f;  // scores to log2 units
-  const size_t stat = ((size_t)b * Hkv + kvh) * rows + row;
-  const float lse2 = live ? lse[stat] * 1.4426950408889634f : 0.f;
-  const float dl = live ? delta[stat] : 0.f;
 
   auto row_ok = [&](int rr) { return row0 + rr < rows; };
   auto row_addr = [&](int rr) {
@@ -569,87 +691,148 @@ __global__ void __launch_bounds__(BW32_NT, 1)
                   [&](int j) { return (((size_t)b * Skv + k0 + j) * Hkv + kvh) * D; });
   };
 
-  if (n_tiles > 0) {
-    bw32_load<DP>(qs, q, BW32_M, D, row_ok, row_addr);
-    bw32_load<DP>(dos, dout, BW32_M, D, row_ok, row_addr);
-    load_keys(ks, k, 0);
-    load_keys(vs, v, 0);
-  }
-  cp_async_commit();
-
-  float acc[NF][4];  // dq of columns 4c + 16f .. + 3 of this thread's row
-#pragma unroll
-  for (int f = 0; f < NF; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.f;
-  const float* qr = qs + r * LD;
-  const float* dor = dos + r * LD;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BW32_N;
-    cp_async_wait<0>();  // K_j and V_j (and Q, dO) have landed
-    __syncthreads();
-    // S and dP: keys k0 + c + 4 i of this thread's row, over the depth in order
-    float s[KI], dp[KI];
-#pragma unroll
-    for (int i = 0; i < KI; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int ch = 0; ch < CH; ++ch) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * ch);
-      const float4 ov = *reinterpret_cast<const float4*>(dor + 4 * ch);
-#pragma unroll
-      for (int i = 0; i < KI; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * i) * LD + 4 * ch);
-        const float4 vv = *reinterpret_cast<const float4*>(vs + (c + 4 * i) * LD + 4 * ch);
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
-        dp[i] = fmaf(ov.x, vv.x, dp[i]);
-        dp[i] = fmaf(ov.y, vv.y, dp[i]);
-        dp[i] = fmaf(ov.z, vv.z, dp[i]);
-        dp[i] = fmaf(ov.w, vv.w, dp[i]);
-      }
-    }
-    // ds = p (dP - delta), 0 by a select for a masked pair or a padded row
-    float ds[KI];
-#pragma unroll
-    for (int i = 0; i < KI; ++i) {
-      const int key = k0 + c + 4 * i;
-      const bool ok = live && key < klen && (key < plen || key <= pos);
-      ds[i] = ok ? bw_exp2(fmaf(s[i], c2, -lse2)) * (dp[i] - dl) : 0.f;
-    }
-    __syncthreads();  // every thread is done with V_j
-    if (j + 1 < n_tiles) load_keys(vs, v, k0 + BW32_N);
+  // copy groups: (Q, dO, V_j0), then K_j0; each tile then commits V_{j+1}
+  // (once V_j is read) and K_{j+1} (once K_j is)
+  if (j0 < j1) {
+    bw32_load<DP>(qs, q, M, D, row_ok, row_addr);
+    bw32_load<DP>(dos, dout, M, D, row_ok, row_addr);
+    load_keys(vs, v, j0 * BW32_N);
     cp_async_commit();
-    // dQ += dS K: key 4 i + cc's ds from the row's thread cc, in key order
+    load_keys(ks, k, j0 * BW32_N);
+    cp_async_commit();
+  }
+
+  // this thread's rows of the warp's 16: g and g + 8
+  bool rok[2];
+  int pos[2];
+  float lse2[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < KI; ++i) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + wr * 16 + g + 8 * h;
+    const size_t stat = ((size_t)b * Hkv + kvh) * rows + row;
+    rok[h] = row < rows;
+    pos[h] = row % Sq + q_offset;
+    lse2[h] = rok[h] ? lse[stat] * 1.4426950408889634f : 0.f;
+    dl[h] = rok[h] ? delta[stat] : 0.f;
+  }
+
+  float acc[NQ][4];  // dQ of rows g, g + 8 and columns 8 (cq + 4 i) + 2t, + 1
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[i], (lane & ~3) | cc);
-        const float* kr = ks + (cc + 4 * i) * LD + 4 * c;
+  for (int i = 0; i < NQ; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  // ldmatrix rows: A (Q, dO, dS) row lr + 8 (lm & 1) of the warp's 16 at
+  // column 4 (lm >> 1) of a k8 step; B (K, V) key lr of n8 tile lm >> 1 at
+  // column 4 (lm & 1)
+  const int a_row = wr * 16 + lr + 8 * (lm & 1), a_col = 4 * (lm >> 1);
+  const int b_row = wk * 16 + 8 * (lm >> 1) + lr, b_col = 4 * (lm & 1);
+  // C element e of n8 tile nt: row 16 wr + g + 8 (e >> 1), key 16 wk + 8 nt + 2t + (e & 1)
+  const int at_h = (wr * 16 + g) * BW32_PL + wk * 16 + 2 * t;
+  auto tile = [&](const float (*c)[4], int nt, int e) { return nt ? c[1][e] : c[0][e]; };
+
+  for (int j = j0; j < j1; ++j) {
+    const int k0 = j * BW32_N, kw = k0 + wk * 16;  // the warp's first key
+    const bool busy = kw < kend;  // warp-uniform: keys past every row's last skip
+    cp_async_wait<1>();
+    __syncthreads();  // V_j (and Q, dO) visible to all
+    float dp[2][4] = {}, s[2][4] = {};
+    if (busy)
+      rows_by_rows_3xtf32<LD, 2>(dp, dos, vs, a_row, a_col, b_row, b_col, dh * KH,
+                                 dh * KH + KH);
+    cp_async_wait<0>();
+    __syncthreads();  // K_j visible to all; V_j no longer read
+    if (j + 1 < j1) load_keys(vs, v, k0 + BW32_N);
+    cp_async_commit();
+    if (busy)
+      rows_by_rows_3xtf32<LD, 2>(s, qs, ks, a_row, a_col, b_row, b_col, dh * KH, dh * KH + KH);
+    // each warp hands the other depth half its sums of n8 tile 1 - dh and
+    // forms dS of tile dh from both halves' sums
 #pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + 16 * f);
-          acc[f][0] = fmaf(dsj, kv.x, acc[f][0]);
-          acc[f][1] = fmaf(dsj, kv.y, acc[f][1]);
-          acc[f][2] = fmaf(dsj, kv.z, acc[f][2]);
-          acc[f][3] = fmaf(dsj, kv.w, acc[f][3]);
+    for (int h = 0; h < 2; ++h) {
+      const int at = at_h + 8 * h * BW32_PL + 8 * (1 - dh);
+      *reinterpret_cast<float2*>(hand + at) =
+          make_float2(tile(s, 1 - dh, 2 * h), tile(s, 1 - dh, 2 * h + 1));
+      *reinterpret_cast<float2*>(hand + M * BW32_PL + at) =
+          make_float2(tile(dp, 1 - dh, 2 * h), tile(dp, 1 - dh, 2 * h + 1));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = at_h + 8 * h * BW32_PL + 8 * dh;
+      const float2 s1 = *reinterpret_cast<const float2*>(hand + at);
+      const float2 d1 = *reinterpret_cast<const float2*>(hand + M * BW32_PL + at);
+      float ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = kw + 8 * dh + 2 * t + c;
+        const bool ok = rok[h] && key < klen && (key < plen || key <= pos[h]);
+        // the first half's sum plus the second's (a sum of two: either order)
+        const float sv = tile(s, dh, 2 * h + c) + (c ? s1.y : s1.x);
+        const float dv = tile(dp, dh, 2 * h + c) + (c ? d1.y : d1.x);
+        ds[c] = ok ? bw_exp2(fmaf(sv, c2, -lse2[h])) * (dv - dl[h]) : 0.f;
+      }
+      *reinterpret_cast<float2*>(dss + at) = make_float2(ds[0], ds[1]);
+    }
+    __syncthreads();
+    // dQ += dS K over the tile's keys in k8 steps, with K[key][d] as
+    // B[k = key][n = d]: keys t and t + 4 of the step (rows of the tile
+    // without and with bit 2) at column 8 nd + g
+#pragma unroll
+    for (int kk = 0; kk < BW32_N / 8; ++kk) {
+      if (k0 + 8 * kk >= kend) break;
+      uint32_t ar[4], ab[4], as[4];
+      ldsm_x4_f32(ar, dss + a_row * BW32_PL + 8 * kk + a_col);
+      split_tf32<4>(ar, ab, as);
+      const float* kr = ks + (8 * kk + t) * LD;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const int nd = cq + 4 * i;
+        if (nd < NT && nd * 8 < D) {
+          uint32_t bb[2], bs[2];
+          split_tf32(kr[8 * nd + g], bb[0], bs[0]);
+          split_tf32(kr[4 * LD + ((8 * nd + g) ^ 4)], bb[1], bs[1]);
+          mma_3xtf32(acc[i], ab, as, bb, bs);
         }
       }
     }
-    __syncthreads();  // every thread is done with K_j
-    if (j + 1 < n_tiles) load_keys(ks, k, k0 + BW32_N);
+    __syncthreads();  // K_j, the hand-over and dS no longer read
+    if (j + 1 < j1) load_keys(ks, k, k0 + BW32_N);
     cp_async_commit();
   }
   cp_async_wait<0>();  // no copy outlives the block
 
-  if (!live) return;
-  float* dst = dq + row_addr(r) + 4 * c;
+  // the cluster's sum: each rank's dQ through its shared memory (each value
+  // to the thread that holds the same element), added by rank 0 in rank order
+  if (cs > 1) {
+    float* mine = qs + threadIdx.x;
+    __syncthreads();  // every warp is done with the tiles
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    if (4 * c + 16 * f < D)
-      *reinterpret_cast<float4*>(dst + 16 * f) = make_float4(
-          acc[f][0] * scale, acc[f][1] * scale, acc[f][2] * scale, acc[f][3] * scale);
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(i * 4 + e) * blockDim.x] = acc[i][e];
+    cluster_sync_all();
+    if (kr == 0) {
+      for (int r = 1; r < cs; ++r)
+#pragma unroll
+        for (int i = 0; i < NQ; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][e] += ld_cluster_f32(mine + (i * 4 + e) * blockDim.x, r);
+    }
+    cluster_sync_all();  // rank 0 has read every rank's sums
+    if (kr != 0) return;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!rok[h]) continue;
+    float* dst = dq + row_addr(wr * 16 + g + 8 * h) + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int nd = cq + 4 * i;
+      if (nd < NT && nd * 8 < D)
+        *reinterpret_cast<float2*>(dst + 8 * nd) =
+            make_float2(acc[i][2 * h] * scale, acc[i][2 * h + 1] * scale);
+    }
   }
 }
 
@@ -662,19 +845,25 @@ __global__ void __launch_bounds__(BW32_NT, 1)
                              float* __restrict__ part_dk, float* __restrict__ part_dv, int Sq,
                              int Skv, int Hq, int Hkv, int D, float scale, int q_offset,
                              int tiles_per_split) {
-  constexpr int LD = Bwd32<DP>::LD, CH = DP / 4, NF = (DP + 31) / 32, RI = BW32_R / 8;
+  // NT: n8 tiles over D (NQ of them a warp), KH: k8 steps of half the depth
+  constexpr int LD = Bwd32<DP>::LD, NT = DP / 8, NQ = (NT + 3) / 4, KH = DP / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [BW32_N][LD]
   float* vs = ks + BW32_N * LD;                // [BW32_N][LD]
   float* qd = vs + BW32_N * LD;                // stage s: Q at qd + 2 s BW32_R LD, dO after it
-  float* stats = qd + 4 * BW32_R * LD;         // stage s: lse log2 e, then delta
+  float* hand = qd + 4 * BW32_R * LD;          // S^T, dP^T of the depth's second half
+  float* pts = hand + 2 * BW32_N * BW32_PS;    // P^T, then dS^T [BW32_N][BW32_PL]
+  float* stats = pts + 2 * BW32_N * BW32_PL;   // stage s: lse, then delta
 
   const int nkt = (Skv + BW32_N - 1) / BW32_N;
   const int kt = blockIdx.x % nkt, split = blockIdx.x / nkt;
   const int b = blockIdx.z, kvh = blockIdx.y, k0 = kt * BW32_N;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int lane = threadIdx.x & 31, kl = threadIdx.x >> 3, c = threadIdx.x & 7;
-  const int key = k0 + kl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  // S^T / dP^T: keys 16 kg .., rows 16 rg .. of the tile, depth half dh;
+  // dV / dK: keys 16 kg .., n8 tiles cq, cq + 4, ... of D
+  const int kg = warp & 1, rg = (warp >> 1) & 1, dh = warp >> 2, cq = warp >> 1;
   const int plen = prefix_len[b], klen = min(kv_len[b], Skv);
   const int t_end = min((rows + BW32_R - 1) / BW32_R, (split + 1) * tiles_per_split);
   const size_t stat0 = ((size_t)b * Hkv + kvh) * rows;
@@ -704,11 +893,11 @@ __global__ void __launch_bounds__(BW32_NT, 1)
     }
   };
 
-  float acc_dk[NF][4], acc_dv[NF][4];  // columns 4c + 32f .. + 3 of this thread's key
+  float acc_dk[NQ][4], acc_dv[NQ][4];  // keys 16 kg + g (+ 8), columns 8 (cq + 4 i) + 2t, + 1
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
+  for (int i = 0; i < NQ; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[f][e] = acc_dv[f][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_dk[i][e] = acc_dv[i][e] = 0.f;
 
   int tt = k0 < klen ? next_tile(split * tiles_per_split) : t_end;
   if (tt < t_end) {
@@ -719,8 +908,11 @@ __global__ void __launch_bounds__(BW32_NT, 1)
     load_tile(tt, 0);
     cp_async_commit();
   }
-  const float* kr = ks + kl * LD;
-  const float* vr = vs + kl * LD;
+  // ldmatrix rows: A (K, V) key lr + 8 (lm & 1) of the warp's 16 at column
+  // 4 (lm >> 1); B (Q, dO) row lr of n8 tile lm >> 1 at column 4 (lm & 1);
+  // A of P^T / dS^T as A of K
+  const int a_row = kg * 16 + lr + 8 * (lm & 1), a_col = 4 * (lm >> 1);
+  const int b_row = rg * 16 + 8 * (lm >> 1) + lr, b_col = 4 * (lm & 1);
   for (int it = 0; tt < t_end; ++it) {
     const int st = it & 1;
     cp_async_wait<0>();
@@ -735,77 +927,93 @@ __global__ void __launch_bounds__(BW32_NT, 1)
     const float* lse_s = stats + st * 2 * BW32_R;
     const int row0 = tt * BW32_R;
 
-    // S^T and dP^T of this thread's key against rows c + 8 i of the tile
-    float s[RI], dp[RI];
+    // S^T = K Q^T and dP^T = V dO^T over the warp's half of the depth
+    float s[2][4] = {}, dp[2][4] = {};
+    rows_by_rows_3xtf32<LD, 4>(s, ks, qst, a_row, a_col, b_row, b_col, dh * KH, dh * KH + KH);
+    rows_by_rows_3xtf32<LD, 4>(dp, vs, dost, a_row, a_col, b_row, b_col, dh * KH, dh * KH + KH);
+    // element e of n8 tile nt: key 16 kg + g + 8 (e >> 1), row 16 rg + 8 nt +
+    // 2t + (e & 1). Each warp hands the other half its sums of n8 tile 1 - dh
+    // and forms p and ds of tile dh from both halves' sums
+    const int at_h = (kg * 16 + g) * BW32_PS + rg * 16 + 2 * t;
+    auto tile = [&](const float (*c)[4], int nt, int e) { return nt ? c[1][e] : c[0][e]; };
 #pragma unroll
-    for (int i = 0; i < RI; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int ch = 0; ch < CH; ++ch) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * ch);
-      const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * ch);
+    for (int h = 0; h < 2; ++h) {
+      const int at = at_h + 8 * h * BW32_PS + 8 * (1 - dh);
+      *reinterpret_cast<float2*>(hand + at) =
+          make_float2(tile(s, 1 - dh, 2 * h), tile(s, 1 - dh, 2 * h + 1));
+      *reinterpret_cast<float2*>(hand + BW32_N * BW32_PS + at) =
+          make_float2(tile(dp, 1 - dh, 2 * h), tile(dp, 1 - dh, 2 * h + 1));
+    }
+    __syncthreads();
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(qst + (c + 8 * i) * LD + 4 * ch);
-        const float4 ov = *reinterpret_cast<const float4*>(dost + (c + 8 * i) * LD + 4 * ch);
-        s[i] = fmaf(kv.x, qv.x, s[i]);
-        s[i] = fmaf(kv.y, qv.y, s[i]);
-        s[i] = fmaf(kv.z, qv.z, s[i]);
-        s[i] = fmaf(kv.w, qv.w, s[i]);
-        dp[i] = fmaf(vv.x, ov.x, dp[i]);
-        dp[i] = fmaf(vv.y, ov.y, dp[i]);
-        dp[i] = fmaf(vv.z, ov.z, dp[i]);
-        dp[i] = fmaf(vv.w, ov.w, dp[i]);
+    for (int h = 0; h < 2; ++h) {
+      const int at = at_h + 8 * h * BW32_PS + 8 * dh;
+      const float2 s1 = *reinterpret_cast<const float2*>(hand + at);
+      const float2 d1 = *reinterpret_cast<const float2*>(hand + BW32_N * BW32_PS + at);
+      const int key = k0 + kg * 16 + g + 8 * h;
+      float p[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int rr = rg * 16 + dh * 8 + 2 * t + c, row = row0 + rr;
+        const bool ok = row < rows && key < klen && (key < plen || key <= row % Sq + q_offset);
+        // the first half's sum plus the second's (a sum of two: either order)
+        const float sv = tile(s, dh, 2 * h + c) + (c ? s1.y : s1.x);
+        const float dv = tile(dp, dh, 2 * h + c) + (c ? d1.y : d1.x);
+        p[c] = ok ? bw_exp2(fmaf(sv, c2, -lse_s[rr] * 1.4426950408889634f)) : 0.f;
+        ds[c] = ok ? p[c] * (dv - lse_s[BW32_R + rr]) : 0.f;
       }
+      const int pt = (kg * 16 + g + 8 * h) * BW32_PL + rg * 16 + dh * 8 + 2 * t;
+      *reinterpret_cast<float2*>(pts + pt) = make_float2(p[0], p[1]);
+      *reinterpret_cast<float2*>(pts + BW32_N * BW32_PL + pt) = make_float2(ds[0], ds[1]);
     }
-    float p[RI], ds[RI];
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q over the tile's rows in k8 steps (dO[row][d]
+    // and Q[row][d] as B[k = row][n = d]: rows t and t + 4 of the step at column
+    // 8 nd + g)
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int rr = c + 8 * i, row = row0 + rr;
-      const bool ok = row < rows && key < klen && (key < plen || key <= row % Sq + q_offset);
-      p[i] = ok ? bw_exp2(fmaf(s[i], c2, -lse_s[rr] * 1.4426950408889634f)) : 0.f;
-      ds[i] = ok ? p[i] * (dp[i] - lse_s[BW32_R + rr]) : 0.f;
-    }
-    // dV += P^T dO and dK += dS^T Q over the tile's rows in order: row
-    // cc + 8 i's p and ds from the key's thread cc
+    for (int kk = 0; kk < BW32_R / 8; ++kk) {
+      uint32_t ar[4], pb[4], ps[4], sb[4], ss[4];
+      ldsm_x4_f32(ar, pts + a_row * BW32_PL + 8 * kk + a_col);
+      split_tf32<4>(ar, pb, ps);
+      ldsm_x4_f32(ar, pts + BW32_N * BW32_PL + a_row * BW32_PL + 8 * kk + a_col);
+      split_tf32<4>(ar, sb, ss);
+      const float* orow = dost + (8 * kk + t) * LD;
+      const float* qrow = qst + (8 * kk + t) * LD;
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], (lane & ~7) | cc);
-        const float dsj = __shfl_sync(0xffffffffu, ds[i], (lane & ~7) | cc);
-        const float* orow = dost + (cc + 8 * i) * LD + 4 * c;
-        const float* qrow = qst + (cc + 8 * i) * LD + 4 * c;
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          if (4 * c + 32 * f < DP) {
-            const float4 ov = *reinterpret_cast<const float4*>(orow + 32 * f);
-            const float4 qv = *reinterpret_cast<const float4*>(qrow + 32 * f);
-            acc_dv[f][0] = fmaf(pj, ov.x, acc_dv[f][0]);
-            acc_dv[f][1] = fmaf(pj, ov.y, acc_dv[f][1]);
-            acc_dv[f][2] = fmaf(pj, ov.z, acc_dv[f][2]);
-            acc_dv[f][3] = fmaf(pj, ov.w, acc_dv[f][3]);
-            acc_dk[f][0] = fmaf(dsj, qv.x, acc_dk[f][0]);
-            acc_dk[f][1] = fmaf(dsj, qv.y, acc_dk[f][1]);
-            acc_dk[f][2] = fmaf(dsj, qv.z, acc_dk[f][2]);
-            acc_dk[f][3] = fmaf(dsj, qv.w, acc_dk[f][3]);
-          }
+      for (int i = 0; i < NQ; ++i) {
+        const int nd = cq + 4 * i;
+        if (nd < NT && nd * 8 < D) {
+          const int c0 = 8 * nd + g, c1 = 4 * LD + ((8 * nd + g) ^ 4);
+          uint32_t bb[2], bs[2];
+          split_tf32(orow[c0], bb[0], bs[0]);
+          split_tf32(orow[c1], bb[1], bs[1]);
+          mma_3xtf32(acc_dv[i], pb, ps, bb, bs);
+          split_tf32(qrow[c0], bb[0], bs[0]);
+          split_tf32(qrow[c1], bb[1], bs[1]);
+          mma_3xtf32(acc_dk[i], sb, ss, bb, bs);
         }
       }
     }
     tt = tn;
   }
 
-  // fp32 partials of this thread's key, columns 4c + 32f .. + 3 (dk unscaled)
-  if (key >= Skv) return;
+  // fp32 partials of keys k0 + 16 kg + g (+ 8), columns 8 nd + 2t, + 1 (dk unscaled)
   const size_t total = (size_t)gridDim.z * Hkv * Skv * D;
-  const size_t off = split * total + (((size_t)b * Hkv + kvh) * Skv + key) * D + 4 * c;
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    if (4 * c + 32 * f < D) {
-      *reinterpret_cast<float4*>(part_dk + off + 32 * f) =
-          make_float4(acc_dk[f][0], acc_dk[f][1], acc_dk[f][2], acc_dk[f][3]);
-      *reinterpret_cast<float4*>(part_dv + off + 32 * f) =
-          make_float4(acc_dv[f][0], acc_dv[f][1], acc_dv[f][2], acc_dv[f][3]);
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kg * 16 + g + 8 * h;
+    if (key >= Skv) continue;
+    const size_t off = split * total + (((size_t)b * Hkv + kvh) * Skv + key) * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int nd = cq + 4 * i;
+      if (nd < NT && nd * 8 < D) {
+        *reinterpret_cast<float2*>(part_dk + off + 8 * nd) =
+            make_float2(acc_dk[i][2 * h], acc_dk[i][2 * h + 1]);
+        *reinterpret_cast<float2*>(part_dv + off + 8 * nd) =
+            make_float2(acc_dv[i][2 * h], acc_dv[i][2 * h + 1]);
+      }
     }
   }
 }
@@ -934,21 +1142,52 @@ PG_EXPORT int pg_flash_attention_bwd_dkv(const void* q, const void* k, const voi
   return launch_dkv_sum<bf16>(part_dk, part_dv, dk, dv, nsplit, B, Skv, Hkv, D, scale, st);
 }
 
+template <int DP, int M>
+static int launch_dq_f32_rows(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, const void* prefix_len,
+                              const void* kv_len, void* dq, int B, int Sq, int Skv, int Hq,
+                              int Hkv, int D, float scale, int q_offset, int cs,
+                              cudaStream_t st) {
+  constexpr int bytes = Bwd32<DP>::template dq_bytes<M>();
+  static_assert(bytes <= 232448, "shared memory of one block");
+  static const int attr = allow_smem(flash_bwd_dq_f32_kernel<DP, M>, bytes);
+  if (attr != 0) return attr;
+  const int rows = (Hq / Hkv) * Sq;
+  dim3 grid(((rows + M - 1) / M) * cs, Hkv, B);
+  return cluster_launch(flash_bwd_dq_f32_kernel<DP, M>, grid, 8 * M, cs, bytes, st,
+                        (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                        (const float*)lse, (const float*)delta, (const int*)prefix_len,
+                        (const int*)kv_len, (float*)dq, Sq, Skv, Hq, Hkv, D, scale, q_offset);
+}
+
+// The CTAs of a cluster that splits a dq block's key tiles: the most of 1,
+// 2 and 4 that keep the 64-row blocks' CTAs in one wave.
+static int dq_cluster(long blocks64, int sms) {
+  int cs = 1;
+  while (cs < 4 && blocks64 * cs * 2 <= sms) cs *= 2;
+  return cs;
+}
+
+// 64-row blocks in clusters of dq_cluster CTAs, or 32-row ones where those
+// would still fill at most half the SMs.
 template <int DP>
 static int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, const void* prefix_len,
                          const void* kv_len, void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
                          int D, float scale, int q_offset, cudaStream_t st) {
-  constexpr int bytes = Bwd32<DP>::DQ_BYTES;
-  static const int attr = allow_smem(flash_bwd_dq_f32_kernel<DP>, bytes);
-  if (attr != 0) return attr;
-  const int rows = (Hq / Hkv) * Sq;
-  dim3 grid((rows + BW32_M - 1) / BW32_M, Hkv, B);
-  flash_bwd_dq_f32_kernel<DP><<<grid, BW32_NT, bytes, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
-      (const float*)delta, (const int*)prefix_len, (const int*)kv_len, (float*)dq, Sq, Skv, Hq,
-      Hkv, D, scale, q_offset);
-  return (int)cudaGetLastError();
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const long blocks64 = (long)(((Hq / Hkv) * Sq + BW32_M - 1) / BW32_M) * Hkv * B;
+  const int cs = dq_cluster(blocks64, sms);
+  if (2 * blocks64 * cs <= sms)
+    return launch_dq_f32_rows<DP, 32>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B, Sq,
+                                      Skv, Hq, Hkv, D, scale, q_offset, cs, st);
+  return launch_dq_f32_rows<DP, BW32_M>(q, k, v, dout, lse, delta, prefix_len, kv_len, dq, B,
+                                        Sq, Skv, Hq, Hkv, D, scale, q_offset, cs, st);
 }
 
 template <int DP>

@@ -25,9 +25,9 @@ fp32 q, k and v (``--dtype float32``, the Trainer on fp32 parameters) take
 the fp32 forms: of the forward (``flash_fwd_f32_kernel``, counted apart as
 :func:`flash_attention_fwd_fp32`) and of both backward kernels
 (``flash_bwd_dq_f32_kernel`` and ``flash_bwd_dkv_f32_kernel``, counted as
-:func:`flash_attention_bwd_dq_fp32` and :func:`flash_attention_bwd_dkv_fp32`):
-the same functions with p and ds unrounded, as the TPU kernels compute at
-fp32.
+:func:`flash_attention_bwd_dq_fp32` and :func:`flash_attention_bwd_dkv_fp32`;
+their products in 3xTF32 on the tensor cores): the same functions with p and
+ds unrounded, as the TPU kernels compute at fp32.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ BWD_ROWS = 64  # folded rows per streamed tile of the dk/dv kernel (and per dq b
 BWD_KEYS = 64  # keys per dk/dv block
 BWD32_ROWS = 32  # the fp32 form's: folded rows per streamed tile of the dk/dv kernel
 BWD32_KEYS = 32  # keys per fp32 dk/dv block
+BWD32_WAVES = 4  # waves of fp32 dk/dv blocks (dkv_splits)
 # an H100's SMs: a dk/dv block (8 warps, 217 KB of shared memory) fills one
 _SMS = 132
 
@@ -299,7 +300,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, prefix_len, kv_len, scale=
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
     """dq (B, Sq, Hq, D): one kernel block per 64 folded rows, KV head and
     batch row, streaming the key tiles its rows see. fp32 inputs take the
-    fp32 form (counted on :func:`flash_attention_bwd_dq_fp32`)."""
+    fp32 form (3xTF32 on the tensor cores; 32-row blocks where 64-row ones
+    would fill at most half the SMs; counted on
+    :func:`flash_attention_bwd_dq_fp32`)."""
     if not q.is_cuda:
         return _reference_backward(q, k, v, dout, lse, delta, prefix_len, kv_len, scale,
                                    q_offset)[0]
@@ -338,16 +341,19 @@ flash_attention_bwd_dq_fp32.launches = 0
 
 
 def dkv_splits(b: int, hkv: int, rows: int, skv: int, keys: int = BWD_KEYS,
-               tile_rows: int = BWD_ROWS) -> int:
+               tile_rows: int = BWD_ROWS, waves: int = 1) -> int:
     """Row ranges the dk/dv sweep is split into: the most that keep all
-    blocks in one wave of one block per SM (Gemma's one KV head leaves only
-    Skv/keys * B key blocks), never more than there are row tiles. Each split
-    writes B * Hkv * Skv * D fp32 partials of dk and of dv, so no more
-    splits than the SMs need. ``keys`` and ``tile_rows``: a block's keys and
-    a streamed tile's rows (the fp32 form's: BWD32_KEYS, BWD32_ROWS)."""
+    blocks in ``waves`` waves of one block per SM (Gemma's one KV head
+    leaves only Skv/keys * B key blocks), never more than there are row
+    tiles. Each split writes B * Hkv * Skv * D fp32 partials of dk and of
+    dv, so no more splits than the SMs need. ``keys`` and ``tile_rows``: a
+    block's keys and a streamed tile's rows (the fp32 form's: BWD32_KEYS,
+    BWD32_ROWS, and BWD32_WAVES: under the causal mask a key block's row
+    tiles number from all to a few, and more, shorter blocks even out the
+    SMs' work)."""
     key_blocks = -(-skv // keys) * hkv * b
     row_tiles = -(-rows // tile_rows)
-    return max(1, min(row_tiles, _SMS // key_blocks))
+    return max(1, min(row_tiles, waves * _SMS // key_blocks))
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale, q_offset=0):
@@ -365,7 +371,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, prefix_len, kv_len, scale
     _check_bwd(q, dout, lse, delta)
     fp32 = q.dtype == torch.float32
     nsplit = dkv_splits(b, hkv, (hq // hkv) * sq, skv,
-                        *((BWD32_KEYS, BWD32_ROWS) if fp32 else (BWD_KEYS, BWD_ROWS)))
+                        *((BWD32_KEYS, BWD32_ROWS, BWD32_WAVES) if fp32 else (BWD_KEYS, BWD_ROWS)))
     part = torch.empty((2, nsplit, b, hkv, skv, d), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()

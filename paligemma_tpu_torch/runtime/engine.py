@@ -27,14 +27,19 @@ plain layers but runs each layer's decode MLP through kernels/decode_mlp.
 
 ``mesh`` (core/mesh.make_mesh; one process per rank): tensor parallel over
 the model axis. The engine takes the whole params on every rank and keeps
-this rank's slices (core/mesh.shard_params). Prefill runs the plain sharded
-models; with ``fused_layer`` (or ``fused_mlp``) decode runs the
-tensor-parallel kernels (kernels/decode_layer_tp) on the
-``repack_for_tp`` tree, the greedy chunks through its vocab-sharded argmax
-head, sampled chunks through the gathered int8-head logits; without, the
-plain sharded decode. Every rank returns the same tokens: the same seed
-gives each rank's sampling generator the same draws over the same gathered
-logits. ``generate_spec`` under a mesh verifies through the same chain at
+this rank's slices (core/mesh.shard_params; k and v by KV heads, the KV
+cache at the rank's KV heads). Prefill runs the plain sharded models;
+``fused_layer`` (or ``fused_mlp``) asks for the tensor-parallel kernels
+(kernels/decode_layer_tp) on the ``repack_for_tp`` tree, the greedy chunks
+through its vocab-sharded argmax head, sampled chunks through the gathered
+int8-head logits. The engine decides once, from the layout, as JAX's
+engine does: where ``decode_layer_tp.supported`` refuses the tree or
+config (more than one KV head, no int8 tree or head) the default takes the
+plain sharded decode (the torch-op TP step), and ``fused_layer`` after
+construction says which path was taken; an explicit ``fused_layer=True``
+or ``fused_mlp=True`` it refuses raises. Every rank returns the same
+tokens: the same seed gives each rank's sampling generator the same draws
+over the same gathered logits. ``generate_spec`` under a mesh verifies through the same chain at
 ``draft_k + 1`` rows (or the plain sharded forward), and every rank accepts
 the same drafts.
 
@@ -148,17 +153,32 @@ class PaliGemmaEngine:
         self.mesh, self.dp_mesh = mesh_lib.split_axes(mesh)
         mesh = self.mesh
         full_decode = decode_params if decode_params is not None else params
-        self.params = params if mesh is None else mesh_lib.shard_params(params, mesh)
+        tc = config.text_config
+        kv_heads = tc.num_key_value_heads
+        self.params = (params if mesh is None
+                       else mesh_lib.shard_params(params, mesh, kv_heads=kv_heads))
+        # the KV cache's config: the rank's KV heads under a mesh
+        self._kv_cfg = tc if mesh is None else mesh_lib.local_text_config(tc, mesh.model)
         if mesh is not None:
-            # under a mesh either flag selects the tensor-parallel kernels
-            self.fused_layer = self.fused_layer or self.fused_mlp
+            # either flag asks for the tensor-parallel kernels; the layout
+            # decides (module docstring)
+            chain = (_tp.supported(tc, mesh, full_decode["lm"]["layers"], batch=1)
+                     and "head_q" in full_decode["lm"])
+            if (fused_layer or fused_mlp) and not chain:
+                raise ValueError(
+                    "fused_layer / fused_mlp under a mesh need what kernels/decode_layer_tp."
+                    "supported accepts (the int8 decode tree with its head, one KV head, "
+                    "heads / vocab / MLP width divisible by the model axis); leave them unset "
+                    "for the plain sharded decode")
+            self.fused_layer = (self.fused_layer or self.fused_mlp) and chain
             self.fused_mlp = False
             if self.fused_layer:
                 self.decode_params = {"lm": _tp.repack_for_tp(full_decode["lm"],
                                                               config.text_config, mesh)}
             else:
-                self.decode_params = (self.params if decode_params is None
-                                      else mesh_lib.shard_params(decode_params, mesh))
+                self.decode_params = (self.params if decode_params is None else
+                                      mesh_lib.shard_params(decode_params, mesh,
+                                                            kv_heads=kv_heads))
             self._greedy_head_fused = self.fused_layer
             return
         self.decode_params = full_decode
@@ -192,8 +212,7 @@ class PaliGemmaEngine:
     # ------------------------------------------------------------------
     def init_state_cache(self, batch: int) -> Dict[str, torch.Tensor]:
         return gemma.init_kv_cache(
-            self.config.text_config, batch, self.max_seq_len, self.cache_dtype,
-            device=self.device,
+            self._kv_cfg, batch, self.max_seq_len, self.cache_dtype, device=self.device,
         )
 
     def _noise(self, generator, logits: torch.Tensor) -> Optional[torch.Tensor]:

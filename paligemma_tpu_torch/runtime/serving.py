@@ -27,19 +27,25 @@ the model axis, as the JAX engine's pure-TP serving (this engine refuses a
 data axis, as the JAX one does: slots are the batch; the paged engine
 takes one, runtime/serving_paged),
 with every feature below. Every rank builds the engine from the whole
-params (it keeps its slices, core/mesh.shard_params), holds the whole
-replicated KV cache (one KV head) and must be given the same requests in
-the same order (and the same cancels between the same rounds): the
-scheduler is host bookkeeping over tokens that every rank reads back
-identically (gathered logits and the cross-rank argmax), and each rank's
-``generator`` draws the same numbers from the same seed. So admission,
+params (it keeps its slices, core/mesh.shard_params; k and v by KV heads),
+holds the KV cache of its KV heads (one KV head: the whole replicated
+cache) and must be given the same requests in the same order (and the
+same cancels between the same rounds): the scheduler is host bookkeeping
+over tokens that every rank reads back identically (gathered logits and
+the cross-rank argmax), and each rank's ``generator`` draws the same
+numbers from the same seed. So admission,
 preemption, prefix-cache hits and evictions (keys hashed from the inputs
 alone), spec accept counts and DFA states are the same on every rank; a
 rank that seated another row would deadlock at the next collective. On
 the kernel path the greedy tick runs the TP chain of kernels/decode_layer_tp
 with the vocab-shard argmax combined across ranks, the sampled tick (and
 a tick with a constrained row seated) the same chain with the gathered
-int8-head logits, masked and selected on every rank alike.
+int8-head logits, masked and selected on every rank alike. The engine
+decides once, from the layout, as JAX's does: where the TP chain's gate
+refuses the tree or config (more than one KV head, no int8 tree), the
+default ``fused_decode`` takes the plain sharded tick (the torch-op TP
+step) and ``fused_decode`` after construction says so; an explicit
+``fused_decode=True`` it refuses raises.
 
 ``lora_bank`` ({name: adapter tree}, train/lora.init_lora's layout):
 multi-LoRA serving. A request names its adapter (``Request.lora``; None =
@@ -265,6 +271,11 @@ class ServingEngine:
         # split over (runtime/serving_paged): this rank's device state holds
         # slot rows [_row0, _row0 + _n_rows)
         self.mesh, self.dp_mesh = mesh_lib.split_axes(mesh)
+        tc = config.text_config
+        self._kv_heads = tc.num_key_value_heads
+        # the KV cache's config: the rank's KV heads under a mesh
+        self._kv_cfg = (tc if self.mesh is None
+                        else mesh_lib.local_text_config(tc, self.mesh.model))
         d = 1 if self.dp_mesh is None else self.dp_mesh.data
         self._n_rows = max_slots // d
         self._row0 = 0 if self.dp_mesh is None else self.dp_mesh.data_index * self._n_rows
@@ -275,7 +286,8 @@ class ServingEngine:
         self.spec_corrupt_frac = float(spec_corrupt_frac)
         # whole trees: _setup_fused shards (or repacks) the decode tree
         self.decode_params = decode_params if decode_params is not None else params
-        self.params = params if self.mesh is None else mesh_lib.shard_params(params, self.mesh)
+        self.params = (params if self.mesh is None else
+                       mesh_lib.shard_params(params, self.mesh, kv_heads=self._kv_heads))
         self.device = params["lm"]["embed"].device
         self.cache_dtype = cache_dtype or params["lm"]["embed"].dtype
         check_cache_dtype(self.device, params, self.cache_dtype, type(self).__name__)
@@ -293,7 +305,8 @@ class ServingEngine:
             bank = {"layers": {t: {k: v.to(self.device) for k, v in p.items()}
                                for t, p in bank["layers"].items()}}
             # under a mesh: this rank's slices (prefill, the plain tick and the pack)
-            self.lora_bank = bank if self.mesh is None else mesh_lib.shard_lora(bank, self.mesh)
+            self.lora_bank = (bank if self.mesh is None else
+                              mesh_lib.shard_lora(bank, self.mesh, kv_heads=self._kv_heads))
             self._lora_index.update({n: i + 1 for i, n in enumerate(names)})
         # constrained decoding: grammar name -> table row (0: unconstrained)
         self.grammar_table: Optional[torch.Tensor] = None
@@ -306,7 +319,10 @@ class ServingEngine:
         self.prefix_cache_entries = prefix_cache_entries
         self.cache_hits = 0  # prefills skipped
         self._dense_pcache: "OrderedDict[bytes, Dict[str, Any]]" = OrderedDict()
-        self.fused_decode = self._setup_fused(on_cuda if fused_decode is None else fused_decode)
+        fused = on_cuda if fused_decode is None else fused_decode
+        if fused and fused_decode is None and self.mesh is not None:
+            fused = self._tp_chain_fits()  # the layout decides (module docstring)
+        self.fused_decode = self._setup_fused(fused)
         self._lora_fused_pack = None
         if self.lora_bank is not None and self._chain_tick():
             # the kernel ticks' operands: each row's adapter inside the chain
@@ -349,13 +365,18 @@ class ServingEngine:
             self._grammar_index[name] = i + 1
         return torch.from_numpy(np.stack(tables)).to(self.device)
 
+    def _tp_chain_fits(self) -> bool:
+        """Under a mesh: whether the TP kernel chain takes this tree and
+        config at the rank's slot rows (hook: the paged engine's chain)."""
+        return _tp.supported(self.config.text_config, self.mesh,
+                             self.decode_params["lm"]["layers"], self._n_rows)
+
     def _shard_decode(self, fused: bool) -> None:
         """Under a mesh: this rank's decode tree, the tensor-parallel kernels'
         (kernels/decode_layer_tp.repack_for_tp, which raises on a tree they
         cannot take) or the plain sharded one."""
         if fused:
-            if not _tp.supported(self.config.text_config, self.mesh,
-                                 self.decode_params["lm"]["layers"], self._n_rows):
+            if not self._tp_chain_fits():
                 raise ValueError(
                     "fused_decode under a mesh needs what kernels/decode_layer_tp.supported "
                     "accepts at the rank's slot rows (the int8 decode tree, one KV head, heads / "
@@ -364,7 +385,8 @@ class ServingEngine:
             self.decode_params = {"lm": _tp.repack_for_tp(self.decode_params["lm"],
                                                           self.config.text_config, self.mesh)}
         else:
-            self.decode_params = mesh_lib.shard_params(self.decode_params, self.mesh)
+            self.decode_params = mesh_lib.shard_params(self.decode_params, self.mesh,
+                                                       kv_heads=self._kv_heads)
 
     def _setup_fused(self, fused: bool) -> bool:
         """Decide the kernel decode path once: the dense kernel chain needs
@@ -401,7 +423,7 @@ class ServingEngine:
 
     def _init_cache(self):
         """Allocate the KV backend (hook: the paged engine allocates pages)."""
-        return gemma.init_kv_cache(self.config.text_config, self.max_slots,
+        return gemma.init_kv_cache(self._kv_cfg, self.max_slots,
                                    self.max_seq_len, self.cache_dtype, device=self.device)
 
     def _kv_bucket(self, highest_write_pos: int) -> Optional[int]:
@@ -773,7 +795,7 @@ class ServingEngine:
             pix_np[r] = req.pixel_values
         mask = self._upload(mask_np)
         # the prefill writes exactly [0, bucket): a bucket-long cache
-        cache1 = gemma.init_kv_cache(self.config.text_config, n, bucket, self.cache_dtype,
+        cache1 = gemma.init_kv_cache(self._kv_cfg, n, bucket, self.cache_dtype,
                                      device=self.device)
         lora_kw = {}
         if self.lora_bank is not None:

@@ -21,8 +21,8 @@ plain torch ops. ``fused_decode=False`` runs every tick on the plain page
 walk ("xla"). A tree, config or page size the chosen kernels cannot take
 raises.
 
-Under a tensor-parallel ``mesh`` the pool is replicated over the model axis
-(one KV head) and the kernel path's
+Under a tensor-parallel ``mesh`` the pool holds the rank's KV heads (one KV
+head: replicated over the model axis) and the kernel path's
 tick is ``paged_kernel="fused_tp"``: kernels/decode_layer_paged_tp, then
 the gathered logits of the vocab-sharded int8 head, for greedy and sampled
 windows alike (a greedy spec verify takes the vocab-shard argmax head);
@@ -31,6 +31,9 @@ rank's shard, applied inside the "fused_tp" chain), grammars, the prefix
 cache and ``spec_decode`` (the "fused_tp" chain at B s rows, or the plain
 sharded verify) work under it as on one card: page allocation, prefix
 entries and preemption are host bookkeeping that every rank repeats alike.
+Where the chain's gate refuses the layout (more than one KV head), the
+default ``fused_decode`` takes the plain sharded page walk, as in the
+dense engine.
 
 ``lora_bank``: multi-LoRA serving as in the dense engine. The "fused" tick
 (and "staged", which maps onto it) applies each row's adapter inside the
@@ -191,7 +194,7 @@ class PagedServingEngine(ServingEngine):
         tc = self.config.text_config
         layers = self.decode_params["lm"]["layers"]
         if self.mesh is not None:
-            if not _ptp.supported(tc, self.mesh, layers, self._n_rows, page_size=self.page_size):
+            if not self._tp_chain_fits():
                 raise ValueError(
                     "the paged engine under a mesh needs what "
                     "kernels/decode_layer_paged_tp.supported accepts at the rank's slot rows; "
@@ -224,6 +227,11 @@ class PagedServingEngine(ServingEngine):
                              f"cannot take page_size {self.page_size} / head_dim {tc.head_dim}")
         return True
 
+    def _tp_chain_fits(self) -> bool:
+        return _ptp.supported(self.config.text_config, self.mesh,
+                              self.decode_params["lm"]["layers"], self._n_rows,
+                              page_size=self.page_size)
+
     def _chain_tick(self) -> bool:
         return self.paged_kernel in ("fused", "fused_tp")
 
@@ -236,7 +244,7 @@ class PagedServingEngine(ServingEngine):
         """Page pool instead of the dense max_slots x max_seq_len block
         (this rank's shard of it under a data axis)."""
         self.paged = PagedKVCache(
-            self.config.text_config, n_pages=self.n_pages, page_size=self.page_size,
+            self._kv_cfg, n_pages=self.n_pages, page_size=self.page_size,
             max_slots=self.max_slots, max_pages_per_slot=self.max_seq_len // self.page_size,
             dtype=self.cache_dtype, n_shards=self.dp, device=self.device,
             shard=0 if self.dp_mesh is None else self.dp_mesh.data_index,

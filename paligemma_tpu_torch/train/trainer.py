@@ -25,9 +25,12 @@ from the same whole ``params`` and feeds it the same whole batches):
   summed over the data axis; over the model axis the gradients of the
   leaves each rank holds whole but uses only with its own heads or
   columns are summed too (the adapters' replicated halves and alphas,
-  and in a full fine-tune the single KV head's k and v);
+  and in a full fine-tune the single KV head's k and v), and where
+  ``model / Hkv`` ranks share a KV head (core/mesh ``kv_layout``
+  "shared"), the gradients of its k and v slices (weights, or the k / v
+  adapters' B) are summed over those ranks (core/mesh.sum_shared);
 * the clipping norm counts a replicated leaf once and a sharded leaf's
-  shards summed: one card's norm;
+  shards summed (a shared KV head's slice once): one card's norm;
 * ``fsdp=True`` at ``data > 1`` is ZeRO-3 over core/mesh.fsdp_param_specs:
   between steps a rank holds 1/data of every chosen leaf of ``params``
   (the trained ones with their gradients and moments; the frozen base
@@ -224,6 +227,9 @@ class Trainer:
         # the data axis the rows split over
         tp, self._data = mesh_lib.split_axes(mesh)
         self._tp = tp = None if tp is None or tp.model == 1 else tp
+        # k / v are cut by KV heads; ranks holding the same slice (core/mesh)
+        self._kv_heads = kv = config.text_config.num_key_value_heads
+        self._kv_share = 1 if tp is None else mesh_lib.kv_share(kv, tp.model)
         if tc.lora_rank is not None:
             if lora is None:
                 if generator is None:
@@ -231,8 +237,8 @@ class Trainer:
                 lora = lora_lib.init_lora(generator, config.text_config, tc.lora_rank,
                                           tc.lora_alpha)
             lora = _map(lambda t: t.detach().clone(), lora)
-            self._lspecs = mesh_lib.lora_specs(lora) if tp is not None else None
-            self.lora = lora if tp is None else mesh_lib.shard_lora(lora, tp)
+            self._lspecs = mesh_lib.lora_specs(lora, kv_heads=kv) if tp is not None else None
+            self.lora = lora if tp is None else mesh_lib.shard_lora(lora, tp, kv_heads=kv)
         else:
             self.lora = None
             params = self._with_trainable(
@@ -241,19 +247,17 @@ class Trainer:
                                       (("attn", "qkv"), ("mlp", "gateup"))):
                 raise ValueError("a full fine-tune under a model axis trains unfused q / k / v "
                                  "and gate / up (runtime.quantize's fuse=False layout)")
-        pspecs = mesh_lib.param_specs(params) if tp is not None else None
+        pspecs = mesh_lib.param_specs(params, kv_heads=kv) if tp is not None else None
         self._fsdp = None
         self._dims = None
         fspecs = None
         if tc.fsdp and self._data is not None:
-            fspecs = mesh_lib.fsdp_param_specs(params, mesh)
-        self.params = params if tp is None else mesh_lib.shard_params(params, tp)
+            fspecs = mesh_lib.fsdp_param_specs(params, mesh, kv_heads=kv)
+        self.params = params if tp is None else mesh_lib.shard_params(params, tp, kv_heads=kv)
         if fspecs is not None:
             self._fspecs = fspecs
             self.params, self._dims = mesh_lib.shard_data(self.params, fspecs, mesh)
             self._fsdp = mesh_lib.Fsdp(mesh, self.params, self._dims)
-        self._kv_whole = (config.text_config.num_key_value_heads
-                          < config.text_config.num_attention_heads)
         self._flags = self._leaf_flags(pspecs)
         self.opt = make_optimizer(tc)
         if mesh is not None:
@@ -274,12 +278,14 @@ class Trainer:
             return {**params, "lm": trainable["lm"]}
         return trainable
 
-    def _leaf_flags(self, pspecs) -> List[Tuple[bool, bool, bool]]:
+    def _leaf_flags(self, pspecs) -> List[Tuple[bool, bool, bool, int]]:
         """Per trainable leaf: (sharded over the model axis, sharded over the
-        data axis, its gradient a partial to sum over the model axis)."""
+        data axis, its gradient a partial to sum over the model axis, the
+        ranks that hold the same slice: ``model / Hkv`` for a shared KV
+        head's k and v, else 1)."""
         n = len(_leaves(self._trainable(self.params, self.lora)))
         if self.mesh is None:
-            return [(False, False, False)] * n
+            return [(False, False, False, 1)] * n
         if self._tp is None:
             model = [(None, ())] * n
         elif self.lora is not None:
@@ -295,15 +301,18 @@ class Trainer:
             # columns; of the weights, only the single KV head's k and v
             partial = spec is not None and not sharded and (
                 self.lora is not None or ("attn" in names and names[-1] in ("k", "v")))
-            flags.append((sharded, dim is not None, partial))
+            lm_kv = (names[-2:-1] in (("k",), ("v",)) if self.lora is not None
+                     else names[:1] == ("lm",) and "attn" in names and names[-1] in ("k", "v"))
+            share = self._kv_share if sharded and lm_kv else 1
+            flags.append((sharded, dim is not None, partial, share))
         return flags
 
     def _norm_sq(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """One card's squared global norm from this rank's gradients: a
         replicated leaf once, a sharded leaf's shards summed over its axes."""
         sums = {key: [] for key in ((False, False), (True, False), (False, True), (True, True))}
-        for g, (m, d, _) in zip(grads, self._flags):
-            sums[(m, d)].append((g.float() ** 2).sum())
+        for g, (m, d, _, share) in zip(grads, self._flags):
+            sums[(m, d)].append((g.float() ** 2).sum() / share)
         zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         tot = {k: torch.stack(v).sum() if v else zero for k, v in sums.items()}
         over_m = mesh_lib.model_sum(torch.stack([tot[(True, False)], tot[(True, True)]]),
@@ -340,10 +349,12 @@ class Trainer:
             for t in leaves:
                 t.requires_grad_(False)
         if self.mesh is not None:
-            for i, (g, (_, d, partial)) in enumerate(zip(grads, self._flags)):
+            for i, (g, (_, d, partial, share)) in enumerate(zip(grads, self._flags)):
                 g = g.contiguous()
                 if partial:
                     mesh_lib.model_sum(g, self._tp)
+                elif share > 1:
+                    mesh_lib.sum_shared(g, self._tp, self._kv_heads)
                 if not d:  # an FSDP shard's gradient came back summed
                     mesh_lib.data_sum(g, self._data)
                 grads[i] = g
@@ -365,10 +376,10 @@ class Trainer:
         tp = self._tp
         if tp is not None:
             if self.lora is not None:
-                tree = mesh_lib.unshard_lora(tree, self._lspecs, tp, host=True)
+                tree = mesh_lib.unshard_lora(tree, self._lspecs, tp, kv_heads=self._kv_heads,
+                                             host=True)
             else:
-                tree = {k: mesh_lib.unshard_params(v, tp, host=True,
-                                                   kv_whole=k == "lm" and self._kv_whole)
+                tree = {k: mesh_lib.unshard_params(v, tp, kv_heads=self._lm_kv(k), host=True)
                         for k, v in tree.items()}
         if dims is not None:
             tree = mesh_lib.unshard_data(tree, dims, self.mesh, host=True)
@@ -381,8 +392,9 @@ class Trainer:
         full = _pairs(like, full)
         tp = self._tp
         if tp is not None:
-            full = (mesh_lib.shard_lora(full, tp) if self.lora is not None
-                    else mesh_lib.shard_params(full, tp))
+            full = (mesh_lib.shard_lora(full, tp, kv_heads=self._kv_heads)
+                    if self.lora is not None
+                    else mesh_lib.shard_params(full, tp, kv_heads=self._kv_heads))
         if fspecs is not None:
             full = mesh_lib.shard_data(full, fspecs, self.mesh)[0]
 
@@ -393,6 +405,12 @@ class Trainer:
             return t.to(device=ref.device, dtype=ref.dtype)
 
         return _map2(place, full, like)
+
+    def _lm_kv(self, key: str) -> Optional[int]:
+        """``unshard_params``'s ``kv_heads`` for the subtree ``key``: the
+        LM's KV heads for "lm"; the vision tower's k and v are as wide as
+        q."""
+        return self._kv_heads if key == "lm" else None
 
     def _trainable_dims(self):
         if self._dims is None or self.lora is not None:
@@ -470,15 +488,14 @@ class Trainer:
         if self.mesh is not None:
             with torch.no_grad():
                 if self._tp is not None:
-                    params = {k: mesh_lib.unshard_params(v, self._tp,
-                                                         kv_whole=k == "lm" and self._kv_whole)
+                    params = {k: mesh_lib.unshard_params(v, self._tp, kv_heads=self._lm_kv(k))
                               for k, v in params.items()}
                 if self._dims is not None:
                     params = mesh_lib.unshard_data(params, self._dims, self.mesh)
         if self.lora is None:
             return params
-        lora = self.lora if self._tp is None else mesh_lib.unshard_lora(self.lora, self._lspecs,
-                                                                         self._tp)
+        lora = self.lora if self._tp is None else mesh_lib.unshard_lora(
+            self.lora, self._lspecs, self._tp, kv_heads=self._kv_heads)
         with torch.no_grad():
             return {**params, "lm": lora_lib.merge_lora(params["lm"], lora)}
 

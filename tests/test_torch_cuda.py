@@ -1423,13 +1423,17 @@ def _fp32_flash_counts():
 
 # B6's fp32 form: (b, s, hq, hkv, d), prefix_len, kv_len; the training shape
 # at 8 and at a tensor-parallel rank's 4 query heads, each depth
-# instantiation (64, 80, 128, 256), a kv_len 0 row
+# instantiation (64, 80, 128, 256), a kv_len 0 row, and the 3xTF32 tiles'
+# edges (a key count off the 32-key tile; D72 padded to 80 with heads
+# folded across 64-row tiles)
 FLASH_BWD_FP32_CASES = {
     "train B2 S512 Hq8 Hkv1 D256": ((2, 512, 8, 1, 256), [268, 268], [512, 400]),
     "train TP-local B2 S512 Hq4 Hkv1 D256": ((2, 512, 4, 1, 256), [268, 268], [512, 400]),
     "GQA B2 S199 Hq4 Hkv2 D64": ((2, 199, 4, 2, 64), [60, 100], [199, 150]),
     "kv_len 0 row B2 S40 Hq4 Hkv2 D72": ((2, 40, 4, 2, 72), [17, 0], [40, 0]),
     "prefix-LM B1 S130 Hq2 Hkv1 D128": ((1, 130, 2, 1, 128), [50], [130]),
+    "key tile edge B1 S77 Hq6 Hkv2 D80": ((1, 77, 6, 2, 80), [40], [70]),
+    "heads straddle tiles B2 S45 Hq8 Hkv1 D72": ((2, 45, 8, 1, 72), [20, 45], [45, 33]),
 }
 
 

@@ -348,7 +348,7 @@ def _i32(*values):
 def _attention_fp32_call(library, f32, what):
     """test_fp32_forms_reach_their_entry_points' attention forms: the flash
     backward's two kernels at the training shape (B2 S512 Hq8 Hkv1 D256,
-    the dk/dv sweep in the fp32 form's splits of 32-row tiles), B12 at the
+    the dk/dv sweep in the fp32 form's splits of 32-row tiles, four waves), B12 at the
     896 px tower (B1 S4096 H16 D72), B10 at the Gemma-2B cache (B8 Hq8
     Hkv1 D256 S2048)."""
     if what.startswith("bwd"):
@@ -366,8 +366,8 @@ def _attention_fp32_call(library, f32, what):
         assert name == f"pg_flash_attention_{what.replace(' ', '_')}_fp32"
         n = 9 if what == "bwd dq" else 12
         assert got[n:n + 6] == (b, s, s, hq, 1, d)
-        if what == "bwd dkv":  # 16 key blocks x B: 4 splits fill 128 of 132 SMs
-            assert got[18] == t_flash.dkv_splits(b, 1, hq * s, s, 32, 32) == 4
+        if what == "bwd dkv":  # 16 key blocks x B: 16 splits, four waves of 128 of 132 SMs
+            assert got[18] == t_flash.dkv_splits(b, 1, hq * s, s, 32, 32, 4) == 16
         assert all(t.dtype == torch.float32 for t in out)
     elif what == "vision":
         q = f32(1, 4096, 16, 72)

@@ -253,3 +253,129 @@ def test_pick_first_max_ties_go_to_the_lowest_shard():
     maxes = torch.tensor([[1.0, 3.0, 2.0], [2.0, 3.0, 2.0], [0.5, 3.0, 1.0]])
     ids = torch.tensor([[5, 9, 7], [130, 140, 150], [260, 270, 280]], dtype=torch.int32)
     assert t_tp.pick_first_max(maxes, ids).tolist() == [130, 9, 7]
+
+
+# (query heads, KV heads, model axis): the layouts the port takes, each
+# rank's KV heads, and those it refuses
+KV_LAYOUTS = [(4, 2, 2, "split"), (8, 4, 2, "split"), (4, 4, 4, "split"), (4, 2, 4, "shared"),
+              (8, 2, 8, "shared"), (8, 1, 4, "whole")]
+KV_REFUSED = [(6, 3, 2), (12, 6, 4), (12, 3, 2)]
+
+
+def _kv_trees(hq, hkv, hd=8, hidden=16, layers=2, rank=2, seed=0):
+    """A dense LM tree (unfused attention), an int8 one (fused qkv, as
+    runtime.quantize lays it out) and a LoRA tree at these heads."""
+    g = torch.Generator().manual_seed(seed)
+    nq, nkv = hq * hd, hkv * hd
+
+    def f(*shape):
+        return torch.randn(shape, generator=g)
+
+    def i8(k, n):
+        return {"w8": torch.randint(-127, 128, (layers, k, n), generator=g, dtype=torch.int8),
+                "s": f(layers, n).abs()}
+
+    mlp = {"gate": f(layers, hidden, 32), "up": f(layers, hidden, 32),
+           "down": f(layers, 32, hidden)}
+    dense = {"layers": {"attn": {"q": f(layers, hidden, nq), "k": f(layers, hidden, nkv),
+                                 "v": f(layers, hidden, nkv), "o": f(layers, nq, hidden)},
+                        "mlp": mlp, "input_norm": f(layers, hidden)}}
+    int8 = {"layers": {"attn": {"qkv": i8(hidden, nq + 2 * nkv), "o": i8(nq, hidden)},
+                       "mlp": {"gateup": i8(hidden, 64), "down": i8(32, hidden)}}}
+    lora = {"layers": {t: {"a": f(layers, k, rank), "b": f(layers, rank, n)} for t, k, n in (
+        ("q", hidden, nq), ("k", hidden, nkv), ("v", hidden, nkv), ("o", nq, hidden))}}
+    return dense, int8, lora
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _leaves(tree[k])]
+    return [tree]
+
+
+def _unshard_all(shards, fn, monkeypatch):
+    """``fn(rank 0's shard, mesh)`` with the model group's gather answered
+    from every rank's shard (no process group): a leaf of rank 0 maps to
+    the same leaf of each rank."""
+    from paligemma_tpu_torch.core import mesh as t_mesh
+
+    m = len(shards)
+    by_ptr = {}
+    for leaves in zip(*(_leaves(s) for s in shards)):
+        by_ptr[(leaves[0].data_ptr(), tuple(leaves[0].shape))] = leaves
+    monkeypatch.setattr(t_mesh, "_gather_model", lambda x, mesh, host=False: torch.stack(
+        by_ptr[(x.data_ptr(), tuple(x.shape))]))
+    return fn(shards[0], Mesh(model=m, rank=0))
+
+
+@pytest.mark.parametrize("hq,hkv,m,layout", KV_LAYOUTS)
+def test_kv_layouts_shard_and_round_trip(hq, hkv, m, layout, monkeypatch):
+    """``local_text_config`` gives each rank Hq/m query heads and its KV
+    heads (Hkv/m split, one shared or whole); ``shard_params`` and
+    ``shard_lora`` give rank r the k / v columns of exactly the KV heads its
+    query heads read (head h reads KV head h // (Hq / Hkv)), q and o of its
+    own heads; ``unshard_params`` / ``unshard_lora`` give the whole trees
+    back, the dense, the fused int8 and the LoRA one."""
+    from paligemma_tpu_torch.core import mesh as t_mesh
+
+    hd = 8
+    cfg = GemmaConfig(vocab_size=64, hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                      num_attention_heads=hq, num_key_value_heads=hkv, head_dim=hd)
+    local = t_mesh.local_text_config(cfg, m)
+    assert t_mesh.kv_layout(hkv, m) == layout
+    assert local.num_attention_heads == hq // m
+    assert local.num_key_value_heads == (hkv // m if layout == "split" else 1)
+    assert t_mesh.kv_share(hkv, m) == (m // hkv if layout == "shared" else 1)
+    dense, int8, lora = _kv_trees(hq, hkv, hd)
+    group = hq // hkv
+    for r in range(m):
+        mesh = Mesh(model=m, rank=r)
+        heads = range(r * hq // m, (r + 1) * hq // m)
+        kv_heads = sorted({h // group for h in heads})
+        assert len(kv_heads) == local.num_key_value_heads
+        cols = torch.cat([torch.arange(h * hd, (h + 1) * hd) for h in kv_heads])
+        qcols = torch.cat([torch.arange(h * hd, (h + 1) * hd) for h in heads])
+        got = t_mesh.shard_params(dense, mesh, kv_heads=hkv)["layers"]["attn"]
+        assert torch.equal(got["q"], dense["layers"]["attn"]["q"][..., qcols])
+        assert torch.equal(got["o"], dense["layers"]["attn"]["o"][:, qcols])
+        for n in ("k", "v"):
+            assert torch.equal(got[n], dense["layers"]["attn"][n][..., cols]), (r, n)
+        qkv = t_mesh.shard_params(int8, mesh, kv_heads=hkv)["layers"]["attn"]["qkv"]["w8"]
+        whole = int8["layers"]["attn"]["qkv"]["w8"]
+        nq, nkv = hq * hd, hkv * hd
+        want = torch.cat([whole[..., qcols], whole[..., nq + cols], whole[..., nq + nkv + cols]],
+                         -1)
+        assert torch.equal(qkv, want), r
+        lo = t_mesh.shard_lora(lora, mesh, kv_heads=hkv)["layers"]
+        for n in ("k", "v"):
+            assert torch.equal(lo[n]["b"], lora["layers"][n]["b"][..., cols])
+            assert torch.equal(lo[n]["a"], lora["layers"][n]["a"])
+    specs = t_mesh.lora_specs(lora, kv_heads=hkv)
+    assert (t_mesh.MODEL in specs["layers"]["k"]["b"]) == (layout != "whole")
+    for tree in (dense, int8):
+        shards = [t_mesh.shard_params(tree, Mesh(model=m, rank=r), kv_heads=hkv)
+                  for r in range(m)]
+        back = _unshard_all(shards, lambda t, mesh: t_mesh.unshard_params(t, mesh, kv_heads=hkv),
+                            monkeypatch)
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(back), _leaves(tree)))
+    shards = [t_mesh.shard_lora(lora, Mesh(model=m, rank=r), kv_heads=hkv) for r in range(m)]
+    back = _unshard_all(shards, lambda t, mesh: t_mesh.unshard_lora(t, specs, mesh,
+                                                                    kv_heads=hkv), monkeypatch)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(back), _leaves(lora)))
+
+
+@pytest.mark.parametrize("hq,hkv,m", KV_REFUSED)
+def test_kv_layouts_refused(hq, hkv, m):
+    """KV heads that neither divide nor are divided by the model axis: the
+    local config, the sharding and the specs raise, naming the layouts the
+    port takes."""
+    from paligemma_tpu_torch.core import mesh as t_mesh
+
+    cfg = GemmaConfig(vocab_size=48, hidden_size=16, intermediate_size=48, num_hidden_layers=2,
+                      num_attention_heads=hq, num_key_value_heads=hkv, head_dim=8)
+    dense, _, lora = _kv_trees(hq, hkv)
+    for call in (lambda: t_mesh.local_text_config(cfg, m),
+                 lambda: t_mesh.shard_params(dense, Mesh(model=m, rank=0), kv_heads=hkv),
+                 lambda: t_mesh.shard_lora(lora, Mesh(model=m, rank=0), kv_heads=hkv)):
+        with pytest.raises(NotImplementedError, match="one KV head"):
+            call()

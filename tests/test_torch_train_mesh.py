@@ -1,12 +1,13 @@
 """The training half of the mesh (CPU): the port's ``Trainer`` under
-``make_mesh(2, 1)``, ``(1, 2)`` and ``(2, 2)``, with and without
-``fsdp=True``, against JAX's ``Trainer`` under the same meshes on the
-conftest's 8 virtual devices; ``core/mesh.fsdp_param_specs`` against
+``make_mesh(2, 1)``, ``(1, 2)``, ``(2, 2)`` and ``(1, 4)``, with and
+without ``fsdp=True``, against JAX's ``Trainer`` under the same meshes on
+the conftest's 8 virtual devices; ``core/mesh.fsdp_param_specs`` against
 JAX's; ``core/multihost`` as two processes through a coordinator.
 
-Setup: tests/test_torch_train.py's tiny config with one KV head (the
-port's tensor-parallel rule: one KV head, or one per query head), weights
-from JAX's ``init_params`` at ``PRNGKey(0)`` moved over with
+Setup: tests/test_torch_train.py's tiny config with one KV head, and the
+unmodified one (4 query heads over 2 KV heads: a KV head a rank at a
+model axis of 2, two ranks a KV head at 4); weights from JAX's
+``init_params`` at ``PRNGKey(0)`` moved over with
 ``convert.params_from_numpy``, the adapters JAX's ``init_lora`` at
 ``PRNGKey(1)``, fp32. Batches of 4 rows, made with numpy from a seed; the
 second batch's last row has every label at -100, so under a data axis of 2
@@ -22,11 +23,13 @@ optimizer's moments) after each step; every rank of a mesh must print the
 same losses.
 
 Cases: LoRA with accumulation and warmup (remat on, the flash route, whose
-wrappers run their plain versions here) on all three meshes, and with
+wrappers run their plain versions here) on 2 x 1, 1 x 2 and 2 x 2, and with
 remat off and under ``fsdp=True`` at 2 x 2; a full fine-tune at 2 x 1 and
 1 x 2; FSDP full fine-tune at 2 x 2, three steps; QLoRA over NF4 and int4
-bases at 1 x 2; the save / restore round trip between one card and each
-mesh.
+bases at 1 x 2; with two KV heads, LoRA at 1 x 2 and 1 x 4 and under
+``fsdp=True`` at 2 x 2, a full fine-tune at 1 x 2 and 1 x 4 and FSDP full
+fine-tune at 2 x 2; the save / restore round trip between one card and
+each mesh.
 
 Tolerances: losses within 2e-5 relative of JAX's (the port's one-card
 Trainer holds 1e-5, JAX's sharded Trainer its unsharded one at 1e-4);
@@ -62,28 +65,34 @@ torch.set_num_threads(2)
 
 LOSS_RTOL = 2e-5
 TREE_RTOL = 1e-5
-MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
+MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
 LORA = dict(lora_rank=4, learning_rate=5e-3, grad_accum_steps=2, warmup_steps=1)
 FULL = dict(lora_rank=None, learning_rate=1e-3)
 QGROUP = 32  # o's 64 rows in 2 blocks: a block a rank at m = 2
 # case -> (TrainConfig kwargs, the port's own kwargs, meshes, batch seeds,
-# base, the JAX run it is held to)
+# base, the JAX run it is held to, the config's KV heads)
 CASES = {
-    "lora": (LORA, dict(use_flash=True), ("2x1", "1x2", "2x2"), (0, 1, 2, 3), None, "lora"),
-    "lora_noremat": (LORA, dict(remat=False), ("2x2",), (0, 1, 2, 3), None, "lora"),
-    "lora_fsdp": (LORA, dict(fsdp=True), ("2x2",), (0, 1, 2, 3), None, "lora"),
-    "full": (FULL, {}, ("2x1", "1x2"), (0, 1), None, "full"),
-    "fsdp": (dict(FULL, fsdp=True), {}, ("2x2",), (0, 1, 2), None, "fsdp"),
-    "nf4": (dict(LORA, grad_accum_steps=1), {}, ("1x2",), (0, 1), "nf4", "nf4"),
-    "int4": (dict(LORA, grad_accum_steps=1), {}, ("1x2",), (0, 1), "int4", "int4"),
+    "lora": (LORA, dict(use_flash=True), ("2x1", "1x2", "2x2"), (0, 1, 2, 3), None, "lora", 1),
+    "lora_noremat": (LORA, dict(remat=False), ("2x2",), (0, 1, 2, 3), None, "lora", 1),
+    "lora_fsdp": (LORA, dict(fsdp=True), ("2x2",), (0, 1, 2, 3), None, "lora", 1),
+    "full": (FULL, {}, ("2x1", "1x2"), (0, 1), None, "full", 1),
+    "fsdp": (dict(FULL, fsdp=True), {}, ("2x2",), (0, 1, 2), None, "fsdp", 1),
+    "nf4": (dict(LORA, grad_accum_steps=1), {}, ("1x2",), (0, 1), "nf4", "nf4", 1),
+    "int4": (dict(LORA, grad_accum_steps=1), {}, ("1x2",), (0, 1), "int4", "int4", 1),
+    "lora_gqa": (LORA, dict(use_flash=True), ("1x2", "1x4"), (0, 1, 2, 3), None, "lora_gqa",
+                 2),
+    "lora_fsdp_gqa": (LORA, dict(fsdp=True), ("2x2",), (0, 1, 2, 3), None, "lora_gqa", 2),
+    "full_gqa": (FULL, {}, ("1x2", "1x4"), (0, 1), None, "full_gqa", 2),
+    "fsdp_gqa": (dict(FULL, fsdp=True), {}, ("2x2",), (0, 1, 2), None, "fsdp_gqa", 2),
 }
 RESUME_SEED = 2  # the step after the one-card state each mesh restores
 
 
-def _cfg(cls):
+def _cfg(cls, kv=1):
+    """The tiny config with ``kv`` KV heads (2: as it is)."""
     base = cls.tiny_test_config()
     return dataclasses.replace(
-        base, text_config=dataclasses.replace(base.text_config, num_key_value_heads=1))
+        base, text_config=dataclasses.replace(base.text_config, num_key_value_heads=kv))
 
 
 def _batch(seed, b=4):
@@ -115,12 +124,15 @@ def _base(weights, kind):
 
 
 # ------------------------------------------------------------------ ranks ----
-def _run_case(case, mesh, weights, lora, out_dir=None):
-    """(losses, the one-card-layout state after each step) of ``case``."""
+def _run_case(case, mesh, by_kv, out_dir=None):
+    """(losses, the one-card-layout state after each step) of ``case``;
+    ``by_kv``: KV heads -> (weights, adapters)."""
     from paligemma_tpu_torch.train.trainer import Trainer
 
     tc = _tc(case)
-    tr = Trainer(_base(weights, CASES[case][4]), _cfg(t_config), tc, mesh=mesh,
+    kv = CASES[case][6]
+    weights, lora = by_kv[kv]
+    tr = Trainer(_base(weights, CASES[case][4]), _cfg(t_config, kv), tc, mesh=mesh,
                  lora=lora if tc.lora_rank is not None else None)
     losses, states = [], []
     for seed in CASES[case][3]:
@@ -154,12 +166,12 @@ def _rank_main(rank, world, data, init, weights_file, out_dir, one_card_state):
     dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=240))
     try:
-        weights, lora = torch.load(weights_file, weights_only=False)
+        by_kv = torch.load(weights_file, weights_only=False)
         mesh = t_mesh.make_mesh(data, world // data)
         name = f"{data}x{world // data}"
-        out = {case: _run_case(case, mesh, weights, lora, out_dir)
+        out = {case: _run_case(case, mesh, by_kv, out_dir)
                for case, spec in CASES.items() if name in spec[2]}
-        out["resume"] = _resume(mesh, weights, lora, one_card_state)
+        out["resume"] = _resume(mesh, *by_kv[1], one_card_state)
         every = [None] * world
         dist.all_gather_object(every, {k: v[0] for k, v in out.items()})
         assert all(e == every[0] for e in every), every  # every rank the same losses
@@ -173,9 +185,9 @@ def _rank_main(rank, world, data, init, weights_file, out_dir, one_card_state):
 
 # -------------------------------------------------------------- reference ----
 @functools.lru_cache(maxsize=None)
-def _jax_weights():
+def _jax_weights(kv=1):
     """JAX's params, its NF4 and int4 bases (group 32, unfused: the CLI's
-    layout) and its adapters, as numpy trees."""
+    layout) and its adapters, as numpy trees, for ``kv`` KV heads."""
     import jax
 
     from paligemma_tpu.core import config as j_config
@@ -183,7 +195,7 @@ def _jax_weights():
     from paligemma_tpu.runtime.quantize import quantize_lm_for_training
     from paligemma_tpu.train import lora as j_lora
 
-    cfg = _cfg(j_config)
+    cfg = _cfg(j_config, kv)
     jp = j_pg.init_params(jax.random.PRNGKey(0), cfg)
     q = {kind: quantize_lm_for_training(jp, kind=kind, group=QGROUP, fuse=False)
          for kind in ("nf4", "int4")}
@@ -193,8 +205,8 @@ def _jax_weights():
     return to_np(jp), {k: to_np(v) for k, v in q.items()}, to_np(lo)
 
 
-def _port_weights():
-    jp, q, lo = _jax_weights()
+def _port_weights(kv=1):
+    jp, q, lo = _jax_weights(kv)
     return ((params_from_numpy(jp, "cpu"), {k: params_from_numpy(v, "cpu") for k, v in q.items()}),
             params_from_numpy(lo, "cpu"))
 
@@ -206,11 +218,11 @@ def _jax_trainer(case, mesh_name):
     from paligemma_tpu.core import mesh as j_mesh
     from paligemma_tpu.train import trainer as j_trainer
 
-    jp, q, _ = _jax_weights()
-    tc, _, _, _, base, _ = CASES[case]
+    tc, _, _, _, base, _, kv = CASES[case]
+    jp, q, _ = _jax_weights(kv)
     params = jp if base is None else q[base]
     mesh = j_mesh.make_mesh(*MESHES[mesh_name])
-    return j_trainer.Trainer(jax.tree.map(jax.numpy.asarray, params), _cfg(j_config),
+    return j_trainer.Trainer(jax.tree.map(jax.numpy.asarray, params), _cfg(j_config, kv),
                              j_trainer.TrainConfig(**tc), mesh=mesh,
                              rng=jax.random.PRNGKey(1))
 
@@ -256,7 +268,7 @@ def ranks(tmp_path_factory):
     one-card trainer's are made while the ranks run."""
     root = tmp_path_factory.mktemp("train_mesh")
     wf = str(root / "weights.pt")
-    torch.save(_port_weights(), wf)
+    torch.save({kv: _port_weights(kv) for kv in (1, 2)}, wf)
     one_card = str(root / "one_card")
     resumed = _one_card_state(one_card)
     ctxs = {}
