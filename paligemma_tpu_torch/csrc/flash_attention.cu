@@ -72,23 +72,49 @@
 // The fp32 form (flash_fwd_f32_kernel, pg_flash_attention_fwd_fp32;
 // --dtype float32): the same function, mask, sweep bound and lse with fp32
 // q, k, v and out, p not rounded (the TPU kernel's rounding of p to v's
-// dtype is the identity at fp32). A simple FFMA kernel: a block owns 64
-// folded rows of one (batch, KV head) and 256 threads, four a row; Q's 64
-// rows and one 32-key K tile and one V tile sit in shared memory as fp32
-// (rows of D rounded up to DP in {64, 80, 128, 256}, zeros past D and past
-// kv_len), and K_{j+1} loads during P_j V_j, V_{j+1} during S_{j+1}.
-// Thread (row, c) scores keys c, c + 4, ... of each tile over the depth in
-// order (float4 reads: four distinct K rows a quarter warp, at the row
-// stride DP + 4 free of bank conflicts), runs the online softmax in log2
-// units with the row's three other threads (shuffles), and accumulates
-// output columns 4c + 16f .. + 3 of its row, p_key taken from the thread
-// that scored it by a shuffle. At the 896 px tower (B1 S4096 H16 D72) it is
-// bound by the operations: 77 GFLOP, 1.15 ms at 67 TFLOP/s fp32; each
-// float4 of K or V read feeds four FMAs, so the shared-memory reads (not
-// the FMAs) hold it to about a quarter of that peak. 3xTF32 on mma.sync
-// would be the faster design. B12's fp32 form (pg_vision_attention_fp32) is
-// this kernel with no lengths: every key visible, as in the vision tower.
-#include "common.cuh"
+// dtype is the identity at fp32). Both products run on the tensor cores in
+// 3xTF32 (tf32.cuh: mma.sync.m16n8k8, each fp32 operand split into a tf32
+// big and small part, a k8 step's three products summed from zero and added
+// to the fp32 sum, since the tensor core's own fp32 sum truncates). A block
+// of four warps owns BM folded rows of one (batch, KV head); K and V tiles
+// stream through shared memory as fp32 (rows of DP + 4 floats: both
+// fragment reads free of bank conflicts), K_{j+1} loading during P_j V_j and
+// V_{j+1} during S_{j+1}. Warp (wr, wd) owns MT 16-row tiles and a slice of
+// DS = DP / WD of the depth:
+// * Q's A fragments are split once, when Q lands: into registers (MT 1, 2 x
+//   4 DS / 8 of them) or into big / small planes in shared memory (MT 2);
+// * S over the slice: each K fragment (ldmatrix) is split once for the
+//   warp's MT row tiles; with WD > 1 the slices' partial scores meet in
+//   shared memory and every warp of the row group adds them in slice order,
+//   so all hold the same bits;
+// * the online softmax in log2 units on the C fragments; p's C fragment is
+//   P V's A fragment with the k8 step's index t standing for key 2t and t +
+//   4 for key 2t + 1, so V's B fragments are the 32-bit words of keys 2t and
+//   2t + 1 (rows 2t apart: free of conflicts), split once for the MT tiles;
+// * O += P V for the slice's DS columns (MT DS / 2 fp32 accumulators).
+// The shape by DP (D rounded up): 64 and 72 (SigLIP) one warp a 32-row
+// group (MT 2), 128 rows a block, 32-key tiles; 128 two warps a 16-row
+// group, 32 rows; 256 (Gemma) four warps on 16 rows, 16-key tiles, three
+// blocks an SM, and a cluster of two CTAs on each block's rows, rank r
+// taking the key tiles r, r + 2, ... and rank 0 adding rank 1's (m, l, O)
+// through distributed shared memory: the LM prefill's 2128 folded rows give
+// 266 CTAs where 64-row blocks gave 34. The split is fixed by DP and the
+// tiles by absolute key, and a tile a row does not see adds exact zeros,
+// so a row's bits depend on its own data and the tiling only, not on the
+// batch it is in. B12's fp32 form (pg_vision_attention_fp32) is this kernel
+// with no lengths: every key visible, as in the vision tower.
+// What bounds it: the products at 3xTF32 (495 / 3 = 165 TFLOP/s): 0.58
+// GFLOP at the LM prefill (3.5 us), 2.7 GFLOP at the training shape (16
+// us), 77 GFLOP at the 896 px tower (0.47 ms). Measured on an H100 (PERF.md
+// row 1f, tools/fwd_fp32_times.py): 47 us, 163 us and 1.70 ms, against one
+// fp32 SDPA's 56, 191 and 2760 us: 7 %, 10 % and 28 % of the bound. The LM
+// prefill waits on latency (two CTAs of four warps an SM) and on the L2
+// (each 16-row block reads all 266 keys' K and V); mma.sync's issue and
+// the splits (four instructions a split element) bound the rest. Measured
+// and dropped, with one row tile a warp: 16-key tiles at three blocks an SM
+// for DP 72 (2.52 ms against 2.27; two row tiles a warp then gave 1.70), no
+// cluster at DP 256 (63 us against 47).
+#include "tf32.cuh"
 
 #define FA_BK 64  // keys per K / V tile
 #define FA_WR 4   // 16-row groups per block
@@ -426,18 +452,39 @@ __global__ void __launch_bounds__(FwdCfg<DP>::NW * 32, FwdCfg<DP>::MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 forward (header).
+// The fp32 forward (header): 3xTF32 on mma.sync.m16n8k8 tiles (tf32.cuh).
 // ---------------------------------------------------------------------------
-#define FA32_BQ 64   // folded rows per block
-#define FA32_BK 32   // keys per K / V tile
-#define FA32_NT 256  // threads: four a row
+#define FA32_NT 128  // threads: four warps
+#define FA32_XLD 40  // row stride of the partial-score hand-over (8 mod 32)
 
+// The block's shape at depth DP (D rounded up to 64, 72, 128 or 256): warp
+// (wr, wd) owns MT 16-row tiles of row group wr (RG groups: BM = 16 MT RG
+// folded rows a block) over a DS = DP / WD slice of the depth (KS = DS / 8
+// k8 steps of S and n8 tiles of O). Q's fragments are split once: into
+// registers at MT 1, into big / small planes in shared memory at MT 2 (two
+// row tiles' would not fit the registers). BN keys a K / V tile; CS CTAs
+// of a cluster share a block's rows, rank r taking the key tiles r, r + CS,
+// ...; MIN_BLOCKS CTAs an SM.
 template <int DP>
 struct F32Cfg {
-  static constexpr int LD = DP + 4;  // fp32 row stride: 16-byte rows, conflict-free float4
-  static constexpr int NF = DP / 16;  // float4 output chunks of a thread
-  static constexpr int BYTES = (FA32_BQ + 2 * FA32_BK) * LD * (int)sizeof(float);
-  static constexpr int MIN_BLOCKS = DP <= 128 ? 2 : 1;
+  static constexpr int WD = DP <= 72 ? 1 : DP / 64;
+  static constexpr int MT = DP <= 72 ? 2 : 1;
+  static constexpr int RG = 4 / WD;
+  static constexpr int BM = 16 * MT * RG;
+  static constexpr int DS = DP / WD;
+  static constexpr int KS = DS / 8;
+  static constexpr int BN = DP == 256 ? 16 : 32;
+  static constexpr int CS = DP == 256 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = DP == 256 ? 3 : 2;
+  static constexpr bool QREG = MT == 1;
+  static constexpr int LD = DP + 4;  // row stride, floats: 4 mod 8, both fragment reads free
+  static constexpr int XCH = WD > 1 ? WD * BM * FA32_XLD : 0;  // the hand-over, floats
+  static constexpr int BYTES =
+      (((QREG ? 1 : 2) * BM + 2 * BN) * LD + XCH) * (int)sizeof(float);
+  static_assert(DS % 8 == 0 && WD * RG == FA32_NT / 32 && BN % 16 == 0, "shape");
+  static_assert(WD == 1 || MT == 1, "the depth slices hand over one row tile's scores");
+  // the cluster's hand-over (m, l and O of every thread) fits in the K / V tiles
+  static_assert(CS == 1 || (4 + 4 * KS) * MT * FA32_NT <= 2 * BN * LD, "hand-over");
 };
 
 // n rows of a (B, S, H, D) fp32 tensor into a tile of stride LD, 16-byte
@@ -461,24 +508,28 @@ __global__ void __launch_bounds__(FA32_NT, F32Cfg<DP>::MIN_BLOCKS)
                          const int* __restrict__ kv_len, float* __restrict__ out,
                          float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int D,
                          float scale, int q_offset) {
-  constexpr int LD = F32Cfg<DP>::LD, NF = F32Cfg<DP>::NF, CH = DP / 4;
+  using C = F32Cfg<DP>;
+  constexpr int LD = C::LD, KS = C::KS, WD = C::WD, MT = C::MT, BN = C::BN, NB = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [FA32_BQ][LD]
-  float* ks = qs + FA32_BQ * LD;               // [FA32_BK][LD]
-  float* vs = ks + FA32_BK * LD;               // [FA32_BK][LD]
+  float* qs = reinterpret_cast<float*>(smem);       // [BM][LD] (MT 2: big, then small)
+  float* ks = qs + (C::QREG ? 1 : 2) * C::BM * LD;  // [BN][LD]
+  float* vs = ks + BN * LD;                         // [BN][LD]
+  float* xch = vs + BN * LD;                        // [WD][BM][FA32_XLD] partial scores
 
-  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * FA32_BQ;
+  const int cs = C::CS, kr = cs > 1 ? cluster_rank() : 0;  // this rank's tiles: kr, kr + cs, ..
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = (blockIdx.x / cs) * C::BM;
   const int group = Hq / Hkv, rows = group * Sq;
-  const int lane = threadIdx.x & 31, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int row = row0 + r;
-  const bool live = row < rows;
-  const int pos = (live ? row % Sq : 0) + q_offset;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / WD, wd = warp % WD, d0 = wd * C::DS;  // rows of group wr, depth d0 ..
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
   // no lengths (pg_vision_attention_fp32): every key is visible
   const int plen = prefix_len ? prefix_len[b] : Skv;
   const int klen = kv_len ? min(kv_len[b], Skv) : Skv;
   const int n_tiles =
-      (fa_key_end(fa_positions(row0, FA32_BQ, rows, Sq, q_offset), plen, klen) + FA32_BK - 1) /
-      FA32_BK;
+      (fa_key_end(fa_positions(row0, C::BM, rows, Sq, q_offset), plen, klen) + BN - 1) / BN;
+  const int wrow0 = row0 + wr * 16 * MT;
+  const int2 wpos = fa_positions(wrow0, 16 * MT, rows, Sq, q_offset);
+  const int kend = fa_key_end(wpos, plen, klen);  // this warp's rows see no key past it
   const float c2 = scale * 1.4426950408889634f;  // scores to log2 units
 
   auto q_ok = [&](int rr) { return row0 + rr < rows; };
@@ -486,117 +537,319 @@ __global__ void __launch_bounds__(FA32_NT, F32Cfg<DP>::MIN_BLOCKS)
     const int fr = row0 + rr, gi = fr / Sq, i = fr - gi * Sq;
     return (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D;
   };
-  // the tile of keys k0 .. k0 + FA32_BK - 1 of k or v: zeros at and past klen
+  // the tile of keys k0 .. k0 + BN - 1 of k or v: zeros at and past klen
   auto load_keys = [&](float* dst, const float* src, int k0) {
-    fa32_load<DP>(dst, src, FA32_BK, D, [&](int j) { return k0 + j < klen; },
+    fa32_load<DP>(dst, src, BN, D, [&](int j) { return k0 + j < klen; },
                   [&](int j) { return (((size_t)b * Skv + k0 + j) * Hkv + kvh) * D; });
   };
 
-  fa32_load<DP>(qs, q, FA32_BQ, D, q_ok, q_addr);
-  if (n_tiles > 0) load_keys(ks, k, 0);
+  // copy groups: (Q, K_kr), V_kr; each tile then commits the rank's next K
+  // (once K_j is read) and V (once V_j is)
+  if (kr < n_tiles) {
+    fa32_load<DP>(qs, q, C::BM, D, q_ok, q_addr);
+    load_keys(ks, k, kr * BN);
+  }
   cp_async_commit();
-  if (n_tiles > 0) load_keys(vs, v, 0);
+  if (kr < n_tiles) load_keys(vs, v, kr * BN);
   cp_async_commit();
 
-  float m = PG_NEG_INF, l = 0.f;  // the row's running max (log2 units) and sum
-  float o[NF][4];
+  // rows g and g + 8 of row tile mt: position, running max (log2 units),
+  // this thread's share of the running sum, and O's columns d0 + 8 nd + 2t, + 1
+  int pos[MT][2];
+  float m[MT][2], l[MT][2], o[MT][KS][4];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) o[f][0] = o[f][1] = o[f][2] = o[f][3] = 0.f;
-  const float* qr = qs + r * LD;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pos[mt][h] = (wrow0 + 16 * mt + g + 8 * h) % Sq + q_offset;
+      m[mt][h] = PG_NEG_INF;
+      l[mt][h] = 0.f;
+    }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nd = 0; nd < KS; ++nd) o[mt][nd][0] = o[mt][nd][1] = o[mt][nd][2] = o[mt][nd][3] = 0.f;
+  // MT 1: Q's A fragments over the slice, big and small, in registers
+  uint32_t qb[C::QREG ? KS : 1][4], qm[C::QREG ? KS : 1][4];
+  // A fragment rows lr + 8 (lm & 1), columns 4 (lm >> 1) of the warp's first row tile
+  const int qa = (wr * 16 * MT + lr + 8 * (lm & 1)) * LD + d0 + 4 * (lm >> 1);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * FA32_BK;
-    cp_async_wait<1>();  // K_j (and Q) have landed
+  for (int j = kr; j < n_tiles; j += cs) {
+    const int k0 = j * BN;
+    const bool live = k0 < kend;  // warp-uniform
+    cp_async_wait<1>();           // K_j (and Q) have landed
     __syncthreads();
-    // S: keys k0 + c + 4 i of this thread's row
-    float sc[FA32_BK / 4];
+    if (j == kr) {  // Q, split once
+      if constexpr (C::QREG) {
 #pragma unroll
-    for (int i = 0; i < FA32_BK / 4; ++i) sc[i] = 0.f;
-#pragma unroll 2
-    for (int ch = 0; ch < CH; ++ch) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * ch);
-#pragma unroll
-      for (int i = 0; i < FA32_BK / 4; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + (c + 4 * i) * LD + 4 * ch);
-        sc[i] = fmaf(qv.x, kv.x, sc[i]);
-        sc[i] = fmaf(qv.y, kv.y, sc[i]);
-        sc[i] = fmaf(qv.z, kv.z, sc[i]);
-        sc[i] = fmaf(qv.w, kv.w, sc[i]);
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t r[4];
+          ldsm_x4_f32(r, qs + qa + 8 * kk);
+          split_tf32<4>(r, qb[kk], qm[kk]);
+        }
+      } else {  // into the big plane (in place) and the small one
+        for (int idx = threadIdx.x; idx < C::BM * DP; idx += FA32_NT) {
+          const int r = idx / DP, c = idx - r * DP;
+          uint32_t bg, sm;
+          split_tf32(qs[r * LD + c], bg, sm);
+          qs[r * LD + c] = __uint_as_float(bg);
+          qs[(C::BM + r) * LD + c] = __uint_as_float(sm);
+        }
+        __syncthreads();
       }
     }
-    // mask, the new row max over the row's four threads, p = 2^(s c2 - m)
-    float mx = PG_NEG_INF;
-    uint32_t seen = 0u;
+    // S = Q K^T over the warp's slice: K's B fragments (key lr of n8 tile
+    // 2 np + (lm >> 1), column 4 (lm & 1) of the k8 step) by ldmatrix, split
+    // once for the warp's row tiles
+    float s[MT][NB][4];
 #pragma unroll
-    for (int i = 0; i < FA32_BK / 4; ++i) {
-      const int key = k0 + c + 4 * i;
-      if (live && key < klen && (key < plen || key <= pos)) {
-        seen |= 1u << i;
-        mx = fmaxf(mx, sc[i] * c2);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = fa_exp2(m - m_new);
-    m = m_new;
-    float p[FA32_BK / 4], ls = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < FA32_BK / 4; ++i) {
-      p[i] = (seen >> i) & 1u ? fa_exp2(fmaf(sc[i], c2, -m)) : 0.f;
-      ls += p[i];
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l = l * alpha + ls;
+      for (int nt = 0; nt < NB; ++nt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+    if (live) {
+      const float* kb = ks + (8 * (lm >> 1) + lr) * LD + d0 + 4 * (lm & 1);
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      o[f][0] *= alpha;
-      o[f][1] *= alpha;
-      o[f][2] *= alpha;
-      o[f][3] *= alpha;
-    }
-    __syncthreads();  // every thread is done with K_j
-    if (j + 1 < n_tiles) load_keys(ks, k, k0 + FA32_BK);
-    cp_async_commit();
-    cp_async_wait<1>();  // V_j has landed
-    __syncthreads();
-    // O += P V: key 4 i + cc's p from the row's thread cc, in key order
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ab[MT][4], am[MT][4];
 #pragma unroll
-    for (int i = 0; i < FA32_BK / 4; ++i) {
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (C::QREG) {
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], (lane & ~3) | cc);
-        const float* vr = vs + (cc + 4 * i) * LD + 4 * c;
+            for (int i = 0; i < 4; ++i) ab[mt][i] = qb[kk][i], am[mt][i] = qm[kk][i];
+          } else {
+            ldsm_x4_f32(ab[mt], qs + qa + 16 * mt * LD + 8 * kk);
+            ldsm_x4_f32(am[mt], qs + C::BM * LD + qa + 16 * mt * LD + 8 * kk);
+          }
+        }
 #pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * f);
-          o[f][0] = fmaf(pj, vv.x, o[f][0]);
-          o[f][1] = fmaf(pj, vv.y, o[f][1]);
-          o[f][2] = fmaf(pj, vv.z, o[f][2]);
-          o[f][3] = fmaf(pj, vv.w, o[f][3]);
+        for (int np = 0; np < NB / 2; ++np) {
+          uint32_t r[4], bb[4], bs[4];
+          ldsm_x4_f32(r, kb + 16 * np * LD + 8 * kk);
+          split_tf32<4>(r, bb, bs);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_3xtf32(s[mt][2 * np], ab[mt], am[mt], bb, bs);
+            mma_3xtf32(s[mt][2 * np + 1], ab[mt], am[mt], bb + 2, bs + 2);
+          }
         }
       }
     }
-    __syncthreads();  // every thread is done with V_j
-    if (j + 1 < n_tiles) load_keys(vs, v, k0 + FA32_BK);
+    // the depth slices' partial scores through shared memory, summed by
+    // every warp of the row group in slice order (the same bits in each)
+    const int xat = (wr * 16 + g) * FA32_XLD + 2 * t;
+    if constexpr (WD > 1) {
+      if (live) {
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(xch + wd * C::BM * FA32_XLD + xat + 8 * h * FA32_XLD +
+                                       8 * nt) = make_float2(s[0][nt][2 * h], s[0][nt][2 * h + 1]);
+      }
+    }
+    __syncthreads();  // every warp is done with K_j; the partial scores are visible
+    if (j + cs < n_tiles) load_keys(ks, k, k0 + cs * BN);
+    cp_async_commit();
+
+    uint32_t pb[MT][NB][4], pm[MT][NB][4];  // P's A fragments (keys 8 kk ..): big, small
+    if (live) {
+      if constexpr (WD > 1) {
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int w = 0; w < WD; ++w) {
+              const float2 p = *reinterpret_cast<const float2*>(
+                  xch + w * C::BM * FA32_XLD + xat + 8 * h * FA32_XLD + 8 * nt);
+              acc.x += p.x;
+              acc.y += p.y;
+            }
+            s[0][nt][2 * h] = acc.x;
+            s[0][nt][2 * h + 1] = acc.y;
+          }
+      }
+      // mask (element e of tile nt: row g + 8 (e >> 1) of the row tile, key
+      // k0 + 8 nt + 2t + (e & 1)), the new row max over the quad sharing the row
+      const bool full = k0 + BN <= klen && (k0 + BN <= plen || k0 + BN - 1 <= wpos.x);
+      uint32_t seen[MT];
+      float alpha[MT][2];
+      bool grew = false;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        seen[mt] = 0xffffffffu;
+        float mx[2] = {PG_NEG_INF, PG_NEG_INF};
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!full) {
+              const int key = k0 + 8 * nt + 2 * t + (e & 1);
+              if (!(key < klen && (key < plen || key <= pos[mt][e >> 1]))) {
+                seen[mt] &= ~(1u << (4 * nt + e));
+                continue;
+              }
+            }
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][nt][e] * c2);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[mt][h], mx[h]);
+          alpha[mt][h] = fa_exp2(m[mt][h] - m_new);
+          m[mt][h] = m_new;
+          l[mt][h] *= alpha[mt][h];
+          grew |= alpha[mt][h] != 1.f;
+        }
+      }
+      if (__any_sync(0xffffffffu, grew)) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nd = 0; nd < KS; ++nd) {
+            o[mt][nd][0] *= alpha[mt][0];
+            o[mt][nd][1] *= alpha[mt][0];
+            o[mt][nd][2] *= alpha[mt][1];
+            o[mt][nd][3] *= alpha[mt][1];
+          }
+      }
+      // p = 2^(s c2 - m) (0 for a masked key), summed into l; score tile kk
+      // is the A fragment of keys 8 kk .. + 7 with the step's depth index t
+      // standing for key 2t and t + 4 for key 2t + 1 (V's B fragments below
+      // read the same keys): a[0..3] = p of (g, 2t), (g + 8, 2t), (g, 2t + 1),
+      // (g + 8, 2t + 1)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = (seen[mt] >> (4 * nt + e)) & 1u
+                       ? fa_exp2(fmaf(s[mt][nt][e], c2, -m[mt][e >> 1]))
+                       : 0.f;
+            l[mt][e >> 1] += p[e];
+          }
+          split_tf32(p[0], pb[mt][nt][0], pm[mt][nt][0]);
+          split_tf32(p[2], pb[mt][nt][1], pm[mt][nt][1]);
+          split_tf32(p[1], pb[mt][nt][2], pm[mt][nt][2]);
+          split_tf32(p[3], pb[mt][nt][3], pm[mt][nt][3]);
+        }
+    }
+
+    cp_async_wait<1>();  // V_j has landed
+    __syncthreads();
+    if (live) {
+      // O += P V over the slice: b[0] = V[8 kk + 2t][col], b[1] = V[8 kk + 2t + 1][col]
+      // at col = d0 + 8 nd + g (rows 2t apart: free of bank conflicts), split
+      // once for the warp's row tiles
+      const float* vb = vs + (2 * t) * LD + d0 + g;
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        if (k0 + 8 * kk >= kend) break;
+#pragma unroll
+        for (int nd = 0; nd < KS; ++nd) {
+          uint32_t bb[2], bs[2];
+          split_tf32(vb[8 * kk * LD + 8 * nd], bb[0], bs[0]);
+          split_tf32(vb[(8 * kk + 1) * LD + 8 * nd], bb[1], bs[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_3xtf32(o[mt][nd], pb[mt][kk], pm[mt][kk], bb, bs);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with V_j (and the hand-over)
+    if (j + cs < n_tiles) load_keys(vs, v, k0 + cs * BN);
     cp_async_commit();
   }
   cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 1);
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 2);
+    }
+
+  // the cluster's (m, l, O): each rank's through its shared memory (each
+  // value to the thread that holds the same element), combined by rank 0
+  // in rank order
+  if constexpr (C::CS > 1) {
+    constexpr int PER = 4 + 4 * KS;  // floats a row tile and thread
+    float* mine = ks + threadIdx.x;
+    __syncthreads();  // every warp is done with the tiles
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float* at = mine + mt * PER * FA32_NT;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        at[h * FA32_NT] = m[mt][h];
+        at[(2 + h) * FA32_NT] = l[mt][h];
+      }
+#pragma unroll
+      for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at[(4 + 4 * nd + e) * FA32_NT] = o[mt][nd][e];
+    }
+    cluster_sync_all();
+    if (kr == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* at = mine + mt * PER * FA32_NT;
+        float mx[2] = {m[mt][0], m[mt][1]}, f[2];
+        for (int r = 1; r < cs; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mx[h] = fmaxf(mx[h], ld_cluster_f32(at + h * FA32_NT, r));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          f[h] = fa_exp2(m[mt][h] - mx[h]);
+          m[mt][h] = mx[h];
+          l[mt][h] *= f[h];
+        }
+#pragma unroll
+        for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[mt][nd][e] *= f[e >> 1];
+        for (int r = 1; r < cs; ++r) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            f[h] = fa_exp2(ld_cluster_f32(at + h * FA32_NT, r) - mx[h]);
+            l[mt][h] += ld_cluster_f32(at + (2 + h) * FA32_NT, r) * f[h];
+          }
+#pragma unroll
+          for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[mt][nd][e] += ld_cluster_f32(at + (4 + 4 * nd + e) * FA32_NT, r) * f[e >> 1];
+        }
+      }
+    }
+    cluster_sync_all();  // rank 0 has read every rank's values
+    if (kr != 0) return;
+  }
 
   // out = O / l and lse = m ln 2 + log l (0 for a row with no visible key)
-  if (!live) return;
-  const float inv = l > 0.f ? 1.f / l : 0.f;
-  const int gi = row / Sq, i = row - gi * Sq;
-  float* dst = out + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D + 4 * c;
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    if (4 * c + 16 * f < D)
-      *reinterpret_cast<float4*>(dst + 16 * f) =
-          make_float4(o[f][0] * inv, o[f][1] * inv, o[f][2] * inv, o[f][3] * inv);
-  }
-  if (lse != nullptr && c == 0)
-    lse[((size_t)b * Hkv + kvh) * rows + row] = l > 0.f ? m * 0.6931471805599453f + logf(l) : 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow0 + 16 * mt + g + 8 * h;
+      if (row >= rows) continue;
+      const float inv = l[mt][h] > 0.f ? 1.f / l[mt][h] : 0.f;
+      const int gi = row / Sq, i = row - gi * Sq;
+      float* dst =
+          out + (((size_t)b * Sq + i) * Hq + (size_t)kvh * group + gi) * D + d0 + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < KS; ++nd) {
+        if (d0 + 8 * nd < D)
+          *reinterpret_cast<float2*>(dst + 8 * nd) =
+              make_float2(o[mt][nd][2 * h] * inv, o[mt][nd][2 * h + 1] * inv);
+      }
+      if (lse != nullptr && wd == 0 && t == 0)
+        lse[((size_t)b * Hkv + kvh) * rows + row] =
+            l[mt][h] > 0.f ? m[mt][h] * 0.6931471805599453f + logf(l[mt][h]) : 0.f;
+    }
 }
 
 template <int DP>
@@ -608,12 +861,12 @@ static int launch_fwd_f32(const void* q, const void* k, const void* v, const voi
   static const int attr = (int)cudaFuncSetAttribute(
       flash_fwd_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != 0) return attr;
-  const int rows = (Hq / Hkv) * Sq;
-  dim3 grid((rows + FA32_BQ - 1) / FA32_BQ, Hkv, B);
-  flash_fwd_f32_kernel<DP><<<grid, FA32_NT, bytes, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)prefix_len,
-      (const int*)kv_len, (float*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale, q_offset);
-  return (int)cudaGetLastError();
+  const int rows = (Hq / Hkv) * Sq, cs = F32Cfg<DP>::CS;
+  dim3 grid((rows + F32Cfg<DP>::BM - 1) / F32Cfg<DP>::BM * cs, Hkv, B);
+  return cluster_launch(flash_fwd_f32_kernel<DP>, grid, FA32_NT, cs, bytes, st, (const float*)q,
+                        (const float*)k, (const float*)v, (const int*)prefix_len,
+                        (const int*)kv_len, (float*)out, (float*)lse, Sq, Skv, Hq, Hkv, D, scale,
+                        q_offset);
 }
 
 template <int DP>
@@ -650,24 +903,32 @@ PG_EXPORT int pg_flash_attention_fwd(const void* q, const void* k, const void* v
                          q_offset, st);
 }
 
-// The fp32 form: q, k, v and out fp32 (16-byte aligned, D % 8 == 0, D <=
-// 256), the rest as pg_flash_attention_fwd.
-PG_EXPORT int pg_flash_attention_fwd_fp32(const void* q, const void* k, const void* v,
-                                          const void* prefix_len, const void* kv_len, void* out,
-                                          void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                                          int D, float scale, int q_offset, void* stream) {
+// The fp32 form at depth D rounded up to 64, 72, 128 or 256 (F32Cfg).
+static int launch_fwd_f32_at(const void* q, const void* k, const void* v, const void* prefix_len,
+                             const void* kv_len, void* out, void* lse, int B, int Sq, int Skv,
+                             int Hq, int Hkv, int D, float scale, int q_offset, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D <= 64)
     return launch_fwd_f32<64>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
                               scale, q_offset, st);
-  if (D <= 80)
-    return launch_fwd_f32<80>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
+  if (D <= 72)
+    return launch_fwd_f32<72>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
                               scale, q_offset, st);
   if (D <= 128)
     return launch_fwd_f32<128>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
                                scale, q_offset, st);
   return launch_fwd_f32<256>(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D,
                              scale, q_offset, st);
+}
+
+// The fp32 form: q, k, v and out fp32 (16-byte aligned, D % 8 == 0, D <=
+// 256), the rest as pg_flash_attention_fwd.
+PG_EXPORT int pg_flash_attention_fwd_fp32(const void* q, const void* k, const void* v,
+                                          const void* prefix_len, const void* kv_len, void* out,
+                                          void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                                          int D, float scale, int q_offset, void* stream) {
+  return launch_fwd_f32_at(q, k, v, prefix_len, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                           q_offset, stream);
 }
 
 // B12's fp32 form (kernels/ablation/vision_attention.py on fp32 tensors):
@@ -677,16 +938,6 @@ PG_EXPORT int pg_flash_attention_fwd_fp32(const void* q, const void* k, const vo
 // 16-byte aligned, D % 8 == 0 and D <= 256.
 PG_EXPORT int pg_vision_attention_fp32(const void* q, const void* k, const void* v, void* out,
                                        int B, int S, int H, int D, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 64)
-    return launch_fwd_f32<64>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
-                              0, st);
-  if (D <= 80)
-    return launch_fwd_f32<80>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
-                              0, st);
-  if (D <= 128)
-    return launch_fwd_f32<128>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
-                               0, st);
-  return launch_fwd_f32<256>(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale,
-                             0, st);
+  return launch_fwd_f32_at(q, k, v, nullptr, nullptr, out, nullptr, B, S, S, H, H, D, scale, 0,
+                           stream);
 }

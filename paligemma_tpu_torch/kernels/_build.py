@@ -114,9 +114,9 @@ SIGNATURES = {
     "pg_w8a8_quant_rows": [_P] * 4 + [_I] * 2 + [_P],
     # the same with fp32 x
     "pg_w8a8_quant_rows_fp32": [_P] * 4 + [_I] * 2 + [_P],
-    # x8, w8, a_s, s, out, M, K, N, out_kind (0 bf16, 1 int32, 2 fp32), ctas,
-    # stream
-    "pg_w8a8_gemm": [_P] * 5 + [_I] * 5 + [_P],
+    # x8, w8, a_s, s, out, M, K, N, out_kind (0 bf16, 1 int32, 2 fp32), rows,
+    # cluster, k_stages, ctas, stream
+    "pg_w8a8_gemm": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 _lib = None  # the loaded library; one per process, like the CUDA context

@@ -26,8 +26,9 @@ the fp32 forms: of the forward (``flash_fwd_f32_kernel``, counted apart as
 :func:`flash_attention_fwd_fp32`) and of both backward kernels
 (``flash_bwd_dq_f32_kernel`` and ``flash_bwd_dkv_f32_kernel``, counted as
 :func:`flash_attention_bwd_dq_fp32` and :func:`flash_attention_bwd_dkv_fp32`;
-their products in 3xTF32 on the tensor cores): the same functions with p and
-ds unrounded, as the TPU kernels compute at fp32.
+all three take their products in 3xTF32 on the tensor cores,
+``csrc/tf32.cuh``): the same functions with p and ds unrounded, as the TPU
+kernels compute at fp32.
 """
 
 from __future__ import annotations

@@ -21,6 +21,13 @@ read of x, a write of x8), K2 by the int8 products at prefill rows (2 M K N
 operations at 1,979 TOPS). The gate that sends a product here is
 kernels/quant.matmul_any's.
 
+K2's launch follows :meth:`GemmPlan.make`, a pure function of (M, K, N):
+the row tile of x (one of ``ROW_TILES``: 272 rows are two chunks, 144 +
+128, each a wgmma on the same weight fragments), and a split of K's stages
+over a cluster where the tiles alone would leave SMs idle, costed as
+kernels/ablation/_wq_gemm.py costs the weight-only tiles. The int32 sums
+are exact, so the plan changes no bit of the output.
+
 fp32 (``--dtype float32``): K1 reads fp32 rows and K2 writes fp32 out, the
 kernels' fp32 forms (``pg_w8a8_quant_rows_fp32``, ``out_dtype=torch.float32``
 of ``pg_w8a8_gemm``), counted apart on :func:`w8a8_quant_rows_fp32` and
@@ -29,14 +36,65 @@ of ``pg_w8a8_gemm``), counted apart on :func:`w8a8_quant_rows_fp32` and
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from .ablation._wq_gemm import CLUSTERS_RESIDENT, STAGE_COST
 
-TILE_ROWS = 128  # rows of x of a K2 tile
-TILE_COLS = 128  # weight columns of a K2 tile
+BK = 128  # K values a stage (csrc/w8a8_gemm.cu W8_BK)
+COLS = 128  # weight columns of a K2 tile
+ROW_TILES = (16, 32, 64, 128, 256, 272)  # rows of x of a K2 tile (272: chunks of 144 and 128)
+# the clusters of c CTAs that the card holds at once: one K2 CTA takes an
+# SM, as one of csrc/wq_wgmma.cuh's does (measured for that tile)
+FITS = CLUSTERS_RESIDENT["wgmma"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """K2's launch for (M, K, N): ``rows`` rows of x a tile, K's ``stages``
+    (of ``BK``) split over ``cluster`` CTAs, ``k_stages`` a rank but the last
+    (rank r sums stages [r k_stages, (r + 1) k_stages)), and ``ctas`` CTAs:
+    one tile a cluster where split, else persistent CTAs over the tiles."""
+    m: int
+    k: int
+    n: int
+    rows: int
+    cluster: int
+    k_stages: int
+    ctas: int
+
+    @property
+    def stages(self) -> int:
+        return -(-self.k // BK)
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.n // COLS) * -(-self.m // self.rows)
+
+    @classmethod
+    def make(cls, m: int, k: int, n: int) -> "GemmPlan":
+        """The row tile whose busiest CTA takes the fewest stages, each
+        costed at its rows plus ``STAGE_COST`` (the larger tile on a tie);
+        K split over the most ranks (at least one stage each) whose clusters
+        all fit the card at once, where the tiles alone leave SMs idle."""
+        if min(m, k, n) < 1:
+            raise ValueError(f"GemmPlan: empty matmul (M, K, N) = ({m}, {k}, {n})")
+        stages = -(-k // BK)
+        best = None
+        for rows in ROW_TILES:
+            tiles = -(-n // COLS) * -(-m // rows)
+            cluster = max(c for c in FITS if c == 1 or (c <= stages and tiles <= FITS[c]))
+            per = -(-stages // cluster)
+            cluster = -(-stages // per)
+            waves, ctas = (-(-tiles // FITS[1]), min(tiles, FITS[1])) if cluster == 1 else (
+                1, tiles * cluster)
+            option = (waves * per * (rows + STAGE_COST), -rows, cluster, per, ctas)
+            best = option if best is None or option < best else best
+        _, neg_rows, cluster, per, ctas = best
+        return cls(m, k, n, -neg_rows, cluster, per, ctas)
 
 
 def quant_rows_reference(x: torch.Tensor, amax: Optional[torch.Tensor] = None
@@ -120,15 +178,6 @@ w8a8_quant_rows_fp32.launches = 0
 
 _OUT_KIND = {torch.bfloat16: 0, torch.int32: 1, torch.float32: 2}  # csrc/w8a8_gemm.cu W8_OUT_*
 
-_SMS = {}  # device index -> its SM count (the persistent grid's cap)
-
-
-def _sm_count(dev: torch.device) -> int:
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev.index]
-
-
 def w8a8_gemm(x8: torch.Tensor, w8: torch.Tensor, a_s: torch.Tensor, s: torch.Tensor,
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x8 (M, K) int8 . w8 (K, N) int8 with row scales a_s (M,) and column
@@ -155,11 +204,12 @@ def w8a8_gemm(x8: torch.Tensor, w8: torch.Tensor, a_s: torch.Tensor, s: torch.Te
     _check(out_dtype in _OUT_KIND, name,
            f"out_dtype must be bfloat16, float32 or int32 on the card, got {out_dtype}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    tiles = -(-m // TILE_ROWS) * -(-n // TILE_COLS)
+    plan = GemmPlan.make(m, k, n)
     lib = _build.library()
     _build.check(lib.pg_w8a8_gemm(
         x8.data_ptr(), w8.data_ptr(), a_s.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
-        _OUT_KIND[out_dtype], min(tiles, _sm_count(dev)), _build.stream_ptr(dev)), name)
+        _OUT_KIND[out_dtype], plan.rows, plan.cluster, plan.k_stages, plan.ctas,
+        _build.stream_ptr(dev)), name)
     (w8a8_gemm_fp32 if out_dtype == torch.float32 else w8a8_gemm).launches += 1
     return out
 

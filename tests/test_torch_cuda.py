@@ -1525,8 +1525,27 @@ def test_seg_decode_attention_fp32_form_on_card(b, hq, hkv):
         t_sda.decode_attention(q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), *segs)
 
 
+# The fp32 forward's tile edges ((b, sq, skv, hq, hkv, d), prefix_len,
+# kv_len, q_offset): folded rows at and around its row blocks (16 rows at
+# D256, 32 at D128, 64 at D64 / D72), key counts at and around its 32-key
+# tile, each depth instantiation, a query offset, GQA at Hkv 2, a kv_len 0
+# row
+FLASH_FWD_FP32_EDGES = {
+    "one 16-row block B1 S2 Hq8 Hkv1 D256": ((1, 2, 2, 8, 1, 256), [2], [2], 0),
+    "16-row blocks + 8 B1 S3 Hq8 Hkv1 D256": ((1, 3, 3, 8, 1, 256), [3], [3], 0),
+    "rows 2128 + keys 33 B1 S266 Hq8 Hkv1 D256": ((1, 266, 33, 8, 1, 256), [33], [33], 233),
+    "rows 63 keys 32 B1 S63 H16 D72": ((1, 63, 63, 16, 16, 72), [32], [32], 0),
+    "rows 65 keys 31 B2 S65 H4 D72": ((2, 65, 65, 4, 4, 72), [31, 65], [31, 64], 0),
+    "rows 64 GQA Hkv2 B1 S32 Hq4 D64": ((1, 32, 32, 4, 2, 64), [10], [32], 0),
+    "32-row blocks D128 B2 S33 Hq2 Hkv1": ((2, 33, 33, 2, 1, 128), [5, 33], [33, 20], 0),
+    "D80 as D128 B1 S77 Hq6 Hkv2": ((1, 77, 77, 6, 2, 80), [40], [70], 0),
+    "q_offset 300 keys 352 B1 Sq16 Hq8 Hkv1 D256": ((1, 16, 352, 8, 1, 256), [200], [316], 300),
+    "kv_len 0 row GQA B2 S40 Hq4 Hkv2 D72": ((2, 40, 40, 4, 2, 72), [17, 0], [40, 0], 0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(FLASH_FWD_CASES))
+@pytest.mark.parametrize("case", list(FLASH_FWD_CASES) + list(FLASH_FWD_FP32_EDGES))
 def test_flash_forward_fp32_form_on_card(case):
     """B1's fp32 form against the plain fp32 forward: out within FP32_REL
     and lse within 1e-5 of max(1, |plain|); one launch counted on the fp32
@@ -1535,7 +1554,8 @@ def test_flash_forward_fp32_form_on_card(case):
     backward kernels (one launch each), dq, dk and dv within FP32_REL of
     the largest element of the plain backward's."""
     dev = _fp32_card()
-    (b, sq, skv, hq, hkv, d), pfx, kvl, q_offset = FLASH_FWD_CASES[case]
+    (b, sq, skv, hq, hkv, d), pfx, kvl, q_offset = {**FLASH_FWD_CASES,
+                                                     **FLASH_FWD_FP32_EDGES}[case]
     g = torch.Generator(device=dev).manual_seed(17)
     q, k, v = (torch.randn(shape, generator=g, device=dev)
                for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
@@ -1684,6 +1704,39 @@ def test_fp32_partial_and_k1_fp32_forms_on_card(b, k):
     assert torch.equal(got, t_gemv.int8_gemv_f32(x, w8, s, lora=(z, lb, ())))
     assert torch.equal((h + got[:, :n]) + got[:, n:],
                        t_gemv.int8_gemv(x, w8, s, residual=h, lora=(z, lb, ())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proj", ["qkv", "o", "gateup", "down"])
+@pytest.mark.parametrize("m", [1, 16, 255, 256, 266, 267, 2560])
+def test_w8a8_gemm_plans_on_card(m, proj):
+    """K2 at one Gemma-2B layer's four projections and the rows around its
+    row tiles (16, 256, 272 = 144 + 128) and K splits (4 and 6 ranks at M266,
+    persistent CTAs at M2560): bf16, fp32 and int32 out bit for bit the plain
+    version's (the int32 sums int_sums_reference's), the same bits on a
+    second call, one launch a call."""
+    from paligemma_tpu_torch.kernels import w8a8
+
+    k, n = {"qkv": (2048, 2560), "o": (2048, 2048), "gateup": (2048, 32768),
+            "down": (16384, 2048)}[proj]
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+    x = (torch.randn(m, k, generator=g, device=dev)
+         * 10.0 ** (torch.rand(m, 1, generator=g, device=dev) * 4 - 2)).to(torch.bfloat16)
+    x[-1, k // 3] = 80.0
+    x[0] = 0
+    x8, a_s = w8a8.w8a8_quant_rows(x)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 1e-2
+    exact = w8a8.int_sums_reference(x8, w8)
+    n0 = (w8a8.w8a8_gemm.launches, w8a8.w8a8_gemm_fp32.launches)
+    acc = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=torch.int32)
+    assert torch.equal(acc, exact)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=dtype)
+        assert got.dtype == dtype and torch.equal(got, w8a8.scale_sums(exact, a_s, s, dtype))
+        assert torch.equal(w8a8.w8a8_gemm(x8, w8, a_s, s, out_dtype=dtype), got)
+    assert (w8a8.w8a8_gemm.launches - n0[0], w8a8.w8a8_gemm_fp32.launches - n0[1]) == (3, 2)
 
 
 @pytest.mark.cuda

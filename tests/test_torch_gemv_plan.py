@@ -274,7 +274,7 @@ FP32_CALLS = ["shrink", "shrink+norm", "qkv expand", "gateup expand", "o expand"
 
 
 @pytest.mark.parametrize("what", FP32_CALLS)
-def test_fp32_forms_reach_their_entry_points(library, monkeypatch, what):
+def test_fp32_forms_reach_their_entry_points(library, what):
     """fp32 x reaches each fp32 entry point in one launch with the bf16
     form's plan (the shrink's of (K, nG), the GEMV's of (K, N)), fp32
     operands where the bf16 form has bf16 ones, and is counted on the fp32
@@ -299,12 +299,13 @@ def test_fp32_forms_reach_their_entry_points(library, monkeypatch, what):
     if what in ("quant", "quant amax", "gemm"):
         m, k, n = 266, HIDDEN, 2560
         if what == "gemm":
-            monkeypatch.setattr(t_w8a8, "_sm_count", lambda dev: 132)  # an H100's SMs
             out = t_w8a8.w8a8_gemm(_card(torch.zeros((m, k), dtype=torch.int8)),
                                    _card(torch.zeros((k, n), dtype=torch.int8)), f32(m), f32(n),
                                    out_dtype=torch.float32)
             [(name, args)] = library.calls
+            plan = t_w8a8.GemmPlan.make(m, k, n)
             assert name == "pg_w8a8_gemm" and args[5:9] == (m, k, n, 2)
+            assert args[9:13] == (plan.rows, plan.cluster, plan.k_stages, plan.ctas)
             assert out.dtype == torch.float32 and t_w8a8.w8a8_gemm_fp32.launches == 1
             return
         x8, a_s = t_w8a8.w8a8_quant_rows(f32(m, k), f32(m) if what.endswith("amax") else None)

@@ -128,6 +128,59 @@ def test_w8a8_wrappers_on_the_cpu_are_their_plain_versions():
     assert t_kernels.launch_counts() == before
 
 
+# K2's plans at one Gemma-2B layer's four projections (K, N): M266 (a 224 px
+# prompt) in one 272-row tile (chunks 144 + 128), K split over 4 / 6 ranks
+# where 16-20 column tiles would leave SMs idle; M2560 in 256-row tiles,
+# persistent CTAs; M1 and M16 in 16-row tiles
+W8A8_PROJECTIONS = {"qkv": (2048, 2560), "o": (2048, 2048), "gateup": (2048, 32768),
+                    "down": (16384, 2048)}
+GEMM_PLANS = {  # (M, projection): (rows, cluster, k_stages, ctas)
+    (266, "qkv"): (272, 4, 4, 80), (266, "o"): (272, 6, 3, 96),
+    (266, "gateup"): (272, 1, 16, 132), (266, "down"): (272, 6, 22, 96),
+    (2560, "qkv"): (256, 1, 16, 132), (2560, "o"): (256, 1, 16, 132),
+    (2560, "gateup"): (256, 1, 16, 132), (2560, "down"): (256, 1, 128, 132),
+    (1, "qkv"): (16, 4, 4, 80), (16, "down"): (16, 6, 22, 96),
+    (255, "o"): (256, 6, 3, 96), (267, "qkv"): (272, 4, 4, 80),
+}
+
+
+@pytest.mark.parametrize("m,proj", list(GEMM_PLANS), ids=[f"M{m}-{p}" for m, p in GEMM_PLANS])
+def test_w8a8_gemm_plan_pins_the_main_shapes(m, proj):
+    """K2's launch at the prefill's shapes: the row tile, the K split and
+    the grid (kernels/w8a8.GemmPlan)."""
+    k, n = W8A8_PROJECTIONS[proj]
+    plan = t_w8a8.GemmPlan.make(m, k, n)
+    assert (plan.rows, plan.cluster, plan.k_stages, plan.ctas) == GEMM_PLANS[(m, proj)]
+
+
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 100, 255, 256, 257, 266, 272, 273, 700, 2560])
+def test_w8a8_gemm_plan_covers_k_and_fits_the_card(m):
+    """For every M and each projection (and small K / N): the row tile is
+    one of the kernel's; the split's ranks each sum at least one stage and
+    together every stage; a split's clusters all fit the card at once
+    (FITS) and take one tile each; persistent CTAs are at most FITS[1]; the
+    plan is the cheapest option of the cost model."""
+    for k, n in list(W8A8_PROJECTIONS.values()) + [(48, 48), (128, 16), (2048, 4096)]:
+        plan = t_w8a8.GemmPlan.make(m, k, n)
+        assert plan.rows in t_w8a8.ROW_TILES and plan.k_stages >= 1
+        stages = -(-k // t_w8a8.BK)
+        assert plan.stages == stages
+        assert (plan.cluster - 1) * plan.k_stages < stages <= plan.cluster * plan.k_stages
+        if plan.cluster > 1:
+            assert plan.tiles <= t_w8a8.FITS[plan.cluster]
+            assert plan.ctas == plan.tiles * plan.cluster
+        else:
+            assert plan.k_stages == stages and plan.ctas == min(plan.tiles, t_w8a8.FITS[1])
+        waves = 1 if plan.cluster > 1 else -(-plan.tiles // t_w8a8.FITS[1])
+        cost = waves * plan.k_stages * (plan.rows + t_w8a8.STAGE_COST)
+        for rows in t_w8a8.ROW_TILES:  # no other row tile is cheaper
+            tiles = -(-n // t_w8a8.COLS) * -(-m // rows)
+            floor = -(-tiles // t_w8a8.FITS[1]) * stages if tiles > t_w8a8.FITS[1] else max(
+                1, -(-stages // max(c for c in t_w8a8.FITS if c <= stages and (
+                    c == 1 or tiles <= t_w8a8.FITS[c]))))
+            assert cost <= floor * (rows + t_w8a8.STAGE_COST)
+
+
 @pytest.mark.parametrize("shape", [(255, 64), (5, 51, 64), (256, 64), (4, 64, 64)],
                          ids=["255", "5x51", "256", "4x64"])
 def test_matmul_any_gate(shape):
