@@ -33,28 +33,35 @@
 // The fp32 form (attn_split_f32 and attn_launch_f32, --dtype float32):
 // fp32 q, K / V tiles and output. Its split pass keeps the 32-key tiles,
 // the policies, the skipped tiles and the partials' layout, and computes
-// in fp32 on the CUDA cores: thread (head h = warp, key = lane) takes the
-// score q_h . k_key in order over D, the softmax as above, and thread d
-// takes output column d of every head, p.v over the tile's keys in order,
-// with p not rounded. The combine is the same kernel, writing fp32. So
-// dense == paged and a verify row == its decode step hold bit for bit at
-// fp32 as at bf16. The three policies have fp32 forms (DenseKV<.., float>,
-// PagedKV<float>, SegKV<float>: 3b, B5 and B10 at fp32). The fp32 tiles
-// are twice the bf16 ones (DA_KT x DA32_LD
-// x 4 bytes each): with q and p they take 74 KB of dynamic shared memory,
-// two blocks an SM. Decode attention is bound by the window's bytes (at B1
-// W2048 D256, 4.19 MB: 1.25 us at 3.35 TB/s), so FFMA on the CUDA cores
-// costs nothing that matters against the tensor cores here.
+// in fp32 on the CUDA cores (the window's bytes bound it: 4.19 MB at B1
+// W2048 D256, 1.25 us at 3.35 TB/s). Each split is a cluster of DA_F32_CS
+// = 2 CTAs, rank r taking columns [r D/2, (r + 1) D/2) of the tile, so a
+// B1 W2048 call puts 128 CTAs on the card, each staging 32 KB: after one
+// round trip for its 32 keys' visibility and rows, its share of K, then of
+// V, by cp.async with no load between them, scores starting while V is in
+// flight.
+// Thread (head h = warp, key = lane) sums its rank's share of q_h . k_key
+// in four interleaved chains (a chunk's columns 0 .. 3, chunks in order,
+// added (0 + 1) + (2 + 3)); after a cluster barrier each rank adds the two
+// ranks' partial scores through distributed shared memory in rank order,
+// so both hold the same bits and the same softmax; thread (column,
+// four heads) then takes its rank's p.v over the tile's keys in order,
+// p not rounded. The combine is the same kernel, writing fp32. So dense
+// == paged and a verify row == its decode step hold bit for bit at fp32 as
+// at bf16. The three policies have fp32 forms (DenseKV<.., float>,
+// PagedKV<float>, SegKV<float>: 3b, B5 and B10 at fp32).
 //
 // The mixed forms (a KV cache whose dtype is not the activations'): a
 // policy's element type E is the cache's, the pass's the activations'. A
 // bf16 q over an fp32 cache runs the bf16 pass on the tile rounded to bf16
 // (nearest even) as it is staged, the TPU kernels' astype(q.dtype) of the
-// window (decode_layer.py:323,334); an fp32 q over a bf16 cache runs the
-// fp32 pass on the tile widened to fp32 (exact). cp.async copies bytes and
-// cannot convert, so these tiles are staged through registers
-// (stage_chunk): the same tiles, skips, arithmetic and combine, so dense
-// == paged holds bit for bit within each mixed pair too.
+// window (decode_layer.py:323,334): cp.async copies bytes and cannot
+// round, so those tiles go through registers (stage_chunk). An fp32 q over
+// a bf16 cache runs the fp32 pass on the raw bf16 bytes, copied by 8-byte
+// cp.async and widened to fp32 (exact) as the products read them: the same
+// tiles, skips, arithmetic and combine, so dense == paged holds bit for bit
+// within each mixed pair too, and a mixed form gives the uniform form's
+// bits on the converted cache.
 #pragma once
 
 #include <type_traits>
@@ -68,8 +75,12 @@
 #define DA_LD (DA_DMAX + 8)  // bf16 row stride of the K / V tiles: conflict-free fragment loads
 #define DA_PLD (DA_KT + 8)   // bf16 row stride of p
 #define DA_MERGE 8           // combine: split s is added by warp s % DA_MERGE
-#define DA32_LD (DA_DMAX + 4)  // fp32 row stride of the fp32 K / V tiles: 16-byte rows,
-                               // conflict-free float4 reads of eight rows
+#define DA_F32_CS 2              // the fp32 split pass: CTAs a cluster, one share of D each
+#define DA_F32_DH (DA_DMAX / DA_F32_CS)  // a rank's columns at most
+#define DA_F32_LD (DA_F32_DH + 4)   // fp32 row stride of a rank's K / V tile: 16-byte rows,
+                                    // conflict-free float4 reads of eight rows
+#define DA_F32_BLD (DA_F32_DH + 4)  // bf16 row stride of a rank's tile of a bf16 cache: 8-byte
+                                    // rows, conflict-free 8-byte reads of sixteen rows
 
 // Contiguous per-row cache: key j of query row b at c * stride_b + j * D,
 // where c = b, or with kShared c = b / rpc (rpc query rows share a cache
@@ -140,18 +151,17 @@ struct SegKV {
   }
 };
 
-// One 16-byte chunk of a K / V tile row in shared memory, in the pass's
-// type T (8 bf16 or 4 fp32), from cache elements of type E at src; with on
-// false nothing is read and the chunk is zeros. Where E is T it is one
-// 16-byte cp.async (in flight until the caller's wait); a cache of the
-// other dtype is read into registers and converted as it is stored: fp32
-// rounded to bf16 to nearest even (torch's .to(torch.bfloat16), JAX's
-// astype), bf16 widened to fp32 (exact).
-template <class T, class E>
-__device__ __forceinline__ void stage_chunk(T* dst, const E* src, bool on) {
-  if constexpr (std::is_same<T, E>::value) {
+// One 16-byte chunk of a bf16 K / V tile row in shared memory (8 values)
+// from cache elements of type E at src; with on false nothing is read and
+// the chunk is zeros. Where E is bf16 it is one 16-byte cp.async (in flight
+// until the caller's wait); an fp32 cache is read into registers and
+// rounded to bf16 to nearest even as it is stored (torch's
+// .to(torch.bfloat16), JAX's astype).
+template <class E>
+__device__ __forceinline__ void stage_chunk(bf16* dst, const E* src, bool on) {
+  if constexpr (sizeof(E) == 2) {
     cp_async_16(dst, src, on);
-  } else if constexpr (sizeof(T) == 2) {  // 8 fp32 -> 8 bf16
+  } else {
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
     if (on) {
       const float4 a = reinterpret_cast<const float4*>(src)[0];
@@ -160,15 +170,6 @@ __device__ __forceinline__ void stage_chunk(T* dst, const E* src, bool on) {
                      pack_f32_bf16x2(b.x, b.y), pack_f32_bf16x2(b.z, b.w));
     }
     *reinterpret_cast<uint4*>(dst) = r;
-  } else {  // 4 bf16 -> 4 fp32
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (on) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(src);
-      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      f = make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
-    *reinterpret_cast<float4*>(dst) = f;
   }
 }
 
@@ -216,7 +217,7 @@ __global__ void __launch_bounds__(DA_THREADS, 2)
       const int j = i / pchunk, c = i - j * pchunk;
       const bool on = c < nchunk && j < nk && kv.visible(b, k0 + j);
       const E* from = on ? src + kv.row(b, hk, k0 + j) + c * 8 : src;
-      stage_chunk<bf16, E>(&dst[j][c * 8], from, on);
+      stage_chunk<E>(&dst[j][c * 8], from, on);
     }
     cp_async_commit();
   }
@@ -388,116 +389,178 @@ inline int attn_launch(const bf16* q, const KV& kv, float* part_m, float* part_l
   return (int)cudaGetLastError();
 }
 
-// The fp32 split pass (header): grid (nsplit, B * Hkv), DA_THREADS
-// threads, f32_smem_bytes() of dynamic shared memory. KV's policy
-// addresses fp32 rows, or bf16 rows (a mixed form: widened as staged).
-__host__ __device__ constexpr int f32_smem_bytes() {
-  return (2 * DA_KT * DA32_LD + DA_HMAX * DA_DMAX + DA_HMAX * DA_KT) * (int)sizeof(float);
+// The fp32 split pass (header): grid (DA_F32_CS * nsplit, B * Hkv) in
+// clusters of DA_F32_CS along x, DA_THREADS threads, static shared memory.
+// Rank r of a split's cluster stages and multiplies columns [r D / 2,
+// (r + 1) D / 2) of the tile. KV's policy addresses fp32 rows, or bf16 rows
+// (a mixed form: the raw bytes staged, widened as read).
+struct __align__(16) SplitF32Smem {
+  float k[DA_KT][DA_F32_LD];  // the rank's columns of K (a bf16 cache: bf16, DA_F32_BLD a row)
+  float v[DA_KT][DA_F32_LD];  // and of V
+  float q[DA_HMAX][DA_F32_DH];
+  float p[DA_KT][DA_HMAX];  // key-major: a thread's four heads in one 16-byte read; heads >= G zero
+  float s[DA_HMAX][DA_KT];  // the rank's partial scores, read by the other rank
+  size_t row[DA_KT];        // each visible key's row in the cache
+  uint8_t ok[DA_KT];
+};
+
+// Chunk c (4 columns) of row j of a rank's tile: an fp32 cache's 16 bytes,
+// or a bf16 cache's 8 raw bytes, by cp.async (zeros where on is false).
+template <class E>
+__device__ __forceinline__ void f32_stage4(float (*tile)[DA_F32_LD], int j, int c, const E* src,
+                                           bool on) {
+  if constexpr (sizeof(E) == 4)
+    cp_async_16(&tile[j][4 * c], src, on);
+  else
+    cp_async_8(reinterpret_cast<bf16*>(tile) + j * DA_F32_BLD + 4 * c, src, on);
+}
+
+// Chunk c of row j of a rank's tile, in fp32 (a bf16 tile widened: exact).
+template <class E>
+__device__ __forceinline__ float4 f32_load4(const float (*tile)[DA_F32_LD], int j, int c) {
+  if constexpr (sizeof(E) == 4) {
+    return *reinterpret_cast<const float4*>(&tile[j][4 * c]);
+  } else {
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(reinterpret_cast<const bf16*>(tile) + j * DA_F32_BLD + 4 * c);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// Element (j, col) of a rank's tile, in fp32.
+template <class E>
+__device__ __forceinline__ float f32_load1(const float (*tile)[DA_F32_LD], int j, int col) {
+  if constexpr (sizeof(E) == 4)
+    return tile[j][col];
+  else
+    return bf2f(reinterpret_cast<const bf16*>(tile)[j * DA_F32_BLD + col]);
 }
 
 template <class KV>
-__global__ void __launch_bounds__(DA_THREADS, 2)
+__global__ void __launch_bounds__(DA_THREADS, 4)
     attn_split_f32(const float* __restrict__ q, KV kv, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_o, int G, int Hkv, int D,
                    int W, int nsplit, float scale) {
-  extern __shared__ __align__(16) unsigned char da_smem[];
-  float* ks = reinterpret_cast<float*>(da_smem);  // [DA_KT][DA32_LD]
-  float* vs = ks + DA_KT * DA32_LD;               // [DA_KT][DA32_LD]
-  float* qs = vs + DA_KT * DA32_LD;               // [DA_HMAX][DA_DMAX]
-  float* ps = qs + DA_HMAX * DA_DMAX;             // [DA_HMAX][DA_KT]: p, heads >= G zero
-  __shared__ uint8_t ok[DA_KT];
-  const int bh = blockIdx.y, split = blockIdx.x;
+  __shared__ SplitF32Smem sm;
+  const int rank = cluster_rank();
+  const int bh = blockIdx.y, split = blockIdx.x / DA_F32_CS;
   const int b = bh / Hkv, hk = bh - b * Hkv;
   const int k0 = split * DA_KT;
   const int nk = min(DA_KT, W - k0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t part = (size_t)bh * nsplit + split;
-  if (kv.skip(b, k0, nk)) {  // no visible key in this tile: the combine's identity
-    if (tid < G) {
+  const int dh = D / DA_F32_CS, d0 = rank * dh;  // the rank's columns [d0, d0 + dh)
+  if (kv.skip(b, k0, nk)) {  // no visible key in this tile (both ranks): the combine's identity
+    if (rank == 0 && tid < G) {
       part_m[part * G + tid] = PG_NEG_INF;
       part_l[part * G + tid] = 0.f;
     }
-    for (int i = tid; i < G * D; i += DA_THREADS) part_o[part * G * D + i] = 0.f;
+    for (int i = tid; i < G * dh; i += DA_THREADS)
+      part_o[(part * G + i / dh) * D + d0 + i % dh] = 0.f;
     return;
   }
-  const int nchunk = D / 4;  // 16-byte chunks of a row (D % 8 == 0)
+  const int nchunk = dh / 4;  // 4-column chunks of the rank's share of a row (D % 8 == 0)
 
-  // K, then V: one 16-byte chunk per 4 columns of a visible key (a
-  // cp.async, or from a bf16 cache widened in registers), zeros for the
-  // other keys
+  // each key's visibility and row first (one round trip to the mask or
+  // the page table), then the rank's columns of K and of V: one chunk per
+  // 4 columns of a visible key, zeros for the other keys, with no load
+  // between the copies
   using E = typename KV::elem;
+  if (tid < DA_KT) {
+    const bool on = tid < nk && kv.visible(b, k0 + tid);
+    sm.ok[tid] = on;
+    sm.row[tid] = on ? kv.row(b, hk, k0 + tid) : 0;
+  }
+  __syncthreads();
   for (int half = 0; half < 2; ++half) {
     const E* src = half ? kv.v : kv.k;
-    float* dst = half ? vs : ks;
+    float(*dst)[DA_F32_LD] = half ? sm.v : sm.k;
 #pragma unroll 4
     for (int i = tid; i < DA_KT * nchunk; i += DA_THREADS) {
       const int j = i / nchunk, c = i - j * nchunk;
-      const bool on = j < nk && kv.visible(b, k0 + j);
-      const E* from = on ? src + kv.row(b, hk, k0 + j) + c * 4 : src;
-      stage_chunk<float, E>(dst + j * DA32_LD + c * 4, from, on);
+      const bool on = sm.ok[j];
+      f32_stage4<E>(dst, j, c, on ? src + sm.row[j] + d0 + c * 4 : src, on);
     }
     cp_async_commit();
   }
-  if (tid < DA_KT) ok[tid] = tid < nk && kv.visible(b, k0 + tid);
-  const float* qh = q + (size_t)bh * G * D;
-  for (int i = tid; i < G * D; i += DA_THREADS) {
-    const int h = i / D;
-    qs[h * DA_DMAX + (i - h * D)] = qh[i];
+  const float* qh = q + (size_t)bh * G * D + d0;
+  for (int i = tid; i < G * dh; i += DA_THREADS) {
+    const int h = i / dh;
+    sm.q[h][i - h * dh] = qh[(size_t)h * D + i - h * dh];
   }
   cp_async_wait<1>();  // K has landed (V may not have)
   __syncthreads();
 
-  // score of head h = warp and key = lane, summed over D in order; the
+  // the partial score of head h = warp and key = lane over the rank's
+  // columns: four sums (a chunk's columns 0 .. 3) over the chunks in order,
+  // added (0 + 1) + (2 + 3)
+  {
+    const int h = warp;
+    float s = 0.f;
+    if (h < G) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int c = 0; c < nchunk; ++c) {
+        const float4 qv = *reinterpret_cast<const float4*>(&sm.q[h][4 * c]);
+        const float4 kk = f32_load4<E>(sm.k, lane, c);
+        a.x = fmaf(qv.x, kk.x, a.x);
+        a.y = fmaf(qv.y, kk.y, a.y);
+        a.z = fmaf(qv.z, kk.z, a.z);
+        a.w = fmaf(qv.w, kk.w, a.w);
+      }
+      s = __fadd_rn(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w));
+    }
+    sm.s[h][lane] = s;
+  }
+  cluster_sync_all();  // both ranks' partial scores are visible
+
+  // the score, rank 0's columns first (both ranks get the same bits); the
   // per-head max and sum over this tile's visible keys
   {
     const int h = warp;
-    const bool on = h < G && ok[lane];
-    float s = 0.f;
-    if (h < G) {
-      const float* qr = qs + h * DA_DMAX;
-      const float* kr = ks + lane * DA32_LD;
-      for (int c = 0; c < nchunk; ++c) {
-        const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * c);
-        const float4 kk = *reinterpret_cast<const float4*>(kr + 4 * c);
-        s = fmaf(qv.x, kk.x, s);
-        s = fmaf(qv.y, kk.y, s);
-        s = fmaf(qv.z, kk.z, s);
-        s = fmaf(qv.w, kk.w, s);
-      }
-    }
-    s *= scale;
+    const bool on = h < G && sm.ok[lane];
+    const float s =
+        __fadd_rn(ld_cluster_f32(&sm.s[h][lane], 0), ld_cluster_f32(&sm.s[h][lane], 1)) * scale;
     float m = on ? s : PG_NEG_INF;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     const float p = on ? __expf(s - m) : 0.f;
-    ps[h * DA_KT + lane] = p;
+    sm.p[lane][h] = p;
     float l = p;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0 && h < G) {
+    if (rank == 0 && lane == 0 && h < G) {
       part_m[part * G + h] = m;
       part_l[part * G + h] = l;
     }
   }
+  cluster_arrive();    // this rank has read the other's scores
   cp_async_wait<0>();  // V has landed
   __syncthreads();
 
-  // unnormalized p . V: thread d owns output column d of every head, the
-  // tile's keys added in order
-  if (tid < D) {
-    float acc[DA_HMAX];
+  // unnormalized p . V over the rank's columns: thread (column tid %
+  // DA_F32_DH, heads 4 (tid / DA_F32_DH) .. + 3), the tile's keys in order
+  {
+    const int col = tid % DA_F32_DH, h0 = 4 * (tid / DA_F32_DH);
+    if (col < dh && h0 < G) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int j = 0; j < DA_KT; ++j) {
+        const float vv = f32_load1<E>(sm.v, j, col);
+        const float4 p4 = *reinterpret_cast<const float4*>(&sm.p[j][h0]);
+        acc[0] = fmaf(p4.x, vv, acc[0]);
+        acc[1] = fmaf(p4.y, vv, acc[1]);
+        acc[2] = fmaf(p4.z, vv, acc[2]);
+        acc[3] = fmaf(p4.w, vv, acc[3]);
+      }
 #pragma unroll
-    for (int h = 0; h < DA_HMAX; ++h) acc[h] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < DA_KT; ++j) {
-      const float vv = vs[j * DA32_LD + tid];
-#pragma unroll
-      for (int h = 0; h < DA_HMAX; ++h) acc[h] = fmaf(ps[h * DA_KT + j], vv, acc[h]);
+      for (int i = 0; i < 4; ++i)
+        if (h0 + i < G) part_o[(part * G + h0 + i) * D + d0 + col] = acc[i];
     }
-#pragma unroll
-    for (int h = 0; h < DA_HMAX; ++h)
-      if (h < G) part_o[(part * G + h) * D + tid] = acc[h];
   }
+  cluster_wait();  // the other rank has read this one's scores
 }
 
 // Launches the fp32 split pass and the combine (fp32 out) on ``st``;
@@ -506,15 +569,10 @@ template <class KV>
 inline int attn_launch_f32(const float* q, const KV& kv, float* part_m, float* part_l,
                            float* part_o, float* out, int B, int G, int Hkv, int D, int W,
                            int nsplit, float scale, cudaStream_t st) {
-  constexpr int bytes = f32_smem_bytes();
-  // dynamic shared memory above 48 KB, allowed once per process and policy
-  static const int attr = (int)cudaFuncSetAttribute(
-      attn_split_f32<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != 0) return attr;
-  attn_split_f32<KV><<<dim3(nsplit, B * Hkv), DA_THREADS, bytes, st>>>(
-      q, kv, part_m, part_l, part_o, G, Hkv, D, W, nsplit, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = cluster_launch(attn_split_f32<KV>, dim3(DA_F32_CS * nsplit, B * Hkv),
+                                 DA_THREADS, DA_F32_CS, 0, st, q, kv, part_m, part_l, part_o, G,
+                                 Hkv, D, W, nsplit, scale);
+  if (err != 0) return err;
   attn_combine<KV, float><<<dim3((D + 31) / 32, G, B * Hkv), DA_MERGE * 32, 0, st>>>(
       part_m, part_l, part_o, out, G, D, nsplit);
   return (int)cudaGetLastError();

@@ -118,13 +118,19 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
-// Asynchronous copies from device to shared memory (sm_80+): 16 bytes
-// (both addresses 16-byte aligned) or 4 bytes; with ok false nothing is
+// Asynchronous copies from device to shared memory (sm_80+): 16, 8 or 4
+// bytes (both addresses aligned to the size); with ok false nothing is
 // read (src may be any valid address) and the destination is zero-filled,
 // which is how a tile's ragged edge is padded.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
                : "memory");
 }
 
@@ -165,6 +171,16 @@ __device__ __forceinline__ int cluster_size() {
 
 __device__ __forceinline__ void cluster_sync_all() {
   asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync_all: arrive (release) and wait
+// (acquire), so that work runs between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float ld_cluster_f32(const float* p, int rank) {

@@ -74,9 +74,9 @@
 // and the order in which warps and ranks are added are the bf16 tile's, so
 // at fp32 too an element's sum depends on (K, N) alone. The cost is three
 // mma.sync per A fragment instead of one. The norm prologue at fp32 makes
-// y = (x * r) * (1 + w) in fp32, unrounded, as each step's x is loaded
-// (x and w from L1 / L2; r of every row once per CTA, before the loop),
-// and splits y.
+// y = (x * r) * (1 + w) in fp32, unrounded, at each step (x from L1 / L2
+// as it streams; r of every row and w of the CTA's K rows staged in shared
+// memory once per CTA, before the loop), and splits y.
 #pragma once
 
 #include "common.cuh"
@@ -576,8 +576,11 @@ __device__ __forceinline__ float gt_row_rsqrt_t(const float* xr, int K, float ep
 // and sum order, each step's x split into three bf16 terms (header). With
 // NORM the tile multiplies y = (x * r) * (1 + w): r of rows b0 .. b0+nb-1
 // first (warp w takes rows w, w + warps, ...; the weights stream
-// meanwhile), then each step loads x and w at its rows and makes y. x16:
-// K % 4 == 0 and x 16-byte aligned (NORM needs it, and w 16-byte aligned).
+// meanwhile) and w of rows kbeg .. kbeg + 16 steps - 1 in sm.red (so that
+// no register holds it through the loop; a K range too long for sm.red
+// reads w from L1 / L2 at each step), then each step makes y from its x and
+// w. x16: K % 4 == 0 and x 16-byte aligned (NORM needs it, and w 16-byte
+// aligned).
 template <bool FAST, bool NORM = false>
 __device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __restrict__ x,
                                                    const int8_t* __restrict__ w, int K, int N,
@@ -594,7 +597,10 @@ __device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __
   const size_t n1 = (size_t)N;
   const int8_t* wp = w + (size_t)row0 * n1 + qcol;
   const float* xp = x + (size_t)(b0 + (xrow ? g : 0)) * K + row0;
-  const float* nwp = NORM ? norm.w + row0 : nullptr;  // the norm weight at the lane's rows
+  // NORM: the norm weight of the CTA's K rows, staged in sm.red before the
+  // loop (zeros past kend) where it fits, read at the lane's rows each step
+  const bool wsm = NORM && (size_t)16 * steps * sizeof(float) <= sizeof(sm.red);
+  const float* nws = reinterpret_cast<const float*>(&sm.red[0][0][0]) + (row0 - kbeg);
   const size_t wstep = (size_t)stride * n1;
   const uint32_t magic = gt_magic();
 
@@ -605,7 +611,6 @@ __device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
   uint4 wb[GT_STAGES][4];
   float4 xb[GT_STAGES];
-  float4 nb4[NORM ? GT_STAGES : 1];  // NORM: w at the step's rows
   float r = 0.f;
   if constexpr (NORM) {
     __shared__ float rs[GT_BT];
@@ -617,15 +622,16 @@ __device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __
       const float v = gt_row_rsqrt_f32(x + (size_t)(b0 + rr) * K, K, norm.eps);
       if (lane == 0) rs[rr] = v;
     }
+    float* ws = reinterpret_cast<float*>(&sm.red[0][0][0]);
+    for (int k = 4 * threadIdx.x; wsm && k < 16 * steps; k += 4 * blockDim.x)
+      *reinterpret_cast<float4*>(ws + k) =
+          kbeg + k < kend ? ldg_f4(norm.w + kbeg + k) : make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     r = rs[xrow ? g : 0];
 #pragma unroll
     for (int s = 0; s < GT_STAGES; ++s)
-      if (s < mine) {
-        const int nrow = min(4, kend - row0 - s * stride);
-        xb[s] = gt_load_xf(xp + s * stride, xrow, nrow, x16);
-        nb4[s] = gt_load_xf(nwp + s * stride, xrow, nrow, x16);
-      }
+      if (s < mine)
+        xb[s] = gt_load_xf(xp + s * stride, xrow, min(4, kend - row0 - s * stride), x16);
   } else {
 #pragma unroll
     for (int s = 0; s < GT_STAGES; ++s)
@@ -640,20 +646,24 @@ __device__ __forceinline__ void gemv_tile_sums_f32(GemvSmem& sm, const float* __
     for (int s = 0; s < GT_STAGES; ++s) {
       const int i = i0 + s;
       if (i < mine) {
-        if constexpr (NORM)
-          gt_mma_step3(acc, wb[s], gt_norm4(xb[s], nb4[s], r), magic);
-        else
+        if constexpr (NORM) {
+          const float4 nw =
+              wsm ? *reinterpret_cast<const float4*>(nws + i * stride)
+                  : gt_load_xf(norm.w + row0 + i * stride, true,
+                               min(4, kend - row0 - i * stride), x16);
+          gt_mma_step3(acc, wb[s], gt_norm4(xb[s], nw, r), magic);
+        } else
           gt_mma_step3(acc, wb[s], xb[s], magic);
         const int next = i + GT_STAGES;
         if (next < mine) {
           const int nrow = min(4, kend - row0 - next * stride);
           gt_load_w<FAST>(wb[s], wp + next * wstep, n1, ncol, nrow);
           xb[s] = gt_load_xf(xp + next * stride, xrow, nrow, x16);
-          if constexpr (NORM) nb4[s] = gt_load_xf(nwp + next * stride, xrow, nrow, x16);
         }
       }
     }
   }
+  if constexpr (NORM) __syncthreads();  // every warp has read w before sm.red takes the sums
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
     *reinterpret_cast<float2*>(&sm.red[warp][2 * t][16 * g + 2 * m]) =

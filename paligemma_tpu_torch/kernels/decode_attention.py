@@ -15,7 +15,9 @@ the result has the bits of a one-row-per-cache-row call.
 
 fp32 q and an fp32 cache (``--dtype float32``) take the template's fp32
 split pass (fp32 tiles, scores and p.v on the CUDA cores, p not rounded; the
-same tiles and combine), counted apart on :func:`decode_attention_fp32`.
+same tiles and combine; each tile's columns split over a cluster of
+``F32_CLUSTER`` CTAs, :meth:`SplitPlan.f32_columns`), counted apart on
+:func:`decode_attention_fp32`.
 
 A cache of the other dtype (the engines' ``cache_dtype``) takes a mixed
 form, as the TPU kernel casts the window to q's dtype before its products
@@ -38,6 +40,7 @@ from . import _build
 KEYS_PER_SPLIT = 32  # csrc/attention_split.cuh DA_KT
 MERGE_LANES = 8  # DA_MERGE: the combine's warp that adds split s is s % 8
 MAX_HEADS = 8  # DA_HMAX
+F32_CLUSTER = 2  # DA_F32_CS: the fp32 split pass's CTAs a split, one share of D each
 MAX_BATCH = 65535  # one block row per (batch row, KV head): the grid's y / z limit
 
 
@@ -70,6 +73,13 @@ class SplitPlan:
         place in that warp's ascending sum; the warps' sums are then added
         in warp order."""
         return split % MERGE_LANES, split // MERGE_LANES
+
+    def f32_columns(self, rank: int) -> tuple[int, int]:
+        """Columns [lo, hi) of D that rank ``rank`` of a split's cluster
+        stages and multiplies in the fp32 pass: its partial scores over them
+        are added in rank order, and it writes their p.v. Fixed by D alone."""
+        share = self.head_dim // F32_CLUSTER
+        return rank * share, (rank + 1) * share
 
     def scratch_shapes(self) -> dict:
         """The fp32 partials the split pass writes: a max and a sum per

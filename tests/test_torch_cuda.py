@@ -1594,13 +1594,15 @@ def test_int8_gemv_fp32_form_on_card(k, n, epi):
     """The GEMV tile's fp32 form (three bf16 terms of x) at Gemma-2B's four
     projections and ragged shapes, B 1, 8, 9 and 72, against the plain fp32
     version within FP32_REL; fp32 out; a second call the same bits; counted
-    on int8_gemv_fp32; the fp32 partial (mode 3) has mode 0's bits."""
+    on int8_gemv_fp32; the fp32 partial (mode 3) has mode 0's bits. Prints
+    the case's worst error (``-s``)."""
     dev = _fp32_card()
     if epi == "norm" and k % 4:
         pytest.skip("the fp32 prologue takes K % 4 == 0")
     g = torch.Generator(device=dev).manual_seed(k * 7 + n)
     w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
     s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    worst = 0.0
     for b in (1, 8, 9, 72):
         x = torch.randn(b, k, generator=g, device=dev) * 2.0
         kw = {}
@@ -1614,8 +1616,10 @@ def test_int8_gemv_fp32_form_on_card(k, n, epi):
         got = t_gemv.int8_gemv(x, w8, s, **kw)
         assert t_gemv.int8_gemv_fp32.launches == n0 + 1 and got.dtype == torch.float32
         want = t_gemv.int8_gemv_reference(x, w8, s, **kw)
+        worst = max(worst, _rel_err(got, want))
         assert _rel_err(got, want) <= FP32_REL, (b, _rel_err(got, want))
         assert torch.equal(t_gemv.int8_gemv(x, w8, s, **kw), got)
+    print(f"fp32 GEMV worst error K {k} N {n} {epi}: {worst:.3e} (FP32_REL {FP32_REL})")
     if epi == "plain":
         n0 = t_gemv.int8_gemv_f32_fp32.launches
         assert torch.equal(t_gemv.int8_gemv_f32(x, w8, s), got)
@@ -1810,6 +1814,47 @@ def test_int8_gemv_rope_kv_fp32_form_on_card(b, paged):
         outs.append((q, kc, vc, kn, vn))
     for got, want in zip(*outs):
         assert got.dtype == torch.float32 and _rel_err(got, want) <= FP32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,kw", [(2048, 2560, {"norm": True}), (2048, 2048, {"residual": True}),
+                                    (2048, 32768, {"geglu": True, "norm": True}),
+                                    (16384, 2048, {"residual": True}), (2048, 257152, {})],
+                         ids=["qkv", "o", "gateup", "down", "head"])
+def test_fp32_gemv_row_has_the_same_bits_at_every_batch_on_card(k, n, kw):
+    """At fp32 a row's GEMV output (the four projections of Gemma-2B with
+    their epilogues, and the logits) and its B3 id and logit are the same
+    bits alone (B1) as inside B2, B8, B9 and B72 (a last batch tile of one
+    row): the tile's sum order depends on (K, N) alone, whichever column of
+    the B operand holds the row."""
+    dev = _fp32_card()
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w8 = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = (torch.rand(n, generator=g, device=dev) + 0.5) / (127 * k**0.5)
+    x = torch.randn(72, k, generator=g, device=dev) * 2.0
+    args = dict(kw)
+    if "norm" in args:
+        args["norm"] = (torch.randn(k, generator=g, device=dev) * 0.1, 1e-6)
+    res = torch.randn(72, n, generator=g, device=dev) if "residual" in args else None
+    head = t_head.repack_head({"w8": w8, "s": s}) if n == 257152 else None
+
+    def run(rows):
+        if res is not None:
+            args["residual"] = res[rows].contiguous()
+        out = t_gemv.int8_gemv(x[rows].contiguous(), w8, s, **args)
+        if head is None:
+            return out, None
+        return out, t_head.head_argmax_fused(x[rows].contiguous(), head, return_max=True)
+
+    whole = {b: run(slice(0, b)) for b in (2, 8, 9, 72)}
+    for r in (0, 1, 5, 8, 71):
+        alone, ids = run(slice(r, r + 1))
+        for b, (out, b_ids) in whole.items():
+            if r < b:
+                assert torch.equal(out[r], alone[0]), (r, b)
+                if ids is not None:
+                    assert torch.equal(b_ids[0][r], ids[0][0]) and torch.equal(b_ids[1][r],
+                                                                            ids[1][0]), (r, b)
 
 
 @pytest.mark.cuda

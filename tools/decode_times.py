@@ -7,8 +7,9 @@ chip_smoke functions run on that tree:
   the GEMVs with the norm prologue and the RoPE + KV write epilogue where
   the tree has them, else the separate rms_norm and rope_kv_write
   kernels beside the GEMVs);
-* ``step``: PaliGemma-3B-224 at full width (random weights from the seed,
-  int8 decode tree): the b1 greedy decode step at window 512 (host wall
+* ``step``: PaliGemma-3B-224 at full width (random weights from the seed
+  in ``--dtype``, bfloat16 or float32, int8 decode tree): the b1 greedy
+  decode step at window 512 (host wall
   per step over 32 steps of ``decode_chunk``, three times; one profiled
   window of 8 steps: device busy, device events, launches per decoder
   layer, the wrappers' calls per step), then the paged fused serving tick
@@ -17,7 +18,8 @@ chip_smoke functions run on that tree:
 
 It checks nothing, so diagnostic builds run too:
 
-    cd <tree> && python3 <this repository>/tools/decode_times.py [--label L] [--what fused,step]
+    cd <tree> && python3 <this repository>/tools/decode_times.py [--label L] [--what fused,step] \
+        [--dtype float32]
 
 Run trees in turns (parent, change, change, parent) in one call on one
 card to compare them.
@@ -52,7 +54,7 @@ def _per(counts, before, n):
     return {k: (v - before.get(k, 0)) / n for k, v in counts.items() if v - before.get(k, 0)}
 
 
-def step_times(cs, dev, card, tree):
+def step_times(cs, dev, card, tree, dtype=torch.bfloat16):
     from paligemma_tpu_torch import kernels, paligemma_3b_224
     from paligemma_tpu_torch.convert import init_params
     from paligemma_tpu_torch.runtime.engine import PaliGemmaEngine
@@ -61,8 +63,7 @@ def step_times(cs, dev, card, tree):
 
     cfg = paligemma_3b_224()
     n_layers = cfg.text_config.num_hidden_layers
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(cs.SEED), dev,
-                         torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(cs.SEED), dev, dtype)
     decode = quantize_lm_for_serving(params)
     eng = PaliGemmaEngine(params, cfg, max_seq_len=cs.MAX_SEQ, decode_params=decode)
     pixels, ids, mask = cs.make_inputs(cfg, dev)
@@ -125,8 +126,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="")
     ap.add_argument("--what", default="fused,step")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
-    tree = " ".join(filter(None, [os.path.basename(os.getcwd()), args.label]))
+    tree = " ".join(filter(None, [os.path.basename(os.getcwd()), args.label,
+                                  "" if args.dtype == "bfloat16" else args.dtype]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"decode [{tree}] card: {card}", flush=True)
@@ -136,7 +139,7 @@ def main(argv=None) -> int:
         if what == "fused":
             cs.fused_device_times(dev, label=tree)
         elif what == "step":
-            step_times(cs, dev, card, tree)
+            step_times(cs, dev, card, tree, getattr(torch, args.dtype))
         else:
             raise SystemExit(f"decode_times: --what takes fused, step (got {what!r})")
     return 0
